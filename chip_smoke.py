@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""Smoke run of gisnav_tpu_torch on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py --quick    # build + kernel checks only, no timing
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: nvcc builds every kernel from the sources in this checkout;
+3. kernels: each hand-written kernel against its plain PyTorch version on the
+   same inputs at the main path's shapes, with the tolerance stated below,
+   plus CUDA-event times of the kernel, the plain version and the closest
+   library call, and the kernel's bound on an H100;
+4. main path: the bucketed warp runner with the bundled learned_lg9 weights
+   (SuperPoint + LightGlue-9) at 1088x1920 and 2048 keypoints over a seeded
+   rendered scene: 8 frames over 3 rotation buckets, during which every
+   kernel must launch, then a timing window of 14 bucket-refresh frames and
+   64 cached frames (``--profile`` adds a torch.profiler pass over 10 more
+   cached frames for the device's busy time and idle share). Every fix must
+   be valid and within 10 m of the truth.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it the
+per-kernel JSON. The port's JAX counterpart is never imported.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
+# is the larger of its bytes over HBM bandwidth and its operations over the
+# peak of their type
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+H, W = 1088, 1920
+MAX_KP = 2048
+CACHED_FRAMES = 64  # timing window of frames that hit the bucket cache
+CONV_SHAPES = [  # (name, h, w, cin, cmid, cout or None, pool) per image
+    ("stage2", 544, 960, 64, 64, 64, True),
+    ("stage3", 272, 480, 64, 128, 128, True),
+    ("stage4", 136, 240, 128, 128, 128, False),
+    ("convPa", 136, 240, 128, 256, None, False),
+    ("convDa", 136, 240, 128, 256, None, False),
+]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``fn()`` in milliseconds."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: float, bf16_ops: float = 0.0,
+             f32_ops: float = 0.0) -> tuple:
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = (bf16_ops / BF16_FLOPS + f32_ops / F32_FLOPS) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: chip_smoke.py needs one GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        "nvidia-smi unavailable"
+    log(f"[device] {card}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
+def phase_build() -> None:
+    from gisnav_tpu_torch.kernels.build import build_all
+
+    t0 = time.time()
+    paths = build_all(verbose=True)
+    log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f} s")
+
+
+def _rand(gen, shape, scale=1.0, dtype=torch.float32):
+    t = torch.randn(shape, generator=gen, device="cuda") * scale
+    return t.to(dtype).contiguous()
+
+
+def _conv_weights(gen, cin, cout):
+    w = _rand(gen, (9, cin, cout), (2.0 / (9 * cin)) ** 0.5, torch.bfloat16)
+    return w, _rand(gen, (cout,), 0.05)
+
+
+def _library_conv(x_nchw, w9):
+    import torch.nn.functional as F
+
+    cin, cout = w9.shape[1], w9.shape[2]
+    wt = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    return lambda: F.conv2d(x_nchw, wt, padding=1)
+
+
+def check_conv(gen, quick, results):
+    from gisnav_tpu_torch.features.conv import (
+        conv_stage,
+        conv_stage_plain,
+        stem_stage,
+        stem_stage_plain,
+    )
+
+    # tolerance: bf16 outputs; the kernel and the plain version sum in
+    # different orders, so a value can round to a neighbouring bf16 and the
+    # difference passes through the next conv: 2 bf16 ulp relative + 0.05
+    def err(a, b):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        bad = d > 0.05 + 2.0 ** -7 * b.abs()
+        return float(d.max()), int(bad.sum())
+
+    img = torch.rand((H, W), generator=gen, device="cuda")
+    w1a, b1a = _conv_weights(gen, 1, 64)
+    w1b, b1b = _conv_weights(gen, 64, 64)
+    k_out = stem_stage(img, w1a, b1a, w1b, b1b, pool=True)
+    p_out = stem_stage_plain(img, w1a, b1a, w1b, b1b, pool=True)
+    e, nbad = err(k_out, p_out)
+    log(f"[kernel] stem_stage {H}x{W}: max_abs_err={e:.3g} "
+        f"out_of_tol={nbad}")
+    if nbad or not torch.isfinite(k_out.float()).all():
+        raise RuntimeError("stem_stage disagrees with its plain version")
+    entry = {"name": "stem_stage", "route": "cuda",
+             "source": "gisnav_tpu_torch/kernels/conv.cu",
+             "replaces": "gisnav_tpu/features/pallas_conv.py:515",
+             "max_abs_err": e}
+    # conv1a (1->64) and conv1b (64->64) both take bf16 operands, so both
+    # count at the bf16 rate, whatever units the kernel runs conv1a on
+    nbytes = H * W * 4 + (H // 2) * (W // 2) * 64 * 2 + 9 * 65 * 64 * 2
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        nbytes, bf16_ops=2 * H * W * 9 * 64 * (1 + 64))
+    if not quick:
+        entry["ms"] = time_ms(lambda: stem_stage(img, w1a, b1a, w1b, b1b))
+        entry["plain_ms"] = time_ms(
+            lambda: stem_stage_plain(img, w1a, b1a, w1b, b1b), reps=3)
+        x1 = img.to(torch.bfloat16)[None, None].contiguous(
+            memory_format=torch.channels_last)
+        x2 = k_out.new_empty((1, 64, H, W)).contiguous(
+            memory_format=torch.channels_last)
+        c1, c2 = _library_conv(x1, w1a), _library_conv(x2, w1b)
+        entry["library_ms"] = time_ms(lambda: (c1(), c2()))
+    results.append(entry)
+
+    total = {"name": "conv_stage", "route": "cuda",
+             "source": "gisnav_tpu_torch/kernels/conv.cu",
+             "replaces": "gisnav_tpu/features/pallas_conv.py:240",
+             "max_abs_err": 0.0, "bound_ms": 0.0, "ms": 0.0, "plain_ms": 0.0,
+             "library_ms": 0.0}
+    t_bytes = t_ops = 0.0
+    for name, h, w, cin, cmid, cout, pool in CONV_SHAPES:
+        x = torch.rand((h, w, cin), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w1, b1 = _conv_weights(gen, cin, cmid)
+        w2, b2 = _conv_weights(gen, cmid, cout) if cout else (None, None)
+        k_out = conv_stage(x, w1, b1, w2, b2, pool=pool)
+        p_out = conv_stage_plain(x, w1, b1, w2, b2, pool=pool)
+        e, nbad = err(k_out, p_out)
+        log(f"[kernel] conv_stage {name} {h}x{w} {cin}->{cmid}"
+            f"{'->' + str(cout) if cout else ''}{' pool' if pool else ''}: "
+            f"max_abs_err={e:.3g} out_of_tol={nbad}")
+        if nbad or not torch.isfinite(k_out.float()).all():
+            raise RuntimeError(f"conv_stage {name} disagrees")
+        total["max_abs_err"] = max(total["max_abs_err"], e)
+        c_last = cout or cmid
+        ops = 2 * h * w * 9 * cin * cmid + (2 * h * w * 9 * cmid * cout
+                                            if cout else 0)
+        ho, wo = (h // 2, w // 2) if pool else (h, w)
+        nbytes = (h * w * cin * 2 + ho * wo * c_last * 2
+                  + 9 * (cin * cmid + cmid * (cout or 0)) * 2)
+        t_bytes += nbytes / HBM_BPS
+        t_ops += ops / BF16_FLOPS
+        total["bound_ms"] += bound_ms(nbytes, bf16_ops=ops)[0]
+        if not quick:
+            ms = time_ms(lambda: conv_stage(x, w1, b1, w2, b2, pool=pool))
+            pms = time_ms(lambda: conv_stage_plain(x, w1, b1, w2, b2,
+                                                   pool=pool), reps=3)
+            xl = x.permute(2, 0, 1)[None].contiguous(
+                memory_format=torch.channels_last)
+            lib1 = _library_conv(xl, w1)
+            if w2 is not None:
+                xm = x.new_empty((1, cmid, h, w)).contiguous(
+                    memory_format=torch.channels_last)
+                lib2 = _library_conv(xm, w2)
+                lms = time_ms(lambda: (lib1(), lib2()))
+            else:
+                lms = time_ms(lib1)
+            log(f"[time] conv_stage {name}: kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms, cuDNN conv2d {lms:.4f} ms")
+            total["ms"] += ms
+            total["plain_ms"] += pms
+            total["library_ms"] += lms
+    total["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    results.append(total)
+
+
+def check_nms(gen, quick, results):
+    from gisnav_tpu_torch.features.nms_kernel import (
+        nms_select,
+        nms_select_plain,
+    )
+
+    heat = torch.rand((H, W), generator=gen, device="cuda") ** 8
+    k_out = nms_select(heat, 4)
+    p_out = nms_select_plain(heat, 4)
+    # tolerance: cell_max bit-exact (same max ops); positions 1e-4 px (the
+    # soft-argmax exp differs by an ulp between CUDA and PyTorch)
+    e_max = float((k_out[0] - p_out[0]).abs().max())
+    e_pos = max(float((a - b).abs().max()) for a, b in
+                zip(k_out[1:], p_out[1:]))
+    log(f"[kernel] nms_select {H}x{W}: cell_max err={e_max:.3g} "
+        f"position err={e_pos:.3g}")
+    if e_max != 0.0 or e_pos > 1e-4:
+        raise RuntimeError("nms_select disagrees with its plain version")
+    entry = {"name": "nms_select", "route": "cuda",
+             "source": "gisnav_tpu_torch/kernels/nms_select.cu",
+             "replaces": "gisnav_tpu/features/pallas_nms.py:152",
+             "max_abs_err": max(e_max, e_pos), "library_ms": None}
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        H * W * 4 + 3 * (H // 4) * (W // 4) * 4, f32_ops=70 * H * W)
+    if not quick:
+        entry["ms"] = time_ms(lambda: nms_select(heat, 4))
+        entry["plain_ms"] = time_ms(lambda: nms_select_plain(heat, 4))
+    results.append(entry)
+
+
+def _block_inputs(gen, n, kk_total, sets):
+    dim = 256
+    x = _rand(gen, (n, dim))
+    q = _rand(gen, (n, dim), 1.0, torch.bfloat16)
+    k = _rand(gen, (kk_total, dim), 1.0, torch.bfloat16)
+    v = _rand(gen, (kk_total, dim), 1.0, torch.bfloat16)
+    kk = kk_total // sets
+    bias = torch.where(torch.rand((sets, kk), generator=gen, device="cuda")
+                       < 0.9, 0.0, -1e9).float().contiguous()
+    w = [_rand(gen, (dim, dim), dim ** -0.5, torch.bfloat16),
+         _rand(gen, (dim,), 0.05),
+         _rand(gen, (dim, 2 * dim), (2 * dim) ** -0.5, torch.bfloat16),
+         _rand(gen, (dim, 2 * dim), (2 * dim) ** -0.5, torch.bfloat16),
+         _rand(gen, (2 * dim,), 0.05),
+         1.0 + _rand(gen, (2 * dim,), 0.1), _rand(gen, (2 * dim,), 0.1),
+         _rand(gen, (2 * dim, dim), (2 * dim) ** -0.5, torch.bfloat16),
+         _rand(gen, (dim,), 0.05)]
+    return x, q, k, v, bias, w
+
+
+def _library_block(x, q, k, v, bias, w, heads=4):
+    """SDPA + F.linear epilogue on the same inputs (one set)."""
+    import torch.nn.functional as F
+
+    n, dim = x.shape
+    dh = dim // heads
+    wt = [t.T.contiguous() if t.dim() == 2 else t for t in w]
+    qh = q.reshape(1, n, heads, dh).transpose(1, 2)
+    kh = k.reshape(1, -1, heads, dh).transpose(1, 2)
+    vh = v.reshape(1, -1, heads, dh).transpose(1, 2)
+    mask = bias[0].to(torch.bfloat16)[None, None, None, :]
+
+    def run():
+        m = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        m = m.transpose(1, 2).reshape(n, dim)
+        m2 = F.linear(m, wt[0], w[1].to(torch.bfloat16))
+        y = F.linear(torch.cat([x.to(torch.bfloat16), m2], 1),
+                     torch.cat([wt[2], wt[3]], 1), w[4].to(torch.bfloat16))
+        y = F.gelu(F.layer_norm(y.float(), (2 * dim,), w[5], w[6]),
+                   approximate="tanh")
+        return x + F.linear(y.to(torch.bfloat16), wt[7],
+                            w[8].to(torch.bfloat16)).float()
+    return run
+
+
+def check_block(gen, quick, results):
+    from gisnav_tpu_torch.matching.lightglue_fused import (
+        fused_block,
+        fused_block_plain,
+    )
+
+    # tolerance: f32 outputs, the kernel mirrors every bf16 rounding point;
+    # sums in another order can move a rounded value by one bf16 ulp
+    tol = 5e-2
+    entry = {"name": "fused_block", "route": "cuda",
+             "source": "gisnav_tpu_torch/kernels/lightglue_block.cu",
+             "replaces": "gisnav_tpu/matching/lightglue_fused.py:142",
+             "max_abs_err": 0.0}
+    cases = [("dual self", 2 * MAX_KP, 2 * MAX_KP, 2, False),
+             ("dual cross", 2 * MAX_KP, 2 * MAX_KP, 2, True),
+             ("single", MAX_KP, MAX_KP, 1, False)]
+    dual_ms, dual_plain = [], []
+    for name, n, kk_total, sets, cross in cases:
+        x, q, k, v, bias, w = _block_inputs(gen, n, kk_total, sets)
+        kw = dict(heads=4, sets=sets, cross=cross)
+        k_out = fused_block(x, q, k, v, bias, *w, **kw)
+        p_out = fused_block_plain(x, q, k, v, bias, *w, **kw)
+        e = float((k_out - p_out).abs().max())
+        log(f"[kernel] fused_block {name} ({n} rows, sets={sets}): "
+            f"max_abs_err={e:.3g}")
+        if not (e <= tol) or not torch.isfinite(k_out).all():
+            raise RuntimeError(f"fused_block {name} disagrees")
+        entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        if sets == 2 and not quick:
+            dual_ms.append(time_ms(lambda: fused_block(x, q, k, v, bias, *w,
+                                                       **kw)))
+            dual_plain.append(time_ms(lambda: fused_block_plain(
+                x, q, k, v, bias, *w, **kw), reps=3))
+            log(f"[time] fused_block {name}: kernel {dual_ms[-1]:.4f} ms, "
+                f"plain {dual_plain[-1]:.4f} ms")
+            if not cross:
+                half = n // 2
+                lib = _library_block(x[:half], q[:half], k[:half], v[:half],
+                                     bias[:1], w)
+                entry["library_ms"] = 2 * time_ms(lib)
+    n, kk, dim = 2 * MAX_KP, MAX_KP, 256
+    nbytes = (n * dim * 4 * 2 + n * dim * 2 + 2 * 2 * kk * dim * 2
+              + 2 * kk * 4 + 7 * dim * dim * 2)
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        nbytes, bf16_ops=4 * n * kk * dim + 14 * n * dim * dim)
+    if not quick:
+        entry["ms"] = float(np.mean(dual_ms))
+        entry["plain_ms"] = float(np.mean(dual_plain))
+    results.append(entry)
+
+
+def profile_frames(run_frame, frames, n: int = 10) -> float:
+    """Device time by kernel over ``n`` cached frames (torch.profiler);
+    returns the device's busy ms per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        for i in range(n):
+            run_frame(frames[i % len(frames)])
+        torch.cuda.synchronize()
+
+    run()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    # device-side rows only (kernels and copies), so no time counts twice
+    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy = sum(d for _, d, _ in dev) / n
+    log(f"[profile] device busy {busy:.3f} ms/frame over {n} cached frames; "
+        f"the profiled wall ({wall_ms / n:.1f} ms/frame) carries the "
+        f"tracer's own cost, so the idle share is taken against the "
+        f"unprofiled cached-frame p50 of this run")
+    for key, d, count in sorted(dev, key=lambda x: -x[1])[:20]:
+        log(f"[profile] {d / n:9.3f} ms/frame {count // n:6d} calls/frame "
+            f"{key[:90]}")
+    return busy
+
+
+def phase_main_path(profile_run: bool = False) -> dict:
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.geopose import geopose_to_wgs84_f64
+    from gisnav_tpu_torch.pipeline.runners import make_bucketed_warp_runner
+    from gisnav_tpu_torch.utils.world import render_scene
+    from gisnav_tpu_torch.weights import load_bundled
+
+    t0 = time.time()
+    yaws = [0.0, 3.0, 6.0, 16.0, 20.0, 31.0, 35.0, 2.0]  # 3 buckets
+    cycle_yaws = [45.0, 60.0, 75.0, 90.0]  # with 0, 16, 31: 7 buckets
+    scene = render_scene(seed=0, h=H, w=W, yaws=yaws + cycle_yaws)
+    params, config = load_bundled("learned_lg9")
+    config = dataclasses.replace(config, image_shape=(H, W),
+                                 max_keypoints=MAX_KP, lightglue_depth=9)
+    runner = make_bucketed_warp_runner(params, config, bucket_deg=15.0)
+    log(f"[main] scene {scene.ortho.shape} + runner in "
+        f"{time.time() - t0:.1f} s")
+    errors = []
+
+    def run_frame(i: int, tag: str = "") -> float:
+        yaw, (lon, lat) = scene.yaws[i], scene.truth_lonlat[i]
+        t = time.perf_counter()
+        pose = runner(scene.frames[i], scene.ortho, scene.dem, yaw, scene.k,
+                      scene.crs_affine, map_stamp=1,
+                      altitude_agl=scene.alt_m)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        fix = geopose_to_wgs84_f64(pose, scene.crs_affine)
+        err = haversine_m(lat, lon, fix["lat"], fix["lon"])
+        if tag:
+            log(f"[main] {tag} yaw {yaw:5.1f} bucket {round(yaw / 15.0)}: "
+                f"{ms:8.2f} ms valid={bool(pose.valid)} "
+                f"matches={int(pose.num_matches)} "
+                f"inliers={int(pose.num_inliers)} error={err:.3f} m")
+        if not (bool(pose.valid) and err < 10.0
+                and np.isfinite(fix["alt_ellipsoid"])):
+            raise RuntimeError(f"frame {i} (yaw {yaw}): fix invalid or "
+                               f"{err:.2f} m off")
+        errors.append(err)
+        return ms
+
+    # one untimed frame loads the kernels and warms the allocator; the
+    # counts start at 0 after it
+    run_frame(0)
+
+    # the main path: 8 frames over 3 buckets, the counts read after them
+    reset_launches()
+    for i in range(len(yaws)):
+        run_frame(i, f"frame {i}")
+    launches = dict(LAUNCHES)
+    log(f"[main] launches over {len(yaws)} frames: {launches}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"main path never launched {missing}")
+
+    # timing window. Refresh: one frame per bucket of 7, cycled; more
+    # buckets than the 4-entry LRU in a fixed order miss on every frame
+    # after the first cycle, so the 2 cycles after it are all refreshes.
+    # Cached: then the frames of the last 4 buckets, cycled, all hits.
+    cycle = [0, 3, 5] + list(range(len(yaws), len(scene.yaws)))
+    for i in cycle:
+        run_frame(i)
+    refresh_ms = [run_frame(i) for i in cycle * 2]
+    last4 = cycle[-4:]
+    cached_ms = [run_frame(last4[j % 4]) for j in range(CACHED_FRAMES)]
+    p50 = float(np.median(cached_ms))
+    out = {"frame_p50_ms": p50,
+           "frame_p90_ms": float(np.percentile(cached_ms, 90)),
+           "refresh_frame_p50_ms": float(np.median(refresh_ms)),
+           "bucket_refresh_ms": float(np.median(refresh_ms)) - p50,
+           "cached_frames": len(cached_ms), "refresh_frames": len(refresh_ms),
+           "fixes": len(errors), "max_error_m": float(max(errors)),
+           "mean_error_m": float(np.mean(errors)), "launches": launches}
+    if profile_run:
+        busy = profile_frames(run_frame, last4)
+        out["device_busy_ms"] = busy
+        out["device_idle_share"] = 1.0 - busy / p50
+    log("[main] " + json.dumps(out))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check the kernels only, no timing")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile the main path (torch.profiler)")
+    args = ap.parse_args(argv)
+
+    device = phase_device()
+    from gisnav_tpu_torch.device import strict_fp32
+
+    strict_fp32()
+    phase_build()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    results: list = []
+    check_conv(gen, args.quick, results)
+    check_nms(gen, args.quick, results)
+    check_block(gen, args.quick, results)
+    torch.cuda.synchronize()
+    log(json.dumps({"kernels_checked": [r["name"] for r in results]}))
+    if args.quick:
+        return 0
+    main_path = phase_main_path(args.profile)
+    for r in results:
+        r["launches"] = main_path["launches"][r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
+                                  for r in results]}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

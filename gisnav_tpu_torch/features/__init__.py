@@ -1,0 +1,1 @@
+"""features of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,142 @@
+"""SuperPoint VGG-trunk stages: CUDA kernels and their plain versions.
+
+Counterpart of ``gisnav_tpu/features/pallas_conv.py`` (``stem_stage`` and
+``conv_stage``). Each stage is conv3x3 + bias + relu [-> conv3x3 + bias +
+relu] [-> 2x2 maxpool] on an (H, W, C) NHWC image, bf16 operands with f32
+accumulation and the rounding of the JAX reference ``vgg_stage_reference``:
+the conv sum rounded to bf16, the f32 bias added, relu, rounded to bf16.
+
+Weights come in the layout the kernels take (``weights.params_from_jax``):
+3x3 kernels as ``(9, Cin, Cout)`` bf16 (HWIO with the taps flattened), biases
+as f32. A CPU tensor runs the plain PyTorch version; a CUDA tensor launches
+the kernel of ``kernels/conv.cu`` or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from gisnav_tpu_torch.kernels import LAUNCHES
+from gisnav_tpu_torch.kernels.build import (
+    check,
+    check_device,
+    library,
+    ptr,
+    stream_of,
+    typed,
+)
+
+__all__ = ["stem_stage", "stem_stage_plain", "conv_stage", "conv_stage_plain"]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _conv_relu_plain(x: torch.Tensor, w9: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """(H, W, Cin) -> (H, W, Cout) bf16, reference rounding."""
+    cin, cout = w9.shape[1], w9.shape[2]
+    wt = w9.float().reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    y = F.conv2d(x.float().permute(2, 0, 1)[None], wt, padding=1)[0]
+    y = y.permute(1, 2, 0).to(torch.bfloat16).float()
+    return torch.relu(y + b.float()).to(torch.bfloat16)
+
+
+def _pool2(y: torch.Tensor) -> torch.Tensor:
+    h, w, c = y.shape
+    return y.reshape(h // 2, 2, w // 2, 2, c).amax(dim=(1, 3))
+
+
+def conv_stage_plain(x, w1, b1, w2=None, b2=None, *, pool: bool = False):
+    y = _conv_relu_plain(x.to(torch.bfloat16), w1, b1)
+    if w2 is not None:
+        y = _conv_relu_plain(y, w2, b2)
+    return _pool2(y) if pool else y
+
+
+def stem_stage_plain(img, w1a, b1a, w1b, b1b, *, pool: bool = True):
+    x = img.to(torch.bfloat16)[..., None]
+    return conv_stage_plain(x, w1a, b1a, w1b, b1b, pool=pool)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return typed(library("conv"), {
+        "gisnav_conv3x3": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        "gisnav_conv1_cin1": [vp, vp, vp, vp, ci, ci, vp]})
+
+
+def _check_args(x, w9, b, cin):
+    check_device("conv kernel", x, w9, b)
+    if x.dtype != torch.bfloat16 or w9.dtype != torch.bfloat16:
+        raise TypeError("conv kernel takes bf16 activations and weights")
+    if b.dtype != torch.float32:
+        raise TypeError("conv kernel takes f32 biases")
+    if not (x.is_contiguous() and w9.is_contiguous() and b.is_contiguous()):
+        raise ValueError("conv kernel takes contiguous tensors")
+    if w9.shape[:2] != (9, cin) or cin % 16 or w9.shape[2] % 64:
+        raise ValueError(f"unsupported conv shape {tuple(w9.shape)}")
+
+
+def _conv_cuda(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor,
+               pool: bool, count: str) -> torch.Tensor:
+    h, w, cin = x.shape
+    _check_args(x, w9, b, cin)
+    cout = w9.shape[2]
+    if pool and (h % 2 or w % 2):
+        raise ValueError(f"2x2 pool needs even H, W, got {(h, w)}")
+    shape = (h // 2, w // 2, cout) if pool else (h, w, cout)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    check(_lib().gisnav_conv3x3(ptr(x), ptr(w9), ptr(b), ptr(out), h, w, cin,
+                                cout, int(pool), stream_of(x)), "conv3x3")
+    LAUNCHES[count] += 1
+    return out
+
+
+def _conv1_cuda(img: torch.Tensor, w9: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    h, w = img.shape
+    if img.dtype != torch.float32 or w9.shape != (9, 1, 64):
+        raise ValueError("stem conv takes an f32 (H, W) image, 1->64 weights")
+    check_device("stem conv", img, w9, b)
+    img = img.contiguous()
+    wf = w9.float().reshape(9, 64).contiguous()
+    bf = b.float().contiguous()
+    out = torch.empty((h, w, 64), dtype=torch.bfloat16, device=img.device)
+    check(_lib().gisnav_conv1_cin1(ptr(img), ptr(wf), ptr(bf), ptr(out), h, w,
+                                   stream_of(img)), "conv1_cin1")
+    LAUNCHES["stem_stage"] += 1
+    return out
+
+
+def conv_stage(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: Optional[torch.Tensor] = None,
+               b2: Optional[torch.Tensor] = None, *,
+               pool: bool = False) -> torch.Tensor:
+    """(H, W, Cin) bf16 -> (H[/2], W[/2], Cout) bf16."""
+    if not x.is_cuda:
+        return conv_stage_plain(x, w1, b1, w2, b2, pool=pool)
+    if w2 is None:
+        return _conv_cuda(x, w1, b1, pool, "conv_stage")
+    return _conv_cuda(_conv_cuda(x, w1, b1, False, "conv_stage"), w2, b2,
+                      pool, "conv_stage")
+
+
+def stem_stage(img: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
+               w1b: torch.Tensor, b1b: torch.Tensor, *,
+               pool: bool = True) -> torch.Tensor:
+    """(H, W) f32 grayscale -> (H[/2], W[/2], 64) bf16."""
+    if not img.is_cuda:
+        return stem_stage_plain(img, w1a, b1a, w1b, b1b, pool=pool)
+    return _conv_cuda(_conv1_cuda(img, w1a, b1a), w1b, b1b, pool,
+                      "stem_stage")

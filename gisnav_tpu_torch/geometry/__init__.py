@@ -1,0 +1,1 @@
+"""geometry of the PyTorch/CUDA port (see the package docstring)."""

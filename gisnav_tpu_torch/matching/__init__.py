@@ -1,0 +1,1 @@
+"""matching of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,336 @@
+"""Fused LightGlue forward: one CUDA block kernel per attention stage.
+
+Counterpart of ``gisnav_tpu/matching/lightglue_fused.py``. The same
+computation over the same (converted) parameters:
+
+- input projection and the Fourier rotary encoding;
+- rotary folded into a column-permuted Wqkv ``[q, swap(q), k, swap(k), v]``
+  (``swap(x @ W + b) == x @ (W P) + b P``), so rotation is two elementwise
+  multiply-adds;
+- with equal set sizes both residual streams stay concatenated and each
+  self/cross stage is ONE ``fused_block`` call with ``sets=2`` (the cross
+  stage picks the opposite key half inside the kernel);
+- the double-softmax assignment head with sigmoid matchability.
+
+Every bf16 cast of the JAX forward is mirrored: qkv and its bias in bf16, the
+rotated q/k rounded to bf16, and inside the block the rounding points of
+``_block_reference``. ``fused_block`` launches ``kernels/lightglue_block.cu``
+for CUDA tensors and runs ``fused_block_plain`` for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from gisnav_tpu_torch.kernels import LAUNCHES
+from gisnav_tpu_torch.kernels.build import (
+    check,
+    check_device,
+    library,
+    ptr,
+    stream_of,
+    typed,
+)
+from gisnav_tpu_torch.matching.lightglue import (
+    MatchResult,
+    extract_matches,
+    normalize_keypoints,
+)
+
+__all__ = ["fused_block", "fused_block_plain", "LightGlue"]
+
+_LN_EPS = 1e-6
+_BF16 = torch.bfloat16
+
+
+def _r(t: torch.Tensor) -> torch.Tensor:
+    """Round f32 to bf16 and back."""
+    return t.to(_BF16).float()
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    c = float(np.sqrt(2.0 / np.pi).astype(np.float32))
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+
+
+# ---------------------------------------------------------------------------
+# the block: plain version and CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def _block_plain(x, q, k, v, bias_k, wout, bout, w1x, w1m, b1, lns, lnb, w2,
+                 b2, heads):
+    kq, dim = x.shape
+    kk = k.shape[0]
+    dh = dim // heads
+    scale = 1.0 / float(dh) ** 0.5
+    qh = q.float().reshape(kq, heads, dh).transpose(0, 1)
+    kh = k.float().reshape(kk, heads, dh).transpose(0, 1)
+    vh = v.float().reshape(kk, heads, dh).transpose(0, 1)
+    logits = (qh @ kh.transpose(1, 2)) * scale + bias_k.reshape(1, 1, kk)
+    p = torch.softmax(logits, dim=-1)
+    msg = (_r(p) @ vh).transpose(0, 1).reshape(kq, dim)
+    m2 = _r(_r(msg) @ wout.float() + bout)
+    y = _r(_r(x.float()) @ w1x.float() + m2 @ w1m.float() + b1)
+    mu = y.mean(dim=1, keepdim=True)
+    var = torch.clamp((y * y).mean(dim=1, keepdim=True) - mu * mu, min=0.0)
+    yn = (y - mu) * torch.rsqrt(var + _LN_EPS) * lns + lnb
+    y2 = _r(_r(_gelu_tanh(yn)) @ w2.float() + b2)
+    return x.float() + y2
+
+
+def fused_block_plain(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb,
+                      w2, b2, *, heads: int = 4, sets: int = 1,
+                      cross: bool = False) -> torch.Tensor:
+    """x + FFN([x | out_proj(attn(q, k, v))]) over ``sets`` concatenated
+    streams; query half s attends key half s, or 1 - s with ``cross``.
+
+    x (sets*Kq, dim) f32; q (sets*Kq, dim), k/v (sets*Kk, dim) bf16; bias
+    (sets, Kk) f32 additive key mask; weights (in, out) bf16, vectors f32.
+    """
+    kq = x.shape[0] // sets
+    kk = k.shape[0] // sets
+    outs = []
+    for s in range(sets):
+        ks = (1 - s) if (cross and sets == 2) else s
+        outs.append(_block_plain(
+            x[s * kq:(s + 1) * kq], q[s * kq:(s + 1) * kq],
+            k[ks * kk:(ks + 1) * kk], v[ks * kk:(ks + 1) * kk], bias[ks],
+            wout, bout, w1x, w1m, b1, lns, lnb, w2, b2, heads))
+    return torch.cat(outs, dim=0)
+
+
+def _lib():
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return typed(library("lightglue_block"), {
+        "gisnav_lg_attention": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                ctypes.c_float, vp],
+        "gisnav_lg_ffn": [vp] * 12 + [ci, vp]})
+
+
+def _fused_block_cuda(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb,
+                      w2, b2, heads, sets, cross):
+    n, dim = x.shape
+    kk = k.shape[0] // sets
+    bf = (q, k, v, wout, w1x, w1m, w2)
+    f32 = (x, bias, bout, b1, lns, lnb, b2)
+    if any(t.dtype != _BF16 for t in bf) or any(
+            t.dtype != torch.float32 for t in f32):
+        raise TypeError("fused_block: bf16 q/k/v/weights, f32 x/bias/vectors")
+    if not all(t.is_contiguous() for t in bf + f32):
+        raise ValueError("fused_block takes contiguous tensors")
+    check_device("fused_block", *bf, *f32)
+    if dim != 256 or heads != 4 or wout.shape != (256, 256) or \
+            w1x.shape != (256, 512) or w2.shape != (512, 256) or \
+            bias.shape != (sets, kk) or n % (64 * sets) or kk % 64:
+        raise ValueError(f"fused_block: unsupported shapes x{tuple(x.shape)} "
+                         f"k{tuple(k.shape)} sets={sets}")
+    lib = _lib()
+    stream = stream_of(x)
+    msg = torch.empty((n, dim), dtype=_BF16, device=x.device)
+    check(lib.gisnav_lg_attention(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(msg),
+                                  n, kk, heads, sets, int(cross),
+                                  1.0 / float(dim // heads) ** 0.5, stream),
+          "lightglue attention")
+    LAUNCHES["fused_block"] += 1
+    out = torch.empty_like(x)
+    check(lib.gisnav_lg_ffn(ptr(x), ptr(msg), ptr(wout), ptr(bout), ptr(w1x),
+                            ptr(w1m), ptr(b1), ptr(lns), ptr(lnb), ptr(w2),
+                            ptr(b2), ptr(out), n, stream), "lightglue ffn")
+    LAUNCHES["fused_block"] += 1
+    return out
+
+
+def fused_block(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb, w2, b2,
+                *, heads: int = 4, sets: int = 1,
+                cross: bool = False) -> torch.Tensor:
+    """One fused transformer block (see :func:`fused_block_plain`)."""
+    if not x.is_cuda:
+        return fused_block_plain(x, q, k, v, bias, wout, bout, w1x, w1m, b1,
+                                 lns, lnb, w2, b2, heads=heads, sets=sets,
+                                 cross=cross)
+    return _fused_block_cuda(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns,
+                             lnb, w2, b2, heads, sets, cross)
+
+
+# ---------------------------------------------------------------------------
+# rotary via weight permutation
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _qkv_perm(heads: int, dh: int) -> np.ndarray:
+    """Natural flax Wqkv column ``h*3*dh + comp*dh + d`` -> component-major
+    layout with q/k pair-split lanes (evens then odds per head)."""
+    perm = np.zeros(heads * 3 * dh, np.int64)
+    for h in range(heads):
+        for comp in range(3):
+            for d in range(dh):
+                j = h * 3 * dh + comp * dh + d
+                if comp < 2:
+                    t = (comp * heads * dh + h * dh + (d % 2) * (dh // 2)
+                         + d // 2)
+                else:
+                    t = comp * heads * dh + h * dh + d
+                perm[t] = j
+    return perm
+
+
+@functools.lru_cache(maxsize=8)
+def _qkv_perm_ext(heads: int, dh: int) -> np.ndarray:
+    """Columns of the extended operand ``[q, swap(q), k, swap(k), v]``."""
+    dim = heads * dh
+    base = _qkv_perm(heads, dh)
+    pq, pk, pv = base[:dim], base[dim:2 * dim], base[2 * dim:]
+    swap = np.zeros(dim, np.int64)
+    for h in range(heads):
+        for i in range(dh // 2):
+            swap[h * dh + i] = h * dh + dh // 2 + i
+            swap[h * dh + dh // 2 + i] = h * dh + i
+    return np.concatenate([pq, pq[swap], pk, pk[swap], pv])
+
+
+def _cs_full(cos, sin, heads):
+    """(K, dim) rotary multipliers: rotated = q * C + swap(q) * S."""
+    c = torch.cat([cos, cos], dim=1).repeat(1, heads)
+    s = torch.cat([-sin, sin], dim=1).repeat(1, heads)
+    return c, s
+
+
+# ---------------------------------------------------------------------------
+# the forward
+# ---------------------------------------------------------------------------
+
+
+class LightGlue(nn.Module):
+    """Fused LightGlue forward over two fixed-size keypoint sets.
+
+    ``params`` is the port's LightGlue tree (``weights.params_from_jax``);
+    the weights are prepared once, in the layouts and types the forward uses,
+    on the device the tree lies on.
+    """
+
+    def __init__(self, params: Dict[str, Any], depth: int = 9,
+                 heads: int = 4, dim: int = 256,
+                 filter_threshold: float = 0.1):
+        super().__init__()
+        self.depth, self.heads, self.dim = depth, heads, dim
+        self.filter_threshold = filter_threshold
+        dh = dim // heads
+        perm = torch.as_tensor(_qkv_perm_ext(heads, dh))
+
+        def dense(node, dtype=torch.float32):  # Linear (out, in) -> (in, out)
+            return node["weight"].T.contiguous().to(dtype), node["bias"]
+
+        def ffn(node):
+            w1 = node["fc1"]["weight"].T.to(_BF16)
+            return (w1[:dim].contiguous(), w1[dim:].contiguous(),
+                    node["fc1"]["bias"], node["norm"]["weight"],
+                    node["norm"]["bias"],
+                    node["fc2"]["weight"].T.contiguous().to(_BF16),
+                    node["fc2"]["bias"])
+
+        self.wi, self.bi = dense(params["input_proj"])
+        self.wr = params["posenc"]["Wr"]["weight"].T.contiguous()
+        self.layers = []
+        for i in range(depth):
+            sp, cp = params[f"self_{i}"], params[f"cross_{i}"]
+            dev_perm = perm.to(sp["Wqkv"]["weight"].device)
+            wqkv = sp["Wqkv"]["weight"].T[:, dev_perm]
+            bqkv = sp["Wqkv"]["bias"][dev_perm]
+            wcat = torch.cat([cp["to_qk"]["weight"].T, cp["to_v"]["weight"].T],
+                             dim=1)
+            bcat = torch.cat([cp["to_qk"]["bias"], cp["to_v"]["bias"]])
+            self.layers.append({
+                "wqkv": wqkv.contiguous().to(_BF16), "bqkv": bqkv.to(_BF16),
+                "self_out": dense(sp["out_proj"], _BF16),
+                "self_ffn": ffn(sp["ffn"]),
+                "wcat": wcat.contiguous().to(_BF16), "bcat": bcat.to(_BF16),
+                "cross_out": dense(cp["to_out"], _BF16),
+                "cross_ffn": ffn(cp["ffn"]),
+            })
+        self.wf, self.bf = dense(params["final_proj"])
+        self.wm, self.bm = dense(params["matchability"])
+
+    def _rot(self, main, swap, cf, sf):
+        return (main.float() * cf + swap.float() * sf).to(_BF16)
+
+    def _proj(self, x, w, b):
+        """bf16(x) @ w rounded to bf16, plus the bf16 bias (the JAX bf16
+        matmul semantics, computed in f32)."""
+        return (_r(x) @ w.float()).to(_BF16) + b
+
+    @torch.no_grad()
+    def forward(self, kpts0, desc0, mask0, size0, kpts1, desc1, mask1,
+                size1) -> MatchResult:
+        dim, heads = self.dim, self.heads
+        x0 = desc0.float() @ self.wi + self.bi
+        x1 = desc1.float() @ self.wi + self.bi
+        p0 = normalize_keypoints(kpts0, size0[0], size0[1]) @ self.wr
+        p1 = normalize_keypoints(kpts1, size1[0], size1[1]) @ self.wr
+        cf0, sf0 = _cs_full(torch.cos(p0), torch.sin(p0), heads)
+        cf1, sf1 = _cs_full(torch.cos(p1), torch.sin(p1), heads)
+        zero = torch.zeros((), device=x0.device)
+        neg = torch.full((), -1e9, device=x0.device)
+        bias0 = torch.where(mask0, zero, neg)[None]
+        bias1 = torch.where(mask1, zero, neg)[None]
+
+        k0 = kpts0.shape[0]
+        dual = k0 == kpts1.shape[0]
+        if dual:
+            xx = torch.cat([x0, x1])
+            cf, sf = torch.cat([cf0, cf1]), torch.cat([sf0, sf1])
+            bias2 = torch.cat([bias0, bias1]).contiguous()
+
+        def self_qkv(x, layer, cf_, sf_):
+            qkv = self._proj(x, layer["wqkv"], layer["bqkv"])
+            q = self._rot(qkv[:, :dim], qkv[:, dim:2 * dim], cf_, sf_)
+            k = self._rot(qkv[:, 2 * dim:3 * dim], qkv[:, 3 * dim:4 * dim],
+                          cf_, sf_)
+            return q, k, qkv[:, 4 * dim:].contiguous()
+
+        for layer in self.layers:
+            wo = (*layer["self_out"], *layer["self_ffn"])
+            if dual:
+                q, k, v = self_qkv(xx, layer, cf, sf)
+                xx = fused_block(xx, q, k, v, bias2, *wo, heads=heads, sets=2)
+            else:
+                q, k, v = self_qkv(x0, layer, cf0, sf0)
+                x0 = fused_block(x0, q, k, v, bias0, *wo, heads=heads)
+                q, k, v = self_qkv(x1, layer, cf1, sf1)
+                x1 = fused_block(x1, q, k, v, bias1, *wo, heads=heads)
+
+            wo = (*layer["cross_out"], *layer["cross_ffn"])
+            if dual:
+                qv = self._proj(xx, layer["wcat"], layer["bcat"])
+                qk, v = qv[:, :dim].contiguous(), qv[:, dim:].contiguous()
+                xx = fused_block(xx, qk, qk, v, bias2, *wo, heads=heads,
+                                 sets=2, cross=True)
+            else:
+                qv0 = self._proj(x0, layer["wcat"], layer["bcat"])
+                qv1 = self._proj(x1, layer["wcat"], layer["bcat"])
+                qk0, v0 = qv0[:, :dim].contiguous(), qv0[:, dim:].contiguous()
+                qk1, v1 = qv1[:, :dim].contiguous(), qv1[:, dim:].contiguous()
+                x0, x1 = (
+                    fused_block(x0, qk0, qk1, v1, bias1, *wo, heads=heads),
+                    fused_block(x1, qk1, qk0, v0, bias0, *wo, heads=heads))
+
+        if dual:
+            x0, x1 = xx[:k0], xx[k0:]
+
+        md0 = (x0 @ self.wf + self.bf) / float(dim) ** 0.25
+        md1 = (x1 @ self.wf + self.bf) / float(dim) ** 0.25
+        sim = md0 @ md1.T
+        z0 = torch.sigmoid((x0 @ self.wm + self.bm)[:, 0])
+        z1 = torch.sigmoid((x1 @ self.wm + self.bm)[:, 0])
+        pairmask = mask0[:, None] & mask1[None, :]
+        sim = torch.where(pairmask, sim, neg)
+        scores = (torch.softmax(sim, dim=1) * torch.softmax(sim, dim=0)
+                  * (z0[:, None] * z1[None, :]))
+        scores = torch.where(pairmask, scores, zero)
+        return extract_matches(scores, mask0, mask1, self.filter_threshold)

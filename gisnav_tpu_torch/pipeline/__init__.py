@@ -1,0 +1,1 @@
+"""pipeline of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,214 @@
+"""Frame -> geopose programs of the bucketed warp mode, and geopose assembly.
+
+Counterpart of ``gisnav_tpu/pipeline/geopose.py`` (``PipelineConfig``,
+``GeoPose``, ``assemble_geopose``, ``geopose_to_wgs84_f64``,
+``build_warp_reference_extractor``, ``build_frame_to_geopose_warpcached``).
+PyTorch runs eagerly, so the builders return plain functions over the
+models (``build_models``) and device tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["PipelineConfig", "GeoPose", "build_models", "assemble_geopose",
+           "geopose_to_wgs84_f64", "build_warp_reference_extractor",
+           "build_frame_to_geopose_warpcached"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    image_shape: Tuple[int, int] = (480, 640)  # query frame (h, w)
+    max_keypoints: int = 1024
+    lightglue_depth: int = 9
+    filter_threshold: float = 0.1
+    min_matches: int = 15
+    num_hypotheses: int = 64
+    threshold_px: float = 8.0
+    refine_iters: int = 10
+    score_threshold: float = 0.0005
+    detector_mode: str = "learned"
+
+
+class GeoPose(NamedTuple):
+    ecef_position: torch.Tensor  # (3,) metres
+    ecef_quat: torch.Tensor  # (4,) xyzw camera_optical -> ECEF
+    lon_lat_alt: torch.Tensor  # (3,)
+    r_raster: torch.Tensor  # (3, 3) object (raster px) -> camera
+    cam_pos_raster: torch.Tensor  # (3,) camera centre in crop px
+    m_crop: torch.Tensor  # (3, 3) crop -> original raster px
+    num_matches: torch.Tensor
+    num_inliers: torch.Tensor
+    valid: torch.Tensor
+    matched_qry: torch.Tensor  # (K, 2)
+    matched_ref: torch.Tensor  # (K, 2)
+    match_mask: torch.Tensor  # (K,)
+
+
+def build_models(params: Dict[str, Any], config: PipelineConfig
+                 ) -> Dict[str, torch.nn.Module]:
+    """SuperPoint + LightGlue modules from the port's param tree."""
+    from gisnav_tpu_torch.features.superpoint import SuperPoint
+    from gisnav_tpu_torch.matching.lightglue_fused import LightGlue
+
+    if config.detector_mode != "learned":
+        raise ValueError("only the learned SuperPoint detector is ported")
+    return {
+        "superpoint": SuperPoint(params["superpoint"], config.max_keypoints,
+                                 config.score_threshold),
+        "lightglue": LightGlue(params["lightglue"],
+                               depth=config.lightglue_depth,
+                               filter_threshold=config.filter_threshold),
+    }
+
+
+def assemble_geopose(r, t, m_crop, crs_affine):
+    """PnP pose in the cropped-raster frame -> (ecef, quat xyzw, lon/lat/alt,
+    camera position in crop px), all f32 on the device (TF32 off)."""
+    from gisnav_tpu_torch.geometry.ops import (
+        enu_to_ecef_matrix,
+        matrix_to_quat,
+        meters_per_degree,
+        wgs84_to_ecef,
+    )
+
+    cam_pos = -r.T @ t
+    crop_scale = torch.sqrt(torch.abs(torch.linalg.det(m_crop[:2, :2])))
+    embed = torch.eye(4, dtype=torch.float32, device=r.device)
+    embed[:2, :2] = m_crop[:2, :2]
+    embed[:2, 3] = m_crop[:2, 2]
+    embed[2, 2] = crop_scale
+    aff = crs_affine @ embed
+    lla = aff @ torch.cat([cam_pos, torch.ones_like(cam_pos[:1])])
+    lon, lat, alt = lla[0], lla[1], lla[2]
+    ecef = wgs84_to_ecef(lon, lat, alt)
+
+    m_lon, m_lat = meters_per_degree(lat)
+    metric = torch.diag(torch.stack([m_lon, m_lat, torch.ones_like(m_lon)]))
+    r_cols = metric @ aff[:3, :3]
+    r_enu = r_cols / torch.clamp(torch.linalg.norm(r_cols, dim=0,
+                                                   keepdim=True), min=1e-12)
+    r_ecef = enu_to_ecef_matrix(lon, lat) @ (r_enu @ r.T)
+    return ecef, matrix_to_quat(r_ecef), torch.stack([lon, lat, alt]), cam_pos
+
+
+def geopose_to_wgs84_f64(geopose: GeoPose, crs_affine_f64) -> dict:
+    """Host float64 re-assembly from the f32-exact raster-frame outputs."""
+    from gisnav_tpu_torch.geometry.crs import (
+        WGS84_A,
+        WGS84_E2,
+        enu_to_ecef_matrix,
+        wgs84_to_ecef,
+    )
+    from gisnav_tpu_torch.geometry.quaternion import matrix_to_quat
+
+    def host(t):
+        return np.asarray(t.detach().cpu().numpy(), dtype=np.float64)
+
+    cam_pos, r, m_crop = (host(geopose.cam_pos_raster),
+                          host(geopose.r_raster), host(geopose.m_crop))
+    aff = np.asarray(crs_affine_f64, dtype=np.float64)
+    embed = np.eye(4)
+    embed[:2, :2] = m_crop[:2, :2]
+    embed[:2, 3] = m_crop[:2, 2]
+    embed[2, 2] = np.sqrt(abs(np.linalg.det(m_crop[:2, :2])))
+    aff = aff @ embed
+    lla = aff @ np.append(cam_pos, 1.0)
+    lon, lat, alt = float(lla[0]), float(lla[1]), float(lla[2])
+    x, y, z = wgs84_to_ecef(lon, lat, alt)
+
+    lat_r = np.radians(lat)
+    w2 = 1.0 - WGS84_E2 * np.sin(lat_r) ** 2
+    m_lon = WGS84_A / np.sqrt(w2) * np.cos(lat_r) * np.pi / 180.0
+    m_lat = WGS84_A * (1.0 - WGS84_E2) / w2 ** 1.5 * np.pi / 180.0
+    r_cols = np.diag([m_lon, m_lat, 1.0]) @ aff[:3, :3]
+    r_enu = r_cols / np.linalg.norm(r_cols, axis=0, keepdims=True)
+    r_ecef = enu_to_ecef_matrix(lon, lat) @ (r_enu @ r.T)
+    if np.all(np.isfinite(r_ecef)):
+        u, _, vt = np.linalg.svd(r_ecef)
+        r_ecef = u @ np.diag([1.0, 1.0, np.linalg.det(u @ vt)]) @ vt
+    else:
+        r_ecef = np.eye(3)
+    return {"lon": lon, "lat": lat, "alt_ellipsoid": alt,
+            "ecef": np.array([x, y, z]), "quat_ecef": matrix_to_quat(r_ecef),
+            "r_enu_cam": r_enu @ r.T}
+
+
+def build_warp_reference_extractor(config: PipelineConfig) -> Callable:
+    """Per-bucket reference side::
+
+        fn(models, ortho, dem, rotation_deg, gsd_zoom)
+            -> (ref_feats, dem_crop, m_crop)
+
+    Rotate + GSD-zoom + crop the ortho/DEM stack, then SuperPoint on the
+    crop."""
+    from gisnav_tpu_torch.raster.warp import rotate_and_crop_center
+
+    h, w = config.image_shape
+
+    def fn(models, ortho, dem, rotation_deg, gsd_zoom):
+        stack = torch.stack([ortho, dem], dim=-1)
+        warped, m_crop = rotate_and_crop_center(stack, rotation_deg, (h, w),
+                                                gsd_zoom)
+        feats = models["superpoint"](warped[:, :, 0].contiguous())
+        return feats, warped[:, :, 1].contiguous(), m_crop
+
+    return fn
+
+
+def build_frame_to_geopose_warpcached(config: PipelineConfig) -> Callable:
+    """Per-frame hot path::
+
+        fn(models, query, ref_feats, dem_crop, m_crop, k, crs_affine,
+           sample_idx=None, generator=None) -> GeoPose
+
+    SuperPoint on the query, LightGlue against the cached bucket features,
+    DEM z-lift in crop-pixel units, RANSAC-PnP, geopose assembly.
+    ``sample_idx`` may be a callable taking the match mask and the query
+    keypoints and returning the (num_hypotheses, 4) RANSAC samples."""
+    from gisnav_tpu_torch.pnp.dem import gather_elevation
+    from gisnav_tpu_torch.pnp.ransac import ransac_pnp
+
+    h, w = config.image_shape
+
+    def fn(models, query, ref_feats, dem_crop, m_crop, k, crs_affine,
+           sample_idx: Optional[Any] = None,
+           generator: Optional[torch.Generator] = None) -> GeoPose:
+        f_qry = models["superpoint"](query)
+        match = models["lightglue"](
+            f_qry.keypoints, f_qry.descriptors, f_qry.mask, (h, w),
+            ref_feats.keypoints, ref_feats.descriptors, ref_feats.mask,
+            (h, w))
+        midx = match.matches0
+        mvalid = midx >= 0
+        mkp_qry = f_qry.keypoints
+        mkp_ref = ref_feats.keypoints[torch.clamp(midx, min=0)]
+        num_matches = mvalid.sum()
+
+        crop_scale = torch.sqrt(torch.abs(torch.linalg.det(m_crop[:2, :2])))
+        z_scale = crs_affine[2, 2] * crop_scale
+        dem_m = gather_elevation(dem_crop, mkp_ref)
+        obj = torch.cat([mkp_ref, (dem_m / z_scale)[:, None]], dim=1)
+
+        if callable(sample_idx):
+            sample_idx = sample_idx(mvalid, mkp_qry)
+        pnp = ransac_pnp(obj, mkp_qry, k, mvalid, sample_idx=sample_idx,
+                         generator=generator,
+                         num_hypotheses=config.num_hypotheses,
+                         threshold_px=config.threshold_px,
+                         min_inliers=config.min_matches,
+                         refine_iters=config.refine_iters)
+        ecef, quat, lla, cam_pos = assemble_geopose(pnp.r, pnp.t, m_crop,
+                                                    crs_affine)
+        return GeoPose(
+            ecef_position=ecef, ecef_quat=quat, lon_lat_alt=lla,
+            r_raster=pnp.r, cam_pos_raster=cam_pos, m_crop=m_crop,
+            num_matches=num_matches, num_inliers=pnp.num_inliers,
+            valid=pnp.valid & (num_matches >= config.min_matches),
+            matched_qry=mkp_qry, matched_ref=mkp_ref,
+            match_mask=mvalid & pnp.inliers)
+
+    return fn

@@ -1,0 +1,1 @@
+"""pnp of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""raster of the PyTorch/CUDA port (see the package docstring)."""

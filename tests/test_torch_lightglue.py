@@ -1,0 +1,138 @@
+"""Fused LightGlue of the port against the JAX package.
+
+- ``fused_block_plain`` (what a CPU tensor runs) against ``_block_reference``
+  / ``_block_reference_dual`` and against the TPU kernel ``_block_pallas`` in
+  Pallas interpret mode, self and cross: atol 2e-2 on the f32 outputs (both
+  sides round at the same bf16 points; summing in another order can move a
+  rounded value by one bf16 ulp).
+- The port's fused forward with the bundled learned_lg9 weights against
+  ``lightglue_fused_forward`` on the CPU at K = 512: ``matches0`` must agree
+  on more than 98 % of the keypoints (the gate of the JAX package's own
+  fused-vs-flax parity test). The weights are trained at depth 9; cut to
+  depth 2 their match scores stay low, so those cases keep every mutual
+  argmax (threshold 0).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from gisnav_tpu.matching import lightglue_fused as jlf
+from gisnav_tpu.weights import LEARNED_LG9_PATH, load_npz
+from gisnav_tpu_torch.matching import lightglue_fused as tlf
+from gisnav_tpu_torch.weights import params_from_jax
+
+torch.set_num_threads(2)
+
+DIM = 256
+
+
+def _block_inputs(seed, n, kk, sets):
+    rng = np.random.default_rng(seed)
+
+    def f(shape, scale=1.0):
+        return (rng.normal(0, scale, shape)).astype(np.float32)
+
+    def bf(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                          .astype(jnp.float32))
+
+    x = f((sets * n, DIM))
+    q = bf(f((sets * n, DIM)))
+    k, v = bf(f((sets * kk, DIM))), bf(f((sets * kk, DIM)))
+    bias = np.where(rng.random((sets, kk)) < 0.85, 0.0, -1e9).astype(
+        np.float32)
+    w = [bf(f((DIM, DIM), DIM ** -0.5)), f((1, DIM), 0.05),
+         bf(f((DIM, 2 * DIM), (2 * DIM) ** -0.5)),
+         bf(f((DIM, 2 * DIM), (2 * DIM) ** -0.5)), f((1, 2 * DIM), 0.05),
+         1.0 + f((1, 2 * DIM), 0.1), f((1, 2 * DIM), 0.1),
+         bf(f((2 * DIM, DIM), (2 * DIM) ** -0.5)), f((1, DIM), 0.05)]
+    return x, q, k, v, bias, w
+
+
+_BF = (1, 2, 3, 5, 7, 8, 12)  # bf16 positions in (x, q, k, v, bias, *w)
+
+
+def _jax_args(args):
+    x, q, k, v, bias, w = args
+    flat = [x, q, k, v, bias, *w]
+    return [jnp.asarray(a).astype(jnp.bfloat16) if i in _BF
+            else jnp.asarray(a) for i, a in enumerate(flat)]
+
+
+def _torch_args(args):
+    x, q, k, v, bias, w = args
+    flat = [x, q, k, v, bias, *w]
+    out = []
+    for i, a in enumerate(flat):
+        t = torch.as_tensor(np.array(a))
+        if i >= 5 and t.dim() == 2 and t.shape[0] == 1:
+            t = t[0]
+        out.append(t.to(torch.bfloat16) if i in _BF else t)
+    return out
+
+
+@pytest.mark.parametrize("sets,cross", [(1, False), (2, False), (2, True)])
+def test_block_plain_vs_jax(sets, cross):
+    n = 512
+    args = _block_inputs(sets + 3 * cross, n, n, sets)
+    got = tlf.fused_block(*_torch_args(args), heads=4, sets=sets,
+                          cross=cross).numpy()
+    ja = _jax_args(args)
+    if sets == 1:
+        ref = jlf._block_reference(*ja, heads=4)
+    else:
+        ref = jlf._block_reference_dual(*ja, heads=4, cross=cross)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=2e-2, rtol=0)
+    with pltpu.force_tpu_interpret_mode():
+        ker = jlf._block_pallas(*ja, heads=4, sets=sets, cross=cross)
+    np.testing.assert_allclose(got, np.asarray(ker), atol=2e-2, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def lg_params():
+    tree = load_npz(LEARNED_LG9_PATH)
+    return tree["lightglue"], params_from_jax(tree)["lightglue"]
+
+
+def _match_inputs(seed, k0, k1):
+    """Set 1 is a rotated, shifted, noisy and shuffled copy of set 0 plus
+    distractors, so the assignment has real matches to find."""
+    rng = np.random.default_rng(seed)
+    kp0 = rng.uniform(0, (640, 480), (k0, 2)).astype(np.float32)
+    d0 = rng.normal(0, 1, (k0, DIM)).astype(np.float32)
+    d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+    a = np.radians(7.0)
+    rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+    n_common = min(k0, k1) * 3 // 4
+    perm = rng.permutation(k0)[:n_common]
+    kp1 = rng.uniform(0, (640, 480), (k1, 2)).astype(np.float32)
+    d1 = rng.normal(0, 1, (k1, DIM)).astype(np.float32)
+    kp1[:n_common] = (kp0[perm] - 320) @ rot.T + 320 + 5.0
+    d1[:n_common] = d0[perm] + rng.normal(0, 0.3, (n_common, DIM))
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    m0 = rng.random(k0) > 0.05
+    m1 = rng.random(k1) > 0.05
+    return kp0, d0, m0, kp1, d1.astype(np.float32), m1
+
+
+@pytest.mark.parametrize("depth,k0,k1", [(2, 512, 512), (9, 512, 512),
+                                         (2, 512, 1024)])
+def test_fused_forward_vs_jax(lg_params, depth, k0, k1):
+    jparams, tparams = lg_params
+    kp0, d0, m0, kp1, d1, m1 = _match_inputs(depth, k0, k1)
+    size = (480, 640)
+    thr = 0.1 if depth == 9 else 0.0
+    ref = jlf.lightglue_fused_forward(
+        jparams, jnp.asarray(kp0), jnp.asarray(d0), jnp.asarray(m0), size,
+        jnp.asarray(kp1), jnp.asarray(d1), jnp.asarray(m1), size,
+        depth=depth, filter_threshold=thr)
+    model = tlf.LightGlue(tparams, depth=depth, filter_threshold=thr)
+    got = model(*(torch.as_tensor(a) for a in (kp0, d0, m0)), size,
+                *(torch.as_tensor(a) for a in (kp1, d1, m1)), size)
+    ref_m0 = np.asarray(ref.matches0)
+    assert (ref_m0 >= 0).sum() > k0 // 8  # real matches exist
+    agree = (got.matches0.numpy() == ref_m0).mean()
+    assert agree > 0.98, agree
+    assert np.abs(got.scores.numpy() - np.asarray(ref.scores)).max() < 0.05

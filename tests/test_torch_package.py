@@ -1,0 +1,88 @@
+"""Rules of the PyTorch/CUDA port that hold for the whole package.
+
+- No module of ``gisnav_tpu_torch``, and not ``chip_smoke.py``, imports JAX,
+  flax or anything of ``gisnav_tpu`` (checked on the syntax tree).
+- The entry points run on CUDA unless the caller asks for the CPU: without
+  a card they raise instead of running on the CPU.
+- ``chip_smoke.py`` exits non-zero, with no result line, without a card.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import gisnav_tpu_torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gisnav_tpu"}
+
+
+def _port_files():
+    pkg = os.path.dirname(gisnav_tpu_torch.__file__)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = {(os.path.relpath(p, ROOT), m) for p in files
+           for m in _imported_roots(p) if m in FORBIDDEN}
+    assert not bad, sorted(bad)
+
+
+def test_runner_without_device_raises_without_cuda(monkeypatch):
+    from gisnav_tpu_torch.device import resolve_device
+    from gisnav_tpu_torch.pipeline.runners import make_bucketed_warp_runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_bucketed_warp_runner()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_count_nothing_on_cpu():
+    from gisnav_tpu_torch.features.nms_kernel import nms_select
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    nms_select(torch.rand(32, 64), 4)
+    assert all(n == 0 for n in LAUNCHES.values())
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    src = os.path.join(ROOT, "chip_smoke.py")
+    cwd = ROOT
+    if alone:
+        with open(src) as f:
+            (tmp_path / "chip_smoke.py").write_text(f.read())
+        cwd = str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--quick"],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
