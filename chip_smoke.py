@@ -3,24 +3,38 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel checks only, no timing
+    python3 chip_smoke.py --seed-spread   # cached-mode fix over RANSAC seeds
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every kernel from the sources in this checkout;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   same inputs at the main path's shapes, with the tolerance stated below,
-   plus CUDA-event times of the kernel, the plain version and the closest
-   library call, and the kernel's bound on an H100;
-4. main path: the bucketed warp runner with the bundled learned_lg9 weights
+   same inputs at the paths' shapes, with the tolerance stated below, plus
+   CUDA-event times of the kernel, the plain version and the closest library
+   call, and the kernel's bound on an H100;
+4. path 1: the bucketed warp runner with the bundled learned_lg9 weights
    (SuperPoint + LightGlue-9) at 1088x1920 and 2048 keypoints over a seeded
-   rendered scene: 8 frames over 3 rotation buckets, during which every
-   kernel must launch, then a timing window of 14 bucket-refresh frames and
+   rendered scene: 8 frames over 3 rotation buckets, during which its four
+   kernels must launch, then a timing window of 14 bucket-refresh frames and
    64 cached frames (``--profile`` adds a torch.profiler pass over 10 more
-   cached frames for the device's busy time and idle share). Every fix must
-   be valid and within 10 m of the truth.
+   cached frames for the device's busy time and idle share);
+5. path 2: the cached-reference runner on a 2048x2048 map with 4096
+   reference keypoints over the 8x8 tile grid: one map extraction, then 16
+   frames at 2048 query keypoints (fused LightGlue, one stream at a time),
+   3 more with a position prior and 4 through a derotating runner, and 4
+   frames at 1792 (the module route, whose attention is the masked
+   attention kernel, 36 launches a frame);
+6. path 3: the exact-warp runner for 4 frames (pair SuperPoint, gather warp
+   with zoom), then the zoom-less exact-warp frame program on a 2048x2048
+   map at the query's ground sample distance for 4 frames (the 3-shear
+   rotation, 3 shear launches a frame);
+7. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+   package runs that kernel from its stage bench alone).
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it the
+Every fix of every path must be valid and within 10 m of the truth, and a
+path that never launched a kernel it was meant to run fails the run. The
+last line is ``{"ok": true, "device": {...}}``; the line before it the
 per-kernel JSON. The port's JAX counterpart is never imported.
 """
 from __future__ import annotations
@@ -44,6 +58,21 @@ F32_FLOPS = 67e12
 
 H, W = 1088, 1920
 MAX_KP = 2048
+PATH1_KERNELS = ("stem_stage", "conv_stage", "nms_select", "fused_block")
+CACHED_YAWS = [0.0, 5.0, -10.0, 15.0, 30.0, 45.0, 90.0, 180.0, -45.0, 135.0,
+               -90.0, 60.0, -150.0, 20.0, -30.0, 75.0]
+# the cached mode matches without a warp, so its map is requested at about
+# the query's ground sample distance: 1.3x the footprint over MAP px
+CACHED_COVERAGE = 1.3
+# of CACHED_YAWS, the frames whose fix moved least over 12 RANSAC seeds
+# (``--seed-spread``): derotating the 1088x1920 frame inside itself loses
+# its corners, so beyond ~45 deg under 80 matches are left and single seeds
+# put the fix 8-12 m off
+PRIOR_FRAMES = (1, 4, 8)  # 5, 30 and -45 deg
+DEROTATE_FRAMES = (2, 4, 7, 13)  # -10, 30, 180 and 20 deg
+SHEAR_YAWS = [20.0, -33.0, 61.5, 117.0]  # none a right angle
+MODULE_KP = 1792  # a budget outside the fused predicate: the module route
+MAP = 2048  # side of the cached mode's map
 CACHED_FRAMES = 64  # timing window of frames that hit the bucket cache
 CONV_SHAPES = [  # (name, h, w, cin, cmid, cout or None, pool) per image
     ("stage2", 544, 960, 64, 64, 64, True),
@@ -254,6 +283,143 @@ def check_nms(gen, quick, results):
     results.append(entry)
 
 
+def check_cellmax(gen, quick, results):
+    from gisnav_tpu_torch.features.nms_kernel import (
+        nms_cellmax,
+        nms_cellmax_plain,
+        nms_select,
+    )
+
+    # tolerance: exact (a selection of input values) against the plain
+    # version and against nms_select's cell max
+    entry = {"name": "nms_cellmax", "route": "cuda",
+             "source": "gisnav_tpu_torch/kernels/nms_select.cu",
+             "replaces": "gisnav_tpu/features/pallas_nms.py:57",
+             "max_abs_err": 0.0, "library_ms": None, "bound_ms": 0.0,
+             "ms": 0.0, "plain_ms": 0.0, "bound_by": "bytes"}
+    for h, w in ((H, W), (MAP, MAP)):
+        heat = torch.rand((h, w), generator=gen, device="cuda") ** 8
+        k_out = nms_cellmax(heat, 4)
+        e_plain = float((k_out - nms_cellmax_plain(heat, 4)).abs().max())
+        e_sel = float((k_out - nms_select(heat, 4)[0]).abs().max())
+        log(f"[kernel] nms_cellmax {h}x{w}: err vs plain={e_plain:.3g} "
+            f"vs nms_select cell_max={e_sel:.3g}")
+        if e_plain != 0.0 or e_sel != 0.0:
+            raise RuntimeError("nms_cellmax is not exact")
+        b, by = bound_ms(h * w * 4 * (1 + 1 / 16), f32_ops=34 * h * w)
+        if by != "bytes":
+            raise RuntimeError("nms_cellmax bound is expected to be bytes")
+        entry["bound_ms"] += b
+        if not quick:
+            entry["ms"] += time_ms(lambda: nms_cellmax(heat, 4))
+            entry["plain_ms"] += time_ms(lambda: nms_cellmax_plain(heat, 4))
+    results.append(entry)
+
+
+def check_attention(gen, quick, results):
+    import torch.nn.functional as F
+
+    from gisnav_tpu_torch.matching.attention import (
+        masked_attention,
+        masked_attention_plain,
+    )
+
+    # tolerance: 1e-2 of the plain version's largest |output| (f32 output of
+    # bf16 probabilities times bf16 values; the kernel keeps the reference's
+    # rounding points, and sums in another order can move a probability by
+    # one bf16 ulp). Unit-normal q over some thousand keys gives outputs of
+    # ~0.04, so each shape is also held with q x 4: sharp rows, outputs ~1
+    heads, d = 4, 64
+    entry = {"name": "masked_attention", "route": "cuda",
+             "source": "gisnav_tpu_torch/kernels/attention.cu",
+             "replaces": "gisnav_tpu/matching/pallas_attention.py:38",
+             "max_abs_err": 0.0}
+    ms, plain, lib, bounds = [], [], [], []
+    # the module route's four launches a layer: both self and both cross
+    n0, n1 = MODULE_KP, 2 * MODULE_KP
+    for kq, kk in ((n0, n0), (n1, n1), (n0, n1), (n1, n0)):
+        q, k, v = (_rand(gen, (n, heads, d)) for n in (kq, kk, kk))
+        mask = torch.rand((kk,), generator=gen, device="cuda") > 1 / 3
+        for sharp in (1.0, 4.0):
+            k_out = masked_attention(q * sharp, k, v, mask)
+            p_out = masked_attention_plain(q * sharp, k, v, mask)
+            e = float((k_out - p_out).abs().max())
+            tol = 1e-2 * float(p_out.abs().max())
+            log(f"[kernel] masked_attention Kq={kq} Kk={kk} H={heads} D={d} "
+                f"q x {sharp:g}: max_abs_err={e:.3g} (tolerance {tol:.3g}, "
+                f"mean |out| {float(p_out.abs().mean()):.3g})")
+            if not (e <= tol) or not torch.isfinite(k_out).all():
+                raise RuntimeError("masked_attention disagrees")
+            entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        nbytes = (kq + 2 * kk) * heads * d * 2 + kk * 4 + kq * heads * d * 4
+        bounds.append(bound_ms(nbytes, bf16_ops=4 * kq * kk * heads * d))
+        if not quick:
+            ms.append(time_ms(lambda: masked_attention(q, k, v, mask)))
+            plain.append(time_ms(
+                lambda: masked_attention_plain(q, k, v, mask), reps=3))
+            qh, kh, vh = (t.to(torch.bfloat16).transpose(0, 1)[None]
+                          for t in (q, k, v))
+            bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[
+                None, None, None, :]
+            lib.append(time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bias)))
+            log(f"[time] masked_attention Kq={kq} Kk={kk}: kernel "
+                f"{ms[-1]:.4f} ms, plain {plain[-1]:.4f} ms, SDPA "
+                f"{lib[-1]:.4f} ms")
+    entry["bound_ms"] = float(np.mean([b for b, _ in bounds]))
+    entry["bound_by"] = bounds[0][1]
+    if not quick:
+        entry["ms"], entry["plain_ms"], entry["library_ms"] = (
+            float(np.mean(x)) for x in (ms, plain, lib))
+    results.append(entry)
+
+
+def check_shear(gen, quick, results):
+    import torch.nn.functional as F
+
+    from gisnav_tpu_torch.raster.shear_kernel import (
+        shear_last_axis,
+        shear_last_axis_plain,
+    )
+
+    c, n = 2, MAP
+    img = torch.rand((c, n, n), generator=gen, device="cuda")
+    # tolerance: the same f32 expression on both sides; 1e-5 x max|img|
+    tol = 1e-5 * float(img.abs().max())
+    entry = {"name": "shear_last_axis", "route": "cuda",
+             "source": "gisnav_tpu_torch/kernels/shear.cu",
+             "replaces": "gisnav_tpu/raster/pallas_shear.py:30",
+             "max_abs_err": 0.0}
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        2 * c * n * n * 4, f32_ops=7 * c * n * n)
+    ms, plain, lib = [], [], []
+    for shift in (0.41, -0.41, 0.70, -0.70):
+        k_out = shear_last_axis(img, shift, n / 2)
+        e = float((k_out - shear_last_axis_plain(img, shift, n / 2)
+                   ).abs().max())
+        log(f"[kernel] shear_last_axis {c}x{n}x{n} shift={shift:+.2f}: "
+            f"max_abs_err={e:.3g}")
+        if not (e <= tol) or not torch.isfinite(k_out).all():
+            raise RuntimeError("shear_last_axis disagrees")
+        entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        if not quick:
+            ms.append(time_ms(lambda: shear_last_axis(img, shift, n / 2)))
+            plain.append(time_ms(
+                lambda: shear_last_axis_plain(img, shift, n / 2), reps=3))
+            rows = torch.arange(n, dtype=torch.float32, device="cuda")
+            xs = rows[None, :] + shift * (rows[:, None] - n / 2)
+            grid = torch.stack([2 * xs / (n - 1) - 1,
+                                (2 * rows / (n - 1) - 1)[:, None].expand(
+                                    n, n)], dim=-1)[None]
+            lib.append(time_ms(lambda: F.grid_sample(
+                img[None], grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True)))
+    if not quick:
+        entry["ms"], entry["plain_ms"], entry["library_ms"] = (
+            float(np.mean(x)) for x in (ms, plain, lib))
+    results.append(entry)
+
+
 def _block_inputs(gen, n, kk_total, sets):
     dim = 256
     x = _rand(gen, (n, dim))
@@ -310,11 +476,18 @@ def check_block(gen, quick, results):
     tol = 5e-2
     entry = {"name": "fused_block", "route": "cuda",
              "source": "gisnav_tpu_torch/kernels/lightglue_block.cu",
-             "replaces": "gisnav_tpu/matching/lightglue_fused.py:142",
+             "replaces": "gisnav_tpu/matching/lightglue_fused.py:142, "
+                         "gisnav_tpu/matching/_old_lgf.py:133",
              "max_abs_err": 0.0}
+    # the one-stream cases are the cached path's four launches a layer (self
+    # at 2048 and 4096, cross both ways), and the whole of what the older
+    # layout's TPU kernel (_old_lgf.py) computes
     cases = [("dual self", 2 * MAX_KP, 2 * MAX_KP, 2, False),
              ("dual cross", 2 * MAX_KP, 2 * MAX_KP, 2, True),
-             ("single", MAX_KP, MAX_KP, 1, False)]
+             ("single", MAX_KP, MAX_KP, 1, False),
+             ("single 2048 q x 4096 k", MAX_KP, 2 * MAX_KP, 1, False),
+             ("single 4096 q x 2048 k", 2 * MAX_KP, MAX_KP, 1, False),
+             ("single 4096", 2 * MAX_KP, 2 * MAX_KP, 1, False)]
     dual_ms, dual_plain = [], []
     for name, n, kk_total, sets, cross in cases:
         x, q, k, v, bias, w = _block_inputs(gen, n, kk_total, sets)
@@ -327,6 +500,9 @@ def check_block(gen, quick, results):
         if not (e <= tol) or not torch.isfinite(k_out).all():
             raise RuntimeError(f"fused_block {name} disagrees")
         entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        if sets == 1 and max(n, kk_total) > MAX_KP and not quick:
+            ms = time_ms(lambda: fused_block(x, q, k, v, bias, *w, **kw))
+            log(f"[time] fused_block {name}: kernel {ms:.4f} ms")
         if sets == 2 and not quick:
             dual_ms.append(time_ms(lambda: fused_block(x, q, k, v, bias, *w,
                                                        **kw)))
@@ -351,7 +527,7 @@ def check_block(gen, quick, results):
 
 
 def profile_frames(run_frame, frames, n: int = 10) -> float:
-    """Device time by kernel over ``n`` cached frames (torch.profiler);
+    """Device time by kernel over ``n`` frames (torch.profiler);
     returns the device's busy ms per frame."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -372,20 +548,302 @@ def profile_frames(run_frame, frames, n: int = 10) -> float:
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0]
     busy = sum(d for _, d, _ in dev) / n
-    log(f"[profile] device busy {busy:.3f} ms/frame over {n} cached frames; "
+    log(f"[profile] device busy {busy:.3f} ms/frame over {n} frames; "
         f"the profiled wall ({wall_ms / n:.1f} ms/frame) carries the "
         f"tracer's own cost, so the idle share is taken against the "
-        f"unprofiled cached-frame p50 of this run")
+        f"unprofiled frame p50 of this run")
     for key, d, count in sorted(dev, key=lambda x: -x[1])[:20]:
         log(f"[profile] {d / n:9.3f} ms/frame {count // n:6d} calls/frame "
             f"{key[:90]}")
     return busy
 
 
-def phase_main_path(profile_run: bool = False) -> dict:
+def fly(runner, scene, i: int, tag: str = "", **kw):
+    """One frame of ``scene`` through ``runner``: (ms on the host clock
+    around a synchronised frame, error in metres); raises unless the fix is
+    valid, finite and within 10 m of the truth."""
     from gisnav_tpu_torch.geometry.crs import haversine_m
-    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
     from gisnav_tpu_torch.pipeline.geopose import geopose_to_wgs84_f64
+
+    yaw, (lon, lat) = scene.yaws[i], scene.truth_lonlat[i]
+    t = time.perf_counter()
+    pose = runner(scene.frames[i], scene.ortho, scene.dem, yaw, scene.k,
+                  scene.crs_affine, map_stamp=1, altitude_agl=scene.alt_m,
+                  **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    fix = geopose_to_wgs84_f64(pose, scene.crs_affine)
+    err = haversine_m(lat, lon, fix["lat"], fix["lon"])
+    if tag:
+        log(f"{tag} yaw {yaw:6.1f}: {ms:8.2f} ms valid={bool(pose.valid)} "
+            f"matches={int(pose.num_matches)} "
+            f"inliers={int(pose.num_inliers)} error={err:.3f} m")
+    if not (bool(pose.valid) and err < 10.0
+            and np.isfinite(fix["alt_ellipsoid"])):
+        raise RuntimeError(f"{tag or f'frame {i}'} (yaw {yaw}): fix invalid "
+                           f"or {err:.2f} m off")
+    return ms, err
+
+
+def expect_launches(path: str, launches: dict, expected: dict) -> None:
+    """Fail unless ``launches`` holds exactly ``expected`` for its keys and
+    nothing for every other kernel."""
+    want = {k: expected.get(k, 0) for k in launches}
+    if launches != want:
+        raise RuntimeError(f"{path}: launches {launches}, expected {want}")
+
+
+def phase_cached_path(params, config, profile_run: bool = False) -> dict:
+    """Path 2: the cached-reference runner on a MAP x MAP orthoimage."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.runners import make_cached_deep_runner
+    from gisnav_tpu_torch.utils.world import render_scene
+
+    t0 = time.time()
+    scene = render_scene(seed=1, h=H, w=W, yaws=CACHED_YAWS, map_side=MAP,
+                         coverage=CACHED_COVERAGE)
+    log(f"[cached] scene {scene.ortho.shape} in {time.time() - t0:.1f} s")
+    out = {}
+    for name, kp, frames in (("fused", MAX_KP, len(CACHED_YAWS)),
+                             ("module", MODULE_KP, 4)):
+        cfg = dataclasses.replace(config, max_keypoints=kp)
+        runner = make_cached_deep_runner(params, cfg)
+        # the first frame extracts the map; run it twice untimed (kernel
+        # loading, allocator), then time one extraction on a new map stamp
+        fly(runner, scene, 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runner(scene.frames[0], scene.ortho, scene.dem, scene.yaws[0],
+               scene.k, scene.crs_affine, map_stamp=2,
+               altitude_agl=scene.alt_m)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        reset_launches()
+        runner(scene.frames[0], scene.ortho, scene.dem, scene.yaws[0],
+               scene.k, scene.crs_affine, map_stamp=1,
+               altitude_agl=scene.alt_m)
+        extract_launches = dict(LAUNCHES)
+        reset_launches()
+        rows = [fly(runner, scene, i, f"[cached {name}] frame {i}")
+                for i in range(frames)]
+        launches = dict(LAUNCHES)
+        ms = [r[0] for r in rows]
+        # the extraction frame also ran one query frame
+        per_frame = {k: n // frames for k, n in launches.items()}
+        extract_only = {k: extract_launches[k] - per_frame[k]
+                        for k in launches}
+        log(f"[cached {name}] launches over {frames} frames: {launches}; "
+            f"map extraction alone: {extract_only}")
+        # query SuperPoint: stem 2, stages 8, select 1; LightGlue-9: 36
+        # block calls of 2 launches (fused) or 36 attention launches
+        block = {"fused": {"fused_block": 72 * frames},
+                 "module": {"masked_attention": 36 * frames}}[name]
+        expect_launches(f"cached {name}", launches,
+                        {"stem_stage": 2 * frames, "conv_stage": 8 * frames,
+                         "nms_select": frames, **block})
+        expect_launches(f"cached {name} extraction", extract_only,
+                        {"stem_stage": 2, "conv_stage": 8})
+        if runner.stats != {"frames": frames + 3, "map_extractions": 3}:
+            raise RuntimeError(f"cached {name}: stats {runner.stats}")
+        p50 = float(np.median(ms))
+        out[name] = {
+            "keypoints": kp, "frames": frames, "frame_p50_ms": p50,
+            "frame_p90_ms": float(np.percentile(ms, 90)),
+            "map_extraction_ms": first_ms - p50,
+            "max_error_m": float(max(r[1] for r in rows)),
+            "mean_error_m": float(np.mean([r[1] for r in rows])),
+            "launches": launches}
+        if profile_run:
+            busy = profile_frames(lambda i: fly(runner, scene, i),
+                                  list(range(frames)))
+            out[name]["device_busy_ms"] = busy
+            out[name]["device_idle_share"] = 1.0 - busy / p50
+        if name == "fused":
+            out["options"] = cached_options(params, cfg, scene, runner)
+    log("[cached] " + json.dumps(out))
+    return out
+
+
+def cached_options(params, cfg, scene, runner) -> dict:
+    """The cached runner's two options on the card: a position prior (at the
+    truth the fix stands; a degree off the map no reference keypoint is
+    left, so the frame must come back invalid with no match) and query
+    derotation (a runner of its own over ``DEROTATE_FRAMES``)."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.runners import make_cached_deep_runner
+
+    errors = []
+    for i in PRIOR_FRAMES:
+        lon, lat = scene.truth_lonlat[i]
+        errors.append(fly(runner, scene, i, f"[cached prior] frame {i}",
+                          prior_lonlat=(lon, lat))[1])
+        pose = runner(scene.frames[i], scene.ortho, scene.dem, scene.yaws[i],
+                      scene.k, scene.crs_affine, map_stamp=1,
+                      altitude_agl=scene.alt_m, prior_lonlat=(lon + 1.0, lat))
+        if bool(pose.valid) or int(pose.num_matches) != 0:
+            raise RuntimeError(f"cached prior: frame {i} with its prior off "
+                               f"the map kept {int(pose.num_matches)} "
+                               f"matches, valid={bool(pose.valid)}")
+    derot = make_cached_deep_runner(params, cfg, derotate=True)
+    fly(derot, scene, 0)
+    reset_launches()
+    rows = [fly(derot, scene, i, f"[cached derotate] frame {i}")
+            for i in DEROTATE_FRAMES]
+    n = len(rows)
+    # the 1088x1920 camera is not square: its derotation is the gather warp
+    expect_launches("cached derotate", dict(LAUNCHES),
+                    {"stem_stage": 2 * n, "conv_stage": 8 * n,
+                     "nms_select": n, "fused_block": 72 * n})
+    return {"prior_frames": len(errors), "prior_max_error_m": max(errors),
+            "derotate_frames": n,
+            "derotate_max_error_m": float(max(r[1] for r in rows)),
+            "derotate_frame_p50_ms": float(np.median([r[0] for r in rows]))}
+
+
+def phase_exact_warp_path(params, config, scene,
+                          profile_run: bool = False) -> dict:
+    """Path 3: the exact-warp runner on path 1's scene, then the zoom-less
+    exact-warp frame program on a map at the query's ground sample
+    distance."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose,
+        build_models,
+    )
+    from gisnav_tpu_torch.pipeline.runners import make_deep_runner
+    from gisnav_tpu_torch.utils.world import render_scene
+    from gisnav_tpu_torch.weights import params_from_jax
+
+    frames = 4
+    runner = make_deep_runner(params, config)
+    fly(runner, scene, 0)
+    reset_launches()
+    rows = [fly(runner, scene, i, f"[exact] frame {i}")
+            for i in range(3, 3 + frames)]
+    launches = dict(LAUNCHES)
+    log(f"[exact] launches over {frames} frames: {launches}")
+    # pair SuperPoint (2 x (2 + 8 + 1)), dual LightGlue (18 calls of 2)
+    expect_launches("exact warp", launches,
+                    {"stem_stage": 4 * frames, "conv_stage": 16 * frames,
+                     "nms_select": 2 * frames, "fused_block": 36 * frames})
+    ms = [r[0] for r in rows]
+    out = {"runner": {"frames": frames, "frame_p50_ms": float(np.median(ms)),
+                      "frame_p90_ms": float(np.percentile(ms, 90)),
+                      "max_error_m": float(max(r[1] for r in rows)),
+                      "launches": launches}}
+    if profile_run:
+        busy = profile_frames(lambda i: fly(runner, scene, i),
+                              list(range(3, 3 + frames)))
+        out["runner"]["device_busy_ms"] = busy
+        out["runner"]["device_idle_share"] = 1.0 - busy / out["runner"][
+            "frame_p50_ms"]
+
+    t0 = time.time()
+    zl = render_scene(seed=2, h=H, w=W, yaws=SHEAR_YAWS, map_side=MAP,
+                      coverage=MAP / W)
+    log(f"[shear] scene {zl.ortho.shape} at the query's GSD in "
+        f"{time.time() - t0:.1f} s")
+    dev = torch.device("cuda")
+    models = build_models(params_from_jax(params, dev), config)
+    program = build_frame_to_geopose(config)
+    generator = torch.Generator(device=dev)
+    state = {"n": 0}
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def zoomless(query, ortho, dem, rotation_deg, k, crs_affine,
+                 map_stamp=None, altitude_agl=None):
+        """The frame program as a runner: the map is uploaded once, no zoom
+        is passed."""
+        if "ortho" not in state:
+            state["ortho"], state["dem"] = f32(ortho) / 255.0, f32(dem)
+        state["n"] += 1
+        generator.manual_seed(state["n"])
+        return program(models, f32(query) / 255.0, state["ortho"],
+                       state["dem"], rotation_deg, f32(k), f32(crs_affine),
+                       generator=generator)
+
+    fly(zoomless, zl, 0)
+    reset_launches()
+    rows = [fly(zoomless, zl, i, f"[shear] frame {i}")
+            for i in range(len(SHEAR_YAWS))]
+    ms, errors = [r[0] for r in rows], [r[1] for r in rows]
+    launches = dict(LAUNCHES)
+    frames = len(SHEAR_YAWS)
+    log(f"[shear] launches over {frames} frames: {launches}")
+    expect_launches("zoom-less exact warp", launches,
+                    {"shear_last_axis": 3 * frames,
+                     "stem_stage": 4 * frames, "conv_stage": 16 * frames,
+                     "nms_select": 2 * frames, "fused_block": 36 * frames})
+    out["zoomless"] = {"frames": frames,
+                       "frame_p50_ms": float(np.median(ms)),
+                       "frame_p90_ms": float(np.percentile(ms, 90)),
+                       "max_error_m": float(max(errors)),
+                       "launches": launches}
+    log("[exact] " + json.dumps(out))
+    return out
+
+
+def phase_seed_spread(seeds: int = 12) -> None:
+    """How far the cached runner's fix moves with the RANSAC seed: every
+    frame of path 2's scene ``seeds`` times (the runner seeds its generator
+    with its frame counter), with a prior at the truth and through a
+    derotating runner. Prints a table and checks nothing."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.pipeline.geopose import geopose_to_wgs84_f64
+    from gisnav_tpu_torch.pipeline.runners import make_cached_deep_runner
+    from gisnav_tpu_torch.utils.world import render_scene
+    from gisnav_tpu_torch.weights import load_bundled
+
+    params, config = load_bundled("learned_lg9")
+    config = dataclasses.replace(config, image_shape=(H, W),
+                                 max_keypoints=MAX_KP, lightglue_depth=9)
+    scene = render_scene(seed=1, h=H, w=W, yaws=CACHED_YAWS, map_side=MAP,
+                         coverage=CACHED_COVERAGE)
+    for name, derotate in (("prior", False), ("derotate", True)):
+        runner = make_cached_deep_runner(params, config, derotate=derotate)
+        for i, (yaw, (lon, lat)) in enumerate(zip(scene.yaws,
+                                                  scene.truth_lonlat)):
+            poses = [runner(scene.frames[i], scene.ortho, scene.dem, yaw,
+                            scene.k, scene.crs_affine, map_stamp=1,
+                            altitude_agl=scene.alt_m,
+                            prior_lonlat=None if derotate else (lon, lat))
+                     for _ in range(seeds)]
+            fixes = [geopose_to_wgs84_f64(p, scene.crs_affine) for p in poses]
+            err = [haversine_m(lat, lon, f["lat"], f["lon"]) for f in fixes]
+            inl = [int(p.num_inliers) for p in poses]
+            log(f"[seeds {name}] frame {i} yaw {yaw:6.1f}: matches "
+                f"{int(poses[0].num_matches)} inliers {min(inl)}-{max(inl)} "
+                f"valid {sum(bool(p.valid) for p in poses)}/{seeds} error "
+                f"min {min(err):.2f} median {float(np.median(err)):.2f} "
+                f"max {max(err):.2f} m")
+
+
+def phase_cellmax_stage() -> int:
+    """The NMS cell-max stage on a frame-sized and a map-sized heatmap, as
+    the JAX package's stage bench runs its kernel; returns the launches."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.features.nms_kernel import nms_cellmax
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    reset_launches()
+    for h, w in ((H, W), (MAP, MAP)):
+        heat = torch.rand((h, w), generator=gen, device="cuda") ** 8
+        cells = nms_cellmax(heat, 4)
+        torch.cuda.synchronize()
+        if cells.shape != (h // 4, w // 4) or not (
+                torch.isfinite(cells).all() and float(cells.max()) > 0):
+            raise RuntimeError("nms_cellmax stage gave no cell maxima")
+    launches = dict(LAUNCHES)
+    expect_launches("cell-max stage", launches, {"nms_cellmax": 2})
+    log(f"[cellmax] launches: {launches}")
+    return launches["nms_cellmax"]
+
+
+def phase_main_path(profile_run: bool = False) -> dict:
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
     from gisnav_tpu_torch.pipeline.runners import make_bucketed_warp_runner
     from gisnav_tpu_torch.utils.world import render_scene
     from gisnav_tpu_torch.weights import load_bundled
@@ -403,24 +861,8 @@ def phase_main_path(profile_run: bool = False) -> dict:
     errors = []
 
     def run_frame(i: int, tag: str = "") -> float:
-        yaw, (lon, lat) = scene.yaws[i], scene.truth_lonlat[i]
-        t = time.perf_counter()
-        pose = runner(scene.frames[i], scene.ortho, scene.dem, yaw, scene.k,
-                      scene.crs_affine, map_stamp=1,
-                      altitude_agl=scene.alt_m)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        fix = geopose_to_wgs84_f64(pose, scene.crs_affine)
-        err = haversine_m(lat, lon, fix["lat"], fix["lon"])
-        if tag:
-            log(f"[main] {tag} yaw {yaw:5.1f} bucket {round(yaw / 15.0)}: "
-                f"{ms:8.2f} ms valid={bool(pose.valid)} "
-                f"matches={int(pose.num_matches)} "
-                f"inliers={int(pose.num_inliers)} error={err:.3f} m")
-        if not (bool(pose.valid) and err < 10.0
-                and np.isfinite(fix["alt_ellipsoid"])):
-            raise RuntimeError(f"frame {i} (yaw {yaw}): fix invalid or "
-                               f"{err:.2f} m off")
+        ms, err = fly(runner, scene, i, tag and f"[main] {tag} bucket "
+                      f"{round(scene.yaws[i] / 15.0)}")
         errors.append(err)
         return ms
 
@@ -434,7 +876,7 @@ def phase_main_path(profile_run: bool = False) -> dict:
         run_frame(i, f"frame {i}")
     launches = dict(LAUNCHES)
     log(f"[main] launches over {len(yaws)} frames: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in PATH1_KERNELS if launches[k] == 0]
     if missing:
         raise RuntimeError(f"main path never launched {missing}")
 
@@ -461,6 +903,7 @@ def phase_main_path(profile_run: bool = False) -> dict:
         out["device_busy_ms"] = busy
         out["device_idle_share"] = 1.0 - busy / p50
     log("[main] " + json.dumps(out))
+    out["scene"], out["params"], out["config"] = scene, params, config
     return out
 
 
@@ -469,7 +912,10 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only, no timing")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the main path (torch.profiler)")
+                    help="also profile paths 1-3 (torch.profiler)")
+    ap.add_argument("--seed-spread", action="store_true",
+                    help="only print how the cached runner's fixes move "
+                         "over RANSAC seeds")
     args = ap.parse_args(argv)
 
     device = phase_device()
@@ -477,19 +923,38 @@ def main(argv=None) -> int:
 
     strict_fp32()
     phase_build()
+    if args.seed_spread:
+        phase_seed_spread()
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     results: list = []
     check_conv(gen, args.quick, results)
     check_nms(gen, args.quick, results)
     check_block(gen, args.quick, results)
+    check_attention(gen, args.quick, results)
+    check_shear(gen, args.quick, results)
+    check_cellmax(gen, args.quick, results)
     torch.cuda.synchronize()
     log(json.dumps({"kernels_checked": [r["name"] for r in results]}))
     if args.quick:
         return 0
     main_path = phase_main_path(args.profile)
+    params, config = main_path["params"], main_path["config"]
+    cached = phase_cached_path(params, config, args.profile)
+    exact = phase_exact_warp_path(params, config, main_path["scene"],
+                                  args.profile)
+    # each kernel's count comes from the path that runs it
+    counts = dict(main_path["launches"])
+    counts["masked_attention"] = cached["module"]["launches"][
+        "masked_attention"]
+    counts["shear_last_axis"] = exact["zoomless"]["launches"][
+        "shear_last_axis"]
+    counts["nms_cellmax"] = phase_cellmax_stage()
     for r in results:
-        r["launches"] = main_path["launches"][r["name"]]
+        r["launches"] = counts[r["name"]]
+        if not r["launches"] > 0:
+            raise RuntimeError(f"{r['name']} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     smi = subprocess.run(

@@ -7,6 +7,10 @@ cell the sub-pixel position of its survivors (3x3 soft-argmax on the raw
 heatmap, temperature 0.1, clipped to +-0.5 px), averaged over tied survivors;
 0 for empty cells. Pixels outside the image read as zero.
 
+``nms_cellmax`` is the counterpart of ``nms_cellmax_pallas``: the NMS and
+cell-max half alone, (H, W) -> (H/4, W/4), the kernel's second entry point.
+Its cell maxima are bit-identical to ``nms_select``'s.
+
 A CPU tensor runs the plain version; a CUDA tensor launches
 ``kernels/nms_select.cu`` or raises.
 """
@@ -27,24 +31,41 @@ from gisnav_tpu_torch.kernels.build import (
     typed,
 )
 
-__all__ = ["nms_select", "nms_select_plain"]
+__all__ = ["nms_select", "nms_select_plain", "nms_cellmax",
+           "nms_cellmax_plain", "nms_cellmax_supported"]
 
 _RADIUS = 4
 _BLOCK = 4
 
 
-def nms_select_plain(heatmap: torch.Tensor, border: int,
-                     temperature: float = 0.1
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    h, w = heatmap.shape
+def _nms_keep(core: torch.Tensor, border: int):
+    """9x9 NMS survivors inside the border, and the pixel index grids."""
+    h, w = core.shape
     r = _RADIUS
-    core = heatmap.float()
     pooled = F.max_pool2d(F.pad(core, (r, r, r, r))[None, None], 2 * r + 1,
                           stride=1)[0, 0]
     ys = torch.arange(h, device=core.device)[:, None]
     xs = torch.arange(w, device=core.device)[None, :]
     keep = ((core >= pooled) & (xs >= border) & (xs < w - border)
             & (ys >= border) & (ys < h - border))
+    return keep, xs, ys
+
+
+def nms_cellmax_plain(heatmap: torch.Tensor, border: int) -> torch.Tensor:
+    h, w = heatmap.shape
+    core = heatmap.float()
+    keep, _, _ = _nms_keep(core, border)
+    nms = torch.where(keep, core, torch.zeros_like(core))
+    return nms.reshape(h // _BLOCK, _BLOCK, w // _BLOCK, _BLOCK).amax(
+        dim=(1, 3))
+
+
+def nms_select_plain(heatmap: torch.Tensor, border: int,
+                     temperature: float = 0.1
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    h, w = heatmap.shape
+    core = heatmap.float()
+    keep, xs, ys = _nms_keep(core, border)
     nms = torch.where(keep, core, torch.zeros_like(core))
 
     pad = F.pad(core, (1, 1, 1, 1))
@@ -86,7 +107,8 @@ def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return typed(library("nms_select"), {
         "gisnav_nms_select": [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-                              vp]})
+                              vp],
+        "gisnav_nms_cellmax": [vp, vp, ci, ci, ci, vp]})
 
 
 def nms_select(heatmap: torch.Tensor, border: int, temperature: float = 0.1
@@ -107,3 +129,27 @@ def nms_select(heatmap: torch.Tensor, border: int, temperature: float = 0.1
                                    stream_of(heat)), "nms_select")
     LAUNCHES["nms_select"] += 1
     return tuple(outs)
+
+
+def nms_cellmax_supported(h: int, w: int, border: int) -> bool:
+    """The shapes ``nms_cellmax_pallas`` takes (radius 4, block 4)."""
+    return border >= 1 and h % 32 == 0 and w % 128 == 0 and w >= 256
+
+
+def nms_cellmax(heatmap: torch.Tensor, border: int) -> torch.Tensor:
+    """(H, W) heatmap -> (H/4, W/4) NMS'd cell maxima."""
+    h, w = heatmap.shape
+    if not nms_cellmax_supported(h, w, border):
+        raise ValueError(f"nms_cellmax needs H % 32 == 0, W % 128 == 0, "
+                         f"W >= 256 and border >= 1, got {(h, w, border)}")
+    if not heatmap.is_cuda:
+        return nms_cellmax_plain(heatmap, border)
+    if heatmap.dtype != torch.float32:
+        raise TypeError("nms_cellmax takes an f32 heatmap")
+    heat = heatmap.contiguous()
+    out = torch.empty((h // _BLOCK, w // _BLOCK), dtype=torch.float32,
+                      device=heat.device)
+    check(_lib().gisnav_nms_cellmax(ptr(heat), ptr(out), h, w, int(border),
+                                    stream_of(heat)), "nms_cellmax")
+    LAUNCHES["nms_cellmax"] += 1
+    return out

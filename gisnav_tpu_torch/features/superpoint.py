@@ -9,13 +9,16 @@ are L2-normalised and sampled bilinearly at the keypoints.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
 
 from gisnav_tpu_torch.features.conv import conv_stage, stem_stage
-from gisnav_tpu_torch.features.nms import select_keypoints
+from gisnav_tpu_torch.features.nms import (
+    select_keypoints,
+    select_keypoints_tiled,
+)
 
 __all__ = ["SuperPoint", "SuperPointFeatures", "sample_descriptors"]
 
@@ -55,17 +58,23 @@ def sample_descriptors(kpts: torch.Tensor, dmap: torch.Tensor,
 
 
 class SuperPoint(nn.Module):
-    """SuperPoint forward for one (H, W) f32 image in [0, 1]; H, W % 8 == 0.
+    """SuperPoint forward for one (H, W) f32 image in [0, 1], or a (B, H, W)
+    batch run image by image (the batch is 1-2 in every pipeline mode) with
+    every output stacked; H, W % 8 == 0.
 
     ``params`` is the port's SuperPoint tree (``weights.params_from_jax``):
     3x3 kernels ``(9, Cin, Cout)`` bf16, 1x1 kernels in Linear layout.
+    ``select_tiles`` other than (1, 1) splits the keypoint budget evenly
+    over that grid (``select_keypoints_tiled``), for large reference rasters.
     """
 
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]],
-                 max_keypoints: int = 1024, score_threshold: float = 0.0005):
+                 max_keypoints: int = 1024, score_threshold: float = 0.0005,
+                 select_tiles: Tuple[int, int] = (1, 1)):
         super().__init__()
         self.max_keypoints = max_keypoints
         self.score_threshold = score_threshold
+        self.select_tiles = tuple(select_tiles)
         for name in _CONVS + ("convPb", "convDb"):
             self.register_buffer(name + "_w", params[name]["weight"])
             self.register_buffer(name + "_b", params[name]["bias"])
@@ -75,6 +84,10 @@ class SuperPoint(nn.Module):
 
     @torch.no_grad()
     def forward(self, image: torch.Tensor) -> SuperPointFeatures:
+        if image.dim() == 3:
+            per_image = [self.forward(im) for im in image]
+            return SuperPointFeatures(*(torch.stack(f)
+                                        for f in zip(*per_image)))
         h, w = image.shape
         v = stem_stage(image.float(), *self._p("conv1a"), *self._p("conv1b"),
                        pool=True)
@@ -94,7 +107,12 @@ class SuperPoint(nn.Module):
         cda = conv_stage(v, *self._p("convDa"))
         dmap = _rsqrt_normalize(cda.float() @ wdb.float().T + bdb)
 
-        kpts, scores, valid = select_keypoints(
-            heatmap, self.max_keypoints, self.score_threshold)
+        if self.select_tiles != (1, 1):
+            kpts, scores, valid = select_keypoints_tiled(
+                heatmap, self.max_keypoints, self.select_tiles,
+                self.score_threshold)
+        else:
+            kpts, scores, valid = select_keypoints(
+                heatmap, self.max_keypoints, self.score_threshold)
         return SuperPointFeatures(kpts, scores,
                                   sample_descriptors(kpts, dmap), valid)

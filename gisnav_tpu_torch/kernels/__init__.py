@@ -4,7 +4,8 @@ Each kernel wrapper adds one to its entry in ``LAUNCHES`` for every kernel
 launch the card accepted (never when it runs the plain PyTorch version for a
 CPU tensor), so a run can show that its main path went through them. A stem
 call is 2 launches (conv1a, conv1b), a two-conv stage 2 and a one-conv stage
-1, a fused block 2 (attention, FFN epilogue), an NMS-select 1.
+1, a fused block 2 (attention, FFN epilogue), and an NMS-select, an NMS
+cell-max, a masked attention and a shear pass 1 each.
 """
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ LAUNCHES: Dict[str, int] = {
     "conv_stage": 0,
     "nms_select": 0,
     "fused_block": 0,
+    "masked_attention": 0,
+    "shear_last_axis": 0,
+    "nms_cellmax": 0,
 }
 
 

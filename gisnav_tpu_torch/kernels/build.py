@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "build_all", "library", "check", "check_device",
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("conv", "nms_select", "lightglue_block")
+SOURCES = ("conv", "nms_select", "lightglue_block", "attention", "shear")
 _FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-shared", "-Xcompiler", "-fPIC"]
 

@@ -10,6 +10,11 @@
 // column roll wraps at row ends instead, but only into columns that border
 // suppression zeroes, so the kept values are the same.
 //
+// The same kernel without the position half (`SELECT` false) replaces
+// `nms_cellmax_pallas` of the same file: NMS, border suppression and the cell
+// maximum only. Both instances select input values with the same
+// comparisons, so their cell maxima are bit-identical.
+//
 // Bound on an H100: bytes (one read of the heatmap, 3 small writes, ~60
 // flops and 9 exps per pixel). Design: a block stages a 32x128 tile plus its
 // 4-pixel halo in shared memory once, builds the separable 9-wide row max
@@ -26,6 +31,7 @@ constexpr int SR = TRW + 2 * R;
 constexpr int SC = TCL + 2 * R;
 constexpr int THREADS = (TRW / 4) * (TCL / 4);  // one thread per cell
 
+template <bool SELECT>
 __global__ void __launch_bounds__(THREADS)
 nms_select(const float* __restrict__ heat, float* __restrict__ cell_max,
            float* __restrict__ cell_x, float* __restrict__ cell_y, int H,
@@ -69,7 +75,7 @@ nms_select(const float* __restrict__ heat, float* __restrict__ cell_max,
                       gy >= border && gy < H - border;
     const float nms = keep ? core : 0.0f;
     best = fmaxf(best, nms);
-    if (!(keep && core > 0.0f)) continue;
+    if (!SELECT || !(keep && core > 0.0f)) continue;
     // 3x3 soft-argmax on the raw heatmap, summed in the Pallas order
     float m3 = core;
 #pragma unroll
@@ -96,8 +102,10 @@ nms_select(const float* __restrict__ heat, float* __restrict__ cell_max,
   const float denom = fmaxf(cnt, 1.0f);
   const size_t o = (size_t)oy * wb + ox;
   cell_max[o] = best;
-  cell_x[o] = sx_sum / denom;
-  cell_y[o] = sy_sum / denom;
+  if (SELECT) {
+    cell_x[o] = sx_sum / denom;
+    cell_y[o] = sy_sum / denom;
+  }
 }
 
 }  // namespace
@@ -107,7 +115,16 @@ extern "C" int gisnav_nms_select(const float* heat, float* cell_max,
                                  int border, float inv_t, void* stream) {
   if (H % 4 || W % 4) return -1;
   dim3 grid((W + TCL - 1) / TCL, (H + TRW - 1) / TRW);
-  nms_select<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  nms_select<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       heat, cell_max, cell_x, cell_y, H, W, border, inv_t);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gisnav_nms_cellmax(const float* heat, float* cell_max, int H,
+                                  int W, int border, void* stream) {
+  if (H % 4 || W % 4) return -1;
+  dim3 grid((W + TCL - 1) / TCL, (H + TRW - 1) / TRW);
+  nms_select<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      heat, cell_max, nullptr, nullptr, H, W, border, 0.0f);
   return (int)cudaGetLastError();
 }

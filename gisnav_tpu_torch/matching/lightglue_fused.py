@@ -38,14 +38,25 @@ from gisnav_tpu_torch.kernels.build import (
 )
 from gisnav_tpu_torch.matching.lightglue import (
     MatchResult,
-    extract_matches,
+    assignment,
     normalize_keypoints,
 )
 
-__all__ = ["fused_block", "fused_block_plain", "LightGlue"]
+__all__ = ["fused_block", "fused_block_plain", "fused_lightglue_supported",
+           "LightGlue"]
 
+_BLK_Q = 512
 _LN_EPS = 1e-6
 _BF16 = torch.bfloat16
+
+
+def fused_lightglue_supported(k0: int, k1: int, dim: int,
+                              heads: int) -> bool:
+    """The shapes the fused forward serves (the JAX package's predicate);
+    all others take the module route (``lightglue.LightGlueMatcher``)."""
+    return (dim == 256 and heads == 4 and k0 % _BLK_Q == 0
+            and k1 % _BLK_Q == 0
+            and max(k0, k1) * dim * 2 * 2 <= 16 * 1024 * 1024)
 
 
 def _r(t: torch.Tensor) -> torch.Tensor:
@@ -323,14 +334,5 @@ class LightGlue(nn.Module):
         if dual:
             x0, x1 = xx[:k0], xx[k0:]
 
-        md0 = (x0 @ self.wf + self.bf) / float(dim) ** 0.25
-        md1 = (x1 @ self.wf + self.bf) / float(dim) ** 0.25
-        sim = md0 @ md1.T
-        z0 = torch.sigmoid((x0 @ self.wm + self.bm)[:, 0])
-        z1 = torch.sigmoid((x1 @ self.wm + self.bm)[:, 0])
-        pairmask = mask0[:, None] & mask1[None, :]
-        sim = torch.where(pairmask, sim, neg)
-        scores = (torch.softmax(sim, dim=1) * torch.softmax(sim, dim=0)
-                  * (z0[:, None] * z1[None, :]))
-        scores = torch.where(pairmask, scores, zero)
-        return extract_matches(scores, mask0, mask1, self.filter_threshold)
+        return assignment(x0, x1, mask0, mask1, self.wf, self.bf, self.wm,
+                          self.bm, dim, self.filter_threshold)

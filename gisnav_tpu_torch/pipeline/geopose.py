@@ -1,7 +1,9 @@
-"""Frame -> geopose programs of the bucketed warp mode, and geopose assembly.
+"""Frame -> geopose programs of the three deep modes, and geopose assembly.
 
 Counterpart of ``gisnav_tpu/pipeline/geopose.py`` (``PipelineConfig``,
-``GeoPose``, ``assemble_geopose``, ``geopose_to_wgs84_f64``,
+``GeoPose``, ``assemble_geopose``, ``geopose_to_wgs84_f64``; exact warp:
+``build_frame_to_geopose``; cached reference: ``build_reference_extractor``,
+``build_frame_to_geopose_cached``; bucketed warp:
 ``build_warp_reference_extractor``, ``build_frame_to_geopose_warpcached``).
 PyTorch runs eagerly, so the builders return plain functions over the
 models (``build_models``) and device tensors.
@@ -15,13 +17,16 @@ import numpy as np
 import torch
 
 __all__ = ["PipelineConfig", "GeoPose", "build_models", "assemble_geopose",
-           "geopose_to_wgs84_f64", "build_warp_reference_extractor",
+           "geopose_to_wgs84_f64", "build_frame_to_geopose",
+           "build_reference_extractor", "build_frame_to_geopose_cached",
+           "build_warp_reference_extractor",
            "build_frame_to_geopose_warpcached"]
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     image_shape: Tuple[int, int] = (480, 640)  # query frame (h, w)
+    ortho_shape: Tuple[int, int] = (1024, 1024)  # orthoimage raster (h, w)
     max_keypoints: int = 1024
     lightglue_depth: int = 9
     filter_threshold: float = 0.1
@@ -30,7 +35,10 @@ class PipelineConfig:
     threshold_px: float = 8.0
     refine_iters: int = 10
     score_threshold: float = 0.0005
+    detector_downsample: int = 1  # 2 = SuperPoint on the half-size query
     detector_mode: str = "learned"
+    ref_keypoint_factor: int = 2  # reference budget = max_keypoints * this
+    ref_tile_grid: Tuple[int, int] = (8, 8)  # uniform reference selection
 
 
 class GeoPose(NamedTuple):
@@ -50,18 +58,26 @@ class GeoPose(NamedTuple):
 
 def build_models(params: Dict[str, Any], config: PipelineConfig
                  ) -> Dict[str, torch.nn.Module]:
-    """SuperPoint + LightGlue modules from the port's param tree."""
+    """SuperPoint + LightGlue modules from the port's param tree:
+    ``superpoint`` for a query frame or a frame-sized crop,
+    ``superpoint_ref`` for a whole orthoimage (the reference keypoint budget,
+    split evenly over ``ref_tile_grid``; same weight tensors), and
+    ``lightglue``, which picks the fused or the module route per call."""
     from gisnav_tpu_torch.features.superpoint import SuperPoint
-    from gisnav_tpu_torch.matching.lightglue_fused import LightGlue
+    from gisnav_tpu_torch.matching.lightglue import LightGlueMatcher
 
     if config.detector_mode != "learned":
         raise ValueError("only the learned SuperPoint detector is ported")
     return {
         "superpoint": SuperPoint(params["superpoint"], config.max_keypoints,
                                  config.score_threshold),
-        "lightglue": LightGlue(params["lightglue"],
-                               depth=config.lightglue_depth,
-                               filter_threshold=config.filter_threshold),
+        "superpoint_ref": SuperPoint(
+            params["superpoint"],
+            config.max_keypoints * config.ref_keypoint_factor,
+            config.score_threshold, select_tiles=config.ref_tile_grid),
+        "lightglue": LightGlueMatcher(
+            params["lightglue"], depth=config.lightglue_depth,
+            filter_threshold=config.filter_threshold),
     }
 
 
@@ -159,56 +175,173 @@ def build_warp_reference_extractor(config: PipelineConfig) -> Callable:
     return fn
 
 
+def _pose_from_features(config, models, kp_match, kp_pnp, f_qry, size_qry,
+                        ref_kp, ref_desc, ref_mask, size_ref, dem, m_crop,
+                        k, crs_affine, sample_idx, generator) -> GeoPose:
+    """The tail every frame program shares: LightGlue, DEM z-lift in
+    crop-pixel units, RANSAC-PnP, geopose assembly. ``kp_match`` are the
+    query keypoints the matcher sees, ``kp_pnp`` the same keypoints in true
+    camera pixels. ``sample_idx`` may be a callable taking the match mask
+    and the query keypoints and returning the (num_hypotheses, 4) RANSAC
+    samples."""
+    from gisnav_tpu_torch.pnp.dem import gather_elevation
+    from gisnav_tpu_torch.pnp.ransac import ransac_pnp
+
+    match = models["lightglue"](kp_match, f_qry.descriptors, f_qry.mask,
+                                size_qry, ref_kp, ref_desc, ref_mask,
+                                size_ref)
+    midx = match.matches0
+    mvalid = midx >= 0
+    mkp_ref = ref_kp[torch.clamp(midx, min=0)]
+    num_matches = mvalid.sum()
+
+    # 1 crop px = |det m_crop|^0.5 original px: x/y/z in the same unit
+    crop_scale = torch.sqrt(torch.abs(torch.linalg.det(m_crop[:2, :2])))
+    z_scale = crs_affine[2, 2] * crop_scale
+    dem_m = gather_elevation(dem, mkp_ref)
+    obj = torch.cat([mkp_ref, (dem_m / z_scale)[:, None]], dim=1)
+
+    if callable(sample_idx):
+        sample_idx = sample_idx(mvalid, kp_pnp)
+    pnp = ransac_pnp(obj, kp_pnp, k, mvalid, sample_idx=sample_idx,
+                     generator=generator,
+                     num_hypotheses=config.num_hypotheses,
+                     threshold_px=config.threshold_px,
+                     min_inliers=config.min_matches,
+                     refine_iters=config.refine_iters)
+    ecef, quat, lla, cam_pos = assemble_geopose(pnp.r, pnp.t, m_crop,
+                                                crs_affine)
+    return GeoPose(
+        ecef_position=ecef, ecef_quat=quat, lon_lat_alt=lla,
+        r_raster=pnp.r, cam_pos_raster=cam_pos, m_crop=m_crop,
+        num_matches=num_matches, num_inliers=pnp.num_inliers,
+        valid=pnp.valid & (num_matches >= config.min_matches),
+        matched_qry=kp_pnp, matched_ref=mkp_ref,
+        match_mask=mvalid & pnp.inliers)
+
+
 def build_frame_to_geopose_warpcached(config: PipelineConfig) -> Callable:
-    """Per-frame hot path::
+    """Per-frame hot path of the bucketed warp mode::
 
         fn(models, query, ref_feats, dem_crop, m_crop, k, crs_affine,
            sample_idx=None, generator=None) -> GeoPose
 
-    SuperPoint on the query, LightGlue against the cached bucket features,
-    DEM z-lift in crop-pixel units, RANSAC-PnP, geopose assembly.
-    ``sample_idx`` may be a callable taking the match mask and the query
-    keypoints and returning the (num_hypotheses, 4) RANSAC samples."""
-    from gisnav_tpu_torch.pnp.dem import gather_elevation
-    from gisnav_tpu_torch.pnp.ransac import ransac_pnp
-
+    SuperPoint on the query, then the shared tail against the cached bucket
+    features."""
     h, w = config.image_shape
 
     def fn(models, query, ref_feats, dem_crop, m_crop, k, crs_affine,
            sample_idx: Optional[Any] = None,
            generator: Optional[torch.Generator] = None) -> GeoPose:
         f_qry = models["superpoint"](query)
-        match = models["lightglue"](
-            f_qry.keypoints, f_qry.descriptors, f_qry.mask, (h, w),
+        return _pose_from_features(
+            config, models, f_qry.keypoints, f_qry.keypoints, f_qry, (h, w),
             ref_feats.keypoints, ref_feats.descriptors, ref_feats.mask,
-            (h, w))
-        midx = match.matches0
-        mvalid = midx >= 0
-        mkp_qry = f_qry.keypoints
-        mkp_ref = ref_feats.keypoints[torch.clamp(midx, min=0)]
-        num_matches = mvalid.sum()
+            (h, w), dem_crop, m_crop, k, crs_affine, sample_idx, generator)
 
-        crop_scale = torch.sqrt(torch.abs(torch.linalg.det(m_crop[:2, :2])))
-        z_scale = crs_affine[2, 2] * crop_scale
-        dem_m = gather_elevation(dem_crop, mkp_ref)
-        obj = torch.cat([mkp_ref, (dem_m / z_scale)[:, None]], dim=1)
+    return fn
 
-        if callable(sample_idx):
-            sample_idx = sample_idx(mvalid, mkp_qry)
-        pnp = ransac_pnp(obj, mkp_qry, k, mvalid, sample_idx=sample_idx,
-                         generator=generator,
-                         num_hypotheses=config.num_hypotheses,
-                         threshold_px=config.threshold_px,
-                         min_inliers=config.min_matches,
-                         refine_iters=config.refine_iters)
-        ecef, quat, lla, cam_pos = assemble_geopose(pnp.r, pnp.t, m_crop,
-                                                    crs_affine)
-        return GeoPose(
-            ecef_position=ecef, ecef_quat=quat, lon_lat_alt=lla,
-            r_raster=pnp.r, cam_pos_raster=cam_pos, m_crop=m_crop,
-            num_matches=num_matches, num_inliers=pnp.num_inliers,
-            valid=pnp.valid & (num_matches >= config.min_matches),
-            matched_qry=mkp_qry, matched_ref=mkp_ref,
-            match_mask=mvalid & pnp.inliers)
+
+def build_frame_to_geopose(config: PipelineConfig) -> Callable:
+    """Exact-warp frame program::
+
+        fn(models, query, ortho, dem, rotation_deg, k, crs_affine,
+           sample_idx=None, generator=None, gsd_zoom=None) -> GeoPose
+
+    Rotate + centre-crop the ortho/DEM stack to the camera yaw
+    (``rotate_and_crop_auto``: the gather warp with ``gsd_zoom``, without it
+    the 3-shear rotation where the stack allows), SuperPoint on the
+    (query, crop) pair, then the shared tail."""
+    from gisnav_tpu_torch.raster import rotate_and_crop_auto
+
+    h, w = config.image_shape
+
+    def fn(models, query, ortho, dem, rotation_deg, k, crs_affine,
+           sample_idx: Optional[Any] = None,
+           generator: Optional[torch.Generator] = None,
+           gsd_zoom: Optional[float] = None) -> GeoPose:
+        stack = torch.stack([ortho, dem], dim=-1)
+        warped, m_crop = rotate_and_crop_auto(stack, rotation_deg, (h, w),
+                                              zoom=gsd_zoom)
+        feats = models["superpoint"](
+            torch.stack([query, warped[:, :, 0]]))
+        f_qry, f_ref = (type(feats)(*(a[i] for a in feats)) for i in (0, 1))
+        return _pose_from_features(
+            config, models, f_qry.keypoints, f_qry.keypoints, f_qry, (h, w),
+            f_ref.keypoints, f_ref.descriptors, f_ref.mask, (h, w),
+            warped[:, :, 1].contiguous(), m_crop, k, crs_affine, sample_idx,
+            generator)
+
+    return fn
+
+
+def build_reference_extractor(config: PipelineConfig) -> Callable:
+    """Per-map-refresh reference side of the cached mode:
+    ``extract(models, ortho) -> SuperPointFeatures`` over the WHOLE
+    orthoimage, with ``max_keypoints * ref_keypoint_factor`` keypoints
+    spread evenly over ``ref_tile_grid``."""
+
+    def extract(models, ortho):
+        return models["superpoint_ref"](ortho)
+
+    return extract
+
+
+def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
+    """Per-frame hot path of the cached-reference mode::
+
+        fn(models, query, ref_feats, dem, k, crs_affine, prior_xy=None,
+           prior_radius=-1.0, rotation_deg=None, sample_idx=None,
+           generator=None) -> GeoPose
+
+    ``ref_feats`` are the whole orthoimage's features, ``dem`` the whole DEM;
+    the pose is in the full raster frame (``m_crop`` = identity). The query
+    is mean-pooled by ``detector_downsample`` before SuperPoint (GSD
+    matching by an integer factor) and its keypoints scaled back. With
+    ``rotation_deg`` (the map-alignment rotation the warp modes apply to the
+    reference) the QUERY is derotated by the inverse: features come from the
+    north-up query (``kp_match``) while PnP sees the keypoints mapped back
+    to camera pixels (``kp_pnp``). ``prior_xy`` / ``prior_radius`` (map px;
+    radius <= 0 disables) mask reference keypoints outside the predicted
+    neighbourhood."""
+    from gisnav_tpu_torch.raster import rotate_and_crop_auto
+
+    h, w = config.image_shape
+    oh, ow = config.ortho_shape
+    ds = config.detector_downsample
+
+    def fn(models, query, ref_feats, dem, k, crs_affine, prior_xy=None,
+           prior_radius: float = -1.0, rotation_deg: Optional[float] = None,
+           sample_idx: Optional[Any] = None,
+           generator: Optional[torch.Generator] = None) -> GeoPose:
+        hq, wq = query.shape
+        src = query
+        if ds > 1:
+            src = query.reshape(hq // ds, ds, wq // ds, ds).mean(dim=(1, 3))
+        if rotation_deg is not None:
+            derot, m_q = rotate_and_crop_auto(
+                src[..., None], -float(np.float32(rotation_deg)),
+                tuple(src.shape))
+            f_qry = models["superpoint"](derot[..., 0].contiguous())
+            kp_rot = f_qry.keypoints
+            kp_cam = kp_rot @ m_q[:2, :2].T + m_q[:2, 2]
+            kp_match, kp_pnp = kp_rot * ds, kp_cam * ds
+        else:
+            f_qry = models["superpoint"](src)
+            kp_match = kp_pnp = f_qry.keypoints * ds
+
+        ref_mask = ref_feats.mask
+        if prior_xy is not None:
+            pxy = torch.as_tensor(prior_xy, dtype=torch.float32,
+                                  device=ref_mask.device)
+            d2 = ((ref_feats.keypoints - pxy[None]) ** 2).sum(dim=1)
+            r = float(np.float32(prior_radius))
+            ref_mask = ref_mask & ((r <= 0) | (d2 <= r * r))
+
+        m_crop = torch.eye(3, dtype=torch.float32, device=query.device)
+        return _pose_from_features(
+            config, models, kp_match, kp_pnp, f_qry, (h, w),
+            ref_feats.keypoints, ref_feats.descriptors, ref_mask, (oh, ow),
+            dem, m_crop, k, crs_affine, sample_idx, generator)
 
     return fn

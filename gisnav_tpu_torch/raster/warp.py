@@ -1,17 +1,21 @@
-"""Fused rotate + GSD-zoom + centre crop of a raster stack (bilinear gather).
+"""Fused rotate + optional GSD-zoom + centre crop of a raster stack
+(bilinear gather).
 
 Counterpart of ``gisnav_tpu/raster/warp.py`` (``warp_affine``,
-``rotate_and_crop_center`` with ``zoom``, ``_bilinear_gather``). The main
-path always passes ``zoom``, so this is the gather warp, not the 3-shear
-kernel. All f32; the caller keeps TF32 off (``device.strict_fp32``).
+``rotate_and_crop_center``, ``compose_crs_after_warp``,
+``_bilinear_gather``). ``raster.rotate_and_crop_auto`` picks between this
+gather warp and the 3-shear rotation (``raster.shear``). All f32; the caller
+keeps TF32 off (``device.strict_fp32``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["warp_affine", "rotate_and_crop_center", "bilinear_gather"]
+__all__ = ["warp_affine", "rotate_and_crop_center", "bilinear_gather",
+           "crop_to_original", "compose_crs_after_warp"]
 
 
 def bilinear_gather(src: torch.Tensor, xs: torch.Tensor,
@@ -54,31 +58,61 @@ def warp_affine(src: torch.Tensor, dst_to_src: torch.Tensor,
     return bilinear_gather(src.float(), sx, sy)
 
 
+def crop_to_original(angle_deg: float, cx: int, cy: int, tx, ty,
+                     scale=1.0) -> torch.Tensor:
+    """3x3 f32 matrix ``inv_rot @ [[scale, 0, tx], [0, scale, ty], [0, 0,
+    1]]``: crop pixel -> original raster pixel for a rotation by
+    ``angle_deg`` (CCW, cv2 convention) about ``(cx, cy)``. f32 scalars on
+    the host, as the JAX program computes them."""
+    a = torch.deg2rad(torch.tensor(angle_deg, dtype=torch.float32))
+    c, s = torch.cos(a), torch.sin(a)
+    z, tx, ty = (torch.as_tensor(v, dtype=torch.float32)
+                 for v in (scale, tx, ty))
+    one, zero = torch.ones(()), torch.zeros(())
+    shift_scale = torch.stack([
+        torch.stack([z, zero, tx]),
+        torch.stack([zero, z, ty]),
+        torch.stack([zero, zero, one])])
+    inv_rot = torch.stack([
+        torch.stack([c, -s, cx - c * cx + s * cy]),
+        torch.stack([s, c, cy - s * cx - c * cy]),
+        torch.stack([zero, zero, one])])
+    return inv_rot @ shift_scale
+
+
 def rotate_and_crop_center(stack: torch.Tensor, angle_deg: float,
-                           crop_shape: Tuple[int, int], zoom: float
+                           crop_shape: Tuple[int, int],
+                           zoom: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rotate an (H, W, C) stack about its centre (CCW, cv2 convention),
-    resample to ``zoom`` (query GSD / map GSD) and centre-crop, in one gather.
+    """Rotate an (H, W, C) stack about its centre (CCW, cv2 convention) and
+    centre-crop, in one gather. With ``zoom`` (query GSD / map GSD) the
+    (h, w) crop samples an (h * zoom, w * zoom) window instead, so the map
+    is resampled to the query's ground sample distance.
 
     :return: (crop (h, w, C) f32, 3x3 f32 cropped -> original pixel affine)
     """
     h, w = int(stack.shape[0]), int(stack.shape[1])
     ch, cw = crop_shape
     cx, cy = w // 2, h // 2
-    dev = stack.device
-    # f32 scalars, as the JAX program computes them
-    a = torch.deg2rad(torch.tensor(angle_deg, dtype=torch.float32))
-    c, s = torch.cos(a), torch.sin(a)
-    z = torch.tensor(zoom, dtype=torch.float32)
-    one, zero = torch.ones(()), torch.zeros(())
-    shift_scale = torch.stack([
-        torch.stack([z, zero, cx - z * (cw / 2.0)]),
-        torch.stack([zero, z, cy - z * (ch / 2.0)]),
-        torch.stack([zero, zero, one])])
-    inv_rot = torch.stack([
-        torch.stack([c, -s, cx - c * cx + s * cy]),
-        torch.stack([s, c, cy - s * cx - c * cy]),
-        torch.stack([zero, zero, one])])
-    cropped_to_original = (inv_rot @ shift_scale).to(dev)
-    return warp_affine(stack, cropped_to_original, (ch, cw)), \
-        cropped_to_original
+    if zoom is not None:
+        z = torch.tensor(zoom, dtype=torch.float32)
+        m = crop_to_original(angle_deg, cx, cy, cx - z * (cw / 2.0),
+                             cy - z * (ch / 2.0), z)
+    else:
+        m = crop_to_original(angle_deg, cx, cy, float(cx - cw // 2),
+                             float(cy - ch // 2))
+    m = m.to(stack.device)
+    return warp_affine(stack, m, (ch, cw)), m
+
+
+def compose_crs_after_warp(crs_affine_4x4, cropped_to_original_3x3
+                           ) -> np.ndarray:
+    """Rewrite the pixel -> WGS84 affine so that it applies to the warped
+    crop: ``crs @ embed(cropped -> original)``, float64 on the host."""
+    if isinstance(cropped_to_original_3x3, torch.Tensor):
+        cropped_to_original_3x3 = cropped_to_original_3x3.detach().cpu()
+    m = np.asarray(cropped_to_original_3x3, dtype=np.float64)
+    embed = np.eye(4)
+    embed[:2, :2] = m[:2, :2]
+    embed[:2, 3] = m[:2, 2]
+    return np.asarray(crs_affine_4x4, dtype=np.float64) @ embed

@@ -114,15 +114,17 @@ def _warp_perspective(src: np.ndarray, hm: np.ndarray,
 
 def render_scene(seed: int, h: int, w: int, yaws: Sequence[float],
                  alt_m: float = 500.0, focal_px: float | None = None,
-                 offset_m: float = 30.0) -> Scene:
-    """Render a scene for an (h, w) camera at ``alt_m`` over a map of the
-    warp mode's size (the camera diagonal, rounded up to 8 px) covering 3x
-    the camera footprint. Frame i looks down from ``offset_m`` east/north of
-    the map centre along yaw i."""
+                 offset_m: float = 30.0, map_side: int | None = None,
+                 coverage: float = 3.0) -> Scene:
+    """Render a scene for an (h, w) camera at ``alt_m`` over a square map of
+    ``map_side`` px (default: the warp mode's size, the camera diagonal
+    rounded up to 8 px) covering ``coverage`` times the camera footprint.
+    Frame i looks down from ``offset_m`` east/north of the map centre along
+    yaw i."""
     rng = np.random.default_rng(seed)
     focal = float(focal_px or 400.0 * w / 640.0)
-    ortho_hw = int(np.ceil(float(np.hypot(h, w)) / 8)) * 8
-    side_m = 3.0 * alt_m * max(h, w) / focal
+    ortho_hw = map_side or int(np.ceil(float(np.hypot(h, w)) / 8)) * 8
+    side_m = coverage * alt_m * max(h, w) / focal
     gsd = side_m / ortho_hw
     size = ortho_hw * 2
     world = _draw_world(rng, size, gsd)

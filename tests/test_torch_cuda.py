@@ -8,7 +8,9 @@ with PyTorch alone:
 
 Tolerances as ``chip_smoke.py`` states them: conv bf16 outputs 2 ulp + 0.05
 (sums in another order round to neighbouring bf16s), NMS cell maxima exact
-and positions 1e-4 px, the LightGlue block 5e-2 on f32 outputs.
+and positions 1e-4 px, the LightGlue block 5e-2 on f32 outputs, the masked
+attention 1e-2 of the largest |output| (on unit-normal and on sharpened
+queries), the shear 1e-5, the NMS cell max exact.
 """
 import numpy as np
 import pytest
@@ -122,4 +124,143 @@ def test_runner_on_card_goes_through_every_kernel(card):
     assert bool(pose.valid)
     assert np.isfinite(pose.lon_lat_alt.cpu().numpy()).all()
     assert LAUNCHES == {"stem_stage": 4, "conv_stage": 16, "nms_select": 2,
-                        "fused_block": 36}
+                        "fused_block": 36, "masked_attention": 0,
+                        "shear_last_axis": 0, "nms_cellmax": 0}
+
+
+@pytest.mark.parametrize("sharp", [1.0, 4.0])
+@pytest.mark.parametrize("kq,kk,d", [(256, 128, 32), (256, 384, 64),
+                                     (512, 256, 128), (768, 1536, 64),
+                                     (768, 768, 64), (1536, 768, 64)])
+def test_masked_attention_kernel(card, kq, kk, d, sharp):
+    from gisnav_tpu_torch.matching.attention import (
+        masked_attention,
+        masked_attention_plain,
+    )
+
+    q, k, v = (torch.randn((n, 4, d), generator=card, device="cuda")
+               for n in (kq, kk, kk))
+    q = q * sharp
+    mask = torch.rand((kk,), generator=card, device="cuda") > 0.33
+    got = masked_attention(q, k, v, mask)
+    assert got.dtype == torch.float32 and got.shape == (kq, 4, d)
+    want = masked_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-2 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="unsupported"):
+        masked_attention(q[:100], k, v, mask)
+
+
+@pytest.mark.parametrize("shift", [0.41, -0.70, 0.0])
+def test_shear_kernel(card, shift):
+    from gisnav_tpu_torch.raster.shear_kernel import (
+        shear_last_axis,
+        shear_last_axis_plain,
+    )
+
+    img = torch.rand((2, 256, 384), generator=card, device="cuda")
+    torch.testing.assert_close(shear_last_axis(img, shift, 128.0),
+                               shear_last_axis_plain(img, shift, 128.0),
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="128"):
+        shear_last_axis(img[:, :, :256].contiguous(), shift, 128.0)
+
+
+def test_shear_rotation_of_unsupported_side_raises_on_card(card):
+    """A stack on the card never takes the plain shear: a side the kernel
+    does not serve raises, and the routing takes the gather for it."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.raster import rotate_and_crop_auto
+    from gisnav_tpu_torch.raster.shear import rotate_and_crop_center_shear
+
+    stack = torch.rand((100, 100, 1), generator=card, device="cuda")
+    with pytest.raises(ValueError, match="128"):
+        rotate_and_crop_center_shear(stack, 20.0, (40, 60))
+    reset_launches()
+    crop, _ = rotate_and_crop_auto(stack, 20.0, (40, 60))
+    assert crop.shape == (40, 60, 1) and LAUNCHES["shear_last_axis"] == 0
+
+
+def test_nms_cellmax_kernel(card):
+    from gisnav_tpu_torch.features.nms_kernel import (
+        nms_cellmax,
+        nms_cellmax_plain,
+        nms_select,
+    )
+
+    heat = torch.rand((96, 384), generator=card, device="cuda") ** 8
+    got = nms_cellmax(heat, 4)
+    assert torch.equal(got, nms_cellmax_plain(heat, 4))
+    assert torch.equal(got, nms_select(heat, 4)[0])
+
+
+def _small_scene(**kw):
+    import dataclasses
+
+    from gisnav_tpu_torch.utils.world import render_scene
+    from gisnav_tpu_torch.weights import load_bundled
+
+    params, cfg = load_bundled()
+    return params, dataclasses.replace(
+        cfg, image_shape=(256, 320)), render_scene(
+            seed=4, h=256, w=320, yaws=[20.0], **kw)
+
+
+@pytest.mark.parametrize("kp,kernel,count", [
+    (512, "fused_block", 72), (256, "masked_attention", 36)])
+def test_cached_runner_on_card_launches(card, kp, kernel, count):
+    """512 / 1024 keypoints take the fused route one stream at a time, 256 /
+    512 the module route with the attention kernel."""
+    import dataclasses
+
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.runners import make_cached_deep_runner
+
+    params, cfg, s = _small_scene(map_side=512, coverage=2.2)
+    runner = make_cached_deep_runner(
+        params, dataclasses.replace(cfg, max_keypoints=kp))
+    args = (s.frames[0], s.ortho, s.dem, 20.0, s.k, s.crs_affine)
+    runner(*args, map_stamp=1, altitude_agl=s.alt_m)
+    reset_launches()
+    pose = runner(*args, map_stamp=1, altitude_agl=s.alt_m)
+    assert np.isfinite(pose.lon_lat_alt.cpu().numpy()).all()
+    assert runner.stats == {"frames": 2, "map_extractions": 1}
+    want = {"stem_stage": 2, "conv_stage": 8, "nms_select": 1, kernel: count}
+    assert LAUNCHES == {k: want.get(k, 0) for k in LAUNCHES}
+
+
+def test_exact_warp_on_card_launches(card):
+    """The runner passes a zoom (gather warp); the frame program without a
+    zoom on a square 384 map takes the 3-shear rotation: 3 shear launches."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose,
+        build_models,
+    )
+    from gisnav_tpu_torch.pipeline.runners import make_deep_runner
+    from gisnav_tpu_torch.weights import params_from_jax
+
+    params, cfg, s = _small_scene(map_side=384, coverage=384 / 320)
+    runner = make_deep_runner(params, cfg)
+    args = (s.frames[0], s.ortho, s.dem, 20.0, s.k, s.crs_affine)
+    reset_launches()
+    pose = runner(*args, map_stamp=1, altitude_agl=s.alt_m)
+    assert bool(pose.valid)
+    pair = {"stem_stage": 4, "conv_stage": 16, "nms_select": 2,
+            "fused_block": 36}
+    assert LAUNCHES == {k: pair.get(k, 0) for k in LAUNCHES}
+
+    dev = torch.device("cuda")
+    models = build_models(params_from_jax(params, dev), cfg)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    reset_launches()
+    pose = build_frame_to_geopose(cfg)(
+        models, f32(s.frames[0]) / 255.0, f32(s.ortho) / 255.0, f32(s.dem),
+        20.0, f32(s.k), f32(s.crs_affine),
+        generator=torch.Generator(device=dev).manual_seed(1))
+    assert bool(pose.valid)
+    assert LAUNCHES == {k: {**pair, "shear_last_axis": 3}.get(k, 0)
+                        for k in LAUNCHES}

@@ -11,6 +11,16 @@
   fused-vs-flax parity test). The weights are trained at depth 9; cut to
   depth 2 their match scores stay low, so those cases keep every mutual
   argmax (threshold 0).
+- ``fused_block_plain(sets=1)`` with unequal query and key counts against
+  the older layout's TPU kernel ``_old_lgf._block_pallas`` in interpret mode
+  (its body is the ``sets=1`` case of the current kernel's): atol 2e-2.
+- The module route (``lightglue.LightGlue``) against the flax module
+  ``LightGlue(...).apply`` on the same tree at K = 256 / 384, outside the
+  fused predicate, where the attention runs the kernel's plain version:
+  ``matches0`` agreement of at least 98 %, scores within 0.05.
+- ``LightGlueMatcher`` picks the route ``apply_lightglue`` would pick on an
+  accelerator: fused where ``fused_lightglue_supported`` holds, the module
+  route elsewhere; the predicate equals the JAX one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +28,11 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from gisnav_tpu.matching import _old_lgf as jold
+from gisnav_tpu.matching import lightglue as jlg
 from gisnav_tpu.matching import lightglue_fused as jlf
 from gisnav_tpu.weights import LEARNED_LG9_PATH, load_npz
+from gisnav_tpu_torch.matching import lightglue as tlg
 from gisnav_tpu_torch.matching import lightglue_fused as tlf
 from gisnav_tpu_torch.weights import params_from_jax
 
@@ -29,6 +42,7 @@ DIM = 256
 
 
 def _block_inputs(seed, n, kk, sets):
+    """``n`` query rows and ``kk`` keys per set."""
     rng = np.random.default_rng(seed)
 
     def f(shape, scale=1.0):
@@ -136,3 +150,55 @@ def test_fused_forward_vs_jax(lg_params, depth, k0, k1):
     agree = (got.matches0.numpy() == ref_m0).mean()
     assert agree > 0.98, agree
     assert np.abs(got.scores.numpy() - np.asarray(ref.scores)).max() < 0.05
+
+
+@pytest.mark.parametrize("n,kk", [(512, 1024), (1024, 512)])
+def test_block_plain_sets1_vs_old_layout_kernel(n, kk):
+    args = _block_inputs(n, n, kk, 1)
+    got = tlf.fused_block(*_torch_args(args), heads=4, sets=1).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        ker = jold._block_pallas(*_jax_args(args), heads=4)
+    np.testing.assert_allclose(got, np.asarray(ker), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("depth,k0,k1", [(2, 256, 256), (9, 256, 256),
+                                         (2, 256, 384), (9, 256, 384)])
+def test_module_route_vs_flax_module(lg_params, depth, k0, k1):
+    jparams, tparams = lg_params
+    kp0, d0, m0, kp1, d1, m1 = _match_inputs(depth + k1, k0, k1)
+    size = (480, 640)
+    thr = 0.1 if depth == 9 else 0.0
+    assert not jlf.fused_lightglue_supported(k0, k1, 256, 4)
+    ref = jlg.LightGlue(depth=depth, filter_threshold=thr).apply(
+        jparams, jnp.asarray(kp0), jnp.asarray(d0), jnp.asarray(m0), size,
+        jnp.asarray(kp1), jnp.asarray(d1), jnp.asarray(m1), size)
+    model = tlg.LightGlue(tparams, depth=depth, filter_threshold=thr)
+    got = model(*(torch.as_tensor(a) for a in (kp0, d0, m0)), size,
+                *(torch.as_tensor(a) for a in (kp1, d1, m1)), size)
+    ref_m0 = np.asarray(ref.matches0)
+    assert (ref_m0 >= 0).sum() > k0 // 8  # real matches exist
+    agree = (got.matches0.numpy() == ref_m0).mean()
+    assert agree >= 0.98, agree
+    assert np.abs(got.scores.numpy() - np.asarray(ref.scores)).max() < 0.05
+
+
+def test_matcher_dispatch_as_apply_lightglue(lg_params, monkeypatch):
+    _, tparams = lg_params
+    matcher = tlg.LightGlueMatcher(tparams, depth=1)
+    for k0 in (256, 512, 768, 1024, 1792, 2048):
+        for k1 in (512, 1536, 3584, 4096):
+            fused = jlf.fused_lightglue_supported(k0, k1, 256, 4)
+            assert tlf.fused_lightglue_supported(k0, k1, 256, 4) == fused
+            assert matcher.route(k0, k1) == ("fused" if fused else "module")
+    # the forward goes where route() says
+    calls = []
+    monkeypatch.setattr(tlf, "fused_block", lambda x, *a, **kw: (
+        calls.append("fused"), x)[1])
+    monkeypatch.setattr(tlg, "_attention", lambda q, k, v, m: (
+        calls.append("module"), torch.zeros_like(q.float()))[1])
+    for k0, k1 in ((512, 512), (256, 384)):
+        kp0, d0, m0, kp1, d1, m1 = _match_inputs(1, k0, k1)
+        calls.clear()
+        matcher(*(torch.as_tensor(a) for a in (kp0, d0, m0)), (480, 640),
+                *(torch.as_tensor(a) for a in (kp1, d1, m1)), (480, 640))
+        assert set(calls) == {matcher.route(k0, k1)}

@@ -7,6 +7,13 @@ the CPU: its cell max exactly, its positions on cells with a single NMS
 survivor (the XLA path takes the argmax of the NMS'd map where the kernel
 averages tied survivors). ``select_keypoints`` is compared as sets (top-k tie
 order differs between ``torch.topk`` and ``approx_max_k``).
+
+``nms_cellmax_plain`` (K7) is exact against the TPU kernel
+``nms_cellmax_pallas`` in interpret mode and against ``nms_select_plain``'s
+cell max. ``select_keypoints_tiled``, the kernel-less route (one tile:
+``select_keypoints(prefer_pallas=False)`` of the JAX package), is held
+against the JAX functions: scores exactly, positions to 1e-5 px, compared
+as sets, tile by tile.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,9 +22,24 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from gisnav_tpu.features import nms as jnms
-from gisnav_tpu.features.pallas_nms import nms_select_pallas
-from gisnav_tpu_torch.features.nms import select_keypoints
-from gisnav_tpu_torch.features.nms_kernel import nms_select, nms_select_plain
+from gisnav_tpu.features.pallas_nms import (
+    nms_cellmax_pallas,
+    nms_cellmax_supported,
+    nms_select_pallas,
+)
+from gisnav_tpu_torch.features import nms_kernel as tk
+from gisnav_tpu_torch.features.nms import (
+    refine_subpixel,
+    select_keypoints,
+    select_keypoints_tiled,
+    simple_nms,
+)
+from gisnav_tpu_torch.features.nms_kernel import (
+    nms_cellmax,
+    nms_cellmax_plain,
+    nms_select,
+    nms_select_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -88,3 +110,73 @@ def test_select_keypoints_sets(h):
     ref_kp, ref_sc = _as_set(*ref)
     np.testing.assert_array_equal(got_sc, ref_sc)
     np.testing.assert_allclose(got_kp, ref_kp, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w", [(64, 256), (96, 384)])
+def test_cellmax_plain_vs_pallas_interpret(h, w):
+    heat = _heat(3, h, w)
+    heat[20, 40] = heat[20, 41] = 0.999
+    got = nms_cellmax(torch.as_tensor(heat), 4)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(nms_cellmax_pallas(jnp.asarray(heat), 4))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert torch.equal(got, nms_select_plain(torch.as_tensor(heat), 4)[0])
+    assert torch.equal(got, nms_cellmax_plain(torch.as_tensor(heat), 4))
+
+
+def test_cellmax_predicate_and_refusal():
+    for h, w, border in [(64, 256, 4), (64, 128, 4), (48, 256, 4),
+                         (64, 320, 4), (64, 256, 0), (1088, 1920, 4),
+                         (2048, 2048, 4)]:
+        assert tk.nms_cellmax_supported(h, w, border) == \
+            nms_cellmax_supported(h, w, 4, 4, border), (h, w, border)
+    with pytest.raises(ValueError, match="nms_cellmax"):
+        nms_cellmax(torch.zeros(64, 128), 4)
+
+
+def test_simple_nms_and_refine_vs_jax():
+    heat = _heat(4, 40, 56)
+    np.testing.assert_array_equal(
+        simple_nms(torch.as_tensor(heat)).numpy(),
+        np.asarray(jnms.simple_nms(jnp.asarray(heat))))
+    kp = np.array([[0, 0], [5, 7], [55, 39], [20, 1]], np.float32)
+    np.testing.assert_allclose(
+        refine_subpixel(torch.as_tensor(heat), torch.as_tensor(kp)).numpy(),
+        np.asarray(jnms.refine_subpixel(jnp.asarray(heat), jnp.asarray(kp))),
+        atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,k", [(64, 128, 256), (30, 50, 128)])
+def test_select_keypoints_plain_route_sets(h, w, k):
+    """(64, 128): the cell route; (30, 50): too few cells of 4x4, so the
+    top-K runs over all pixels with ``refine_subpixel``."""
+    heat = _heat(5, h, w)
+    kp, sc, valid = select_keypoints_tiled(torch.as_tensor(heat), k, (1, 1))
+    ref = jnms.select_keypoints(jnp.asarray(heat), k, prefer_pallas=False)
+    got_kp, got_sc = _as_set(kp.numpy(), sc.numpy(), valid.numpy())
+    ref_kp, ref_sc = _as_set(*ref)
+    assert len(ref_sc) > 10
+    np.testing.assert_array_equal(got_sc, ref_sc)
+    np.testing.assert_allclose(got_kp, ref_kp, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,tiles", [(256, (2, 2)), (100, (2, 4)),
+                                     (64, (1, 1))])
+def test_select_keypoints_tiled_sets_per_tile(k, tiles):
+    """k=100 over 8 tiles: 12 a tile, 96 slots, 4 padded invalid."""
+    heat = _heat(6, 128, 256)
+    kp, sc, valid = (t.numpy() for t in select_keypoints_tiled(
+        torch.as_tensor(heat), k, tiles))
+    ref = [np.asarray(a) for a in jnms.select_keypoints_tiled(
+        jnp.asarray(heat), k, tiles)]
+    assert kp.shape == ref[0].shape == (k, 2)
+    k_tile = max(1, k // (tiles[0] * tiles[1]))
+    n = k_tile * tiles[0] * tiles[1]
+    assert not valid[n:].any() and not ref[2][n:].any()
+    for t in range(tiles[0] * tiles[1]):
+        sl = slice(t * k_tile, (t + 1) * k_tile)
+        got_kp, got_sc = _as_set(kp[sl], sc[sl], valid[sl])
+        ref_kp, ref_sc = _as_set(ref[0][sl], ref[1][sl], ref[2][sl])
+        assert len(ref_sc) > 3
+        np.testing.assert_array_equal(got_sc, ref_sc)
+        np.testing.assert_allclose(got_kp, ref_kp, atol=1e-5)

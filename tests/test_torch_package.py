@@ -62,12 +62,34 @@ def test_runner_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_kernel_wrappers_count_nothing_on_cpu():
-    from gisnav_tpu_torch.features.nms_kernel import nms_select
+    from gisnav_tpu_torch.features.nms_kernel import nms_cellmax, nms_select
     from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.matching.attention import masked_attention
+    from gisnav_tpu_torch.raster.shear_kernel import shear_last_axis
 
     reset_launches()
     nms_select(torch.rand(32, 64), 4)
+    nms_cellmax(torch.rand(32, 256), 4)
+    masked_attention(torch.rand(256, 2, 32), torch.rand(128, 2, 32),
+                     torch.rand(128, 2, 32), torch.rand(128) > 0.5)
+    shear_last_axis(torch.rand(1, 128, 384), 0.3, 64.0)
+    assert set(LAUNCHES) == {"stem_stage", "conv_stage", "nms_select",
+                             "fused_block", "masked_attention",
+                             "shear_last_axis", "nms_cellmax"}
     assert all(n == 0 for n in LAUNCHES.values())
+
+
+def test_every_kernel_source_is_built_and_shipped():
+    """Each ``.cu`` in ``kernels/`` is a build target, and the package data
+    ships it."""
+    from gisnav_tpu_torch.kernels import build
+
+    pkg = os.path.dirname(build.__file__)
+    sources = sorted(n[:-3] for n in os.listdir(pkg) if n.endswith(".cu"))
+    assert sources == sorted(build.SOURCES)
+    assert {"attention", "shear"} <= set(sources)
+    with open(os.path.join(ROOT, "pyproject.toml")) as f:
+        assert '"gisnav_tpu_torch.kernels" = ["*.cu"' in f.read()
 
 
 @pytest.mark.parametrize("alone", [False, True])
