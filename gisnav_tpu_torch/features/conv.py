@@ -84,8 +84,10 @@ def _check_args(x, w9, b, cin):
         raise TypeError("conv kernel takes f32 biases")
     if not (x.is_contiguous() and w9.is_contiguous() and b.is_contiguous()):
         raise ValueError("conv kernel takes contiguous tensors")
-    if w9.shape[:2] != (9, cin) or cin % 16 or w9.shape[2] % 64:
-        raise ValueError(f"unsupported conv shape {tuple(w9.shape)}")
+    if w9.shape[:2] != (9, cin) or cin not in (64, 128) or w9.shape[2] % 64:
+        raise ValueError(f"unsupported conv shape {tuple(w9.shape)}: the "
+                         f"kernel takes 64 or 128 input channels and a "
+                         f"multiple of 64 output channels")
 
 
 def _conv_cuda(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor,

@@ -2,10 +2,11 @@
 
 Each ``*.cu`` source in this directory is one shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` (listed in
-``.gitignore``). The library name carries a hash of its source, so an edited
-kernel is rebuilt and a built one is reused. All missing libraries build in
-parallel, one ``nvcc`` process per source. A failed build raises: there is no
-fallback to the plain PyTorch versions on a CUDA tensor.
+``.gitignore``). The library name carries a hash of its source and of every
+``*.cuh`` header beside it, so an edited kernel or header is rebuilt and a
+built one is reused. All missing libraries build in parallel, one ``nvcc``
+process per source. A failed build raises: there is no fallback to the plain
+PyTorch versions on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -38,9 +39,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _target(name: str) -> str:
-    with open(os.path.join(_HERE, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+def _target(name: str, src_dir: str = _HERE) -> str:
+    """The library path of ``name``: its hash covers the source, every
+    shared header of the directory (by name and bytes) and the flags."""
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(src_dir) if n.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(src_dir, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

@@ -12,7 +12,9 @@ probabilities rounded to bf16 before P.V, and an f32 (Kq, H, D) result. The
 logits never reach device memory. Forward only.
 
 A CPU tensor runs the plain version; a CUDA tensor launches
-``kernels/attention.cu`` or raises.
+``kernels/attention.cu`` or raises. The kernel is two launches a call (row
+statistics, then P.V) over a grid that also splits the keys, so that a few
+thousand rows fill the card; ``key_splits`` chooses the split.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from gisnav_tpu_torch.kernels.build import (
 )
 
 __all__ = ["masked_attention", "masked_attention_plain",
-           "attention_supported"]
+           "attention_supported", "key_splits"]
 
 _BLK_Q = 256
 _BF16 = torch.bfloat16
@@ -45,9 +47,20 @@ def attention_supported(kq: int, kk: int, head_dim: int) -> bool:
             and kk * head_dim * 4 <= 4 * 1024 * 1024)
 
 
+def key_splits(kq: int, kk: int, heads: int, sms: int) -> int:
+    """How many ways the kernel splits the keys: the smallest of 1, 2, 4, 8
+    that puts at least three 4-warp blocks on each of ``sms`` multiprocessors
+    (one block owns 64 query rows of a head), with at least one 64-key tile a
+    split."""
+    blocks = (kq // 64) * heads
+    splits = 1
+    while splits < 8 and blocks * splits < 3 * sms and 2 * splits <= kk // 64:
+        splits *= 2
+    return splits
+
+
 def _key_bias(mask_k: torch.Tensor) -> torch.Tensor:
-    zero = torch.zeros((), device=mask_k.device)
-    return torch.where(mask_k, zero, torch.full_like(zero, -1e9))
+    return torch.where(mask_k, 0.0, -1e9)  # f32, one launch
 
 
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,8 +90,8 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return typed(library("attention"), {
-        "gisnav_masked_attention": [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                    ctypes.c_float, vp]})
+        "gisnav_masked_attention": [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                    ci, ctypes.c_float, vp]})
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,9 +112,14 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qb, kb, vb = (t.to(_BF16).contiguous() for t in (q, k, v))
     bias = _key_bias(mask_k).contiguous()
     check_device("masked_attention", qb, kb, vb, bias)
+    splits = key_splits(kq, kk, heads, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
     out = torch.empty((kq, heads, d), dtype=torch.float32, device=q.device)
+    stats = torch.empty((splits, heads, kq, 2), dtype=torch.float32,
+                        device=q.device)
     check(_lib().gisnav_masked_attention(
-        ptr(qb), ptr(kb), ptr(vb), ptr(bias), ptr(out), kq, kk, heads, d,
-        1.0 / float(d) ** 0.5, stream_of(qb)), "masked_attention")
-    LAUNCHES["masked_attention"] += 1
+        ptr(qb), ptr(kb), ptr(vb), ptr(bias), ptr(stats), ptr(out), kq, kk,
+        heads, d, splits, 1.0 / float(d) ** 0.5, stream_of(qb)),
+        "masked_attention")
+    LAUNCHES["masked_attention"] += 2  # statistics, then P.V
     return out

@@ -93,3 +93,47 @@ def test_unsupported_shape_raises():
     q, k, v, mask = (torch.as_tensor(a) for a in _inputs(4, 192, 128, 64))
     with pytest.raises(ValueError, match="unsupported"):
         masked_attention(q, k, v, mask)
+
+
+@pytest.mark.parametrize("kq,kk,heads,want", [
+    (1792, 1792, 4, 4), (1792, 3584, 4, 4), (3584, 3584, 4, 2),
+    (3584, 1792, 4, 2), (256, 128, 4, 2), (256, 1024, 1, 8),
+    (8192, 4096, 4, 1)])
+def test_key_splits_fill_the_card(kq, kk, heads, want):
+    """The kernel's key split on a 132-SM card: at least three 4-warp blocks
+    an SM where the keys allow (so over 8 warps an SM at 1792 x 3584), a
+    power of two up to 8, never more splits than 64-key tiles."""
+    from gisnav_tpu_torch.matching.attention import key_splits
+
+    splits = key_splits(kq, kk, heads, 132)
+    assert splits == want
+    assert splits <= kk // 64
+    blocks = (kq // 64) * heads * splits
+    assert blocks * 4 >= 8 * 132 or splits in (8, kk // 64)
+
+
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_split_key_merge_is_the_unsplit_softmax(splits):
+    """The kernel's arithmetic over split keys, written out in PyTorch: each
+    split's (max, sum) merged as m = max m_s, l = sum l_s exp(m_s - m), P
+    rounded to bf16 with the merged statistics, the splits' P.V added. Equals
+    the plain version up to single bf16 flips of a probability (an f32 ulp in
+    the merged sum can move a p of ~1e-2 across a rounding point: one bf16
+    ulp, 4e-5, times |v| up to ~4; atol 2e-4, a hundredth of the kernel
+    tolerance), so splitting the keys keeps the reference's rounding of P."""
+    q, k, v, mask = (torch.as_tensor(a) for a in _inputs(5, 256, 512, 32))
+    bf = torch.bfloat16
+    qh, kh, vh = (t.to(bf).float().transpose(0, 1) for t in (q, k, v))
+    logits = qh @ kh.transpose(1, 2) * 32 ** -0.5 + torch.where(
+        mask, 0.0, -1e9)
+    parts = logits.chunk(splits, dim=-1)
+    m_s = torch.stack([p.amax(-1) for p in parts])
+    l_s = torch.stack([torch.exp(p - p.amax(-1, keepdim=True)).sum(-1)
+                       for p in parts])
+    m = m_s.amax(0)
+    l = (l_s * torch.exp(m_s - m)).sum(0)
+    out = sum((torch.exp(p - m[..., None]) / l[..., None]).to(bf).float() @ vv
+              for p, vv in zip(parts, vh.chunk(splits, dim=1)))
+    want = masked_attention_plain(q, k, v, mask)
+    np.testing.assert_allclose(out.transpose(0, 1).numpy(), want.numpy(),
+                               rtol=0, atol=2e-4)

@@ -6,7 +6,8 @@ with PyTorch alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances as ``chip_smoke.py`` states them: conv bf16 outputs 2 ulp + 0.05
+Tolerances as ``chip_smoke.py`` states them (the conv and attention kernels
+also give the same bits on a second run): conv bf16 outputs 2 ulp + 0.05
 (sums in another order round to neighbouring bf16s), NMS cell maxima exact
 and positions 1e-4 px, the LightGlue block 5e-2 on f32 outputs, the masked
 attention 1e-2 of the largest |output| (on unit-normal and on sharpened
@@ -54,6 +55,53 @@ def test_conv_stage_kernel(card, cin, cmid, cout, pool):
     w2, b2 = _conv_w(card, cmid, cout) if cout else (None, None)
     _close_bf16(conv_stage(x, w1, b1, w2, b2, pool=pool),
                 conv_stage_plain(x, w1, b1, w2, b2, pool=pool))
+
+
+# the trunk's path shapes (chip_smoke.CONV_SHAPES) and one whose height and
+# width are no multiple of the kernel's 8x16 pixel tile, pool on and off
+CONV_CASES = [
+    (544, 960, 64, 64, 64, True), (272, 480, 64, 128, 128, True),
+    (136, 240, 128, 128, 128, False), (136, 240, 128, 256, None, False),
+    (34, 60, 64, 64, None, True), (34, 60, 64, 128, None, False),
+    (34, 60, 128, 256, None, True), (34, 60, 128, 64, 64, False),
+]
+
+
+@pytest.mark.parametrize("h,w,cin,cmid,cout,pool", CONV_CASES)
+def test_conv_stage_kernel_path_shapes_and_edges(card, h, w, cin, cmid, cout,
+                                                 pool):
+    from gisnav_tpu_torch.features.conv import conv_stage, conv_stage_plain
+
+    x = torch.rand((h, w, cin), generator=card, device="cuda").to(
+        torch.bfloat16)
+    w1, b1 = _conv_w(card, cin, cmid)
+    w2, b2 = _conv_w(card, cmid, cout) if cout else (None, None)
+    got = conv_stage(x, w1, b1, w2, b2, pool=pool)
+    assert got.shape == ((h // 2, w // 2) if pool else (h, w)) + (
+        cout or cmid,)
+    _close_bf16(got, conv_stage_plain(x, w1, b1, w2, b2, pool=pool))
+    # no atomics, a fixed order of sums: the same bits on a second run
+    assert torch.equal(got, conv_stage(x, w1, b1, w2, b2, pool=pool))
+
+
+def test_stem_stage_kernel_full_frame(card):
+    """conv1b at the frame's size runs the stage kernel's device code."""
+    from gisnav_tpu_torch.features.conv import stem_stage, stem_stage_plain
+
+    img = torch.rand((1088, 1920), generator=card, device="cuda")
+    args = (*_conv_w(card, 1, 64), *_conv_w(card, 64, 64))
+    got = stem_stage(img, *args)
+    _close_bf16(got, stem_stage_plain(img, *args))
+    assert torch.equal(got, stem_stage(img, *args))
+
+
+def test_conv_kernel_refuses_other_channel_counts(card):
+    from gisnav_tpu_torch.features.conv import conv_stage
+
+    x = torch.rand((16, 16, 32), generator=card, device="cuda").to(
+        torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported conv shape"):
+        conv_stage(x, *_conv_w(card, 32, 64))
 
 
 def test_stem_stage_kernel(card):
@@ -151,6 +199,46 @@ def test_masked_attention_kernel(card, kq, kk, d, sharp):
         masked_attention(q[:100], k, v, mask)
 
 
+# the module route's four shapes, the smallest supported one, D = 32 / 128
+ATTENTION_CASES = [(1792, 1792, 64), (3584, 3584, 64), (1792, 3584, 64),
+                   (3584, 1792, 64), (256, 128, 64), (256, 128, 32),
+                   (512, 384, 32), (256, 128, 128), (512, 640, 128)]
+
+
+@pytest.mark.parametrize("sharp", [1.0, 4.0])
+@pytest.mark.parametrize("one_key", [False, True])
+@pytest.mark.parametrize("kq,kk,d", ATTENTION_CASES)
+def test_masked_attention_kernel_path_shapes(card, kq, kk, d, one_key, sharp):
+    """Against the plain version at 1e-2 of its largest |output|, on a random
+    mask and with all keys but one masked (every row is then that key's
+    value), and bit-equal on a second run (no atomics, sums in split
+    order)."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.matching.attention import (
+        masked_attention,
+        masked_attention_plain,
+    )
+
+    q, k, v = (torch.randn((n, 4, d), generator=card, device="cuda")
+               for n in (kq, kk, kk))
+    q = q * sharp
+    if one_key:
+        mask = torch.zeros((kk,), dtype=torch.bool, device="cuda")
+        mask[kk // 3] = True
+    else:
+        mask = torch.rand((kk,), generator=card, device="cuda") > 0.33
+    reset_launches()
+    got = masked_attention(q, k, v, mask)
+    assert LAUNCHES["masked_attention"] == 2  # statistics, then P.V
+    want = masked_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-2 * float(want.abs().max()))
+    if one_key:
+        only = v[kk // 3].to(torch.bfloat16).float()
+        assert torch.equal(got, only[None].expand(kq, 4, d))
+    assert torch.equal(got, masked_attention(q, k, v, mask))
+
+
 @pytest.mark.parametrize("shift", [0.41, -0.70, 0.0])
 def test_shear_kernel(card, shift):
     from gisnav_tpu_torch.raster.shear_kernel import (
@@ -207,10 +295,11 @@ def _small_scene(**kw):
 
 
 @pytest.mark.parametrize("kp,kernel,count", [
-    (512, "fused_block", 72), (256, "masked_attention", 36)])
+    (512, "fused_block", 72), (256, "masked_attention", 72)])
 def test_cached_runner_on_card_launches(card, kp, kernel, count):
     """512 / 1024 keypoints take the fused route one stream at a time, 256 /
-    512 the module route with the attention kernel."""
+    512 the module route with the attention kernel (36 calls of two
+    launches)."""
     import dataclasses
 
     from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches

@@ -92,6 +92,32 @@ def test_every_kernel_source_is_built_and_shipped():
         assert '"gisnav_tpu_torch.kernels" = ["*.cu"' in f.read()
 
 
+def test_library_name_follows_source_and_shared_headers(tmp_path):
+    """The build target's name changes when the source's or any shared
+    header's bytes change (so an edited header rebuilds), and not
+    otherwise. No compiler runs."""
+    from gisnav_tpu_torch.kernels import build
+
+    (tmp_path / "k.cu").write_text('#include "core.cuh"\nint f();\n')
+    (tmp_path / "core.cuh").write_text("// v1\n")
+    first = build._target("k", str(tmp_path))
+    assert first == build._target("k", str(tmp_path))
+    assert os.path.dirname(first) == build.BUILD_DIR
+    (tmp_path / "core.cuh").write_text("// v2\n")
+    second = build._target("k", str(tmp_path))
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "core.cuh"\nint g();\n')
+    third = build._target("k", str(tmp_path))
+    assert third not in (first, second)
+    (tmp_path / "other.cuh").write_text("// a new header\n")
+    assert build._target("k", str(tmp_path)) != third
+    # the package's own headers are shipped beside the sources
+    pkg = os.path.dirname(build.__file__)
+    assert any(n.endswith(".cuh") for n in os.listdir(pkg))
+    with open(os.path.join(ROOT, "pyproject.toml")) as f:
+        assert '"*.cuh"' in f.read()
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     if torch.cuda.is_available():
