@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernel checks only, no timing
     python3 chip_smoke.py --kernels  # build + kernel checks and times, no path
     python3 chip_smoke.py --seed-spread   # cached-mode fix over RANSAC seeds
+    python3 chip_smoke.py --stem-digest   # sha256 of the stem on one input
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -42,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -74,6 +76,7 @@ DEROTATE_FRAMES = (2, 4, 7, 13)  # -10, 30, 180 and 20 deg
 SHEAR_YAWS = [20.0, -33.0, 61.5, 117.0]  # none a right angle
 MODULE_KP = 1792  # a budget outside the fused predicate: the module route
 MAP = 2048  # side of the cached mode's map
+STEM_RAGGED = (100, 132)  # even, no multiple of the kernel's 8x16 tile
 CACHED_FRAMES = 64  # timing window of frames that hit the bucket cache
 CONV_SHAPES = [  # (name, h, w, cin, cmid, cout or None, pool) per image
     ("stage2", 544, 960, 64, 64, 64, True),
@@ -88,8 +91,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn()`` in milliseconds."""
+def time_ms(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
+    """Median CUDA-event time of ``fn()`` in milliseconds. With ``batch`` >
+    1 the events enclose that many calls issued back to back and the time is
+    per call: once the queue runs ahead of the card, that is the device's
+    time, without the host's cost of issuing one call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -98,10 +104,11 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 
@@ -174,17 +181,22 @@ def check_conv(gen, quick, results):
     img = torch.rand((H, W), generator=gen, device="cuda")
     w1a, b1a = _conv_weights(gen, 1, 64)
     w1b, b1b = _conv_weights(gen, 64, 64)
-    k_out = stem_stage(img, w1a, b1a, w1b, b1b, pool=True)
-    p_out = stem_stage_plain(img, w1a, b1a, w1b, b1b, pool=True)
-    e, nbad = err(k_out, p_out)
-    log(f"[kernel] stem_stage {H}x{W}: max_abs_err={e:.3g} "
-        f"out_of_tol={nbad}")
-    if nbad or not torch.isfinite(k_out.float()).all():
-        raise RuntimeError("stem_stage disagrees with its plain version")
     entry = {"name": "stem_stage", "route": "cuda",
              "source": "gisnav_tpu_torch/kernels/conv.cu",
              "replaces": "gisnav_tpu/features/pallas_conv.py:515",
-             "max_abs_err": e}
+             "max_abs_err": 0.0}
+    # the frame, and a ragged even size whose edge tiles are partly outside
+    # the image (conv1a's image padding and conv1b's patch padding differ)
+    small = torch.rand(STEM_RAGGED, generator=gen, device="cuda")
+    for im in (img, small):
+        k_out = stem_stage(im, w1a, b1a, w1b, b1b, pool=True)
+        p_out = stem_stage_plain(im, w1a, b1a, w1b, b1b, pool=True)
+        e, nbad = err(k_out, p_out)
+        log(f"[kernel] stem_stage {im.shape[0]}x{im.shape[1]}: "
+            f"max_abs_err={e:.3g} out_of_tol={nbad}")
+        if nbad or not torch.isfinite(k_out.float()).all():
+            raise RuntimeError("stem_stage disagrees with its plain version")
+        entry["max_abs_err"] = max(entry["max_abs_err"], e)
     # conv1a (1->64) and conv1b (64->64) both take bf16 operands, so both
     # count at the bf16 rate, whatever units the kernel runs conv1a on
     nbytes = H * W * 4 + (H // 2) * (W // 2) * 64 * 2 + 9 * 65 * 64 * 2
@@ -192,6 +204,9 @@ def check_conv(gen, quick, results):
         nbytes, bf16_ops=2 * H * W * 9 * 64 * (1 + 64))
     if not quick:
         entry["ms"] = time_ms(lambda: stem_stage(img, w1a, b1a, w1b, b1b))
+        b2b = time_ms(lambda: stem_stage(img, w1a, b1a, w1b, b1b), reps=5,
+                      batch=20)
+        log(f"[time] stem_stage: 20 back to back, per call {b2b:.4f} ms")
         entry["plain_ms"] = time_ms(
             lambda: stem_stage_plain(img, w1a, b1a, w1b, b1b), reps=3)
         x1 = img.to(torch.bfloat16)[None, None].contiguous(
@@ -475,12 +490,16 @@ def _library_block(x, q, k, v, bias, w, heads=4):
 
 def check_block(gen, quick, results):
     from gisnav_tpu_torch.matching.lightglue_fused import (
+        _attention_cuda,
+        _ffn_cuda,
         fused_block,
         fused_block_plain,
     )
 
     # tolerance: f32 outputs, the kernel mirrors every bf16 rounding point;
-    # sums in another order can move a rounded value by one bf16 ulp
+    # sums in another order can move a rounded value by one bf16 ulp. The
+    # keys are split over a cluster and merged in split order, no atomics:
+    # a second run must give the same bits
     tol = 5e-2
     entry = {"name": "fused_block", "route": "cuda",
              "source": "gisnav_tpu_torch/kernels/lightglue_block.cu",
@@ -496,28 +515,45 @@ def check_block(gen, quick, results):
              ("single 2048 q x 4096 k", MAX_KP, 2 * MAX_KP, 1, False),
              ("single 4096 q x 2048 k", 2 * MAX_KP, MAX_KP, 1, False),
              ("single 4096", 2 * MAX_KP, 2 * MAX_KP, 1, False)]
-    dual_ms, dual_plain = [], []
+    dual = {"ms": [], "plain_ms": [], "attention_ms": [], "epilogue_ms": []}
     for name, n, kk_total, sets, cross in cases:
         x, q, k, v, bias, w = _block_inputs(gen, n, kk_total, sets)
         kw = dict(heads=4, sets=sets, cross=cross)
         k_out = fused_block(x, q, k, v, bias, *w, **kw)
+        again = fused_block(x, q, k, v, bias, *w, **kw)
         p_out = fused_block_plain(x, q, k, v, bias, *w, **kw)
         e = float((k_out - p_out).abs().max())
+        same = bool(torch.equal(k_out, again))
         log(f"[kernel] fused_block {name} ({n} rows, sets={sets}): "
-            f"max_abs_err={e:.3g}")
+            f"max_abs_err={e:.3g} second run bit-equal={same}")
         if not (e <= tol) or not torch.isfinite(k_out).all():
             raise RuntimeError(f"fused_block {name} disagrees")
+        if not same:
+            raise RuntimeError(f"fused_block {name}: two runs differ")
         entry["max_abs_err"] = max(entry["max_abs_err"], e)
-        if sets == 1 and max(n, kk_total) > MAX_KP and not quick:
-            ms = time_ms(lambda: fused_block(x, q, k, v, bias, *w, **kw))
-            log(f"[time] fused_block {name}: kernel {ms:.4f} ms")
-        if sets == 2 and not quick:
-            dual_ms.append(time_ms(lambda: fused_block(x, q, k, v, bias, *w,
-                                                       **kw)))
-            dual_plain.append(time_ms(lambda: fused_block_plain(
-                x, q, k, v, bias, *w, **kw), reps=3))
-            log(f"[time] fused_block {name}: kernel {dual_ms[-1]:.4f} ms, "
-                f"plain {dual_plain[-1]:.4f} ms")
+        if quick:
+            continue
+        # the wrapper's two launches alone, on the same inputs
+        msg = _attention_cuda(q, k, v, bias, 4, sets, cross)
+        t = {"ms": time_ms(lambda: fused_block(x, q, k, v, bias, *w, **kw)),
+             "attention_ms": time_ms(
+                 lambda: _attention_cuda(q, k, v, bias, 4, sets, cross)),
+             "epilogue_ms": time_ms(lambda: _ffn_cuda(x, msg, *w))}
+        log(f"[time] fused_block {name}: kernel {t['ms']:.4f} ms "
+            f"(attention {t['attention_ms']:.4f}, epilogue "
+            f"{t['epilogue_ms']:.4f})")
+        log("[time] fused_block {}: 20 back to back, per call {:.4f} ms "
+            "(attention {:.4f}, epilogue {:.4f})".format(name, *(
+                time_ms(f, reps=5, batch=20) for f in (
+                    lambda: fused_block(x, q, k, v, bias, *w, **kw),
+                    lambda: _attention_cuda(q, k, v, bias, 4, sets, cross),
+                    lambda: _ffn_cuda(x, msg, *w)))))
+        if sets == 2:
+            t["plain_ms"] = time_ms(lambda: fused_block_plain(
+                x, q, k, v, bias, *w, **kw), reps=3)
+            log(f"[time] fused_block {name}: plain {t['plain_ms']:.4f} ms")
+            for key, val in t.items():
+                dual[key].append(val)
             if not cross:
                 half = n // 2
                 lib = _library_block(x[:half], q[:half], k[:half], v[:half],
@@ -529,8 +565,7 @@ def check_block(gen, quick, results):
     entry["bound_ms"], entry["bound_by"] = bound_ms(
         nbytes, bf16_ops=4 * n * kk * dim + 14 * n * dim * dim)
     if not quick:
-        entry["ms"] = float(np.mean(dual_ms))
-        entry["plain_ms"] = float(np.mean(dual_plain))
+        entry.update({key: float(np.mean(val)) for key, val in dual.items()})
     results.append(entry)
 
 
@@ -642,16 +677,16 @@ def phase_cached_path(params, config, profile_run: bool = False) -> dict:
                         for k in launches}
         log(f"[cached {name}] launches over {frames} frames: {launches}; "
             f"map extraction alone: {extract_only}")
-        # query SuperPoint: stem 2, stages 8, select 1; LightGlue-9: 36
+        # query SuperPoint: stem 1, stages 8, select 1; LightGlue-9: 36
         # block calls of 2 launches (fused) or 36 attention calls of 2
         # launches (row statistics, then P.V)
         block = {"fused": {"fused_block": 72 * frames},
                  "module": {"masked_attention": 72 * frames}}[name]
         expect_launches(f"cached {name}", launches,
-                        {"stem_stage": 2 * frames, "conv_stage": 8 * frames,
+                        {"stem_stage": frames, "conv_stage": 8 * frames,
                          "nms_select": frames, **block})
         expect_launches(f"cached {name} extraction", extract_only,
-                        {"stem_stage": 2, "conv_stage": 8})
+                        {"stem_stage": 1, "conv_stage": 8})
         if runner.stats != {"frames": frames + 3, "map_extractions": 3}:
             raise RuntimeError(f"cached {name}: stats {runner.stats}")
         p50 = float(np.median(ms))
@@ -701,7 +736,7 @@ def cached_options(params, cfg, scene, runner) -> dict:
     n = len(rows)
     # the 1088x1920 camera is not square: its derotation is the gather warp
     expect_launches("cached derotate", dict(LAUNCHES),
-                    {"stem_stage": 2 * n, "conv_stage": 8 * n,
+                    {"stem_stage": n, "conv_stage": 8 * n,
                      "nms_select": n, "fused_block": 72 * n})
     return {"prior_frames": len(errors), "prior_max_error_m": max(errors),
             "derotate_frames": n,
@@ -731,9 +766,9 @@ def phase_exact_warp_path(params, config, scene,
             for i in range(3, 3 + frames)]
     launches = dict(LAUNCHES)
     log(f"[exact] launches over {frames} frames: {launches}")
-    # pair SuperPoint (2 x (2 + 8 + 1)), dual LightGlue (18 calls of 2)
+    # pair SuperPoint (2 x (1 + 8 + 1)), dual LightGlue (18 calls of 2)
     expect_launches("exact warp", launches,
-                    {"stem_stage": 4 * frames, "conv_stage": 16 * frames,
+                    {"stem_stage": 2 * frames, "conv_stage": 16 * frames,
                      "nms_select": 2 * frames, "fused_block": 36 * frames})
     ms = [r[0] for r in rows]
     out = {"runner": {"frames": frames, "frame_p50_ms": float(np.median(ms)),
@@ -783,7 +818,7 @@ def phase_exact_warp_path(params, config, scene,
     log(f"[shear] launches over {frames} frames: {launches}")
     expect_launches("zoom-less exact warp", launches,
                     {"shear_last_axis": 3 * frames,
-                     "stem_stage": 4 * frames, "conv_stage": 16 * frames,
+                     "stem_stage": 2 * frames, "conv_stage": 16 * frames,
                      "nms_select": 2 * frames, "fused_block": 36 * frames})
     out["zoomless"] = {"frames": frames,
                        "frame_p50_ms": float(np.median(ms)),
@@ -827,6 +862,23 @@ def phase_seed_spread(seeds: int = 12) -> None:
                 f"valid {sum(bool(p.valid) for p in poses)}/{seeds} error "
                 f"min {min(err):.2f} median {float(np.median(err)):.2f} "
                 f"max {max(err):.2f} m")
+
+
+def phase_stem_digest() -> None:
+    """sha256 of the stem's bf16 output on a seeded 1088x1920 input, to hold
+    two sources of the stem kernel bit for bit (run this script from a copy
+    placed beside the other source's package)."""
+    from gisnav_tpu_torch.features.conv import stem_stage
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    img = torch.rand((H, W), generator=gen, device="cuda")
+    args = (*_conv_weights(gen, 1, 64), *_conv_weights(gen, 64, 64))
+    for pool in (True, False):
+        out = stem_stage(img, *args, pool=pool)
+        digest = hashlib.sha256(
+            out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        log(f"[stem digest] {H}x{W} pool={pool}: {digest}")
 
 
 def phase_cellmax_stage() -> int:
@@ -928,6 +980,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed-spread", action="store_true",
                     help="only print how the cached runner's fixes move "
                          "over RANSAC seeds")
+    ap.add_argument("--stem-digest", action="store_true",
+                    help="only print the sha256 of the stem's output on a "
+                         "seeded frame")
     args = ap.parse_args(argv)
 
     device = phase_device()
@@ -937,6 +992,9 @@ def main(argv=None) -> int:
     phase_build()
     if args.seed_spread:
         phase_seed_spread()
+        return 0
+    if args.stem_digest:
+        phase_stem_digest()
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -954,7 +1012,8 @@ def main(argv=None) -> int:
     if args.kernels:
         log(json.dumps({"kernel_times": [
             {k: r.get(k) for k in ("name", "ms", "plain_ms", "library_ms",
-                                   "bound_ms", "max_abs_err")}
+                                   "bound_ms", "max_abs_err", "attention_ms",
+                                   "epilogue_ms") if k in r}
             for r in results]}))
         return 0
     main_path = phase_main_path(args.profile)
@@ -975,12 +1034,15 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{r['name']} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K4 also carries its two launches' times apart
+    extra = ("attention_ms", "epilogue_ms")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
-                                  for r in results]}), flush=True)
+    print(json.dumps({"kernels": [
+        {**{k: r.get(k) for k in keys}, **{k: r[k] for k in extra if k in r}}
+        for r in results]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

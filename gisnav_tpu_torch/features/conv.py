@@ -9,7 +9,9 @@ the conv sum rounded to bf16, the f32 bias added, relu, rounded to bf16.
 Weights come in the layout the kernels take (``weights.params_from_jax``):
 3x3 kernels as ``(9, Cin, Cout)`` bf16 (HWIO with the taps flattened), biases
 as f32. A CPU tensor runs the plain PyTorch version; a CUDA tensor launches
-the kernel of ``kernels/conv.cu`` or raises.
+the kernel of ``kernels/conv.cu`` or raises: one launch a conv of a stage,
+and one for the whole stem (conv1a is computed inside conv1b's halo patch, so
+its (H, W, 64) output never reaches device memory).
 """
 from __future__ import annotations
 
@@ -73,17 +75,23 @@ def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return typed(library("conv"), {
         "gisnav_conv3x3": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
-        "gisnav_conv1_cin1": [vp, vp, vp, vp, ci, ci, vp]})
+        "gisnav_stem": [vp] * 6 + [ci, ci, ci, vp]})
+
+
+def _check_tensors(what, x, x_dtype, *params):
+    """params: (9, Cin, Cout) bf16 weights and f32 biases, alternating."""
+    check_device(what, x, *params)
+    if x.dtype != x_dtype or any(t.dtype != torch.bfloat16
+                                 for t in params[0::2]):
+        raise TypeError(f"{what} takes {x_dtype} input and bf16 weights")
+    if any(t.dtype != torch.float32 for t in params[1::2]):
+        raise TypeError(f"{what} takes f32 biases")
+    if not all(t.is_contiguous() for t in (x, *params)):
+        raise ValueError(f"{what} takes contiguous tensors")
 
 
 def _check_args(x, w9, b, cin):
-    check_device("conv kernel", x, w9, b)
-    if x.dtype != torch.bfloat16 or w9.dtype != torch.bfloat16:
-        raise TypeError("conv kernel takes bf16 activations and weights")
-    if b.dtype != torch.float32:
-        raise TypeError("conv kernel takes f32 biases")
-    if not (x.is_contiguous() and w9.is_contiguous() and b.is_contiguous()):
-        raise ValueError("conv kernel takes contiguous tensors")
+    _check_tensors("conv kernel", x, torch.bfloat16, w9, b)
     if w9.shape[:2] != (9, cin) or cin not in (64, 128) or w9.shape[2] % 64:
         raise ValueError(f"unsupported conv shape {tuple(w9.shape)}: the "
                          f"kernel takes 64 or 128 input channels and a "
@@ -91,7 +99,7 @@ def _check_args(x, w9, b, cin):
 
 
 def _conv_cuda(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor,
-               pool: bool, count: str) -> torch.Tensor:
+               pool: bool) -> torch.Tensor:
     h, w, cin = x.shape
     _check_args(x, w9, b, cin)
     cout = w9.shape[2]
@@ -101,22 +109,26 @@ def _conv_cuda(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor,
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
     check(_lib().gisnav_conv3x3(ptr(x), ptr(w9), ptr(b), ptr(out), h, w, cin,
                                 cout, int(pool), stream_of(x)), "conv3x3")
-    LAUNCHES[count] += 1
+    LAUNCHES["conv_stage"] += 1
     return out
 
 
-def _conv1_cuda(img: torch.Tensor, w9: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
+def _stem_cuda(img: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
+               w1b: torch.Tensor, b1b: torch.Tensor,
+               pool: bool) -> torch.Tensor:
+    if img.dim() != 2 or w1a.shape != (9, 1, 64) or w1b.shape != (9, 64, 64):
+        raise ValueError(f"stem kernel takes an (H, W) image and 1->64->64 "
+                         f"weights, got {tuple(img.shape)}, "
+                         f"{tuple(w1a.shape)}, {tuple(w1b.shape)}")
+    _check_tensors("stem kernel", img, torch.float32, w1a, b1a, w1b, b1b)
     h, w = img.shape
-    if img.dtype != torch.float32 or w9.shape != (9, 1, 64):
-        raise ValueError("stem conv takes an f32 (H, W) image, 1->64 weights")
-    check_device("stem conv", img, w9, b)
-    img = img.contiguous()
-    wf = w9.float().reshape(9, 64).contiguous()
-    bf = b.float().contiguous()
-    out = torch.empty((h, w, 64), dtype=torch.bfloat16, device=img.device)
-    check(_lib().gisnav_conv1_cin1(ptr(img), ptr(wf), ptr(bf), ptr(out), h, w,
-                                   stream_of(img)), "conv1_cin1")
+    if pool and (h % 2 or w % 2):
+        raise ValueError(f"2x2 pool needs even H, W, got {(h, w)}")
+    shape = (h // 2, w // 2, 64) if pool else (h, w, 64)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=img.device)
+    check(_lib().gisnav_stem(ptr(img), ptr(w1a), ptr(b1a), ptr(w1b), ptr(b1b),
+                             ptr(out), h, w, int(pool), stream_of(img)),
+          "stem")
     LAUNCHES["stem_stage"] += 1
     return out
 
@@ -129,9 +141,8 @@ def conv_stage(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if not x.is_cuda:
         return conv_stage_plain(x, w1, b1, w2, b2, pool=pool)
     if w2 is None:
-        return _conv_cuda(x, w1, b1, pool, "conv_stage")
-    return _conv_cuda(_conv_cuda(x, w1, b1, False, "conv_stage"), w2, b2,
-                      pool, "conv_stage")
+        return _conv_cuda(x, w1, b1, pool)
+    return _conv_cuda(_conv_cuda(x, w1, b1, False), w2, b2, pool)
 
 
 def stem_stage(img: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
@@ -140,5 +151,4 @@ def stem_stage(img: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
     """(H, W) f32 grayscale -> (H[/2], W[/2], 64) bf16."""
     if not img.is_cuda:
         return stem_stage_plain(img, w1a, b1a, w1b, b1b, pool=pool)
-    return _conv_cuda(_conv1_cuda(img, w1a, b1a), w1b, b1b, pool,
-                      "stem_stage")
+    return _stem_cuda(img, w1a, b1a, w1b, b1b, pool)

@@ -3,9 +3,9 @@
 Each kernel wrapper adds one to its entry in ``LAUNCHES`` for every kernel
 launch the card accepted (never when it runs the plain PyTorch version for a
 CPU tensor), so a run can show that its main path went through them. A stem
-call is 2 launches (conv1a, conv1b), a two-conv stage 2 and a one-conv stage
-1, a fused block 2 (attention, FFN epilogue), a masked attention 2 (row
-statistics, P.V), and an NMS-select, an NMS cell-max and a shear pass 1
+call is 1 launch (conv1a inside conv1b), a two-conv stage 2 and a one-conv
+stage 1, a fused block 2 (attention, FFN epilogue), a masked attention 2
+(row statistics, P.V), and an NMS-select, an NMS cell-max and a shear pass 1
 each.
 """
 from __future__ import annotations

@@ -45,8 +45,18 @@
 //   are transposed inside each quad by shuffles so that every thread stores
 //   16 bytes of 8 consecutive channels.
 //
-// The stem's 1->64 conv has K = 9, far too thin for the tensor cores: it is a
-// direct per-pixel kernel (conv1_cin1) writing the bf16 NHWC intermediate.
+// * The stem (`STEM`, one launch for conv1a + conv1b [+ pool]) is the
+//   resident 64-channel variant whose patch stage computes conv1a instead of
+//   loading it: the 1->64 conv has K = 9, far too thin for the tensor cores,
+//   so the block `cp.async`es the tile's (8+4)x(16+4) f32 image window (zero
+//   outside the image) and rounds it to bf16 once, and its threads compute
+//   the 64 conv1a channels of each (8+2)x(16+2) patch pixel on the CUDA
+//   cores (f32 `fmaf` over the nine taps in order, round, bias, relu, round;
+//   zero for a patch pixel outside the image, conv1b's SAME padding) straight
+//   into the swizzled patch, two pixels of a row at a time. The (H, W, 64)
+//   intermediate never exists. The next tile's window is requested as soon
+//   as the patch is built, under this tile's products; the halo recompute
+//   (1.4x conv1a's work) runs under the other block's `wgmma`.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,9 +81,21 @@ constexpr int NB = 64;        // output channels of a block
 constexpr int WT = 64 * 128;  // weight tile: 64 k rows x 64 output channels
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int WSTAGES = 4;    // weight ring of the streaming variant
+constexpr int WINW = TW + 4;  // stem: image window columns
+constexpr int WIN_PIX = (TH + 4) * WINW;
+// stem: conv1a's f32 weights (9 x 64) and bias (64), the f32 image window
+constexpr int STEM_BYTES = (9 * 64 + 64 + WIN_PIX) * 4;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// 4-byte async copy global -> shared; `bytes` = 0 writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
 // makes shared memory written by cp.async visible to wgmma's reads
@@ -151,26 +173,34 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
   }
 }
 
-// CIN = 64 keeps its nine weight tiles resident, CIN = 128 streams
-template <int CIN>
+// CIN = 64 keeps its nine weight tiles resident, CIN = 128 streams; the
+// stem (CIN = 64) adds conv1a's weights and its image window
+template <int CIN, bool STEM>
 __host__ __device__ constexpr int conv_smem_bytes() {
   return 1024 + (CIN == 64 ? 9 : WSTAGES) * WT + (CIN / 64) * SLICE_BYTES +
-         NB * 4;
+         NB * 4 + (STEM ? STEM_BYTES : 0);
 }
 
 // x (H, W, CIN) bf16, w (9, CIN, Cout) bf16 (HWIO), bias (Cout) f32,
 // out (H, W, Cout) or pooled (H/2, W/2, Cout) bf16. grid (blocks walking
-// the pixel tiles, Cout / NB).
-template <int CIN>
+// the pixel tiles, Cout / NB). STEM: x is the (H, W) f32 image, CIN = 64
+// channels of conv1a come from it with weights wa (9, 64) bf16 and bias ba
+// (64) f32.
+template <int CIN, bool STEM>
 __global__ void __launch_bounds__(THREADS, 2)
-conv3x3_wgmma(const __nv_bfloat16* __restrict__ x,
+conv3x3_wgmma(const void* __restrict__ xin,
               const __nv_bfloat16* __restrict__ w,
               const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-              int H, int W, int Cout, int pool, int tiles_x, int ntiles) {
+              int H, int W, int Cout, int pool, int tiles_x, int ntiles,
+              const __nv_bfloat16* __restrict__ wa,
+              const float* __restrict__ ba) {
+  static_assert(!STEM || CIN == 64, "the stem's conv1b has 64 inputs");
   constexpr int SL = CIN / 64;  // 64-channel slices
   constexpr int NS = 9 * SL;    // k steps: one tap of one slice
   constexpr bool RESIDENT = CIN == 64;
   constexpr int NST = RESIDENT ? NS : WSTAGES;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(xin);
+  const float* img = static_cast<const float*>(xin);
 
   extern __shared__ unsigned char raw[];
   // the 128-byte swizzle of the weight tiles counts from 1024-byte lines
@@ -178,11 +208,19 @@ conv3x3_wgmma(const __nv_bfloat16* __restrict__ x,
   const uint32_t psm = wsm + NST * WT;
   float* bias_s = reinterpret_cast<float*>(raw + (psm - smem_u32(raw)) +
                                            SL * SLICE_BYTES);
+  float* wa_s = bias_s + NB;   // stem: conv1a weights, tap-major
+  float* ba_s = wa_s + 9 * 64;  // stem: conv1a bias
+  float* win_s = ba_s + 64;     // stem: the tile's image window
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int wg = tid >> 7, wq = (tid >> 5) & 3;
   const int n0 = blockIdx.y * NB;
   for (int i = tid; i < NB; i += THREADS) bias_s[i] = bias[n0 + i];
+  if (STEM) {
+    for (int i = tid; i < 9 * 64; i += THREADS)
+      wa_s[i] = __bfloat162float(wa[i]);
+    for (int i = tid; i < 64; i += THREADS) ba_s[i] = ba[i];
+  }
 
   auto load_patch = [&](int tile) {
     const int y0 = (tile / tiles_x) * TH, x0 = (tile % tiles_x) * TW;
@@ -197,6 +235,79 @@ conv3x3_wgmma(const __nv_bfloat16* __restrict__ x,
                  src, ok ? 16 : 0);
     }
   };
+  // stem: the image rows y0 - 2 .. y0 + TH + 1, columns x0 - 2 .. x0 + TW + 1
+  auto load_window = [&](int tile) {
+    const int y0 = (tile / tiles_x) * TH, x0 = (tile % tiles_x) * TW;
+    for (int v = tid; v < WIN_PIX; v += THREADS) {
+      const int gy = y0 - 2 + v / WINW, gx = x0 - 2 + v % WINW;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async4(smem_u32(win_s + v), ok ? img + (size_t)gy * W + gx : img,
+                ok ? 4 : 0);
+    }
+  };
+  // stem: conv1a of every patch pixel into the swizzled patch, with the
+  // arithmetic of a direct conv (fmaf over the taps in order, from 0) on the
+  // window's bf16-rounded values. A thread always owns the same 8 channels
+  // and takes two neighbouring pixels of a patch row at a time (PW is even),
+  // so their 12 window values and each tap's 8 weights are read once for
+  // both: 256 threads = 32 pixel pairs a pass
+  auto build_patch = [&](int tile) {
+    const int y0 = (tile / tiles_x) * TH, x0 = (tile % tiles_x) * TW;
+    const int ch = tid & 7;
+    const float4 bl = *reinterpret_cast<const float4*>(ba_s + ch * 8);
+    const float4 bh = *reinterpret_cast<const float4*>(ba_s + ch * 8 + 4);
+    const float bb[8] = {bl.x, bl.y, bl.z, bl.w, bh.x, bh.y, bh.z, bh.w};
+    for (int pp = tid >> 3; pp < PATCH_PIX / 2; pp += THREADS / 8) {
+      const int pix = 2 * pp, py = pix / PW, px = pix % PW;
+      const int gy = y0 + py - 1, gx = x0 + px - 1;
+      const bool row_in = gy >= 0 && gy < H;
+      const bool in0 = row_in && gx >= 0 && gx < W;
+      const bool in1 = row_in && gx + 1 < W;  // gx + 1 >= 0 always
+      float s[2][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[0][i] = s[1][i] = 0.0f;
+      if (in0 || in1) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const float* wr = win_s + (py + dy) * WINW + px;
+          const float2 ta = *reinterpret_cast<const float2*>(wr);
+          const float2 tb = *reinterpret_cast<const float2*>(wr + 2);
+          const float tv[4] = {ta.x, ta.y, tb.x, tb.y};
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float* wt = wa_s + (dy * 3 + dx) * 64 + ch * 8;
+            const float4 w0 = *reinterpret_cast<const float4*>(wt);
+            const float4 w1 = *reinterpret_cast<const float4*>(wt + 4);
+            const float wv[8] = {w0.x, w0.y, w0.z, w0.w,
+                                 w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              s[0][i] = fmaf(tv[dx], wv[i], s[0][i]);
+              s[1][i] = fmaf(tv[dx + 1], wv[i], s[1][i]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t pk[4] = {0u, 0u, 0u, 0u};
+        if (e ? in1 : in0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 r = __bfloat1622float2(
+                __floats2bfloat162_rn(s[e][2 * i], s[e][2 * i + 1]));
+            pk[i] = pack_bf16(fmaxf(r.x + bb[2 * i], 0.0f),
+                              fmaxf(r.y + bb[2 * i + 1], 0.0f));
+          }
+        }
+        const int p = pix + e;
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         psm + p * 128 + ((ch ^ (p & 7)) << 4)),
+                     "r"(pk[0]), "r"(pk[1]), "r"(pk[2]), "r"(pk[3])
+                     : "memory");
+      }
+    }
+  };
   // step s = slice s / 9, tap s % 9: 64 k rows of 64 output channels
   auto load_weights = [&](int s, int stage) {
     const __nv_bfloat16* src0 =
@@ -208,7 +319,10 @@ conv3x3_wgmma(const __nv_bfloat16* __restrict__ x,
     }
   };
   auto prologue = [&](int tile, bool first) {
-    load_patch(tile);
+    if (STEM)
+      load_window(tile);
+    else
+      load_patch(tile);
     if (RESIDENT) {
       if (first)
         for (int s = 0; s < NS; ++s) load_weights(s, s);
@@ -239,8 +353,18 @@ conv3x3_wgmma(const __nv_bfloat16* __restrict__ x,
 
     if (RESIDENT) {
       cp_async_wait<0>();
+      // stem: each thread rounds the window values its own copies brought
+      if (STEM)
+        for (int v = tid; v < WIN_PIX; v += THREADS)
+          win_s[v] = round_bf16(win_s[v]);
       fence_proxy_async();
       __syncthreads();
+    }
+    if (STEM) {
+      build_patch(tile);
+      __syncthreads();  // the patch is whole, every thread has left the window
+      if (tile + (int)gridDim.x < ntiles) load_window(tile + gridDim.x);
+      cp_async_commit();
     }
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
@@ -270,7 +394,7 @@ conv3x3_wgmma(const __nv_bfloat16* __restrict__ x,
     wgmma_wait<0>();
     __syncthreads();  // every warp has left the patch and the ring
     const int next = tile + gridDim.x;
-    if (next < ntiles) prologue(next, false);
+    if (!STEM && next < ntiles) prologue(next, false);
 
     // epilogue on the fragment: thread holds rows g and g + 8 of its warp,
     // i.e. pixels (2 wq, 8 wg + g) and (2 wq + 1, 8 wg + g) of the tile,
@@ -323,61 +447,32 @@ conv3x3_wgmma(const __nv_bfloat16* __restrict__ x,
   cp_async_wait<0>();
 }
 
-// Stem conv1a: (H, W) f32 image -> (H, W, 64) bf16, weights (9, 64) f32
-// holding bf16 values. The image is rounded to bf16 as the reference does.
-__global__ void conv1_cin1(const float* __restrict__ img,
-                           const float* __restrict__ w,
-                           const float* __restrict__ bias,
-                           __nv_bfloat16* __restrict__ out, int H, int W) {
-  __shared__ float ws[9 * 64];
-  __shared__ float bs[64];
-  for (int i = threadIdx.x; i < 9 * 64; i += blockDim.x) ws[i] = w[i];
-  for (int i = threadIdx.x; i < 64; i += blockDim.x) bs[i] = bias[i];
-  __syncthreads();
-  int gx = blockIdx.x * blockDim.x + threadIdx.x;
-  int gy = blockIdx.y;
-  if (gx >= W) return;
-  float tap[9];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    int yy = gy + t / 3 - 1, xx = gx + t % 3 - 1;
-    tap[t] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                 ? round_bf16(img[(size_t)yy * W + xx])
-                 : 0.0f;
-  }
-  __nv_bfloat16* o = out + ((size_t)gy * W + gx) * 64;
-#pragma unroll 4
-  for (int n = 0; n < 64; n += 2) {
-    float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      s0 = fmaf(tap[t], ws[t * 64 + n], s0);
-      s1 = fmaf(tap[t], ws[t * 64 + n + 1], s1);
-    }
-    __nv_bfloat162 pr;
-    pr.x = __float2bfloat16(fmaxf(round_bf16(s0) + bs[n], 0.0f));
-    pr.y = __float2bfloat16(fmaxf(round_bf16(s1) + bs[n + 1], 0.0f));
-    *reinterpret_cast<__nv_bfloat162*>(o + n) = pr;
-  }
-}
-
-
-template <int CIN>
+template <int CIN, bool STEM = false>
 int launch_conv(const void* x, const void* w, const float* bias, void* out,
                 int H, int W, int Cout, int pool, int sms,
-                cudaStream_t stream) {
-  constexpr int smem = conv_smem_bytes<CIN>();
+                cudaStream_t stream, const void* wa = nullptr,
+                const float* ba = nullptr) {
+  constexpr int smem = conv_smem_bytes<CIN, STEM>();
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgmma<CIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      conv3x3_wgmma<CIN, STEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (W + TW - 1) / TW;
   const int ntiles = tiles_x * ((H + TH - 1) / TH);
   // two blocks an SM, each walking every (2 * sms)-th tile
   dim3 grid(ntiles < 2 * sms ? ntiles : 2 * sms, Cout / NB);
-  conv3x3_wgmma<CIN><<<grid, THREADS, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, bias,
-      (__nv_bfloat16*)out, H, W, Cout, pool, tiles_x, ntiles);
+  conv3x3_wgmma<CIN, STEM><<<grid, THREADS, smem, stream>>>(
+      x, (const __nv_bfloat16*)w, bias, (__nv_bfloat16*)out, H, W, Cout, pool,
+      tiles_x, ntiles, (const __nv_bfloat16*)wa, ba);
   return (int)cudaGetLastError();
+}
+
+int sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
 }
 
 }  // namespace
@@ -389,22 +484,23 @@ extern "C" int gisnav_conv3x3(const void* x, const void* w, const float* bias,
   if ((Cin != 64 && Cin != 128) || Cout % 64 || Cout < 64 || H < 1 || W < 1 ||
       (pool && (H % 2 || W % 2)))
     return -1;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  if (int err = sm_count(sms)) return err;
   cudaStream_t s = (cudaStream_t)stream;
   return Cin == 64
              ? launch_conv<64>(x, w, bias, out, H, W, Cout, pool, sms, s)
              : launch_conv<128>(x, w, bias, out, H, W, Cout, pool, sms, s);
 }
 
-extern "C" int gisnav_conv1_cin1(const float* img, const float* w,
-                                 const float* bias, void* out, int H, int W,
-                                 void* stream) {
-  dim3 grid((W + 127) / 128, H);
-  conv1_cin1<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      img, w, bias, (__nv_bfloat16*)out, H, W);
-  return (int)cudaGetLastError();
+// The stem in one launch: img (H, W) f32; conv1a w1a (9, 64) bf16, b1a (64)
+// f32; conv1b w1b (9, 64, 64) bf16, b1b (64) f32; out (H, W, 64) or pooled
+// (H/2, W/2, 64) bf16. H and W even when pooling.
+extern "C" int gisnav_stem(const float* img, const void* w1a, const float* b1a,
+                           const void* w1b, const float* b1b, void* out, int H,
+                           int W, int pool, void* stream) {
+  if (H < 1 || W < 1 || (pool && (H % 2 || W % 2))) return -1;
+  int sms = 0;
+  if (int err = sm_count(sms)) return err;
+  return launch_conv<64, true>(img, w1b, b1b, out, H, W, 64, pool, sms,
+                               (cudaStream_t)stream, w1a, b1a);
 }

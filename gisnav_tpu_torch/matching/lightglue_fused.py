@@ -14,8 +14,11 @@ computation over the same (converted) parameters:
 
 Every bf16 cast of the JAX forward is mirrored: qkv and its bias in bf16, the
 rotated q/k rounded to bf16, and inside the block the rounding points of
-``_block_reference``. ``fused_block`` launches ``kernels/lightglue_block.cu``
-for CUDA tensors and runs ``fused_block_plain`` for CPU tensors.
+``_block_reference``. ``fused_block`` runs ``fused_block_plain`` for CPU
+tensors and for CUDA tensors makes the two launches of
+``kernels/lightglue_block.cu``: the attention, its keys split
+``attention.key_splits`` ways over a thread-block cluster, then the FFN
+epilogue.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from gisnav_tpu_torch.kernels.build import (
     stream_of,
     typed,
 )
+from gisnav_tpu_torch.matching.attention import key_splits
 from gisnav_tpu_torch.matching.lightglue import (
     MatchResult,
     assignment,
@@ -119,9 +123,37 @@ def fused_block_plain(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb,
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return typed(library("lightglue_block"), {
-        "gisnav_lg_attention": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+        "gisnav_lg_attention": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                 ctypes.c_float, vp],
         "gisnav_lg_ffn": [vp] * 12 + [ci, vp]})
+
+
+def _attention_cuda(q, k, v, bias, heads, sets, cross):
+    """The first launch: msg (sets*Kq, dim) bf16. One 4-warp block per 64
+    query rows (of all sets) and head, the keys of a set split by
+    ``key_splits`` over a thread-block cluster."""
+    n, dim = q.shape
+    kk = k.shape[0] // sets
+    splits = key_splits(n, kk, heads, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    msg = torch.empty((n, dim), dtype=_BF16, device=q.device)
+    check(_lib().gisnav_lg_attention(
+        ptr(q), ptr(k), ptr(v), ptr(bias), ptr(msg), n, kk, heads, sets,
+        int(cross and sets == 2), splits, 1.0 / float(dim // heads) ** 0.5,
+        stream_of(q)), "lightglue attention")
+    LAUNCHES["fused_block"] += 1
+    return msg
+
+
+def _ffn_cuda(x, msg, wout, bout, w1x, w1m, b1, lns, lnb, w2, b2):
+    """The second launch: x + FFN([x | out_proj(msg)]) (sets*Kq, dim) f32."""
+    out = torch.empty_like(x)
+    check(_lib().gisnav_lg_ffn(ptr(x), ptr(msg), ptr(wout), ptr(bout),
+                               ptr(w1x), ptr(w1m), ptr(b1), ptr(lns),
+                               ptr(lnb), ptr(w2), ptr(b2), ptr(out),
+                               x.shape[0], stream_of(x)), "lightglue ffn")
+    LAUNCHES["fused_block"] += 1
+    return out
 
 
 def _fused_block_cuda(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb,
@@ -136,25 +168,16 @@ def _fused_block_cuda(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb,
     if not all(t.is_contiguous() for t in bf + f32):
         raise ValueError("fused_block takes contiguous tensors")
     check_device("fused_block", *bf, *f32)
-    if dim != 256 or heads != 4 or wout.shape != (256, 256) or \
-            w1x.shape != (256, 512) or w2.shape != (512, 256) or \
-            bias.shape != (sets, kk) or n % (64 * sets) or kk % 64:
+    if dim != 256 or heads != 4 or sets not in (1, 2) or \
+            q.shape != x.shape or k.shape != v.shape or \
+            k.shape[1] != dim or wout.shape != (256, 256) or \
+            w1x.shape != (256, 512) or w1m.shape != (256, 512) or \
+            w2.shape != (512, 256) or bias.shape != (sets, kk) or \
+            n % (64 * sets) or kk % 64:
         raise ValueError(f"fused_block: unsupported shapes x{tuple(x.shape)} "
                          f"k{tuple(k.shape)} sets={sets}")
-    lib = _lib()
-    stream = stream_of(x)
-    msg = torch.empty((n, dim), dtype=_BF16, device=x.device)
-    check(lib.gisnav_lg_attention(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(msg),
-                                  n, kk, heads, sets, int(cross),
-                                  1.0 / float(dim // heads) ** 0.5, stream),
-          "lightglue attention")
-    LAUNCHES["fused_block"] += 1
-    out = torch.empty_like(x)
-    check(lib.gisnav_lg_ffn(ptr(x), ptr(msg), ptr(wout), ptr(bout), ptr(w1x),
-                            ptr(w1m), ptr(b1), ptr(lns), ptr(lnb), ptr(w2),
-                            ptr(b2), ptr(out), n, stream), "lightglue ffn")
-    LAUNCHES["fused_block"] += 1
-    return out
+    msg = _attention_cuda(q, k, v, bias, heads, sets, cross)
+    return _ffn_cuda(x, msg, wout, bout, w1x, w1m, b1, lns, lnb, w2, b2)
 
 
 def fused_block(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb, w2, b2,

@@ -60,6 +60,29 @@ def test_stem_stage_plain_vs_jax(pool):
         _close(got.float(), pc.stem_stage_pallas(*jargs, pool=pool), 2, 2e-2)
 
 
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("h,w", [(36, 52), (18, 34)])
+def test_stem_stage_plain_vs_jax_ragged(h, w, pool):
+    """Even sizes that are no multiple of the CUDA stem's 8x16 tile (the
+    card tests hold the fused kernel against this plain version there):
+    against the XLA ``stem_reference``, and against the TPU kernel in
+    interpret mode where ``stem_supported`` takes the size."""
+    rng = np.random.default_rng(h * w)
+    img = rng.random((h, w)).astype(np.float32)
+    w1a, b1a = _weights(rng, 1, 64)
+    w1b, b1b = _weights(rng, 64, 64)
+    got = tc.stem_stage(torch.as_tensor(img), _port_w(w1a),
+                        torch.as_tensor(b1a), _port_w(w1b),
+                        torch.as_tensor(b1b), pool=pool)
+    assert got.shape == ((h // 2, w // 2) if pool else (h, w)) + (64,)
+    jargs = [jnp.asarray(a) for a in (img, w1a, b1a, w1b, b1b)]
+    _close(got.float(), pc.stem_reference(*jargs, pool=pool))
+    if pc.stem_supported(h, w):
+        with pltpu.force_tpu_interpret_mode():
+            _close(got.float(), pc.stem_stage_pallas(*jargs, pool=pool), 2,
+                   2e-2)
+
+
 @pytest.mark.parametrize("cin,cmid,cout,pool", [
     (64, 64, 64, True),      # stage 2
     (64, 128, 128, True),    # stage 3

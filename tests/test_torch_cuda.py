@@ -85,14 +85,37 @@ def test_conv_stage_kernel_path_shapes_and_edges(card, h, w, cin, cmid, cout,
 
 
 def test_stem_stage_kernel_full_frame(card):
-    """conv1b at the frame's size runs the stage kernel's device code."""
+    """The frame's size, in one launch: conv1a inside conv1b's patch."""
     from gisnav_tpu_torch.features.conv import stem_stage, stem_stage_plain
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
 
     img = torch.rand((1088, 1920), generator=card, device="cuda")
     args = (*_conv_w(card, 1, 64), *_conv_w(card, 64, 64))
+    reset_launches()
     got = stem_stage(img, *args)
+    assert LAUNCHES["stem_stage"] == 1
     _close_bf16(got, stem_stage_plain(img, *args))
     assert torch.equal(got, stem_stage(img, *args))
+
+
+# the frame, a square map, and two ragged even sizes (the CPU tests hold the
+# plain version against the JAX reference at these): edge tiles partly
+# outside the image, where conv1a's image padding and conv1b's patch padding
+# are two different conditions
+STEM_CASES = [(1088, 1920), (2048, 2048), (36, 52), (18, 34)]
+
+
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("h,w", STEM_CASES)
+def test_stem_stage_kernel_sizes(card, h, w, pool):
+    from gisnav_tpu_torch.features.conv import stem_stage, stem_stage_plain
+
+    img = torch.rand((h, w), generator=card, device="cuda")
+    args = (*_conv_w(card, 1, 64), *_conv_w(card, 64, 64))
+    got = stem_stage(img, *args, pool=pool)
+    assert got.shape == ((h // 2, w // 2) if pool else (h, w)) + (64,)
+    _close_bf16(got, stem_stage_plain(img, *args, pool=pool))
+    assert torch.equal(got, stem_stage(img, *args, pool=pool))
 
 
 def test_conv_kernel_refuses_other_channel_counts(card):
@@ -154,6 +177,50 @@ def test_fused_block_kernel(card, sets, cross):
                                rtol=0, atol=5e-2)
 
 
+# chip_smoke.check_block's six cases: the dual self and cross stage at 2x2048
+# keypoints and the cached path's one-stream calls
+BLOCK_CASES = [(4096, 4096, 2, False), (4096, 4096, 2, True),
+               (2048, 2048, 1, False), (2048, 4096, 1, False),
+               (4096, 2048, 1, False), (4096, 4096, 1, False)]
+
+
+@pytest.mark.parametrize("n,kk_total,sets,cross", BLOCK_CASES)
+def test_fused_block_kernel_path_shapes(card, n, kk_total, sets, cross):
+    """Against the plain version at 5e-2, bit-equal on a second run (the
+    key split's merge runs in split order over a cluster, no atomics), two
+    launches a call."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.matching.lightglue_fused import (
+        fused_block,
+        fused_block_plain,
+    )
+
+    dim, bf = 256, torch.bfloat16
+
+    def r(shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=card, device="cuda")
+                ).to(dtype).contiguous()
+
+    x = r((n, dim))
+    q = r((n, dim), 1.0, bf)
+    k, v = (r((kk_total, dim), 1.0, bf) for _ in range(2))
+    bias = torch.where(torch.rand((sets, kk_total // sets), generator=card,
+                                  device="cuda") < 0.9, 0.0, -1e9).float()
+    w = [r((dim, dim), dim ** -0.5, bf), r((dim,), 0.05),
+         r((dim, 2 * dim), (2 * dim) ** -0.5, bf),
+         r((dim, 2 * dim), (2 * dim) ** -0.5, bf), r((2 * dim,), 0.05),
+         1.0 + r((2 * dim,), 0.1), r((2 * dim,), 0.1),
+         r((2 * dim, dim), (2 * dim) ** -0.5, bf), r((dim,), 0.05)]
+    kw = dict(heads=4, sets=sets, cross=cross)
+    reset_launches()
+    got = fused_block(x, q, k, v, bias, *w, **kw)
+    assert LAUNCHES["fused_block"] == 2  # attention, epilogue
+    torch.testing.assert_close(got, fused_block_plain(x, q, k, v, bias, *w,
+                                                      **kw),
+                               rtol=0, atol=5e-2)
+    assert torch.equal(got, fused_block(x, q, k, v, bias, *w, **kw))
+
+
 def test_runner_on_card_goes_through_every_kernel(card):
     import dataclasses
 
@@ -171,7 +238,7 @@ def test_runner_on_card_goes_through_every_kernel(card):
                   scene.crs_affine, map_stamp=1, altitude_agl=scene.alt_m)
     assert bool(pose.valid)
     assert np.isfinite(pose.lon_lat_alt.cpu().numpy()).all()
-    assert LAUNCHES == {"stem_stage": 4, "conv_stage": 16, "nms_select": 2,
+    assert LAUNCHES == {"stem_stage": 2, "conv_stage": 16, "nms_select": 2,
                         "fused_block": 36, "masked_attention": 0,
                         "shear_last_axis": 0, "nms_cellmax": 0}
 
@@ -314,7 +381,7 @@ def test_cached_runner_on_card_launches(card, kp, kernel, count):
     pose = runner(*args, map_stamp=1, altitude_agl=s.alt_m)
     assert np.isfinite(pose.lon_lat_alt.cpu().numpy()).all()
     assert runner.stats == {"frames": 2, "map_extractions": 1}
-    want = {"stem_stage": 2, "conv_stage": 8, "nms_select": 1, kernel: count}
+    want = {"stem_stage": 1, "conv_stage": 8, "nms_select": 1, kernel: count}
     assert LAUNCHES == {k: want.get(k, 0) for k in LAUNCHES}
 
 
@@ -335,7 +402,7 @@ def test_exact_warp_on_card_launches(card):
     reset_launches()
     pose = runner(*args, map_stamp=1, altitude_agl=s.alt_m)
     assert bool(pose.valid)
-    pair = {"stem_stage": 4, "conv_stage": 16, "nms_select": 2,
+    pair = {"stem_stage": 2, "conv_stage": 16, "nms_select": 2,
             "fused_block": 36}
     assert LAUNCHES == {k: pair.get(k, 0) for k in LAUNCHES}
 

@@ -11,6 +11,11 @@
   fused-vs-flax parity test). The weights are trained at depth 9; cut to
   depth 2 their match scores stay low, so those cases keep every mutual
   argmax (threshold 0).
+- The CUDA attention launch's arithmetic written out in PyTorch (each set's
+  key half, the keys split over a cluster with per-split statistics merged
+  in split order, P rounded to bf16 with the merged statistics, partial P.V
+  summed in split order and rounded once) against ``_block_plain``'s msg,
+  and the key splits the wrapper chooses at the path shapes.
 - ``fused_block_plain(sets=1)`` with unequal query and key counts against
   the older layout's TPU kernel ``_old_lgf._block_pallas`` in interpret mode
   (its body is the ``sets=1`` case of the current kernel's): atol 2e-2.
@@ -34,6 +39,7 @@ from gisnav_tpu.matching import lightglue_fused as jlf
 from gisnav_tpu.weights import LEARNED_LG9_PATH, load_npz
 from gisnav_tpu_torch.matching import lightglue as tlg
 from gisnav_tpu_torch.matching import lightglue_fused as tlf
+from gisnav_tpu_torch.matching.attention import key_splits
 from gisnav_tpu_torch.weights import params_from_jax
 
 torch.set_num_threads(2)
@@ -102,6 +108,95 @@ def test_block_plain_vs_jax(sets, cross):
     with pltpu.force_tpu_interpret_mode():
         ker = jlf._block_pallas(*ja, heads=4, sets=sets, cross=cross)
     np.testing.assert_allclose(got, np.asarray(ker), atol=2e-2, rtol=0)
+
+
+def _split_attention(q, k, v, bias, heads, sets, cross, splits):
+    """The fused block's attention launch in PyTorch, as the kernel computes
+    it: query set s attends key half s ^ cross; the 64-key tiles are cut
+    into ``splits`` ranges (tiles * p // splits ...), each range's row max
+    and sum of exp are merged in split order (m = max, l = l e^(m - m') +
+    l' e^(m' - m)), P = bf16(exp(logit - m) * (1 / l)), and the ranges'
+    partial P.V are added in split order and rounded to bf16 once."""
+    n, dim = q.shape
+    kq, kk = n // sets, k.shape[0] // sets
+    dh = dim // heads
+    tiles = kk // 64
+    edges = [64 * (tiles * p // splits) for p in range(splits + 1)]
+    out = []
+    for s in range(sets):
+        ks = s ^ int(cross)
+        qh, kh, vh = (t.float().reshape(-1, heads, dh).transpose(0, 1)
+                      for t in (q[s * kq:(s + 1) * kq],
+                                k[ks * kk:(ks + 1) * kk],
+                                v[ks * kk:(ks + 1) * kk]))
+        logits = (qh @ kh.transpose(1, 2)) * dh ** -0.5 + bias[ks]
+        parts = [logits[..., a:b] for a, b in zip(edges, edges[1:])]
+        m = l = None
+        for part in parts:
+            mp = part.amax(-1)
+            lp = torch.exp(part - mp[..., None]).sum(-1)
+            if m is None:
+                m, l = mp, lp
+            else:
+                mn = torch.maximum(m, mp)
+                l = l * torch.exp(m - mn) + lp * torch.exp(mp - mn)
+                m = mn
+        inv_l = 1.0 / l
+        o = torch.zeros((heads, kq, dh))
+        for (a, b), part in zip(zip(edges, edges[1:]), parts):
+            p = tlf._r(torch.exp(part - m[..., None]) * inv_l[..., None])
+            o = o + p @ vh[:, a:b]
+        out.append(tlf._r(o.transpose(0, 1).reshape(kq, dim)))
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("sets,cross", [(1, False), (2, False), (2, True)])
+def test_split_cluster_attention_is_the_plain_msg(monkeypatch, sets, cross,
+                                                  splits):
+    """The split arithmetic equals the msg that ``_block_plain`` rounds
+    (caught at its second ``_r`` call a set) within one bf16 ulp of msg (the
+    split sums add in another order than the plain matmul, which can round
+    msg to the neighbouring bf16) plus 2e-4: an f32 ulp in the merged sum
+    can move a probability of ~1e-2 across a bf16 rounding point, one bf16
+    ulp (4e-5) times |v| up to ~4."""
+    n = 512
+    x, q, k, v, bias, *w = _torch_args(_block_inputs(7 * sets + cross, n,
+                                                     n, sets))
+    seen = []
+    r = tlf._r
+    monkeypatch.setattr(tlf, "_r", lambda t: (seen.append(t), r(t))[1])
+    tlf.fused_block_plain(x, q, k, v, bias, *w, heads=4, sets=sets,
+                          cross=cross)
+    monkeypatch.setattr(tlf, "_r", r)
+    assert len(seen) == 7 * sets  # p, msg, m2, x, y, gelu, fc2 a set
+    want = r(torch.cat([seen[7 * s + 1] for s in range(sets)]))
+    got = _split_attention(q, k, v, bias, 4, sets, cross, splits)
+    assert got.shape == want.shape == (sets * n, DIM)
+    err = (got - want).abs()
+    tol = 2.0 ** -7 * want.abs() + 2e-4
+    assert not (err > tol).any(), float(err.max())
+
+
+@pytest.mark.parametrize("n,kk,want", [
+    (4096, 2048, 2),   # dual stage, 2 x 2048 keypoints
+    (2048, 2048, 4),   # cached path, 2048 query / 2048 keys
+    (2048, 4096, 4),   # 2048 query x 4096 reference keypoints
+    (4096, 2048, 2),   # 4096 x 2048
+    (4096, 4096, 2),   # 4096 x 4096
+    (1024, 512, 8),    # the CPU tests' dual shape, 2 x 512
+])
+def test_block_key_splits_at_path_shapes(n, kk, want):
+    """The fused block's attention launch splits the keys of a set as
+    ``key_splits(n, kk, heads, sms)`` with ``n`` the query rows of all sets:
+    on a 132-SM card at least three 4-warp blocks an SM where the keys
+    allow, a power of two up to 8 (one thread-block cluster holds the splits
+    of a row block), never more splits than 64-key tiles."""
+    splits = key_splits(n, kk, 4, 132)
+    assert splits == want
+    assert splits in (1, 2, 4, 8) and splits <= kk // 64
+    blocks = (n // 64) * 4 * splits
+    assert blocks >= 3 * 132 or splits in (8, kk // 64)
 
 
 @pytest.fixture(scope="module")
