@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernel checks only, no timing
     python3 chip_smoke.py --kernels  # build + kernel checks and times, no path
     python3 chip_smoke.py --seed-spread   # cached-mode fix over RANSAC seeds
-    python3 chip_smoke.py --stem-digest   # sha256 of the stem on one input
+    python3 chip_smoke.py --digest   # sha256 of kernel outputs, seeded inputs
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -14,7 +14,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels: each hand-written kernel against its plain PyTorch version on the
    same inputs at the paths' shapes, with the tolerance stated below, plus
    CUDA-event times of the kernel, the plain version and the closest library
-   call, and the kernel's bound on an H100;
+   call, the kernel's device time (``device_ms``, torch.profiler), the
+   whole 3-shear rotation, and the kernel's bound on an H100;
 4. path 1: the bucketed warp runner with the bundled learned_lg9 weights
    (SuperPoint + LightGlue-9) at 1088x1920 and 2048 keypoints over a seeded
    rendered scene: 8 frames over 3 rotation buckets, during which its four
@@ -30,9 +31,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. path 3: the exact-warp runner for 4 frames (pair SuperPoint, gather warp
    with zoom), then the zoom-less exact-warp frame program on a 2048x2048
    map at the query's ground sample distance for 4 frames (the 3-shear
-   rotation, 3 shear launches a frame);
+   rotation, 3 shear launches a frame: two along the last axis, one along
+   the first);
 7. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone).
+
+``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
+the shear's outputs on seeded inputs (run a copy of this script placed
+beside another source's package to hold the two bit for bit).
 
 Every fix of every path must be valid and within 10 m of the truth, and a
 path that never launched a kernel it was meant to run fails the run. The
@@ -85,6 +91,11 @@ CONV_SHAPES = [  # (name, h, w, cin, cmid, cout or None, pool) per image
     ("convPa", 136, 240, 128, 256, None, False),
     ("convDa", 136, 240, 128, 256, None, False),
 ]
+# measured beside the contract's keys: device time (``device_ms``), the
+# wrapper's host time (``host_ms``), K4's two launches apart, the library's
+# device time and the whole 3-shear rotation
+EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
+              "library_device_ms", "rotation_ms", "rotation_device_ms")
 
 
 def log(msg: str) -> None:
@@ -109,6 +120,49 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / batch)
+    return float(np.median(times))
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one ``fn()`` in milliseconds: the durations of the
+    kernels and copies it runs (torch.profiler) over ``calls`` calls back to
+    back, per call. Unlike events around a batch of calls, this leaves out
+    the host's cost of issuing each call, which for a kernel of a few
+    microseconds is the larger part: 20 calls of the K6 wrapper between two
+    events take the same 0.0325 ms a call whichever kernel they run. Every
+    ``fn`` launches a kernel, so a trace that caught none is a fault of the
+    meter and raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not total_us > 0:
+        raise RuntimeError("torch.profiler caught no kernel of a call that "
+                           "launches one")
+    return total_us / calls / 1e3
+
+
+def host_ms(fn, calls: int = 100, reps: int = 5) -> float:
+    """Host time of one ``fn()`` in milliseconds: the median over ``reps``
+    of ``calls`` calls issued back to back from an idle card, per call. For
+    a kernel shorter than the wrapper's host cost the queue never fills, so
+    this is what a call costs the host (checks, allocation, ctypes,
+    launch)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t) * 1e3 / calls)
+    torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -206,7 +260,10 @@ def check_conv(gen, quick, results):
         entry["ms"] = time_ms(lambda: stem_stage(img, w1a, b1a, w1b, b1b))
         b2b = time_ms(lambda: stem_stage(img, w1a, b1a, w1b, b1b), reps=5,
                       batch=20)
-        log(f"[time] stem_stage: 20 back to back, per call {b2b:.4f} ms")
+        entry["device_ms"] = device_ms(
+            lambda: stem_stage(img, w1a, b1a, w1b, b1b))
+        log(f"[time] stem_stage: 20 back to back, per call {b2b:.4f} ms; "
+            f"device {entry['device_ms']:.4f} ms")
         entry["plain_ms"] = time_ms(
             lambda: stem_stage_plain(img, w1a, b1a, w1b, b1b), reps=3)
         x1 = img.to(torch.bfloat16)[None, None].contiguous(
@@ -298,7 +355,16 @@ def check_nms(gen, quick, results):
         H * W * 4 + 3 * (H // 4) * (W // 4) * 4, f32_ops=70 * H * W)
     if not quick:
         entry["ms"] = time_ms(lambda: nms_select(heat, 4))
+        entry["device_ms"] = device_ms(lambda: nms_select(heat, 4))
+        entry["host_ms"] = host_ms(lambda: nms_select(heat, 4))
         entry["plain_ms"] = time_ms(lambda: nms_select_plain(heat, 4))
+        # what one library kernel takes to read the same bytes
+        read_ms = device_ms(lambda: torch.amax(heat))
+        log(f"[time] nms_select {H}x{W}: kernel {entry['ms']:.4f} ms, "
+            f"device {entry['device_ms']:.4f} ms, host "
+            f"{entry['host_ms']:.4f} ms, plain "
+            f"{entry['plain_ms']:.4f} ms; torch.amax of the heatmap, device "
+            f"{read_ms:.4f} ms")
     results.append(entry)
 
 
@@ -315,7 +381,8 @@ def check_cellmax(gen, quick, results):
              "source": "gisnav_tpu_torch/kernels/nms_select.cu",
              "replaces": "gisnav_tpu/features/pallas_nms.py:57",
              "max_abs_err": 0.0, "library_ms": None, "bound_ms": 0.0,
-             "ms": 0.0, "plain_ms": 0.0, "bound_by": "bytes"}
+             "ms": 0.0, "device_ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+             "bound_by": "bytes"}
     for h, w in ((H, W), (MAP, MAP)):
         heat = torch.rand((h, w), generator=gen, device="cuda") ** 8
         k_out = nms_cellmax(heat, 4)
@@ -330,7 +397,14 @@ def check_cellmax(gen, quick, results):
             raise RuntimeError("nms_cellmax bound is expected to be bytes")
         entry["bound_ms"] += b
         if not quick:
-            entry["ms"] += time_ms(lambda: nms_cellmax(heat, 4))
+            ms = time_ms(lambda: nms_cellmax(heat, 4))
+            dms = device_ms(lambda: nms_cellmax(heat, 4))
+            hms = host_ms(lambda: nms_cellmax(heat, 4))
+            log(f"[time] nms_cellmax {h}x{w}: kernel {ms:.4f} ms, device "
+                f"{dms:.4f} ms, host {hms:.4f} ms")
+            entry["ms"] += ms
+            entry["device_ms"] += dms
+            entry["host_ms"] += hms
             entry["plain_ms"] += time_ms(lambda: nms_cellmax_plain(heat, 4))
     results.append(entry)
 
@@ -397,50 +471,91 @@ def check_attention(gen, quick, results):
     results.append(entry)
 
 
-def check_shear(gen, quick, results):
+def check_shear(gen, quick, results, ab=False):
+    """K6's two entries at path 3's shapes, then the whole 3-shear rotation.
+    ``ab``: a copy of this script placed beside an older package (to time two
+    sources in one call) may find no first-axis entry there."""
     import torch.nn.functional as F
 
-    from gisnav_tpu_torch.raster.shear_kernel import (
-        shear_last_axis,
-        shear_last_axis_plain,
-    )
+    from gisnav_tpu_torch.raster import shear_kernel
+    from gisnav_tpu_torch.raster.shear import rotate_and_crop_center_shear
 
+    last = shear_kernel.shear_last_axis
+    axes = [("shear_last_axis", last, shear_kernel.shear_last_axis_plain)]
+    if hasattr(shear_kernel, "shear_first_axis"):
+        axes.append(("shear_first_axis", shear_kernel.shear_first_axis,
+                     shear_kernel.shear_first_axis_plain))
+    elif not ab:
+        raise RuntimeError("the package has no shear_first_axis")
     c, n = 2, MAP
     img = torch.rand((c, n, n), generator=gen, device="cuda")
-    # tolerance: the same f32 expression on both sides; 1e-5 x max|img|
-    tol = 1e-5 * float(img.abs().max())
-    entry = {"name": "shear_last_axis", "route": "cuda",
-             "source": "gisnav_tpu_torch/kernels/shear.cu",
-             "replaces": "gisnav_tpu/raster/pallas_shear.py:30",
-             "max_abs_err": 0.0}
-    entry["bound_ms"], entry["bound_by"] = bound_ms(
-        2 * c * n * n * 4, f32_ops=7 * c * n * n)
-    ms, plain, lib = [], [], []
-    for shift in (0.41, -0.41, 0.70, -0.70):
-        k_out = shear_last_axis(img, shift, n / 2)
-        e = float((k_out - shear_last_axis_plain(img, shift, n / 2)
-                   ).abs().max())
-        log(f"[kernel] shear_last_axis {c}x{n}x{n} shift={shift:+.2f}: "
-            f"max_abs_err={e:.3g}")
-        if not (e <= tol) or not torch.isfinite(k_out).all():
-            raise RuntimeError("shear_last_axis disagrees")
-        entry["max_abs_err"] = max(entry["max_abs_err"], e)
+    rows = torch.arange(n, dtype=torch.float32, device="cuda")
+    # tolerance: 0. Both entries evaluate the plain versions' f32 expression
+    # with round-to-nearest intrinsics; the first axis is also held against
+    # the transpose route it replaces
+    for name, kernel, plain in axes:
+        entry = {"name": name, "route": "cuda",
+                 "source": "gisnav_tpu_torch/kernels/shear.cu",
+                 "replaces": "gisnav_tpu/raster/pallas_shear.py:30",
+                 "max_abs_err": 0.0}
+        entry["bound_ms"], entry["bound_by"] = bound_ms(
+            2 * c * n * n * 4, f32_ops=7 * c * n * n)
+        times = {k: [] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                 "library_ms", "library_device_ms")}
+        for shift in (0.41, -0.41, 0.70, -0.70):
+            k_out = kernel(img, shift, n / 2)
+            e = float((k_out - plain(img, shift, n / 2)).abs().max())
+            msg = f"max_abs_err={e:.3g}"
+            if kernel is not last:
+                route = last(img.transpose(-1, -2).contiguous(), shift,
+                             n / 2).transpose(-1, -2)
+                e_route = float((k_out - route).abs().max())
+                msg += f", vs the transpose route {e_route:.3g}"
+                e = max(e, e_route)
+            log(f"[kernel] {name} {c}x{n}x{n} shift={shift:+.2f}: {msg}")
+            if e != 0.0 or not torch.isfinite(k_out).all():
+                raise RuntimeError(f"{name} disagrees")
+            if quick:
+                continue
+            # the same resample through F.grid_sample: x then y coordinates
+            moving = rows[None, :] + shift * (rows[:, None] - n / 2)
+            still = rows[:, None].expand(n, n)
+            gx, gy = ((moving, still) if kernel is last
+                      else (still.T, moving.T))
+            grid = torch.stack([2 * gx / (n - 1) - 1, 2 * gy / (n - 1) - 1],
+                               dim=-1)[None]
+            for prefix, fn in (
+                    ("", lambda: kernel(img, shift, n / 2)),
+                    ("plain_", lambda: plain(img, shift, n / 2)),
+                    ("library_", lambda: F.grid_sample(
+                        img[None], grid, mode="bilinear",
+                        padding_mode="zeros", align_corners=True))):
+                times[prefix + "ms"].append(time_ms(
+                    fn, reps=3 if prefix == "plain_" else 10))
+                if prefix != "plain_":
+                    times[prefix + "device_ms"].append(device_ms(fn))
+            times["host_ms"].append(host_ms(lambda: kernel(img, shift,
+                                                           n / 2)))
         if not quick:
-            ms.append(time_ms(lambda: shear_last_axis(img, shift, n / 2)))
-            plain.append(time_ms(
-                lambda: shear_last_axis_plain(img, shift, n / 2), reps=3))
-            rows = torch.arange(n, dtype=torch.float32, device="cuda")
-            xs = rows[None, :] + shift * (rows[:, None] - n / 2)
-            grid = torch.stack([2 * xs / (n - 1) - 1,
-                                (2 * rows / (n - 1) - 1)[:, None].expand(
-                                    n, n)], dim=-1)[None]
-            lib.append(time_ms(lambda: F.grid_sample(
-                img[None], grid, mode="bilinear", padding_mode="zeros",
-                align_corners=True)))
-    if not quick:
-        entry["ms"], entry["plain_ms"], entry["library_ms"] = (
-            float(np.mean(x)) for x in (ms, plain, lib))
-    results.append(entry)
+            entry.update({k: float(np.mean(v)) for k, v in times.items()})
+            log("[time] {} {}x{}x{}, mean of 4 shifts: {}".format(
+                name, c, n, n, ", ".join(f"{k} {entry[k]:.4f}"
+                                         for k in times)))
+        results.append(entry)
+    if quick:
+        return
+    # the whole zoom-less rotation (3 shears, crop) at path 3's shapes
+    stack = torch.rand((n, n, c), generator=gen, device="cuda")
+    rot = [(time_ms(lambda: rotate_and_crop_center_shear(stack, yaw, (H, W))),
+            device_ms(lambda: rotate_and_crop_center_shear(
+                stack, yaw, (H, W))))
+           for yaw in SHEAR_YAWS]
+    entry = results[-len(axes)]
+    entry["rotation_ms"], entry["rotation_device_ms"] = (
+        float(np.mean(x)) for x in zip(*rot))
+    log(f"[time] shear rotation {n}x{n}x{c} -> {H}x{W}, mean of "
+        f"{len(SHEAR_YAWS)} yaws: {entry['rotation_ms']:.4f} ms, device "
+        f"{entry['rotation_device_ms']:.4f} ms")
 
 
 def _block_inputs(gen, n, kk_total, sets):
@@ -816,8 +931,10 @@ def phase_exact_warp_path(params, config, scene,
     launches = dict(LAUNCHES)
     frames = len(SHEAR_YAWS)
     log(f"[shear] launches over {frames} frames: {launches}")
+    # the rotation's two x-shears and its y-shear
     expect_launches("zoom-less exact warp", launches,
-                    {"shear_last_axis": 3 * frames,
+                    {"shear_last_axis": 2 * frames,
+                     "shear_first_axis": frames,
                      "stem_stage": 2 * frames, "conv_stage": 16 * frames,
                      "nms_select": 2 * frames, "fused_block": 36 * frames})
     out["zoomless"] = {"frames": frames,
@@ -864,21 +981,50 @@ def phase_seed_spread(seeds: int = 12) -> None:
                 f"max {max(err):.2f} m")
 
 
-def phase_stem_digest() -> None:
-    """sha256 of the stem's bf16 output on a seeded 1088x1920 input, to hold
-    two sources of the stem kernel bit for bit (run this script from a copy
-    placed beside the other source's package)."""
+def phase_digest() -> None:
+    """sha256 of kernel outputs on seeded inputs, to hold two sources of the
+    kernels bit for bit (run this script from a copy placed beside the other
+    source's package): the stem's bf16 output (pool on and off), K3's three
+    outputs and K7's at the frame and map sizes, and K6's last-axis shear of
+    a 2 x 2048 x 2048 stack at four shifts. Where the package has the
+    first-axis shear, its digests too, and it must equal the transpose route
+    on the card bit for bit."""
     from gisnav_tpu_torch.features.conv import stem_stage
+    from gisnav_tpu_torch.features.nms_kernel import nms_cellmax, nms_select
+    from gisnav_tpu_torch.raster import shear_kernel
+
+    def show(what, t):
+        digest = hashlib.sha256(
+            t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        log(f"[digest] {what}: {digest.hexdigest()}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     img = torch.rand((H, W), generator=gen, device="cuda")
     args = (*_conv_weights(gen, 1, 64), *_conv_weights(gen, 64, 64))
     for pool in (True, False):
-        out = stem_stage(img, *args, pool=pool)
-        digest = hashlib.sha256(
-            out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
-        log(f"[stem digest] {H}x{W} pool={pool}: {digest}")
+        show(f"stem {H}x{W} pool={pool}", stem_stage(img, *args, pool=pool))
+    for h, w in ((H, W), (MAP, MAP)):
+        heat = torch.rand((h, w), generator=gen, device="cuda") ** 8
+        for name, t in zip(("cell_max", "cell_x", "cell_y"),
+                           nms_select(heat, 4)):
+            show(f"nms_select {h}x{w} {name}", t)
+        show(f"nms_cellmax {h}x{w}", nms_cellmax(heat, 4))
+    stack = torch.rand((2, MAP, MAP), generator=gen, device="cuda")
+    first = getattr(shear_kernel, "shear_first_axis", None)
+    for shift in (0.41, -0.41, 0.70, -0.999):
+        show(f"shear_last_axis 2x{MAP}x{MAP} shift={shift:+.3f}",
+             shear_kernel.shear_last_axis(stack, shift, MAP / 2))
+        if first is None:
+            continue
+        out = first(stack, shift, MAP / 2)
+        show(f"shear_first_axis 2x{MAP}x{MAP} shift={shift:+.3f}", out)
+        route = shear_kernel.shear_last_axis(
+            stack.transpose(-1, -2).contiguous(), shift, MAP / 2)
+        if not torch.equal(out, route.transpose(-1, -2)):
+            raise RuntimeError("shear_first_axis differs from the transpose "
+                               "route")
+    log("[digest] done")
 
 
 def phase_cellmax_stage() -> int:
@@ -980,9 +1126,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed-spread", action="store_true",
                     help="only print how the cached runner's fixes move "
                          "over RANSAC seeds")
-    ap.add_argument("--stem-digest", action="store_true",
-                    help="only print the sha256 of the stem's output on a "
-                         "seeded frame")
+    ap.add_argument("--digest", action="store_true",
+                    help="only print the sha256 of the stem's, NMS "
+                         "kernels' and shear's outputs on seeded inputs")
     args = ap.parse_args(argv)
 
     device = phase_device()
@@ -993,8 +1139,8 @@ def main(argv=None) -> int:
     if args.seed_spread:
         phase_seed_spread()
         return 0
-    if args.stem_digest:
-        phase_stem_digest()
+    if args.digest:
+        phase_digest()
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1003,7 +1149,7 @@ def main(argv=None) -> int:
     check_nms(gen, args.quick, results)
     check_block(gen, args.quick, results)
     check_attention(gen, args.quick, results)
-    check_shear(gen, args.quick, results)
+    check_shear(gen, args.quick, results, ab=args.kernels)
     check_cellmax(gen, args.quick, results)
     torch.cuda.synchronize()
     log(json.dumps({"kernels_checked": [r["name"] for r in results]}))
@@ -1011,9 +1157,9 @@ def main(argv=None) -> int:
         return 0
     if args.kernels:
         log(json.dumps({"kernel_times": [
-            {k: r.get(k) for k in ("name", "ms", "plain_ms", "library_ms",
-                                   "bound_ms", "max_abs_err", "attention_ms",
-                                   "epilogue_ms") if k in r}
+            {k: r[k] for k in ("name", "ms", "plain_ms", "library_ms",
+                               "bound_ms", "max_abs_err", *EXTRA_KEYS)
+             if k in r}
             for r in results]}))
         return 0
     main_path = phase_main_path(args.profile)
@@ -1025,8 +1171,8 @@ def main(argv=None) -> int:
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
         "masked_attention"]
-    counts["shear_last_axis"] = exact["zoomless"]["launches"][
-        "shear_last_axis"]
+    for name in ("shear_last_axis", "shear_first_axis"):
+        counts[name] = exact["zoomless"]["launches"][name]
     counts["nms_cellmax"] = phase_cellmax_stage()
     for r in results:
         r["launches"] = counts[r["name"]]
@@ -1034,14 +1180,13 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{r['name']} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K4 also carries its two launches' times apart
-    extra = ("attention_ms", "epilogue_ms")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(json.dumps({"kernels": [
-        {**{k: r.get(k) for k in keys}, **{k: r[k] for k in extra if k in r}}
+        {**{k: r.get(k) for k in keys},
+         **{k: r[k] for k in EXTRA_KEYS if k in r}}
         for r in results]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from gisnav_tpu_torch.kernels import LAUNCHES
 from gisnav_tpu_torch.kernels.build import (
+    aligned16,
     check,
     library,
     ptr,
@@ -113,22 +114,24 @@ def _lib():
 
 def nms_select(heatmap: torch.Tensor, border: int, temperature: float = 0.1
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(H, W) heatmap, H and W multiples of 4 -> 3 x (H/4, W/4) f32."""
+    """(H, W) heatmap, H and W multiples of 4 -> 3 x (H/4, W/4) f32, the
+    three views of one (3, H/4, W/4) allocation."""
     h, w = heatmap.shape
     if h % _BLOCK or w % _BLOCK:
         raise ValueError(f"nms_select needs H, W multiples of 4, got {(h, w)}")
+    out = torch.empty((3, h // _BLOCK, w // _BLOCK), dtype=torch.float32,
+                      device=heatmap.device)
     if not heatmap.is_cuda:
-        return nms_select_plain(heatmap, border, temperature)
+        torch.stack(nms_select_plain(heatmap, border, temperature), out=out)
+        return out.unbind(0)
     if heatmap.dtype != torch.float32:
         raise TypeError("nms_select takes an f32 heatmap")
-    heat = heatmap.contiguous()
-    outs = [torch.empty((h // _BLOCK, w // _BLOCK), dtype=torch.float32,
-                        device=heat.device) for _ in range(3)]
-    check(_lib().gisnav_nms_select(ptr(heat), *(ptr(o) for o in outs), h, w,
+    heat = aligned16(heatmap)
+    check(_lib().gisnav_nms_select(ptr(heat), *(ptr(o) for o in out), h, w,
                                    int(border), 1.0 / float(temperature),
                                    stream_of(heat)), "nms_select")
     LAUNCHES["nms_select"] += 1
-    return tuple(outs)
+    return out.unbind(0)
 
 
 def nms_cellmax_supported(h: int, w: int, border: int) -> bool:
@@ -146,7 +149,7 @@ def nms_cellmax(heatmap: torch.Tensor, border: int) -> torch.Tensor:
         return nms_cellmax_plain(heatmap, border)
     if heatmap.dtype != torch.float32:
         raise TypeError("nms_cellmax takes an f32 heatmap")
-    heat = heatmap.contiguous()
+    heat = aligned16(heatmap)
     out = torch.empty((h // _BLOCK, w // _BLOCK), dtype=torch.float32,
                       device=heat.device)
     check(_lib().gisnav_nms_cellmax(ptr(heat), ptr(out), h, w, int(border),

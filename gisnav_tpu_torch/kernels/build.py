@@ -18,8 +18,8 @@ import subprocess
 import threading
 from typing import Dict
 
-__all__ = ["SOURCES", "build_all", "library", "check", "check_device",
-           "ptr", "stream_of", "typed"]
+__all__ = ["SOURCES", "aligned16", "build_all", "library", "check",
+           "check_device", "ptr", "stream_of", "typed"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -116,6 +116,13 @@ def check(rc: int, what: str) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def aligned16(t):
+    """``t`` contiguous at a 16-byte aligned address (copied if a view
+    starts elsewhere): the kernels stage their inputs by 16-byte copies."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_of(t) -> ctypes.c_void_p:

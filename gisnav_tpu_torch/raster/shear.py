@@ -8,8 +8,10 @@ Counterpart of ``gisnav_tpu/raster/shear.py``
                                                    b = sin(theta)
 
 after exact right-angle steps that bring the residual into [-45, 45]
-degrees, so \\|a\\| <= tan(22.5 deg) and \\|b\\| <= sin(45 deg). Each shear is
-one ``shear_last_axis`` pass (the y-shear between two transposes). Three
+degrees, so \\|a\\| <= tan(22.5 deg) and \\|b\\| <= sin(45 deg). The
+x-shears are ``shear_last_axis`` passes and the y-shear one
+``shear_first_axis`` pass, which equals the JAX package's x-shear between two
+transposes bit for bit without those two copies of the stack. Three
 chained linear resamples smooth slightly more than one bilinear pass; the
 output geometry and the crop -> original matrix are those of
 ``warp.rotate_and_crop_center``.
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from gisnav_tpu_torch.raster.shear_kernel import (
+    shear_first_axis,
+    shear_first_axis_plain,
     shear_last_axis,
     shear_last_axis_plain,
 )
@@ -55,16 +59,17 @@ def rotate_and_crop_center_shear(stack: torch.Tensor, angle_deg: float,
                                  crop_shape: Tuple[int, int]
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotate a SQUARE (N, N, C) stack about its centre (CCW, cv2
-    convention) and centre-crop. A stack on the card goes through
-    ``shear_last_axis`` (the CUDA kernel), which raises unless
-    N % 128 == 0 and N >= 384; a CPU stack of any side runs the plain shear.
+    convention) and centre-crop. A stack on the card goes through the CUDA
+    shear kernels, which raise unless N % 128 == 0 and N >= 384; a CPU stack
+    of any side runs the plain shears.
 
     :return: (crop (h, w, C) f32, 3x3 f32 cropped -> original pixel affine)
     """
     hh, ww = int(stack.shape[0]), int(stack.shape[1])
     if hh != ww:
         raise ValueError("the shear rotation needs a square raster")
-    shear = shear_last_axis if stack.is_cuda else shear_last_axis_plain
+    shear_x, shear_y = ((shear_last_axis, shear_first_axis) if stack.is_cuda
+                        else (shear_last_axis_plain, shear_first_axis_plain))
     ch, cw = crop_shape
     cx, cy = ww // 2, hh // 2
     img = stack.float().permute(2, 0, 1)  # (C, H, W)
@@ -78,10 +83,9 @@ def rotate_and_crop_center_shear(stack: torch.Tensor, angle_deg: float,
     a = float(-np.tan(residual / np.float32(2.0), dtype=np.float32))
     b = float(np.sin(residual, dtype=np.float32))
 
-    img = shear(img, a, float(cy))
-    img = shear(img.transpose(-1, -2).contiguous(), b,
-                float(cx)).transpose(-1, -2).contiguous()
-    img = shear(img, a, float(cy))
+    img = shear_x(img, a, float(cy))
+    img = shear_y(img, b, float(cx))
+    img = shear_x(img, a, float(cy))
 
     dx, dy = cx - cw // 2, cy - ch // 2
     crop = img[:, dy:dy + ch, dx:dx + cw].permute(1, 2, 0).contiguous()

@@ -11,7 +11,8 @@ also give the same bits on a second run): conv bf16 outputs 2 ulp + 0.05
 (sums in another order round to neighbouring bf16s), NMS cell maxima exact
 and positions 1e-4 px, the LightGlue block 5e-2 on f32 outputs, the masked
 attention 1e-2 of the largest |output| (on unit-normal and on sharpened
-queries), the shear 1e-5, the NMS cell max exact.
+queries), the shear (both entries, and the rotation built on them) bit for
+bit, the NMS cell max exact.
 """
 import numpy as np
 import pytest
@@ -240,7 +241,8 @@ def test_runner_on_card_goes_through_every_kernel(card):
     assert np.isfinite(pose.lon_lat_alt.cpu().numpy()).all()
     assert LAUNCHES == {"stem_stage": 2, "conv_stage": 16, "nms_select": 2,
                         "fused_block": 36, "masked_attention": 0,
-                        "shear_last_axis": 0, "nms_cellmax": 0}
+                        "shear_last_axis": 0, "shear_first_axis": 0,
+                        "nms_cellmax": 0}
 
 
 @pytest.mark.parametrize("sharp", [1.0, 4.0])
@@ -314,9 +316,8 @@ def test_shear_kernel(card, shift):
     )
 
     img = torch.rand((2, 256, 384), generator=card, device="cuda")
-    torch.testing.assert_close(shear_last_axis(img, shift, 128.0),
-                               shear_last_axis_plain(img, shift, 128.0),
-                               rtol=0, atol=1e-5)
+    assert torch.equal(shear_last_axis(img, shift, 128.0),
+                       shear_last_axis_plain(img, shift, 128.0))
     with pytest.raises(ValueError, match="128"):
         shear_last_axis(img[:, :, :256].contiguous(), shift, 128.0)
 
@@ -334,6 +335,7 @@ def test_shear_rotation_of_unsupported_side_raises_on_card(card):
     reset_launches()
     crop, _ = rotate_and_crop_auto(stack, 20.0, (40, 60))
     assert crop.shape == (40, 60, 1) and LAUNCHES["shear_last_axis"] == 0
+    assert LAUNCHES["shear_first_axis"] == 0
 
 
 def test_nms_cellmax_kernel(card):
@@ -387,7 +389,8 @@ def test_cached_runner_on_card_launches(card, kp, kernel, count):
 
 def test_exact_warp_on_card_launches(card):
     """The runner passes a zoom (gather warp); the frame program without a
-    zoom on a square 384 map takes the 3-shear rotation: 3 shear launches."""
+    zoom on a square 384 map takes the 3-shear rotation: 3 shear launches,
+    two along the last axis and one along the first."""
     from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
     from gisnav_tpu_torch.pipeline.geopose import (
         build_frame_to_geopose,
@@ -418,5 +421,115 @@ def test_exact_warp_on_card_launches(card):
         20.0, f32(s.k), f32(s.crs_affine),
         generator=torch.Generator(device=dev).manual_seed(1))
     assert bool(pose.valid)
-    assert LAUNCHES == {k: {**pair, "shear_last_axis": 3}.get(k, 0)
-                        for k in LAUNCHES}
+    shears = {"shear_last_axis": 2, "shear_first_axis": 1}
+    assert LAUNCHES == {k: {**pair, **shears}.get(k, 0) for k in LAUNCHES}
+
+
+def _hold_nms_select(heat):
+    """K3 against its plain version: cell max exact, positions 1e-4 px."""
+    from gisnav_tpu_torch.features.nms_kernel import (
+        nms_select,
+        nms_select_plain,
+    )
+
+    got, want = nms_select(heat, 4), nms_select_plain(heat, 4)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+    return got
+
+
+@pytest.mark.parametrize("h,w", [(36, 52), (100, 132), (68, 200),
+                                 (1088, 1920)])
+def test_nms_select_kernel_ragged(card, h, w):
+    """One partial tile, partial tiles on both edges, W = 200 (a multiple of
+    neither 128 nor the 32x128 tile), and the frame."""
+    _hold_nms_select(torch.rand((h, w), generator=card, device="cuda") ** 8)
+
+
+def test_nms_select_kernel_ties_across_tile_borders(card):
+    """Equal maxima on both sides of a tile's row border (rows 31 | 32) and
+    column border (columns 127 | 128), and two in one cell at a tile corner:
+    all survive, and each one's soft-argmax leans half a pixel towards its
+    twin (clipped at 0.5 px); the corner cell averages its two."""
+    heat = 0.1 * torch.rand((96, 260), generator=card, device="cuda") ** 8
+    for y, x in ((31, 60), (32, 60), (50, 127), (50, 128), (62, 252),
+                 (63, 253)):
+        heat[y, x] = 0.9
+    cm, cx, cy = _hold_nms_select(heat)
+    for (y, x), (ex, ey) in (((31, 60), (60, 31.5)), ((32, 60), (60, 31.5)),
+                             ((50, 127), (127.5, 50)),
+                             ((50, 128), (127.5, 50)),
+                             ((62, 252), (252.5, 62.5))):
+        assert float(cm[y // 4, x // 4]) == pytest.approx(0.9)
+        assert float(cx[y // 4, x // 4]) == pytest.approx(ex, abs=0.01)
+        assert float(cy[y // 4, x // 4]) == pytest.approx(ey, abs=0.01)
+
+
+def test_nms_select_kernel_plateau(card):
+    """A flat plateau: every pixel on it survives (ties keep), so a tile
+    lists thousands of survivors, more than a block computes at once."""
+    heat = torch.zeros((96, 260), device="cuda")
+    heat[8:88, 8:250] = 0.5
+    cm, cx, _ = _hold_nms_select(heat)
+    assert float(cm[10, 30]) == 0.5 and float(cx[10, 30]) == 121.5
+
+
+def test_nms_select_kernel_all_zero(card):
+    zero = torch.zeros((1088, 1920), device="cuda")
+    for t in _hold_nms_select(zero):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+@pytest.mark.parametrize("h,w", [(1088, 1920), (2048, 2048)])
+def test_nms_cellmax_kernel_equals_select(card, h, w):
+    from gisnav_tpu_torch.features.nms_kernel import nms_cellmax, nms_select
+
+    heat = torch.rand((h, w), generator=card, device="cuda") ** 8
+    assert torch.equal(nms_cellmax(heat, 4), nms_select(heat, 4)[0])
+
+
+@pytest.mark.parametrize("c,h,w", [(1, 384, 384), (2, 1024, 1024),
+                                   (3, 512, 384), (4, 2048, 2048)])
+@pytest.mark.parametrize("shift", [0.999, -0.999, 0.3])
+def test_shear_kernels_both_axes(card, c, h, w, shift):
+    """Both entries bit-equal to their plain versions, and the first axis to
+    the transpose route on the card."""
+    from gisnav_tpu_torch.raster.shear_kernel import (
+        shear_first_axis,
+        shear_first_axis_plain,
+        shear_last_axis,
+        shear_last_axis_plain,
+    )
+
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    img = torch.rand((c, h, w), generator=card, device="cuda")
+    assert torch.equal(shear_last_axis(img, shift, h / 2),
+                       shear_last_axis_plain(img, shift, h / 2))
+    reset_launches()
+    first = shear_first_axis(img, shift, w / 2)
+    assert (LAUNCHES["shear_first_axis"], LAUNCHES["shear_last_axis"]) == (
+        1, 0)
+    assert torch.equal(first, shear_first_axis_plain(img, shift, w / 2))
+    assert torch.equal(first, shear_last_axis(
+        img.transpose(-1, -2).contiguous(), shift, w / 2).transpose(-1, -2))
+
+
+@pytest.mark.parametrize("yaw", [20.0, -33.0, 61.5, 117.0])
+def test_shear_rotation_kernel_route_equals_transpose_route(card, yaw,
+                                                            monkeypatch):
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.raster import shear as tshear
+    from gisnav_tpu_torch.raster.shear_kernel import shear_last_axis
+
+    stack = torch.rand((2048, 2048, 2), generator=card, device="cuda")
+    reset_launches()
+    got = tshear.rotate_and_crop_center_shear(stack, yaw, (1088, 1920))
+    assert (LAUNCHES["shear_last_axis"], LAUNCHES["shear_first_axis"]) == (
+        2, 1)
+    monkeypatch.setattr(tshear, "shear_first_axis", lambda img, b, c: (
+        shear_last_axis(img.transpose(-1, -2).contiguous(), b, c)
+        .transpose(-1, -2).contiguous()))
+    ref = tshear.rotate_and_crop_center_shear(stack, yaw, (1088, 1920))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

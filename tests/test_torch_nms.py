@@ -2,11 +2,15 @@
 
 ``nms_select_plain`` (what a CPU tensor runs) against the TPU kernel
 ``nms_select_pallas`` in Pallas interpret mode (cell max exact, positions to
-1e-5 px, tied survivors included) and against the XLA path that JAX runs on
-the CPU: its cell max exactly, its positions on cells with a single NMS
-survivor (the XLA path takes the argmax of the NMS'd map where the kernel
-averages tied survivors). ``select_keypoints`` is compared as sets (top-k tie
-order differs between ``torch.topk`` and ``approx_max_k``).
+4 f32 ulps of the image's largest coordinate, tied survivors included) and
+against the XLA path that JAX runs on the CPU: its cell max exactly, its
+positions on cells with a single NMS survivor (the XLA path takes the argmax
+of the NMS'd map where the kernel averages tied survivors).
+``select_keypoints`` is compared as sets (top-k tie order differs between
+``torch.topk`` and ``approx_max_k``). The position tolerance: ATen's and
+XLA's ``exp`` differ by an ulp on some inputs, and one ulp of a soft-argmax
+weight can move the rounded position ``x + dx`` by an ulp of x (1.5e-5 px
+at 128-255 px).
 
 ``nms_cellmax_plain`` (K7) is exact against the TPU kernel
 ``nms_cellmax_pallas`` in interpret mode and against ``nms_select_plain``'s
@@ -44,6 +48,11 @@ from gisnav_tpu_torch.features.nms_kernel import (
 torch.set_num_threads(2)
 
 
+def _pos_tol(h, w):
+    """4 f32 ulps of the largest pixel coordinate of an (h, w) image."""
+    return 4 * float(np.spacing(np.float32(max(h, w))))
+
+
 def _heat(seed, h, w):
     rng = np.random.default_rng(seed)
     return (rng.random((h, w)) ** 8).astype(np.float32)
@@ -71,9 +80,22 @@ def test_plain_vs_pallas_kernel_interpret():
     with pltpu.force_tpu_interpret_mode():
         ref = [np.asarray(o) for o in nms_select_pallas(jnp.asarray(heat), 4)]
     np.testing.assert_array_equal(cm, ref[0])
-    np.testing.assert_allclose(cx, ref[1], atol=1e-5)
-    np.testing.assert_allclose(cy, ref[2], atol=1e-5)
+    np.testing.assert_allclose(cx, ref[1], rtol=0, atol=_pos_tol(64, 256))
+    np.testing.assert_allclose(cy, ref[2], rtol=0, atol=_pos_tol(64, 256))
     assert cx[5, 10] == pytest.approx(40.5, abs=0.01)  # tie averaged
+
+
+@pytest.mark.parametrize("h,w", [(64, 256), (36, 52)])
+def test_nms_select_outputs_share_one_allocation(h, w):
+    heat = torch.as_tensor(_heat(7, h, w))
+    got = nms_select(heat, 4)
+    base = got[0].untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base for t in got)
+    assert [t.data_ptr() - base for t in got] == [
+        i * (h // 4) * (w // 4) * 4 for i in range(3)]
+    for g, want in zip(got, nms_select_plain(heat, 4)):
+        assert g.shape == (h // 4, w // 4) and g.is_contiguous()
+        assert torch.equal(g, want)
 
 
 def test_plain_vs_xla_path():
@@ -84,7 +106,8 @@ def test_plain_vs_xla_path():
     single = (count == 1).reshape(-1)
     assert single.sum() > 50
     got = np.stack([cx.reshape(-1), cy.reshape(-1)], 1)
-    np.testing.assert_allclose(got[single], table[single], atol=1e-5)
+    np.testing.assert_allclose(got[single], table[single], rtol=0,
+                               atol=_pos_tol(64, 128))
 
 
 def _as_set(kp, sc, valid):
@@ -109,7 +132,7 @@ def test_select_keypoints_sets(h):
     got_kp, got_sc = _as_set(kp.numpy(), sc.numpy(), valid.numpy())
     ref_kp, ref_sc = _as_set(*ref)
     np.testing.assert_array_equal(got_sc, ref_sc)
-    np.testing.assert_allclose(got_kp, ref_kp, atol=1e-5)
+    np.testing.assert_allclose(got_kp, ref_kp, rtol=0, atol=_pos_tol(h, 128))
 
 
 @pytest.mark.parametrize("h,w", [(64, 256), (96, 384)])

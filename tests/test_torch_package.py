@@ -65,7 +65,10 @@ def test_kernel_wrappers_count_nothing_on_cpu():
     from gisnav_tpu_torch.features.nms_kernel import nms_cellmax, nms_select
     from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
     from gisnav_tpu_torch.matching.attention import masked_attention
-    from gisnav_tpu_torch.raster.shear_kernel import shear_last_axis
+    from gisnav_tpu_torch.raster.shear_kernel import (
+        shear_first_axis,
+        shear_last_axis,
+    )
 
     reset_launches()
     nms_select(torch.rand(32, 64), 4)
@@ -73,9 +76,11 @@ def test_kernel_wrappers_count_nothing_on_cpu():
     masked_attention(torch.rand(256, 2, 32), torch.rand(128, 2, 32),
                      torch.rand(128, 2, 32), torch.rand(128) > 0.5)
     shear_last_axis(torch.rand(1, 128, 384), 0.3, 64.0)
+    shear_first_axis(torch.rand(1, 384, 128), 0.3, 64.0)
     assert set(LAUNCHES) == {"stem_stage", "conv_stage", "nms_select",
                              "fused_block", "masked_attention",
-                             "shear_last_axis", "nms_cellmax"}
+                             "shear_last_axis", "shear_first_axis",
+                             "nms_cellmax"}
     assert all(n == 0 for n in LAUNCHES.values())
 
 
