@@ -33,17 +33,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    map at the query's ground sample distance for 4 frames (the 3-shear
    rotation, 3 shear launches a frame: two along the last axis, one along
    the first);
-7. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+7. path 4: the default bundle, harris_lg5 (Harris detector + LightGlue-5)
+   at its own width, 480x640 and 512 keypoints, on the sizing of the JAX
+   package's 8-yaw cached sweep (an 800x800 map at 3x the footprint): the
+   cached runner on 8 yaws (query pooled to 240x320, LightGlue one stream
+   at a time at 512 x 1024), the bucketed and the exact-warp runners on 4
+   (dual LightGlue at 512 / 512), exact launch counts a frame; then, printed
+   and not gated, the cached runner on bench.py's 2048-px map at 3x;
+8. path 5: the semi-dense runner (bundled LoFTR, 480x640, 1024 matches) on
+   4 frames of path 4's scene, during which no kernel of the port launches;
+9. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone).
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
 the shear's outputs on seeded inputs (run a copy of this script placed
 beside another source's package to hold the two bit for bit).
 
-Every fix of every path must be valid and within 10 m of the truth, and a
-path that never launched a kernel it was meant to run fails the run. The
-last line is ``{"ok": true, "device": {...}}``; the line before it the
-per-kernel JSON. The port's JAX counterpart is never imported.
+Every fix of every path must be valid and within 10 m of the truth (path
+5: where the JAX program, run on the CPU on the same frames, localizes;
+elsewhere invalid as it is), and a path whose launch counts differ from
+the ones it is meant to make (path 1: that never launched one of its
+kernels) fails the run. The last line is ``{"ok": true, "device":
+{...}}``; the line before it the per-kernel JSON. The port's JAX
+counterpart is never imported.
 """
 from __future__ import annotations
 
@@ -91,11 +103,35 @@ CONV_SHAPES = [  # (name, h, w, cin, cmid, cout or None, pool) per image
     ("convPa", 136, 240, 128, 256, None, False),
     ("convDa", 136, 240, 128, 256, None, False),
 ]
+# the harris_lg5 conv stages (path 4): the 480x640 frame's, the
+# cached mode's 240x320 pooled query's and the 800 map's, each checked
+# against the plain version (not timed)
+HARRIS_CONV_SHAPES = [
+    (f"{tag} {name}", h // d, w // d, cin, cmid, cout, pool)
+    for tag, h, w in (("frame", 480, 640), ("pooled", 240, 320),
+                      ("map", 800, 800))
+    for name, d, cin, cmid, cout, pool in (
+        ("stage2", 2, 64, 64, 64, True), ("stage3", 4, 64, 128, 128, True),
+        ("stage4", 8, 128, 128, 128, False),
+        ("convDa", 8, 128, 256, None, False))]
+# path 4's scene: the JAX package's 8-yaw cached sweep sizing
+# (tests/test_cached_rotation.py: 480x640 at f = 400 px, 500 m AGL, an 800
+# px map at 3x the footprint, the camera ~22 m off the centre along its yaw)
+HARRIS_YAWS = [0.0, 45.0, 90.0, 135.0, 180.0, 225.0, 270.0, 315.0]
+HARRIS_SCENE = dict(seed=6, h=480, w=640, yaws=HARRIS_YAWS, map_side=800,
+                    coverage=3.0, offset_m=22.2)
+BENCH_MAP = 2048  # bench.py's cached-mode map side, at 3x the footprint
+# path 5: the frames of path 4's scene that the JAX semi-dense runner
+# localizes on the CPU (tests/test_torch_loftr.py); on frame 0 it finds 12
+# matches, under min_matches, and returns an invalid fix
+SEMIDENSE_FRAMES = (0, 1, 2, 3)
+SEMIDENSE_VALID = (1, 2, 3)
 # measured beside the contract's keys: device time (``device_ms``), the
 # wrapper's host time (``host_ms``), K4's two launches apart, the library's
-# device time and the whole 3-shear rotation
+# device time, the whole 3-shear rotation, and K1-K4's launches on path 4
 EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
-              "library_device_ms", "rotation_ms", "rotation_device_ms")
+              "library_device_ms", "rotation_ms", "rotation_device_ms",
+              "path4_launches")
 
 
 def log(msg: str) -> None:
@@ -239,10 +275,13 @@ def check_conv(gen, quick, results):
              "source": "gisnav_tpu_torch/kernels/conv.cu",
              "replaces": "gisnav_tpu/features/pallas_conv.py:515",
              "max_abs_err": 0.0}
-    # the frame, and a ragged even size whose edge tiles are partly outside
-    # the image (conv1a's image padding and conv1b's patch padding differ)
+    # the frame, a ragged even size whose edge tiles are partly outside
+    # the image (conv1a's image padding and conv1b's patch padding differ),
+    # and path 4's frame, pooled query and map
     small = torch.rand(STEM_RAGGED, generator=gen, device="cuda")
-    for im in (img, small):
+    harris = [torch.rand(hw, generator=gen, device="cuda")
+              for hw in ((480, 640), (240, 320), (800, 800))]
+    for im in (img, small, *harris):
         k_out = stem_stage(im, w1a, b1a, w1b, b1b, pool=True)
         p_out = stem_stage_plain(im, w1a, b1a, w1b, b1b, pool=True)
         e, nbad = err(k_out, p_out)
@@ -272,18 +311,22 @@ def check_conv(gen, quick, results):
             memory_format=torch.channels_last)
         c1, c2 = _library_conv(x1, w1a), _library_conv(x2, w1b)
         entry["library_ms"] = time_ms(lambda: (c1(), c2()))
+        entry["library_device_ms"] = device_ms(lambda: (c1(), c2()))
         log(f"[time] stem_stage: kernel {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, cuDNN conv2d "
-            f"{entry['library_ms']:.4f} ms")
+            f"{entry['library_ms']:.4f} ms (device "
+            f"{entry['library_device_ms']:.4f})")
     results.append(entry)
 
     total = {"name": "conv_stage", "route": "cuda",
              "source": "gisnav_tpu_torch/kernels/conv.cu",
              "replaces": "gisnav_tpu/features/pallas_conv.py:240",
              "max_abs_err": 0.0, "bound_ms": 0.0, "ms": 0.0, "plain_ms": 0.0,
-             "library_ms": 0.0}
+             "library_ms": 0.0, "device_ms": 0.0, "library_device_ms": 0.0}
     t_bytes = t_ops = 0.0
-    for name, h, w, cin, cmid, cout, pool in CONV_SHAPES:
+    calls, lib_calls = [], []
+    for name, h, w, cin, cmid, cout, pool in CONV_SHAPES + HARRIS_CONV_SHAPES:
+        timed = (name, h, w, cin, cmid, cout, pool) in CONV_SHAPES
         x = torch.rand((h, w, cin), generator=gen, device="cuda").to(
             torch.bfloat16)
         w1, b1 = _conv_weights(gen, cin, cmid)
@@ -297,6 +340,8 @@ def check_conv(gen, quick, results):
         if nbad or not torch.isfinite(k_out.float()).all():
             raise RuntimeError(f"conv_stage {name} disagrees")
         total["max_abs_err"] = max(total["max_abs_err"], e)
+        if not timed:
+            continue
         c_last = cout or cmid
         ops = 2 * h * w * 9 * cin * cmid + (2 * h * w * 9 * cmid * cout
                                             if cout else 0)
@@ -317,14 +362,28 @@ def check_conv(gen, quick, results):
                 xm = x.new_empty((1, cmid, h, w)).contiguous(
                     memory_format=torch.channels_last)
                 lib2 = _library_conv(xm, w2)
-                lms = time_ms(lambda: (lib1(), lib2()))
+
+                def lib(lib1=lib1, lib2=lib2):
+                    return lib1(), lib2()
             else:
-                lms = time_ms(lib1)
+                lib = lib1
+            lms = time_ms(lib)
             log(f"[time] conv_stage {name}: kernel {ms:.4f} ms, plain "
                 f"{pms:.4f} ms, cuDNN conv2d {lms:.4f} ms")
             total["ms"] += ms
             total["plain_ms"] += pms
             total["library_ms"] += lms
+            # device time of a frame's five calls, one trace for each side
+            calls.append(lambda x=x, w=(w1, b1, w2, b2), pool=pool:
+                         conv_stage(x, *w, pool=pool))
+            lib_calls.append(lib)
+    if not quick:
+        total["device_ms"] = device_ms(lambda: [f() for f in calls])
+        total["library_device_ms"] = device_ms(
+            lambda: [f() for f in lib_calls])
+        log(f"[time] conv_stage, the {len(calls)} shapes: device "
+            f"{total['device_ms']:.4f} ms, cuDNN conv2d device "
+            f"{total['library_device_ms']:.4f} ms")
     total["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     results.append(total)
 
@@ -335,18 +394,26 @@ def check_nms(gen, quick, results):
         nms_select_plain,
     )
 
-    heat = torch.rand((H, W), generator=gen, device="cuda") ** 8
-    k_out = nms_select(heat, 4)
-    p_out = nms_select_plain(heat, 4)
     # tolerance: cell_max bit-exact (same max ops); positions 1e-4 px (the
-    # soft-argmax exp differs by an ulp between CUDA and PyTorch)
-    e_max = float((k_out[0] - p_out[0]).abs().max())
-    e_pos = max(float((a - b).abs().max()) for a, b in
-                zip(k_out[1:], p_out[1:]))
-    log(f"[kernel] nms_select {H}x{W}: cell_max err={e_max:.3g} "
-        f"position err={e_pos:.3g}")
-    if e_max != 0.0 or e_pos > 1e-4:
-        raise RuntimeError("nms_select disagrees with its plain version")
+    # soft-argmax exp differs by an ulp between CUDA and PyTorch). Path 1's
+    # frame, then path 4's frame and pooled query (240 rows: the bottom
+    # border rows zeroed first, as select_keypoints does)
+    e_max = e_pos = 0.0
+    for h, w in ((H, W), (480, 640), (240, 320)):
+        heat = torch.rand((h, w), generator=gen, device="cuda") ** 8
+        if h % 32:
+            heat[h - 4:] = 0.0
+        k_out = nms_select(heat, 4)
+        p_out = nms_select_plain(heat, 4)
+        em = float((k_out[0] - p_out[0]).abs().max())
+        ep = max(float((a - b).abs().max()) for a, b in
+                 zip(k_out[1:], p_out[1:]))
+        log(f"[kernel] nms_select {h}x{w}: cell_max err={em:.3g} "
+            f"position err={ep:.3g}")
+        if em != 0.0 or ep > 1e-4:
+            raise RuntimeError("nms_select disagrees with its plain version")
+        e_max, e_pos = max(e_max, em), max(e_pos, ep)
+    heat = torch.rand((H, W), generator=gen, device="cuda") ** 8
     entry = {"name": "nms_select", "route": "cuda",
              "source": "gisnav_tpu_torch/kernels/nms_select.cu",
              "replaces": "gisnav_tpu/features/pallas_nms.py:152",
@@ -427,7 +494,7 @@ def check_attention(gen, quick, results):
              "source": "gisnav_tpu_torch/kernels/attention.cu",
              "replaces": "gisnav_tpu/matching/pallas_attention.py:38",
              "max_abs_err": 0.0}
-    ms, plain, lib, bounds = [], [], [], []
+    ms, plain, lib, bounds, dev, lib_dev = [], [], [], [], [], []
     # the module route's four launches a layer: both self and both cross
     n0, n1 = MODULE_KP, 2 * MODULE_KP
     for kq, kk in ((n0, n0), (n1, n1), (n0, n1), (n1, n0)):
@@ -458,8 +525,15 @@ def check_attention(gen, quick, results):
             qh, kh, vh = (t.transpose(0, 1)[None] for t in (qb, kb, vb))
             bias = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[
                 None, None, None, :]
-            lib.append(time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=bias)))
+
+            def sdpa(qh=qh, kh=kh, vh=vh, bias=bias):
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=bias)
+
+            lib.append(time_ms(sdpa))
+            dev.append(lambda qb=qb, kb=kb, vb=vb, mask=mask:
+                       masked_attention(qb, kb, vb, mask))
+            lib_dev.append(sdpa)
             log(f"[time] masked_attention Kq={kq} Kk={kk}: kernel "
                 f"{ms[-1]:.4f} ms, plain {plain[-1]:.4f} ms, SDPA "
                 f"{lib[-1]:.4f} ms")
@@ -468,6 +542,13 @@ def check_attention(gen, quick, results):
     if not quick:
         entry["ms"], entry["plain_ms"], entry["library_ms"] = (
             float(np.mean(x)) for x in (ms, plain, lib))
+        # device time of the four shapes, one trace each side, per call
+        entry["device_ms"], entry["library_device_ms"] = (
+            device_ms(lambda fns=fns: [f() for f in fns]) / len(fns)
+            for fns in (dev, lib_dev))
+        log(f"[time] masked_attention, mean of the 4 shapes: device "
+            f"{entry['device_ms']:.4f} ms, SDPA device "
+            f"{entry['library_device_ms']:.4f} ms")
     results.append(entry)
 
 
@@ -630,8 +711,18 @@ def check_block(gen, quick, results):
              ("single 2048 q x 4096 k", MAX_KP, 2 * MAX_KP, 1, False),
              ("single 4096 q x 2048 k", 2 * MAX_KP, MAX_KP, 1, False),
              ("single 4096", 2 * MAX_KP, 2 * MAX_KP, 1, False)]
-    dual = {"ms": [], "plain_ms": [], "attention_ms": [], "epilogue_ms": []}
-    for name, n, kk_total, sets, cross in cases:
+    # path 4 (harris_lg5, 512 keypoints): the warp modes' dual calls and the
+    # cached mode's one-stream calls at 512 query x 1024 map keypoints;
+    # checked, not timed
+    harris = [("harris dual self", 1024, 1024, 2, False),
+              ("harris dual cross", 1024, 1024, 2, True),
+              ("harris single 512", 512, 512, 1, False),
+              ("harris single 512 q x 1024 k", 512, 1024, 1, False),
+              ("harris single 1024 q x 512 k", 1024, 512, 1, False),
+              ("harris single 1024", 1024, 1024, 1, False)]
+    dual = {"ms": [], "plain_ms": [], "attention_ms": [], "epilogue_ms": [],
+            "device_ms": []}
+    for name, n, kk_total, sets, cross in cases + harris:
         x, q, k, v, bias, w = _block_inputs(gen, n, kk_total, sets)
         kw = dict(heads=4, sets=sets, cross=cross)
         k_out = fused_block(x, q, k, v, bias, *w, **kw)
@@ -646,7 +737,7 @@ def check_block(gen, quick, results):
         if not same:
             raise RuntimeError(f"fused_block {name}: two runs differ")
         entry["max_abs_err"] = max(entry["max_abs_err"], e)
-        if quick:
+        if quick or name.startswith("harris"):
             continue
         # the wrapper's two launches alone, on the same inputs
         msg = _attention_cuda(q, k, v, bias, 4, sets, cross)
@@ -666,14 +757,22 @@ def check_block(gen, quick, results):
         if sets == 2:
             t["plain_ms"] = time_ms(lambda: fused_block_plain(
                 x, q, k, v, bias, *w, **kw), reps=3)
-            log(f"[time] fused_block {name}: plain {t['plain_ms']:.4f} ms")
+            t["device_ms"] = device_ms(lambda: fused_block(x, q, k, v, bias,
+                                                           *w, **kw))
+            log(f"[time] fused_block {name}: plain {t['plain_ms']:.4f} ms, "
+                f"device {t['device_ms']:.4f} ms")
             for key, val in t.items():
                 dual[key].append(val)
             if not cross:
+                # the library does one set a call: two calls for the pair
                 half = n // 2
                 lib = _library_block(x[:half], q[:half], k[:half], v[:half],
                                      bias[:1], w)
                 entry["library_ms"] = 2 * time_ms(lib)
+                entry["library_device_ms"] = 2 * device_ms(lib)
+                log(f"[time] SDPA + F.linear block, both sets: "
+                    f"{entry['library_ms']:.4f} ms, device "
+                    f"{entry['library_device_ms']:.4f} ms")
     n, kk, dim = 2 * MAX_KP, MAX_KP, 256
     nbytes = (n * dim * 4 * 2 + n * dim * 2 + 2 * 2 * kk * dim * 2
               + 2 * kk * 4 + 7 * dim * dim * 2)
@@ -716,10 +815,10 @@ def profile_frames(run_frame, frames, n: int = 10) -> float:
     return busy
 
 
-def fly(runner, scene, i: int, tag: str = "", **kw):
-    """One frame of ``scene`` through ``runner``: (ms on the host clock
-    around a synchronised frame, error in metres); raises unless the fix is
-    valid, finite and within 10 m of the truth."""
+def _frame(runner, scene, i: int, tag: str = "", **kw):
+    """One frame of ``scene`` through ``runner``, logged under ``tag`` if
+    given: (pose, ms on the host clock around the synchronised frame,
+    horizontal error in m, f64 fix)."""
     from gisnav_tpu_torch.geometry.crs import haversine_m
     from gisnav_tpu_torch.pipeline.geopose import geopose_to_wgs84_f64
 
@@ -736,10 +835,18 @@ def fly(runner, scene, i: int, tag: str = "", **kw):
         log(f"{tag} yaw {yaw:6.1f}: {ms:8.2f} ms valid={bool(pose.valid)} "
             f"matches={int(pose.num_matches)} "
             f"inliers={int(pose.num_inliers)} error={err:.3f} m")
+    return pose, ms, err, fix
+
+
+def fly(runner, scene, i: int, tag: str = "", **kw):
+    """One frame of ``scene`` through ``runner``: (ms on the host clock
+    around a synchronised frame, error in metres); raises unless the fix is
+    valid, finite and within 10 m of the truth."""
+    pose, ms, err, fix = _frame(runner, scene, i, tag, **kw)
     if not (bool(pose.valid) and err < 10.0
             and np.isfinite(fix["alt_ellipsoid"])):
-        raise RuntimeError(f"{tag or f'frame {i}'} (yaw {yaw}): fix invalid "
-                           f"or {err:.2f} m off")
+        raise RuntimeError(f"{tag or f'frame {i}'} (yaw {scene.yaws[i]}): "
+                           f"fix invalid or {err:.2f} m off")
     return ms, err
 
 
@@ -946,6 +1053,143 @@ def phase_exact_warp_path(params, config, scene,
     return out
 
 
+def _times(rows) -> dict:
+    ms = [r[0] for r in rows]
+    return {"frames": len(rows), "frame_p50_ms": float(np.median(ms)),
+            "frame_p90_ms": float(np.percentile(ms, 90)),
+            "max_error_m": float(max(r[1] for r in rows))}
+
+
+def phase_harris_path(profile_run: bool = False) -> dict:
+    """Path 4: the default bundle (``params=None``: harris_lg5 with
+    PRETRAINED_CONFIG) through the three deep runners on the JAX 8-yaw
+    sweep's sizing, then the cached runner on bench.py's 2048-px map."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.runners import (
+        make_bucketed_warp_runner,
+        make_cached_deep_runner,
+        make_deep_runner,
+    )
+    from gisnav_tpu_torch.utils.world import render_scene
+
+    t0 = time.time()
+    scene = render_scene(**HARRIS_SCENE)
+    log(f"[harris] scene {scene.ortho.shape} in {time.time() - t0:.1f} s")
+    # a Harris SuperPoint pass: stem 1, stages 2-4 two convs each and
+    # convDa (no detector head), select 1. LightGlue-5: 5 layers of a self
+    # and a cross stage, each one dual call (warp modes: 512 / 512) or two
+    # one-stream calls (cached: 512 / 1024), 2 launches a call
+    sp = {"stem_stage": 1, "conv_stage": 7, "nms_select": 1}
+    plans = {
+        "cached": (make_cached_deep_runner, list(range(len(HARRIS_YAWS))),
+                   {**sp, "fused_block": 40}),
+        "bucketed": (make_bucketed_warp_runner, [0, 1, 2, 3],
+                     {**sp, "fused_block": 20}),
+        "exact": (make_deep_runner, [0, 1, 2, 3],
+                  {k: 2 * n for k, n in sp.items()} | {"fused_block": 20}),
+    }
+    out = {}
+    for name, (make, frames, per_frame) in plans.items():
+        runner = make()
+        # untimed: the cached runner extracts the map at its first frame;
+        # the bucketed runner fills one bucket a yaw (4 yaws, 4 buckets of
+        # 15 deg, a 4-entry cache), so the counted frames all hit
+        for i in (frames if name == "bucketed" else frames[:1]):
+            fly(runner, scene, i)
+        reset_launches()
+        rows = [fly(runner, scene, i, f"[harris {name}] frame {i}")
+                for i in frames]
+        launches = dict(LAUNCHES)
+        n = len(frames)
+        log(f"[harris {name}] launches over {n} frames: {launches}")
+        expect_launches(f"harris {name}", launches,
+                        {k: c * n for k, c in per_frame.items()})
+        out[name] = {**_times(rows), "launches": launches}
+        if name == "cached":
+            # one more map extraction (a new stamp) and its frame
+            reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runner(scene.frames[0], scene.ortho, scene.dem, 0.0, scene.k,
+                   scene.crs_affine, map_stamp=2, altitude_agl=scene.alt_m)
+            torch.cuda.synchronize()
+            out[name]["map_extraction_ms"] = (
+                (time.perf_counter() - t) * 1e3 - out[name]["frame_p50_ms"])
+            expect_launches("harris cached extraction", dict(LAUNCHES),
+                            {"stem_stage": 2, "conv_stage": 14,
+                             "nms_select": 1, "fused_block": 40})
+        if profile_run:
+            busy = profile_frames(lambda i: fly(runner, scene, i), frames)
+            out[name]["device_busy_ms"] = busy
+            out[name]["device_idle_share"] = 1.0 - busy / out[name][
+                "frame_p50_ms"]
+    out["bench_map"] = harris_bench_map()
+    log("[harris] " + json.dumps(out))
+    return out
+
+
+def harris_bench_map() -> dict:
+    """Printed, not gated: the cached runner with harris_lg5 on bench.py's
+    2048-px cached-mode map at 3x the footprint (the map at about the 480x640
+    query's ground sample distance: no pooling), all 8 yaws."""
+    from gisnav_tpu_torch.pipeline.runners import make_cached_deep_runner
+    from gisnav_tpu_torch.utils.world import render_scene
+
+    t0 = time.time()
+    scene = render_scene(**{**HARRIS_SCENE, "map_side": BENCH_MAP})
+    log(f"[harris bench map] scene {scene.ortho.shape} in "
+        f"{time.time() - t0:.1f} s")
+    runner = make_cached_deep_runner()
+    rows = []
+    for i in range(len(HARRIS_YAWS)):
+        pose, _, err, _ = _frame(runner, scene, i, "[harris bench map]")
+        rows.append((bool(pose.valid), err))
+    return {"map": BENCH_MAP, "frames": len(rows),
+            "valid_fraction": sum(v for v, _ in rows) / len(rows),
+            "under_10m": sum(v and e < 10.0 for v, e in rows),
+            "errors_m": [round(float(e), 3) for _, e in rows]}
+
+
+def phase_semidense_path(profile_run: bool = False) -> dict:
+    """Path 5: the semi-dense runner (bundled LoFTR, plain PyTorch: no
+    kernel of the port) on path 4's scene. Each frame holds the JAX
+    program's behaviour on the CPU: valid and within 10 m where it
+    localizes, invalid where it does not."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.runners import make_semidense_runner
+    from gisnav_tpu_torch.utils.world import render_scene
+
+    scene = render_scene(**HARRIS_SCENE)
+    runner = make_semidense_runner()
+    _frame(runner, scene, SEMIDENSE_FRAMES[0])
+    reset_launches()
+    rows = []
+    for i in SEMIDENSE_FRAMES:
+        pose, ms, err, _ = _frame(runner, scene, i, f"[semidense] frame {i}")
+        valid = bool(pose.valid)
+        if i in SEMIDENSE_VALID:
+            if not (valid and err < 10.0):
+                raise RuntimeError(f"semidense frame {i}: fix invalid or "
+                                   f"{err:.2f} m off")
+        elif valid:
+            raise RuntimeError(f"semidense frame {i}: valid where the JAX "
+                               f"program's fix is not")
+        rows.append((ms, err))
+    if any(LAUNCHES.values()):
+        raise RuntimeError(f"semidense path launched {dict(LAUNCHES)}")
+    out = {**_times([rows[SEMIDENSE_FRAMES.index(i)]
+                     for i in SEMIDENSE_VALID]),
+           "all_frames_p50_ms": float(np.median([r[0] for r in rows])),
+           "launches": dict(LAUNCHES)}
+    if profile_run:
+        busy = profile_frames(lambda i: _frame(runner, scene, i),
+                              list(SEMIDENSE_FRAMES))
+        out["device_busy_ms"] = busy
+        out["device_idle_share"] = 1.0 - busy / out["all_frames_p50_ms"]
+    log("[semidense] " + json.dumps(out))
+    return out
+
+
 def phase_seed_spread(seeds: int = 12) -> None:
     """How far the cached runner's fix moves with the RANSAC seed: every
     frame of path 2's scene ``seeds`` times (the runner seeds its generator
@@ -1122,7 +1366,7 @@ def main(argv=None) -> int:
                     help="build, check and time the kernels, drive no path "
                          "(to compare two sources of a kernel in one call)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile paths 1-3 (torch.profiler)")
+                    help="also profile paths 1-5 (torch.profiler)")
     ap.add_argument("--seed-spread", action="store_true",
                     help="only print how the cached runner's fixes move "
                          "over RANSAC seeds")
@@ -1131,6 +1375,7 @@ def main(argv=None) -> int:
                          "kernels' and shear's outputs on seeded inputs")
     args = ap.parse_args(argv)
 
+    t_start = time.time()
     device = phase_device()
     from gisnav_tpu_torch.device import strict_fp32
 
@@ -1162,11 +1407,19 @@ def main(argv=None) -> int:
              if k in r}
             for r in results]}))
         return 0
+    log(f"[phase] kernels done at {time.time() - t_start:.1f} s")
     main_path = phase_main_path(args.profile)
     params, config = main_path["params"], main_path["config"]
+    log(f"[phase] path 1 done at {time.time() - t_start:.1f} s")
     cached = phase_cached_path(params, config, args.profile)
+    log(f"[phase] path 2 done at {time.time() - t_start:.1f} s")
     exact = phase_exact_warp_path(params, config, main_path["scene"],
                                   args.profile)
+    log(f"[phase] path 3 done at {time.time() - t_start:.1f} s")
+    harris = phase_harris_path(args.profile)
+    log(f"[phase] path 4 done at {time.time() - t_start:.1f} s")
+    phase_semidense_path(args.profile)
+    log(f"[phase] path 5 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -1178,6 +1431,10 @@ def main(argv=None) -> int:
         r["launches"] = counts[r["name"]]
         if not r["launches"] > 0:
             raise RuntimeError(f"{r['name']} was launched on no path")
+        if r["name"] in PATH1_KERNELS:
+            r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
+                                      for m in ("cached", "bucketed",
+                                                "exact"))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     smi = subprocess.run(

@@ -1,11 +1,13 @@
-"""SuperPoint keypoint detector + descriptor (learned detector head).
+"""SuperPoint keypoint detector + descriptor.
 
 Counterpart of ``gisnav_tpu/features/superpoint.py`` on its per-image route:
 the VGG trunk runs as four fused stages (``features.conv``), the 3x3 heads
 through the same conv kernel, and the 1x1 heads as f32 matmuls of the bf16
 activations (plain matmuls outside the kernels, as in the JAX package). The
-detector is a 65-channel softmax decoded by 8x8 pixel shuffle; descriptors
-are L2-normalised and sampled bilinearly at the keypoints.
+learned detector is a 65-channel softmax decoded by 8x8 pixel shuffle; the
+``harris`` detector mode takes the Harris response of the image instead and
+has no detector head. Descriptors are L2-normalised and sampled bilinearly
+at the keypoints.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from torch import nn
 
 from gisnav_tpu_torch.features.conv import conv_stage, stem_stage
+from gisnav_tpu_torch.features.harris import harris_response
 from gisnav_tpu_torch.features.nms import (
     select_keypoints,
     select_keypoints_tiled,
@@ -22,8 +25,9 @@ from gisnav_tpu_torch.features.nms import (
 
 __all__ = ["SuperPoint", "SuperPointFeatures", "sample_descriptors"]
 
-_CONVS = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
-          "conv4a", "conv4b", "convPa", "convDa")
+_TRUNK = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
+          "conv4a", "conv4b", "convDa", "convDb")
+_DETECTOR_HEAD = ("convPa", "convPb")
 
 
 class SuperPointFeatures(NamedTuple):
@@ -66,16 +70,26 @@ class SuperPoint(nn.Module):
     3x3 kernels ``(9, Cin, Cout)`` bf16, 1x1 kernels in Linear layout.
     ``select_tiles`` other than (1, 1) splits the keypoint budget evenly
     over that grid (``select_keypoints_tiled``), for large reference rasters.
+    ``detector_mode`` ``"learned"`` takes the heatmap from the detector head
+    (``convPa``, ``convPb``), ``"harris"`` from ``harris_response`` of the
+    image (the tree then needs no detector head; the score threshold is
+    read on the normalised Harris response).
     """
 
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]],
                  max_keypoints: int = 1024, score_threshold: float = 0.0005,
-                 select_tiles: Tuple[int, int] = (1, 1)):
+                 select_tiles: Tuple[int, int] = (1, 1),
+                 detector_mode: str = "learned"):
         super().__init__()
+        if detector_mode not in ("learned", "harris"):
+            raise ValueError(f"unknown detector_mode {detector_mode!r}")
         self.max_keypoints = max_keypoints
         self.score_threshold = score_threshold
         self.select_tiles = tuple(select_tiles)
-        for name in _CONVS + ("convPb", "convDb"):
+        self.detector_mode = detector_mode
+        names = _TRUNK + (_DETECTOR_HEAD if detector_mode == "learned"
+                          else ())
+        for name in names:
             self.register_buffer(name + "_w", params[name]["weight"])
             self.register_buffer(name + "_b", params[name]["bias"])
 
@@ -96,12 +110,15 @@ class SuperPoint(nn.Module):
         v = conv_stage(v, *self._p("conv4a"), *self._p("conv4b"), pool=False)
         hc, wc = h // 8, w // 8
 
-        wpb, bpb = self._p("convPb")
-        cpa = conv_stage(v, *self._p("convPa"))
-        logits = cpa.float() @ wpb.float().T + bpb
-        probs = torch.softmax(logits, dim=-1)[..., :64]
-        heatmap = probs.reshape(hc, wc, 8, 8).permute(0, 2, 1, 3)
-        heatmap = heatmap.reshape(h, w)
+        if self.detector_mode == "harris":
+            heatmap = harris_response(image.float())
+        else:
+            wpb, bpb = self._p("convPb")
+            cpa = conv_stage(v, *self._p("convPa"))
+            logits = cpa.float() @ wpb.float().T + bpb
+            probs = torch.softmax(logits, dim=-1)[..., :64]
+            heatmap = probs.reshape(hc, wc, 8, 8).permute(0, 2, 1, 3)
+            heatmap = heatmap.reshape(h, w)
 
         wdb, bdb = self._p("convDb")
         cda = conv_stage(v, *self._p("convDa"))

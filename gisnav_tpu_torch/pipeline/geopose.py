@@ -1,10 +1,12 @@
-"""Frame -> geopose programs of the three deep modes, and geopose assembly.
+"""Frame -> geopose programs of the three deep modes and the semi-dense
+mode, and geopose assembly.
 
 Counterpart of ``gisnav_tpu/pipeline/geopose.py`` (``PipelineConfig``,
 ``GeoPose``, ``assemble_geopose``, ``geopose_to_wgs84_f64``; exact warp:
 ``build_frame_to_geopose``; cached reference: ``build_reference_extractor``,
 ``build_frame_to_geopose_cached``; bucketed warp:
-``build_warp_reference_extractor``, ``build_frame_to_geopose_warpcached``).
+``build_warp_reference_extractor``, ``build_frame_to_geopose_warpcached``;
+semi-dense: ``init_semidense_params``, ``build_frame_to_geopose_semidense``).
 PyTorch runs eagerly, so the builders return plain functions over the
 models (``build_models``) and device tensors.
 """
@@ -20,7 +22,8 @@ __all__ = ["PipelineConfig", "GeoPose", "build_models", "assemble_geopose",
            "geopose_to_wgs84_f64", "build_frame_to_geopose",
            "build_reference_extractor", "build_frame_to_geopose_cached",
            "build_warp_reference_extractor",
-           "build_frame_to_geopose_warpcached"]
+           "build_frame_to_geopose_warpcached", "init_semidense_params",
+           "build_frame_to_geopose_semidense"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,27 +61,38 @@ class GeoPose(NamedTuple):
 
 def build_models(params: Dict[str, Any], config: PipelineConfig
                  ) -> Dict[str, torch.nn.Module]:
-    """SuperPoint + LightGlue modules from the port's param tree:
-    ``superpoint`` for a query frame or a frame-sized crop,
-    ``superpoint_ref`` for a whole orthoimage (the reference keypoint budget,
-    split evenly over ``ref_tile_grid``; same weight tensors), and
-    ``lightglue``, which picks the fused or the module route per call."""
+    """The modules of the port's param tree (``weights.params_from_jax``),
+    for the parts it holds:
+
+    - ``superpoint`` for a query frame or a frame-sized crop and
+      ``superpoint_ref`` for a whole orthoimage (the reference keypoint
+      budget, split evenly over ``ref_tile_grid``; same weight tensors),
+      both with ``config.detector_mode``'s detector;
+    - ``lightglue``, which picks the fused or the module route per call;
+    - ``loftr``, the semi-dense matcher (``max_keypoints`` matches)."""
     from gisnav_tpu_torch.features.superpoint import SuperPoint
     from gisnav_tpu_torch.matching.lightglue import LightGlueMatcher
+    from gisnav_tpu_torch.matching.loftr import LoFTR
 
-    if config.detector_mode != "learned":
-        raise ValueError("only the learned SuperPoint detector is ported")
-    return {
-        "superpoint": SuperPoint(params["superpoint"], config.max_keypoints,
-                                 config.score_threshold),
-        "superpoint_ref": SuperPoint(
+    models: Dict[str, torch.nn.Module] = {}
+    if "superpoint" in params:
+        mode = config.detector_mode  # SuperPoint raises for an unknown one
+        models["superpoint"] = SuperPoint(
+            params["superpoint"], config.max_keypoints,
+            config.score_threshold, detector_mode=mode)
+        models["superpoint_ref"] = SuperPoint(
             params["superpoint"],
             config.max_keypoints * config.ref_keypoint_factor,
-            config.score_threshold, select_tiles=config.ref_tile_grid),
-        "lightglue": LightGlueMatcher(
+            config.score_threshold, select_tiles=config.ref_tile_grid,
+            detector_mode=mode)
+    if "lightglue" in params:
+        models["lightglue"] = LightGlueMatcher(
             params["lightglue"], depth=config.lightglue_depth,
-            filter_threshold=config.filter_threshold),
-    }
+            filter_threshold=config.filter_threshold)
+    if "loftr" in params:
+        models["loftr"] = LoFTR(params["loftr"],
+                                max_matches=config.max_keypoints)
+    return models
 
 
 def assemble_geopose(r, t, m_crop, crs_affine):
@@ -175,26 +189,17 @@ def build_warp_reference_extractor(config: PipelineConfig) -> Callable:
     return fn
 
 
-def _pose_from_features(config, models, kp_match, kp_pnp, f_qry, size_qry,
-                        ref_kp, ref_desc, ref_mask, size_ref, dem, m_crop,
-                        k, crs_affine, sample_idx, generator) -> GeoPose:
-    """The tail every frame program shares: LightGlue, DEM z-lift in
-    crop-pixel units, RANSAC-PnP, geopose assembly. ``kp_match`` are the
-    query keypoints the matcher sees, ``kp_pnp`` the same keypoints in true
-    camera pixels. ``sample_idx`` may be a callable taking the match mask
-    and the query keypoints and returning the (num_hypotheses, 4) RANSAC
-    samples."""
+def _pose_from_matches(config, kp_pnp, mkp_ref, mvalid, dem, m_crop, k,
+                       crs_affine, sample_idx, generator) -> GeoPose:
+    """The tail every frame program shares: DEM z-lift in crop-pixel units,
+    RANSAC-PnP, geopose assembly. ``kp_pnp`` are the query points in true
+    camera pixels, ``mkp_ref`` their matches in the crop, ``mvalid`` the
+    match mask. ``sample_idx`` may be a callable taking the match mask and
+    ``kp_pnp`` and returning the (num_hypotheses, 4) RANSAC samples."""
     from gisnav_tpu_torch.pnp.dem import gather_elevation
     from gisnav_tpu_torch.pnp.ransac import ransac_pnp
 
-    match = models["lightglue"](kp_match, f_qry.descriptors, f_qry.mask,
-                                size_qry, ref_kp, ref_desc, ref_mask,
-                                size_ref)
-    midx = match.matches0
-    mvalid = midx >= 0
-    mkp_ref = ref_kp[torch.clamp(midx, min=0)]
     num_matches = mvalid.sum()
-
     # 1 crop px = |det m_crop|^0.5 original px: x/y/z in the same unit
     crop_scale = torch.sqrt(torch.abs(torch.linalg.det(m_crop[:2, :2])))
     z_scale = crs_affine[2, 2] * crop_scale
@@ -218,6 +223,22 @@ def _pose_from_features(config, models, kp_match, kp_pnp, f_qry, size_qry,
         valid=pnp.valid & (num_matches >= config.min_matches),
         matched_qry=kp_pnp, matched_ref=mkp_ref,
         match_mask=mvalid & pnp.inliers)
+
+
+def _pose_from_features(config, models, kp_match, kp_pnp, f_qry, size_qry,
+                        ref_kp, ref_desc, ref_mask, size_ref, dem, m_crop,
+                        k, crs_affine, sample_idx, generator) -> GeoPose:
+    """LightGlue, then the shared tail. ``kp_match`` are the query
+    keypoints the matcher sees, ``kp_pnp`` the same keypoints in true
+    camera pixels."""
+    match = models["lightglue"](kp_match, f_qry.descriptors, f_qry.mask,
+                                size_qry, ref_kp, ref_desc, ref_mask,
+                                size_ref)
+    midx = match.matches0
+    return _pose_from_matches(config, kp_pnp,
+                              ref_kp[torch.clamp(midx, min=0)], midx >= 0,
+                              dem, m_crop, k, crs_affine, sample_idx,
+                              generator)
 
 
 def build_frame_to_geopose_warpcached(config: PipelineConfig) -> Callable:
@@ -343,5 +364,64 @@ def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
             config, models, kp_match, kp_pnp, f_qry, (h, w),
             ref_feats.keypoints, ref_feats.descriptors, ref_mask, (oh, ow),
             dem, m_crop, k, crs_affine, sample_idx, generator)
+
+    return fn
+
+
+def init_semidense_params(generator: torch.Generator,
+                          config: PipelineConfig) -> Dict[str, Any]:
+    """LoFTR parameters for the semi-dense mode, as a JAX-layout numpy tree
+    (``{"loftr": {"params": ...}}``, the keys and shapes of the JAX init)
+    drawn from ``generator`` with flax's default initialisers: kernels
+    ``lecun_normal`` (a normal of std sqrt(1 / fan_in) truncated to +-2
+    std), biases zero, LayerNorm scales one. ``config`` is taken for the
+    JAX signature; the architecture does not depend on it."""
+    from gisnav_tpu_torch.matching.loftr import param_shapes
+
+    def draw(shape):
+        fan_in = int(np.prod(shape[:-1]))
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+        w = torch.empty(shape, dtype=torch.float32)
+        torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                    generator=generator)
+        return w.numpy()
+
+    tree: Dict[str, Any] = {}
+    for path, shape in param_shapes().items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        if leaf == "kernel":
+            node[leaf] = draw(shape)
+        elif leaf == "scale":
+            node[leaf] = np.ones(shape, np.float32)
+        else:
+            node[leaf] = np.zeros(shape, np.float32)
+    return {"loftr": {"params": tree}}
+
+
+def build_frame_to_geopose_semidense(config: PipelineConfig) -> Callable:
+    """Detector-free exact-warp frame program, same signature as
+    :func:`build_frame_to_geopose`: rotate + GSD-zoom + crop the ortho/DEM
+    stack, LoFTR on the (query, crop) pair in place of SuperPoint +
+    LightGlue, then the shared tail. The zoom matters here: LoFTR's
+    dual-softmax matches coarse cells 1:1 in scale."""
+    from gisnav_tpu_torch.raster import rotate_and_crop_auto
+
+    h, w = config.image_shape
+
+    def fn(models, query, ortho, dem, rotation_deg, k, crs_affine,
+           sample_idx: Optional[Any] = None,
+           generator: Optional[torch.Generator] = None,
+           gsd_zoom: Optional[float] = None) -> GeoPose:
+        stack = torch.stack([ortho, dem], dim=-1)
+        warped, m_crop = rotate_and_crop_auto(stack, rotation_deg, (h, w),
+                                              zoom=gsd_zoom)
+        match = models["loftr"](query, warped[:, :, 0].contiguous())
+        return _pose_from_matches(
+            config, match.kp0, match.kp1, match.mask,
+            warped[:, :, 1].contiguous(), m_crop, k, crs_affine, sample_idx,
+            generator)
 
     return fn

@@ -1,4 +1,4 @@
-"""Host-facing runners of the three deep modes.
+"""Host-facing runners of the three deep modes and the semi-dense mode.
 
 Counterpart of ``gisnav_tpu/pipeline/runners.py``; every runner keeps the JAX
 call signature, so a pose node can take any of them as its deep runner.
@@ -12,7 +12,16 @@ call signature, so a pose node can take any of them as its deep runner.
   once per map refresh; per frame only the query runs the extractor before
   LightGlue against the cached map features.
 - ``make_deep_runner``: the exact warp mode, which rotates and crops the map
-  to the camera yaw and extracts both images every frame.
+  to the camera yaw and extracts both images every frame;
+- ``make_semidense_runner``: the exact warp with LoFTR in place of
+  SuperPoint + LightGlue.
+
+With ``params=None`` the deep runners load the bundled ``harris_lg5`` with
+``PRETRAINED_CONFIG``, as the JAX runners do. Given params but no config,
+they infer the config from the tree (``weights.infer_config_from_params``),
+where the JAX runners pin ``PRETRAINED_CONFIG``: a written departure, since
+the pinned config cannot run a ``learned_lg9`` tree (``gisnav_tpu/cli.py``
+says the same).
 
 The ortho/DEM rasters are uploaded once per map key. RANSAC draws from a
 ``torch.Generator`` seeded with the frame counter. Each runner takes
@@ -22,6 +31,7 @@ passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
@@ -34,14 +44,32 @@ from gisnav_tpu_torch.pipeline.geopose import (
     PipelineConfig,
     build_frame_to_geopose,
     build_frame_to_geopose_cached,
+    build_frame_to_geopose_semidense,
     build_frame_to_geopose_warpcached,
     build_models,
     build_reference_extractor,
     build_warp_reference_extractor,
+    init_semidense_params,
 )
 
 __all__ = ["make_deep_runner", "make_bucketed_warp_runner",
-           "make_cached_deep_runner"]
+           "make_cached_deep_runner", "make_semidense_runner",
+           "PRETRAINED_CONFIG", "LEARNED_LG9_CONFIG", "SEMIDENSE_CONFIG"]
+
+PRETRAINED_CONFIG = PipelineConfig(
+    image_shape=(480, 640), max_keypoints=512, lightglue_depth=5,
+    detector_mode="harris", min_matches=15)
+"""Config of ``weights/gisnav_tpu_harris_lg5.npz``: Harris detector +
+5-layer LightGlue, the default bundle."""
+
+LEARNED_LG9_CONFIG = dataclasses.replace(
+    PRETRAINED_CONFIG, detector_mode="learned", lightglue_depth=9)
+"""Config of ``weights/gisnav_tpu_learned_lg9.npz``: learned SuperPoint
+detector + 9-layer LightGlue."""
+
+SEMIDENSE_CONFIG = dataclasses.replace(PRETRAINED_CONFIG, max_keypoints=1024)
+"""Config of ``weights/gisnav_tpu_loftr.npz`` (``max_keypoints`` bounds the
+coarse match set)."""
 
 
 def _map_identity(ortho, map_stamp) -> object:
@@ -69,8 +97,8 @@ def _setup(params, config, device):
     dev = resolve_device(device)
     strict_fp32()
     if params is None:
-        params, inferred = load_bundled("learned_lg9")
-        config = config or inferred
+        params, default = load_bundled("harris_lg5")
+        config = config or default
     if config is None:
         config = infer_config_from_params(params)
     return dev, config, build_models(params_from_jax(params, dev), config)
@@ -89,19 +117,11 @@ def _gsd_zoom(k, crs_affine, altitude_agl) -> float:
     return 1.0
 
 
-def make_deep_runner(params=None, config: Optional[PipelineConfig] = None, *,
-                     device=None):
-    """Build the exact-warp runner ``runner(query_u8, ortho_u8, dem_f32,
-    rotation_deg, k, crs_affine, map_stamp=None, altitude_agl=None)
-    -> GeoPose``.
-
-    Per frame the ortho/DEM stack (device-resident, keyed on the map) is
-    rotated to ``rotation_deg`` and resampled to the camera's ground sample
-    distance, and SuperPoint runs on both the query and the crop: heavier
-    than the cached and bucketed modes, exact in rotation.
-    """
-    dev, config, models = _setup(params, config, device)
-    fn = build_frame_to_geopose(config)
+def _warp_runner(fn, models, dev):
+    """The runner around an exact-warp frame program ``fn`` (the signature
+    of ``build_frame_to_geopose``): the ortho/DEM stack is uploaded once per
+    map key, the zoom comes from the altitude, RANSAC is seeded with the
+    frame counter."""
     generator = torch.Generator(device=dev)
     state = {"map_key": None, "ortho": None, "dem": None, "n": 0}
 
@@ -122,6 +142,50 @@ def make_deep_runner(params=None, config: Optional[PipelineConfig] = None, *,
                       _gsd_zoom(k, crs_affine, altitude_agl))))
 
     return runner
+
+
+def make_deep_runner(params=None, config: Optional[PipelineConfig] = None, *,
+                     device=None):
+    """Build the exact-warp runner ``runner(query_u8, ortho_u8, dem_f32,
+    rotation_deg, k, crs_affine, map_stamp=None, altitude_agl=None)
+    -> GeoPose``.
+
+    Per frame the ortho/DEM stack (device-resident, keyed on the map) is
+    rotated to ``rotation_deg`` and resampled to the camera's ground sample
+    distance, and SuperPoint runs on both the query and the crop: heavier
+    than the cached and bucketed modes, exact in rotation.
+    """
+    dev, config, models = _setup(params, config, device)
+    return _warp_runner(build_frame_to_geopose(config), models, dev)
+
+
+def make_semidense_runner(params=None,
+                          config: Optional[PipelineConfig] = None,
+                          seed: int = 0, *, device=None):
+    """Build the semi-dense (LoFTR) exact-warp runner, same call signature
+    as :func:`make_deep_runner`.
+
+    ``params`` is a JAX-layout ``{"loftr": ...}`` tree; by default the
+    bundled ``loftr`` weights, or, where that file is missing, the
+    initialiser's weights drawn from ``seed`` (structure tests, untrained
+    experiments). The crop is always resampled to the query's ground sample
+    distance (LoFTR matches coarse cells 1:1 in scale), so the warp is the
+    gather route.
+    """
+    from gisnav_tpu_torch.weights import LOFTR_PATH, load_npz, params_from_jax
+
+    dev = resolve_device(device)
+    strict_fp32()
+    config = config or SEMIDENSE_CONFIG
+    if params is None:
+        if os.path.exists(LOFTR_PATH):
+            params = load_npz(LOFTR_PATH)
+        else:
+            params = init_semidense_params(
+                torch.Generator().manual_seed(seed), config)
+    models = build_models(params_from_jax(params, dev), config)
+    return _warp_runner(build_frame_to_geopose_semidense(config), models,
+                        dev)
 
 
 def make_cached_deep_runner(params=None,
@@ -213,7 +277,7 @@ def make_bucketed_warp_runner(params=None,
     crs_affine, map_stamp=None, altitude_agl=None) -> GeoPose``.
 
     :param params: JAX-layout weights tree (``weights.load_bundled``);
-        default the bundled ``learned_lg9``
+        default the bundled ``harris_lg5``
     :param device: ``cuda`` unless the caller asks for ``cpu``; raises when
         CUDA is absent and no device is given
 

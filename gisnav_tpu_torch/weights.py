@@ -1,16 +1,22 @@
 """Bundled weights for the port: npz loader and JAX-tree conversion.
 
-The bundles in ``weights/`` are flattened flax trees stored as float16 npz
-(keys like ``lightglue/params/self_0/Wqkv/kernel``). ``load_npz`` restores the
+The bundles in ``weights/`` (or in ``$GISNAV_TPU_WEIGHTS_DIR`` when set, as
+for the JAX package) are flattened flax trees stored as float16 npz (keys
+like ``lightglue/params/self_0/Wqkv/kernel``): ``harris_lg5`` (Harris
+detector + LightGlue-5, the default), ``learned_lg9`` (learned detector +
+LightGlue-9) and ``loftr`` (semi-dense LoFTR). ``load_npz`` restores the
 nested tree as numpy f32 without flax; ``params_from_jax`` turns such a tree
-(or one taken from the JAX package) into the port's tensors:
+(or one taken from the JAX package or the checkpoint converters) into the
+port's tensors:
 
 - 3x3 conv kernels, HWIO ``(3, 3, Cin, Cout)``, become ``(9, Cin, Cout)`` bf16,
   the layout the conv kernel takes (the JAX package casts them to bf16 too);
 - 1x1 conv kernels and flax Dense kernels ``(in, out)`` become Linear layout
   ``(out, in)`` (bf16 for the SuperPoint 1x1 heads, f32 for LightGlue, whose
   forward casts them where the JAX forward does);
-- LayerNorm ``scale``/``bias`` become ``weight``/``bias``; biases stay f32.
+- LayerNorm ``scale``/``bias`` become ``weight``/``bias``; biases stay f32;
+- LoFTR is f32 throughout: its 3x3 conv kernels become f32 OIHW for
+  ``F.conv2d``, its Dense and LayerNorm leaves as above.
 """
 from __future__ import annotations
 
@@ -22,19 +28,23 @@ import numpy as np
 import torch
 
 from gisnav_tpu_torch.pipeline.geopose import PipelineConfig
+from gisnav_tpu_torch.pipeline.runners import (
+    LEARNED_LG9_CONFIG,
+    PRETRAINED_CONFIG,
+    SEMIDENSE_CONFIG,
+)
 
-__all__ = ["LEARNED_LG9_PATH", "LEARNED_LG9_CONFIG", "load_npz",
-           "params_from_jax", "infer_config_from_params", "load_bundled"]
+__all__ = ["WEIGHTS_DIR", "PRETRAINED_PATH", "LEARNED_LG9_PATH",
+           "LOFTR_PATH", "load_npz", "params_from_jax",
+           "infer_config_from_params", "load_bundled"]
 
-WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                           "weights")
+WEIGHTS_DIR = os.environ.get(
+    "GISNAV_TPU_WEIGHTS_DIR",
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                 "weights"))
+PRETRAINED_PATH = os.path.join(WEIGHTS_DIR, "gisnav_tpu_harris_lg5.npz")
 LEARNED_LG9_PATH = os.path.join(WEIGHTS_DIR, "gisnav_tpu_learned_lg9.npz")
-
-LEARNED_LG9_CONFIG = PipelineConfig(
-    image_shape=(480, 640), max_keypoints=512, lightglue_depth=9,
-    detector_mode="learned", min_matches=15)
-"""Config of ``weights/gisnav_tpu_learned_lg9.npz``: learned SuperPoint
-detector + 9-layer LightGlue, the production architecture."""
+LOFTR_PATH = os.path.join(WEIGHTS_DIR, "gisnav_tpu_loftr.npz")
 
 
 def load_npz(path: str) -> Dict[str, Any]:
@@ -87,21 +97,38 @@ def _convert_dense_tree(node, device):
     return {k: _convert_dense_tree(v, device) for k, v in node.items()}
 
 
+def _convert_loftr(node, device):
+    node = _inner(node)
+    backbone = {
+        name: {"weight": _t(np.transpose(np.asarray(leaf["kernel"]),
+                                         (3, 2, 0, 1)), torch.float32,
+                            device).contiguous(),
+               "bias": _t(leaf["bias"], torch.float32, device)}
+        for name, leaf in node["backbone"].items()}
+    blocks = {k: _convert_dense_tree(v, device) for k, v in node.items()
+              if k != "backbone"}
+    return {"backbone": backbone, **blocks}
+
+
 def params_from_jax(tree, device="cpu") -> Dict[str, Any]:
-    """JAX param tree (``{"superpoint": ..., "lightglue": ...}``, with or
-    without the ``params`` level, numpy or jax arrays) -> the port's tree."""
+    """JAX param tree (``{"superpoint": ..., "lightglue": ...}`` or
+    ``{"loftr": ...}``, with or without the ``params`` level, numpy or jax
+    arrays) -> the port's tree."""
     out = {}
     if "superpoint" in tree:
         out["superpoint"] = _convert_superpoint(tree["superpoint"], device)
     if "lightglue" in tree:
         out["lightglue"] = _convert_dense_tree(_inner(tree["lightglue"]),
                                                device)
+    if "loftr" in tree:
+        out["loftr"] = _convert_loftr(tree["loftr"], device)
     return out
 
 
 def infer_config_from_params(params) -> PipelineConfig:
-    """Config of a JAX-layout deep-weights tree: LightGlue depth = number of
-    ``self_N`` blocks; the detector head ``convPa`` means learned mode."""
+    """Config of a JAX-layout deep-weights tree, from ``PRETRAINED_CONFIG``
+    as in the JAX package: LightGlue depth = number of ``self_N`` blocks;
+    the detector head ``convPa`` means learned mode."""
     lg = params.get("lightglue")
     if lg is None:
         raise ValueError(
@@ -111,20 +138,22 @@ def infer_config_from_params(params) -> PipelineConfig:
     mode = ("learned" if "convPa" in _inner(params.get("superpoint", {}))
             else "harris")
     return dataclasses.replace(
-        LEARNED_LG9_CONFIG,
-        lightglue_depth=depth or LEARNED_LG9_CONFIG.lightglue_depth,
+        PRETRAINED_CONFIG,
+        lightglue_depth=depth or PRETRAINED_CONFIG.lightglue_depth,
         detector_mode=mode)
 
 
-def load_bundled(name: str = "learned_lg9"
+def load_bundled(name: str = "harris_lg5"
                  ) -> Tuple[Dict[str, Any], PipelineConfig]:
-    """Bundled weights by name -> (JAX-layout numpy tree, PipelineConfig).
-
-    Only ``learned_lg9`` is ported so far; the other bundles need the Harris
-    detector or LoFTR."""
-    if name != "learned_lg9":
-        raise ValueError(f"bundle {name!r} is not ported to gisnav_tpu_torch")
-    if not os.path.exists(LEARNED_LG9_PATH):
-        raise FileNotFoundError(f"no bundled weights at {LEARNED_LG9_PATH}")
-    tree = load_npz(LEARNED_LG9_PATH)
-    return tree, infer_config_from_params(tree)
+    """Bundled weights by name -> (JAX-layout numpy tree, PipelineConfig):
+    ``harris_lg5`` with ``PRETRAINED_CONFIG``, ``learned_lg9`` with
+    ``LEARNED_LG9_CONFIG``, ``loftr`` with ``SEMIDENSE_CONFIG``."""
+    bundles = {"harris_lg5": (PRETRAINED_PATH, PRETRAINED_CONFIG),
+               "learned_lg9": (LEARNED_LG9_PATH, LEARNED_LG9_CONFIG),
+               "loftr": (LOFTR_PATH, SEMIDENSE_CONFIG)}
+    if name not in bundles:
+        raise ValueError(f"unknown bundled weights {name!r}")
+    path, config = bundles[name]
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no bundled weights at {path}")
+    return load_npz(path), config

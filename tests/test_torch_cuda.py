@@ -65,6 +65,11 @@ CONV_CASES = [
     (136, 240, 128, 128, 128, False), (136, 240, 128, 256, None, False),
     (34, 60, 64, 64, None, True), (34, 60, 64, 128, None, False),
     (34, 60, 128, 256, None, True), (34, 60, 128, 64, 64, False),
+    # harris_lg5 (chip_smoke.py path 4): the 480x640 frame's stages, the
+    # cached mode's 240x320 pooled query down to 30x40, and the 800 map's
+    (240, 320, 64, 64, 64, True), (60, 80, 128, 128, 128, False),
+    (30, 40, 128, 128, 128, False), (30, 40, 128, 256, None, False),
+    (400, 400, 64, 64, 64, True), (100, 100, 128, 256, None, False),
 ]
 
 
@@ -103,7 +108,8 @@ def test_stem_stage_kernel_full_frame(card):
 # plain version against the JAX reference at these): edge tiles partly
 # outside the image, where conv1a's image padding and conv1b's patch padding
 # are two different conditions
-STEM_CASES = [(1088, 1920), (2048, 2048), (36, 52), (18, 34)]
+STEM_CASES = [(1088, 1920), (2048, 2048), (36, 52), (18, 34),
+              (480, 640), (240, 320), (800, 800)]
 
 
 @pytest.mark.parametrize("pool", [True, False])
@@ -182,7 +188,12 @@ def test_fused_block_kernel(card, sets, cross):
 # keypoints and the cached path's one-stream calls
 BLOCK_CASES = [(4096, 4096, 2, False), (4096, 4096, 2, True),
                (2048, 2048, 1, False), (2048, 4096, 1, False),
-               (4096, 2048, 1, False), (4096, 4096, 1, False)]
+               (4096, 2048, 1, False), (4096, 4096, 1, False),
+               # harris_lg5: dual 2x512 (warp modes) and the cached mode's
+               # one-stream calls at 512 query x 1024 map keypoints
+               (1024, 1024, 2, False), (1024, 1024, 2, True),
+               (512, 512, 1, False), (512, 1024, 1, False),
+               (1024, 512, 1, False), (1024, 1024, 1, False)]
 
 
 @pytest.mark.parametrize("n,kk_total,sets,cross", BLOCK_CASES)
@@ -231,7 +242,7 @@ def test_runner_on_card_goes_through_every_kernel(card):
     from gisnav_tpu_torch.weights import load_bundled
 
     scene = render_scene(seed=4, h=128, w=256, yaws=[0.0])
-    params, cfg = load_bundled()
+    params, cfg = load_bundled("learned_lg9")
     cfg = dataclasses.replace(cfg, image_shape=(128, 256), max_keypoints=512)
     runner = make_bucketed_warp_runner(params, cfg)
     reset_launches()
@@ -357,7 +368,7 @@ def _small_scene(**kw):
     from gisnav_tpu_torch.utils.world import render_scene
     from gisnav_tpu_torch.weights import load_bundled
 
-    params, cfg = load_bundled()
+    params, cfg = load_bundled("learned_lg9")
     return params, dataclasses.replace(
         cfg, image_shape=(256, 320)), render_scene(
             seed=4, h=256, w=320, yaws=[20.0], **kw)
@@ -533,3 +544,117 @@ def test_shear_rotation_kernel_route_equals_transpose_route(card, yaw,
         .transpose(-1, -2).contiguous()))
     ref = tshear.rotate_and_crop_center_shear(stack, yaw, (1088, 1920))
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("h,w", [(480, 640), (240, 320)])
+def test_select_keypoints_harris_shapes(card, h, w):
+    """K3 through ``select_keypoints`` on a Harris heatmap at harris_lg5's
+    frame and pooled query (240 rows: the zeroed-row route), against the
+    plain route on the same CUDA input: scores exact, positions 1e-4 px."""
+    from gisnav_tpu_torch.features.harris import harris_response
+    from gisnav_tpu_torch.features.nms import select_keypoints
+    from gisnav_tpu_torch.features.nms_kernel import nms_select_plain
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    img = torch.rand((h, w), generator=card, device="cuda")
+    heat = harris_response(img)
+    reset_launches()
+    kp, sc, valid = select_keypoints(heat, 512)
+    assert LAUNCHES["nms_select"] == 1
+    rows = torch.arange(h, device="cuda")[:, None]
+    src = heat if h % 32 == 0 else torch.where(rows < h - 4, heat, 0.0)
+    cell_max, cx, cy = nms_select_plain(src, 4)
+    want_sc, idx = torch.topk(cell_max.reshape(-1), 512)
+    assert torch.equal(sc, want_sc)
+    want_kp = torch.stack([cx.reshape(-1), cy.reshape(-1)], dim=1)[idx]
+    torch.testing.assert_close(kp, want_kp, rtol=0, atol=1e-4)
+    assert bool(valid.any())
+
+
+def test_harris_response_on_card_vs_cpu(card):
+    """Plain PyTorch on both devices: 1e-5 on the normalised response."""
+    from gisnav_tpu_torch.features.harris import harris_response
+
+    img = torch.rand((2, 480, 640), generator=card, device="cuda")
+    torch.testing.assert_close(harris_response(img).cpu(),
+                               harris_response(img.cpu()), rtol=0,
+                               atol=1e-5)
+
+
+def _harris_scene(map_side=800):
+    from gisnav_tpu_torch.utils.world import render_scene
+
+    return render_scene(seed=6, h=480, w=640, yaws=[0.0, 45.0],
+                        map_side=map_side, coverage=3.0, offset_m=22.2)
+
+
+@pytest.mark.parametrize("name,per_frame", [
+    ("make_cached_deep_runner", {"stem_stage": 1, "conv_stage": 7,
+                                 "nms_select": 1, "fused_block": 40}),
+    ("make_bucketed_warp_runner", {"stem_stage": 1, "conv_stage": 7,
+                                   "nms_select": 1, "fused_block": 20}),
+    ("make_deep_runner", {"stem_stage": 2, "conv_stage": 14,
+                          "nms_select": 2, "fused_block": 20})])
+def test_harris_runners_on_card_launches(card, name, per_frame):
+    """The default bundle (harris_lg5, depth 5, 512 keypoints): no detector
+    head (7 conv launches a SuperPoint pass), 5 dual block calls a layer
+    pair in the warp modes, 20 one-stream calls in the cached mode; a
+    frame that hits the cache (map, bucket) launches only these."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline import runners
+    from gisnav_tpu_torch.pipeline.geopose import geopose_to_wgs84_f64
+
+    s = _harris_scene()
+    runner = getattr(runners, name)()
+    args = (s.frames[1], s.ortho, s.dem, s.yaws[1], s.k, s.crs_affine)
+    runner(*args, map_stamp=1, altitude_agl=s.alt_m)
+    reset_launches()
+    pose = runner(*args, map_stamp=1, altitude_agl=s.alt_m)
+    assert LAUNCHES == {k: per_frame.get(k, 0) for k in LAUNCHES}
+    fix = geopose_to_wgs84_f64(pose, s.crs_affine)
+    lon, lat = s.truth_lonlat[1]
+    assert bool(pose.valid)
+    assert haversine_m(lat, lon, fix["lat"], fix["lon"]) < 10.0
+
+
+def test_loftr_on_card_vs_cpu(card):
+    """The bundled LoFTR at 480x640 with 1024 matches on the card (f32, TF32
+    off) against the CPU: no kernel of the port launches; the valid match
+    sets agree but for cells whose confidence lies within 1e-3 of the 0.2
+    threshold, shared matches' confidences within 1e-4 and refined
+    ``kp1`` within 1e-2 px."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.matching.loftr import LoFTR
+    from gisnav_tpu_torch.raster import rotate_and_crop_auto
+    from gisnav_tpu_torch.weights import load_bundled, params_from_jax
+
+    tree, cfg = load_bundled("loftr")
+    s = _harris_scene()
+    img0 = torch.as_tensor(s.frames[1].astype(np.float32) / 255.0)
+    # the semi-dense runner's crop: rotated to the yaw, at the query's GSD
+    ortho = torch.as_tensor(s.ortho.astype(np.float32) / 255.0)
+    crop, _ = rotate_and_crop_auto(ortho[..., None], s.yaws[1], (480, 640),
+                                   zoom=1.25 / 3.0)
+    img1 = crop[..., 0].contiguous()
+    cpu = LoFTR(params_from_jax(tree)["loftr"], max_matches=1024)(img0, img1)
+    model = LoFTR(params_from_jax(tree, "cuda")["loftr"], max_matches=1024)
+    reset_launches()
+    got = model(img0.cuda(), img1.cuda())
+    assert all(n == 0 for n in LAUNCHES.values())
+
+    def cells(m):
+        c = m.confidence.cpu().numpy()
+        return {tuple(k): (i, c[i]) for i, k in enumerate(
+            m.kp0.cpu().numpy()) if m.mask[i]}
+
+    a, b = cells(got), cells(cpu)
+    assert len(b) >= 10
+    for cell in a.keys() ^ b.keys():
+        conf = (a.get(cell) or b.get(cell))[1]
+        assert abs(conf - 0.2) < 1e-3, (cell, conf)
+    for cell in a.keys() & b.keys():
+        i, j = a[cell][0], b[cell][0]
+        assert abs(a[cell][1] - b[cell][1]) < 1e-4
+        torch.testing.assert_close(got.kp1[i].cpu(), cpu.kp1[j], rtol=0,
+                                   atol=1e-2)

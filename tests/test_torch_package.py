@@ -44,6 +44,10 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = _port_files()
     assert len(files) > 15
+    rel = {os.path.relpath(p, ROOT) for p in files}
+    assert {os.path.join("gisnav_tpu_torch", *m.split("/")) for m in (
+        "features/harris.py", "features/convert.py", "matching/convert.py",
+        "matching/loftr.py", "weights.py", "pipeline/runners.py")} <= rel
     bad = {(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN}
     assert not bad, sorted(bad)

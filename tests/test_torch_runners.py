@@ -40,6 +40,32 @@ rebuilt on the port's match mask and passed to the port's frame program as
   each package's fix within 25 m of the scene's truth, the bound of the
   other runner tests (measured: port 11.5 m, JAX 7.8 m, at 3.43 m/px);
 - ``runner.stats`` equal, one map extraction for one ``map_stamp``.
+
+With the default bundle, ``harris_lg5`` (Harris detector + LightGlue-5) at
+its own width, 480x640 and 512 keypoints, on the scene of ``chip_smoke.py``
+path 4 (an 800x800 map at 3x the footprint, the sizing of the JAX package's
+8-yaw sweep, ``tests/test_cached_rotation.py``):
+
+- ``params=None`` gives every deep runner ``harris_lg5`` with
+  ``PRETRAINED_CONFIG``, as in the JAX package; params without a config
+  give the config inferred from the tree (a written departure: the JAX
+  runners pin ``PRETRAINED_CONFIG``);
+- the cached runner (query pooled to 240x320 against the whole map) on two
+  yaws, drawing as the JAX runner: valid where the JAX runner is, match
+  counts within 10 % (the port's select takes the TPU kernel's route for
+  240 rows, which keeps a few bottom-band keypoints the JAX CPU route
+  suppresses), each fix within 10 m of the truth and within the warp
+  modes' 2.5 m horizontally and 0.5 m in altitude of the JAX fix, or
+  within the JAX program's own spread over 16 RANSAC keys where that is
+  wider (measured 0.055 / 0.004 m and 1.949 / 1.645 m, against JAX
+  spreads of 2.32 / 0.28 m and 3.28 / 3.07 m); the frame program under
+  each of the 16 keys against the JAX program under the same key: the
+  median within 2.5 m and 0.5 m in altitude (measured 0.055 / 0.004 m and
+  0.454 / 0.146 m), each key within 2.5 m or the spread;
+- the exact-warp and bucketed runners on one frame each: the warp modes'
+  2.5 m / 0.5 m (measured 0.1 mm);
+- the port's cached runner over all 8 yaws under 10 m of the truth (marked
+  ``slow``; measured 0.6-5.1 m).
 """
 import dataclasses
 import itertools
@@ -100,21 +126,46 @@ def _with_jax_draw(make_program):
     return build
 
 
-def _port_runner(name, *args, **kw):
-    """A port runner on the CPU whose frame program draws as JAX does."""
+def _port_runner(name, *args, keep_patched=False, **kw):
+    """A port runner on the CPU whose frame program draws as JAX does.
+
+    The program is patched while the runner is made. The cached runner
+    builds its program at its first frame, so its frames draw as JAX does
+    only with ``keep_patched``, which patches around every call; without
+    it they draw from the port's own generator, which is what the
+    learned_lg9 cached tests above were measured and gated with."""
     program = {"make_cached_deep_runner": "build_frame_to_geopose_cached",
-               "make_deep_runner": "build_frame_to_geopose"}[name]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(truns, program, _with_jax_draw(getattr(truns, program)))
-        return getattr(truns, name)(*args, device="cpu", **kw)
+               "make_deep_runner": "build_frame_to_geopose",
+               "make_bucketed_warp_runner":
+                   "build_frame_to_geopose_warpcached"}[name]
+    patched = _with_jax_draw(getattr(truns, program))
+
+    def patch(fn, *a, **k):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(truns, program, patched)
+            return fn(*a, **k)
+
+    runner = patch(getattr(truns, name), *args, device="cpu", **kw)
+    if not keep_patched:
+        return runner
+
+    def run(*a, **k):
+        return patch(runner, *a, **k)
+
+    run.stats = runner.stats
+    return run
 
 
-def _key_spread(program, *args):
-    """Largest move of the JAX program's fix over RANSAC keys 1..KEYS;
-    ``program(key)`` returns a JAX GeoPose."""
+def _key_spread(program, *args, altitude=False):
+    """Largest move of the JAX program's fix over RANSAC keys 1..KEYS
+    (horizontal, or with ``altitude`` both moves); ``program(key)`` returns
+    a JAX GeoPose."""
     fixes = [jgp.geopose_to_wgs84_f64(program(jax.random.PRNGKey(n)), *args)
              for n in range(1, KEYS + 1)]
-    return max(_dist(a, b)[0] for a, b in itertools.combinations(fixes, 2))
+    moves = [_dist(a, b) for a, b in itertools.combinations(fixes, 2)]
+    if altitude:
+        return tuple(max(m[i] for m in moves) for i in (0, 1))
+    return max(m[0] for m in moves)
 
 
 def _fly(scene, port, ref, frames, **kw):
@@ -416,7 +467,8 @@ def test_exact_warp_program_without_zoom_vs_jax(setup):
 
 def test_new_runners_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for make in (truns.make_deep_runner, truns.make_cached_deep_runner):
+    for make in (truns.make_deep_runner, truns.make_cached_deep_runner,
+                 truns.make_semidense_runner):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
@@ -427,3 +479,163 @@ def test_pipeline_config_fields_match_jax():
     theirs = {f.name: f.default for f in dataclasses.fields(
         jgp.PipelineConfig)}
     assert ours == theirs
+
+
+# chip_smoke.py path 4's scene: the JAX 8-yaw sweep's sizing
+# (tests/test_cached_rotation.py: 800 px map at 3x the footprint, f = 400
+# px, 500 m AGL, the camera ~22 m off the map centre along its yaw)
+HARRIS_YAWS = [0.0, 45.0, 90.0, 135.0, 180.0, 225.0, 270.0, 315.0]
+
+
+@pytest.fixture(scope="module")
+def harris_scene():
+    return render_scene(seed=6, h=480, w=640, yaws=HARRIS_YAWS,
+                        map_side=800, coverage=3.0, offset_m=22.2)
+
+
+def _asdict(cfg):
+    return dataclasses.asdict(cfg)
+
+
+def test_runner_defaults_as_jax(monkeypatch):
+    """``params=None``: ``harris_lg5`` with ``PRETRAINED_CONFIG``; a config
+    passed with it is kept; a tree without a config gets the config its
+    shape implies."""
+    built = []
+    real = tgp.build_models
+    monkeypatch.setattr(truns, "build_models", lambda p, c: (
+        built.append((p, c)), real(p, c))[1])
+    harris = params_from_jax(load_bundled("harris_lg5")[0])["superpoint"]
+    makes = (truns.make_deep_runner, truns.make_bucketed_warp_runner,
+             truns.make_cached_deep_runner)
+    for make in makes:
+        make(device="cpu")
+        params, cfg = built[-1]
+        assert _asdict(cfg) == _asdict(jruns.PRETRAINED_CONFIG)
+        assert "convPa" not in params["superpoint"]
+        assert torch.equal(params["superpoint"]["convDa"]["weight"],
+                           harris["convDa"]["weight"])
+        assert params["lightglue"].keys() >= {"self_4", "cross_4"}
+        assert "self_5" not in params["lightglue"]
+    small = dataclasses.replace(jruns.PRETRAINED_CONFIG, max_keypoints=256)
+    truns.make_deep_runner(config=small, device="cpu")
+    assert _asdict(built[-1][1]) == _asdict(small)
+    learned, _ = load_bundled("learned_lg9")
+    for make in makes:
+        make(learned, device="cpu")
+        assert _asdict(built[-1][1]) == _asdict(jruns.LEARNED_LG9_CONFIG)
+    for name in ("PRETRAINED_CONFIG", "LEARNED_LG9_CONFIG",
+                 "SEMIDENSE_CONFIG"):
+        assert _asdict(getattr(truns, name)) == _asdict(
+            getattr(jruns, name))
+
+
+@pytest.fixture(scope="module")
+def harris_cached_keys(harris_scene):
+    """Frames 0 and 1 of the harris scene through the JAX cached program
+    and the port's, both drawing RANSAC samples from keys 1..KEYS: per
+    frame the two lists of fixes."""
+    s = harris_scene
+    j_params, j_cfg = jruns.load_bundled("harris_lg5")
+    params, cfg = load_bundled("harris_lg5")
+    j_cfg, cfg = (dataclasses.replace(c, ortho_shape=s.ortho.shape,
+                                      detector_downsample=2)
+                  for c in (j_cfg, cfg))
+    j_ref = jax.jit(jgp.build_reference_extractor(j_cfg))(
+        j_params, jnp.asarray(s.ortho, jnp.float32) / 255.0)
+    j_fn = jax.jit(jgp.build_frame_to_geopose_cached(j_cfg))
+    models = tgp.build_models(params_from_jax(params), cfg)
+    t_ref = tgp.build_reference_extractor(cfg)(
+        models, torch.as_tensor(s.ortho.astype(np.float32)) / 255.0)
+    t_fn = tgp.build_frame_to_geopose_cached(cfg)
+    k32, aff32 = (np.asarray(a, np.float32) for a in (s.k, s.crs_affine))
+    out = []
+    for i in (0, 1):
+        q = s.frames[i].astype(np.float32) / 255.0
+        jax_fixes, port_fixes = [], []
+        for n in range(1, KEYS + 1):
+            key = jax.random.PRNGKey(n)
+            r = j_fn(j_params, jnp.asarray(q), j_ref, jnp.asarray(s.dem),
+                     jnp.asarray(k32), jnp.asarray(aff32), key,
+                     jnp.zeros(2, jnp.float32), jnp.float32(-1.0))
+            p = t_fn(models, torch.as_tensor(q), t_ref,
+                     torch.as_tensor(s.dem), torch.as_tensor(k32),
+                     torch.as_tensor(aff32),
+                     sample_idx=lambda mask, _, key=key: jax_ransac_sample(
+                         key, mask.numpy()))
+            jax_fixes.append(jgp.geopose_to_wgs84_f64(r, s.crs_affine))
+            port_fixes.append(tgp.geopose_to_wgs84_f64(p, s.crs_affine))
+        out.append((jax_fixes, port_fixes))
+    return out
+
+
+def test_cached_runner_harris_vs_jax_runner(harris_scene,
+                                            harris_cached_keys):
+    """The runner's fixes against the JAX runner's, and the frame
+    program's under each of 16 RANSAC keys against the JAX program's under
+    the same key. The port's query select keeps 4-5 keypoints in the
+    bottom border band of the 240-row pooled query that the JAX CPU route
+    suppresses (its TPU kernel route keeps them, as the port does), and
+    the reference features and LightGlue on equal features agree exactly;
+    those few keypoints change the match mask and so the RANSAC draw, so a
+    port fix is another draw from the same spread as the JAX one."""
+    s = harris_scene
+    params, cfg = load_bundled("harris_lg5")
+    j_params, j_cfg = jruns.load_bundled("harris_lg5")
+    port = _port_runner("make_cached_deep_runner", params, cfg,
+                        keep_patched=True)
+    ref = jruns.make_cached_deep_runner(j_params, j_cfg)
+    out = _fly(s, port, ref, [0, 1])
+    for (p, pf, r, rf), (jax_fixes, port_fixes), (lon, lat) in zip(
+            out, harris_cached_keys, s.truth_lonlat):
+        horiz, dalt = _dist(pf, rf)
+        moves = [_dist(a, b) for a, b in itertools.combinations(jax_fixes,
+                                                                2)]
+        spread = tuple(max(m[i] for m in moves) for i in (0, 1))
+        same = np.array([_dist(a, b) for a, b in zip(port_fixes,
+                                                     jax_fixes)])
+        print(f"harris cached runner: port-vs-JAX {horiz:.3f} m "
+              f"horizontal, {dalt:.3f} m altitude; matches "
+              f"{int(p.num_matches)}/{int(r.num_matches)}; JAX spread over "
+              f"{KEYS} keys {spread[0]:.3f} m / {spread[1]:.3f} m; same key "
+              f"port-vs-JAX median {np.median(same[:, 0]):.3f} m / "
+              f"{np.median(same[:, 1]):.3f} m, max {same[:, 0].max():.3f} m"
+              f" / {same[:, 1].max():.3f} m")
+        assert bool(p.valid) and bool(r.valid)
+        n = int(r.num_matches)
+        assert abs(int(p.num_matches) - n) <= 0.1 * n + 1
+        assert horiz < max(2.5, spread[0]) and dalt < max(0.5, spread[1])
+        for fix in (pf, rf):
+            assert haversine_m(lat, lon, fix["lat"], fix["lon"]) < 10.0
+        assert np.median(same[:, 0]) < 2.5 and np.median(same[:, 1]) < 0.5
+        assert (same[:, 0] < np.maximum(2.5, spread[0])).all()
+    assert tuple(port.stats.values()) == (2, 1) and port.stats == ref.stats
+
+
+@pytest.mark.parametrize("name", ["make_deep_runner",
+                                  "make_bucketed_warp_runner"])
+def test_warp_runners_harris_vs_jax_runner(harris_scene, name):
+    params, cfg = load_bundled("harris_lg5")
+    j_params, j_cfg = jruns.load_bundled("harris_lg5")
+    port = _port_runner(name, params, cfg)
+    ref = getattr(jruns, name)(j_params, j_cfg)
+    out = _fly(harris_scene, port, ref, [1])
+    _assert_near(out)
+    lon, lat = harris_scene.truth_lonlat[1]
+    assert haversine_m(lat, lon, out[0][1]["lat"], out[0][1]["lon"]) < 10.0
+
+
+@pytest.mark.slow
+def test_cached_runner_harris_eight_yaws(harris_scene):
+    """The JAX package's 8-yaw cached sweep (``test_cached_rotation.py``)
+    on the port: every fix valid and under 10 m."""
+    s = harris_scene
+    runner = truns.make_cached_deep_runner(device="cpu")
+    for i, (lon, lat) in enumerate(s.truth_lonlat):
+        pose = runner(s.frames[i], s.ortho, s.dem, 0.0, s.k, s.crs_affine,
+                      map_stamp=1, altitude_agl=s.alt_m)
+        fix = tgp.geopose_to_wgs84_f64(pose, s.crs_affine)
+        err = haversine_m(lat, lon, fix["lat"], fix["lon"])
+        print(f"yaw {s.yaws[i]:5.1f}: valid={bool(pose.valid)} inliers "
+              f"{int(pose.num_inliers)} error {err:.3f} m")
+        assert bool(pose.valid) and err < 10.0
