@@ -42,7 +42,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and not gated, the cached runner on bench.py's 2048-px map at 3x;
 8. path 5: the semi-dense runner (bundled LoFTR, 480x640, 1024 matches) on
    4 frames of path 4's scene, during which no kernel of the port launches;
-9. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+9. path 6: the classical backend, ``classical_frame_to_geopose`` (the
+   port's SIFT on the query and the crop, 1024 keypoints, MNN matching,
+   RANSAC-PnP) on 8 yaws, none a right angle, over path 4's bench map
+   (2048 px at 3x, about the 480x640 query's ground sample distance, DEM
+   from the same render): the zoom-less rotation of a square map is the
+   3-shear, so K6 launches 2 + 1 times a frame and nothing else does; SIFT's
+   and the tail's device time, and ``cv2`` must not have been imported;
+10. path 7: visual odometry, the port's ``TwistNode`` on a ``LocalBus``
+   over 16 frames of a straight, level rendered flight (20 m steps at 300 m,
+   the yaw drifting 4 deg), seeded with the first camera's true pose: 15
+   poses, the last within 10 m of the truth, no kernel launch;
+11. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone).
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
@@ -126,12 +137,21 @@ BENCH_MAP = 2048  # bench.py's cached-mode map side, at 3x the footprint
 # matches, under min_matches, and returns an invalid fix
 SEMIDENSE_FRAMES = (0, 1, 2, 3)
 SEMIDENSE_VALID = (1, 2, 3)
+# path 6: the PoseNode's classical defaults (480x640, 1024 keypoints) on
+# path 4's bench map; a yaw that is a multiple of 90 deg takes the exact
+# rot90 route and K6 would not launch
+CLASSICAL_YAWS = [10.0, 37.0, 65.0, 100.0, 143.0, 200.0, 250.0, 320.0]
+CLASSICAL_SCENE = {**HARRIS_SCENE, "map_side": BENCH_MAP,
+                   "yaws": CLASSICAL_YAWS}
+# path 7: the flight the twist node integrates
+VO_FLIGHT = dict(seed=8, h=480, w=640, steps=16, step_m=20.0, alt_m=300.0,
+                 yaw_drift_deg=4.0)
 # measured beside the contract's keys: device time (``device_ms``), the
 # wrapper's host time (``host_ms``), K4's two launches apart, the library's
 # device time, the whole 3-shear rotation, and K1-K4's launches on path 4
 EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "library_device_ms", "rotation_ms", "rotation_device_ms",
-              "path4_launches")
+              "path4_launches", "path6_launches")
 
 
 def log(msg: str) -> None:
@@ -1190,6 +1210,169 @@ def phase_semidense_path(profile_run: bool = False) -> dict:
     return out
 
 
+def phase_classical_path(profile_run: bool = False) -> dict:
+    """Path 6: the classical frame program on the card. The map and DEM are
+    uploaded once, as a node keeps them; each frame seeds RANSAC with its
+    number."""
+    from gisnav_tpu_torch.device import resolve_device
+    from gisnav_tpu_torch.features.sift import (
+        extract_sift,
+        extract_sift_batch,
+        pad_features,
+    )
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.classical import (
+        _device_tail,
+        classical_frame_to_geopose,
+    )
+    from gisnav_tpu_torch.pipeline.geopose import PipelineConfig
+    from gisnav_tpu_torch.raster import rotate_and_crop_auto
+    from gisnav_tpu_torch.utils.world import render_scene
+
+    t0 = time.time()
+    scene = render_scene(**CLASSICAL_SCENE)
+    log(f"[classical] scene {scene.ortho.shape} in {time.time() - t0:.1f} s")
+    dev = resolve_device()
+    config = PipelineConfig(image_shape=(480, 640),
+                            ortho_shape=scene.ortho.shape,
+                            max_keypoints=1024)
+    ortho = torch.as_tensor(scene.ortho, device=dev)
+    dem = torch.as_tensor(scene.dem, device=dev)
+    state = {"n": 0}
+
+    def runner(query, _ortho, _dem, rotation_deg, k, crs_affine, **_):
+        state["n"] += 1
+        return classical_frame_to_geopose(query, ortho, dem, rotation_deg, k,
+                                          crs_affine, config,
+                                          seed=state["n"])
+
+    frames = list(range(len(CLASSICAL_YAWS)))
+    fly(runner, scene, 0)
+    reset_launches()
+    rows = [fly(runner, scene, i, f"[classical] frame {i}") for i in frames]
+    launches = dict(LAUNCHES)
+    n = len(frames)
+    log(f"[classical] launches over {n} frames: {launches}")
+    expect_launches("classical", launches,
+                    {"shear_last_axis": 2 * n, "shear_first_axis": n})
+    out = {**_times(rows), "launches": launches}
+
+    # frame 0's parts: SIFT of one image and of the pair, and the tail
+    stack = torch.stack([ortho.float(), dem], dim=-1)
+    warped, m_crop = rotate_and_crop_auto(stack, scene.yaws[0], (480, 640))
+    crop = torch.clamp(warped[:, :, 0], 0, 255).to(torch.uint8)
+    query = torch.as_tensor(scene.frames[0], device=dev)
+    pair = torch.stack([query, crop])
+    raw = extract_sift_batch(pair, 1024)
+    fq, fr = (pad_features(*r, 1024) for r in raw)
+    tail = _device_tail(config)
+    k, aff = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+              for a in (scene.k, scene.crs_affine))
+
+    def run_tail():
+        return tail(fq.keypoints, fq.descriptors, fq.mask, fr.keypoints,
+                    fr.descriptors, fr.mask, warped[:, :, 1].contiguous(),
+                    m_crop.to(dev), k, aff,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+
+    pair_host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        extract_sift_batch(pair, 1024)
+        torch.cuda.synchronize()
+        pair_host.append((time.perf_counter() - t) * 1e3)
+    out.update({
+        "keypoints": [int(len(r[0])) for r in raw],
+        "matches": int(run_tail().num_matches),
+        "sift_device_ms": device_ms(lambda: extract_sift(query, 1024),
+                                    calls=5),
+        "sift_pair_device_ms": device_ms(
+            lambda: extract_sift_batch(pair, 1024), calls=5),
+        "sift_pair_host_ms": float(np.median(pair_host)),
+        "tail_device_ms": device_ms(run_tail, calls=5)})
+    out["sift_share"] = out["sift_pair_host_ms"] / out["frame_p50_ms"]
+    if "cv2" in sys.modules:
+        raise RuntimeError("the classical path imported cv2")
+    if profile_run:
+        busy = profile_frames(lambda i: fly(runner, scene, i), frames)
+        out["device_busy_ms"] = busy
+        out["device_idle_share"] = 1.0 - busy / out["frame_p50_ms"]
+    log("[classical] " + json.dumps(out))
+    return out
+
+
+def phase_vo_path(profile_run: bool = False) -> dict:
+    """Path 7: the port's twist node over a rendered straight, level
+    flight, on a LocalBus as the node graph drives it."""
+    from gisnav_tpu_torch.constants import (
+        ROS_TOPIC_CAMERA_INFO,
+        ROS_TOPIC_IMAGE,
+        ROS_TOPIC_MAVROS_GLOBAL_POSITION,
+    )
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.nodes.bus import LocalBus
+    from gisnav_tpu_torch.nodes.twist_node import TOPIC_TWIST_POSE, TwistNode
+    from gisnav_tpu_torch.utils.world import render_flight
+
+    t0 = time.time()
+    flight = render_flight(**VO_FLIGHT)
+    log(f"[vo] {len(flight.frames)} frames in {time.time() - t0:.1f} s")
+
+    def node_on_bus():
+        bus, poses = LocalBus(), []
+        node = TwistNode(bus)
+        bus.subscribe(TOPIC_TWIST_POSE, poses.append)
+        node.initialize_pose(flight.poses[0])
+        bus.publish(ROS_TOPIC_CAMERA_INFO, {"k": flight.k, "width": 640,
+                                            "height": 480})
+        bus.publish(ROS_TOPIC_MAVROS_GLOBAL_POSITION,
+                    {"alt_ellipsoid": flight.alt_m})
+
+        def step(i):
+            t = time.perf_counter()
+            bus.publish(ROS_TOPIC_IMAGE, {"image": flight.frames[i],
+                                          "stamp_us": i * 100_000})
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3
+
+        return step, poses
+
+    step, poses = node_on_bus()
+    reset_launches()
+    ms = [step(i) for i in range(len(flight.frames))]
+    expect_launches("vo", dict(LAUNCHES), {})
+    if len(poses) != len(flight.frames) - 1:
+        raise RuntimeError(f"vo: {len(poses)} poses of "
+                           f"{len(flight.frames) - 1}")
+    step_err = []
+    for i, pose in enumerate(poses, start=1):
+        est = pose["position"] - (poses[i - 2]["position"] if i > 1 else
+                                  flight.poses[0][:3, 3])
+        true = flight.poses[i][:3, 3] - flight.poses[i - 1][:3, 3]
+        step_err.append(float(np.linalg.norm(est - true)))
+    final = float(np.linalg.norm(poses[-1]["position"]
+                                 - flight.poses[-1][:3, 3]))
+    log(f"[vo] step translation errors (m): "
+        f"{[round(e, 3) for e in step_err]}; last position {final:.3f} m "
+        f"from the truth")
+    if not (final < 10.0 and np.isfinite(final)):
+        raise RuntimeError(f"vo: last pose {final:.2f} m off")
+    out = {"frames": len(flight.frames), "poses": len(poses),
+           "step_p50_ms": float(np.median(ms[1:])),
+           "step_p90_ms": float(np.percentile(ms[1:], 90)),
+           "max_step_error_m": max(step_err), "final_error_m": final,
+           "launches": dict(LAUNCHES)}
+    if profile_run:
+        step2, _ = node_on_bus()
+        step2(0)
+        busy = profile_frames(step2, list(range(1, len(flight.frames))))
+        out["device_busy_ms"] = busy
+        out["device_idle_share"] = 1.0 - busy / out["step_p50_ms"]
+    log("[vo] " + json.dumps(out))
+    return out
+
+
 def phase_seed_spread(seeds: int = 12) -> None:
     """How far the cached runner's fix moves with the RANSAC seed: every
     frame of path 2's scene ``seeds`` times (the runner seeds its generator
@@ -1366,7 +1549,7 @@ def main(argv=None) -> int:
                     help="build, check and time the kernels, drive no path "
                          "(to compare two sources of a kernel in one call)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile paths 1-5 (torch.profiler)")
+                    help="also profile paths 1-7 (torch.profiler)")
     ap.add_argument("--seed-spread", action="store_true",
                     help="only print how the cached runner's fixes move "
                          "over RANSAC seeds")
@@ -1420,6 +1603,10 @@ def main(argv=None) -> int:
     log(f"[phase] path 4 done at {time.time() - t_start:.1f} s")
     phase_semidense_path(args.profile)
     log(f"[phase] path 5 done at {time.time() - t_start:.1f} s")
+    classical = phase_classical_path(args.profile)
+    log(f"[phase] path 6 done at {time.time() - t_start:.1f} s")
+    phase_vo_path(args.profile)
+    log(f"[phase] path 7 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -1435,6 +1622,8 @@ def main(argv=None) -> int:
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))
+        if r["name"] in ("shear_last_axis", "shear_first_axis"):
+            r["path6_launches"] = classical["launches"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     smi = subprocess.run(

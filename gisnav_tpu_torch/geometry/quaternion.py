@@ -1,13 +1,13 @@
-"""Rotation matrix -> (x, y, z, w) quaternion on the host (numpy).
+"""Quaternion math on the host (numpy), (x, y, z, w) layout.
 
 The port's own copy of ``gisnav_tpu/geometry/quaternion.py``
-``matrix_to_quat`` (Shepperd's method).
+``matrix_to_quat`` (Shepperd's method) and ``quat_rotate``.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["matrix_to_quat"]
+__all__ = ["matrix_to_quat", "quat_rotate"]
 
 
 def matrix_to_quat(m: np.ndarray) -> np.ndarray:
@@ -27,3 +27,14 @@ def matrix_to_quat(m: np.ndarray) -> np.ndarray:
         q[k] = (m[k, i] + m[i, k]) / s
         q[3] = (m[k, j] - m[j, k]) / s
     return q / np.linalg.norm(q)
+
+
+def quat_rotate(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Rotate vector(s) ``v`` (shape (..., 3)) by quaternion ``q``."""
+    q = np.asarray(q, dtype=np.float64)
+    v = np.asarray(v, dtype=np.float64)
+    u = q[..., :3]
+    w = q[..., 3:4]
+    # v' = v + 2 * u x (u x v + w v)
+    uv = np.cross(u, v)
+    return v + 2.0 * np.cross(u, uv + w * v)

@@ -1,0 +1,1 @@
+"""nodes of the PyTorch/CUDA port (see the package docstring)."""

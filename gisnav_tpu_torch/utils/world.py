@@ -5,6 +5,8 @@ A flat world of rectangles, discs and thick lines over multi-octave noise
 an orthoimage cropped from it at the production map sizing (3x the camera
 footprint), and nadir camera frames rendered at given positions and yaws.
 Every frame carries its ground-truth lon/lat, so a run can check its fixes.
+``render_flight`` renders consecutive frames of a straight, level flight
+with each camera's pose, for visual odometry.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import numpy as np
 
 from gisnav_tpu_torch.geometry.crs import pixel_to_wgs84_affine
 
-__all__ = ["Scene", "render_scene"]
+__all__ = ["Scene", "render_scene", "Flight", "render_flight"]
 
 _LEFT, _TOP = -122.27, 37.53  # demo georeference (KSQL, San Carlos, CA)
 
@@ -155,3 +157,49 @@ def render_scene(seed: int, h: int, w: int, yaws: Sequence[float],
                  ortho=np.clip(np.rint(ortho), 0, 255).astype(np.uint8),
                  dem=np.zeros((ortho_hw, ortho_hw), np.float32), k=k,
                  crs_affine=aff, alt_m=alt_m)
+
+
+@dataclasses.dataclass
+class Flight:
+    frames: List[np.ndarray]  # (h, w) uint8 nadir frames, in flight order
+    yaws: List[float]  # camera yaw, degrees
+    # world <- camera 4x4 transforms in metres: the world frame is the
+    # rendered raster's (x right, y down) with z toward the ground, the
+    # camera frame x right, y down, z along the optical axis
+    poses: List[np.ndarray]
+    k: np.ndarray  # (3, 3) intrinsics
+    alt_m: float
+
+
+def render_flight(seed: int, h: int, w: int, steps: int,
+                  step_m: float = 20.0, alt_m: float = 300.0,
+                  yaw_drift_deg: float = 4.0) -> Flight:
+    """``steps`` nadir frames of a straight, level flight along the world's
+    x axis, ``step_m`` apart at ``alt_m`` above flat ground (f = 400 px at
+    640 px wide, as ``render_scene``), the camera yaw going linearly from 0
+    to ``yaw_drift_deg``. The world is drawn at the frames' ground sample
+    distance."""
+    rng = np.random.default_rng(seed)
+    focal = 400.0 * w / 640.0
+    gsd = alt_m / focal
+    track_m = step_m * (steps - 1)
+    margin_m = float(np.hypot(h, w)) * gsd
+    size = int(np.ceil((track_m + 2 * margin_m) / gsd / 8)) * 8
+    world = _draw_world(rng, size, gsd)
+    k = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]])
+    frames, yaws, poses = [], [], []
+    for i in range(steps):
+        yaw = yaw_drift_deg * i / max(steps - 1, 1)
+        a = np.radians(yaw)
+        c, s = np.cos(a), np.sin(a)
+        r = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1.0]])  # world -> camera
+        centre = np.array([size / 2 + (i * step_m - track_m / 2) / gsd,
+                           size / 2, -alt_m / gsd])
+        hm = k @ np.stack([r[:, 0], r[:, 1], -r @ centre], axis=1)
+        frames.append(_warp_perspective(world, hm, (h, w)))
+        pose = np.eye(4)
+        pose[:3, :3] = r.T
+        pose[:3, 3] = centre * gsd
+        poses.append(pose)
+        yaws.append(float(yaw))
+    return Flight(frames=frames, yaws=yaws, poses=poses, k=k, alt_m=alt_m)

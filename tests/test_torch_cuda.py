@@ -12,7 +12,12 @@ also give the same bits on a second run): conv bf16 outputs 2 ulp + 0.05
 and positions 1e-4 px, the LightGlue block 5e-2 on f32 outputs, the masked
 attention 1e-2 of the largest |output| (on unit-normal and on sharpened
 queries), the shear (both entries, and the rotation built on them) bit for
-bit, the NMS cell max exact.
+bit, the NMS cell max exact. The classical backend (plain PyTorch, no
+kernel of its own): SIFT on the card reproduces the CPU's keypoints (0.05
+px, size 1e-3, angle 0.1 deg) and descriptors (every element within 1) as
+the CPU reproduces OpenCV's (``tests/test_torch_sift.py``); the classical
+frame launches K6 2 + 1 times and fixes within 10 m; the twist node's
+steps stay within 0.5 m of the rendered flight's.
 """
 import numpy as np
 import pytest
@@ -658,3 +663,74 @@ def test_loftr_on_card_vs_cpu(card):
         assert abs(a[cell][1] - b[cell][1]) < 1e-4
         torch.testing.assert_close(got.kp1[i].cpu(), cpu.kp1[j], rtol=0,
                                    atol=1e-2)
+
+
+def test_sift_on_card_vs_cpu(card):
+    from gisnav_tpu_torch.features.sift import extract_sift
+
+    img = _harris_scene().frames[1]
+    cpu = [a.numpy() for a in extract_sift(img, 1024, device="cpu")]
+    got = [a.cpu().numpy() for a in extract_sift(img, 1024)]
+    (p, s, a, d), (tp, ts, ta, td) = cpu, got
+    dist = np.linalg.norm(p[:, None] - tp[None], axis=-1)
+    da = np.abs((a[:, None] - ta[None] + 180.0) % 360.0 - 180.0)
+    ds = np.abs(s[:, None] - ts[None]) / s[:, None]
+    cost = np.where((da <= 0.1) & (ds <= 1e-3), dist, np.inf)
+    j = cost.argmin(1)
+    ok = cost[np.arange(len(p)), j] <= 0.05
+    diff = np.abs(d[ok] - td[j[ok]]).max(1)
+    print(f"SIFT card vs CPU: {len(tp)} / {len(p)} keypoints, "
+          f"{ok.mean():.2%} reproduced, descriptors {(diff <= 1).mean():.2%}"
+          f" within 1")
+    assert abs(len(tp) - len(p)) <= 0.01 * len(p) + 1
+    assert ok.mean() >= 0.99 and (diff <= 1).mean() >= 0.99
+
+
+def test_classical_on_card_launches(card):
+    """A square map whose side is a multiple of 128: the crop is the
+    3-shear rotation (K6 2 + 1), nothing else of the port launches."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.classical import (
+        classical_frame_to_geopose,
+    )
+    from gisnav_tpu_torch.pipeline.geopose import geopose_to_wgs84_f64
+
+    s = _harris_scene(map_side=1024)
+    args = (s.frames[1], s.ortho, s.dem, s.yaws[1], s.k, s.crs_affine)
+    classical_frame_to_geopose(*args)
+    reset_launches()
+    pose = classical_frame_to_geopose(*args)
+    assert LAUNCHES == {k: {"shear_last_axis": 2,
+                            "shear_first_axis": 1}.get(k, 0)
+                        for k in LAUNCHES}
+    fix = geopose_to_wgs84_f64(pose, s.crs_affine)
+    lon, lat = s.truth_lonlat[1]
+    assert bool(pose.valid)
+    assert haversine_m(lat, lon, fix["lat"], fix["lon"]) < 10.0
+
+
+def test_twist_node_on_card(card):
+    from gisnav_tpu_torch.nodes.bus import LocalBus
+    from gisnav_tpu_torch.nodes.twist_node import TOPIC_TWIST_POSE, TwistNode
+    from gisnav_tpu_torch.utils.world import render_flight
+
+    fl = render_flight(seed=3, h=480, w=640, steps=4)
+    bus, poses = LocalBus(), []
+    node = TwistNode(bus)
+    bus.subscribe(TOPIC_TWIST_POSE, poses.append)
+    node.initialize_pose(fl.poses[0])
+    bus.publish("/camera/camera_info", {"k": fl.k, "width": 640,
+                                        "height": 480})
+    bus.publish("/mavros/global_position/global",
+                {"alt_ellipsoid": fl.alt_m})
+    for i, frame in enumerate(fl.frames):
+        bus.publish("/camera/image_raw", {"image": frame,
+                                          "stamp_us": i * 100_000})
+    assert len(poses) == 3
+    prev = fl.poses[0][:3, 3]
+    for i, pose in enumerate(poses, start=1):
+        step = pose["position"] - prev
+        true = fl.poses[i][:3, 3] - fl.poses[i - 1][:3, 3]
+        assert np.linalg.norm(step - true) < 0.5
+        prev = pose["position"]

@@ -1,7 +1,7 @@
 """Rules of the PyTorch/CUDA port that hold for the whole package.
 
 - No module of ``gisnav_tpu_torch``, and not ``chip_smoke.py``, imports JAX,
-  flax or anything of ``gisnav_tpu`` (checked on the syntax tree).
+  flax, OpenCV or anything of ``gisnav_tpu`` (checked on the syntax tree).
 - The entry points run on CUDA unless the caller asks for the CPU: without
   a card they raise instead of running on the CPU.
 - ``chip_smoke.py`` exits non-zero, with no result line, without a card.
@@ -19,7 +19,7 @@ import gisnav_tpu_torch
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gisnav_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gisnav_tpu", "cv2"}
 
 
 def _port_files():
@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     rel = {os.path.relpath(p, ROOT) for p in files}
     assert {os.path.join("gisnav_tpu_torch", *m.split("/")) for m in (
         "features/harris.py", "features/convert.py", "matching/convert.py",
-        "matching/loftr.py", "weights.py", "pipeline/runners.py")} <= rel
+        "matching/loftr.py", "weights.py", "pipeline/runners.py",
+        "features/sift.py", "matching/mnn.py", "pipeline/classical.py",
+        "nodes/twist_node.py", "nodes/bus.py", "constants.py")} <= rel
     bad = {(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN}
     assert not bad, sorted(bad)
