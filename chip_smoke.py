@@ -6,6 +6,7 @@
     python3 chip_smoke.py --kernels  # build + kernel checks and times, no path
     python3 chip_smoke.py --seed-spread   # cached-mode fix over RANSAC seeds
     python3 chip_smoke.py --digest   # sha256 of kernel outputs, seeded inputs
+    python3 chip_smoke.py --graph    # build + path 8 (the node graph) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -53,7 +54,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over 16 frames of a straight, level rendered flight (20 m steps at 300 m,
    the yaw drifting 4 deg), seeded with the first camera's true pose: 15
    poses, the last within 10 m of the truth, no kernel launch;
-11. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+11. path 8: the node graph from camera frame to mock GPS (bbox, GIS, pose,
+   twist, fusion and uORB nodes) over a seeded world that a loopback stub
+   WMS serves as PNG through the port's ``WMSClient``: (a) ``GisNavApp``
+   on a synchronous bus with the production pose backend (learned_lg9,
+   bucketed warp, 480x640 / 512 keypoints) over 24 steps of 30 m at 500 m
+   AGL across a bucket edge, the map refreshed below 0.92 overlap: at
+   least 3 maps, at least 12 ``SensorGps`` fixes each within 10 m of the
+   truth horizontally and vertically, one after the last map refresh,
+   ``satellites_used`` 255, exact K1-K4 counts on every frame; then,
+   printed and not gated, the JAX package's own track (60 m steps, the
+   reference's 0.85 overlap); (b) the graph ``python -m gisnav_tpu_torch
+   run`` builds from its defaults (the threaded bus), hovering until 8
+   fixes, the median of the last 5 within 10 m; the handlers' p50 / p90,
+   the frame-to-fix latency, one UKF ``submit`` and ``state_at``, and
+   ``cv2`` and ``requests`` must not have been imported;
+12. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone).
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
@@ -146,12 +162,38 @@ CLASSICAL_SCENE = {**HARRIS_SCENE, "map_side": BENCH_MAP,
 # path 7: the flight the twist node integrates
 VO_FLIGHT = dict(seed=8, h=480, w=640, steps=16, step_m=20.0, alt_m=300.0,
                  yaw_drift_deg=4.0)
+# path 8: the node graph over a seeded world served by the loopback stub
+# WMS: the camera of the JAX package's envelope tests (480x640, f = 400 px,
+# 500 m AGL), the world large enough that the padded map of every step of
+# a 24-step, 60 m-step track eastward stays inside it
+GRAPH_WORLD = dict(seed=7, size_px=3072, gsd_m=1.36)
+GRAPH_START_PX = (990.0, 1536.0)
+GRAPH_STEPS, GRAPH_ALT_M = 24, 500.0
+# the gated flight's step and refresh threshold. The map side is 3 camera
+# footprints, so below 0.92 overlap the camera has moved at most a quarter
+# footprint from the map's centre, where the bucketed crop lies (the
+# reference's 0.85 lets it move 45 %); 30 m steps (60 m/s) still cross 3
+# maps in 24 steps. ``graph_refresh_edge`` flies the JAX package's own
+# track, 60 m steps at 0.85, and prints what it gives
+GRAPH_STEP_M, GRAPH_OVERLAP = 30.0, 0.92
+EDGE_STEP_M, EDGE_OVERLAP = 60.0, 0.85
+GRAPH_K = np.array([[400.0, 0.0, 320.0], [0.0, 400.0, 240.0],
+                    [0.0, 0.0, 1.0]])
+# a learned_lg9 frame at 480x640 / 512 keypoints: the query's SuperPoint
+# (stem, 8 stages, select) and LightGlue-9's 18 dual block calls; a frame
+# that refreshes its rotation bucket extracts the warped crop as well
+GRAPH_FRAME = {"stem_stage": 1, "conv_stage": 8, "nms_select": 1,
+               "fused_block": 36}
+GRAPH_REFRESH = {"stem_stage": 2, "conv_stage": 16, "nms_select": 2,
+                 "fused_block": 36}
+GRAPH_CLI_FIXES, GRAPH_CLI_DEADLINE_S = 8, 60.0
 # measured beside the contract's keys: device time (``device_ms``), the
 # wrapper's host time (``host_ms``), K4's two launches apart, the library's
-# device time, the whole 3-shear rotation, and K1-K4's launches on path 4
+# device time, the whole 3-shear rotation, and K1-K4's launches on paths 4
+# and 8
 EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "library_device_ms", "rotation_ms", "rotation_device_ms",
-              "path4_launches", "path6_launches")
+              "path4_launches", "path6_launches", "path8_launches")
 
 
 def log(msg: str) -> None:
@@ -1373,6 +1415,340 @@ def phase_vo_path(profile_run: bool = False) -> dict:
     return out
 
 
+def _graph_params(wms_url: str) -> dict:
+    """Per-node parameters of path 8's graph: the stub WMS over loopback,
+    PNG replies, flat ground at 0 m."""
+    ground = {"ground_altitude_m": 0.0}
+    return {"gis_node": {"wms_url": wms_url, "wms_layers": ["imagery"],
+                         "wms_dem_layers": ["dem"],
+                         "wms_format": "image/png"},
+            "twist_node": dict(ground), "bbox_node": dict(ground),
+            "pose_node": dict(ground)}
+
+
+def _fix_errors(fix, lon, lat, alt) -> tuple:
+    """(horizontal, vertical) metres of a SensorGps fix from the truth."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+
+    return (haversine_m(lat, lon, fix["lat"] / 1e7, fix["lon"] / 1e7),
+            abs(fix["alt_ellipsoid"] / 1e3 - alt))
+
+
+def _publish_step(bus, stamp, lon, lat, alt, yaw, frame, gis=None) -> float:
+    """The inputs of one camera frame in ``tests/test_envelope.py``'s order
+    (global position, gimbal attitude, the GIS timer, the image); returns
+    the host clock at the image's publish."""
+    from gisnav_tpu_torch.constants import (
+        ROS_TOPIC_IMAGE,
+        ROS_TOPIC_MAVROS_GIMBAL_DEVICE_ATTITUDE_STATUS,
+        ROS_TOPIC_MAVROS_GLOBAL_POSITION,
+    )
+    from gisnav_tpu_torch.utils.world_wms import camera_attitude_quat
+
+    bus.publish(ROS_TOPIC_MAVROS_GLOBAL_POSITION,
+                {"stamp_us": stamp, "lat": lat, "lon": lon,
+                 "alt_ellipsoid": alt})
+    bus.publish(ROS_TOPIC_MAVROS_GIMBAL_DEVICE_ATTITUDE_STATUS,
+                {"stamp_us": stamp, "quat_xyzw": camera_attitude_quat(yaw)})
+    if gis is not None:
+        gis.tick()
+    t = time.perf_counter()
+    bus.publish(ROS_TOPIC_IMAGE, {"stamp_us": stamp,
+                                  "frame_id": "camera_optical",
+                                  "image": frame})
+    return t
+
+
+def _latencies(published: dict, arrivals: dict) -> list:
+    """Frame-to-fix ms: host clock from an image's publish to the SensorGps
+    fix stamped with that image's stamp."""
+    return [(arrivals[s] - published[s]) * 1e3 for s in arrivals
+            if s in published]
+
+
+def _pcts(ms) -> dict:
+    ms = [float(v) for v in ms]
+    return {"n": len(ms), "p50_ms": float(np.median(ms)) if ms else None,
+            "p90_ms": float(np.percentile(ms, 90)) if ms else None}
+
+
+def _fly_graph(world, wms_url: str, step_m: float, overlap: float) -> dict:
+    """``GisNavApp`` on a synchronous ``LocalBus`` with the production pose
+    backend (learned_lg9, bucketed warp, 480x640 / 512 keypoints) over
+    ``GRAPH_STEPS`` steps of ``step_m`` every 500 ms at 500 m AGL, the
+    heading oscillating 22.5 +- 1.5 deg across a 15-deg bucket edge (the
+    track of the JAX package's ``test_map_refresh_continuity_bucketed``);
+    the GIS node refreshes its map below ``overlap``. Returns the app (not shut down),
+    the flight's records and its launch counts by frame."""
+    from gisnav_tpu_torch.constants import ROS_TOPIC_CAMERA_INFO
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.nodes.app import GisNavApp
+    from gisnav_tpu_torch.nodes.gis_node import TOPIC_ORTHOIMAGE
+    from gisnav_tpu_torch.nodes.mock_gps import TOPIC_SENSOR_GPS
+    from gisnav_tpu_torch.nodes.pose_node import TOPIC_POSE
+    from gisnav_tpu_torch.utils.world_wms import east_of
+
+    lon0, lat0 = world.to_lonlat(*GRAPH_START_PX)
+    track = [(east_of(lon0, lat0, step_m * i), lat0, GRAPH_ALT_M,
+              22.5 + 1.5 * (-1) ** i) for i in range(GRAPH_STEPS)]
+    t0 = time.time()
+    frames = [world.render_frame(lon, lat, alt, yaw, GRAPH_K)
+              for lon, lat, alt, yaw in track]
+    params = _graph_params(wms_url)
+    params["gis_node"]["min_map_overlap_update_threshold"] = overlap
+    params["pose_node"].update(backend="deep", deep_mode="warp-bucketed",
+                               weights="learned_lg9")
+    app = GisNavApp(params=params)
+    tag = f"[graph {step_m:g} m {overlap}]"
+    log(f"{tag} {len(frames)} frames and the app in "
+        f"{time.time() - t0:.1f} s")
+    rec = {"app": app, "track": track, "frames": frames, "fixes": [],
+           "poses": [], "maps": [], "arrivals": {}, "truth": {},
+           "published": {}, "step_ms": [], "per_frame": []}
+
+    def on_fix(msg):
+        rec["arrivals"][msg["timestamp_sample"]] = time.perf_counter()
+        rec["fixes"].append(msg)
+
+    app.bus.subscribe(TOPIC_SENSOR_GPS, on_fix)
+    app.bus.subscribe(TOPIC_ORTHOIMAGE,
+                      lambda m: rec["maps"].append(m["stamp_us"]))
+    app.bus.subscribe(TOPIC_POSE, rec["poses"].append)
+    app.bus.publish(ROS_TOPIC_CAMERA_INFO,
+                    {"k": GRAPH_K, "width": 640, "height": 480})
+    stamp = 1_000_000
+    reset_launches()
+    for (lon, lat, alt, yaw), frame in zip(track, frames):
+        stamp += 500_000
+        rec["truth"][stamp] = (lon, lat, alt)
+        before = dict(LAUNCHES)
+        t = _publish_step(app.bus, stamp, lon, lat, alt, yaw, frame, app.gis)
+        torch.cuda.synchronize()
+        rec["published"][stamp] = t
+        rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+        rec["per_frame"].append({k: LAUNCHES[k] - before[k]
+                                 for k in LAUNCHES})
+    rec["launches"] = dict(LAUNCHES)
+    rec["stamp"] = stamp
+    rec["errors"] = [_fix_errors(f, *rec["truth"][f["timestamp_sample"]])
+                     for f in rec["fixes"]]
+    rec["pose_errors"] = [
+        (p["stamp_us"], round(_fix_errors(
+            {"lat": p["lat"] * 1e7, "lon": p["lon"] * 1e7,
+             "alt_ellipsoid": p["alt_ellipsoid"] * 1e3},
+            *rec["truth"][p["stamp_us"]])[0], 2)) for p in rec["poses"]]
+    log(f"{tag} {len(set(rec['maps']))} maps; pose node fixes "
+        f"(stamp, m): {rec['pose_errors']}")
+    log(f"{tag} SensorGps fixes (stamp, m, m): " + str(
+        [(f["timestamp_sample"], round(h, 2), round(v, 2))
+         for f, (h, v) in zip(rec["fixes"], rec["errors"])]))
+    return rec
+
+
+def graph_refresh_edge(world, wms_url: str) -> dict:
+    """Printed, not gated: the JAX package's own track, 60 m steps (120
+    m/s) at the reference's refresh threshold (0.85 overlap). The bucketed
+    crop is the camera footprint at the map's centre, and at 0.85 the
+    camera moves 45 % of its footprint from it before the next map: on
+    this world the last frames before a refresh match only half their
+    area."""
+    rec = _fly_graph(world, wms_url, EDGE_STEP_M, EDGE_OVERLAP)
+    rec["app"].shutdown()
+    far = [e for e in rec["errors"] if not (e[0] < 10.0 and e[1] < 10.0)]
+    return {"maps": len(set(rec["maps"])), "fixes": len(rec["fixes"]),
+            "fixes_over_10m": len(far),
+            "max_horiz_m": max((e[0] for e in rec["errors"]), default=None),
+            "max_vert_m": max((e[1] for e in rec["errors"]), default=None),
+            "pose_fixes": len(rec["poses"]),
+            "max_pose_horiz_m": max((e[1] for e in rec["pose_errors"]),
+                                    default=None)}
+
+
+def graph_flight(world, wms_url: str, profile_run: bool = False) -> dict:
+    """Path 8 (a): the flight of :func:`_fly_graph` at ``GRAPH_STEP_M``
+    with the map refreshed below ``GRAPH_OVERLAP``, every gate."""
+    rec = _fly_graph(world, wms_url, GRAPH_STEP_M, GRAPH_OVERLAP)
+    app, per_frame, launches = rec["app"], rec["per_frame"], rec["launches"]
+    log(f"[graph] launches over {len(per_frame)} frames: {launches}")
+    cached = [i for i, n in enumerate(per_frame)
+              if n == {k: GRAPH_FRAME.get(k, 0) for k in n}]
+    refresh = [i for i, n in enumerate(per_frame)
+               if n == {k: GRAPH_REFRESH.get(k, 0) for k in n}]
+    if len(cached) + len(refresh) != len(per_frame):
+        raise RuntimeError(f"graph: a frame launched other than a cached "
+                           f"or a refresh frame: {per_frame}")
+    expect_launches("graph cached frames",
+                    {k: sum(per_frame[i][k] for i in cached)
+                     for k in launches},
+                    {k: n * len(cached) for k, n in GRAPH_FRAME.items()})
+    if not all(launches[k] > 0 for k in GRAPH_FRAME):
+        raise RuntimeError(f"graph: a kernel of the path never launched "
+                           f"{launches}")
+    maps = sorted(set(rec["maps"]))
+    if len(maps) < 3:
+        raise RuntimeError(f"graph: {len(maps)} map stamps, the refresh "
+                           "gate fired fewer than twice")
+    fixes, errors = rec["fixes"], rec["errors"]
+    for fix, (horiz, vert) in zip(fixes, errors):
+        if fix["satellites_used"] != 255:
+            raise RuntimeError(f"graph: satellites_used {fix}")
+        if not (horiz < 10.0 and vert < 10.0):
+            raise RuntimeError(f"graph: fix at {fix['timestamp_sample']} "
+                               f"{horiz:.2f} m / {vert:.2f} m off")
+    if len(fixes) < 12:
+        raise RuntimeError(f"graph: {len(fixes)} fixes of 12")
+    if not any(f["timestamp_sample"] > maps[-1] for f in fixes):
+        raise RuntimeError("graph: no fix after the last map refresh")
+    step_ms = rec["step_ms"]
+    out = {"frames": len(per_frame), "map_stamps": len(maps),
+           "cached_frames": len(cached), "refresh_frames": len(refresh),
+           "fixes": len(fixes),
+           "max_horiz_m": max(e[0] for e in errors),
+           "max_vert_m": max(e[1] for e in errors),
+           "mean_horiz_m": float(np.mean([e[0] for e in errors])),
+           "step": _pcts([step_ms[i] for i in cached]),
+           "refresh_step": _pcts([step_ms[i] for i in refresh]),
+           "frame_to_fix": _pcts(_latencies(rec["published"],
+                                            rec["arrivals"])),
+           "launches": launches}
+    if profile_run:
+        lon, lat, alt, yaw = rec["track"][-1]
+        stamp = rec["stamp"]
+
+        def hover(_):
+            nonlocal stamp
+            stamp += 500_000
+            _publish_step(app.bus, stamp, lon, lat, alt, yaw,
+                          rec["frames"][-1])
+
+        busy = profile_frames(hover, [0])
+        out["device_busy_ms"] = busy
+        out["device_idle_share"] = 1.0 - busy / out["step"]["p50_ms"]
+    stats = app.shutdown()
+    out["handlers"] = {n: {h: {k: v[k] for k in ("calls", "p50_ms",
+                                                  "p90_ms")}
+                           for h, v in stats[n].items()}
+                       for n in ("pose_node", "twist_node", "fusion_node")}
+    return out
+
+
+def graph_cli(world, wms_url: str) -> dict:
+    """Path 8 (b): the graph that ``python -m gisnav_tpu_torch run`` builds
+    from its default arguments (deep, learned_lg9, warp-bucketed, uorb; the
+    threaded bus), hovering as ``tests/test_cli_run.py`` does: a frame
+    every 250 ms, the GIS timer every 2 s, until 8 fixes or 60 s."""
+    import os
+    import tempfile
+
+    from gisnav_tpu_torch.cli import build_app, build_parser
+    from gisnav_tpu_torch.constants import ROS_TOPIC_CAMERA_INFO
+    from gisnav_tpu_torch.nodes.mock_gps import TOPIC_SENSOR_GPS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params.json")
+        with open(path, "w") as f:
+            json.dump(_graph_params(wms_url), f)
+        app = build_app(build_parser().parse_args(["run", "--params", path]))
+    cfg = app.pose._config
+    if not (app.bus._async and app.pose._deep_runner is not None
+            and cfg.lightglue_depth == 9 and cfg.detector_mode == "learned"
+            and cfg.image_shape == (480, 640) and cfg.max_keypoints == 512):
+        raise RuntimeError(f"cli: not the production graph ({cfg})")
+    lon, lat = world.to_lonlat(world.raster.shape[1] / 2,
+                               world.raster.shape[0] / 2)
+    yaw = 15.0
+    frame = world.render_frame(lon, lat, GRAPH_ALT_M, yaw, GRAPH_K)
+    fixes, arrivals, published = [], {}, {}
+
+    def on_fix(msg):  # on the mock-GPS node's worker thread
+        arrivals[msg["timestamp_sample"]] = time.perf_counter()
+        fixes.append(msg)
+
+    app.bus.subscribe(TOPIC_SENSOR_GPS, on_fix)
+    app.bus.publish(ROS_TOPIC_CAMERA_INFO,
+                    {"k": GRAPH_K, "width": 640, "height": 480})
+    stamp = 1_000_000
+    t0 = time.monotonic()
+    while len(fixes) < GRAPH_CLI_FIXES \
+            and time.monotonic() - t0 < GRAPH_CLI_DEADLINE_S:
+        stamp += 250_000
+        published[stamp] = _publish_step(
+            app.bus, stamp, lon, lat, GRAPH_ALT_M, yaw, frame,
+            app.gis if stamp % 2_000_000 < 250_000 else None)
+        time.sleep(0.25)
+    hover_s = time.monotonic() - t0
+    stats = app.shutdown()
+    if len(fixes) < GRAPH_CLI_FIXES:
+        raise RuntimeError(f"cli: {len(fixes)} fixes in {hover_s:.0f} s")
+    errors = [_fix_errors(f, lon, lat, GRAPH_ALT_M)
+              for f in fixes[-5:]]
+    horiz = float(np.median([e[0] for e in errors]))
+    vert = float(np.median([e[1] for e in errors]))
+    log(f"[graph cli] last 5 fixes (m): "
+        f"{[(round(h, 2), round(v, 2)) for h, v in errors]}")
+    if not (horiz < 10.0 and vert < 10.0):
+        raise RuntimeError(f"cli: median of the last 5 fixes {horiz:.2f} m "
+                           f"/ {vert:.2f} m off")
+    return {"fixes": len(fixes), "frames": len(published),
+            "hover_s": hover_s, "dropped": app.bus.dropped,
+            "median_horiz_m": horiz, "median_vert_m": vert,
+            "frame_to_fix": _pcts(_latencies(published, arrivals)),
+            "handlers": {n: {h: {k: v[k] for k in ("calls", "p50_ms",
+                                                    "p90_ms")}
+                             for h, v in stats[n].items()}
+                         for n in ("pose_node", "twist_node",
+                                   "fusion_node")}}
+
+
+def graph_filter_steps(calls: int = 50) -> dict:
+    """Host ms of one global-filter (UKF) ``submit`` and one ``state_at``
+    on the card, each ending in a synchronise, over a 4 Hz pose stream."""
+    from gisnav_tpu_torch.fusion.filter import PoseFusionFilter, SensorConfig
+
+    f = PoseFusionFilter({"pose": SensorConfig(rejection_threshold=3.0)},
+                         backend="ukf")
+    quat = np.array([0.0, 0.0, 0.0, 1.0])
+    submit, query = [], []
+    for i in range(calls + 3):
+        stamp = 1_000_000 + 250_000 * i
+        pos = np.array([5.0 * i, 0.0, 500.0])
+        t = time.perf_counter()
+        f.submit("pose", stamp, pos, quat)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        est = f.state_at(stamp + 100_000)
+        t2 = time.perf_counter()
+        if i >= 3:  # the first calls load the kernels
+            submit.append((t1 - t) * 1e3)
+            query.append((t2 - t1) * 1e3)
+    if not np.all(np.isfinite(est["position"])):
+        raise RuntimeError(f"filter: non-finite state {est}")
+    return {"submit": _pcts(submit), "state_at": _pcts(query)}
+
+
+def phase_graph_path(profile_run: bool = False) -> dict:
+    """Path 8: the node graph from camera frame to mock GPS, (a) on a
+    synchronous bus, (b) as ``run`` wires it; then the filter steps."""
+    from gisnav_tpu_torch.utils.world_wms import World, WorldWMS
+
+    t0 = time.time()
+    world = World.make(**GRAPH_WORLD)
+    log(f"[graph] world {world.raster.shape} in {time.time() - t0:.1f} s")
+    with WorldWMS(world) as wms:
+        out = {"flight": graph_flight(world, wms.url, profile_run)}
+        log("[graph flight] " + json.dumps(out["flight"]))
+        out["refresh_edge"] = graph_refresh_edge(world, wms.url)
+        log("[graph refresh edge] " + json.dumps(out["refresh_edge"]))
+        out["cli"] = graph_cli(world, wms.url)
+        log("[graph cli] " + json.dumps(out["cli"]))
+    out["filter"] = graph_filter_steps()
+    log("[graph filter] " + json.dumps(out["filter"]))
+    leaked = [m for m in ("cv2", "requests") if m in sys.modules]
+    if leaked:
+        raise RuntimeError(f"graph: imported {leaked}")
+    return out
+
+
 def phase_seed_spread(seeds: int = 12) -> None:
     """How far the cached runner's fix moves with the RANSAC seed: every
     frame of path 2's scene ``seeds`` times (the runner seeds its generator
@@ -1549,13 +1925,15 @@ def main(argv=None) -> int:
                     help="build, check and time the kernels, drive no path "
                          "(to compare two sources of a kernel in one call)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile paths 1-7 (torch.profiler)")
+                    help="also profile paths 1-8 (torch.profiler)")
     ap.add_argument("--seed-spread", action="store_true",
                     help="only print how the cached runner's fixes move "
                          "over RANSAC seeds")
     ap.add_argument("--digest", action="store_true",
                     help="only print the sha256 of the stem's, NMS "
                          "kernels' and shear's outputs on seeded inputs")
+    ap.add_argument("--graph", action="store_true",
+                    help="only drive path 8, the node graph")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -1569,6 +1947,9 @@ def main(argv=None) -> int:
         return 0
     if args.digest:
         phase_digest()
+        return 0
+    if args.graph:
+        phase_graph_path(args.profile)
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1607,6 +1988,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 6 done at {time.time() - t_start:.1f} s")
     phase_vo_path(args.profile)
     log(f"[phase] path 7 done at {time.time() - t_start:.1f} s")
+    graph = phase_graph_path(args.profile)
+    log(f"[phase] path 8 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -1622,6 +2005,7 @@ def main(argv=None) -> int:
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))
+            r["path8_launches"] = graph["flight"]["launches"][r["name"]]
         if r["name"] in ("shear_last_axis", "shear_first_axis"):
             r["path6_launches"] = classical["launches"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,0 +1,1 @@
+"""fusion of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,7 +1,7 @@
 """SE(3) rigid transforms as 4x4 homogeneous matrices (numpy, host-side).
 
 The port's own copy of ``gisnav_tpu/geometry/se3.py`` ``make_transform``,
-``split_transform``, ``invert`` and ``compose``.
+``split_transform``, ``invert``, ``compose`` and ``interpolate_transform``.
 """
 from __future__ import annotations
 
@@ -9,7 +9,14 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["make_transform", "split_transform", "invert", "compose"]
+from gisnav_tpu_torch.geometry.quaternion import (
+    matrix_to_quat,
+    quat_slerp,
+    quat_to_matrix,
+)
+
+__all__ = ["make_transform", "split_transform", "invert", "compose",
+           "interpolate_transform"]
 
 
 def make_transform(r: np.ndarray, t: np.ndarray) -> np.ndarray:
@@ -38,3 +45,13 @@ def compose(*hs: np.ndarray) -> np.ndarray:
     for h in hs:
         out = out @ np.asarray(h, dtype=np.float64)
     return out
+
+
+def interpolate_transform(h0: np.ndarray, h1: np.ndarray,
+                          alpha: float) -> np.ndarray:
+    """Slerp the rotation and lerp the translation of two transforms (the
+    transform graph's time interpolation)."""
+    r0, t0 = split_transform(h0)
+    r1, t1 = split_transform(h1)
+    q = quat_slerp(matrix_to_quat(r0), matrix_to_quat(r1), alpha)
+    return make_transform(quat_to_matrix(q), (1.0 - alpha) * t0 + alpha * t1)

@@ -1,0 +1,1 @@
+"""gis of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,146 @@
+"""Minimal WMS GetMap/GetCapabilities client over ``urllib`` (no OWSLib,
+no ``requests``, no OpenCV).
+
+Counterpart of ``gisnav_tpu/gis/wms.py`` (what the reference uses OWSLib
+for, ``core/gis_node.py:248-313,638-699`` in hmakelin/gisnav): GetMap for
+imagery and DEM layers over a WGS84 bbox, a GetCapabilities probe, and
+decoding of the rasters. Standard WMS 1.1.1, so the reference's MapServer
+stack serves it unchanged.
+
+Written departure: the port decodes PNG only (``gis.png``), so the default
+format is ``image/png`` where the JAX client asks for ``image/jpeg``
+(MapServer serves both). A network error or an XML ServiceException gives
+None, as in JAX (the GIS node keeps its previous map); a reply in a format
+the port cannot decode (JPEG) raises ``ValueError`` naming the format.
+"""
+from __future__ import annotations
+
+import http.client
+import math
+import urllib.error
+import urllib.parse
+import urllib.request
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from gisnav_tpu_torch.gis.png import decode_png, to_gray
+
+__all__ = ["WMSClient", "request_orthoimage", "orthoimage_size_for_camera",
+           "DEFAULT_FORMAT"]
+
+DEFAULT_FORMAT = "image/png"
+_NETWORK_ERRORS = (urllib.error.URLError, http.client.HTTPException,
+                   OSError)
+
+
+class WMSClient:
+    """Thin WMS client.
+
+    :param url: endpoint, e.g. ``http://localhost:80/wms``
+    :param version: "1.1.1" (``srs``) or "1.3.0" (``crs``)
+    :param timeout_s: per-request timeout (reference default 10 s)
+    """
+
+    def __init__(self, url: str, version: str = "1.1.1",
+                 timeout_s: float = 10.0):
+        self.url = url
+        self.version = version
+        self.timeout_s = timeout_s
+
+    def _get(self, params: dict) -> Tuple[str, bytes]:
+        """(content type, body) of a GET; raises a network error, and
+        ``urllib.error.HTTPError`` on a non-2xx status."""
+        sep = "&" if "?" in self.url else "?"
+        url = self.url + sep + urllib.parse.urlencode(params)
+        with urllib.request.urlopen(url, timeout=self.timeout_s) as resp:
+            return resp.headers.get("content-type", ""), resp.read()
+
+    def is_available(self) -> bool:
+        """GetCapabilities connectivity probe."""
+        try:
+            self._get({"service": "WMS", "request": "GetCapabilities",
+                       "version": self.version})
+            return True
+        except _NETWORK_ERRORS:
+            return False
+
+    def get_map(self, layers: Sequence[str],
+                bbox: Tuple[float, float, float, float],
+                size: Tuple[int, int], srs: str = "EPSG:4326",
+                format_: str = DEFAULT_FORMAT,
+                styles: Optional[Sequence[str]] = None,
+                transparent: bool = False,
+                grayscale: bool = False) -> Optional[np.ndarray]:
+        """GetMap and decode the raster.
+
+        :param bbox: (left, bottom, right, top) in ``srs`` coordinates
+        :param size: (height, width) of the requested raster
+        :param grayscale: as ``cv2.IMREAD_GRAYSCALE``: colour to grey and
+            a 16-bit image to its high byte
+        :return: the raster as decoded (grey (H, W), RGB(A) (H, W, C),
+            uint8 or uint16), or None on a network error, an error status,
+            an empty body or a reply that is no image
+        """
+        axis_key = "srs" if self.version.startswith("1.1") else "crs"
+        params = {
+            "service": "WMS", "request": "GetMap", "version": self.version,
+            "layers": ",".join(layers),
+            "styles": ",".join(styles) if styles else "",
+            axis_key: srs, "bbox": ",".join(str(v) for v in bbox),
+            "width": str(size[1]), "height": str(size[0]),
+            "format": format_, "transparent": str(transparent).upper(),
+        }
+        try:
+            ctype, body = self._get(params)
+        except _NETWORK_ERRORS:
+            return None
+        if not body or "image" not in ctype:
+            return None  # e.g. an XML ServiceException
+        if "png" not in ctype.lower():
+            raise ValueError(f"WMS replied {ctype!r}; the port decodes "
+                             f"image/png only (request format {format_!r})")
+        img = decode_png(body)
+        if grayscale:
+            img = to_gray(img)
+            if img.dtype == np.uint16:
+                img = (img >> 8).astype(np.uint8)
+        return img
+
+
+def orthoimage_size_for_camera(width: int, height: int) -> Tuple[int, int]:
+    """Square (height, width) equal to the camera-frame diagonal, rounded up
+    to a multiple of 8 (the reference sizes maps to the diagonal so a
+    rotation never clips; SuperPoint needs sides divisible by 8)."""
+    diagonal = int(math.ceil(math.hypot(width, height)))
+    diagonal = (diagonal + 7) // 8 * 8
+    return diagonal, diagonal
+
+
+def request_orthoimage(
+    client: WMSClient,
+    bbox: Tuple[float, float, float, float],
+    size: Tuple[int, int],
+    layers: Sequence[str],
+    dem_layers: Sequence[str] = (),
+    styles: Optional[Sequence[str]] = None,
+    dem_styles: Optional[Sequence[str]] = None,
+    srs: str = "EPSG:4326",
+    format_: str = DEFAULT_FORMAT,
+    transparent: bool = False,
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Imagery + DEM rasters for a bbox (a zero DEM without a DEM layer):
+    (grey (H, W) uint8, DEM (H, W) float32 metres), or None when the
+    imagery request failed."""
+    img = client.get_map(layers, bbox, size, srs, format_, styles,
+                         transparent)
+    if img is None:
+        return None
+    img = to_gray(img)
+    dem: Optional[np.ndarray] = None
+    if dem_layers and dem_layers[0]:
+        dem = client.get_map(dem_layers, bbox, size, srs, format_,
+                             dem_styles, transparent, grayscale=True)
+    if dem is None:
+        dem = np.zeros_like(img)
+    return img.astype(np.uint8), dem.astype(np.float32)

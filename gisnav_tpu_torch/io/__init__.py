@@ -1,0 +1,1 @@
+"""io of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,13 +1,16 @@
 """Node base class: bus wiring, parameters, fail-soft handlers, profiling.
 
-The port's copy of ``gisnav_tpu/nodes/base.py``.
+The port's copy of ``gisnav_tpu/nodes/base.py``; ``timing_stats`` adds the
+p50 and p90 of each handler's recent calls.
 """
 from __future__ import annotations
 
 import logging
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Any, Dict, Optional
+
+import numpy as np
 
 __all__ = ["Node"]
 
@@ -18,8 +21,11 @@ class Node:
     Subscriptions are explicit ``bus.subscribe`` calls, parameters are a
     plain dict with defaults in code, and every handler is wrapped to
     log-and-continue instead of raising (the reference's fail-soft
-    pattern). Per-handler cumulative timings are kept for ``timing_stats``.
+    pattern). Per-handler call counts, cumulative time and the durations of
+    the last ``RECENT`` calls are kept for ``timing_stats``.
     """
+
+    RECENT = 1024
 
     def __init__(self, name: str, bus, params: Optional[Dict[str, Any]] = None,
                  tf=None):
@@ -28,7 +34,8 @@ class Node:
         self.tf = tf
         self._params: Dict[str, Any] = dict(params or {})
         self.log = logging.getLogger(name)
-        self._timings: Dict[str, list] = defaultdict(lambda: [0, 0.0])
+        self._timings: Dict[str, list] = defaultdict(
+            lambda: [0, 0.0, deque(maxlen=self.RECENT)])
         self.last_activity: float = time.time()
 
     def param(self, key: str, default: Any = None) -> Any:
@@ -45,9 +52,11 @@ class Node:
             except Exception as e:  # noqa: BLE001 — log and continue
                 self.log.warning("%s failed: %r", hname, e, exc_info=True)
             finally:
+                dt = time.perf_counter() - t0
                 rec = self._timings[hname]
                 rec[0] += 1
-                rec[1] += time.perf_counter() - t0
+                rec[1] += dt
+                rec[2].append(dt)
                 self.last_activity = time.time()
 
         self.bus.subscribe(topic, wrapped)
@@ -56,9 +65,14 @@ class Node:
         self.bus.publish(topic, message)
 
     def timing_stats(self) -> Dict[str, Dict[str, float]]:
-        """Per-handler call counts and cumulative seconds."""
-        return {
-            k: {"calls": v[0], "total_s": v[1],
-                "mean_ms": (v[1] / v[0] * 1e3 if v[0] else 0.0)}
-            for k, v in self._timings.items()
-        }
+        """Per-handler call counts, cumulative seconds, the mean, and the
+        p50 and p90 of the recent calls in milliseconds (host clock)."""
+        out = {}
+        for k, (calls, total, recent) in list(self._timings.items()):
+            ms = np.asarray(list(recent), np.float64) * 1e3
+            out[k] = {"calls": calls, "total_s": total,
+                      "mean_ms": total / calls * 1e3 if calls else 0.0,
+                      "p50_ms": float(np.median(ms)) if ms.size else 0.0,
+                      "p90_ms": (float(np.percentile(ms, 90)) if ms.size
+                                 else 0.0)}
+        return out

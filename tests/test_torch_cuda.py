@@ -17,7 +17,10 @@ kernel of its own): SIFT on the card reproduces the CPU's keypoints (0.05
 px, size 1e-3, angle 0.1 deg) and descriptors (every element within 1) as
 the CPU reproduces OpenCV's (``tests/test_torch_sift.py``); the classical
 frame launches K6 2 + 1 times and fixes within 10 m; the twist node's
-steps stay within 0.5 m of the rendered flight's.
+steps stay within 0.5 m of the rendered flight's. The node graph: a UKF
+step on the card equals the CPU's (1e-4 m) and NaNs on a non-PD P; one
+pose-node frame with the production backend is within 10 m and launches
+K1-K4.
 """
 import numpy as np
 import pytest
@@ -734,3 +737,84 @@ def test_twist_node_on_card(card):
         true = fl.poses[i][:3, 3] - fl.poses[i - 1][:3, 3]
         assert np.linalg.norm(step - true) < 0.5
         prev = pose["position"]
+
+
+def test_filter_step_on_card_matches_cpu(card):
+    """One UKF submit (predict + pose update) and state query on the card
+    equal the CPU's (x within 1e-4 m, TF32 off), and a non-PD covariance
+    gives NaN on the card too (``cholesky_ex``, no exception)."""
+    from gisnav_tpu_torch.fusion import ekf, ukf
+    from gisnav_tpu_torch.fusion.filter import PoseFusionFilter, SensorConfig
+
+    quat = np.array([0.0, 0.0, 0.3, 0.95])
+    out = []
+    for device in ("cuda", "cpu"):
+        f = PoseFusionFilter({"pose": SensorConfig(rejection_threshold=3.0)},
+                             backend="ukf", device=device)
+        for i in range(3):
+            f.submit("pose", 1_000_000 + 250_000 * i,
+                     np.array([1000.0 + 5 * i, 500.0, 500.0]), quat)
+        out.append(f.state_at(1_600_000))
+    np.testing.assert_allclose(out[0]["position"], out[1]["position"],
+                               rtol=0, atol=1e-4)
+    x = torch.zeros(15, device="cuda")
+    p = torch.eye(15, device="cuda")
+    p[0, 0] = -1.0
+    bad = ukf.ukf_predict(ekf.EKFState(x, p), 0.1,
+                          torch.ones(15, device="cuda"))
+    assert torch.isnan(bad.x).all()
+
+
+def test_pose_node_frame_on_card(card):
+    """One frame through the pose node with the production backend
+    (learned_lg9, bucketed warp, 480x640) against a map from the stub WMS:
+    a valid pose within 10 m, and the frame went through K1-K4."""
+    from gisnav_tpu_torch.geometry.bbox import fov_bounding_box_enu
+    from gisnav_tpu_torch.geometry.crs import (
+        affine_to_proj,
+        haversine_m,
+        pixel_to_wgs84_affine,
+    )
+    from gisnav_tpu_torch.geometry.quaternion import quat_to_matrix
+    from gisnav_tpu_torch.gis.wms import WMSClient, request_orthoimage
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.nodes.bus import LocalBus
+    from gisnav_tpu_torch.nodes.pose_node import TOPIC_POSE, PoseNode
+    from gisnav_tpu_torch.utils.world_wms import (
+        World,
+        WorldWMS,
+        camera_attitude_quat,
+    )
+
+    k = np.array([[400.0, 0, 320.0], [0, 400.0, 240.0], [0, 0, 1.0]])
+    world = World.make(seed=7, size_px=2048)
+    lon, lat = world.to_lonlat(1024, 1024)
+    quat = camera_attitude_quat(20.0)
+    bb = fov_bounding_box_enu(k, 640, 480, quat_to_matrix(quat), 500.0,
+                              lon, lat)
+    with WorldWMS(world) as wms:
+        img, dem = request_orthoimage(WMSClient(wms.url), tuple(bb),
+                                      (800, 800), ["imagery"], ["dem"])
+    bus, poses = LocalBus(), []
+    PoseNode(bus, {"backend": "deep"})
+    bus.subscribe(TOPIC_POSE, poses.append)
+    bus.publish("/camera/camera_info", {"k": k, "width": 640, "height": 480})
+    bus.publish("/gisnav/gis_node/orthoimage", {
+        "stamp_us": 1, "image": img, "dem": dem, "bbox": bb,
+        "crs": affine_to_proj(pixel_to_wgs84_affine(800, 800, *bb))})
+    bus.publish("/mavros/global_position/global",
+                {"stamp_us": 2, "lat": lat, "lon": lon,
+                 "alt_ellipsoid": 500.0})
+    bus.publish("/mavros/gimbal_control/device/attitude_status",
+                {"stamp_us": 2, "quat_xyzw": quat})
+    reset_launches()
+    bus.publish("/camera/image_raw", {
+        "stamp_us": 3, "image": world.render_frame(lon, lat, 500.0, 20.0,
+                                                   k)})
+    assert len(poses) == 1
+    assert haversine_m(lat, lon, poses[0]["lat"], poses[0]["lon"]) < 10.0
+    assert abs(poses[0]["alt_ellipsoid"] - 500.0) < 10.0
+    assert LAUNCHES == {"stem_stage": 2, "conv_stage": 16, "nms_select": 2,
+                        "fused_block": 36, "masked_attention": 0,
+                        "shear_last_axis": 0, "shear_first_axis": 0,
+                        "nms_cellmax": 0}

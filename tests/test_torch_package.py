@@ -1,7 +1,8 @@
 """Rules of the PyTorch/CUDA port that hold for the whole package.
 
 - No module of ``gisnav_tpu_torch``, and not ``chip_smoke.py``, imports JAX,
-  flax, OpenCV or anything of ``gisnav_tpu`` (checked on the syntax tree).
+  flax, OpenCV, ``requests`` or anything of ``gisnav_tpu`` (checked on the
+  syntax tree).
 - The entry points run on CUDA unless the caller asks for the CPU: without
   a card they raise instead of running on the CPU.
 - ``chip_smoke.py`` exits non-zero, with no result line, without a card.
@@ -19,7 +20,8 @@ import gisnav_tpu_torch
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gisnav_tpu", "cv2"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gisnav_tpu", "cv2",
+             "requests"}
 
 
 def _port_files():
@@ -49,7 +51,14 @@ def test_port_imports_no_jax_and_no_jax_package():
         "features/harris.py", "features/convert.py", "matching/convert.py",
         "matching/loftr.py", "weights.py", "pipeline/runners.py",
         "features/sift.py", "matching/mnn.py", "pipeline/classical.py",
-        "nodes/twist_node.py", "nodes/bus.py", "constants.py")} <= rel
+        "nodes/twist_node.py", "nodes/bus.py", "constants.py",
+        "geometry/tm.py", "geometry/bbox.py", "geometry/geoid.py",
+        "fusion/ekf.py", "fusion/ukf.py", "fusion/filter.py", "io/nmea.py",
+        "io/ubx.py", "io/uorb.py", "nodes/tf.py", "nodes/messages.py",
+        "nodes/bbox_node.py", "gis/cache.py", "gis/png.py", "gis/wms.py",
+        "nodes/gis_node.py", "nodes/pose_node.py", "nodes/fusion_node.py",
+        "nodes/mock_gps.py", "nodes/app.py", "cli.py", "__main__.py",
+        "utils/world_wms.py")} <= rel
     bad = {(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -145,3 +154,19 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_geoid_grid_is_shipped_and_identical():
+    """The port reads its own copy of the EGM96 grid: the same bytes as the
+    JAX package's, listed in the package data."""
+    from gisnav_tpu_torch.geometry import geoid
+
+    with open(geoid.EMBEDDED_GRID_PATH, "rb") as f:
+        ours = f.read()
+    with open(os.path.join(ROOT, "gisnav_tpu", "data", "egm96_grid.npz"),
+              "rb") as f:
+        assert ours == f.read()
+    assert os.path.relpath(geoid.EMBEDDED_GRID_PATH, ROOT) == os.path.join(
+        "gisnav_tpu_torch", "data", "egm96_grid.npz")
+    with open(os.path.join(ROOT, "pyproject.toml")) as f:
+        assert '"gisnav_tpu_torch" = ["data/*.npz"]' in f.read()
