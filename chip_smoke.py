@@ -7,6 +7,7 @@
     python3 chip_smoke.py --seed-spread   # cached-mode fix over RANSAC seeds
     python3 chip_smoke.py --digest   # sha256 of kernel outputs, seeded inputs
     python3 chip_smoke.py --graph    # build + path 8 (the node graph) only
+    python3 chip_smoke.py --train    # build + gradients + path 9 (training)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -69,7 +70,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fixes, the median of the last 5 within 10 m; the handlers' p50 / p90,
    the frame-to-fix latency, one UKF ``submit`` and ``state_at``, and
    ``cv2`` and ``requests`` must not have been imported;
-12. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+12. path 9: training on the card. The kernel phase first holds the
+   gradient of every kernel the JAX package differentiates against
+   autograd of its plain version (K5's Function at the training shapes,
+   8 pairs at 256/512 both ways, its pair axis bit-equal to single calls;
+   K1, K2, K4 at one path-4 shape each) and times K5's forward + backward
+   against SDPA's. Then (a) ``train`` at the CLI defaults from random init,
+   100 steps in chunks of 10, every chunk's loss finite, exactly 24 K5
+   launches a step and no other kernel; one step on the card against the
+   CPU's from the same params and batch; 8 steps on one fixed batch lower
+   its loss; a checkpoint round trip bit-equal; steps/s, step p50 / p90,
+   the step's phases and idle share; (b) ``python -m gisnav_tpu_torch
+   train --init-weights harris_lg5 --regime cached --out``: 20
+   cached-regime steps at lr 5e-5, the written bundle loaded back as
+   ``run --weights`` loads it and flown on path 4's scene and 8 yaws,
+   every fix within 10 m, 40 K5 launches a step; (c) ``python -m
+   gisnav_tpu_torch train --model loftr``, 20 steps, loss finite, no
+   kernel launch;
+13. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone).
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
@@ -90,6 +108,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -187,17 +206,48 @@ GRAPH_FRAME = {"stem_stage": 1, "conv_stage": 8, "nms_select": 1,
 GRAPH_REFRESH = {"stem_stage": 2, "conv_stage": 16, "nms_select": 2,
                  "fused_block": 36}
 GRAPH_CLI_FIXES, GRAPH_CLI_DEADLINE_S = 8, 60.0
+# path 9: ``train`` at its CLI defaults (TrainConfig: 128x160, 256
+# keypoints, LightGlue-3, batch 8) from random init, in chunks of 10 steps;
+# the bundle fine-tune (harris_lg5, cached regime, lr 5e-5); LoFTR training
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_DEPTH = 100, 8, 3
+FINETUNE_STEPS, LOFTR_STEPS = 20, 20
+# K5 a step: self and cross attention both ways, 4 calls a layer, 2 launches
+# a call, all pairs in one call
+TRAIN_K5_STEP = 4 * TRAIN_DEPTH * 2
+FINETUNE_K5_STEP = 4 * 5 * 2  # LightGlue-5, 256 query / 512 map keypoints
+K5_TRAIN_SHAPES = [(256, 256), (256, 512), (512, 256), (512, 512)]
+TRAIN_DEVICE = "cuda"  # path 9's device; a CPU rehearsal sets "cpu"
 # measured beside the contract's keys: device time (``device_ms``), the
 # wrapper's host time (``host_ms``), K4's two launches apart, the library's
 # device time, the whole 3-shear rotation, and K1-K4's launches on paths 4
 # and 8
 EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "library_device_ms", "rotation_ms", "rotation_device_ms",
-              "path4_launches", "path6_launches", "path8_launches")
+              "path4_launches", "path6_launches", "path8_launches",
+              "path9_launches", "backward_ms", "library_backward_ms",
+              "step_backward_device_ms", "grad_max_rel_err",
+              "grad_cpu_rel_err", "fwd_bwd_device_ms",
+              "library_fwd_bwd_device_ms")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _on_device(e) -> bool:
+    """A profiler row of device work (a kernel, a copy): the device span of
+    a ``record_function`` range (the optimizer's step, a label) is no
+    work, and it would count its kernels twice."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation)
+
+
+def _kernel_us(e) -> float:
+    """Device time (us) of the kernels that a CPU-side profiler event and
+    the operations under it launched, its own range's device span left
+    out."""
+    return (sum(k.duration for k in e.kernels if k.name != e.name)
+            + sum(_kernel_us(c) for c in e.cpu_children))
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
@@ -229,21 +279,24 @@ def device_ms(fn, calls: int = 20) -> float:
     microseconds is the larger part: 20 calls of the K6 wrapper between two
     events take the same 0.0325 ms a call whichever kernel they run. Every
     ``fn`` launches a kernel, so a trace that caught none is a fault of the
-    meter and raises."""
+    meter: it is taken again (one trace of K6 in one run of PR 9 caught
+    nothing), and three empty traces raise."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not total_us > 0:
-        raise RuntimeError("torch.profiler caught no kernel of a call that "
-                           "launches one")
-    return total_us / calls / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if _on_device(e))
+        if total_us > 0:
+            return total_us / calls / 1e3
+        log(f"[time] torch.profiler caught no kernel (trace {attempt + 1})")
+    raise RuntimeError("torch.profiler caught no kernel of a call that "
+                       "launches one, three times")
 
 
 def host_ms(fn, calls: int = 100, reps: int = 5) -> float:
@@ -845,6 +898,574 @@ def check_block(gen, quick, results):
     results.append(entry)
 
 
+def _grad_check(name, fn, plain, inputs, g, tol, fwd_tol, cpu_tol=None):
+    """The kernel's Function ``fn`` against ``plain`` on the same inputs and
+    cotangent: the forward within ``fwd_tol`` of the plain output's largest
+    |value|, and each input's gradient against autograd of ``plain``, the
+    largest |difference| within ``tol`` of that gradient's largest |value|.
+    With ``cpu_tol``, each gradient also against autograd of ``plain`` on
+    the CPU, on copies of the same inputs: the norm of the difference within
+    ``cpu_tol`` of the CPU gradient's norm. Returns (max relative gradient
+    error against the card's plain version, the same against the CPU's or
+    None, forward output)."""
+    a = [t.detach().clone().requires_grad_() for t in inputs]
+    b = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*a)
+    out.backward(g.to(out.dtype))
+    ref = plain(*b)
+    ref.backward(g.to(ref.dtype))
+    fwd = float((out.float() - ref.float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-30)
+    if not (fwd <= fwd_tol) or not torch.isfinite(out).all():
+        raise RuntimeError(f"{name}: forward disagrees ({fwd:.3g} of the "
+                           f"largest |output|, tolerance {fwd_tol:g})")
+    worst = 0.0
+    for x, y in zip(a, b):
+        scale = max(float(y.grad.float().abs().max()), 1e-30)
+        worst = max(worst, float((x.grad.float() - y.grad.float()).abs()
+                                 .max()) / scale)
+    log(f"[grad] {name}: forward {fwd:.3g} of max |output| (tolerance "
+        f"{fwd_tol:g}); max |grad - plain autograd| / max |grad| = "
+        f"{worst:.3g} (tolerance {tol:g})")
+    if not (worst <= tol) or not all(torch.isfinite(x.grad).all()
+                                     for x in a):
+        raise RuntimeError(f"{name}: gradient disagrees")
+    worst_cpu = None
+    if cpu_tol is not None:
+        c = [t.detach().cpu().clone().requires_grad_() for t in inputs]
+        ref = plain(*c)
+        ref.backward(g.cpu().to(ref.dtype))
+        worst_cpu = max(
+            float(torch.linalg.vector_norm(x.grad.cpu().float()
+                                           - y.grad.float()))
+            / max(float(torch.linalg.vector_norm(y.grad.float())), 1e-30)
+            for x, y in zip(a, c))
+        log(f"[grad] {name}: |grad - CPU plain autograd| / |CPU grad| = "
+            f"{worst_cpu:.3g} (tolerance {cpu_tol:g})")
+        if not (worst_cpu <= cpu_tol):
+            raise RuntimeError(f"{name}: gradient disagrees with the CPU's")
+    return worst, worst_cpu, out.detach()
+
+
+def _fwd_bwd_ms(fn, inputs, g) -> tuple:
+    """CUDA-event times of the forward and of forward + backward."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+
+    def fwd():
+        return fn(*leaves)
+
+    def both():
+        fwd().backward(g)
+    return time_ms(fwd), time_ms(both)
+
+
+def check_gradients(gen, quick, results) -> dict:
+    """The gradient of every kernel the JAX package differentiates, on the
+    card: K5's Function (the kernel forward, the analytic backward) at the
+    training shapes with the pair axis, the pair axis bit-equal to single
+    calls, and K1, K2, K4 (backward through the plain version) at one path
+    shape each; and, unless ``quick``, the forward + backward times."""
+    import torch.nn.functional as F
+
+    from gisnav_tpu_torch.features.conv import (
+        conv_stage,
+        conv_stage_plain,
+        stem_stage,
+        stem_stage_plain,
+    )
+    from gisnav_tpu_torch.matching.attention import (
+        MaskedAttention,
+        masked_attention,
+        masked_attention_plain,
+    )
+    from gisnav_tpu_torch.matching.lightglue_fused import (
+        fused_block,
+        fused_block_plain,
+    )
+
+    bf16 = torch.bfloat16
+    out: dict = {}
+    # K5. tolerance: the forward as check_attention (1e-2 of the largest
+    # |output|); 3e-2 of the largest |gradient|. The analytic backward
+    # recomputes the weights in f32 from the unrounded q and k (as the JAX
+    # package's does), the plain version's autograd from the bf16-rounded
+    # ones through the bf16-rounded probabilities: ~1 % apart on the CPU
+    b, heads, d = TRAIN_BATCH, 4, 64
+    worst = 0.0
+    for kq, kk in K5_TRAIN_SHAPES:
+        for cross in (False, True):
+            # the self block's q and k are f32 after the rotary encoding,
+            # the cross block's bf16; v is bf16 in both
+            qk_dtype = bf16 if cross else torch.float32
+            q = _rand(gen, (b, kq, heads, d), 1.0, qk_dtype)
+            k = _rand(gen, (b, kk, heads, d), 1.0, qk_dtype)
+            v = _rand(gen, (b, kk, heads, d), 1.0, bf16)
+            mask = torch.rand((b, kk), generator=gen, device="cuda") > 1 / 3
+            g = _rand(gen, (b, kq, heads, d))
+            e, _, o = _grad_check(
+                f"masked_attention B={b} Kq={kq} Kk={kk} "
+                f"{'cross' if cross else 'self'}",
+                lambda q_, k_, v_: MaskedAttention.apply(q_, k_, v_, mask),
+                lambda q_, k_, v_: masked_attention_plain(q_, k_, v_, mask),
+                (q, k, v), g, 3e-2, 1e-2)
+            worst = max(worst, e)
+            single = torch.stack([masked_attention(q[i], k[i], v[i], mask[i])
+                                  for i in range(b)])
+            if not torch.equal(single, o):
+                raise RuntimeError(f"masked_attention pair axis Kq={kq} "
+                                   f"Kk={kk}: not bit-equal to {b} calls")
+    log(f"[grad] masked_attention pair axis: bit-equal to {b} single calls "
+        f"at {len(K5_TRAIN_SHAPES) * 2} shapes")
+    out["masked_attention"] = {"grad_max_rel_err": worst}
+    if not quick:
+        # one call of the step (B = 8 pairs, 256 x 256, the self block's
+        # dtypes) forward + backward, against SDPA on bf16 with the same
+        # additive bias, forward + backward
+        q = _rand(gen, (b, 256, heads, d))
+        k = _rand(gen, (b, 256, heads, d))
+        v = _rand(gen, (b, 256, heads, d), 1.0, bf16)
+        mask = torch.rand((b, 256), generator=gen, device="cuda") > 1 / 3
+        g = _rand(gen, (b, 256, heads, d))
+        fwd, both = _fwd_bwd_ms(
+            lambda q_, k_, v_: MaskedAttention.apply(q_, k_, v_, mask),
+            (q, k, v), g)
+        bias = torch.where(mask, 0.0, -1e9).to(bf16)[:, None, None, :]
+        lib_fwd, lib_both = _fwd_bwd_ms(
+            lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=bias),
+            tuple(t.to(bf16).transpose(1, 2) for t in (q, k, v)),
+            g.to(bf16).transpose(1, 2))
+        out["masked_attention"].update(
+            backward_ms=both - fwd, library_backward_ms=lib_both - lib_fwd)
+        # device time (torch.profiler) of forward + backward, both sides
+        for key, f, ins, gg in (
+                ("fwd_bwd_device_ms",
+                 lambda q_, k_, v_: MaskedAttention.apply(q_, k_, v_, mask),
+                 (q, k, v), g),
+                ("library_fwd_bwd_device_ms",
+                 lambda q_, k_, v_: F.scaled_dot_product_attention(
+                     q_, k_, v_, attn_mask=bias),
+                 tuple(t.to(bf16).transpose(1, 2) for t in (q, k, v)),
+                 g.to(bf16).transpose(1, 2))):
+            leaves = [t.detach().clone().requires_grad_() for t in ins]
+            out["masked_attention"][key] = device_ms(
+                lambda f=f, leaves=leaves, gg=gg: f(*leaves).backward(gg))
+        log("[time] masked_attention B={} 256x256 forward+backward device "
+            "{fwd_bwd_device_ms:.4f} ms, SDPA {library_fwd_bwd_device_ms:.4f}"
+            " ms".format(b, **out["masked_attention"]))
+        log(f"[time] masked_attention B={b} 256x256: forward {fwd:.4f} ms, "
+            f"forward+backward {both:.4f} ms; SDPA forward {lib_fwd:.4f} "
+            f"ms, forward+backward {lib_both:.4f} ms")
+
+    # K1, K2, K4: the backward is the plain version's vjp, so the Function
+    # and autograd of the plain version run the same operations; cuDNN may
+    # pick other algorithms for the two, and a bf16 gradient can then round
+    # one ulp (2^-8) apart (tolerance 1e-2 of the largest |gradient|); the
+    # forwards, bf16 (K1, K2) or with bf16 rounding points (K4), within
+    # 2e-2 of the largest |output| (a sum in another order rounds one ulp).
+    # The card's gradient also against the CPU's autograd of the plain
+    # version (the arithmetic the CPU tests hold against the JAX package's
+    # gradient): 2e-2 of the gradient's norm, as a value that rounds one bf16
+    # ulp apart before a relu or a pool can move a whole element's gradient
+    w1a, b1a = _conv_weights(gen, 1, 64)
+    w1b, b1b = _conv_weights(gen, 64, 64)
+    w2a, b2a = _conv_weights(gen, 64, 64)
+    w2b, b2b = _conv_weights(gen, 64, 64)
+    img = torch.rand((480, 640), generator=gen, device="cuda")
+    x2 = torch.relu(_rand(gen, (240, 320, 64))).to(bf16)
+    xb, qb, kb, vb, biasb, wb = _block_inputs(gen, 1024, 1024, 2)
+    cases = {
+        "stem_stage": (lambda *a: stem_stage(*a, pool=True),
+                       lambda *a: stem_stage_plain(*a, pool=True),
+                       (img, w1a, b1a, w1b, b1b), (240, 320, 64)),
+        "conv_stage": (lambda *a: conv_stage(*a, pool=True),
+                       lambda *a: conv_stage_plain(*a, pool=True),
+                       (x2, w2a, b2a, w2b, b2b), (120, 160, 64)),
+        "fused_block": (lambda *a: fused_block(*a, heads=4, sets=2),
+                        lambda *a: fused_block_plain(*a, heads=4, sets=2),
+                        (xb, qb, kb, vb, biasb, *wb), (1024, 256)),
+    }
+    for name, (fn, plain, inputs, oshape) in cases.items():
+        g = _rand(gen, oshape)
+        e, e_cpu, _ = _grad_check(f"{name} (path 4 shape)", fn, plain,
+                                  inputs, g, 1e-2, 2e-2, cpu_tol=2e-2)
+        out[name] = {"grad_max_rel_err": e, "grad_cpu_rel_err": e_cpu}
+        if not quick:
+            fwd, both = _fwd_bwd_ms(fn, inputs, g)
+            out[name]["backward_ms"] = both - fwd
+            log(f"[time] {name}: forward {fwd:.4f} ms, forward+backward "
+                f"{both:.4f} ms")
+    for r in results:
+        r.update(out.get(r["name"], {}))
+    return out
+
+
+class _TrainLog(logging.Handler):
+    """Collects the training loop's chunk records with their host time."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.rows: list = []
+
+    def emit(self, record):
+        self.rows.append((time.perf_counter(), record.args))
+
+
+def _train_logged(fn):
+    """Run ``fn()`` with the loop's chunk records captured: (result, rows
+    of (seconds since the start, step, loss, metric))."""
+    logger = logging.getLogger("gisnav_tpu_torch.train")
+    handler = _TrainLog()
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        result = fn()
+    finally:
+        logger.removeHandler(handler)
+    rows = [(t - t0, a[0], float(a[1]), float(a[3])) for t, a in handler.rows]
+    bad = [r for r in rows if not np.isfinite(r[2])]
+    if not rows or bad:
+        raise RuntimeError(f"training: no chunk logged or a loss not "
+                           f"finite: {rows}")
+    return result, rows
+
+
+def _train_step_split(state, step_fn, batch, steps: int = 5) -> dict:
+    """Host-clock medians of one step's synchronised phases (forward and
+    loss, backward, optimizer) on one batch; the state's params move on, as
+    training does."""
+    loss_fn = step_fn.loss_fn
+    opt = state.opt_state
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(state.params, *batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def _train_chunk_profile(config, params, chunks: int = 2,
+                         traced: int = 1) -> dict:
+    """``train()``'s own chunk (``make_device_train_chunk`` with the
+    device generator, the curriculum at the step the run reached), from
+    ``params`` with a fresh optimizer: the host-clock time of ``chunks``
+    synchronised chunks, then ``traced`` more profiled (torch.profiler):
+    the device's busy time, and the device time of the pair generation
+    (``device_batch``) and of K5's backward (``MaskedAttentionBackward``),
+    each with every kernel under it, a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gisnav_tpu_torch.train.loop import CHUNK
+    from gisnav_tpu_torch.train.steps import (
+        AdamW,
+        TrainState,
+        make_device_train_chunk,
+    )
+
+    from gisnav_tpu_torch.train import device_data
+
+    tx = AdamW(config.learning_rate, weight_decay=config.weight_decay)
+    state = TrainState(params, tx.init(params), torch.tensor(
+        TRAIN_STEPS, dtype=torch.int64, device=TRAIN_DEVICE))
+    make_pairs = device_data.device_batch
+
+    def labelled_pairs(*args, **kw):  # the trace's span of pair generation
+        with torch.profiler.record_function("device_batch"):
+            return make_pairs(*args, **kw)
+
+    device_data.device_batch = labelled_pairs
+    try:
+        chunk_fn = make_device_train_chunk(config, tx, TRAIN_BATCH,
+                                           chunk=CHUNK)
+    finally:
+        device_data.device_batch = make_pairs
+    gen = torch.Generator(device=TRAIN_DEVICE)
+    gen.manual_seed(TRAIN_STEPS)
+    state, m = chunk_fn(state, gen)  # warm: the fresh optimizer's state
+    float(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        state, m = chunk_fn(state, gen)
+        float(m["loss"])  # the host's one read a chunk, as train() reads
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (chunks * CHUNK)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(traced):
+            state, m = chunk_fn(state, gen)
+            float(m["loss"])
+        torch.cuda.synchronize()
+    steps = traced * CHUNK
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if _on_device(e))
+    k5_bwd = [e for e in prof.events() if e.name == "MaskedAttentionBackward"]
+    if len(k5_bwd) != 4 * TRAIN_DEPTH * steps:
+        raise RuntimeError(f"train profile: {len(k5_bwd)} K5 backward "
+                           f"calls in {steps} steps, expected "
+                           f"{4 * TRAIN_DEPTH * steps}")
+    pairs = [e for e in prof.events() if e.name == "device_batch"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    out = {"chunk_step_ms": step_ms, "device_busy_ms": busy / steps / 1e3,
+           "k5_backward_device_ms": sum(_kernel_us(e) for e in k5_bwd)
+           / steps / 1e3,
+           "pairs_device_ms": sum(_kernel_us(e) for e in pairs) / steps
+           / 1e3}
+    if not out["k5_backward_device_ms"] > 0:
+        raise RuntimeError("train profile: no device time under K5's "
+                           "backward")
+    out["device_idle_share"] = 1.0 - out["device_busy_ms"] / step_ms
+    log("[train] train()'s chunk: {chunk_step_ms:.3f} ms a step, device "
+        "busy {device_busy_ms:.3f} ms (idle {device_idle_share:.3f}), of it "
+        "pair generation {pairs_device_ms:.3f} ms and K5's backward "
+        "{k5_backward_device_ms:.3f} ms a step".format(**out))
+    return out
+
+
+def _named_leaves(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _named_leaves(tree[key], f"{prefix}/{key}")
+                .items()}
+    return {prefix: tree}
+
+
+def _card_vs_cpu_step(config, params) -> dict:
+    """One step's loss, gt_recall and every parameter's gradient on the
+    card and on the CPU, from ``params`` and one host batch at the config's
+    shape; each gradient's difference as the norm of card minus CPU over
+    the CPU's norm, a leaf and overall."""
+    from gisnav_tpu_torch.train.data import make_homography_batch
+    from gisnav_tpu_torch.train.steps import AdamW, _map_tree, make_train_step
+
+    batch = make_homography_batch(np.random.default_rng(0), TRAIN_BATCH,
+                                  config.image_shape)
+    loss_fn = make_train_step(config, AdamW(config.learning_rate)).loss_fn
+    metrics, leaves = {}, {}
+    for dev in (TRAIN_DEVICE, "cpu"):
+        tree = _map_tree(
+            lambda t: t.detach().to(dev).clone().requires_grad_(), params)
+        loss, recall = loss_fn(tree, *(torch.as_tensor(a, device=dev)
+                                       for a in batch))
+        loss.backward()
+        metrics[dev] = {"loss": loss.item(), "gt_recall": recall.item()}
+        leaves[dev] = {k: v.grad.cpu().double() for k, v in
+                       _named_leaves(tree).items() if v.grad is not None}
+    card, cpu = leaves[TRAIN_DEVICE], leaves["cpu"]
+    errs = {k: float(torch.linalg.vector_norm(card[k] - g)
+                     / (torch.linalg.vector_norm(g) + 1e-12))
+            for k, g in cpu.items()}
+    worst = max(errs, key=errs.get)
+    overall = torch.sqrt(sum(torch.linalg.vector_norm(card[k] - g) ** 2
+                             for k, g in cpu.items())
+                         / sum(torch.linalg.vector_norm(g) ** 2
+                               for g in cpu.values()))
+    return {"metrics": metrics, "worst_leaf": worst,
+            "worst_leaf_rel_err": errs[worst],
+            "overall_rel_err": float(overall)}
+
+
+def train_cli_defaults() -> dict:
+    """Path 9 (a): ``train`` at the CLI defaults from random init."""
+    import tempfile
+
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.train import checkpoint
+    from gisnav_tpu_torch.train.data import make_homography_batch
+    from gisnav_tpu_torch.train.loop import CHUNK, train
+    from gisnav_tpu_torch.train.steps import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+        tree_leaves,
+    )
+
+    config = TrainConfig()
+    if config.lightglue_depth != TRAIN_DEPTH:
+        raise RuntimeError("TrainConfig's depth moved: update TRAIN_DEPTH")
+    reset_launches()
+    params, rows = _train_logged(lambda: train(
+        steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, config=config,
+        device=TRAIN_DEVICE))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    expect_launches("train", launches,
+                    {"masked_attention": TRAIN_K5_STEP * TRAIN_STEPS})
+    ends = [0.0] + [r[0] for r in rows]
+    per_step = [(b - a) * 1e3 / CHUNK for a, b in zip(ends, ends[1:])]
+    per_step = per_step[1:] or per_step  # the first chunk warms up
+    out = {"steps": rows[-1][1], "steps_per_s": rows[-1][1] / rows[-1][0],
+           "first_chunk_s": rows[0][0],
+           "step_p50_ms": float(np.percentile(per_step, 50)),
+           "step_p90_ms": float(np.percentile(per_step, 90)),
+           "loss_first_chunk": rows[0][2], "loss_last_chunk": rows[-1][2],
+           "gt_recall_last_chunk": rows[-1][3], "launches": launches}
+    log(f"[train] {TRAIN_STEPS} steps: " + ", ".join(
+        f"step {s} loss {lo:.4f} gt_recall {r:.3f}" for _, s, lo, r in rows))
+
+    # one step on the card and on the CPU from the params the run left (a
+    # trained matcher, far from random init's near-uniform scores) and one
+    # host batch: loss within 2e-3 relative and gt_recall within 0.03 (the
+    # card's cuDNN convs and the CPU's round sums in other orders; the
+    # learned detector's soft-argmax positions read those logits at
+    # temperature 0.1, so keypoints move and a mutual argmax may flip).
+    # Its gradients are printed, not held: the moved keypoints move them
+    learned = _card_vs_cpu_step(config, params)
+    card, cpu = learned["metrics"][TRAIN_DEVICE], learned["metrics"]["cpu"]
+    log("[train] one step from the trained params, card {} CPU {}; gradient "
+        "(not held): worst leaf {worst_leaf} {worst_leaf_rel_err:.4f} of its "
+        "norm, overall {overall_rel_err:.4f}".format(card, cpu, **learned))
+    if not (abs(card["loss"] - cpu["loss"]) <= 2e-3 * abs(cpu["loss"])
+            and abs(card["gt_recall"] - cpu["gt_recall"]) <= 0.03):
+        raise RuntimeError("train: the card's step disagrees with the CPU's")
+    if not cpu["gt_recall"] >= 0.3:
+        raise RuntimeError(f"train: gt_recall {cpu['gt_recall']:.3f} after "
+                           f"{TRAIN_STEPS} steps; the card-vs-CPU check "
+                           f"needs a trained matcher")
+    # every parameter's gradient of one step, card against CPU, where the
+    # keypoints are the Harris detector's (the harris_lg5 bundle at the
+    # CLI's shapes). Tolerance: each leaf within 5 % of its norm,
+    # as tests/test_torch_train_steps.py holds the CPU step against the
+    # JAX package's (bf16 convs and casts round sums in other orders); the
+    # loss and gt_recall as above
+    from gisnav_tpu_torch.train.steps import master_params
+    from gisnav_tpu_torch.weights import load_bundled
+
+    harris = _card_vs_cpu_step(
+        dataclasses.replace(config, detector_mode="harris",
+                            lightglue_depth=5),
+        master_params(load_bundled("harris_lg5")[0], "cpu"))
+    log("[train] one step of harris_lg5, card {} CPU {}; gradient: worst "
+        "leaf {worst_leaf} {worst_leaf_rel_err:.4f} of its norm, overall "
+        "{overall_rel_err:.4f}".format(harris["metrics"][TRAIN_DEVICE],
+                                       harris["metrics"]["cpu"], **harris))
+    card, cpu = harris["metrics"][TRAIN_DEVICE], harris["metrics"]["cpu"]
+    if not (harris["worst_leaf_rel_err"] <= 0.05
+            and abs(card["loss"] - cpu["loss"]) <= 2e-3 * abs(cpu["loss"])
+            and abs(card["gt_recall"] - cpu["gt_recall"]) <= 0.03):
+        raise RuntimeError("train: the card's harris_lg5 step disagrees "
+                           "with the CPU's")
+    out["card_vs_cpu"] = {"learned": learned, "harris_lg5": harris}
+    out.update(_train_chunk_profile(config, params))
+
+    # 8 steps on one fixed batch lower its loss (the JAX package's gate)
+    batch = make_homography_batch(np.random.default_rng(0), TRAIN_BATCH,
+                                  config.image_shape)
+    state, tx = init_train_state(torch.Generator().manual_seed(1), config,
+                                 TRAIN_DEVICE)
+    step_fn = make_train_step(config, tx)
+    dbatch = tuple(torch.as_tensor(a, device=TRAIN_DEVICE) for a in batch)
+    losses = []
+    for _ in range(8):
+        state, m = step_fn(state, *dbatch)
+        losses.append(float(m["loss"]))
+    log(f"[train] fixed batch, 8 steps: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("train: 8 steps on a fixed batch did not lower "
+                           "its loss")
+    out["fixed_batch_losses"] = losses
+    out["fixed_batch_phases"] = _train_step_split(state, step_fn, dbatch)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_params(tmp, TRAIN_STEPS, params)
+        back = checkpoint.load_params(tmp, like=params)
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                 tree_leaves(back))):
+        raise RuntimeError("train: checkpoint restore is not bit-equal")
+    out["checkpoint_bit_equal"] = True
+    return out
+
+
+def train_finetune_bundle() -> dict:
+    """Path 9 (b): ``python -m gisnav_tpu_torch train --init-weights
+    harris_lg5 --regime cached ... --out``, the written bundle loaded as
+    ``run --weights`` loads it and flown on path 4's scene."""
+    import tempfile
+
+    from gisnav_tpu_torch.cli import main as cli_main
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.runners import make_cached_deep_runner
+    from gisnav_tpu_torch.utils.world import render_scene
+    from gisnav_tpu_torch.weights import infer_config_from_params, load_npz
+
+    # tools/finetune_bundle.py's cached regime (the bundle's depth and
+    # detector, lr 5e-5, seed 7) at full difficulty from the first step:
+    # the bundle is converged on the full task, and the tool's 600-step
+    # ramp spends these 20 steps near +-30 deg, after 10 of which the JAX
+    # package's own trainer, as the port's, leaves a yaw of path 4's scene
+    # invalid or over 10 m off (tools/finetune_ramp_jax.py and
+    # tools/finetune_ramp_check.py)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/tuned_harris_lg5.npz"
+        reset_launches()
+        rc, rows = _train_logged(lambda: cli_main(
+            ["train", "--init-weights", "harris_lg5", "--regime", "cached",
+             "--lr", "5e-5", "--curriculum", "0", "--seed", "7",
+             "--steps", str(FINETUNE_STEPS), "--batch", str(TRAIN_BATCH),
+             "--out", path]))
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"train --init-weights exited {rc}")
+        launches = dict(LAUNCHES)
+        expect_launches("finetune", launches, {
+            "masked_attention": FINETUNE_K5_STEP * FINETUNE_STEPS})
+        wparams = load_npz(path)
+    out = {"launches": launches, "steps_per_s": rows[-1][1] / rows[-1][0],
+           "losses": [r[2] for r in rows], "gt_recall": [r[3] for r in rows]}
+    runner = make_cached_deep_runner(
+        wparams, infer_config_from_params(wparams), device=TRAIN_DEVICE)
+    scene = render_scene(**HARRIS_SCENE)
+    out["fix_errors_m"] = [fly(runner, scene, i, f"[finetune] frame {i}")[1]
+                           for i in range(len(HARRIS_YAWS))]
+    log("[train finetune] " + json.dumps(out))
+    return out
+
+
+def train_loftr_cli() -> dict:
+    """Path 9 (c): ``python -m gisnav_tpu_torch train --model loftr`` at
+    its defaults, no kernel of the port launching."""
+    from gisnav_tpu_torch.cli import main as cli_main
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    rc, rows = _train_logged(lambda: cli_main(
+        ["train", "--model", "loftr", "--steps", str(LOFTR_STEPS)]))
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"train --model loftr exited {rc}")
+    expect_launches("train loftr", dict(LAUNCHES), {})
+    out = {"steps_per_s": rows[-1][1] / rows[-1][0],
+           "losses": [r[2] for r in rows], "coarse_acc": rows[-1][3]}
+    log("[train loftr] " + json.dumps(out))
+    return out
+
+
+def phase_train_path() -> dict:
+    """Path 9: training on the card, (a) ``train`` at the CLI defaults, (b)
+    the bundle fine-tune served by the cached runner, (c) LoFTR training."""
+    t0 = time.time()
+    out = {"cli": train_cli_defaults()}
+    log("[train cli] " + json.dumps(out["cli"]))
+    log(f"[train] (a) done in {time.time() - t0:.1f} s")
+    out["finetune"] = train_finetune_bundle()
+    log(f"[train] (b) done in {time.time() - t0:.1f} s")
+    out["loftr"] = train_loftr_cli()
+    log(f"[train] (c) done in {time.time() - t0:.1f} s")
+    return out
+
+
 def profile_frames(run_frame, frames, n: int = 10) -> float:
     """Device time by kernel over ``n`` frames (torch.profiler);
     returns the device's busy ms per frame."""
@@ -864,8 +1485,7 @@ def profile_frames(run_frame, frames, n: int = 10) -> float:
     events = prof.key_averages()
     # device-side rows only (kernels and copies), so no time counts twice
     dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
+           if _on_device(e) and e.self_device_time_total > 0]
     busy = sum(d for _, d, _ in dev) / n
     log(f"[profile] device busy {busy:.3f} ms/frame over {n} frames; "
         f"the profiled wall ({wall_ms / n:.1f} ms/frame) carries the "
@@ -1934,6 +2554,9 @@ def main(argv=None) -> int:
                          "kernels' and shear's outputs on seeded inputs")
     ap.add_argument("--graph", action="store_true",
                     help="only drive path 8, the node graph")
+    ap.add_argument("--train", action="store_true",
+                    help="only check the gradients and drive path 9, "
+                         "training")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -1953,6 +2576,12 @@ def main(argv=None) -> int:
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if args.train:
+        check_gradients(gen, False, [])
+        log(f"[phase] gradients done at {time.time() - t_start:.1f} s")
+        phase_train_path()
+        log(f"[phase] path 9 done at {time.time() - t_start:.1f} s")
+        return 0
     results: list = []
     check_conv(gen, args.quick, results)
     check_nms(gen, args.quick, results)
@@ -1960,6 +2589,7 @@ def main(argv=None) -> int:
     check_attention(gen, args.quick, results)
     check_shear(gen, args.quick, results, ab=args.kernels)
     check_cellmax(gen, args.quick, results)
+    check_gradients(gen, args.quick, results)
     torch.cuda.synchronize()
     log(json.dumps({"kernels_checked": [r["name"] for r in results]}))
     if args.quick:
@@ -1990,6 +2620,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 7 done at {time.time() - t_start:.1f} s")
     graph = phase_graph_path(args.profile)
     log(f"[phase] path 8 done at {time.time() - t_start:.1f} s")
+    training = phase_train_path()
+    log(f"[phase] path 9 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -2008,6 +2640,12 @@ def main(argv=None) -> int:
             r["path8_launches"] = graph["flight"]["launches"][r["name"]]
         if r["name"] in ("shear_last_axis", "shear_first_axis"):
             r["path6_launches"] = classical["launches"][r["name"]]
+        if r["name"] == "masked_attention":
+            r["path9_launches"] = (
+                training["cli"]["launches"][r["name"]]
+                + training["finetune"]["launches"][r["name"]])
+            r["step_backward_device_ms"] = training["cli"][
+                "k5_backward_device_ms"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     smi = subprocess.run(

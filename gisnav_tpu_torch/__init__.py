@@ -5,8 +5,9 @@ imports). Layout mirrors the JAX package: ``features/`` (SuperPoint, NMS,
 SIFT), ``matching/`` (LightGlue, LoFTR, MNN), ``raster/`` (warp), ``pnp/``
 (DEM lift, RANSAC), ``geometry/``, ``pipeline/`` (geopose programs and
 runners), ``fusion/`` (EKF, UKF), ``io/`` (mock-GPS encoders), ``gis/``
-(WMS, PNG), ``nodes/`` (the node graph), ``cli.py`` (``run``) and
-``kernels/`` (the hand-written CUDA kernels, built at first use).
+(WMS, PNG), ``nodes/`` (the node graph), ``train/`` (self-supervised
+training), ``cli.py`` (``run``, ``train``) and ``kernels/`` (the
+hand-written CUDA kernels, built at first use).
 """
 from gisnav_tpu_torch.device import resolve_device  # noqa: F401
 

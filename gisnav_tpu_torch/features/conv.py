@@ -11,7 +11,9 @@ Weights come in the layout the kernels take (``weights.params_from_jax``):
 as f32. A CPU tensor runs the plain PyTorch version; a CUDA tensor launches
 the kernel of ``kernels/conv.cu`` or raises: one launch a conv of a stage,
 and one for the whole stem (conv1a is computed inside conv1b's halo patch, so
-its (H, W, 64) output never reaches device memory).
+its (H, W, 64) output never reaches device memory). Both entries are
+``torch.autograd.Function``s whose backward recomputes through the plain
+version, as the JAX package's ``custom_vjp``s do through the XLA mirror.
 """
 from __future__ import annotations
 
@@ -133,11 +135,7 @@ def _stem_cuda(img: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
     return out
 
 
-def conv_stage(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-               w2: Optional[torch.Tensor] = None,
-               b2: Optional[torch.Tensor] = None, *,
-               pool: bool = False) -> torch.Tensor:
-    """(H, W, Cin) bf16 -> (H[/2], W[/2], Cout) bf16."""
+def _conv_stage_route(x, w1, b1, w2, b2, pool):
     if not x.is_cuda:
         return conv_stage_plain(x, w1, b1, w2, b2, pool=pool)
     if w2 is None:
@@ -145,10 +143,64 @@ def conv_stage(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return _conv_cuda(_conv_cuda(x, w1, b1, False), w2, b2, pool)
 
 
-def stem_stage(img: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
-               w1b: torch.Tensor, b1b: torch.Tensor, *,
-               pool: bool = True) -> torch.Tensor:
-    """(H, W) f32 grayscale -> (H[/2], W[/2], 64) bf16."""
+def _stem_route(img, w1a, b1a, w1b, b1b, pool):
     if not img.is_cuda:
         return stem_stage_plain(img, w1a, b1a, w1b, b1b, pool=pool)
     return _stem_cuda(img, w1a, b1a, w1b, b1b, pool)
+
+
+def _vjp_plain(plain, saved, g, **kw):
+    """Gradients of ``plain(*saved, **kw)`` for the cotangent ``g`` cast to
+    the output's dtype (the JAX package's ``_conv_stage_bwd`` and
+    ``_stem_bwd``); ``None`` for absent inputs."""
+    present = [t for t in saved if t is not None]
+    out, vjp = torch.func.vjp(lambda *a: plain(*a, **kw), *present)
+    grads = iter(vjp(g.to(out.dtype)))
+    return tuple(None if t is None else next(grads) for t in saved)
+
+
+class _ConvStage(torch.autograd.Function):
+    """The conv stage with a gradient that recomputes through the plain
+    version, as the JAX package's ``custom_vjp`` does through its XLA
+    mirror."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, pool):
+        ctx.pool = pool
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _conv_stage_route(x, w1, b1, w2, b2, pool)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_vjp_plain(conv_stage_plain, ctx.saved_tensors, g,
+                            pool=ctx.pool), None)
+
+
+class _StemStage(torch.autograd.Function):
+    """The stem with a gradient through the plain version (``_stem_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, img, w1a, b1a, w1b, b1b, pool):
+        ctx.pool = pool
+        ctx.save_for_backward(img, w1a, b1a, w1b, b1b)
+        return _stem_route(img, w1a, b1a, w1b, b1b, pool)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_vjp_plain(stem_stage_plain, ctx.saved_tensors, g,
+                            pool=ctx.pool), None)
+
+
+def conv_stage(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: Optional[torch.Tensor] = None,
+               b2: Optional[torch.Tensor] = None, *,
+               pool: bool = False) -> torch.Tensor:
+    """(H, W, Cin) bf16 -> (H[/2], W[/2], Cout) bf16, differentiable."""
+    return _ConvStage.apply(x, w1, b1, w2, b2, pool)
+
+
+def stem_stage(img: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
+               w1b: torch.Tensor, b1b: torch.Tensor, *,
+               pool: bool = True) -> torch.Tensor:
+    """(H, W) f32 grayscale -> (H[/2], W[/2], 64) bf16, differentiable."""
+    return _StemStage.apply(img, w1a, b1a, w1b, b1b, pool)

@@ -11,7 +11,10 @@ functions here:
   kernel, over the tiles of a large raster as one batch: ``simple_nms``, the
   border mask, the cell maximum, the per-cell argmax on the NMS'd map with
   soft-argmax offsets from the raw one (or, where the cells do not fit, a
-  top-K over all pixels and ``refine_subpixel``).
+  top-K over all pixels and ``refine_subpixel``). ``select_keypoints`` with
+  ``prefer_kernel=False`` takes that route too, over a batch of whole maps:
+  it is the JAX package's training route, and gradients flow through the
+  soft-argmax offsets into the heatmap.
 """
 from __future__ import annotations
 
@@ -140,14 +143,25 @@ def select_keypoints(
     max_keypoints: int,
     score_threshold: float = 0.0005,
     border: int = 4,
+    prefer_kernel: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(H, W) heatmap -> (keypoints (K, 2) xy f32, scores (K,), valid (K,)).
 
     Heights that are not a multiple of 32 (1088 is one, 1080 is not) get the
     treatment of the JAX package's padded kernel call: rows at or below
     ``h - border`` are zeroed first, so they neither survive nor suppress.
+
+    ``prefer_kernel=False`` is the JAX package's ``prefer_pallas=False``
+    route, the one its training takes: no kernel, a (B, H, W) batch as well
+    as one map, and differentiable, since the positions carry the raw
+    heatmap's soft-argmax offsets.
     """
-    h, w = heatmap.shape
+    h, w = heatmap.shape[-2:]
+    if not prefer_kernel:
+        single = heatmap.dim() == 2
+        heat = heatmap.float()[None] if single else heatmap.float()
+        out = _select_plain(heat, max_keypoints, score_threshold, border)
+        return tuple(t[0] for t in out) if single else out
     if (h // _BLOCK) * (w // _BLOCK) < max_keypoints:
         raise ValueError(
             f"{h}x{w} has fewer 4x4 cells than max_keypoints={max_keypoints}")
@@ -172,23 +186,27 @@ def select_keypoints_tiled(
     """Spatially uniform top-K: the budget is split evenly over a ``tiles``
     grid and each tile selects on its own (tile-local NMS window and border,
     outside any kernel), so every region of a large reference raster holds its
-    share. Fewer than ``max_keypoints`` slots are padded invalid."""
+    share. Fewer than ``max_keypoints`` slots are padded invalid. Takes one
+    (H, W) map or a (B, H, W) batch, and is differentiable as the
+    kernel-less route of :func:`select_keypoints` is."""
     ty, tx = tiles
-    h, w = heatmap.shape
+    single = heatmap.dim() == 2
+    heat = heatmap.float()[None] if single else heatmap.float()
+    b, h, w = heat.shape
     th, tw = h // ty, w // tx
     k_tile = max(1, max_keypoints // (ty * tx))
-    tiled = heatmap.float().reshape(ty, th, tx, tw).permute(0, 2, 1, 3)
-    kp, sc, valid = _select_plain(tiled.reshape(ty * tx, th, tw), k_tile,
+    tiled = heat.reshape(b, ty, th, tx, tw).permute(0, 1, 3, 2, 4)
+    kp, sc, valid = _select_plain(tiled.reshape(b * ty * tx, th, tw), k_tile,
                                   score_threshold, border)
-    tids = torch.arange(ty * tx, device=heatmap.device)
+    tids = torch.arange(ty * tx, device=heat.device)
     off = torch.stack([((tids % tx) * tw).float(),
                        ((tids // tx) * th).float()], dim=1)
-    kp = kp + off[:, None, :]
+    kp = kp.reshape(b, ty * tx, k_tile, 2) + off[None, :, None, :]
     n = ty * tx * k_tile
-    kp, sc, valid = kp.reshape(n, 2), sc.reshape(n), valid.reshape(n)
+    kp, sc, valid = kp.reshape(b, n, 2), sc.reshape(b, n), valid.reshape(b, n)
     if n < max_keypoints:
         pad = max_keypoints - n
-        kp = torch.cat([kp, kp.new_zeros((pad, 2))])
-        sc = torch.cat([sc, sc.new_zeros((pad,))])
-        valid = torch.cat([valid, valid.new_zeros((pad,))])
-    return kp, sc, valid
+        kp = torch.cat([kp, kp.new_zeros((b, pad, 2))], dim=1)
+        sc = torch.cat([sc, sc.new_zeros((b, pad))], dim=1)
+        valid = torch.cat([valid, valid.new_zeros((b, pad))], dim=1)
+    return (kp[0], sc[0], valid[0]) if single else (kp, sc, valid)

@@ -8,12 +8,20 @@ learned detector is a 65-channel softmax decoded by 8x8 pixel shuffle; the
 ``harris`` detector mode takes the Harris response of the image instead and
 has no detector head. Descriptors are L2-normalised and sampled bilinearly
 at the keypoints.
+
+``superpoint_batched`` is the JAX module's ``conv_backend="xla_batched"``
+route, the one training takes: the whole (B, H, W) batch through batched
+convs (``F.conv2d`` in bf16 with ``_conv_relu_xla``'s rounding points; the
+JAX package leaves this conv to XLA, outside any kernel), the kernel-less
+keypoint selection, and f32 master weights cast to bf16 at each use, all
+differentiable, the keypoint positions included.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gisnav_tpu_torch.features.conv import conv_stage, stem_stage
@@ -23,7 +31,8 @@ from gisnav_tpu_torch.features.nms import (
     select_keypoints_tiled,
 )
 
-__all__ = ["SuperPoint", "SuperPointFeatures", "sample_descriptors"]
+__all__ = ["SuperPoint", "SuperPointFeatures", "sample_descriptors",
+           "superpoint_batched"]
 
 _TRUNK = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
           "conv4a", "conv4b", "convDa", "convDb")
@@ -44,20 +53,25 @@ def _rsqrt_normalize(v: torch.Tensor) -> torch.Tensor:
 def sample_descriptors(kpts: torch.Tensor, dmap: torch.Tensor,
                        stride: int = 8) -> torch.Tensor:
     """Bilinear sample of the (hc, wc, D) descriptor map at pixel keypoints
-    (cell centres at stride/2 - 0.5), re-normalised."""
-    hc, wc, _ = dmap.shape
-    gx = (kpts[:, 0] - stride / 2 + 0.5) / stride
-    gy = (kpts[:, 1] - stride / 2 + 0.5) / stride
+    (cell centres at stride/2 - 0.5), re-normalised; or of a batch, kpts
+    (B, K, 2) and dmap (B, hc, wc, D)."""
+    if kpts.dim() == 2:
+        return sample_descriptors(kpts[None], dmap[None], stride)[0]
+    b, hc, wc, _ = dmap.shape
+    gx = (kpts[..., 0] - stride / 2 + 0.5) / stride
+    gy = (kpts[..., 1] - stride / 2 + 0.5) / stride
     x0 = torch.floor(gx)
     y0 = torch.floor(gy)
-    fx = (gx - x0)[:, None]
-    fy = (gy - y0)[:, None]
+    fx = (gx - x0)[..., None]
+    fy = (gy - y0)[..., None]
     x0 = torch.clamp(x0.long(), 0, wc - 1)
     y0 = torch.clamp(y0.long(), 0, hc - 1)
     x1 = torch.clamp(x0 + 1, 0, wc - 1)
     y1 = torch.clamp(y0 + 1, 0, hc - 1)
-    out = (dmap[y0, x0] * (1 - fx) * (1 - fy) + dmap[y0, x1] * fx * (1 - fy)
-           + dmap[y1, x0] * (1 - fx) * fy + dmap[y1, x1] * fx * fy)
+    bi = torch.arange(b, device=dmap.device)[:, None]
+    out = (dmap[bi, y0, x0] * (1 - fx) * (1 - fy)
+           + dmap[bi, y0, x1] * fx * (1 - fy)
+           + dmap[bi, y1, x0] * (1 - fx) * fy + dmap[bi, y1, x1] * fx * fy)
     return _rsqrt_normalize(out)
 
 
@@ -133,3 +147,83 @@ class SuperPoint(nn.Module):
                 heatmap, self.max_keypoints, self.score_threshold)
         return SuperPointFeatures(kpts, scores,
                                   sample_descriptors(kpts, dmap), valid)
+
+
+# ---------------------------------------------------------------------------
+# the batched training route (xla_batched)
+# ---------------------------------------------------------------------------
+
+_BF16 = torch.bfloat16
+
+
+def _conv_relu_batched(x: torch.Tensor, w9: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """``_conv_relu_xla`` on an NCHW batch: the 3x3 SAME conv of bf16
+    operands rounded to bf16, the f32 bias added, relu, rounded to bf16.
+    ``w9`` is the port's ``(9, Cin, Cout)`` layout, in any float dtype."""
+    cin, cout = w9.shape[1], w9.shape[2]
+    wt = w9.to(_BF16).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    y = F.conv2d(x.to(_BF16), wt, padding=1)
+    return torch.relu(y.float() + b.float()[:, None, None]).to(_BF16)
+
+
+def _pool2_batched(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pool of an NCHW batch; ``amax`` splits the gradient over
+    ties as the JAX package's ``max`` reduction does."""
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h // 2, 2, w // 2, 2).amax(dim=(3, 5))
+
+
+def _head_1x1(x: torch.Tensor, node) -> torch.Tensor:
+    """A 1x1 head on bf16 activations (NCHW -> NHWC): bf16 operands, f32
+    product and bias (``einsum(..., preferred_element_type=f32) + b``)."""
+    xs = x.permute(0, 2, 3, 1).to(_BF16).float()
+    return xs @ node["weight"].to(_BF16).float().T + node["bias"].float()
+
+
+def superpoint_batched(params: Dict[str, Dict[str, torch.Tensor]],
+                       images: torch.Tensor, *, max_keypoints: int,
+                       score_threshold: float = 0.0005,
+                       detector_mode: str = "learned",
+                       select_tiles: Tuple[int, int] = (1, 1),
+                       return_logits: bool = False):
+    """SuperPoint over a (B, H, W) f32 batch on the ``xla_batched`` route.
+
+    ``params`` is the port's SuperPoint tree with f32 masters
+    (``weights.params_from_jax(..., master=True)``). Returns batched
+    :class:`SuperPointFeatures` and, with ``return_logits``, the (B, H/8,
+    W/8, 65) detector cell logits (None in ``harris`` mode)."""
+    if detector_mode not in ("learned", "harris"):
+        raise ValueError(f"unknown detector_mode {detector_mode!r}")
+    b, h, w = images.shape
+    hc, wc = h // 8, w // 8
+
+    def conv(x, name):
+        return _conv_relu_batched(x, params[name]["weight"],
+                                  params[name]["bias"])
+
+    x = conv(images[:, None].float(), "conv1a")
+    x = _pool2_batched(conv(x, "conv1b"))
+    x = _pool2_batched(conv(conv(x, "conv2a"), "conv2b"))
+    x = _pool2_batched(conv(conv(x, "conv3a"), "conv3b"))
+    x = conv(conv(x, "conv4a"), "conv4b")
+
+    logits = None
+    if detector_mode == "harris":
+        heatmap = harris_response(images.float())
+    else:
+        logits = _head_1x1(conv(x, "convPa"), params["convPb"])
+        probs = torch.softmax(logits, dim=-1)[..., :64]
+        heatmap = probs.reshape(b, hc, wc, 8, 8).permute(0, 1, 3, 2, 4)
+        heatmap = heatmap.reshape(b, h, w)
+
+    dmap = _rsqrt_normalize(_head_1x1(conv(x, "convDa"), params["convDb"]))
+    if tuple(select_tiles) != (1, 1):
+        kpts, scores, valid = select_keypoints_tiled(
+            heatmap, max_keypoints, tuple(select_tiles), score_threshold)
+    else:
+        kpts, scores, valid = select_keypoints(
+            heatmap, max_keypoints, score_threshold, prefer_kernel=False)
+    feats = SuperPointFeatures(kpts, scores, sample_descriptors(kpts, dmap),
+                               valid)
+    return (feats, logits) if return_logits else feats

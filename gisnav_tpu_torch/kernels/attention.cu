@@ -33,6 +33,10 @@
 //   memory and, after a cluster barrier, sums a 64/splits-row slice over all
 //   peers through distributed shared memory in split order and writes it.
 //   No atomics: two runs give the same bits.
+// * A leading pair axis (the counterpart of the JAX package's vmap of the
+//   TPU kernel over training pairs) folds into the grid's y: block row
+//   y = pair * H + head, so B problems of one shape are one launch pair, and
+//   each pair's blocks compute exactly what a call for that pair alone would.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +71,8 @@ __device__ __forceinline__ void split_range(int tiles, int splits, int s,
   t1 = tiles * (s + 1) / splits;
 }
 
-// launch 1: stats (splits, H, Kq) float2 = (max, sum of exp) over the split
+// launch 1: stats (splits, B*H, Kq) float2 = (max, sum of exp) over the
+// split
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 stats_kernel(const __nv_bfloat16* __restrict__ q,
@@ -75,8 +80,12 @@ stats_kernel(const __nv_bfloat16* __restrict__ q,
              const float* __restrict__ bias, float2* __restrict__ stats,
              int Kq, int Kk, int heads, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int qb = blockIdx.x * BQ, h = blockIdx.y, s = blockIdx.z;
+  const int qb = blockIdx.x * BQ, hb = blockIdx.y, s = blockIdx.z;
+  const int h = hb % heads, b = hb / heads;
   const size_t ld = (size_t)heads * D;
+  q += (size_t)b * Kq * ld;
+  k += (size_t)b * Kk * ld;
+  bias += (size_t)b * Kk;
   int t0, t1;
   split_range(Kk / BK, gridDim.z, s, t0, t1);
 
@@ -87,13 +96,13 @@ stats_kernel(const __nv_bfloat16* __restrict__ q,
   float m[2], l[2];
   attn::sweep_stats<D>(smem, src, t0, t1, scale, m, l);
   if ((threadIdx.x & 3) == 0) {
-    float2* dst = stats + ((size_t)s * heads + h) * Kq + qb;
+    float2* dst = stats + ((size_t)s * gridDim.y + hb) * Kq + qb;
     dst[attn::acc_row(0)] = make_float2(m[0], l[0]);
     dst[attn::acc_row(2)] = make_float2(m[1], l[1]);
   }
 }
 
-// launch 2: out (Kq, H, D) f32; cluster (1, 1, splits) when splits > 1
+// launch 2: out (B, Kq, H, D) f32; cluster (1, 1, splits) when splits > 1
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 pv_kernel(const __nv_bfloat16* __restrict__ q,
@@ -102,9 +111,15 @@ pv_kernel(const __nv_bfloat16* __restrict__ q,
           const float2* __restrict__ stats, float* __restrict__ out, int Kq,
           int Kk, int heads, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int qb = blockIdx.x * BQ, h = blockIdx.y, s = blockIdx.z;
+  const int qb = blockIdx.x * BQ, hb = blockIdx.y, s = blockIdx.z;
+  const int h = hb % heads, b = hb / heads;
   const int splits = gridDim.z;
   const size_t ld = (size_t)heads * D;
+  q += (size_t)b * Kq * ld;
+  k += (size_t)b * Kk * ld;
+  v += (size_t)b * Kk * ld;
+  bias += (size_t)b * Kk;
+  out += (size_t)b * Kq * ld;
   int t0, t1;
   split_range(Kk / BK, splits, s, t0, t1);
 
@@ -116,10 +131,10 @@ pv_kernel(const __nv_bfloat16* __restrict__ q,
   float m[2], inv_l[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float2* src = stats + (size_t)h * Kq + qb + attn::acc_row(2 * i);
+    const float2* src = stats + (size_t)hb * Kq + qb + attn::acc_row(2 * i);
     float2 ml = src[0];
     for (int p = 1; p < splits; ++p) {
-      const float2 o = src[(size_t)p * heads * Kq];
+      const float2 o = src[(size_t)p * gridDim.y * Kq];
       attn::merge_stats(ml.x, ml.y, o.x, o.y);
     }
     m[i] = ml.x;
@@ -181,8 +196,8 @@ pv_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
            const __nv_bfloat16* v, const float* bias, float2* stats,
-           float* out, int Kq, int Kk, int heads, int splits, float scale,
-           cudaStream_t stream) {
+           float* out, int Kq, int Kk, int heads, int pairs, int splits,
+           float scale, cudaStream_t stream) {
   constexpr int smem1 = attn::ring_bytes<D, false>();
   constexpr int smem2 = pv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -192,7 +207,7 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
       pv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (err != cudaSuccess) return (int)err;
 
-  const dim3 grid(Kq / BQ, heads, splits);
+  const dim3 grid(Kq / BQ, heads * pairs, splits);
   stats_kernel<D><<<grid, THREADS, smem1, stream>>>(q, k, bias, stats, Kq, Kk,
                                                     heads, scale);
   err = cudaGetLastError();
@@ -218,15 +233,18 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 }  // namespace
 
-// q (Kq, H, D), k/v (Kk, H, D) bf16; bias (Kk,) f32; stats scratch
-// (splits, H, Kq, 2) f32; out (Kq, H, D) f32. Two launches; returns 0 when
-// the card accepted both.
+// q (B, Kq, H, D), k/v (B, Kk, H, D) bf16; bias (B, Kk) f32; stats scratch
+// (splits, B, H, Kq, 2) f32; out (B, Kq, H, D) f32, B = pairs. Two launches;
+// returns 0 when the card accepted both.
 extern "C" int gisnav_masked_attention(const void* q, const void* k,
                                        const void* v, const float* bias,
                                        float* stats, float* out, int Kq,
-                                       int Kk, int heads, int D, int splits,
-                                       float scale, void* stream) {
-  if (Kq % BQ || Kk % BK || heads < 1) return -1;
+                                       int Kk, int heads, int pairs, int D,
+                                       int splits, float scale,
+                                       void* stream) {
+  if (Kq % BQ || Kk % BK || heads < 1 || pairs < 1 ||
+      (long long)heads * pairs > 65535)
+    return -1;
   if ((splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
       splits > Kk / BK)
     return -1;
@@ -237,14 +255,14 @@ extern "C" int gisnav_masked_attention(const void* q, const void* k,
   float2* st = (float2*)stats;
   switch (D) {
     case 32:
-      return launch<32>(qb, kb, vb, bias, st, out, Kq, Kk, heads, splits,
-                        scale, s);
+      return launch<32>(qb, kb, vb, bias, st, out, Kq, Kk, heads, pairs,
+                        splits, scale, s);
     case 64:
-      return launch<64>(qb, kb, vb, bias, st, out, Kq, Kk, heads, splits,
-                        scale, s);
+      return launch<64>(qb, kb, vb, bias, st, out, Kq, Kk, heads, pairs,
+                        splits, scale, s);
     case 128:
-      return launch<128>(qb, kb, vb, bias, st, out, Kq, Kk, heads, splits,
-                         scale, s);
+      return launch<128>(qb, kb, vb, bias, st, out, Kq, Kk, heads, pairs,
+                         splits, scale, s);
     default:
       return -1;
   }

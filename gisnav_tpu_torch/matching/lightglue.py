@@ -1,14 +1,20 @@
 """LightGlue matcher: the module route, the route dispatch, and the glue
 both routes share (keypoint normalisation, mutual-argmax match extraction).
 
-Counterpart of ``gisnav_tpu/matching/lightglue.py``. ``LightGlue`` is the
-layer-by-layer forward of the flax module over the same converted tree:
-rotary self-attention and bidirectional cross-attention blocks with the
-module's bf16 rounding points (every ``Dense`` of a block rounds its inputs,
-its product and its bias sum to bf16; LayerNorm, gelu, softmax and the
-assignment head stay f32). Its attention goes to ``masked_attention`` (the
-CUDA kernel on the card) for the shapes ``attention_supported`` names and to
-the plain einsum form for all others, as the JAX module does.
+Counterpart of ``gisnav_tpu/matching/lightglue.py``. ``lightglue_forward``
+is the flax module's forward over the converted tree, with a leading pair
+axis in place of the JAX package's vmap over pairs: rotary self-attention
+and bidirectional cross-attention blocks with the module's bf16 rounding
+points (every ``Dense`` of a block rounds its inputs, its product and its
+bias sum to bf16; LayerNorm, gelu, softmax and the assignment head stay
+f32). Each attention of a layer is one pair-batched call of
+``MaskedAttention`` (the CUDA kernel on the card, with the JAX package's
+analytic backward) for the shapes ``attention_supported`` names, and the
+plain einsum form under autograd for all others, as the JAX module routes
+them. Nothing is detached, so training takes its gradient through
+``scores`` from the f32 masters, each cast at use as ``Dense(dtype=
+bfloat16)`` casts it. ``LightGlue`` is the same forward for one pair,
+without a gradient, over the tree with its bf16 weights rounded once.
 
 ``LightGlueMatcher`` picks the route as ``apply_lightglue`` of the JAX
 package does: the fused forward (``lightglue_fused``) where
@@ -24,14 +30,10 @@ from typing import Any, Dict, NamedTuple
 import torch
 from torch import nn
 
-from gisnav_tpu_torch.matching.attention import (
-    attention_supported,
-    masked_attention,
-    masked_attention_plain,
-)
+from gisnav_tpu_torch.matching.attention import attention_with_grad
 
 __all__ = ["MatchResult", "normalize_keypoints", "extract_matches",
-           "assignment", "LightGlue", "LightGlueMatcher"]
+           "assignment", "LightGlue", "LightGlueMatcher", "lightglue_forward"]
 
 _BF16 = torch.bfloat16
 _LN_EPS = 1e-6
@@ -58,12 +60,15 @@ def normalize_keypoints(kpts: torch.Tensor, height: int,
 
 def extract_matches(scores: torch.Tensor, mask0: torch.Tensor,
                     mask1: torch.Tensor, threshold: float) -> MatchResult:
-    """Mutual argmax with a confidence threshold (first index on ties)."""
-    k0, k1 = scores.shape
-    m0, s0 = torch.argmax(scores, dim=1), torch.amax(scores, dim=1)
-    m1, s1 = torch.argmax(scores, dim=0), torch.amax(scores, dim=0)
-    mutual0 = torch.arange(k0, device=scores.device) == m1[m0]
-    mutual1 = torch.arange(k1, device=scores.device) == m0[m1]
+    """Mutual argmax with a confidence threshold (first index on ties), of
+    one (K0, K1) score matrix or of a (B, K0, K1) batch."""
+    k0, k1 = scores.shape[-2:]
+    m0, s0 = torch.argmax(scores, dim=-1), torch.amax(scores, dim=-1)
+    m1, s1 = torch.argmax(scores, dim=-2), torch.amax(scores, dim=-2)
+    mutual0 = torch.arange(k0, device=scores.device) == torch.gather(
+        m1, -1, m0)
+    mutual1 = torch.arange(k1, device=scores.device) == torch.gather(
+        m0, -1, m1)
     ok0 = mutual0 & (s0 > threshold) & mask0
     ok1 = mutual1 & (s1 > threshold) & mask1
     neg = torch.tensor(-1, device=scores.device)
@@ -79,114 +84,148 @@ def extract_matches(scores: torch.Tensor, mask0: torch.Tensor,
 
 def _apply_rotary(x: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor) -> torch.Tensor:
-    """Rotate interleaved feature pairs: x (K, H, D); cos/sin (K, D/2)."""
+    """Rotate interleaved feature pairs: x (..., K, H, D); cos/sin (..., K,
+    D/2); f32."""
     x = x.float()
     x1, x2 = x[..., 0::2], x[..., 1::2]
-    c, s = cos[:, None, :], sin[:, None, :]
+    c, s = cos[..., None, :], sin[..., None, :]
     return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c],
                        dim=-1).reshape(x.shape)
 
 
 def _attention(q, k, v, mask_k):
-    """Masked scaled dot-product attention, q/k/v (K, H, D) -> f32: the
-    kernel for the shapes it takes, the JAX module's einsum form for all
-    others."""
-    if attention_supported(q.shape[0], k.shape[0], q.shape[-1]):
-        return masked_attention(q, k, v, mask_k)
-    return masked_attention_plain(q, k, v, mask_k, additive_bias=False)
+    """Masked scaled dot-product attention, q/k/v (B, K, H, D) -> f32, with
+    its gradient: the kernel's Function for the shapes it takes, the JAX
+    module's einsum form for all others."""
+    return attention_with_grad(q, k, v, mask_k)
 
 
-class _Dense(nn.Module):
-    """A flax ``Dense`` with ``dtype=bfloat16``: bf16 input, weight and
-    bias, the product rounded to bf16 before the bias is added in bf16."""
-
-    def __init__(self, node: Dict[str, torch.Tensor]):
-        super().__init__()
-        self.register_buffer("w", node["weight"].T.contiguous().to(_BF16))
-        self.register_buffer("b", node["bias"].to(_BF16))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x.to(_BF16).float() @ self.w.float()).to(_BF16) + self.b
+def _dense_bf16(x: torch.Tensor, node: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+    """flax ``Dense(dtype=bfloat16)``: input, weight and bias rounded to
+    bf16, the product formed in f32 and rounded once to bf16 (as XLA forms a
+    bf16 dot), the bias added in bf16. The weight may be an f32 master or
+    already bf16; every cast passes the gradient."""
+    w = node["weight"].to(_BF16).float()
+    return (x.to(_BF16).float() @ w.T).to(_BF16) + node["bias"].to(_BF16)
 
 
-class _FFN(nn.Module):
+def _dense_f32(x: torch.Tensor, node: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+    y = x @ node["weight"].T
+    return y + node["bias"] if "bias" in node else y
+
+
+def _layer_norm(y: torch.Tensor, node: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=float32)``: fast variance, clamped at 0."""
+    y = y.float()
+    mu = y.mean(dim=-1, keepdim=True)
+    var = torch.clamp((y * y).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    return (y - mu) * torch.rsqrt(var + _LN_EPS) * node["weight"] + \
+        node["bias"]
+
+
+def _ffn(node, x, message):
     """LightGlue update: x + MLP([x | message])."""
-
-    def __init__(self, node: Dict[str, Any]):
-        super().__init__()
-        self.fc1, self.fc2 = _Dense(node["fc1"]), _Dense(node["fc2"])
-        self.register_buffer("lns", node["norm"]["weight"])
-        self.register_buffer("lnb", node["norm"]["bias"])
-
-    def forward(self, x, message):
-        y = self.fc1(torch.cat([x, message.float()], dim=-1)).float()
-        mu = y.mean(dim=-1, keepdim=True)
-        var = torch.clamp((y * y).mean(dim=-1, keepdim=True) - mu * mu,
-                          min=0.0)
-        y = (y - mu) * torch.rsqrt(var + _LN_EPS) * self.lns + self.lnb
-        y = nn.functional.gelu(y, approximate="tanh")
-        return x + self.fc2(y).float()
+    y = _dense_bf16(torch.cat([x, message.float()], dim=-1), node["fc1"])
+    y = nn.functional.gelu(_layer_norm(y, node["norm"]), approximate="tanh")
+    return x + _dense_bf16(y, node["fc2"]).float()
 
 
-class _SelfBlock(nn.Module):
-    def __init__(self, node: Dict[str, Any], dim: int, heads: int):
-        super().__init__()
-        self.dim, self.heads = dim, heads
-        self.wqkv = _Dense(node["Wqkv"])  # columns h*3*dh + comp*dh + d
-        self.out_proj = _Dense(node["out_proj"])
-        self.ffn = _FFN(node["ffn"])
-
-    def forward(self, x, cos, sin, mask):
-        n, h = x.shape[0], self.heads
-        qkv = self.wqkv(x).reshape(n, h, 3, self.dim // h)
-        q = _apply_rotary(qkv[:, :, 0], cos, sin)
-        k = _apply_rotary(qkv[:, :, 1], cos, sin)
-        msg = _attention(q, k, qkv[:, :, 2], mask).reshape(n, self.dim)
-        return self.ffn(x, self.out_proj(msg))
+def _self_block(node, x, cos, sin, mask, heads):
+    """Rotary self-attention; Wqkv's columns are h*3*dh + comp*dh + d."""
+    b, n, dim = x.shape
+    qkv = _dense_bf16(x, node["Wqkv"]).reshape(b, n, heads, 3, dim // heads)
+    q = _apply_rotary(qkv[..., 0, :], cos, sin)
+    k = _apply_rotary(qkv[..., 1, :], cos, sin)
+    msg = _attention(q, k, qkv[..., 2, :], mask).reshape(b, n, dim)
+    return _ffn(node["ffn"], x, _dense_bf16(msg, node["out_proj"]))
 
 
-class _CrossBlock(nn.Module):
+def _cross_block(node, x0, x1, mask0, mask1, heads):
     """Bidirectional cross-attention with a shared query/key projection."""
-
-    def __init__(self, node: Dict[str, Any], dim: int, heads: int):
-        super().__init__()
-        self.dim, self.heads = dim, heads
-        self.to_qk, self.to_v = _Dense(node["to_qk"]), _Dense(node["to_v"])
-        self.to_out = _Dense(node["to_out"])
-        self.ffn = _FFN(node["ffn"])
-
-    def forward(self, x0, x1, mask0, mask1):
-        h, dh = self.heads, self.dim // self.heads
-        qk0, qk1 = (self.to_qk(x).reshape(-1, h, dh) for x in (x0, x1))
-        v0, v1 = (self.to_v(x).reshape(-1, h, dh) for x in (x0, x1))
-        m0 = _attention(qk0, qk1, v1, mask1).reshape(-1, self.dim)
-        m1 = _attention(qk1, qk0, v0, mask0).reshape(-1, self.dim)
-        return (self.ffn(x0, self.to_out(m0)), self.ffn(x1, self.to_out(m1)))
+    b, _, dim = x0.shape
+    qk0, qk1 = (_dense_bf16(x, node["to_qk"]).reshape(b, -1, heads,
+                                                       dim // heads)
+                for x in (x0, x1))
+    v0, v1 = (_dense_bf16(x, node["to_v"]).reshape(b, -1, heads,
+                                                    dim // heads)
+              for x in (x0, x1))
+    m0 = _attention(qk0, qk1, v1, mask1).reshape(b, -1, dim)
+    m1 = _attention(qk1, qk0, v0, mask0).reshape(b, -1, dim)
+    return (_ffn(node["ffn"], x0, _dense_bf16(m0, node["to_out"])),
+            _ffn(node["ffn"], x1, _dense_bf16(m1, node["to_out"])))
 
 
 def assignment(x0, x1, mask0, mask1, wf, bf, wm, bm, dim: int,
                threshold: float) -> MatchResult:
-    """Double-softmax assignment head with sigmoid matchability (f32);
-    ``wf``/``wm`` in (in, out) layout."""
+    """Double-softmax assignment head with sigmoid matchability (f32), of
+    one pair or of a leading pair axis; ``wf``/``wm`` in (in, out)
+    layout."""
     md0 = (x0 @ wf + bf) / float(dim) ** 0.25
     md1 = (x1 @ wf + bf) / float(dim) ** 0.25
-    sim = md0 @ md1.T
-    z0 = torch.sigmoid((x0 @ wm + bm)[:, 0])
-    z1 = torch.sigmoid((x1 @ wm + bm)[:, 0])
+    sim = md0 @ md1.transpose(-1, -2)
+    z0 = torch.sigmoid((x0 @ wm + bm)[..., 0])
+    z1 = torch.sigmoid((x1 @ wm + bm)[..., 0])
     zero = torch.zeros((), device=x0.device)
-    pairmask = mask0[:, None] & mask1[None, :]
+    pairmask = mask0[..., :, None] & mask1[..., None, :]
     sim = torch.where(pairmask, sim, torch.full_like(zero, -1e9))
-    scores = (torch.softmax(sim, dim=1) * torch.softmax(sim, dim=0)
-              * (z0[:, None] * z1[None, :]))
+    scores = (torch.softmax(sim, dim=-1) * torch.softmax(sim, dim=-2)
+              * (z0[..., :, None] * z1[..., None, :]))
     scores = torch.where(pairmask, scores, zero)
     return extract_matches(scores, mask0, mask1, threshold)
 
 
-class LightGlue(nn.Module):
-    """Module-route LightGlue forward over two fixed-size keypoint sets.
+def lightglue_forward(params: Dict[str, Any], kpts0, desc0, mask0, size0,
+                      kpts1, desc1, mask1, size1, *, depth: int,
+                      heads: int = 4, dim: int = 256,
+                      filter_threshold: float = 0.0) -> MatchResult:
+    """The flax module's forward over B pairs of keypoint sets: kpts (B, K,
+    2), desc (B, K, 256), mask (B, K), sizes (h, w). ``params`` is the
+    port's LightGlue tree, f32 masters for training (or, for inference, its
+    bf16-``Dense`` weights already rounded). Returns a batched
+    :class:`MatchResult` whose ``scores`` (B, K0, K1) is differentiable."""
+    x0 = _dense_f32(desc0.float(), params["input_proj"])
+    x1 = _dense_f32(desc1.float(), params["input_proj"])
+    p0 = _dense_f32(normalize_keypoints(kpts0, size0[0], size0[1]),
+                    params["posenc"]["Wr"])
+    p1 = _dense_f32(normalize_keypoints(kpts1, size1[0], size1[1]),
+                    params["posenc"]["Wr"])
+    cos0, sin0, cos1, sin1 = (torch.cos(p0), torch.sin(p0), torch.cos(p1),
+                              torch.sin(p1))
+    for i in range(depth):
+        node = params[f"self_{i}"]
+        x0 = _self_block(node, x0, cos0, sin0, mask0, heads)
+        x1 = _self_block(node, x1, cos1, sin1, mask1, heads)
+        x0, x1 = _cross_block(params[f"cross_{i}"], x0, x1, mask0, mask1,
+                              heads)
+    fp, mp = params["final_proj"], params["matchability"]
+    return assignment(x0, x1, mask0, mask1, fp["weight"].T, fp["bias"],
+                      mp["weight"].T, mp["bias"], dim, filter_threshold)
 
-    ``params`` is the port's LightGlue tree (``weights.params_from_jax``);
-    Wqkv keeps its natural column order ``h*3*dh + comp*dh + d``.
+
+_BF16_DENSE = {"self": ("Wqkv", "out_proj"), "cross": ("to_qk", "to_v",
+                                                         "to_out")}
+
+
+def _in_out(node: Dict[str, torch.Tensor], dtype=None
+            ) -> Dict[str, torch.Tensor]:
+    """A Dense node whose weight is stored in (in, out) layout, the layout
+    the matmul reads, and seen through ``.T`` in the tree's (out, in)."""
+    w = node["weight"].to(dtype or node["weight"].dtype)
+    return {**{k: v.to(dtype or v.dtype) for k, v in node.items()},
+            "weight": w.T.contiguous().T}
+
+
+class LightGlue(nn.Module):
+    """Module-route LightGlue forward over two fixed-size keypoint sets:
+    :func:`lightglue_forward` for one pair, without a gradient.
+
+    ``params`` is the port's LightGlue tree (``weights.params_from_jax``).
+    The weights of its bf16 ``Dense`` layers are rounded to bf16 once here,
+    which ``lightglue_forward`` would do at every use, and every weight is
+    stored in the (in, out) layout that the matmul reads.
     """
 
     def __init__(self, params: Dict[str, Any], depth: int = 9,
@@ -195,39 +234,30 @@ class LightGlue(nn.Module):
         super().__init__()
         self.depth, self.heads, self.dim = depth, heads, dim
         self.filter_threshold = filter_threshold
-
-        def dense(name, node):  # f32 Dense, (in, out) layout
-            self.register_buffer(name + "_w", node["weight"].T.contiguous())
-            if "bias" in node:
-                self.register_buffer(name + "_b", node["bias"])
-
-        dense("input_proj", params["input_proj"])
-        dense("posenc", params["posenc"]["Wr"])
-        dense("final_proj", params["final_proj"])
-        dense("matchability", params["matchability"])
-        self.self_blocks = nn.ModuleList(
-            _SelfBlock(params[f"self_{i}"], dim, heads) for i in range(depth))
-        self.cross_blocks = nn.ModuleList(
-            _CrossBlock(params[f"cross_{i}"], dim, heads)
-            for i in range(depth))
+        tree = dict(params)
+        for name in ("input_proj", "final_proj", "matchability"):
+            tree[name] = _in_out(params[name])
+        tree["posenc"] = {"Wr": _in_out(params["posenc"]["Wr"])}
+        for i in range(depth):
+            for kind, names in _BF16_DENSE.items():
+                node = dict(params[f"{kind}_{i}"])
+                for name in names:
+                    node[name] = _in_out(node[name], _BF16)
+                node["ffn"] = {**node["ffn"],
+                               "fc1": _in_out(node["ffn"]["fc1"], _BF16),
+                               "fc2": _in_out(node["ffn"]["fc2"], _BF16)}
+                tree[f"{kind}_{i}"] = node
+        self._tree = tree
 
     @torch.no_grad()
     def forward(self, kpts0, desc0, mask0, size0, kpts1, desc1, mask1,
                 size1) -> MatchResult:
-        x0 = desc0.float() @ self.input_proj_w + self.input_proj_b
-        x1 = desc1.float() @ self.input_proj_w + self.input_proj_b
-        p0 = normalize_keypoints(kpts0, size0[0], size0[1]) @ self.posenc_w
-        p1 = normalize_keypoints(kpts1, size1[0], size1[1]) @ self.posenc_w
-        cos0, sin0, cos1, sin1 = (torch.cos(p0), torch.sin(p0),
-                                  torch.cos(p1), torch.sin(p1))
-        for sb, cb in zip(self.self_blocks, self.cross_blocks):
-            x0 = sb(x0, cos0, sin0, mask0)
-            x1 = sb(x1, cos1, sin1, mask1)
-            x0, x1 = cb(x0, x1, mask0, mask1)
-        return assignment(x0, x1, mask0, mask1, self.final_proj_w,
-                          self.final_proj_b, self.matchability_w,
-                          self.matchability_b, self.dim,
-                          self.filter_threshold)
+        res = lightglue_forward(
+            self._tree, kpts0[None], desc0[None], mask0[None], size0,
+            kpts1[None], desc1[None], mask1[None], size1, depth=self.depth,
+            heads=self.heads, dim=self.dim,
+            filter_threshold=self.filter_threshold)
+        return MatchResult(*(t[0] for t in res))
 
 
 class LightGlueMatcher(nn.Module):

@@ -18,7 +18,8 @@ rotated q/k rounded to bf16, and inside the block the rounding points of
 tensors and for CUDA tensors makes the two launches of
 ``kernels/lightglue_block.cu``: the attention, its keys split
 ``attention.key_splits`` ways over a thread-block cluster, then the FFN
-epilogue.
+epilogue. Its gradient recomputes through ``fused_block_plain``, as the JAX
+package's ``custom_vjp`` does through ``_block_reference``.
 """
 from __future__ import annotations
 
@@ -180,16 +181,41 @@ def _fused_block_cuda(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb,
     return _ffn_cuda(x, msg, wout, bout, w1x, w1m, b1, lns, lnb, w2, b2)
 
 
-def fused_block(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb, w2, b2,
-                *, heads: int = 4, sets: int = 1,
-                cross: bool = False) -> torch.Tensor:
-    """One fused transformer block (see :func:`fused_block_plain`)."""
+def _fused_block_route(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb,
+                      w2, b2, heads, sets, cross):
     if not x.is_cuda:
         return fused_block_plain(x, q, k, v, bias, wout, bout, w1x, w1m, b1,
                                  lns, lnb, w2, b2, heads=heads, sets=sets,
                                  cross=cross)
     return _fused_block_cuda(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns,
                              lnb, w2, b2, heads, sets, cross)
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The fused block with a gradient that recomputes through the plain
+    version, the cotangent cast to the output's dtype (the JAX package's
+    ``_fused_block_bwd`` and ``_fused_block_dual_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, heads, sets, cross, *args):
+        ctx.kw = dict(heads=heads, sets=sets, cross=cross)
+        ctx.save_for_backward(*args)
+        return _fused_block_route(*args, heads, sets, cross)
+
+    @staticmethod
+    def backward(ctx, g):
+        out, vjp = torch.func.vjp(
+            lambda *a: fused_block_plain(*a, **ctx.kw), *ctx.saved_tensors)
+        return (None, None, None, *vjp(g.to(out.dtype)))
+
+
+def fused_block(x, q, k, v, bias, wout, bout, w1x, w1m, b1, lns, lnb, w2, b2,
+                *, heads: int = 4, sets: int = 1,
+                cross: bool = False) -> torch.Tensor:
+    """One fused transformer block (see :func:`fused_block_plain`),
+    differentiable through ``_FusedBlock``."""
+    return _FusedBlock.apply(heads, sets, cross, x, q, k, v, bias, wout,
+                             bout, w1x, w1m, b1, lns, lnb, w2, b2)
 
 
 # ---------------------------------------------------------------------------

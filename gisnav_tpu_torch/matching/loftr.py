@@ -18,6 +18,8 @@ temperature, and TF32 products move its argmaxes).
 
 ``params`` is the port's LoFTR tree (``weights.params_from_jax``): conv
 weights f32 OIHW, Dense weights ``(out, in)``, LayerNorm ``weight``/``bias``.
+The module keeps references to the tree's tensors, so over a tree of
+``nn.Parameter``s ``match`` (the forward without ``no_grad``) trains them.
 """
 from __future__ import annotations
 
@@ -201,6 +203,13 @@ class LoFTR(nn.Module):
     @torch.no_grad()
     def forward(self, image0: torch.Tensor,
                 image1: torch.Tensor) -> LoFTRMatches:
+        return self.match(image0, image1)
+
+    def match(self, image0: torch.Tensor, image1: torch.Tensor,
+              return_scores: bool = False):
+        """The forward with autograd on: over a tree of ``nn.Parameter``
+        masters it trains. ``return_scores`` also returns the (N0, N1)
+        dual-softmax assignment (the training supervision)."""
         h0, w0 = image0.shape
         h1, w1 = image1.shape
         fine0, coarse0 = self.backbone(image0)
@@ -238,7 +247,8 @@ class LoFTR(nn.Module):
         kp1c = torch.stack([(idx1 % wc1 + 0.5) * (w1 / wc1),
                             (idx1 // wc1 + 0.5) * (h1 / hc1)], dim=1)
         kp1 = self._refine(fine0, fine1, kp0, kp1c)
-        return LoFTRMatches(kp0=kp0, kp1=kp1, confidence=conf, mask=valid)
+        matches = LoFTRMatches(kp0=kp0, kp1=kp1, confidence=conf, mask=valid)
+        return (matches, p) if return_scores else matches
 
     def _refine(self, fine0, fine1, kp0, kp1c):
         """Correlate each match's 5x5 fine window in image 1 with its fine

@@ -6,7 +6,8 @@ Counterpart of ``gisnav_tpu/pipeline/geopose.py`` (``PipelineConfig``,
 ``build_frame_to_geopose``; cached reference: ``build_reference_extractor``,
 ``build_frame_to_geopose_cached``; bucketed warp:
 ``build_warp_reference_extractor``, ``build_frame_to_geopose_warpcached``;
-semi-dense: ``init_semidense_params``, ``build_frame_to_geopose_semidense``).
+semi-dense: ``init_semidense_params``, ``build_frame_to_geopose_semidense``;
+the random init of training: ``init_pipeline_params``).
 PyTorch runs eagerly, so the builders return plain functions over the
 models (``build_models``) and device tensors.
 """
@@ -23,7 +24,8 @@ __all__ = ["PipelineConfig", "GeoPose", "build_models", "assemble_geopose",
            "build_reference_extractor", "build_frame_to_geopose_cached",
            "build_warp_reference_extractor",
            "build_frame_to_geopose_warpcached", "init_semidense_params",
-           "build_frame_to_geopose_semidense"]
+           "build_frame_to_geopose_semidense", "init_pipeline_params",
+           "superpoint_param_shapes", "lightglue_param_shapes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -368,16 +370,13 @@ def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
     return fn
 
 
-def init_semidense_params(generator: torch.Generator,
-                          config: PipelineConfig) -> Dict[str, Any]:
-    """LoFTR parameters for the semi-dense mode, as a JAX-layout numpy tree
-    (``{"loftr": {"params": ...}}``, the keys and shapes of the JAX init)
-    drawn from ``generator`` with flax's default initialisers: kernels
-    ``lecun_normal`` (a normal of std sqrt(1 / fan_in) truncated to +-2
-    std), biases zero, LayerNorm scales one. ``config`` is taken for the
-    JAX signature; the architecture does not depend on it."""
-    from gisnav_tpu_torch.matching.loftr import param_shapes
-
+def _flax_init(shapes: Dict[str, Tuple], generator: torch.Generator
+               ) -> Dict[str, Any]:
+    """A nested numpy tree of the ``path -> shape`` table drawn from
+    ``generator`` with flax's default initialisers: kernels
+    ``lecun_normal`` (a normal of std sqrt(1 / fan_in), fan_in the product
+    of all but the last axis, truncated to +-2 std), biases zero, LayerNorm
+    scales one."""
     def draw(shape):
         fan_in = int(np.prod(shape[:-1]))
         std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
@@ -387,7 +386,7 @@ def init_semidense_params(generator: torch.Generator,
         return w.numpy()
 
     tree: Dict[str, Any] = {}
-    for path, shape in param_shapes().items():
+    for path, shape in shapes.items():
         *parents, leaf = path.split("/")
         node = tree
         for part in parents:
@@ -398,7 +397,83 @@ def init_semidense_params(generator: torch.Generator,
             node[leaf] = np.ones(shape, np.float32)
         else:
             node[leaf] = np.zeros(shape, np.float32)
-    return {"loftr": {"params": tree}}
+    return tree
+
+
+def superpoint_param_shapes(detector_mode: str = "learned"
+                            ) -> Dict[str, Tuple]:
+    """``path -> shape`` of the JAX SuperPoint's parameter tree (HWIO
+    kernels; the detector head only in ``learned`` mode)."""
+    convs = [("conv1a", 3, 1, 64), ("conv1b", 3, 64, 64),
+             ("conv2a", 3, 64, 64), ("conv2b", 3, 64, 64),
+             ("conv3a", 3, 64, 128), ("conv3b", 3, 128, 128),
+             ("conv4a", 3, 128, 128), ("conv4b", 3, 128, 128)]
+    if detector_mode == "learned":
+        convs += [("convPa", 3, 128, 256), ("convPb", 1, 256, 65)]
+    convs += [("convDa", 3, 128, 256), ("convDb", 1, 256, 256)]
+    shapes: Dict[str, Tuple] = {}
+    for name, k, cin, cout in convs:
+        shapes[f"{name}/kernel"] = (k, k, cin, cout)
+        shapes[f"{name}/bias"] = (cout,)
+    return shapes
+
+
+def lightglue_param_shapes(depth: int, dim: int = 256, heads: int = 4,
+                           input_dim: int = 256) -> Dict[str, Tuple]:
+    """``path -> shape`` of the JAX LightGlue's parameter tree (Dense
+    kernels ``(in, out)``)."""
+    shapes: Dict[str, Tuple] = {}
+
+    def dense(name, din, dout, bias=True):
+        shapes[f"{name}/kernel"] = (din, dout)
+        if bias:
+            shapes[f"{name}/bias"] = (dout,)
+
+    def ffn(prefix):
+        dense(f"{prefix}/ffn/fc1", 2 * dim, 2 * dim)
+        shapes[f"{prefix}/ffn/norm/scale"] = (2 * dim,)
+        shapes[f"{prefix}/ffn/norm/bias"] = (2 * dim,)
+        dense(f"{prefix}/ffn/fc2", 2 * dim, dim)
+
+    dense("input_proj", input_dim, dim)
+    dense("posenc/Wr", 2, dim // heads // 2, bias=False)
+    for i in range(depth):
+        dense(f"self_{i}/Wqkv", dim, 3 * dim)
+        dense(f"self_{i}/out_proj", dim, dim)
+        ffn(f"self_{i}")
+        for name in ("to_qk", "to_v", "to_out"):
+            dense(f"cross_{i}/{name}", dim, dim)
+        ffn(f"cross_{i}")
+    dense("final_proj", dim, dim)
+    dense("matchability", dim, 1)
+    return shapes
+
+
+def init_pipeline_params(generator: torch.Generator,
+                         config: PipelineConfig) -> Dict[str, Any]:
+    """SuperPoint + LightGlue parameters as a JAX-layout numpy tree
+    (``{"superpoint": {"params": ...}, "lightglue": {"params": ...}}``, the
+    keys and shapes of the JAX package's ``init_pipeline_params``), drawn
+    from ``generator`` with flax's initialisers (:func:`_flax_init`).
+    ``weights.params_from_jax`` turns it into the port's tree."""
+    return {
+        "superpoint": {"params": _flax_init(
+            superpoint_param_shapes(config.detector_mode), generator)},
+        "lightglue": {"params": _flax_init(
+            lightglue_param_shapes(config.lightglue_depth), generator)},
+    }
+
+
+def init_semidense_params(generator: torch.Generator,
+                          config: PipelineConfig) -> Dict[str, Any]:
+    """LoFTR parameters for the semi-dense mode, as a JAX-layout numpy tree
+    (``{"loftr": {"params": ...}}``, the keys and shapes of the JAX init)
+    drawn from ``generator`` with flax's default initialisers
+    (:func:`_flax_init`). ``config`` is taken for the JAX signature; the
+    architecture does not depend on it."""
+    from gisnav_tpu_torch.matching.loftr import param_shapes
+
+    return {"loftr": {"params": _flax_init(param_shapes(), generator)}}
 
 
 def build_frame_to_geopose_semidense(config: PipelineConfig) -> Callable:

@@ -17,6 +17,10 @@ port's tensors:
 - LayerNorm ``scale``/``bias`` become ``weight``/``bias``; biases stay f32;
 - LoFTR is f32 throughout: its 3x3 conv kernels become f32 OIHW for
   ``F.conv2d``, its Dense and LayerNorm leaves as above.
+
+``params_from_jax(..., master=True)`` keeps every leaf f32 for training;
+``params_to_jax`` turns the port's tree back into the JAX layout and
+``save_npz`` writes it in the bundles' format.
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ from gisnav_tpu_torch.pipeline.runners import (
 )
 
 __all__ = ["WEIGHTS_DIR", "PRETRAINED_PATH", "LEARNED_LG9_PATH",
-           "LOFTR_PATH", "load_npz", "params_from_jax",
-           "infer_config_from_params", "load_bundled"]
+           "LOFTR_PATH", "load_npz", "save_npz", "params_from_jax",
+           "params_to_jax", "infer_config_from_params", "load_bundled"]
 
 WEIGHTS_DIR = os.environ.get(
     "GISNAV_TPU_WEIGHTS_DIR",
@@ -70,15 +74,16 @@ def _t(a, dtype, device):
                                                          dtype=dtype)
 
 
-def _convert_superpoint(sp, device):
+def _convert_superpoint(sp, device, master=False):
+    wdtype = torch.float32 if master else torch.bfloat16
     out = {}
     for name, leaf in _inner(sp).items():
         k = np.asarray(leaf["kernel"], np.float32)
         kh, kw, cin, cout = k.shape
         if (kh, kw) == (3, 3):
-            w = _t(k.reshape(9, cin, cout), torch.bfloat16, device)
+            w = _t(k.reshape(9, cin, cout), wdtype, device)
         else:
-            w = _t(k.reshape(cin, cout).T, torch.bfloat16, device)
+            w = _t(k.reshape(cin, cout).T, wdtype, device)
         out[name] = {"weight": w.contiguous(),
                      "bias": _t(leaf["bias"], torch.float32, device)}
     return out
@@ -110,19 +115,92 @@ def _convert_loftr(node, device):
     return {"backbone": backbone, **blocks}
 
 
-def params_from_jax(tree, device="cpu") -> Dict[str, Any]:
+def params_from_jax(tree, device="cpu", master: bool = False
+                    ) -> Dict[str, Any]:
     """JAX param tree (``{"superpoint": ..., "lightglue": ...}`` or
     ``{"loftr": ...}``, with or without the ``params`` level, numpy or jax
-    arrays) -> the port's tree."""
+    arrays) -> the port's tree. ``master=True`` keeps every leaf f32 (the
+    SuperPoint kernels too, unrounded): the masters training updates and
+    casts at each use, as flax keeps f32 parameters."""
     out = {}
     if "superpoint" in tree:
-        out["superpoint"] = _convert_superpoint(tree["superpoint"], device)
+        out["superpoint"] = _convert_superpoint(tree["superpoint"], device,
+                                                master)
     if "lightglue" in tree:
         out["lightglue"] = _convert_dense_tree(_inner(tree["lightglue"]),
                                                device)
     if "loftr" in tree:
         out["loftr"] = _convert_loftr(tree["loftr"], device)
     return out
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().cpu().numpy()
+    return np.asarray(t, np.float32)
+
+
+def _dense_tree_to_jax(node):
+    if "weight" in node:
+        w = _np(node["weight"])
+        if w.ndim == 2:  # Dense
+            out = {"kernel": w.T.copy()}
+            if "bias" in node:
+                out["bias"] = _np(node["bias"])
+            return out
+        return {"scale": w, "bias": _np(node["bias"])}  # LayerNorm
+    return {k: _dense_tree_to_jax(v) for k, v in node.items()}
+
+
+def params_to_jax(tree) -> Dict[str, Any]:
+    """The port's tree (either precision) -> the JAX layout as f32 numpy,
+    with the ``params`` level: the inverse of :func:`params_from_jax`."""
+    out: Dict[str, Any] = {}
+    if "superpoint" in tree:
+        sp = {}
+        for name, leaf in tree["superpoint"].items():
+            w = _np(leaf["weight"])
+            if w.ndim == 3:  # (9, Cin, Cout)
+                k = w.reshape(3, 3, w.shape[1], w.shape[2])
+            else:  # Linear (out, in) -> (1, 1, in, out)
+                k = w.T.reshape(1, 1, w.shape[1], w.shape[0])
+            sp[name] = {"kernel": k.copy(), "bias": _np(leaf["bias"])}
+        out["superpoint"] = {"params": sp}
+    if "lightglue" in tree:
+        out["lightglue"] = {"params": _dense_tree_to_jax(tree["lightglue"])}
+    if "loftr" in tree:
+        node = tree["loftr"]
+        backbone = {
+            name: {"kernel": np.transpose(_np(leaf["weight"]),
+                                          (2, 3, 1, 0)).copy(),
+                   "bias": _np(leaf["bias"])}
+            for name, leaf in node["backbone"].items()}
+        blocks = {k: _dense_tree_to_jax(v) for k, v in node.items()
+                  if k != "backbone"}
+        out["loftr"] = {"params": {"backbone": backbone, **blocks}}
+    return out
+
+
+def save_npz(path: str, tree) -> None:
+    """Write a JAX-layout tree (numpy arrays or tensors) as the bundles are
+    stored: keys flattened with ``/``, floats as float16, compressed. The
+    JAX package's ``load_npz``, :func:`load_npz` and ``run --weights`` read
+    it."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            name = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(value, dict):
+                walk(value, name)
+            else:
+                a = (value.detach().cpu().numpy()
+                     if isinstance(value, torch.Tensor) else np.asarray(value))
+                flat[name] = a.astype(np.float16) if a.dtype.kind == "f" else a
+
+    walk(tree, "")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **flat)
 
 
 def infer_config_from_params(params) -> PipelineConfig:

@@ -20,7 +20,11 @@ frame launches K6 2 + 1 times and fixes within 10 m; the twist node's
 steps stay within 0.5 m of the rendered flight's. The node graph: a UKF
 step on the card equals the CPU's (1e-4 m) and NaNs on a non-PD P; one
 pose-node frame with the production backend is within 10 m and launches
-K1-K4.
+K1-K4. Training: K5's Function against autograd of its plain version (3e-2
+of the largest |gradient|) with its pair axis bit-equal to single calls,
+K1, K2 and K4's Functions against the same (1e-2), one train step on the
+card against the CPU's (loss 2e-2 relative, gt_recall 0.05) with 24 K5
+launches, and ``train`` on the card with its checkpoints.
 """
 import numpy as np
 import pytest
@@ -818,3 +822,149 @@ def test_pose_node_frame_on_card(card):
                         "fused_block": 36, "masked_attention": 0,
                         "shear_last_axis": 0, "shear_first_axis": 0,
                         "nms_cellmax": 0}
+
+
+# ---------------------------------------------------------------------------
+# training (path 9): gradients of the kernels, the train step, the loop
+# ---------------------------------------------------------------------------
+
+
+def _grad_gap(fn, plain, inputs, g):
+    """max |grad of fn - autograd of plain| / max |grad| over the inputs."""
+    a = [t.detach().clone().requires_grad_() for t in inputs]
+    b = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*a)
+    out.backward(g.to(out.dtype))
+    plain(*b).backward(g.to(out.dtype))
+    return out.detach(), max(
+        float((x.grad.float() - y.grad.float()).abs().max())
+        / max(float(y.grad.float().abs().max()), 1e-30)
+        for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kq,kk,cross", [(256, 256, False), (256, 512, True),
+                                         (512, 256, False)])
+def test_masked_attention_function_grad_and_pair_axis(card, kq, kk, cross):
+    """K5's Function (the kernel, the analytic backward) against autograd of
+    the plain version (3e-2 of the largest |gradient|, as chip_smoke), and
+    the pair axis bit-equal to single calls."""
+    from gisnav_tpu_torch.matching.attention import (
+        MaskedAttention,
+        masked_attention,
+        masked_attention_plain,
+    )
+
+    dt = torch.bfloat16 if cross else torch.float32
+    q = torch.randn((8, kq, 4, 64), generator=card, device="cuda").to(dt)
+    k = torch.randn((8, kk, 4, 64), generator=card, device="cuda").to(dt)
+    v = torch.randn((8, kk, 4, 64), generator=card,
+                    device="cuda").bfloat16()
+    mask = torch.rand((8, kk), generator=card, device="cuda") > 0.3
+    g = torch.randn((8, kq, 4, 64), generator=card, device="cuda")
+    out, gap = _grad_gap(
+        lambda *a: MaskedAttention.apply(*a, mask),
+        lambda *a: masked_attention_plain(*a, mask), (q, k, v), g)
+    assert gap <= 3e-2
+    single = torch.stack([masked_attention(q[i], k[i], v[i], mask[i])
+                          for i in range(8)])
+    assert torch.equal(single, out)
+
+
+def test_conv_and_block_function_grads(card):
+    """K1, K2, K4: the backward recomputes through the plain version, so
+    the Function and autograd of the plain version agree (1e-2 of the
+    largest |gradient|: one bf16 ulp where cuDNN picks another algorithm)."""
+    from gisnav_tpu_torch.features.conv import (
+        conv_stage,
+        conv_stage_plain,
+        stem_stage,
+        stem_stage_plain,
+    )
+    from gisnav_tpu_torch.matching.lightglue_fused import (
+        fused_block,
+        fused_block_plain,
+    )
+
+    w1a, b1a = _conv_w(card, 1, 64)
+    w1b, b1b = _conv_w(card, 64, 64)
+    img = torch.rand((64, 96), generator=card, device="cuda")
+    g = torch.randn((32, 48, 64), generator=card, device="cuda")
+    _, gap = _grad_gap(lambda *a: stem_stage(*a, pool=True),
+                       lambda *a: stem_stage_plain(*a, pool=True),
+                       (img, w1a, b1a, w1b, b1b), g)
+    assert gap <= 1e-2
+    x = torch.relu(torch.randn((32, 48, 64), generator=card,
+                               device="cuda")).bfloat16()
+    w2, b2 = _conv_w(card, 64, 128)
+    g = torch.randn((16, 24, 128), generator=card, device="cuda")
+    _, gap = _grad_gap(lambda *a: conv_stage(*a, pool=True),
+                       lambda *a: conv_stage_plain(*a, pool=True),
+                       (x, w2, b2), g)
+    assert gap <= 1e-2
+
+    def r(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, generator=card, device="cuda")
+                * scale).to(dt).contiguous()
+
+    bf = torch.bfloat16
+    n, dim = 512, 256
+    bias = torch.where(torch.rand((2, n), generator=card, device="cuda")
+                       < 0.9, 0.0, -1e9).float()
+    args = (r(2 * n, dim), r(2 * n, dim, dt=bf), r(2 * n, dim, dt=bf),
+            r(2 * n, dim, dt=bf), bias, r(dim, dim, scale=dim ** -0.5, dt=bf),
+            r(dim, scale=0.05), r(dim, 2 * dim, scale=0.04, dt=bf),
+            r(dim, 2 * dim, scale=0.04, dt=bf), r(2 * dim, scale=0.05),
+            1.0 + r(2 * dim, scale=0.1), r(2 * dim, scale=0.1),
+            r(2 * dim, dim, scale=0.04, dt=bf), r(dim, scale=0.05))
+    _, gap = _grad_gap(lambda *a: fused_block(*a, heads=4, sets=2),
+                       lambda *a: fused_block_plain(*a, heads=4, sets=2),
+                       args, r(2 * n, dim))
+    assert gap <= 1e-2
+
+
+def test_train_step_on_card_vs_cpu(card):
+    """One step from the same params and host batch: loss 2e-2 relative,
+    gt_recall 0.05; 24 K5 launches a step at depth 3, no other kernel."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.train.data import make_homography_batch
+    from gisnav_tpu_torch.train.steps import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    config = TrainConfig()
+    batch = make_homography_batch(np.random.default_rng(0), 2,
+                                  config.image_shape)
+    metrics = {}
+    for dev in ("cuda", "cpu"):
+        state, tx = init_train_state(torch.Generator().manual_seed(0),
+                                     config, dev)
+        reset_launches()
+        _, m = make_train_step(config, tx)(
+            state, *(torch.as_tensor(a, device=dev) for a in batch))
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["masked_attention"] == 24
+            assert sum(LAUNCHES.values()) == 24
+    assert abs(metrics["cuda"]["loss"] - metrics["cpu"]["loss"]) <= \
+        2e-2 * abs(metrics["cpu"]["loss"])
+    assert abs(metrics["cuda"]["gt_recall"]
+               - metrics["cpu"]["gt_recall"]) <= 0.05
+
+
+def test_train_loop_on_card(card, tmp_path):
+    """``train`` on the card: device pairs in chunks of 10, checkpoints,
+    finite losses, the params moved."""
+    from gisnav_tpu_torch.train import checkpoint
+    from gisnav_tpu_torch.train.loop import train
+    from gisnav_tpu_torch.train.steps import TrainConfig, tree_leaves
+
+    params = train(steps=20, batch_size=2, config=TrainConfig(
+        lightglue_depth=1), ckpt_dir=str(tmp_path), ckpt_every=10)
+    assert checkpoint.latest_step(str(tmp_path)) == 20
+    first = checkpoint.load_params(str(tmp_path), step=10, like=params)
+    assert all(torch.isfinite(p).all() for p in tree_leaves(params))
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(first),
+                                                     tree_leaves(params)))
