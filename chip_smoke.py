@@ -8,6 +8,7 @@
     python3 chip_smoke.py --digest   # sha256 of kernel outputs, seeded inputs
     python3 chip_smoke.py --graph    # build + path 8 (the node graph) only
     python3 chip_smoke.py --train    # build + gradients + path 9 (training)
+    python3 chip_smoke.py --deploy   # build + paths 10 and 11 only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -87,7 +88,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every fix within 10 m, 40 K5 launches a step; (c) ``python -m
    gisnav_tpu_torch train --model loftr``, 20 steps, loss finite, no
    kernel launch;
-13. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+13. path 10: the deployed constellation, each ``python -m
+   gisnav_tpu_torch`` process with a deadline, over path 8's world written
+   as GeoTIFFs and served by ``gis-serve``: (a) the compose service's
+   ``run --shm --wfst --protocol uorb`` (learned_lg9, warp-bucketed,
+   480x640 / 512 keypoints), fed over the ShmBus from this process with
+   path 8's gated track at a step of 30 m a second after a lead-in of 20
+   steps on the same line (the graph loads, fetches its first map and its
+   filters converge; printed, not gated): every ``SensorGps`` fix stamped
+   within the 24 gated steps within 10 m, ``health`` 0 while the graph
+   runs and 1 after it stopped, one WFS-T feature a fix (``GetFeature``),
+   each within 10 m of its fix; (b) the vehicle topology, ``run --shm
+   --protocol nmea`` with a ``serial --tcp`` process, hovering until 8 GGA
+   sentences reach this process's TCP listener, the median of the last 5
+   within 10 m; the frame-to-fix p50 / p90 over the ShmBus (the 24 gated
+   steps) beside path 8's,
+   ``/dev/shm``'s size, and ``nvidia-smi``'s compute processes; the graph
+   must hold the card and no other process started here may (each
+   process's open ``/dev/nvidia*`` files decide);
+14. path 11: ``replay`` (the CLI, in this process so that the kernel counts
+   see it) on a dataset of ``tools/make_replay_dataset.py``'s defaults
+   (12 frames of 640x480 at 500 m, yaw 25, a square map at 3x the
+   footprint) over path 8's world, as PNG: harris_lg5 with ``--fused``,
+   exit code 0 (every frame within 10 m), every fused frame within 10 m,
+   exactly a harris_lg5 cached frame's K1-K4 launches a frame plus one map
+   extraction, and the frame p50; the classical backend on 3 frames of the
+   same flight over an 896-px map, a side the shear kernel serves (valid,
+   within 10 m, K6 2 + 1 a frame); learned_lg9, printed only (cached mode
+   at 3x gives no valid fix in either package);
+15. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone).
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
@@ -219,12 +248,13 @@ K5_TRAIN_SHAPES = [(256, 256), (256, 512), (512, 256), (512, 512)]
 TRAIN_DEVICE = "cuda"  # path 9's device; a CPU rehearsal sets "cpu"
 # measured beside the contract's keys: device time (``device_ms``), the
 # wrapper's host time (``host_ms``), K4's two launches apart, the library's
-# device time, the whole 3-shear rotation, and K1-K4's launches on paths 4
-# and 8
+# device time, the whole 3-shear rotation, and K1-K4's launches on paths 4,
+# 8 and 11 (K6's on paths 6 and 11)
 EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "library_device_ms", "rotation_ms", "rotation_device_ms",
               "path4_launches", "path6_launches", "path8_launches",
-              "path9_launches", "backward_ms", "library_backward_ms",
+              "path9_launches", "path11_launches", "backward_ms",
+              "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
               "grad_cpu_rel_err", "fwd_bwd_device_ms",
               "library_fwd_bwd_device_ms")
@@ -2369,6 +2399,530 @@ def phase_graph_path(profile_run: bool = False) -> dict:
     return out
 
 
+# path 10: the deployed constellation, a process each (the compose
+# service's ``run``, ``gis-serve``, ``health``, the vehicle's ``serial``)
+DEPLOY_STEP_S = 1.0  # wall time and stamp step between frames: 30 m/s
+# steps flown on the same line before path 8's 24 gated ones: the graph
+# loads its map and kernels and its filters converge at the flight's speed
+# (printed, not gated)
+DEPLOY_LEAD_STEPS = 20
+DEPLOY_START_S = 90.0  # deadline for a process to come up
+DEPLOY_QUIET_S = 2.0  # no fix for this long: the fix stream has ended
+DEPLOY_STREAM_S = 45.0  # the fusion node extrapolates 10 s past its input
+DEPLOY_HOVER_GGA, DEPLOY_HOVER_S = 8, 90.0
+HEALTH_TIMEOUT_S = 12.0
+DEPLOY_DEVICE = "cuda"  # paths 10-11's device; a CPU rehearsal sets "cpu"
+# path 11: tools/make_replay_dataset.py's defaults (12 frames of 640x480 at
+# 500 m, yaw 25, a square map at 3x the footprint), on path 8's world
+REPLAY_FRAMES, REPLAY_CLASSICAL_FRAMES = 12, 3
+# the classical run's map side: a multiple of 128 the shear kernel serves
+# (the tool's 800 px takes the gather rotation, as on the JAX package's
+# accelerator route), the smallest above the frame's 800-px diagonal
+REPLAY_CLASSICAL_MAP = 896
+REPLAY_FRAME = {"stem_stage": 1, "conv_stage": 7, "nms_select": 1,
+                "fused_block": 40}  # a harris_lg5 cached frame (path 4)
+REPLAY_EXTRACTION = {"stem_stage": 1, "conv_stage": 7}  # the map, once
+
+
+class _Proc:
+    """``python -m gisnav_tpu_torch ARGS`` from this checkout, its output in
+    ``<logdir>/<name>.log``. ``stop`` interrupts it as Ctrl-C does and
+    waits for it; every wait has a deadline, after which it is killed."""
+
+    def __init__(self, name: str, args: list, logdir: str, env=None):
+        import os
+
+        self.name = name
+        self.log_path = os.path.join(logdir, f"{name}.log")
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "gisnav_tpu_torch", *args],
+                stdout=out, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                env={**os.environ, **(env or {})})
+        self.pid = self.proc.pid
+
+    def output(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def wait_for(self, text: str, deadline_s: float = DEPLOY_START_S
+                 ) -> None:
+        t0 = time.monotonic()
+        while text not in self.output():
+            if self.proc.poll() is not None or \
+                    time.monotonic() - t0 > deadline_s:
+                raise RuntimeError(
+                    f"{self.name}: no {text!r} (rc {self.proc.poll()}, "
+                    f"{time.monotonic() - t0:.0f} s):\n"
+                    f"{self.output()[-3000:]}")
+            time.sleep(0.1)
+
+    def wait(self, deadline_s: float) -> int:
+        try:
+            return self.proc.wait(timeout=deadline_s)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise RuntimeError(f"{self.name} ran past its {deadline_s:.0f} s "
+                               f"deadline:\n{self.output()[-3000:]}")
+
+    def stop(self, deadline_s: float = 30.0) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        rc = self.wait(deadline_s)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} exited {rc}:\n"
+                               f"{self.output()[-3000:]}")
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a device file of the card open (a CUDA
+    context keeps ``/dev/nvidia*`` open)."""
+    import os
+
+    fds = f"/proc/{pid}/fd"
+    for fd in os.listdir(fds):
+        try:
+            if os.readlink(os.path.join(fds, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:  # closed meanwhile
+            pass
+    return False
+
+
+def _check_card_holders(tag: str, graph: "_Proc", others: list) -> list:
+    """Print ``nvidia-smi``'s compute processes, then fail unless the graph
+    holds the card and none of ``others`` (the server, the bridge,
+    ``health``) does. The processes' own open device files decide: in a
+    container ``nvidia-smi`` lists pids of another namespace."""
+    import os
+
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    holders = [p.name for p in (graph, *others) if _holds_card(p.pid)]
+    log(f"[deploy {tag}] nvidia-smi compute apps "
+        f"{smi.stdout.split()}; chip_smoke {os.getpid()}, "
+        + ", ".join(f"{p.name} {p.pid}" for p in (graph, *others))
+        + f"; holding the card: {holders}")
+    if holders != [graph.name]:
+        raise RuntimeError(f"deploy {tag}: the card is held by {holders}, "
+                           f"only {graph.name} may")
+    return holders
+
+
+def _write_maps(world, root: str) -> None:
+    """``imagery/`` (the world) and ``dem/`` (0 m at 1/8 the resolution)
+    GeoTIFFs of ``world``: the layout ``gis-serve --maps`` loads."""
+    import os
+
+    from gisnav_tpu_torch.gis.geotiff import GeoRef, write_geotiff
+
+    dlon, dlat = world._deg_per_px
+    n = world.raster.shape[0]
+    for layer, raster, scale in (
+            ("imagery", world.raster, 1),
+            ("dem", np.zeros((n // 8, n // 8), np.float32), 8)):
+        os.makedirs(os.path.join(root, layer), exist_ok=True)
+        write_geotiff(os.path.join(root, layer, f"world_{layer}.tif"),
+                      raster, GeoRef(left=world.left, top=world.top,
+                                     gsd_lon=scale * dlon,
+                                     gsd_lat=scale * dlat))
+
+
+def _deploy_params(root: str, name: str, wfst_url=None) -> str:
+    """A ``run --params`` file: path 8's nodes (flat ground, PNG replies,
+    the map refreshed below ``GRAPH_OVERLAP``), the WMS left to
+    ``GISNAV_WMS_URL``; with ``wfst_url``, the WFS-T sink's endpoint."""
+    import os
+
+    params = _graph_params("")
+    del params["gis_node"]["wms_url"]
+    params["gis_node"]["min_map_overlap_update_threshold"] = GRAPH_OVERLAP
+    if wfst_url:
+        params["wfst_node"] = {"wfst_url": wfst_url}
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(params, f)
+    return path
+
+
+def _gga_fix(sentence: str) -> tuple:
+    """(lon, lat, ellipsoid altitude) of a GGA sentence (``(d)ddmm.mmmm``
+    fields, the AMSL altitude plus the geoid's height there)."""
+    from gisnav_tpu_torch.geometry.geoid import geoid_height
+
+    def degrees(field: str, hemisphere: str) -> float:
+        dot = field.index(".")
+        value = int(field[:dot - 2]) + float(field[dot - 2:]) / 60.0
+        return -value if hemisphere in ("S", "W") else value
+
+    f = sentence.split("*")[0].split(",")
+    lat, lon = degrees(f[2], f[3]), degrees(f[4], f[5])
+    return lon, lat, float(f[9]) + float(f[11]) + geoid_height(lon, lat)
+
+
+def deploy_compose(world, root: str, gis_url: str, procs: list) -> dict:
+    """Path 10 (a): the compose service's ``run --shm --wfst --protocol
+    uorb`` (learned_lg9, warp-bucketed, 480x640 / 512 keypoints) as a
+    process of its own, fed over the ShmBus by this process with path 8's
+    gated track, a step of 30 m a second, after ``DEPLOY_LEAD_STEPS`` on
+    the same line. Gates: every ``SensorGps`` fix stamped within the 24
+    gated steps within 10 m of the track, ``health`` 0 while
+    the graph runs, one WFS-T feature a fix once the fix stream has ended,
+    each within 10 m of its fix. Returns the ``health`` process started
+    after the graph stopped (it must exit 1)."""
+    import os
+    import urllib.request
+
+    from gisnav_tpu_torch.constants import ROS_TOPIC_CAMERA_INFO
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.nodes.bus import ShmBus
+    from gisnav_tpu_torch.nodes.mock_gps import TOPIC_SENSOR_GPS
+    from gisnav_tpu_torch.utils.world_wms import east_of
+
+    ns = f"smoke{os.getpid()}a"
+    graph = _Proc("graph_compose", [
+        "run", "--shm", "--wfst", "--protocol", "uorb", "--namespace", ns,
+        "--params", _deploy_params(root, "compose", f"{gis_url}/wfst"),
+        "--device", DEPLOY_DEVICE],
+        root, env={"GISNAV_WMS_URL": f"{gis_url}/wms"})
+    procs.append(graph)
+    bus = ShmBus(namespace=ns)
+    try:
+        fixes, arrivals, published = [], {}, {}
+
+        def on_fix(msg):  # on this bus's reader thread
+            arrivals.setdefault(msg["timestamp_sample"], time.perf_counter())
+            fixes.append(msg)
+            wall.append(time.monotonic())
+
+        wall: list = []
+
+        bus.subscribe(TOPIC_SENSOR_GPS, on_fix)
+        t0 = time.monotonic()
+        graph.wait_for("Ctrl-C to stop")
+        log(f"[deploy compose] graph up in {time.monotonic() - t0:.1f} s")
+        health = _Proc("health_live", ["health", "--namespace", ns,
+                                       "--timeout", str(HEALTH_TIMEOUT_S)],
+                       root)
+        procs.append(health)
+        lon0, lat0 = world.to_lonlat(*GRAPH_START_PX)
+        track = [(1_000_000 + int((i + DEPLOY_LEAD_STEPS) * DEPLOY_STEP_S
+                                  * 1e6),
+                  east_of(lon0, lat0, GRAPH_STEP_M * i), lat0, GRAPH_ALT_M,
+                  22.5 + 1.5 * (-1) ** i)
+                 for i in range(-DEPLOY_LEAD_STEPS, GRAPH_STEPS)]
+        frames = [world.render_frame(lon, lat, alt, yaw, GRAPH_K)
+                  for _, lon, lat, alt, yaw in track]
+        t_start, holders = time.monotonic(), None
+        for i, ((stamp, lon, lat, alt, yaw), frame) in enumerate(
+                zip(track, frames)):
+            bus.publish(ROS_TOPIC_CAMERA_INFO,
+                        {"k": GRAPH_K, "width": 640, "height": 480})
+            published[stamp] = _publish_step(bus, stamp, lon, lat, alt, yaw,
+                                             frame)
+            if i == DEPLOY_LEAD_STEPS:
+                holders = _check_card_holders("compose", graph, [health])
+            time.sleep(max(0.0, t_start + (i + 1) * DEPLOY_STEP_S
+                           - time.monotonic()))
+        live_rc = health.wait(HEALTH_TIMEOUT_S + DEPLOY_START_S)
+        log(f"[deploy compose] health while running: rc {live_rc}, "
+            f"{health.output().strip()!r}")
+        # the fusion node extrapolates past its last input until its output
+        # timeout: wait for the end of the stream, so that the WFS-T sink
+        # has posted every fix
+        n, quiet = -1, time.monotonic()
+        while time.monotonic() - quiet < DEPLOY_QUIET_S:
+            if len(fixes) != n:
+                n, quiet = len(fixes), time.monotonic()
+            if time.monotonic() - t_start > GRAPH_STEPS * DEPLOY_STEP_S \
+                    + DEPLOY_STREAM_S:
+                raise RuntimeError("deploy compose: the fix stream never "
+                                   "ended")
+            time.sleep(0.1)
+        with urllib.request.urlopen(
+                f"{gis_url}/wfst?service=WFS&version=1.1.0&request="
+                "GetFeature&typename=gisnav:position&outputFormat="
+                "application/json", timeout=30) as resp:
+            features = json.loads(resp.read())["features"]
+        graph.stop()
+        log(f"[deploy compose] graph stopped; its output:\n{graph.output()}")
+        stopped = _Proc("health_stopped", [
+            "health", "--namespace", ns, "--timeout", str(HEALTH_TIMEOUT_S)],
+            root)
+        procs.append(stopped)
+        fixes = list(fixes)
+    finally:
+        bus.close()
+    truth = np.array([t[:4] for t in track], np.float64)
+
+    def errors_of(fs):
+        return [_fix_errors(f, *(np.interp(f["timestamp_sample"],
+                                           truth[:, 0], truth[:, j])
+                                 for j in (1, 2, 3))) for f in fs]
+
+    first = track[DEPLOY_LEAD_STEPS][0]
+    lead = [f for f in fixes if f["timestamp_sample"] < first]
+    flight = [f for f in fixes if first <= f["timestamp_sample"]
+              <= track[-1][0]]
+    errors = errors_of(flight)
+    log("[deploy compose] lead-in fixes (stamp, s after the flight's start, "
+        "m, m), not gated: " + str(
+            [(f["timestamp_sample"], round(t - t_start, 2), round(h, 2),
+              round(v, 2)) for f, t, (h, v) in zip(fixes, wall,
+                                                   errors_of(lead))]))
+    log("[deploy compose] SensorGps fixes in the flight (stamp, m, m): "
+        + str([(f["timestamp_sample"], round(h, 2), round(v, 2))
+               for f, (h, v) in zip(flight, errors)]))
+    far = [(f["timestamp_sample"], h, v)
+           for f, (h, v) in zip(flight, errors) if not (h < 10.0 and v < 10.0)]
+    if far or len(flight) < 12:
+        raise RuntimeError(f"deploy compose: {len(flight)} fixes in the "
+                           f"flight (12 needed), over 10 m: {far}")
+    if live_rc != 0:
+        raise RuntimeError(f"deploy compose: health exited {live_rc} while "
+                           "the graph ran")
+    feature_m = [haversine_m(f["lat"] / 1e7, f["lon"] / 1e7,
+                             ft["geometry"]["coordinates"][1],
+                             ft["geometry"]["coordinates"][0])
+                 for f, ft in zip(fixes, features)]
+    if len(features) != len(fixes) or max(feature_m) >= 10.0:
+        raise RuntimeError(f"deploy compose: {len(features)} WFS-T features "
+                           f"for {len(fixes)} fixes, the farthest "
+                           f"{max(feature_m, default=None)} m from its fix")
+    return {"fixes": len(fixes), "flight_fixes": len(flight),
+            "lead_in_fixes": len(lead),
+            "max_horiz_m": max(e[0] for e in errors),
+            "max_vert_m": max(e[1] for e in errors),
+            "mean_horiz_m": float(np.mean([e[0] for e in errors])),
+            "features": len(features), "max_feature_m": max(feature_m),
+            "health_live_rc": live_rc, "card_pids": holders,
+            "first_fix_s": wall[0] - t_start if wall else None,
+            "frame_to_fix": _pcts(_latencies(
+                {s: t for s, t in published.items() if s >= first},
+                arrivals)),
+            "frames_with_fix": len(set(arrivals) & set(published)),
+            "shm_dropped": bus.dropped, "health_stopped": stopped}
+
+
+def deploy_vehicle(world, root: str, gis_url: str, procs: list,
+                   others: list) -> dict:
+    """Path 10 (b): the vehicle topology, ``run --shm --protocol nmea`` and
+    a ``serial --tcp`` process bridging its NMEA over TCP to this process
+    (the simulator's side of the reference's socat hop), hovering until 8
+    GGA sentences arrive; the median of the last 5 within 10 m."""
+    import os
+    import socket
+
+    from gisnav_tpu_torch.constants import ROS_TOPIC_CAMERA_INFO
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.nodes.bus import ShmBus
+
+    ns = f"smoke{os.getpid()}b"
+    listener = socket.create_server(("127.0.0.1", 0))
+    listener.settimeout(0.05)
+    graph = _Proc("graph_vehicle", [
+        "run", "--shm", "--protocol", "nmea", "--namespace", ns, "--params",
+        _deploy_params(root, "vehicle"), "--device", DEPLOY_DEVICE], root,
+        env={"GISNAV_WMS_URL": f"{gis_url}/wms"})
+    serial = _Proc("serial", ["serial", "--tcp",
+                              f"127.0.0.1:{listener.getsockname()[1]}",
+                              "--namespace", ns], root)
+    procs += [graph, serial]
+    bus, conn = ShmBus(namespace=ns), None
+    try:
+        graph.wait_for("Ctrl-C to stop")
+        serial.wait_for("serial bridge up")
+        lon, lat = world.to_lonlat(world.raster.shape[1] / 2,
+                                   world.raster.shape[0] / 2)
+        frame = world.render_frame(lon, lat, GRAPH_ALT_M, 15.0, GRAPH_K)
+        gga, buf, stamp, holders = [], b"", 1_000_000, None
+        t0 = time.monotonic()
+        while len(gga) < DEPLOY_HOVER_GGA:
+            if time.monotonic() - t0 > DEPLOY_HOVER_S:
+                raise RuntimeError(f"deploy vehicle: {len(gga)} GGA in "
+                                   f"{DEPLOY_HOVER_S:.0f} s")
+            stamp += 250_000
+            bus.publish(ROS_TOPIC_CAMERA_INFO,
+                        {"k": GRAPH_K, "width": 640, "height": 480})
+            _publish_step(bus, stamp, lon, lat, GRAPH_ALT_M, 15.0, frame)
+            t_next = time.monotonic() + 0.25
+            while time.monotonic() < t_next:
+                if conn is None:
+                    try:
+                        conn, _ = listener.accept()
+                        conn.settimeout(0.05)
+                    except socket.timeout:
+                        continue
+                try:
+                    buf += conn.recv(65536)
+                except socket.timeout:
+                    pass
+            *lines, buf = buf.split(b"\r\n")
+            gga += [ln.decode() for ln in lines if ln[3:6] == b"GGA"]
+            if gga and holders is None:
+                holders = _check_card_holders("vehicle", graph,
+                                              [serial, *others])
+        serial.stop()
+        graph.stop()
+    finally:
+        if conn is not None:
+            conn.close()
+        listener.close()
+        bus.close()
+    errors = [(haversine_m(lat, lon, fla, flo), abs(alt - GRAPH_ALT_M))
+              for flo, fla, alt in map(_gga_fix, gga[-5:])]
+    log(f"[deploy vehicle] {len(gga)} GGA in {time.monotonic() - t0:.1f} "
+        f"s, the last 5 (m): "
+        f"{[(round(h, 2), round(v, 2)) for h, v in errors]}")
+    horiz = float(np.median([e[0] for e in errors]))
+    vert = float(np.median([e[1] for e in errors]))
+    if not (horiz < 10.0 and vert < 10.0):
+        raise RuntimeError(f"deploy vehicle: median of the last 5 GGA "
+                           f"{horiz:.2f} m / {vert:.2f} m off")
+    return {"gga": len(gga), "median_horiz_m": horiz, "median_vert_m": vert,
+            "card_pids": holders}
+
+
+def phase_deploy_path(graph_frame_to_fix=None) -> dict:
+    """Path 10: the deployed constellation over path 8's world, served by
+    ``gis-serve`` from GeoTIFFs: (a) the compose service, (b) the vehicle
+    topology. Every process started here is stopped before it returns,
+    and the shared-memory segments they made are removed."""
+    import os
+    import shutil
+    import tempfile
+
+    from gisnav_tpu_torch.utils.world_wms import World
+
+    shm_before = set(os.listdir("/dev/shm"))
+    usage = shutil.disk_usage("/dev/shm")
+    log(f"[deploy] /dev/shm {usage.total / 2**30:.1f} GiB, "
+        f"{usage.free / 2**30:.1f} GiB free (a topic maps 8 x 32 MiB, "
+        "sparse)")
+    world = World.make(**GRAPH_WORLD)
+    procs: list = []
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            _write_maps(world, os.path.join(root, "maps"))
+            port = _free_port()
+            gis = _Proc("gis_serve", ["gis-serve", "--maps",
+                                      os.path.join(root, "maps"), "--host",
+                                      "127.0.0.1", "--port", str(port)],
+                        root)
+            procs.append(gis)
+            gis.wait_for("GIS server on")
+            url = f"http://127.0.0.1:{port}"
+            out = {"compose": deploy_compose(world, root, url, procs)}
+            stopped = out["compose"].pop("health_stopped")
+            out["vehicle"] = deploy_vehicle(world, root, url, procs,
+                                            [gis, stopped])
+            rc = stopped.wait(HEALTH_TIMEOUT_S + DEPLOY_START_S)
+            log(f"[deploy] health after the graph stopped: rc {rc}, "
+                f"{stopped.output().strip()!r}")
+            if rc != 1:
+                raise RuntimeError(f"deploy: health exited {rc} after the "
+                                   "graph stopped")
+            out["health_stopped_rc"] = rc
+            gis.stop()
+        finally:
+            for p in procs:
+                p.kill()
+            for name in set(os.listdir("/dev/shm")) - shm_before:
+                if name.startswith("gisnav_"):
+                    os.remove(os.path.join("/dev/shm", name))
+    ftf = out["compose"]["frame_to_fix"]
+    log(f"[deploy] frame-to-fix over the ShmBus p50 {ftf['p50_ms']} / p90 "
+        f"{ftf['p90_ms']} ms; path 8's LocalBus: "
+        + (json.dumps(graph_frame_to_fix) if graph_frame_to_fix
+           else "not run"))
+    log("[deploy] " + json.dumps(out))
+    return out
+
+
+def _replay_cli(argv: list) -> tuple:
+    """``python -m gisnav_tpu_torch replay ARGV`` in this process (so the
+    kernel counts see its launches): (exit code, report, launches)."""
+    from gisnav_tpu_torch.cli import main as cli_main
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    rc = cli_main(["replay", *argv, "--quiet", "--device", DEPLOY_DEVICE])
+    launches = dict(LAUNCHES)
+    with open(argv[argv.index("--out") + 1]) as f:
+        return rc, json.load(f), launches
+
+
+def phase_replay_path() -> dict:
+    """Path 11: ``replay`` on a dataset of ``tools/make_replay_dataset.py``'s
+    defaults over path 8's world, written as PNG: harris_lg5 fused (rc 0:
+    every frame within 10 m; every fused frame within 10 m; a harris_lg5
+    cached frame's K1-K4 counts), the classical backend on 3 frames over
+    an 896-px map (K6 2 + 1 a frame), then learned_lg9, printed only."""
+    import os
+    import tempfile
+
+    from gisnav_tpu_torch.replay import replay
+    from gisnav_tpu_torch.utils.world_wms import World, write_replay_dataset
+
+    world = World.make(**GRAPH_WORLD)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        data, three = os.path.join(root, "flight"), os.path.join(root, "3")
+        write_replay_dataset(world, data, frames=REPLAY_FRAMES)
+        write_replay_dataset(world, three, frames=REPLAY_CLASSICAL_FRAMES,
+                             map_px=REPLAY_CLASSICAL_MAP)
+        report = os.path.join(root, "r.json")
+        rc, rep, launches = _replay_cli([data, "--weights", "harris_lg5",
+                                         "--fused", "--out", report])
+        s = rep["summary"]
+        log(f"[replay harris] rc {rc} {json.dumps(s)}; launches {launches}")
+        if rc != 0 or s["fused_pass_10m"] != s["fused_frames"] \
+                or s["frames"] != REPLAY_FRAMES:
+            raise RuntimeError(f"replay harris_lg5: rc {rc}, {s}")
+        expect_launches("replay harris_lg5", launches, {
+            k: REPLAY_FRAMES * n + REPLAY_EXTRACTION.get(k, 0)
+            for k, n in REPLAY_FRAME.items()})
+        out["harris"] = {**s, "launches": launches}
+        ticks = []
+        replay(data, weights="harris_lg5", fused=True, device=DEPLOY_DEVICE,
+               progress=lambda *_: ticks.append(time.perf_counter()))
+        out["harris"]["frame"] = _pcts(np.diff(ticks) * 1e3)
+        rc, rep, launches = _replay_cli([three, "--backend", "classical",
+                                         "--out", report])
+        s = rep["summary"]
+        log(f"[replay classical] rc {rc} {json.dumps(s)}; launches "
+            f"{launches}")
+        if rc != 0 or s["valid"] != REPLAY_CLASSICAL_FRAMES:
+            raise RuntimeError(f"replay classical: rc {rc}, {s}")
+        expect_launches("replay classical", launches,
+                        {"shear_last_axis": 2 * REPLAY_CLASSICAL_FRAMES,
+                         "shear_first_axis": REPLAY_CLASSICAL_FRAMES})
+        out["classical"] = {**s, "launches": launches}
+        rc, rep, _ = _replay_cli([data, "--weights", "learned_lg9",
+                                  "--out", report])
+        out["learned_lg9"] = {"rc": rc, **rep["summary"]}
+    log("[replay] " + json.dumps(out))
+    return out
+
+
 def phase_seed_spread(seeds: int = 12) -> None:
     """How far the cached runner's fix moves with the RANSAC seed: every
     frame of path 2's scene ``seeds`` times (the runner seeds its generator
@@ -2557,6 +3111,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="only check the gradients and drive path 9, "
                          "training")
+    ap.add_argument("--deploy", action="store_true",
+                    help="only drive paths 10 (the deployed constellation) "
+                         "and 11 (replay)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -2573,6 +3130,12 @@ def main(argv=None) -> int:
         return 0
     if args.graph:
         phase_graph_path(args.profile)
+        return 0
+    if args.deploy:
+        phase_deploy_path()
+        log(f"[phase] path 10 done at {time.time() - t_start:.1f} s")
+        phase_replay_path()
+        log(f"[phase] path 11 done at {time.time() - t_start:.1f} s")
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2622,6 +3185,10 @@ def main(argv=None) -> int:
     log(f"[phase] path 8 done at {time.time() - t_start:.1f} s")
     training = phase_train_path()
     log(f"[phase] path 9 done at {time.time() - t_start:.1f} s")
+    phase_deploy_path(graph["flight"]["frame_to_fix"])
+    log(f"[phase] path 10 done at {time.time() - t_start:.1f} s")
+    replays = phase_replay_path()
+    log(f"[phase] path 11 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -2638,8 +3205,11 @@ def main(argv=None) -> int:
                                       for m in ("cached", "bucketed",
                                                 "exact"))
             r["path8_launches"] = graph["flight"]["launches"][r["name"]]
+            r["path11_launches"] = replays["harris"]["launches"][r["name"]]
         if r["name"] in ("shear_last_axis", "shear_first_axis"):
             r["path6_launches"] = classical["launches"][r["name"]]
+            r["path11_launches"] = replays["classical"]["launches"][
+                r["name"]]
         if r["name"] == "masked_attention":
             r["path9_launches"] = (
                 training["cli"]["launches"][r["name"]]

@@ -16,6 +16,7 @@ TWIST_NODE_NAME: Final = "twist_node"
 UORB_NODE_NAME: Final = "uorb_node"
 NMEA_NODE_NAME: Final = "nmea_node"
 UBX_NODE_NAME: Final = "ubx_node"
+WFST_NODE_NAME: Final = "wfst_node"
 
 ROS_TOPIC_RELATIVE_ORTHOIMAGE: Final = "~/orthoimage"
 """Orthoimage + DEM + CRS published by the GIS node."""
@@ -34,6 +35,10 @@ ROS_TOPIC_RELATIVE_FOV_BOUNDING_BOX: Final = "~/fov/bounding_box"
 
 ROS_TOPIC_RELATIVE_POSE: Final = "~/pose"
 """Pose output of a node, relative to its name."""
+
+ROS_TOPIC_RELATIVE_MATCHES_IMAGE: Final = "~/dev/matches_image"
+ROS_TOPIC_RELATIVE_POSITION_IMAGE: Final = "~/dev/position_image"
+"""The pose node's developer images (``dev_topics``)."""
 
 ROS_TOPIC_CAMERA_INFO: Final = "/camera/camera_info"
 ROS_TOPIC_IMAGE: Final = "/camera/image_raw"

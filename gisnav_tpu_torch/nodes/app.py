@@ -9,7 +9,8 @@ publish, fusion output, health) run from ``spin``, or the caller drives
 them (``gis.tick()``, ``fusion.tick(stamp)``).
 
 The pose, twist and fusion nodes run on the card unless ``device="cpu"``.
-The WFS-T telemetry sink is not ported: ``wfst=True`` raises.
+``wfst=True`` adds the WFS-T telemetry sink, which ``health`` never
+reports stale (a sink may be idle), as in the JAX app.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from gisnav_tpu_torch.nodes.mock_gps import NMEANode, UBXNode, UORBNode
 from gisnav_tpu_torch.nodes.pose_node import TOPIC_POSE, PoseNode
 from gisnav_tpu_torch.nodes.tf import TransformGraph
 from gisnav_tpu_torch.nodes.twist_node import TwistNode
+from gisnav_tpu_torch.nodes.wfst_node import WFSTNode
 
 __all__ = ["GisNavApp", "PROTOCOLS"]
 
@@ -43,6 +45,7 @@ class GisNavApp:
 
     :param protocol: mock-GPS output ("uorb" | "nmea" | "ubx"), the
         reference's launch argument
+    :param wfst: also run the WFS-T telemetry sink
     :param deep_runner: optional runner for the pose node (an ``.npz``
         weight set built by the caller)
     :param namespace: the health topic is ``/<namespace>/health``
@@ -55,9 +58,6 @@ class GisNavApp:
                  wms_client=None, protocol: str = "uorb",
                  wfst: bool = False, deep_runner=None,
                  namespace: str = ROS_NAMESPACE, *, device=None):
-        if wfst:
-            raise NotImplementedError("the WFS-T telemetry sink is not "
-                                      "ported")
         if protocol not in PROTOCOLS:
             raise ValueError(f"unknown protocol {protocol!r}")
         params = params or {}
@@ -76,6 +76,8 @@ class GisNavApp:
                                  self.tf, device=device)
         self.mock_gps = PROTOCOLS[protocol](
             self.bus, params.get(f"{protocol}_node"), self.tf)
+        self.wfst = (WFSTNode(self.bus, params.get("wfst_node"), self.tf)
+                     if wfst else None)
 
         # gisnav_odom starts aligned with gisnav_map: the first global fix
         # seeds the VO pose (the reference bootstraps from the FCU's tf,
@@ -98,8 +100,9 @@ class GisNavApp:
 
     @property
     def nodes(self):
-        return [self.bbox, self.gis, self.pose, self.twist, self.fusion,
-                self.mock_gps]
+        out = [self.bbox, self.gis, self.pose, self.twist, self.fusion,
+               self.mock_gps]
+        return out if self.wfst is None else out + [self.wfst]
 
     def spin(self, gis_rate_hz: float = 1.0,
              fusion_rate_hz: float = 5.0) -> None:
@@ -132,7 +135,8 @@ class GisNavApp:
         here the graph is one process and reports on itself)."""
         now = time.time()
         return {n.name: {"idle_s": round(now - n.last_activity, 1),
-                         "healthy": now - n.last_activity < stale_after_s}
+                         "healthy": (now - n.last_activity < stale_after_s
+                                     or n is self.wfst)}
                 for n in self.nodes}
 
     def shutdown(self) -> Dict[str, Dict]:

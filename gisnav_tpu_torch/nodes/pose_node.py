@@ -13,9 +13,12 @@ runners (on the card unless ``device="cpu"``):
   the bundle's config replaces the node's (480x640, 512 keypoints);
 - ``semidense``: the LoFTR runner.
 
-Written departures: a missing bundle raises (the JAX node logs it and falls
-back to the classical backend), and ``dev_topics=True`` raises
-``NotImplementedError`` (the match images of ``viz.py`` are not ported).
+With ``dev_topics=True`` each valid fix also publishes the developer
+images of ``nodes/viz.py`` on ``.../dev/matches_image`` and
+``.../dev/position_image``, as the JAX node does.
+
+Written departure: a missing bundle raises (the JAX node logs it and falls
+back to the classical backend).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from gisnav_tpu_torch.constants import (
     POSE_NODE_NAME,
     ROS_NAMESPACE,
     ROS_TOPIC_CAMERA_INFO,
+    ROS_TOPIC_RELATIVE_MATCHES_IMAGE,
+    ROS_TOPIC_RELATIVE_POSITION_IMAGE,
     ROS_TOPIC_IMAGE,
     ROS_TOPIC_MAVROS_GIMBAL_DEVICE_ATTITUDE_STATUS,
     ROS_TOPIC_MAVROS_GLOBAL_POSITION,
@@ -50,12 +55,15 @@ from gisnav_tpu_torch.pipeline.geopose import (
 )
 from gisnav_tpu_torch.utils.devlock import device_lock
 
-__all__ = ["PoseNode", "TOPIC_POSE"]
+__all__ = ["PoseNode", "TOPIC_POSE", "TOPIC_MATCHES_IMAGE",
+           "TOPIC_POSITION_IMAGE"]
 
-TOPIC_POSE = (
-    f"/{ROS_NAMESPACE}/{POSE_NODE_NAME}/"
-    + ROS_TOPIC_RELATIVE_POSE.replace("~/", "")
-)
+_PREFIX = f"/{ROS_NAMESPACE}/{POSE_NODE_NAME}/"
+TOPIC_POSE = _PREFIX + ROS_TOPIC_RELATIVE_POSE.replace("~/", "")
+TOPIC_MATCHES_IMAGE = _PREFIX + ROS_TOPIC_RELATIVE_MATCHES_IMAGE.replace(
+    "~/", "")
+TOPIC_POSITION_IMAGE = _PREFIX + ROS_TOPIC_RELATIVE_POSITION_IMAGE.replace(
+    "~/", "")
 
 # reference covariance template: 3 m position SD, ~3 deg angle SD
 # (core/_shared.py:8-23)
@@ -91,9 +99,6 @@ class PoseNode(Node):
     def __init__(self, bus, params=None, tf=None, deep_runner=None, *,
                  device=None):
         super().__init__(POSE_NODE_NAME, bus, params, tf)
-        if self.param("dev_topics", False):
-            raise NotImplementedError(
-                "dev_topics: the match and position images are not ported")
         self._device = resolve_device(device)
         self._camera_info = None
         self._ortho = None
@@ -207,8 +212,37 @@ class PoseNode(Node):
                 self.log.debug("no valid pose (%d matches)",
                                int(geopose.num_matches))
                 return None
+            if self.param("dev_topics", False):
+                self._publish_dev_images(image_msg, geopose)
             out = geopose_to_wgs84_f64(geopose, aff4)
         return self._to_map_frame(image_msg["stamp_us"], out)
+
+    def _publish_dev_images(self, image_msg, geopose) -> None:
+        """The match image and the camera-position image (reference
+        ``~/dev/matches_image`` / ``~/dev/position_image``,
+        ``pose_node.py:145-151,310-346``), in original raster pixels."""
+        from gisnav_tpu_torch.nodes.viz import draw_matches, draw_position
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        m = host(geopose.m_crop).astype(np.float64)
+        mkp_ref = host(geopose.matched_ref).astype(np.float64)
+        ref_full = (np.hstack([mkp_ref, np.ones((len(mkp_ref), 1))])
+                    @ m.T)[:, :2]
+        mask = host(geopose.match_mask)
+        stamp = image_msg["stamp_us"]
+        self.publish(TOPIC_MATCHES_IMAGE, {
+            "stamp_us": stamp,
+            "image": draw_matches(image_msg["image"], self._ortho["image"],
+                                  host(geopose.matched_qry), ref_full, mask)})
+        cam = host(geopose.cam_pos_raster).astype(np.float64)
+        pos_img = draw_position(self._ortho["image"],
+                                (m @ np.array([cam[0], cam[1], 1.0]))[:2],
+                                ref_full, mask)
+        if pos_img is not None:
+            self.publish(TOPIC_POSITION_IMAGE,
+                         {"stamp_us": stamp, "image": pos_img})
 
     # -- frame bootstrap ---------------------------------------------------
 

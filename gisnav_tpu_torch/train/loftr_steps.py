@@ -46,15 +46,17 @@ def _model(config: LoFTRTrainConfig, params):
 
 
 def init_loftr_train_state(generator: torch.Generator,
-                           config: LoFTRTrainConfig, device="cpu"):
+                           config: LoFTRTrainConfig, device=None):
     """flax's init of the JAX module's tree (``param_shapes`` at
-    ``config.depth``), as f32 ``nn.Parameter`` masters on ``device``."""
+    ``config.depth``), as f32 ``nn.Parameter`` masters on ``device``
+    (``None``: the card, or raise without one)."""
+    from gisnav_tpu_torch.device import resolve_device
     from gisnav_tpu_torch.matching.loftr import param_shapes
     from gisnav_tpu_torch.pipeline.geopose import _flax_init
 
     tree = {"loftr": {"params": _flax_init(param_shapes(depth=config.depth),
                                            generator)}}
-    params = master_params(tree, device)
+    params = master_params(tree, resolve_device(device))
     tx = AdamW(config.learning_rate, weight_decay=config.weight_decay)
     return TrainState(params=params, opt_state=tx.init(params),
                       step=torch.zeros((), dtype=torch.int64,

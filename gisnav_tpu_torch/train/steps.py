@@ -98,9 +98,11 @@ class AdamW:
 
 
 def init_train_state(generator: torch.Generator, config: TrainConfig,
-                     device="cpu") -> Tuple[TrainState, AdamW]:
+                     device=None) -> Tuple[TrainState, AdamW]:
     """Random init (``pipeline.geopose.init_pipeline_params``, drawn from
-    ``generator`` on the CPU) moved to ``device``, and a fresh AdamW."""
+    ``generator`` on the CPU) moved to ``device`` (``None``: the card, or
+    raise without one), and a fresh AdamW."""
+    from gisnav_tpu_torch.device import resolve_device
     from gisnav_tpu_torch.pipeline.geopose import (
         PipelineConfig,
         init_pipeline_params,
@@ -110,7 +112,8 @@ def init_train_state(generator: torch.Generator, config: TrainConfig,
                           max_keypoints=config.max_keypoints,
                           lightglue_depth=config.lightglue_depth,
                           detector_mode=config.detector_mode)
-    params = master_params(init_pipeline_params(generator, pcfg), device)
+    params = master_params(init_pipeline_params(generator, pcfg),
+                           resolve_device(device))
     tx = AdamW(config.learning_rate, weight_decay=config.weight_decay)
     return TrainState(params=params, opt_state=tx.init(params),
                       step=torch.zeros((), dtype=torch.int64,

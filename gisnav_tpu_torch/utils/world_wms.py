@@ -12,6 +12,9 @@ For the node-graph flights of ``chip_smoke.py`` and the CPU tests (numpy,
 - :meth:`World.render_frame`: the nadir camera view at a lon/lat, altitude
   and yaw, and :func:`camera_attitude_quat`: that camera's camera_optical
   -> ENU quaternion (the gimbal attitude message).
+- :func:`write_replay_dataset`: a recorded flight over the world in the
+  layout ``replay`` reads, as PNG (``tools/make_replay_dataset.py``'s
+  flight and sizing).
 - :class:`WorldWMS`: a WMS answering GetCapabilities and GetMap. An imagery
   GetMap pastes the in-world part of the bbox at its true place in the
   requested raster, area-resampled, and pads with grey outside the world:
@@ -22,7 +25,10 @@ For the node-graph flights of ``chip_smoke.py`` and the CPU tests (numpy,
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
+import json
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Tuple
@@ -32,9 +38,11 @@ import numpy as np
 
 from gisnav_tpu_torch.geometry.quaternion import matrix_to_quat
 from gisnav_tpu_torch.gis.png import encode_png
+from gisnav_tpu_torch.gis.server import overlap_weights
 from gisnav_tpu_torch.utils.world import _draw_world, _warp_perspective
 
-__all__ = ["World", "WorldWMS", "camera_attitude_quat", "east_of"]
+__all__ = ["World", "WorldWMS", "camera_attitude_quat", "east_of",
+           "write_replay_dataset"]
 
 _M_PER_DEG = 6371000.0 * np.pi / 180.0  # haversine's sphere
 _GREY = 110  # the world's background level
@@ -93,8 +101,8 @@ class World:
         u1, v1 = min(u1, width), min(v1, height)
         if u1 > u0 and v1 > v0:
             part = self.raster[yi0:yi1, xi0:xi1].astype(np.float32)
-            ay = _area_weights(v1 - v0, yi1 - yi0)
-            ax = _area_weights(u1 - u0, xi1 - xi0)
+            ay = overlap_weights(v1 - v0, yi1 - yi0)
+            ax = overlap_weights(u1 - u0, xi1 - xi0)
             out[v0:v1, u0:u1] = np.clip(np.rint(ay @ part @ ax.T), 0, 255)
         return out
 
@@ -112,16 +120,6 @@ class World:
         return _warp_perspective(self.raster, hm, hw)
 
 
-def _area_weights(n_out: int, n_in: int) -> np.ndarray:
-    """(n_out, n_in) box-filter weights: output i averages the source span
-    [i, i + 1) * n_in / n_out by overlap (``INTER_AREA`` when shrinking)."""
-    s = n_in / n_out
-    lo = np.arange(n_out)[:, None] * s
-    j = np.arange(n_in)[None, :]
-    w = np.clip(np.minimum(j + 1, lo + s) - np.maximum(j, lo), 0.0, None)
-    return (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
-
-
 def camera_attitude_quat(yaw_deg: float) -> np.ndarray:
     """camera_optical -> ENU quaternion of :meth:`World.render_frame`'s
     camera: world pixels (x east, y south, z down) relate to ENU by
@@ -130,6 +128,52 @@ def camera_attitude_quat(yaw_deg: float) -> np.ndarray:
     c, s = np.cos(a), np.sin(a)
     r_cam_from_px = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1.0]])
     return matrix_to_quat((r_cam_from_px @ np.diag([1.0, -1.0, -1.0])).T)
+
+
+def write_replay_dataset(world: World, out: str, frames: int = 12,
+                         alt_m: float = 500.0, yaw_deg: float = 25.0,
+                         hw: Tuple[int, int] = (480, 640),
+                         lonlat0: Tuple[float, float] = (24.04, 60.025),
+                         map_px: int = 0) -> dict:
+    """Write a replay dataset of a straight flight over ``world`` into
+    ``out`` (map, frames as PNG), with the defaults of
+    ``tools/make_replay_dataset.py``: frame i at ``lonlat0 + i * (1e-4,
+    5e-5)`` deg, ``alt_m`` over a flat world (DEM 0), f = 400 px at 640 px
+    width, the map a square at 3x the frame's larger footprint side around
+    the first frame, ``map_px`` a side (0: ``ceil(diagonal / 8) * 8``).
+    Returns the dataset's poses and map size."""
+    h, w = hw
+    f = 400.0 * max(w, h) / 640.0
+    k = np.array([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]])
+    map_px = map_px or int(np.ceil(float(np.hypot(h, w)) / 8)) * 8
+    side_px = int(round(3.0 * alt_m * max(h, w) / f / world.gsd_m))
+    cx, cy = world.to_px(*lonlat0)
+    x0, y0 = int(cx - side_px / 2), int(cy - side_px / 2)
+    left, top = world.to_lonlat(x0, y0)
+    right, bottom = world.to_lonlat(x0 + side_px, y0 + side_px)
+    os.makedirs(os.path.join(out, "frames"), exist_ok=True)
+    with open(os.path.join(out, "map.png"), "wb") as fh:
+        fh.write(encode_png(world.crop((left, bottom, right, top), map_px,
+                                       map_px)))
+    with open(os.path.join(out, "map.json"), "w") as fh:
+        json.dump({"left": left, "top": top, "right": right,
+                   "bottom": bottom, "dem": 0.0}, fh, indent=1)
+    with open(os.path.join(out, "camera.json"), "w") as fh:
+        json.dump({"k": k.tolist(), "width": w, "height": h}, fh, indent=1)
+    rows = []
+    for i in range(frames):
+        stamp = 1_000_000 + i * 500_000
+        lon, lat = lonlat0[0] + 1e-4 * i, lonlat0[1] + 5e-5 * i
+        with open(os.path.join(out, "frames", f"{stamp}.png"), "wb") as fh:
+            fh.write(encode_png(world.render_frame(lon, lat, alt_m, yaw_deg,
+                                                   k, hw)))
+        rows.append({"stamp_us": stamp, "lon": lon, "lat": lat,
+                     "alt_ellipsoid_m": alt_m, "yaw_deg": yaw_deg})
+    with open(os.path.join(out, "poses.csv"), "w", newline="") as fh:
+        wtr = csv.DictWriter(fh, fieldnames=list(rows[0]))
+        wtr.writeheader()
+        wtr.writerows(rows)
+    return {"poses": rows, "map_px": map_px, "k": k}
 
 
 class WorldWMS:

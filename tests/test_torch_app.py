@@ -111,11 +111,18 @@ class TestBuildApp:
         assert isinstance(app.mock_gps, NMEANode)
 
     def test_not_ported_options_raise(self):
-        with pytest.raises(NotImplementedError):
-            GisNavApp(wfst=True, device="cpu")
-        with pytest.raises(NotImplementedError):
-            GisNavApp(params={"pose_node": {"dev_topics": True}},
-                      device="cpu")
+        """Ported since: ``wfst=True`` adds the WFS-T sink and
+        ``dev_topics=True`` builds (``tests/test_torch_gis_server.py`` and
+        ``test_torch_viz.py`` drive them); neither raises."""
+        app = GisNavApp(wfst=True, device="cpu", params={
+            "wfst_node": {"wfst_url": "http://127.0.0.1:9/wfst",
+                          "timeout_s": 1.0}})
+        assert app.wfst is not None and app.wfst in app.nodes
+        app.shutdown()
+        app = GisNavApp(params={"pose_node": {"dev_topics": True}},
+                        device="cpu")
+        assert app.pose.param("dev_topics") and app.wfst is None
+        app.shutdown()
 
 
 @pytest.fixture(scope="module")
