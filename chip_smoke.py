@@ -9,6 +9,7 @@
     python3 chip_smoke.py --graph    # build + path 8 (the node graph) only
     python3 chip_smoke.py --train    # build + gradients + path 9 (training)
     python3 chip_smoke.py --deploy   # build + paths 10 and 11 only
+    python3 chip_smoke.py --multistream   # build + path 12 only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -23,8 +24,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (SuperPoint + LightGlue-9) at 1088x1920 and 2048 keypoints over a seeded
    rendered scene: 8 frames over 3 rotation buckets, during which its four
    kernels must launch, then a timing window of 14 bucket-refresh frames and
-   64 cached frames (``--profile`` adds a torch.profiler pass over 10 more
-   cached frames for the device's busy time and idle share);
+   64 cached frames, each the replay of the runner's captured frame graph;
+   then the same 64 frames through ``build_frame_to_geopose_warpcached``
+   eagerly (same bucket features, RANSAC noise from the same seeds):
+   matches and inliers identical and the fix within 1 mm, and a tapped
+   copy of the program (LightGlue's ``matches0`` and RANSAC's sample
+   indices as outputs) graphed against eager on 16 of them, both
+   identical; the graphed and eager p50 / p90, each side's device busy
+   time (torch.profiler over 10 frames) and idle share, the capture's time
+   and the graph pool's memory;
 5. path 2: the cached-reference runner on a 2048x2048 map with 4096
    reference keypoints over the 8x8 tile grid: one map extraction, then 16
    frames at 2048 query keypoints (fused LightGlue, one stream at a time),
@@ -116,7 +124,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    same flight over an 896-px map, a side the shear kernel serves (valid,
    within 10 m, K6 2 + 1 a frame); learned_lg9, printed only (cached mode
    at 3x gives no valid fix in either package);
-15. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+15. path 12: multistream, 8 camera feeds of learned_lg9 in cached mode
+   (1088x1920, 2048 keypoints, each over a map of its own like path 2's,
+   2048 px at 1.3x) at 8 points of a 150 m ring of one world, 115 m apart,
+   each with its own yaw, the camera 50 m off its map's centre (so a fix
+   read through another stream's map lands 30-38 m off): one captured
+   graph a tick, the 8 frame programs on 8 forked streams. Every stream
+   within 10 m of its own truth and a one-stream scramble over 10 m off;
+   stream i identical to the single-stream graphed frame on the same input
+   and seed (``matches0``, matches and inliers; the fix within 1 mm), the
+   sequential capture identical to the forked one; 32 ticks back to back
+   between CUDA events for the forked capture, the sequential capture and
+   8 single-frame replays: stream-frames/s, tick p50 / p90, exactly 8 path-2
+   frames' K1-K4 launches a tick; the forked tick's device busy time (the
+   union of its kernels' intervals, torch.profiler over 4 ticks);
+16. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone).
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
@@ -171,6 +193,10 @@ MODULE_KP = 1792  # a budget outside the fused predicate: the module route
 MAP = 2048  # side of the cached mode's map
 STEM_RAGGED = (100, 132)  # even, no multiple of the kernel's 8x16 tile
 CACHED_FRAMES = 64  # timing window of frames that hit the bucket cache
+# path 12: camera feeds a tick, each with its own yaw, and the ticks timed
+STREAMS = 8
+STREAM_YAWS = [10.0, 55.0, 100.0, 145.0, 190.0, 235.0, 280.0, 325.0]
+MULTISTREAM_TICKS = 32
 CONV_SHAPES = [  # (name, h, w, cin, cmid, cout or None, pool) per image
     ("stage2", 544, 960, 64, 64, 64, True),
     ("stage3", 272, 480, 64, 128, 128, True),
@@ -1496,9 +1522,13 @@ def phase_train_path() -> dict:
     return out
 
 
-def profile_frames(run_frame, frames, n: int = 10) -> float:
+def profile_frames(run_frame, frames, n: int = 10,
+                   union: bool = False) -> float:
     """Device time by kernel over ``n`` frames (torch.profiler);
-    returns the device's busy ms per frame."""
+    returns the device's busy ms per frame: the kernels' and copies'
+    summed durations, or with ``union`` the span of the union of their
+    intervals (where branches of one graph overlap, the sum counts the
+    overlap twice)."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -1517,14 +1547,23 @@ def profile_frames(run_frame, frames, n: int = 10) -> float:
     dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
            if _on_device(e) and e.self_device_time_total > 0]
     busy = sum(d for _, d, _ in dev) / n
-    log(f"[profile] device busy {busy:.3f} ms/frame over {n} frames; "
-        f"the profiled wall ({wall_ms / n:.1f} ms/frame) carries the "
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if _on_device(e)
+                   and e.time_range.end > e.time_range.start)
+    covered, end = 0.0, -np.inf
+    for a, b in spans:
+        covered += max(0.0, b - max(a, end))
+        end = max(end, b)
+    covered_ms = covered / 1e3 / n
+    log(f"[profile] device busy {busy:.3f} ms/frame over {n} frames "
+        f"(union of intervals {covered_ms:.3f}); the profiled wall "
+        f"({wall_ms / n:.1f} ms/frame) carries the "
         f"tracer's own cost, so the idle share is taken against the "
         f"unprofiled frame p50 of this run")
     for key, d, count in sorted(dev, key=lambda x: -x[1])[:20]:
         log(f"[profile] {d / n:9.3f} ms/frame {count // n:6d} calls/frame "
             f"{key[:90]}")
-    return busy
+    return covered_ms if union else busy
 
 
 def _frame(runner, scene, i: int, tag: str = "", **kw):
@@ -1550,15 +1589,19 @@ def _frame(runner, scene, i: int, tag: str = "", **kw):
     return pose, ms, err, fix
 
 
+def _gate(pose, err: float, fix: dict, what: str) -> None:
+    """Raise unless the fix is valid, finite and within 10 m."""
+    if not (bool(pose.valid) and err < 10.0
+            and np.isfinite(fix["alt_ellipsoid"])):
+        raise RuntimeError(f"{what}: fix invalid or {err:.2f} m off")
+
+
 def fly(runner, scene, i: int, tag: str = "", **kw):
     """One frame of ``scene`` through ``runner``: (ms on the host clock
     around a synchronised frame, error in metres); raises unless the fix is
     valid, finite and within 10 m of the truth."""
     pose, ms, err, fix = _frame(runner, scene, i, tag, **kw)
-    if not (bool(pose.valid) and err < 10.0
-            and np.isfinite(fix["alt_ellipsoid"])):
-        raise RuntimeError(f"{tag or f'frame {i}'} (yaw {scene.yaws[i]}): "
-                           f"fix invalid or {err:.2f} m off")
+    _gate(pose, err, fix, f"{tag or f'frame {i}'} (yaw {scene.yaws[i]})")
     return ms, err
 
 
@@ -3004,6 +3047,197 @@ def phase_digest() -> None:
     log("[digest] done")
 
 
+def _tick_times(tick, ticks: int) -> dict:
+    """``ticks`` calls of ``tick(t)`` issued back to back between CUDA
+    events: each tick's device-timeline span, the whole window, and the
+    kernels launched over it."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(ticks + 1)]
+    marks[0].record()
+    for t in range(ticks):
+        tick(t)
+        marks[t + 1].record()
+    marks[-1].synchronize()
+    ms = [marks[t].elapsed_time(marks[t + 1]) for t in range(ticks)]
+    return {"tick_p50_ms": float(np.median(ms)),
+            "tick_p90_ms": float(np.percentile(ms, 90)),
+            "window_ms": float(marks[0].elapsed_time(marks[-1])),
+            "launches": dict(LAUNCHES)}
+
+
+def phase_multistream_path() -> dict:
+    """Path 12: STREAMS camera feeds in one captured graph a tick.
+
+    learned_lg9 in cached mode at 1088x1920 with 2048 keypoints, each
+    stream over a map of its own like path 2's (2048 px at 1.3x the
+    footprint) at a point of a 150 m ring of one world, the camera 50 m off
+    its map's centre (``utils.world.render_streams``): neighbours are 115 m
+    apart, and a fix read through another stream's map lands 38 m off, so
+    a stream-to-output scramble fails the 10 m gate. Every stream's fix
+    within 10 m of its own truth; stream i equal to the single-stream
+    graphed frame on the same input and seed (``matches0`` identical, the
+    fix within 1 mm), and the sequential capture equal to the forked one;
+    then 32 ticks back to back between CUDA events for each of the forked
+    capture, the sequential capture and STREAMS single-frame replays, and
+    the forked tick's device busy time (torch.profiler over 4 ticks).
+    """
+    from gisnav_tpu_torch.features.superpoint import SuperPointFeatures
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose_cached,
+        build_models,
+        build_reference_extractor,
+        geopose_to_wgs84_f64,
+    )
+    from gisnav_tpu_torch.pipeline.graph import FrameGraph
+    from gisnav_tpu_torch.pipeline.multistream import (
+        build_multistream_pipeline,
+    )
+    from gisnav_tpu_torch.pnp.ransac import draw_noise
+    from gisnav_tpu_torch.utils.world import render_streams
+    from gisnav_tpu_torch.weights import load_bundled, params_from_jax
+
+    t0 = time.time()
+    dev = torch.device("cuda")
+    scenes = render_streams(seed=12, h=H, w=W, yaws=STREAM_YAWS,
+                            map_side=MAP, coverage=CACHED_COVERAGE)
+    log(f"[multistream] {STREAMS} scenes in {time.time() - t0:.1f} s")
+    params, config = load_bundled("learned_lg9")
+    # the cached runner's mean-pool rule at this altitude and map GSD
+    s0 = scenes[0]
+    gsd_scale = (s0.alt_m / float(s0.k[0, 0])) / abs(float(
+        s0.crs_affine[2, 2]))
+    ds = next((c for c in (4, 2) if gsd_scale < 0.7 / c * 2), 1)
+    cfg = dataclasses.replace(config, image_shape=(H, W),
+                              max_keypoints=MAX_KP, lightglue_depth=9,
+                              ortho_shape=(MAP, MAP), detector_downsample=ds)
+    taps: list = []
+    models = _tapped(build_models(params_from_jax(params, dev), cfg), taps)
+    extract = build_reference_extractor(cfg)
+    refs = [extract(models, torch.as_tensor(s.ortho, device=dev).float()
+                    / 255.0) for s in scenes]
+    ref_feats = SuperPointFeatures(*(torch.stack(f) for f in zip(*refs)))
+    queries = torch.stack([torch.as_tensor(s.frames[0], device=dev).float()
+                           / 255.0 for s in scenes])
+    dems = torch.stack([torch.as_tensor(s.dem, device=dev) for s in scenes])
+    ks, affs = (torch.stack([torch.as_tensor(np.asarray(getattr(s, a),
+                                                        np.float32),
+                                             device=dev) for s in scenes])
+                for a in ("k", "crs_affine"))
+    batch = (queries, ref_feats, dems, ks, affs)
+    gens = [torch.Generator(device=dev) for _ in range(STREAMS)]
+
+    def seeded(t):
+        for i, g in enumerate(gens):
+            g.manual_seed(1000 * t + i + 1)
+        return gens
+
+    def fixes(out, shift=0):
+        """Stream i's fix, read through stream (i + shift)'s map, and its
+        error against that stream's truth."""
+        from gisnav_tpu_torch.geometry.crs import haversine_m
+
+        rows = []
+        for i in range(STREAMS):
+            j = (i + shift) % STREAMS
+            pose = type(out)(*(f[i] for f in out))
+            fix = geopose_to_wgs84_f64(pose, scenes[j].crs_affine)
+            lon, lat = scenes[j].truth_lonlat[0]
+            rows.append((pose, fix, haversine_m(lat, lon, fix["lat"],
+                                                fix["lon"])))
+        return rows
+
+    forked = build_multistream_pipeline(cfg)
+    sequential = build_multistream_pipeline(cfg, fork_streams=False)
+    forked(models, *batch, seeded(0))  # captures; the warm-up's result
+    out = forked(models, *batch, seeded(1))
+    m0_forked = [m.clone() for m in taps[-STREAMS:]]
+    rows = fixes(out)
+    for i, (pose, fix, err) in enumerate(rows):
+        _gate(pose, err, fix, f"[multistream] stream {i}")
+    scrambled = [err for _, _, err in fixes(out, shift=1)]
+    if min(scrambled) < 10.0:
+        raise RuntimeError(f"path 12: a scrambled stream passes the 10 m "
+                           f"gate ({min(scrambled):.2f} m)")
+
+    # each stream against the single-stream graphed frame, same seed
+    frame = build_frame_to_geopose_cached(cfg)
+    single = FrameGraph(
+        lambda q, feats, dem, k, aff, noise: frame(
+            models, q, feats, dem, k, aff, noise=noise),
+        dev, sticky=(1, 2))
+
+    def one(i, t):
+        feats = SuperPointFeatures(*(f[i] for f in ref_feats))
+        gens[i].manual_seed(1000 * t + i + 1)
+        return single(queries[i], feats, dems[i], ks[i], affs[i],
+                      draw_noise(gens[i], cfg.num_hypotheses,
+                                 cfg.max_keypoints))
+
+    one(0, 0)  # captures
+    moved = []
+    for i in range(STREAMS):
+        pose = one(i, 1)
+        stream = type(out)(*(f[i] for f in out))
+        if not (torch.equal(taps[-1], m0_forked[i])
+                and _same_pose(pose, stream)):
+            raise RuntimeError(f"path 12: stream {i} differs from its "
+                               f"single-stream frame")
+        moved.append(_fix_moved(rows[i][1], geopose_to_wgs84_f64(
+            pose, scenes[i].crs_affine)))
+    sequential(models, *batch, seeded(0))  # captures
+    seq = sequential(models, *batch, seeded(1))
+    for i, (pose, fix, _) in enumerate(fixes(seq)):
+        stream = type(out)(*(f[i] for f in out))
+        if not (torch.equal(taps[-STREAMS + i], m0_forked[i])
+                and _same_pose(pose, stream)):
+            raise RuntimeError(f"path 12: the sequential capture differs "
+                               f"from the forked one on stream {i}")
+        moved.append(_fix_moved(rows[i][1], fix))
+    if max(moved) > 1e-3:
+        raise RuntimeError(f"path 12: a stream's fix moved {max(moved)} m "
+                           f"between captures")
+
+    per_frame = {"stem_stage": 1, "conv_stage": 8, "nms_select": 1,
+                 "fused_block": 72}  # path 2's cached frame at 2048
+    modes = {
+        "forked": lambda t: forked(models, *batch, seeded(t + 2)),
+        "sequential": lambda t: sequential(models, *batch, seeded(t + 2)),
+        "single_frames": lambda t: [one(i, t + 2) for i in range(STREAMS)],
+    }
+    out_modes = {}
+    for name, tick in modes.items():
+        r = _tick_times(tick, MULTISTREAM_TICKS)
+        expect_launches(f"multistream {name}", r["launches"],
+                        {k: n * STREAMS * MULTISTREAM_TICKS
+                         for k, n in per_frame.items()})
+        r["stream_frames_per_s"] = (STREAMS * MULTISTREAM_TICKS
+                                    / r["window_ms"] * 1e3)
+        out_modes[name] = r
+        log(f"[multistream] {name}: {r['stream_frames_per_s']:.1f} "
+            f"stream-frames/s, tick p50 {r['tick_p50_ms']:.2f} ms, p90 "
+            f"{r['tick_p90_ms']:.2f} ms")
+    busy = profile_frames(modes["forked"], list(range(4)), n=4,
+                          union=True)
+    (graph,) = forked.graphs.values()
+    result = {
+        "streams": STREAMS, "detector_downsample": ds,
+        "max_error_m": float(max(r[2] for r in rows)),
+        "min_scrambled_error_m": float(min(scrambled)),
+        "max_fix_move_m": float(max(moved)), **out_modes,
+        "forked_busy_ms": busy,
+        "forked_idle_share": 1.0 - busy / out_modes["forked"]["tick_p50_ms"],
+        "launches_a_tick": {k: n // MULTISTREAM_TICKS for k, n in
+                            out_modes["forked"]["launches"].items()},
+        "capture_ms": graph.capture_ms,
+        "graph_pool_mib": graph.pool_bytes / 2 ** 20,
+        "seconds": time.time() - t0}
+    log("[multistream] " + json.dumps(result))
+    return result
+
+
 def phase_cellmax_stage() -> int:
     """The NMS cell-max stage on a frame-sized and a map-sized heatmap, as
     the JAX package's stage bench runs its kernel; returns the launches."""
@@ -3026,7 +3260,7 @@ def phase_cellmax_stage() -> int:
     return launches["nms_cellmax"]
 
 
-def phase_main_path(profile_run: bool = False) -> dict:
+def phase_main_path() -> dict:
     from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
     from gisnav_tpu_torch.pipeline.runners import make_bucketed_warp_runner
     from gisnav_tpu_torch.utils.world import render_scene
@@ -3073,7 +3307,19 @@ def phase_main_path(profile_run: bool = False) -> dict:
         run_frame(i)
     refresh_ms = [run_frame(i) for i in cycle * 2]
     last4 = cycle[-4:]
-    cached_ms = [run_frame(last4[j % 4]) for j in range(CACHED_FRAMES)]
+    # the cached frames replay the runner's graph; each is kept with its
+    # RANSAC seed for the eager program to run again
+    cached_ms, graphed = [], []
+    for j in range(CACHED_FRAMES):
+        i = last4[j % 4]
+        pose, ms, err, fix = _frame(runner, scene, i)
+        _gate(pose, err, fix, f"[main] cached frame {j} (yaw "
+                              f"{scene.yaws[i]})")
+        errors.append(err)
+        cached_ms.append(ms)
+        # the LRU's newest entry is the bucket this frame matched against
+        bucket = runner.buckets[next(reversed(runner.buckets))]
+        graphed.append((i, runner.stats["frames"], pose, fix, bucket))
     p50 = float(np.median(cached_ms))
     out = {"frame_p50_ms": p50,
            "frame_p90_ms": float(np.percentile(cached_ms, 90)),
@@ -3082,12 +3328,146 @@ def phase_main_path(profile_run: bool = False) -> dict:
            "cached_frames": len(cached_ms), "refresh_frames": len(refresh_ms),
            "fixes": len(errors), "max_error_m": float(max(errors)),
            "mean_error_m": float(np.mean(errors)), "launches": launches}
-    if profile_run:
-        busy = profile_frames(run_frame, last4)
-        out["device_busy_ms"] = busy
-        out["device_idle_share"] = 1.0 - busy / p50
+    out["graph"] = graph_vs_eager(runner, scene, config, graphed, run_frame,
+                                  last4)
+    out["device_busy_ms"] = out["graph"]["graphed_busy_ms"]
+    out["device_idle_share"] = 1.0 - out["device_busy_ms"] / p50
     log("[main] " + json.dumps(out))
     out["scene"], out["params"], out["config"] = scene, params, config
+    return out
+
+
+def _tapped(models, taps: list):
+    """``models`` whose LightGlue also appends its ``matches0`` to
+    ``taps``: inside a captured graph the tensor kept there is the graph's
+    own, which each replay rewrites."""
+    lightglue = models["lightglue"]
+
+    def tap(*args):
+        match = lightglue(*args)
+        taps.append(match.matches0)
+        return match
+
+    return {**models, "lightglue": tap}
+
+
+def _same_pose(a, b) -> bool:
+    """The match and inlier fields of two poses identical."""
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "matched_qry", "matched_ref", "match_mask", "num_matches",
+        "num_inliers", "valid"))
+
+
+def _fix_moved(a: dict, b: dict) -> float:
+    """Metres between two f64 fixes, horizontally and in altitude."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+
+    return max(haversine_m(a["lat"], a["lon"], b["lat"], b["lon"]),
+               abs(a["alt_ellipsoid"] - b["alt_ellipsoid"]))
+
+
+def graph_vs_eager(runner, scene, config, graphed, run_frame, last4) -> dict:
+    """Path 1, graphed against eager on the same cached frames.
+
+    The runner's frames replayed its captured program; here
+    ``build_frame_to_geopose_warpcached`` runs each again eagerly, on the
+    same bucket features and with RANSAC's noise from the same seed: the
+    matches and inliers must be identical and the fix within 1 mm. A tapped
+    copy of the program (LightGlue's ``matches0`` and RANSAC's sample
+    indices as outputs) is captured as well and held against its eager run
+    on 16 of the frames: ``matches0`` and the indices identical. Both
+    sides' device busy time comes from torch.profiler over 10 frames.
+    """
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose_warpcached,
+        geopose_to_wgs84_f64,
+    )
+    from gisnav_tpu_torch.pipeline.graph import FrameGraph
+    from gisnav_tpu_torch.pnp.ransac import draw_noise, draw_samples
+
+    dev = torch.device("cuda")
+    hot = build_frame_to_geopose_warpcached(config)
+    models = runner.models
+    gen = torch.Generator(device=dev)
+    k, aff = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+              for a in (scene.k, scene.crs_affine))
+
+    def inputs(i, seed, bucket):
+        q = torch.as_tensor(scene.frames[i].astype(np.float32),
+                            device=dev) / 255.0
+        gen.manual_seed(seed)
+        return (q, *bucket, draw_noise(gen, config.num_hypotheses,
+                                       config.max_keypoints))
+
+    def eager(i, seed, bucket):
+        q, feats, dem, m_crop, noise = inputs(i, seed, bucket)
+        return hot(models, q, feats, dem, m_crop, k, aff, noise=noise)
+
+    first = (graphed[0][0], graphed[0][1], graphed[0][4])
+    eager_ms, moved = [], []
+    eager(*first)  # once untimed, as the runner's first frame
+    for i, seed, pose, fix, bucket in graphed:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e = eager(i, seed, bucket)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t) * 1e3)
+        if not _same_pose(pose, e):
+            raise RuntimeError(f"path 1: graphed and eager frames differ "
+                               f"in their matches (frame {i})")
+        moved.append(_fix_moved(fix, geopose_to_wgs84_f64(
+            e, scene.crs_affine)))
+    if max(moved) > 1e-3:
+        raise RuntimeError(f"path 1: graphed fix {max(moved)} m from the "
+                           f"eager one")
+
+    # the tapped program, graphed and eager
+    taps: list = []
+    tapped_models = _tapped(models, taps)
+
+    def tapped(q, feats, dem, m_crop, k_, aff_, noise):
+        def samples(mask, _):
+            idx = draw_samples(mask, config.num_hypotheses, noise=noise)
+            taps.append(idx)
+            return idx
+
+        pose = hot(tapped_models, q, feats, dem, m_crop, k_, aff_,
+                   sample_idx=samples)
+        return pose, taps[-2], taps[-1]
+
+    program = FrameGraph(tapped, dev, sticky=(1, 2, 3))
+    q, feats, dem, m_crop, noise = inputs(*first)
+    program(q, feats, dem, m_crop, k, aff, noise)  # captures
+    for i, seed, _, _, bucket in graphed[:16]:
+        q, feats, dem, m_crop, noise = inputs(i, seed, bucket)
+        g_pose, g_m0, g_idx = program(q, feats, dem, m_crop, k, aff, noise)
+        e_pose, e_m0, e_idx = tapped(q, feats, dem, m_crop, k, aff, noise)
+        if not (torch.equal(g_m0, e_m0) and torch.equal(g_idx, e_idx)
+                and _same_pose(g_pose, e_pose)):
+            raise RuntimeError(f"path 1: the graphed program's matches0 or "
+                               f"RANSAC indices differ from eager (frame "
+                               f"{i})")
+        moved.append(_fix_moved(
+            geopose_to_wgs84_f64(g_pose, scene.crs_affine),
+            geopose_to_wgs84_f64(e_pose, scene.crs_affine)))
+    if max(moved) > 1e-3:
+        raise RuntimeError(f"path 1: tapped graph {max(moved)} m from eager")
+
+    busy_graphed = profile_frames(run_frame, last4)
+    buckets = {row[0]: row[4] for row in graphed}
+    busy_eager = profile_frames(
+        lambda i: eager(i, graphed[0][1], buckets[i]), last4)
+    (graph,) = runner.graphs.values()
+    out = {"eager_p50_ms": float(np.median(eager_ms)),
+           "eager_p90_ms": float(np.percentile(eager_ms, 90)),
+           "graphed_busy_ms": busy_graphed, "eager_busy_ms": busy_eager,
+           "eager_idle_share": 1.0 - busy_eager / float(np.median(eager_ms)),
+           "frames_compared": len(graphed), "tapped_frames_compared": 16,
+           "max_fix_move_m": float(max(moved)),
+           "capture_ms": graph.capture_ms,
+           "graph_pool_mib": graph.pool_bytes / 2 ** 20,
+           "replays": graph.replays, "launches_a_replay": graph.launches}
+    log("[main graph] " + json.dumps(out))
     return out
 
 
@@ -3099,7 +3479,8 @@ def main(argv=None) -> int:
                     help="build, check and time the kernels, drive no path "
                          "(to compare two sources of a kernel in one call)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile paths 1-8 (torch.profiler)")
+                    help="also profile paths 2-8 (torch.profiler; paths 1 "
+                         "and 12 always are)")
     ap.add_argument("--seed-spread", action="store_true",
                     help="only print how the cached runner's fixes move "
                          "over RANSAC seeds")
@@ -3114,6 +3495,9 @@ def main(argv=None) -> int:
     ap.add_argument("--deploy", action="store_true",
                     help="only drive paths 10 (the deployed constellation) "
                          "and 11 (replay)")
+    ap.add_argument("--multistream", action="store_true",
+                    help="only drive path 12 (multistream, one graph a "
+                         "tick)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -3130,6 +3514,10 @@ def main(argv=None) -> int:
         return 0
     if args.graph:
         phase_graph_path(args.profile)
+        return 0
+    if args.multistream:
+        phase_multistream_path()
+        log(f"[phase] path 12 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -3165,7 +3553,7 @@ def main(argv=None) -> int:
             for r in results]}))
         return 0
     log(f"[phase] kernels done at {time.time() - t_start:.1f} s")
-    main_path = phase_main_path(args.profile)
+    main_path = phase_main_path()
     params, config = main_path["params"], main_path["config"]
     log(f"[phase] path 1 done at {time.time() - t_start:.1f} s")
     cached = phase_cached_path(params, config, args.profile)
@@ -3189,6 +3577,9 @@ def main(argv=None) -> int:
     log(f"[phase] path 10 done at {time.time() - t_start:.1f} s")
     replays = phase_replay_path()
     log(f"[phase] path 11 done at {time.time() - t_start:.1f} s")
+    phase_multistream_path()
+    torch.cuda.empty_cache()  # the path's graph pools
+    log(f"[phase] path 12 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][

@@ -64,6 +64,9 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
                       one - m00 - m11 + m22, m[1, 0] - m[0, 1]])
     scores = torch.stack([one + t, one + m00 - m11 - m22,
                           one - m00 + m11 - m22, one - m00 - m11 + m22])
-    q = torch.stack([qw, qx, qy, qz])[torch.argmax(scores)]
+    # a 1-element index tensor, not a 0-d one (which indexing would read
+    # back to the host): the frame programs capture this in a CUDA graph
+    q = torch.stack([qw, qx, qy, qz]).index_select(
+        0, torch.argmax(scores).reshape(1))[0]
     q = q / torch.linalg.norm(q)
     return q * torch.sign(torch.where(q[3] == 0, one, q[3]))

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each ``*.cu`` source in this directory is one shared library with a plain C
-interface, compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` (listed in
-``.gitignore``). The library name carries a hash of its source and of every
-``*.cuh`` header beside it, so an edited kernel or header is rebuilt and a
-built one is reused. All missing libraries build in parallel, one ``nvcc``
+interface, compiled by ``nvcc`` for ``sm_90a`` into ``_build/<key>/``
+(``_build`` is listed in ``.gitignore``; ``<key>`` is
+``utils.jitcache.host_key()``, the host's CPU, card, CUDA runtime, ``nvcc``
+and torch, so a library built elsewhere is never loaded). The library name
+carries a hash of its source and of every ``*.cuh`` header beside it, so an
+edited kernel or header is rebuilt and a built one is reused. All missing libraries build in parallel, one ``nvcc``
 process per source. A failed build raises: there is no fallback to the plain
 PyTorch versions on a CUDA tensor.
 """
@@ -18,11 +20,12 @@ import subprocess
 import threading
 from typing import Dict
 
+from gisnav_tpu_torch.utils.jitcache import cache_dir, enable_persistent_cache
+
 __all__ = ["SOURCES", "aligned16", "build_all", "library", "check",
            "check_device", "ptr", "stream_of", "typed"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("conv", "nms_select", "lightglue_block", "attention", "shear")
 _FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-shared", "-Xcompiler", "-fPIC"]
@@ -47,12 +50,15 @@ def _target(name: str, src_dir: str = _HERE) -> str:
     for fname in [name + ".cu", *headers]:
         with open(os.path.join(src_dir, fname), "rb") as f:
             digest.update(fname.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+    return os.path.join(cache_dir(),
+                        f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:
     """Compile every source whose library is missing; return name -> path."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    if enable_persistent_cache() is None:
+        raise RuntimeError("the kernels are built for a CUDA card and this "
+                           "host has none")
     targets = {n: _target(n) for n in SOURCES}
     procs = {}
     for name, out in targets.items():

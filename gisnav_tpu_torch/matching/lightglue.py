@@ -52,9 +52,12 @@ class MatchResult(NamedTuple):
 
 def normalize_keypoints(kpts: torch.Tensor, height: int,
                         width: int) -> torch.Tensor:
-    """Centre and scale pixel coords to ~[-1, 1] (LightGlue convention)."""
-    size = torch.tensor([width, height], dtype=torch.float32,
-                        device=kpts.device)
+    """Centre and scale pixel coords to ~[-1, 1] (LightGlue convention).
+    The size is filled on the device (no host copy: a CUDA graph holds
+    this)."""
+    size = torch.full((2,), float(width), dtype=torch.float32,
+                      device=kpts.device)
+    size[1:].fill_(float(height))
     return (kpts - size / 2.0) / (torch.max(size) / 2.0)
 
 
@@ -71,7 +74,7 @@ def extract_matches(scores: torch.Tensor, mask0: torch.Tensor,
         m0, -1, m1)
     ok0 = mutual0 & (s0 > threshold) & mask0
     ok1 = mutual1 & (s1 > threshold) & mask1
-    neg = torch.tensor(-1, device=scores.device)
+    neg = torch.full((), -1, dtype=torch.int64, device=scores.device)
     zero = torch.zeros((), device=scores.device)
     return MatchResult(
         matches0=torch.where(ok0, m0, neg),

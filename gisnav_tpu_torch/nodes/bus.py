@@ -47,13 +47,16 @@ __all__ = ["LocalBus", "ShmBus", "build_native_lib", "segment_name"]
 _log = logging.getLogger("gisnav_tpu_torch.bus")
 _STOP = object()
 QUEUE_DEPTH = 4
+WORKER_NAME = "gisnav-bus-worker"
 
 
 class LocalBus:
     """In-process topic dispatch, synchronous or one worker a subscriber.
 
     ``dropped`` counts the messages an asynchronous bus dropped because a
-    subscriber's queue was full.
+    subscriber's queue was full. After :meth:`close` a message that reaches
+    an enqueuer (one that ``publish`` took before the close) is dropped, and
+    no worker starts for it.
     """
 
     def __init__(self, async_dispatch: bool = False):
@@ -61,6 +64,7 @@ class LocalBus:
         self._async = async_dispatch
         self._lock = threading.Lock()
         self._workers: List[Tuple[queue.Queue, threading.Thread]] = []
+        self._closed = False
         self.dropped = 0
 
     def subscribe(self, topic: str, callback: Callable[[Any], None]) -> None:
@@ -85,11 +89,18 @@ class LocalBus:
 
         def enqueue(msg):
             # the worker starts with the first message: a graph that is
-            # built and never driven starts no thread
+            # built and never driven starts no thread. ``_closed`` is read
+            # under the lock that ``close`` sets it under, so a worker is
+            # either started before the close (and stopped by it) or never
+            if self._closed:
+                return
             if not started.is_set():
                 with self._lock:
+                    if self._closed:
+                        return
                     if not started.is_set():
-                        t = threading.Thread(target=worker, daemon=True)
+                        t = threading.Thread(target=worker, daemon=True,
+                                             name=WORKER_NAME)
                         t.start()
                         self._workers.append((q, t))
                         started.set()
@@ -112,6 +123,7 @@ class LocalBus:
         daemon thread inside a device call at interpreter teardown can
         abort the process); later publishes reach no subscriber."""
         with self._lock:
+            self._closed = True
             workers, self._workers = self._workers, []
             self._subs.clear()
         for q, _ in workers:

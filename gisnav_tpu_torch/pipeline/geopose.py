@@ -9,7 +9,9 @@ Counterpart of ``gisnav_tpu/pipeline/geopose.py`` (``PipelineConfig``,
 semi-dense: ``init_semidense_params``, ``build_frame_to_geopose_semidense``;
 the random init of training: ``init_pipeline_params``).
 PyTorch runs eagerly, so the builders return plain functions over the
-models (``build_models``) and device tensors.
+models (``build_models``) and device tensors. The cached and bucketed
+per-frame programs take every input as a tensor (RANSAC's noise too), so
+``pipeline.graph`` can capture each as one CUDA graph.
 """
 from __future__ import annotations
 
@@ -192,12 +194,15 @@ def build_warp_reference_extractor(config: PipelineConfig) -> Callable:
 
 
 def _pose_from_matches(config, kp_pnp, mkp_ref, mvalid, dem, m_crop, k,
-                       crs_affine, sample_idx, generator) -> GeoPose:
+                       crs_affine, sample_idx, generator,
+                       noise=None) -> GeoPose:
     """The tail every frame program shares: DEM z-lift in crop-pixel units,
     RANSAC-PnP, geopose assembly. ``kp_pnp`` are the query points in true
     camera pixels, ``mkp_ref`` their matches in the crop, ``mvalid`` the
     match mask. ``sample_idx`` may be a callable taking the match mask and
-    ``kp_pnp`` and returning the (num_hypotheses, 4) RANSAC samples."""
+    ``kp_pnp`` and returning the (num_hypotheses, 4) RANSAC samples;
+    ``noise`` is drawn ahead (``pnp.ransac.draw_noise``) in place of
+    ``generator``."""
     from gisnav_tpu_torch.pnp.dem import gather_elevation
     from gisnav_tpu_torch.pnp.ransac import ransac_pnp
 
@@ -211,7 +216,7 @@ def _pose_from_matches(config, kp_pnp, mkp_ref, mvalid, dem, m_crop, k,
     if callable(sample_idx):
         sample_idx = sample_idx(mvalid, kp_pnp)
     pnp = ransac_pnp(obj, kp_pnp, k, mvalid, sample_idx=sample_idx,
-                     generator=generator,
+                     generator=generator, noise=noise,
                      num_hypotheses=config.num_hypotheses,
                      threshold_px=config.threshold_px,
                      min_inliers=config.min_matches,
@@ -229,7 +234,8 @@ def _pose_from_matches(config, kp_pnp, mkp_ref, mvalid, dem, m_crop, k,
 
 def _pose_from_features(config, models, kp_match, kp_pnp, f_qry, size_qry,
                         ref_kp, ref_desc, ref_mask, size_ref, dem, m_crop,
-                        k, crs_affine, sample_idx, generator) -> GeoPose:
+                        k, crs_affine, sample_idx, generator,
+                        noise=None) -> GeoPose:
     """LightGlue, then the shared tail. ``kp_match`` are the query
     keypoints the matcher sees, ``kp_pnp`` the same keypoints in true
     camera pixels."""
@@ -240,27 +246,30 @@ def _pose_from_features(config, models, kp_match, kp_pnp, f_qry, size_qry,
     return _pose_from_matches(config, kp_pnp,
                               ref_kp[torch.clamp(midx, min=0)], midx >= 0,
                               dem, m_crop, k, crs_affine, sample_idx,
-                              generator)
+                              generator, noise)
 
 
 def build_frame_to_geopose_warpcached(config: PipelineConfig) -> Callable:
     """Per-frame hot path of the bucketed warp mode::
 
         fn(models, query, ref_feats, dem_crop, m_crop, k, crs_affine,
-           sample_idx=None, generator=None) -> GeoPose
+           sample_idx=None, generator=None, noise=None) -> GeoPose
 
     SuperPoint on the query, then the shared tail against the cached bucket
-    features."""
+    features. ``noise`` is RANSAC's (num_hypotheses, max_keypoints)
+    ``draw_noise``, drawn ahead in place of ``generator``."""
     h, w = config.image_shape
 
     def fn(models, query, ref_feats, dem_crop, m_crop, k, crs_affine,
            sample_idx: Optional[Any] = None,
-           generator: Optional[torch.Generator] = None) -> GeoPose:
+           generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None) -> GeoPose:
         f_qry = models["superpoint"](query)
         return _pose_from_features(
             config, models, f_qry.keypoints, f_qry.keypoints, f_qry, (h, w),
             ref_feats.keypoints, ref_feats.descriptors, ref_feats.mask,
-            (h, w), dem_crop, m_crop, k, crs_affine, sample_idx, generator)
+            (h, w), dem_crop, m_crop, k, crs_affine, sample_idx, generator,
+            noise)
 
     return fn
 
@@ -315,7 +324,7 @@ def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
 
         fn(models, query, ref_feats, dem, k, crs_affine, prior_xy=None,
            prior_radius=-1.0, rotation_deg=None, sample_idx=None,
-           generator=None) -> GeoPose
+           generator=None, noise=None) -> GeoPose
 
     ``ref_feats`` are the whole orthoimage's features, ``dem`` the whole DEM;
     the pose is in the full raster frame (``m_crop`` = identity). The query
@@ -325,8 +334,9 @@ def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
     reference) the QUERY is derotated by the inverse: features come from the
     north-up query (``kp_match``) while PnP sees the keypoints mapped back
     to camera pixels (``kp_pnp``). ``prior_xy`` / ``prior_radius`` (map px;
-    radius <= 0 disables) mask reference keypoints outside the predicted
-    neighbourhood."""
+    radius <= 0 disables; a (2,) and a () tensor on the device, or host
+    values) mask reference keypoints outside the predicted neighbourhood.
+    ``noise`` is RANSAC's noise drawn ahead, as in the bucketed program."""
     from gisnav_tpu_torch.raster import rotate_and_crop_auto
 
     h, w = config.image_shape
@@ -336,7 +346,8 @@ def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
     def fn(models, query, ref_feats, dem, k, crs_affine, prior_xy=None,
            prior_radius: float = -1.0, rotation_deg: Optional[float] = None,
            sample_idx: Optional[Any] = None,
-           generator: Optional[torch.Generator] = None) -> GeoPose:
+           generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None) -> GeoPose:
         hq, wq = query.shape
         src = query
         if ds > 1:
@@ -355,17 +366,18 @@ def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
 
         ref_mask = ref_feats.mask
         if prior_xy is not None:
-            pxy = torch.as_tensor(prior_xy, dtype=torch.float32,
-                                  device=ref_mask.device)
+            dev = ref_mask.device
+            pxy = torch.as_tensor(prior_xy, dtype=torch.float32, device=dev)
             d2 = ((ref_feats.keypoints - pxy[None]) ** 2).sum(dim=1)
-            r = float(np.float32(prior_radius))
+            r = torch.as_tensor(prior_radius, dtype=torch.float32,
+                                device=dev)
             ref_mask = ref_mask & ((r <= 0) | (d2 <= r * r))
 
         m_crop = torch.eye(3, dtype=torch.float32, device=query.device)
         return _pose_from_features(
             config, models, kp_match, kp_pnp, f_qry, (h, w),
             ref_feats.keypoints, ref_feats.descriptors, ref_mask, (oh, ow),
-            dem, m_crop, k, crs_affine, sample_idx, generator)
+            dem, m_crop, k, crs_affine, sample_idx, generator, noise)
 
     return fn
 

@@ -27,6 +27,18 @@ The ortho/DEM rasters are uploaded once per map key. RANSAC draws from a
 ``torch.Generator`` seeded with the frame counter. Each runner takes
 ``device=None`` -> ``cuda`` and raises without a card unless the caller
 passes ``device="cpu"``.
+
+On the card the cached and the bucketed runners replay their per-frame
+program as one CUDA graph (``pipeline.graph.FrameGraph``, the counterpart
+of the JAX runners' ``jax.jit``): one graph a query signature in the
+bucketed runner, one a ``(map shape, downsample, query signature)`` in the
+cached runner, as its programs are keyed. The query is uploaded as it comes
+(uint8) into the graph's buffer, a bucket's features and crop or the map's
+features and DEM only when they change, and RANSAC's noise is drawn from
+the seeded generator ahead of the replay (``pnp.ransac.draw_noise``), so a
+replayed frame and an eager one with the same seed draw the same samples.
+The bucket refresh, the exact-warp, derotating, semi-dense and classical
+programs stay eager. ``runner.graphs`` holds the captured programs.
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ import numpy as np
 import torch
 
 from gisnav_tpu_torch.device import resolve_device, strict_fp32
+from gisnav_tpu_torch.pipeline.graph import FrameGraph
 from gisnav_tpu_torch.pipeline.geopose import (
     GeoPose,
     PipelineConfig,
@@ -106,6 +119,22 @@ def _setup(params, config, device):
 
 def _f32(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def _host(a) -> torch.Tensor:
+    """A host tensor for a graph's input buffer: uint8 frames as they come
+    (a quarter of the f32 upload), anything else as f32."""
+    a = np.asarray(a)
+    if a.dtype != np.uint8:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _noise(generator, config) -> torch.Tensor:
+    from gisnav_tpu_torch.pnp.ransac import draw_noise
+
+    return draw_noise(generator, config.num_hypotheses,
+                      config.max_keypoints)
 
 
 def _gsd_zoom(k, crs_affine, altitude_agl) -> float:
@@ -203,12 +232,14 @@ def make_cached_deep_runner(params=None,
     (4 or 2) when the altitude says so. ``derotate`` feeds ``rotation_deg``
     into query-side derotation. ``prior_lonlat`` with an altitude masks map
     keypoints farther than 1.5 x 0.75 FOV diagonals from it.
-    ``runner.stats`` counts frames and map extractions.
+    ``runner.stats`` counts frames and map extractions. On the card each
+    frame without ``derotate`` replays its program's CUDA graph.
     """
     dev, config, models = _setup(params, config, device)
     generator = torch.Generator(device=dev)
     extract = build_reference_extractor(config)
     frame_fns: Dict[Tuple[tuple, int], object] = {}
+    graphs: Dict[tuple, FrameGraph] = {}
     state = {"map_key": None, "ref_feats": None, "dem": None, "n": 0}
     stats = {"frames": 0, "map_extractions": 0}
 
@@ -257,14 +288,29 @@ def make_cached_deep_runner(params=None,
             except np.linalg.LinAlgError:
                 pass
         generator.manual_seed(state["n"])
-        return frame_fns[(shape, ds)](
-            models, _f32(query, dev) / 255.0, state["ref_feats"],
-            state["dem"], _f32(k, dev), _f32(crs_affine, dev),
-            prior_xy=prior_xy, prior_radius=prior_radius,
-            rotation_deg=rotation_deg if derotate else None,
-            generator=generator)
+        fn = frame_fns[(shape, ds)]
+        if dev.type != "cuda" or derotate:
+            return fn(models, _f32(query, dev) / 255.0, state["ref_feats"],
+                      state["dem"], _f32(k, dev), _f32(crs_affine, dev),
+                      prior_xy=prior_xy, prior_radius=prior_radius,
+                      rotation_deg=rotation_deg if derotate else None,
+                      generator=generator)
+        q = _host(query)
+        key = (shape, ds, tuple(q.shape), q.dtype)
+        if key not in graphs:
+            graphs[key] = FrameGraph(
+                lambda q, feats, dem, k, aff, pxy, pr, noise, fn=fn: fn(
+                    models, q.float() / 255.0, feats, dem, k, aff,
+                    prior_xy=pxy, prior_radius=pr, noise=noise),
+                dev, sticky=(1, 2))
+        return graphs[key](
+            q, state["ref_feats"], state["dem"], _host(k),
+            _host(crs_affine), torch.from_numpy(prior_xy),
+            torch.tensor(prior_radius, dtype=torch.float32),
+            _noise(generator, config))
 
     runner.stats = stats
+    runner.graphs = graphs
     return runner
 
 
@@ -281,13 +327,18 @@ def make_bucketed_warp_runner(params=None,
     :param device: ``cuda`` unless the caller asks for ``cpu``; raises when
         CUDA is absent and no device is given
 
-    RANSAC draws from a ``torch.Generator`` seeded with the frame index.
+    RANSAC draws from a ``torch.Generator`` seeded with the frame index. On
+    the card each frame replays the per-frame program's CUDA graph (one a
+    query signature); a bucket refresh runs eagerly. ``runner.buckets`` is
+    the LRU of bucket features, ``runner.models`` the models and
+    ``runner.stats["frames"]`` the frames so far (the last frame's seed).
     """
     dev, config, models = _setup(params, config, device)
     extract = build_warp_reference_extractor(config)
     hot = build_frame_to_geopose_warpcached(config)
     generator = torch.Generator(device=dev)
-    counter = {"n": 0}
+    graphs: Dict[tuple, FrameGraph] = {}
+    stats = {"frames": 0}
     state = {"map_key": None, "ortho": None, "dem": None}
     buckets: "OrderedDict[tuple, tuple]" = OrderedDict()
     max_buckets = 4
@@ -317,9 +368,25 @@ def make_bucketed_warp_runner(params=None,
             while len(buckets) > max_buckets:
                 buckets.popitem(last=False)
         feats, dem_crop, m_crop = buckets[ref_key]
-        counter["n"] += 1
-        generator.manual_seed(counter["n"])
-        return hot(models, _f32(query, dev) / 255.0, feats, dem_crop, m_crop,
-                   _f32(k, dev), _f32(crs_affine, dev), generator=generator)
+        stats["frames"] += 1
+        generator.manual_seed(stats["frames"])
+        if dev.type != "cuda":
+            return hot(models, _f32(query, dev) / 255.0, feats, dem_crop,
+                       m_crop, _f32(k, dev), _f32(crs_affine, dev),
+                       generator=generator)
+        q = _host(query)
+        key = (tuple(q.shape), q.dtype)
+        if key not in graphs:
+            graphs[key] = FrameGraph(
+                lambda q, feats, dem, m, k, aff, noise: hot(
+                    models, q.float() / 255.0, feats, dem, m, k, aff,
+                    noise=noise),
+                dev, sticky=(1, 2, 3))
+        return graphs[key](q, feats, dem_crop, m_crop, _host(k),
+                           _host(crs_affine), _noise(generator, config))
 
+    runner.stats = stats
+    runner.graphs = graphs
+    runner.buckets = buckets
+    runner.models = models
     return runner

@@ -10,6 +10,14 @@ Hypothesis samples come from a ``torch.Generator`` (four distinct indices
 per hypothesis, weighted by the validity mask), or from ``sample_idx`` so a
 caller can reproduce another implementation's draw. The caller keeps TF32
 off (``device.strict_fp32``): raw pixel coordinates need full f32.
+
+Nothing here reads a value back to the host, so a frame program that calls
+:func:`ransac_pnp` can be captured as a CUDA graph: the draw is split into
+its noise (:func:`draw_noise`, which advances the generator and runs
+outside the graph, into a static buffer) and the selection that runs inside
+it, the solves and the inverse do not check their ``info`` on the host
+(``valid`` carries finiteness), and the best hypothesis is picked by an
+index tensor, not read back as a number.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["PnPResult", "ransac_pnp", "draw_samples"]
+__all__ = ["PnPResult", "ransac_pnp", "draw_samples", "draw_noise"]
 
 
 class PnPResult(NamedTuple):
@@ -26,6 +34,11 @@ class PnPResult(NamedTuple):
     inliers: torch.Tensor  # (N,) bool
     num_inliers: torch.Tensor  # () int
     valid: torch.Tensor  # () bool
+
+
+def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``linalg.solve`` without the host read of ``info``."""
+    return torch.linalg.solve_ex(a, b, check_errors=False).result
 
 
 def _cross(a, b):
@@ -68,7 +81,7 @@ def _homography_4pt(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     b = torch.cat([u, v], dim=-1)  # (B, 8)
     at = a.transpose(-1, -2)
     ata = at @ a + 1e-8 * torch.eye(8, dtype=a.dtype, device=a.device)
-    h = torch.linalg.solve(ata, (at @ b[..., None]))[..., 0]
+    h = _solve(ata, at @ b[..., None])[..., 0]
     h = torch.cat([h, torch.ones_like(h[..., :1])], dim=-1)
     return h.reshape(-1, 3, 3)
 
@@ -127,31 +140,55 @@ def _gauss_newton(r, t, pts3d_n, pts2d_n, weights, iters, huber_delta):
         jw = jac * w[:, None, None]
         jtj = torch.einsum("nik,nil->kl", jw, jac) + 1e-6 * eye6
         jtr = torch.einsum("nik,ni->k", jw, res)
-        delta = -torch.linalg.solve(jtj, jtr)
+        delta = -_solve(jtj, jtr)
         r = _rodrigues(delta[:3]) @ r
         t = t + delta[3:]
     return r, t
 
 
+def draw_noise(generator: Optional[torch.Generator], num_hypotheses: int,
+               n: int, device=None) -> torch.Tensor:
+    """(num_hypotheses, n) Exp(1) noise from ``generator`` (the default
+    generator of ``device`` when None): the random half of
+    :func:`draw_samples`, as ``torch.multinomial`` draws it."""
+    if generator is not None:
+        device = generator.device
+    return torch.empty((num_hypotheses, n), device=device).exponential_(
+        1, generator=generator)
+
+
 def draw_samples(mask: torch.Tensor, num_hypotheses: int,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(num_hypotheses, 4) distinct indices per row, drawn with weights
-    ``mask / sum(mask)`` (uniform when the mask is empty)."""
+    ``mask / sum(mask)`` (uniform when the mask is empty).
+
+    This is ``torch.multinomial(probs.expand(num_hypotheses, -1), 4,
+    replacement=False, generator=generator)`` as ATen computes it (the
+    exponential race: the top 4 of ``probs / q``, q ~ Exp(1) drawn into a
+    fresh contiguous (num_hypotheses, N) tensor), so the same generator
+    state gives the same indices, bit for bit. Written out, it reads
+    nothing back to the host (``multinomial`` checks its input there), and
+    ``noise`` (:func:`draw_noise`) can be drawn ahead, outside a CUDA
+    graph."""
     probs = mask.float()
-    if not bool(probs.sum() > 0):
-        probs = torch.ones_like(probs)
-    return torch.multinomial(probs.expand(num_hypotheses, -1), 4,
-                             replacement=False, generator=generator)
+    probs = torch.where(probs.sum() > 0, probs, torch.ones_like(probs))
+    if noise is None:
+        noise = draw_noise(generator, num_hypotheses, probs.shape[0],
+                           probs.device)
+    return torch.topk(probs / noise, 4).indices
 
 
 def ransac_pnp(pts3d, pts2d, k, mask=None, *, sample_idx=None,
-               generator=None, num_hypotheses: int = 64,
+               generator=None, noise=None, num_hypotheses: int = 64,
                threshold_px: float = 8.0, min_inliers: int = 10,
                refine_iters: int = 10) -> PnPResult:
     """Robust pose from (N, 3) object / (N, 2) image correspondences.
 
     :param sample_idx: optional (num_hypotheses, 4) hypothesis indices;
         drawn with ``generator`` when absent
+    :param noise: optional (num_hypotheses, N) :func:`draw_noise` output to
+        draw with in place of ``generator``
     """
     dt = torch.float32
     pts3d, pts2d, k = pts3d.to(dt), pts2d.to(dt), k.to(dt)
@@ -161,7 +198,7 @@ def ransac_pnp(pts3d, pts2d, k, mask=None, *, sample_idx=None,
     fmask = mask.to(dt)
     count = torch.clamp(fmask.sum(), min=1.0)
 
-    k_inv = torch.linalg.inv(k)
+    k_inv = torch.linalg.inv_ex(k, check_errors=False).inverse
     pts2d_n = (torch.cat([pts2d, torch.ones_like(pts2d[:, :1])], dim=1)
                @ k_inv.T)[:, :2]
     threshold_n = threshold_px / (0.5 * (k[0, 0] + k[1, 1]))
@@ -173,7 +210,7 @@ def ransac_pnp(pts3d, pts2d, k, mask=None, *, sample_idx=None,
     pts3d_n = centered / scale
 
     if sample_idx is None:
-        sample_idx = draw_samples(mask, num_hypotheses, generator)
+        sample_idx = draw_samples(mask, num_hypotheses, generator, noise)
     idx = torch.as_tensor(sample_idx, device=pts3d.device).long()
     h = _homography_4pt(pts3d_n[idx][..., :2], pts2d_n[idx])
     rs, ts = _pose_from_homography(h)  # (B, 3, 3), (B, 3)
@@ -181,8 +218,8 @@ def ransac_pnp(pts3d, pts2d, k, mask=None, *, sample_idx=None,
     z = torch.clamp(pc[..., 2], min=1e-6)
     err = torch.linalg.norm(pc[..., :2] / z[..., None] - pts2d_n, dim=-1)
     inl = (err < threshold_n) & mask & (pc[..., 2] > 0)
-    best = torch.argmax(inl.sum(dim=1))
-    r_best, t_best = rs[best], ts[best]
+    best = torch.argmax(inl.sum(dim=1)).reshape(1)  # no host read
+    r_best, t_best = rs.index_select(0, best)[0], ts.index_select(0, best)[0]
 
     pc = pts3d_n @ r_best.T + t_best
     z = torch.clamp(pc[:, 2], min=1e-6)

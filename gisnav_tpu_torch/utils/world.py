@@ -6,7 +6,8 @@ an orthoimage cropped from it at the production map sizing (3x the camera
 footprint), and nadir camera frames rendered at given positions and yaws.
 Every frame carries its ground-truth lon/lat, so a run can check its fixes.
 ``render_flight`` renders consecutive frames of a straight, level flight
-with each camera's pose, for visual odometry.
+with each camera's pose, for visual odometry; ``render_streams`` one frame
+a camera feed at distinct places of one world, each over a map of its own.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import numpy as np
 
 from gisnav_tpu_torch.geometry.crs import pixel_to_wgs84_affine
 
-__all__ = ["Scene", "render_scene", "Flight", "render_flight"]
+__all__ = ["Scene", "render_scene", "render_streams", "Flight",
+           "render_flight"]
 
 _LEFT, _TOP = -122.27, 37.53  # demo georeference (KSQL, San Carlos, CA)
 
@@ -157,6 +159,57 @@ def render_scene(seed: int, h: int, w: int, yaws: Sequence[float],
                  ortho=np.clip(np.rint(ortho), 0, 255).astype(np.uint8),
                  dem=np.zeros((ortho_hw, ortho_hw), np.float32), k=k,
                  crs_affine=aff, alt_m=alt_m)
+
+
+def render_streams(seed: int, h: int, w: int, yaws: Sequence[float],
+                   ring_m: float = 150.0, offset_m: float = 50.0,
+                   alt_m: float = 500.0, map_side: int | None = None,
+                   coverage: float = 3.0) -> List[Scene]:
+    """One scene a camera feed over one world: camera i looks down with yaw
+    i from the point of a ring of ``ring_m`` at ``i * 360 / n`` degrees, so
+    neighbours are ``2 ring_m sin(180 / n)`` apart, over a map of its own
+    (``map_side`` px covering ``coverage`` times the footprint, as in
+    :func:`render_scene`) whose centre lies ``offset_m`` from the camera
+    toward the ring's centre. Each map carries its own georeference, and
+    the cameras sit at other places of their maps, so a fix read through
+    another stream's map lands ``offset_m``-scale metres off."""
+    rng = np.random.default_rng(seed)
+    n = len(yaws)
+    focal = 400.0 * w / 640.0
+    ortho_hw = map_side or int(np.ceil(float(np.hypot(h, w)) / 8)) * 8
+    gsd = coverage * alt_m * max(h, w) / focal / ortho_hw
+    half = ortho_hw // 2 + int(np.ceil((ring_m + offset_m) / gsd)) + 8
+    size = 2 * half
+    world = _draw_world(rng, size, gsd)
+    m_lat = 111_132.0
+    m_lon = 111_320.0 * np.cos(np.radians(_TOP))
+    k = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]])
+    scenes = []
+    for i, yaw in enumerate(yaws):
+        a = 2.0 * np.pi * i / n
+        cx = half + ring_m / gsd * np.cos(a)
+        cy = half + ring_m / gsd * np.sin(a)
+        x0 = int(round(cx - offset_m / gsd * np.cos(a))) - ortho_hw // 2
+        y0 = int(round(cy - offset_m / gsd * np.sin(a))) - ortho_hw // 2
+        left = _LEFT + x0 * gsd / m_lon
+        top = _TOP - y0 * gsd / m_lat
+        aff = pixel_to_wgs84_affine(
+            ortho_hw, ortho_hw, left, top - (ortho_hw - 1) * gsd / m_lat,
+            left + (ortho_hw - 1) * gsd / m_lon, top)
+        ya = np.radians(yaw)
+        c, s = np.cos(ya), np.sin(ya)
+        r = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1.0]])
+        t = -r @ np.array([cx, cy, -alt_m / gsd])
+        hm = k @ np.stack([r[:, 0], r[:, 1], t], axis=1)
+        lla = aff @ np.array([cx - x0, cy - y0, 0.0, 1.0])
+        ortho = world[y0:y0 + ortho_hw, x0:x0 + ortho_hw]
+        scenes.append(Scene(
+            frames=[_warp_perspective(world, hm, (h, w))],
+            yaws=[float(yaw)], truth_lonlat=[(float(lla[0]), float(lla[1]))],
+            ortho=np.clip(np.rint(ortho), 0, 255).astype(np.uint8),
+            dem=np.zeros((ortho_hw, ortho_hw), np.float32), k=k,
+            crs_affine=aff, alt_m=alt_m))
+    return scenes
 
 
 @dataclasses.dataclass

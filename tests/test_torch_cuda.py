@@ -24,7 +24,13 @@ K1-K4. Training: K5's Function against autograd of its plain version (3e-2
 of the largest |gradient|) with its pair axis bit-equal to single calls,
 K1, K2 and K4's Functions against the same (1e-2), one train step on the
 card against the CPU's (loss 2e-2 relative, gt_recall 0.05) with 24 K5
-launches, and ``train`` on the card with its checkpoints.
+launches, and ``train`` on the card with its checkpoints. Frame graphs
+(``pipeline/graph.py``): the bucketed per-frame program captured and
+replayed against the eager program on the same inputs and RANSAC noise
+(matches and inliers identical, the fix within 1 mm), RANSAC's split draw
+equal to ``torch.multinomial`` on the card, launch counts after replays, a
+capture that reads the host raising, and a multistream tick (forked and
+sequential) equal to its single frames.
 """
 import numpy as np
 import pytest
@@ -968,3 +974,213 @@ def test_train_loop_on_card(card, tmp_path):
     assert all(torch.isfinite(p).all() for p in tree_leaves(params))
     assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(first),
                                                      tree_leaves(params)))
+
+
+# --- frame programs as CUDA graphs (pipeline/graph.py) ---------------------
+
+
+def _small_bucket(cfg, models, scene):
+    """The 128x256 scene's bucket features for yaw 0 (zoom as the runner
+    quantises it) and the frame's inputs on the card."""
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_warp_reference_extractor,
+    )
+
+    dev = "cuda"
+    zoom = scene.alt_m / scene.k[0, 0] / abs(scene.crs_affine[2, 2])
+    zstep = np.log1p(0.10)
+    zq = float(np.float32(np.exp(round(np.log(zoom) / zstep) * zstep)))
+    bucket = build_warp_reference_extractor(cfg)(
+        models, torch.as_tensor(scene.ortho, device=dev).float() / 255.0,
+        torch.as_tensor(scene.dem, device=dev), 0.0, zq)
+    k, aff = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+              for a in (scene.k, scene.crs_affine))
+    return bucket, k, aff
+
+
+def test_frame_graph_replays_equal_eager(card):
+    """The bucketed per-frame program at 128x256 / 512 keypoints, captured
+    and replayed on three frames with three RANSAC seeds, against the
+    eager program on the same inputs and noise: matches and inliers
+    identical, the fix within 1 mm; a replay
+    counts what an eager frame counts."""
+    import dataclasses
+
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose_warpcached,
+        build_models,
+        geopose_to_wgs84_f64,
+    )
+    from gisnav_tpu_torch.pipeline.graph import FrameGraph
+    from gisnav_tpu_torch.pnp.ransac import draw_noise
+    from gisnav_tpu_torch.utils.world import render_scene
+    from gisnav_tpu_torch.weights import load_bundled, params_from_jax
+
+    scene = render_scene(seed=4, h=128, w=256, yaws=[0.0, 3.0, -4.0])
+    params, cfg = load_bundled("learned_lg9")
+    cfg = dataclasses.replace(cfg, image_shape=(128, 256), max_keypoints=512)
+    models = build_models(params_from_jax(params, "cuda"), cfg)
+    (feats, dem, m_crop), k, aff = _small_bucket(cfg, models, scene)
+    hot = build_frame_to_geopose_warpcached(cfg)
+    program = FrameGraph(
+        lambda q, f, d, m, k_, a, noise: hot(models, q.float() / 255.0, f,
+                                             d, m, k_, a, noise=noise),
+        "cuda", sticky=(1, 2, 3))
+    gen = torch.Generator(device="cuda")
+
+    def noise(seed):
+        gen.manual_seed(seed)
+        return draw_noise(gen, cfg.num_hypotheses, cfg.max_keypoints)
+
+    q0 = torch.from_numpy(scene.frames[0])
+    program(q0, feats, dem, m_crop, k, aff, noise(1))  # captures
+    assert program.launches == {"stem_stage": 1, "conv_stage": 8,
+                                "nms_select": 1, "fused_block": 36}
+    reset_launches()
+    for i, seed in ((0, 2), (1, 3), (2, 4)):
+        q = torch.from_numpy(scene.frames[i])
+        got = program(q, feats, dem, m_crop, k, aff, noise(seed))
+        want = hot(models, q.cuda().float() / 255.0, feats, dem, m_crop, k,
+                   aff, noise=noise(seed))
+        for f in ("matched_qry", "matched_ref", "match_mask", "num_matches",
+                  "num_inliers", "valid"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        a, b = (geopose_to_wgs84_f64(p, scene.crs_affine)
+                for p in (got, want))
+        assert haversine_m(a["lat"], a["lon"], b["lat"], b["lon"]) < 1e-3
+        assert abs(a["alt_ellipsoid"] - b["alt_ellipsoid"]) < 1e-3
+    assert program.replays == 3
+    # 3 replays and 3 eager frames, 46 launches each
+    assert LAUNCHES["fused_block"] == 6 * 36 and LAUNCHES["stem_stage"] == 6
+
+
+@pytest.mark.parametrize("kind", ["random", "empty", "three", "full"])
+def test_split_draw_equals_multinomial_on_card(card, kind):
+    from gisnav_tpu_torch.pnp.ransac import draw_noise, draw_samples
+
+    n = 2048
+    mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+    if kind == "random":
+        mask = torch.rand(n, generator=card, device="cuda") > 0.6
+    elif kind == "three":
+        mask[[3, 700, 2047]] = True
+    elif kind == "full":
+        mask[:] = True
+    probs = mask.float()
+    if not bool(probs.sum() > 0):
+        probs = torch.ones_like(probs)
+    for seed in range(5):
+        gen = torch.Generator(device="cuda")
+        want = torch.multinomial(probs.expand(64, -1), 4, replacement=False,
+                                 generator=gen.manual_seed(seed))
+        got = draw_samples(mask, 64, gen.manual_seed(seed))
+        split = draw_samples(mask, 64,
+                             noise=draw_noise(gen.manual_seed(seed), 64, n))
+        assert torch.equal(got, want) and torch.equal(split, want)
+
+
+def test_launches_count_replays(card):
+    """A captured program that runs the NMS-select kernel: the warm-up
+    counts its launch, the capture none, each replay one."""
+    from gisnav_tpu_torch.features.nms_kernel import nms_select
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.graph import FrameGraph
+
+    heat = torch.rand((96, 256), generator=card, device="cuda") ** 8
+    program = FrameGraph(lambda h: nms_select(h, 4), "cuda")
+    reset_launches()
+    first = program(heat)
+    assert LAUNCHES["nms_select"] == 1 and program.launches == {
+        "nms_select": 1}
+    for _ in range(3):
+        got = program(heat)
+    assert LAUNCHES["nms_select"] == 4 and sum(LAUNCHES.values()) == 4
+    for a, b in zip(got, first):
+        assert torch.equal(a, b)
+    assert program.capture_ms > 0 and program.pool_bytes >= 0
+
+
+def test_failed_capture_raises(card):
+    """A program that reads a value back to the host runs eagerly in the
+    warm-up and cannot be captured: ``CaptureError``, on every call (no
+    eager fallback), with the counts left as the warm-ups made them."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.graph import CaptureError, FrameGraph
+
+    program = FrameGraph(lambda x: x * float(x.sum()), "cuda")
+    x = torch.ones(8, device="cuda")
+    reset_launches()
+    for _ in range(2):
+        with pytest.raises(CaptureError):
+            program(x)
+    assert program.replays == 0 and all(n == 0 for n in LAUNCHES.values())
+    torch.cuda.synchronize()
+    assert torch.equal(x * 2, torch.full((8,), 2.0, device="cuda"))
+
+
+@pytest.mark.parametrize("fork", [True, False])
+def test_multistream_on_card_equals_single_frames(card, fork):
+    """harris_lg5 cached at 480x640 on path 4's scene, three streams in one
+    graph a tick (forked branches or one stream): each stream's matches
+    identical to the eager single frame's on the same input and noise, the
+    fix within 1 mm and 10 m of the truth; a tick launches three frames'
+    kernels."""
+    import dataclasses
+
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose_cached,
+        build_models,
+        build_reference_extractor,
+        geopose_to_wgs84_f64,
+    )
+    from gisnav_tpu_torch.pipeline.multistream import (
+        build_multistream_pipeline,
+    )
+    from gisnav_tpu_torch.pnp.ransac import draw_noise
+    from gisnav_tpu_torch.utils.world import render_scene
+    from gisnav_tpu_torch.weights import load_bundled, params_from_jax
+
+    n = 3
+    s = render_scene(seed=6, h=480, w=640, yaws=[0.0, 90.0, 180.0],
+                     map_side=800, coverage=3.0, offset_m=22.2)
+    params, cfg = load_bundled("harris_lg5")
+    cfg = dataclasses.replace(cfg, ortho_shape=s.ortho.shape,
+                              detector_downsample=2)
+    dev = "cuda"
+    models = build_models(params_from_jax(params, dev), cfg)
+    ref = build_reference_extractor(cfg)(
+        models, torch.as_tensor(s.ortho, device=dev).float() / 255.0)
+    k, aff = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+              for a in (s.k, s.crs_affine))
+    batch = (torch.stack([torch.as_tensor(f, device=dev).float() / 255.0
+                          for f in s.frames]),
+             type(ref)(*(torch.stack([f] * n) for f in ref)),
+             torch.stack([torch.as_tensor(s.dem, device=dev)] * n),
+             torch.stack([k] * n), torch.stack([aff] * n))
+    fn = build_multistream_pipeline(cfg, fork_streams=fork)
+    gens = [torch.Generator(device=dev).manual_seed(i + 1) for i in range(n)]
+    fn(models, *batch, gens)  # captures
+    gens = [g.manual_seed(i + 10) for i, g in enumerate(gens)]
+    reset_launches()
+    out = fn(models, *batch, gens)
+    assert LAUNCHES == {kk: {"stem_stage": 1, "conv_stage": 7,
+                             "nms_select": 1, "fused_block": 40}.get(kk, 0)
+                        * n for kk in LAUNCHES}
+    frame = build_frame_to_geopose_cached(cfg)
+    for i in range(n):
+        gen = torch.Generator(device=dev).manual_seed(i + 10)
+        want = frame(models, batch[0][i], ref, batch[2][i], k, aff,
+                     noise=draw_noise(gen, cfg.num_hypotheses,
+                                      cfg.max_keypoints))
+        got = type(out)(*(f[i] for f in out))
+        for f in ("matched_qry", "matched_ref", "match_mask", "num_matches",
+                  "num_inliers", "valid"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        a, b = (geopose_to_wgs84_f64(p, s.crs_affine) for p in (got, want))
+        assert haversine_m(a["lat"], a["lon"], b["lat"], b["lon"]) < 1e-3
+        lon, lat = s.truth_lonlat[i]
+        assert haversine_m(lat, lon, a["lat"], a["lon"]) < 10.0

@@ -122,12 +122,13 @@ def test_library_name_follows_source_and_shared_headers(tmp_path):
     header's bytes change (so an edited header rebuilds), and not
     otherwise. No compiler runs."""
     from gisnav_tpu_torch.kernels import build
+    from gisnav_tpu_torch.utils import jitcache
 
     (tmp_path / "k.cu").write_text('#include "core.cuh"\nint f();\n')
     (tmp_path / "core.cuh").write_text("// v1\n")
     first = build._target("k", str(tmp_path))
     assert first == build._target("k", str(tmp_path))
-    assert os.path.dirname(first) == build.BUILD_DIR
+    assert os.path.dirname(first) == jitcache.cache_dir()
     (tmp_path / "core.cuh").write_text("// v2\n")
     second = build._target("k", str(tmp_path))
     assert second != first
