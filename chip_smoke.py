@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train    # build + gradients + path 9 (training)
     python3 chip_smoke.py --deploy   # build + paths 10 and 11 only
     python3 chip_smoke.py --multistream   # build + path 12 only
+    python3 chip_smoke.py --jpeg     # build + the JPEG codec phase only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -66,7 +67,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    poses, the last within 10 m of the truth, no kernel launch;
 11. path 8: the node graph from camera frame to mock GPS (bbox, GIS, pose,
    twist, fusion and uORB nodes) over a seeded world that a loopback stub
-   WMS serves as PNG through the port's ``WMSClient``: (a) ``GisNavApp``
+   WMS serves through the port's ``WMSClient`` at the GIS node's default
+   format, the JAX node's ``image/jpeg`` (every GetMap reply must be
+   JPEG, decoded by the port's codec): (a) ``GisNavApp``
    on a synchronous bus with the production pose backend (learned_lg9,
    bucketed warp, 480x640 / 512 keypoints) over 24 steps of 30 m at 500 m
    AGL across a bucket edge, the map refreshed below 0.92 overlap: at
@@ -98,7 +101,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel launch;
 13. path 10: the deployed constellation, each ``python -m
    gisnav_tpu_torch`` process with a deadline, over path 8's world written
-   as GeoTIFFs and served by ``gis-serve``: (a) the compose service's
+   as GeoTIFFs and served by ``gis-serve``, which answers the GIS node's
+   default GetMap, ``image/jpeg``, with JPEG (checked first): (a) the
+   compose service's
    ``run --shm --wfst --protocol uorb`` (learned_lg9, warp-bucketed,
    480x640 / 512 keypoints), fed over the ShmBus from this process with
    path 8's gated track at a step of 30 m a second after a lead-in of 20
@@ -117,10 +122,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 14. path 11: ``replay`` (the CLI, in this process so that the kernel counts
    see it) on a dataset of ``tools/make_replay_dataset.py``'s defaults
    (12 frames of 640x480 at 500 m, yaw 25, a square map at 3x the
-   footprint) over path 8's world, as PNG: harris_lg5 with ``--fused``,
-   exit code 0 (every frame within 10 m), every fused frame within 10 m,
-   exactly a harris_lg5 cached frame's K1-K4 launches a frame plus one map
-   extraction, and the frame p50; the classical backend on 3 frames of the
+   footprint) over path 8's world, written once as PNG and once as JPEG
+   (``cv2.imencode``'s bytes at 95, under the same names): harris_lg5 with
+   ``--fused`` on each, exit code 0 (every frame within 10 m), every fused
+   frame within 10 m, exactly a harris_lg5 cached frame's K1-K4 launches a
+   frame plus one map extraction, each frame's fix moved between the two
+   datasets printed, and the frame p50 of each; the classical backend on 3
+   frames of the
    same flight over an 896-px map, a side the shear kernel serves (valid,
    within 10 m, K6 2 + 1 a frame); learned_lg9, printed only (cached mode
    at 3x gives no valid fix in either package);
@@ -139,7 +147,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    frames' K1-K4 launches a tick; the forked tick's device busy time (the
    union of its kernels' intervals, torch.profiler over 4 ticks);
 16. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
-   package runs that kernel from its stage bench alone).
+   package runs that kernel from its stage bench alone);
+17. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+   with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
+   480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
+   1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
+   on the same rasters, the GIS node's 800-px map fetch (imagery and DEM
+   over the stub WMS) p50 in each format, the round trip's max and mean
+   error at quality 95,
+   and the sha256 of the encoder's bytes and of the decoder's pixels on
+   one seeded image, each of which must equal OpenCV's (pinned on the CPU
+   by ``tests/test_torch_jpeg.py``).
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
 the shear's outputs on seeded inputs (run a copy of this script placed
@@ -272,6 +290,21 @@ TRAIN_K5_STEP = 4 * TRAIN_DEPTH * 2
 FINETUNE_K5_STEP = 4 * 5 * 2  # LightGlue-5, 256 query / 512 map keypoints
 K5_TRAIN_SHAPES = [(256, 256), (256, 512), (512, 256), (512, 512)]
 TRAIN_DEVICE = "cuda"  # path 9's device; a CPU rehearsal sets "cpu"
+# the jpeg phase: world crops at the map side of run's 480x640 camera and
+# of a 1088x1920 one (gis/wms.py orthoimage_size_for_camera), timing reps
+JPEG_SIDES, JPEG_REPS = (800, 2208), (20, 5)
+# the GIS node's map fetch timed in the jpeg phase: path 8's 800-px map of
+# 3 footprints (2,400 m at 500 m AGL) over the stub WMS, each format
+JPEG_FETCHES, JPEG_FETCH_SIDE_M = 10, 2400.0
+JPEG_DIGEST_SEED = 12
+# sha256 of cv2.imencode(".jpg", jpeg_digest_image()) and of cv2.imdecode
+# of those bytes (IMREAD_UNCHANGED, then IMREAD_GRAYSCALE), OpenCV 5.0.0
+# over libjpeg-turbo 3.1.2 (tests/test_torch_jpeg.py holds the codec to
+# them)
+JPEG_DIGEST = (
+    "317e509b300e7adb3b50401855ca9839c9dfc0c4f324fbf718b0b5b1c01c8283")
+JPEG_DECODE_DIGEST = (
+    "0e3295777c6cc005dbf039a1044460630685dc8a9e5e9124eb60cfd25fb72535")
 # measured beside the contract's keys: device time (``device_ms``), the
 # wrapper's host time (``host_ms``), K4's two launches apart, the library's
 # device time, the whole 3-shear rotation, and K1-K4's launches on paths 4,
@@ -288,6 +321,31 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def jpeg_digest_image() -> np.ndarray:
+    """A seeded (217, 301, 3) BGR world crop, each channel its own tone
+    curve (odd sides: every partial-MCU and upsampling edge path)."""
+    from gisnav_tpu_torch.utils.world_wms import World
+
+    grey = World.make(seed=JPEG_DIGEST_SEED, size_px=512,
+                      gsd_m=1.36).raster[:217, :301].astype(np.int32)
+    return _tinted(grey)
+
+
+def _tinted(grey: np.ndarray) -> np.ndarray:
+    """Grey -> BGR with a tone curve a channel (colour at every edge)."""
+    grey = grey.astype(np.int32)
+    return np.stack([grey, grey * 3 // 4 + 40, 255 - grey], -1).astype(
+        np.uint8)
+
+
+def jpeg_decode_digest(data: bytes) -> str:
+    """sha256 over the colour and the grey decode of JPEG bytes."""
+    from gisnav_tpu_torch.gis.jpeg import decode_jpeg
+
+    return hashlib.sha256(decode_jpeg(data).tobytes() + decode_jpeg(
+        data, grayscale=True).tobytes()).hexdigest()
 
 
 def _on_device(e) -> bool:
@@ -2109,12 +2167,11 @@ def phase_vo_path(profile_run: bool = False) -> dict:
 
 
 def _graph_params(wms_url: str) -> dict:
-    """Per-node parameters of path 8's graph: the stub WMS over loopback,
-    PNG replies, flat ground at 0 m."""
+    """Per-node parameters of path 8's graph: the stub WMS over loopback
+    at the GIS node's default format (JPEG), flat ground at 0 m."""
     ground = {"ground_altitude_m": 0.0}
     return {"gis_node": {"wms_url": wms_url, "wms_layers": ["imagery"],
-                         "wms_dem_layers": ["dem"],
-                         "wms_format": "image/png"},
+                         "wms_dem_layers": ["dem"]},
             "twist_node": dict(ground), "bbox_node": dict(ground),
             "pose_node": dict(ground)}
 
@@ -2434,6 +2491,11 @@ def phase_graph_path(profile_run: bool = False) -> dict:
         log("[graph refresh edge] " + json.dumps(out["refresh_edge"]))
         out["cli"] = graph_cli(world, wms.url)
         log("[graph cli] " + json.dumps(out["cli"]))
+        out["replies"] = dict(wms.formats)
+    log(f"[graph] GetMap replies by format: {out['replies']}")
+    if set(out["replies"]) != {"image/jpeg"}:
+        raise RuntimeError(f"graph: the stub answered {out['replies']}, "
+                           "not JPEG alone (the GIS node's default)")
     out["filter"] = graph_filter_steps()
     log("[graph filter] " + json.dumps(out["filter"]))
     leaked = [m for m in ("cv2", "requests") if m in sys.modules]
@@ -2590,8 +2652,8 @@ def _write_maps(world, root: str) -> None:
 
 
 def _deploy_params(root: str, name: str, wfst_url=None) -> str:
-    """A ``run --params`` file: path 8's nodes (flat ground, PNG replies,
-    the map refreshed below ``GRAPH_OVERLAP``), the WMS left to
+    """A ``run --params`` file: path 8's nodes (flat ground, the default
+    JPEG replies, the map refreshed below ``GRAPH_OVERLAP``), the WMS left to
     ``GISNAV_WMS_URL``; with ``wfst_url``, the WFS-T sink's endpoint."""
     import os
 
@@ -2844,6 +2906,31 @@ def deploy_vehicle(world, root: str, gis_url: str, procs: list,
             "card_pids": holders}
 
 
+def _probe_gis_serve(world, url: str) -> dict:
+    """One GetMap from ``gis-serve`` as the GIS node asks for its map: the
+    default format (the JAX node's ``image/jpeg``) must come back JPEG and
+    decode through the port's codec to the requested size."""
+    from gisnav_tpu_torch.gis.jpeg import decode_image
+    from gisnav_tpu_torch.gis.wms import DEFAULT_FORMAT, WMSClient
+
+    lon0, lat0 = world.to_lonlat(*GRAPH_START_PX)
+    lon1, lat1 = world.to_lonlat(GRAPH_START_PX[0] + 400,
+                                 GRAPH_START_PX[1] + 400)
+    ctype, body = WMSClient(f"{url}/wms")._get({
+        "service": "WMS", "request": "GetMap", "version": "1.1.1",
+        "layers": "imagery", "styles": "", "srs": "EPSG:4326",
+        "bbox": f"{lon0},{lat1},{lon1},{lat0}", "width": "800",
+        "height": "800", "format": DEFAULT_FORMAT})
+    img = decode_image(body)
+    out = {"format": DEFAULT_FORMAT, "content_type": ctype,
+           "bytes": len(body), "shape": None if img is None else img.shape}
+    log(f"[deploy] gis-serve GetMap at the default format: {out}")
+    if ctype != "image/jpeg" or not body.startswith(b"\xff\xd8") \
+            or out["shape"] != (800, 800):
+        raise RuntimeError(f"deploy: gis-serve's default GetMap {out}")
+    return out
+
+
 def phase_deploy_path(graph_frame_to_fix=None) -> dict:
     """Path 10: the deployed constellation over path 8's world, served by
     ``gis-serve`` from GeoTIFFs: (a) the compose service, (b) the vehicle
@@ -2873,7 +2960,9 @@ def phase_deploy_path(graph_frame_to_fix=None) -> dict:
             procs.append(gis)
             gis.wait_for("GIS server on")
             url = f"http://127.0.0.1:{port}"
-            out = {"compose": deploy_compose(world, root, url, procs)}
+            out_probe = _probe_gis_serve(world, url)
+            out = {"gis_serve": out_probe,
+                   "compose": deploy_compose(world, root, url, procs)}
             stopped = out["compose"].pop("health_stopped")
             out["vehicle"] = deploy_vehicle(world, root, url, procs,
                                             [gis, stopped])
@@ -2913,12 +3002,36 @@ def _replay_cli(argv: list) -> tuple:
         return rc, json.load(f), launches
 
 
+def _replay_harris(data: str, report: str, tag: str) -> dict:
+    """harris_lg5 ``replay --fused`` on ``data``, gated (rc 0: every frame
+    within 10 m; every fused frame within 10 m; a harris_lg5 cached frame's
+    K1-K4 counts), then once more for the frame p50."""
+    from gisnav_tpu_torch.replay import replay
+
+    rc, rep, launches = _replay_cli([data, "--weights", "harris_lg5",
+                                     "--fused", "--out", report])
+    s = rep["summary"]
+    log(f"[replay harris {tag}] rc {rc} {json.dumps(s)}; launches "
+        f"{launches}")
+    if rc != 0 or s["fused_pass_10m"] != s["fused_frames"] \
+            or s["frames"] != REPLAY_FRAMES:
+        raise RuntimeError(f"replay harris_lg5 {tag}: rc {rc}, {s}")
+    expect_launches(f"replay harris_lg5 {tag}", launches, {
+        k: REPLAY_FRAMES * n + REPLAY_EXTRACTION.get(k, 0)
+        for k, n in REPLAY_FRAME.items()})
+    ticks = []
+    replay(data, weights="harris_lg5", fused=True, device=DEPLOY_DEVICE,
+           progress=lambda *_: ticks.append(time.perf_counter()))
+    return {**s, "launches": launches, "fixes": rep["frames"],
+            "frame": _pcts(np.diff(ticks) * 1e3)}
+
+
 def phase_replay_path() -> dict:
     """Path 11: ``replay`` on a dataset of ``tools/make_replay_dataset.py``'s
-    defaults over path 8's world, written as PNG: harris_lg5 fused (rc 0:
-    every frame within 10 m; every fused frame within 10 m; a harris_lg5
-    cached frame's K1-K4 counts), the classical backend on 3 frames over
-    an 896-px map (K6 2 + 1 a frame), then learned_lg9, printed only."""
+    defaults over path 8's world, written as PNG and as JPEG: harris_lg5
+    fused on each (:func:`_replay_harris`) and each frame's fix moved
+    between the two, the classical backend on 3 frames over an 896-px map
+    (K6 2 + 1 a frame), then learned_lg9, printed only."""
     import os
     import tempfile
 
@@ -2929,25 +3042,29 @@ def phase_replay_path() -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as root:
         data, three = os.path.join(root, "flight"), os.path.join(root, "3")
+        jpeg = os.path.join(root, "flight_jpeg")
         write_replay_dataset(world, data, frames=REPLAY_FRAMES)
+        write_replay_dataset(world, jpeg, frames=REPLAY_FRAMES,
+                             image_format="jpeg")
+        with open(os.path.join(jpeg, "map.png"), "rb") as f:
+            if f.read(2) != b"\xff\xd8":
+                raise RuntimeError("replay: the JPEG dataset holds no JPEG")
         write_replay_dataset(world, three, frames=REPLAY_CLASSICAL_FRAMES,
                              map_px=REPLAY_CLASSICAL_MAP)
         report = os.path.join(root, "r.json")
-        rc, rep, launches = _replay_cli([data, "--weights", "harris_lg5",
-                                         "--fused", "--out", report])
-        s = rep["summary"]
-        log(f"[replay harris] rc {rc} {json.dumps(s)}; launches {launches}")
-        if rc != 0 or s["fused_pass_10m"] != s["fused_frames"] \
-                or s["frames"] != REPLAY_FRAMES:
-            raise RuntimeError(f"replay harris_lg5: rc {rc}, {s}")
-        expect_launches("replay harris_lg5", launches, {
-            k: REPLAY_FRAMES * n + REPLAY_EXTRACTION.get(k, 0)
-            for k, n in REPLAY_FRAME.items()})
-        out["harris"] = {**s, "launches": launches}
-        ticks = []
-        replay(data, weights="harris_lg5", fused=True, device=DEPLOY_DEVICE,
-               progress=lambda *_: ticks.append(time.perf_counter()))
-        out["harris"]["frame"] = _pcts(np.diff(ticks) * 1e3)
+        out["harris"] = _replay_harris(data, report, "png")
+        out["harris_jpeg"] = _replay_harris(jpeg, report, "jpeg")
+        moved = [{"stamp_us": a["stamp_us"],
+                  "horiz_m": round(float(np.hypot(
+                      a["east_m"] - b["east_m"],
+                      a["north_m"] - b["north_m"])), 3),
+                  "up_m": round(abs(a["up_m"] - b["up_m"]), 3)}
+                 for a, b in zip(out["harris"].pop("fixes"),
+                                 out["harris_jpeg"].pop("fixes"))]
+        out["png_to_jpeg"] = {
+            "max_horiz_m": max(m["horiz_m"] for m in moved),
+            "max_up_m": max(m["up_m"] for m in moved)}
+        log(f"[replay harris] each fix's move, PNG -> JPEG dataset: {moved}")
         rc, rep, launches = _replay_cli([three, "--backend", "classical",
                                          "--out", report])
         s = rep["summary"]
@@ -2963,6 +3080,75 @@ def phase_replay_path() -> dict:
                                   "--out", report])
         out["learned_lg9"] = {"rc": rc, **rep["summary"]}
     log("[replay] " + json.dumps(out))
+    return out
+
+
+def phase_jpeg() -> dict:
+    """Phase 17: the JPEG codec on seeded world crops (host times), its
+    round trip, and its bytes and pixels against OpenCV's digests."""
+    from gisnav_tpu_torch.gis.jpeg import decode_jpeg, encode_jpeg
+    from gisnav_tpu_torch.gis.png import decode_png, encode_png
+    from gisnav_tpu_torch.gis.wms import WMSClient, request_orthoimage
+    from gisnav_tpu_torch.native import build_native_lib
+    from gisnav_tpu_torch.utils.world_wms import World, WorldWMS
+
+    t0 = time.time()
+    lib = build_native_lib("jpeg")
+    log(f"[jpeg] codec {lib} in {time.time() - t0:.1f} s")
+    data = encode_jpeg(jpeg_digest_image())
+    out = {"sha256": hashlib.sha256(data).hexdigest(),
+           "decode_sha256": jpeg_decode_digest(data), "rasters": []}
+    log(f"[jpeg] encoder sha256 {out['sha256']} (OpenCV's {JPEG_DIGEST}); "
+        f"decoder {out['decode_sha256']} (OpenCV's {JPEG_DECODE_DIGEST})")
+    if out["sha256"] != JPEG_DIGEST or \
+            out["decode_sha256"] != JPEG_DECODE_DIGEST:
+        raise RuntimeError("jpeg: the codec's output is not OpenCV's")
+    world = World.make(**GRAPH_WORLD)
+    raster = world.raster
+    for side, reps in zip(JPEG_SIDES, JPEG_REPS):
+        at = (raster.shape[0] - side) // 2  # the world's centre
+        grey = raster[at:at + side, at:at + side]
+        for kind, img in (("grey", grey), ("bgr420", _tinted(grey))):
+            if kind == "bgr420" and side == JPEG_SIDES[0]:
+                continue
+            jpg, png = encode_jpeg(img), encode_png(img)
+            back = decode_jpeg(jpg)
+            if back is None or back.shape != img.shape:
+                raise RuntimeError(f"jpeg: {side} {kind} round trip gave "
+                                   f"{None if back is None else back.shape}")
+            err = np.abs(back.astype(np.int32) - img)
+            row = {"side": side, "kind": kind, "jpeg_bytes": len(jpg),
+                   "png_bytes": len(png),
+                   "encode_ms": host_ms(lambda: encode_jpeg(img), 1, reps),
+                   "decode_ms": host_ms(lambda: decode_jpeg(jpg), 1, reps),
+                   "png_encode_ms": host_ms(lambda: encode_png(img), 1, reps),
+                   "png_decode_ms": host_ms(lambda: decode_png(png), 1, reps),
+                   "max_err": int(err.max()), "mean_err": float(err.mean())}
+            if kind == "bgr420":  # the DEM read: IMREAD_GRAYSCALE, Y only
+                row["decode_grey_ms"] = host_ms(
+                    lambda: decode_jpeg(jpg, grayscale=True), 1, reps)
+            log(f"[jpeg] {json.dumps(row)}")
+            out["rasters"].append(row)
+    half = JPEG_FETCH_SIDE_M / 2 / GRAPH_WORLD["gsd_m"]
+    x, y = GRAPH_START_PX
+    left, top = world.to_lonlat(x - half, y - half)
+    right, bottom = world.to_lonlat(x + half, y + half)
+    times: dict = {"image/png": [], "image/jpeg": []}
+    with WorldWMS(world) as wms:  # the GIS node's fetch: imagery + DEM
+        client = WMSClient(wms.url)
+        for _ in range(JPEG_FETCHES):
+            for fmt in times:
+                t = time.perf_counter()
+                got = request_orthoimage(client, (left, bottom, right, top),
+                                         (800, 800), ["imagery"], ["dem"],
+                                         format_=fmt)
+                times[fmt].append((time.perf_counter() - t) * 1e3)
+                if got is None or got[0].shape != (800, 800):
+                    raise RuntimeError(f"jpeg: the {fmt} map fetch failed")
+    out["fetch_p50_ms"] = {fmt: float(np.median(ms))
+                           for fmt, ms in times.items()}
+    log(f"[jpeg] 800-px map fetch (imagery + DEM, stub WMS) p50 ms: "
+        f"{json.dumps(out['fetch_p50_ms'])}")
     return out
 
 
@@ -3498,6 +3684,8 @@ def main(argv=None) -> int:
     ap.add_argument("--multistream", action="store_true",
                     help="only drive path 12 (multistream, one graph a "
                          "tick)")
+    ap.add_argument("--jpeg", action="store_true",
+                    help="only run the JPEG codec phase")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -3514,6 +3702,10 @@ def main(argv=None) -> int:
         return 0
     if args.graph:
         phase_graph_path(args.profile)
+        return 0
+    if args.jpeg:
+        phase_jpeg()
+        log(f"[phase] jpeg done at {time.time() - t_start:.1f} s")
         return 0
     if args.multistream:
         phase_multistream_path()
@@ -3553,6 +3745,8 @@ def main(argv=None) -> int:
             for r in results]}))
         return 0
     log(f"[phase] kernels done at {time.time() - t_start:.1f} s")
+    phase_jpeg()
+    log(f"[phase] jpeg done at {time.time() - t_start:.1f} s")
     main_path = phase_main_path()
     params, config = main_path["params"], main_path["config"]
     log(f"[phase] path 1 done at {time.time() - t_start:.1f} s")

@@ -24,10 +24,10 @@ Written departures: ``--namespace`` names both the shared-memory bus's
 namespace and the health topic, ``/<namespace>/health``, and ``health``
 listens there (the JAX CLI listens on a fixed ``/gisnav/health``).
 ``doctor`` probes CUDA (device name and compute capability, 9.0
-expected), builds the five kernel libraries and the shared-memory bus
-library, and checks the PNG codec, where the JAX CLI probes JAX's devices
-and OpenCV; it exits 1 when no CUDA device answers (the port has no CPU
-fallback). ``replay`` reads PNG only (``gisnav_tpu_torch/replay.py``).
+expected), builds the five kernel libraries, the shared-memory bus library
+and the JPEG codec, and round-trips the PNG and JPEG codecs, where the JAX
+CLI probes JAX's devices and OpenCV; it exits 1 when no CUDA device answers
+(the port has no CPU fallback).
 """
 from __future__ import annotations
 
@@ -259,6 +259,8 @@ def _cmd_health(args) -> int:
         bus.close()
 
 
+# a smooth 16x24 ramp, grey and BGR, through encode_jpeg and decode_jpeg
+_JPEG_ROUND_TRIP_LEVELS = 2
 _CUDA_PROBE = (
     "import torch\n"
     "print(torch.__version__)\n"
@@ -311,9 +313,9 @@ def _cmd_doctor(args) -> int:
         print(f"[FAIL] kernel build: {e}")
         ok = False
     try:
-        from gisnav_tpu_torch.nodes.bus import build_native_lib
+        from gisnav_tpu_torch.native import build_native_lib
 
-        print(f"[ok] native shm bus: {build_native_lib()}")
+        print(f"[ok] native shm bus: {build_native_lib('shmbus')}")
     except Exception as e:  # noqa: BLE001 - reported, the check goes on
         print(f"[FAIL] native shm bus build: {e}")
         ok = False
@@ -331,6 +333,27 @@ def _cmd_doctor(args) -> int:
         print("[ok] PNG codec (WMS replies, replay datasets)")
     else:
         print("[FAIL] PNG codec round trip")
+        ok = False
+    try:
+        from gisnav_tpu_torch.gis.jpeg import decode_jpeg, encode_jpeg
+        from gisnav_tpu_torch.native import build_native_lib
+
+        lib = build_native_lib("jpeg")
+        smooth = (np.add.outer(np.arange(16), np.arange(24)) * 4).astype(
+            np.uint8)
+        err = 0
+        for img in (smooth, np.stack([smooth] * 3, -1)):
+            out = decode_jpeg(encode_jpeg(img))
+            err = max(err, 256 if out is None or out.shape != img.shape
+                      else int(np.abs(out.astype(int) - img).max()))
+        if err <= _JPEG_ROUND_TRIP_LEVELS:
+            print(f"[ok] JPEG codec: {lib} (round trip at quality 95 within "
+                  f"{err} levels)")
+        else:
+            print(f"[FAIL] JPEG codec round trip ({err} levels)")
+            ok = False
+    except Exception as e:  # noqa: BLE001 - reported, the check goes on
+        print(f"[FAIL] JPEG codec: {e}")
         ok = False
     return 0 if ok else 1
 

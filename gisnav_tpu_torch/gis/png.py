@@ -15,8 +15,9 @@ machine has no OpenCV, so the port reads PNG itself:
 
 Anything else (palette and grey + alpha images, depths under 8, Adam7
 interlacing, JPEG or any non-PNG bytes) raises ``ValueError`` naming what it
-found. ``encode_png`` writes an 8-bit grey or colour PNG with filter None on
-every row.
+found (``gis/jpeg.py`` ``decode_image`` chooses between PNG and JPEG).
+``encode_png`` writes an 8-bit grey or colour PNG with filter None on every
+row.
 """
 from __future__ import annotations
 
@@ -89,8 +90,8 @@ def decode_png(data: bytes) -> np.ndarray:
     file's order (RGB, RGBA)."""
     if not data.startswith(PNG_SIGNATURE):
         found = "JPEG" if data.startswith(_JPEG_SOI) else repr(data[:8])
-        raise ValueError(f"not a PNG image ({found}); the port decodes PNG "
-                         "only")
+        raise ValueError(f"not a PNG image ({found}); gis/jpeg.py "
+                         "decode_image reads PNG and JPEG")
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":

@@ -23,10 +23,10 @@ raster<->CRS affine stays exact. The crop is resampled by
 weights when shrinking, OpenCV's own two-tap weights when enlarging), and
 truncated to the layer's dtype, as the JAX server does with ``cv2.resize``.
 
-Written departure: replies are PNG only (``gis/png.py`` ``encode_png``;
-the port has no JPEG codec). Capabilities list ``image/png`` alone, and a
-GetMap for ``image/jpeg`` gets a WMS ``ServiceExceptionReport``
-(``InvalidFormat``, status 400), where the JAX server encodes JPEG.
+GetMap answers ``image/jpeg`` (or a format naming ``jpg``) with
+``gis/jpeg.py`` ``encode_jpeg`` at quality 95, the bytes ``cv2.imencode``
+writes, and any other format with PNG (``gis/png.py`` ``encode_png``), as
+the JAX server does; the capabilities list both.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from gisnav_tpu_torch.gis.jpeg import encode_jpeg
 from gisnav_tpu_torch.gis.png import encode_png
 
 __all__ = ["FeatureStore", "SQLiteStore", "PostGISStore", "GisServer",
@@ -202,16 +203,6 @@ def _exception_xml(message: str) -> str:
     )
 
 
-def _service_exception_xml(message: str, code: str) -> str:
-    """A WMS 1.1.1 ServiceExceptionReport."""
-    return (
-        '<?xml version="1.0" encoding="UTF-8"?>\n'
-        '<ServiceExceptionReport version="1.1.1">'
-        f'<ServiceException code="{code}">{message}</ServiceException>'
-        "</ServiceExceptionReport>"
-    )
-
-
 def features_geojson(store: FeatureStore) -> str:
     feats = [
         {
@@ -336,7 +327,8 @@ _WMS_CAPS = """<?xml version="1.0" encoding="UTF-8"?>
 <WMT_MS_Capabilities version="1.1.1">
   <Service><Name>OGC:WMS</Name><Title>gisnav_tpu demo WMS</Title></Service>
   <Capability>
-    <Request><GetMap><Format>image/png</Format></GetMap></Request>
+    <Request><GetMap><Format>image/png</Format>
+      <Format>image/jpeg</Format></GetMap></Request>
     <Layer><Title>gisnav_tpu</Title><SRS>EPSG:4326</SRS>
       <Layer queryable="0"><Name>imagery</Name>
         <Title>Demo orthoimagery</Title></Layer>
@@ -469,13 +461,6 @@ class GisServer:
                 self._send(status, "text/xml", body.encode())
 
             def _get_map(self, q):
-                fmt = q.get("format", "image/png")
-                if "jpeg" in fmt or "jpg" in fmt:
-                    self._send(400, "application/vnd.ogc.se_xml",
-                               _service_exception_xml(
-                                   f"format {fmt} is not served: image/png "
-                                   "only", "InvalidFormat").encode())
-                    return
                 try:
                     names = q.get("layers", "").split(",")
                     bbox = tuple(float(v) for v in q["bbox"].split(","))
@@ -497,7 +482,11 @@ class GisServer:
                     # DEM wire encoding: meters as 8-bit gray (clips at 255;
                     # gis/wms.py decodes grayscale -> float32 meters)
                     out = np.clip(out, 0, 255).astype(np.uint8)
-                self._send(200, "image/png", encode_png(out))
+                fmt = q.get("format", "image/png")
+                if "jpeg" in fmt or "jpg" in fmt:
+                    self._send(200, "image/jpeg", encode_jpeg(out))
+                else:
+                    self._send(200, "image/png", encode_png(out))
 
         return Handler
 

@@ -7,11 +7,13 @@ imagery and DEM layers over a WGS84 bbox, a GetCapabilities probe, and
 decoding of the rasters. Standard WMS 1.1.1, so the reference's MapServer
 stack serves it unchanged.
 
-Written departure: the port decodes PNG only (``gis.png``), so the default
-format is ``image/png`` where the JAX client asks for ``image/jpeg``
-(MapServer serves both). A network error or an XML ServiceException gives
-None, as in JAX (the GIS node keeps its previous map); a reply in a format
-the port cannot decode (JPEG) raises ``ValueError`` naming the format.
+Replies are decoded by their content, as ``cv2.imdecode`` decodes them
+(``gis/jpeg.py`` ``decode_image``: PNG or baseline JPEG, with the port's own
+codec; the card machine has no OpenCV), and the default format is the JAX
+client's ``image/jpeg``. A network error, an XML ServiceException or a reply
+that is no image cv2 would decode gives None, as in JAX (the GIS node keeps
+its previous map); a JPEG variant the codec does not read (progressive,
+arithmetic-coded) raises ``ValueError`` naming it.
 """
 from __future__ import annotations
 
@@ -24,12 +26,14 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from gisnav_tpu_torch.gis.png import decode_png, to_gray
+from gisnav_tpu_torch.gis.jpeg import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
+                                       decode_image)
+from gisnav_tpu_torch.gis.png import to_gray
 
 __all__ = ["WMSClient", "request_orthoimage", "orthoimage_size_for_camera",
            "DEFAULT_FORMAT"]
 
-DEFAULT_FORMAT = "image/png"
+DEFAULT_FORMAT = "image/jpeg"
 _NETWORK_ERRORS = (urllib.error.URLError, http.client.HTTPException,
                    OSError)
 
@@ -76,11 +80,11 @@ class WMSClient:
 
         :param bbox: (left, bottom, right, top) in ``srs`` coordinates
         :param size: (height, width) of the requested raster
-        :param grayscale: as ``cv2.IMREAD_GRAYSCALE``: colour to grey and
-            a 16-bit image to its high byte
-        :return: the raster as decoded (grey (H, W), RGB(A) (H, W, C),
-            uint8 or uint16), or None on a network error, an error status,
-            an empty body or a reply that is no image
+        :param grayscale: as ``cv2.IMREAD_GRAYSCALE``: a JPEG's Y plane,
+            colour PNG to grey and a 16-bit PNG to its high byte
+        :return: the raster as ``cv2.imdecode`` gives it (grey (H, W),
+            BGR(A) (H, W, C), uint8 or uint16), or None on a network error,
+            an error status, an empty body or a reply that is no image
         """
         axis_key = "srs" if self.version.startswith("1.1") else "crs"
         params = {
@@ -97,15 +101,8 @@ class WMSClient:
             return None
         if not body or "image" not in ctype:
             return None  # e.g. an XML ServiceException
-        if "png" not in ctype.lower():
-            raise ValueError(f"WMS replied {ctype!r}; the port decodes "
-                             f"image/png only (request format {format_!r})")
-        img = decode_png(body)
-        if grayscale:
-            img = to_gray(img)
-            if img.dtype == np.uint16:
-                img = (img >> 8).astype(np.uint8)
-        return img
+        return decode_image(body, IMREAD_GRAYSCALE if grayscale
+                            else IMREAD_UNCHANGED)
 
 
 def orthoimage_size_for_camera(width: int, height: int) -> Tuple[int, int]:
@@ -136,7 +133,8 @@ def request_orthoimage(
                          transparent)
     if img is None:
         return None
-    img = to_gray(img)
+    if img.ndim == 3:  # cv2.cvtColor(img, COLOR_BGR(A)2GRAY)
+        img = to_gray(img[..., 2::-1])
     dem: Optional[np.ndarray] = None
     if dem_layers and dem_layers[0]:
         dem = client.get_map(dem_layers, bbox, size, srs, format_,

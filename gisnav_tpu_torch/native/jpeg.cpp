@@ -1,0 +1,1275 @@
+// Baseline JPEG codec with libjpeg(-turbo)'s integer arithmetic.
+//
+// The JAX package reads and writes WMS rasters and replay files with
+// OpenCV (cv2.imdecode / cv2.imencode over libjpeg-turbo). The card machine
+// has neither OpenCV nor Pillow, so the port carries this codec, built at
+// first use with the host compiler and bound with ctypes
+// (gisnav_tpu_torch/gis/jpeg.py). Every stage follows the libjpeg-turbo C
+// code that OpenCV calls at its defaults, so decoded pixels and encoded bytes
+// are those of cv2:
+//
+// Decoder: sequential Huffman (SOF0/SOF1), 8-bit, 1 or 3 components, any
+// integral sampling ratio; 8- or 16-bit DQT, DHT (the standard tables where
+// a scan's table is missing, as libjpeg-turbo does for Motion-JPEG), DRI and
+// RSTn with jdmarker.c's resync, fill bytes, APPn / COM skipped, several
+// scans. jdhuff.c's bit reader (57-bit refills, zero bits past a marker and
+// grey for the rest of a segment, a stream that ends without a marker is no
+// image), jidctint.c's islow IDCT (clamped as libjpeg-turbo's SIMD IDCT
+// clamps), jdsample.c's fancy upsampling (h2v1, h1v2, h2v2 with jdmainct.c's
+// context rows: the last real chroma row and column repeat), box upsampling
+// elsewhere, jdcolor.c's fixed-point YCbCr->BGR. Grey output is libjpeg's
+// JCS_GRAYSCALE: the Y plane of a YCbCr file, never chroma.
+//
+// Encoder: cv2.imencode(".jpg") at its defaults for grey and BGR images:
+// jpeg_set_quality's table scaling, standard Huffman tables, jccolor.c's
+// RGB->YCbCr, 4:2:0 by jcsample.c's h2v2 average with its 1,2 bias, edge
+// replication and DC-copy dummy blocks for partial MCUs, jfdctint.c's islow
+// FDCT, libjpeg-turbo's reciprocal quantiser, a JFIF 1.01 APP0 and libjpeg's
+// marker order.
+//
+// Progressive, arithmetic-coded, lossless, hierarchical, 12-bit and CMYK
+// files are refused with a message naming the variant.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+// jpeg_natural_order[]: zigzag index -> natural index, with 16 spare entries
+// that absorb a corrupt run past the block's end.
+constexpr int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// jstdhuff.c: counts of codes of length 1..16, then the symbols.
+const uint8_t kStdDcLuma[28] = {
+    0x00, 0x01, 0x05, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00, 0x00, 0x00,
+    0x00, 0x00, 0x00, 0x00, 0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07,
+    0x08, 0x09, 0x0a, 0x0b};
+const uint8_t kStdAcLuma[178] = {
+    0x00, 0x02, 0x01, 0x03, 0x03, 0x02, 0x04, 0x03, 0x05, 0x05, 0x04, 0x04,
+    0x00, 0x00, 0x01, 0x7d, 0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12,
+    0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32,
+    0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0,
+    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a,
+    0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55,
+    0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
+    0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85,
+    0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98,
+    0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2,
+    0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5,
+    0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea,
+    0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kStdDcChroma[28] = {
+    0x00, 0x03, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00,
+    0x00, 0x00, 0x00, 0x00, 0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07,
+    0x08, 0x09, 0x0a, 0x0b};
+const uint8_t kStdAcChroma[178] = {
+    0x00, 0x02, 0x01, 0x02, 0x04, 0x04, 0x03, 0x04, 0x07, 0x05, 0x04, 0x04,
+    0x00, 0x01, 0x02, 0x77, 0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21,
+    0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81,
+    0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
+    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17,
+    0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54,
+    0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96,
+    0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9,
+    0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9,
+    0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// jcparam.c: the JPEG standard's sample tables (K.1, K.2), natural order.
+const int kStdLumaQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const int kStdChromaQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// jfdctint.c / jidctint.c constants (CONST_BITS 13).
+constexpr int kConstBits = 13;
+constexpr int kPass1Bits = 2;
+constexpr int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270,
+                  F0_899 = 7373, F1_175 = 9633, F1_501 = 12299,
+                  F1_847 = 15137, F1_961 = 16069, F2_053 = 16819,
+                  F2_562 = 20995, F3_072 = 25172;
+
+inline int64_t descale(int64_t x, int n) {
+  return (x + (int64_t(1) << (n - 1))) >> n;
+}
+
+// cv2.imdecode gives None for these bytes.
+struct Invalid {
+  std::string msg;
+};
+// A JPEG variant the codec does not read.
+struct Unsupported {
+  std::string msg;
+};
+
+// ------------------------------------------------------------------------
+// Decoder
+
+struct HuffSpec {  // a DHT table as defined in the stream
+  bool defined = false;
+  uint8_t bits[17] = {};
+  uint8_t vals[256] = {};
+};
+
+void std_spec(HuffSpec* s, const uint8_t* table, int n) {
+  s->defined = true;
+  s->bits[0] = 0;
+  std::memcpy(s->bits + 1, table, 16);
+  std::memset(s->vals, 0, sizeof(s->vals));
+  std::memcpy(s->vals, table + 16, n - 16);
+}
+
+struct Derived {  // jdhuff.c d_derived_tbl
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint8_t vals[256];
+  uint16_t lookup[256];  // (length << 8) | symbol; length 9 = longer code
+};
+
+void derive(const HuffSpec& spec, bool dc, Derived* t) {
+  char huffsize[257];
+  uint32_t huffcode[257];
+  int p = 0;
+  for (int l = 1; l <= 16; l++) {
+    int i = spec.bits[l];
+    if (p + i > 256) throw Invalid{"bad Huffman table"};
+    while (i--) huffsize[p++] = char(l);
+  }
+  huffsize[p] = 0;
+  int nsym = p;
+  uint32_t code = 0;
+  int si = huffsize[0];
+  p = 0;
+  while (huffsize[p]) {
+    while (huffsize[p] == si) {
+      huffcode[p++] = code;
+      code++;
+    }
+    if (int64_t(code) >= (int64_t(1) << si)) throw Invalid{"bad Huffman table"};
+    code <<= 1;
+    si++;
+  }
+  p = 0;
+  for (int l = 1; l <= 16; l++) {
+    if (spec.bits[l]) {
+      t->valoffset[l] = int32_t(p) - int32_t(huffcode[p]);
+      p += spec.bits[l];
+      t->maxcode[l] = int32_t(huffcode[p - 1]);
+    } else {
+      t->maxcode[l] = -1;
+    }
+  }
+  t->valoffset[17] = 0;
+  t->maxcode[17] = 0xFFFFF;
+  std::memcpy(t->vals, spec.vals, 256);
+  for (int i = 0; i < 256; i++) t->lookup[i] = 9 << 8;
+  p = 0;
+  for (int l = 1; l <= 8; l++) {
+    for (int i = 1; i <= spec.bits[l]; i++, p++) {
+      int look = int(huffcode[p] << (8 - l));
+      for (int ctr = 1 << (8 - l); ctr > 0; ctr--)
+        t->lookup[look++] = uint16_t((l << 8) | spec.vals[p]);
+    }
+  }
+  if (dc)
+    for (int i = 0; i < nsym; i++)
+      if (spec.vals[i] > 15) throw Invalid{"bad Huffman table"};
+}
+
+inline int extend(int x, int s) {  // HUFF_EXTEND
+  return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x;
+}
+
+constexpr int kMinGetBits = 57;  // jdhuff.h MIN_GET_BITS, 64-bit buffer
+
+struct BitReader {  // jdhuff.c bitread state
+  const uint8_t* data;
+  size_t size;
+  size_t pos;
+  uint64_t buf = 0;
+  int bits = 0;
+  int marker = 0;  // marker met in the entropy data (unread_marker)
+  bool insufficient = false;
+
+  uint8_t next_byte() {
+    // A suspending source: OpenCV's gives up, and cv2.imdecode gives None.
+    if (pos >= size) throw Invalid{"JPEG data ends without a marker"};
+    return data[pos++];
+  }
+
+  void fill(int nbits) {  // jpeg_fill_bit_buffer
+    if (marker == 0) {
+      while (bits < kMinGetBits) {
+        int c = next_byte();
+        if (c == 0xFF) {
+          do c = next_byte(); while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            marker = c;
+            break;
+          }
+        }
+        buf = (buf << 8) | uint64_t(c);
+        bits += 8;
+      }
+      if (marker == 0) return;
+    }
+    if (nbits > bits) {  // past the marker: zero bits, grey to the restart
+      insufficient = true;
+      buf <<= kMinGetBits - bits;
+      bits = kMinGetBits;
+    }
+  }
+
+  int get(int n) {
+    if (bits < n) fill(n);
+    bits -= n;
+    return int((buf >> bits) & ((uint64_t(1) << n) - 1));
+  }
+
+  int decode(const Derived& t) {  // HUFF_DECODE
+    int nb;
+    if (bits < 8) {
+      fill(0);
+      if (bits < 8) {
+        nb = 1;
+        return decode_slow(t, nb);
+      }
+    }
+    int e = t.lookup[(buf >> (bits - 8)) & 0xFF];
+    nb = e >> 8;
+    if (nb <= 8) {
+      bits -= nb;
+      return e & 0xFF;
+    }
+    return decode_slow(t, nb);
+  }
+
+  int decode_slow(const Derived& t, int l) {  // jpeg_huff_decode
+    int32_t code = get(l);
+    while (code > t.maxcode[l]) {
+      code = (code << 1) | get(1);
+      l++;
+    }
+    if (l > 16) return 0;  // a bad code: libjpeg fakes a zero
+    return t.vals[(code + t.valoffset[l]) & 0xFF];
+  }
+};
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int bw = 0, bh = 0;  // blocks stored (MCU-padded)
+  int wib = 0, hib = 0;  // width_in_blocks, height_in_blocks
+  int dw = 0, dh = 0;  // downsampled_width, downsampled_height
+  bool latched = false;
+  uint16_t quant[64] = {};
+  std::vector<int16_t> coef;  // bh x bw blocks of 64
+};
+
+struct Decoder {
+  const uint8_t* d = nullptr;
+  size_t n = 0;
+  size_t pos = 0;
+  int width = 0, height = 0, precision = 0;
+  int max_h = 1, max_v = 1;
+  int mcus_x = 0, mcus_y = 0;
+  bool saw_sof = false, saw_jfif = false, saw_adobe = false;
+  int adobe_transform = 0;
+  int restart_interval = 0;
+  std::vector<Component> comps;
+  uint16_t qt[4][64] = {};
+  bool qt_defined[4] = {};
+  HuffSpec dc_spec[4], ac_spec[4];
+  int unread_marker = 0;
+
+  uint8_t byte() {
+    if (pos >= n) throw Invalid{"JPEG ends inside its headers"};
+    return d[pos++];
+  }
+  int word() {
+    int hi = byte();
+    return (hi << 8) | byte();
+  }
+
+  int next_marker() {  // jdmarker.c next_marker
+    for (;;) {
+      int c = byte();
+      while (c != 0xFF) c = byte();
+      do c = byte(); while (c == 0xFF);
+      if (c != 0) return c;
+    }
+  }
+
+  void skip_variable() {
+    int len = word();
+    if (len < 2) throw Invalid{"bad marker length"};
+    len -= 2;
+    if (size_t(len) > n - pos) throw Invalid{"JPEG ends inside a marker"};
+    pos += size_t(len);
+  }
+
+  void get_app(int marker) {
+    size_t start = pos;
+    int len = word();
+    if (len < 2) throw Invalid{"bad marker length"};
+    size_t body = size_t(len - 2);
+    if (body > n - pos) throw Invalid{"JPEG ends inside a marker"};
+    const uint8_t* b = d + pos;
+    if (marker == 0xE0 && body >= 14 && std::memcmp(b, "JFIF\0", 5) == 0)
+      saw_jfif = true;
+    if (marker == 0xEE && body >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
+      saw_adobe = true;
+      adobe_transform = b[11];
+    }
+    pos = start + 2 + body;
+  }
+
+  void get_sof(int marker) {
+    if (marker == 0xC2 || marker == 0xC6)
+      throw Unsupported{"progressive JPEG is not supported"};
+    if (marker == 0xC3 || marker == 0xC7)
+      throw Unsupported{"lossless JPEG is not supported"};
+    if (marker >= 0xC9 && marker <= 0xCF)
+      throw Unsupported{"arithmetic-coded JPEG is not supported"};
+    if (marker == 0xC5)
+      throw Unsupported{"hierarchical JPEG is not supported"};
+    if (saw_sof) throw Invalid{"duplicate SOF"};
+    int len = word();
+    precision = byte();
+    height = word();
+    width = word();
+    int nc = byte();
+    if (height <= 0 || width <= 0 || nc <= 0) throw Invalid{"empty image"};
+    if (len != 8 + 3 * nc) throw Invalid{"bad SOF length"};
+    comps.assign(size_t(nc), Component());
+    for (auto& c : comps) {
+      c.id = byte();
+      int hv = byte();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = byte();
+    }
+    saw_sof = true;
+    if (precision != 8)
+      throw Unsupported{std::to_string(precision) +
+                        "-bit JPEG is not supported (8-bit only)"};
+    if (nc == 4) throw Unsupported{"CMYK/YCCK JPEG is not supported"};
+    if (nc != 1 && nc != 3)
+      throw Unsupported{std::to_string(nc) +
+                        "-component JPEG is not supported"};
+    if (width > 65500 || height > 65500) throw Invalid{"image too large"};
+    for (auto& c : comps) {
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
+        throw Invalid{"bad sampling factors"};
+      max_h = std::max(max_h, c.h);
+      max_v = std::max(max_v, c.v);
+    }
+    mcus_x = (width + 8 * max_h - 1) / (8 * max_h);
+    mcus_y = (height + 8 * max_v - 1) / (8 * max_v);
+    for (auto& c : comps) {
+      c.wib = int((int64_t(width) * c.h + 8 * max_h - 1) / (8 * max_h));
+      c.hib = int((int64_t(height) * c.v + 8 * max_v - 1) / (8 * max_v));
+      c.dw = int((int64_t(width) * c.h + max_h - 1) / max_h);
+      c.dh = int((int64_t(height) * c.v + max_v - 1) / max_v);
+      c.bw = mcus_x * c.h;
+      c.bh = mcus_y * c.v;
+      c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+    }
+  }
+
+  void get_dht() {
+    int len = word() - 2;
+    while (len > 16) {
+      int index = byte();
+      uint8_t bits[17] = {0};
+      int count = 0;
+      for (int i = 1; i <= 16; i++) {
+        bits[i] = byte();
+        count += bits[i];
+      }
+      len -= 17;
+      if (count > 256 || count > len) throw Invalid{"bad Huffman table"};
+      HuffSpec spec;
+      for (int i = 0; i < count; i++) spec.vals[i] = byte();
+      len -= count;
+      HuffSpec* tbl = dc_spec;
+      if (index & 0x10) {
+        index -= 0x10;
+        tbl = ac_spec;
+      }
+      if (index < 0 || index >= 4) throw Invalid{"bad DHT index"};
+      spec.defined = true;
+      std::memcpy(spec.bits, bits, sizeof(bits));
+      tbl[index] = spec;
+    }
+    if (len != 0) throw Invalid{"bad DHT length"};
+  }
+
+  void get_dqt() {
+    int len = word() - 2;
+    while (len > 0) {
+      len--;
+      int nq = byte();
+      int prec = nq >> 4;
+      nq &= 15;
+      if (nq >= 4) throw Invalid{"bad DQT index"};
+      for (int i = 0; i < 64; i++) {
+        int v = prec ? word() : byte();
+        qt[nq][kNatural[i]] = uint16_t(v);
+      }
+      qt_defined[nq] = true;
+      len -= 64;
+      if (prec) len -= 64;
+    }
+    if (len != 0) throw Invalid{"bad DQT length"};
+  }
+
+  void get_dri() {
+    if (word() != 4) throw Invalid{"bad DRI length"};
+    restart_interval = word();
+  }
+
+  // Reads markers up to SOS (returns true) or EOI (false).
+  bool read_markers() {
+    for (;;) {
+      int m = unread_marker ? unread_marker : next_marker();
+      unread_marker = 0;
+      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+        get_sof(m);
+      } else if (m == 0xC4) {
+        get_dht();
+      } else if (m == 0xCC) {
+        throw Unsupported{"arithmetic-coded JPEG is not supported"};
+      } else if (m == 0xDB) {
+        get_dqt();
+      } else if (m == 0xDD) {
+        get_dri();
+      } else if (m == 0xDA) {
+        if (!saw_sof) throw Invalid{"SOS before SOF"};
+        return true;
+      } else if (m == 0xD9) {
+        return false;
+      } else if (m == 0xD8) {
+        throw Invalid{"duplicate SOI"};
+      } else if (m >= 0xE0 && m <= 0xEF) {
+        get_app(m);
+      } else if (m == 0xFE || m == 0xDC) {
+        skip_variable();
+      } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
+        // parameterless markers
+      } else {
+        throw Invalid{"unknown JPEG marker"};
+      }
+    }
+  }
+
+  bool resync_to_restart(BitReader& br, int desired) {  // jpeg_resync_to_restart
+    int marker = br.marker;
+    for (;;) {
+      int action;
+      if (marker < 0xC0) {
+        action = 2;
+      } else if (marker < 0xD0 || marker > 0xD7) {
+        action = 3;
+      } else if (marker == 0xD0 + ((desired + 1) & 7) ||
+                 marker == 0xD0 + ((desired + 2) & 7)) {
+        action = 3;
+      } else if (marker == 0xD0 + ((desired - 1) & 7) ||
+                 marker == 0xD0 + ((desired - 2) & 7)) {
+        action = 2;
+      } else {
+        action = 1;
+      }
+      if (action == 1) {
+        br.marker = 0;
+        return true;
+      }
+      if (action == 3) {
+        br.marker = marker;
+        return true;
+      }
+      pos = br.pos;
+      marker = next_marker();
+      br.pos = pos;
+      br.marker = marker;
+    }
+  }
+
+  void process_restart(BitReader& br, int* next_rst, int* last_dc,
+                       int ncomp) {
+    br.bits = 0;
+    if (br.marker == 0) {
+      pos = br.pos;
+      br.marker = next_marker();
+      br.pos = pos;
+    }
+    if (br.marker == 0xD0 + *next_rst) {
+      br.marker = 0;
+    } else {
+      resync_to_restart(br, *next_rst);
+    }
+    *next_rst = (*next_rst + 1) & 7;
+    for (int i = 0; i < ncomp; i++) last_dc[i] = 0;
+    if (br.marker == 0) br.insufficient = false;
+  }
+
+  // Decodes one scan; returns true when it held every component.
+  bool decode_scan() {
+    int len = word();
+    int ns = byte();
+    if (len != ns * 2 + 6 || ns < 1 || ns > 4) throw Invalid{"bad SOS"};
+    std::vector<int> sc(static_cast<size_t>(ns));
+    int td[4], ta[4];
+    for (int i = 0; i < ns; i++) {
+      int cid = byte(), t = byte();
+      int ci = -1;
+      for (size_t k = 0; k < comps.size(); k++)
+        if (comps[k].id == cid) ci = int(k);
+      if (ci < 0) throw Invalid{"bad component id in SOS"};
+      for (int j = 0; j < i; j++)
+        if (sc[size_t(j)] == ci) throw Invalid{"bad component id in SOS"};
+      sc[size_t(i)] = ci;
+      td[i] = t >> 4;
+      ta[i] = t & 15;
+    }
+    byte();  // Ss
+    byte();  // Se
+    byte();  // Ah/Al
+    Derived dct[4], act[4];
+    for (int i = 0; i < ns; i++) {
+      if (td[i] > 3 || ta[i] > 3) throw Invalid{"bad Huffman table index"};
+      for (int k = 0; k < 2; k++) {
+        int no = k ? ta[i] : td[i];
+        HuffSpec spec = k ? ac_spec[no] : dc_spec[no];
+        if (!spec.defined) {  // jpeg_std_huff_table (Motion-JPEG)
+          if (no > 1) throw Invalid{"missing Huffman table"};
+          if (k)
+            std_spec(&spec, no ? kStdAcChroma : kStdAcLuma, 178);
+          else
+            std_spec(&spec, no ? kStdDcChroma : kStdDcLuma, 28);
+        }
+        derive(spec, k == 0, k ? &act[i] : &dct[i]);
+      }
+      Component& c = comps[size_t(sc[size_t(i)])];
+      if (!c.latched) {  // jdinput.c latch_quant_tables
+        if (c.tq > 3 || !qt_defined[c.tq]) throw Invalid{"missing DQT"};
+        std::memcpy(c.quant, qt[c.tq], sizeof(c.quant));
+        c.latched = true;
+      }
+    }
+    BitReader br{d, n, pos};
+    int last_dc[4] = {0, 0, 0, 0};
+    int next_rst = 0, to_go = restart_interval;
+    auto block = [&](int i, Component& c, int by, int bx) {
+      int16_t* blk = &c.coef[(size_t(by) * c.bw + bx) * 64];
+      int s = br.decode(dct[i]);
+      if (s) s = extend(br.get(s), s);
+      last_dc[i] = int(unsigned(s) + unsigned(last_dc[i]));
+      blk[0] = int16_t(last_dc[i]);
+      for (int k = 1; k < 64; k++) {
+        int rs = br.decode(act[i]);
+        int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNatural[k]] = int16_t(extend(br.get(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    };
+    auto restart = [&]() {
+      if (restart_interval) {
+        if (to_go == 0) {
+          process_restart(br, &next_rst, last_dc, ns);
+          to_go = restart_interval;
+        }
+        to_go--;
+      }
+    };
+    if (ns == 1) {  // non-interleaved: one block per MCU, over the real ones
+      Component& c = comps[size_t(sc[0])];
+      for (int by = 0; by < c.hib; by++)
+        for (int bx = 0; bx < c.wib; bx++) {
+          restart();
+          if (!br.insufficient) block(0, c, by, bx);
+        }
+    } else {
+      for (int my = 0; my < mcus_y; my++)
+        for (int mx = 0; mx < mcus_x; mx++) {
+          restart();
+          if (br.insufficient) continue;
+          for (int i = 0; i < ns; i++) {
+            Component& c = comps[size_t(sc[size_t(i)])];
+            for (int y = 0; y < c.v; y++)
+              for (int x = 0; x < c.h; x++)
+                block(i, c, my * c.v + y, mx * c.h + x);
+          }
+        }
+    }
+    pos = br.pos;
+    unread_marker = br.marker;
+    return ns == int(comps.size());
+  }
+};
+
+// jidctint.c's 1-D stage: 8 coefficients in, 8 outputs scaled by 2^13.
+void idct_1d(const int64_t* in, int64_t* out) {
+  int64_t z1 = (in[2] + in[6]) * F0_541;
+  int64_t tmp2 = z1 + in[6] * -F1_847;
+  int64_t tmp3 = z1 + in[2] * F0_765;
+  int64_t tmp0 = (in[0] + in[4]) * (1 << kConstBits);
+  int64_t tmp1 = (in[0] - in[4]) * (1 << kConstBits);
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  tmp0 = in[7];
+  tmp1 = in[5];
+  tmp2 = in[3];
+  tmp3 = in[1];
+  z1 = tmp0 + tmp3;
+  int64_t z2 = tmp1 + tmp2, z3 = tmp0 + tmp2, z4 = tmp1 + tmp3;
+  const int64_t z5 = (z3 + z4) * F1_175;
+  tmp0 *= F0_298;
+  tmp1 *= F2_053;
+  tmp2 *= F3_072;
+  tmp3 *= F1_501;
+  z1 *= -F0_899;
+  z2 *= -F2_562;
+  z3 = z3 * -F1_961 + z5;
+  z4 = z4 * -F0_390 + z5;
+  tmp0 += z1 + z3;
+  tmp1 += z2 + z4;
+  tmp2 += z2 + z3;
+  tmp3 += z1 + z4;
+  out[0] = tmp10 + tmp3;
+  out[7] = tmp10 - tmp3;
+  out[1] = tmp11 + tmp2;
+  out[6] = tmp11 - tmp2;
+  out[2] = tmp12 + tmp1;
+  out[5] = tmp12 - tmp1;
+  out[3] = tmp13 + tmp0;
+  out[4] = tmp13 - tmp0;
+}
+
+// jidctint.c islow IDCT of one block into 8 rows of `stride` samples:
+// columns, then rows. The SIMD IDCT libjpeg-turbo runs saturates to 0..255
+// (its C range table agrees for every value a real image produces).
+void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
+                int stride) {
+  int64_t ws[64], col[8], res[8];
+  for (int c = 0; c < 8; c++) {
+    for (int r = 0; r < 8; r++)
+      col[r] = int64_t(in[8 * r + c]) * int16_t(q[8 * r + c]);
+    if (!(col[1] | col[2] | col[3] | col[4] | col[5] | col[6] | col[7])) {
+      for (int r = 0; r < 8; r++)  // AC all zero: jidctint.c's shortcut
+        ws[8 * r + c] = col[0] * (1 << kPass1Bits);
+      continue;
+    }
+    idct_1d(col, res);
+    for (int r = 0; r < 8; r++)
+      ws[8 * r + c] = descale(res[r], kConstBits - kPass1Bits);
+  }
+  for (int r = 0; r < 8; r++) {
+    idct_1d(ws + 8 * r, res);
+    uint8_t* o = out + size_t(r) * stride;
+    for (int c = 0; c < 8; c++) {
+      int64_t x = descale(res[c], kConstBits + kPass1Bits + 3) + 128;
+      o[c] = uint8_t(x < 0 ? 0 : x > 255 ? 255 : x);
+    }
+  }
+}
+
+// A component's samples after the IDCT: bh*8 rows of bw*8.
+struct Plane {
+  int w = 0, h = 0;
+  std::vector<uint8_t> px;
+};
+
+Plane idct_plane(const Component& c) {
+  Plane p;
+  p.w = c.bw * 8;
+  p.h = c.bh * 8;
+  p.px.assign(size_t(p.w) * p.h, 0);
+  for (int by = 0; by < c.bh; by++)
+    for (int bx = 0; bx < c.bw; bx++)
+      idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], c.quant,
+                 &p.px[size_t(by) * 8 * p.w + size_t(bx) * 8], p.w);
+  return p;
+}
+
+// jdsample.c: a component's plane upsampled to width x height.
+std::vector<uint8_t> upsample(const Component& c, const Plane& p, int max_h,
+                              int max_v, int width, int height) {
+  std::vector<uint8_t> out(size_t(width) * height);
+  const int dw = c.dw, dh = c.dh;
+  auto row = [&](int y) {  // jdmainct.c context rows: the real ones repeat
+    y = y < 0 ? 0 : y >= dh ? dh - 1 : y;
+    return &p.px[size_t(y) * p.w];
+  };
+  if (c.h == max_h && c.v == max_v) {
+    for (int y = 0; y < height; y++)
+      std::memcpy(&out[size_t(y) * width], &p.px[size_t(y) * p.w],
+                  size_t(width));
+  } else if (2 * c.h == max_h && c.v == max_v && dw > 2) {  // h2v1 fancy
+    std::vector<uint8_t> line(static_cast<size_t>(2 * dw));
+    for (int y = 0; y < height; y++) {
+      const uint8_t* in = &p.px[size_t(y) * p.w];
+      uint8_t* o = line.data();
+      o[0] = in[0];
+      o[1] = uint8_t((in[0] * 3 + in[1] + 2) >> 2);
+      for (int i = 1; i < dw - 1; i++) {
+        int v = in[i] * 3;
+        o[2 * i] = uint8_t((v + in[i - 1] + 1) >> 2);
+        o[2 * i + 1] = uint8_t((v + in[i + 1] + 2) >> 2);
+      }
+      o[2 * dw - 2] = uint8_t((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
+      o[2 * dw - 1] = in[dw - 1];
+      std::memcpy(&out[size_t(y) * width], o, size_t(width));
+    }
+  } else if (c.h == max_h && 2 * c.v == max_v) {  // h1v2 fancy
+    for (int y = 0; y < height; y++) {
+      int k = y >> 1;
+      const uint8_t* in0 = row(k);
+      const uint8_t* in1 = row(y & 1 ? k + 1 : k - 1);
+      int bias = y & 1 ? 2 : 1;
+      uint8_t* o = &out[size_t(y) * width];
+      for (int x = 0; x < width; x++)
+        o[x] = uint8_t((in0[x] * 3 + in1[x] + bias) >> 2);
+    }
+  } else if (2 * c.h == max_h && 2 * c.v == max_v && dw > 2) {  // h2v2
+    std::vector<int> sum(static_cast<size_t>(dw));
+    std::vector<uint8_t> line(static_cast<size_t>(2 * dw));
+    for (int y = 0; y < height; y++) {
+      int k = y >> 1;
+      const uint8_t* in0 = row(k);
+      const uint8_t* in1 = row(y & 1 ? k + 1 : k - 1);
+      for (int i = 0; i < dw; i++) sum[size_t(i)] = in0[i] * 3 + in1[i];
+      uint8_t* o = line.data();
+      o[0] = uint8_t((sum[0] * 4 + 8) >> 4);
+      o[1] = uint8_t((sum[0] * 3 + sum[1] + 7) >> 4);
+      for (int i = 1; i < dw - 1; i++) {
+        o[2 * i] = uint8_t((sum[size_t(i)] * 3 + sum[size_t(i - 1)] + 8) >> 4);
+        o[2 * i + 1] =
+            uint8_t((sum[size_t(i)] * 3 + sum[size_t(i + 1)] + 7) >> 4);
+      }
+      o[2 * dw - 2] =
+          uint8_t((sum[size_t(dw - 1)] * 3 + sum[size_t(dw - 2)] + 8) >> 4);
+      o[2 * dw - 1] = uint8_t((sum[size_t(dw - 1)] * 4 + 7) >> 4);
+      std::memcpy(&out[size_t(y) * width], o, size_t(width));
+    }
+  } else if (max_h % c.h == 0 && max_v % c.v == 0) {  // box (int_upsample)
+    int hx = max_h / c.h, vx = max_v / c.v;
+    for (int y = 0; y < height; y++) {
+      const uint8_t* in = &p.px[size_t(y / vx) * p.w];
+      uint8_t* o = &out[size_t(y) * width];
+      for (int x = 0; x < width; x++) o[x] = in[x / hx];
+    }
+  } else {
+    throw Invalid{"fractional sampling ratio"};
+  }
+  return out;
+}
+
+inline uint8_t clamp255(int x) {
+  return uint8_t(x < 0 ? 0 : x > 255 ? 255 : x);
+}
+
+// mode: 0 = as the file is (grey 1 channel, colour BGR), 1 = grey (libjpeg
+// JCS_GRAYSCALE), 2 = BGR.
+std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
+                            int* out_h, int* out_w, int* out_c) {
+  Decoder dec;
+  dec.d = data;
+  dec.n = size;
+  if (size < 2 || data[0] != 0xFF || data[1] != 0xD8)
+    throw Invalid{"not a JPEG (no SOI)"};
+  dec.pos = 2;
+  if (!dec.read_markers()) throw Invalid{"JPEG without an image"};
+  if (!dec.decode_scan()) {  // several scans: read them all, up to EOI
+    while (dec.read_markers()) dec.decode_scan();
+  }
+  const int nc = int(dec.comps.size());
+  // jdapimin.c default_decompress_parms: the colour space of 3 components
+  // (a JFIF marker, then an Adobe marker, then the component ids decide).
+  bool rgb = false;
+  if (nc == 3 && !dec.saw_jfif) {
+    if (dec.saw_adobe)
+      rgb = dec.adobe_transform == 0;
+    else
+      rgb = dec.comps[0].id == 82 && dec.comps[1].id == 71 &&
+            dec.comps[2].id == 66;  // 'R', 'G', 'B'
+  }
+  const int W = dec.width, H = dec.height;
+  int channels = mode == 1 ? 1 : mode == 2 ? 3 : (nc == 1 ? 1 : 3);
+  std::vector<uint8_t> out(size_t(W) * H * channels);
+  *out_h = H;
+  *out_w = W;
+  *out_c = channels;
+  const bool gray_only = nc == 1 || (channels == 1 && !rgb);
+  std::vector<std::vector<uint8_t>> planes(static_cast<size_t>(nc));
+  for (int i = 0; i < (gray_only ? 1 : nc); i++) {
+    const Component& c = dec.comps[size_t(i)];
+    planes[size_t(i)] =
+        upsample(c, idct_plane(c), dec.max_h, dec.max_v, W, H);
+  }
+  const size_t npx = size_t(W) * H;
+  if (gray_only) {
+    const uint8_t* y = planes[0].data();
+    if (channels == 1) {
+      std::memcpy(out.data(), y, npx);
+    } else {
+      for (size_t i = 0; i < npx; i++)
+        out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
+    }
+    return out;
+  }
+  const uint8_t *p0 = planes[0].data(), *p1 = planes[1].data(),
+                *p2 = planes[2].data();
+  constexpr int kScale = 16;
+  constexpr int64_t kHalf = int64_t(1) << (kScale - 1);
+  auto fix = [](double x) { return int64_t(x * (1 << kScale) + 0.5); };
+  if (rgb) {
+    if (channels == 1) {  // jdcolor.c rgb_gray_convert
+      const int64_t ry = fix(0.29900), gy = fix(0.58700), by = fix(0.11400);
+      for (size_t i = 0; i < npx; i++)
+        out[i] = uint8_t((ry * p0[i] + gy * p1[i] + by * p2[i] + kHalf) >>
+                         kScale);
+    } else {
+      for (size_t i = 0; i < npx; i++) {
+        out[3 * i] = p2[i];
+        out[3 * i + 1] = p1[i];
+        out[3 * i + 2] = p0[i];
+      }
+    }
+    return out;
+  }
+  // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  for (int i = 0, x = -128; i < 256; i++, x++) {
+    cr_r[i] = int((fix(1.40200) * x + kHalf) >> kScale);
+    cb_b[i] = int((fix(1.77200) * x + kHalf) >> kScale);
+    cr_g[i] = -fix(0.71414) * x;
+    cb_g[i] = -fix(0.34414) * x + kHalf;
+  }
+  for (size_t i = 0; i < npx; i++) {
+    int y = p0[i], cb = p1[i], cr = p2[i];
+    out[3 * i + 2] = clamp255(y + cr_r[cr]);
+    out[3 * i + 1] = clamp255(y + int((cb_g[cb] + cr_g[cr]) >> kScale));
+    out[3 * i] = clamp255(y + cb_b[cb]);
+  }
+  return out;
+}
+
+// ------------------------------------------------------------------------
+// Encoder
+
+// jcdctmgr.c compute_reciprocal for the islow divisor (quantval << 3).
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor reciprocal(int divisor) {
+  int b = 31 - __builtin_clz(unsigned(divisor));
+  int r = 16 + b;
+  uint64_t fq = (uint64_t(1) << r) / unsigned(divisor);
+  uint64_t fr = (uint64_t(1) << r) % unsigned(divisor);
+  uint32_t c = unsigned(divisor) / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    r--;
+  } else if (fr <= unsigned(divisor) / 2) {
+    c++;
+  } else {
+    fq++;
+  }
+  return Divisor{uint32_t(fq), c, r};
+}
+
+// jfdctint.c's 1-D stage on 8 samples: outputs 0 and 4 unscaled, the
+// rest scaled by 2^13.
+void fdct_1d(const int64_t* in, int64_t* out) {
+  int64_t tmp0 = in[0] + in[7], tmp7 = in[0] - in[7];
+  int64_t tmp1 = in[1] + in[6], tmp6 = in[1] - in[6];
+  int64_t tmp2 = in[2] + in[5], tmp5 = in[2] - in[5];
+  int64_t tmp3 = in[3] + in[4], tmp4 = in[3] - in[4];
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  out[0] = tmp10 + tmp11;
+  out[4] = tmp10 - tmp11;
+  int64_t z1 = (tmp12 + tmp13) * F0_541;
+  out[2] = z1 + tmp13 * F0_765;
+  out[6] = z1 + tmp12 * -F1_847;
+  z1 = tmp4 + tmp7;
+  int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+  const int64_t z5 = (z3 + z4) * F1_175;
+  tmp4 *= F0_298;
+  tmp5 *= F2_053;
+  tmp6 *= F3_072;
+  tmp7 *= F1_501;
+  z1 *= -F0_899;
+  z2 *= -F2_562;
+  z3 = z3 * -F1_961 + z5;
+  z4 = z4 * -F0_390 + z5;
+  out[7] = tmp4 + z1 + z3;
+  out[5] = tmp5 + z2 + z4;
+  out[3] = tmp6 + z2 + z3;
+  out[1] = tmp7 + z1 + z4;
+}
+
+// jfdctint.c islow FDCT, in place: rows, then columns; output scaled up
+// by 8.
+void fdct_islow(int* d) {
+  int64_t v[8], res[8];
+  for (int r = 0; r < 8; r++) {
+    for (int c = 0; c < 8; c++) v[c] = d[8 * r + c];
+    fdct_1d(v, res);
+    for (int c = 0; c < 8; c++)
+      d[8 * r + c] = int(c % 4 == 0 ? res[c] * (1 << kPass1Bits)
+                                    : descale(res[c], kConstBits - kPass1Bits));
+  }
+  for (int c = 0; c < 8; c++) {
+    for (int r = 0; r < 8; r++) v[r] = d[8 * r + c];
+    fdct_1d(v, res);
+    for (int r = 0; r < 8; r++)
+      d[8 * r + c] = int(descale(
+          res[r], r % 4 == 0 ? kPass1Bits : kConstBits + kPass1Bits));
+  }
+}
+
+struct EncTable {  // jchuff.c c_derived_tbl
+  uint32_t code[256] = {};
+  uint8_t size[256] = {};
+};
+
+EncTable enc_table(const uint8_t* spec) {
+  EncTable t;
+  uint32_t code = 0;
+  int p = 0;
+  for (int l = 1; l <= 16; l++) {
+    for (int i = 0; i < spec[l - 1]; i++, p++) {
+      int sym = spec[16 + p];
+      t.code[sym] = code++;
+      t.size[sym] = uint8_t(l);
+    }
+    code <<= 1;
+  }
+  return t;
+}
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint64_t buf = 0;
+  int bits = 0;
+  void put(uint32_t code, int size) {
+    buf = (buf << size) | code;
+    bits += size;
+    while (bits >= 8) {
+      bits -= 8;
+      uint8_t b = uint8_t(buf >> bits);
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+    }
+  }
+  void flush() {  // fill the partial byte with ones
+    if (bits) put((1u << (8 - bits)) - 1, 8 - bits);
+  }
+};
+
+inline int nbits(int v) { return v ? 32 - __builtin_clz(unsigned(v)) : 0; }
+
+void encode_block(BitWriter& bw, const int* coef, int* last_dc,
+                  const EncTable& dc, const EncTable& ac) {
+  int temp = coef[0] - *last_dc;
+  *last_dc = coef[0];
+  int mag = temp < 0 ? -temp : temp;
+  int nb = nbits(mag);
+  bw.put(dc.code[nb], dc.size[nb]);
+  if (nb) bw.put(uint32_t(temp < 0 ? temp - 1 : temp) & ((1u << nb) - 1), nb);
+  int run = 0;
+  for (int k = 1; k < 64; k++) {
+    int v = coef[kNatural[k]];
+    if (v == 0) {
+      run++;
+      continue;
+    }
+    while (run > 15) {
+      bw.put(ac.code[0xF0], ac.size[0xF0]);
+      run -= 16;
+    }
+    mag = v < 0 ? -v : v;
+    nb = nbits(mag);
+    int sym = (run << 4) + nb;
+    bw.put(ac.code[sym], ac.size[sym]);
+    bw.put(uint32_t(v < 0 ? v - 1 : v) & ((1u << nb) - 1), nb);
+    run = 0;
+  }
+  if (run > 0) bw.put(ac.code[0], ac.size[0]);
+}
+
+// Forward DCT and quantisation of the 8x8 block at (by, bx) of a padded
+// plane (jcdctmgr.c forward_DCT with libjpeg-turbo's quantize()).
+void fdct_quant(const std::vector<uint8_t>& plane, int pw, int by, int bx,
+                const Divisor* div, int* coef) {
+  int ws[64];
+  for (int r = 0; r < 8; r++)
+    for (int c = 0; c < 8; c++)
+      ws[8 * r + c] =
+          int(plane[size_t(by * 8 + r) * pw + size_t(bx * 8 + c)]) - 128;
+  fdct_islow(ws);
+  for (int i = 0; i < 64; i++) {
+    int t = ws[i];
+    uint64_t a = uint64_t(t < 0 ? -t : t);
+    int q = int(((a + div[i].corr) * div[i].recip) >> div[i].shift);
+    coef[i] = t < 0 ? -q : q;
+  }
+}
+
+// Edge replication: `src` (h x w) into a (ph x pw) plane.
+std::vector<uint8_t> pad(const uint8_t* src, int h, int w, int ph, int pw) {
+  std::vector<uint8_t> out(size_t(ph) * pw);
+  for (int y = 0; y < ph; y++) {
+    const uint8_t* in = src + size_t(std::min(y, h - 1)) * w;
+    uint8_t* o = &out[size_t(y) * pw];
+    std::memcpy(o, in, size_t(w));
+    std::memset(o + w, in[w - 1], size_t(pw - w));
+  }
+  return out;
+}
+
+void put_marker(std::vector<uint8_t>& out, int m) {
+  out.push_back(0xFF);
+  out.push_back(uint8_t(m));
+}
+void put_word(std::vector<uint8_t>& out, int v) {
+  out.push_back(uint8_t(v >> 8));
+  out.push_back(uint8_t(v & 0xFF));
+}
+
+std::vector<uint8_t> encode(const uint8_t* px, int H, int W, int C,
+                            int quality) {
+  if (H < 1 || W < 1 || H > 65500 || W > 65500)
+    throw Invalid{"image size out of JPEG's range"};
+  if (C != 1 && C != 3) throw Invalid{"encode takes 1 or 3 channels"};
+  // jcparam.c jpeg_quality_scaling + jpeg_add_quant_table (force_baseline)
+  quality = std::min(std::max(quality, 1), 100);
+  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  int qt[2][64];
+  for (int t = 0; t < 2; t++)
+    for (int i = 0; i < 64; i++) {
+      long v = (long((t ? kStdChromaQuant : kStdLumaQuant)[i]) * scale + 50) /
+               100;
+      qt[t][i] = int(std::min(std::max(v, 1L), 255L));
+    }
+  Divisor div[2][64];
+  for (int t = 0; t < 2; t++)
+    for (int i = 0; i < 64; i++) div[t][i] = reciprocal(qt[t][i] << 3);
+
+  std::vector<uint8_t> out;
+  out.reserve(size_t(H) * W * C / 4 + 1024);
+  put_marker(out, 0xD8);
+  const uint8_t jfif[16] = {0x00, 0x10, 'J', 'F', 'I', 'F', 0x00, 0x01,
+                            0x01, 0x00, 0x00, 0x01, 0x00, 0x01, 0x00, 0x00};
+  put_marker(out, 0xE0);
+  out.insert(out.end(), jfif, jfif + 16);
+  const int ntab = C == 1 ? 1 : 2;
+  for (int t = 0; t < ntab; t++) {
+    put_marker(out, 0xDB);
+    put_word(out, 67);
+    out.push_back(uint8_t(t));
+    for (int i = 0; i < 64; i++) out.push_back(uint8_t(qt[t][kNatural[i]]));
+  }
+  put_marker(out, 0xC0);
+  put_word(out, 8 + 3 * C);
+  out.push_back(8);
+  put_word(out, H);
+  put_word(out, W);
+  out.push_back(uint8_t(C));
+  for (int c = 0; c < C; c++) {
+    out.push_back(uint8_t(c + 1));
+    out.push_back(C == 1 ? 0x11 : c == 0 ? 0x22 : 0x11);
+    out.push_back(c == 0 ? 0 : 1);
+  }
+  const uint8_t* specs[4] = {kStdDcLuma, kStdAcLuma, kStdDcChroma,
+                             kStdAcChroma};
+  const int spec_len[4] = {28, 178, 28, 178};
+  for (int t = 0; t < 2 * ntab; t++) {
+    put_marker(out, 0xC4);
+    put_word(out, 2 + 1 + spec_len[t]);
+    out.push_back(uint8_t((t & 1 ? 0x10 : 0) | (t >> 1)));
+    out.insert(out.end(), specs[t], specs[t] + spec_len[t]);
+  }
+  put_marker(out, 0xDA);
+  put_word(out, 6 + 2 * C);
+  out.push_back(uint8_t(C));
+  for (int c = 0; c < C; c++) {
+    out.push_back(uint8_t(c + 1));
+    out.push_back(c == 0 ? 0x00 : 0x11);
+  }
+  out.push_back(0);
+  out.push_back(63);
+  out.push_back(0);
+
+  EncTable dc[2] = {enc_table(kStdDcLuma), enc_table(kStdDcChroma)};
+  EncTable ac[2] = {enc_table(kStdAcLuma), enc_table(kStdAcChroma)};
+  BitWriter bw{out};
+  int coef[64];
+  const int wib = (W + 7) / 8, hib = (H + 7) / 8;
+  if (C == 1) {
+    std::vector<uint8_t> plane = pad(px, H, W, hib * 8, wib * 8);
+    int last = 0;
+    for (int by = 0; by < hib; by++)
+      for (int bx = 0; bx < wib; bx++) {
+        fdct_quant(plane, wib * 8, by, bx, div[0], coef);
+        encode_block(bw, coef, &last, dc[0], ac[0]);
+      }
+  } else {
+    // jccolor.c rgb_ycc_convert from BGR
+    const size_t npx = size_t(H) * W;
+    std::vector<uint8_t> Y(npx), Cb(npx), Cr(npx);
+    constexpr int kScale = 16;
+    constexpr int64_t kHalf = int64_t(1) << (kScale - 1);
+    auto fix = [](double x) { return int64_t(x * (1 << kScale) + 0.5); };
+    const int64_t kOff = int64_t(128) << kScale;
+    for (size_t i = 0; i < npx; i++) {
+      int64_t b = px[3 * i], g = px[3 * i + 1], r = px[3 * i + 2];
+      Y[i] = uint8_t((fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b +
+                      kHalf) >> kScale);
+      Cb[i] = uint8_t((-fix(0.16874) * r - fix(0.33126) * g +
+                       fix(0.50000) * b + kOff + kHalf - 1) >> kScale);
+      Cr[i] = uint8_t((fix(0.50000) * r - fix(0.41869) * g -
+                       fix(0.08131) * b + kOff + kHalf - 1) >> kScale);
+    }
+    const int mx = (W + 15) / 16, my = (H + 15) / 16;
+    std::vector<uint8_t> yp = pad(Y.data(), H, W, hib * 8, wib * 8);
+    // jcsample.c h2v2_downsample over the edge-replicated full-size rows,
+    // then the last chroma row repeated to the iMCU height.
+    const int cw = mx * 8, ch_real = (H + 1) / 2, ch = my * 8;
+    std::vector<uint8_t> cplane[2];
+    const std::vector<uint8_t>* full[2] = {&Cb, &Cr};
+    for (int k = 0; k < 2; k++) {
+      std::vector<uint8_t> f = pad(full[k]->data(), H, W, 2 * ch_real, 2 * cw);
+      std::vector<uint8_t> ds(size_t(ch_real) * cw);
+      for (int y = 0; y < ch_real; y++) {
+        const uint8_t* r0 = &f[size_t(2 * y) * 2 * cw];
+        const uint8_t* r1 = r0 + 2 * cw;
+        int bias = 1;
+        for (int x = 0; x < cw; x++) {
+          ds[size_t(y) * cw + x] = uint8_t(
+              (r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + bias) >>
+              2);
+          bias ^= 3;
+        }
+      }
+      cplane[k] = pad(ds.data(), ch_real, cw, ch, cw);
+    }
+    int last[3] = {0, 0, 0};
+    int mcu[4][64];
+    for (int my_i = 0; my_i < my; my_i++)
+      for (int mx_i = 0; mx_i < mx; mx_i++) {
+        // jccoefct.c compress_data: blocks past the image are dummies, all
+        // zero but the DC of the block before them.
+        for (int yi = 0; yi < 2; yi++)
+          for (int xi = 0; xi < 2; xi++) {
+            int by = 2 * my_i + yi, bx = 2 * mx_i + xi;
+            int* blk = mcu[2 * yi + xi];
+            if (by < hib && bx < wib) {
+              fdct_quant(yp, wib * 8, by, bx, div[0], blk);
+            } else {
+              std::memset(blk, 0, sizeof(mcu[0]));
+              blk[0] = by < hib ? mcu[2 * yi + xi - 1][0] : mcu[1][0];
+            }
+          }
+        for (int b = 0; b < 4; b++) encode_block(bw, mcu[b], &last[0], dc[0], ac[0]);
+        for (int k = 0; k < 2; k++) {
+          fdct_quant(cplane[k], cw, my_i, mx_i, div[1], coef);
+          encode_block(bw, coef, &last[1 + k], dc[1], ac[1]);
+        }
+      }
+  }
+  bw.flush();
+  put_marker(out, 0xD9);
+  return out;
+}
+
+void set_msg(char* msg, int len, const std::string& s) {
+  if (msg && len > 0) {
+    std::strncpy(msg, s.c_str(), size_t(len - 1));
+    msg[len - 1] = 0;
+  }
+}
+
+uint8_t* to_malloc(const std::vector<uint8_t>& v) {
+  uint8_t* p = static_cast<uint8_t*>(std::malloc(v.size() ? v.size() : 1));
+  if (p && !v.empty()) std::memcpy(p, v.data(), v.size());
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decodes a JPEG. Returns a malloc'd (h, w, c) uint8 buffer (free it with
+// gjpeg_free), or NULL with *status 1 (bytes cv2.imdecode gives None for)
+// or 2 (a variant the codec does not read; msg names it).
+uint8_t* gjpeg_decode(const uint8_t* data, uint64_t size, int mode, int* h,
+                      int* w, int* c, int* status, char* msg, int msglen) {
+  *status = 0;
+  try {
+    return to_malloc(decode(data, size_t(size), mode, h, w, c));
+  } catch (const Invalid& e) {
+    *status = 1;
+    set_msg(msg, msglen, e.msg);
+  } catch (const Unsupported& e) {
+    *status = 2;
+    set_msg(msg, msglen, e.msg);
+  } catch (const std::bad_alloc&) {
+    *status = 1;
+    set_msg(msg, msglen, "out of memory");
+  }
+  return nullptr;
+}
+
+// Encodes an (h, w) grey or (h, w, 3) BGR uint8 image as cv2.imencode(".jpg")
+// does at `quality`. Returns a malloc'd buffer of *size bytes, or NULL.
+uint8_t* gjpeg_encode(const uint8_t* px, int h, int w, int c, int quality,
+                      uint64_t* size, char* msg, int msglen) {
+  try {
+    std::vector<uint8_t> out = encode(px, h, w, c, quality);
+    *size = out.size();
+    return to_malloc(out);
+  } catch (const Invalid& e) {
+    set_msg(msg, msglen, e.msg);
+  } catch (const std::bad_alloc&) {
+    set_msg(msg, msglen, "out of memory");
+  }
+  return nullptr;
+}
+
+void gjpeg_free(void* p) { std::free(p); }
+
+}  // extern "C"

@@ -15,9 +15,8 @@ share one ``publish`` / ``subscribe`` interface:
   the JAX package, so a JAX graph and a port graph in one namespace share
   segments. Messages are pickled; one reader thread a subscription polls
   the ring and calls the subscriber, and a reader that falls behind skips
-  to the newest message. The library is built at first use with the host
-  C++ compiler into ``native/_build/`` (its name hashes the source and the
-  flags); a failed build raises.
+  to the newest message. The library is built at first use
+  (``native.build_native_lib``); a failed build raises.
 
 Handlers that issue device work take ``utils.devlock`` so threads launch
 one node's kernels at a time. Payloads are Python objects (dicts of numpy
@@ -36,13 +35,14 @@ import logging
 import os
 import pickle
 import queue
-import subprocess
 import threading
 import time
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Tuple
 
-__all__ = ["LocalBus", "ShmBus", "build_native_lib", "segment_name"]
+from gisnav_tpu_torch.native import build_native_lib
+
+__all__ = ["LocalBus", "ShmBus", "segment_name"]
 
 _log = logging.getLogger("gisnav_tpu_torch.bus")
 _STOP = object()
@@ -135,51 +135,13 @@ class LocalBus:
             t.join(timeout=timeout_s)
 
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "native")
-NATIVE_BUILD_DIR = os.path.join(_NATIVE_DIR, "_build")
-# gisnav_tpu/native/Makefile's compile and link flags
-_CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17"]
-_LD_FLAGS = ["-shared", "-lrt"]
-_build_lock = threading.Lock()
-
-
-def build_native_lib() -> str:
-    """Compile ``native/shmbus.cpp`` once into ``native/_build/`` and return
-    the library's path. Its name hashes the source and the flags, so an
-    edited source is rebuilt and a built one reused; a failed build raises
-    ``RuntimeError`` with the compiler's output."""
-    src = os.path.join(_NATIVE_DIR, "shmbus.cpp")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(" ".join(_CXX_FLAGS + _LD_FLAGS).encode()
-                                + b"\0" + f.read()).hexdigest()[:12]
-    out = os.path.join(NATIVE_BUILD_DIR, f"libshmbus_{digest}.so")
-    with _build_lock:
-        if os.path.exists(out):
-            return out
-        os.makedirs(NATIVE_BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [os.environ.get("CXX", "g++"), *_CXX_FLAGS, src, "-o", tmp,
-               *_LD_FLAGS]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            raise RuntimeError(f"shm bus build: cannot run {cmd[0]}: {e}"
-                               ) from e
-        if proc.returncode != 0:
-            raise RuntimeError(f"shm bus build failed ({' '.join(cmd)}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-        return out
-
-
 _UINT64_MAX = ctypes.c_uint64(-1).value
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The loaded native library, its C entry points typed."""
-    lib = ctypes.CDLL(build_native_lib())
+    lib = ctypes.CDLL(build_native_lib("shmbus"))
     vp, u64, cp = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p
     for fn, restype, argtypes in (
             ("shmbus_create", vp, [cp, u64, u64]),

@@ -5,9 +5,8 @@ parity with the reference GISNode (``core/gis_node.py`` in
 hmakelin/gisnav): camera-diagonal map sizing, 0.85-overlap refresh gating,
 atomic OrthoImage publication with an embedded CRS, fail-soft WMS errors.
 The timer lives at the app layer; this node exposes ``tick()``.
-
-Written departure: ``wms_format`` defaults to ``image/png``, where the JAX
-node asks for ``image/jpeg``: the port decodes PNG only (``gis.wms``).
+``wms_format`` defaults to the JAX node's ``image/jpeg`` (``gis.wms``
+decodes PNG and JPEG by content).
 """
 from __future__ import annotations
 

@@ -28,12 +28,14 @@ yaw. ``fused`` also runs the per-frame fixes through the port's
 ``PoseFusionFilter`` UKF. Fixes are re-assembled in float64 on the host
 (``pipeline.geopose.geopose_to_wgs84_f64``).
 
-Written departure: images are read with ``gis/png.py`` (the card machine
-has no OpenCV; the JAX harness reads any format ``cv2.imread`` reads). The
-map and frames are 8-bit PNG, grey or colour: colour becomes grey as
-``cv2.cvtColor`` makes it, which ``imread``'s grey flag (libpng's
-conversion) may put one level lower on some pixels. A DEM image is a grey
-PNG of 8 or 16 bits. Any other file raises ``ValueError``.
+Images are read by their content, as ``cv2.imread`` reads them, whatever
+their names (``gis/jpeg.py`` ``decode_image``: PNG or baseline JPEG; the
+card machine has no OpenCV). The map and the frames are read as
+``IMREAD_GRAYSCALE``: a JPEG's Y plane, exactly as libjpeg gives it to
+OpenCV; a colour PNG becomes grey as ``cv2.cvtColor`` makes it, which
+``imread``'s grey flag (libpng's conversion) may put one level lower on some
+pixels. The DEM is read as ``IMREAD_UNCHANGED`` and must be grey (8 or 16
+bits). A file of another format raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -45,25 +47,28 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from gisnav_tpu_torch.gis.png import decode_png, to_gray
+from gisnav_tpu_torch.gis.jpeg import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
+                                       decode_image)
 
 __all__ = ["load_dataset", "replay", "summarize"]
 
 
-def _read_png(path: str) -> np.ndarray:
+def _read_image(path: str, flag: int) -> np.ndarray:
+    """A PNG or JPEG file, read by content as ``cv2.imread(path, flag)``."""
     with open(path, "rb") as f:
         data = f.read()
     try:
-        return decode_png(data)
+        img = decode_image(data, flag)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from e
+    if img is None:
+        raise ValueError(f"{path}: not a PNG or JPEG image OpenCV would "
+                         f"read (starts {data[:8]!r})")
+    return img
 
 
 def _read_gray8(path: str) -> np.ndarray:
-    img = _read_png(path)
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: an 8-bit PNG is expected, got {img.dtype}")
-    return to_gray(img)
+    return _read_image(path, IMREAD_GRAYSCALE)
 
 
 def load_dataset(path: str) -> Dict:
@@ -74,9 +79,9 @@ def load_dataset(path: str) -> Dict:
     dem_spec = map_meta.get("dem", 0.0)
     dem_scale = float(map_meta.get("dem_scale", 1.0))
     if isinstance(dem_spec, str):
-        dem = _read_png(os.path.join(path, dem_spec))
+        dem = _read_image(os.path.join(path, dem_spec), IMREAD_UNCHANGED)
         if dem.ndim != 2:
-            raise ValueError(f"{dem_spec}: a grey DEM PNG is expected")
+            raise ValueError(f"{dem_spec}: a grey DEM image is expected")
         dem = dem.astype(np.float32) * dem_scale
     else:
         dem = np.full(ortho.shape[:2], float(dem_spec) * dem_scale,

@@ -1,8 +1,8 @@
 """A seeded georeferenced world, its camera frames, and a loopback stub WMS.
 
 For the node-graph flights of ``chip_smoke.py`` and the CPU tests (numpy,
-``http.server`` and ``zlib``; no OpenCV, no network: the server binds
-127.0.0.1 only).
+``http.server``, ``zlib`` and the port's JPEG codec; no OpenCV, no network:
+the server binds 127.0.0.1 only).
 
 - :class:`World`: a square raster drawn as ``utils.world`` draws its scenes
   (shapes over multi-octave noise), north up, ``gsd_m`` metres a pixel, its
@@ -13,15 +13,16 @@ For the node-graph flights of ``chip_smoke.py`` and the CPU tests (numpy,
   and yaw, and :func:`camera_attitude_quat`: that camera's camera_optical
   -> ENU quaternion (the gimbal attitude message).
 - :func:`write_replay_dataset`: a recorded flight over the world in the
-  layout ``replay`` reads, as PNG (``tools/make_replay_dataset.py``'s
-  flight and sizing).
+  layout ``replay`` reads (``tools/make_replay_dataset.py``'s flight and
+  sizing), its images PNG or JPEG under the layout's names.
 - :class:`WorldWMS`: a WMS answering GetCapabilities and GetMap. An imagery
   GetMap pastes the in-world part of the bbox at its true place in the
   requested raster, area-resampled, and pads with grey outside the world:
   stretching the crop to the raster would skew the raster <-> CRS affine
   and fabricate hundreds of metres of error where maps are large. A layer
-  named ``dem`` is flat at ``dem_value`` metres. Replies are 8-bit grey
-  PNG whatever format is asked.
+  named ``dem`` is flat at ``dem_value`` metres. Replies are 8-bit grey, in
+  the format asked: JPEG (``gis/jpeg.py`` at quality 95, the bytes
+  ``cv2.imencode`` writes) for ``image/jpeg``, else PNG.
 """
 from __future__ import annotations
 
@@ -31,12 +32,13 @@ import json
 import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Tuple
+from typing import Dict, Tuple
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
 from gisnav_tpu_torch.geometry.quaternion import matrix_to_quat
+from gisnav_tpu_torch.gis.jpeg import encode_jpeg
 from gisnav_tpu_torch.gis.png import encode_png
 from gisnav_tpu_torch.gis.server import overlap_weights
 from gisnav_tpu_torch.utils.world import _draw_world, _warp_perspective
@@ -134,14 +136,20 @@ def write_replay_dataset(world: World, out: str, frames: int = 12,
                          alt_m: float = 500.0, yaw_deg: float = 25.0,
                          hw: Tuple[int, int] = (480, 640),
                          lonlat0: Tuple[float, float] = (24.04, 60.025),
-                         map_px: int = 0) -> dict:
+                         map_px: int = 0,
+                         image_format: str = "png") -> dict:
     """Write a replay dataset of a straight flight over ``world`` into
-    ``out`` (map, frames as PNG), with the defaults of
+    ``out``, the map and frames as ``image_format`` ("png" or "jpeg", at
+    ``cv2.imencode``'s quality 95) under the layout's names (``map.png``,
+    ``frames/<stamp_us>.png``), with the defaults of
     ``tools/make_replay_dataset.py``: frame i at ``lonlat0 + i * (1e-4,
     5e-5)`` deg, ``alt_m`` over a flat world (DEM 0), f = 400 px at 640 px
     width, the map a square at 3x the frame's larger footprint side around
     the first frame, ``map_px`` a side (0: ``ceil(diagonal / 8) * 8``).
     Returns the dataset's poses and map size."""
+    if image_format not in ("png", "jpeg"):
+        raise ValueError(f"image_format {image_format!r}: png or jpeg")
+    encode = encode_jpeg if image_format == "jpeg" else encode_png
     h, w = hw
     f = 400.0 * max(w, h) / 640.0
     k = np.array([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]])
@@ -153,8 +161,8 @@ def write_replay_dataset(world: World, out: str, frames: int = 12,
     right, bottom = world.to_lonlat(x0 + side_px, y0 + side_px)
     os.makedirs(os.path.join(out, "frames"), exist_ok=True)
     with open(os.path.join(out, "map.png"), "wb") as fh:
-        fh.write(encode_png(world.crop((left, bottom, right, top), map_px,
-                                       map_px)))
+        fh.write(encode(world.crop((left, bottom, right, top), map_px,
+                                   map_px)))
     with open(os.path.join(out, "map.json"), "w") as fh:
         json.dump({"left": left, "top": top, "right": right,
                    "bottom": bottom, "dem": 0.0}, fh, indent=1)
@@ -165,8 +173,8 @@ def write_replay_dataset(world: World, out: str, frames: int = 12,
         stamp = 1_000_000 + i * 500_000
         lon, lat = lonlat0[0] + 1e-4 * i, lonlat0[1] + 5e-5 * i
         with open(os.path.join(out, "frames", f"{stamp}.png"), "wb") as fh:
-            fh.write(encode_png(world.render_frame(lon, lat, alt_m, yaw_deg,
-                                                   k, hw)))
+            fh.write(encode(world.render_frame(lon, lat, alt_m, yaw_deg, k,
+                                               hw)))
         rows.append({"stamp_us": stamp, "lon": lon, "lat": lat,
                      "alt_ellipsoid_m": alt_m, "yaw_deg": yaw_deg})
     with open(os.path.join(out, "poses.csv"), "w", newline="") as fh:
@@ -182,13 +190,15 @@ class WorldWMS:
         with WorldWMS(world) as wms:
             client = WMSClient(wms.url)
 
-    ``get_maps`` counts the GetMap requests answered.
+    ``get_maps`` counts the GetMap requests answered, ``formats`` the
+    content types of their replies.
     """
 
     def __init__(self, world: World, dem_value: int = 0):
         self.world = world
         self.dem_value = int(dem_value)
         self.get_maps = 0
+        self.formats: Dict[str, int] = {}
         self._count_lock = threading.Lock()
         self._server = ThreadingHTTPServer(("127.0.0.1", 0),
                                            self._handler())
@@ -231,9 +241,15 @@ class WorldWMS:
                     img = np.full((h, w), stub.dem_value, np.uint8)
                 else:
                     img = stub.world.crop(bbox, h, w)
+                fmt = q.get("format", "image/png")
+                if "jpeg" in fmt or "jpg" in fmt:
+                    ctype, body = "image/jpeg", encode_jpeg(img)
+                else:
+                    ctype, body = "image/png", encode_png(img)
                 with stub._count_lock:
                     stub.get_maps += 1
-                self._reply(200, "image/png", encode_png(img))
+                    stub.formats[ctype] = stub.formats.get(ctype, 0) + 1
+                self._reply(200, ctype, body)
 
         return Handler
 

@@ -178,6 +178,7 @@ def test_doctor_exits_1_without_cuda():
     assert "[FAIL] no CUDA device answers" in out.stdout
     assert "[ok] native shm bus" in out.stdout
     assert "[ok] PNG codec" in out.stdout
+    assert "[ok] JPEG codec" in out.stdout
 
 
 def test_gis_serve_refuses_missing_maps(tmp_path, capsys):

@@ -10,10 +10,13 @@ package's.
   pixels, padding equal, on bboxes that shrink, enlarge, cross the world's
   edge and lie outside it (the JAX server truncates ``cv2.resize``'s f32
   output, so an average that lands near an integer may flip a level); the
-  DEM layer too. Service exceptions equal; capabilities equal but for the
-  JPEG format the port does not serve; a JPEG GetMap is a WMS
-  ``ServiceExceptionReport`` from the port; a malformed bbox or an empty
-  raster is the GetMap exception (the JAX server drops the connection).
+  DEM layer too. A JPEG GetMap (the JAX client's default) is
+  ``cv2.imencode`` of the same raster byte for byte, from each server; the
+  two replies decoded differ only where the rasters do (a one-level raster
+  difference moves a quantised coefficient: within 4 levels on at most 2 %
+  of the pixels, measured). Service exceptions equal; capabilities equal,
+  both formats listed; a malformed bbox or an empty raster is the GetMap
+  exception (the JAX server drops the connection).
 - WFS-T: the same transactions give the same store rows, equal GeoJSON and
   GML but for the timestamps, and equal transaction replies.
 - ``WFSTNode`` posts the JAX node's XML byte for byte (delete-all, then an
@@ -36,6 +39,7 @@ from gisnav_tpu.nodes.bus import LocalBus as JaxLocalBus
 from gisnav_tpu.nodes.wfst_node import WFSTNode as JaxWFSTNode
 from gisnav_tpu_torch.gis import geotiff as tgeo
 from gisnav_tpu_torch.gis import server as tserver
+from gisnav_tpu_torch.gis.jpeg import decode_jpeg
 from gisnav_tpu_torch.gis.png import decode_png
 from gisnav_tpu_torch.nodes.bus import LocalBus
 from gisnav_tpu_torch.nodes.mock_gps import TOPIC_SENSOR_GPS
@@ -151,6 +155,33 @@ def test_getmap_within_one_level_of_jax(servers, layer, size):
     assert exact >= 0.99 * total, exact / total
 
 
+@pytest.mark.parametrize("layer", ["imagery", "dem"])
+@pytest.mark.parametrize("size", [(160, 200), (256, 256), (900, 700)])
+def test_jpeg_getmap_is_cv2_imencode_of_the_raster(servers, layer, size):
+    world, ours, ref = servers
+    for bbox in _bboxes(world):
+        query = dict(service="WMS", version="1.1.1", request="GetMap",
+                     layers=layer, styles="", srs="EPSG:4326", bbox=bbox,
+                     width=size[1], height=size[0])
+        rasters, replies = [], []
+        for srv in (ours, ref):
+            png = _get(srv.wms_url, format="image/png", **query)[2]
+            status, ctype, jpg = _get(srv.wms_url, format="image/jpeg",
+                                      **query)
+            assert (status, ctype) == (200, "image/jpeg")
+            raster = cv2.imdecode(np.frombuffer(png, np.uint8),
+                                  cv2.IMREAD_UNCHANGED)
+            assert jpg == cv2.imencode(".jpg", raster)[1].tobytes()
+            rasters.append(raster)
+            replies.append(decode_jpeg(jpg).astype(int))
+        a, b = replies
+        assert a.shape == b.shape == size
+        if np.array_equal(*rasters):
+            assert np.array_equal(a, b)
+        assert np.abs(a - b).max() <= 4
+        assert (a != b).mean() <= 0.02
+
+
 def test_padding_equal_outside_the_world(servers):
     world, ours, ref = servers
     bbox = _bboxes(world)[-1]  # wholly outside
@@ -185,17 +216,14 @@ def test_service_exceptions_and_capabilities(servers):
     caps, jcaps = (_get(srv.wms_url, request="GetCapabilities")
                    for srv in (ours, ref))
     assert caps[:2] == jcaps[:2] == (200, "application/vnd.ogc.wms_xml")
-    assert caps[2] == jcaps[2].replace(
-        b"</Format>\n      <Format>image/jpeg</Format>", b"</Format>")
-    assert b"jpeg" not in caps[2]
-    status, ctype, body = _get(ours.wms_url, request="GetMap",
-                               layers="imagery", bbox=bbox, width=64,
-                               height=64, format="image/jpeg")
-    assert (status, ctype) == (400, "application/vnd.ogc.se_xml")
-    assert b"<ServiceExceptionReport" in body and b"InvalidFormat" in body
-    assert _get(ref.wms_url, request="GetMap", layers="imagery", bbox=bbox,
-                width=64, height=64, format="image/jpeg")[:2] == (
-                    200, "image/jpeg")
+    assert caps[2] == jcaps[2]
+    assert b"<Format>image/jpeg</Format>" in caps[2]
+    for srv in (ours, ref):
+        status, ctype, body = _get(srv.wms_url, request="GetMap",
+                                   layers="imagery", bbox=bbox, width=64,
+                                   height=64, format="image/jpeg")
+        assert (status, ctype) == (200, "image/jpeg")
+        assert decode_jpeg(body).shape == (64, 64)
 
 
 def _post(url, xml):

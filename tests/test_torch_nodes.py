@@ -354,17 +354,23 @@ def test_wms_client_against_stub_and_jax(world_wms):
     left, top = world.to_lonlat(-40, 30)  # reaches outside the world
     right, bottom = world.to_lonlat(300, 400)
     bb = (left, bottom, right, top)
-    img = client.get_map(["imagery"], bb, (96, 88))
+    img = client.get_map(["imagery"], bb, (96, 88), format_="image/png")
     np.testing.assert_array_equal(img, world.crop(bb, 96, 88))
     assert (img[:, :5] == 110).all()  # grey padding west of the world
-    got = request_orthoimage(client, bb, (96, 88), ["imagery"], ["dem"])
-    want = jax_wms.request_orthoimage(jax_wms.WMSClient(wms.url), bb,
-                                      (96, 88), ["imagery"], ["dem"],
-                                      format_="image/png")
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype
-        np.testing.assert_array_equal(a, b)
-    assert (got[1] == 7.0).all()
+    # the JAX client's default format: the stub's JPEG, as cv2 decodes it
+    ok, jpg = cv2.imencode(".jpg", world.crop(bb, 96, 88))
+    np.testing.assert_array_equal(client.get_map(["imagery"], bb, (96, 88)),
+                                  cv2.imdecode(jpg, cv2.IMREAD_UNCHANGED))
+    for fmt in ("image/jpeg", "image/png"):
+        got = request_orthoimage(client, bb, (96, 88), ["imagery"], ["dem"],
+                                 format_=fmt)
+        want = jax_wms.request_orthoimage(jax_wms.WMSClient(wms.url), bb,
+                                          (96, 88), ["imagery"], ["dem"],
+                                          format_=fmt)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert (got[1] == 7.0).all()
 
 
 def test_wms_client_failures():
@@ -372,15 +378,28 @@ def test_wms_client_failures():
     assert closed.get_map(["imagery"], (0, 0, 1, 1), (8, 8)) is None
     assert not closed.is_available()
     xml = _serve("application/vnd.ogc.se_xml", b"<ServiceException/>")
-    ok, jpg = cv2.imencode(".jpg", _images()["grey"])
+    ok, jpg = cv2.imencode(".jpg", _images()["rgb"][..., ::-1])
     jpeg = _serve("image/jpeg", jpg.tobytes())
+    garbage = _serve("image/jpeg", b"\xff\xd8\xff\xe0 not a JPEG")
     try:
         url = f"http://127.0.0.1:{xml.server_address[1]}/wms"
         assert WMSClient(url).get_map(["x"], (0, 0, 1, 1), (8, 8)) is None
+        # a JPEG reply is read (BGR, as cv2.imdecode gives it), whatever
+        # format was asked for
         url = f"http://127.0.0.1:{jpeg.server_address[1]}/wms"
-        with pytest.raises(ValueError, match="image/jpeg"):
-            WMSClient(url).get_map(["x"], (0, 0, 1, 1), (8, 8))
+        for fmt in ("image/jpeg", "image/png"):
+            np.testing.assert_array_equal(
+                WMSClient(url).get_map(["x"], (0, 0, 1, 1), (8, 8),
+                                       format_=fmt),
+                cv2.imdecode(jpg, cv2.IMREAD_UNCHANGED))
+        np.testing.assert_array_equal(
+            WMSClient(url).get_map(["x"], (0, 0, 1, 1), (8, 8),
+                                   grayscale=True),
+            cv2.imdecode(jpg, cv2.IMREAD_GRAYSCALE))
+        # bytes cv2 cannot decode give None, as in the JAX client
+        url = f"http://127.0.0.1:{garbage.server_address[1]}/wms"
+        assert WMSClient(url).get_map(["x"], (0, 0, 1, 1), (8, 8)) is None
     finally:
-        for server in (xml, jpeg):
+        for server in (xml, jpeg, garbage):
             server.shutdown()
             server.server_close()

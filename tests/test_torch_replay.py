@@ -5,15 +5,18 @@
   ``write_replay_dataset``), and one with a colour map, colour frames and a
   16-bit DEM image written by OpenCV (colour becomes grey as
   ``cv2.cvtColor`` makes it, within one level of the JAX loader's
-  ``imread``). A non-PNG file raises ``ValueError``
-  (the port reads PNG only); a missing frame ``FileNotFoundError``.
+  ``imread``). A JPEG under the layout's PNG name is read by content,
+  equal to ``cv2.imread``'s grey read and to the JAX loader's; a file of
+  neither format raises ``ValueError``; a missing frame
+  ``FileNotFoundError``.
 - ``summarize`` equals the JAX one on the same report.
 - ``harris_lg5`` ``replay`` with ``--fused`` on 4 frames through both
   packages, the port's cached program drawing RANSAC samples as the JAX
   runner does: equal ``frames`` / ``valid`` / ``pass_10m``, each frame's
   fix within the cached runner's gates of the JAX fix (2.5 m horizontally,
   0.5 m in altitude: ``ROADMAP.md`` Queue 3 item 2; measured 0.2 m and
-  0.04 m), the fused track within 2.5 m of the JAX track.
+  0.04 m), the fused track within 2.5 m of the JAX track; the same on the
+  flight recorded as JPEG.
 - The classical backend on 3 frames: valid and within 10 m in both
   packages (their RANSAC draws differ), within 2.5 m of each other.
 """
@@ -106,10 +109,19 @@ def test_load_dataset_refusals(tmp_path, world):
     with pytest.raises(FileNotFoundError):
         treplay.load_dataset(root)
     write_replay_dataset(world, root, frames=2)
-    ok, jpeg = cv2.imencode(".jpg", np.zeros((8, 8), np.uint8))
+    # a JPEG under the PNG name is read by its content, as cv2.imread does
+    rng = np.random.default_rng(1)
+    ok, jpeg = cv2.imencode(".jpg", rng.integers(0, 256, (24, 40, 3)).astype(
+        np.uint8))
     with open(os.path.join(root, "map.png"), "wb") as f:
         f.write(jpeg.tobytes())
-    with pytest.raises(ValueError, match="JPEG"):
+    ours, ref = treplay.load_dataset(root), jreplay.load_dataset(root)
+    np.testing.assert_array_equal(ours["ortho"], cv2.imread(
+        os.path.join(root, "map.png"), cv2.IMREAD_GRAYSCALE))
+    _equal_datasets(ours, ref)
+    with open(os.path.join(root, "map.png"), "wb") as f:
+        f.write(b"GIF89a not an image the port reads")
+    with pytest.raises(ValueError, match="not a PNG or JPEG"):
         treplay.load_dataset(root)
     with open(os.path.join(root, "poses.csv"), "w", newline="") as f:
         csv.writer(f).writerow(["stamp_us", "lon", "lat", "alt_ellipsoid_m"])
@@ -157,11 +169,11 @@ def _jax_draws(monkeypatch):
     monkeypatch.setattr(truns, "build_frame_to_geopose_cached", patched)
 
 
-def test_harris_replay_matches_jax(flight, monkeypatch):
+def _harris_replay_matches_jax(root, monkeypatch):
     _jax_draws(monkeypatch)
-    ours = treplay.replay(flight, weights="harris_lg5", fused=True,
+    ours = treplay.replay(root, weights="harris_lg5", fused=True,
                           device="cpu")
-    ref = jreplay.replay(flight, weights="harris_lg5", fused=True)
+    ref = jreplay.replay(root, weights="harris_lg5", fused=True)
     s_ours, s_ref = treplay.summarize(ours), jreplay.summarize(ref)
     assert {k: s_ours[k] for k in ("frames", "valid", "pass_10m",
                                    "fused_frames", "fused_pass_10m")} == {
@@ -176,6 +188,22 @@ def test_harris_replay_matches_jax(flight, monkeypatch):
         assert horiz < 2.5 and abs(a["up_m"] - b["up_m"]) < 0.5, (a, b)
         assert abs(a["fused_horiz_m"] - b["fused_horiz_m"]) < 2.5
         assert abs(a["inliers"] - b["inliers"]) <= 0.1 * b["inliers"] + 1
+
+
+def test_harris_replay_matches_jax(flight, monkeypatch):
+    _harris_replay_matches_jax(flight, monkeypatch)
+
+
+def test_harris_replay_matches_jax_on_jpeg(world, tmp_path, monkeypatch):
+    """The same flight recorded as JPEG (cv2.imencode's bytes at 95): both
+    packages read the same Y planes, so the gates are the PNG flight's
+    (measured 0.28 m and 0.07 m at most, 0.17 m and 0.04 m on PNG)."""
+    root = str(tmp_path)
+    write_replay_dataset(world, root, frames=4, image_format="jpeg")
+    with open(os.path.join(root, "map.png"), "rb") as f:
+        assert f.read(2) == b"\xff\xd8"
+    _equal_datasets(treplay.load_dataset(root), jreplay.load_dataset(root))
+    _harris_replay_matches_jax(root, monkeypatch)
 
 
 def test_classical_replay_both_packages(world, tmp_path):

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import gisnav_tpu.nodes.bus as jbus
+from gisnav_tpu_torch import native
 from gisnav_tpu_torch.nodes import bus as tbus
 from gisnav_tpu_torch.nodes.bus import ShmBus, segment_name
 
@@ -108,11 +109,11 @@ class TestInProcess:
             assert segment_name(ns, topic) == jbus._segment_name(ns, topic)
 
     def test_library_is_built_under_the_port(self):
-        path = tbus.build_native_lib()
-        assert os.path.dirname(path) == tbus.NATIVE_BUILD_DIR
+        path = native.build_native_lib("shmbus")
+        assert os.path.dirname(path) == native.NATIVE_BUILD_DIR
         assert os.path.basename(path).startswith("libshmbus_")
         assert not path.startswith(os.path.join(ROOT, "gisnav_tpu") + os.sep)
-        assert tbus.build_native_lib() == path
+        assert native.build_native_lib("shmbus") == path
 
 
 def _writer(ns: str, n: int) -> None:
