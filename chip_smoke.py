@@ -163,6 +163,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
 the shear's outputs on seeded inputs (run a copy of this script placed
 beside another source's package to hold the two bit for bit).
 
+Every program the JAX package compiles with ``jax.jit`` runs here as a
+CUDA graph replay (``pipeline/graph.py``), and each is also run eagerly in
+the same run on the same inputs (``GraphSide``; the package itself never
+falls back): path 1's bucket refresh (features, DEM crop and crop matrix
+identical; the card's matrix within 1 f32 ulp of the host-built one and
+the fix through either within 1 mm), path 2's map extraction (identical)
+and derotated frames, paths 3 (with zoom and the zoom-less 3-shear,
+a graph a quadrant), 4 (exact warp) and 5 (LoFTR), whose replays must
+give identical matches (LightGlue's ``matches0`` or LoFTR's mask) and
+RANSAC indices and fixes within 1 mm of the eager run's, path 6's rotate +
+crop and tail (fixes within 1 mm), path 8's filter steps (UKF and EKF,
+``x`` and ``P`` within 1e-6 relative over the 50-call stream) and path 9's
+device chunks, (a) and (c): three chunks from one state and generator
+seed give the same losses as eager ones (1e-5 relative), each replay draws
+the eager chunk's pairs and successive replays draw different ones. Each
+pair prints its p50 / p90 (or steps/s), device busy ms and idle share.
+
 Every fix of every path must be valid and within 10 m of the truth (path
 5: where the JAX program, run on the CPU on the same frames, localizes;
 elsewhere invalid as it is), and a path whose launch counts differ from
@@ -284,6 +301,8 @@ GRAPH_CLI_FIXES, GRAPH_CLI_DEADLINE_S = 8, 60.0
 # the bundle fine-tune (harris_lg5, cached regime, lr 5e-5); LoFTR training
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_DEPTH = 100, 8, 3
 FINETUNE_STEPS, LOFTR_STEPS = 20, 20
+LOFTR_PAIRS = 2  # the LoFTR chunk's graphed-vs-eager comparison
+TRACED_STEPS = 2  # eager train steps traced for device busy time
 # K5 a step: self and cross attention both ways, 4 calls a layer, 2 launches
 # a call, all pairs in one call
 TRAIN_K5_STEP = 4 * TRAIN_DEPTH * 2
@@ -782,9 +801,11 @@ def check_attention(gen, quick, results):
 
 
 def check_shear(gen, quick, results, ab=False):
-    """K6's two entries at path 3's shapes, then the whole 3-shear rotation.
-    ``ab``: a copy of this script placed beside an older package (to time two
-    sources in one call) may find no first-axis entry there."""
+    """K6's two entries at path 3's shapes, each shift passed as a number
+    and read from device memory (a graphed rotation's residual shears),
+    then the whole 3-shear rotation. ``ab``: a copy of this script placed
+    beside an older package (to time two sources in one call) may find no
+    first-axis entry or device shift there."""
     import torch.nn.functional as F
 
     from gisnav_tpu_torch.raster import shear_kernel
@@ -822,6 +843,12 @@ def check_shear(gen, quick, results, ab=False):
                 e_route = float((k_out - route).abs().max())
                 msg += f", vs the transpose route {e_route:.3g}"
                 e = max(e, e_route)
+            if not ab:  # the shift read from device memory, as a graph does
+                s_dev = torch.tensor(shift, device="cuda")
+                e_dev = float((kernel(img, s_dev, n / 2)
+                               - plain(img, s_dev, n / 2)).abs().max())
+                msg += f", shift on the card {e_dev:.3g}"
+                e = max(e, e_dev)
             log(f"[kernel] {name} {c}x{n}x{n} shift={shift:+.2f}: {msg}")
             if e != 0.0 or not torch.isfinite(k_out).all():
                 raise RuntimeError(f"{name} disagrees")
@@ -1270,29 +1297,155 @@ def _train_step_split(state, step_fn, batch, steps: int = 5) -> dict:
     return {k: float(np.median(v)) for k, v in parts.items()}
 
 
-def _train_chunk_profile(config, params, chunks: int = 2,
-                         traced: int = 1) -> dict:
-    """``train()``'s own chunk (``make_device_train_chunk`` with the
-    device generator, the curriculum at the step the run reached), from
-    ``params`` with a fresh optimizer: the host-clock time of ``chunks``
-    synchronised chunks, then ``traced`` more profiled (torch.profiler):
-    the device's busy time, and the device time of the pair generation
-    (``device_batch``) and of K5's backward (``MaskedAttentionBackward``),
-    each with every kernel under it, a step."""
+def _chunks_vs_eager(tag: str, make_state, make_chunk, batch_fns,
+                     chunks: int = 3, deterministic: bool = False,
+                     traced_steps: int = 2) -> dict:
+    """A device-data chunk, graphed against eager: two states from one
+    init (``make_state()``) and two generators from one seed; ``chunks``
+    graphed chunks (the first the side-stream warm-up, then replays) and
+    as many eager ones (``.eager``) give the same losses (1e-5 relative),
+    each replay draws the pairs the eager chunk draws (read from the
+    graph's own memory), successive replays draw different pairs, and the
+    generators end in one state. Steps/s: the replays' and the eager
+    chunks', each chunk ending in the host's one read of its loss; then
+    one more replay traced, and an eager chunk of ``traced_steps`` steps
+    (``make_chunk(steps)``; tracing ten eager steps took 40-46 s of the
+    host): device busy ms a step and idle share. Returns the summary and
+    the eager side's trace.
+    ``deterministic`` runs both sides with PyTorch's deterministic
+    algorithms (a chunk whose backward accumulates with atomics parts from
+    itself between two eager runs)."""
+    from gisnav_tpu_torch.train import device_data
+    from gisnav_tpu_torch.train.loop import CHUNK
+
+    seen: list = []
+    originals = {name: getattr(device_data, name) for name in batch_fns}
+
+    def tapped(fn):
+        def draw(*a, **kw):
+            pairs = fn(*a, **kw)
+            seen.append(pairs[0][0, :8, :8])
+            return pairs
+        return draw
+
+    for name, fn in originals.items():
+        setattr(device_data, name, tapped(fn))
+    try:
+        chunk_fn = make_chunk(CHUNK)
+    finally:
+        for name, fn in originals.items():
+            setattr(device_data, name, fn)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic or was, warn_only=True)
+    spent = {"start": time.perf_counter()}  # host s of each stage, logged
+    try:
+        (g_state, _), (e_state, _) = make_state(), make_state()
+        spent["states"] = time.perf_counter()
+        gens = [torch.Generator(device=TRAIN_DEVICE) for _ in range(2)]
+        for g in gens:
+            g.manual_seed(TRAIN_STEPS)
+        losses, drawn, g_s, e_s = [], [], [], []
+        for i in range(chunks):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, gm = chunk_fn(g_state, gens[0])
+            g_loss = float(gm["loss"])  # the host's one read a chunk
+            t1 = time.perf_counter()
+            if i == 0:
+                tap = seen[-1]  # the capture's pairs: the graph's memory
+                spent["first graphed chunk"] = t1 - t
+            else:
+                g_s.append(t1 - t)
+            replayed = tap.clone()
+            t = time.perf_counter()
+            _, em = chunk_fn.eager(e_state, gens[1])
+            losses.append((g_loss, float(em["loss"])))
+            e_s.append(time.perf_counter() - t)
+            if i and not torch.allclose(replayed, seen[-1], rtol=0,
+                                        atol=1e-6):
+                raise RuntimeError(f"{tag}: replay {i} drew other pairs "
+                                   f"than the eager chunk")
+            if i:
+                drawn.append(replayed)
+        spent["chunks"] = time.perf_counter()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    if not all(abs(g - e) <= 1e-5 * abs(e) for g, e in losses):
+        raise RuntimeError(f"{tag}: graphed chunk losses {losses} (graphed, "
+                           f"eager) differ")
+    if any(torch.equal(a, b) for a, b in zip(drawn, drawn[1:])):
+        raise RuntimeError(f"{tag}: two replays drew the same pairs")
+    if not torch.equal(gens[0].get_state(), gens[1].get_state()):
+        raise RuntimeError(f"{tag}: the generators part")
+    (graph,) = chunk_fn.graphs.values()
+    out = {"chunks_compared": chunks, "deterministic": deterministic,
+           "losses_graphed_eager": losses,
+           "graphed_steps_per_s": len(g_s) * CHUNK / sum(g_s),
+           "eager_steps_per_s": len(e_s) * CHUNK / sum(e_s),
+           "capture_ms": graph.capture_ms,
+           "graph_pool_mib": graph.pool_bytes / 2 ** 20,
+           "launches_a_replay": graph.launches}
+    # one more chunk of each side traced: the device's busy time a step
+    _, out["graphed_busy_ms"] = _traced_chunk(chunk_fn, g_state, gens[0])
+    spent["graphed trace"] = time.perf_counter()
+    prof, out["eager_busy_ms"] = _traced_chunk(
+        make_chunk(traced_steps).eager, e_state, gens[1], traced_steps)
+    out["eager_traced_steps"] = traced_steps
+    spent["eager trace"] = time.perf_counter()
+    for side in ("graphed", "eager"):
+        out[f"{side}_idle_share"] = 1.0 - out[f"{side}_busy_ms"] * out[
+            f"{side}_steps_per_s"] / 1e3
+    log(f"[{tag} graph vs eager] " + json.dumps(out))
+    first = spent.pop("first graphed chunk")
+    marks = list(spent.items())
+    log(f"[{tag} graph vs eager] host s: " + ", ".join(
+        f"{name} {b - a:.1f}" for (_, a), (name, b) in zip(marks, marks[1:]))
+        + f" (the first graphed chunk {first:.1f})")
+    return out, prof
+
+
+def _traced_chunk(fn, state, gen, steps: int = 0) -> tuple:
+    """One chunk of ``steps`` steps (0: ``CHUNK``) under torch.profiler:
+    (the profile, device busy ms a step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from gisnav_tpu_torch.train.loop import CHUNK
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, m = fn(state, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if _on_device(e))
+    return prof, busy / (steps or CHUNK) / 1e3
+
+
+def _train_chunk_profile(config, params) -> dict:
+    """``train()``'s own chunk (``make_device_train_chunk`` with the
+    device generator, the curriculum at the step the run reached), from
+    ``params`` with a fresh optimizer, graphed against eager
+    (``_chunks_vs_eager``); under the eager side's traced chunk the device
+    time of the pair generation (``device_batch``) and of K5's backward
+    (``MaskedAttentionBackward``), each with every kernel under it, a step
+    (a replay runs no host code to label)."""
+    from torch import nn
+
+    from gisnav_tpu_torch.train import device_data
     from gisnav_tpu_torch.train.steps import (
         AdamW,
         TrainState,
+        _map_tree,
         make_device_train_chunk,
     )
 
-    from gisnav_tpu_torch.train import device_data
-
     tx = AdamW(config.learning_rate, weight_decay=config.weight_decay)
-    state = TrainState(params, tx.init(params), torch.tensor(
-        TRAIN_STEPS, dtype=torch.int64, device=TRAIN_DEVICE))
+
+    def make_state():
+        p = _map_tree(lambda t: nn.Parameter(t.detach().clone()), params)
+        return TrainState(p, tx.init(p), torch.tensor(
+            TRAIN_STEPS, dtype=torch.int64, device=TRAIN_DEVICE)), tx
+
     make_pairs = device_data.device_batch
 
     def labelled_pairs(*args, **kw):  # the trace's span of pair generation
@@ -1301,51 +1454,65 @@ def _train_chunk_profile(config, params, chunks: int = 2,
 
     device_data.device_batch = labelled_pairs
     try:
-        chunk_fn = make_device_train_chunk(config, tx, TRAIN_BATCH,
-                                           chunk=CHUNK)
+        vs, prof = _chunks_vs_eager(
+            "train", make_state, lambda steps: make_device_train_chunk(
+                config, tx, TRAIN_BATCH, chunk=steps), ["device_batch"],
+            traced_steps=TRACED_STEPS)
     finally:
         device_data.device_batch = make_pairs
-    gen = torch.Generator(device=TRAIN_DEVICE)
-    gen.manual_seed(TRAIN_STEPS)
-    state, m = chunk_fn(state, gen)  # warm: the fresh optimizer's state
-    float(m["loss"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(chunks):
-        state, m = chunk_fn(state, gen)
-        float(m["loss"])  # the host's one read a chunk, as train() reads
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / (chunks * CHUNK)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(traced):
-            state, m = chunk_fn(state, gen)
-            float(m["loss"])
-        torch.cuda.synchronize()
-    steps = traced * CHUNK
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if _on_device(e))
     k5_bwd = [e for e in prof.events() if e.name == "MaskedAttentionBackward"]
-    if len(k5_bwd) != 4 * TRAIN_DEPTH * steps:
+    if len(k5_bwd) != 4 * TRAIN_DEPTH * TRACED_STEPS:
         raise RuntimeError(f"train profile: {len(k5_bwd)} K5 backward "
-                           f"calls in {steps} steps, expected "
-                           f"{4 * TRAIN_DEPTH * steps}")
+                           f"calls in {TRACED_STEPS} steps, expected "
+                           f"{4 * TRAIN_DEPTH * TRACED_STEPS}")
     pairs = [e for e in prof.events() if e.name == "device_batch"
              and e.device_type == torch.autograd.DeviceType.CPU]
-    out = {"chunk_step_ms": step_ms, "device_busy_ms": busy / steps / 1e3,
+    out = {"chunk_step_ms": 1e3 / vs["graphed_steps_per_s"],
+           "eager_chunk_step_ms": 1e3 / vs["eager_steps_per_s"],
+           "device_busy_ms": vs["graphed_busy_ms"],
+           "eager_device_busy_ms": vs["eager_busy_ms"],
+           "device_idle_share": vs["graphed_idle_share"],
+           "eager_device_idle_share": vs["eager_idle_share"],
            "k5_backward_device_ms": sum(_kernel_us(e) for e in k5_bwd)
-           / steps / 1e3,
-           "pairs_device_ms": sum(_kernel_us(e) for e in pairs) / steps
-           / 1e3}
+           / TRACED_STEPS / 1e3,
+           "pairs_device_ms": sum(_kernel_us(e) for e in pairs)
+           / TRACED_STEPS / 1e3, "graph": vs}
     if not out["k5_backward_device_ms"] > 0:
         raise RuntimeError("train profile: no device time under K5's "
                            "backward")
-    out["device_idle_share"] = 1.0 - out["device_busy_ms"] / step_ms
-    log("[train] train()'s chunk: {chunk_step_ms:.3f} ms a step, device "
-        "busy {device_busy_ms:.3f} ms (idle {device_idle_share:.3f}), of it "
-        "pair generation {pairs_device_ms:.3f} ms and K5's backward "
+    log("[train] train()'s chunk: graphed {chunk_step_ms:.3f} ms a step, "
+        "device busy {device_busy_ms:.3f} ms (idle {device_idle_share:.3f});"
+        " eager {eager_chunk_step_ms:.3f} ms, busy {eager_device_busy_ms:.3f}"
+        " (idle {eager_device_idle_share:.3f}), of it pair generation "
+        "{pairs_device_ms:.3f} ms and K5's backward "
         "{k5_backward_device_ms:.3f} ms a step".format(**out))
     return out
+
+
+def loftr_chunks_vs_eager() -> dict:
+    """Path 9 (c): the LoFTR chunk (``train --model loftr``'s config, at
+    ``LOFTR_PAIRS`` pairs a step: its pairs run one after another, so the
+    eager side costs a second a pair and chunk) graphed against eager, as
+    ``_chunks_vs_eager`` holds it."""
+    from gisnav_tpu_torch.train.loftr_steps import (
+        LoFTRTrainConfig,
+        init_loftr_train_state,
+        make_loftr_device_train_chunk,
+    )
+    from gisnav_tpu_torch.train.steps import AdamW
+
+    config = LoFTRTrainConfig()
+    tx = AdamW(config.learning_rate, weight_decay=config.weight_decay)
+    # deterministic: the backward of LoFTR's overlapping 5x5 fine windows
+    # (advanced indexing) accumulates with atomics, and two eager runs of
+    # three chunks from one state part by up to 0.9 % of the loss; with
+    # PyTorch's deterministic algorithms both sides give the same bits
+    return _chunks_vs_eager(
+        "train loftr", lambda: init_loftr_train_state(
+            torch.Generator().manual_seed(0), config, TRAIN_DEVICE),
+        lambda steps: make_loftr_device_train_chunk(config, tx, LOFTR_PAIRS,
+                                                    chunk=steps),
+        ["device_batch"], deterministic=True, traced_steps=TRACED_STEPS)[0]
 
 
 def _named_leaves(tree, prefix="") -> dict:
@@ -1554,14 +1721,18 @@ def train_loftr_cli() -> dict:
     from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
 
     reset_launches()
+    t = time.perf_counter()
     rc, rows = _train_logged(lambda: cli_main(
         ["train", "--model", "loftr", "--steps", str(LOFTR_STEPS)]))
     torch.cuda.synchronize()
+    log(f"[train loftr] the CLI's {LOFTR_STEPS} steps in "
+        f"{time.perf_counter() - t:.1f} s")
     if rc != 0:
         raise RuntimeError(f"train --model loftr exited {rc}")
     expect_launches("train loftr", dict(LAUNCHES), {})
     out = {"steps_per_s": rows[-1][1] / rows[-1][0],
            "losses": [r[2] for r in rows], "coarse_acc": rows[-1][3]}
+    out["graph"] = loftr_chunks_vs_eager()
     log("[train loftr] " + json.dumps(out))
     return out
 
@@ -1738,8 +1909,46 @@ def phase_cached_path(params, config, profile_run: bool = False) -> dict:
             out[name]["device_busy_ms"] = busy
             out[name]["device_idle_share"] = 1.0 - busy / p50
         if name == "fused":
+            out["extraction"] = extraction_vs_eager(runner, cfg, scene)
             out["options"] = cached_options(params, cfg, scene, runner)
     log("[cached] " + json.dumps(out))
+    return out
+
+
+def extraction_vs_eager(runner, cfg, scene, reps: int = 5) -> dict:
+    """Path 2's map extraction, graphed against eager: the runner's
+    extraction graph replayed on the map and the reference extractor run
+    eagerly on it (keypoints, descriptors and mask identical); ms p50 /
+    p90, device busy ms and idle share each."""
+    from gisnav_tpu_torch.pipeline.geopose import build_reference_extractor
+
+    o = torch.from_numpy(scene.ortho)
+    graph = runner.graphs[("extract", tuple(o.shape), o.dtype)]
+    extract = build_reference_extractor(cfg)
+    sides = {"graphed": lambda _: graph(o),
+             "eager": lambda _: extract(runner.models,
+                                        o.cuda().float() / 255.0)}
+    ms = {side: [] for side in sides}
+    for _ in range(reps):
+        outs = []
+        for side, run in sides.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(run(0))
+            torch.cuda.synchronize()
+            ms[side].append((time.perf_counter() - t) * 1e3)
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise RuntimeError("path 2: the graphed map extraction differs "
+                               "from eager")
+    out = {"compared": reps}
+    for side, run in sides.items():
+        p50 = float(np.median(ms[side]))
+        busy = profile_frames(run, [0], n=2)
+        out.update({f"{side}_p50_ms": p50,
+                    f"{side}_p90_ms": float(np.percentile(ms[side], 90)),
+                    f"{side}_busy_ms": busy,
+                    f"{side}_idle_share": 1.0 - busy / p50})
+    log("[cached extraction] " + json.dumps(out))
     return out
 
 
@@ -1763,105 +1972,108 @@ def cached_options(params, cfg, scene, runner) -> dict:
             raise RuntimeError(f"cached prior: frame {i} with its prior off "
                                f"the map kept {int(pose.num_matches)} "
                                f"matches, valid={bool(pose.valid)}")
-    derot = make_cached_deep_runner(params, cfg, derotate=True)
-    fly(derot, scene, 0)
-    reset_launches()
-    rows = [fly(derot, scene, i, f"[cached derotate] frame {i}")
-            for i in DEROTATE_FRAMES]
-    n = len(rows)
-    # the 1088x1920 camera is not square: its derotation is the gather warp
-    expect_launches("cached derotate", dict(LAUNCHES),
-                    {"stem_stage": n, "conv_stage": 8 * n,
-                     "nms_select": n, "fused_block": 72 * n})
+    taps: list = []
+    with TappedRansac(taps), GraphSide("graphed", taps=taps):
+        derot = make_cached_deep_runner(params, cfg, derotate=True)
+        tap_programs(derot.models, taps)
+        fly(derot, scene, 0)
+        reset_launches()
+        rows = [fly(derot, scene, i, f"[cached derotate] frame {i}")
+                for i in DEROTATE_FRAMES]
+        n = len(rows)
+        # the 1088x1920 camera is not square: its derotation is the gather
+        # warp
+        expect_launches("cached derotate", dict(LAUNCHES),
+                        {"stem_stage": n, "conv_stage": 8 * n,
+                         "nms_select": n, "fused_block": 72 * n})
+        vs = graphed_vs_eager(
+            "cached derotate", lambda i: fly(derot, scene, i),
+            list(DEROTATE_FRAMES), [r[0] for r in rows], scene.crs_affine,
+            taps)
     return {"prior_frames": len(errors), "prior_max_error_m": max(errors),
             "derotate_frames": n,
             "derotate_max_error_m": float(max(r[1] for r in rows)),
-            "derotate_frame_p50_ms": float(np.median([r[0] for r in rows]))}
+            "derotate_frame_p50_ms": float(np.median([r[0] for r in rows])),
+            "derotate_graph": vs}
 
 
 def phase_exact_warp_path(params, config, scene,
                           profile_run: bool = False) -> dict:
     """Path 3: the exact-warp runner on path 1's scene, then the zoom-less
-    exact-warp frame program on a map at the query's ground sample
-    distance."""
+    exact-warp runner (``runners._warp_runner`` with no zoom: the 3-shear
+    rotation, a graph a quadrant) on a map at the query's ground sample
+    distance; each graphed against eager on its frames."""
     from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
     from gisnav_tpu_torch.pipeline.geopose import (
         build_frame_to_geopose,
         build_models,
     )
-    from gisnav_tpu_torch.pipeline.runners import make_deep_runner
+    from gisnav_tpu_torch.pipeline.runners import _warp_runner, make_deep_runner
     from gisnav_tpu_torch.utils.world import render_scene
     from gisnav_tpu_torch.weights import params_from_jax
 
     frames = 4
-    runner = make_deep_runner(params, config)
-    fly(runner, scene, 0)
-    reset_launches()
-    rows = [fly(runner, scene, i, f"[exact] frame {i}")
-            for i in range(3, 3 + frames)]
-    launches = dict(LAUNCHES)
-    log(f"[exact] launches over {frames} frames: {launches}")
-    # pair SuperPoint (2 x (1 + 8 + 1)), dual LightGlue (18 calls of 2)
-    expect_launches("exact warp", launches,
-                    {"stem_stage": 2 * frames, "conv_stage": 16 * frames,
-                     "nms_select": 2 * frames, "fused_block": 36 * frames})
-    ms = [r[0] for r in rows]
-    out = {"runner": {"frames": frames, "frame_p50_ms": float(np.median(ms)),
-                      "frame_p90_ms": float(np.percentile(ms, 90)),
-                      "max_error_m": float(max(r[1] for r in rows)),
-                      "launches": launches}}
-    if profile_run:
-        busy = profile_frames(lambda i: fly(runner, scene, i),
-                              list(range(3, 3 + frames)))
-        out["runner"]["device_busy_ms"] = busy
-        out["runner"]["device_idle_share"] = 1.0 - busy / out["runner"][
-            "frame_p50_ms"]
+    taps: list = []
+    with TappedRansac(taps), GraphSide("graphed", taps=taps):
+        runner = make_deep_runner(params, config)
+        tap_programs(runner.models, taps)
+        fly(runner, scene, 0)
+        reset_launches()
+        rows = [fly(runner, scene, i, f"[exact] frame {i}")
+                for i in range(3, 3 + frames)]
+        launches = dict(LAUNCHES)
+        log(f"[exact] launches over {frames} frames: {launches}")
+        # pair SuperPoint (2 x (1 + 8 + 1)), dual LightGlue (18 calls of 2)
+        expect_launches("exact warp", launches,
+                        {"stem_stage": 2 * frames, "conv_stage": 16 * frames,
+                         "nms_select": 2 * frames,
+                         "fused_block": 36 * frames})
+        ms = [r[0] for r in rows]
+        out = {"runner": {"frames": frames,
+                          "frame_p50_ms": float(np.median(ms)),
+                          "frame_p90_ms": float(np.percentile(ms, 90)),
+                          "max_error_m": float(max(r[1] for r in rows)),
+                          "launches": launches}}
+        out["runner"]["graph"] = graphed_vs_eager(
+            "exact", lambda i: fly(runner, scene, i),
+            list(range(3, 3 + frames)), ms, scene.crs_affine, taps)
 
-    t0 = time.time()
-    zl = render_scene(seed=2, h=H, w=W, yaws=SHEAR_YAWS, map_side=MAP,
-                      coverage=MAP / W)
-    log(f"[shear] scene {zl.ortho.shape} at the query's GSD in "
-        f"{time.time() - t0:.1f} s")
-    dev = torch.device("cuda")
-    models = build_models(params_from_jax(params, dev), config)
-    program = build_frame_to_geopose(config)
-    generator = torch.Generator(device=dev)
-    state = {"n": 0}
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-    def zoomless(query, ortho, dem, rotation_deg, k, crs_affine,
-                 map_stamp=None, altitude_agl=None):
-        """The frame program as a runner: the map is uploaded once, no zoom
-        is passed."""
-        if "ortho" not in state:
-            state["ortho"], state["dem"] = f32(ortho) / 255.0, f32(dem)
-        state["n"] += 1
-        generator.manual_seed(state["n"])
-        return program(models, f32(query) / 255.0, state["ortho"],
-                       state["dem"], rotation_deg, f32(k), f32(crs_affine),
-                       generator=generator)
-
-    fly(zoomless, zl, 0)
-    reset_launches()
-    rows = [fly(zoomless, zl, i, f"[shear] frame {i}")
-            for i in range(len(SHEAR_YAWS))]
-    ms, errors = [r[0] for r in rows], [r[1] for r in rows]
-    launches = dict(LAUNCHES)
-    frames = len(SHEAR_YAWS)
-    log(f"[shear] launches over {frames} frames: {launches}")
-    # the rotation's two x-shears and its y-shear
-    expect_launches("zoom-less exact warp", launches,
-                    {"shear_last_axis": 2 * frames,
-                     "shear_first_axis": frames,
-                     "stem_stage": 2 * frames, "conv_stage": 16 * frames,
-                     "nms_select": 2 * frames, "fused_block": 36 * frames})
-    out["zoomless"] = {"frames": frames,
-                       "frame_p50_ms": float(np.median(ms)),
-                       "frame_p90_ms": float(np.percentile(ms, 90)),
-                       "max_error_m": float(max(errors)),
-                       "launches": launches}
+        t0 = time.time()
+        zl = render_scene(seed=2, h=H, w=W, yaws=SHEAR_YAWS, map_side=MAP,
+                          coverage=MAP / W)
+        log(f"[shear] scene {zl.ortho.shape} at the query's GSD in "
+            f"{time.time() - t0:.1f} s")
+        dev = torch.device("cuda")
+        models = build_models(params_from_jax(params, dev), config)
+        tap_programs(models, taps)
+        zoomless = _warp_runner(build_frame_to_geopose(config), models, dev,
+                                config, zoom=False)
+        frames = len(SHEAR_YAWS)
+        for i in range(frames):  # a graph a quadrant, each captured
+            fly(zoomless, zl, i)
+        reset_launches()
+        rows = [fly(zoomless, zl, i, f"[shear] frame {i}")
+                for i in range(frames)]
+        ms, errors = [r[0] for r in rows], [r[1] for r in rows]
+        launches = dict(LAUNCHES)
+        log(f"[shear] launches over {frames} frames: {launches}")
+        # the rotation's two x-shears and its y-shear
+        expect_launches("zoom-less exact warp", launches,
+                        {"shear_last_axis": 2 * frames,
+                         "shear_first_axis": frames,
+                         "stem_stage": 2 * frames, "conv_stage": 16 * frames,
+                         "nms_select": 2 * frames,
+                         "fused_block": 36 * frames})
+        out["zoomless"] = {"frames": frames,
+                           "frame_p50_ms": float(np.median(ms)),
+                           "frame_p90_ms": float(np.percentile(ms, 90)),
+                           "max_error_m": float(max(errors)),
+                           "launches": launches,
+                           "graphs": sorted(str(key[-1]) for key in
+                                            zoomless.graphs)}
+        out["zoomless"]["graph"] = graphed_vs_eager(
+            "shear", lambda i: fly(zoomless, zl, i), list(range(frames)),
+            ms, zl.crs_affine, taps)
     log("[exact] " + json.dumps(out))
     return out
 
@@ -1877,7 +2089,6 @@ def phase_harris_path(profile_run: bool = False) -> dict:
     """Path 4: the default bundle (``params=None``: harris_lg5 with
     PRETRAINED_CONFIG) through the three deep runners on the JAX 8-yaw
     sweep's sizing, then the cached runner on bench.py's 2048-px map."""
-    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
     from gisnav_tpu_torch.pipeline.runners import (
         make_bucketed_warp_runner,
         make_cached_deep_runner,
@@ -1902,42 +2113,58 @@ def phase_harris_path(profile_run: bool = False) -> dict:
                   {k: 2 * n for k, n in sp.items()} | {"fused_block": 20}),
     }
     out = {}
-    for name, (make, frames, per_frame) in plans.items():
-        runner = make()
-        # untimed: the cached runner extracts the map at its first frame;
-        # the bucketed runner fills one bucket a yaw (4 yaws, 4 buckets of
-        # 15 deg, a 4-entry cache), so the counted frames all hit
-        for i in (frames if name == "bucketed" else frames[:1]):
-            fly(runner, scene, i)
-        reset_launches()
-        rows = [fly(runner, scene, i, f"[harris {name}] frame {i}")
-                for i in frames]
-        launches = dict(LAUNCHES)
-        n = len(frames)
-        log(f"[harris {name}] launches over {n} frames: {launches}")
-        expect_launches(f"harris {name}", launches,
-                        {k: c * n for k, c in per_frame.items()})
-        out[name] = {**_times(rows), "launches": launches}
-        if name == "cached":
-            # one more map extraction (a new stamp) and its frame
-            reset_launches()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            runner(scene.frames[0], scene.ortho, scene.dem, 0.0, scene.k,
-                   scene.crs_affine, map_stamp=2, altitude_agl=scene.alt_m)
-            torch.cuda.synchronize()
-            out[name]["map_extraction_ms"] = (
-                (time.perf_counter() - t) * 1e3 - out[name]["frame_p50_ms"])
-            expect_launches("harris cached extraction", dict(LAUNCHES),
-                            {"stem_stage": 2, "conv_stage": 14,
-                             "nms_select": 1, "fused_block": 40})
-        if profile_run:
-            busy = profile_frames(lambda i: fly(runner, scene, i), frames)
-            out[name]["device_busy_ms"] = busy
-            out[name]["device_idle_share"] = 1.0 - busy / out[name][
-                "frame_p50_ms"]
+    taps: list = []
+    with TappedRansac(taps), GraphSide("graphed", taps=taps):
+        for name, (make, frames, per_frame) in plans.items():
+            out[name] = _harris_runner(name, make(), scene, frames,
+                                       per_frame, taps, profile_run)
     out["bench_map"] = harris_bench_map()
     log("[harris] " + json.dumps(out))
+    return out
+
+
+def _harris_runner(name, runner, scene, frames, per_frame, taps,
+                   profile_run) -> dict:
+    """One of path 4's runners on its frames; the exact warp also graphed
+    against eager."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    tap_programs(runner.models, taps)
+    # untimed: the cached runner extracts the map at its first frame; the
+    # bucketed runner fills one bucket a yaw (4 yaws, 4 buckets of 15 deg,
+    # a 4-entry cache), so the counted frames all hit
+    for i in (frames if name == "bucketed" else frames[:1]):
+        fly(runner, scene, i)
+    reset_launches()
+    rows = [fly(runner, scene, i, f"[harris {name}] frame {i}")
+            for i in frames]
+    launches = dict(LAUNCHES)
+    n = len(frames)
+    log(f"[harris {name}] launches over {n} frames: {launches}")
+    expect_launches(f"harris {name}", launches,
+                    {k: c * n for k, c in per_frame.items()})
+    out = {**_times(rows), "launches": launches}
+    if name == "cached":
+        # one more map extraction (a new stamp) and its frame
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runner(scene.frames[0], scene.ortho, scene.dem, 0.0, scene.k,
+               scene.crs_affine, map_stamp=2, altitude_agl=scene.alt_m)
+        torch.cuda.synchronize()
+        out["map_extraction_ms"] = (
+            (time.perf_counter() - t) * 1e3 - out["frame_p50_ms"])
+        expect_launches("harris cached extraction", dict(LAUNCHES),
+                        {"stem_stage": 2, "conv_stage": 14,
+                         "nms_select": 1, "fused_block": 40})
+    if name == "exact":
+        out["graph"] = graphed_vs_eager(
+            "harris exact", lambda i: fly(runner, scene, i), frames,
+            [r[0] for r in rows], scene.crs_affine, taps)
+    elif profile_run:
+        busy = profile_frames(lambda i: fly(runner, scene, i), frames)
+        out["device_busy_ms"] = busy
+        out["device_idle_share"] = 1.0 - busy / out["frame_p50_ms"]
     return out
 
 
@@ -1973,32 +2200,37 @@ def phase_semidense_path(profile_run: bool = False) -> dict:
     from gisnav_tpu_torch.utils.world import render_scene
 
     scene = render_scene(**HARRIS_SCENE)
-    runner = make_semidense_runner()
-    _frame(runner, scene, SEMIDENSE_FRAMES[0])
-    reset_launches()
-    rows = []
-    for i in SEMIDENSE_FRAMES:
-        pose, ms, err, _ = _frame(runner, scene, i, f"[semidense] frame {i}")
-        valid = bool(pose.valid)
-        if i in SEMIDENSE_VALID:
-            if not (valid and err < 10.0):
-                raise RuntimeError(f"semidense frame {i}: fix invalid or "
-                                   f"{err:.2f} m off")
-        elif valid:
-            raise RuntimeError(f"semidense frame {i}: valid where the JAX "
-                               f"program's fix is not")
-        rows.append((ms, err))
-    if any(LAUNCHES.values()):
-        raise RuntimeError(f"semidense path launched {dict(LAUNCHES)}")
-    out = {**_times([rows[SEMIDENSE_FRAMES.index(i)]
-                     for i in SEMIDENSE_VALID]),
-           "all_frames_p50_ms": float(np.median([r[0] for r in rows])),
-           "launches": dict(LAUNCHES)}
-    if profile_run:
-        busy = profile_frames(lambda i: _frame(runner, scene, i),
-                              list(SEMIDENSE_FRAMES))
-        out["device_busy_ms"] = busy
-        out["device_idle_share"] = 1.0 - busy / out["all_frames_p50_ms"]
+    taps: list = []
+    with TappedRansac(taps), GraphSide("graphed", taps=taps):
+        runner = make_semidense_runner()
+        tap_programs(runner.models, taps)
+        _frame(runner, scene, SEMIDENSE_FRAMES[0])
+        reset_launches()
+        rows = []
+
+        def run_frame(i, tag=""):
+            pose, ms, err, _ = _frame(runner, scene, i, tag)
+            valid = bool(pose.valid)
+            if i in SEMIDENSE_VALID:
+                if not (valid and err < 10.0):
+                    raise RuntimeError(f"semidense frame {i}: fix invalid or "
+                                       f"{err:.2f} m off")
+            elif valid:
+                raise RuntimeError(f"semidense frame {i}: valid where the "
+                                   f"JAX program's fix is not")
+            return ms, err
+
+        rows = [run_frame(i, f"[semidense] frame {i}")
+                for i in SEMIDENSE_FRAMES]
+        if any(LAUNCHES.values()):
+            raise RuntimeError(f"semidense path launched {dict(LAUNCHES)}")
+        out = {**_times([rows[SEMIDENSE_FRAMES.index(i)]
+                         for i in SEMIDENSE_VALID]),
+               "all_frames_p50_ms": float(np.median([r[0] for r in rows])),
+               "launches": dict(LAUNCHES)}
+        out["graph"] = graphed_vs_eager(
+            "semidense", run_frame, list(SEMIDENSE_FRAMES),
+            [r[0] for r in rows], scene.crs_affine, taps)
     log("[semidense] " + json.dumps(out))
     return out
 
@@ -2040,15 +2272,22 @@ def phase_classical_path(profile_run: bool = False) -> dict:
                                           seed=state["n"])
 
     frames = list(range(len(CLASSICAL_YAWS)))
-    fly(runner, scene, 0)
-    reset_launches()
-    rows = [fly(runner, scene, i, f"[classical] frame {i}") for i in frames]
-    launches = dict(LAUNCHES)
-    n = len(frames)
-    log(f"[classical] launches over {n} frames: {launches}")
-    expect_launches("classical", launches,
-                    {"shear_last_axis": 2 * n, "shear_first_axis": n})
-    out = {**_times(rows), "launches": launches}
+    taps: list = []
+    with TappedRansac(taps), GraphSide("graphed", taps=taps):
+        for i in frames:  # the tail's graph and a warp graph a quadrant
+            fly(runner, scene, i)
+        reset_launches()
+        rows = [fly(runner, scene, i, f"[classical] frame {i}")
+                for i in frames]
+        launches = dict(LAUNCHES)
+        n = len(frames)
+        log(f"[classical] launches over {n} frames: {launches}")
+        expect_launches("classical", launches,
+                        {"shear_last_axis": 2 * n, "shear_first_axis": n})
+        out = {**_times(rows), "launches": launches}
+        out["graph"] = graphed_vs_eager(
+            "classical", lambda i: fly(runner, scene, i), frames[:4],
+            [r[0] for r in rows[:4]], scene.crs_affine, taps)
 
     # frame 0's parts: SIFT of one image and of the pair, and the tail
     stack = torch.stack([ortho.float(), dem], dim=-1)
@@ -2087,10 +2326,6 @@ def phase_classical_path(profile_run: bool = False) -> dict:
     out["sift_share"] = out["sift_pair_host_ms"] / out["frame_p50_ms"]
     if "cv2" in sys.modules:
         raise RuntimeError("the classical path imported cv2")
-    if profile_run:
-        busy = profile_frames(lambda i: fly(runner, scene, i), frames)
-        out["device_busy_ms"] = busy
-        out["device_idle_share"] = 1.0 - busy / out["frame_p50_ms"]
     log("[classical] " + json.dumps(out))
     return out
 
@@ -2452,28 +2687,59 @@ def graph_cli(world, wms_url: str) -> dict:
 
 def graph_filter_steps(calls: int = 50) -> dict:
     """Host ms of one global-filter (UKF) ``submit`` and one ``state_at``
-    on the card, each ending in a synchronise, over a 4 Hz pose stream."""
+    on the card, each ending in a synchronise, over a 4 Hz pose stream; the
+    filters' steps replay their graphs, then the same stream runs them
+    eagerly (``GraphSide``): the state's ``x`` and ``P`` after each call
+    within 1e-6 relative (of each array's largest entry), for the UKF and
+    the EKF; each side's device busy ms a submit and query (4 more calls
+    traced) and idle share against their summed p50."""
     from gisnav_tpu_torch.fusion.filter import PoseFusionFilter, SensorConfig
 
-    f = PoseFusionFilter({"pose": SensorConfig(rejection_threshold=3.0)},
-                         backend="ukf")
     quat = np.array([0.0, 0.0, 0.0, 1.0])
-    submit, query = [], []
-    for i in range(calls + 3):
+
+    def call(f, i):  # one submit and one state query at 4 Hz
         stamp = 1_000_000 + 250_000 * i
-        pos = np.array([5.0 * i, 0.0, 500.0])
         t = time.perf_counter()
-        f.submit("pose", stamp, pos, quat)
+        f.submit("pose", stamp, np.array([5.0 * i, 0.0, 500.0]), quat)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         est = f.state_at(stamp + 100_000)
-        t2 = time.perf_counter()
-        if i >= 3:  # the first calls load the kernels
-            submit.append((t1 - t) * 1e3)
-            query.append((t2 - t1) * 1e3)
-    if not np.all(np.isfinite(est["position"])):
-        raise RuntimeError(f"filter: non-finite state {est}")
-    return {"submit": _pcts(submit), "state_at": _pcts(query)}
+        return est, (t1 - t) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    def stream(backend):
+        f = PoseFusionFilter({"pose": SensorConfig(rejection_threshold=3.0)},
+                             backend=backend)
+        submit, query, states = [], [], []
+        for i in range(calls + 3):
+            est, s_ms, q_ms = call(f, i)
+            states.append((f._state.x.clone(), f._state.p.clone()))
+            if i >= 3:  # the first calls load the kernels
+                submit.append(s_ms)
+                query.append(q_ms)
+        if not np.all(np.isfinite(est["position"])):
+            raise RuntimeError(f"filter: non-finite state {est}")
+        both = float(np.median(np.add(submit, query)))
+        later = iter(range(calls + 3, calls + 11))  # fresh stamps
+        busy = profile_frames(lambda _: call(f, next(later)), [0], n=4)
+        return {"submit": _pcts(submit), "state_at": _pcts(query),
+                "busy_ms": busy, "idle_share": 1.0 - busy / both}, states, f
+
+    out = {}
+    for backend in ("ukf", "ekf"):
+        graphed, g_states, graphed_filter = stream(backend)
+        with GraphSide("eager"):
+            eager, e_states, _ = stream(backend)
+        err = max(float((a - b).abs().max() / b.abs().max())
+                  for g, e in zip(g_states, e_states) for a, b in zip(g, e))
+        if not err <= 1e-6:
+            raise RuntimeError(f"filter {backend}: graphed state {err} "
+                               f"(relative) from eager")
+        out[backend] = {**graphed, "eager": eager,
+                        "max_rel_err_vs_eager": err,
+                        "capture_ms": [g.capture_ms for g in
+                                       graphed_filter._graphs.values()]}
+    out.update(out["ukf"])
+    return out
 
 
 def phase_graph_path(profile_run: bool = False) -> dict:
@@ -3516,6 +3782,7 @@ def phase_main_path() -> dict:
            "mean_error_m": float(np.mean(errors)), "launches": launches}
     out["graph"] = graph_vs_eager(runner, scene, config, graphed, run_frame,
                                   last4)
+    out["refresh"] = refresh_vs_eager(runner, scene, config, cycle)
     out["device_busy_ms"] = out["graph"]["graphed_busy_ms"]
     out["device_idle_share"] = 1.0 - out["device_busy_ms"] / p50
     log("[main] " + json.dumps(out))
@@ -3643,7 +3910,7 @@ def graph_vs_eager(runner, scene, config, graphed, run_frame, last4) -> dict:
     buckets = {row[0]: row[4] for row in graphed}
     busy_eager = profile_frames(
         lambda i: eager(i, graphed[0][1], buckets[i]), last4)
-    (graph,) = runner.graphs.values()
+    (graph,) = (g for key, g in runner.graphs.items() if key[0] == "frame")
     out = {"eager_p50_ms": float(np.median(eager_ms)),
            "eager_p90_ms": float(np.percentile(eager_ms, 90)),
            "graphed_busy_ms": busy_graphed, "eager_busy_ms": busy_eager,
@@ -3654,6 +3921,316 @@ def graph_vs_eager(runner, scene, config, graphed, run_frame, last4) -> dict:
            "graph_pool_mib": graph.pool_bytes / 2 ** 20,
            "replays": graph.replays, "launches_a_replay": graph.launches}
     log("[main graph] " + json.dumps(out))
+    return out
+
+
+# --- every other program the JAX package jits, graphed against eager ------
+
+
+def _on_card(tree):
+    """A tree of tensors (host or card) moved to the card, as a graph's
+    copy-in does."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cuda()
+    if isinstance(tree, dict):
+        return {k: _on_card(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        items = [_on_card(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
+    return tree
+
+
+class GraphSide:
+    """Runs the port's ``FrameGraph``s one of three ways, for the
+    comparisons of this script (the package itself never runs a graphed
+    program eagerly on the card):
+
+    - ``graphed``: as the package runs them, each capture noting which of
+      ``taps`` it made (the ones each replay rewrites);
+    - ``eager``: every call runs the program's function on the card on the
+      same inputs, op by op, and no graph is captured or replayed;
+    - ``shadow``: every replay is followed by the same function run
+      eagerly on the same inputs and held against it (``rows``: whether
+      every output, and every tap, is identical; the fix's move; the
+      replay's and the eager run's host ms; ``calls`` counts every graph
+      call, ``added_ms`` sums the host ms the shadow spent on a compared
+      call besides its eager run: the replay, the taps, the comparison,
+      so a frame's ms less it is the frame's ms with its programs run
+      eagerly). ``taps`` collects what the
+      program's taps append (LightGlue's ``matches0`` or LoFTR's mask,
+      RANSAC's sample indices): inside a graph the capture's own tensors,
+      which each replay rewrites.
+
+    Training graphs (``grad=True``) are never shadowed: an eager run would
+    take another optimizer step.
+    """
+
+    def __init__(self, mode: str, aff=None, taps=None):
+        self.mode, self.aff = mode, aff
+        self.taps = taps if taps is not None else []
+        self.rows: list = []
+        self.calls, self.added_ms = 0, 0.0
+
+    def __enter__(self):
+        from gisnav_tpu_torch.pipeline.graph import FrameGraph
+
+        self._orig = FrameGraph.__call__
+        side = self
+
+        def call(graph, *args):
+            if side.mode == "eager":
+                return side._eager(graph, args)
+            return side._shadow(graph, args, side.mode == "shadow")
+
+        FrameGraph.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        from gisnav_tpu_torch.pipeline.graph import FrameGraph
+
+        FrameGraph.__call__ = self._orig
+
+    @staticmethod
+    def _eager(graph, args):
+        from gisnav_tpu_torch.device import strict_fp32
+
+        strict_fp32()
+        with torch.no_grad():
+            return graph.fn(*_on_card(args))
+
+    def _shadow(self, graph, args, compare: bool = True):
+        t0 = time.perf_counter()
+        self.calls += 1
+        first = graph._graph is None
+        n0 = len(self.taps)
+        if first or not compare or graph.grad:
+            out = self._orig(graph, *args)
+            if first:  # warm-up and capture each tapped k tensors
+                k = (len(self.taps) - n0) // 2
+                graph.taps = self.taps[len(self.taps) - k:]
+            return out
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = self._orig(graph, *args)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t) * 1e3
+        g_taps = [x.clone() for x in getattr(graph, "taps", [])]
+        n1 = len(self.taps)
+        t = time.perf_counter()
+        want = self._eager(graph, args)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t) * 1e3
+        same, moved = _held(out, want, g_taps, self.taps[n1:], self.aff)
+        self.rows.append((same, moved, replay_ms, eager_ms))
+        self.added_ms += (time.perf_counter() - t0) * 1e3 - eager_ms
+        return out
+
+
+def _held(out, want, g_taps, e_taps, aff) -> tuple:
+    """(identical?, fix move in m) of a replay's output against the eager
+    run's: a GeoPose's matches, inliers and taps identical and its fix
+    moved; filter states within 1e-6 relative; anything else bit-equal."""
+    from gisnav_tpu_torch.fusion.ekf import EKFState
+    from gisnav_tpu_torch.pipeline.geopose import GeoPose, geopose_to_wgs84_f64
+    from gisnav_tpu_torch.pipeline.graph import _flatten
+
+    taps_same = len(g_taps) == len(e_taps) and all(
+        torch.equal(a, b) for a, b in zip(g_taps, e_taps))
+    if isinstance(out, GeoPose):
+        moved = _fix_moved(geopose_to_wgs84_f64(out, aff),
+                           geopose_to_wgs84_f64(want, aff))
+        return _same_pose(out, want) and taps_same, moved
+    if isinstance(out, EKFState):
+        return taps_same and all(
+            float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+            for a, b in zip(out, want)), 0.0
+    a, b = _flatten(out)[0], _flatten(want)[0]
+    return taps_same and len(a) == len(b) and all(
+        torch.equal(x, y) for x, y in zip(a, b)), 0.0
+
+
+def tap_programs(models: dict, taps: list) -> None:
+    """Make ``models``' matcher (LightGlue's ``matches0``, LoFTR's mask)
+    append what it finds to ``taps``, in place (a runner's graphs captured
+    after this call hold the taps)."""
+    for name, field in (("lightglue", "matches0"), ("loftr", "mask")):
+        if name in models:
+            inner = models[name]
+
+            def tapped(*args, inner=inner, field=field):
+                out = inner(*args)
+                taps.append(getattr(out, field))
+                return out
+
+            models[name] = tapped
+
+
+class TappedRansac:
+    """Within the block, RANSAC's sample indices are appended to ``taps``
+    (``pnp.ransac.draw_samples`` wrapped where ``ransac_pnp`` reads it)."""
+
+    def __init__(self, taps: list):
+        self.taps = taps
+
+    def __enter__(self):
+        from gisnav_tpu_torch.pnp import ransac
+
+        self._orig = ransac.draw_samples
+        taps, orig = self.taps, self._orig
+
+        def draw(*a, **kw):
+            idx = orig(*a, **kw)
+            taps.append(idx)
+            return idx
+
+        ransac.draw_samples = draw
+        return self
+
+    def __exit__(self, *exc):
+        from gisnav_tpu_torch.pnp import ransac
+
+        ransac.draw_samples = self._orig
+
+
+def graphed_vs_eager(tag: str, run_frame, frames, graphed_ms, aff, taps,
+                     profile_n: int = 4, eager_profile_n: int = 2,
+                     max_move_m: float = 1e-3) -> dict:
+    """A path's frames (``run_frame(i)``, graphs inside) shadowed: each
+    replay held against its eager run (taps and matches identical, the fix
+    within ``max_move_m``). A frame's eager ms is its shadowed ms less what
+    the shadow added besides the eager runs (``GraphSide``), over the
+    frames whose every graph call was compared; their p50 / p90 stand
+    beside the graphed ``graphed_ms``, with each side's device busy ms
+    (torch.profiler over ``profile_n`` frames graphed and
+    ``eager_profile_n`` eager) and idle share against its p50."""
+    eager_ms = []
+    with GraphSide("shadow", aff, taps) as side:
+        for i in frames:
+            rows, calls, added = len(side.rows), side.calls, side.added_ms
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_frame(i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if side.calls - calls == len(side.rows) - rows > 0:
+                eager_ms.append(ms - (side.added_ms - added))
+    bad = [r for r in side.rows if not r[0]]
+    moved = max((r[1] for r in side.rows), default=0.0)
+    if not eager_ms or bad or moved > max_move_m:
+        raise RuntimeError(f"{tag}: {len(bad)} of {len(side.rows)} replays "
+                           f"differ from eager, fix moved {moved} m, "
+                           f"{len(eager_ms)} frames compared whole")
+    with GraphSide("eager"):
+        busy_eager = profile_frames(run_frame, frames, n=eager_profile_n)
+    busy = profile_frames(run_frame, frames, n=profile_n)
+    g50, e50 = float(np.median(graphed_ms)), float(np.median(eager_ms))
+    out = {"graphed_p50_ms": g50,
+           "graphed_p90_ms": float(np.percentile(graphed_ms, 90)),
+           "eager_p50_ms": e50,
+           "eager_p90_ms": float(np.percentile(eager_ms, 90)),
+           "eager_frames": len(eager_ms),
+           "graphed_busy_ms": busy, "eager_busy_ms": busy_eager,
+           "graphed_idle_share": 1.0 - busy / g50,
+           "eager_idle_share": 1.0 - busy_eager / e50,
+           "replays_compared": len(side.rows), "max_fix_move_m": moved,
+           "replay_ms_p50": float(np.median([r[2] for r in side.rows])),
+           "shadow_eager_ms_p50": float(np.median([r[3]
+                                                   for r in side.rows]))}
+    log(f"[{tag} graph vs eager] " + json.dumps(out))
+    return out
+
+
+def refresh_vs_eager(runner, scene, config, cycle) -> dict:
+    """Path 1's bucket refresh, graphed against eager, on each bucket of
+    the refresh cycle: the runner's refresh graph (angle and zoom () inputs)
+    replayed and the extractor run eagerly on the same inputs (features,
+    DEM crop and crop matrix identical); the card's crop matrix within 1
+    f32 ulp (of its largest entry) of the one the host built before this
+    port built it on the device (``crop_to_original`` of host numbers on
+    the CPU), and the frame's fix through either matrix within 1 mm. Both
+    sides' refresh ms and device busy ms."""
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose_warpcached,
+        build_warp_reference_extractor,
+        geopose_to_wgs84_f64,
+    )
+    from gisnav_tpu_torch.pnp.ransac import draw_noise
+    from gisnav_tpu_torch.raster.warp import crop_to_original
+
+    dev = torch.device("cuda")
+    models = runner.models
+    graph = runner.graphs[("refresh", tuple(scene.ortho.shape))]
+    extract = build_warp_reference_extractor(config)
+    hot = build_frame_to_geopose_warpcached(config)
+    ortho = torch.as_tensor(scene.ortho.astype(np.float32),
+                            device=dev) / 255.0
+    dem = torch.as_tensor(scene.dem, device=dev)
+    k, aff = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+              for a in (scene.k, scene.crs_affine))
+    zoom = scene.alt_m / scene.k[0, 0] / abs(scene.crs_affine[2, 2])
+    zstep = np.log1p(0.10)
+    zq = np.float32(np.exp(round(float(np.log(zoom)) / zstep) * zstep))
+    h, w = config.image_shape
+    cy, cx = (n // 2 for n in scene.ortho.shape)
+    gen = torch.Generator(device=dev)
+    g_ms, e_ms, ulps, moved = [], [], [], []
+
+    def call(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    for i in cycle:
+        angle = np.float32(round(scene.yaws[i] / 15.0) * 15.0)
+        a_t, z_t = torch.tensor(angle), torch.tensor(zq)
+        got, ms = call(graph, ortho, dem, a_t, z_t)
+        g_ms.append(ms)
+        want, ms = call(lambda: extract(models, ortho, dem, a_t.cuda(),
+                                        z_t.cuda()))
+        e_ms.append(ms)
+        if not all(torch.equal(a, b) for a, b in zip(
+                [*got[0], got[1], got[2]], [*want[0], want[1], want[2]])):
+            raise RuntimeError(f"path 1: the graphed refresh of bucket "
+                               f"{angle} differs from eager")
+        z = torch.tensor(zq)
+        host_m = crop_to_original(float(angle), cx, cy, cx - z * (w / 2.0),
+                                  cy - z * (h / 2.0), z)
+        card_m = got[2].cpu()
+        ulps.append(float((card_m - host_m).abs().max()) / float(
+            np.spacing(np.float32(host_m.abs().max()))))
+        q = torch.as_tensor(scene.frames[i].astype(np.float32),
+                            device=dev) / 255.0
+        gen.manual_seed(i + 1)
+        pose = hot(models, q, *got, k, aff, noise=draw_noise(
+            gen, config.num_hypotheses, config.max_keypoints))
+        moved.append(_fix_moved(
+            geopose_to_wgs84_f64(pose, scene.crs_affine),
+            geopose_to_wgs84_f64(pose._replace(m_crop=host_m),
+                                 scene.crs_affine)))
+    if max(ulps) > 1.0 or max(moved) > 1e-3:
+        raise RuntimeError(f"path 1: the card's crop matrix {max(ulps)} "
+                           f"ulp from the host's, fix moved {max(moved)} m")
+    angles = [torch.tensor(np.float32(round(scene.yaws[i] / 15.0) * 15.0))
+              for i in cycle]
+    z_t = torch.tensor(zq)
+    busy = profile_frames(lambda a: graph(ortho, dem, a, z_t), angles,
+                          n=len(angles))
+    busy_eager = profile_frames(
+        lambda a: extract(models, ortho, dem, a.cuda(), z_t.cuda()), angles,
+        n=len(angles))
+    g50, e50 = float(np.median(g_ms)), float(np.median(e_ms))
+    out = {"refreshes_compared": len(g_ms), "graphed_p50_ms": g50,
+           "graphed_p90_ms": float(np.percentile(g_ms, 90)),
+           "eager_p50_ms": e50, "eager_p90_ms": float(np.percentile(e_ms, 90)),
+           "graphed_busy_ms": busy, "eager_busy_ms": busy_eager,
+           "graphed_idle_share": 1.0 - busy / g50,
+           "eager_idle_share": 1.0 - busy_eager / e50,
+           "m_crop_max_ulp": max(ulps), "host_matrix_fix_move_m": max(moved),
+           "replays": graph.replays, "launches_a_replay": graph.launches}
+    log("[main refresh] " + json.dumps(out))
     return out
 
 

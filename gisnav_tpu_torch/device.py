@@ -9,7 +9,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "strict_fp32"]
+__all__ = ["resolve_device", "strict_fp32", "scalar_f32"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -29,3 +29,12 @@ def strict_fp32() -> None:
     coordinates)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def scalar_f32(v, device) -> torch.Tensor:
+    """A () f32 tensor on ``device``: a tensor as it is (a graphed program's
+    input, already on the device), a host number filled there (never a
+    copy from pageable host memory, which a CUDA graph cannot capture)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)

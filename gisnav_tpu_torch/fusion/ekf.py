@@ -30,6 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gisnav_tpu_torch.device import scalar_f32
+
 __all__ = ["EKFState", "ekf_init", "ekf_predict", "ekf_update_pose",
            "ekf_update_velocity", "STATE_DIM", "POSE_DIM"]
 
@@ -73,7 +75,7 @@ def _euler_rate_matrix(rpy: torch.Tensor) -> torch.Tensor:
                         torch.stack([zero, sr / cp, cr / cp], -1)], -2)
 
 
-def _transition(x: torch.Tensor, dt: float) -> torch.Tensor:
+def _transition(x: torch.Tensor, dt) -> torch.Tensor:
     """Nonlinear state transition (constant body acceleration), (..., 15)."""
     pos, rpy = x[..., 0:3], x[..., 3:6]
     v, w, a = x[..., 6:9], x[..., 9:12], x[..., 12:15]
@@ -116,13 +118,14 @@ def ekf_init(x0, p0_diag, device) -> EKFState:
     return EKFState(x=x, p=p)
 
 
-def _diag_q(q_diag: torch.Tensor, dt: float) -> torch.Tensor:
-    return torch.diag(q_diag) * max(dt, float(np.float32(1e-6)))
+def _diag_q(q_diag: torch.Tensor, dt) -> torch.Tensor:
+    return torch.diag(q_diag) * torch.clamp(scalar_f32(dt, q_diag.device),
+                                            min=float(np.float32(1e-6)))
 
 
-def ekf_predict(state: EKFState, dt: float, q_diag: torch.Tensor
-                ) -> EKFState:
-    """Integrate the motion model over ``dt`` seconds (an f32 value) and
+def ekf_predict(state: EKFState, dt, q_diag: torch.Tensor) -> EKFState:
+    """Integrate the motion model over ``dt`` seconds (an f32 value, or a
+    () f32 tensor on the state's device, as a graphed step takes it) and
     propagate P with the transition's Jacobian; ``q_diag`` is the (15,)
     process noise per second."""
     f = partial(_transition, dt=dt)
@@ -132,19 +135,19 @@ def ekf_predict(state: EKFState, dt: float, q_diag: torch.Tensor
     return EKFState(x=_with_wrapped_angles(x_new), p=p_new)
 
 
-def _gate(innov, s_inv, rejection_threshold: float) -> torch.Tensor:
+def _gate(innov, s_inv, rejection_threshold) -> torch.Tensor:
     """1 to fuse, 0 to reject: the Mahalanobis innovation gate in standard
     deviations (robot_localization's ``poseN_rejection_threshold``); <= 0
-    disables it. A NaN distance rejects."""
-    thr = np.float32(rejection_threshold)
-    if thr <= 0:
-        return torch.ones((), device=innov.device)
+    disables it. A NaN distance rejects. The threshold is a host number or
+    a () f32 tensor on the device (a graphed update's input), compared
+    there as the JAX filter compares its traced one."""
+    thr = scalar_f32(rejection_threshold, innov.device)
     d2 = innov @ s_inv @ innov
-    return (d2 <= float(thr * thr)).to(torch.float32)
+    return ((thr <= 0) | (d2 <= thr * thr)).to(torch.float32)
 
 
 def _ekf_update(state: EKFState, z, r_diag, mask, first: int,
-                rejection_threshold: float, wrap: bool) -> EKFState:
+                rejection_threshold, wrap: bool) -> EKFState:
     """Linear update observing ``x[first:first + 6]``. Masked components
     get zero H rows and a unit R diagonal, so their gain columns are exactly
     zero and S stays well-conditioned (a 1e12 masked variance makes S's f32
@@ -169,7 +172,7 @@ def _ekf_update(state: EKFState, z, r_diag, mask, first: int,
 
 
 def ekf_update_pose(state: EKFState, z, r_diag, mask,
-                    rejection_threshold: float = 0.0) -> EKFState:
+                    rejection_threshold=0.0) -> EKFState:
     """Update with a world-frame 6-DoF pose (x, y, z, roll, pitch, yaw);
     ``r_diag`` its variances, ``mask`` 1 to fuse a component, 0 to ignore
     it (robot_localization's per-sensor config vector)."""
@@ -178,7 +181,7 @@ def ekf_update_pose(state: EKFState, z, r_diag, mask,
 
 
 def ekf_update_velocity(state: EKFState, z, r_diag, mask,
-                        rejection_threshold: float = 0.0) -> EKFState:
+                        rejection_threshold=0.0) -> EKFState:
     """Update with a body-frame velocity (vx, vy, vz, vroll, vpitch, vyaw):
     robot_localization's ``pose_differential`` mode fuses VO this way."""
     return _ekf_update(state, z, r_diag, mask, 6, rejection_threshold,

@@ -7,6 +7,19 @@ sensors, differential pose sensors (consecutive poses -> body-frame
 velocity), an innovation gate, a re-seed after a long gap, an extrapolation
 clamp and a reset when the state turns non-finite. The filter state stays
 on the device; ``device=None`` means the card.
+
+On the card each filter step (the backend's predict, pose update and
+velocity update, as the JAX filter jits them) is one CUDA graph replay
+(``pipeline.graph.FrameGraph``): ``dt``, ``z``, ``r_diag``, ``mask`` and the
+rejection threshold are its inputs, (x, P) its input and output. The
+graphs of the steps the filter's sensors use are captured when the filter
+is made, on a dummy state: the first call of a step (its warm-up, the
+first use of the card's solver libraries, then the capture) would
+otherwise stall the fusion node for seconds at the first measurements
+while the other nodes' work piles up. The host logic around the steps
+stays on the host, as in the JAX filter: the finiteness reset, the stale
+and re-seed branches and ``state_at``'s read back. On the CPU
+(``device="cpu"``) the steps are plain calls.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from gisnav_tpu_torch.geometry.quaternion import (
     quat_to_euler,
     quat_to_matrix,
 )
+from gisnav_tpu_torch.pipeline.graph import FrameGraph
 from gisnav_tpu_torch.utils.devlock import device_lock
 
 __all__ = ["SensorConfig", "PoseFusionFilter"]
@@ -91,8 +105,8 @@ class PoseFusionFilter:
                  device=None):
         if backend not in _BACKENDS:
             raise ValueError(f"unknown filter backend {backend!r}")
-        self._predict, self._update_pose, self._update_velocity = \
-            _BACKENDS[backend]
+        self._steps = _BACKENDS[backend]
+        self._graphs: Dict[int, FrameGraph] = {}
         self._device = resolve_device(device)
         strict_fp32()
         self._sensors = dict(sensors)
@@ -108,6 +122,22 @@ class PoseFusionFilter:
         # interleave with another node's, and no lock order can deadlock
         self._mutex = device_lock
         self._reset_after_s = float(reset_after_s)
+        if self._device.type == "cuda":
+            self._capture_steps()
+
+    def _capture_steps(self) -> None:
+        """The graphs of the steps this filter's sensors use (predict, the
+        pose update for an absolute sensor, the velocity update for a
+        differential one) captured on a dummy state (their warm-up's results
+        dropped)."""
+        state = ekf_init(np.zeros(15, np.float32), 1.0, self._device)
+        z, ones = np.zeros(6, np.float32), np.ones(6, np.float32)
+        used = {2 if cfg.differential else 1
+                for cfg in self._sensors.values()}
+        with self._mutex:
+            self._step(0, state, 0.1)
+            for which in sorted(used):
+                self._step(which, state, z, ones, ones, 0.0)
 
     @property
     def initialized(self) -> bool:
@@ -122,6 +152,27 @@ class PoseFusionFilter:
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32),
                                device=self._device)
+
+    def _step(self, which: int, state: EKFState, *args) -> EKFState:
+        """The backend's predict (0), pose update (1) or velocity update
+        (2) of ``state`` with host inputs ``args`` (f32 numpy arrays and
+        numbers; predict's process noise is ours): a plain call on the CPU,
+        a replay of the step's graph on the card."""
+        fn = self._steps[which]
+        if self._device.type != "cuda":
+            if which == 0:
+                return fn(state, args[0], self._q)
+            *arrays, thr = args
+            return fn(state, *(self._t(a) for a in arrays), thr)
+        graph = self._graphs.get(which)
+        if graph is None:
+            graph = self._graphs[which] = FrameGraph(
+                lambda x, p, *a: fn(EKFState(x, p), *a), self._device,
+                sticky=(3,) if which == 0 else ())
+        host = [torch.from_numpy(np.asarray(a, np.float32).copy())
+                for a in args]
+        return graph(state.x, state.p, *host,
+                     *([self._q] if which == 0 else []))
 
     def set_pose(self, stamp_us: int, position, quat_xyzw) -> None:
         """Hard-set the pose (the reference seeds its EKF once through
@@ -148,8 +199,7 @@ class PoseFusionFilter:
     def _predict_to(self, stamp_us: int) -> None:
         dt = (stamp_us - self._stamp_us) / 1e6
         if dt > 0:
-            self._state = self._predict(self._state, float(np.float32(dt)),
-                                        self._q)
+            self._state = self._step(0, self._state, float(np.float32(dt)))
             self._stamp_us = int(stamp_us)
 
     def submit(self, sensor: str, stamp_us: int, position, quat_xyzw,
@@ -204,8 +254,7 @@ class PoseFusionFilter:
         thr = float(np.float32(cfg.rejection_threshold))
         if not cfg.differential:
             z = np.concatenate([position, quat_to_euler(quat_xyzw)])
-            self._state = self._update_pose(
-                self._state, self._t(z), self._t(r_diag), self._t(mask), thr)
+            self._state = self._step(1, self._state, z, r_diag, mask, thr)
             return
         prev = self._prev_pose.get(sensor)
         self._prev_pose[sensor] = (stamp_us, position, quat_xyzw)
@@ -219,9 +268,9 @@ class PoseFusionFilter:
         v_body = quat_to_matrix(q0).T @ (position - p0) / dt
         w_body = np.asarray(quat_to_euler(
             quat_mul(quat_inverse(q0), quat_xyzw))) / dt
-        self._state = self._update_velocity(
-            self._state, self._t(np.concatenate([v_body, w_body])),
-            self._t(r_diag / max(dt, 1e-3)), self._t(mask), thr)
+        self._state = self._step(
+            2, self._state, np.concatenate([v_body, w_body]),
+            r_diag / max(dt, 1e-3), mask, thr)
 
     def state_at(self, stamp_us: int):
         """Predict (without mutating) to a query time and return the
@@ -236,7 +285,7 @@ class PoseFusionFilter:
             # newest measurement must not blow P through f32 range
             dt = min((stamp_us - self._stamp_us) / 1e6, self._reset_after_s)
             if dt > 0:
-                state = self._predict(state, float(np.float32(dt)), self._q)
+                state = self._step(0, state, float(np.float32(dt)))
             x = state.x.cpu().numpy().astype(np.float64)
             p = state.p.cpu().numpy().astype(np.float64)
         return {

@@ -14,6 +14,8 @@ filter's divergence reset re-seeds from the next absolute fix.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -45,7 +47,10 @@ _WC = _WM.copy()
 _WC[0] += 1.0 - _ALPHA ** 2 + _BETA
 
 
+@functools.lru_cache(maxsize=8)
 def _weights(device) -> tuple:
+    """The sigma weights on ``device``, uploaded once (a graphed step reads
+    the cached tensors, which its eager warm-up made)."""
     return (torch.as_tensor(_WM, device=device),
             torch.as_tensor(_WC, device=device))
 
@@ -71,9 +76,9 @@ def _weighted_outer(wc, a, b) -> torch.Tensor:
     return torch.einsum("i,ij,ik->jk", wc, a, b)
 
 
-def ukf_predict(state: EKFState, dt: float, q_diag: torch.Tensor
-                ) -> EKFState:
-    """Unscented predict: the sigma points through the motion model."""
+def ukf_predict(state: EKFState, dt, q_diag: torch.Tensor) -> EKFState:
+    """Unscented predict: the sigma points through the motion model;
+    ``dt`` an f32 value or a () f32 tensor on the state's device."""
     wm, wc = _weights(state.x.device)
     prop = _transition(_sigma_points(state.x, state.p), dt)
     x_new = _centred_mean(prop, wm)
@@ -83,7 +88,7 @@ def ukf_predict(state: EKFState, dt: float, q_diag: torch.Tensor
 
 
 def _ukf_update(state: EKFState, z, r_diag, mask, first: int,
-                rejection_threshold: float) -> EKFState:
+                rejection_threshold) -> EKFState:
     wm, wc = _weights(state.x.device)
     sigmas = _sigma_points(state.x, state.p)
     zs = sigmas[:, first:first + POSE_DIM]  # linear observation
@@ -109,12 +114,12 @@ def _ukf_update(state: EKFState, z, r_diag, mask, first: int,
 
 
 def ukf_update_pose(state: EKFState, z, r_diag, mask,
-                    rejection_threshold: float = 0.0) -> EKFState:
+                    rejection_threshold=0.0) -> EKFState:
     """Unscented update with a 6-DoF pose measurement."""
     return _ukf_update(state, z, r_diag, mask, 0, rejection_threshold)
 
 
 def ukf_update_velocity(state: EKFState, z, r_diag, mask,
-                        rejection_threshold: float = 0.0) -> EKFState:
+                        rejection_threshold=0.0) -> EKFState:
     """Unscented update with a body-frame velocity measurement."""
     return _ukf_update(state, z, r_diag, mask, 6, rejection_threshold)

@@ -33,6 +33,15 @@
 // The source coordinate, its floor and the fraction are evaluated in f32 in
 // the reference's order with explicit round-to-nearest intrinsics: a fused
 // multiply-add would change the last bit of the interpolation weights.
+//
+// The shift is a kernel argument, or, where `shift_ptr` is not null, read
+// from device memory at launch: a captured graph then shears by the shift
+// its replay computed (the 3-shear rotation's residual shears, |a| <=
+// tan 22.5 deg, |b| <= sin 45 deg). Nothing of the launch depends on the
+// shift's value; the first axis stages at most 32 |shift| + 3 extra rows,
+// sized for |shift| < 1. A shift outside (-1, 1), which the host checks
+// when it passes one, makes the whole output NaN instead of a read past
+// the staged rows.
 #include <cuda_runtime.h>
 
 #include "ptx.cuh"
@@ -67,6 +76,16 @@ __device__ __forceinline__ int first_tap(int x0, float lshift) {
   return x0 + (int)floorf(lshift) - 1;
 }
 
+// the launch's shift: `shift_ptr`'s value where given
+__device__ __forceinline__ float shift_of(float shift,
+                                          const float* shift_ptr) {
+  return shift_ptr ? __ldg(shift_ptr) : shift;
+}
+
+__device__ __forceinline__ bool shift_ok(float s) {
+  return s > -1.0f && s < 1.0f;
+}
+
 constexpr int ROWS = 4;       // last axis: rows a block
 constexpr int TW = 1024;      // last axis: output columns a block
 constexpr int SPAN = TW + 8;  // staged columns a row: TW + 3, from a
@@ -74,10 +93,18 @@ constexpr int SPAN = TW + 8;  // staged columns a row: TW + 3, from a
 
 __global__ void __launch_bounds__(THREADS)
 shear_rows(const float* __restrict__ img, float* __restrict__ out, int H,
-           int W, float shift, float center_row) {
+           int W, float shift_arg, const float* __restrict__ shift_ptr,
+           float center_row) {
   __shared__ __align__(16) float src[ROWS][SPAN];
   const int x0 = blockIdx.y * TW;
   const size_t row0 = (size_t)blockIdx.x * ROWS;  // of the (C * H, W) stack
+  const float shift = shift_of(shift_arg, shift_ptr);
+  if (!shift_ok(shift)) {
+    for (int j = 0; j < ROWS; ++j)
+      for (int x = x0 + threadIdx.x; x < x0 + TW && x < W; x += THREADS)
+        out[(row0 + j) * W + x] = __int_as_float(0x7fc00000);
+    return;
+  }
   for (int i = threadIdx.x; i < ROWS * (SPAN / 4); i += THREADS) {
     const int j = i / (SPAN / 4), v = i - j * (SPAN / 4);
     const int r = (int)((row0 + j) % H);
@@ -110,10 +137,18 @@ constexpr int SROWS = STRIP + 36;   // staged rows: STRIP + 32 |shift| + 3
 
 __global__ void __launch_bounds__(THREADS)
 shear_cols(const float* __restrict__ img, float* __restrict__ out, int H,
-           int W, float shift, float center_col) {
+           int W, float shift_arg, const float* __restrict__ shift_ptr,
+           float center_col) {
   __shared__ __align__(16) float src[SROWS][COLS];
   const int x0 = blockIdx.x * COLS, y0 = blockIdx.y * STRIP;
   const size_t plane = (size_t)blockIdx.z * H * W;
+  const float shift = shift_of(shift_arg, shift_ptr);
+  if (!shift_ok(shift)) {
+    for (int y = y0 + threadIdx.x / 32; y < y0 + STRIP; y += THREADS / 32)
+      out[plane + (size_t)y * W + x0 + threadIdx.x % 32] =
+          __int_as_float(0x7fc00000);
+    return;
+  }
   const int fa = first_tap(y0, line_shift(x0, shift, center_col));
   const int fb = first_tap(y0, line_shift(x0 + COLS - 1, shift, center_col));
   const int s0 = fa < fb ? fa : fb;
@@ -140,29 +175,33 @@ shear_cols(const float* __restrict__ img, float* __restrict__ out, int H,
 
 }  // namespace
 
-// img, out (C, H, W) f32, 16-byte aligned; H % 4 == 0, W % 4 == 0
+// img, out (C, H, W) f32, 16-byte aligned; H % 4 == 0, W % 4 == 0; the
+// shift is `shift`, or the f32 at `shift_ptr` (device memory) if not null
 extern "C" int gisnav_shear_last_axis(const float* img, float* out, int C,
                                       int H, int W, float shift,
+                                      const float* shift_ptr,
                                       float center_row, void* stream) {
   if (C < 1 || H < ROWS || H % ROWS || W < 4 || W % 4 ||
       (size_t)C * H / ROWS > 0x7fffffffu)
     return -1;
   dim3 grid((unsigned)((size_t)C * H / ROWS), (W + TW - 1) / TW);
-  shear_rows<<<grid, THREADS, 0, (cudaStream_t)stream>>>(img, out, H, W,
-                                                         shift, center_row);
+  shear_rows<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      img, out, H, W, shift, shift_ptr, center_row);
   return (int)cudaGetLastError();
 }
 
 // img, out (C, H, W) f32, 16-byte aligned; H % 128 == 0, W % 32 == 0,
-// |shift| < 1 (the staged rows' bound)
+// |shift| < 1 (the staged rows' bound); the shift is `shift`, or the f32 at
+// `shift_ptr` (device memory) if not null
 extern "C" int gisnav_shear_first_axis(const float* img, float* out, int C,
                                        int H, int W, float shift,
+                                       const float* shift_ptr,
                                        float center_col, void* stream) {
   if (C < 1 || C > 65535 || H < STRIP || H % STRIP || W < COLS ||
-      W % COLS || !(shift > -1.0f && shift < 1.0f))
+      W % COLS || (!shift_ptr && !(shift > -1.0f && shift < 1.0f)))
     return -1;
   dim3 grid(W / COLS, H / STRIP, C);
-  shear_cols<<<grid, THREADS, 0, (cudaStream_t)stream>>>(img, out, H, W,
-                                                         shift, center_col);
+  shear_cols<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      img, out, H, W, shift, shift_ptr, center_col);
   return (int)cudaGetLastError();
 }

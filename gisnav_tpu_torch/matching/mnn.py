@@ -57,7 +57,7 @@ def mnn_ratio_match(desc0: torch.Tensor, desc1: torch.Tensor,
     sq1 = torch.sum(d1 * d1, dim=1, keepdim=True)
     d2 = sq0 + sq1.T - 2.0 * (d0 @ d1.T)
     d2 = torch.clamp(d2, min=0.0)
-    big = torch.tensor(1e12, dtype=torch.float32, device=dev)
+    big = torch.full((), 1e12, dtype=torch.float32, device=dev)
     d2 = torch.where(mask0[:, None] & mask1[None, :], d2, big)
 
     # two nearest neighbors per query row, the lower index first on ties

@@ -9,9 +9,11 @@ Counterpart of ``gisnav_tpu/pipeline/geopose.py`` (``PipelineConfig``,
 semi-dense: ``init_semidense_params``, ``build_frame_to_geopose_semidense``;
 the random init of training: ``init_pipeline_params``).
 PyTorch runs eagerly, so the builders return plain functions over the
-models (``build_models``) and device tensors. The cached and bucketed
-per-frame programs take every input as a tensor (RANSAC's noise too), so
-``pipeline.graph`` can capture each as one CUDA graph.
+models (``build_models``) and device tensors. Every program can take every
+input as a tensor (an angle or a zoom as a () tensor, RANSAC's noise drawn
+ahead), so ``pipeline.graph`` can capture each as one CUDA graph; the
+3-shear rotation's right-angle steps (``quadrant``) are the one static
+value a rotating program is keyed on.
 """
 from __future__ import annotations
 
@@ -178,7 +180,8 @@ def build_warp_reference_extractor(config: PipelineConfig) -> Callable:
             -> (ref_feats, dem_crop, m_crop)
 
     Rotate + GSD-zoom + crop the ortho/DEM stack, then SuperPoint on the
-    crop."""
+    crop. The angle and zoom are host numbers or () device tensors (the
+    crop matrix is built on the device)."""
     from gisnav_tpu_torch.raster.warp import rotate_and_crop_center
 
     h, w = config.image_shape
@@ -278,12 +281,16 @@ def build_frame_to_geopose(config: PipelineConfig) -> Callable:
     """Exact-warp frame program::
 
         fn(models, query, ortho, dem, rotation_deg, k, crs_affine,
-           sample_idx=None, generator=None, gsd_zoom=None) -> GeoPose
+           sample_idx=None, generator=None, gsd_zoom=None, noise=None,
+           quadrant=None) -> GeoPose
 
     Rotate + centre-crop the ortho/DEM stack to the camera yaw
     (``rotate_and_crop_auto``: the gather warp with ``gsd_zoom``, without it
-    the 3-shear rotation where the stack allows), SuperPoint on the
-    (query, crop) pair, then the shared tail."""
+    the 3-shear rotation where the stack allows, ``quadrant`` its static
+    right-angle steps), SuperPoint on the (query, crop) pair, then the
+    shared tail. ``rotation_deg`` and ``gsd_zoom`` may be () device
+    tensors and ``noise`` RANSAC's noise drawn ahead, as in the bucketed
+    program."""
     from gisnav_tpu_torch.raster import rotate_and_crop_auto
 
     h, w = config.image_shape
@@ -291,10 +298,12 @@ def build_frame_to_geopose(config: PipelineConfig) -> Callable:
     def fn(models, query, ortho, dem, rotation_deg, k, crs_affine,
            sample_idx: Optional[Any] = None,
            generator: Optional[torch.Generator] = None,
-           gsd_zoom: Optional[float] = None) -> GeoPose:
+           gsd_zoom=None, noise: Optional[torch.Tensor] = None,
+           quadrant: Optional[int] = None) -> GeoPose:
         stack = torch.stack([ortho, dem], dim=-1)
         warped, m_crop = rotate_and_crop_auto(stack, rotation_deg, (h, w),
-                                              zoom=gsd_zoom)
+                                              zoom=gsd_zoom,
+                                              quadrant=quadrant)
         feats = models["superpoint"](
             torch.stack([query, warped[:, :, 0]]))
         f_qry, f_ref = (type(feats)(*(a[i] for a in feats)) for i in (0, 1))
@@ -302,7 +311,7 @@ def build_frame_to_geopose(config: PipelineConfig) -> Callable:
             config, models, f_qry.keypoints, f_qry.keypoints, f_qry, (h, w),
             f_ref.keypoints, f_ref.descriptors, f_ref.mask, (h, w),
             warped[:, :, 1].contiguous(), m_crop, k, crs_affine, sample_idx,
-            generator)
+            generator, noise)
 
     return fn
 
@@ -324,7 +333,7 @@ def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
 
         fn(models, query, ref_feats, dem, k, crs_affine, prior_xy=None,
            prior_radius=-1.0, rotation_deg=None, sample_idx=None,
-           generator=None, noise=None) -> GeoPose
+           generator=None, noise=None, quadrant=None) -> GeoPose
 
     ``ref_feats`` are the whole orthoimage's features, ``dem`` the whole DEM;
     the pose is in the full raster frame (``m_crop`` = identity). The query
@@ -333,29 +342,33 @@ def build_frame_to_geopose_cached(config: PipelineConfig) -> Callable:
     ``rotation_deg`` (the map-alignment rotation the warp modes apply to the
     reference) the QUERY is derotated by the inverse: features come from the
     north-up query (``kp_match``) while PnP sees the keypoints mapped back
-    to camera pixels (``kp_pnp``). ``prior_xy`` / ``prior_radius`` (map px;
+    to camera pixels (``kp_pnp``); it may be a () device tensor, and
+    ``quadrant`` is the static right-angle steps of a shear derotation (a
+    square query the shear kernel serves). ``prior_xy`` / ``prior_radius`` (map px;
     radius <= 0 disables; a (2,) and a () tensor on the device, or host
     values) mask reference keypoints outside the predicted neighbourhood.
     ``noise`` is RANSAC's noise drawn ahead, as in the bucketed program."""
     from gisnav_tpu_torch.raster import rotate_and_crop_auto
+    from gisnav_tpu_torch.device import scalar_f32
 
     h, w = config.image_shape
     oh, ow = config.ortho_shape
     ds = config.detector_downsample
 
     def fn(models, query, ref_feats, dem, k, crs_affine, prior_xy=None,
-           prior_radius: float = -1.0, rotation_deg: Optional[float] = None,
+           prior_radius: float = -1.0, rotation_deg=None,
            sample_idx: Optional[Any] = None,
            generator: Optional[torch.Generator] = None,
-           noise: Optional[torch.Tensor] = None) -> GeoPose:
+           noise: Optional[torch.Tensor] = None,
+           quadrant: Optional[int] = None) -> GeoPose:
         hq, wq = query.shape
         src = query
         if ds > 1:
             src = query.reshape(hq // ds, ds, wq // ds, ds).mean(dim=(1, 3))
         if rotation_deg is not None:
             derot, m_q = rotate_and_crop_auto(
-                src[..., None], -float(np.float32(rotation_deg)),
-                tuple(src.shape))
+                src[..., None], -scalar_f32(rotation_deg, query.device),
+                tuple(src.shape), quadrant=quadrant)
             f_qry = models["superpoint"](derot[..., 0].contiguous())
             kp_rot = f_qry.keypoints
             kp_cam = kp_rot @ m_q[:2, :2].T + m_q[:2, 2]
@@ -501,14 +514,16 @@ def build_frame_to_geopose_semidense(config: PipelineConfig) -> Callable:
     def fn(models, query, ortho, dem, rotation_deg, k, crs_affine,
            sample_idx: Optional[Any] = None,
            generator: Optional[torch.Generator] = None,
-           gsd_zoom: Optional[float] = None) -> GeoPose:
+           gsd_zoom=None, noise: Optional[torch.Tensor] = None,
+           quadrant: Optional[int] = None) -> GeoPose:
         stack = torch.stack([ortho, dem], dim=-1)
         warped, m_crop = rotate_and_crop_auto(stack, rotation_deg, (h, w),
-                                              zoom=gsd_zoom)
+                                              zoom=gsd_zoom,
+                                              quadrant=quadrant)
         match = models["loftr"](query, warped[:, :, 0].contiguous())
         return _pose_from_matches(
             config, match.kp0, match.kp1, match.mask,
             warped[:, :, 1].contiguous(), m_crop, k, crs_affine, sample_idx,
-            generator)
+            generator, noise)
 
     return fn

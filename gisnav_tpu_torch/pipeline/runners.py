@@ -28,17 +28,26 @@ The ortho/DEM rasters are uploaded once per map key. RANSAC draws from a
 ``device=None`` -> ``cuda`` and raises without a card unless the caller
 passes ``device="cpu"``.
 
-On the card the cached and the bucketed runners replay their per-frame
-program as one CUDA graph (``pipeline.graph.FrameGraph``, the counterpart
-of the JAX runners' ``jax.jit``): one graph a query signature in the
-bucketed runner, one a ``(map shape, downsample, query signature)`` in the
-cached runner, as its programs are keyed. The query is uploaded as it comes
-(uint8) into the graph's buffer, a bucket's features and crop or the map's
-features and DEM only when they change, and RANSAC's noise is drawn from
-the seeded generator ahead of the replay (``pnp.ransac.draw_noise``), so a
-replayed frame and an eager one with the same seed draw the same samples.
-The bucket refresh, the exact-warp, derotating, semi-dense and classical
-programs stay eager. ``runner.graphs`` holds the captured programs.
+On the card every device program of a runner is one CUDA graph replay
+(``pipeline.graph.FrameGraph``, the counterpart of the JAX runners'
+``jax.jit``), keyed as the JAX programs are compiled:
+
+- the bucketed frame a query signature, the bucket refresh a map shape
+  (the angle and zoom as () inputs, the ortho/DEM stack sticky);
+- the cached frame a ``(map shape, downsample, query signature)``, with
+  derotation a program of its own (the angle a () input), and the map
+  extraction a map signature;
+- the exact-warp and semi-dense frames a ``(map shape, query signature,
+  zoom or not)``, the zoom-less 3-shear route also its quadrant.
+
+The query and map are uploaded as they come (uint8) into the graph's
+buffers, a bucket's features and crop, the map's features and DEM or the
+exact warp's ortho/DEM stack only when they change, and RANSAC's noise is
+drawn from the seeded generator ahead of the replay
+(``pnp.ransac.draw_noise``), so a replayed frame and an eager one with the
+same seed draw the same samples. ``runner.graphs`` holds the captured
+programs, keyed by the program's name first (``"frame"``, ``"refresh"``,
+``"extract"``).
 """
 from __future__ import annotations
 
@@ -64,6 +73,7 @@ from gisnav_tpu_torch.pipeline.geopose import (
     build_warp_reference_extractor,
     init_semidense_params,
 )
+from gisnav_tpu_torch.raster import rotation_quadrant, takes_shear
 
 __all__ = ["make_deep_runner", "make_bucketed_warp_runner",
            "make_cached_deep_runner", "make_semidense_runner",
@@ -146,30 +156,59 @@ def _gsd_zoom(k, crs_affine, altitude_agl) -> float:
     return 1.0
 
 
-def _warp_runner(fn, models, dev):
+def _scalar(v) -> torch.Tensor:
+    """A () f32 host tensor for a graph's input buffer."""
+    return torch.tensor(np.float32(v))
+
+
+def _warp_runner(fn, models, dev, config, zoom: bool = True):
     """The runner around an exact-warp frame program ``fn`` (the signature
     of ``build_frame_to_geopose``): the ortho/DEM stack is uploaded once per
-    map key, the zoom comes from the altitude, RANSAC is seeded with the
-    frame counter."""
+    map key, the zoom comes from the altitude (``zoom=False``: none, the
+    3-shear route on a square map), RANSAC is seeded with the frame
+    counter. On the card each frame replays the program's graph."""
     generator = torch.Generator(device=dev)
+    graphs: Dict[tuple, FrameGraph] = {}
     state = {"map_key": None, "ortho": None, "dem": None, "n": 0}
 
     def runner(query: np.ndarray, ortho: np.ndarray, dem: np.ndarray,
                rotation_deg: float, k: np.ndarray, crs_affine: np.ndarray,
                map_stamp=None, altitude_agl=None) -> GeoPose:
-        map_key = (ortho.shape[:2], _map_identity(ortho, map_stamp))
+        shape = tuple(ortho.shape[:2])
+        map_key = (shape, _map_identity(ortho, map_stamp))
         if state["map_key"] != map_key:
             state["ortho"] = _f32(ortho, dev) / 255.0
             state["dem"] = _f32(dem, dev)
             state["map_key"] = map_key
         state["n"] += 1
         generator.manual_seed(state["n"])
-        return fn(models, _f32(query, dev) / 255.0, state["ortho"],
-                  state["dem"], float(np.float32(rotation_deg)),
-                  _f32(k, dev), _f32(crs_affine, dev), generator=generator,
-                  gsd_zoom=float(np.float32(
-                      _gsd_zoom(k, crs_affine, altitude_agl))))
+        angle = np.float32(rotation_deg)
+        gsd = (np.float32(_gsd_zoom(k, crs_affine, altitude_agl)) if zoom
+               else None)
+        quadrant = (rotation_quadrant(angle)
+                    if takes_shear(shape, dev, gsd) else None)
+        if dev.type != "cuda":
+            return fn(models, _f32(query, dev) / 255.0, state["ortho"],
+                      state["dem"], float(angle), _f32(k, dev),
+                      _f32(crs_affine, dev), generator=generator,
+                      gsd_zoom=None if gsd is None else float(gsd),
+                      quadrant=quadrant)
+        q = _host(query)
+        key = ("frame", shape, tuple(q.shape), q.dtype, zoom, quadrant)
+        if key not in graphs:
+            graphs[key] = FrameGraph(
+                lambda q, ortho, dem, angle, k, aff, noise, *z: fn(
+                    models, q.float() / 255.0, ortho, dem, angle, k, aff,
+                    gsd_zoom=z[0] if z else None, noise=noise,
+                    quadrant=quadrant),
+                dev, sticky=(1, 2))
+        return graphs[key](
+            q, state["ortho"], state["dem"], _scalar(angle), _host(k),
+            _host(crs_affine), _noise(generator, config),
+            *([] if gsd is None else [_scalar(gsd)]))
 
+    runner.graphs = graphs
+    runner.models = models
     return runner
 
 
@@ -185,7 +224,7 @@ def make_deep_runner(params=None, config: Optional[PipelineConfig] = None, *,
     than the cached and bucketed modes, exact in rotation.
     """
     dev, config, models = _setup(params, config, device)
-    return _warp_runner(build_frame_to_geopose(config), models, dev)
+    return _warp_runner(build_frame_to_geopose(config), models, dev, config)
 
 
 def make_semidense_runner(params=None,
@@ -214,7 +253,7 @@ def make_semidense_runner(params=None,
                 torch.Generator().manual_seed(seed), config)
     models = build_models(params_from_jax(params, dev), config)
     return _warp_runner(build_frame_to_geopose_semidense(config), models,
-                        dev)
+                        dev, config)
 
 
 def make_cached_deep_runner(params=None,
@@ -233,7 +272,7 @@ def make_cached_deep_runner(params=None,
     into query-side derotation. ``prior_lonlat`` with an altitude masks map
     keypoints farther than 1.5 x 0.75 FOV diagonals from it.
     ``runner.stats`` counts frames and map extractions. On the card each
-    frame without ``derotate`` replays its program's CUDA graph.
+    frame and each map extraction replays its program's CUDA graph.
     """
     dev, config, models = _setup(params, config, device)
     generator = torch.Generator(device=dev)
@@ -250,7 +289,16 @@ def make_cached_deep_runner(params=None,
         shape = tuple(ortho.shape[:2])
         map_key = (shape, _map_identity(ortho, map_stamp))
         if state["map_key"] != map_key:
-            state["ref_feats"] = extract(models, _f32(ortho, dev) / 255.0)
+            if dev.type != "cuda":
+                state["ref_feats"] = extract(models,
+                                             _f32(ortho, dev) / 255.0)
+            else:
+                o = _host(ortho)
+                key = ("extract", tuple(o.shape), o.dtype)
+                if key not in graphs:
+                    graphs[key] = FrameGraph(
+                        lambda o: extract(models, o.float() / 255.0), dev)
+                state["ref_feats"] = graphs[key](o)
             state["dem"] = _f32(dem, dev)
             state["map_key"] = map_key
             stats["map_extractions"] += 1
@@ -289,28 +337,39 @@ def make_cached_deep_runner(params=None,
                 pass
         generator.manual_seed(state["n"])
         fn = frame_fns[(shape, ds)]
-        if dev.type != "cuda" or derotate:
+        rot = np.float32(rotation_deg) if derotate else None
+        # the derotation's route: the 3-shear on a square pooled query the
+        # shear kernel serves, keyed on its right-angle steps
+        quadrant = (rotation_quadrant(-rot) if derotate and takes_shear(
+            (hq // ds, wq // ds), dev) else None)
+        if dev.type != "cuda":
             return fn(models, _f32(query, dev) / 255.0, state["ref_feats"],
                       state["dem"], _f32(k, dev), _f32(crs_affine, dev),
                       prior_xy=prior_xy, prior_radius=prior_radius,
-                      rotation_deg=rotation_deg if derotate else None,
-                      generator=generator)
+                      rotation_deg=None if rot is None else float(rot),
+                      generator=generator, quadrant=quadrant)
         q = _host(query)
-        key = (shape, ds, tuple(q.shape), q.dtype)
+        key = ("frame", shape, ds, tuple(q.shape), q.dtype, derotate,
+               quadrant)
         if key not in graphs:
             graphs[key] = FrameGraph(
-                lambda q, feats, dem, k, aff, pxy, pr, noise, fn=fn: fn(
+                lambda q, feats, dem, k, aff, pxy, pr, noise, *rot, fn=fn,
+                quadrant=quadrant: fn(
                     models, q.float() / 255.0, feats, dem, k, aff,
-                    prior_xy=pxy, prior_radius=pr, noise=noise),
+                    prior_xy=pxy, prior_radius=pr, noise=noise,
+                    rotation_deg=rot[0] if rot else None,
+                    quadrant=quadrant),
                 dev, sticky=(1, 2))
         return graphs[key](
             q, state["ref_feats"], state["dem"], _host(k),
             _host(crs_affine), torch.from_numpy(prior_xy),
             torch.tensor(prior_radius, dtype=torch.float32),
-            _noise(generator, config))
+            _noise(generator, config),
+            *([] if rot is None else [_scalar(rot)]))
 
     runner.stats = stats
     runner.graphs = graphs
+    runner.models = models
     return runner
 
 
@@ -329,7 +388,8 @@ def make_bucketed_warp_runner(params=None,
 
     RANSAC draws from a ``torch.Generator`` seeded with the frame index. On
     the card each frame replays the per-frame program's CUDA graph (one a
-    query signature); a bucket refresh runs eagerly. ``runner.buckets`` is
+    query signature) and each bucket refresh the refresh program's (one a
+    map shape, the bucket's angle and zoom its () inputs). ``runner.buckets`` is
     the LRU of bucket features, ``runner.models`` the models and
     ``runner.stats["frames"]`` the frames so far (the last frame's seed).
     """
@@ -361,10 +421,20 @@ def make_bucketed_warp_runner(params=None,
         if ref_key in buckets:
             buckets.move_to_end(ref_key)
         else:
-            buckets[ref_key] = extract(
-                models, state["ortho"], state["dem"],
-                float(np.float32(bucket * bucket_deg)),
-                float(np.float32(np.exp(zband * zstep))))
+            angle = np.float32(bucket * bucket_deg)
+            bzoom = np.float32(np.exp(zband * zstep))
+            if dev.type != "cuda":
+                buckets[ref_key] = extract(models, state["ortho"],
+                                           state["dem"], float(angle),
+                                           float(bzoom))
+            else:
+                key = ("refresh", tuple(shape))
+                if key not in graphs:
+                    graphs[key] = FrameGraph(
+                        lambda o, d, a, z: extract(models, o, d, a, z), dev,
+                        sticky=(0, 1))
+                buckets[ref_key] = graphs[key](state["ortho"], state["dem"],
+                                               _scalar(angle), _scalar(bzoom))
             while len(buckets) > max_buckets:
                 buckets.popitem(last=False)
         feats, dem_crop, m_crop = buckets[ref_key]
@@ -375,7 +445,7 @@ def make_bucketed_warp_runner(params=None,
                        m_crop, _f32(k, dev), _f32(crs_affine, dev),
                        generator=generator)
         q = _host(query)
-        key = (tuple(q.shape), q.dtype)
+        key = ("frame", tuple(q.shape), q.dtype)
         if key not in graphs:
             graphs[key] = FrameGraph(
                 lambda q, feats, dem, m, k, aff, noise: hot(

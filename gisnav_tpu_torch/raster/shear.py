@@ -18,11 +18,12 @@ output geometry and the crop -> original matrix are those of
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from gisnav_tpu_torch.device import scalar_f32
 from gisnav_tpu_torch.raster.shear_kernel import (
     shear_first_axis,
     shear_first_axis_plain,
@@ -31,7 +32,7 @@ from gisnav_tpu_torch.raster.shear_kernel import (
 )
 from gisnav_tpu_torch.raster.warp import crop_to_original
 
-__all__ = ["rotate_and_crop_center_shear"]
+__all__ = ["rotate_and_crop_center_shear", "rotation_quadrant"]
 
 
 def _rot90_exact(img: torch.Tensor, k4: int) -> torch.Tensor:
@@ -43,25 +44,40 @@ def _rot90_exact(img: torch.Tensor, k4: int) -> torch.Tensor:
         return img
     if k4 == 1:  # out[y, x] = src[x, n - y]
         t = torch.roll(torch.flip(img.transpose(-1, -2), dims=(-2,)), 1, -2)
-        t[:, 0, :] = 0.0
+        t[:, 0, :].zero_()
         return t
     if k4 == 2:  # out[y, x] = src[n - y, n - x]
         t = torch.roll(torch.flip(img, dims=(-1, -2)), (1, 1), (-2, -1))
-        t[:, 0, :] = 0.0
-        t[:, :, 0] = 0.0
+        t[:, 0, :].zero_()
+        t[:, :, 0].zero_()
         return t
     t = torch.roll(torch.flip(img.transpose(-1, -2), dims=(-1,)), 1, -1)
-    t[:, :, 0] = 0.0  # out[y, x] = src[n - x, y]
+    t[:, :, 0].zero_()  # out[y, x] = src[n - x, y]
     return t
 
 
-def rotate_and_crop_center_shear(stack: torch.Tensor, angle_deg: float,
-                                 crop_shape: Tuple[int, int]
+def rotation_quadrant(angle_deg: float) -> int:
+    """The right-angle steps ``k`` of the decomposition: the residual
+    ``angle - 90 k`` lies in [-45, 45] degrees. f32, as the JAX program
+    computes it; a graphed program is keyed on it."""
+    return int(np.round(np.float32(angle_deg) / np.float32(90.0)))
+
+
+def rotate_and_crop_center_shear(stack: torch.Tensor, angle_deg,
+                                 crop_shape: Tuple[int, int],
+                                 quadrant: Optional[int] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotate a SQUARE (N, N, C) stack about its centre (CCW, cv2
     convention) and centre-crop. A stack on the card goes through the CUDA
     shear kernels, which raise unless N % 128 == 0 and N >= 384; a CPU stack
     of any side runs the plain shears.
+
+    ``angle_deg`` is a host number or a () tensor on the stack's device (a
+    graphed program's input). The residual's shears ``a`` and ``b`` are
+    computed there in f32 and the kernels read them from device memory, so
+    a replay rotates by its own angle. ``quadrant`` (:func:`rotation_quadrant`
+    of the angle, a static part of a graphed program) is read from the
+    angle on the host when not given.
 
     :return: (crop (h, w, C) f32, 3x3 f32 cropped -> original pixel affine)
     """
@@ -74,14 +90,14 @@ def rotate_and_crop_center_shear(stack: torch.Tensor, angle_deg: float,
     cx, cy = ww // 2, hh // 2
     img = stack.float().permute(2, 0, 1)  # (C, H, W)
 
-    # f32 scalars, as the JAX program computes them
-    angle = np.float32(angle_deg)
-    k = int(np.round(angle / np.float32(90.0)))
-    residual = np.radians(angle - np.float32(90.0) * np.float32(k),
-                          dtype=np.float32)
-    img = _rot90_exact(img, k % 4)
-    a = float(-np.tan(residual / np.float32(2.0), dtype=np.float32))
-    b = float(np.sin(residual, dtype=np.float32))
+    # f32 on the device, as the JAX program computes it
+    if quadrant is None:
+        quadrant = rotation_quadrant(float(angle_deg))
+    angle = scalar_f32(angle_deg, stack.device)
+    residual = torch.deg2rad(angle - float(np.float32(90.0 * quadrant)))
+    img = _rot90_exact(img, quadrant % 4)
+    a = -torch.tan(residual / 2.0)
+    b = torch.sin(residual)
 
     img = shear_x(img, a, float(cy))
     img = shear_y(img, b, float(cx))
@@ -89,5 +105,4 @@ def rotate_and_crop_center_shear(stack: torch.Tensor, angle_deg: float,
 
     dx, dy = cx - cw // 2, cy - ch // 2
     crop = img[:, dy:dy + ch, dx:dx + cw].permute(1, 2, 0).contiguous()
-    return crop, crop_to_original(angle_deg, cx, cy, float(dx),
-                                  float(dy)).to(stack.device)
+    return crop, crop_to_original(angle, cx, cy, float(dx), float(dy))

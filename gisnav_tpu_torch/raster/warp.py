@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gisnav_tpu_torch.device import scalar_f32
+
 __all__ = ["warp_affine", "rotate_and_crop_center", "bilinear_gather",
            "crop_to_original", "compose_crs_after_warp"]
 
@@ -58,17 +60,22 @@ def warp_affine(src: torch.Tensor, dst_to_src: torch.Tensor,
     return bilinear_gather(src.float(), sx, sy)
 
 
-def crop_to_original(angle_deg: float, cx: int, cy: int, tx, ty,
-                     scale=1.0) -> torch.Tensor:
+def crop_to_original(angle_deg, cx: int, cy: int, tx, ty, scale=1.0,
+                     device=None) -> torch.Tensor:
     """3x3 f32 matrix ``inv_rot @ [[scale, 0, tx], [0, scale, ty], [0, 0,
     1]]``: crop pixel -> original raster pixel for a rotation by
-    ``angle_deg`` (CCW, cv2 convention) about ``(cx, cy)``. f32 scalars on
-    the host, as the JAX program computes them."""
-    a = torch.deg2rad(torch.tensor(angle_deg, dtype=torch.float32))
+    ``angle_deg`` (CCW, cv2 convention) about ``(cx, cy)``. Built on
+    ``device`` (default: the angle's, else the host) in f32 from the ()
+    angle, scale and shift (tensors there or host numbers), in the order
+    the JAX program computes it."""
+    if device is None:
+        device = (angle_deg.device if isinstance(angle_deg, torch.Tensor)
+                  else torch.device("cpu"))
+    a = torch.deg2rad(scalar_f32(angle_deg, device))
     c, s = torch.cos(a), torch.sin(a)
-    z, tx, ty = (torch.as_tensor(v, dtype=torch.float32)
-                 for v in (scale, tx, ty))
-    one, zero = torch.ones(()), torch.zeros(())
+    z, tx, ty = (scalar_f32(v, device) for v in (scale, tx, ty))
+    one = torch.ones((), device=device)
+    zero = torch.zeros((), device=device)
     shift_scale = torch.stack([
         torch.stack([z, zero, tx]),
         torch.stack([zero, z, ty]),
@@ -80,28 +87,29 @@ def crop_to_original(angle_deg: float, cx: int, cy: int, tx, ty,
     return inv_rot @ shift_scale
 
 
-def rotate_and_crop_center(stack: torch.Tensor, angle_deg: float,
+def rotate_and_crop_center(stack: torch.Tensor, angle_deg,
                            crop_shape: Tuple[int, int],
-                           zoom: Optional[float] = None
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+                           zoom=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotate an (H, W, C) stack about its centre (CCW, cv2 convention) and
     centre-crop, in one gather. With ``zoom`` (query GSD / map GSD) the
     (h, w) crop samples an (h * zoom, w * zoom) window instead, so the map
-    is resampled to the query's ground sample distance.
+    is resampled to the query's ground sample distance. ``angle_deg`` and
+    ``zoom`` are host numbers or () tensors on the stack's device (a
+    graphed program's inputs); the matrix is built there.
 
     :return: (crop (h, w, C) f32, 3x3 f32 cropped -> original pixel affine)
     """
     h, w = int(stack.shape[0]), int(stack.shape[1])
     ch, cw = crop_shape
     cx, cy = w // 2, h // 2
+    dev = stack.device
     if zoom is not None:
-        z = torch.tensor(zoom, dtype=torch.float32)
+        z = scalar_f32(zoom, dev)
         m = crop_to_original(angle_deg, cx, cy, cx - z * (cw / 2.0),
-                             cy - z * (ch / 2.0), z)
+                             cy - z * (ch / 2.0), z, device=dev)
     else:
         m = crop_to_original(angle_deg, cx, cy, float(cx - cw // 2),
-                             float(cy - ch // 2))
-    m = m.to(stack.device)
+                             float(cy - ch // 2), device=dev)
     return warp_affine(stack, m, (ch, cw)), m
 
 

@@ -17,6 +17,11 @@ The octaves are resized with ``jax.image.resize``'s cubic weights (Keys'
 cubic with a = -0.5; taps outside the image are dropped and the rest
 renormalised), as one weight matrix an axis; ``F.interpolate``'s bicubic
 (a = -0.75, clamped edges) is another function.
+
+A batch reads nothing back to the host and copies nothing from it, so a
+graphed train chunk generates its pairs in the graph: the weight matrices
+are uploaded once a device (the eager warm-up uploads them) and the
+ranges' host numbers are filled on the device.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gisnav_tpu_torch.device import scalar_f32
 from gisnav_tpu_torch.raster.warp import warp_affine
 
 __all__ = ["device_batch", "device_batch_asymmetric", "draw_pairs",
@@ -58,10 +64,15 @@ def _cubic_weights_np(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
 
 
+@functools.lru_cache(maxsize=64)
+def _cubic_weights_on(n_in: int, n_out: int, device) -> torch.Tensor:
+    return torch.as_tensor(_cubic_weights_np(n_in, n_out), device=device)
+
+
 def jax_cubic_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
     """``jax.image.resize(..., "cubic")`` along one axis as an (n_out, n_in)
-    matrix."""
-    return torch.as_tensor(_cubic_weights_np(n_in, n_out), device=device)
+    matrix, uploaded once a device."""
+    return _cubic_weights_on(n_in, n_out, torch.device(device or "cpu"))
 
 
 def _resize(grid: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
@@ -72,13 +83,9 @@ def _resize(grid: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     return wy @ grid @ wx.T
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-
 def _uniform(u: torch.Tensor, lo, hi) -> torch.Tensor:
     """``jax.random.uniform(minval=lo, maxval=hi)`` from its unit draw."""
-    lo, hi = _f32(lo, u.device), _f32(hi, u.device)
+    lo, hi = scalar_f32(lo, u.device), scalar_f32(hi, u.device)
     return torch.maximum(lo, u * (hi - lo) + lo)
 
 
@@ -109,8 +116,9 @@ def _random_affine(u: torch.Tensor, shape, max_angle_deg, max_scale,
     log-uniform scale in [1/(1+max_scale), 1+max_scale], shift."""
     h, w = shape
     dev = u.device
-    m_ang, m_shift = _f32(max_angle_deg, dev), _f32(max_shift, dev)
-    ls = torch.log(1.0 + _f32(max_scale, dev))
+    m_ang = scalar_f32(max_angle_deg, dev)
+    m_shift = scalar_f32(max_shift, dev)
+    ls = torch.log(1.0 + scalar_f32(max_scale, dev))
     ang = torch.deg2rad(_uniform(u[:, 0], -m_ang, m_ang))
     s = torch.exp(_uniform(u[:, 1], -ls, ls))
     tx = _uniform(u[:, 2], -m_shift, m_shift) * w
@@ -224,7 +232,7 @@ def compose_asymmetric(draws, q_shape: Tuple[int, int],
     dev = draws["affine"].device
     ref = _texture(draws["octaves"], draws["blob"], draws["level"], r_shape)
     u = draws["affine"]
-    m_ang = _f32(max_angle_deg, dev)
+    m_ang = scalar_f32(max_angle_deg, dev)
     ang = torch.deg2rad(_uniform(u[:, 0], -m_ang, m_ang))
     s = torch.exp(_uniform(u[:, 1], np.log(np.float32(scale_lo)),
                            np.log(np.float32(scale_hi))))

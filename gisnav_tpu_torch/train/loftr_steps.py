@@ -6,6 +6,7 @@ from the known 3x3 transform, plus a clamped L2 term on the fine-refined
 keypoints of the selected matches. The JAX package runs LoFTR in XLA with
 no Pallas kernel, so this is plain PyTorch: no kernel of the port launches
 on this path. The pairs are a Python loop (LoFTR runs one pair a call).
+On the card a chunk is one CUDA graph replay, as in ``train.steps``.
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ import torch
 from gisnav_tpu_torch.train.steps import (
     AdamW,
     TrainState,
+    _optimizer_step,
     _run_chunk,
     curriculum,
+    graphed,
     master_params,
 )
 
@@ -56,11 +59,12 @@ def init_loftr_train_state(generator: torch.Generator,
 
     tree = {"loftr": {"params": _flax_init(param_shapes(depth=config.depth),
                                            generator)}}
-    params = master_params(tree, resolve_device(device))
+    dev = resolve_device(device)
+    params = master_params(tree, dev)
     tx = AdamW(config.learning_rate, weight_decay=config.weight_decay)
     return TrainState(params=params, opt_state=tx.init(params),
                       step=torch.zeros((), dtype=torch.int64,
-                                       device=device)), tx
+                                       device=dev)), tx
 
 
 def _coarse_gt(homography, h: int, w: int, stride: int = 8):
@@ -108,18 +112,17 @@ def make_loftr_train_step(config: LoFTRTrainConfig, tx: AdamW) -> Callable:
         acc = hit.sum() / torch.clamp(pos.sum().float(), min=1.0)
         return coarse + config.fine_loss_weight * fine, acc
 
-    def train_step(state: TrainState, image0, image1, homography):
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        model = _model(config, state.params)
+    def loss_fn(params, image0, image1, homography):
+        model = _model(config, params)
         losses, accs = zip(*(per_pair(model, *pair) for pair in
                              zip(image0, image1, homography)))
-        loss = torch.stack(losses).mean()
-        loss.backward()
-        opt.step()
-        return TrainState(state.params, opt, state.step + 1), {
-            "loss": loss.detach(), "coarse_acc": torch.stack(accs).mean()}
+        return torch.stack(losses).mean(), torch.stack(accs).mean()
 
+    def train_step(state: TrainState, image0, image1, homography):
+        return _optimizer_step(state, loss_fn, image0, image1, homography,
+                               metric="coarse_acc")
+
+    train_step.loss_fn = loss_fn
     return train_step
 
 
@@ -127,7 +130,8 @@ def make_loftr_device_train_chunk(config: LoFTRTrainConfig, tx: AdamW,
                                   batch_size: int, chunk: int = 10
                                   ) -> Callable:
     """``chunk`` steps on pairs generated on the device (see
-    ``train.steps.make_device_train_chunk``)."""
+    ``train.steps.make_device_train_chunk``); one graph replay on the
+    card."""
     from gisnav_tpu_torch.train.device_data import device_batch
 
     step_fn = make_loftr_train_step(config, tx)
@@ -142,4 +146,4 @@ def make_loftr_device_train_chunk(config: LoFTRTrainConfig, tx: AdamW,
 
         return _run_chunk(state, step_fn, batch, chunk)
 
-    return chunk_fn
+    return graphed(chunk_fn)

@@ -11,14 +11,23 @@ NLL against the known transform and, in ``learned`` mode, the Harris
 distillation loss of the detector head. Gradients reach the detector head
 through the keypoints' soft-argmax offsets, as in the JAX package.
 
-PyTorch runs eagerly and updates in place: ``TrainState.params`` is the
-port's tree of f32 ``nn.Parameter`` masters, ``TrainState.opt_state`` a
-``torch.optim.AdamW`` over its leaves (the update of ``optax.adamw``: betas
-0.9 / 0.999, eps 1e-8 outside the square root, decay on the old parameter),
-and a step returns the same state with its device step counter advanced.
-A chunk runs ``chunk`` steps on pairs generated on the device under the
-curriculum and keeps its metrics on the device, averaged, so the host reads
-them once a chunk as it reads a ``lax.scan``'s.
+PyTorch updates in place: ``TrainState.params`` is the port's tree of f32
+``nn.Parameter`` masters, ``TrainState.opt_state`` a ``torch.optim.AdamW``
+over its leaves (the update of ``optax.adamw``: betas 0.9 / 0.999, eps 1e-8
+outside the square root, decay on the old parameter; ``capturable`` on the
+card), and a step returns the same state with its device step counter
+advanced in place. A chunk runs ``chunk`` steps on pairs generated on the
+device under the curriculum and keeps its metrics on the device, averaged,
+so the host reads them once a chunk as it reads a ``lax.scan``'s.
+
+On the card a chunk is one CUDA graph replay (``pipeline.graph.FrameGraph``
+with autograd on: forward, backward and AdamW of every step, the pair
+draws from the caller's generator registered with the graph), the
+counterpart of the JAX loop's jitted chunk; so is the host-data step, one
+graph an input signature. A graph is captured per state (its optimizer)
+and generator and holds them; the first call returns the side-stream
+warm-up's result, a real chunk or step. ``fn.eager`` runs the same chunk
+or step op by op. On the CPU both are the eager calls.
 """
 from __future__ import annotations
 
@@ -32,12 +41,13 @@ from gisnav_tpu_torch.features.harris import harris_response
 from gisnav_tpu_torch.features.nms import simple_nms
 from gisnav_tpu_torch.features.superpoint import superpoint_batched
 from gisnav_tpu_torch.matching.lightglue import lightglue_forward
+from gisnav_tpu_torch.pipeline.graph import FrameGraph
 
 __all__ = ["TrainConfig", "TrainState", "AdamW", "tree_leaves",
            "master_params", "init_train_state", "matcher_loss",
            "detector_distill_loss", "make_train_step", "CachedRegimeConfig",
            "make_cached_regime_train_step", "make_cached_regime_chunk",
-           "make_device_train_chunk", "curriculum"]
+           "make_device_train_chunk", "curriculum", "graphed"]
 
 
 class TrainState(NamedTuple):
@@ -86,15 +96,20 @@ def master_params(jax_tree, device) -> Dict[str, Any]:
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """``optax.adamw(learning_rate, weight_decay)``: ``init`` binds a
-    ``torch.optim.AdamW`` with the same update to a tree's leaves."""
+    ``torch.optim.AdamW`` with the same update to a tree's leaves, built
+    ``capturable`` (its step count and bias corrections on the device, in
+    f32 as optax computes them) where the leaves lie on the card, so a
+    graphed step can replay it."""
 
     learning_rate: float
     weight_decay: float = 1e-4
 
     def init(self, params) -> torch.optim.AdamW:
-        return torch.optim.AdamW(tree_leaves(params), lr=self.learning_rate,
+        leaves = tree_leaves(params)
+        return torch.optim.AdamW(leaves, lr=self.learning_rate,
                                  betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=self.weight_decay)
+                                 weight_decay=self.weight_decay,
+                                 capturable=leaves[0].is_cuda)
 
 
 def init_train_state(generator: torch.Generator, config: TrainConfig,
@@ -112,12 +127,12 @@ def init_train_state(generator: torch.Generator, config: TrainConfig,
                           max_keypoints=config.max_keypoints,
                           lightglue_depth=config.lightglue_depth,
                           detector_mode=config.detector_mode)
-    params = master_params(init_pipeline_params(generator, pcfg),
-                           resolve_device(device))
+    dev = resolve_device(device)
+    params = master_params(init_pipeline_params(generator, pcfg), dev)
     tx = AdamW(config.learning_rate, weight_decay=config.weight_decay)
     return TrainState(params=params, opt_state=tx.init(params),
                       step=torch.zeros((), dtype=torch.int64,
-                                       device=device)), tx
+                                       device=dev)), tx
 
 
 @torch.no_grad()
@@ -189,21 +204,65 @@ def _match_loss(lg_params, depth, f0, size0, f1, size1, homography, radius):
     return loss, recall.float().mean()
 
 
-def _optimizer_step(state: TrainState, loss_fn, *batch):
+def _optimizer_step(state: TrainState, loss_fn, *batch,
+                    metric: str = "gt_recall"):
+    """One step in place: the gradients zeroed where they are (a graphed
+    step keeps its buffers), forward and backward, AdamW, the step counter
+    advanced on the device."""
     opt = state.opt_state
-    opt.zero_grad(set_to_none=True)
-    loss, recall = loss_fn(state.params, *batch)
+    opt.zero_grad(set_to_none=False)
+    loss, aux = loss_fn(state.params, *batch)
     loss.backward()
     opt.step()
-    return (TrainState(state.params, opt, state.step + 1),
-            {"loss": loss.detach(), "gt_recall": recall.detach()})
+    state.step.add_(1)
+    return state, {"loss": loss.detach(), metric: aux.detach()}
 
 
-def make_train_step(config: TrainConfig, tx: AdamW) -> Callable:
-    """(state, image0, image1, homography) -> (state, metrics) over (B, H,
-    W) image pairs and (B, 3, 3) transforms; ``tx`` is the state's
-    optimizer's transformation (kept for the JAX signature)."""
-    del tx
+def graphed(fn) -> Callable:
+    """``fn(state, *args) -> (state, metrics)``, a step or a chunk, replayed
+    on the card as one graph a (state, generators, input signature): the
+    tensor arguments (a batch) are the graph's inputs, the generator
+    arguments (a chunk's pair draws, given first) are registered with it.
+    A state is its step counter, its optimizer and its parameter tensors,
+    each by identity: a state rebuilt around any other tensor (another
+    step, as ``state._replace(step=...)`` makes) is captured anew. A graph
+    lives as long as the returned function (``.graphs.clear()`` frees
+    them) and holds its state and the gradient buffers the step writes and
+    AdamW reads (a caller that sets them to None later, as
+    ``zero_grad(set_to_none=True)`` does, must not free the graph's
+    memory). On the CPU, and as ``.eager``, ``fn`` itself."""
+    graphs: Dict[tuple, FrameGraph] = {}
+
+    def call(state: TrainState, *args):
+        if not state.step.is_cuda:
+            return fn(state, *args)
+        gens = tuple(a for a in args if isinstance(a, torch.Generator))
+        batch = args[len(gens):]
+        key = (id(state.step), id(state.opt_state),
+               *map(id, tree_leaves(state.params)), *map(id, gens),
+               *((tuple(b.shape), b.dtype) for b in batch))
+        graph = graphs.get(key)
+        if graph is not None:
+            return state, graph(*batch)
+        graph = graphs[key] = FrameGraph(
+            lambda *b: fn(state, *gens, *b)[1], state.step.device,
+            grad=True, generators=gens)
+        try:
+            metrics = graph(*batch)
+        except BaseException:
+            del graphs[key]
+            raise
+        graph.held = (state, gens,
+                      [p.grad for p in tree_leaves(state.params)])
+        return state, metrics
+
+    call.eager = fn
+    call.graphs = graphs
+    return call
+
+
+def _train_step_fn(config: TrainConfig) -> Callable:
+    """The eager step of :func:`make_train_step`."""
     h, w = config.image_shape
 
     def loss_fn(params, image0, image1, homography):
@@ -229,6 +288,18 @@ def make_train_step(config: TrainConfig, tx: AdamW) -> Callable:
 
     train_step.loss_fn = loss_fn  # (params, *batch) -> (loss, gt_recall)
     return train_step
+
+
+def make_train_step(config: TrainConfig, tx: AdamW) -> Callable:
+    """(state, image0, image1, homography) -> (state, metrics) over (B, H,
+    W) image pairs and (B, 3, 3) transforms; ``tx`` is the state's
+    optimizer's transformation (kept for the JAX signature). On the card
+    one graph replay a step (:func:`graphed`)."""
+    del tx
+    eager = _train_step_fn(config)
+    step = graphed(eager)
+    step.loss_fn = eager.loss_fn  # (params, *batch) -> (loss, gt_recall)
+    return step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,7 +365,7 @@ def _run_chunk(state, step_fn, batch_fn, chunk):
 def make_cached_regime_chunk(config: CachedRegimeConfig, tx: AdamW,
                              batch_size: int, chunk: int = 10) -> Callable:
     """(state, generator) -> (state, metrics): ``chunk`` asymmetric steps
-    on pairs generated on the device."""
+    on pairs generated on the device; one graph replay on the card."""
     from gisnav_tpu_torch.train.device_data import device_batch_asymmetric
 
     step_fn = make_cached_regime_train_step(config, tx)
@@ -309,17 +380,19 @@ def make_cached_regime_chunk(config: CachedRegimeConfig, tx: AdamW,
 
         return _run_chunk(state, step_fn, batch, chunk)
 
-    return chunk_fn
+    return graphed(chunk_fn)
 
 
 def make_device_train_chunk(config: TrainConfig, tx: AdamW,
                             batch_size: int, chunk: int = 20) -> Callable:
     """(state, generator) -> (state, metrics): ``chunk`` train steps on
     pairs generated on the device (``train.device_data.device_batch``)
-    under the curriculum; the metrics stay on the device, averaged."""
+    under the curriculum; the metrics stay on the device, averaged. On the
+    card one graph replay a chunk (:func:`graphed`)."""
     from gisnav_tpu_torch.train.device_data import device_batch
 
-    step_fn = make_train_step(config, tx)
+    del tx
+    step_fn = _train_step_fn(config)
 
     def chunk_fn(state: TrainState, generator: torch.Generator):
         def batch(step):
@@ -332,4 +405,4 @@ def make_device_train_chunk(config: TrainConfig, tx: AdamW,
 
         return _run_chunk(state, step_fn, batch, chunk)
 
-    return chunk_fn
+    return graphed(chunk_fn)

@@ -30,7 +30,23 @@ replayed against the eager program on the same inputs and RANSAC noise
 (matches and inliers identical, the fix within 1 mm), RANSAC's split draw
 equal to ``torch.multinomial`` on the card, launch counts after replays, a
 capture that reads the host raising, and a multistream tick (forked and
-sequential) equal to its single frames.
+sequential) equal to its single frames. Every other graphed program,
+captured and replayed on new inputs against the same function run eagerly:
+the bucket refresh and map extraction (identical; the card's crop matrix
+within 1 f32 ulp of the host-built one), the exact-warp frame with its
+zoom and through the 3-shear rotation (K6 2 + 1 a replay), the derotated
+cached frame and LoFTR's frame (matches and inliers identical, fixes
+within 1 mm), the classical rotate + crop and tail (fixes within 1 mm),
+the UKF's and EKF's three steps (1e-6 relative), and the three train
+chunks and the host-data step (losses within 1e-5 of eager ones from the
+same state and generator seed, the generators ending alike, each replay
+drawing the eager chunk's pairs and two replays different ones; a state
+rebuilt around another step counter captured anew), the capturable AdamW
+against ``optax.adamw`` (1e-6; its numpy f32 transcription where JAX is
+not installed), a ``sample_idx`` refused by the classical frame; K6 with
+its shift read from device memory, bit-equal to its plain versions at the
+residual shears' bounds and inside a graph, NaN out of range; a capture
+while old graphs wait in reference cycles for the collector.
 """
 import numpy as np
 import pytest
@@ -1184,3 +1200,481 @@ def test_multistream_on_card_equals_single_frames(card, fork):
         assert haversine_m(a["lat"], a["lon"], b["lat"], b["lon"]) < 1e-3
         lon, lat = s.truth_lonlat[i]
         assert haversine_m(lat, lon, a["lat"], a["lon"]) < 10.0
+
+
+# --- every other program the JAX package jits, graphed --------------------
+
+
+def _same_pose(got, want):
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.pipeline.geopose import geopose_to_wgs84_f64
+
+    for f in ("matched_qry", "matched_ref", "match_mask", "num_matches",
+              "num_inliers", "valid"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    aff = np.eye(4)  # any f64 affine: the raster-frame pose decides
+    aff[:3, :3] = np.diag([1e-5, -1e-5, 1.0])
+    a, b = (geopose_to_wgs84_f64(p, aff) for p in (got, want))
+    assert haversine_m(a["lat"], a["lon"], b["lat"], b["lon"]) < 1e-3
+    assert abs(a["alt_ellipsoid"] - b["alt_ellipsoid"]) < 1e-3
+
+
+def _replays_equal_eager(fn, calls, check, sticky=()):
+    """``fn`` captured on the first call's inputs, then each later call
+    replayed and run eagerly on the same inputs: ``check(got, want)``."""
+    from gisnav_tpu_torch.pipeline.graph import FrameGraph
+
+    program = FrameGraph(fn, "cuda", sticky=sticky)
+    program(*calls[0])
+    for args in calls[1:]:
+        got = program(*args)
+        with torch.no_grad():
+            want = fn(*(a.cuda() if isinstance(a, torch.Tensor) else a
+                        for a in args))
+        check(got, want)
+    assert program.replays == len(calls) - 1
+    return program
+
+
+def _noise(seed, n, hyp=64):
+    from gisnav_tpu_torch.pnp.ransac import draw_noise
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return draw_noise(gen, hyp, n)
+
+
+def _scalar(v):
+    return torch.tensor(np.float32(v))
+
+
+def _card_inputs(s):
+    dev = "cuda"
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return (f32(s.ortho) / 255.0, f32(s.dem), f32(s.k), f32(s.crs_affine))
+
+
+def test_refresh_and_extraction_graphs_equal_eager(card):
+    """The bucket refresh (angle and zoom as () inputs, the stack sticky)
+    over three buckets and the map extraction over two maps: features,
+    crop and matrix identical; the refresh's matrix within 1 f32 ulp of
+    the host-built one."""
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_models,
+        build_reference_extractor,
+        build_warp_reference_extractor,
+    )
+    from gisnav_tpu_torch.raster.warp import crop_to_original
+    from gisnav_tpu_torch.weights import params_from_jax
+
+    params, cfg, s = _small_scene(map_side=512, coverage=2.2)
+    models = build_models(params_from_jax(params, "cuda"), cfg)
+    ortho, dem, _, _ = _card_inputs(s)
+    refresh = build_warp_reference_extractor(cfg)
+
+    def same(got, want):
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+    calls = [(ortho, dem, _scalar(a), _scalar(z))
+             for a, z in ((0.0, 1.1), (15.0, 0.9), (-30.0, 1.21))]
+    _replays_equal_eager(lambda *a: refresh(models, *a), calls, same,
+                         sticky=(0, 1))
+    h, w = cfg.image_shape
+    z = np.float32(1.21)
+    host = crop_to_original(-30.0, 256, 256, 256 - z * (w / 2.0),
+                            256 - z * (h / 2.0), z)
+    m = refresh(models, ortho, dem, _scalar(-30.0).cuda(),
+                _scalar(z).cuda())[2].cpu()
+    assert ((m - host).abs() <= np.spacing(np.float32(host.abs().max()))
+            ).all()
+
+    extract = build_reference_extractor(cfg)
+    maps = [torch.from_numpy(s.ortho), torch.from_numpy(s.ortho[::-1].copy()),
+            torch.from_numpy(s.ortho)]
+    _replays_equal_eager(lambda o: extract(models, o.float() / 255.0),
+                         [(m_,) for m_ in maps],
+                         lambda g, w_: [torch.equal(a, b) or pytest.fail()
+                                        for a, b in zip(g, w_)])
+
+
+@pytest.mark.parametrize("route", ["zoom", "shear"])
+def test_exact_warp_graph_equals_eager(card, route):
+    """The exact-warp frame with its zoom (the gather) and without one on a
+    square 384 map (the 3-shear rotation, K6 2 + 1 a replay, the quadrant
+    static): three yaws of one quadrant, matches and inliers identical and
+    the fix within 1 mm."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose,
+        build_models,
+    )
+    from gisnav_tpu_torch.weights import params_from_jax
+
+    kw = (dict(map_side=512, coverage=2.2) if route == "zoom"
+          else dict(map_side=384, coverage=384 / 320))
+    params, cfg, s = _small_scene(**kw)
+    models = build_models(params_from_jax(params, "cuda"), cfg)
+    ortho, dem, k, aff = _card_inputs(s)
+    fn = build_frame_to_geopose(cfg)
+    q = torch.from_numpy(s.frames[0])
+    zoom = [_scalar(s.alt_m / s.k[0, 0] / abs(s.crs_affine[2, 2]))] \
+        if route == "zoom" else []
+    calls = [(q, ortho, dem, _scalar(a), k, aff, _noise(i, 512), *zoom)
+             for i, a in enumerate((20.0, 4.0, 38.5))]
+    reset_launches()
+    program = _replays_equal_eager(
+        lambda q, o, d, a, k_, f, n, *z: fn(
+            models, q.float() / 255.0, o, d, a, k_, f, noise=n,
+            gsd_zoom=z[0] if z else None, quadrant=None if z else 0),
+        calls, _same_pose, sticky=(1, 2))
+    if route == "shear":
+        assert program.launches["shear_last_axis"] == 2
+        assert program.launches["shear_first_axis"] == 1
+        assert LAUNCHES["shear_last_axis"] == 2 * 5  # warm-up, 2 x 2 more
+
+
+def test_derotated_cached_frame_graph_equals_eager(card):
+    import dataclasses
+
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose_cached,
+        build_models,
+        build_reference_extractor,
+    )
+    from gisnav_tpu_torch.weights import params_from_jax
+
+    params, cfg, s = _small_scene(map_side=512, coverage=2.2)
+    cfg = dataclasses.replace(cfg, ortho_shape=(512, 512))
+    models = build_models(params_from_jax(params, "cuda"), cfg)
+    ortho, dem, k, aff = _card_inputs(s)
+    feats = build_reference_extractor(cfg)(models, ortho)
+    fn = build_frame_to_geopose_cached(cfg)
+    q = torch.from_numpy(s.frames[0])
+    pxy, pr = torch.zeros(2), torch.tensor(-1.0)
+    calls = [(q, feats, dem, k, aff, pxy, pr, _noise(i, 512), _scalar(a))
+             for i, a in enumerate((20.0, 25.0, -140.0))]
+    _replays_equal_eager(
+        lambda q, f, d, k_, a, x, r, n, rot: fn(
+            models, q.float() / 255.0, f, d, k_, a, prior_xy=x,
+            prior_radius=r, noise=n, rotation_deg=rot),
+        calls, _same_pose, sticky=(1, 2))
+
+
+def test_semidense_graph_equals_eager(card):
+    """LoFTR's exact-warp frame (the bundled weights, 480x640, 1024
+    matches): no host read left in the program, no kernel of the port."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_frame_to_geopose_semidense,
+        build_models,
+    )
+    from gisnav_tpu_torch.pipeline.runners import SEMIDENSE_CONFIG
+    from gisnav_tpu_torch.weights import LOFTR_PATH, load_npz, params_from_jax
+
+    s = _harris_scene()
+    cfg = SEMIDENSE_CONFIG
+    models = build_models(params_from_jax(load_npz(LOFTR_PATH), "cuda"), cfg)
+    ortho, dem, k, aff = _card_inputs(s)
+    fn = build_frame_to_geopose_semidense(cfg)
+    zoom = _scalar(s.alt_m / s.k[0, 0] / abs(s.crs_affine[2, 2]))
+    calls = [(torch.from_numpy(s.frames[i % 2]), ortho, dem,
+              _scalar(s.yaws[i % 2]), k, aff, _noise(i, 1024), zoom)
+             for i in range(3)]
+    reset_launches()
+    _replays_equal_eager(
+        lambda q, o, d, a, k_, f, n, z: fn(
+            models, q.float() / 255.0, o, d, a, k_, f, noise=n, gsd_zoom=z),
+        calls, _same_pose, sticky=(1, 2))
+    assert not any(LAUNCHES.values())
+
+
+def test_classical_graphs_equal_eager(card):
+    """The classical frame's two graphs (rotate + crop keyed on its
+    quadrant, the tail) against the same programs run eagerly, SIFT
+    between them: fixes within 1 mm; two yaws of one quadrant replay."""
+    from gisnav_tpu_torch.features.sift import (
+        extract_sift_batch,
+        pad_features,
+    )
+    from gisnav_tpu_torch.pipeline import classical
+    from gisnav_tpu_torch.pipeline.geopose import PipelineConfig
+
+    s = _harris_scene(map_side=1024)
+    cfg = PipelineConfig(image_shape=(480, 640), max_keypoints=1024)
+    classical.GRAPHS.clear()
+    ortho = torch.as_tensor(s.ortho, device="cuda")
+    dem = torch.as_tensor(s.dem, device="cuda")
+    for i, yaw in ((0, 10.0), (1, 40.0), (0, -20.0)):
+        gen = torch.Generator(device="cuda").manual_seed(i + 1)
+        pose = classical.classical_frame_to_geopose(
+            s.frames[i], ortho, dem, yaw, s.k, s.crs_affine, cfg,
+            generator=gen)
+        ref_img, dem_crop, m_crop = classical.warp_program((480, 640), 0)(
+            ortho, dem, torch.tensor(np.float32(yaw), device="cuda"))
+        raw = extract_sift_batch(torch.stack([
+            torch.as_tensor(s.frames[i], device="cuda"), ref_img]), 1024)
+        fq, fr = (pad_features(*r, 1024) for r in raw)
+        _, _, k, aff = _card_inputs(s)
+        want = classical._device_tail(cfg)(
+            fq.keypoints, fq.descriptors, fq.mask, fr.keypoints,
+            fr.descriptors, fr.mask, dem_crop, m_crop, k, aff,
+            noise=_noise(i + 1, 1024))
+        _same_pose(pose, want)
+    graphs = [g for key, g in classical.GRAPHS.items()
+              if key[1] == torch.device("cuda")]
+    assert {g.replays for g in graphs} == {2}
+    with pytest.raises(ValueError, match="sample_idx"):
+        classical.classical_frame_to_geopose(
+            s.frames[0], ortho, dem, 10.0, s.k, s.crs_affine, cfg,
+            sample_idx=torch.zeros((64, 4), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("backend", ["ekf", "ukf"])
+def test_filter_step_graphs_equal_eager(card, backend):
+    """Each of the backend's three steps captured, replayed on new inputs
+    (``dt``, ``z``, ``r_diag``, ``mask``, the threshold) and run eagerly:
+    ``x`` and ``P`` within 1e-6 relative; ``jacfwd`` and the ``_ex``
+    factorisations capture."""
+    from gisnav_tpu_torch.fusion import ekf, ukf
+    from gisnav_tpu_torch.fusion.ekf import EKFState
+
+    fns = {"ekf": (ekf.ekf_predict, ekf.ekf_update_pose,
+                   ekf.ekf_update_velocity),
+           "ukf": (ukf.ukf_predict, ukf.ukf_update_pose,
+                   ukf.ukf_update_velocity)}[backend]
+    rng = np.random.default_rng(0)
+    x = torch.tensor(np.r_[120.0, -40.0, 300.0, 0.05, -0.03, 1.2,
+                           rng.normal(0, 1, 9)].astype(np.float32))
+    a = rng.normal(0, 0.1, (15, 15))
+    p = torch.tensor((a @ a.T + 0.5 * np.eye(15)).astype(np.float32))
+    q = torch.linspace(0.01, 0.06, 15, device="cuda")
+    r = torch.tensor([4.0, 4.0, 9.0, 0.003, 0.003, 0.003])
+
+    def close(got, want):
+        for g, w in zip(got, want):
+            assert (g - w).abs().max() <= 1e-6 * w.abs().max() + 1e-12
+
+    _replays_equal_eager(
+        lambda x, p, dt, q: fns[0](EKFState(x, p), dt, q),
+        [(x, p, _scalar(dt), q) for dt in (0.25, 0.1, 0.5)], close,
+        sticky=(3,))
+    for f, first in ((fns[1], 0), (fns[2], 6)):
+        calls = [(x, p, x[first:first + 6] + 0.1 * i, r,
+                  torch.tensor([1.0, 1, 1, 0, 1, 1]), _scalar(thr))
+                 for i, thr in enumerate((0.0, 3.0, 1e-3))]
+        _replays_equal_eager(
+            lambda x, p, *a, f=f: f(EKFState(x, p), *a), calls, close)
+
+
+@pytest.mark.parametrize("kind", ["chunk", "cached_regime", "loftr", "host"])
+def test_train_graphs_equal_eager_and_draw_new_pairs(card, kind,
+                                                     monkeypatch):
+    """Two states from one init and two generators from one seed: three
+    graphed chunks (the first the warm-up, two replays) against three eager
+    ones give the same losses (1e-5 relative) and leave the generators in
+    the same state; the pairs a replay draws (read from the graph's own
+    memory) differ from the last replay's. The host-data step: three
+    graphed steps on three batches against eager steps."""
+    import dataclasses
+
+    from gisnav_tpu_torch.train import device_data, loftr_steps, steps
+
+    seen = []
+    batch, asym = device_data.device_batch, device_data.device_batch_asymmetric
+
+    def tapped(fn):
+        def draw(*a, **kw):
+            pairs = fn(*a, **kw)
+            seen.append(pairs[0][0, :4, :4])
+            return pairs
+        return draw
+
+    monkeypatch.setattr(device_data, "device_batch", tapped(batch))
+    monkeypatch.setattr(device_data, "device_batch_asymmetric", tapped(asym))
+    cfg = steps.TrainConfig(lightglue_depth=1)
+    if kind == "loftr":
+        cfg = loftr_steps.LoFTRTrainConfig(depth=1, max_matches=64)
+
+    def make():
+        if kind == "loftr":
+            st, tx = loftr_steps.init_loftr_train_state(
+                torch.Generator().manual_seed(0), cfg, "cuda")
+            return st, loftr_steps.make_loftr_device_train_chunk(
+                cfg, tx, 2, chunk=2)
+        c = dataclasses.replace(cfg, detector_mode="harris") \
+            if kind == "cached_regime" else cfg
+        st, tx = steps.init_train_state(torch.Generator().manual_seed(0), c,
+                                        "cuda")
+        if kind == "cached_regime":
+            return st, steps.make_cached_regime_chunk(
+                steps.CachedRegimeConfig(lightglue_depth=1), tx, 2, chunk=2)
+        if kind == "host":
+            return st, steps.make_train_step(cfg, tx)
+        return st, steps.make_device_train_chunk(cfg, tx, 2, chunk=2)
+
+    (g_state, g_fn), (e_state, e_fn) = make(), make()
+    if kind == "host":
+        from gisnav_tpu_torch.train.data import make_homography_batch
+
+        rng = np.random.default_rng(0)
+        for _ in range(3):
+            b = [torch.as_tensor(a, device="cuda") for a in
+                 make_homography_batch(rng, 2, cfg.image_shape)]
+            _, gm = g_fn(g_state, *b)
+            _, em = g_fn.eager(e_state, *b)
+            assert abs(float(gm["loss"]) - float(em["loss"])) <= \
+                1e-5 * abs(float(em["loss"]))
+        assert int(g_state.step) == 3
+        # a state rebuilt around another step counter is captured anew
+        restarted = g_state._replace(step=torch.zeros_like(g_state.step))
+        g_fn(restarted, *b)
+        assert int(restarted.step) == 1 and int(g_state.step) == 3
+        assert len(g_fn.graphs) == 2
+        return
+    gens = [torch.Generator(device="cuda") for _ in range(2)]
+    for g in gens:
+        g.manual_seed(5)
+    drawn = []
+    for i in range(3):
+        _, gm = g_fn(g_state, gens[0])
+        if i == 0:
+            tap = seen[-1]  # the capture's last pairs: the graph's memory
+        replayed = tap.clone()
+        _, em = g_fn.eager(e_state, gens[1])
+        assert abs(float(gm["loss"]) - float(em["loss"])) <= \
+            1e-5 * abs(float(em["loss"]))
+        if i:  # a replay drew what the eager chunk drew
+            torch.testing.assert_close(replayed, seen[-1], rtol=0,
+                                       atol=1e-6)
+            drawn.append(replayed)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    assert not torch.equal(drawn[0], drawn[1])
+    assert int(g_state.step) == 6 and int(e_state.step) == 6
+    (graph,) = g_fn.graphs.values()
+    assert graph.replays == 2
+
+
+def optax_adamw_f32(params, grads, lr, wd, b1=0.9, b2=0.999, eps=1e-8):
+    """``optax.adamw(lr, weight_decay=wd)`` applied to ``params`` once for
+    each gradient list in ``grads``, in numpy f32 as optax's update runs
+    (``scale_by_adam`` with the bias corrections of an int32 count, the
+    decay on the old parameter, then ``-lr``), for a machine without JAX;
+    ``tests/test_torch_train_losses.py`` holds it against optax."""
+    f = np.float32
+    ps = [np.asarray(a, np.float32) for a in params]
+    mu = [np.zeros_like(a) for a in ps]
+    nu = [np.zeros_like(a) for a in ps]
+    for t, gs in enumerate(grads, start=1):
+        bc1, bc2 = f(1) - f(b1) ** f(t), f(1) - f(b2) ** f(t)
+        for i, g in enumerate(gs):
+            g = np.asarray(g, np.float32)
+            mu[i] = f(1 - b1) * g + f(b1) * mu[i]
+            nu[i] = f(1 - b2) * (g * g) + f(b2) * nu[i]
+            upd = (mu[i] / bc1) / (np.sqrt(nu[i] / bc2) + f(eps))
+            ps[i] = ps[i] + f(-lr) * (upd + f(wd) * ps[i])
+    return ps
+
+
+def test_capturable_adamw_matches_optax(card):
+    """The card's ``train.steps.AdamW`` (built ``capturable``: step count
+    and bias corrections in f32 on the device) against ``optax.adamw``:
+    three updates on fixed gradients, 1e-6 as the CPU's is held
+    (``tests/test_torch_train_losses.py``); optax itself where JAX is
+    installed, else its f32 transcription ``optax_adamw_f32``."""
+    from gisnav_tpu_torch.train import steps as TS
+
+    rng = np.random.default_rng(0)
+    p0 = [rng.normal(size=(7, 5)).astype(np.float32),
+          rng.normal(size=(11,)).astype(np.float32)]
+    grads = [[rng.normal(size=a.shape).astype(np.float32) for a in p0]
+             for _ in range(3)]
+    try:
+        import jax.numpy as jnp
+        import optax
+    except ImportError:
+        want = optax_adamw_f32(p0, grads, 1e-3, 1e-2)
+    else:
+        tx = optax.adamw(1e-3, weight_decay=1e-2)
+        jp = [jnp.asarray(a) for a in p0]
+        opt = tx.init(jp)
+        for g in grads:
+            upd, opt = tx.update([jnp.asarray(a) for a in g], opt, jp)
+            jp = optax.apply_updates(jp, upd)
+        want = [np.asarray(a) for a in jp]
+    tp = {"a": torch.nn.Parameter(torch.tensor(p0[0], device="cuda")),
+          "b": torch.nn.Parameter(torch.tensor(p0[1], device="cuda"))}
+    opt = TS.AdamW(1e-3, weight_decay=1e-2).init(tp)
+    assert opt.defaults["capturable"]
+    for g in grads:
+        for leaf, gl in zip(TS.tree_leaves(tp), g):
+            leaf.grad = torch.tensor(gl, device="cuda")
+        opt.step()
+    for a, b in zip(TS.tree_leaves(tp), want):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b, atol=1e-6,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("shift", [0.41421356, -0.41421356, 0.70710678,
+                                   -0.70710678, 0.0, 0.123])
+def test_shear_kernels_read_their_shift_from_the_card(card, shift):
+    """K6 with its shift in device memory (a graphed rotation's residual
+    shears, up to tan 22.5 deg and sin 45 deg) against the plain versions,
+    bit for bit, and inside a captured graph that replays new shifts."""
+    from gisnav_tpu_torch.pipeline.graph import FrameGraph
+    from gisnav_tpu_torch.raster.shear_kernel import (
+        shear_first_axis,
+        shear_first_axis_plain,
+        shear_last_axis,
+        shear_last_axis_plain,
+    )
+
+    img = torch.rand((2, 512, 768), generator=card, device="cuda")
+    s = torch.tensor(np.float32(shift), device="cuda")
+    for kernel, plain in ((shear_last_axis, shear_last_axis_plain),
+                          (shear_first_axis, shear_first_axis_plain)):
+        assert torch.equal(kernel(img, s, 255.0), plain(img, s, 255.0))
+        assert torch.equal(kernel(img, s, 255.0), kernel(img, float(s),
+                                                         255.0))
+    program = FrameGraph(lambda im, a: shear_first_axis(
+        shear_last_axis(im, a, 255.0), a, 383.0), "cuda", sticky=(0,))
+    program(img, torch.tensor(0.3))
+    got = program(img, torch.tensor(np.float32(shift)))
+    want = shear_first_axis_plain(shear_last_axis_plain(img, s, 255.0), s,
+                                  383.0)
+    assert torch.equal(got, want)
+    bad = shear_last_axis(img, torch.tensor(1.5, device="cuda"), 255.0)
+    assert torch.isnan(bad).all()
+
+
+def test_capture_survives_cyclic_garbage(card):
+    """Old captured graphs in reference cycles, with the cyclic collector
+    set to run at almost every allocation: a new program still captures
+    (the collector is paused during a capture, since an old graph destroyed
+    inside it breaks the capture) and replays."""
+    import gc
+
+    from gisnav_tpu_torch.pipeline.graph import FrameGraph
+
+    x = torch.ones(8, device="cuda")
+
+    def garbage():
+        old = FrameGraph(lambda a: a * 2.0, "cuda")
+        old(x)
+        old(x)  # captured, then replayed
+        old.cycle = old  # freed only by the cyclic collector
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for _ in range(4):
+            garbage()
+        program = FrameGraph(lambda a: (a + 1.0).sum(), "cuda")
+        program(x)
+        assert float(program(x)) == 16.0 and program.replays == 1
+    finally:
+        gc.set_threshold(*thresholds)

@@ -71,6 +71,20 @@ path 4 (an 800x800 map at 3x the footprint, the sizing of the JAX package's
   2.5 m / 0.5 m (measured 0.1 mm);
 - the port's cached runner over all 8 yaws under 10 m of the truth (marked
   ``slow``; measured 0.6-5.1 m).
+
+At the main path's shape (``chip_smoke.py`` path 1: learned_lg9 at
+1088x1920 with 2048 keypoints over its 2208-px map at 3x, two yaws in two
+buckets), marked ``slow`` for its CPU time (two SuperPoint passes over a
+1088x1920 image a frame and LightGlue-9 at 2048 x 2048 in both packages,
+several minutes): the port's bucketed runner on the CPU, drawing as the
+JAX runner does, against the JAX runner. Each bucket's crop matrix, now
+built from () tensors as the card builds it, within 1e-6 relative plus one
+f32 ulp of the largest entry of the JAX bucket's, the bucket's DEM crop
+within 1e-4 of the largest elevation; each fix valid where the JAX one is,
+and no farther from it than the JAX program's own fix moves between two
+of 16 RANSAC keys on that frame (measured 0.101 and 0.357 m, 0.038 and
+0.023 m in altitude, 292/293 and 329/327 matches, against JAX spreads of
+0.467 and 1.041 m; about 4 minutes on 2 CPU threads).
 """
 import dataclasses
 import itertools
@@ -645,3 +659,51 @@ def test_cached_runner_harris_eight_yaws(harris_scene):
         print(f"yaw {s.yaws[i]:5.1f}: valid={bool(pose.valid)} inliers "
               f"{int(pose.num_inliers)} error {err:.3f} m")
         assert bool(pose.valid) and err < 10.0
+
+
+@pytest.mark.slow
+def test_bucketed_runner_at_main_path_shape_vs_jax():
+    h, w, kp = 1088, 1920, 2048
+    scene = render_scene(seed=0, h=h, w=w, yaws=[3.0, 31.0])
+    params, cfg = load_bundled("learned_lg9")
+    cfg = dataclasses.replace(cfg, image_shape=(h, w), max_keypoints=kp)
+    j_params, j_cfg = jruns.load_bundled("learned_lg9")
+    j_cfg = dataclasses.replace(j_cfg, image_shape=(h, w), max_keypoints=kp)
+    port = _port_runner("make_bucketed_warp_runner", params, cfg)
+    ref = jruns.make_bucketed_warp_runner(j_params, j_cfg)
+    out = _fly(scene, port, ref, [0, 1])
+
+    # the JAX buckets and the program under RANSAC keys 1..KEYS
+    extract = jax.jit(jgp.build_warp_reference_extractor(j_cfg))
+    hot = jax.jit(jgp.build_frame_to_geopose_warpcached(j_cfg))
+    zoom = scene.alt_m / scene.k[0, 0] / abs(scene.crs_affine[2, 2])
+    zstep = np.log1p(0.10)
+    zq = np.float32(np.exp(round(np.log(zoom) / zstep) * zstep))
+    k = jnp.asarray(scene.k, jnp.float32)
+    aff = jnp.asarray(scene.crs_affine, jnp.float32)
+    spreads = []
+    for i, (p, pf, r, rf) in enumerate(out):
+        angle = np.float32(round(scene.yaws[i] / 15.0) * 15.0)
+        feats, dem_crop, m_crop = extract(
+            j_params, jnp.asarray(scene.ortho, jnp.float32) / 255.0,
+            jnp.asarray(scene.dem), jnp.float32(angle), jnp.float32(zq))
+        bucket = next(v for key, v in port.buckets.items()
+                      if key[0] == round(scene.yaws[i] / 15.0))
+        want = np.asarray(m_crop)
+        tol = 1e-6 * np.abs(want) + np.spacing(np.abs(want).max())
+        assert (np.abs(bucket[2].numpy() - want) <= tol).all()
+        dem_want = np.asarray(dem_crop)
+        assert np.abs(bucket[1].numpy() - dem_want).max() <= \
+            1e-4 * np.abs(dem_want).max()
+        q = jnp.asarray(scene.frames[i], jnp.float32) / 255.0
+        spreads.append(_key_spread(
+            lambda key: hot(j_params, q, feats, dem_crop, m_crop, k, aff,
+                            key), scene.crs_affine))
+    for (p, pf, r, rf), spread in zip(out, spreads):
+        horiz, dalt = _dist(pf, rf)
+        print(f"main path shape: port-vs-JAX {horiz:.3f} m horizontal, "
+              f"{dalt:.3f} m altitude; matches {int(p.num_matches)}/"
+              f"{int(r.num_matches)}; JAX spread over {KEYS} keys "
+              f"{spread:.3f} m")
+        assert bool(p.valid) == bool(r.valid)
+        assert horiz <= spread, (horiz, spread)

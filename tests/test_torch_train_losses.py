@@ -4,6 +4,9 @@ package's, on shared inputs.
 - ``AdamW`` against ``optax.adamw``: three updates on the same gradients,
   to 1e-6 (the same update: betas 0.9 / 0.999, eps 1e-8 outside the square
   root, the decay on the old parameter).
+- ``tests/test_torch_cuda.py``'s numpy transcription of ``optax.adamw``
+  (the card test's reference where JAX is not installed) against optax,
+  to 2 f32 ulp of 1.
 - ``_ground_truth_assignment`` and ``_harris_cell_labels`` exactly;
   ``matcher_loss`` and ``detector_distill_loss`` to 1e-5 relative.
 """
@@ -40,6 +43,28 @@ def test_adamw_matches_optax():
     for a, b in zip(TS.tree_leaves(tp), TS.tree_leaves(
             jax.tree.map(np.asarray, jp))):
         np.testing.assert_allclose(a.detach().numpy(), b, atol=1e-6, rtol=0)
+
+
+def test_optax_transcription_matches_optax():
+    """``tests/test_torch_cuda.py``'s numpy transcription of
+    ``optax.adamw``, the reference of the card's capturable AdamW where JAX
+    is not installed, against optax on the same three updates: 2 f32 ulp
+    of 1."""
+    from tests.test_torch_cuda import optax_adamw_f32
+
+    rng = np.random.default_rng(0)
+    p0 = [rng.normal(size=(7, 5)).astype(np.float32),
+          rng.normal(size=(11,)).astype(np.float32)]
+    grads = [[rng.normal(size=a.shape).astype(np.float32) for a in p0]
+             for _ in range(3)]
+    tx = optax.adamw(1e-3, weight_decay=1e-2)
+    jp = [jnp.asarray(a) for a in p0]
+    opt = tx.init(jp)
+    for g in grads:
+        upd, opt = tx.update([jnp.asarray(a) for a in g], opt, jp)
+        jp = optax.apply_updates(jp, upd)
+    for a, b in zip(optax_adamw_f32(p0, grads, 1e-3, 1e-2), jp):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2.4e-7, rtol=0)
 
 
 def test_losses_vs_jax():

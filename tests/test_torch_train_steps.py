@@ -15,11 +15,18 @@ batch:
   update, and 95 % of them within 1e-6.
 
 The optimizer and the losses alone: ``test_torch_train_losses.py``.
+
+The initial state keeps its step counter on the params' device, as the JAX
+state keeps its step on the device (the curriculum reads it inside a
+chunk): with ``resolve_device`` pointed at another device than the CPU
+(``meta``), ``init_train_state`` and ``init_loftr_train_state`` with
+``device=None`` put the params and the step there.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from gisnav_tpu.train import steps as JS
@@ -40,6 +47,24 @@ def _flat(tree, prefix=""):
         else:
             out[f"{prefix}/{k}"] = np.asarray(v, np.float32)
     return out
+
+
+@pytest.mark.parametrize("which", ["superpoint_lightglue", "loftr"])
+def test_initial_step_lies_with_the_params(monkeypatch, which):
+    from gisnav_tpu_torch import device
+    from gisnav_tpu_torch.train import loftr_steps as TL
+
+    monkeypatch.setattr(device, "resolve_device",
+                        lambda device=None: torch.device("meta"))
+    gen = torch.Generator().manual_seed(0)
+    if which == "loftr":
+        state, _ = TL.init_loftr_train_state(gen, TL.LoFTRTrainConfig(
+            depth=1))
+    else:
+        state, _ = TS.init_train_state(gen, TS.TrainConfig(**CFG))
+    assert TS.tree_leaves(state.params)[0].device.type == "meta"
+    assert state.step.device.type == "meta"
+    assert state.step.dtype == torch.int64 and state.step.shape == ()
 
 
 def _loss_fn(step):
