@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train    # build + gradients + path 9 (training)
     python3 chip_smoke.py --deploy   # build + paths 10 and 11 only
     python3 chip_smoke.py --multistream   # build + path 12 only
+    python3 chip_smoke.py --mesh     # build + paths 12 and 13 (the mesh)
     python3 chip_smoke.py --jpeg     # build + the JPEG codec phase only
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -146,9 +147,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    8 single-frame replays: stream-frames/s, tick p50 / p90, exactly 8 path-2
    frames' K1-K4 launches a tick; the forked tick's device busy time (the
    union of its kernels' intervals, torch.profiler over 4 ticks);
-16. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+16. path 13: the (data, model) mesh, laid over every card there is cycled
+   to 8 slots (one card: every slot ``cuda:0``; the layout is printed):
+   (a) path 12's 8 feeds, draws and seeds over a (4 x 1) and a (4 x 2)
+   mesh, each data row its 2 streams on its first device with its own tree
+   of the weights (``shard_params_tp``: at model 2 every Dense product
+   LightGlue forms outside its kernel split over the row's two slots), a
+   row on one card replaying one graph, a row across cards eager (the mode
+   of each row printed): every stream within 10 m of its own truth, model
+   1 identical to path 12's tick stream by stream (matches and inliers;
+   the fix within 1 mm), model 2 within the JAX test's bound of model 1
+   (lon/lat 2e-5 deg, ``valid`` equal), exactly 8 path-2 frames' K1-K4
+   launches a tick, and 32 ticks of each: stream-frames/s and tick p50 /
+   p90 beside path 12's forked tick; (b) path 9 (a)'s step (128x160, 256
+   keypoints, LightGlue-3, batch 8) on the (4 x 2) mesh, one graph a step
+   where the mesh is one card, against the replicated step from the same
+   state and batch: loss within 1e-2 relative, every parameter within 5
+   lr, the replicas equal and their Dense leaves still sharded, and the
+   gradient the update read (Adam's first step moves a parameter by about
+   lr whatever its gradient) within ``MESH_GRAD_RTOL`` of the replicated
+   step's on its worst leaf (relative norm), where the gradient of row 0's
+   block alone lies beyond it; then 10
+   mesh steps (every loss finite, 24 K5 launches a row a step) and 10
+   replicated ones, steps/s beside path 9 (a)'s;
+17. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-17. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+18. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -309,6 +333,10 @@ TRAIN_K5_STEP = 4 * TRAIN_DEPTH * 2
 FINETUNE_K5_STEP = 4 * 5 * 2  # LightGlue-5, 256 query / 512 map keypoints
 K5_TRAIN_SHAPES = [(256, 256), (256, 512), (512, 256), (512, 512)]
 TRAIN_DEVICE = "cuda"  # path 9's device; a CPU rehearsal sets "cpu"
+# path 13 (b): the mesh step's gradient against the replicated step's, the
+# worst leaf's relative norm (read 0.0051 on an H100 at 700 W; the gradient
+# of row 0's block alone reads 0.38)
+MESH_GRAD_RTOL = 0.02
 # the jpeg phase: world crops at the map side of run's 480x640 camera and
 # of a 1088x1920 one (gis/wms.py orthoimage_size_for_camera), timing reps
 JPEG_SIDES, JPEG_REPS = (800, 2208), (20, 5)
@@ -331,7 +359,8 @@ JPEG_DECODE_DIGEST = (
 EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "library_device_ms", "rotation_ms", "rotation_device_ms",
               "path4_launches", "path6_launches", "path8_launches",
-              "path9_launches", "path11_launches", "backward_ms",
+              "path9_launches", "path11_launches", "path13_launches",
+              "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
               "grad_cpu_rel_err", "fwd_bwd_device_ms",
@@ -3674,6 +3703,8 @@ def phase_multistream_path() -> dict:
     busy = profile_frames(modes["forked"], list(range(4)), n=4,
                           union=True)
     (graph,) = forked.graphs.values()
+    single = None  # the graphs of path 12 go: path 13 captures its own
+    sequential.graphs.clear()
     result = {
         "streams": STREAMS, "detector_downsample": ds,
         "max_error_m": float(max(r[2] for r in rows)),
@@ -3687,7 +3718,230 @@ def phase_multistream_path() -> dict:
         "graph_pool_mib": graph.pool_bytes / 2 ** 20,
         "seconds": time.time() - t0}
     log("[multistream] " + json.dumps(result))
+    forked.graphs.clear()
+    del graph
+    torch.cuda.empty_cache()
+    # what path 13 runs again over a mesh: the feeds, the draws and the
+    # forked tick's output at seed 1
+    result["feeds"] = {"scenes": scenes, "config": cfg, "params": params,
+                       "batch": batch, "seeded": seeded, "out": out,
+                       "per_frame": per_frame}
     return result
+
+
+def _mesh_devices(slots: int = 8) -> list:
+    """Every card there is, cycled to ``slots`` mesh slots."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(slots)]
+
+
+def _layout(mesh) -> list:
+    return [[str(d) for d in row] for row in mesh.devices]
+
+
+def mesh_feeds(path12: dict) -> dict:
+    """Path 13 (a): path 12's 8 feeds over a (data, model) mesh at model 1
+    (4 x 1) and model 2 (4 x 2), each row its 2 streams with its own tree
+    of the weights (``shard_params_tp``) and its own draws."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.parallel import make_mesh, shard_params_tp
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_models,
+        geopose_to_wgs84_f64,
+    )
+    from gisnav_tpu_torch.pipeline.multistream import (
+        build_mesh_multistream_pipeline,
+        shard_stream_batch,
+    )
+    from gisnav_tpu_torch.weights import params_from_jax
+
+    feeds = path12["feeds"]
+    scenes, cfg, seeded = feeds["scenes"], feeds["config"], feeds["seeded"]
+    tree = params_from_jax(feeds["params"], feeds["batch"][0].device)
+    devs = _mesh_devices()
+    outs, result = {}, {}
+    for model in (1, 2):
+        t0 = time.time()
+        mesh = make_mesh(4 * model, model_parallel=model,
+                         devices=devs[:4 * model])
+        rows = [build_models(t, cfg) for t in shard_params_tp(mesh, tree)]
+        blocks = shard_stream_batch(mesh, feeds["batch"])
+        fn = build_mesh_multistream_pipeline(cfg)
+        fn(mesh, rows, blocks, seeded(0))  # captures the graphed rows
+        out = outs[model] = fn(mesh, rows, blocks, seeded(1))
+        errors = []
+        for i, sc in enumerate(scenes):
+            pose = type(out)(*(f[i] for f in out))
+            fix = geopose_to_wgs84_f64(pose, sc.crs_affine)
+            lon, lat = sc.truth_lonlat[0]
+            errors.append(haversine_m(lat, lon, fix["lat"], fix["lon"]))
+            _gate(pose, errors[-1], fix, f"[mesh] model {model} stream {i}")
+            if model == 1:  # path 12's graphed tick, stream by stream
+                want = type(out)(*(f[i] for f in feeds["out"]))
+                moved = _fix_moved(fix, geopose_to_wgs84_f64(
+                    want, sc.crs_affine))
+                if not (_same_pose(pose, want) and moved < 1e-3):
+                    raise RuntimeError(f"path 13: stream {i} at model 1 "
+                                       f"differs from path 12's tick "
+                                       f"({moved} m)")
+        r = _tick_times(lambda t: fn(mesh, rows, blocks, seeded(t + 2)),
+                        MULTISTREAM_TICKS)
+        expect_launches(f"mesh model {model}", r["launches"], {
+            k: n * STREAMS * MULTISTREAM_TICKS
+            for k, n in feeds["per_frame"].items()})
+        r.update(layout=_layout(mesh), modes=dict(fn.modes),
+                 max_error_m=float(max(errors)),
+                 stream_frames_per_s=STREAMS * MULTISTREAM_TICKS
+                 / r["window_ms"] * 1e3,
+                 launches_a_tick={k: n // MULTISTREAM_TICKS
+                                  for k, n in r["launches"].items()},
+                 seconds=time.time() - t0)
+        result[f"model{model}"] = r
+        p12 = path12["forked"]
+        log(f"[mesh] model {model} layout {r['layout']} rows {r['modes']}: "
+            f"{r['stream_frames_per_s']:.1f} stream-frames/s, tick p50 "
+            f"{r['tick_p50_ms']:.2f} ms, p90 {r['tick_p90_ms']:.2f} ms "
+            f"(path 12's forked tick: {p12['stream_frames_per_s']:.1f} "
+            f"stream-frames/s, p50 {p12['tick_p50_ms']:.2f} ms)")
+        fn.graphs.clear()
+        del rows, blocks, fn
+        torch.cuda.empty_cache()
+    # TP2 against TP1: the JAX test's own bound
+    d = (outs[2].lon_lat_alt[:, :2] - outs[1].lon_lat_alt[:, :2]).abs()
+    result["tp2_vs_tp1_max_deg"] = float(d.max())
+    result["tp2_vs_tp1_max_m"] = max(_fix_moved(
+        geopose_to_wgs84_f64(type(outs[2])(*(f[i] for f in outs[2])),
+                             sc.crs_affine),
+        geopose_to_wgs84_f64(type(outs[1])(*(f[i] for f in outs[1])),
+                             sc.crs_affine)) for i, sc in enumerate(scenes))
+    result["tp2_matches_equal"] = all(
+        torch.equal(getattr(outs[2], f), getattr(outs[1], f))
+        for f in ("matched_qry", "matched_ref", "num_matches"))
+    if not (result["tp2_vs_tp1_max_deg"] <= 2e-5
+            and torch.equal(outs[2].valid, outs[1].valid)):
+        raise RuntimeError(f"path 13: TP2 off TP1 by "
+                           f"{result['tp2_vs_tp1_max_deg']} deg")
+    result["path12_forked"] = {k: path12["forked"][k] for k in (
+        "stream_frames_per_s", "tick_p50_ms", "tick_p90_ms")}
+    return result
+
+
+def mesh_train(path9_steps_per_s=None) -> dict:
+    """Path 13 (b): path 9 (a)'s config (128x160, 256 keypoints,
+    LightGlue-3, batch 8) on the (4 x 2) mesh against the replicated step
+    from the same state and batch, then 10 mesh steps."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.parallel import make_mesh
+    from gisnav_tpu_torch.parallel.mesh import shard_batch
+    from gisnav_tpu_torch.parallel.tp import Sharded, gather_tree, leaves
+    from gisnav_tpu_torch.train.data import make_homography_batch
+    from gisnav_tpu_torch.train.steps import (
+        TrainConfig,
+        init_train_state,
+        make_mesh_train_step,
+        make_train_step,
+        relative_error,
+        shard_train_state,
+        tree_grads,
+        tree_leaves,
+    )
+
+    t0 = time.time()
+    config = TrainConfig()
+    lr = config.learning_rate
+
+    def fresh():
+        return init_train_state(torch.Generator().manual_seed(2), config,
+                                TRAIN_DEVICE)
+
+    args = tuple(torch.as_tensor(a, device=TRAIN_DEVICE) for a in
+                 make_homography_batch(np.random.default_rng(3),
+                                       TRAIN_BATCH, config.image_shape))
+    state, tx = fresh()
+    replicated = make_train_step(config, tx)
+    state, m = replicated(state, *args)
+    mesh = make_mesh(8, model_parallel=2, devices=_mesh_devices())
+    mstate = shard_train_state(mesh, fresh()[0], tx)
+    step = make_mesh_train_step(config, tx)
+    blocks = shard_batch(mesh, args)
+    mstate, mm = step(mstate, blocks)
+    loss, ref = float(mm["loss"]), float(m["loss"])
+    rows = [gather_tree(r.params) for r in mstate.rows]
+    with torch.no_grad():
+        worst = max(float((a.to(b.device) - b).abs().max()) for a, b in zip(
+            tree_leaves(rows[0]), tree_leaves(state.params)))
+        spread = max(float((a.to(b.device) - b).abs().max())
+                     for tree in rows for a, b in zip(
+                         tree_leaves(tree), tree_leaves(rows[0])))
+    sharded = sum(isinstance(leaf, Sharded) for leaf in leaves(
+        mstate.rows[-1].params))
+    # Adam's first step moves each parameter by about lr whatever its
+    # gradient, so the gradient the update read is held too: the worst
+    # leaf against the replicated step's, and, to show the gate sees a
+    # wrong mean, the gradient of row 0's block alone
+    ref_grads = tree_leaves(tree_grads(state.params))
+
+    def worst_grad(params):
+        return max(relative_error(a, b) for a, b in zip(
+            tree_leaves(gather_tree(tree_grads(params))), ref_grads))
+
+    grad_worst = [worst_grad(r.params) for r in mstate.rows]
+    row0_state = fresh()[0]
+    make_train_step(config, tx).eager(row0_state, *blocks[0])
+    row0_grad = worst_grad(row0_state.params)
+    log(f"[mesh train] layout {_layout(mesh)}: loss {loss:.6f} against the "
+        f"replicated step's {ref:.6f}, parameters within {worst:.3g} "
+        f"(5 lr = {5 * lr:.3g}), replicas {spread} apart, {sharded} "
+        f"sharded leaves a row; gradient's worst leaf {grad_worst} "
+        f"relative (gate {MESH_GRAD_RTOL}; row 0's block alone "
+        f"{row0_grad:.4g})")
+    if not (abs(loss - ref) <= 1e-2 * abs(ref) and worst < 5 * lr
+            and spread == 0.0 and sharded > 0
+            and max(grad_worst) < MESH_GRAD_RTOL < row0_grad):
+        raise RuntimeError("path 13: the mesh train step disagrees with "
+                           "the replicated one")
+    timed = {}
+    for name, fn in (("mesh", lambda: step(mstate, blocks)),
+                     ("replicated", lambda: replicated(state, *args))):
+        torch.cuda.synchronize()
+        reset_launches()
+        losses, start = [], time.perf_counter()
+        for _ in range(10):
+            losses.append(fn()[1]["loss"])
+        torch.cuda.synchronize()
+        timed[name] = {"steps_per_s": 10 / (time.perf_counter() - start),
+                       "launches": dict(LAUNCHES),
+                       "losses": [float(v) for v in losses]}
+        if not all(np.isfinite(timed[name]["losses"])):
+            raise RuntimeError(f"path 13: a {name} step's loss is not "
+                               f"finite")
+    expect_launches("mesh train", timed["mesh"]["launches"], {
+        "masked_attention": 10 * TRAIN_K5_STEP * len(mstate.rows)})
+    out = {"layout": _layout(mesh), "loss": loss, "replicated_loss": ref,
+           "max_param_diff": worst, "replica_spread": spread,
+           "grad_worst_leaf_rel": grad_worst,
+           "row0_only_grad_worst_leaf_rel": row0_grad,
+           "sharded_leaves": sharded, "graphs": len(step.graphs),
+           **{f"{k}_steps_per_s": v["steps_per_s"]
+              for k, v in timed.items()},
+           "path9_steps_per_s": path9_steps_per_s,
+           "launches_10_steps": timed["mesh"]["launches"],
+           "mesh_losses": timed["mesh"]["losses"],
+           "seconds": time.time() - t0}
+    log(f"[mesh train] 10 steps: mesh {out['mesh_steps_per_s']:.2f} "
+        f"steps/s, replicated {out['replicated_steps_per_s']:.2f} steps/s "
+        f"(path 9 (a): {path9_steps_per_s})")
+    return out
+
+
+def phase_mesh_path(path12: dict, path9_steps_per_s=None) -> dict:
+    """Path 13: the (data, model) mesh laid over every card there is."""
+    t0 = time.time()
+    out = {"cards": torch.cuda.device_count(), "feeds": mesh_feeds(path12),
+           "train": mesh_train(path9_steps_per_s)}
+    out["seconds"] = time.time() - t0
+    log("[mesh] " + json.dumps(out))
+    return out
 
 
 def phase_cellmax_stage() -> int:
@@ -4263,6 +4517,9 @@ def main(argv=None) -> int:
                          "tick)")
     ap.add_argument("--jpeg", action="store_true",
                     help="only run the JPEG codec phase")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only drive paths 12 and 13 (the mesh over every "
+                         "card there is)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -4284,9 +4541,12 @@ def main(argv=None) -> int:
         phase_jpeg()
         log(f"[phase] jpeg done at {time.time() - t_start:.1f} s")
         return 0
-    if args.multistream:
-        phase_multistream_path()
+    if args.multistream or args.mesh:
+        path12 = phase_multistream_path()
         log(f"[phase] path 12 done at {time.time() - t_start:.1f} s")
+        if args.mesh:
+            phase_mesh_path(path12)
+            log(f"[phase] path 13 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -4348,9 +4608,12 @@ def main(argv=None) -> int:
     log(f"[phase] path 10 done at {time.time() - t_start:.1f} s")
     replays = phase_replay_path()
     log(f"[phase] path 11 done at {time.time() - t_start:.1f} s")
-    phase_multistream_path()
-    torch.cuda.empty_cache()  # the path's graph pools
+    path12 = phase_multistream_path()
     log(f"[phase] path 12 done at {time.time() - t_start:.1f} s")
+    mesh = phase_mesh_path(path12, training["cli"]["steps_per_s"])
+    del path12
+    torch.cuda.empty_cache()  # the paths' graph pools
+    log(f"[phase] path 13 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -4368,6 +4631,8 @@ def main(argv=None) -> int:
                                                 "exact"))
             r["path8_launches"] = graph["flight"]["launches"][r["name"]]
             r["path11_launches"] = replays["harris"]["launches"][r["name"]]
+            r["path13_launches"] = mesh["feeds"]["model2"]["launches"][
+                r["name"]]
         if r["name"] in ("shear_last_axis", "shear_first_axis"):
             r["path6_launches"] = classical["launches"][r["name"]]
             r["path11_launches"] = replays["classical"]["launches"][
@@ -4378,6 +4643,8 @@ def main(argv=None) -> int:
                 + training["finetune"]["launches"][r["name"]])
             r["step_backward_device_ms"] = training["cli"][
                 "k5_backward_device_ms"]
+            r["path13_launches"] = mesh["train"]["launches_10_steps"][
+                r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     smi = subprocess.run(

@@ -28,6 +28,7 @@ from gisnav_tpu_torch.kernels.build import (
     check,
     check_device,
     library,
+    on_device,
     ptr,
     stream_of,
     typed,
@@ -109,8 +110,10 @@ def _conv_cuda(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"2x2 pool needs even H, W, got {(h, w)}")
     shape = (h // 2, w // 2, cout) if pool else (h, w, cout)
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
-    check(_lib().gisnav_conv3x3(ptr(x), ptr(w9), ptr(b), ptr(out), h, w, cin,
-                                cout, int(pool), stream_of(x)), "conv3x3")
+    with on_device(x):
+        check(_lib().gisnav_conv3x3(ptr(x), ptr(w9), ptr(b), ptr(out), h, w,
+                                    cin, cout, int(pool), stream_of(x)),
+              "conv3x3")
     LAUNCHES["conv_stage"] += 1
     return out
 
@@ -128,9 +131,11 @@ def _stem_cuda(img: torch.Tensor, w1a: torch.Tensor, b1a: torch.Tensor,
         raise ValueError(f"2x2 pool needs even H, W, got {(h, w)}")
     shape = (h // 2, w // 2, 64) if pool else (h, w, 64)
     out = torch.empty(shape, dtype=torch.bfloat16, device=img.device)
-    check(_lib().gisnav_stem(ptr(img), ptr(w1a), ptr(b1a), ptr(w1b), ptr(b1b),
-                             ptr(out), h, w, int(pool), stream_of(img)),
-          "stem")
+    with on_device(img):
+        check(_lib().gisnav_stem(ptr(img), ptr(w1a), ptr(b1a), ptr(w1b),
+                                 ptr(b1b), ptr(out), h, w, int(pool),
+                                 stream_of(img)),
+              "stem")
     LAUNCHES["stem_stage"] += 1
     return out
 

@@ -27,6 +27,7 @@ from gisnav_tpu_torch.kernels.build import (
     aligned16,
     check,
     library,
+    on_device,
     ptr,
     stream_of,
     typed,
@@ -127,9 +128,11 @@ def nms_select(heatmap: torch.Tensor, border: int, temperature: float = 0.1
     if heatmap.dtype != torch.float32:
         raise TypeError("nms_select takes an f32 heatmap")
     heat = aligned16(heatmap)
-    check(_lib().gisnav_nms_select(ptr(heat), *(ptr(o) for o in out), h, w,
-                                   int(border), 1.0 / float(temperature),
-                                   stream_of(heat)), "nms_select")
+    with on_device(heat):
+        check(_lib().gisnav_nms_select(ptr(heat), *(ptr(o) for o in out), h,
+                                       w, int(border),
+                                       1.0 / float(temperature),
+                                       stream_of(heat)), "nms_select")
     LAUNCHES["nms_select"] += 1
     return out.unbind(0)
 
@@ -152,7 +155,9 @@ def nms_cellmax(heatmap: torch.Tensor, border: int) -> torch.Tensor:
     heat = aligned16(heatmap)
     out = torch.empty((h // _BLOCK, w // _BLOCK), dtype=torch.float32,
                       device=heat.device)
-    check(_lib().gisnav_nms_cellmax(ptr(heat), ptr(out), h, w, int(border),
-                                    stream_of(heat)), "nms_cellmax")
+    with on_device(heat):
+        check(_lib().gisnav_nms_cellmax(ptr(heat), ptr(out), h, w,
+                                        int(border), stream_of(heat)),
+              "nms_cellmax")
     LAUNCHES["nms_cellmax"] += 1
     return out

@@ -23,7 +23,7 @@ from typing import Dict
 from gisnav_tpu_torch.utils.jitcache import cache_dir, enable_persistent_cache
 
 __all__ = ["SOURCES", "aligned16", "build_all", "library", "check",
-           "check_device", "ptr", "stream_of", "typed"]
+           "check_device", "on_device", "ptr", "stream_of", "typed"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("conv", "nms_select", "lightglue_block", "attention", "shear")
@@ -129,6 +129,15 @@ def aligned16(t):
     starts elsewhere): the kernels stage their inputs by 16-byte copies."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def on_device(t):
+    """The launch's context: ``t``'s card made the current device, since
+    the entry points set kernel attributes on, and size their grids from,
+    the current device."""
+    import torch
+
+    return torch.cuda.device(t.device)
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -31,6 +31,7 @@ from gisnav_tpu_torch.kernels.build import (
     check,
     check_device,
     library,
+    on_device,
     ptr,
     stream_of,
     typed,
@@ -158,10 +159,12 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device)
     stats = torch.empty((splits, pairs, heads, kq, 2), dtype=torch.float32,
                         device=q.device)
-    check(_lib().gisnav_masked_attention(
-        ptr(qb), ptr(kb), ptr(vb), ptr(bias), ptr(stats), ptr(out), kq, kk,
-        heads, pairs, d, splits, 1.0 / float(d) ** 0.5, stream_of(qb)),
-        "masked_attention")
+    with on_device(qb):
+        check(_lib().gisnav_masked_attention(
+            ptr(qb), ptr(kb), ptr(vb), ptr(bias), ptr(stats), ptr(out), kq,
+            kk, heads, pairs, d, splits, 1.0 / float(d) ** 0.5,
+            stream_of(qb)),
+            "masked_attention")
     LAUNCHES["masked_attention"] += 2  # statistics, then P.V
     return out if batched else out[0]
 

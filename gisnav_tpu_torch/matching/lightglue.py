@@ -22,6 +22,12 @@ package does: the fused forward (``lightglue_fused``) where
 the module route elsewhere. The choice depends on the shapes alone, so a CPU
 tensor takes the route, and through the plain versions the arithmetic, that
 a CUDA tensor of the same shape takes.
+
+Every Dense product of both routes that the JAX package computes outside a
+Pallas kernel goes through ``parallel.tp.product``: on a tree from
+``parallel.mesh.shard_params_tp`` with a ``model`` axis above 1 its weight
+is sharded and the product is formed output slice by slice, each on its
+shard's device; on a plain tree it is one product.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 from torch import nn
 
 from gisnav_tpu_torch.matching.attention import attention_with_grad
+from gisnav_tpu_torch.parallel.tp import Sharded, product, whole
 
 __all__ = ["MatchResult", "normalize_keypoints", "extract_matches",
            "assignment", "LightGlue", "LightGlueMatcher", "lightglue_forward"]
@@ -103,30 +110,44 @@ def _attention(q, k, v, mask_k):
     return attention_with_grad(q, k, v, mask_k)
 
 
+def _bf16_body(x, w, b):
+    w = w.to(_BF16).float()
+    return (x.to(_BF16).float() @ w.T).to(_BF16) + b.to(_BF16)
+
+
+def _f32_body(x, w, b):
+    y = x @ w.T
+    return y if b is None else y + b
+
+
+def _affine(x, w, b):
+    """``x @ w + b`` of a weight in (in, out) layout."""
+    return x @ w + b
+
+
 def _dense_bf16(x: torch.Tensor, node: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
     """flax ``Dense(dtype=bfloat16)``: input, weight and bias rounded to
     bf16, the product formed in f32 and rounded once to bf16 (as XLA forms a
     bf16 dot), the bias added in bf16. The weight may be an f32 master or
-    already bf16; every cast passes the gradient."""
-    w = node["weight"].to(_BF16).float()
-    return (x.to(_BF16).float() @ w.T).to(_BF16) + node["bias"].to(_BF16)
+    already bf16, whole or sharded; every cast passes the gradient."""
+    return product(x, node["weight"], node["bias"], _bf16_body)
 
 
 def _dense_f32(x: torch.Tensor, node: Dict[str, torch.Tensor]
                ) -> torch.Tensor:
-    y = x @ node["weight"].T
-    return y + node["bias"] if "bias" in node else y
+    return product(x, node["weight"], node.get("bias"), _f32_body)
 
 
 def _layer_norm(y: torch.Tensor, node: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=float32)``: fast variance, clamped at 0."""
+    """flax ``LayerNorm(dtype=float32)``: fast variance, clamped at 0 (a
+    sharded scale or bias gathered whole)."""
     y = y.float()
     mu = y.mean(dim=-1, keepdim=True)
     var = torch.clamp((y * y).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    return (y - mu) * torch.rsqrt(var + _LN_EPS) * node["weight"] + \
-        node["bias"]
+    return (y - mu) * torch.rsqrt(var + _LN_EPS) * \
+        whole(node["weight"], y.device) + whole(node["bias"], y.device)
 
 
 def _ffn(node, x, message):
@@ -165,12 +186,12 @@ def assignment(x0, x1, mask0, mask1, wf, bf, wm, bm, dim: int,
                threshold: float) -> MatchResult:
     """Double-softmax assignment head with sigmoid matchability (f32), of
     one pair or of a leading pair axis; ``wf``/``wm`` in (in, out)
-    layout."""
-    md0 = (x0 @ wf + bf) / float(dim) ** 0.25
-    md1 = (x1 @ wf + bf) / float(dim) ** 0.25
+    layout, whole or sharded."""
+    md0 = product(x0, wf, bf, _affine) / float(dim) ** 0.25
+    md1 = product(x1, wf, bf, _affine) / float(dim) ** 0.25
     sim = md0 @ md1.transpose(-1, -2)
-    z0 = torch.sigmoid((x0 @ wm + bm)[..., 0])
-    z1 = torch.sigmoid((x1 @ wm + bm)[..., 0])
+    z0 = torch.sigmoid(product(x0, wm, bm, _affine)[..., 0])
+    z1 = torch.sigmoid(product(x1, wm, bm, _affine)[..., 0])
     zero = torch.zeros((), device=x0.device)
     pairmask = mask0[..., :, None] & mask1[..., None, :]
     sim = torch.where(pairmask, sim, torch.full_like(zero, -1e9))
@@ -215,10 +236,15 @@ _BF16_DENSE = {"self": ("Wqkv", "out_proj"), "cross": ("to_qk", "to_v",
 def _in_out(node: Dict[str, torch.Tensor], dtype=None
             ) -> Dict[str, torch.Tensor]:
     """A Dense node whose weight is stored in (in, out) layout, the layout
-    the matmul reads, and seen through ``.T`` in the tree's (out, in)."""
-    w = node["weight"].to(dtype or node["weight"].dtype)
-    return {**{k: v.to(dtype or v.dtype) for k, v in node.items()},
-            "weight": w.T.contiguous().T}
+    the matmul reads, and seen through ``.T`` in the tree's (out, in);
+    a sharded leaf shard by shard."""
+    def each(t, fn):
+        return t.map(fn) if isinstance(t, Sharded) else fn(t)
+
+    out = {k: each(v, lambda t: t.to(dtype or t.dtype))
+           for k, v in node.items()}
+    out["weight"] = each(out["weight"], lambda t: t.T.contiguous().T)
+    return out
 
 
 class LightGlue(nn.Module):

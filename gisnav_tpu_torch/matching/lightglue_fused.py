@@ -20,6 +20,14 @@ tensors and for CUDA tensors makes the two launches of
 ``attention.key_splits`` ways over a thread-block cluster, then the FFN
 epilogue. Its gradient recomputes through ``fused_block_plain``, as the JAX
 package's ``custom_vjp`` does through ``_block_reference``.
+
+On a tree from ``parallel.mesh.shard_params_tp`` with a ``model`` axis above
+1, the Dense products the JAX package computes outside its kernel (the input
+and positional projections, Wqkv, the cross block's ``wcat``, ``final_proj``
+and the matchability head) go through ``parallel.tp.product``, each output
+slice on its shard's device; Wqkv and ``wcat`` are gathered, permuted or
+concatenated, and cut again over the same devices. The block's own weights
+are gathered whole onto the device where the block runs.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from gisnav_tpu_torch.kernels.build import (
     check,
     check_device,
     library,
+    on_device,
     ptr,
     stream_of,
     typed,
@@ -43,9 +52,11 @@ from gisnav_tpu_torch.kernels.build import (
 from gisnav_tpu_torch.matching.attention import key_splits
 from gisnav_tpu_torch.matching.lightglue import (
     MatchResult,
+    _affine,
     assignment,
     normalize_keypoints,
 )
+from gisnav_tpu_torch.parallel.tp import Sharded, product, tree_device, whole
 
 __all__ = ["fused_block", "fused_block_plain", "fused_lightglue_supported",
            "LightGlue"]
@@ -138,10 +149,11 @@ def _attention_cuda(q, k, v, bias, heads, sets, cross):
     splits = key_splits(n, kk, heads, torch.cuda.get_device_properties(
         q.device).multi_processor_count)
     msg = torch.empty((n, dim), dtype=_BF16, device=q.device)
-    check(_lib().gisnav_lg_attention(
-        ptr(q), ptr(k), ptr(v), ptr(bias), ptr(msg), n, kk, heads, sets,
-        int(cross and sets == 2), splits, 1.0 / float(dim // heads) ** 0.5,
-        stream_of(q)), "lightglue attention")
+    with on_device(q):
+        check(_lib().gisnav_lg_attention(
+            ptr(q), ptr(k), ptr(v), ptr(bias), ptr(msg), n, kk, heads, sets,
+            int(cross and sets == 2), splits, 1.0 / float(dim // heads) ** 0.5,
+            stream_of(q)), "lightglue attention")
     LAUNCHES["fused_block"] += 1
     return msg
 
@@ -149,10 +161,11 @@ def _attention_cuda(q, k, v, bias, heads, sets, cross):
 def _ffn_cuda(x, msg, wout, bout, w1x, w1m, b1, lns, lnb, w2, b2):
     """The second launch: x + FFN([x | out_proj(msg)]) (sets*Kq, dim) f32."""
     out = torch.empty_like(x)
-    check(_lib().gisnav_lg_ffn(ptr(x), ptr(msg), ptr(wout), ptr(bout),
-                               ptr(w1x), ptr(w1m), ptr(b1), ptr(lns),
-                               ptr(lnb), ptr(w2), ptr(b2), ptr(out),
-                               x.shape[0], stream_of(x)), "lightglue ffn")
+    with on_device(x):
+        check(_lib().gisnav_lg_ffn(ptr(x), ptr(msg), ptr(wout), ptr(bout),
+                                   ptr(w1x), ptr(w1m), ptr(b1), ptr(lns),
+                                   ptr(lnb), ptr(w2), ptr(b2), ptr(out),
+                                   x.shape[0], stream_of(x)), "lightglue ffn")
     LAUNCHES["fused_block"] += 1
     return out
 
@@ -255,6 +268,10 @@ def _qkv_perm_ext(heads: int, dh: int) -> np.ndarray:
     return np.concatenate([pq, pq[swap], pk, pk[swap], pv])
 
 
+def _matmul(x, w, _):
+    return x @ w
+
+
 def _cs_full(cos, sin, heads):
     """(K, dim) rotary multipliers: rotated = q * C + swap(q) * S."""
     c = torch.cat([cos, cos], dim=1).repeat(1, heads)
@@ -270,9 +287,10 @@ def _cs_full(cos, sin, heads):
 class LightGlue(nn.Module):
     """Fused LightGlue forward over two fixed-size keypoint sets.
 
-    ``params`` is the port's LightGlue tree (``weights.params_from_jax``);
-    the weights are prepared once, in the layouts and types the forward uses,
-    on the device the tree lies on.
+    ``params`` is the port's LightGlue tree (``weights.params_from_jax``),
+    whole or one mesh row's (``parallel.mesh.shard_params_tp``); the weights
+    are prepared once, in the layouts and types the forward uses, on the
+    devices the tree lies on (the block's on the row's first device).
     """
 
     def __init__(self, params: Dict[str, Any], depth: int = 9,
@@ -282,36 +300,56 @@ class LightGlue(nn.Module):
         self.depth, self.heads, self.dim = depth, heads, dim
         self.filter_threshold = filter_threshold
         dh = dim // heads
-        perm = torch.as_tensor(_qkv_perm_ext(heads, dh))
+        dev = tree_device(params)
+        perm = torch.as_tensor(_qkv_perm_ext(heads, dh), device=dev)
 
-        def dense(node, dtype=torch.float32):  # Linear (out, in) -> (in, out)
-            return node["weight"].T.contiguous().to(dtype), node["bias"]
+        def in_out(w, dtype=torch.float32):  # Linear (out, in) -> (in, out)
+            if isinstance(w, Sharded):
+                return w.map(lambda t: t.T.contiguous().to(dtype),
+                             axis=1 - w.axis)
+            return w.T.contiguous().to(dtype)
+
+        def dense(node, dtype=torch.float32):
+            return in_out(node["weight"], dtype), node["bias"]
+
+        def full(node, dtype):  # the block's operand: gathered whole
+            return (in_out(whole(node["weight"], dev), dtype),
+                    whole(node["bias"], dev))
+
+        def recut(w, like):  # cut as ``like`` is, over its devices
+            if isinstance(like, Sharded):
+                return Sharded.split(w, like.devices, axis=1)
+            return w
 
         def ffn(node):
-            w1 = node["fc1"]["weight"].T.to(_BF16)
+            w1 = whole(node["fc1"]["weight"], dev).T.to(_BF16)
             return (w1[:dim].contiguous(), w1[dim:].contiguous(),
-                    node["fc1"]["bias"], node["norm"]["weight"],
-                    node["norm"]["bias"],
-                    node["fc2"]["weight"].T.contiguous().to(_BF16),
-                    node["fc2"]["bias"])
+                    whole(node["fc1"]["bias"], dev),
+                    whole(node["norm"]["weight"], dev),
+                    whole(node["norm"]["bias"], dev),
+                    *full(node["fc2"], _BF16))
 
         self.wi, self.bi = dense(params["input_proj"])
-        self.wr = params["posenc"]["Wr"]["weight"].T.contiguous()
+        self.wr = in_out(params["posenc"]["Wr"]["weight"])
         self.layers = []
         for i in range(depth):
             sp, cp = params[f"self_{i}"], params[f"cross_{i}"]
-            dev_perm = perm.to(sp["Wqkv"]["weight"].device)
-            wqkv = sp["Wqkv"]["weight"].T[:, dev_perm]
-            bqkv = sp["Wqkv"]["bias"][dev_perm]
-            wcat = torch.cat([cp["to_qk"]["weight"].T, cp["to_v"]["weight"].T],
-                             dim=1)
-            bcat = torch.cat([cp["to_qk"]["bias"], cp["to_v"]["bias"]])
+            wqkv = whole(sp["Wqkv"]["weight"], dev).T[:, perm]
+            bqkv = whole(sp["Wqkv"]["bias"], dev)[perm]
+            wcat = torch.cat([whole(cp[n]["weight"], dev).T
+                              for n in ("to_qk", "to_v")], dim=1)
+            bcat = torch.cat([whole(cp[n]["bias"], dev)
+                              for n in ("to_qk", "to_v")])
             self.layers.append({
-                "wqkv": wqkv.contiguous().to(_BF16), "bqkv": bqkv.to(_BF16),
-                "self_out": dense(sp["out_proj"], _BF16),
+                "wqkv": recut(wqkv.contiguous().to(_BF16),
+                              sp["Wqkv"]["weight"]),
+                "bqkv": bqkv.to(_BF16),
+                "self_out": full(sp["out_proj"], _BF16),
                 "self_ffn": ffn(sp["ffn"]),
-                "wcat": wcat.contiguous().to(_BF16), "bcat": bcat.to(_BF16),
-                "cross_out": dense(cp["to_out"], _BF16),
+                "wcat": recut(wcat.contiguous().to(_BF16),
+                              cp["to_qk"]["weight"]),
+                "bcat": bcat.to(_BF16),
+                "cross_out": full(cp["to_out"], _BF16),
                 "cross_ffn": ffn(cp["ffn"]),
             })
         self.wf, self.bf = dense(params["final_proj"])
@@ -329,10 +367,12 @@ class LightGlue(nn.Module):
     def forward(self, kpts0, desc0, mask0, size0, kpts1, desc1, mask1,
                 size1) -> MatchResult:
         dim, heads = self.dim, self.heads
-        x0 = desc0.float() @ self.wi + self.bi
-        x1 = desc1.float() @ self.wi + self.bi
-        p0 = normalize_keypoints(kpts0, size0[0], size0[1]) @ self.wr
-        p1 = normalize_keypoints(kpts1, size1[0], size1[1]) @ self.wr
+        x0 = product(desc0.float(), self.wi, self.bi, _affine)
+        x1 = product(desc1.float(), self.wi, self.bi, _affine)
+        p0 = product(normalize_keypoints(kpts0, size0[0], size0[1]),
+                     self.wr, None, _matmul)
+        p1 = product(normalize_keypoints(kpts1, size1[0], size1[1]),
+                     self.wr, None, _matmul)
         cf0, sf0 = _cs_full(torch.cos(p0), torch.sin(p0), heads)
         cf1, sf1 = _cs_full(torch.cos(p1), torch.sin(p1), heads)
         zero = torch.zeros((), device=x0.device)
@@ -348,7 +388,7 @@ class LightGlue(nn.Module):
             bias2 = torch.cat([bias0, bias1]).contiguous()
 
         def self_qkv(x, layer, cf_, sf_):
-            qkv = self._proj(x, layer["wqkv"], layer["bqkv"])
+            qkv = product(x, layer["wqkv"], layer["bqkv"], self._proj)
             q = self._rot(qkv[:, :dim], qkv[:, dim:2 * dim], cf_, sf_)
             k = self._rot(qkv[:, 2 * dim:3 * dim], qkv[:, 3 * dim:4 * dim],
                           cf_, sf_)
@@ -367,13 +407,13 @@ class LightGlue(nn.Module):
 
             wo = (*layer["cross_out"], *layer["cross_ffn"])
             if dual:
-                qv = self._proj(xx, layer["wcat"], layer["bcat"])
+                qv = product(xx, layer["wcat"], layer["bcat"], self._proj)
                 qk, v = qv[:, :dim].contiguous(), qv[:, dim:].contiguous()
                 xx = fused_block(xx, qk, qk, v, bias2, *wo, heads=heads,
                                  sets=2, cross=True)
             else:
-                qv0 = self._proj(x0, layer["wcat"], layer["bcat"])
-                qv1 = self._proj(x1, layer["wcat"], layer["bcat"])
+                qv0 = product(x0, layer["wcat"], layer["bcat"], self._proj)
+                qv1 = product(x1, layer["wcat"], layer["bcat"], self._proj)
                 qk0, v0 = qv0[:, :dim].contiguous(), qv0[:, dim:].contiguous()
                 qk1, v1 = qv1[:, :dim].contiguous(), qv1[:, dim:].contiguous()
                 x0, x1 = (

@@ -75,19 +75,27 @@ def build_models(params: Dict[str, Any], config: PipelineConfig
       budget, split evenly over ``ref_tile_grid``; same weight tensors),
       both with ``config.detector_mode``'s detector;
     - ``lightglue``, which picks the fused or the module route per call;
-    - ``loftr``, the semi-dense matcher (``max_keypoints`` matches)."""
+    - ``loftr``, the semi-dense matcher (``max_keypoints`` matches).
+
+    ``params`` may be one mesh row's tree (``parallel.mesh.shard_params_tp``):
+    LightGlue then forms its Dense products over the row's model shards,
+    and SuperPoint and LoFTR, whose kernels take their operands whole, get
+    their sharded leaves (the conv biases) gathered onto the row's first
+    device."""
     from gisnav_tpu_torch.features.superpoint import SuperPoint
     from gisnav_tpu_torch.matching.lightglue import LightGlueMatcher
     from gisnav_tpu_torch.matching.loftr import LoFTR
+    from gisnav_tpu_torch.parallel.tp import gather_tree
 
     models: Dict[str, torch.nn.Module] = {}
     if "superpoint" in params:
         mode = config.detector_mode  # SuperPoint raises for an unknown one
+        sp = gather_tree(params["superpoint"])
         models["superpoint"] = SuperPoint(
-            params["superpoint"], config.max_keypoints,
+            sp, config.max_keypoints,
             config.score_threshold, detector_mode=mode)
         models["superpoint_ref"] = SuperPoint(
-            params["superpoint"],
+            sp,
             config.max_keypoints * config.ref_keypoint_factor,
             config.score_threshold, select_tiles=config.ref_tile_grid,
             detector_mode=mode)
@@ -96,7 +104,7 @@ def build_models(params: Dict[str, Any], config: PipelineConfig
             params["lightglue"], depth=config.lightglue_depth,
             filter_threshold=config.filter_threshold)
     if "loftr" in params:
-        models["loftr"] = LoFTR(params["loftr"],
+        models["loftr"] = LoFTR(gather_tree(params["loftr"]),
                                 max_matches=config.max_keypoints)
     return models
 

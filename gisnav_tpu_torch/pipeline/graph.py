@@ -72,9 +72,37 @@ from gisnav_tpu_torch.device import strict_fp32
 from gisnav_tpu_torch.kernels import LAUNCHES
 from gisnav_tpu_torch.utils.devlock import device_lock
 
-__all__ = ["FrameGraph", "CaptureError", "HostReadGuard"]
+__all__ = ["FrameGraph", "CaptureError", "HostReadGuard", "capture_stream",
+           "side_streams"]
 
 _ALIGN = 16  # byte alignment of each output inside the packed buffer
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device) -> "torch.cuda.Stream":
+    """The stream the programs of ``device`` are captured on, one a card
+    (``torch.cuda.graph``'s default one is made once a process, on the card
+    current at the first capture)."""
+    dev = torch.device(device)
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return stream
+
+
+def side_streams(device, n: int) -> List["torch.cuda.Stream"]:
+    """``n`` streams of ``device`` to fork a program's branches onto, none
+    of them the card's capture stream. PyTorch hands out a pool of 32
+    streams a card in turn, so a stream asked for later can be the capture
+    stream itself; a branch forked onto it inside a capture is the
+    program's own line, and every branch forked after it waits for it."""
+    cap = capture_stream(device)
+    out: List[torch.cuda.Stream] = []
+    while len(out) < n:
+        stream = torch.cuda.Stream(device)
+        if stream != cap:
+            out.append(stream)
+    return out
 
 
 class CaptureError(RuntimeError):
@@ -211,6 +239,12 @@ class FrameGraph:
     def __call__(self, *args):
         if self.device.type != "cuda":
             return self.fn(*args)
+        # the capture stream, the replay and the kernels' attribute and
+        # grid queries belong to the program's card, not the current one
+        with torch.cuda.device(self.device):
+            return self._call(args)
+
+    def _call(self, args):
         per_arg = [_flatten(a) for a in args]
         leaves = [t for sub, _ in per_arg for t in sub]
         if self._graph is None:
@@ -274,7 +308,7 @@ class FrameGraph:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph,
+                with torch.cuda.graph(graph, stream=capture_stream(dev),
                                       capture_error_mode="thread_local"):
                     reserved = torch.cuda.memory_reserved(dev)
                     captured = self.fn(*static_args)

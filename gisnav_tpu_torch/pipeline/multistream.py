@@ -12,6 +12,13 @@ so the graph's N branches are independent and the card overlaps the small
 kernels of different feeds; ``fork_streams=False`` captures them one after
 another on one stream. On the CPU the same frame function runs stream by
 stream.
+
+:func:`build_mesh_multistream_pipeline` runs the tick over a ``(data,
+model)`` mesh, the counterpart of the JAX package's jitted multistream
+program on sharded streams and weights: each data row runs its block of
+streams on its first device with its own tree of the weights
+(``parallel.mesh.shard_params_tp``: LightGlue's Dense products over the
+row's model slots), and the poses are gathered back in stream order.
 """
 from __future__ import annotations
 
@@ -25,9 +32,14 @@ from gisnav_tpu_torch.pipeline.geopose import (
     PipelineConfig,
     build_frame_to_geopose_cached,
 )
-from gisnav_tpu_torch.pipeline.graph import FrameGraph, _flatten
+from gisnav_tpu_torch.pipeline.graph import (
+    FrameGraph,
+    _flatten,
+    side_streams,
+)
 
-__all__ = ["build_multistream_pipeline", "shard_stream_batch"]
+__all__ = ["build_multistream_pipeline", "build_mesh_multistream_pipeline",
+           "shard_stream_batch"]
 
 
 def _stack(poses: Sequence[GeoPose]) -> GeoPose:
@@ -58,7 +70,8 @@ def build_multistream_pipeline(config: PipelineConfig,
     entries (arrays or callables of the match mask, as the frame program
     takes them). On the card one graph is captured per models object and
     input signature and replayed for every later tick; ``fn.graphs`` holds
-    them.
+    them. ``graph=False`` runs the tick eagerly on the card, the streams one
+    after another.
     """
     frame_fn = build_frame_to_geopose_cached(config)
     graphs: Dict[tuple, FrameGraph] = {}
@@ -86,8 +99,8 @@ def build_multistream_pipeline(config: PipelineConfig,
             cur.wait_stream(s)
         return _stack(poses)
 
-    def fn(models, queries, ref_feats, dems, ks, crs_affines, draws
-           ) -> GeoPose:
+    def fn(models, queries, ref_feats, dems, ks, crs_affines, draws,
+           graph: bool = True) -> GeoPose:
         n = int(queries.shape[0])
         dev = queries.device if isinstance(queries, torch.Tensor) \
             else torch.device("cpu")
@@ -102,17 +115,18 @@ def build_multistream_pipeline(config: PipelineConfig,
             noise = True
         else:
             noise = False
-        if dev.type != "cuda":
+        if dev.type == "cuda" and not isinstance(draws, torch.Tensor):
+            draws = torch.as_tensor(np.asarray(draws), dtype=torch.long)
+        if isinstance(draws, torch.Tensor):
+            draws = draws.to(dev)  # a generator of another card drew them
+        if dev.type != "cuda" or not graph:
             return tick(models, queries, ref_feats, dems, ks, crs_affines,
                         draws, noise)
-        if not isinstance(draws, torch.Tensor):
-            draws = torch.as_tensor(np.asarray(draws), dtype=torch.long)
         args = (queries, ref_feats, dems, ks, crs_affines, draws)
         key = (id(models), noise, *((t.shape, t.dtype)
                                     for t in _flatten(args)[0]))
         if key not in graphs:
-            streams = tuple(torch.cuda.Stream(dev) for _ in range(n)) \
-                if fork_streams else ()
+            streams = tuple(side_streams(dev, n)) if fork_streams else ()
             graphs[key] = FrameGraph(
                 lambda q, rf, d, k, a, dr: tick(models, q, rf, d, k, a, dr,
                                                 noise, streams),
@@ -121,6 +135,60 @@ def build_multistream_pipeline(config: PipelineConfig,
         return graphs[key](*args)
 
     fn.graphs = graphs
+    return fn
+
+
+def build_mesh_multistream_pipeline(config: PipelineConfig
+                                    ) -> Callable[..., GeoPose]:
+    """The multistream tick over a ``(data, model)`` mesh.
+
+    Returned signature::
+
+        fn(mesh, row_models, blocks, draws) -> GeoPose
+
+    ``row_models[i]`` is ``build_models`` of row i's tree from
+    ``parallel.mesh.shard_params_tp``; ``blocks[i]`` is row i's block of
+    ``shard_stream_batch(mesh, (queries, ref_feats, dems, ks,
+    crs_affines))``; ``draws`` holds every stream's RANSAC draw in stream
+    order (generators or sample indices, as
+    :func:`build_multistream_pipeline` takes them). Row i runs its streams
+    on its first device with its draws, on a side stream of its own
+    (``parallel.mesh.run_rows``: the rows on one card overlap). A row whose
+    slots are one card replays one graph a row as the single-device tick
+    does; a row that spans cards runs eagerly (a CUDA graph captures one
+    card's stream). ``fn.modes`` maps each row to ``"graph"``, ``"eager"``
+    or ``"cpu"``. The result lies on row 0's first device, stream i of the
+    output being stream i of the input.
+    """
+    from gisnav_tpu_torch.parallel.mesh import run_rows
+
+    tick = build_multistream_pipeline(config)
+    modes: Dict[int, str] = {}
+    streams: Dict[int, torch.cuda.Stream] = {}
+
+    def fn(mesh, row_models, blocks, draws) -> GeoPose:
+        if len(row_models) != len(blocks):
+            raise ValueError(f"{len(row_models)} model rows for "
+                             f"{len(blocks)} blocks")
+        calls, start = [], 0
+        for i, (models, block) in enumerate(zip(row_models, blocks)):
+            n = int(block[0].shape[0])
+            dev = block[0].device
+            graph = mesh.row_on_one_device(i)
+            modes[i] = ("graph" if graph else "eager") \
+                if dev.type == "cuda" else "cpu"
+            calls.append((dev, lambda m=models, b=block, d=draws[
+                start:start + n], g=graph: tick(m, *b, d, graph=g)))
+            start += n
+        if start != len(draws):
+            raise ValueError(f"{len(draws)} draws for {start} streams")
+        poses = run_rows(calls, streams)
+        out = blocks[0][0].device
+        return GeoPose(*(torch.cat([f.to(out) for f in fields])
+                         for fields in zip(*poses)))
+
+    fn.modes = modes
+    fn.graphs = tick.graphs
     return fn
 
 

@@ -33,6 +33,7 @@ from gisnav_tpu_torch.kernels.build import (
     aligned16,
     check,
     library,
+    on_device,
     ptr,
     stream_of,
     typed,
@@ -108,9 +109,10 @@ def _launch(entry: str, img: torch.Tensor, shift,
         value, at = 0.0, ptr(shift.contiguous())
     else:
         value, at = shift, None
-    check(getattr(_lib(), "gisnav_" + entry)(
-        ptr(src), ptr(out), c, h, w, value, at, float(center),
-        stream_of(src)), entry)
+    with on_device(src):
+        check(getattr(_lib(), "gisnav_" + entry)(
+            ptr(src), ptr(out), c, h, w, value, at, float(center),
+            stream_of(src)), entry)
     LAUNCHES[entry] += 1
     return out
 

@@ -28,6 +28,14 @@ graph an input signature. A graph is captured per state (its optimizer)
 and generator and holds them; the first call returns the side-stream
 warm-up's result, a real chunk or step. ``fn.eager`` runs the same chunk
 or step op by op. On the CPU both are the eager calls.
+
+:func:`make_mesh_train_step` is the step over a ``(data, model)`` mesh, the
+counterpart of the JAX package's jitted step on sharded state and batch: a
+replica of the state a data row (:func:`shard_train_state`, its Dense
+weights sharded over the row's model slots), forward and backward of each
+row's block of the batch on the row's first device (a side stream a row,
+so rows on one card overlap), every gradient averaged over the rows (the
+JAX global mean over the batch) and the same AdamW update on every row.
 """
 from __future__ import annotations
 
@@ -41,13 +49,20 @@ from gisnav_tpu_torch.features.harris import harris_response
 from gisnav_tpu_torch.features.nms import simple_nms
 from gisnav_tpu_torch.features.superpoint import superpoint_batched
 from gisnav_tpu_torch.matching.lightglue import lightglue_forward
-from gisnav_tpu_torch.pipeline.graph import FrameGraph
+from gisnav_tpu_torch.parallel.tp import (
+    Sharded,
+    gather_tree,
+    tree_device,
+)
+from gisnav_tpu_torch.parallel.tp import map_tree as _map_tree
+from gisnav_tpu_torch.pipeline.graph import FrameGraph, _flatten
 
-__all__ = ["TrainConfig", "TrainState", "AdamW", "tree_leaves",
-           "master_params", "init_train_state", "matcher_loss",
+__all__ = ["TrainConfig", "TrainState", "AdamW", "tree_leaves", "tree_grads",
+           "relative_error", "master_params", "init_train_state", "matcher_loss",
            "detector_distill_loss", "make_train_step", "CachedRegimeConfig",
            "make_cached_regime_train_step", "make_cached_regime_chunk",
-           "make_device_train_chunk", "curriculum", "graphed"]
+           "make_device_train_chunk", "curriculum", "graphed",
+           "MeshTrainState", "shard_train_state", "make_mesh_train_step"]
 
 
 class TrainState(NamedTuple):
@@ -71,17 +86,30 @@ class TrainConfig:
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The leaves of a nested dict in key order (the optimizer's order)."""
+    """The leaves of a nested dict in key order (the optimizer's order), a
+    sharded leaf as its shards in slot order."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree)
                 for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, Sharded):
+        return list(tree.shards)
     return [tree]
 
 
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def tree_grads(params):
+    """The gradients of a tree's parameters, a sharded leaf's as the
+    ``Sharded`` of its shards' gradients (``parallel.tp.gather_tree`` makes
+    them whole): after a step, the gradient its update read."""
+    return _map_tree(lambda p: p.map(lambda s: s.grad)
+                     if isinstance(p, Sharded) else p.grad, params)
+
+
+def relative_error(got, want) -> float:
+    """``|got - want| / |want|`` (Frobenius norms; 0 where both are 0)."""
+    num = float(torch.linalg.vector_norm((got.to(want.device) - want)
+                                         .float()))
+    den = float(torch.linalg.vector_norm(want.float()))
+    return num / den if den else (0.0 if num == 0 else float("inf"))
 
 
 def master_params(jax_tree, device) -> Dict[str, Any]:
@@ -225,7 +253,8 @@ def graphed(fn) -> Callable:
     arguments (a chunk's pair draws, given first) are registered with it.
     A state is its step counter, its optimizer and its parameter tensors,
     each by identity: a state rebuilt around any other tensor (another
-    step, as ``state._replace(step=...)`` makes) is captured anew. A graph
+    step, as ``state._replace(step=...)`` makes) is captured anew; a
+    ``MeshTrainState`` is its rows' states, on one card. A graph
     lives as long as the returned function (``.graphs.clear()`` frees
     them) and holds its state and the gradient buffers the step writes and
     AdamW reads (a caller that sets them to None later, as
@@ -233,27 +262,29 @@ def graphed(fn) -> Callable:
     memory). On the CPU, and as ``.eager``, ``fn`` itself."""
     graphs: Dict[tuple, FrameGraph] = {}
 
-    def call(state: TrainState, *args):
-        if not state.step.is_cuda:
+    def call(state, *args):
+        rows = _rows(state)
+        if not rows[0].step.is_cuda:
             return fn(state, *args)
         gens = tuple(a for a in args if isinstance(a, torch.Generator))
         batch = args[len(gens):]
-        key = (id(state.step), id(state.opt_state),
-               *map(id, tree_leaves(state.params)), *map(id, gens),
-               *((tuple(b.shape), b.dtype) for b in batch))
+        key = (*(id(x) for r in rows
+                 for x in (r.step, r.opt_state, *tree_leaves(r.params))),
+               *map(id, gens),
+               *((tuple(b.shape), b.dtype) for b in _flatten(batch)[0]))
         graph = graphs.get(key)
         if graph is not None:
             return state, graph(*batch)
         graph = graphs[key] = FrameGraph(
-            lambda *b: fn(state, *gens, *b)[1], state.step.device,
+            lambda *b: fn(state, *gens, *b)[1], rows[0].step.device,
             grad=True, generators=gens)
         try:
             metrics = graph(*batch)
         except BaseException:
             del graphs[key]
             raise
-        graph.held = (state, gens,
-                      [p.grad for p in tree_leaves(state.params)])
+        graph.held = (state, gens, [p.grad for r in rows
+                                    for p in tree_leaves(r.params)])
         return state, metrics
 
     call.eager = fn
@@ -269,7 +300,7 @@ def _train_step_fn(config: TrainConfig) -> Callable:
         bsz = image0.shape[0]
         images = torch.cat([image0, image1], dim=0)
         feats, det_logits = superpoint_batched(
-            params["superpoint"], images,
+            gather_tree(params["superpoint"]), images,
             max_keypoints=config.max_keypoints,
             detector_mode=config.detector_mode, return_logits=True)
         f0 = type(feats)(*(t[:bsz] for t in feats))
@@ -302,6 +333,108 @@ def make_train_step(config: TrainConfig, tx: AdamW) -> Callable:
     return step
 
 
+class MeshTrainState(NamedTuple):
+    mesh: Any  # parallel.mesh.Mesh
+    rows: List[TrainState]  # a replica a data row, equal after every step
+
+
+def _rows(state) -> List[TrainState]:
+    return state.rows if isinstance(state, MeshTrainState) else [state]
+
+
+def shard_train_state(mesh, state: TrainState, tx: AdamW
+                      ) -> MeshTrainState:
+    """A fresh ``state`` (no step taken) over ``mesh``: each data row's own
+    copy of the parameters as ``parallel.mesh.shard_params_tp`` lays them
+    out (the shards of a Dense weight on the row's model slots, every other
+    leaf on its first device), each an ``nn.Parameter`` with its own AdamW
+    state on its device, and the step counter on the row's first device."""
+    from gisnav_tpu_torch.parallel.mesh import shard_params_tp
+
+    if state.opt_state.state:
+        raise ValueError("shard_train_state takes a state before its first "
+                         "step (the optimizer's moments are not resharded)")
+
+    def own(leaf):
+        if isinstance(leaf, Sharded):
+            return leaf.map(lambda t: nn.Parameter(t.detach().clone()))
+        return nn.Parameter(leaf.detach().clone())
+
+    rows = []
+    for tree in shard_params_tp(mesh, state.params):
+        params = _map_tree(own, tree)
+        rows.append(TrainState(params, tx.init(params),
+                               state.step.detach().to(tree_device(params),
+                                                      copy=True)))
+    return MeshTrainState(mesh, rows)
+
+
+def _mesh_step_fn(config: TrainConfig) -> Callable:
+    """The eager step of :func:`make_mesh_train_step`."""
+    from gisnav_tpu_torch.parallel.mesh import run_rows
+
+    loss_fn = _train_step_fn(config).loss_fn
+    streams: Dict[int, torch.cuda.Stream] = {}
+
+    def forward_backward(row, block):
+        row.opt_state.zero_grad(set_to_none=False)
+        loss, recall = loss_fn(row.params, *block)
+        loss.backward()
+        return loss.detach(), recall.detach()
+
+    def mesh_step(state: MeshTrainState, blocks):
+        if len(blocks) != len(state.rows):
+            raise ValueError(f"{len(blocks)} batch blocks for "
+                             f"{len(state.rows)} data rows")
+        # each row on a side stream of its first device: rows overlap
+        losses, recalls = zip(*run_rows(
+            [(row.step.device, lambda r=row, b=block: forward_backward(r, b))
+             for row, block in zip(state.rows, blocks)], streams))
+        # the JAX step's mean over the whole batch: every row's block is
+        # as large, so the gradient is the mean of the rows' gradients
+        for leaves in zip(*(tree_leaves(r.params) for r in state.rows)):
+            for p in leaves:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mean = torch.stack([p.grad.to(leaves[0].device)
+                                for p in leaves]).mean(dim=0)
+            for p in leaves:
+                p.grad.copy_(mean)
+        for row in state.rows:
+            row.opt_state.step()
+            row.step.add_(1)
+        dev = state.rows[0].step.device
+        return state, {
+            "loss": torch.stack([v.to(dev) for v in losses]).mean(),
+            "gt_recall": torch.stack([v.to(dev) for v in recalls]).mean()}
+
+    return mesh_step
+
+
+def make_mesh_train_step(config: TrainConfig, tx: AdamW) -> Callable:
+    """(mesh_state, blocks) -> (mesh_state, metrics): the train step over a
+    ``(data, model)`` mesh. ``blocks`` is ``parallel.mesh.shard_batch(mesh,
+    (image0, image1, homography))``, one block of pairs a data row; each
+    row runs forward and backward of its block on its first device (the
+    Dense products over its model slots), every gradient is averaged over
+    the rows and every row takes the same AdamW update, so the replicas
+    stay equal and the parameters keep their sharding. Where the whole
+    mesh is one card the step is one graph replay (:func:`graphed`); a mesh
+    over several cards runs eagerly."""
+    del tx
+    eager = _mesh_step_fn(config)
+    graph = graphed(eager)
+
+    def step(state: MeshTrainState, blocks):
+        if len(set(state.mesh.devices.flat)) > 1:
+            return eager(state, blocks)  # a graph captures one card
+        return graph(state, blocks)
+
+    step.eager, step.graphs = eager, graph.graphs
+    step.loss_fn = _train_step_fn(config).loss_fn
+    return step
+
+
 @dataclasses.dataclass(frozen=True)
 class CachedRegimeConfig:
     """Asymmetric (cached-reference deployment regime) fine-tune config: a
@@ -329,7 +462,7 @@ def make_cached_regime_train_step(config: CachedRegimeConfig,
     del tx
 
     def loss_fn(params, query, ref, transform):
-        sp = params["superpoint"]
+        sp = gather_tree(params["superpoint"])
         fq = superpoint_batched(sp, query, max_keypoints=config.q_keypoints,
                                 detector_mode=config.detector_mode)
         fr = superpoint_batched(sp, ref, max_keypoints=config.r_keypoints,

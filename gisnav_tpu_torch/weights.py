@@ -70,8 +70,11 @@ def _inner(tree):
 
 
 def _t(a, dtype, device):
-    return torch.as_tensor(np.asarray(a, np.float32)).to(device=device,
-                                                         dtype=dtype)
+    """A tensor of its own memory: never a view of the caller's array (a
+    JAX array's host buffer, which a train step updating the tensor in
+    place would write into while a dispatched JAX program still reads it)."""
+    return torch.from_numpy(np.array(a, np.float32)).to(device=device,
+                                                        dtype=dtype)
 
 
 def _convert_superpoint(sp, device, master=False):
@@ -179,6 +182,30 @@ def params_to_jax(tree) -> Dict[str, Any]:
                   if k != "backbone"}
         out["loftr"] = {"params": {"backbone": backbone, **blocks}}
     return out
+
+
+def jax_leaf_layout(keys: Tuple[str, ...], shape: Tuple[int, ...]
+                    ) -> Tuple[Tuple[str, ...], Tuple[int, ...], tuple]:
+    """Where a leaf of the port's tree (``keys`` from the root, ``shape``)
+    comes from in the JAX layout, as :func:`params_from_jax` converts it:
+    the JAX leaf's keys (no ``params`` level), its JAX shape and, for each
+    JAX axis, the port axis it becomes (None for the taps that a 1x1 or
+    3x3 conv's conversion folds away). A leaf already in the JAX layout
+    (``kernel``, ``scale``) maps to itself."""
+    keys, shape = tuple(keys), tuple(shape)
+    if keys[-1] != "weight":
+        return keys, shape, tuple(range(len(shape)))
+    if len(shape) == 1:  # LayerNorm scale
+        return keys[:-1] + ("scale",), shape, (0,)
+    keys = keys[:-1] + ("kernel",)
+    if keys[0] == "superpoint":
+        if len(shape) == 3:  # (9, Cin, Cout) <- (3, 3, Cin, Cout)
+            return keys, (3, 3) + shape[1:], (None, None, 1, 2)
+        # Linear (Cout, Cin) <- (1, 1, Cin, Cout)
+        return keys, (1, 1, shape[1], shape[0]), (None, None, 1, 0)
+    if len(shape) == 4:  # LoFTR conv (Cout, Cin, kh, kw) <- HWIO
+        return keys, (shape[2], shape[3], shape[1], shape[0]), (2, 3, 1, 0)
+    return keys, shape[::-1], (1, 0)  # Dense (out, in) <- (in, out)
 
 
 def save_npz(path: str, tree) -> None:

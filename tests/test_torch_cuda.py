@@ -46,7 +46,12 @@ against ``optax.adamw`` (1e-6; its numpy f32 transcription where JAX is
 not installed), a ``sample_idx`` refused by the classical frame; K6 with
 its shift read from device memory, bit-equal to its plain versions at the
 residual shears' bounds and inside a graph, NaN out of range; a capture
-while old graphs wait in reference cycles for the collector.
+while old graphs wait in reference cycles for the collector. The mesh: a
+(2 x 2) mesh over ``cuda:0`` (a graph a row) within JAX's TP2 bound of
+TP1 (lon/lat 2e-5 deg) and TP1 equal to the single-device tick, the mesh
+train step against the replicated one (loss 1e-2 relative, parameters 5
+lr), and every kernel wrapper on ``cuda:1`` against its plain version
+with the tolerances above (skipped below two cards).
 """
 import numpy as np
 import pytest
@@ -1678,3 +1683,275 @@ def test_capture_survives_cyclic_garbage(card):
         assert float(program(x)) == 16.0 and program.replays == 1
     finally:
         gc.set_threshold(*thresholds)
+
+
+# --- the (data, model) mesh ------------------------------------------------
+
+
+def _mesh_streams(n):
+    """harris_lg5 cached at 480x640 on path 4's scene, ``n`` streams from
+    their own points (yaws 360 / n apart), the batch on cuda:0."""
+    import dataclasses
+
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_models,
+        build_reference_extractor,
+    )
+    from gisnav_tpu_torch.utils.world import render_scene
+    from gisnav_tpu_torch.weights import load_bundled, params_from_jax
+
+    s = render_scene(seed=6, h=480, w=640,
+                     yaws=[i * 360.0 / n for i in range(n)], map_side=800,
+                     coverage=3.0, offset_m=22.2)
+    params, cfg = load_bundled("harris_lg5")
+    cfg = dataclasses.replace(cfg, ortho_shape=s.ortho.shape,
+                              detector_downsample=2)
+    dev = "cuda"
+    tree = params_from_jax(params, dev)
+    ref = build_reference_extractor(cfg)(
+        build_models(tree, cfg),
+        torch.as_tensor(s.ortho, device=dev).float() / 255.0)
+    k, aff = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+              for a in (s.k, s.crs_affine))
+    batch = (torch.stack([torch.as_tensor(f, device=dev).float() / 255.0
+                          for f in s.frames]),
+             type(ref)(*(torch.stack([f] * n) for f in ref)),
+             torch.stack([torch.as_tensor(s.dem, device=dev)] * n),
+             torch.stack([k] * n), torch.stack([aff] * n))
+    return s, cfg, tree, batch
+
+
+def test_mesh_tick_on_card_tp2_vs_tp1(card):
+    """A (2 x 2) mesh laid over cuda:0 slot by slot: each row replays one
+    graph; TP2 within JAX's bound of TP1 (lon/lat 2e-5, ``valid`` equal),
+    TP1 equal to the single-device tick, every fix within 10 m of its own
+    truth, and a tick launching four frames' kernels."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.parallel import make_mesh, shard_params_tp
+    from gisnav_tpu_torch.pipeline.geopose import (
+        build_models,
+        geopose_to_wgs84_f64,
+    )
+    from gisnav_tpu_torch.pipeline.multistream import (
+        build_mesh_multistream_pipeline,
+        build_multistream_pipeline,
+        shard_stream_batch,
+    )
+
+    n = 4
+    s, cfg, tree, batch = _mesh_streams(n)
+
+    def gens():
+        return [torch.Generator(device="cuda").manual_seed(i + 10)
+                for i in range(n)]
+
+    outs = {}
+    for model in (1, 2):
+        mesh = make_mesh(2 * model, model_parallel=model,
+                         devices=[torch.device("cuda", 0)] * 4)
+        rows = [build_models(t, cfg) for t in shard_params_tp(mesh, tree)]
+        fn = build_mesh_multistream_pipeline(cfg)
+        blocks = shard_stream_batch(mesh, batch)
+        fn(mesh, rows, blocks, gens())  # captures
+        reset_launches()
+        outs[model] = fn(mesh, rows, blocks, gens())
+        assert fn.modes == {0: "graph", 1: "graph"}
+        assert LAUNCHES == {k: {"stem_stage": 1, "conv_stage": 7,
+                                "nms_select": 1, "fused_block": 40}.get(k, 0)
+                            * n for k in LAUNCHES}
+    single = build_multistream_pipeline(cfg)
+    models = build_models(tree, cfg)
+    single(models, *batch, gens())
+    want = single(models, *batch, gens())
+    for f in ("matched_qry", "matched_ref", "num_inliers", "valid"):
+        assert torch.equal(getattr(outs[1], f), getattr(want, f)), f
+    torch.testing.assert_close(outs[2].lon_lat_alt[:, :2],
+                               outs[1].lon_lat_alt[:, :2], rtol=0,
+                               atol=2e-5)
+    assert torch.equal(outs[2].valid, outs[1].valid)
+    for i, (lon, lat) in enumerate(s.truth_lonlat):
+        fix = geopose_to_wgs84_f64(type(outs[2])(*(f[i] for f in outs[2])),
+                                   s.crs_affine)
+        assert haversine_m(lat, lon, fix["lat"], fix["lon"]) < 10.0
+
+
+def test_mesh_train_step_on_card_vs_replicated(card):
+    """The train step on a (2 x 2) mesh over cuda:0 (one graph a step)
+    against the single-device step on the whole batch (64x80, 256
+    keypoints, LightGlue-1, batch 4): loss within 1e-2 relative, every
+    parameter within 5 lr, the replicas equal and still sharded, and the
+    gradient the update read within 2 % of the replicated step's on its
+    worst leaf (relative norm; read 0.0040 on an H100 at 700 W), where
+    row 0's block alone (0.55) lies beyond."""
+    from gisnav_tpu_torch.parallel import make_mesh
+    from gisnav_tpu_torch.parallel.mesh import shard_batch
+    from gisnav_tpu_torch.parallel.tp import Sharded, gather_tree
+    from gisnav_tpu_torch.train import steps as TS
+    from gisnav_tpu_torch.train.data import make_homography_batch
+
+    cfg = TS.TrainConfig(image_shape=(64, 80), max_keypoints=256,
+                         lightglue_depth=1, learning_rate=3e-4)
+
+    def fresh():
+        state, tx = TS.init_train_state(torch.Generator().manual_seed(0),
+                                        cfg, device="cuda")
+        return state, tx
+
+    batch = make_homography_batch(np.random.default_rng(0), 4,
+                                  cfg.image_shape)
+    args = tuple(torch.as_tensor(np.asarray(a), device="cuda")
+                 for a in batch)
+    state, tx = fresh()
+    state, m = TS.make_train_step(cfg, tx)(state, *args)
+    mesh = make_mesh(4, model_parallel=2,
+                     devices=[torch.device("cuda", 0)] * 4)
+    step = TS.make_mesh_train_step(cfg, tx)
+    mstate = TS.shard_train_state(mesh, fresh()[0], tx)
+    mstate, mm = step(mstate, shard_batch(mesh, args))
+    assert len(step.graphs) == 1
+    assert abs(float(mm["loss"]) - float(m["loss"])) <= 1e-2 * abs(
+        float(m["loss"]))
+    with torch.no_grad():
+        rows = [gather_tree(r.params) for r in mstate.rows]
+        for a, b in zip(TS.tree_leaves(rows[0]),
+                        TS.tree_leaves(state.params)):
+            assert float((a - b).abs().max()) < 5 * cfg.learning_rate
+    want = TS.tree_leaves(TS.tree_grads(state.params))
+
+    def worst_grad(params):
+        return max(TS.relative_error(a, b) for a, b in zip(
+            TS.tree_leaves(gather_tree(TS.tree_grads(params))), want))
+
+    row0_state = fresh()[0]
+    TS.make_train_step(cfg, tx).eager(row0_state,
+                                      *shard_batch(mesh, args)[0])
+    got = [worst_grad(r.params) for r in mstate.rows]
+    print(f"gradient's worst leaf {got}, row 0's block alone "
+          f"{worst_grad(row0_state.params)}")
+    assert max(got) < 0.02 < worst_grad(row0_state.params)
+    for row, tree in zip(mstate.rows, rows):
+        assert int(row.step) == 1
+        for a, b in zip(TS.tree_leaves(tree), TS.tree_leaves(rows[0])):
+            assert torch.equal(a, b)
+        assert isinstance(row.params["lightglue"]["final_proj"]["weight"],
+                          Sharded)
+
+
+def test_side_streams_skip_the_capture_stream(card):
+    """PyTorch hands out a pool of 32 streams a card in turn, so a stream
+    asked for later comes round to the capture stream; a program's forked
+    branches never land on it."""
+    from gisnav_tpu_torch.pipeline.graph import capture_stream, side_streams
+
+    cap = capture_stream("cuda")
+    assert any(torch.cuda.Stream("cuda") == cap for _ in range(64))
+    streams = side_streams("cuda", 40)
+    assert len(streams) == 40 and cap not in streams
+    assert len({s.cuda_stream for s in streams[:31]}) == 31
+
+
+def _second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    return torch.device("cuda", 1)
+
+
+def _kernel_case(name, gen, dev):
+    """(kernel call, plain call, tolerance) on ``dev``'s tensors."""
+    def r(shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen, device=dev)
+                ).to(dtype).contiguous()
+
+    bf = torch.bfloat16
+    if name in ("conv_stage", "stem_stage"):
+        from gisnav_tpu_torch.features import conv
+
+        def w(cin, cout):
+            return (r((9, cin, cout), (2.0 / (9 * cin)) ** 0.5, bf),
+                    r((cout,), 0.05))
+
+        if name == "stem_stage":
+            img = torch.rand((64, 96), generator=gen, device=dev)
+            args = (img, *w(1, 64), *w(64, 64))
+            return (lambda: conv.stem_stage(*args),
+                    lambda: conv.stem_stage_plain(*args), "bf16")
+        x = torch.rand((48, 80, 64), generator=gen, device=dev).to(bf)
+        args = (x, *w(64, 128), *w(128, 128))
+        return (lambda: conv.conv_stage(*args, pool=True),
+                lambda: conv.conv_stage_plain(*args, pool=True), "bf16")
+    if name in ("nms_select", "nms_cellmax"):
+        from gisnav_tpu_torch.features import nms_kernel as nk
+
+        heat = torch.rand((96, 384), generator=gen, device=dev) ** 8
+        return (lambda: getattr(nk, name)(heat, 4),
+                lambda: getattr(nk, name + "_plain")(heat, 4), 1e-4)
+    if name == "fused_block":
+        from gisnav_tpu_torch.matching.lightglue_fused import (
+            fused_block,
+            fused_block_plain,
+        )
+
+        n, dim = 256, 256
+        x = r((2 * n, dim))
+        q, k, v = (r((2 * n, dim), 1.0, bf) for _ in range(3))
+        bias = torch.where(torch.rand((2, n), generator=gen, device=dev)
+                           < 0.9, 0.0, -1e9).float()
+        ws = [r((dim, dim), dim ** -0.5, bf), r((dim,), 0.05),
+              r((dim, 2 * dim), (2 * dim) ** -0.5, bf),
+              r((dim, 2 * dim), (2 * dim) ** -0.5, bf), r((2 * dim,), 0.05),
+              1.0 + r((2 * dim,), 0.1), r((2 * dim,), 0.1),
+              r((2 * dim, dim), (2 * dim) ** -0.5, bf), r((dim,), 0.05)]
+        args = (x, q, k, v, bias, *ws)
+        return (lambda: fused_block(*args, heads=4, sets=2, cross=True),
+                lambda: fused_block_plain(*args, heads=4, sets=2,
+                                          cross=True), 5e-2)
+    if name == "masked_attention":
+        from gisnav_tpu_torch.matching.attention import (
+            masked_attention,
+            masked_attention_plain,
+        )
+
+        q, k, v = (r((n, 4, 64)) for n in (256, 384, 384))
+        mask = torch.rand((384,), generator=gen, device=dev) > 0.33
+        return (lambda: masked_attention(q, k, v, mask),
+                lambda: masked_attention_plain(q, k, v, mask), "rel")
+    from gisnav_tpu_torch.raster import shear_kernel as sk
+
+    # the sheared axis at least 384 long, the other a multiple of 128
+    shape = (2, 256, 384) if name == "shear_last_axis" else (2, 384, 256)
+    img = torch.rand(shape, generator=gen, device=dev)
+    return (lambda: getattr(sk, name)(img, 0.41, 128.0),
+            lambda: getattr(sk, name + "_plain")(img, 0.41, 128.0), 0.0)
+
+
+@pytest.mark.parametrize("name", ["stem_stage", "conv_stage", "nms_select",
+                                  "nms_cellmax", "fused_block",
+                                  "masked_attention", "shear_last_axis",
+                                  "shear_first_axis"])
+def test_kernel_wrapper_on_second_card(card, name):
+    """Each kernel wrapper on cuda:1's tensors while cuda:0 is current:
+    the launch runs on the tensors' card (its attributes and grid there)
+    and agrees with its plain version as on cuda:0."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    dev = _second_card()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kernel, plain, tol = _kernel_case(name, gen, dev)
+    torch.cuda.set_device(0)
+    reset_launches()
+    got, want = kernel(), plain()
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    assert LAUNCHES[name] > 0
+    for g, w in zip(*(o if isinstance(o, (tuple, list)) else (o,)
+                      for o in (got, want))):
+        assert g.device == dev
+        if tol == "bf16":
+            _close_bf16(g, w)
+        elif tol == "rel":
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-2 * float(w.abs().max()))
+        else:
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=tol)

@@ -4,7 +4,8 @@
 them (over eight CPU devices, as the JAX tests run on eight virtual CPU
 devices), ``shard_batch``'s placement, ``_tp_spec`` against the JAX one on
 every leaf of the bundled ``learned_lg9`` tree, ``shard_params_tp``
-replicating with a model axis of 1 and raising above it.
+replicating with a model axis of 1 and output-sharding above it (the
+shards against JAX's: ``tests/test_torch_mesh_tp.py``).
 """
 import jax
 import numpy as np
@@ -19,6 +20,7 @@ from gisnav_tpu_torch.parallel import (
     shard_params_tp,
 )
 from gisnav_tpu_torch.parallel.mesh import _tp_spec
+from gisnav_tpu_torch.parallel.tp import Sharded
 from gisnav_tpu_torch.pipeline.multistream import shard_stream_batch
 
 CPUS = [torch.device("cpu")] * 8
@@ -90,7 +92,7 @@ def test_tp_spec_equals_jax_on_bundled_tree():
     assert kinds == {(None, "model"), ("model",), ()}
 
 
-def test_shard_params_tp_replicates_and_refuses_tensor_parallel():
+def test_shard_params_tp_replicates():
     params = {"lightglue": {"fc": {"kernel": np.ones((4, 6), np.float32),
                                    "bias": torch.zeros(6)}}}
     mesh = make_mesh(4, devices=CPUS)
@@ -100,6 +102,11 @@ def test_shard_params_tp_replicates_and_refuses_tensor_parallel():
         assert tree["lightglue"]["fc"]["kernel"].device == dev
         assert torch.equal(tree["lightglue"]["fc"]["kernel"],
                            torch.ones(4, 6))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        shard_params_tp(make_mesh(8, model_parallel=2, devices=CPUS),
-                        params)
+    # a model axis of 2 output-shards the JAX-layout kernel (in, out)
+    trees = shard_params_tp(make_mesh(8, model_parallel=2, devices=CPUS),
+                            params)
+    assert len(trees) == 4
+    kernel = trees[0]["lightglue"]["fc"]["kernel"]
+    assert isinstance(kernel, Sharded) and kernel.axis == 1
+    assert [tuple(s.shape) for s in kernel.shards] == [(4, 3), (4, 3)]
+    assert torch.equal(kernel.gather(), torch.ones(4, 6))
