@@ -128,8 +128,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``--fused`` on each, exit code 0 (every frame within 10 m), every fused
    frame within 10 m, exactly a harris_lg5 cached frame's K1-K4 launches a
    frame plus one map extraction, each frame's fix moved between the two
-   datasets printed, and the frame p50 of each; the classical backend on 3
-   frames of the
+   datasets printed, and the frame p50 of each; then the same on a third
+   dataset, the same 12 frames stored as a camera stores them (each
+   frame's pixels turned 90 degrees, the port's baseline JPEG, an Exif
+   APP1 with Orientation 6 spliced in) under a map written here as a
+   256-entry grey palette PNG (``zlib`` and ``struct``): the same gates and
+   launches, each fix's move against the upright JPEG dataset's printed;
+   the classical backend on 3 frames of the
    same flight over an 896-px map, a side the shear kernel serves (valid,
    within 10 m, K6 2 + 1 a frame); learned_lg9, printed only (cached mode
    at 3x gives no valid fix in either package);
@@ -181,7 +186,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    error at quality 95,
    and the sha256 of the encoder's bytes and of the decoder's pixels on
    one seeded image, each of which must equal OpenCV's (pinned on the CPU
-   by ``tests/test_torch_jpeg.py``).
+   by ``tests/test_torch_jpeg.py``); then every committed image fixture
+   (``tests/data/torch_images``: progressive, cut-short and CMYK/YCCK JPEG,
+   EXIF orientations, palette, low-depth, grey + alpha, tRNS, Adam7,
+   gamma and eXIf PNG) decoded by ``decode_image`` under both flags, each
+   pixel digest equal to the one cv2 gave in ``digests.json`` (None where
+   cv2 gave None), and the host ms of a progressive 800-px grey decode
+   beside the baseline file of the same pixels (which must decode to the
+   same array), with the card's name and power limit.
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
 the shear's outputs on seeded inputs (run a copy of this script placed
@@ -219,6 +231,7 @@ import dataclasses
 import hashlib
 import json
 import logging
+import os
 import subprocess
 import sys
 import time
@@ -344,6 +357,13 @@ JPEG_SIDES, JPEG_REPS = (800, 2208), (20, 5)
 # 3 footprints (2,400 m at 500 m AGL) over the stub WMS, each format
 JPEG_FETCHES, JPEG_FETCH_SIDE_M = 10, 2400.0
 JPEG_DIGEST_SEED = 12
+# the image fixtures (tools/make_torch_image_fixtures.py) and cv2's digests
+IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "data", "torch_images")
+# a progressive 800-px grey decode timed beside the baseline file of the
+# same pixels (cv2.imencode at quality 60 with and without progression)
+JPEG_PROGRESSIVE_PAIR = ("prog_grey_800.jpg", "base_grey_800.jpg")
+JPEG_PROGRESSIVE_REPS = 20
 # sha256 of cv2.imencode(".jpg", jpeg_digest_image()) and of cv2.imdecode
 # of those bytes (IMREAD_UNCHANGED, then IMREAD_GRAYSCALE), OpenCV 5.0.0
 # over libjpeg-turbo 3.1.2 (tests/test_torch_jpeg.py holds the codec to
@@ -486,14 +506,19 @@ def bound_ms(nbytes: float, bf16_ops: float = 0.0,
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_device() -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: chip_smoke.py needs one GPU")
+def card_label() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi unavailable"
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: chip_smoke.py needs one GPU")
+    card = card_label()
     log(f"[device] {card}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -3321,12 +3346,85 @@ def _replay_harris(data: str, report: str, tag: str) -> dict:
             "frame": _pcts(np.diff(ticks) * 1e3)}
 
 
+def grey_palette_png(grey: np.ndarray) -> bytes:
+    """An (H, W) uint8 image as an 8-bit palette PNG whose 256 entries are
+    the grey levels (MapServer's ``mode=8bit`` kind of file), written with
+    ``zlib`` and ``struct``: test data for path 11."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    h, w = grey.shape
+    rows = np.zeros((h, 1 + w), np.uint8)
+    rows[:, 1:] = grey
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+            + chunk(b"PLTE", np.repeat(np.arange(256, dtype=np.uint8), 3)
+                    .tobytes())
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def with_exif_orientation(jpeg: bytes, orientation: int) -> bytes:
+    """JPEG bytes with an APP1 Exif segment (big-endian TIFF, IFD0 holding
+    one Orientation SHORT) spliced in after the JFIF APP0: test data for
+    path 11, as a camera tags a frame it stored turned."""
+    import struct
+
+    tiff = (b"MM" + struct.pack(">HI", 42, 8) + struct.pack(">H", 1)
+            + struct.pack(">HHIH", 0x0112, 3, 1, orientation) + b"\0\0"
+            + struct.pack(">I", 0))
+    body = b"Exif\0\0" + tiff
+    at = 4 + int.from_bytes(jpeg[4:6], "big")
+    return (jpeg[:at] + b"\xff\xe1" + struct.pack(">H", len(body) + 2)
+            + body + jpeg[at:])
+
+
+def store_as_camera(src: str, dst: str) -> None:
+    """Copy replay dataset ``src`` to ``dst`` with each frame stored as a
+    camera stores it (its pixels turned 90 degrees, the port's baseline
+    JPEG, Orientation 6, which turns them back) and its map as a 256-entry
+    grey palette PNG."""
+    import shutil
+
+    from gisnav_tpu_torch.gis.jpeg import (IMREAD_GRAYSCALE, encode_jpeg,
+                                           read_image)
+
+    shutil.copytree(src, dst)
+    frames = os.path.join(dst, "frames")
+    for name in sorted(os.listdir(frames)):
+        path = os.path.join(frames, name)
+        upright = read_image(path, IMREAD_GRAYSCALE)
+        stored = np.ascontiguousarray(np.rot90(upright, 1))
+        with open(path, "wb") as f:
+            f.write(with_exif_orientation(encode_jpeg(stored), 6))
+    path = os.path.join(dst, "map.png")
+    ortho = read_image(path, IMREAD_GRAYSCALE)
+    with open(path, "wb") as f:
+        f.write(grey_palette_png(ortho))
+
+
+def _moved(fixes_a: list, fixes_b: list) -> list:
+    """Each frame's fix moved from one dataset's run to another's."""
+    return [{"stamp_us": a["stamp_us"],
+             "horiz_m": round(float(np.hypot(a["east_m"] - b["east_m"],
+                                             a["north_m"] - b["north_m"])),
+                              3),
+             "up_m": round(abs(a["up_m"] - b["up_m"]), 3)}
+            for a, b in zip(fixes_a, fixes_b)]
+
+
 def phase_replay_path() -> dict:
     """Path 11: ``replay`` on a dataset of ``tools/make_replay_dataset.py``'s
-    defaults over path 8's world, written as PNG and as JPEG: harris_lg5
-    fused on each (:func:`_replay_harris`) and each frame's fix moved
-    between the two, the classical backend on 3 frames over an 896-px map
-    (K6 2 + 1 a frame), then learned_lg9, printed only."""
+    defaults over path 8's world, written as PNG and as JPEG, and stored as
+    a camera stores it (:func:`store_as_camera`): harris_lg5 fused on each
+    (:func:`_replay_harris`) and each frame's fix moved between the PNG and
+    the JPEG dataset and between the JPEG and the camera one, the classical
+    backend on 3 frames over an 896-px map (K6 2 + 1 a frame), then
+    learned_lg9, printed only."""
     import os
     import tempfile
 
@@ -3346,20 +3444,22 @@ def phase_replay_path() -> dict:
                 raise RuntimeError("replay: the JPEG dataset holds no JPEG")
         write_replay_dataset(world, three, frames=REPLAY_CLASSICAL_FRAMES,
                              map_px=REPLAY_CLASSICAL_MAP)
+        camera = os.path.join(root, "flight_camera")
+        store_as_camera(data, camera)
         report = os.path.join(root, "r.json")
         out["harris"] = _replay_harris(data, report, "png")
         out["harris_jpeg"] = _replay_harris(jpeg, report, "jpeg")
-        moved = [{"stamp_us": a["stamp_us"],
-                  "horiz_m": round(float(np.hypot(
-                      a["east_m"] - b["east_m"],
-                      a["north_m"] - b["north_m"])), 3),
-                  "up_m": round(abs(a["up_m"] - b["up_m"]), 3)}
-                 for a, b in zip(out["harris"].pop("fixes"),
-                                 out["harris_jpeg"].pop("fixes"))]
-        out["png_to_jpeg"] = {
-            "max_horiz_m": max(m["horiz_m"] for m in moved),
-            "max_up_m": max(m["up_m"] for m in moved)}
-        log(f"[replay harris] each fix's move, PNG -> JPEG dataset: {moved}")
+        out["harris_camera"] = _replay_harris(camera, report, "camera")
+        fixes = {k: out[k].pop("fixes")
+                 for k in ("harris", "harris_jpeg", "harris_camera")}
+        for key, a, b, what in (
+                ("png_to_jpeg", "harris", "harris_jpeg", "PNG -> JPEG"),
+                ("jpeg_to_camera", "harris_jpeg", "harris_camera",
+                 "upright JPEG -> camera (EXIF 6, palette map)")):
+            moved = _moved(fixes[a], fixes[b])
+            out[key] = {"max_horiz_m": max(m["horiz_m"] for m in moved),
+                        "max_up_m": max(m["up_m"] for m in moved)}
+            log(f"[replay harris] each fix's move, {what} dataset: {moved}")
         rc, rep, launches = _replay_cli([three, "--backend", "classical",
                                          "--out", report])
         s = rep["summary"]
@@ -3389,6 +3489,7 @@ def phase_jpeg() -> dict:
 
     t0 = time.time()
     lib = build_native_lib("jpeg")
+    card = card_label()  # beside every host time of this phase
     log(f"[jpeg] codec {lib} in {time.time() - t0:.1f} s")
     data = encode_jpeg(jpeg_digest_image())
     out = {"sha256": hashlib.sha256(data).hexdigest(),
@@ -3422,7 +3523,7 @@ def phase_jpeg() -> dict:
             if kind == "bgr420":  # the DEM read: IMREAD_GRAYSCALE, Y only
                 row["decode_grey_ms"] = host_ms(
                     lambda: decode_jpeg(jpg, grayscale=True), 1, reps)
-            log(f"[jpeg] {json.dumps(row)}")
+            log(f"[jpeg] {json.dumps(row)} ({card})")
             out["rasters"].append(row)
     half = JPEG_FETCH_SIDE_M / 2 / GRAPH_WORLD["gsd_m"]
     x, y = GRAPH_START_PX
@@ -3443,7 +3544,78 @@ def phase_jpeg() -> dict:
     out["fetch_p50_ms"] = {fmt: float(np.median(ms))
                            for fmt, ms in times.items()}
     log(f"[jpeg] 800-px map fetch (imagery + DEM, stub WMS) p50 ms: "
-        f"{json.dumps(out['fetch_p50_ms'])}")
+        f"{json.dumps(out['fetch_p50_ms'])} ({card})")
+    out["fixtures"] = check_image_fixtures()
+    out["progressive"] = time_progressive_decode(card)
+    return out
+
+
+def image_digest(img) -> dict:
+    """An array's shape, dtype and sha256, as ``digests.json`` holds
+    cv2's (None for None)."""
+    if img is None:
+        return None
+    return {"shape": list(img.shape), "dtype": str(img.dtype),
+            "sha256": hashlib.sha256(np.ascontiguousarray(img).tobytes())
+            .hexdigest()}
+
+
+def check_image_fixtures() -> dict:
+    """Every committed image fixture decoded by ``decode_image`` under
+    ``IMREAD_UNCHANGED`` and ``IMREAD_GRAYSCALE``: each digest must be the
+    one cv2 gave where the fixtures were written (``digests.json``)."""
+    from gisnav_tpu_torch.gis.jpeg import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
+                                           decode_image)
+
+    with open(os.path.join(IMAGE_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    flags = {"unchanged": IMREAD_UNCHANGED, "grayscale": IMREAD_GRAYSCALE}
+    bad = []
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            data = f.read()
+        if hashlib.sha256(data).hexdigest() != want["file_sha256"]:
+            bad.append((name, "file"))
+            continue
+        for key, flag in flags.items():
+            try:
+                got = image_digest(decode_image(data, flag))
+            except ValueError as e:
+                got = f"ValueError: {e}"
+            if got != want[key]:
+                bad.append((name, key, got))
+    out = {"files": len(digests), "decodes": 2 * len(digests),
+           "mismatches": len(bad)}
+    log(f"[jpeg] image fixtures against cv2's digests: {json.dumps(out)}")
+    if bad:
+        raise RuntimeError(f"jpeg: fixtures not decoded as cv2: {bad}")
+    return out
+
+
+def time_progressive_decode(card: str) -> dict:
+    """Host ms p50 of the progressive 800-px grey fixture's decode beside
+    the baseline file of the same pixels (their arrays must be equal)."""
+    from gisnav_tpu_torch.gis.jpeg import decode_jpeg
+
+    files = []
+    for name in JPEG_PROGRESSIVE_PAIR:
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            files.append(f.read())
+    prog, base = files
+    a, b = decode_jpeg(prog), decode_jpeg(base)
+    if a is None or b is None or a.shape != (800, 800) or \
+            not np.array_equal(a, b):
+        raise RuntimeError("jpeg: the progressive and baseline 800-px "
+                           "files decode to different pixels")
+    out = {"side": 800, "progressive_bytes": len(prog),
+           "baseline_bytes": len(base),
+           "progressive_decode_ms": host_ms(lambda: decode_jpeg(prog), 1,
+                                            JPEG_PROGRESSIVE_REPS),
+           "baseline_decode_ms": host_ms(lambda: decode_jpeg(base), 1,
+                                         JPEG_PROGRESSIVE_REPS),
+           "card": card}
+    log(f"[jpeg] progressive vs baseline decode, host p50: "
+        f"{json.dumps(out)}")
     return out
 
 
@@ -4647,10 +4819,7 @@ def main(argv=None) -> int:
                 r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_label(), flush=True)
     print(json.dumps({"kernels": [
         {**{k: r.get(k) for k in keys},
          **{k: r[k] for k in EXTRA_KEYS if k in r}}

@@ -2,25 +2,34 @@
 
 The JAX package reads WMS replies and replay files with ``cv2.imdecode`` /
 ``cv2.imread`` and writes GetMap replies with ``cv2.imencode``; the card
-machine has no OpenCV, so the port carries a baseline JPEG codec of its own
+machine has no OpenCV, so the port carries a JPEG codec of its own
 (``native/jpeg.cpp``, built at first use with the host C++ compiler and
 bound here with ``ctypes``). It follows libjpeg-turbo's integer arithmetic
 at OpenCV's defaults:
 
 - ``decode_jpeg(data)`` equals ``cv2.imdecode(data, cv2.IMREAD_UNCHANGED)``
-  (grey (H, W) or BGR (H, W, 3) uint8); ``grayscale=True`` equals
-  ``cv2.IMREAD_GRAYSCALE``: libjpeg's grey output, the Y plane of a colour
-  file (not ``to_gray`` of the colour decode). Bytes that cv2 cannot decode
-  (truncated, garbage) give None, as ``cv2.imdecode`` does; progressive,
-  arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files raise
+  (grey (H, W) or BGR (H, W, 3) uint8) for sequential and progressive
+  Huffman files of 1, 3 or 4 components; ``grayscale=True`` equals
+  ``cv2.IMREAD_GRAYSCALE`` but for the EXIF turn (``decode_image`` makes
+  it): libjpeg's grey output, the Y plane of a YCbCr file (not ``to_gray``
+  of the colour decode). A CMYK or YCCK file goes through OpenCV's own
+  CMYK-to-BGR and CMYK-to-grey conversions. Bytes that cv2 cannot decode
+  (truncated, garbage) give None, as ``cv2.imdecode`` does; arithmetic-coded,
+  lossless, hierarchical and 12-bit files, and a progressive file cut
+  short whose unknown coefficients libjpeg-turbo would block-smooth, raise
   ``ValueError`` naming the variant.
 - ``encode_jpeg(img, quality=95)`` equals ``cv2.imencode(".jpg", img)``
   byte for byte for grey and BGR uint8 images (4:2:0 for colour).
-- ``decode_image(data, flag)`` chooses PNG (``gis/png.py``) or JPEG by the
-  magic bytes, as ``cv2.imdecode`` does, and returns cv2's layout: colour
-  as BGR(A). Under ``IMREAD_GRAYSCALE`` a colour PNG goes through
-  ``to_gray`` and a 16-bit one to its high byte; bytes that are neither
-  format give None.
+- ``decode_image(data, flag)`` chooses PNG (``gis/png.py``
+  ``png_as_opencv``) or JPEG by the magic bytes, as ``cv2.imdecode`` does,
+  and returns cv2's array for ``IMREAD_UNCHANGED`` and ``IMREAD_GRAYSCALE``:
+  under the grey flag the image is turned upright by its EXIF orientation
+  (a JPEG's Exif APP1, a PNG's eXIf chunk; ``gis/exif.py``) as OpenCV
+  turns it; bytes that are neither format give None. ``read_image(path,
+  flag)`` is ``cv2.imread``: the same, but a JPEG file cut short reads as
+  libjpeg's stdio source reads it (an EOI marker after its last byte: grey,
+  or block-smoothed coefficients, past the cut), where ``cv2.imdecode``
+  gives None.
 """
 from __future__ import annotations
 
@@ -30,11 +39,12 @@ from typing import Optional
 
 import numpy as np
 
-from gisnav_tpu_torch.gis.png import PNG_SIGNATURE, decode_png, to_gray
+from gisnav_tpu_torch.gis.exif import apply_orientation, orientation
+from gisnav_tpu_torch.gis.png import PNG_SIGNATURE, png_as_opencv
 from gisnav_tpu_torch.native import build_native_lib
 
-__all__ = ["decode_jpeg", "encode_jpeg", "decode_image", "JPEG_SOI",
-           "IMREAD_UNCHANGED", "IMREAD_GRAYSCALE"]
+__all__ = ["decode_jpeg", "encode_jpeg", "decode_image", "read_image",
+           "JPEG_SOI", "IMREAD_UNCHANGED", "IMREAD_GRAYSCALE"]
 
 JPEG_SOI = b"\xff\xd8"
 IMREAD_UNCHANGED = -1  # cv2's flag values
@@ -50,8 +60,10 @@ def _lib() -> ctypes.CDLL:
     u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
     u64 = ctypes.c_uint64
     lib.gjpeg_decode.restype = ctypes.c_void_p
-    lib.gjpeg_decode.argtypes = [ctypes.c_char_p, u64, ctypes.c_int, ip, ip,
-                                 ip, ip, ctypes.c_char_p, ctypes.c_int]
+    lib.gjpeg_decode.argtypes = [ctypes.c_char_p, u64, ctypes.c_int,
+                                 ctypes.c_int, ip, ip, ip,
+                                 ctypes.POINTER(u64), ip, ctypes.c_char_p,
+                                 ctypes.c_int]
     lib.gjpeg_encode.restype = ctypes.c_void_p
     lib.gjpeg_encode.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int,
@@ -72,25 +84,32 @@ def _take(lib: ctypes.CDLL, ptr: int, shape) -> np.ndarray:
     return out
 
 
-def decode_jpeg(data: bytes, grayscale: bool = False) -> Optional[np.ndarray]:
-    """JPEG bytes -> (H, W) grey or (H, W, 3) BGR uint8, as
-    ``cv2.imdecode`` with ``IMREAD_UNCHANGED`` (or ``IMREAD_GRAYSCALE``);
-    None where cv2 gives None."""
+def _decode(data: bytes, grayscale: bool, file: bool = False):
+    """(image or None, the Exif APP1's TIFF body or b""); ``file``: read
+    as ``cv2.imread`` reads a file (its end is a fake EOI marker)."""
     lib = _lib()
-    data = bytes(data)
     h, w, c, status = (ctypes.c_int() for _ in range(4))
+    exif = (ctypes.c_uint64 * 2)()
     msg = ctypes.create_string_buffer(_MSG_LEN)
     ptr = lib.gjpeg_decode(data, len(data),
                            _MODE_GRAY if grayscale else _MODE_UNCHANGED,
-                           ctypes.byref(h), ctypes.byref(w), ctypes.byref(c),
-                           ctypes.byref(status), msg, _MSG_LEN)
+                           int(file), ctypes.byref(h), ctypes.byref(w),
+                           ctypes.byref(c), exif, ctypes.byref(status), msg,
+                           _MSG_LEN)
     if status.value == 2:
         raise ValueError(msg.value.decode())
     if not ptr:
-        return None
+        return None, b""
     shape = (h.value, w.value) if c.value == 1 else (h.value, w.value,
                                                      c.value)
-    return _take(lib, ptr, shape)
+    return _take(lib, ptr, shape), data[exif[0]:exif[0] + exif[1]]
+
+
+def decode_jpeg(data: bytes, grayscale: bool = False) -> Optional[np.ndarray]:
+    """JPEG bytes -> (H, W) grey or (H, W, 3) BGR uint8, as
+    ``cv2.imdecode`` with ``IMREAD_UNCHANGED`` (or ``IMREAD_GRAYSCALE``,
+    the EXIF orientation not applied); None where cv2 gives None."""
+    return _decode(bytes(data), grayscale)[0]
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
@@ -117,22 +136,36 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
     return _take(lib, ptr, (size.value,)).tobytes()
 
 
-def decode_image(data: bytes,
-                 flag: int = IMREAD_UNCHANGED) -> Optional[np.ndarray]:
-    """PNG or JPEG bytes, chosen by content as ``cv2.imdecode`` chooses ->
-    the image in cv2's layout (grey (H, W), colour BGR(A)); None for bytes
-    of neither format or a JPEG cv2 cannot decode."""
+def _decode_image(data: bytes, flag: int,
+                  file: bool) -> Optional[np.ndarray]:
     if flag not in (IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
         raise ValueError(f"decode_image flag {flag}: IMREAD_UNCHANGED (-1) "
                          "or IMREAD_GRAYSCALE (0)")
-    data = bytes(data)
     gray = flag == IMREAD_GRAYSCALE
-    if data.startswith(JPEG_SOI):
-        return decode_jpeg(data, grayscale=gray)
-    if not data.startswith(PNG_SIGNATURE):
+    if data.startswith(PNG_SIGNATURE):
+        return png_as_opencv(data, gray)
+    if not data.startswith(JPEG_SOI):
         return None
-    img = decode_png(data)
-    if gray:
-        img = to_gray(img)
-        return (img >> 8).astype(np.uint8) if img.dtype == np.uint16 else img
-    return img if img.ndim == 2 else img[..., [2, 1, 0, 3][:img.shape[2]]]
+    img, exif = _decode(data, gray, file)
+    if img is None or not gray or not exif:
+        return img
+    return apply_orientation(img, orientation(exif))
+
+
+def decode_image(data: bytes,
+                 flag: int = IMREAD_UNCHANGED) -> Optional[np.ndarray]:
+    """PNG or JPEG bytes, chosen by content as ``cv2.imdecode`` chooses ->
+    ``cv2.imdecode(data, flag)``'s array (grey (H, W), colour BGR(A); under
+    ``IMREAD_GRAYSCALE`` turned upright by the EXIF orientation); None for
+    bytes of neither format or a JPEG cv2 cannot decode."""
+    return _decode_image(bytes(data), flag, file=False)
+
+
+def read_image(path: str, flag: int = IMREAD_UNCHANGED
+               ) -> Optional[np.ndarray]:
+    """``cv2.imread(path, flag)`` for PNG and JPEG files, chosen by
+    content: as ``decode_image``, but a JPEG file cut short reads as if an
+    EOI marker followed its last byte (libjpeg's stdio source; cv2 warns on
+    stderr)."""
+    with open(path, "rb") as f:
+        return _decode_image(f.read(), flag, file=True)

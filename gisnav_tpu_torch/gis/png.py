@@ -1,36 +1,66 @@
 """PNG decoding and encoding in numpy and ``zlib`` (no OpenCV, no Pillow).
 
-The JAX package decodes WMS rasters with ``cv2.imdecode``; the card
-machine has no OpenCV, so the port reads PNG itself:
+The JAX package decodes WMS rasters and replay files with ``cv2.imdecode``
+/ ``cv2.imread`` (OpenCV over libpng); the card machine has no OpenCV, so
+the port reads PNG itself:
 
-- non-interlaced PNG of bit depth 8 or 16, grey (type 0), RGB (2) and
-  RGBA (6); chunk CRCs are checked;
+- every colour type (grey, RGB, palette, grey + alpha, RGBA) at every
+  depth PNG allows (1, 2, 4, 8, 16), plain or Adam7-interlaced; critical
+  chunks' CRCs are checked, an ancillary chunk that fails its CRC is
+  dropped (libpng's default);
 - the five row filters (None, Sub, Up, Average, Paeth). Rows of the first
   three decode a row at a time; an image with Average or Paeth rows
   decodes along anti-diagonals, all rows at once, since a pixel of those
   needs its left, upper and upper-left neighbours decoded first;
-- ``to_gray`` converts colour with OpenCV's fixed-point weights
-  (``cv2.COLOR_BGR2GRAY`` in OpenCV 5: 9798 R + 19235 G + 3735 B over
-  2^15, rounded), alpha ignored.
+- ``decode_png`` gives the file's samples: grey (H, W), grey + alpha
+  (H, W, 2), RGB(A) (H, W, 3|4), a palette image through its palette (RGB,
+  RGBA with ``tRNS``), depths under 8 scaled to 0-255 as libpng's expand
+  scales them;
+- ``png_as_opencv(data, gray)`` is ``cv2.imdecode`` with
+  ``IMREAD_UNCHANGED`` or ``IMREAD_GRAYSCALE``. Unchanged: grey (tRNS
+  ignored), colour as BGR, BGRA where the file has alpha or a ``tRNS``
+  (grey + alpha as B = G = R), 16 bits kept. Grey: libpng's
+  ``png_set_rgb_to_gray(0.299, 0.587)`` (9797 R + 19234 G + 3737 B over
+  2^15, truncated at 8 bits, rounded at 16; through libpng's 8-bit gamma
+  tables where a ``gAMA`` or ``sRGB`` chunk before PLTE and IDAT gives a
+  gamma other than 1), alpha dropped, 16 bits to the high byte, then the
+  image turned upright by its first valid ``eXIf`` chunk
+  (``gis/exif.py``);
+- ``to_gray`` is ``cv2.cvtColor``'s grey (OpenCV 5: 9798 R + 19235 G +
+  3735 B over 2^15, rounded), alpha ignored: what the JAX package applies
+  to a colour raster it holds (``cv2.cvtColor(img, COLOR_BGR2GRAY)``), not
+  what ``imread``'s grey flag gives.
 
-Anything else (palette and grey + alpha images, depths under 8, Adam7
-interlacing, JPEG or any non-PNG bytes) raises ``ValueError`` naming what it
-found (``gis/jpeg.py`` ``decode_image`` chooses between PNG and JPEG).
-``encode_png`` writes an 8-bit grey or colour PNG with filter None on every
-row.
+A 16-bit colour PNG with such a gamma raises ``ValueError`` under the grey
+flag (libpng's 16-bit gamma tables are not reproduced), as do malformed
+files and non-PNG bytes (``gis/jpeg.py`` ``decode_image`` chooses between
+PNG and JPEG). ``encode_png`` writes an 8-bit grey or colour PNG with
+filter None on every row.
 """
 from __future__ import annotations
 
+import math
 import struct
 import zlib
+from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["decode_png", "encode_png", "to_gray", "PNG_SIGNATURE"]
+from gisnav_tpu_torch.gis.exif import apply_orientation, orientation
+
+__all__ = ["decode_png", "png_as_opencv", "encode_png", "to_gray",
+           "PNG_SIGNATURE"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
 _JPEG_SOI = b"\xff\xd8\xff"
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_GAMMA_UNIT = 100000  # libpng's png_fixed_point 1.0
+_SRGB_GAMMA = 45455
 
 
 def _chunks(data: bytes):
@@ -41,9 +71,10 @@ def _chunks(data: bytes):
         crc = data[pos + 8 + length:pos + 12 + length]
         if len(body) != length or len(crc) != 4:
             raise ValueError("truncated PNG chunk")
-        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+        if zlib.crc32(kind + body) == struct.unpack(">I", crc)[0]:
+            yield kind, body
+        elif not kind[0] & 0x20:  # critical
             raise ValueError(f"PNG chunk {kind!r} fails its CRC")
-        yield kind, body
         if kind == b"IEND":
             return
         pos += 12 + length
@@ -57,7 +88,8 @@ def _paeth(a, b, c):
 
 
 def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
-    """(h, 1 + w * bpp) filtered scanlines -> (h, w, bpp) uint8 bytes."""
+    """(h, 1 + w * bpp) filtered scanlines -> (h, w, bpp) uint8 bytes (a
+    low-depth row is w bytes of bpp 1)."""
     ftype = raw[:, 0]
     if ftype.max(initial=0) > 4:
         raise ValueError(f"PNG row filter {int(ftype.max())} is not one of "
@@ -85,44 +117,211 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def _samples(raw: np.ndarray, h: int, w: int, channels: int,
+             depth: int) -> np.ndarray:
+    """One image's (or Adam7 pass's) filtered rows -> (h, w, channels)
+    samples, uint8 (depths to 8, unscaled) or uint16."""
+    rowbytes = (w * channels * depth + 7) // 8
+    if raw.size != h * (1 + rowbytes):
+        raise ValueError("PNG image data does not match its header")
+    bpp = max(1, channels * depth // 8)
+    px = _unfilter(raw.reshape(h, 1 + rowbytes), h, rowbytes // bpp, bpp)
+    px = px.reshape(h, rowbytes)
+    if depth == 16:
+        px = px.reshape(h, w * channels, 2).astype(np.uint16)
+        px = (px[..., 0] << 8) | px[..., 1]
+    elif depth < 8:  # MSB first
+        per = 8 // depth
+        shifts = (8 - depth) - depth * np.arange(per, dtype=np.uint8)
+        px = (px[..., None] >> shifts) & ((1 << depth) - 1)
+        px = px.reshape(h, rowbytes * per)[:, :w * channels]
+    return px.reshape(h, w, channels)
+
+
+class _Png:
+    """A parsed PNG: its header, samples (H, W, C) and the chunks that
+    OpenCV's reading depends on."""
+
+    def __init__(self, data: bytes):
+        if not data.startswith(PNG_SIGNATURE):
+            found = "JPEG" if data.startswith(_JPEG_SOI) else repr(data[:8])
+            raise ValueError(f"not a PNG image ({found}); gis/jpeg.py "
+                             "decode_image reads PNG and JPEG")
+        header = None
+        idat: List[bytes] = []
+        self.palette: Optional[np.ndarray] = None
+        self.trns: Optional[bytes] = None
+        self.exif: Optional[bytes] = None
+        gama: Optional[int] = None
+        srgb = False
+        for kind, body in _chunks(data):
+            if kind == b"IHDR":
+                if len(body) != 13:
+                    raise ValueError("bad PNG IHDR")
+                header = struct.unpack(">IIBBBBB", body)
+            elif header is None:
+                raise ValueError("PNG without IHDR first")
+            elif kind == b"IDAT":
+                idat.append(body)
+            elif kind == b"PLTE":
+                if self.palette is not None or idat:
+                    raise ValueError("a second PLTE, or PLTE after IDAT")
+                if len(body) % 3 or not 0 < len(body) <= 768:
+                    raise ValueError("bad PNG palette")
+                self.palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            elif kind == b"tRNS" and self.trns is None and not idat:
+                # libpng ignores a tRNS of the wrong size or place
+                ctype = header[3]
+                if (ctype == 0 and len(body) == 2) or (
+                        ctype == 2 and len(body) == 6) or (
+                        ctype == 3 and self.palette is not None
+                        and 0 < len(body) <= len(self.palette)):
+                    self.trns = body
+            elif kind == b"eXIf" and self.exif is None:
+                if body[:4] in (b"II*\0", b"MM\0*"):  # libpng's check
+                    self.exif = body
+            elif kind in (b"gAMA", b"sRGB") and not idat and (
+                    self.palette is None):
+                if kind == b"sRGB":
+                    srgb = srgb or (len(body) == 1 and body[0] < 4)
+                elif gama is None and len(body) == 4:
+                    g = struct.unpack(">I", body)[0]
+                    gama = g if 16 <= g <= 625000000 else None
+        if header is None:
+            raise ValueError("PNG without IHDR")
+        w, h, depth, ctype, _, _, interlace = header
+        if ctype not in _DEPTHS or depth not in _DEPTHS[ctype]:
+            raise ValueError(f"PNG colour type {ctype} at bit depth {depth} "
+                             "is not a valid PNG")
+        if interlace > 1:
+            raise ValueError(f"PNG interlace method {interlace} is unknown")
+        if ctype == 3 and self.palette is None:
+            raise ValueError("palette PNG without PLTE")
+        self.width, self.height, self.depth, self.ctype = w, h, depth, ctype
+        self.gamma = _SRGB_GAMMA if srgb else gama
+        channels = _CHANNELS[ctype]
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+        if not interlace:
+            self.samples = _samples(raw, h, w, channels, depth)
+            return
+        dtype = np.uint16 if depth == 16 else np.uint8
+        self.samples = np.zeros((h, w, channels), dtype)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no rows at all
+            n = ph * (1 + (pw * channels * depth + 7) // 8)
+            self.samples[y0::dy, x0::dx] = _samples(raw[pos:pos + n], ph, pw,
+                                                    channels, depth)
+            pos += n
+        if pos != raw.size:
+            raise ValueError("PNG image data does not match its header")
+
+    def expanded(self) -> np.ndarray:
+        """The samples as libpng's expand gives them: palette through PLTE
+        (and tRNS as alpha), grey under 8 bits scaled to 0-255."""
+        px = self.samples
+        if self.ctype == 3:
+            pal = np.zeros((256, 4), np.uint8)
+            pal[:, 3] = 255
+            pal[:len(self.palette), :3] = self.palette
+            if self.trns is not None:
+                t = np.frombuffer(self.trns, np.uint8)
+                pal[:len(t), 3] = t
+            return pal[px[..., 0]][..., :4 if self.trns is not None else 3]
+        if self.depth < 8:
+            px = px * np.uint8(255 // ((1 << self.depth) - 1))
+        return px
+
+    def rgb_alpha_from_trns(self, rgb: np.ndarray) -> Optional[np.ndarray]:
+        """An RGB file's tRNS colour as an alpha plane (0 where it matches,
+        full elsewhere), or None without a usable tRNS."""
+        if self.ctype != 2 or self.trns is None:
+            return None
+        key = np.array(struct.unpack(">3H", self.trns))
+        if self.depth == 8:
+            key &= 0xFF
+        full = np.iinfo(rgb.dtype).max
+        return np.where((rgb == key.astype(rgb.dtype)).all(-1), 0,
+                        full).astype(rgb.dtype)
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W) or (H, W, C) uint8 / uint16, channels in the
-    file's order (RGB, RGBA)."""
-    if not data.startswith(PNG_SIGNATURE):
-        found = "JPEG" if data.startswith(_JPEG_SOI) else repr(data[:8])
-        raise ValueError(f"not a PNG image ({found}); gis/jpeg.py "
-                         "decode_image reads PNG and JPEG")
-    header, idat = None, []
-    for kind, body in _chunks(data):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-    if header is None:
-        raise ValueError("PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = header
-    if ctype not in _CHANNELS or depth not in (8, 16):
-        raise ValueError(f"PNG colour type {ctype} at bit depth {depth} is "
-                         "not supported (grey, RGB, RGBA at 8 or 16 bits)")
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG is not supported")
-    channels = _CHANNELS[ctype]
-    bpp = channels * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
-        raise ValueError("PNG image data does not match its header")
-    px = _unfilter(raw.reshape(h, 1 + w * bpp), h, w, bpp)
-    if depth == 16:
-        px = px.reshape(h, w, channels, 2).astype(np.uint16)
-        px = (px[..., 0] << 8) | px[..., 1]
-    else:
-        px = px.reshape(h, w, channels)
-    return px[..., 0] if channels == 1 else px
+    file's order (grey + alpha, RGB, RGBA); a palette image as RGB(A)."""
+    px = _Png(data).expanded()
+    return px[..., 0] if px.shape[2] == 1 else px
+
+
+def _gamma_table(gamma: int) -> np.ndarray:
+    """libpng's png_build_8bit_table: 255 * (i / 255) ^ (gamma / 1e5),
+    rounded, 0 and 255 kept; the identity for a gamma within 5 % of 1."""
+    table = np.arange(256, dtype=np.int64)
+    if abs(gamma - _GAMMA_UNIT) > 5000:
+        for i in range(1, 255):
+            table[i] = int(math.floor(255 * math.pow(i / 255.0,
+                                                     gamma * 1e-5) + 0.5))
+    return table
+
+
+def _reciprocal(gamma: int) -> int:
+    """libpng's png_reciprocal in fixed point."""
+    return int(math.floor(1e10 / gamma + 0.5))
+
+
+def _libpng_gray(rgb: np.ndarray, gamma: Optional[int]) -> np.ndarray:
+    """libpng's png_do_rgb_to_gray with OpenCV's coefficients (0.299,
+    0.587 -> 9797, 19234, 3737 over 2^15) on (H, W, 3) RGB."""
+    rc, gc, bc = 9797, 19234, 3737
+    c = rgb.astype(np.int64)
+    r, g, b = c[..., 0], c[..., 1], c[..., 2]
+    if rgb.dtype == np.uint16:
+        if gamma is not None and abs(gamma - _GAMMA_UNIT) > 5000:
+            raise ValueError("a 16-bit colour PNG with a gamma other than 1 "
+                             "(gAMA or sRGB) is not supported under "
+                             "IMREAD_GRAYSCALE")
+        return ((rc * r + gc * g + bc * b + 16384) >> 15).astype(np.uint16)
+    grey = r == g
+    grey &= r == b
+    if gamma is None or abs(gamma - _GAMMA_UNIT) <= 5000:
+        out = (rc * r + gc * g + bc * b) >> 15
+    else:  # gamma_to_1, the sum rounded, gamma_from_1
+        to_1 = _gamma_table(_reciprocal(gamma))
+        from_1 = _gamma_table(_reciprocal(_reciprocal(gamma)))
+        out = from_1[(rc * to_1[r] + gc * to_1[g] + bc * to_1[b] + 16384)
+                     >> 15]
+    return np.where(grey, r, out).astype(np.uint8)
+
+
+def png_as_opencv(data: bytes, gray: bool) -> np.ndarray:
+    """PNG bytes as ``cv2.imdecode`` gives them with ``IMREAD_GRAYSCALE``
+    (``gray``) or ``IMREAD_UNCHANGED``: grey (H, W), colour BGR(A)."""
+    png = _Png(data)
+    px = png.expanded()
+    colour = px.shape[2] >= 3
+    if gray:
+        if colour:
+            px = _libpng_gray(px[..., :3], png.gamma)
+        else:
+            px = px[..., 0]
+        if px.dtype == np.uint16:
+            px = (px >> 8).astype(np.uint8)
+        o = orientation(png.exif) if png.exif is not None else 1
+        return apply_orientation(px, o)
+    if px.shape[2] == 1:
+        return np.ascontiguousarray(px[..., 0])
+    if px.shape[2] == 2:  # grey + alpha -> BGRA
+        return np.ascontiguousarray(px[..., [0, 0, 0, 1]])
+    alpha = png.rgb_alpha_from_trns(px)
+    if alpha is not None:
+        px = np.concatenate([px, alpha[..., None]], axis=2)
+    return np.ascontiguousarray(px[..., [2, 1, 0, 3][:px.shape[2]]])
 
 
 def to_gray(img: np.ndarray) -> np.ndarray:
-    """RGB or RGBA -> grey, OpenCV's rounding; a grey image passes
-    through."""
+    """RGB or RGBA -> grey, OpenCV's ``cvtColor`` rounding; a grey image
+    passes through."""
     if img.ndim == 2:
         return img
     c = img[..., :3].astype(np.int64)

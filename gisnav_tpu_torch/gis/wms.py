@@ -8,12 +8,16 @@ decoding of the rasters. Standard WMS 1.1.1, so the reference's MapServer
 stack serves it unchanged.
 
 Replies are decoded by their content, as ``cv2.imdecode`` decodes them
-(``gis/jpeg.py`` ``decode_image``: PNG or baseline JPEG, with the port's own
-codec; the card machine has no OpenCV), and the default format is the JAX
-client's ``image/jpeg``. A network error, an XML ServiceException or a reply
-that is no image cv2 would decode gives None, as in JAX (the GIS node keeps
-its previous map); a JPEG variant the codec does not read (progressive,
-arithmetic-coded) raises ``ValueError`` naming it.
+(``gis/jpeg.py`` ``decode_image``, with the port's own codecs; the card
+machine has no OpenCV): sequential or progressive JPEG of 1, 3 or 4
+components, and PNG of every colour type and depth, interlaced or not
+(MapServer's ``image/png; mode=8bit`` palette PNG included), in cv2's
+layout and, under the grey flag, turned upright by an EXIF orientation. The
+default format is the JAX client's ``image/jpeg``. A network error, an XML
+ServiceException or a reply that is no image cv2 would decode gives None,
+as in JAX (the GIS node keeps its previous map); a JPEG variant the codec
+does not read (arithmetic-coded, lossless, 12-bit, hierarchical) raises
+``ValueError`` naming it.
 """
 from __future__ import annotations
 
@@ -81,7 +85,8 @@ class WMSClient:
         :param bbox: (left, bottom, right, top) in ``srs`` coordinates
         :param size: (height, width) of the requested raster
         :param grayscale: as ``cv2.IMREAD_GRAYSCALE``: a JPEG's Y plane,
-            colour PNG to grey and a 16-bit PNG to its high byte
+            a colour or palette PNG through libpng's grey conversion, a
+            16-bit PNG to its high byte, turned upright by EXIF
         :return: the raster as ``cv2.imdecode`` gives it (grey (H, W),
             BGR(A) (H, W, C), uint8 or uint16), or None on a network error,
             an error status, an empty body or a reply that is no image

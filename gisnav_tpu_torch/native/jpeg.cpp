@@ -1,24 +1,35 @@
-// Baseline JPEG codec with libjpeg(-turbo)'s integer arithmetic.
+// JPEG codec with libjpeg(-turbo)'s integer arithmetic.
 //
 // The JAX package reads and writes WMS rasters and replay files with
-// OpenCV (cv2.imdecode / cv2.imencode over libjpeg-turbo). The card machine
-// has neither OpenCV nor Pillow, so the port carries this codec, built at
-// first use with the host compiler and bound with ctypes
+// OpenCV (cv2.imdecode / cv2.imread / cv2.imencode over libjpeg-turbo). The
+// card machine has neither OpenCV nor Pillow, so the port carries this
+// codec, built at first use with the host compiler and bound with ctypes
 // (gisnav_tpu_torch/gis/jpeg.py). Every stage follows the libjpeg-turbo C
 // code that OpenCV calls at its defaults, so decoded pixels and encoded bytes
 // are those of cv2:
 //
-// Decoder: sequential Huffman (SOF0/SOF1), 8-bit, 1 or 3 components, any
-// integral sampling ratio; 8- or 16-bit DQT, DHT (the standard tables where
-// a scan's table is missing, as libjpeg-turbo does for Motion-JPEG), DRI and
-// RSTn with jdmarker.c's resync, fill bytes, APPn / COM skipped, several
-// scans. jdhuff.c's bit reader (57-bit refills, zero bits past a marker and
-// grey for the rest of a segment, a stream that ends without a marker is no
-// image), jidctint.c's islow IDCT (clamped as libjpeg-turbo's SIMD IDCT
-// clamps), jdsample.c's fancy upsampling (h2v1, h1v2, h2v2 with jdmainct.c's
-// context rows: the last real chroma row and column repeat), box upsampling
-// elsewhere, jdcolor.c's fixed-point YCbCr->BGR. Grey output is libjpeg's
-// JCS_GRAYSCALE: the Y plane of a YCbCr file, never chroma.
+// Decoder: sequential Huffman (SOF0/SOF1) and progressive Huffman (SOF2),
+// 8-bit, 1, 3 or 4 components, any integral sampling ratio; 8- or 16-bit
+// DQT, DHT (the standard tables where a scan's table is missing, as
+// libjpeg-turbo does for Motion-JPEG), DRI and RSTn with jdmarker.c's
+// resync, fill bytes, APPn / COM skipped, several scans. jdhuff.c's bit
+// reader (57-bit refills, zero bits past a marker and grey for the rest of
+// a segment, a stream that ends without a marker is no image unless it is a
+// file read as cv2.imread reads one: libjpeg's stdio source then supplies
+// EOI markers), jdphuff.c's four progressive scan types (DC first and
+// refine over MCUs, AC first with EOB runs and AC refine with correction
+// bits over a component's own block grid, restarts resetting the EOB run)
+// into the whole-image coefficient buffer, jdcoefct.c's block smoothing of a
+// progressive image cut short (the first nine AC coefficients, and DC when
+// no AC data came, estimated from the 5x5 neighbouring DC values),
+// jidctint.c's islow IDCT (clamped as libjpeg-turbo's SIMD IDCT clamps),
+// jdsample.c's fancy upsampling (h2v1, h1v2, h2v2 with jdmainct.c's context
+// rows: the last real chroma row and column repeat), box upsampling
+// elsewhere, jdcolor.c's fixed-point YCbCr->BGR and YCCK->CMYK, and for
+// CMYK OpenCV's own CMYK->BGR and CMYK->grey (not libjpeg's). Grey output
+// is libjpeg's JCS_GRAYSCALE: the Y plane of a YCbCr file, never chroma. The
+// first APP1 "Exif" segment before the first scan is located for
+// gis/exif.py, which reads its orientation as OpenCV does.
 //
 // Encoder: cv2.imencode(".jpg") at its defaults for grey and BGR images:
 // jpeg_set_quality's table scaling, standard Huffman tables, jccolor.c's
@@ -27,10 +38,11 @@
 // FDCT, libjpeg-turbo's reciprocal quantiser, a JFIF 1.01 APP0 and libjpeg's
 // marker order.
 //
-// Progressive, arithmetic-coded, lossless, hierarchical, 12-bit and CMYK
-// files are refused with a message naming the variant.
+// Arithmetic-coded, lossless, hierarchical and 12-bit files are refused
+// with a message naming the variant.
 
 #include <algorithm>
+#include <array>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -47,6 +59,10 @@ constexpr int kNatural[64 + 16] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// jdcoefct.c: natural positions of DC and the first nine AC coefficients
+// (zigzag order), those block smoothing estimates.
+constexpr int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
 
 // jstdhuff.c: counts of codes of length 1..16, then the symbols.
 const uint8_t kStdDcLuma[28] = {
@@ -197,6 +213,13 @@ void derive(const HuffSpec& spec, bool dc, Derived* t) {
       if (spec.vals[i] > 15) throw Invalid{"bad Huffman table"};
 }
 
+// Past its last byte a file read as cv2.imread reads it (libjpeg's stdio
+// source) goes on as a fake EOI marker, FF D9, again and again; bytes given
+// to cv2.imdecode (OpenCV's memory source) end there.
+inline uint8_t past_end(size_t i, size_t n) {
+  return (i - n) & 1 ? 0xD9 : 0xFF;
+}
+
 inline int extend(int x, int s) {  // HUFF_EXTEND
   return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x;
 }
@@ -211,10 +234,15 @@ struct BitReader {  // jdhuff.c bitread state
   int bits = 0;
   int marker = 0;  // marker met in the entropy data (unread_marker)
   bool insufficient = false;
+  bool file = false;  // read as cv2.imread reads a file
 
   uint8_t next_byte() {
-    // A suspending source: OpenCV's gives up, and cv2.imdecode gives None.
-    if (pos >= size) throw Invalid{"JPEG data ends without a marker"};
+    if (pos >= size) {
+      // A suspending source: OpenCV's gives up, and cv2.imdecode gives None.
+      if (!file) throw Invalid{"JPEG data ends without a marker"};
+      pos++;
+      return past_end(pos - 1, size);
+    }
     return data[pos++];
   }
 
@@ -296,18 +324,36 @@ struct Decoder {
   int max_h = 1, max_v = 1;
   int mcus_x = 0, mcus_y = 0;
   bool saw_sof = false, saw_jfif = false, saw_adobe = false;
+  bool progressive = false, saw_sos = false;
   int adobe_transform = 0;
   int restart_interval = 0;
+  bool file = false;  // read as cv2.imread reads a file
+  // The first APP1 before the first scan that starts "Exif\0\0": its TIFF
+  // body (OpenCV's JpegDecoder hands that to its ExifReader).
+  size_t exif_off = 0, exif_len = 0;
   std::vector<Component> comps;
+  // jdinput.c coef_bits: per component, the Al of the last scan that
+  // carried each coefficient (-1 before any), and jdphuff.c's copy of it
+  // from before the component's latest scan; the scans read so far, and
+  // jdcoefct.c's last iMCU row that a scan reached with data left.
+  std::vector<std::array<int, 64>> coef_bits, prev_coef_bits;
+  int scans = 0;
+  int last_good_imcu_row = 0;
   uint16_t qt[4][64] = {};
   bool qt_defined[4] = {};
   HuffSpec dc_spec[4], ac_spec[4];
   int unread_marker = 0;
 
   uint8_t byte() {
-    if (pos >= n) throw Invalid{"JPEG ends inside its headers"};
+    if (pos >= n) {
+      if (!file) throw Invalid{"JPEG ends inside its headers"};
+      pos++;
+      return past_end(pos - 1, n);
+    }
     return d[pos++];
   }
+  // Whether `len` more bytes lie in the data (always, for a file).
+  bool have(size_t len) const { return file || (pos <= n && len <= n - pos); }
   int word() {
     int hi = byte();
     return (hi << 8) | byte();
@@ -326,7 +372,7 @@ struct Decoder {
     int len = word();
     if (len < 2) throw Invalid{"bad marker length"};
     len -= 2;
-    if (size_t(len) > n - pos) throw Invalid{"JPEG ends inside a marker"};
+    if (!have(size_t(len))) throw Invalid{"JPEG ends inside a marker"};
     pos += size_t(len);
   }
 
@@ -335,26 +381,32 @@ struct Decoder {
     int len = word();
     if (len < 2) throw Invalid{"bad marker length"};
     size_t body = size_t(len - 2);
-    if (body > n - pos) throw Invalid{"JPEG ends inside a marker"};
-    const uint8_t* b = d + pos;
+    if (!have(body)) throw Invalid{"JPEG ends inside a marker"};
+    uint8_t b[14];
+    for (size_t i = 0; i < sizeof(b); i++)
+      b[i] = pos + i < n ? d[pos + i] : past_end(pos + i, n);
     if (marker == 0xE0 && body >= 14 && std::memcmp(b, "JFIF\0", 5) == 0)
       saw_jfif = true;
     if (marker == 0xEE && body >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
       saw_adobe = true;
       adobe_transform = b[11];
     }
+    if (marker == 0xE1 && !saw_sos && exif_len == 0 && body > 6 &&
+        std::memcmp(b, "Exif\0\0", 6) == 0) {
+      exif_off = std::min(pos + 6, n);
+      exif_len = std::min(body - 6, n - exif_off);
+    }
     pos = start + 2 + body;
   }
 
   void get_sof(int marker) {
-    if (marker == 0xC2 || marker == 0xC6)
-      throw Unsupported{"progressive JPEG is not supported"};
-    if (marker == 0xC3 || marker == 0xC7)
+    if (marker == 0xC3)
       throw Unsupported{"lossless JPEG is not supported"};
     if (marker >= 0xC9 && marker <= 0xCF)
       throw Unsupported{"arithmetic-coded JPEG is not supported"};
-    if (marker == 0xC5)
+    if (marker >= 0xC5 && marker <= 0xC7)
       throw Unsupported{"hierarchical JPEG is not supported"};
+    progressive = marker == 0xC2;
     if (saw_sof) throw Invalid{"duplicate SOF"};
     int len = word();
     precision = byte();
@@ -375,8 +427,7 @@ struct Decoder {
     if (precision != 8)
       throw Unsupported{std::to_string(precision) +
                         "-bit JPEG is not supported (8-bit only)"};
-    if (nc == 4) throw Unsupported{"CMYK/YCCK JPEG is not supported"};
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       throw Unsupported{std::to_string(nc) +
                         "-component JPEG is not supported"};
     if (width > 65500 || height > 65500) throw Invalid{"image too large"};
@@ -397,6 +448,9 @@ struct Decoder {
       c.bh = mcus_y * c.v;
       c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
     }
+    coef_bits.assign(size_t(nc), {});
+    for (auto& cb : coef_bits) cb.fill(-1);
+    prev_coef_bits.assign(size_t(nc), {});
   }
 
   void get_dht() {
@@ -468,6 +522,7 @@ struct Decoder {
         get_dri();
       } else if (m == 0xDA) {
         if (!saw_sof) throw Invalid{"SOS before SOF"};
+        saw_sos = true;
         return true;
       } else if (m == 0xD9) {
         return false;
@@ -518,7 +573,7 @@ struct Decoder {
   }
 
   void process_restart(BitReader& br, int* next_rst, int* last_dc,
-                       int ncomp) {
+                       int ncomp, unsigned* eobrun) {
     br.bits = 0;
     if (br.marker == 0) {
       pos = br.pos;
@@ -532,10 +587,137 @@ struct Decoder {
     }
     *next_rst = (*next_rst + 1) & 7;
     for (int i = 0; i < ncomp; i++) last_dc[i] = 0;
+    *eobrun = 0;
     if (br.marker == 0) br.insufficient = false;
   }
 
-  // Decodes one scan; returns true when it held every component.
+  // One progressive scan (jdphuff.c): DC first / refine over the MCUs of
+  // the scan's components, AC first / refine over one component's own
+  // blocks (width_in_blocks x height_in_blocks, not the MCU-padded grid).
+  template <class Restart>
+  void decode_progressive(BitReader& br, const std::vector<int>& sc,
+                          const Derived* dct, const Derived* act, int Ss,
+                          int Se, int Ah, int Al, int* last_dc,
+                          unsigned* eobrun, Restart& restart) {
+    const int ns = int(sc.size());
+    const int p1 = 1 << Al, m1 = -p1;
+    auto dc_first = [&](int i, int16_t* blk) {
+      int s = br.decode(dct[i]);
+      if (s) s = extend(br.get(s), s);
+      int64_t v = int64_t(last_dc[i]) + s;
+      if (v > INT32_MAX || v < INT32_MIN) throw Invalid{"bad DC coefficient"};
+      last_dc[i] = int(v);
+      blk[0] = int16_t(unsigned(last_dc[i]) << Al);
+    };
+    auto dc_refine = [&](int16_t* blk) {
+      if (br.get(1)) blk[0] = int16_t(blk[0] | p1);
+    };
+    auto ac_first = [&](int16_t* blk) {
+      if (*eobrun > 0) {
+        (*eobrun)--;
+        return;
+      }
+      for (int k = Ss; k <= Se; k++) {
+        int rs = br.decode(act[0]);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNatural[k]] = int16_t(unsigned(extend(br.get(s), s)) << Al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          *eobrun = 1u << r;
+          if (r) *eobrun += unsigned(br.get(r));
+          (*eobrun)--;
+          break;
+        }
+      }
+    };
+    auto correct = [&](int16_t* coef) {  // a correction bit of a nonzero
+      if (br.get(1) && (*coef & p1) == 0)
+        *coef = int16_t(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    auto ac_refine = [&](int16_t* blk) {
+      int k = Ss;
+      if (*eobrun == 0) {
+        for (; k <= Se; k++) {
+          int rs = br.decode(act[0]);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {  // a size other than 1 is only a warning
+            s = br.get(1) ? p1 : m1;
+          } else if (r != 15) {
+            *eobrun = 1u << r;
+            if (r) *eobrun += unsigned(br.get(r));
+            break;
+          }
+          do {
+            int16_t* coef = blk + kNatural[k];
+            if (*coef != 0) {
+              correct(coef);
+            } else if (--r < 0) {
+              break;
+            }
+            k++;
+          } while (k <= Se);
+          if (s) blk[kNatural[k]] = int16_t(s);
+        }
+      }
+      if (*eobrun > 0) {
+        for (; k <= Se; k++)
+          if (blk[kNatural[k]] != 0) correct(blk + kNatural[k]);
+        (*eobrun)--;
+      }
+    };
+    auto at = [](Component& c, int by, int bx) {
+      return &c.coef[(size_t(by) * c.bw + bx) * 64];
+    };
+    if (Ss != 0) {  // AC: one component, its own block grid
+      Component& c = comps[size_t(sc[0])];
+      for (int by = 0; by < c.hib; by++)
+        for (int bx = 0; bx < c.wib; bx++) {
+          if (!br.insufficient) last_good_imcu_row = by / c.v;
+          restart();
+          if (br.insufficient) continue;
+          if (Ah == 0)
+            ac_first(at(c, by, bx));
+          else
+            ac_refine(at(c, by, bx));
+        }
+      return;
+    }
+    auto dc_block = [&](int i, Component& c, int by, int bx) {
+      if (Ah == 0)
+        dc_first(i, at(c, by, bx));
+      else
+        dc_refine(at(c, by, bx));
+    };
+    if (ns == 1) {
+      Component& c = comps[size_t(sc[0])];
+      for (int by = 0; by < c.hib; by++)
+        for (int bx = 0; bx < c.wib; bx++) {
+          if (!br.insufficient) last_good_imcu_row = by / c.v;
+          restart();
+          if (Ah == 0 && br.insufficient) continue;
+          dc_block(0, c, by, bx);
+        }
+      return;
+    }
+    for (int my = 0; my < mcus_y; my++)
+      for (int mx = 0; mx < mcus_x; mx++) {
+        if (!br.insufficient) last_good_imcu_row = my;
+        restart();
+        if (Ah == 0 && br.insufficient) continue;
+        for (int i = 0; i < ns; i++) {
+          Component& c = comps[size_t(sc[size_t(i)])];
+          for (int y = 0; y < c.v; y++)
+            for (int x = 0; x < c.h; x++)
+              dc_block(i, c, my * c.v + y, mx * c.h + x);
+        }
+      }
+  }
+
+  // Decodes one scan; returns true when it was a sequential scan that held
+  // every component (the image is then complete).
   bool decode_scan() {
     int len = word();
     int ns = byte();
@@ -554,13 +736,27 @@ struct Decoder {
       td[i] = t >> 4;
       ta[i] = t & 15;
     }
-    byte();  // Ss
-    byte();  // Se
-    byte();  // Ah/Al
+    const int Ss = byte(), Se = byte(), AhAl = byte();
+    const int Ah = AhAl >> 4, Al = AhAl & 15;
+    if (progressive) {  // jdphuff.c start_pass_phuff_decoder
+      bool bad = Ss == 0 ? Se != 0 : (Ss > Se || Se > 63 || ns != 1);
+      if ((Ah != 0 && Al != Ah - 1) || Al > 13) bad = true;
+      if (bad) throw Invalid{"bad progression parameters"};
+      scans++;
+      for (int i = 0; i < ns; i++) {  // inconsistent scans are only warnings
+        auto& cur = coef_bits[size_t(sc[size_t(i)])];
+        auto& prev = prev_coef_bits[size_t(sc[size_t(i)])];
+        for (int k = std::min(Ss, 1); k <= std::max(Se, 9); k++)
+          prev[size_t(k)] = scans > 1 ? cur[size_t(k)] : 0;
+        for (int k = Ss; k <= Se; k++) cur[size_t(k)] = Al;
+      }
+    }
     Derived dct[4], act[4];
     for (int i = 0; i < ns; i++) {
       if (td[i] > 3 || ta[i] > 3) throw Invalid{"bad Huffman table index"};
       for (int k = 0; k < 2; k++) {
+        // a progressive DC scan reads no AC table, a DC refinement none
+        if (progressive && (k ? Ss == 0 : (Ss != 0 || Ah != 0))) continue;
         int no = k ? ta[i] : td[i];
         HuffSpec spec = k ? ac_spec[no] : dc_spec[no];
         if (!spec.defined) {  // jpeg_std_huff_table (Motion-JPEG)
@@ -580,8 +776,26 @@ struct Decoder {
       }
     }
     BitReader br{d, n, pos};
+    br.file = file;
     int last_dc[4] = {0, 0, 0, 0};
+    unsigned eobrun = 0;
     int next_rst = 0, to_go = restart_interval;
+    auto restart = [&]() {
+      if (restart_interval) {
+        if (to_go == 0) {
+          process_restart(br, &next_rst, last_dc, ns, &eobrun);
+          to_go = restart_interval;
+        }
+        to_go--;
+      }
+    };
+    if (progressive) {
+      decode_progressive(br, sc, dct, act, Ss, Se, Ah, Al, last_dc, &eobrun,
+                         restart);
+      pos = br.pos;
+      unread_marker = br.marker;
+      return false;
+    }
     auto block = [&](int i, Component& c, int by, int bx) {
       int16_t* blk = &c.coef[(size_t(by) * c.bw + bx) * 64];
       int s = br.decode(dct[i]);
@@ -599,15 +813,6 @@ struct Decoder {
           if (r != 15) break;
           k += 15;
         }
-      }
-    };
-    auto restart = [&]() {
-      if (restart_interval) {
-        if (to_go == 0) {
-          process_restart(br, &next_rst, last_dc, ns);
-          to_go = restart_interval;
-        }
-        to_go--;
       }
     };
     if (ns == 1) {  // non-interleaved: one block per MCU, over the real ones
@@ -633,6 +838,31 @@ struct Decoder {
     pos = br.pos;
     unread_marker = br.marker;
     return ns == int(comps.size());
+  }
+
+  // jdcoefct.c smoothing_ok: libjpeg-turbo block-smooths a progressive
+  // image whose first nine AC coefficients are not all known to full
+  // precision (a file cut short). Latches coef_bits[0..9] of each component
+  // (rows 0..9) and those from before its latest scan (rows 10..19).
+  bool smoothing_ok(std::vector<std::array<int, 20>>* latch) const {
+    if (!progressive) return false;
+    bool useful = false;
+    latch->assign(comps.size(), {});
+    for (size_t ci = 0; ci < comps.size(); ci++) {
+      const Component& c = comps[ci];
+      if (!c.latched) return false;
+      for (int k : kSmoothPos)
+        if (c.quant[k] == 0) return false;
+      if (coef_bits[ci][0] < 0) return false;
+      (*latch)[ci][0] = coef_bits[ci][0];
+      for (int k = 1; k < 10; k++) {
+        (*latch)[ci][size_t(10 + k)] =
+            scans > 1 ? prev_coef_bits[ci][size_t(k)] : -1;
+        (*latch)[ci][size_t(k)] = coef_bits[ci][size_t(k)];
+        if (coef_bits[ci][size_t(k)] != 0) useful = true;
+      }
+    }
+    return useful;
   }
 };
 
@@ -720,6 +950,136 @@ Plane idct_plane(const Component& c) {
   return p;
 }
 
+// jdcoefct.c decompress_smooth_data: a component's samples with its blocks'
+// missing low-frequency coefficients estimated from the DC values of the 5x5
+// blocks around each (libjpeg-turbo 2.1 and later). `latch` is the
+// component's row of Decoder::smoothing_ok; iMCU rows after
+// `last_good_row` use the bits from before the latest scan.
+Plane idct_plane_smoothed(const Component& c, const std::array<int, 20>& latch,
+                          int imcu_rows, int last_good_row) {
+  Plane p;
+  p.w = c.bw * 8;
+  p.h = c.bh * 8;
+  p.px.assign(size_t(p.w) * p.h, 0);
+  const uint16_t* q = c.quant;
+  const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9],
+                Q02 = q[2], Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+  auto dc = [&](int by, int bx) {
+    return int64_t(c.coef[(size_t(by) * c.bw + bx) * 64]);
+  };
+  // One estimate: the coefficient in quantiser units, its magnitude held
+  // under 2^Al when Al > 0.
+  auto estimate = [](int64_t qk, int64_t num, int Al) {
+    int64_t pred = ((qk << 7) + (num >= 0 ? num : -num)) / (qk << 8);
+    if (Al > 0 && pred >= (int64_t(1) << Al)) pred = (int64_t(1) << Al) - 1;
+    return int16_t(num >= 0 ? pred : -pred);
+  };
+  const int last_col = c.wib - 1;
+  for (int r = 0; r < imcu_rows; r++) {
+    int block_rows = c.v;
+    if (r == imcu_rows - 1) {
+      block_rows = c.hib % c.v;
+      if (block_rows == 0) block_rows = c.v;
+    }
+    const int* bits = r > last_good_row ? &latch[10] : &latch[0];
+    bool change_dc = true;
+    for (int k = 1; k < 10; k++) change_dc = change_dc && bits[k] == -1;
+    const int image_rows = block_rows * imcu_rows;
+    for (int k = 0; k < block_rows; k++) {
+      const int row = r * c.v + k, image_row = r * block_rows + k;
+      const int prev = image_row > 0 ? row - 1 : row;
+      const int prev2 = image_row > 1 ? row - 2 : prev;
+      const int next = image_row < image_rows - 1 ? row + 1 : row;
+      const int next2 = image_row < image_rows - 2 ? row + 2 : next;
+      const int rows5[5] = {prev2, prev, row, next, next2};
+      int64_t D[5][5];  // D[i][j]: DC01..DC25, row i, column j
+      for (int i = 0; i < 5; i++) {
+        D[i][0] = D[i][1] = D[i][2] = D[i][3] = D[i][4] = dc(rows5[i], 0);
+      }
+      for (int bx = 0; bx <= last_col; bx++) {
+        if (bx == 0 && bx < last_col)
+          for (int i = 0; i < 5; i++) D[i][3] = D[i][4] = dc(rows5[i], 1);
+        if (bx + 1 < last_col)
+          for (int i = 0; i < 5; i++) D[i][4] = dc(rows5[i], bx + 2);
+        int16_t ws[64];
+        std::memcpy(ws, &c.coef[(size_t(row) * c.bw + bx) * 64], sizeof(ws));
+#define DC(n) D[((n) - 1) / 5][((n) - 1) % 5]
+        int Al;
+        if ((Al = bits[1]) != 0 && ws[1] == 0) {  // AC01
+          int64_t num = Q00 * (change_dc
+              ? (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) -
+                 13 * DC(9) + 3 * DC(10) - 3 * DC(11) + 38 * DC(12) -
+                 38 * DC(14) + 3 * DC(15) - 3 * DC(16) + 13 * DC(17) -
+                 13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) + DC(24) +
+                 DC(25))
+              : (-7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15)));
+          ws[1] = estimate(Q01, num, Al);
+        }
+        if ((Al = bits[2]) != 0 && ws[8] == 0) {  // AC10
+          int64_t num = Q00 * (change_dc
+              ? (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) +
+                 13 * DC(7) + 38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) -
+                 13 * DC(17) - 38 * DC(18) - 13 * DC(19) + DC(20) + DC(21) +
+                 3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25))
+              : (-7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23)));
+          ws[8] = estimate(Q10, num, Al);
+        }
+        if ((Al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+          int64_t num = Q00 * (change_dc
+              ? (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) -
+                 14 * DC(13) - 5 * DC(14) + 2 * DC(17) + 7 * DC(18) +
+                 2 * DC(19) + DC(23))
+              : (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23)));
+          ws[16] = estimate(Q20, num, Al);
+        }
+        if ((Al = bits[4]) != 0 && ws[9] == 0) {  // AC11
+          int64_t num = Q00 * (change_dc
+              ? (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) +
+                 9 * DC(19) + DC(21) - DC(25))
+              : (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) -
+                 DC(20) + DC(22) - DC(24) + DC(4) - DC(6) + 10 * DC(7) -
+                 10 * DC(9)));
+          ws[9] = estimate(Q11, num, Al);
+        }
+        if ((Al = bits[5]) != 0 && ws[2] == 0) {  // AC02
+          int64_t num = Q00 * (change_dc
+              ? (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) -
+                 14 * DC(13) + 7 * DC(14) + DC(15) + 2 * DC(17) - 5 * DC(18) +
+                 2 * DC(19))
+              : (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15)));
+          ws[2] = estimate(Q02, num, Al);
+        }
+        if (change_dc) {
+          if ((Al = bits[6]) != 0 && ws[3] == 0)  // AC03
+            ws[3] = estimate(Q03, Q00 * (DC(7) - DC(9) + 2 * DC(12) -
+                                         2 * DC(14) + DC(17) - DC(19)), Al);
+          if ((Al = bits[7]) != 0 && ws[10] == 0)  // AC12
+            ws[10] = estimate(Q12, Q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) +
+                                          3 * DC(18) - DC(19)), Al);
+          if ((Al = bits[8]) != 0 && ws[17] == 0)  // AC21
+            ws[17] = estimate(Q21, Q00 * (DC(7) - DC(9) - 3 * DC(12) +
+                                          3 * DC(14) + DC(17) - DC(19)), Al);
+          if ((Al = bits[9]) != 0 && ws[24] == 0)  // AC30
+            ws[24] = estimate(Q30, Q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) -
+                                          2 * DC(18) - DC(19)), Al);
+          ws[0] = estimate(Q00, Q00 * (
+              -2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) -
+              6 * DC(6) + 6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10) -
+              8 * DC(11) + 42 * DC(12) + 152 * DC(13) + 42 * DC(14) -
+              8 * DC(15) - 6 * DC(16) + 6 * DC(17) + 42 * DC(18) +
+              6 * DC(19) - 6 * DC(20) - 2 * DC(21) - 6 * DC(22) -
+              8 * DC(23) - 6 * DC(24) - 2 * DC(25)), 0);
+        }
+#undef DC
+        idct_islow(ws, q, &p.px[size_t(row) * 8 * p.w + size_t(bx) * 8], p.w);
+        for (int i = 0; i < 5; i++)
+          for (int j = 0; j < 4; j++) D[i][j] = D[i][j + 1];
+      }
+    }
+  }
+  return p;
+}
+
 // jdsample.c: a component's plane upsampled to width x height.
 std::vector<uint8_t> upsample(const Component& c, const Plane& p, int max_h,
                               int max_v, int width, int height) {
@@ -798,22 +1158,32 @@ inline uint8_t clamp255(int x) {
 }
 
 // mode: 0 = as the file is (grey 1 channel, colour BGR), 1 = grey (libjpeg
-// JCS_GRAYSCALE), 2 = BGR.
+// JCS_GRAYSCALE; OpenCV's own conversion for CMYK), 2 = BGR. `file`: the
+// bytes are a file read as cv2.imread reads it (past_end). *exif_off and
+// *exif_len locate the TIFF body of the file's Exif APP1 (length 0: none).
 std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
-                            int* out_h, int* out_w, int* out_c) {
+                            bool file, int* out_h, int* out_w, int* out_c,
+                            size_t* exif_off, size_t* exif_len) {
   Decoder dec;
   dec.d = data;
   dec.n = size;
+  dec.file = file;
   if (size < 2 || data[0] != 0xFF || data[1] != 0xD8)
     throw Invalid{"not a JPEG (no SOI)"};
   dec.pos = 2;
   if (!dec.read_markers()) throw Invalid{"JPEG without an image"};
-  if (!dec.decode_scan()) {  // several scans: read them all, up to EOI
+  // Several scans (progressive, or sequential ones that each hold some of
+  // the components): read them all, up to EOI.
+  if (!dec.decode_scan()) {
     while (dec.read_markers()) dec.decode_scan();
   }
+  *exif_off = dec.exif_off;
+  *exif_len = dec.exif_len;
   const int nc = int(dec.comps.size());
   // jdapimin.c default_decompress_parms: the colour space of 3 components
-  // (a JFIF marker, then an Adobe marker, then the component ids decide).
+  // (a JFIF marker, then an Adobe marker, then the component ids decide);
+  // 4 components are YCCK only under an Adobe marker whose transform is not
+  // 0, else CMYK.
   bool rgb = false;
   if (nc == 3 && !dec.saw_jfif) {
     if (dec.saw_adobe)
@@ -822,18 +1192,25 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
       rgb = dec.comps[0].id == 82 && dec.comps[1].id == 71 &&
             dec.comps[2].id == 66;  // 'R', 'G', 'B'
   }
+  const bool ycck = nc == 4 && dec.saw_adobe && dec.adobe_transform != 0;
   const int W = dec.width, H = dec.height;
   int channels = mode == 1 ? 1 : mode == 2 ? 3 : (nc == 1 ? 1 : 3);
+  const bool gray_only = nc == 1 || (channels == 1 && nc == 3 && !rgb);
+  std::vector<std::array<int, 20>> latch;
+  const bool smooth = dec.smoothing_ok(&latch);
   std::vector<uint8_t> out(size_t(W) * H * channels);
   *out_h = H;
   *out_w = W;
   *out_c = channels;
-  const bool gray_only = nc == 1 || (channels == 1 && !rgb);
   std::vector<std::vector<uint8_t>> planes(static_cast<size_t>(nc));
   for (int i = 0; i < (gray_only ? 1 : nc); i++) {
     const Component& c = dec.comps[size_t(i)];
-    planes[size_t(i)] =
-        upsample(c, idct_plane(c), dec.max_h, dec.max_v, W, H);
+    planes[size_t(i)] = upsample(
+        c,
+        smooth ? idct_plane_smoothed(c, latch[size_t(i)], dec.mcus_y,
+                                     dec.last_good_imcu_row)
+               : idct_plane(c),
+        dec.max_h, dec.max_v, W, H);
   }
   const size_t npx = size_t(W) * H;
   if (gray_only) {
@@ -874,6 +1251,37 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
     cb_b[i] = int((fix(1.77200) * x + kHalf) >> kScale);
     cr_g[i] = -fix(0.71414) * x;
     cb_g[i] = -fix(0.34414) * x + kHalf;
+  }
+  if (nc == 4) {
+    // libjpeg's JCS_CMYK output (jdcolor.c ycck_cmyk_convert for YCCK, the
+    // planes as they are for CMYK), then OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+    // or icvCvt_CMYK2Gray_8u_C4C1R (utils.cpp), not libjpeg's conversion.
+    const uint8_t* p3 = planes[3].data();
+    constexpr int kGrayShift = 14;
+    const int gr = int(0.299 * (1 << kGrayShift) + 0.5),
+              gg = int(0.587 * (1 << kGrayShift) + 0.5),
+              gb = int(0.114 * (1 << kGrayShift) + 0.5);
+    for (size_t i = 0; i < npx; i++) {
+      int c = p0[i], m = p1[i], y = p2[i], k = p3[i];
+      if (ycck) {
+        const int yy = p0[i], cb = p1[i], cr = p2[i];
+        c = clamp255(255 - (yy + cr_r[cr]));
+        m = clamp255(255 - (yy + int((cb_g[cb] + cr_g[cr]) >> kScale)));
+        y = clamp255(255 - (yy + cb_b[cb]));
+      }
+      c = k - ((255 - c) * k >> 8);
+      m = k - ((255 - m) * k >> 8);
+      y = k - ((255 - y) * k >> 8);
+      if (channels == 1) {
+        out[i] = uint8_t((y * gb + m * gg + c * gr + (1 << (kGrayShift - 1)))
+                         >> kGrayShift);
+      } else {
+        out[3 * i] = uint8_t(y);
+        out[3 * i + 1] = uint8_t(m);
+        out[3 * i + 2] = uint8_t(c);
+      }
+    }
+    return out;
   }
   for (size_t i = 0; i < npx; i++) {
     int y = p0[i], cb = p1[i], cr = p2[i];
@@ -1233,14 +1641,22 @@ uint8_t* to_malloc(const std::vector<uint8_t>& v) {
 
 extern "C" {
 
-// Decodes a JPEG. Returns a malloc'd (h, w, c) uint8 buffer (free it with
-// gjpeg_free), or NULL with *status 1 (bytes cv2.imdecode gives None for)
-// or 2 (a variant the codec does not read; msg names it).
-uint8_t* gjpeg_decode(const uint8_t* data, uint64_t size, int mode, int* h,
-                      int* w, int* c, int* status, char* msg, int msglen) {
+// Decodes a JPEG, as cv2.imdecode (file 0) or cv2.imread (file 1) does.
+// Returns a malloc'd (h, w, c) uint8 buffer (free it with gjpeg_free), or
+// NULL with *status 1 (bytes cv2 gives None for) or 2 (a variant the codec
+// does not read; msg names it). exif[0] and exif[1] get the offset and
+// length of the Exif APP1's TIFF body (length 0 when there is none).
+uint8_t* gjpeg_decode(const uint8_t* data, uint64_t size, int mode, int file,
+                      int* h, int* w, int* c, uint64_t* exif, int* status,
+                      char* msg, int msglen) {
   *status = 0;
   try {
-    return to_malloc(decode(data, size_t(size), mode, h, w, c));
+    size_t off = 0, len = 0;
+    uint8_t* out = to_malloc(decode(data, size_t(size), mode, file != 0, h,
+                                    w, c, &off, &len));
+    exif[0] = off;
+    exif[1] = len;
+    return out;
   } catch (const Invalid& e) {
     *status = 1;
     set_msg(msg, msglen, e.msg);

@@ -29,13 +29,17 @@ yaw. ``fused`` also runs the per-frame fixes through the port's
 (``pipeline.geopose.geopose_to_wgs84_f64``).
 
 Images are read by their content, as ``cv2.imread`` reads them, whatever
-their names (``gis/jpeg.py`` ``decode_image``: PNG or baseline JPEG; the
-card machine has no OpenCV). The map and the frames are read as
-``IMREAD_GRAYSCALE``: a JPEG's Y plane, exactly as libjpeg gives it to
-OpenCV; a colour PNG becomes grey as ``cv2.cvtColor`` makes it, which
-``imread``'s grey flag (libpng's conversion) may put one level lower on some
-pixels. The DEM is read as ``IMREAD_UNCHANGED`` and must be grey (8 or 16
-bits). A file of another format raises ``ValueError``.
+their names (``gis/jpeg.py`` ``read_image``; the card machine has no
+OpenCV): PNG of every colour type, depth and interlacing, and sequential
+or progressive JPEG of 1, 3 or 4 components; a JPEG file cut short reads
+as libjpeg reads it from a file (grey, or block-smoothed, past the cut).
+The map and the frames are read as ``IMREAD_GRAYSCALE``: a JPEG's Y plane
+(OpenCV's own grey for CMYK), a colour or palette PNG through libpng's
+grey conversion, each turned upright by its EXIF orientation (a camera's
+Exif APP1, a PNG's eXIf chunk) as OpenCV turns it. The DEM is read as
+``IMREAD_UNCHANGED`` and must be grey (8 or 16 bits). A file of another
+format, or a variant the port does not read (arithmetic-coded, lossless,
+12-bit, hierarchical JPEG), raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -48,22 +52,22 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from gisnav_tpu_torch.gis.jpeg import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
-                                       decode_image)
+                                       read_image)
 
 __all__ = ["load_dataset", "replay", "summarize"]
 
 
 def _read_image(path: str, flag: int) -> np.ndarray:
     """A PNG or JPEG file, read by content as ``cv2.imread(path, flag)``."""
-    with open(path, "rb") as f:
-        data = f.read()
     try:
-        img = decode_image(data, flag)
+        img = read_image(path, flag)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from e
     if img is None:
+        with open(path, "rb") as f:
+            head = f.read(8)
         raise ValueError(f"{path}: not a PNG or JPEG image OpenCV would "
-                         f"read (starts {data[:8]!r})")
+                         f"read (starts {head!r})")
     return img
 
 

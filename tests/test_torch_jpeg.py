@@ -10,9 +10,21 @@ and equal bytes.
   edited by hand: 16-bit DQT, APPn (EXIF included) and COM segments, fill
   bytes before markers, no DHT (libjpeg-turbo's standard tables), RGB
   component ids, an Adobe marker.
-- A progressive file raises ``ValueError`` naming it. Truncated, cut and
-  corrupt streams and garbage give what cv2 gives (None, or the image with
-  grey past a damaged segment).
+- Progressive files (``IMWRITE_JPEG_PROGRESSIVE``) decode as cv2 at every
+  sampling and size, with restarts; a complete one gives the baseline
+  file's pixels; one cut short and closed by EOI is block-smoothed as
+  libjpeg-turbo smooths it (every scan boundary and inside every scan).
+  Arithmetic-coded, lossless, hierarchical and 12-bit headers raise
+  ``ValueError`` naming the variant (cv2 reads the first two). Truncated,
+  cut and corrupt streams and garbage give what cv2 gives (None, or the
+  image with grey past a damaged segment); read as a file they give what
+  ``cv2.imread`` gives (libjpeg's fake EOI past the end).
+- EXIF orientation: 1-8 (and 0, 9) in both TIFF byte orders, under both
+  flags, through ``decode_image`` and ``read_image`` against
+  ``cv2.imdecode`` and ``cv2.imread``, and malformed Exif bodies (cut IFDs,
+  tags past the end, other APP1 segments, odd byte-order marks) as cv2
+  reads them. CMYK and YCCK files (the committed fixtures, Adobe markers
+  edited) as cv2.
 - Encode equals ``cv2.imencode(".jpg")`` byte for byte, grey and BGR, at
   the same qualities and sizes; the encoder's and decoder's digests that
   ``chip_smoke.py`` holds the card machine's build to are OpenCV's.
@@ -21,6 +33,7 @@ and equal bytes.
 """
 import hashlib
 import os
+import struct
 import subprocess
 import sys
 
@@ -184,14 +197,49 @@ def test_decode_colour_space_as_libjpeg_guesses(colour):
     _assert_decodes_as_cv2(_with_ids(data, **colour))
 
 
+def _sof_edit(data, marker, precision=8, scan=None):
+    """A baseline file with its SOF0 marker (and precision) rewritten, and
+    its scan's Ss, Se and Ah/Al set to ``scan``: headers of the variants
+    the codec refuses."""
+    data = bytearray(data)
+    at = bytes(data).index(b"\xff\xc0")
+    data[at + 1], data[at + 4] = marker, precision
+    if scan is not None:
+        sos = bytes(data).index(b"\xff\xda")
+        p = sos + 5 + 2 * data[sos + 4]
+        data[p:p + 3] = bytes(scan)
+    return bytes(data)
+
+
+# (SOF marker, precision, scan's Ss/Se/AhAl) -> (the port's message, whether
+# cv2 reads it: libjpeg-turbo 3.1 in OpenCV 5.0 decodes arithmetic-coded
+# and 8-bit lossless files, and refuses 12-bit and hierarchical ones)
+REFUSED = {
+    "arithmetic": ((0xC9, 8, None), "arithmetic-coded", True),
+    "arithmetic_progressive": ((0xCA, 8, (0, 0, 0)), "arithmetic-coded",
+                               True),
+    "lossless": ((0xC3, 8, (1, 0, 0)), "lossless", True),
+    "hierarchical": ((0xC5, 8, None), "hierarchical", False),
+    "hierarchical_progressive": ((0xC6, 8, None), "hierarchical", False),
+    "12bit": ((0xC1, 12, None), "12-bit", False),
+}
+
+
 def test_progressive_raises_naming_it():
+    """Progressive files decode (the refusal this held until progressive
+    decoding came is lifted: see ``test_progressive_decodes_as_cv2``); the
+    variants still refused raise ``ValueError`` naming theirs, whether cv2
+    reads them or not."""
     data = _encode(_image(32, 40, 3), cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
-    assert cv2.imdecode(np.frombuffer(data, np.uint8),
-                        cv2.IMREAD_UNCHANGED) is not None
-    with pytest.raises(ValueError, match="progressive"):
-        tjpeg.decode_jpeg(data)
-    with pytest.raises(ValueError, match="progressive"):
-        tjpeg.decode_image(data)
+    _assert_decodes_as_cv2(data)
+    base = _encode(_image(32, 40, 1))
+    for (sof, precision, scan), name, cv2_reads in REFUSED.values():
+        edited = _sof_edit(base, sof, precision, scan)
+        for flag in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE):
+            ref = cv2.imdecode(np.frombuffer(edited, np.uint8), flag)
+            assert (ref is not None) == cv2_reads, name
+            with pytest.raises(ValueError, match=name):
+                tjpeg.decode_image(edited, flag)
 
 
 @pytest.mark.parametrize("rst", [0, 2])
@@ -271,9 +319,9 @@ def test_decode_image_chooses_by_content():
                     np.testing.assert_array_equal(got, want)
                 elif flag == tjpeg.IMREAD_UNCHANGED:
                     np.testing.assert_array_equal(got, img)
-                else:  # colour PNG: cvtColor's grey, not libpng's
-                    np.testing.assert_array_equal(got, cv2.cvtColor(
-                        img, cv2.COLOR_BGR2GRAY) if img.ndim == 3 else img)
+                else:  # colour PNG: libpng's grey, as cv2.imdecode gives it
+                    np.testing.assert_array_equal(got, cv2.imdecode(
+                        np.frombuffer(data, np.uint8), flag))
     assert tjpeg.decode_image(b"GIF89a") is None
     with pytest.raises(ValueError):
         tjpeg.decode_image(_encode(grey), 1)
@@ -299,3 +347,243 @@ def test_concurrent_builds_leave_one_library(tmp_path):
     assert os.path.dirname(path) == str(tmp_path)
     assert os.listdir(tmp_path) == [os.path.basename(path)]
     assert os.path.basename(path).startswith("libjpeg_")
+
+
+# -- progressive, EXIF, CMYK (this file's second half) --------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_images")
+PROGRESSIVE = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+
+
+def _assert_image_as_cv2(data, path=None):
+    """``decode_image`` equals ``cv2.imdecode`` under both flags; with a
+    ``path`` (the same bytes on disk) ``read_image`` equals
+    ``cv2.imread``."""
+    for flag in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE):
+        pairs = [(cv2.imdecode(np.frombuffer(data, np.uint8), flag),
+                  tjpeg.decode_image(data, flag))]
+        if path is not None:
+            with open(path, "wb") as f:
+                f.write(data)
+            pairs.append((cv2.imread(path, flag),
+                          tjpeg.read_image(path, flag)))
+        for ref, got in pairs:
+            if ref is None:
+                assert got is None, flag
+                continue
+            assert got is not None and got.dtype == ref.dtype
+            assert got.shape == ref.shape, (flag, got.shape, ref.shape)
+            np.testing.assert_array_equal(got, ref, err_msg=f"flag {flag}")
+
+
+def _sos_offsets(data):
+    return [s for m, s, _ in _all_segments(data) if m == 0xDA]
+
+
+def _all_segments(data):
+    """(marker, start, end) of every marker segment, scans included (the
+    entropy data after an SOS is skipped to the next marker)."""
+    out, pos = [], 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF or data[pos + 1] in (0, 0xFF) or (
+                0xD0 <= data[pos + 1] <= 0xD7):
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            break
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        out.append((marker, pos, end))
+        pos = end
+    return out
+
+
+@pytest.mark.parametrize("size", [(1, 1), (7, 9), (33, 17), (217, 301)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("option", ["plain", "rst2", "q30"])
+@pytest.mark.parametrize("kind", ["grey", "bgr420", "bgr444", "bgr422",
+                                  "bgr440", "bgr411"])
+def test_progressive_decodes_as_cv2(kind, option, size):
+    params = list(PROGRESSIVE)
+    if kind != "grey":
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind[3:]]]
+    if option == "rst2":
+        params += [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]
+    elif option == "q30":
+        params += [cv2.IMWRITE_JPEG_QUALITY, 30]
+    img = _image(*size, 1 if kind == "grey" else 3, seed=11)
+    data = _encode(img, *params)
+    assert data[2:].find(b"\xff\xc2") >= 0
+    _assert_decodes_as_cv2(data)
+
+
+@pytest.mark.parametrize("kind", ["grey", "bgr420", "bgr444"])
+def test_progressive_equals_baseline_pixels(kind):
+    """Same image, same quality (same tables and coefficients): the
+    progressive file decodes to the baseline file's pixels exactly."""
+    params = ([] if kind == "grey" else
+              [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind[3:]]])
+    img = _image(121, 173, 1 if kind == "grey" else 3, seed=12)
+    base = _encode(img, *params)
+    prog = _encode(img, *params, *PROGRESSIVE)
+    assert base != prog
+    for grey in (False, True):
+        np.testing.assert_array_equal(tjpeg.decode_jpeg(prog, grey),
+                                      tjpeg.decode_jpeg(base, grey))
+
+
+@pytest.mark.parametrize("rst", [0, 3])
+@pytest.mark.parametrize("kind", ["grey", "bgr420", "bgr444"])
+def test_progressive_cut_short_as_cv2(kind, rst, tmp_path):
+    """Cut at every scan boundary and inside every scan: without EOI None
+    (imdecode) and libjpeg's fake EOI (imread); closed with EOI, the
+    coefficients still unknown block-smoothed as libjpeg-turbo smooths
+    them (DC alone: the DC interpolation too)."""
+    params = list(PROGRESSIVE) + [cv2.IMWRITE_JPEG_RST_INTERVAL, rst]
+    if kind != "grey":
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[kind[3:]]]
+    data = _encode(_image(77, 130, 1 if kind == "grey" else 3, seed=13),
+                   *params)
+    sos = _sos_offsets(data) + [len(data) - 2]
+    path = str(tmp_path / "cut.jpg")
+    for k in range(1, len(sos)):
+        for cut in (sos[k], (sos[k - 1] + sos[k]) // 2):
+            _assert_image_as_cv2(data[:cut], path)
+            _assert_image_as_cv2(data[:cut] + b"\xff\xd9")
+
+
+@pytest.mark.parametrize("kind", ["grey", "bgr420"])
+def test_truncated_file_reads_as_imread(kind, tmp_path):
+    """A baseline file cut short: None from ``decode_image`` (imdecode),
+    grey past the cut from ``read_image`` (imread's fake EOI)."""
+    data = _encode(_image(64, 80, 1 if kind == "grey" else 3, seed=14))
+    path = str(tmp_path / "cut.jpg")
+    for cut in (150, 300, len(data) // 2, len(data) - 2):
+        _assert_image_as_cv2(data[:cut], path)
+    _assert_image_as_cv2(data[:len(data) // 2] + b"\xff", path)
+
+
+def _tiff(entries, order=b"MM", ifd=8, count=None, tail=b"\0\0\0\0",
+          header=None):
+    e = "<" if order == b"II" else ">"
+    body = struct.pack(e + "H", len(entries) if count is None else count)
+    for tag, typ, n, value in entries:
+        body += struct.pack(e + "HHI", tag, typ, n) + value
+    return ((header or order + struct.pack(e + "H", 42))
+            + struct.pack(e + "I", ifd) + body + tail)
+
+
+def _short(v, e=">"):
+    return struct.pack(e + "H", v) + b"\0\0"
+
+
+def _app1(body):
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+def _after_app0(jpeg, *segments):
+    at = 4 + int.from_bytes(jpeg[4:6], "big")
+    return jpeg[:at] + b"".join(segments) + jpeg[at:]
+
+
+@pytest.mark.parametrize("orient", range(10))
+@pytest.mark.parametrize("order", [b"MM", b"II"], ids=["MM", "II"])
+@pytest.mark.parametrize("kind", ["grey", "bgr420", "progressive"])
+def test_exif_orientation_as_cv2(kind, order, orient, tmp_path):
+    img = _image(24, 40, 1 if kind == "grey" else 3, seed=15)
+    jpeg = _encode(img, *(PROGRESSIVE if kind == "progressive" else []))
+    e = "<" if order == b"II" else ">"
+    tagged = _after_app0(jpeg, _app1(b"Exif\0\0" + _tiff(
+        [(0x0112, 3, 1, _short(orient, e))], order)))
+    _assert_image_as_cv2(tagged, str(tmp_path / "tagged.jpg"))
+    got = tjpeg.decode_image(tagged, tjpeg.IMREAD_GRAYSCALE)
+    assert got.shape == ((40, 24) if orient in (5, 6, 7, 8) else (24, 40))
+
+
+_O6 = [(0x0112, 3, 1, _short(6))]
+_FAR = struct.pack(">I", 5000)
+EXIF_CASES = {
+    "xmp_first": [_app1(b"http://ns.adobe.com/xap/1.0/\0<x/>"),
+                  _app1(b"Exif\0\0" + _tiff(_O6))],
+    "two_exif_6_then_3": [_app1(b"Exif\0\0" + _tiff(_O6)),
+                          _app1(b"Exif\0\0" + _tiff(
+                              [(0x0112, 3, 1, _short(3))]))],
+    "no_exif_id": [_app1(b"Abcd\0\0" + _tiff(_O6))],
+    "exif_id_0_1": [_app1(b"Exif\0\1" + _tiff(_O6))],
+    "exif_in_app2": [b"\xff\xe2" + struct.pack(">H", 34) + b"Exif\0\0"
+                     + _tiff(_O6)],
+    "long_mm": [_app1(b"Exif\0\0" + _tiff(
+        [(0x0112, 4, 1, struct.pack(">I", 6))]))],
+    "long_ii": [_app1(b"Exif\0\0" + _tiff(
+        [(0x0112, 4, 1, struct.pack("<I", 6))], b"II"))],
+    "count_3_ends_after_o": [_app1(b"Exif\0\0" + _tiff(_O6, count=3,
+                                                        tail=b""))],
+    "value_cut": [_app1(b"Exif\0\0" + _tiff(_O6, tail=b"")[:-3])],
+    "make_past_end_then_o": [_app1(b"Exif\0\0" + _tiff(
+        [(0x010F, 2, 100, _FAR)] + _O6))],
+    "o_then_make_past_end": [_app1(b"Exif\0\0" + _tiff(
+        _O6 + [(0x010F, 2, 100, _FAR)]))],
+    "xres_past_end_then_o": [_app1(b"Exif\0\0" + _tiff(
+        [(0x011A, 5, 1, _FAR)] + _O6))],
+    "whitepoint_past_end_then_o": [_app1(b"Exif\0\0" + _tiff(
+        [(0x013E, 5, 2, _FAR)] + _O6))],
+    "resunit_then_o": [_app1(b"Exif\0\0" + _tiff(
+        [(0x0128, 3, 1, _FAR)] + _O6))],
+    "exif_ifd_pointer_then_o": [_app1(b"Exif\0\0" + _tiff(
+        [(0x8769, 4, 1, _FAR)] + _O6))],
+    "short_make_in_place_then_o": [_app1(b"Exif\0\0" + _tiff(
+        [(0x010F, 2, 4, b"abc\0")] + _O6))],
+    "huge_make_then_o": [_app1(b"Exif\0\0" + _tiff(
+        [(0x010F, 2, 0xFFFFFFF0, struct.pack(">I", 20))] + _O6))],
+    "ifd_past_end": [_app1(b"Exif\0\0" + _tiff(_O6, ifd=4000))],
+    "xx_header": [_app1(b"Exif\0\0" + _tiff(_O6, header=b"XX\0\x2a"))],
+    "not_42": [_app1(b"Exif\0\0" + _tiff(_O6, header=b"MM\0\x2b"))],
+    "empty_app1": [_app1(b"")],
+    "exif_id_only": [_app1(b"Exif\0\0")],
+    "one_byte_tiff": [_app1(b"Exif\0\0M")],
+    "o_in_ifd1_only": [_app1(b"Exif\0\0" + _tiff(
+        [(0x0100, 3, 1, _short(6))], tail=struct.pack(">I", 26)
+        + struct.pack(">H", 1) + struct.pack(">HHI", 0x0112, 3, 1)
+        + _short(6) + b"\0\0\0\0"))],
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXIF_CASES))
+def test_exif_malformed_as_cv2(case, tmp_path):
+    jpeg = _encode(_image(24, 40, 1, seed=16))
+    _assert_image_as_cv2(_after_app0(jpeg, *EXIF_CASES[case]),
+                         str(tmp_path / "exif.jpg"))
+
+
+def test_exif_between_scans_is_not_read():
+    """OpenCV reads the Exif APP1s before the first scan only."""
+    data = _encode(_image(24, 40, 1, seed=17), *PROGRESSIVE)
+    sos = _sos_offsets(data)
+    app1 = _app1(b"Exif\0\0" + _tiff(_O6))
+    for at in (sos[0], sos[1]):
+        _assert_image_as_cv2(data[:at] + app1 + data[at:])
+
+
+def _adobe(data, transform=None):
+    """The Adobe APP14 transform set, or the segment removed (None)."""
+    at = data.index(b"Adobe") - 4
+    end = at + 2 + int.from_bytes(data[at + 2:at + 4], "big")
+    if transform is None:
+        return data[:at] + data[end:]
+    return data[:at + 15] + bytes([transform]) + data[at + 16:]
+
+
+@pytest.mark.parametrize("edit", ["cmyk", "ycck", "transform1", "no_adobe",
+                                  "progressive"])
+def test_cmyk_as_cv2(edit):
+    """Four-component files: CMYK (Adobe transform 0 or no marker), YCCK
+    (transform 2, or another value libjpeg assumes to be YCCK), through
+    OpenCV's own CMYK conversions."""
+    name = "cmyk_420_prog.jpg" if edit == "progressive" else "cmyk_444.jpg"
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        data = f.read()
+    data = {"cmyk": data, "progressive": data, "ycck": _adobe(data, 2),
+            "transform1": _adobe(data, 1), "no_adobe": _adobe(data)}[edit]
+    _assert_image_as_cv2(data)
+    assert tjpeg.decode_image(data).shape[2] == 3

@@ -3,12 +3,17 @@
 - ``load_dataset`` returns what the JAX loader returns on the same files:
   a dataset the port writes (``utils/world_wms.py``
   ``write_replay_dataset``), and one with a colour map, colour frames and a
-  16-bit DEM image written by OpenCV (colour becomes grey as
-  ``cv2.cvtColor`` makes it, within one level of the JAX loader's
-  ``imread``). A JPEG under the layout's PNG name is read by content,
-  equal to ``cv2.imread``'s grey read and to the JAX loader's; a file of
-  neither format raises ``ValueError``; a missing frame
-  ``FileNotFoundError``.
+  16-bit DEM image written by OpenCV (colour becomes grey as libpng makes
+  it under ``imread``'s grey flag, exactly). A JPEG under the layout's PNG
+  name is read by content, equal to ``cv2.imread``'s grey read and to the
+  JAX loader's; a file of neither format raises ``ValueError``; a missing
+  frame ``FileNotFoundError``.
+- A flight stored as a camera stores it: JPEG frames turned 90 degrees
+  with an Exif APP1 (Orientation 6) and the map a 256-entry grey palette
+  PNG. Every frame and the map read as ``cv2.imread`` reads them, and the
+  ``harris_lg5`` replay matches the JAX one within the PNG flight's gates
+  (the port read such frames sideways, and refused the palette map,
+  before it applied EXIF orientation and read palette PNG).
 - ``summarize`` equals the JAX one on the same report.
 - ``harris_lg5`` ``replay`` with ``--fused`` on 4 frames through both
   packages, the port's cached program drawing RANSAC samples as the JAX
@@ -87,19 +92,16 @@ def test_load_colour_images_and_16bit_dem(tmp_path, world):
     with open(meta_path, "w") as f:
         json.dump(meta, f)
     ours, ref = treplay.load_dataset(root), jreplay.load_dataset(root)
-    # colour to grey: OpenCV's cvtColor rounding, where the JAX loader's
-    # imread (libpng's conversion) may fall one level below
-    assert np.abs(ours["ortho"].astype(int) - ref["ortho"]).max() <= 1
-    ours["ortho"] = ref["ortho"]
+    # colour to grey: libpng's conversion, as the JAX loader's imread
     _equal_datasets(ours, ref)
     assert ours["dem"].dtype == np.float32 and ours["dem"].max() > 255
     for row in ours["poses"]:
         frame = treplay._read_gray8(row["frame_path"])
+        np.testing.assert_array_equal(frame, cv2.imread(
+            row["frame_path"], cv2.IMREAD_GRAYSCALE))
         bgr = cv2.imread(row["frame_path"], cv2.IMREAD_COLOR)
-        np.testing.assert_array_equal(frame, cv2.cvtColor(
-            bgr, cv2.COLOR_BGR2GRAY))
-        assert np.abs(frame.astype(int) - cv2.imread(
-            row["frame_path"], cv2.IMREAD_GRAYSCALE)).max() <= 1
+        assert np.abs(frame.astype(int) - cv2.cvtColor(
+            bgr, cv2.COLOR_BGR2GRAY)).max() <= 1  # libpng truncates
 
 
 def test_load_dataset_refusals(tmp_path, world):
@@ -220,3 +222,41 @@ def test_classical_replay_both_packages(world, tmp_path):
                         a["north_m"] - b["north_m"]) < 2.5
     with pytest.raises(ValueError, match="unsupported"):
         treplay.replay(root, backend="semidense", device="cpu")
+
+
+def _store_as_camera(root):
+    """Rewrite a dataset's frames as a camera stores them (pixels turned
+    90 degrees, baseline JPEG, an Exif APP1 with Orientation 6) and its map
+    as a 256-entry grey palette PNG."""
+    from gisnav_tpu_torch.gis.jpeg import encode_jpeg
+    from tests.torch_image_writers import (exif_tiff, with_exif_app1,
+                                           write_png)
+
+    for name in os.listdir(os.path.join(root, "frames")):
+        path = os.path.join(root, "frames", name)
+        upright = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+        stored = np.ascontiguousarray(np.rot90(upright, 1))  # a 6 turns back
+        with open(path, "wb") as f:
+            f.write(with_exif_app1(encode_jpeg(stored), exif_tiff(6)))
+    path = os.path.join(root, "map.png")
+    ortho = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    with open(path, "wb") as f:
+        f.write(write_png(ortho, 8, 3, palette=np.repeat(
+            np.arange(256)[:, None], 3, axis=1)))
+    return ortho
+
+
+def test_harris_replay_matches_jax_on_camera_frames(world, tmp_path,
+                                                    monkeypatch):
+    root = str(tmp_path)
+    write_replay_dataset(world, root, frames=4)
+    ortho = _store_as_camera(root)
+    ours, ref = treplay.load_dataset(root), jreplay.load_dataset(root)
+    _equal_datasets(ours, ref)
+    np.testing.assert_array_equal(ours["ortho"], ortho)
+    for row in ours["poses"]:
+        frame = treplay._read_gray8(row["frame_path"])
+        assert frame.shape == (480, 640)
+        np.testing.assert_array_equal(frame, cv2.imread(
+            row["frame_path"], cv2.IMREAD_GRAYSCALE))
+    _harris_replay_matches_jax(root, monkeypatch)
