@@ -11,7 +11,7 @@
     python3 chip_smoke.py --deploy   # build + paths 10 and 11 only
     python3 chip_smoke.py --multistream   # build + path 12 only
     python3 chip_smoke.py --mesh     # build + paths 12 and 13 (the mesh)
-    python3 chip_smoke.py --jpeg     # build + the JPEG codec phase only
+    python3 chip_smoke.py --jpeg     # build + the image codecs phase only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -134,6 +134,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    APP1 with Orientation 6 spliced in) under a map written here as a
    256-entry grey palette PNG (``zlib`` and ``struct``): the same gates and
    launches, each fix's move against the upright JPEG dataset's printed;
+   then a fourth, the same flight as a GIS exports it
+   (``write_replay_dataset(image_format="tiff")``: the map a tiled
+   deflate GeoTIFF with predictor 2, the DEM a float32 GeoTIFF, the frames
+   TIFF and PGM), whose map, DEM and frames must decode to the PNG
+   dataset's arrays bit for bit: the same gates and launches, each fix
+   within 1 mm of the PNG dataset's, the frame p50 of each printed;
    the classical backend on 3 frames of the
    same flight over an 896-px map, a side the shear kernel serves (valid,
    within 10 m, K6 2 + 1 a frame); learned_lg9, printed only (cached mode
@@ -182,18 +188,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
    on the same rasters, the GIS node's 800-px map fetch (imagery and DEM
-   over the stub WMS) p50 in each format, the round trip's max and mean
+   over the stub WMS) p50 as PNG, JPEG and GeoTIFF (the PNG and TIFF
+   maps equal to the served raster), the round trip's max and mean
    error at quality 95,
    and the sha256 of the encoder's bytes and of the decoder's pixels on
    one seeded image, each of which must equal OpenCV's (pinned on the CPU
    by ``tests/test_torch_jpeg.py``); then every committed image fixture
    (``tests/data/torch_images``: progressive, cut-short and CMYK/YCCK JPEG,
    EXIF orientations, palette, low-depth, grey + alpha, tRNS, Adam7,
-   gamma and eXIf PNG) decoded by ``decode_image`` under both flags, each
-   pixel digest equal to the one cv2 gave in ``digests.json`` (None where
-   cv2 gave None), and the host ms of a progressive 800-px grey decode
-   beside the baseline file of the same pixels (which must decode to the
-   same array), with the card's name and power limit.
+   gamma and eXIf PNG; TIFF, GIF, BMP, Netpbm, PFM, Sun raster and
+   Radiance HDR) decoded by ``decode_image`` under both flags, each pixel
+   digest equal to the one cv2 gave in ``digests.json`` (None where cv2
+   gave None), the host ms of a progressive 800-px grey decode beside the
+   baseline file of the same pixels (which must decode to the same
+   array), and the host ms of ``decode_image`` at 800 and 2208 px as TIFF
+   (uncompressed, LZW and deflate with predictor 2, tiled deflate) and
+   GIF beside PNG (each equal to its raster), with the card's name and
+   power limit.
 
 ``--digest`` instead prints the sha256 of the stem's, the NMS kernels' and
 the shear's outputs on seeded inputs (run a copy of this script placed
@@ -353,6 +364,7 @@ MESH_GRAD_RTOL = 0.02
 # the jpeg phase: world crops at the map side of run's 480x640 camera and
 # of a 1088x1920 one (gis/wms.py orthoimage_size_for_camera), timing reps
 JPEG_SIDES, JPEG_REPS = (800, 2208), (20, 5)
+FORMAT_REPS = (10, 3)  # decodes timed at each side of JPEG_SIDES
 # the GIS node's map fetch timed in the jpeg phase: path 8's 800-px map of
 # 3 footprints (2,400 m at 500 m AGL) over the stub WMS, each format
 JPEG_FETCHES, JPEG_FETCH_SIDE_M = 10, 2400.0
@@ -2840,6 +2852,7 @@ DEPLOY_DEVICE = "cuda"  # paths 10-11's device; a CPU rehearsal sets "cpu"
 # path 11: tools/make_replay_dataset.py's defaults (12 frames of 640x480 at
 # 500 m, yaw 25, a square map at 3x the footprint), on path 8's world
 REPLAY_FRAMES, REPLAY_CLASSICAL_FRAMES = 12, 3
+REPLAY_GIS_MOVE_M = 1e-3  # a GIS-export fix from the PNG one's, at most
 # the classical run's map side: a multiple of 128 the shear kernel serves
 # (the tool's 800 px takes the gather rotation, as on the JAX package's
 # accelerator route), the smallest above the frame's 800-px diagonal
@@ -3417,12 +3430,46 @@ def _moved(fixes_a: list, fixes_b: list) -> list:
             for a, b in zip(fixes_a, fixes_b)]
 
 
+def check_gis_export(png: str, gis: str) -> dict:
+    """The GIS-export dataset (``write_replay_dataset(image_format="tiff")``:
+    a tiled deflate GeoTIFF map with predictor 2, a float32 GeoTIFF DEM,
+    TIFF and PGM frames) decodes to the PNG dataset's arrays bit for
+    bit."""
+    from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                                image_format, read_image)
+    from gisnav_tpu_torch.replay import load_dataset
+
+    a, b = load_dataset(png), load_dataset(gis)
+    kinds = {}
+    for key in ("ortho", "dem"):
+        if a[key].dtype != b[key].dtype or not np.array_equal(a[key],
+                                                              b[key]):
+            raise RuntimeError(f"replay: the GIS export's {key} is not the "
+                               "PNG dataset's")
+    for ra, rb in zip(a["poses"], b["poses"]):
+        with open(rb["frame_path"], "rb") as f:
+            kind = image_format(f.read(8))
+        kinds[kind] = kinds.get(kind, 0) + 1
+        if not np.array_equal(read_image(ra["frame_path"], IMREAD_GRAYSCALE),
+                              read_image(rb["frame_path"], IMREAD_GRAYSCALE)):
+            raise RuntimeError(f"replay: GIS-export frame {rb['frame_path']} "
+                               "is not the PNG dataset's")
+    with open(os.path.join(gis, "map.png"), "rb") as f:
+        kinds["map"] = image_format(f.read(8))
+    out = {"equal": True, "frames": kinds, "dem_dtype": str(b["dem"].dtype)}
+    log(f"[replay] GIS export decodes to the PNG dataset's arrays: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def phase_replay_path() -> dict:
     """Path 11: ``replay`` on a dataset of ``tools/make_replay_dataset.py``'s
-    defaults over path 8's world, written as PNG and as JPEG, and stored as
-    a camera stores it (:func:`store_as_camera`): harris_lg5 fused on each
+    defaults over path 8's world, written as PNG, as JPEG, as a GIS exports
+    it (:func:`check_gis_export`) and stored as a camera stores it
+    (:func:`store_as_camera`): harris_lg5 fused on each
     (:func:`_replay_harris`) and each frame's fix moved between the PNG and
-    the JPEG dataset and between the JPEG and the camera one, the classical
+    the JPEG dataset, between the JPEG and the camera one and between the
+    PNG and the GIS export (at most ``REPLAY_GIS_MOVE_M``), the classical
     backend on 3 frames over an 896-px map (K6 2 + 1 a frame), then
     learned_lg9, printed only."""
     import os
@@ -3446,20 +3493,35 @@ def phase_replay_path() -> dict:
                              map_px=REPLAY_CLASSICAL_MAP)
         camera = os.path.join(root, "flight_camera")
         store_as_camera(data, camera)
+        gis = os.path.join(root, "flight_gis")
+        write_replay_dataset(world, gis, frames=REPLAY_FRAMES,
+                             image_format="tiff")
+        out["gis_export"] = check_gis_export(data, gis)
         report = os.path.join(root, "r.json")
         out["harris"] = _replay_harris(data, report, "png")
         out["harris_jpeg"] = _replay_harris(jpeg, report, "jpeg")
         out["harris_camera"] = _replay_harris(camera, report, "camera")
-        fixes = {k: out[k].pop("fixes")
-                 for k in ("harris", "harris_jpeg", "harris_camera")}
+        out["harris_gis"] = _replay_harris(gis, report, "gis-export")
+        fixes = {k: out[k].pop("fixes") for k in (
+            "harris", "harris_jpeg", "harris_camera", "harris_gis")}
         for key, a, b, what in (
                 ("png_to_jpeg", "harris", "harris_jpeg", "PNG -> JPEG"),
                 ("jpeg_to_camera", "harris_jpeg", "harris_camera",
-                 "upright JPEG -> camera (EXIF 6, palette map)")):
+                 "upright JPEG -> camera (EXIF 6, palette map)"),
+                ("png_to_gis", "harris", "harris_gis",
+                 "PNG -> GIS export (GeoTIFF map and DEM, TIFF / PGM "
+                 "frames)")):
             moved = _moved(fixes[a], fixes[b])
             out[key] = {"max_horiz_m": max(m["horiz_m"] for m in moved),
                         "max_up_m": max(m["up_m"] for m in moved)}
             log(f"[replay harris] each fix's move, {what} dataset: {moved}")
+        if max(out["png_to_gis"].values()) > REPLAY_GIS_MOVE_M:
+            raise RuntimeError(f"replay: a GIS-export fix moved "
+                               f"{out['png_to_gis']} from the PNG one's")
+        out["gis_frame_p50_delta_ms"] = (out["harris_gis"]["frame"]["p50_ms"]
+                                         - out["harris"]["frame"]["p50_ms"])
+        log(f"[replay harris] frame p50: PNG {out['harris']['frame']} ms, "
+            f"GIS export {out['harris_gis']['frame']} ms ({card_label()})")
         rc, rep, launches = _replay_cli([three, "--backend", "classical",
                                          "--out", report])
         s = rep["summary"]
@@ -3529,25 +3591,94 @@ def phase_jpeg() -> dict:
     x, y = GRAPH_START_PX
     left, top = world.to_lonlat(x - half, y - half)
     right, bottom = world.to_lonlat(x + half, y + half)
-    times: dict = {"image/png": [], "image/jpeg": []}
+    times: dict = {"image/png": [], "image/jpeg": [], "image/tiff": []}
+    bbox = (left, bottom, right, top)
+    served = world.crop(bbox, 800, 800)
     with WorldWMS(world) as wms:  # the GIS node's fetch: imagery + DEM
         client = WMSClient(wms.url)
         for _ in range(JPEG_FETCHES):
             for fmt in times:
                 t = time.perf_counter()
-                got = request_orthoimage(client, (left, bottom, right, top),
-                                         (800, 800), ["imagery"], ["dem"],
-                                         format_=fmt)
+                got = request_orthoimage(client, bbox, (800, 800),
+                                         ["imagery"], ["dem"], format_=fmt)
                 times[fmt].append((time.perf_counter() - t) * 1e3)
                 if got is None or got[0].shape != (800, 800):
                     raise RuntimeError(f"jpeg: the {fmt} map fetch failed")
+                if fmt != "image/jpeg" and not np.array_equal(got[0],
+                                                              served):
+                    raise RuntimeError(f"jpeg: the {fmt} map is not the "
+                                       "served raster")
+        if wms.formats.get("image/tiff") != 2 * JPEG_FETCHES:
+            raise RuntimeError(f"jpeg: the stub answered {wms.formats}")
     out["fetch_p50_ms"] = {fmt: float(np.median(ms))
                            for fmt, ms in times.items()}
     log(f"[jpeg] 800-px map fetch (imagery + DEM, stub WMS) p50 ms: "
-        f"{json.dumps(out['fetch_p50_ms'])} ({card})")
+        f"{json.dumps(out['fetch_p50_ms'])}; the PNG and TIFF maps equal "
+        f"the served raster ({card})")
     out["fixtures"] = check_image_fixtures()
     out["progressive"] = time_progressive_decode(card)
+    out["formats"] = time_format_decodes(raster, card)
     return out
+
+
+def image_writers():
+    """``tests/torch_image_writers.py`` of this checkout, loaded by its path
+    (a ``tests`` package installed on the host would shadow the
+    checkout's)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_image_writers.py")
+    spec = importlib.util.spec_from_file_location("torch_image_writers",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def time_format_decodes(raster: np.ndarray, card: str) -> list:
+    """Host ms (``host_ms``, one call, p50 of ``FORMAT_REPS``) of
+    ``decode_image`` on the world's centre at 800 and 2208 px as TIFF
+    (uncompressed, LZW + predictor 2 and deflate + predictor 2 in 16-row
+    strips, deflate + predictor 2 in 256-px tiles) and GIF (a 256-entry grey
+    table), beside PNG; each decode must equal the raster it was written
+    from (the writers: ``tests/torch_image_writers.py``)."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image
+    from gisnav_tpu_torch.gis.png import encode_png
+
+    writers = image_writers()
+    gif_frame, write_gif, write_tiff = (writers.gif_frame, writers.write_gif,
+                                        writers.write_tiff)
+
+    grey_table = np.repeat(np.arange(256)[:, None], 3, axis=1)
+    rows = []
+    for side, reps in zip(JPEG_SIDES, FORMAT_REPS):
+        at = (raster.shape[0] - side) // 2
+        grey = np.ascontiguousarray(raster[at:at + side, at:at + side])
+        files = {
+            "png": encode_png(grey),
+            "tiff": write_tiff(grey, rows_per_strip=16),
+            "tiff_lzw_pred2": write_tiff(grey, compression=5, predictor=2,
+                                         rows_per_strip=16),
+            "tiff_deflate_pred2": write_tiff(grey, compression=8,
+                                             predictor=2, rows_per_strip=16),
+            "tiff_tiled_deflate_pred2": write_tiff(
+                grey, compression=8, predictor=2, tile=(256, 256)),
+            "gif": write_gif(grey.shape, [gif_frame(grey)], grey_table),
+        }
+        for kind, data in files.items():
+            img = decode_image(data)
+            want = np.repeat(grey[..., None], 3, axis=2) if kind == "gif" \
+                else grey
+            if img is None or not np.array_equal(img, want):
+                raise RuntimeError(f"formats: the {side}-px {kind} decode "
+                                   "is not the raster it was written from")
+            row = {"side": side, "kind": kind, "bytes": len(data),
+                   "decode_ms": host_ms(lambda: decode_image(data), 1, reps),
+                   "card": card}
+            log(f"[formats] {json.dumps(row)}")
+            rows.append(row)
+    return rows
 
 
 def image_digest(img) -> dict:

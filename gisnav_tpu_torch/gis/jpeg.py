@@ -1,4 +1,4 @@
-"""JPEG decoding and encoding as OpenCV does them, and format detection.
+"""JPEG decoding and encoding as OpenCV does them.
 
 The JAX package reads WMS replies and replay files with ``cv2.imdecode`` /
 ``cv2.imread`` and writes GetMap replies with ``cv2.imencode``; the card
@@ -20,16 +20,14 @@ at OpenCV's defaults:
   ``ValueError`` naming the variant.
 - ``encode_jpeg(img, quality=95)`` equals ``cv2.imencode(".jpg", img)``
   byte for byte for grey and BGR uint8 images (4:2:0 for colour).
-- ``decode_image(data, flag)`` chooses PNG (``gis/png.py``
-  ``png_as_opencv``) or JPEG by the magic bytes, as ``cv2.imdecode`` does,
-  and returns cv2's array for ``IMREAD_UNCHANGED`` and ``IMREAD_GRAYSCALE``:
-  under the grey flag the image is turned upright by its EXIF orientation
-  (a JPEG's Exif APP1, a PNG's eXIf chunk; ``gis/exif.py``) as OpenCV
-  turns it; bytes that are neither format give None. ``read_image(path,
-  flag)`` is ``cv2.imread``: the same, but a JPEG file cut short reads as
-  libjpeg's stdio source reads it (an EOI marker after its last byte: grey,
-  or block-smoothed coefficients, past the cut), where ``cv2.imdecode``
-  gives None.
+- ``decode_image(data, flag)`` and ``read_image(path, flag)`` are
+  ``gis/imgcodecs.py``'s (``cv2.imdecode`` / ``cv2.imread`` of every format
+  the port reads, JPEG among them: under ``IMREAD_GRAYSCALE`` turned
+  upright by the Exif APP1's orientation; a JPEG file cut short reads as
+  libjpeg's stdio source reads it, an EOI marker after its last byte),
+  re-exported here.
+- ``decode_jpeg_for_tiff`` decodes a TIFF strip's JPEG stream as libtiff's
+  JPEG codec asks libjpeg to (``gis/tiff.py``).
 """
 from __future__ import annotations
 
@@ -39,17 +37,16 @@ from typing import Optional
 
 import numpy as np
 
-from gisnav_tpu_torch.gis.exif import apply_orientation, orientation
-from gisnav_tpu_torch.gis.png import PNG_SIGNATURE, png_as_opencv
+from gisnav_tpu_torch.gis.coders import IMREAD_GRAYSCALE, IMREAD_UNCHANGED
 from gisnav_tpu_torch.native import build_native_lib
 
-__all__ = ["decode_jpeg", "encode_jpeg", "decode_image", "read_image",
+__all__ = ["decode_jpeg", "encode_jpeg", "decode_jpeg_for_tiff",
+           "decode_image", "read_image",
            "JPEG_SOI", "IMREAD_UNCHANGED", "IMREAD_GRAYSCALE"]
 
 JPEG_SOI = b"\xff\xd8"
-IMREAD_UNCHANGED = -1  # cv2's flag values
-IMREAD_GRAYSCALE = 0
-_MODE_UNCHANGED, _MODE_GRAY = 0, 1  # jpeg.cpp gjpeg_decode modes
+# jpeg.cpp gjpeg_decode modes
+_MODE_UNCHANGED, _MODE_GRAY, _MODE_RAW, _MODE_YCBCR = 0, 1, 3, 4
 _MSG_LEN = 256
 
 
@@ -84,15 +81,18 @@ def _take(lib: ctypes.CDLL, ptr: int, shape) -> np.ndarray:
     return out
 
 
-def _decode(data: bytes, grayscale: bool, file: bool = False):
+def _decode(data: bytes, grayscale: bool, file: bool = False,
+            mode: Optional[int] = None):
     """(image or None, the Exif APP1's TIFF body or b""); ``file``: read
-    as ``cv2.imread`` reads a file (its end is a fake EOI marker)."""
+    as ``cv2.imread`` reads a file (its end is a fake EOI marker); ``mode``
+    one of jpeg.cpp's modes in place of ``grayscale``'s."""
     lib = _lib()
     h, w, c, status = (ctypes.c_int() for _ in range(4))
     exif = (ctypes.c_uint64 * 2)()
     msg = ctypes.create_string_buffer(_MSG_LEN)
-    ptr = lib.gjpeg_decode(data, len(data),
-                           _MODE_GRAY if grayscale else _MODE_UNCHANGED,
+    if mode is None:
+        mode = _MODE_GRAY if grayscale else _MODE_UNCHANGED
+    ptr = lib.gjpeg_decode(data, len(data), mode,
                            int(file), ctypes.byref(h), ctypes.byref(w),
                            ctypes.byref(c), exif, ctypes.byref(status), msg,
                            _MSG_LEN)
@@ -110,6 +110,18 @@ def decode_jpeg(data: bytes, grayscale: bool = False) -> Optional[np.ndarray]:
     ``cv2.imdecode`` with ``IMREAD_UNCHANGED`` (or ``IMREAD_GRAYSCALE``,
     the EXIF orientation not applied); None where cv2 gives None."""
     return _decode(bytes(data), grayscale)[0]
+
+
+def decode_jpeg_for_tiff(data: bytes, ycbcr: bool) -> Optional[np.ndarray]:
+    """A TIFF strip's or tile's JPEG stream as libtiff's JPEG codec decodes
+    it for ``TIFFReadRGBA*``: ``ycbcr``: YCbCr to RGB whatever the markers
+    say (``JPEGCOLORMODE_RGB``), (H, W, 3) RGB; else the components as they
+    are (``JCS_UNKNOWN``), (H, W, C)."""
+    img = _decode(bytes(data), False, mode=_MODE_YCBCR if ycbcr
+                  else _MODE_RAW)[0]
+    if img is None or not ycbcr:
+        return img
+    return np.ascontiguousarray(img[..., ::-1])
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
@@ -136,36 +148,18 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
     return _take(lib, ptr, (size.value,)).tobytes()
 
 
-def _decode_image(data: bytes, flag: int,
-                  file: bool) -> Optional[np.ndarray]:
-    if flag not in (IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
-        raise ValueError(f"decode_image flag {flag}: IMREAD_UNCHANGED (-1) "
-                         "or IMREAD_GRAYSCALE (0)")
-    gray = flag == IMREAD_GRAYSCALE
-    if data.startswith(PNG_SIGNATURE):
-        return png_as_opencv(data, gray)
-    if not data.startswith(JPEG_SOI):
-        return None
-    img, exif = _decode(data, gray, file)
-    if img is None or not gray or not exif:
-        return img
-    return apply_orientation(img, orientation(exif))
-
-
 def decode_image(data: bytes,
                  flag: int = IMREAD_UNCHANGED) -> Optional[np.ndarray]:
-    """PNG or JPEG bytes, chosen by content as ``cv2.imdecode`` chooses ->
-    ``cv2.imdecode(data, flag)``'s array (grey (H, W), colour BGR(A); under
-    ``IMREAD_GRAYSCALE`` turned upright by the EXIF orientation); None for
-    bytes of neither format or a JPEG cv2 cannot decode."""
-    return _decode_image(bytes(data), flag, file=False)
+    """``gis/imgcodecs.py`` ``decode_image`` (``cv2.imdecode`` of every
+    format the port reads), kept here for its callers."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image as decode
+
+    return decode(data, flag)
 
 
 def read_image(path: str, flag: int = IMREAD_UNCHANGED
                ) -> Optional[np.ndarray]:
-    """``cv2.imread(path, flag)`` for PNG and JPEG files, chosen by
-    content: as ``decode_image``, but a JPEG file cut short reads as if an
-    EOI marker followed its last byte (libjpeg's stdio source; cv2 warns on
-    stderr)."""
-    with open(path, "rb") as f:
-        return _decode_image(f.read(), flag, file=True)
+    """``gis/imgcodecs.py`` ``read_image`` (``cv2.imread``)."""
+    from gisnav_tpu_torch.gis.imgcodecs import read_image as read
+
+    return read(path, flag)

@@ -1,0 +1,808 @@
+"""TIFF read as OpenCV 5 reads it (``grfmt_tiff.cpp`` over libtiff 4.7),
+with no OpenCV and no libtiff.
+
+GDAL writes DEMs and orthophotos as GeoTIFFs (tiled, deflate or LZW with a
+predictor, float32 or int16 heights), and MapServer answers
+``image/tiff`` with them; the JAX package reads them with
+``cv2.imdecode`` / ``cv2.imread``. ``decode_tiff(data, gray, file)`` gives
+the same arrays:
+
+- the container: both byte orders, classic TIFF and BigTIFF, the first
+  IFD only (``imread`` reads page 0), strips and tiles (edge tiles
+  cropped), ``PlanarConfiguration`` 1 and 2, ``FillOrder`` 2;
+- compression none, LZW (new and old style), deflate (8 and 32946),
+  PackBits (``native/imgcodecs.cpp`` and ``zlib``) and JPEG (``native/
+  jpeg.cpp``, ``JPEGTables`` spliced in front of each strip's stream);
+  predictors 2 (8 to 64-bit integers) and 3 (floating point);
+- OpenCV's choice of type (``TiffDecoder::readHeader``): 1-bit and 8-bit
+  samples as uint8 (int8 where ``SampleFormat`` is signed), 16-bit as
+  uint16 / int16, 32-bit as float32 / int32 / uint32, 64-bit as float64;
+  grey kinds (MinIsWhite, MinIsBlack) as one channel whatever their extra
+  samples, others as their sample count (1-4); samples over 8 bits of a
+  palette, separated or YCbCr image, or of 2 or over 4 samples, as 8 bits;
+- under ``IMREAD_GRAYSCALE``, and for every 8-bit type, the pixels of
+  libtiff's ``TIFFReadRGBA*`` (``tif_getimage.c``: 16-bit grey to its high
+  byte, 16-bit colour to (v + 128) / 257, MinIsWhite inverted, palettes
+  through ``ColorMap`` (16-bit entries to their high byte), CMYK to RGB as
+  (255 - k)(255 - c) / 255, YCbCr through libtiff's tables or libjpeg,
+  unassociated alpha premultiplied), then OpenCV's BGR(A) or its
+  fixed-point grey (``gis/coders.py`` ``bgr_to_gray``); a type libtiff's
+  RGBA reader refuses (32 or 64-bit samples: a float DEM under the grey
+  flag, 2 or 4-bit grey) gives None, as cv2 does;
+- over 8 bits, under ``IMREAD_UNCHANGED``, the samples as they are, RGB(A)
+  turned BGR(A);
+- the ``Orientation`` tag, applied under both flags as OpenCV applies it;
+  ``read_image`` (``file=True``) gives None for the orientations that
+  transpose (5-8) a non-square image, as ``cv2.imread`` does (its check
+  that the decoder kept its buffer fails).
+
+Other compressions (CCITT, old JPEG, LogLuv, PixarLog, LZMA, ZSTD, WebP,
+LERC), 12-bit JPEG, JPEG of a subsampled non-YCbCr image and a corrupt or
+short stream raise ``ValueError`` naming the variant.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from gisnav_tpu_torch.gis import coders
+from gisnav_tpu_torch.gis.jpeg import decode_jpeg_for_tiff
+
+__all__ = ["decode_tiff", "encode_tiff", "TIFF_SIGNATURES"]
+
+TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
+# field type -> (numpy kind, size)
+_TYPES = {1: ("u", 1), 2: ("u", 1), 3: ("u", 2), 4: ("u", 4), 5: ("r", 4),
+          6: ("i", 1), 7: ("u", 1), 8: ("i", 2), 9: ("i", 4), 10: ("s", 4),
+          11: ("f", 4), 12: ("f", 8), 13: ("u", 4), 16: ("u", 8),
+          17: ("i", 8), 18: ("u", 8)}
+_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT fax 3", 4: "CCITT fax 4",
+                 6: "old-style JPEG", 32771: "CCITT RLEW",
+                 32809: "ThunderScan", 32908: "PixarFilm",
+                 32909: "PixarLog", 34676: "SGILog", 34677: "SGILog24",
+                 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
+                 50000: "ZSTD", 50001: "WebP", 50002: "JPEG XL"}
+_MINISWHITE, _MINISBLACK, _RGB, _PALETTE = 0, 1, 2, 3
+_SEPARATED, _YCBCR = 5, 6
+_UNASSOC = 2
+_NO_ROWS = 0xFFFFFFFF
+_RGBA_RAW_TILE_UNIT = 1024  # see _Tiff.rgba
+_BITDEPTH_16_TO_8 = ((np.arange(65536) + 128) // 257).astype(np.uint8)
+_BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                        np.uint8)
+
+
+class _Ifd:
+    """The first IFD of a TIFF: tag -> values (numpy arrays)."""
+
+    def __init__(self, data: bytes):
+        order = data[:2]
+        if order not in (b"II", b"MM") or len(data) < 8:
+            raise _NotRead("not a TIFF header")
+        self.e = "<" if order == b"II" else ">"
+        e = self.e
+        magic = struct.unpack_from(e + "H", data, 2)[0]
+        if magic == 42:
+            big, ifd = False, struct.unpack_from(e + "I", data, 4)[0]
+        elif magic == 43 and len(data) >= 16:
+            if struct.unpack_from(e + "HH", data, 4) != (8, 0):
+                raise _NotRead("bad BigTIFF header")
+            big, ifd = True, struct.unpack_from(e + "Q", data, 8)[0]
+        else:
+            raise _NotRead("not a TIFF header")
+        count_fmt, ent, inline = ("Q", 20, 8) if big else ("H", 12, 4)
+        if ifd + struct.calcsize(count_fmt) > len(data):
+            raise _NotRead("the first IFD lies past the end")
+        n = struct.unpack_from(e + count_fmt, data, ifd)[0]
+        pos = ifd + struct.calcsize(count_fmt)
+        if pos + n * ent > len(data):
+            raise _NotRead("the first IFD is cut short")
+        self.tags: Dict[int, np.ndarray] = {}
+        for i in range(n):
+            at = pos + i * ent
+            tag, ftype = struct.unpack_from(e + "HH", data, at)
+            count = struct.unpack_from(e + ("Q" if big else "I"), data,
+                                       at + 4)[0]
+            if ftype not in _TYPES or tag in self.tags:
+                continue
+            kind, size = _TYPES[ftype]
+            nbytes = size * count * (2 if kind in "rs" else 1)
+            if nbytes <= inline:
+                off = at + 4 + (8 if big else 4)
+            else:
+                off = struct.unpack_from(e + ("Q" if big else "I"), data,
+                                         at + 4 + (8 if big else 4))[0]
+            if off + nbytes > len(data):
+                continue  # libtiff drops a field it cannot read
+            if kind in "rs":
+                signed = "u" if kind == "r" else "i"
+                raw = np.frombuffer(data, np.dtype(f"{e}{signed}4"),
+                                    count * 2, off).astype(np.float64)
+                vals = raw[0::2] / np.where(raw[1::2] == 0, 1, raw[1::2])
+            else:
+                vals = np.frombuffer(data, np.dtype(f"{e}{kind}{size}"),
+                                     count, off)
+            self.tags[tag] = vals
+
+    def get(self, tag: int, default=None):
+        v = self.tags.get(tag)
+        return default if v is None or not len(v) else int(v[0])
+
+    def array(self, tag: int):
+        return self.tags.get(tag)
+
+
+class _NotRead(Exception):
+    """libtiff cannot open or read the file: cv2 gives None."""
+
+
+def _unpack_bits(raw: np.ndarray, rows: int, n: int, bits: int
+                 ) -> np.ndarray:
+    """(rows, rowbytes) bytes -> (rows, n) samples of ``bits`` < 8, MSB
+    first."""
+    per = 8 // bits
+    shifts = (8 - bits) - bits * np.arange(per, dtype=np.uint8)
+    px = (raw[..., None] >> shifts) & ((1 << bits) - 1)
+    return px.reshape(rows, -1)[:, :n]
+
+
+class _Tiff:
+    """A parsed TIFF's first image: header fields and a decoder of its
+    samples."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        d = self.ifd = _Ifd(data)
+        self.width = d.get(256)
+        self.height = d.get(257)
+        if not self.width or not self.height:
+            raise _NotRead("missing ImageWidth / ImageLength")
+        self.bits = d.get(258, 1)
+        self.spp = d.get(277, 1)
+        self.compression = d.get(259, 1)
+        self.sample_format = d.get(339, 1)
+        self.planar = d.get(284, 1)
+        if self.planar not in (1, 2):
+            raise _NotRead(f"PlanarConfiguration {self.planar}")
+        self.predictor = d.get(317, 1)
+        self.orientation = d.get(274, 1)
+        self.fill_order = d.get(266, 1)
+        extra = d.array(338)
+        self.extra = [] if extra is None else [int(v) for v in extra]
+        self.photometric = d.get(262)
+        if self.photometric is None:  # OpenCV asks for it
+            raise _NotRead("no Photometric tag")
+        self.tiled = 322 in d.tags
+        if self.tiled:
+            self.tw, self.th = d.get(322, 0), d.get(323, 0)
+            if not self.tw or not self.th:
+                raise _NotRead("a tile size of 0")
+            offsets, counts = d.array(324), d.array(325)
+        else:
+            rps = d.get(278, _NO_ROWS)
+            self.tw = self.width
+            self.th = self.height if rps in (0, _NO_ROWS) or \
+                rps > self.height else rps
+            offsets, counts = d.array(273), d.array(279)
+        if offsets is None or counts is None:
+            raise _NotRead("missing strip or tile offsets")
+        self.offsets = [int(v) for v in offsets]
+        self.counts = [int(v) for v in counts]
+        if 0 in self.counts:
+            raise _NotRead("a strip or tile of 0 bytes")
+        self.across = -(-self.width // self.tw)
+        self.down = -(-self.height // self.th)
+        planes = self.spp if self.planar == 2 else 1
+        if len(self.offsets) < self.across * self.down * planes or \
+                len(self.counts) < len(self.offsets):
+            raise _NotRead("too few strip or tile offsets")
+
+    # -- samples -------------------------------------------------------
+
+    def _raw(self, index: int) -> bytes:
+        off, cnt = self.offsets[index], self.counts[index]
+        if off >= len(self.data):
+            raise ValueError(f"TIFF strip or tile {index} lies past the "
+                             "end of the file")
+        raw = self.data[off:off + cnt]
+        if self.fill_order == 2:
+            raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+        return raw
+
+    def _decompress(self, raw: bytes, size: int) -> np.ndarray:
+        c = self.compression
+        if c == 1:
+            if len(raw) < size:
+                raise ValueError("TIFF: an uncompressed strip or tile is "
+                                 "shorter than its rows")
+            return np.frombuffer(raw, np.uint8, size)
+        if c == 5:
+            return coders.tiff_lzw(raw, size)
+        if c in (8, 32946):
+            try:
+                out = zlib.decompressobj().decompress(raw, size)
+            except zlib.error as err:
+                raise ValueError(f"TIFF deflate: {err}") from err
+            if len(out) < size:
+                raise ValueError("TIFF deflate: the stream ends before its "
+                                 "data")
+            return np.frombuffer(out, np.uint8)
+        if c == 32773:
+            return coders.packbits(raw, size)
+        name = _COMPRESSIONS.get(c, f"compression {c}")
+        raise ValueError(f"TIFF {name} is not read by the port (cv2's "
+                         "libtiff reads it)" if c in _COMPRESSIONS
+                         else f"TIFF {name} is unknown")
+
+    def _dtype(self) -> np.dtype:
+        kind = {1: "u", 2: "i", 3: "f"}.get(self.sample_format, "u")
+        if self.bits not in (8, 16, 32, 64) or (
+                kind == "f" and self.bits not in (16, 32, 64)):
+            raise ValueError(f"TIFF {self.bits}-bit samples of format "
+                             f"{self.sample_format}")
+        return np.dtype(f"{kind}{self.bits // 8}")
+
+    def samples(self, grey_skew: bool = False) -> np.ndarray:
+        """(H, W, spp) samples as stored (native order; uint8 under 8
+        bits), rows from the file's first. ``grey_skew``: the right edge
+        tiles read as libtiff's RGBA grey readers read them
+        (``putgreytile``, ``putagreytile``, ``put16bitbwtile``): each row
+        ``tile width - clipped width`` bytes (not pixels) past the last."""
+        if self.compression == 7:
+            raise ValueError("TIFF JPEG is read through libtiff's RGBA "
+                             "path only")
+        h, w, spp, bits = self.height, self.width, self.spp, self.bits
+        planes = spp if self.planar == 2 else 1
+        per_plane = 1 if self.planar == 2 else spp
+        small = bits < 8
+        if small and bits not in (1, 2, 4):
+            raise ValueError(f"TIFF {bits}-bit samples")
+        if self.predictor not in (1, 2, 3):
+            raise ValueError(f"TIFF predictor {self.predictor}")
+        if self.predictor == 2 and small:
+            raise ValueError("TIFF predictor 2 on samples under 8 bits")
+        dt = np.dtype(np.uint8) if small else self._dtype()
+        if self.predictor == 3 and dt.kind != "f":
+            raise ValueError("TIFF predictor 3 on integer samples")
+        out = np.zeros((h, w, spp), dt)
+        index = 0
+        for p in range(planes):
+            for ty in range(self.down):
+                y0 = ty * self.th
+                rows = self.th if self.tiled else min(self.th, h - y0)
+                for tx in range(self.across):
+                    x0 = tx * self.tw
+                    n = self.tw * per_plane
+                    rowbytes = (n * bits + 7) // 8
+                    buf = self._decompress(self._raw(index), rows * rowbytes)
+                    index += 1
+                    block = buf.reshape(rows, rowbytes)
+                    if small:
+                        block = _unpack_bits(block, rows, n, bits)
+                    elif self.predictor == 3:
+                        block = coders.predictor3(
+                            block, per_plane, dt.itemsize).view(
+                                dt.newbyteorder("<"))
+                    else:
+                        block = block.view(dt.newbyteorder(self.ifd.e))
+                        block = block.astype(dt.newbyteorder("="))
+                        if self.predictor == 2:
+                            block = coders.predictor2(
+                                block.view(f"u{dt.itemsize}"),
+                                per_plane).view(dt)
+                    block = block.reshape(rows, self.tw, per_plane)
+                    ch, cw = min(rows, h - y0), min(self.tw, w - x0)
+                    if grey_skew and self.tiled and cw < self.tw and \
+                            (bits == 16 or per_plane > 1):
+                        nb = np.ascontiguousarray(block).view(np.uint8)
+                        block = np.ndarray(
+                            (rows, cw, per_plane), block.dtype, nb.ravel(),
+                            0, (cw * per_plane * dt.itemsize + self.tw - cw,
+                                per_plane * dt.itemsize, dt.itemsize))
+                    out[y0:y0 + ch, x0:x0 + cw, p:p + per_plane] = \
+                        block[:ch, :cw]
+        return out.astype(dt.newbyteorder("="), copy=False)
+
+    # -- libtiff's TIFFReadRGBA* -----------------------------------------
+
+    def rgba(self, file: bool) -> Optional[np.ndarray]:
+        """(H, W, 4) uint8 RGBA as libtiff's RGBA reader gives it, rows
+        from the file's first (a grey kind's (H, W) grey plane, which is
+        what OpenCV's grey of its RGBA gives); None where libtiff refuses
+        the image (``file``: read from a file, not from memory)."""
+        bits, spp, ph = self.bits, self.spp, self.photometric
+        if bits not in (1, 2, 4, 8, 16):
+            return None  # "can not handle images with N-bit samples"
+        colours = spp - len(self.extra)
+        alpha = 0
+        if self.extra:
+            if self.extra[0] == 0 and spp > 3:
+                alpha = 1
+            elif self.extra[0] in (1, 2):
+                alpha = self.extra[0]
+        elif spp == 4 and ph == _RGB:
+            alpha, colours = 1, 3
+        if ph in (_MINISWHITE, _MINISBLACK, _PALETTE):
+            if self.planar == 1 and spp != 1 and bits < 8:
+                return None
+        elif ph == _RGB:
+            if colours < 3:
+                return None
+        elif ph == _SEPARATED:
+            if self.ifd.get(332, 1) != 1 or spp < 4 or bits != 8:
+                return None
+        elif ph == _YCBCR:
+            if bits != 8 or (self.compression != 7 and self.planar == 2 and
+                             self._subsampling() != (1, 1)):
+                return None
+        else:
+            raise ValueError(f"TIFF photometric {ph} is not read by the "
+                             "port")
+        if not file and self.tiled and self.compression == 1 and \
+                self._tile_bytes() % _RGBA_RAW_TILE_UNIT:
+            # libtiff 4.7's RGBA tile reader fails on an uncompressed tile
+            # that is not whole KiB ("Invalid tile byte count") when it
+            # reads from memory (cv2.imdecode), and cv2 with it
+            return None
+        if self.compression == 7:
+            return self._jpeg_rgba()
+        if ph == _YCBCR:
+            return self._ycbcr_rgba()
+        s = self.samples(grey_skew=ph in (_MINISWHITE, _MINISBLACK))
+        if bits >= 8:
+            s = s.view(f"u{bits // 8}")
+        if ph in (_MINISWHITE, _MINISBLACK):
+            # r = g = b: the grey plane itself (alpha changes no grey)
+            v = s[..., 0] >> 8 if bits == 16 else s[..., 0]
+            top = 255 if bits == 16 else (1 << bits) - 1
+            if ph == _MINISBLACK and top == 255:
+                return np.ascontiguousarray(v, np.uint8)
+            lut = np.arange(top + 1, dtype=np.int64)
+            lut = ((top - lut) if ph == _MINISWHITE else lut) * 255 // top
+            return lut.astype(np.uint8)[v]
+        h, w = self.height, self.width
+        out = np.empty((h, w, 4), np.uint8)
+        out[..., 3] = 255
+        if ph == _PALETTE:
+            cmap = self.ifd.array(320)
+            if bits == 16 or cmap is None or len(cmap) < 3 * (1 << bits):
+                return None
+            cmap = cmap.astype(np.int64).reshape(3, -1)
+            if (cmap >= 256).any():  # a 16-bit colour map
+                cmap = cmap >> 8
+            out[..., :3] = cmap.T.astype(np.uint8)[s[..., 0]]
+            return out
+        if ph == _SEPARATED:
+            c = s[..., :4].astype(np.uint16)
+            k = 255 - c[..., 3]
+            for i in range(3):
+                out[..., i] = k * (255 - c[..., i]) // 255
+            return out
+        # RGB, 16 bits to (v + 128) / 257, unassociated alpha premultiplied
+        c = s[..., :4 if alpha else 3]
+        if bits == 16:
+            c = _BITDEPTH_16_TO_8[c]
+        out[..., :c.shape[2]] = c
+        if alpha == _UNASSOC:
+            a = c[..., 3].astype(np.uint16)
+            for i in range(3):
+                out[..., i] = (c[..., i] * a + 127) // 255
+        return out
+
+    def _tile_bytes(self) -> int:
+        """The bytes of one uncompressed tile (of one plane)."""
+        if self.photometric == _YCBCR and self.planar == 1 and \
+                self.compression != 7:
+            hs, vs = self._subsampling()
+            return -(-self.tw // hs) * -(-self.th // vs) * (hs * vs + 2) \
+                * self.bits // 8
+        spp = self.spp if self.planar == 1 else 1
+        return (self.tw * spp * self.bits + 7) // 8 * self.th
+
+    def _subsampling(self) -> Tuple[int, int]:
+        ss = self.ifd.array(530)
+        return (2, 2) if ss is None or len(ss) < 2 else (int(ss[0]),
+                                                         int(ss[1]))
+
+    def _ycbcr_rgba(self) -> np.ndarray:
+        """Uncompressed / LZW / deflate YCbCr through libtiff's tables
+        (``TIFFYCbCrToRGBInit``), chroma repeated over each sampling
+        block."""
+        if self.spp != 3:
+            raise ValueError(f"TIFF YCbCr with {self.spp} samples")
+        hs, vs = self._subsampling() if self.planar == 1 else (1, 1)
+        h, w = self.height, self.width
+        if (hs, vs) == (1, 1):
+            s = self.samples().astype(np.int64)
+            y, cb, cr = s[..., 0], s[..., 1], s[..., 2]
+        else:
+            if (hs, vs) not in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1),
+                                (1, 2)):
+                raise ValueError(f"TIFF YCbCr subsampling {hs}x{vs}")
+            if (hs, vs) == (4, 4) and w % 4 and not self.tiled:
+                raise ValueError("TIFF YCbCr 4x4 strips of a width not a "
+                                 "multiple of 4: libtiff reads the last unit "
+                                 "of a strip's last unit row from outside "
+                                 "it")
+            y, cb, cr = self._ycbcr_units(hs, vs)
+        out = np.empty((h, w, 4), np.uint8)
+        out[..., 3] = 255
+        out[..., :3] = _ycbcr_to_rgb(y, cb, cr, self.ifd.array(529),
+                                     self.ifd.array(532))
+        return out
+
+    def _ycbcr_units(self, hs: int, vs: int):
+        """Subsampled YCbCr data units -> full Y, Cb and Cr planes."""
+        h, w = self.height, self.width
+        unit = hs * vs + 2
+        y = np.zeros((h, w), np.int64)
+        cb = np.zeros((h, w), np.int64)
+        cr = np.zeros((h, w), np.int64)
+        index = 0
+        for ty in range(self.down):
+            y0 = ty * self.th
+            rows = self.th if self.tiled else min(self.th, h - y0)
+            urows = -(-rows // vs)
+            for tx in range(self.across):
+                x0 = tx * self.tw
+                ucols = -(-self.tw // hs)
+                buf = self._decompress(self._raw(index), urows * ucols * unit)
+                index += 1
+                ch, cw = min(rows, h - y0), min(self.tw, w - x0)
+                if (hs, vs) == (4, 4) and cw < self.tw:
+                    # putcontig8bitYCbCr44tile skips (tw - cw) / 4 units of
+                    # 10 bytes, not 18, after each unit row of a clipped tile
+                    used = -(-cw // 4)
+                    u = np.ndarray((urows, used, unit), np.uint8, buf, 0,
+                                   (used * unit + (self.tw - cw) // 4 * 10,
+                                    unit, 1)).astype(np.int64)
+                    u = np.pad(u, ((0, 0), (0, ucols - used), (0, 0)))
+                else:
+                    u = buf.reshape(urows, ucols, unit).astype(np.int64)
+                ys = u[..., :hs * vs].reshape(urows, ucols, vs, hs)
+                ys = ys.transpose(0, 2, 1, 3).reshape(urows * vs, ucols * hs)
+                cbs = np.repeat(np.repeat(u[..., -2], vs, 0), hs, 1)
+                crs = np.repeat(np.repeat(u[..., -1], vs, 0), hs, 1)
+                y[y0:y0 + ch, x0:x0 + cw] = ys[:ch, :cw]
+                cb[y0:y0 + ch, x0:x0 + cw] = cbs[:ch, :cw]
+                cr[y0:y0 + ch, x0:x0 + cw] = crs[:ch, :cw]
+        return y, cb, cr
+
+    def _jpeg_rgba(self) -> np.ndarray:
+        """JPEG strips or tiles through the port's libjpeg-turbo codec:
+        ``JPEGTables`` (SOI, tables, EOI) spliced in front of each stream;
+        YCbCr to RGB as libtiff asks libjpeg (``JPEGCOLORMODE_RGB``), other
+        kinds' components as they are."""
+        if self.planar != 1:
+            raise ValueError("TIFF JPEG with separate planes")
+        if self.bits != 8:
+            raise ValueError(f"TIFF JPEG of {self.bits}-bit samples")
+        ph = self.photometric
+        tables = self.ifd.array(347)
+        tables = b"" if tables is None else tables.astype(np.uint8).tobytes()
+        if tables.endswith(b"\xff\xd9"):
+            tables = tables[:-2]
+        h, w = self.height, self.width
+        out = np.empty((h, w, 4), np.uint8)
+        out[..., 3] = 255
+        for index in range(self.across * self.down):
+            ty, tx = divmod(index, self.across)
+            y0, x0 = ty * self.th, tx * self.tw
+            stream = self._raw(index)
+            if tables and stream.startswith(b"\xff\xd8"):
+                stream = tables + stream[2:]
+            img = decode_jpeg_for_tiff(stream, ycbcr=ph == _YCBCR)
+            if img is None:
+                raise ValueError(f"TIFF JPEG strip or tile {index} does not "
+                                 "decode")
+            if img.ndim == 2:
+                img = img[..., None]
+            ch, cw = min(self.th, h - y0), min(self.tw, w - x0)
+            if img.shape[0] < ch or img.shape[1] < cw:
+                raise ValueError("TIFF JPEG: a strip or tile smaller than "
+                                 "its place")
+            img = img[:ch, :cw]
+            if ph == _YCBCR or (ph == _RGB and img.shape[2] >= 3):
+                out[y0:y0 + ch, x0:x0 + cw, :3] = img[..., :3]
+            elif ph in (_MINISBLACK, _MINISWHITE) and img.shape[2] == 1:
+                v = img[..., 0]
+                if ph == _MINISWHITE:
+                    v = 255 - v
+                out[y0:y0 + ch, x0:x0 + cw, :3] = v[..., None]
+            elif ph == _SEPARATED and img.shape[2] == 4:
+                c = img.astype(np.int64)
+                k = 255 - c[..., 3]
+                for i in range(3):
+                    out[y0:y0 + ch, x0:x0 + cw, i] = \
+                        k * (255 - c[..., i]) // 255
+            else:
+                raise ValueError(f"TIFF JPEG with photometric {ph} and "
+                                 f"{img.shape[2]} components")
+        return out
+
+
+def _ycbcr_to_rgb(y, cb, cr, coefs, refbw) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit / TIFFYCbCrtoRGB on 8-bit planes (C
+    float arithmetic) -> (..., 3) uint8 RGB."""
+    f32 = np.float32
+    luma = [f32(v) for v in (coefs if coefs is not None and len(coefs) >= 3
+                             else (0.299, 0.587, 0.114))]
+    ref = [f32(v) for v in (refbw if refbw is not None and len(refbw) >= 6
+                            else (0, 255, 128, 255, 128, 255))]
+
+    def fix(x) -> int:
+        return int(float(f32(x) * f32(65536)) + 0.5)
+
+    def clamp(x, lo, hi):
+        return min(max(x, lo), hi)
+
+    lr, lg, lb = luma
+    f1 = f32(2) - f32(2) * lr
+    d1 = fix(clamp(f1, f32(0), f32(2)))
+    f2 = lr * f1 / lg
+    d2 = -fix(clamp(f2, f32(0), f32(2)))
+    f3 = f32(2) - f32(2) * lb
+    d3 = fix(clamp(f3, f32(0), f32(2)))
+    f4 = lb * f3 / lg
+    d4 = -fix(clamp(f4, f32(0), f32(2)))
+
+    def code2v(c, rb, rw, cr_):
+        den = rw - rb if rw - rb != 0 else f32(1)
+        return f32(f32(c - int(rb)) * f32(cr_)) / den
+
+    half = 1 << 15
+    cr_r, cb_b, cr_g, cb_g, y_tab = (np.zeros(256, np.int64)
+                                     for _ in range(5))
+    for i in range(256):
+        x = i - 128
+        crv = int(clamp(code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127),
+                        f32(-4096), f32(4096)))
+        cbv = int(clamp(code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127),
+                        f32(-4096), f32(4096)))
+        cr_r[i] = (d1 * crv + half) >> 16
+        cb_b[i] = (d3 * cbv + half) >> 16
+        cr_g[i] = d2 * crv
+        cb_g[i] = d4 * cbv + half
+        y_tab[i] = int(clamp(code2v(x + 128, ref[0], ref[1], 255),
+                             f32(-4096), f32(4096)))
+    yy = y_tab[np.minimum(y, 255)]
+    cb = np.clip(cb, 0, 255)
+    cr = np.clip(cr, 0, 255)
+    r = yy + cr_r[cr]
+    g = yy + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = yy + cb_b[cb]
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def _opencv_type(t: _Tiff) -> Tuple[np.dtype, int]:
+    """``TiffDecoder::readHeader``'s type: (dtype, channels)."""
+    ph, spp = t.photometric, t.spp
+    grey = ph in (_MINISWHITE, _MINISBLACK)
+    bits = t.bits
+    if bits > 8 and (ph > 2 or spp not in (1, 3, 4)):
+        bits = 8
+    fmt = t.sample_format
+    if not 1 <= spp <= 4 and not (grey and bits <= 8):
+        raise _NotRead(f"{spp} samples a pixel")
+    if bits == 1:
+        if spp != 1 or fmt not in (1, 2):
+            raise _NotRead("1-bit samples")
+        return np.dtype(np.int8 if fmt == 2 else np.uint8), 1
+    if bits == 8:
+        if fmt not in (1, 2):
+            raise _NotRead("8-bit samples of a float format")
+        dt = np.dtype(np.int8 if fmt == 2 else np.uint8)
+        if ph == _PALETTE:
+            return dt, 3
+        if ph > 1 and not 1 <= spp <= 4:
+            raise _NotRead(f"{spp} samples a pixel")
+        return dt, (spp if ph > 1 else 1)
+    if bits == 4:
+        if ph == _PALETTE and spp == 1:
+            return np.dtype(np.uint8), 3
+        raise _NotRead(f"{bits}-bit samples")
+    if bits in (10, 12, 14, 16):
+        if fmt not in (1, 2):
+            raise _NotRead("16-bit samples of a float format")
+        return np.dtype(np.int16 if fmt == 2 else np.uint16), \
+            (spp if not grey else 1)
+    if bits == 32:
+        dt = {3: np.float32, 2: np.int32, 1: np.uint32}.get(fmt)
+        if dt is None:
+            raise _NotRead("32-bit samples of an unknown format")
+        return np.dtype(dt), spp
+    if bits == 64:
+        dt = {3: np.float64, 2: np.int64, 1: np.uint64}.get(fmt)
+        if dt is None:
+            raise _NotRead("64-bit samples of an unknown format")
+        return np.dtype(dt), spp
+    raise _NotRead(f"{bits}-bit samples")
+
+
+def _orient(img: np.ndarray, o: int) -> np.ndarray:
+    """OpenCV's fixOrientation: the image as the Orientation tag shows it
+    (5-8 transpose first, then flip)."""
+    if o in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    if o in (2, 6):
+        img = img[:, ::-1]
+    elif o in (3, 7):
+        img = img[::-1, ::-1]
+    elif o in (4, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+def _orient_rgba(img: np.ndarray, o: int, tile_w: int) -> np.ndarray:
+    """An 8-bit image read through ``TIFFReadRGBA*`` as OpenCV lays it out
+    and turns it: libtiff mirrors each strip or tile it reads (not the
+    image) for orientations 2, 3, 6 and 7, OpenCV flips the rows for 3, 4,
+    7 and 8 and transposes 5-8 (``fixOrientationPartial``)."""
+    if o in (2, 3, 6, 7):
+        if tile_w:
+            img = img.copy()
+            for x0 in range(0, img.shape[1], tile_w):
+                img[:, x0:x0 + tile_w] = img[:, x0:x0 + tile_w][:, ::-1]
+        else:
+            img = img[:, ::-1]
+    if o in (3, 4, 7, 8):
+        img = img[::-1]
+    if o in (6, 8):
+        img = img[::-1, ::-1]
+    if o >= 5:
+        img = img.swapaxes(0, 1)
+    return np.ascontiguousarray(img)
+
+
+def decode_tiff(data: bytes, gray: bool, file: bool = False
+                ) -> Optional[np.ndarray]:
+    """TIFF bytes -> ``cv2.imdecode(data, flag)``'s array (``file``:
+    ``cv2.imread``'s) for ``IMREAD_GRAYSCALE`` (``gray``) or
+    ``IMREAD_UNCHANGED``; None where cv2 gives None."""
+    try:
+        t = _Tiff(bytes(data))
+        dtype, channels = _opencv_type(t)
+    except _NotRead:
+        return None
+    if gray:
+        dtype, channels = np.dtype(np.uint8), 1
+    o = t.orientation if 1 <= t.orientation <= 8 else 1
+    if file and o >= 5 and t.width != t.height:
+        return None  # imread's check that the decoder kept its buffer
+    if dtype.itemsize == 1:
+        rgba = t.rgba(file)
+        if rgba is None:
+            return None
+        if rgba.ndim == 2:
+            img = rgba
+        elif channels == 1:
+            img = coders.bgr_to_gray(rgba, rgb=True)
+        elif channels == 3:
+            img = rgba[..., 2::-1]
+        elif channels == 4:
+            img = rgba[..., [2, 1, 0, 3]]
+        else:
+            return None
+        return _orient_rgba(img.view(dtype), o, t.tw if t.tiled else 0)
+    if t.planar == 2 and t.spp > 1:
+        raise ValueError(f"TIFF PlanarConfiguration 2 of {t.spp} "
+                         f"{t.bits}-bit samples: OpenCV 5.0 reads the first "
+                         "plane's strips as whole pixels (undefined pixels)")
+    s = t.samples()
+    if s.dtype.itemsize != dtype.itemsize:
+        return None
+    s = s.view(dtype)
+    if channels == 1:
+        if t.spp == 1:
+            img = s[..., 0]
+        elif dtype.itemsize == 2:  # icvCvt_BGRA2Gray_16u_CnC1R
+            c = s[..., :3].astype(np.int64)
+            img = ((c[..., 2] * 1868 + c[..., 1] * 9617 + c[..., 0] * 4899
+                    + (1 << 13)) >> 14).astype(dtype)
+        else:
+            img = s[..., 0]
+    elif channels == 3:
+        img = s[..., 2::-1] if t.spp >= 3 else np.repeat(s[..., :1], 3, 2)
+    elif channels == 4:
+        img = s[..., [2, 1, 0, 3]]
+    else:
+        img = s[..., :channels]
+    return _orient(img, o)
+
+
+def encode_tiff(img: np.ndarray, compression: int = 1, predictor: int = 1,
+                tile: Optional[Tuple[int, int]] = None,
+                geo: Optional[Tuple[float, float, float, float]] = None
+                ) -> bytes:
+    """A single-band (H, W) uint8, uint16, int16 or float32 raster ->
+    little-endian TIFF bytes, strips of 16 rows or ``tile`` (tw, th) tiles,
+    ``compression`` 1 (none) or 8 (deflate), ``predictor`` 1, 2 (integers)
+    or 3 (floats); ``geo`` (left, top, deg per px east, deg per px south)
+    adds GeoTIFF's EPSG:4326 tags as GDAL writes them."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16, np.int16,
+                                          np.float32):
+        raise ValueError(f"encode_tiff writes (H, W) uint8, uint16, int16 or "
+                         f"float32, got {img.shape} {img.dtype}")
+    if compression not in (1, 8) or predictor not in (1, 2, 3) or (
+            predictor == 3) != (img.dtype == np.float32 and predictor != 1):
+        raise ValueError(f"compression {compression} with predictor "
+                         f"{predictor} on {img.dtype}")
+    h, w = img.shape
+    tw, th = tile if tile else (w, min(16, h))
+    dt = img.dtype.newbyteorder("<")
+    chunks = []
+    for y in range(0, h, th):
+        for x in range(0, w, tw):
+            block = img[y:y + th, x:x + tw]
+            if tile:
+                block = np.pad(block, ((0, th - block.shape[0]),
+                                       (0, tw - block.shape[1])))
+            if predictor == 2:
+                d = block.copy()
+                d[:, 1:] = block[:, 1:] - block[:, :-1]
+                raw = d.astype(dt).tobytes()
+            elif predictor == 3:
+                be = block.astype(">f4").view(np.uint8).reshape(
+                    block.shape[0], -1, 4).transpose(0, 2, 1).reshape(
+                        block.shape[0], -1)
+                d = be.copy()
+                d[:, 1:] = be[:, 1:] - be[:, :-1]
+                raw = d.tobytes()
+            else:
+                raw = block.astype(dt).tobytes()
+            chunks.append(zlib.compress(raw, 6) if compression == 8 else raw)
+    fmt = {"u": 1, "i": 2, "f": 3}[img.dtype.kind]
+    # (tag, type, values): SHORT 3, LONG 4, DOUBLE 12
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [dt.itemsize * 8]),
+               (259, 3, [compression]), (262, 3, [1]), (277, 3, [1]),
+               (284, 3, [1]), (339, 3, [fmt])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if tile:
+        entries += [(322, 4, [tw]), (323, 4, [th]),
+                    (324, 4, [0] * len(chunks)),
+                    (325, 4, [len(c) for c in chunks])]
+    else:
+        entries += [(273, 4, [0] * len(chunks)), (278, 4, [th]),
+                    (279, 4, [len(c) for c in chunks])]
+    if geo is not None:
+        left, top, dx, dy = geo
+        entries += [(33550, 12, [dx, dy, 0.0]),
+                    (33922, 12, [0.0, 0.0, 0.0, left, top, 0.0]),
+                    (34735, 3, [1, 1, 0, 3, 1024, 0, 1, 2, 1025, 0, 1, 1,
+                                2048, 0, 1, 4326])]
+    entries.sort()
+    codes = {3: "H", 4: "I", 12: "d"}
+    ifd_len = 2 + 12 * len(entries) + 4
+    blob_at = 8 + ifd_len
+    blobs = bytearray()
+    placed = {}
+    for tag, ftype, values in entries:
+        size = struct.calcsize(codes[ftype]) * len(values)
+        if size > 4:
+            placed[tag] = blob_at + len(blobs)
+            blobs += b"\0" * (size + (size & 1))
+    at = blob_at + len(blobs)
+    offsets = []
+    for c in chunks:
+        offsets.append(at)
+        at += len(c)
+    ifd = bytearray(struct.pack("<H", len(entries)))
+    for tag, ftype, values in entries:
+        if tag in (273, 324):
+            values = offsets
+        payload = struct.pack(f"<{len(values)}{codes[ftype]}", *values)
+        ifd += struct.pack("<HHI", tag, ftype, len(values))
+        if tag in placed:
+            ifd += struct.pack("<I", placed[tag])
+            off = placed[tag] - blob_at
+            blobs[off:off + len(payload)] = payload
+        else:
+            ifd += payload.ljust(4, b"\0")
+    ifd += b"\0\0\0\0"
+    return (b"II" + struct.pack("<HI", 42, 8) + bytes(ifd) + bytes(blobs)
+            + b"".join(chunks))

@@ -8,16 +8,18 @@ decoding of the rasters. Standard WMS 1.1.1, so the reference's MapServer
 stack serves it unchanged.
 
 Replies are decoded by their content, as ``cv2.imdecode`` decodes them
-(``gis/jpeg.py`` ``decode_image``, with the port's own codecs; the card
-machine has no OpenCV): sequential or progressive JPEG of 1, 3 or 4
-components, and PNG of every colour type and depth, interlaced or not
-(MapServer's ``image/png; mode=8bit`` palette PNG included), in cv2's
-layout and, under the grey flag, turned upright by an EXIF orientation. The
-default format is the JAX client's ``image/jpeg``. A network error, an XML
-ServiceException or a reply that is no image cv2 would decode gives None,
-as in JAX (the GIS node keeps its previous map); a JPEG variant the codec
-does not read (arithmetic-coded, lossless, 12-bit, hierarchical) raises
-``ValueError`` naming it.
+(``gis/imgcodecs.py`` ``decode_image``, with the port's own decoders; the
+card machine has no OpenCV): JPEG, PNG (MapServer's ``image/png;
+mode=8bit`` palette PNG included), TIFF (MapServer's GTiff output, and a
+float DEM, which cv2 does not read under the grey flag: it comes back as
+None and the DEM as zeros, as in JAX), GIF, BMP, Netpbm, Sun raster and
+Radiance HDR, in cv2's layout and, under the grey flag, turned upright by
+an EXIF orientation. The default format is the JAX client's
+``image/jpeg``. A network error, an XML ServiceException or a reply that
+is no image cv2 would decode gives None, as in JAX (the GIS node keeps its
+previous map); a variant the port does not read yet (WebP, JPEG 2000,
+AVIF, a TIFF compression such as CCITT, arithmetic-coded, lossless,
+12-bit or hierarchical JPEG) raises ``ValueError`` naming it.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from gisnav_tpu_torch.gis.jpeg import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
-                                       decode_image)
+from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                            IMREAD_UNCHANGED, decode_image)
 from gisnav_tpu_torch.gis.png import to_gray
 
 __all__ = ["WMSClient", "request_orthoimage", "orthoimage_size_for_camera",
@@ -84,11 +86,12 @@ class WMSClient:
 
         :param bbox: (left, bottom, right, top) in ``srs`` coordinates
         :param size: (height, width) of the requested raster
-        :param grayscale: as ``cv2.IMREAD_GRAYSCALE``: a JPEG's Y plane,
-            a colour or palette PNG through libpng's grey conversion, a
-            16-bit PNG to its high byte, turned upright by EXIF
+        :param grayscale: as ``cv2.IMREAD_GRAYSCALE``: each format's grey
+            as OpenCV makes it (a JPEG's Y plane, libpng's grey, libtiff's
+            RGBA then OpenCV's fixed-point grey, 16 bits to 8), turned
+            upright by EXIF or a TIFF's orientation
         :return: the raster as ``cv2.imdecode`` gives it (grey (H, W),
-            BGR(A) (H, W, C), uint8 or uint16), or None on a network error,
+            BGR(A) (H, W, C), of cv2's depth), or None on a network error,
             an error status, an empty body or a reply that is no image
         """
         axis_key = "srs" if self.version.startswith("1.1") else "crs"

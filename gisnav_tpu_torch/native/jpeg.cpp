@@ -1158,7 +1158,9 @@ inline uint8_t clamp255(int x) {
 }
 
 // mode: 0 = as the file is (grey 1 channel, colour BGR), 1 = grey (libjpeg
-// JCS_GRAYSCALE; OpenCV's own conversion for CMYK), 2 = BGR. `file`: the
+// JCS_GRAYSCALE; OpenCV's own conversion for CMYK), 2 = BGR, 3 = the
+// components as they are, upsampled (libtiff's JCS_UNKNOWN), 4 = BGR from
+// YCbCr whatever the markers say (libtiff's JPEGCOLORMODE_RGB). `file`: the
 // bytes are a file read as cv2.imread reads it (past_end). *exif_off and
 // *exif_len locate the TIFF body of the file's Exif APP1 (length 0: none).
 std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
@@ -1185,7 +1187,7 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
   // 4 components are YCCK only under an Adobe marker whose transform is not
   // 0, else CMYK.
   bool rgb = false;
-  if (nc == 3 && !dec.saw_jfif) {
+  if (nc == 3 && !dec.saw_jfif && mode != 4) {
     if (dec.saw_adobe)
       rgb = dec.adobe_transform == 0;
     else
@@ -1194,7 +1196,10 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
   }
   const bool ycck = nc == 4 && dec.saw_adobe && dec.adobe_transform != 0;
   const int W = dec.width, H = dec.height;
-  int channels = mode == 1 ? 1 : mode == 2 ? 3 : (nc == 1 ? 1 : 3);
+  if (mode == 4 && nc != 3) throw Invalid{"YCbCr JPEG without 3 components"};
+  if (mode == 3) rgb = nc == 3;  // the planes as they are
+  int channels = mode == 1 ? 1 : (mode == 2 || mode == 4) ? 3
+               : mode == 3 ? nc : (nc == 1 ? 1 : 3);
   const bool gray_only = nc == 1 || (channels == 1 && nc == 3 && !rgb);
   std::vector<std::array<int, 20>> latch;
   const bool smooth = dec.smoothing_ok(&latch);
@@ -1221,6 +1226,12 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
       for (size_t i = 0; i < npx; i++)
         out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
     }
+    return out;
+  }
+  if (mode == 3) {  // interleaved in the file's order
+    for (size_t i = 0; i < npx; i++)
+      for (int k = 0; k < nc; k++)
+        out[size_t(nc) * i + size_t(k)] = planes[size_t(k)][i];
     return out;
   }
   const uint8_t *p0 = planes[0].data(), *p1 = planes[1].data(),

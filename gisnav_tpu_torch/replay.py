@@ -13,7 +13,7 @@ altitude).
 
 Dataset layout (all paths relative to the dataset directory)::
 
-    map.png        north-up grayscale orthophoto
+    map.png        north-up grayscale orthophoto (any format cv2 reads)
     map.json       {"left": lon, "bottom": lat, "right": lon, "top": lat,
                     "dem": "dem.png" | constant_meters (optional, default 0),
                     "dem_scale": meters_per_unit (optional, default 1.0)}
@@ -28,18 +28,20 @@ yaw. ``fused`` also runs the per-frame fixes through the port's
 ``PoseFusionFilter`` UKF. Fixes are re-assembled in float64 on the host
 (``pipeline.geopose.geopose_to_wgs84_f64``).
 
-Images are read by their content, as ``cv2.imread`` reads them, whatever
-their names (``gis/jpeg.py`` ``read_image``; the card machine has no
-OpenCV): PNG of every colour type, depth and interlacing, and sequential
-or progressive JPEG of 1, 3 or 4 components; a JPEG file cut short reads
-as libjpeg reads it from a file (grey, or block-smoothed, past the cut).
-The map and the frames are read as ``IMREAD_GRAYSCALE``: a JPEG's Y plane
-(OpenCV's own grey for CMYK), a colour or palette PNG through libpng's
-grey conversion, each turned upright by its EXIF orientation (a camera's
-Exif APP1, a PNG's eXIf chunk) as OpenCV turns it. The DEM is read as
-``IMREAD_UNCHANGED`` and must be grey (8 or 16 bits). A file of another
-format, or a variant the port does not read (arithmetic-coded, lossless,
-12-bit, hierarchical JPEG), raises ``ValueError``.
+Images are read by their content, whatever their names, as ``cv2.imread``
+reads them (``gis/imgcodecs.py`` ``read_image``; the card machine has no
+OpenCV): PNG, JPEG, TIFF and BigTIFF (a GDAL export: tiled or striped,
+deflate, LZW or PackBits, predictors 2 and 3, uint8 to float32), GIF, BMP,
+PBM / PGM / PPM / PAM, PFM, Sun raster and Radiance HDR. The map and the
+frames are read as ``IMREAD_GRAYSCALE`` (each format's grey as OpenCV
+makes it; a JPEG or PNG turned upright by its EXIF orientation, a TIFF by
+its ``Orientation`` tag, and a TIFF whose orientation transposes refused,
+as ``cv2.imread`` refuses it). The DEM is read as ``IMREAD_UNCHANGED`` and
+must be grey: an 8 or 16-bit PNG, or a uint16, int16 or float32 GeoTIFF
+(heights times ``dem_scale``). A file cv2 would not read, or a variant the
+port does not read yet (WebP, JPEG 2000, AVIF, a TIFF compression such as
+CCITT; arithmetic-coded, lossless, 12-bit or hierarchical JPEG), raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -51,14 +53,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from gisnav_tpu_torch.gis.jpeg import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
-                                       read_image)
+from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                            IMREAD_UNCHANGED, read_image)
 
 __all__ = ["load_dataset", "replay", "summarize"]
 
 
 def _read_image(path: str, flag: int) -> np.ndarray:
-    """A PNG or JPEG file, read by content as ``cv2.imread(path, flag)``."""
+    """An image file, read by content as ``cv2.imread(path, flag)``."""
     try:
         img = read_image(path, flag)
     except ValueError as e:
@@ -66,8 +68,8 @@ def _read_image(path: str, flag: int) -> np.ndarray:
     if img is None:
         with open(path, "rb") as f:
             head = f.read(8)
-        raise ValueError(f"{path}: not a PNG or JPEG image OpenCV would "
-                         f"read (starts {head!r})")
+        raise ValueError(f"{path}: not an image OpenCV would read (starts "
+                         f"{head!r})")
     return img
 
 

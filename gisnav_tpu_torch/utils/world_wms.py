@@ -14,7 +14,8 @@ the server binds 127.0.0.1 only).
   -> ENU quaternion (the gimbal attitude message).
 - :func:`write_replay_dataset`: a recorded flight over the world in the
   layout ``replay`` reads (``tools/make_replay_dataset.py``'s flight and
-  sizing), its images PNG or JPEG under the layout's names.
+  sizing), its images PNG, JPEG or a GIS export's TIFF under the layout's
+  names.
 - :class:`WorldWMS`: a WMS answering GetCapabilities and GetMap. An imagery
   GetMap pastes the in-world part of the bbox at its true place in the
   requested raster, area-resampled, and pads with grey outside the world:
@@ -22,7 +23,9 @@ the server binds 127.0.0.1 only).
   and fabricate hundreds of metres of error where maps are large. A layer
   named ``dem`` is flat at ``dem_value`` metres. Replies are 8-bit grey, in
   the format asked: JPEG (``gis/jpeg.py`` at quality 95, the bytes
-  ``cv2.imencode`` writes) for ``image/jpeg``, else PNG.
+  ``cv2.imencode`` writes) for ``image/jpeg``, an uncompressed GeoTIFF
+  (``gis/tiff.py``, as MapServer's GTiff output writes it) for
+  ``image/tiff``, else PNG.
 """
 from __future__ import annotations
 
@@ -38,9 +41,12 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from gisnav_tpu_torch.geometry.quaternion import matrix_to_quat
+from gisnav_tpu_torch.gis.geotiff import GeoRef, write_geotiff
 from gisnav_tpu_torch.gis.jpeg import encode_jpeg
 from gisnav_tpu_torch.gis.png import encode_png
+from gisnav_tpu_torch.gis.pxm import encode_pgm
 from gisnav_tpu_torch.gis.server import overlap_weights
+from gisnav_tpu_torch.gis.tiff import encode_tiff
 from gisnav_tpu_torch.utils.world import _draw_world, _warp_perspective
 
 __all__ = ["World", "WorldWMS", "camera_attitude_quat", "east_of",
@@ -139,17 +145,22 @@ def write_replay_dataset(world: World, out: str, frames: int = 12,
                          map_px: int = 0,
                          image_format: str = "png") -> dict:
     """Write a replay dataset of a straight flight over ``world`` into
-    ``out``, the map and frames as ``image_format`` ("png" or "jpeg", at
-    ``cv2.imencode``'s quality 95) under the layout's names (``map.png``,
-    ``frames/<stamp_us>.png``), with the defaults of
+    ``out``, the map and frames as ``image_format`` ("png", "jpeg" at
+    ``cv2.imencode``'s quality 95, or "tiff": a GIS export, the map a
+    256-px tiled deflate GeoTIFF with predictor 2, the DEM a float32
+    GeoTIFF (``gis/geotiff.py``) named in ``map.json``, the frames
+    alternately deflate TIFF and PGM) under the layout's names
+    (``map.png``, ``frames/<stamp_us>.png``), with the defaults of
     ``tools/make_replay_dataset.py``: frame i at ``lonlat0 + i * (1e-4,
     5e-5)`` deg, ``alt_m`` over a flat world (DEM 0), f = 400 px at 640 px
     width, the map a square at 3x the frame's larger footprint side around
     the first frame, ``map_px`` a side (0: ``ceil(diagonal / 8) * 8``).
     Returns the dataset's poses and map size."""
-    if image_format not in ("png", "jpeg"):
-        raise ValueError(f"image_format {image_format!r}: png or jpeg")
-    encode = encode_jpeg if image_format == "jpeg" else encode_png
+    if image_format not in ("png", "jpeg", "tiff"):
+        raise ValueError(f"image_format {image_format!r}: png, jpeg or "
+                         "tiff")
+    encode = {"png": encode_png, "jpeg": encode_jpeg,
+              "tiff": lambda img: encode_tiff(img, 8, 2)}[image_format]
     h, w = hw
     f = 400.0 * max(w, h) / 640.0
     k = np.array([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]])
@@ -160,21 +171,32 @@ def write_replay_dataset(world: World, out: str, frames: int = 12,
     left, top = world.to_lonlat(x0, y0)
     right, bottom = world.to_lonlat(x0 + side_px, y0 + side_px)
     os.makedirs(os.path.join(out, "frames"), exist_ok=True)
+    ortho = world.crop((left, bottom, right, top), map_px, map_px)
+    dem = 0.0
+    geo = GeoRef(left, top, (right - left) / map_px, (top - bottom) / map_px)
     with open(os.path.join(out, "map.png"), "wb") as fh:
-        fh.write(encode(world.crop((left, bottom, right, top), map_px,
-                                   map_px)))
+        if image_format == "tiff":
+            fh.write(encode_tiff(ortho, 8, 2, tile=(256, 256), geo=(
+                geo.left, geo.top, geo.gsd_lon, geo.gsd_lat)))
+        else:
+            fh.write(encode(ortho))
+    if image_format == "tiff":
+        dem = "dem.tif"
+        write_geotiff(os.path.join(out, dem), np.zeros_like(ortho,
+                                                             np.float32), geo)
     with open(os.path.join(out, "map.json"), "w") as fh:
         json.dump({"left": left, "top": top, "right": right,
-                   "bottom": bottom, "dem": 0.0}, fh, indent=1)
+                   "bottom": bottom, "dem": dem}, fh, indent=1)
     with open(os.path.join(out, "camera.json"), "w") as fh:
         json.dump({"k": k.tolist(), "width": w, "height": h}, fh, indent=1)
     rows = []
     for i in range(frames):
         stamp = 1_000_000 + i * 500_000
         lon, lat = lonlat0[0] + 1e-4 * i, lonlat0[1] + 5e-5 * i
+        frame = world.render_frame(lon, lat, alt_m, yaw_deg, k, hw)
         with open(os.path.join(out, "frames", f"{stamp}.png"), "wb") as fh:
-            fh.write(encode(world.render_frame(lon, lat, alt_m, yaw_deg, k,
-                                               hw)))
+            fh.write(encode_pgm(frame) if image_format == "tiff" and i % 2
+                     else encode(frame))
         rows.append({"stamp_us": stamp, "lon": lon, "lat": lat,
                      "alt_ellipsoid_m": alt_m, "yaw_deg": yaw_deg})
     with open(os.path.join(out, "poses.csv"), "w", newline="") as fh:
@@ -244,6 +266,10 @@ class WorldWMS:
                 fmt = q.get("format", "image/png")
                 if "jpeg" in fmt or "jpg" in fmt:
                     ctype, body = "image/jpeg", encode_jpeg(img)
+                elif "tiff" in fmt:  # MapServer's GTiff: plain strips
+                    left, bottom, right, top = bbox
+                    ctype, body = "image/tiff", encode_tiff(img, geo=(
+                        left, top, (right - left) / w, (top - bottom) / h))
                 else:
                     ctype, body = "image/png", encode_png(img)
                 with stub._count_lock:

@@ -21,7 +21,7 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gisnav_tpu", "cv2",
-             "requests"}
+             "requests", "PIL"}
 
 
 def _port_files():
@@ -63,7 +63,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "train/loop.py", "train/loftr_steps.py", "io/serial_bridge.py",
         "nodes/wfst_node.py", "gis/geotiff.py", "gis/server.py",
         "nodes/ros_adapter.py", "nodes/viz.py", "utils/profiling.py",
-        "replay.py", "gis/jpeg.py", "native/__init__.py")} <= rel
+        "replay.py", "gis/jpeg.py", "native/__init__.py",
+        "gis/imgcodecs.py", "gis/coders.py", "gis/tiff.py", "gis/gif.py",
+        "gis/bmp.py", "gis/pxm.py", "gis/sunras.py", "gis/hdr.py")} <= rel
     bad = {(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -176,3 +178,20 @@ def test_geoid_grid_is_shipped_and_identical():
         "gisnav_tpu_torch", "data", "egm96_grid.npz")
     with open(os.path.join(ROOT, "pyproject.toml")) as f:
         assert '"gisnav_tpu_torch" = ["data/*.npz"]' in f.read()
+
+
+def test_every_native_source_is_built_and_shipped(tmp_path, monkeypatch):
+    """Each ``.cpp`` in ``native/`` builds with the host compiler into a
+    library of its own name, and the package data ships the sources."""
+    from gisnav_tpu_torch import native
+
+    sources = sorted(n[:-4] for n in os.listdir(native.NATIVE_DIR)
+                     if n.endswith(".cpp"))
+    assert sources == ["imgcodecs", "jpeg", "shmbus"]
+    assert set(sources) <= set(native._WHAT)
+    monkeypatch.setattr(native, "NATIVE_BUILD_DIR", str(tmp_path))
+    lib = native.build_native_lib("imgcodecs")
+    assert os.path.basename(lib).startswith("libimgcodecs_")
+    assert os.path.dirname(lib) == str(tmp_path)
+    with open(os.path.join(ROOT, "pyproject.toml")) as f:
+        assert '"gisnav_tpu_torch.native" = ["*.cpp"]' in f.read()

@@ -123,7 +123,7 @@ def test_load_dataset_refusals(tmp_path, world):
     _equal_datasets(ours, ref)
     with open(os.path.join(root, "map.png"), "wb") as f:
         f.write(b"GIF89a not an image the port reads")
-    with pytest.raises(ValueError, match="not a PNG or JPEG"):
+    with pytest.raises(ValueError, match="not an image OpenCV would read"):
         treplay.load_dataset(root)
     with open(os.path.join(root, "poses.csv"), "w", newline="") as f:
         csv.writer(f).writerow(["stamp_us", "lon", "lat", "alt_ellipsoid_m"])

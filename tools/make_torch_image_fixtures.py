@@ -34,7 +34,17 @@ Content is drawn from the port's seeded world (``utils/world_wms.py``):
   Pillow-quantised palette; grey at depths 1, 2 and 4; grey + alpha at 8
   and 16 bits; RGB with a tRNS colour at 8 and 16 bits; Adam7 at several
   types and depths; gAMA and sRGB (libpng's gamma path under the grey
-  flag); eXIf orientations.
+  flag); eXIf orientations;
+- the other formats OpenCV reads (13x17 px each): TIFF (tiled LZW with
+  predictor 2 in big-endian order, uint16 and int16 and float32 DEMs with
+  predictors 2 and 3, BigTIFF with old-style LZW, planar PackBits RGB,
+  unassociated RGBA, 16-bit RGB, a 4-bit palette, CMYK, 2x2 YCbCr,
+  orientations 6 and 3 (tiled), 1-bit MinIsWhite in FillOrder 2, an
+  uncompressed tile that is not whole KiB, Pillow's JPEG-in-TIFF), GIF (a
+  transparent image smaller than its screen, interlace with a local table,
+  cv2's), BMP (RLE8, RLE4, 5-6-5 bitfields, cv2's V5 BGRA, OS/2, top-down
+  1-bit), PGM / PPM / PBM / PAM (ASCII with maxval 100, 16-bit, cv2's),
+  PFM (both byte orders), Sun raster and Radiance HDR (RLE and flat).
 """
 from __future__ import annotations
 
@@ -53,8 +63,9 @@ from PIL import Image
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 from gisnav_tpu_torch.utils.world_wms import World  # noqa: E402
-from tests.torch_image_writers import (chunk, exif_tiff,  # noqa: E402
-                                       with_exif_app1, write_png)
+from tests.torch_image_writers import (  # noqa: E402
+    bmp_rle_encode, chunk, exif_tiff, gif_frame, with_exif_app1, write_bmp,
+    write_gif, write_hdr, write_png, write_sun, write_tiff)
 
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_images")
@@ -219,7 +230,113 @@ def build() -> dict:
                                      before=[chunk(b"eXIf", exif_tiff(6))])
     files["exif_o3_ii_rgb.png"] = write_png(
         rgb, 8, 2, after=[chunk(b"eXIf", exif_tiff(3, b"II"))])
+    files.update(other_formats(grey, bgr, rng))
     return files
+
+
+def other_formats(grey, bgr, rng) -> dict:
+    """TIFF, GIF, BMP, Netpbm, PFM, Sun raster and Radiance fixtures of 13x17
+    pixels (``tests/torch_image_writers.py`` unless cv2 or Pillow is
+    named)."""
+    h, w = 13, 17
+    g, c = grey(h, w, 40, 40), bgr(h, w)
+    rgb = c[..., ::-1]
+    files = {}
+    files["tiff_grey_lzw_pred2_tiled_mm.tif"] = write_tiff(
+        g, order=b"MM", tile=(16, 16), compression=5, predictor=2)
+    files["tiff_u16_deflate_pred2.tif"] = write_tiff(
+        g.astype(np.uint16) * 201, compression=8, predictor=2,
+        rows_per_strip=8)
+    files["tiff_i16_dem_deflate_pred2_tiled.tif"] = write_tiff(
+        (g.astype(np.int16) * 13 - 400), tile=(16, 16), compression=8,
+        predictor=2)
+    files["tiff_f32_dem_deflate_pred3_tiled.tif"] = write_tiff(
+        g.astype(np.float32) * np.float32(3.7) - 120, tile=(16, 16),
+        compression=32946, predictor=3)
+    files["tiff_bigtiff_lzw_old.tif"] = write_tiff(
+        g, bigtiff=True, compression=5, lzw_old=True, rows_per_strip=5)
+    files["tiff_rgb_planar2_packbits.tif"] = write_tiff(
+        rgb, planar=2, compression=32773)
+    files["tiff_rgba_unassoc.tif"] = write_tiff(
+        np.concatenate([rgb, grey(h, w, 300, 300)[..., None]], axis=2),
+        extra_samples=[2], compression=8)
+    files["tiff_u16_rgb.tif"] = write_tiff(rgb[:8, :9].astype(np.uint16)
+                                           * 257 + 5)
+    files["tiff_palette4.tif"] = write_tiff(
+        g >> 4, bits=4, photometric=3,
+        colormap=rng.integers(0, 65536, (16, 3)))
+    files["tiff_cmyk.tif"] = write_tiff(
+        np.concatenate([rgb, g[..., None] // 3], axis=2), photometric=5)
+    files["tiff_ycbcr22.tif"] = write_tiff(rgb, photometric=6,
+                                           subsampling=(2, 2))
+    files["tiff_o6.tif"] = write_tiff(g, orientation=6, compression=8)
+    files["tiff_o3_tiled.tif"] = write_tiff(c, orientation=3, tile=(16, 16),
+                                            compression=8)
+    files["tiff_1bit_miniswhite_fo2.tif"] = write_tiff(
+        g >> 7, bits=1, photometric=0, fill_order=2)
+    files["tiff_raw_tile_512.tif"] = write_tiff(g, tile=(32, 16))
+    bio = io.BytesIO()
+    Image.fromarray(rgb).save(bio, "TIFF", compression="jpeg", quality=85)
+    files["tiff_jpeg_ycbcr_pillow.tif"] = bio.getvalue()
+    pal = rng.integers(0, 256, (16, 3))
+    idx = (g >> 4).astype(np.uint8)
+    files["gif_trans_screen.gif"] = write_gif(
+        (h + 4, w + 6), [gif_frame(idx, left=2, top=3, transparent=5)], pal,
+        background=9)
+    files["gif_interlace_local.gif"] = write_gif(
+        (h, w), [gif_frame(idx, interlace=True, local_palette=pal[::-1])])
+    files["gif_cv2.gif"] = _cv2(".gif", c)
+    files["bmp_rle8.bmp"] = write_bmp(
+        idx, 8, pal, compression=1, data=bmp_rle_encode(idx[::-1], False))
+    files["bmp_rle4.bmp"] = write_bmp(
+        idx, 4, pal, compression=2, data=bmp_rle_encode(idx[::-1], True))
+    files["bmp_565.bmp"] = write_bmp(
+        (g.astype(np.uint16) << 5) | (g >> 3), 16, compression=3,
+        masks=(0xF800, 0x7E0, 0x1F))
+    files["bmp_v5_bgra_cv2.bmp"] = _cv2(
+        ".bmp", np.concatenate([c, g[..., None]], axis=2))
+    files["bmp_os2_pal8.bmp"] = write_bmp(g, 8, rng.integers(0, 256,
+                                                          (256, 3)),
+                                          header=12)
+    files["bmp_topdown_pal1.bmp"] = write_bmp(g >> 7, 1, pal[:2],
+                                              top_down=True)
+    files["p2_max100.pgm"] = (b"P2\n# a comment\n%d %d\n100\n" % (w, h)
+                              + b" ".join(b"%d" % v for v in
+                                          (g % 101).ravel()) + b"\n")
+    files["p5_16bit.pgm"] = b"P5 %d %d 60000\n" % (w, h) + (
+        g.astype(">u2") * 233).tobytes()
+    files["p3_cv2.ppm"] = _cv2(".ppm", c[:5, :7], cv2.IMWRITE_PXM_BINARY, 0)
+    files["p4_cv2.pbm"] = _cv2(".pbm", (g > 120).astype(np.uint8) * 255)
+    files["p6_cv2.ppm"] = _cv2(".ppm", c)
+    files["pam_rgb_cv2.pam"] = _cv2(".pam", c, cv2.IMWRITE_PAM_TUPLETYPE,
+                                    cv2.IMWRITE_PAM_FORMAT_RGB)
+    files["pam_grey_alpha.pam"] = (
+        b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH 2\nMAXVAL 255\n"
+        b"TUPLTYPE GRAYSCALE_ALPHA\nENDHDR\n" % (w, h)
+        + np.stack([g, 255 - g], axis=2).tobytes())
+    f = g.astype(np.float32) / np.float32(97)
+    files["pfm_grey_le.pfm"] = b"Pf\n%d %d\n-1.0\n" % (w, h) + \
+        f[::-1].astype("<f4").tobytes()
+    files["pfm_rgb_be_scale2.pfm"] = b"PF\n7 5\n2.0\n" + (
+        rgb[5:0:-1, :7].astype(np.float32) / np.float32(50)).astype(
+            ">f4").tobytes()
+    files["sun_map8.ras"] = write_sun(g, 8, rng.integers(0, 256, (256, 3)))
+    files["sun_24.ras"] = write_sun(c, 24)
+    files["sun_32.ras"] = write_sun(
+        np.concatenate([g[..., None], c], axis=2), 32)
+    rgbe = np.concatenate([rgb, (g[..., None] % 9 + 124).astype(np.uint8)],
+                          axis=2)
+    rgbe[:, :12] = rgbe[:, :1]  # runs to code
+    files["hdr_rle.hdr"] = write_hdr(rgbe)
+    files["hdr_flat_rgbe.hdr"] = write_hdr(
+        rgbe, rle=False, header=b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n")
+    return files
+
+
+def _cv2(ext: str, img, *params) -> bytes:
+    ok, buf = cv2.imencode(ext, img, list(params))
+    assert ok
+    return buf.tobytes()
 
 
 def _xmp_first(jpeg: bytes, xmp: bytes) -> bytes:
@@ -264,8 +381,10 @@ def main() -> int:
         with open(os.path.join(args.out, name), "wb") as f:
             f.write(data)
     with open(os.path.join(args.out, "digests.json"), "w") as f:
-        json.dump(digests(files), f, indent=1, sort_keys=True)
-        f.write("\n")
+        f.write("{\n" + ",\n".join(  # an entry a line, compact
+            f"{json.dumps(name)}:"
+            f"{json.dumps(d, sort_keys=True, separators=(',', ':'))}"
+            for name, d in sorted(digests(files).items())) + "\n}\n")
     print(f"{len(files)} fixtures, {total} bytes, in {args.out}")
     return 0
 
