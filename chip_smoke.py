@@ -12,6 +12,7 @@
     python3 chip_smoke.py --multistream   # build + path 12 only
     python3 chip_smoke.py --mesh     # build + paths 12 and 13 (the mesh)
     python3 chip_smoke.py --jpeg     # build + the image codecs phase only
+    python3 chip_smoke.py --api      # build + path 14 (the library API) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -181,9 +182,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    block alone lies beyond it; then 10
    mesh steps (every loss finite, 24 K5 launches a row a step) and 10
    replicated ones, steps/s beside path 9 (a)'s;
-17. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+17. path 14: the library API, the JAX package's functional entry points
+   on path 1's scene and learned_lg9 weights: ``load_pretrained`` carried
+   to the card by ``params_from_jax``; on frames 0 and 5 (two buckets) a
+   bucketed runner of path 1's configuration run with its graphs eager
+   (SuperPoint and LightGlue tapped), then ``extract_features`` with the
+   runner's SuperPoint settings on the frame and on the bucket's reference
+   crop (K1 1, K2 8, K3 1 launches each; the runner's keypoints, scores,
+   descriptors and mask bit for bit), ``match_features`` of the two (the
+   fused route: K4 36 launches, no K5; the runner's ``matches0`` exactly)
+   and of the query against the crop's first 1792 keypoints (the module
+   route: K5 72 launches, no K4; ``matches0`` agree on at least 99 % with
+   the same call through K5's plain version), each match through
+   ``keypoints_to_3d``,
+   ``ransac_pnp`` and ``project_points``: every fix valid and within 10 m,
+   the fused one within 1 mm of the runner's on the same RANSAC draw, every
+   inlier reprojected within the RANSAC threshold; the eager p50 ms of
+   each call beside the runner's graphed frame and path 1's, with the
+   card's name and power limit;
+18. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-18. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+19. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -273,6 +292,14 @@ PRIOR_FRAMES = (1, 4, 8)  # 5, 30 and -45 deg
 DEROTATE_FRAMES = (2, 4, 7, 13)  # -10, 30, 180 and 20 deg
 SHEAR_YAWS = [20.0, -33.0, 61.5, 117.0]  # none a right angle
 MODULE_KP = 1792  # a budget outside the fused predicate: the module route
+MAIN_YAWS = [0.0, 3.0, 6.0, 16.0, 20.0, 31.0, 35.0, 2.0]  # path 1: 3 buckets
+MAIN_CYCLE_YAWS = [45.0, 60.0, 75.0, 90.0]  # with 0, 16, 31: 7 buckets
+API_FRAMES = (0, 5)  # path 14: path 1's frames at yaw 0 and 31 (2 buckets)
+API_REPS = 10  # eager library calls timed for each p50
+# path 14's module route with K5 against the same call with K5's plain
+# version: the share of equal matches0, the LightGlue tests' depth-9 gate
+API_MODULE_AGREE = 0.99
+API_DEVICE = "cuda"  # path 14's device; a CPU rehearsal sets "cpu"
 MAP = 2048  # side of the cached mode's map
 STEM_RAGGED = (100, 132)  # even, no multiple of the kernel's 8x16 tile
 CACHED_FRAMES = 64  # timing window of frames that hit the bucket cache
@@ -392,7 +419,7 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "library_device_ms", "rotation_ms", "rotation_device_ms",
               "path4_launches", "path6_launches", "path8_launches",
               "path9_launches", "path11_launches", "path13_launches",
-              "backward_ms",
+              "path14_launches", "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
               "grad_cpu_rel_err", "fwd_bwd_device_ms",
@@ -809,9 +836,13 @@ def check_attention(gen, quick, results):
              "replaces": "gisnav_tpu/matching/pallas_attention.py:38",
              "max_abs_err": 0.0}
     ms, plain, lib, bounds, dev, lib_dev = [], [], [], [], [], []
-    # the module route's four launches a layer: both self and both cross
+    # the module route's four launches a layer: both self and both cross,
+    # timed at path 2's sets (MODULE_KP and twice it); path 14's module
+    # call (MAX_KP against MODULE_KP) is held at its shapes too, untimed
     n0, n1 = MODULE_KP, 2 * MODULE_KP
-    for kq, kk in ((n0, n0), (n1, n1), (n0, n1), (n1, n0)):
+    timed = ((n0, n0), (n1, n1), (n0, n1), (n1, n0))
+    path14 = ((MAX_KP, MAX_KP), (MAX_KP, n0), (n0, MAX_KP))
+    for kq, kk in timed + path14:
         q, k, v = (_rand(gen, (n, heads, d)) for n in (kq, kk, kk))
         mask = torch.rand((kk,), generator=gen, device="cuda") > 1 / 3
         for sharp in (1.0, 4.0):
@@ -825,6 +856,8 @@ def check_attention(gen, quick, results):
             if not (e <= tol) or not torch.isfinite(k_out).all():
                 raise RuntimeError("masked_attention disagrees")
             entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        if (kq, kk) not in timed:
+            continue
         nbytes = (kq + 2 * kk) * heads * d * 2 + kk * 4 + kq * heads * d * 4
         bounds.append(bound_ms(nbytes, bf16_ops=4 * kq * kk * heads * d))
         if not quick:
@@ -4269,16 +4302,22 @@ def phase_cellmax_stage() -> int:
     return launches["nms_cellmax"]
 
 
+def main_scene():
+    """Path 1's seeded 1088x1920 scene (frames at ``MAIN_YAWS`` then
+    ``MAIN_CYCLE_YAWS``)."""
+    from gisnav_tpu_torch.utils.world import render_scene
+
+    return render_scene(seed=0, h=H, w=W, yaws=MAIN_YAWS + MAIN_CYCLE_YAWS)
+
+
 def phase_main_path() -> dict:
     from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
     from gisnav_tpu_torch.pipeline.runners import make_bucketed_warp_runner
-    from gisnav_tpu_torch.utils.world import render_scene
     from gisnav_tpu_torch.weights import load_bundled
 
     t0 = time.time()
-    yaws = [0.0, 3.0, 6.0, 16.0, 20.0, 31.0, 35.0, 2.0]  # 3 buckets
-    cycle_yaws = [45.0, 60.0, 75.0, 90.0]  # with 0, 16, 31: 7 buckets
-    scene = render_scene(seed=0, h=H, w=W, yaws=yaws + cycle_yaws)
+    yaws = MAIN_YAWS
+    scene = main_scene()
     params, config = load_bundled("learned_lg9")
     config = dataclasses.replace(config, image_shape=(H, W),
                                  max_keypoints=MAX_KP, lightglue_depth=9)
@@ -4791,6 +4830,255 @@ def refresh_vs_eager(runner, scene, config, cycle) -> dict:
     return out
 
 
+# --- path 14: the library API ----------------------------------------------
+
+
+def _library_fix(scene, config, i, fq, fr, match, dem_crop, m_crop,
+                 seed: int) -> tuple:
+    """A fix through the library's pnp entry points from ``match`` of the
+    query features ``fq`` against the crop's ``fr``: ``keypoints_to_3d`` on
+    the DEM crop in crop-pixel units (as the frame program scales it),
+    ``ransac_pnp`` with RANSAC's noise from the generator seeded as the
+    runner seeds frame ``seed``, the geopose, and ``project_points`` of the
+    inliers. Returns (pose, f64 fix, error m, largest inlier reprojection
+    error in px)."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.pipeline.geopose import (
+        GeoPose,
+        assemble_geopose,
+        geopose_to_wgs84_f64,
+    )
+    from gisnav_tpu_torch.pnp import keypoints_to_3d, project_points
+    from gisnav_tpu_torch.pnp import ransac_pnp
+    from gisnav_tpu_torch.pnp.ransac import draw_noise
+
+    dev = torch.device(API_DEVICE)
+    k, aff = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+              for a in (scene.k, scene.crs_affine))
+    mvalid = match.matches0 >= 0
+    mkp_ref = fr.keypoints[torch.clamp(match.matches0, min=0)]
+    z_scale = aff[2, 2] * torch.sqrt(torch.abs(torch.linalg.det(
+        m_crop[:2, :2])))
+    obj = keypoints_to_3d(mkp_ref, dem_crop / z_scale)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pnp = ransac_pnp(obj, fq.keypoints, k, mvalid, noise=draw_noise(
+        gen, config.num_hypotheses, config.max_keypoints),
+        num_hypotheses=config.num_hypotheses,
+        threshold_px=config.threshold_px, min_inliers=config.min_matches,
+        refine_iters=config.refine_iters)
+    ecef, quat, lla, cam = assemble_geopose(pnp.r, pnp.t, m_crop, aff)
+    n = mvalid.sum()
+    pose = GeoPose(ecef, quat, lla, pnp.r, cam, m_crop, n, pnp.num_inliers,
+                   pnp.valid & (n >= config.min_matches), fq.keypoints,
+                   mkp_ref, mvalid & pnp.inliers)
+    fix = geopose_to_wgs84_f64(pose, scene.crs_affine)
+    lon, lat = scene.truth_lonlat[i]
+    err = haversine_m(lat, lon, fix["lat"], fix["lon"])
+    reproj = torch.linalg.norm(project_points(obj, pnp.r, pnp.t, k)
+                               - fq.keypoints, dim=1)
+    reproj = torch.where(pose.match_mask, reproj, torch.zeros_like(reproj))
+    return pose, fix, err, float(reproj.max())
+
+
+def _same_features(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_api_path(scene=None, path1_frame_p50_ms=None) -> dict:
+    """Path 14: the library API on path 1's scene, frames and weights.
+
+    ``load_pretrained(LEARNED_LG9_PATH)`` carried to the card by
+    ``params_from_jax``; a bucketed runner of path 1's configuration flies
+    each of ``API_FRAMES`` with its graphs run eagerly (``GraphSide``),
+    SuperPoint's inputs and outputs and LightGlue's ``matches0`` tapped.
+    Then, on the same frame and the bucket's reference crop, with the
+    runner's SuperPoint settings: ``extract_features`` (K1 1, K2 8, K3 1
+    launches each, the runner's features bit for bit), ``match_features``
+    of the two (the fused route: K4 36, no K5; the runner's ``matches0``
+    exactly), and of the query against the crop's first ``MODULE_KP``
+    keypoints (the module route: K5 72, no K4; its ``matches0`` agree on
+    ``API_MODULE_AGREE`` with the same call through K5's plain version,
+    which launches no kernel); each match through
+    ``keypoints_to_3d``, ``ransac_pnp`` and ``project_points``: valid,
+    within 10 m of the truth, the fused one within 1 mm of the runner's
+    fix on the same RANSAC draw, every inlier reprojected within the
+    RANSAC threshold. Prints the eager p50 ms of each call (CUDA events
+    around one call) beside the runner's graphed frame (host clock; and
+    path 1's when given)."""
+    from gisnav_tpu_torch.features import SuperPointFeatures
+    from gisnav_tpu_torch.features import extract_features
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.matching import attention, match_features
+    from gisnav_tpu_torch.matching.attention import masked_attention_plain
+    from gisnav_tpu_torch.pipeline.runners import (
+        LEARNED_LG9_CONFIG,
+        make_bucketed_warp_runner,
+    )
+    from gisnav_tpu_torch.weights import (
+        LEARNED_LG9_PATH,
+        load_pretrained,
+        params_from_jax,
+    )
+
+    kernel_attention = attention.masked_attention
+    t0 = time.time()
+    scene = scene if scene is not None else main_scene()
+    tree = load_pretrained(LEARNED_LG9_PATH)
+    params = params_from_jax(tree, API_DEVICE)
+    config = dataclasses.replace(LEARNED_LG9_CONFIG, image_shape=(H, W),
+                                 max_keypoints=MAX_KP, lightglue_depth=9)
+    runner = make_bucketed_warp_runner(tree, config, bucket_deg=15.0,
+                                       device=API_DEVICE)
+    models = runner.models
+    sp, lg = models["superpoint"], models["lightglue"]
+    sp_taps: list = []
+    m0_taps: list = []
+
+    def sp_tapped(image):
+        feats = sp(image)
+        sp_taps.append((image, feats))
+        return feats
+
+    models["superpoint"] = sp_tapped
+    tap_programs(models, m0_taps)
+    kw = dict(max_keypoints=sp.max_keypoints,
+              score_threshold=sp.score_threshold,
+              select_tiles=sp.select_tiles, detector_mode=sp.detector_mode,
+              device=API_DEVICE)
+    lg_kw = dict(depth=config.lightglue_depth,
+                 filter_threshold=config.filter_threshold, device=API_DEVICE)
+    size = (H, W)
+    dev = torch.device(API_DEVICE)
+    log(f"[api] weights, scene and runner in {time.time() - t0:.1f} s; "
+        f"SuperPoint settings {kw}")
+
+    def counted(fn, *args, **kwargs):
+        """``fn``'s result and every kernel's launches in the call."""
+        reset_launches()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, dict(LAUNCHES)
+
+    def launched(counts):
+        return {k: n for k, n in counts.items() if n}
+
+    extraction = {"stem_stage": 1, "conv_stage": 8, "nms_select": 1}
+    out = {"frames": []}
+    for i in API_FRAMES:
+        sp_taps.clear()
+        m0_taps.clear()
+        with GraphSide("eager"):
+            pose, _, err, fix = _frame(runner, scene, i,
+                                       f"[api] runner (eager) frame {i}")
+        _gate(pose, err, fix, f"[api] runner frame {i}")
+        if len(sp_taps) != 2 or len(m0_taps) != 1:
+            raise RuntimeError(f"path 14: frame {i} made {len(sp_taps)} "
+                               f"SuperPoint and {len(m0_taps)} LightGlue "
+                               f"calls, expected a bucket refresh (2, 1)")
+        (crop, r_feats), (_, q_feats) = sp_taps
+        seed = runner.stats["frames"]
+        _, dem_crop, m_crop = runner.buckets[next(reversed(runner.buckets))]
+        query = torch.as_tensor(scene.frames[i], device=dev).float() / 255.0
+
+        fq, lq = counted(extract_features, params["superpoint"], query, **kw)
+        fr, lr = counted(extract_features, params["superpoint"], crop, **kw)
+        expect_launches(f"path 14 frame {i} extract_features (query)", lq,
+                        extraction)
+        expect_launches(f"path 14 frame {i} extract_features (crop)", lr,
+                        extraction)
+        if not (_same_features(fq, q_feats) and _same_features(fr, r_feats)):
+            raise RuntimeError(f"path 14: extract_features differs from the "
+                               f"runner's SuperPoint on frame {i}")
+
+        fused, lf = counted(match_features, params["lightglue"], fq, size,
+                            fr, size, **lg_kw)
+        # equal set sizes: the dual block, a self and a cross call a layer
+        expect_launches(f"path 14 frame {i} match_features (fused)", lf,
+                        {"fused_block": 36})
+        if not torch.equal(fused.matches0, m0_taps[0]):
+            raise RuntimeError(f"path 14: match_features' matches0 differs "
+                               f"from the runner's on frame {i}")
+        cut = SuperPointFeatures(*(t[:MODULE_KP] for t in fr))
+        module, lm = counted(match_features, params["lightglue"], fq, size,
+                             cut, size, **lg_kw)
+        expect_launches(f"path 14 frame {i} match_features (module)", lm,
+                        {"masked_attention": 72})
+        # the same call with K5's plain version in the kernel's place
+        attention.masked_attention = masked_attention_plain
+        try:
+            module_plain, lp = counted(match_features, params["lightglue"],
+                                       fq, size, cut, size, **lg_kw)
+        finally:
+            attention.masked_attention = kernel_attention
+        expect_launches(f"path 14 frame {i} match_features (module, "
+                        f"plain attention)", lp, {})
+        agree = float((module.matches0 == module_plain.matches0).float()
+                      .mean())
+        log(f"[api] frame {i}: module route with K5 against its plain "
+            f"version: matches0 agree on {agree:.4%} (gate "
+            f"{API_MODULE_AGREE:.0%})")
+        if agree < API_MODULE_AGREE:
+            raise RuntimeError(f"path 14: the module route's matches0 with "
+                               f"K5 agree with its plain version's on "
+                               f"{agree:.4%} of frame {i}'s keypoints")
+
+        row = {"frame": i, "yaw": scene.yaws[i], "runner_error_m": err,
+               "launches": {"extract_query": launched(lq),
+                            "extract_crop": launched(lr),
+                            "match_fused": launched(lf),
+                            "match_module": launched(lm)}}
+        for name, match, ref in (("fused", fused, fr), ("module", module,
+                                                         cut)):
+            lpose, lfix, lerr, reproj = _library_fix(
+                scene, config, i, fq, ref, match, dem_crop, m_crop, seed)
+            _gate(lpose, lerr, lfix, f"[api] library fix ({name}) frame {i}")
+            if reproj > config.threshold_px * (1 + 1e-3):
+                raise RuntimeError(f"path 14: an inlier reprojects {reproj} "
+                                   f"px off ({name}, frame {i})")
+            row[name] = {"matches": int(lpose.num_matches),
+                         "inliers": int(lpose.num_inliers),
+                         "error_m": lerr, "max_inlier_reproj_px": reproj,
+                         "moved_from_runner_m": _fix_moved(lfix, fix)}
+        if row["fused"]["moved_from_runner_m"] > 1e-3:
+            raise RuntimeError(f"path 14: the library's fix is "
+                               f"{row['fused']['moved_from_runner_m']} m "
+                               f"from the runner's on frame {i}")
+        log(f"[api] frame {i}: " + json.dumps(row))
+        out["frames"].append(row)
+
+    # the package's own graphs again, for the graphed frame beside the
+    # eager library calls
+    models["superpoint"], models["lightglue"] = sp, lg
+    i = API_FRAMES[-1]
+    _frame(runner, scene, i)  # captures the frame program
+    graphed = [_frame(runner, scene, i)[1] for _ in range(API_REPS)]
+    out["runner_graphed_frame_p50_ms"] = float(np.median(graphed))
+    out["path1_graphed_frame_p50_ms"] = path1_frame_p50_ms
+    calls = {"extract_features": lambda: extract_features(
+                 params["superpoint"], query, **kw),
+             "extract_features_crop": lambda: extract_features(
+                 params["superpoint"], crop, **kw),
+             "match_features_fused": lambda: match_features(
+                 params["lightglue"], fq, size, fr, size, **lg_kw),
+             "match_features_module": lambda: match_features(
+                 params["lightglue"], fq, size, cut, size, **lg_kw)}
+    for name, fn in calls.items():
+        out[f"{name}_p50_ms"] = time_ms(fn, reps=API_REPS, warmup=1)
+    out["card"] = card_label()
+    log(f"[api] eager library calls on {out['card']}: extract_features "
+        f"{out['extract_features_p50_ms']:.3f} ms (crop "
+        f"{out['extract_features_crop_p50_ms']:.3f}), match_features fused "
+        f"{out['match_features_fused_p50_ms']:.3f} ms, module "
+        f"{out['match_features_module_p50_ms']:.3f} ms; the runner's "
+        f"graphed frame {out['runner_graphed_frame_p50_ms']:.3f} ms, path "
+        f"1's {path1_frame_p50_ms}")
+    # a call of each
+    out["launches"] = {**launched(lq), **launched(lf), **launched(lm)}
+    log("[api] " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4823,6 +5111,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="only drive paths 12 and 13 (the mesh over every "
                          "card there is)")
+    ap.add_argument("--api", action="store_true",
+                    help="only drive path 14 (the library API)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -4850,6 +5140,10 @@ def main(argv=None) -> int:
         if args.mesh:
             phase_mesh_path(path12)
             log(f"[phase] path 13 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.api:
+        phase_api_path()
+        log(f"[phase] path 14 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -4917,6 +5211,8 @@ def main(argv=None) -> int:
     del path12
     torch.cuda.empty_cache()  # the paths' graph pools
     log(f"[phase] path 13 done at {time.time() - t_start:.1f} s")
+    api = phase_api_path(main_path["scene"], main_path["frame_p50_ms"])
+    log(f"[phase] path 14 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -4928,6 +5224,8 @@ def main(argv=None) -> int:
         r["launches"] = counts[r["name"]]
         if not r["launches"] > 0:
             raise RuntimeError(f"{r['name']} was launched on no path")
+        if r["name"] in api["launches"]:
+            r["path14_launches"] = api["launches"][r["name"]]
         if r["name"] in PATH1_KERNELS:
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",

@@ -15,6 +15,9 @@ convs (``F.conv2d`` in bf16 with ``_conv_relu_xla``'s rounding points; the
 JAX package leaves this conv to XLA, outside any kernel), the kernel-less
 keypoint selection, and f32 master weights cast to bf16 at each use, all
 differentiable, the keypoint positions included.
+
+``extract_features`` is the JAX package's functional entry point: a
+``SuperPoint`` of the given settings run once on the card (``device``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gisnav_tpu_torch.device import resolve_device, strict_fp32
 from gisnav_tpu_torch.features.conv import conv_stage, stem_stage
 from gisnav_tpu_torch.features.harris import harris_response
 from gisnav_tpu_torch.features.nms import (
@@ -32,7 +36,7 @@ from gisnav_tpu_torch.features.nms import (
 )
 
 __all__ = ["SuperPoint", "SuperPointFeatures", "sample_descriptors",
-           "superpoint_batched"]
+           "superpoint_batched", "extract_features"]
 
 _TRUNK = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
           "conv4a", "conv4b", "convDa", "convDb")
@@ -147,6 +151,26 @@ class SuperPoint(nn.Module):
                 heatmap, self.max_keypoints, self.score_threshold)
         return SuperPointFeatures(kpts, scores,
                                   sample_descriptors(kpts, dmap), valid)
+
+
+def extract_features(params: Dict[str, Dict[str, torch.Tensor]], image, *,
+                     max_keypoints: int = 1024, device=None,
+                     **kwargs) -> SuperPointFeatures:
+    """SuperPoint with ``params`` on one (H, W) image in [0, 1] (or a
+    (B, H, W) batch; a tensor or an array), the JAX package's functional
+    entry point. ``params`` is the port's SuperPoint tree,
+    ``weights.params_from_jax(tree, device)["superpoint"]``; ``kwargs`` go
+    to :class:`SuperPoint` (``score_threshold``, ``select_tiles``,
+    ``detector_mode``).
+
+    Runs on ``device``: ``cuda`` unless the caller passes ``cpu`` (where
+    the kernels' plain versions run); without a card it raises. On the
+    card this is the stem and VGG-stage conv kernels and the fused
+    NMS-select kernel (tiled selection runs without a kernel)."""
+    dev = resolve_device(device)
+    strict_fp32()
+    model = SuperPoint(params, max_keypoints, **kwargs).to(dev)
+    return model(torch.as_tensor(image, device=dev).float())
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 The port's own copy of what the node graph needs from
 ``gisnav_tpu/geometry/quaternion.py``: the Hamilton product, conjugate and
 inverse, rotation of vectors, quaternion <-> matrix (Shepperd's method),
-x-y-z Euler angles and slerp.
+x-y-z Euler angles, slerp, and the compass heading, roll and off-nadir
+angle of an attitude.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import numpy as np
 
 __all__ = ["quat_mul", "quat_conjugate", "quat_inverse", "quat_rotate",
            "quat_to_matrix", "matrix_to_quat", "euler_to_quat",
-           "quat_to_euler", "quat_slerp"]
+           "quat_to_euler", "quat_slerp", "heading_deg_from_quat",
+           "roll_deg_from_quat", "angle_off_nadir"]
 
 
 def quat_mul(q1: np.ndarray, q2: np.ndarray) -> np.ndarray:
@@ -114,3 +116,30 @@ def quat_slerp(q0: np.ndarray, q1: np.ndarray, t: float) -> np.ndarray:
     theta = np.arccos(np.clip(d, -1.0, 1.0))
     return (np.sin((1 - t) * theta) * q0
             + np.sin(t * theta) * q1) / np.sin(theta)
+
+
+def heading_deg_from_quat(q: np.ndarray) -> float:
+    """ENU-frame quaternion -> compass heading in degrees, North = 0, in
+    [0, 360): 90 deg less the ENU yaw (the reference's ``extract_yaw``)."""
+    x, y, z, w = np.asarray(q, dtype=np.float64)
+    enu_yaw_deg = np.degrees(np.arctan2(2 * (w * z + x * y),
+                                        1 - 2 * (y * y + z * z)))
+    return float((90.0 - enu_yaw_deg + 360.0) % 360.0)
+
+
+def roll_deg_from_quat(q: np.ndarray) -> float:
+    """Roll angle in degrees in [0, 360) (the reference's
+    ``extract_roll``)."""
+    x, y, z, w = np.asarray(q, dtype=np.float64)
+    roll_deg = np.degrees(np.arctan2(2 * (w * x + y * z),
+                                     1 - 2 * (x * x + y * y)))
+    return float((roll_deg + 360.0) % 360.0)
+
+
+def angle_off_nadir(q: np.ndarray) -> float:
+    """Angle in radians between the body's forward axis (+x, rotated by
+    ``q``) and straight down (-z of the parent frame)."""
+    fwd = quat_rotate(np.asarray(q, dtype=np.float64),
+                      np.array([1.0, 0.0, 0.0]))
+    cos_theta = -fwd[2] / np.linalg.norm(fwd)
+    return float(np.arccos(np.clip(cos_theta, -1.0, 1.0)))

@@ -21,7 +21,11 @@ package does: the fused forward (``lightglue_fused``) where
 ``fused_lightglue_supported`` holds (both keypoint counts multiples of 512),
 the module route elsewhere. The choice depends on the shapes alone, so a CPU
 tensor takes the route, and through the plain versions the arithmetic, that
-a CUDA tensor of the same shape takes.
+a CUDA tensor of the same shape takes. ``apply_lightglue`` and
+``match_features`` are the JAX package's functional entry points over it:
+the matcher of the last tree called with is kept, so each route's weights
+are laid out once for a tree called over and over, not at every match; a
+caller may pass a ``LightGlueMatcher`` of their own in the tree's place.
 
 Every Dense product of both routes that the JAX package computes outside a
 Pallas kernel goes through ``parallel.tp.product``: on a tree from
@@ -36,11 +40,19 @@ from typing import Any, Dict, NamedTuple
 import torch
 from torch import nn
 
+from gisnav_tpu_torch.device import resolve_device
 from gisnav_tpu_torch.matching.attention import attention_with_grad
-from gisnav_tpu_torch.parallel.tp import Sharded, product, whole
+from gisnav_tpu_torch.parallel.tp import (
+    Sharded,
+    leaves,
+    map_tree,
+    product,
+    whole,
+)
 
 __all__ = ["MatchResult", "normalize_keypoints", "extract_matches",
-           "assignment", "LightGlue", "LightGlueMatcher", "lightglue_forward"]
+           "assignment", "LightGlue", "LightGlueMatcher", "lightglue_forward",
+           "apply_lightglue", "match_features"]
 
 _BF16 = torch.bfloat16
 _LN_EPS = 1e-6
@@ -298,6 +310,8 @@ class LightGlueMatcher(nn.Module):
                  heads: int = 4, dim: int = 256,
                  filter_threshold: float = 0.1):
         super().__init__()
+        self.depth, self.heads, self.dim = depth, heads, dim
+        self.filter_threshold = filter_threshold
         self._params = params
         self._kw = dict(depth=depth, heads=heads, dim=dim,
                         filter_threshold=filter_threshold)
@@ -322,3 +336,105 @@ class LightGlueMatcher(nn.Module):
             self._routes[name] = cls(self._params, **self._kw)
         return self._routes[name](kpts0, desc0, mask0, size0, kpts1, desc1,
                                   mask1, size1)
+
+
+# the matcher of apply_lightglue / match_features: the last tree called
+# with, (key, leaf state, tree, matcher); holding the tree keeps its id its own
+_LAST: list = [None]
+
+
+def _leaf_state(params) -> tuple:
+    """Each leaf's identity and, for a tensor, its version counter, which
+    an in-place operation on the tensor advances. Writes that bypass the
+    counter (through ``.data``, or a CUDA graph's replay writing the leaf)
+    leave it as it was."""
+    return tuple((id(t), t._version) if isinstance(t, torch.Tensor)
+                 else id(t) for t in leaves(params))
+
+
+def _matcher_for(params, device: torch.device, depth: int, heads: int,
+                 dim: int, filter_threshold: float) -> LightGlueMatcher:
+    """``params`` itself where it is a :class:`LightGlueMatcher` of this
+    configuration; else the matcher of the tree (carried to ``device``),
+    built at its first use and kept while the same tree is called with in
+    the same configuration on the same device and :func:`_leaf_state`
+    holds. One tree is kept: a caller who switches between trees, or writes
+    their leaves past the version counter, holds a matcher of their own."""
+    config = (depth, heads, dim, float(filter_threshold))
+    if isinstance(params, LightGlueMatcher):
+        held = (params.depth, params.heads, params.dim,
+                float(params.filter_threshold))
+        if held != config:
+            raise ValueError(f"the matcher's (depth, heads, dim, threshold) "
+                             f"{held} is not the call's {config}")
+        return params
+    key = (id(params), device, config)
+    state = _leaf_state(params)
+    last = _LAST[0]
+    if last is None or last[0] != key or last[1] != state:
+        on_device = map_tree(lambda t: t.to(device) if isinstance(
+            t, torch.Tensor) else t, params)
+        last = (key, state, params, LightGlueMatcher(
+            on_device, depth=depth, heads=heads, dim=dim,
+            filter_threshold=filter_threshold))
+        _LAST[0] = last
+    return last[3]
+
+
+def apply_lightglue(model, params, kpts0, desc0, mask0, size0, kpts1,
+                    desc1, mask1, size1) -> MatchResult:
+    """Match two fixed-size keypoint sets by the route the JAX package's
+    ``apply_lightglue`` takes on an accelerator: the fused forward (the
+    block kernel on the card) where ``fused_lightglue_supported`` holds for
+    the two set sizes, the module route (the masked attention kernel)
+    elsewhere.
+
+    ``model`` gives the configuration only (``depth``, ``heads``, ``dim``,
+    ``filter_threshold``: a :class:`LightGlue`, a :class:`LightGlueMatcher`
+    or the fused ``LightGlue``), as the flax module does in the JAX
+    package; ``params`` is the port's LightGlue tree
+    (``weights.params_from_jax(tree, device)["lightglue"]``) or a
+    :class:`LightGlueMatcher` of that configuration. It runs on the
+    keypoints' device.
+
+    The matcher of a tree is kept for the next call with the same tree,
+    configuration and device, and built anew when a leaf is replaced or an
+    in-place operation advances its version counter. A write that bypasses
+    the counter (through ``.data``, or a CUDA graph's replay writing the
+    leaves) is not seen and the fused route keeps the old weights: after
+    one, pass a ``LightGlueMatcher`` built on the updated tree."""
+    matcher = _matcher_for(params, kpts0.device, model.depth, model.heads,
+                           model.dim, model.filter_threshold)
+    return matcher(kpts0, desc0, mask0, size0, kpts1, desc1, mask1, size1)
+
+
+def match_features(params, feats0, size0, feats1, size1, *,
+                   input_dim: int = 256, depth: int = 9,
+                   filter_threshold: float = 0.1,
+                   device=None) -> MatchResult:
+    """Match two ``SuperPointFeatures``-like sets (``keypoints``,
+    ``descriptors``, ``mask``; tensors or arrays), the JAX package's
+    functional entry point: :func:`apply_lightglue` with a LightGlue of
+    ``depth`` layers, 4 heads and width 256. ``size0`` / ``size1`` are the
+    images' (height, width); ``params`` is the port's LightGlue tree, whose
+    input projection must take ``input_dim`` descriptors, or a
+    :class:`LightGlueMatcher` of that configuration on ``device`` (which
+    matcher is kept, and when it is built anew, is
+    :func:`apply_lightglue`'s).
+
+    Runs on ``device``: ``cuda`` unless the caller passes ``cpu`` (where
+    the kernels' plain versions run); without a card it raises."""
+    dev = resolve_device(device)
+    tree = params._params if isinstance(params, LightGlueMatcher) else params
+    w = tree["input_proj"]["weight"]  # (out, in), or sharded on out
+    width = (w.shards[0] if isinstance(w, Sharded) else w).shape[-1]
+    if width != input_dim:
+        raise ValueError(f"the tree's input projection takes {width}-dim "
+                         f"descriptors, not input_dim={input_dim}")
+
+    def on(feats):
+        return [torch.as_tensor(getattr(feats, f), device=dev)
+                for f in ("keypoints", "descriptors", "mask")]
+
+    matcher = _matcher_for(params, dev, depth, 4, 256, filter_threshold)
+    return matcher(*on(feats0), size0, *on(feats1), size1)

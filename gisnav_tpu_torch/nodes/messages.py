@@ -7,6 +7,7 @@ so messages map 1:1 onto ROS types.
 """
 from __future__ import annotations
 
+import time
 from typing import TypedDict
 
 import numpy as np
@@ -22,6 +23,7 @@ __all__ = [
     "OrthoImageMsg",
     "PoseMsg",
     "OdometryMsg",
+    "stamp_us_now",
 ]
 
 
@@ -97,3 +99,8 @@ class OdometryMsg(TypedDict):
     angular_velocity_body: np.ndarray  # (3,)
     twist_covariance: np.ndarray  # (6, 6)
 
+
+def stamp_us_now() -> int:
+    """The current wall-clock time in integer microseconds, the stamp unit
+    of every message."""
+    return int(time.time() * 1e6)

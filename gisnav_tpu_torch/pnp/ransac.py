@@ -18,6 +18,9 @@ outside the graph, into a static buffer) and the selection that runs inside
 it, the solves and the inverse do not check their ``info`` on the host
 (``valid`` carries finiteness), and the best hypothesis is picked by an
 index tensor, not read back as a number.
+
+``project_points`` is the pinhole projection ``K (R X + t)`` in f32, its
+3x3 products written as multiply-adds so that no TF32 matmul rounds them.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["PnPResult", "ransac_pnp", "draw_samples", "draw_noise"]
+__all__ = ["PnPResult", "ransac_pnp", "project_points", "draw_samples",
+           "draw_noise"]
 
 
 class PnPResult(NamedTuple):
@@ -34,6 +38,20 @@ class PnPResult(NamedTuple):
     inliers: torch.Tensor  # (N,) bool
     num_inliers: torch.Tensor  # () int
     valid: torch.Tensor  # () bool
+
+
+def _rows_times(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x @ m.T`` of (N, 3) rows and a 3x3 ``m`` as multiply-adds."""
+    return x[:, 0:1] * m[:, 0] + x[:, 1:2] * m[:, 1] + x[:, 2:3] * m[:, 2]
+
+
+def project_points(pts3d: torch.Tensor, r: torch.Tensor, t: torch.Tensor,
+                   k: torch.Tensor) -> torch.Tensor:
+    """Pinhole projection ``K (R X + t)`` of (N, 3) points -> (N, 2) pixel
+    coordinates, f32 on the tensors' device."""
+    pc = _rows_times(r.float(), pts3d.float()) + t.float()
+    pc = _rows_times(k.float(), pc)
+    return pc[:, :2] / torch.clamp(pc[:, 2:3], min=1e-9)
 
 
 def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@ from gisnav_tpu_torch.raster.shear import (  # noqa: F401
 from gisnav_tpu_torch.raster.warp import (  # noqa: F401
     compose_crs_after_warp,
     rotate_and_crop_center,
+    rotation_about_center,
     warp_affine,
 )
 

@@ -1,8 +1,8 @@
 """Fused rotate + optional GSD-zoom + centre crop of a raster stack
 (bilinear gather).
 
-Counterpart of ``gisnav_tpu/raster/warp.py`` (``warp_affine``,
-``rotate_and_crop_center``, ``compose_crs_after_warp``,
+Counterpart of ``gisnav_tpu/raster/warp.py`` (``rotation_about_center``,
+``warp_affine``, ``rotate_and_crop_center``, ``compose_crs_after_warp``,
 ``_bilinear_gather``). ``raster.rotate_and_crop_auto`` picks between this
 gather warp and the 3-shear rotation (``raster.shear``). All f32; the caller
 keeps TF32 off (``device.strict_fp32``).
@@ -16,8 +16,20 @@ import torch
 
 from gisnav_tpu_torch.device import scalar_f32
 
-__all__ = ["warp_affine", "rotate_and_crop_center", "bilinear_gather",
-           "crop_to_original", "compose_crs_after_warp"]
+__all__ = ["rotation_about_center", "warp_affine", "rotate_and_crop_center",
+           "bilinear_gather", "crop_to_original", "compose_crs_after_warp"]
+
+
+def rotation_about_center(h: int, w: int, angle_deg: float) -> np.ndarray:
+    """2x3 f64 affine mapping ORIGINAL pixel coords to ROTATED ones for an
+    (h, w) image rotated by ``angle_deg`` CCW about its integer centre
+    ``(w // 2, h // 2)`` (``cv2.getRotationMatrix2D`` at scale 1)."""
+    cx, cy = w // 2, h // 2
+    a = np.radians(angle_deg)
+    c, s = np.cos(a), np.sin(a)
+    # CCW content rotation in the y-down pixel frame: [[c, s], [-s, c]]
+    return np.array([[c, s, (1.0 - c) * cx - s * cy],
+                     [-s, c, s * cx + (1.0 - c) * cy]])
 
 
 def bilinear_gather(src: torch.Tensor, xs: torch.Tensor,

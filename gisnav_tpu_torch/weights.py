@@ -18,15 +18,17 @@ port's tensors:
 - LoFTR is f32 throughout: its 3x3 conv kernels become f32 OIHW for
   ``F.conv2d``, its Dense and LayerNorm leaves as above.
 
-``params_from_jax(..., master=True)`` keeps every leaf f32 for training;
-``params_to_jax`` turns the port's tree back into the JAX layout and
-``save_npz`` writes it in the bundles' format.
+``load_pretrained(path=None)`` is the JAX package's loader: the bundle at
+``path`` (default ``PRETRAINED_PATH``, ``harris_lg5``) as that JAX-layout
+tree. ``params_from_jax(..., master=True)`` keeps every leaf f32 for
+training; ``params_to_jax`` turns the port's tree back into the JAX layout
+and ``save_npz`` writes it in the bundles' format.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +41,9 @@ from gisnav_tpu_torch.pipeline.runners import (
 )
 
 __all__ = ["WEIGHTS_DIR", "PRETRAINED_PATH", "LEARNED_LG9_PATH",
-           "LOFTR_PATH", "load_npz", "save_npz", "params_from_jax",
-           "params_to_jax", "infer_config_from_params", "load_bundled"]
+           "LOFTR_PATH", "load_npz", "load_pretrained", "save_npz",
+           "params_from_jax", "params_to_jax", "infer_config_from_params",
+           "load_bundled"]
 
 WEIGHTS_DIR = os.environ.get(
     "GISNAV_TPU_WEIGHTS_DIR",
@@ -63,6 +66,20 @@ def load_npz(path: str) -> Dict[str, Any]:
             node[parts[-1]] = (np.asarray(value, np.float32)
                                if value.dtype.kind == "f" else value)
     return tree
+
+
+def load_pretrained(path: Optional[str] = None) -> Dict[str, Any]:
+    """The bundle at ``path`` (default ``PRETRAINED_PATH``) as its
+    JAX-layout numpy tree, as the JAX package's ``load_pretrained`` returns
+    it; ``params_from_jax(tree, device)`` carries it to the card. Raises
+    ``FileNotFoundError`` when there is no such file."""
+    path = path or PRETRAINED_PATH
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no bundled weights at {path}; train with "
+            "'python -m gisnav_tpu_torch train' or convert public "
+            "checkpoints (features/convert.py, matching/convert.py)")
+    return load_npz(path)
 
 
 def _inner(tree):
@@ -259,6 +276,4 @@ def load_bundled(name: str = "harris_lg5"
     if name not in bundles:
         raise ValueError(f"unknown bundled weights {name!r}")
     path, config = bundles[name]
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no bundled weights at {path}")
-    return load_npz(path), config
+    return load_pretrained(path), config
