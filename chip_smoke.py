@@ -13,6 +13,7 @@
     python3 chip_smoke.py --mesh     # build + paths 12 and 13 (the mesh)
     python3 chip_smoke.py --jpeg     # build + the image codecs phase only
     python3 chip_smoke.py --api      # build + path 14 (the library API) only
+    python3 chip_smoke.py --demo     # build + path 15 (the demo maps) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -200,9 +201,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    inlier reprojected within the RANSAC threshold; the eager p50 ms of
    each call beside the runner's graphed frame and path 1's, with the
    card's name and power limit;
-18. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+18. path 15: the demo world. (a) ``tools/make_demo_geotiff_torch.py`` at
+   its defaults (4096-px imagery, a 1024-px DEM of 12 m relief) as a
+   process, its host seconds, and both GeoTIFFs read back: each array's
+   sha256 must equal the JAX tool's (``DEMO_DIGESTS``, held on the CPU by
+   ``tests/test_torch_demo_world.py``; this machine has no OpenCV); (b)
+   ``gis-serve --maps`` on them as a process, and the GIS node's GetMap of
+   the first step's map (2208 px, the default format: JPEG) timed, p50 /
+   p90; (c) the graph ``run`` builds from its defaults (deep, learned_lg9,
+   warp-bucketed, uorb, the threaded bus) with a ``--params`` file that
+   points the GIS node at ``gis-serve`` and sets the main path's 1088x1920
+   frames and 2048 keypoints, flown 24 steps of 30 m at 500 m above the
+   DEM through the extent's centre (path 8's heading across a bucket
+   edge), a frame every 0.5 s, rendered over the DEM's relief with the
+   east and north metres of a demo pixel each (``utils/world_wms.py``
+   ``GeoWorld``):
+   at least 12 ``SensorGps`` fixes, every one within 10 m of its step's
+   truth horizontally and vertically, at least 2 maps, every step's K1-K4
+   launches a frame's or a bucket refresh's; printed: frame-to-fix p50 /
+   p90, the bucket refreshes, the largest and median fix error, and what
+   the relief alone does to a PnP fix at that altitude (exact
+   correspondences, with and without the heights);
+19. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-19. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+20. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -301,6 +323,32 @@ API_REPS = 10  # eager library calls timed for each p50
 API_MODULE_AGREE = 0.99
 API_DEVICE = "cuda"  # path 14's device; a CPU rehearsal sets "cpu"
 MAP = 2048  # side of the cached mode's map
+# path 15: the demo maps of tools/make_demo_geotiff_torch.py at its
+# defaults (4096-px imagery and a 1024-px DEM of 12 m relief over 0.04 deg
+# near KSQL), each array's sha256 that of the JAX tool's (uint8, and
+# little-endian float32; tests/test_torch_demo_world.py holds them), served
+# by gis-serve; run's graph at the main path's width flies 24 steps of 30 m
+# at 500 m above the DEM through the extent's centre
+DEMO_DIGESTS = {  # layer: (file, dtype, sha256 of the array)
+    "imagery": ("demo_imagery.tif", np.uint8,
+                "9a7ae3220c76114ef7d25305b6bd7dcf"
+                "d1c82bf410d260a6350c775fd2fa94e9"),
+    "dem": ("demo_dem.tif", np.float32,
+            "d94a8c2ca38e97e33b22ac82e0b25c5a"
+            "122811b8dab88d00dc7ab629f2ece71c")}
+DEMO_H, DEMO_W, DEMO_KP = H, W, MAX_KP
+DEMO_K = np.array([[1200.0, 0.0, 960.0], [0.0, 1200.0, 544.0],
+                   [0.0, 0.0, 1.0]])  # f = 400 px at 640 px, as run's camera
+DEMO_STEPS, DEMO_STEP_M, DEMO_AGL_M = 24, 30.0, 500.0
+# wall time from a frame to the next (its stamp is a second later; the graph
+# runs no timer): room for the twist node's SIFT and the fusion behind it,
+# so no frame queues behind the next one's work on the device lock
+DEMO_PERIOD_S = 0.5
+DEMO_MIN_FIXES = 12  # of 24 steps: the mock GPS warms up on 10 odometries
+DEMO_GETMAPS = 10
+DEMO_TOOL_DEADLINE_S = 120.0
+DEMO_FRAME_DEADLINE_S = (120.0, 30.0)  # the first step (captures), others
+DEMO_DEVICE = "cuda"  # path 15's device; a CPU rehearsal sets "cpu"
 STEM_RAGGED = (100, 132)  # even, no multiple of the kernel's 8x16 tile
 CACHED_FRAMES = 64  # timing window of frames that hit the bucket cache
 # path 12: camera feeds a tick, each with its own yaw, and the ticks timed
@@ -419,7 +467,7 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "library_device_ms", "rotation_ms", "rotation_device_ms",
               "path4_launches", "path6_launches", "path8_launches",
               "path9_launches", "path11_launches", "path13_launches",
-              "path14_launches", "backward_ms",
+              "path14_launches", "path15_launches", "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
               "grad_cpu_rel_err", "fwd_bwd_device_ms",
@@ -5079,6 +5127,337 @@ def phase_api_path(scene=None, path1_frame_p50_ms=None) -> dict:
     return out
 
 
+def demo_render(maps: str) -> dict:
+    """Path 15 (a): ``tools/make_demo_geotiff_torch.py`` at its defaults
+    into ``maps``, as a process; both GeoTIFFs read back, each array's
+    sha256 held to the JAX tool's (``DEMO_DIGESTS``)."""
+    from gisnav_tpu_torch.gis.geotiff import read_geotiff
+
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "make_demo_geotiff_torch.py")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, tool, "--out", maps],
+                          capture_output=True, text=True,
+                          timeout=DEMO_TOOL_DEADLINE_S)
+    out = {"tool_s": time.perf_counter() - t0}
+    if proc.returncode != 0:
+        raise RuntimeError(f"demo: the tool exited {proc.returncode}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    for layer, (name, dtype, want) in DEMO_DIGESTS.items():
+        raster, _ = read_geotiff(os.path.join(maps, layer, name))
+        got = hashlib.sha256(np.ascontiguousarray(
+            raster, np.dtype(dtype).newbyteorder("<")).tobytes()).hexdigest()
+        out[layer] = {"shape": list(raster.shape), "dtype": str(raster.dtype),
+                      "sha256": got}
+        if raster.dtype != dtype or got != want:
+            raise RuntimeError(f"demo: {layer} {out[layer]} is not the JAX "
+                               f"tool's ({want})")
+    log(f"[demo] tool {out['tool_s']:.2f} s host; digests equal the JAX "
+        f"tool's: {json.dumps(out)}")
+    return out
+
+
+def demo_track(world) -> list:
+    """Path 15's steps: (lon, lat, altitude, yaw), ``DEMO_STEPS`` steps of
+    ``DEMO_STEP_M`` eastward through the extent's centre at ``DEMO_AGL_M``
+    above the DEM under the camera, the heading of path 8's track (22.5
+    +- 1.5 deg, across a 15-deg bucket edge)."""
+    from gisnav_tpu_torch.utils.world_wms import east_of
+
+    lon0, lat0 = world.to_lonlat(world.raster.shape[1] / 2 - 0.5,
+                                 world.raster.shape[0] / 2 - 0.5)
+    lon0, lat0 = float(lon0), float(lat0)
+    half = DEMO_STEP_M * (DEMO_STEPS - 1) / 2
+    track = []
+    for i in range(DEMO_STEPS):
+        lon = east_of(lon0, lat0, DEMO_STEP_M * i - half)
+        track.append((lon, lat0, float(world.height_at(lon, lat0))
+                      + DEMO_AGL_M, 22.5 + 1.5 * (-1) ** i))
+    return track
+
+
+def demo_getmap(world, url: str, track: list) -> dict:
+    """Path 15 (b): the GIS node's GetMap of the first step's map (its
+    bbox, the 2208-px side of a 1088x1920 camera, the default format)
+    from ``gis-serve``, ``DEMO_GETMAPS`` times: the reply must be JPEG of
+    that size; host ms p50 / p90."""
+    from gisnav_tpu_torch.geometry.bbox import fov_bounding_box_enu
+    from gisnav_tpu_torch.geometry.quaternion import quat_to_matrix
+    from gisnav_tpu_torch.gis.jpeg import decode_image
+    from gisnav_tpu_torch.gis.wms import (
+        DEFAULT_FORMAT,
+        WMSClient,
+        orthoimage_size_for_camera,
+    )
+    from gisnav_tpu_torch.utils.world_wms import camera_attitude_quat
+
+    lon, lat, alt, yaw = track[0]
+    ground = float(np.mean(world.dem))
+    bbox = fov_bounding_box_enu(DEMO_K, DEMO_W, DEMO_H,
+                                quat_to_matrix(camera_attitude_quat(yaw)),
+                                alt - ground, lon, lat)
+    side = orthoimage_size_for_camera(DEMO_W, DEMO_H)
+    client = WMSClient(f"{url}/wms")
+    query = {"service": "WMS", "request": "GetMap", "version": "1.1.1",
+             "layers": "imagery", "styles": "", "srs": "EPSG:4326",
+             "bbox": f"{bbox.left},{bbox.bottom},{bbox.right},{bbox.top}",
+             "width": str(side[1]), "height": str(side[0]),
+             "format": DEFAULT_FORMAT}
+    ms = []
+    for _ in range(DEMO_GETMAPS):
+        t0 = time.perf_counter()
+        ctype, body = client._get(query)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    img = decode_image(body)
+    out = {"format": DEFAULT_FORMAT, "content_type": ctype,
+           "bytes": len(body), "side": side[0],
+           "shape": None if img is None else list(img.shape),
+           "grey_std": None if img is None else float(img.std()),
+           **_pcts(ms)}
+    log(f"[demo] gis-serve GetMap of the demo imagery: {json.dumps(out)}")
+    if ctype != "image/jpeg" or out["shape"] != list(side) \
+            or not out["grey_std"] > 10.0:
+        raise RuntimeError(f"demo: gis-serve's GetMap {out}")
+    return out
+
+
+def demo_relief_error(world, track: list) -> dict:
+    """What the DEM's relief alone does to a fix at ``DEMO_AGL_M``: PnP
+    (``pnp.ransac_pnp``, on the host) on exact correspondences of a grid of
+    frame pixels and the points where their rays meet the relief, once
+    with each point at its own height and once flat at the DEM's mean
+    height; the camera centre's horizontal distance from the truth, the
+    largest and median over the steps."""
+    from gisnav_tpu_torch.pnp.ransac import ransac_pnp
+
+    mean_h = float(np.mean(world.dem))
+    vv, uu = np.mgrid[0:DEMO_H:64, 0:DEMO_W:64].astype(np.float64) + 0.5
+    pix = np.stack([uu.ravel(), vv.ravel()])
+    moves: dict = {"relief": [], "flat": []}
+    for lon, lat, alt, yaw in track:
+        metres, h = world.ground_of(lon, lat, alt, yaw, DEMO_K, pix)
+        for name, z in (("relief", -h), ("flat", np.full_like(h, -mean_h))):
+            pnp = ransac_pnp(torch.tensor(np.c_[metres.T, z]),
+                             torch.tensor(pix.T), torch.tensor(DEMO_K),
+                             generator=torch.Generator().manual_seed(0))
+            rr, t = pnp.r.double().numpy(), pnp.t.double().numpy()
+            moves[name].append(float(np.hypot(*(-rr.T @ t)[:2])))
+    out = {f"{n}_{k}_m": float(f(v)) for n, v in moves.items()
+           for k, f in (("max", np.max), ("median", np.median))}
+    log(f"[demo] PnP on exact correspondences at {DEMO_AGL_M:g} m AGL, "
+        f"the camera centre's horizontal miss: {json.dumps(out)}")
+    return out
+
+
+def demo_flight(world, url: str, root: str, track: list, renders: list,
+                t_render: float) -> dict:
+    """Path 15 (c): the graph ``python -m gisnav_tpu_torch run`` builds
+    from its defaults (deep, learned_lg9, warp-bucketed, uorb; the threaded
+    bus), with a ``--params`` file as a user writes it: ``gis-serve``'s
+    WMS, the main path's 1088x1920 frames and 2048 keypoints, the ground
+    at the DEM's mean height and path 8's refresh threshold. It flies
+    :func:`demo_track` over frames rendered from the demo maps over the
+    DEM's relief (``renders``, futures started at ``t_render`` that run
+    while the graph is built), a step a second of stamps and
+    ``DEMO_PERIOD_S`` of wall time at least; each step waits for the pose
+    and twist nodes to have handled its frame. Gates: at least
+    ``DEMO_MIN_FIXES`` ``SensorGps`` fixes (the mock GPS warms up on 10),
+    every one within 10 m of its step's truth horizontally and vertically,
+    at least 2 maps, and every step's K1-K4 launches a frame's or a bucket
+    refresh's."""
+    from gisnav_tpu_torch.cli import build_app, build_parser
+    from gisnav_tpu_torch.constants import (
+        ROS_TOPIC_CAMERA_INFO,
+        ROS_TOPIC_MAVROS_GIMBAL_DEVICE_ATTITUDE_STATUS,
+        ROS_TOPIC_MAVROS_GLOBAL_POSITION,
+    )
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.nodes.gis_node import TOPIC_ORTHOIMAGE
+    from gisnav_tpu_torch.nodes.mock_gps import TOPIC_SENSOR_GPS
+    from gisnav_tpu_torch.nodes.pose_node import TOPIC_POSE
+    from gisnav_tpu_torch.utils.world_wms import camera_attitude_quat
+
+    ground = float(np.mean(world.dem))
+    params = {"gis_node": {"wms_url": f"{url}/wms",
+                           "wms_layers": ["imagery"],
+                           "wms_dem_layers": ["dem"],
+                           "min_map_overlap_update_threshold":
+                               GRAPH_OVERLAP},
+              "pose_node": {"image_shape": [DEMO_H, DEMO_W],
+                            "max_keypoints": DEMO_KP,
+                            "ground_altitude_m": ground},
+              "twist_node": {"ground_altitude_m": ground},
+              "bbox_node": {"ground_altitude_m": ground}}
+    path = os.path.join(root, "demo_params.json")
+    with open(path, "w") as f:
+        json.dump(params, f)
+    t0 = time.perf_counter()
+    app = build_app(build_parser().parse_args(
+        ["run", "--params", path, "--device", DEMO_DEVICE]))
+    build_s = time.perf_counter() - t0
+    cfg = app.pose._config
+    if not (app.bus._async and app.pose._deep_runner is not None
+            and cfg.lightglue_depth == 9 and cfg.detector_mode == "learned"
+            and cfg.image_shape == (DEMO_H, DEMO_W)
+            and cfg.max_keypoints == DEMO_KP):
+        raise RuntimeError(f"demo: not run's graph at the main path's "
+                           f"width ({cfg})")
+    frames = [f.result() for f in renders]
+    render_s = time.perf_counter() - t_render
+    log(f"[demo] run's graph built in {build_s:.2f} s; {len(frames)} "
+        f"frames rendered over the relief by {render_s:.2f} s after the "
+        "world was read")
+    runner = app.pose._deep_runner
+    fixes, arrivals, published, truth, maps = [], {}, {}, {}, []
+
+    def on_fix(msg):  # on the mock-GPS node's worker thread
+        arrivals[msg["timestamp_sample"]] = time.perf_counter()
+        fixes.append(msg)
+
+    def handled(node) -> int:
+        return node.timing_stats().get("_image_cb", {}).get("calls", 0)
+
+    poses: list = []
+    app.bus.subscribe(TOPIC_SENSOR_GPS, on_fix)
+    app.bus.subscribe(TOPIC_ORTHOIMAGE, lambda m: maps.append(m["stamp_us"]))
+    app.bus.subscribe(TOPIC_POSE, poses.append)
+    app.bus.publish(ROS_TOPIC_CAMERA_INFO,
+                    {"k": DEMO_K, "width": DEMO_W, "height": DEMO_H})
+    lon, lat, alt, yaw = track[0]  # the graph fetches its first map
+    app.bus.publish(ROS_TOPIC_MAVROS_GLOBAL_POSITION,
+                    {"stamp_us": 500_000, "lat": lat, "lon": lon,
+                     "alt_ellipsoid": alt})
+    app.bus.publish(ROS_TOPIC_MAVROS_GIMBAL_DEVICE_ATTITUDE_STATUS,
+                    {"stamp_us": 500_000,
+                     "quat_xyzw": camera_attitude_quat(yaw)})
+    deadline = time.monotonic() + DEMO_FRAME_DEADLINE_S[1]
+    while app.pose._ortho is None:
+        app.gis.tick()
+        if time.monotonic() > deadline:
+            raise RuntimeError("demo: no map reached the pose node")
+        time.sleep(0.05)
+    reset_launches()
+    ran0, per_step = runner.stats["frames"], []
+    try:
+        for i, ((lon, lat, alt, yaw), frame) in enumerate(zip(track,
+                                                              frames)):
+            stamp = 1_000_000 * (i + 1)
+            truth[stamp] = (lon, lat, alt)
+            before = dict(LAUNCHES)
+            published[stamp] = _publish_step(app.bus, stamp, lon, lat, alt,
+                                             yaw, frame, app.gis)
+            deadline = time.monotonic() + DEMO_FRAME_DEADLINE_S[i > 0]
+            while min(handled(app.pose), handled(app.twist)) < i + 1:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"demo: step {i} not handled in "
+                                       f"{DEMO_FRAME_DEADLINE_S[i > 0]} s")
+                time.sleep(0.002)
+            per_step.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+            time.sleep(max(0.0, published[stamp] + DEMO_PERIOD_S
+                           - time.perf_counter()))
+        t_quiet = time.monotonic()
+        seen = len(fixes)
+        while time.monotonic() - t_quiet < DEPLOY_QUIET_S:
+            time.sleep(0.05)
+            if len(fixes) != seen:
+                seen, t_quiet = len(fixes), time.monotonic()
+    finally:
+        stats = app.shutdown()
+    ran = runner.stats["frames"] - ran0
+    launches = dict(LAUNCHES)
+    frame = {k: GRAPH_FRAME.get(k, 0) for k in launches}
+    refresh = {k: GRAPH_REFRESH.get(k, 0) for k in launches}
+    refreshes = sum(n == refresh for n in per_step)
+    odd = [(i, n) for i, n in enumerate(per_step)
+           if n not in (frame, refresh)]
+    if odd or ran != DEMO_STEPS:
+        raise RuntimeError(f"demo: {ran} frames ran; steps launching "
+                           f"neither a frame's nor a refresh's kernels: "
+                           f"{odd}")
+    expect_launches("demo", launches, {
+        k: ran * frame[k] + refreshes * (refresh[k] - frame[k])
+        for k in PATH1_KERNELS})
+    unknown = [f["timestamp_sample"] for f in fixes
+               if f["timestamp_sample"] not in truth]
+    if unknown:
+        raise RuntimeError(f"demo: fixes stamped off the steps: {unknown}")
+    errors = [_fix_errors(f, *truth[f["timestamp_sample"]]) for f in fixes]
+    horiz = [e[0] for e in errors]
+    out = {"steps": DEMO_STEPS, "frames_ran": ran, "fixes": len(fixes),
+           "maps": len(set(maps)), "bucket_refreshes": int(refreshes),
+           "max_horiz_m": max(horiz, default=None),
+           "median_horiz_m": float(np.median(horiz)) if horiz else None,
+           "max_vert_m": max((e[1] for e in errors), default=None),
+           "frame_to_fix": _pcts(_latencies(published, arrivals)),
+           "launches": launches, "dropped": app.bus.dropped,
+           "render_s": render_s, "build_s": build_s,
+           "handlers": {n: {h: {k: v[k] for k in ("calls", "p50_ms",
+                                                   "p90_ms")}
+                            for h, v in stats[n].items()}
+                        for n in ("pose_node", "twist_node")}}
+    out["pose_fixes"] = len(poses)
+    kind = {1_000_000 * (i + 1): "refresh" if n == refresh else "frame"
+            for i, n in enumerate(per_step)}
+    pose_errors = [(p["stamp_us"], kind[p["stamp_us"]], *(
+        round(e, 2) for e in _fix_errors(
+            {"lat": p["lat"] * 1e7, "lon": p["lon"] * 1e7,
+             "alt_ellipsoid": p["alt_ellipsoid"] * 1e3},
+            *truth[p["stamp_us"]]))) for p in poses]
+    out["max_pose_horiz_m"] = max((e[2] for e in pose_errors), default=None)
+    log("[demo] pose node fixes (stamp, step, m, m): " + str(pose_errors))
+    log("[demo] SensorGps fixes (stamp, m, m): " + str(
+        [(f["timestamp_sample"], round(h, 2), round(v, 2))
+         for f, (h, v) in zip(fixes, errors)]))
+    ftf = out["frame_to_fix"]
+    log(f"[demo] frame-to-fix p50 {ftf['p50_ms']} / p90 {ftf['p90_ms']} "
+        f"ms; {refreshes} bucket refreshes over {out['maps']} maps; fix "
+        f"error max {out['max_horiz_m']} m, median {out['median_horiz_m']} "
+        f"m (vertical max {out['max_vert_m']} m); launches {launches}")
+    far = [e for e in errors if not (e[0] < 10.0 and e[1] < 10.0)]
+    if len(fixes) < DEMO_MIN_FIXES or far or out["maps"] < 2:
+        raise RuntimeError(f"demo: {len(fixes)} fixes, {len(far)} over 10 "
+                           f"m, {out['maps']} maps")
+    return out
+
+
+def phase_demo_path() -> dict:
+    """Path 15: the demo world made by the port's tool (a), served by
+    ``gis-serve`` as a process (b), and run's graph flown over it at the
+    main path's width (c). The server is stopped before it returns."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gisnav_tpu_torch.utils.world_wms import GeoWorld
+
+    with tempfile.TemporaryDirectory() as root, \
+            ThreadPoolExecutor(4) as pool:
+        maps = os.path.join(root, "maps")
+        out = {"render": demo_render(maps)}
+        world = GeoWorld.read(maps)
+        port = _free_port()
+        gis = _Proc("gis_serve_demo", ["gis-serve", "--maps", maps,
+                                       "--host", "127.0.0.1", "--port",
+                                       str(port)], root)
+        try:
+            track = demo_track(world)
+            t_render = time.perf_counter()
+            renders = [pool.submit(world.render_frame, lon, lat, alt, yaw,
+                                   DEMO_K, (DEMO_H, DEMO_W))
+                       for lon, lat, alt, yaw in track]
+            out["relief"] = demo_relief_error(world, track)
+            gis.wait_for("GIS server on")
+            url = f"http://127.0.0.1:{port}"
+            out["getmap"] = demo_getmap(world, url, track)
+            out["flight"] = demo_flight(world, url, root, track, renders,
+                                        t_render)
+            gis.stop()
+        finally:
+            gis.kill()
+    out["card"] = card_label()
+    log("[demo] " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5113,6 +5492,9 @@ def main(argv=None) -> int:
                          "card there is)")
     ap.add_argument("--api", action="store_true",
                     help="only drive path 14 (the library API)")
+    ap.add_argument("--demo", action="store_true",
+                    help="only drive path 15 (the demo maps, gis-serve and "
+                         "run's graph at full width over them)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -5144,6 +5526,10 @@ def main(argv=None) -> int:
     if args.api:
         phase_api_path()
         log(f"[phase] path 14 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.demo:
+        phase_demo_path()
+        log(f"[phase] path 15 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -5213,6 +5599,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 13 done at {time.time() - t_start:.1f} s")
     api = phase_api_path(main_path["scene"], main_path["frame_p50_ms"])
     log(f"[phase] path 14 done at {time.time() - t_start:.1f} s")
+    demo = phase_demo_path()
+    log(f"[phase] path 15 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -5227,6 +5615,7 @@ def main(argv=None) -> int:
         if r["name"] in api["launches"]:
             r["path14_launches"] = api["launches"][r["name"]]
         if r["name"] in PATH1_KERNELS:
+            r["path15_launches"] = demo["flight"]["launches"][r["name"]]
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))

@@ -394,7 +394,7 @@ def _cmd_gis_serve(args) -> int:
     if args.maps:
         if not os.path.isdir(args.maps):
             print(f"maps dir {args.maps!r} not found — generate one with "
-                  "tools/make_demo_geotiff.py", file=sys.stderr)
+                  "tools/make_demo_geotiff_torch.py", file=sys.stderr)
             return 2
         layers = load_layers_from_dir(args.maps)
         if not layers:

@@ -8,17 +8,29 @@ the absolute map-frame pose plus differential VO, the local EKF fuses VO
 only and yields the smooth ``gisnav_odom``-frame odometry that drives the
 mock-GPS outputs (only odom-frame odometry may drive GPS output: global
 jumps would corrupt velocity, ``_mock_gps_node.py:345-375``).
+
+Written departure: a pose older than the newest VO pose (on the threaded
+bus the pose and VO streams reach this node on two workers, so a frame's
+pose can come after the next frame's VO) is carried along the VO odometry
+from its frame's VO pose to the newest one and fused at that stamp, or
+dropped without its frame's VO pose. The JAX node drops it in the global
+filter yet anchors ``map -> odom`` at its stamp with the newer states,
+which put fixes of a moving camera a step (30 m) off, and all of them
+hundreds of metres off when every pose lags. In order, as on the
+synchronous bus, nothing changes.
 """
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
 
 from gisnav_tpu_torch.constants import ROS_TOPIC_ROBOT_LOCALIZATION_ODOMETRY
 from gisnav_tpu_torch.fusion.filter import PoseFusionFilter, SensorConfig
-from gisnav_tpu_torch.geometry.quaternion import quat_to_matrix
+from gisnav_tpu_torch.geometry.quaternion import matrix_to_quat, quat_to_matrix
 from gisnav_tpu_torch.geometry.se3 import invert, make_transform
 from gisnav_tpu_torch.nodes.base import Node
 from gisnav_tpu_torch.nodes.pose_node import TOPIC_POSE
@@ -27,6 +39,7 @@ from gisnav_tpu_torch.nodes.twist_node import TOPIC_TWIST_POSE
 __all__ = ["FusionNode", "TOPIC_ODOMETRY"]
 
 TOPIC_ODOMETRY = ROS_TOPIC_ROBOT_LOCALIZATION_ODOMETRY
+_VO_HISTORY = 16  # VO poses kept to carry a late pose forward
 
 
 class FusionNode(Node):
@@ -55,25 +68,45 @@ class FusionNode(Node):
         self.local_filter = PoseFusionFilter({"vo": SensorConfig()},
                                              device=device)
         self._latest_global_match_stamp: Optional[int] = None
+        # the two input handlers run one at a time, so a late pose is
+        # carried to the VO stamp that is newest when it is fused
+        self._inputs = threading.Lock()
+        self._vo_poses: "OrderedDict[int, tuple]" = OrderedDict()
         self.subscribe(TOPIC_POSE, self._pose_cb)
         self.subscribe(TOPIC_TWIST_POSE, self._twist_pose_cb)
 
     def _pose_cb(self, msg) -> None:
-        self._last_input = (int(msg["stamp_us"]), time.monotonic())
-        self._latest_global_match_stamp = msg["stamp_us"]
+        with self._inputs:
+            self._fuse_pose(msg)
+
+    def _fuse_pose(self, msg) -> None:
+        stamp = int(msg["stamp_us"])
+        position, quat_xyzw = msg["position"], msg["quat_xyzw"]
+        newest = next(reversed(self._vo_poses), stamp)
+        if newest > stamp:  # a later frame's VO came first
+            if stamp not in self._vo_poses:
+                return  # nothing to carry it along
+            h_odom = [make_transform(quat_to_matrix(q), p) for p, q in (
+                self._vo_poses[stamp], self._vo_poses[newest])]
+            h = (make_transform(quat_to_matrix(np.asarray(quat_xyzw)),
+                                np.asarray(position))
+                 @ invert(h_odom[0]) @ h_odom[1])
+            stamp, position, quat_xyzw = newest, h[:3, 3], matrix_to_quat(
+                h[:3, :3])
+        self._last_input = (stamp, time.monotonic())
+        self._latest_global_match_stamp = stamp
         self.global_filter.submit(
-            "pose", msg["stamp_us"], msg["position"], msg["quat_xyzw"],
-            msg["covariance"],
+            "pose", stamp, position, quat_xyzw, msg["covariance"],
         )
         if self.tf is not None:
             # keep gisnav_map -> gisnav_base_link tf fresh from the global EKF
-            est = self.global_filter.state_at(msg["stamp_us"])
+            est = self.global_filter.state_at(stamp)
             if est is not None:
                 self.tf.add(
                     "gisnav_map", "gisnav_base_link",
                     make_transform(quat_to_matrix(est["quat_xyzw"]),
                                    est["position"]),
-                    msg["stamp_us"],
+                    stamp,
                 )
             # map -> odom is anchored at MEASUREMENT instants (the
             # robot_localization world->odom convention): both filters are
@@ -81,19 +114,25 @@ class FusionNode(Node):
             # extrapolating the global filter across pose dropouts — an
             # early bad velocity estimate integrated for many seconds put
             # fixes hundreds of meters off in altitude.
-            self._update_map_to_odom(int(msg["stamp_us"]))
+            self._update_map_to_odom(stamp)
 
     def _twist_pose_cb(self, msg) -> None:
-        self._last_input = (int(msg["stamp_us"]), time.monotonic())
-        self.global_filter.submit(
-            "vo", msg["stamp_us"], msg["position"], msg["quat_xyzw"],
-            msg["covariance"],
-        )
-        self.local_filter.submit(
-            "vo", msg["stamp_us"], msg["position"], msg["quat_xyzw"],
-            msg["covariance"],
-        )
-        self.tick(msg["stamp_us"])
+        with self._inputs:
+            stamp = int(msg["stamp_us"])
+            self._vo_poses[stamp] = (np.asarray(msg["position"]),
+                                     np.asarray(msg["quat_xyzw"]))
+            while len(self._vo_poses) > _VO_HISTORY:
+                self._vo_poses.popitem(last=False)
+            self._last_input = (stamp, time.monotonic())
+            self.global_filter.submit(
+                "vo", msg["stamp_us"], msg["position"], msg["quat_xyzw"],
+                msg["covariance"],
+            )
+            self.local_filter.submit(
+                "vo", msg["stamp_us"], msg["position"], msg["quat_xyzw"],
+                msg["covariance"],
+            )
+            self.tick(msg["stamp_us"])
 
     def tick_now(self) -> Optional[dict]:
         """Fixed-rate output: publish odometry at a stamp extrapolated from

@@ -10,18 +10,26 @@ runners (on the card unless ``device="cpu"``):
 - ``classical`` (the default): the port's SIFT + MNN + RANSAC-PnP;
 - ``deep``: a bundled weight set (``weights``, default ``learned_lg9``) in
   ``deep_mode`` ``warp-bucketed`` (the default), ``warp`` or ``cached``;
-  the bundle's config replaces the node's (480x640, 512 keypoints);
+  the bundle's config replaces the node's (480x640, 512 keypoints), but an
+  ``image_shape`` or ``max_keypoints`` set in the node's parameters
+  replaces the bundle's (the main path's 1088x1920 frames and 2048
+  keypoints are set so);
 - ``semidense``: the LoFTR runner.
 
 With ``dev_topics=True`` each valid fix also publishes the developer
 images of ``nodes/viz.py`` on ``.../dev/matches_image`` and
 ``.../dev/position_image``, as the JAX node does.
 
-Written departure: a missing bundle raises (the JAX node logs it and falls
-back to the classical backend).
+Written departures: a missing bundle raises (the JAX node logs it and
+falls back to the classical backend); the JAX node's deep backend keeps the
+bundle's frame shape and keypoint budget whatever the parameters say; a
+frame reads the map message once (the JAX node reads it several times, so
+on the threaded bus a map that arrives mid-frame pairs its raster with the
+previous map's affine).
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from typing import Optional
 
@@ -70,9 +78,11 @@ TOPIC_POSITION_IMAGE = _PREFIX + ROS_TOPIC_RELATIVE_POSITION_IMAGE.replace(
 _POSE_COV = np.diag([9.0, 9.0, 9.0] + [np.radians(3.0) ** 2] * 3)
 
 
-def _bundled_runner(name: str, mode: str, derotate: bool, device):
-    """(runner, config) of a bundled weight set in a deep mode; raises
-    ``FileNotFoundError`` when the bundle is missing."""
+def _bundled_runner(name: str, mode: str, derotate: bool, device,
+                    **config_fields):
+    """(runner, config) of a bundled weight set in a deep mode, its config
+    with ``config_fields`` replaced; raises ``FileNotFoundError`` when the
+    bundle is missing."""
     from gisnav_tpu_torch.pipeline.runners import (
         make_bucketed_warp_runner,
         make_cached_deep_runner,
@@ -81,6 +91,7 @@ def _bundled_runner(name: str, mode: str, derotate: bool, device):
     from gisnav_tpu_torch.weights import load_bundled
 
     params, config = load_bundled(name)
+    config = dataclasses.replace(config, **config_fields)
     if mode == "warp-bucketed":
         runner = make_bucketed_warp_runner(params, config, device=device)
     elif mode == "warp":
@@ -118,10 +129,16 @@ class PoseNode(Node):
                 params=self.param("semidense_params", None),
                 device=self._device)
         elif deep_runner is None and backend == "deep":
+            fields = {}
+            if self.param("image_shape") is not None:
+                fields["image_shape"] = self._config.image_shape
+            if self.param("max_keypoints") is not None:
+                fields["max_keypoints"] = self._config.max_keypoints
             self._deep_runner, self._config = _bundled_runner(
                 self.param("weights", "learned_lg9"),
                 self.param("deep_mode", "warp-bucketed"),
-                bool(self.param("derotate_query", False)), self._device)
+                bool(self.param("derotate_query", False)), self._device,
+                **fields)
         elif backend not in (None, "classical", "deep", "semidense"):
             raise ValueError(f"unknown pose backend {backend!r}")
         takes = set()
@@ -181,7 +198,11 @@ class PoseNode(Node):
         return float(np.degrees(np.arctan2(up[0], up[1])))
 
     def estimate(self, image_msg) -> Optional[dict]:
-        if self._ortho is None or self._camera_info is None:
+        # one read of the map message: on the threaded bus the orthoimage
+        # handler may replace it while this frame runs, and a map paired
+        # with the previous map's affine puts the fix a map shift off
+        ortho, camera_info = self._ortho, self._camera_info
+        if ortho is None or camera_info is None:
             return None
         query = image_msg["image"]
         h, w = self._config.image_shape
@@ -190,34 +211,34 @@ class PoseNode(Node):
                              (h, w))
             return None
         aff4 = np.eye(4)
-        aff4[:3, :] = proj_to_affine(self._ortho["crs"])
+        aff4[:3, :] = proj_to_affine(ortho["crs"])
         with device_lock:
             if self._deep_runner is not None:
                 kw = {}
                 if self._runner_takes_map_stamp:
-                    kw["map_stamp"] = self._ortho.get("stamp_us")
+                    kw["map_stamp"] = ortho.get("stamp_us")
                 if self._runner_takes_altitude:
                     kw["altitude_agl"] = self._altitude_agl
                 if self._runner_takes_prior:
                     kw["prior_lonlat"] = self._prior_lonlat
                 geopose = self._deep_runner(
-                    query, self._ortho["image"], self._ortho["dem"],
-                    self._rotation_deg(), self._camera_info["k"], aff4, **kw)
+                    query, ortho["image"], ortho["dem"],
+                    self._rotation_deg(), camera_info["k"], aff4, **kw)
             else:
                 geopose = classical_frame_to_geopose(
-                    query, self._ortho["image"], self._ortho["dem"],
-                    self._rotation_deg(), self._camera_info["k"], aff4,
+                    query, ortho["image"], ortho["dem"],
+                    self._rotation_deg(), camera_info["k"], aff4,
                     self._config, device=self._device)
             if not bool(geopose.valid):
                 self.log.debug("no valid pose (%d matches)",
                                int(geopose.num_matches))
                 return None
             if self.param("dev_topics", False):
-                self._publish_dev_images(image_msg, geopose)
+                self._publish_dev_images(image_msg, geopose, ortho)
             out = geopose_to_wgs84_f64(geopose, aff4)
         return self._to_map_frame(image_msg["stamp_us"], out)
 
-    def _publish_dev_images(self, image_msg, geopose) -> None:
+    def _publish_dev_images(self, image_msg, geopose, ortho) -> None:
         """The match image and the camera-position image (reference
         ``~/dev/matches_image`` / ``~/dev/position_image``,
         ``pose_node.py:145-151,310-346``), in original raster pixels."""
@@ -234,10 +255,10 @@ class PoseNode(Node):
         stamp = image_msg["stamp_us"]
         self.publish(TOPIC_MATCHES_IMAGE, {
             "stamp_us": stamp,
-            "image": draw_matches(image_msg["image"], self._ortho["image"],
+            "image": draw_matches(image_msg["image"], ortho["image"],
                                   host(geopose.matched_qry), ref_full, mask)})
         cam = host(geopose.cam_pos_raster).astype(np.float64)
-        pos_img = draw_position(self._ortho["image"],
+        pos_img = draw_position(ortho["image"],
                                 (m @ np.array([cam[0], cam[1], 1.0]))[:2],
                                 ref_full, mask)
         if pos_img is not None:

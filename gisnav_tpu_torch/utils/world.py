@@ -17,9 +17,12 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from gisnav_tpu_torch.geometry.crs import pixel_to_wgs84_affine
+from gisnav_tpu_torch.gis.geotiff import GeoRef
+from gisnav_tpu_torch.utils import drawing
 
 __all__ = ["Scene", "render_scene", "render_streams", "Flight",
-           "render_flight"]
+           "render_flight", "synthetic_world", "synthetic_dem",
+           "DEMO_GEOREF"]
 
 _LEFT, _TOP = -122.27, 37.53  # demo georeference (KSQL, San Carlos, CA)
 
@@ -91,15 +94,9 @@ def _draw_world(rng, size: int, gsd: float) -> np.ndarray:
     return np.clip(world + acc, 0, 255)
 
 
-def _warp_perspective(src: np.ndarray, hm: np.ndarray,
-                     out_hw: Tuple[int, int]) -> np.ndarray:
-    """``out[v, u] = src(hm^-1 (u, v, 1))``, bilinear, zero outside."""
-    h, w = out_hw
-    inv = np.linalg.inv(hm)
-    vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
-    p = inv @ np.stack([uu.ravel(), vv.ravel(), np.ones(h * w)])
-    xs = (p[0] / p[2]).astype(np.float32)
-    ys = (p[1] / p[2]).astype(np.float32)
+def _sample(src: np.ndarray, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    """``src`` at pixel-centre coordinates (xs, ys), bilinear, zero beyond
+    its edge pixels' centres."""
     x0 = np.floor(xs).astype(np.int64)
     y0 = np.floor(ys).astype(np.int64)
     fx, fy = xs - x0, ys - y0
@@ -112,7 +109,18 @@ def _warp_perspective(src: np.ndarray, hm: np.ndarray,
 
     top = tap(y0, x0) * (1 - fx) + tap(y0, x0 + 1) * fx
     bot = tap(y0 + 1, x0) * (1 - fx) + tap(y0 + 1, x0 + 1) * fx
-    out = top * (1 - fy) + bot * fy
+    return top * (1 - fy) + bot * fy
+
+
+def _warp_perspective(src: np.ndarray, hm: np.ndarray,
+                     out_hw: Tuple[int, int]) -> np.ndarray:
+    """``out[v, u] = src(hm^-1 (u, v, 1))``, bilinear, zero outside."""
+    h, w = out_hw
+    inv = np.linalg.inv(hm)
+    vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
+    p = inv @ np.stack([uu.ravel(), vv.ravel(), np.ones(h * w)])
+    out = _sample(src, (p[0] / p[2]).astype(np.float32),
+                  (p[1] / p[2]).astype(np.float32))
     return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape(h, w)
 
 
@@ -256,3 +264,67 @@ def render_flight(seed: int, h: int, w: int, steps: int,
         poses.append(pose)
         yaws.append(float(yaw))
     return Flight(frames=frames, yaws=yaws, poses=poses, k=k, alt_m=alt_m)
+
+
+def synthetic_world(size_px: int = 4096, seed: int = 7,
+                    n_shapes: int = 4000) -> np.ndarray:
+    """The demo world: an urban-like grey texture, (size, size) uint8, bit
+    for bit the JAX package's ``utils/world.py`` ``synthetic_world`` (the
+    same draws of ``np.random.default_rng(seed)`` in the same order, drawn
+    and blurred by ``utils/drawing.py``, OpenCV's algorithms without
+    OpenCV)."""
+    rng = np.random.default_rng(seed)
+    world = np.full((size_px, size_px), 110, np.uint8)
+    for _ in range(n_shapes):
+        x, y = (int(v) for v in rng.integers(0, size_px, 2))
+        kind = int(rng.integers(0, 3))
+        v = int(rng.integers(0, 256))
+        s = int(rng.integers(8, 80))
+        if kind == 0:
+            drawing.rectangle(world, (x, y),
+                              (x + s, y + int(s * rng.uniform(0.3, 1.5))),
+                              v, -1)
+        elif kind == 1:
+            drawing.circle(world, (x, y), s // 2, v, -1)
+        else:
+            x2 = x + int(s * rng.uniform(-2, 2))
+            y2 = y + int(s * rng.uniform(-2, 2))
+            drawing.line(world, (x, y), (x2, y2), v, int(rng.integers(2, 8)))
+    return drawing.gaussian_blur_3x3(world, 0.8)
+
+
+def synthetic_dem(size_px: int = 1024, seed: int = 11,
+                  base_m: float = 0.0, relief_m: float = 12.0) -> np.ndarray:
+    """The demo DEM: gentle hills in metres, (size, size) float32, the sum
+    of four random 2-D cosines scaled to ``relief_m`` above ``base_m``
+    (the JAX package's ``synthetic_dem``, bit for bit)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size_px, 0:size_px].astype(np.float32) / size_px
+    dem = np.zeros((size_px, size_px), np.float32)
+    for _ in range(4):
+        fx, fy = rng.uniform(0.5, 2.0, 2)
+        px, py = rng.uniform(0, 2 * np.pi, 2)
+        dem += np.cos(2 * np.pi * fx * x + px) * np.cos(
+            2 * np.pi * fy * y + py)
+    dem -= dem.min()
+    if dem.max() > 0:
+        dem *= relief_m / dem.max()
+    return (dem + base_m).astype(np.float32)
+
+
+class _DemoGeoref:
+    """Georeference of the demo world: a square of 0.04 degrees (about 4.4
+    km north-south, 3.5 km east-west) whose top-left corner is near KSQL
+    airport (San Carlos, CA), at any raster size."""
+
+    left = _LEFT
+    top = _TOP
+    size_deg = 0.04
+
+    def georef(self, size_px: int) -> GeoRef:
+        return GeoRef(left=self.left, top=self.top,
+                      gsd_lon=self.size_deg / size_px,
+                      gsd_lat=self.size_deg / size_px)
+
+
+DEMO_GEOREF = _DemoGeoref()

@@ -12,6 +12,11 @@ the server binds 127.0.0.1 only).
 - :meth:`World.render_frame`: the nadir camera view at a lon/lat, altitude
   and yaw, and :func:`camera_attitude_quat`: that camera's camera_optical
   -> ENU quaternion (the gimbal attitude message).
+- :class:`GeoWorld`: imagery and a DEM as GeoTIFFs carry them (a
+  ``GeoRef`` each, pixels square in degrees and so not in metres), such as
+  the demo maps of ``tools/make_demo_geotiff_torch.py``;
+  :meth:`GeoWorld.render_frame` renders the nadir view over the DEM's
+  relief with the east and north metres of a pixel each.
 - :func:`write_replay_dataset`: a recorded flight over the world in the
   layout ``replay`` reads (``tools/make_replay_dataset.py``'s flight and
   sizing), its images PNG, JPEG or a GIS export's TIFF under the layout's
@@ -41,19 +46,24 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from gisnav_tpu_torch.geometry.quaternion import matrix_to_quat
-from gisnav_tpu_torch.gis.geotiff import GeoRef, write_geotiff
+from gisnav_tpu_torch.gis.geotiff import GeoRef, read_geotiff, write_geotiff
 from gisnav_tpu_torch.gis.jpeg import encode_jpeg
 from gisnav_tpu_torch.gis.png import encode_png
 from gisnav_tpu_torch.gis.pxm import encode_pgm
 from gisnav_tpu_torch.gis.server import overlap_weights
 from gisnav_tpu_torch.gis.tiff import encode_tiff
-from gisnav_tpu_torch.utils.world import _draw_world, _warp_perspective
+from gisnav_tpu_torch.utils.world import (
+    _draw_world,
+    _sample,
+    _warp_perspective,
+)
 
-__all__ = ["World", "WorldWMS", "camera_attitude_quat", "east_of",
-           "write_replay_dataset"]
+__all__ = ["World", "WorldWMS", "GeoWorld", "camera_attitude_quat",
+           "east_of", "write_replay_dataset"]
 
 _M_PER_DEG = 6371000.0 * np.pi / 180.0  # haversine's sphere
 _GREY = 110  # the world's background level
+_GRID_PX = 8  # GeoWorld's ray-casting grid, frame pixels
 
 
 def east_of(lon: float, lat: float, east_m: float) -> float:
@@ -126,6 +136,113 @@ class World:
         hm = np.asarray(k, np.float64) @ np.stack([r[:, 0], r[:, 1], t],
                                                    axis=1)
         return _warp_perspective(self.raster, hm, hw)
+
+
+@dataclasses.dataclass
+class GeoWorld:
+    """North-up imagery and a DEM over one extent, each with the
+    ``GeoRef`` of its GeoTIFF (a pixel's top-left corner at ``left + x
+    gsd_lon``, ``top - y gsd_lat``). Degrees relate to metres on the 6371
+    km sphere, as in :class:`World`, with the east scale at each frame's
+    own latitude: the demo maps' pixels, square in degrees, are about 1.09
+    m north-south and 0.86 m east-west."""
+
+    raster: np.ndarray  # (n, m) uint8
+    georef: GeoRef
+    dem: np.ndarray  # (p, q) float32 metres, the altitudes' datum
+    dem_georef: GeoRef
+
+    @classmethod
+    def read(cls, maps_dir: str) -> "GeoWorld":
+        """The first GeoTIFF of ``imagery/`` and of ``dem/`` under
+        ``maps_dir``, the files ``gis-serve --maps`` serves."""
+        import glob
+
+        def first(layer):
+            paths = sorted(glob.glob(os.path.join(maps_dir, layer, "*.tif"))
+                           + glob.glob(os.path.join(maps_dir, layer,
+                                                    "*.tiff")))
+            if not paths:
+                raise FileNotFoundError(f"no GeoTIFF under {maps_dir}/"
+                                        f"{layer}")
+            return read_geotiff(paths[0])
+
+        return cls(*first("imagery"), *first("dem"))
+
+    def to_px(self, lon, lat, dem: bool = False):
+        """Pixel-centre (x east, y south) coordinates of a lon/lat in the
+        imagery (or the DEM)."""
+        g = self.dem_georef if dem else self.georef
+        return ((np.asarray(lon) - g.left) / g.gsd_lon - 0.5,
+                (g.top - np.asarray(lat)) / g.gsd_lat - 0.5)
+
+    def to_lonlat(self, x, y, dem: bool = False):
+        g = self.dem_georef if dem else self.georef
+        return (g.left + (np.asarray(x) + 0.5) * g.gsd_lon,
+                g.top - (np.asarray(y) + 0.5) * g.gsd_lat)
+
+    def metres_per_px(self, lat: float) -> Tuple[float, float]:
+        """(east, south) metres of an imagery pixel at ``lat``."""
+        return (self.georef.gsd_lon * _M_PER_DEG * np.cos(np.radians(lat)),
+                self.georef.gsd_lat * _M_PER_DEG)
+
+    def height_at(self, lon, lat):
+        """The DEM at lon/lat, bilinear between its pixel centres (the
+        edge pixels' beyond them)."""
+        x, y = self.to_px(lon, lat, dem=True)
+        h, w = self.dem.shape
+        return _sample(self.dem, np.clip(x, 0, w - 1), np.clip(y, 0, h - 1))
+
+    def ground_of(self, lon: float, lat: float, alt_m: float,
+                  yaw_deg: float, k: np.ndarray, uv: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """Where the rays of frame pixels ``uv`` ((2, n): u, v) of
+        :meth:`World.render_frame`'s nadir camera at ``alt_m`` metres of
+        the DEM's datum above lon/lat meet the DEM's surface, after five
+        fixed-point steps from the height under the camera: ((2, n) metres
+        east and south of the camera, (n,) heights)."""
+        mx, my = self.metres_per_px(lat)
+        cx, cy = self.to_px(lon, lat)
+        a = np.radians(yaw_deg)
+        c, s = np.cos(a), np.sin(a)
+        r = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1.0]])  # ground -> cam
+        rays = r.T @ np.linalg.inv(np.asarray(k, np.float64)) @ np.vstack(
+            [uv, np.ones(uv.shape[1])])
+        rays = rays[:2] / rays[2]  # metres east, south per metre down
+        ground = np.full(uv.shape[1], float(self.height_at(lon, lat)))
+        for _ in range(5):
+            ground = self.height_at(*self.to_lonlat(
+                cx + (alt_m - ground) * rays[0] / mx,
+                cy + (alt_m - ground) * rays[1] / my)).astype(np.float64)
+        return (alt_m - ground) * rays, ground
+
+    def render_frame(self, lon: float, lat: float, alt_m: float,
+                     yaw_deg: float, k: np.ndarray,
+                     hw: Tuple[int, int] = (480, 640)) -> np.ndarray:
+        """That camera's view over the DEM's relief: :meth:`ground_of` on a
+        grid every ``_GRID_PX`` frame pixels (the relief is smooth at that
+        scale), interpolated between, the imagery sampled bilinearly at
+        pixel centres."""
+        h, w = hw
+        mx, my = self.metres_per_px(lat)
+        cx, cy = self.to_px(lon, lat)
+        us = np.unique(np.r_[np.arange(0, w, _GRID_PX), w - 1]).astype(
+            np.float64)
+        vs = np.unique(np.r_[np.arange(0, h, _GRID_PX), h - 1]).astype(
+            np.float64)
+        uu, vv = np.meshgrid(us, vs)
+        metres, _ = self.ground_of(lon, lat, alt_m, yaw_deg, k,
+                                   np.stack([uu.ravel(), vv.ravel()]))
+        xs = (cx + metres[0] / mx).reshape(uu.shape)
+        ys = (cy + metres[1] / my).reshape(uu.shape)
+
+        def full(g):  # the grid's values at every frame pixel
+            rows = np.stack([np.interp(np.arange(w), us, row) for row in g])
+            return np.stack([np.interp(np.arange(h), vs, col)
+                             for col in rows.T], axis=1)
+
+        out = _sample(self.raster, full(xs), full(ys))
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def camera_attitude_quat(yaw_deg: float) -> np.ndarray:

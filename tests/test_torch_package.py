@@ -1,8 +1,8 @@
 """Rules of the PyTorch/CUDA port that hold for the whole package.
 
-- No module of ``gisnav_tpu_torch``, and not ``chip_smoke.py``, imports JAX,
-  flax, OpenCV, ``requests`` or anything of ``gisnav_tpu`` (checked on the
-  syntax tree).
+- No module of ``gisnav_tpu_torch``, and not ``chip_smoke.py`` nor a
+  ``tools/*_torch.py`` script, imports JAX, flax, OpenCV, ``requests`` or
+  anything of ``gisnav_tpu`` (checked on the syntax tree).
 - The entry points run on CUDA unless the caller asks for the CPU: without
   a card they raise instead of running on the CPU.
 - ``chip_smoke.py`` exits non-zero, with no result line, without a card.
@@ -27,6 +27,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gisnav_tpu", "cv2",
 def _port_files():
     pkg = os.path.dirname(gisnav_tpu_torch.__file__)
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "tools", n)
+              for n in os.listdir(os.path.join(ROOT, "tools"))
+              if n.endswith("_torch.py")]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -65,7 +68,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "nodes/ros_adapter.py", "nodes/viz.py", "utils/profiling.py",
         "replay.py", "gis/jpeg.py", "native/__init__.py",
         "gis/imgcodecs.py", "gis/coders.py", "gis/tiff.py", "gis/gif.py",
-        "gis/bmp.py", "gis/pxm.py", "gis/sunras.py", "gis/hdr.py")} <= rel
+        "gis/bmp.py", "gis/pxm.py", "gis/sunras.py", "gis/hdr.py",
+        "utils/world.py", "utils/drawing.py")} | {
+        os.path.join("tools", "make_demo_geotiff_torch.py")} <= rel
     bad = {(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN}
     assert not bad, sorted(bad)
