@@ -14,6 +14,7 @@
     python3 chip_smoke.py --jpeg     # build + the image codecs phase only
     python3 chip_smoke.py --api      # build + path 14 (the library API) only
     python3 chip_smoke.py --demo     # build + path 15 (the demo maps) only
+    python3 chip_smoke.py --webp     # build + path 16 (WebP) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -222,9 +223,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    p90, the bucket refreshes, the largest and median fix error, and what
    the relief alone does to a PnP fix at that altitude (exact
    correspondences, with and without the heights);
-19. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+19. path 16: WebP, read as cv2 5.0 reads it (``gis/webp.py`` over
+   ``native/webp.cpp``, built here with g++; this machine has no OpenCV
+   and no libwebp): (a) every committed WebP fixture
+   (``tests/data/torch_webp``: VP8L, VP8 at qualities 1-100, ALPH raw and
+   compressed, a palette image, EXIF in VP8X, animations) decoded under
+   both flags and every file of its flight under the grey flag, each pixel
+   digest equal to cv2's; (b) ``replay`` (the CLI, in this process) with
+   learned_lg9 at 2048 keypoints (the cached runner at 1088x1920) over the
+   committed flight (``write_replay_dataset(hw=(1088, 1920), frames=8,
+   coverage=1.3)`` over path 8's world, the map and frames written as
+   WebP by cv2 at quality 90) and over the same flight written here as PNG
+   (its JSON and CSV files equal to the WebP flight's, each array within
+   ``WEBP_TWIN_MEAN_ABS`` grey levels of the WebP file's decode): exit
+   code 0 and every frame valid on each, K1-K4 launched, each WebP fix
+   within ``WEBP_MOVE_M`` of the PNG one's, the frame p50 of each; (c) the
+   GIS node asking for ``image/webp`` from a loopback stub that answers
+   with the flight's WebP map: its raster equal to cv2's grey read of those
+   bytes, the fetch timed; (d) the host ms of ``decode_image`` on the
+   2208-px WebP map and a 1088x1920 WebP frame beside PNG and JPEG of the
+   same pixels, with the card's name and power limit;
+20. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-20. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+21. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -467,7 +488,8 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "library_device_ms", "rotation_ms", "rotation_device_ms",
               "path4_launches", "path6_launches", "path8_launches",
               "path9_launches", "path11_launches", "path13_launches",
-              "path14_launches", "path15_launches", "backward_ms",
+              "path14_launches", "path15_launches", "path16_launches",
+              "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
               "grad_cpu_rel_err", "fwd_bwd_device_ms",
@@ -2929,7 +2951,7 @@ DEPLOY_QUIET_S = 2.0  # no fix for this long: the fix stream has ended
 DEPLOY_STREAM_S = 45.0  # the fusion node extrapolates 10 s past its input
 DEPLOY_HOVER_GGA, DEPLOY_HOVER_S = 8, 90.0
 HEALTH_TIMEOUT_S = 12.0
-DEPLOY_DEVICE = "cuda"  # paths 10-11's device; a CPU rehearsal sets "cpu"
+DEPLOY_DEVICE = "cuda"  # paths 10, 11 and 16's device; a CPU rehearsal: "cpu"
 # path 11: tools/make_replay_dataset.py's defaults (12 frames of 640x480 at
 # 500 m, yaw 25, a square map at 3x the footprint), on path 8's world
 REPLAY_FRAMES, REPLAY_CLASSICAL_FRAMES = 12, 3
@@ -5458,6 +5480,247 @@ def phase_demo_path() -> dict:
     return out
 
 
+# -- path 16: WebP on the replay and WMS paths ---------------------------------
+
+# the WebP fixtures and path 16's flight (tools/make_torch_image_fixtures.py)
+WEBP_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "torch_webp")
+WEBP_FLIGHT = os.path.join(WEBP_FIXTURES, "flight")
+WEBP_MAX_KP = 2048  # the main path's keypoints (the map's: 2 x)
+WEBP_MOVE_M = 5.0  # a WebP fix from the PNG one's, at most (PERF.md, PR 19)
+WEBP_TWIN_MEAN_ABS = 1.5  # grey levels, the PNG twin from the WebP flight
+WEBP_FETCHES = 5  # the GIS node's WebP map fetches timed
+WEBP_REPS = (10, 3)  # decodes timed of a frame and of the map
+
+
+def webp_fixtures() -> dict:
+    """Path 16 (a): every committed WebP fixture and flight file decoded by
+    ``decode_image`` under both flags (the flight's under the grey flag
+    replay reads them with), each pixel digest equal to cv2's."""
+    from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                                IMREAD_UNCHANGED,
+                                                decode_image)
+
+    with open(os.path.join(WEBP_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(WEBP_FLIGHT, "flight.json")) as f:
+        flight = json.load(f)
+    flags = {"unchanged": IMREAD_UNCHANGED, "grayscale": IMREAD_GRAYSCALE}
+    cases = [(os.path.join(WEBP_FIXTURES, n), key, want[key])
+             for n, want in sorted(digests.items()) for key in flags]
+    cases += [(os.path.join(WEBP_FLIGHT, n), "grayscale", want)
+              for n, want in sorted(flight["webp_cv2"].items())]
+    bad = []
+    for path, key, want in cases:
+        with open(path, "rb") as f:
+            got = image_digest(decode_image(f.read(), flags[key]))
+        if got != want:
+            bad.append((os.path.relpath(path, WEBP_FIXTURES), key, got))
+    out = {"files": len(digests) + len(flight["webp_cv2"]),
+           "decodes": len(cases), "mismatches": len(bad)}
+    log(f"[webp] fixtures against cv2's digests: {json.dumps(out)}")
+    if bad:
+        raise RuntimeError(f"webp: fixtures not decoded as cv2: {bad}")
+    return out
+
+
+def webp_png_flight(root: str) -> str:
+    """The PNG twin of the WebP flight, written here from its manifest:
+    its ``map.json``, ``camera.json`` and ``poses.csv`` must equal the
+    committed flight's, and each array lie within ``WEBP_TWIN_MEAN_ABS``
+    grey levels (mean) of the WebP file's decode; how many arrays equal the
+    fixture tool's bit for bit is printed (the world's float32 noise is
+    not bit-reproducible across machines)."""
+    from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                                IMREAD_UNCHANGED, read_image)
+    from gisnav_tpu_torch.utils.world_wms import World, write_replay_dataset
+
+    with open(os.path.join(WEBP_FLIGHT, "flight.json")) as f:
+        manifest = json.load(f)
+    png = os.path.join(root, "flight_png")
+    write_replay_dataset(World.make(**manifest["world"]), png,
+                         frames=manifest["frames"], hw=tuple(manifest["hw"]),
+                         coverage=manifest["coverage"])
+    bad, same, mean_abs = [], 0, {}
+    for name in ("map.json", "camera.json", "poses.csv"):
+        with open(os.path.join(png, name)) as a, \
+                open(os.path.join(WEBP_FLIGHT, name)) as b:
+            if a.read() != b.read():
+                bad.append(name)
+    for name, want in manifest["png_sha256"].items():
+        arr = read_image(os.path.join(png, name), IMREAD_UNCHANGED)
+        same += image_digest(arr) == want
+        webp = read_image(os.path.join(WEBP_FLIGHT, name), IMREAD_GRAYSCALE)
+        if arr.shape != webp.shape:
+            bad.append(name)
+            continue
+        mean_abs[name] = round(float(np.abs(arr.astype(np.int16)
+                                            - webp).mean()), 3)
+        if mean_abs[name] > WEBP_TWIN_MEAN_ABS:
+            bad.append(name)
+    log(f"[webp] the PNG twin written here: {same} of "
+        f"{len(manifest['png_sha256'])} arrays equal to the fixture tool's; "
+        f"mean |PNG - WebP| {json.dumps(mean_abs)}")
+    if bad:
+        raise RuntimeError(f"webp: the PNG twin is not the WebP flight's: "
+                           f"{bad}")
+    return png
+
+
+def _replay_learned(data: str, report: str, tag: str) -> dict:
+    """learned_lg9 ``replay`` (the cached runner at the dataset's 1088x1920,
+    ``WEBP_MAX_KP`` keypoints) on ``data`` through the CLI in this process:
+    gated on exit code 0 (every frame within 10 m), every frame valid and
+    K1-K4 launched; then the frame p50 of a second run."""
+    from gisnav_tpu_torch.replay import replay
+
+    rc, rep, launches = _replay_cli([data, "--weights", "learned_lg9",
+                                     "--max-keypoints", str(WEBP_MAX_KP),
+                                     "--out", report])
+    s = rep["summary"]
+    log(f"[webp replay {tag}] rc {rc} {json.dumps(s)}; launches {launches}")
+    if rc != 0 or s["valid"] != s["frames"]:
+        raise RuntimeError(f"webp replay learned_lg9 {tag}: rc {rc}, {s}")
+    idle = [k for k in PATH1_KERNELS if not launches.get(k)]
+    if idle:
+        raise RuntimeError(f"webp replay {tag}: {idle} never launched")
+    ticks = []
+    replay(data, weights="learned_lg9", max_keypoints=WEBP_MAX_KP,
+           device=DEPLOY_DEVICE,
+           progress=lambda *_: ticks.append(time.perf_counter()))
+    return {**s, "launches": launches, "fixes": rep["frames"],
+            "frame": _pcts(np.diff(ticks) * 1e3)}
+
+
+def webp_replay(root: str) -> dict:
+    """Path 16 (b): the main path's model replayed over the committed WebP
+    flight and over the PNG flight written here; each WebP fix within
+    ``WEBP_MOVE_M`` of the PNG one's."""
+    png = webp_png_flight(root)
+    report = os.path.join(root, "r.json")
+    out = {"webp": _replay_learned(WEBP_FLIGHT, report, "WebP"),
+           "png": _replay_learned(png, report, "PNG")}
+    moved = _moved(out["webp"].pop("fixes"), out["png"].pop("fixes"))
+    out["webp_to_png"] = {"max_horiz_m": max(m["horiz_m"] for m in moved),
+                          "max_up_m": max(m["up_m"] for m in moved)}
+    log(f"[webp replay] each fix's move, WebP -> PNG flight: {moved}")
+    if max(out["webp_to_png"].values()) > WEBP_MOVE_M:
+        raise RuntimeError(f"webp: a fix moved {out['webp_to_png']} from "
+                           f"the PNG flight's")
+    return out
+
+
+def webp_gis_fetch() -> dict:
+    """Path 16 (c): the GIS node asking for ``image/webp`` from a loopback
+    stub that answers every GetMap with the flight's WebP map: the node's
+    raster must be cv2's grey read of those bytes; the fetch timed."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from gisnav_tpu_torch.geometry.bbox import BBox
+    from gisnav_tpu_torch.nodes.bus import LocalBus
+    from gisnav_tpu_torch.nodes.gis_node import GISNode
+
+    with open(os.path.join(WEBP_FLIGHT, "map.png"), "rb") as f:
+        body = f.read()
+    with open(os.path.join(WEBP_FLIGHT, "flight.json")) as f:
+        want = json.load(f)["webp_cv2"]["map.png"]
+    with open(os.path.join(WEBP_FLIGHT, "map.json")) as f:
+        bounds = json.load(f)
+    served = []
+
+    class Stub(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (http.server's name)
+            served.append(self.path)
+            self.send_response(200)
+            self.send_header("Content-Type", "image/webp")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/wms"
+        ms, raster = [], None
+        for i in range(WEBP_FETCHES):
+            node = GISNode(LocalBus(), params={
+                "wms_url": url, "wms_format": "image/webp",
+                "wms_layers": ["imagery"], "wms_dem_layers": []})
+            node._camera_info_cb({"width": 1920, "height": 1088})
+            node._bbox_cb({"stamp_us": 1_000_000 + i, "bbox": BBox(
+                bounds["left"], bounds["bottom"], bounds["right"],
+                bounds["top"])})
+            t0 = time.perf_counter()
+            node.tick()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            raster = node.cache.current.image
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    out = {"bytes": len(body), "requests": len(served),
+           "equal": image_digest(raster) == want, **_pcts(ms)}
+    log(f"[webp] the GIS node's image/webp fetch: {json.dumps(out)}")
+    if not out["equal"] or "format=image%2Fwebp" not in served[0]:
+        raise RuntimeError(f"webp: the GIS node's raster {image_digest(raster)}"
+                           f" is not cv2's {want} (requests {served[:1]})")
+    return out
+
+
+def webp_decode_times(card: str) -> list:
+    """Path 16 (d): host ms p50 of ``decode_image`` on the flight's WebP map
+    (2208 px) and on one of its 1088x1920 frames (both lossy, cv2 at
+    quality 90) beside PNG and JPEG (quality 95) of the same pixels."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image
+    from gisnav_tpu_torch.gis.jpeg import encode_jpeg
+    from gisnav_tpu_torch.gis.png import encode_png
+
+    rows = []
+    for name, reps in (("map.png", WEBP_REPS[1]),
+                       ("frames/1000000.png", WEBP_REPS[0])):
+        with open(os.path.join(WEBP_FLIGHT, name), "rb") as f:
+            webp = f.read()
+        img = decode_image(webp)
+        row = {"file": name, "shape": list(img.shape), "webp_bytes": len(webp),
+               "webp_ms": host_ms(lambda: decode_image(webp), 1, reps)}
+        for fmt, encode in (("png", encode_png), ("jpeg", encode_jpeg)):
+            data = encode(img)
+            row[f"{fmt}_bytes"] = len(data)
+            row[f"{fmt}_ms"] = host_ms(lambda: decode_image(data), 1, reps)
+        row["card"] = card
+        log(f"[webp] decode {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def phase_webp_path() -> dict:
+    """Path 16: WebP read as cv2 reads it, on the card machine (no cv2,
+    no libwebp): the fixtures (a), the main path's model replayed over the
+    committed WebP flight beside the PNG one (b), the GIS node's WebP
+    fetch (c) and decode times (d)."""
+    import tempfile
+
+    from gisnav_tpu_torch.native import build_native_lib
+
+    t0 = time.time()
+    lib = build_native_lib("webp")
+    card = card_label()
+    out = {"build_s": round(time.time() - t0, 2), "card": card,
+           "fixtures": webp_fixtures()}
+    log(f"[webp] decoder {lib} in {out['build_s']} s")
+    with tempfile.TemporaryDirectory() as root:
+        out["replay"] = webp_replay(root)
+    out["gis_fetch"] = webp_gis_fetch()
+    out["decode"] = webp_decode_times(card)
+    log("[webp] " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5495,6 +5758,10 @@ def main(argv=None) -> int:
     ap.add_argument("--demo", action="store_true",
                     help="only drive path 15 (the demo maps, gis-serve and "
                          "run's graph at full width over them)")
+    ap.add_argument("--webp", action="store_true",
+                    help="only drive path 16 (WebP: fixtures, the main "
+                         "path's model replayed over a WebP flight, the GIS "
+                         "node's WebP fetch, decode times)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -5530,6 +5797,10 @@ def main(argv=None) -> int:
     if args.demo:
         phase_demo_path()
         log(f"[phase] path 15 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.webp:
+        phase_webp_path()
+        log(f"[phase] path 16 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -5601,6 +5872,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 14 done at {time.time() - t_start:.1f} s")
     demo = phase_demo_path()
     log(f"[phase] path 15 done at {time.time() - t_start:.1f} s")
+    webp = phase_webp_path()
+    log(f"[phase] path 16 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -5616,6 +5889,8 @@ def main(argv=None) -> int:
             r["path14_launches"] = api["launches"][r["name"]]
         if r["name"] in PATH1_KERNELS:
             r["path15_launches"] = demo["flight"]["launches"][r["name"]]
+            r["path16_launches"] = webp["replay"]["webp"]["launches"][
+                r["name"]]
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))

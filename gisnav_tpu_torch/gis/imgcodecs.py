@@ -9,6 +9,9 @@ order, each with OpenCV's own signature rule:
 - ``BM``: BMP (OS/2, Windows, V4, V5), ``gis/bmp.py``;
 - ``#?RADIANCE`` or ``#?RGBE``: Radiance HDR, ``gis/hdr.py``;
 - ``FF D8``: JPEG (EXIF turns it under the grey flag), ``gis/jpeg.py``;
+- 32 bytes that libwebp's ``WebPGetFeatures`` accepts (``RIFF`` ...
+  ``WEBP``, or a raw VP8 / VP8L bitstream): WebP (its EXIF chunk turns it
+  under the grey flag), ``gis/webp.py``;
 - ``59 A6 6A 95``: Sun raster, ``gis/sunras.py``;
 - ``P1``-``P6``, ``P7``, ``Pf`` / ``PF`` and a white-space byte: PBM,
   PGM, PPM, PAM, PFM, ``gis/pxm.py``;
@@ -18,10 +21,11 @@ order, each with OpenCV's own signature rule:
 - ``GIF87a`` or ``GIF89a``: GIF, ``gis/gif.py``.
 
 A matching signature decides: bytes that then fail their header give
-None, as in OpenCV (no other decoder is tried). WebP, JPEG 2000 and AVIF
+None, as in OpenCV (no other decoder is tried). JPEG 2000 and AVIF
 bytes, which OpenCV reads where it is built with their libraries, raise
-``ValueError`` naming the format; anything else gives None. Under ``IMREAD_GRAYSCALE`` the JPEG and
-PNG decoders' images are turned upright by their EXIF orientation
+``ValueError`` naming the format; anything else gives None. Under
+``IMREAD_GRAYSCALE`` the JPEG, WebP and PNG decoders' images are turned
+upright by their EXIF orientation
 (``gis/exif.py``) as ``loadsave.cpp`` turns them; TIFF applies its own
 ``Orientation`` tag under both flags. ``read_image`` differs from
 ``decode_image`` where ``cv2.imread`` differs from ``cv2.imdecode``: a JPEG
@@ -47,6 +51,7 @@ from gisnav_tpu_torch.gis.pxm import (decode_pam, decode_pfm, decode_pxm,
                                       is_pam, is_pfm, is_pxm)
 from gisnav_tpu_torch.gis.sunras import SUNRAS_SIGNATURE, decode_sunras
 from gisnav_tpu_torch.gis.tiff import TIFF_SIGNATURES, decode_tiff
+from gisnav_tpu_torch.gis.webp import decode_webp, is_webp
 
 __all__ = ["decode_image", "read_image", "image_format", "IMREAD_UNCHANGED",
            "IMREAD_GRAYSCALE"]
@@ -66,6 +71,7 @@ _DECODERS = (
     ("HDR", lambda s: len(s) >= 6 and s.startswith(HDR_SIGNATURES),
      lambda d, g, f: decode_hdr(d, g)),
     ("JPEG", lambda s: s.startswith(jpeg.JPEG_SOI), _jpeg),
+    ("WebP", is_webp, lambda d, g, f: decode_webp(d, g)),
     ("Sun raster", lambda s: s.startswith(SUNRAS_SIGNATURE),
      lambda d, g, f: decode_sunras(d, g)),
     ("PxM", is_pxm, lambda d, g, f: decode_pxm(d, g)),
@@ -81,8 +87,6 @@ _DECODERS = (
 
 def _unread(s: bytes) -> Optional[str]:
     """The name of a format cv2 reads that the port does not, or None."""
-    if s[:4] == b"RIFF" and s[8:12] == b"WEBP":
-        return "WebP"
     if s.startswith((b"\xff\x4f\xff\x51",
                      b"\x00\x00\x00\x0cjP  \r\n\x87\n")):
         return "JPEG 2000"

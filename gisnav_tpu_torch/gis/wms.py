@@ -12,14 +12,15 @@ Replies are decoded by their content, as ``cv2.imdecode`` decodes them
 card machine has no OpenCV): JPEG, PNG (MapServer's ``image/png;
 mode=8bit`` palette PNG included), TIFF (MapServer's GTiff output, and a
 float DEM, which cv2 does not read under the grey flag: it comes back as
-None and the DEM as zeros, as in JAX), GIF, BMP, Netpbm, Sun raster and
+None and the DEM as zeros, as in JAX), WebP (``image/webp``, which
+MapServer and GeoServer serve), GIF, BMP, Netpbm, Sun raster and
 Radiance HDR, in cv2's layout and, under the grey flag, turned upright by
 an EXIF orientation. The default format is the JAX client's
 ``image/jpeg``. A network error, an XML ServiceException or a reply that
 is no image cv2 would decode gives None, as in JAX (the GIS node keeps its
-previous map); a variant the port does not read yet (WebP, JPEG 2000,
-AVIF, a TIFF compression such as CCITT, arithmetic-coded, lossless,
-12-bit or hierarchical JPEG) raises ``ValueError`` naming it.
+previous map); a variant the port does not read yet (JPEG 2000, AVIF, a
+TIFF compression such as CCITT, arithmetic-coded, lossless, 12-bit or
+hierarchical JPEG) raises ``ValueError`` naming it.
 """
 from __future__ import annotations
 

@@ -2,10 +2,11 @@
 
 ``build_native_lib(name)`` compiles ``native/<name>.cpp`` once with the host
 C++ compiler (``$CXX``, else ``g++``) into ``native/_build/`` and returns
-the library's path, for ``ctypes`` to load. Three sources live here:
+the library's path, for ``ctypes`` to load. Four sources live here:
 ``shmbus.cpp`` (the shared-memory bus, ``nodes/bus.py``), ``jpeg.cpp``
-(the JPEG codec, ``gis/jpeg.py``) and ``imgcodecs.cpp`` (the byte coders
-of TIFF, GIF, BMP and Radiance HDR, ``gis/coders.py``). A library's name hashes its source and
+(the JPEG codec, ``gis/jpeg.py``), ``imgcodecs.cpp`` (the byte coders
+of TIFF, GIF, BMP and Radiance HDR, ``gis/coders.py``) and ``webp.cpp``
+(the WebP decoder, ``gis/webp.py``). A library's name hashes its source and
 the flags, so an edited source is rebuilt and a built one reused; each
 build writes a temporary file of its own and renames it into place, so
 processes that build at once all end with one whole library. A failed build
@@ -26,7 +27,7 @@ NATIVE_BUILD_DIR = os.path.join(NATIVE_DIR, "_build")
 _CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17"]
 _LD_FLAGS = ["-shared", "-lrt"]
 _WHAT = {"shmbus": "shm bus", "jpeg": "JPEG codec",
-         "imgcodecs": "image byte coders"}
+         "imgcodecs": "image byte coders", "webp": "WebP decoder"}
 _build_lock = threading.Lock()
 
 

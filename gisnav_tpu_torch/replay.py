@@ -31,15 +31,16 @@ yaw. ``fused`` also runs the per-frame fixes through the port's
 Images are read by their content, whatever their names, as ``cv2.imread``
 reads them (``gis/imgcodecs.py`` ``read_image``; the card machine has no
 OpenCV): PNG, JPEG, TIFF and BigTIFF (a GDAL export: tiled or striped,
-deflate, LZW or PackBits, predictors 2 and 3, uint8 to float32), GIF, BMP,
-PBM / PGM / PPM / PAM, PFM, Sun raster and Radiance HDR. The map and the
-frames are read as ``IMREAD_GRAYSCALE`` (each format's grey as OpenCV
-makes it; a JPEG or PNG turned upright by its EXIF orientation, a TIFF by
+deflate, LZW or PackBits, predictors 2 and 3, uint8 to float32), WebP
+(lossless, lossy, with alpha, extended or animated: the first frame), GIF,
+BMP, PBM / PGM / PPM / PAM, PFM, Sun raster and Radiance HDR. The map and
+the frames are read as ``IMREAD_GRAYSCALE`` (each format's grey as OpenCV
+makes it; a JPEG, WebP or PNG turned upright by its EXIF orientation, a TIFF by
 its ``Orientation`` tag, and a TIFF whose orientation transposes refused,
 as ``cv2.imread`` refuses it). The DEM is read as ``IMREAD_UNCHANGED`` and
 must be grey: an 8 or 16-bit PNG, or a uint16, int16 or float32 GeoTIFF
 (heights times ``dem_scale``). A file cv2 would not read, or a variant the
-port does not read yet (WebP, JPEG 2000, AVIF, a TIFF compression such as
+port does not read yet (JPEG 2000, AVIF, a TIFF compression such as
 CCITT; arithmetic-coded, lossless, 12-bit or hierarchical JPEG), raises
 ``ValueError``.
 """

@@ -1,12 +1,16 @@
-"""OpenCV's drawing calls that the demo world makes, in numpy (no cv2).
+"""OpenCV's drawing calls that the demo world and the developer images make,
+in numpy (no cv2).
 
 ``utils/world.py`` ``synthetic_world`` draws rectangles, discs and thick
 lines on a uint8 image and blurs it as the JAX package's generator does
 through ``cv2.rectangle``, ``cv2.circle``, ``cv2.line`` and
-``cv2.GaussianBlur``. The card machine has no OpenCV, so these are
-OpenCV's own algorithms (``imgproc/src/drawing.cpp`` and the bit-exact
-Gaussian of ``smooth.dispatch.cpp``), integer for integer, each held pixel
-for pixel against ``cv2`` by ``tests/test_torch_demo_world.py``:
+``cv2.GaussianBlur``; ``nodes/viz.py`` draws anti-aliased lines, discs and a
+cross on BGR images as the JAX module does through ``cv2.line`` (``LINE_AA``),
+``cv2.circle`` and ``cv2.drawMarker``. The card machine has no OpenCV, so
+these are OpenCV 5.0's own algorithms (``imgproc/src/drawing.cpp`` and the
+bit-exact Gaussian of ``smooth.dispatch.cpp``), integer for integer, each
+held pixel for pixel against ``cv2`` by ``tests/test_torch_demo_world.py``
+and ``tests/test_torch_viz.py``:
 
 - :func:`rectangle`: a filled rectangle (``thickness=-1``), the inclusive
   box between its corners, clipped;
@@ -16,14 +20,21 @@ for pixel against ``cv2`` by ``tests/test_torch_demo_world.py``:
   Bresenham's line from the left end; a thicker one is first cut to the
   image grown by the thickness on each side, in integers, then drawn as
   the quadrilateral of 16-bit fixed-point corners that ``FillConvexPoly``
-  fills, with its edges drawn, and a filled circle at each end);
+  fills, with its edges drawn, and a filled circle at each end); or a
+  ``LINE_AA`` line of thickness 1: ``LineAA``'s walk along the major axis
+  in 16-bit fixed point, three pixels a step weighted by its filter and
+  slope-correction tables and its end-point corrections, each pixel
+  blended toward the colour twice with the same weight (as OpenCV 5.0
+  does);
 - :func:`gaussian_blur_3x3`: ``GaussianBlur(img, (3, 3), sigma)`` on uint8,
   the kernel in 8 fractional bits, the two passes in integers, a reflect-101
   border and one rounding at the end.
 
-They draw into a 2-D C-contiguous uint8 array in place (the blur returns a
-new one) and take only what the demo world needs: any other argument
-raises ``ValueError``. Coordinates may lie off the image on either side.
+They draw in place into a C-contiguous uint8 array, grey (H, W) with a
+grey level for colour or BGR (H, W, 3) with a (B, G, R) colour (the blur
+returns a new grey one), and take only what these callers need: any other
+argument raises ``ValueError``. Coordinates may lie off the image on either
+side.
 """
 from __future__ import annotations
 
@@ -32,20 +43,34 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["rectangle", "circle", "line", "gaussian_blur_3x3"]
+__all__ = ["rectangle", "circle", "line", "gaussian_blur_3x3", "LINE_8",
+           "LINE_AA"]
 
 _SHIFT = 16  # drawing.cpp's XY_SHIFT: 16 fractional bits
 _ONE = 1 << _SHIFT
 _HALF = _ONE >> 1
 _MAX_THICKNESS = 32767  # drawing.cpp's MAX_THICKNESS
 _DBL_EPSILON = float(np.finfo(np.float64).eps)
+LINE_8, LINE_AA = 8, 16  # cv2's line types
+# LineAA's tables: the anti-aliasing filter by distance (1/32 px), and the
+# slope correction by slope (1/32)
+_FILTER = np.array([
+    168, 177, 185, 194, 202, 210, 218, 224, 231, 236, 241, 246, 249, 252,
+    254, 254, 254, 254, 252, 249, 246, 241, 236, 231, 224, 218, 210, 202,
+    194, 185, 177, 168, 158, 149, 140, 131, 122, 114, 105, 97, 89, 82, 75,
+    68, 62, 56, 50, 45, 40, 36, 32, 28, 25, 22, 19, 16, 14, 12, 11, 9, 8,
+    7, 5, 5], np.int64)
+_SLOPE_CORR = (181, 181, 181, 182, 182, 183, 184, 185, 187, 188, 190, 192,
+               194, 196, 198, 201, 203, 206, 209, 211, 214, 218, 221, 224,
+               227, 231, 235, 238, 242, 246, 250, 254)
 
 
 def _canvas(img) -> np.ndarray:
     if not (isinstance(img, np.ndarray) and img.dtype == np.uint8
-            and img.ndim == 2 and img.flags.c_contiguous
-            and img.flags.writeable):
-        raise ValueError("draw on a writable 2-D C-contiguous uint8 array")
+            and (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3))
+            and img.flags.c_contiguous and img.flags.writeable):
+        raise ValueError("draw on a writable C-contiguous uint8 array, "
+                         "(H, W) grey or (H, W, 3) BGR")
     return img
 
 
@@ -59,10 +84,19 @@ def _point(p) -> Tuple[int, int]:
     return int(x), int(y)
 
 
-def _colour(color) -> int:
-    if isinstance(color, (int, np.integer)) and 0 <= color <= 255:
-        return int(color)
-    raise ValueError(f"color is one grey level 0-255, not {color!r}")
+def _colour(color, img: np.ndarray):
+    """A grey level for a grey canvas, a (B, G, R) tuple for a BGR one."""
+    if img.ndim == 2:
+        if isinstance(color, (int, np.integer)) and 0 <= color <= 255:
+            return int(color)
+        raise ValueError(f"color on a grey image is one level 0-255, not "
+                         f"{color!r}")
+    if (isinstance(color, (tuple, list)) and len(color) == 3
+            and all(isinstance(c, (int, np.integer)) and 0 <= c <= 255
+                    for c in color)):
+        return tuple(int(c) for c in color)
+    raise ValueError(f"color on a BGR image is (B, G, R), each 0-255, not "
+                     f"{color!r}")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -71,9 +105,9 @@ def _cdiv(a: int, b: int) -> int:
     return q if (a < 0) == (b < 0) else -q
 
 
-def _hline(img: np.ndarray, y: int, x0: int, x1: int, color: int) -> None:
+def _hline(img: np.ndarray, y: int, x0: int, x1: int, color) -> None:
     """The span ``x0..x1`` of row ``y``, clipped to the image."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     if 0 <= y < h and x1 >= 0 and x0 < w:
         img[y, max(x0, 0):min(x1, w - 1) + 1] = color
 
@@ -118,18 +152,17 @@ def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int
     return x1, y1, x2, y2
 
 
-def _put(img: np.ndarray, xs: np.ndarray, ys: np.ndarray, color: int
-         ) -> None:
-    h, w = img.shape
+def _put(img: np.ndarray, xs: np.ndarray, ys: np.ndarray, color) -> None:
+    h, w = img.shape[:2]
     ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
     img[ys[ok], xs[ok]] = color
 
 
 def _line_fixed(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
-                color: int) -> None:
+                color) -> None:
     """drawing.cpp's ``Line2``: a 1-px line between two points in 16-bit
     fixed point (a thick line's polygon edges)."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     cut = _clip_line(w << _SHIFT, h << _SHIFT, x1, y1, x2, y2)
     if cut is None:
         return
@@ -160,10 +193,10 @@ def _line_fixed(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
 
 
 def _line_8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
-            color: int) -> None:
+            color) -> None:
     """drawing.cpp's ``Line`` with 8-connectivity: the ``LineIterator``'s
     Bresenham line, clipped, drawn from its left end."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
         cut = _clip_line(w, h, x1, y1, x2, y2)
         if cut is None:
@@ -196,12 +229,12 @@ def _line_8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
         _put(img, x1 + major, y1 + sy * minor, color)
 
 
-def _fill_convex_fixed(img: np.ndarray, v: np.ndarray, color: int) -> None:
+def _fill_convex_fixed(img: np.ndarray, v: np.ndarray, color) -> None:
     """drawing.cpp's ``FillConvexPoly`` for ``LINE_8`` at ``shift`` 16:
     the edges drawn with ``Line2``, then the rows between the two edge
     walkers filled, each walker's x stepping by its rounded slope from the
     vertex it started at."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     n = len(v)
     for i in range(n):
         x0, y0 = v[i - 1]
@@ -257,7 +290,7 @@ def _fill_convex_fixed(img: np.ndarray, v: np.ndarray, color: int) -> None:
 
 
 def _circle_filled(img: np.ndarray, cx: int, cy: int, radius: int,
-                   color: int) -> None:
+                   color) -> None:
     """drawing.cpp's ``Circle`` with ``fill``: the midpoint algorithm's
     four horizontal spans an octant step, clipped."""
     err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
@@ -281,10 +314,10 @@ def rectangle(img: np.ndarray, pt1, pt2, color, thickness: int) -> None:
     both included."""
     img = _canvas(img)
     (x1, y1), (x2, y2) = _point(pt1), _point(pt2)
-    color = _colour(color)
+    color = _colour(color, img)
     if thickness != -1:
         raise ValueError("only a filled rectangle (thickness -1)")
-    h, w = img.shape
+    h, w = img.shape[:2]
     xa, xb = max(min(x1, x2), 0), min(max(x1, x2), w - 1)
     ya, yb = max(min(y1, y2), 0), min(max(y1, y2), h - 1)
     if xa <= xb and ya <= yb:
@@ -297,7 +330,7 @@ def circle(img: np.ndarray, center, radius: int, color,
     ``thickness=-1`` (filled, ``LINE_8``)."""
     img = _canvas(img)
     cx, cy = _point(center)
-    color = _colour(color)
+    color = _colour(color, img)
     if thickness != -1:
         raise ValueError("only a filled circle (thickness -1)")
     if not isinstance(radius, (int, np.integer)) or radius < 0:
@@ -305,21 +338,91 @@ def circle(img: np.ndarray, center, radius: int, color,
     _circle_filled(img, cx, cy, int(radius), color)
 
 
-def line(img: np.ndarray, pt1, pt2, color, thickness: int = 1) -> None:
-    """``cv2.line(img, pt1, pt2, color, thickness)`` (``LINE_8``, no
-    shift)."""
+def _line_aa(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
+             color) -> None:
+    """drawing.cpp's ``LineAA`` between two points in 16-bit fixed point:
+    the segment clipped to the image, then a walk along the major axis, a
+    step a pixel from the first end's pixel to one past the second's, the
+    minor coordinate advancing by the truncated slope; each step weights
+    the three pixels around the line by the filter at its 1/32-px distance
+    times the slope correction (the first two and last two steps by the
+    end-point table of the ends' 1/16-px fractions), and each pixel moves
+    toward the colour by ``((colour - value) * weight + 127) >> 8`` twice."""
+    h, w = img.shape[:2]
+    cut = _clip_line(w << _SHIFT, h << _SHIFT, x1, y1, x2, y2)
+    if cut is None:
+        return
+    x1, y1, x2, y2 = cut
+    dx, dy = x2 - x1, y2 - y1
+    horizontal = abs(dx) > abs(dy)
+    if not horizontal:  # walk along y: swap the axes
+        x1, y1, x2, y2, dx, dy = y1, x1, y2, x2, dy, dx
+    if dx < 0:
+        x1, y1, x2, y2, dx, dy = x2, y2, x1, y1, -dx, -dy
+    step = _cdiv(dy << _SHIFT, dx | 1)
+    x2 += _ONE
+    ecount = (x2 >> _SHIFT) - (x1 >> _SHIFT)
+    y1 += ((step * -(x1 & (_ONE - 1))) >> _SHIFT) + _HALF
+    slope = (step >> (_SHIFT - 5)) & 0x3f
+    if step < 0:
+        slope ^= 0x3f
+    i = (x1 >> (_SHIFT - 7)) & 0x78  # the ends' fractions, in 1/16 px
+    j = ((x2 - _ONE) >> (_SHIFT - 7)) & 0x78
+    slope = 0x100 if slope & 0x20 else _SLOPE_CORR[slope]
+    t0, t1, t2 = slope << 7, ((0x78 - i) | 4) * slope, (j | 4) * slope
+    both = ((((j - i) & 0x78) | 4) * slope >> 8) & 0x1ff  # a 1-2 step line
+    ep = np.array([0, both, (t1 >> 8) & 0x1ff, both,
+                   ((((j - i) + 0x80) | 4) * slope >> 8) & 0x1ff,
+                   ((t1 + t0) >> 8) & 0x1ff, (t2 >> 8) & 0x1ff,
+                   ((t2 + t0) >> 8) & 0x1ff, slope], np.int64)
+    n = np.arange(ecount + 1, dtype=np.int64)
+    sc, ec = n, ecount - n
+    corr = ep[(((sc >= 2) + 1) & (sc | 2)) * 3 + (((ec >= 2) + 1) & (ec | 2))]
+    major = (x1 >> _SHIFT) + n
+    minor_pos = y1 + n * step
+    dist = (minor_pos >> (_SHIFT - 5)) & 31
+    size_major, size_minor = (w, h) if horizontal else (h, w)
+    keep = (major >= 0) & (major < size_major)
+    c = np.asarray(color, np.int64)
+    for off, k in ((0, dist + 32), (1, dist), (2, 63 - dist)):
+        minor = (minor_pos >> _SHIFT) - 1 + off
+        ok = keep & (minor >= 0) & (minor < size_minor)
+        a = ((corr[ok] * _FILTER[k[ok]]) >> 8) & 0xff
+        xs, ys = (major[ok], minor[ok]) if horizontal else (minor[ok],
+                                                            major[ok])
+        v = img[ys, xs].astype(np.int64)
+        if img.ndim == 3:
+            a = a[:, None]
+        for _ in range(2):
+            v = v + (((c - v) * a + 127) >> 8)
+        img[ys, xs] = v.astype(np.uint8)
+
+
+def line(img: np.ndarray, pt1, pt2, color, thickness: int = 1,
+         line_type: int = LINE_8) -> None:
+    """``cv2.line(img, pt1, pt2, color, thickness, line_type)`` (no
+    shift): ``LINE_8`` of any thickness, ``LINE_AA`` of thickness 1."""
     img = _canvas(img)
     (x0, y0), (x1, y1) = _point(pt1), _point(pt2)
-    color = _colour(color)
+    color = _colour(color, img)
     if not isinstance(thickness, (int, np.integer)) \
             or not 0 < thickness <= _MAX_THICKNESS:
         raise ValueError(f"thickness is an integer 1-{_MAX_THICKNESS}, "
                          f"not {thickness!r}")
+    if line_type not in (LINE_8, LINE_AA):
+        raise ValueError(f"line_type is LINE_8 (8) or LINE_AA (16), not "
+                         f"{line_type!r}")
     thickness = int(thickness)
+    if line_type == LINE_AA:
+        if thickness != 1:
+            raise ValueError("only a LINE_AA line of thickness 1")
+        _line_aa(img, x0 << _SHIFT, y0 << _SHIFT, x1 << _SHIFT, y1 << _SHIFT,
+                 color)
+        return
     if thickness == 1:
         _line_8(img, x0, y0, x1, y1, color)
         return
-    h, w = img.shape  # cut to the image grown by the thickness first
+    h, w = img.shape[:2]  # cut to the image grown by the thickness first
     cut = _clip_line(w + 2 * thickness, h + 2 * thickness, x0 + thickness,
                      y0 + thickness, x1 + thickness, y1 + thickness)
     if cut is None:

@@ -260,7 +260,8 @@ def write_replay_dataset(world: World, out: str, frames: int = 12,
                          hw: Tuple[int, int] = (480, 640),
                          lonlat0: Tuple[float, float] = (24.04, 60.025),
                          map_px: int = 0,
-                         image_format: str = "png") -> dict:
+                         image_format: str = "png",
+                         coverage: float = 3.0) -> dict:
     """Write a replay dataset of a straight flight over ``world`` into
     ``out``, the map and frames as ``image_format`` ("png", "jpeg" at
     ``cv2.imencode``'s quality 95, or "tiff": a GIS export, the map a
@@ -270,8 +271,9 @@ def write_replay_dataset(world: World, out: str, frames: int = 12,
     (``map.png``, ``frames/<stamp_us>.png``), with the defaults of
     ``tools/make_replay_dataset.py``: frame i at ``lonlat0 + i * (1e-4,
     5e-5)`` deg, ``alt_m`` over a flat world (DEM 0), f = 400 px at 640 px
-    width, the map a square at 3x the frame's larger footprint side around
-    the first frame, ``map_px`` a side (0: ``ceil(diagonal / 8) * 8``).
+    width, the map a square at ``coverage`` (3) times the frame's larger
+    footprint side around the first frame, ``map_px`` a side (0:
+    ``ceil(diagonal / 8) * 8``).
     Returns the dataset's poses and map size."""
     if image_format not in ("png", "jpeg", "tiff"):
         raise ValueError(f"image_format {image_format!r}: png, jpeg or "
@@ -282,7 +284,7 @@ def write_replay_dataset(world: World, out: str, frames: int = 12,
     f = 400.0 * max(w, h) / 640.0
     k = np.array([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]])
     map_px = map_px or int(np.ceil(float(np.hypot(h, w)) / 8)) * 8
-    side_px = int(round(3.0 * alt_m * max(h, w) / f / world.gsd_m))
+    side_px = int(round(coverage * alt_m * max(h, w) / f / world.gsd_m))
     cx, cy = world.to_px(*lonlat0)
     x0, y0 = int(cx - side_px / 2), int(cy - side_px / 2)
     left, top = world.to_lonlat(x0, y0)

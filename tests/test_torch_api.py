@@ -157,15 +157,8 @@ SUBPACKAGES = sorted(
     if os.path.isfile(os.path.join(PORT_PKG, d, "__init__.py")))
 
 _HYGIENE = r"""
-import json, os, subprocess, sys
+import json, os, shutil, subprocess, sys, tempfile
 root, sub = sys.argv[1], sys.argv[2]
-builds = [os.path.join(root, "gisnav_tpu_torch", d, "_build")
-          for d in ("kernels", "native")]
-
-def listing():
-    return {b: sorted(os.listdir(b)) if os.path.isdir(b) else None
-            for b in builds}
-
 started = []
 real = subprocess.Popen.__init__
 
@@ -175,17 +168,31 @@ def spy(self, *a, **kw):
 
 subprocess.Popen.__init__ = spy
 os.system = lambda cmd: started.append(cmd) or 0
+import gisnav_tpu_torch.native as native
+# native libraries build into a private, empty directory: one this import
+# builds lands there, while other test processes building into the
+# checkout's directory at the same time do not count
+native.NATIVE_BUILD_DIR = tempfile.mkdtemp()
+builds = [native.NATIVE_BUILD_DIR,
+          os.path.join(root, "gisnav_tpu_torch", "kernels", "_build")]
+
+def listing():
+    return {b: sorted(os.listdir(b)) if os.path.isdir(b) else None
+            for b in builds}
+
 before = listing()
 import gisnav_tpu_torch
 bare_nodes = "gisnav_tpu_torch.nodes" in sys.modules
 __import__("gisnav_tpu_torch." + sub)
+builds_same = listing() == before
+shutil.rmtree(native.NATIVE_BUILD_DIR)
 print(json.dumps({
     "bare_nodes": bare_nodes,
     "forbidden": sorted(m for m in sys.modules if m.split(".")[0] in (
         "cv2", "PIL", "requests", "triton", "jax", "jaxlib", "flax",
         "gisnav_tpu")),
     "started": started,
-    "builds_same": listing() == before}))
+    "builds_same": builds_same}))
 """
 
 

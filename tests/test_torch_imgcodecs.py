@@ -690,10 +690,17 @@ def test_near_signatures_are_no_format(data):
 
 @pytest.mark.parametrize("fmt", ["WebP", "JPEG 2000", "AVIF"])
 def test_formats_not_ported_raise(fmt):
+    """JPEG 2000 and AVIF, which cv2 reads, raise naming themselves; WebP
+    (``gis/webp.py``) is read as cv2 reads it."""
     img = _rng(fmt).integers(0, 256, (64, 64, 3)).astype(np.uint8)
     ext = {"WebP": ".webp", "JPEG 2000": ".jp2", "AVIF": ".avif"}[fmt]
     data = cv2.imencode(ext, img)[1].tobytes()
     assert cv2.imdecode(np.frombuffer(data, np.uint8), -1) is not None
+    if fmt == "WebP":
+        for flag in FLAGS:
+            _assert_same(cv2.imdecode(np.frombuffer(data, np.uint8), flag),
+                         decode_image(data, flag), fmt)
+        return
     with pytest.raises(ValueError, match=fmt):
         decode_image(data)
 

@@ -1,49 +1,39 @@
-"""The port's developer images (``nodes/viz.py``, drawn in numpy) against
-the JAX package's (drawn with OpenCV), and the pose node's dev topics.
+"""The port's developer images (``nodes/viz.py``, drawn in numpy by
+``utils/drawing.py``) against the JAX package's (drawn with OpenCV), and the
+pose node's dev topics.
 
-- Backgrounds: every pixel neither image marks equals ``cv2.cvtColor(...,
-  COLOR_GRAY2BGR)`` of the input, in both.
-- Marks: every pixel the JAX image marks lies within 1 px (8-neighbour) of
-  a port mark, and the reverse; so do the marks of each kind. In the match
-  image (keypoints inside both images, as the pose node gives them): a
-  pixel of the flat keypoint colour lies within 1 px of a red-over-green
-  mark of the other image, a clearly green line pixel (green 30 levels
-  over red) within 1 px of a green-over-red one (where a later
-  anti-aliased line crosses a disc, the blend may read as either). In the
-  position image each of the three flat colours is equal pixel for pixel.
-- The same ``None`` cases (a position off the raster) and ``max_draw``.
+- The match and position images equal the JAX module's pixel for pixel on
+  seeded keypoints anywhere inside both images (anti-aliased match lines,
+  keypoint discs, inlier discs, the position disc and cross), and with
+  ``max_draw`` and masked pairs.
+- ``utils/drawing.py``'s ``LINE_AA`` line equals ``cv2.line(..., 1,
+  LINE_AA)`` pixel for pixel on grey and BGR canvases over seeded
+  segments: shallow, steep, diagonal, zero-length, off the canvas on
+  either side, and canvases of 1 to 3 pixels a side (the clipping edges).
+- The same ``None`` cases (a position off the raster).
 - ``PoseNode(dev_topics=True)`` publishes both images on a classical fix.
 """
+import zlib
+
 import cv2
 import numpy as np
 import pytest
-from scipy.ndimage import binary_dilation
 
 from gisnav_tpu.nodes import viz as jviz
 from gisnav_tpu_torch.nodes import viz as tviz
-
-NEAR = np.ones((3, 3), bool)
-
-
-def _near(a, b):
-    """Whether every pixel of mask ``a`` lies within 1 px of mask ``b``."""
-    return not (a & ~binary_dilation(b, NEAR)).any()
+from gisnav_tpu_torch.utils import drawing
 
 
-def _red_over_green(img, marked):
-    return marked & (img[..., 2].astype(int) > img[..., 1].astype(int))
-
-
-def _green_over_red(img, marked, margin=0):
-    return marked & (img[..., 1].astype(int) > img[..., 2].astype(int)
-                     + margin)
+def _equal(ours, ref):
+    assert ours.dtype == ref.dtype and ours.shape == ref.shape
+    assert np.array_equal(ours, ref), np.argwhere(ours != ref)[:8].tolist()
 
 
 @pytest.mark.parametrize("seed,n", [(0, 40), (1, 5), (2, 120), (3, 200),
                                     (4, 60)])
 def test_draw_matches_marks_within_one_pixel(seed, n):
     """Keypoints anywhere inside both images, as the pose node gives
-    them."""
+    them: the port's image is the JAX module's, pixel for pixel."""
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 256, (120, 160)).astype(np.uint8)
     r = rng.integers(0, 256, (150, 200)).astype(np.uint8)
@@ -51,26 +41,10 @@ def test_draw_matches_marks_within_one_pixel(seed, n):
     kr = rng.uniform(0, [199, 149], (n, 2))
     mask = rng.random(n) > 0.3
     ours, ref = (m.draw_matches(q, r, kq, kr, mask) for m in (tviz, jviz))
-    assert ours.shape == ref.shape == (150, 360, 3)
-    assert ours.dtype == ref.dtype == np.uint8
-    bg = np.zeros_like(ref)
-    bg[:120, :160] = cv2.cvtColor(q, cv2.COLOR_GRAY2BGR)
-    bg[:150, 160:] = cv2.cvtColor(r, cv2.COLOR_GRAY2BGR)
-    m_ours, m_ref = ((img != bg).any(axis=2) for img in (ours, ref))
-    plain = ~m_ours & ~m_ref
-    assert np.array_equal(ours[plain], bg[plain])
-    assert np.array_equal(ref[plain], bg[plain])
-    assert _near(m_ref, m_ours) and _near(m_ours, m_ref)
-    for a, b, ma, mb in ((ours, ref, m_ours, m_ref), (ref, ours, m_ref,
-                                                       m_ours)):
-        # keypoint discs: the flat keypoint colour of one image near a
-        # keypoint-coloured (red over green) mark of the other
-        assert _near((a == (0, 120, 255)).all(2), _red_over_green(b, mb))
-        # lines: a clearly green mark of one image near a green mark of
-        # the other (where a line crosses a disc the blend is either)
-        assert _near(_green_over_red(a, ma, 30), _green_over_red(b, mb))
+    assert ours.shape == (150, 360, 3)
+    _equal(ours, ref)
     assert (ours == (0, 120, 255)).all(2).any()
-    assert _green_over_red(ours, m_ours, 30).any()
+    assert (ours[..., 1] > ours[..., 2].astype(int) + 30).any()
 
 
 def test_draw_matches_max_draw_and_masked_pairs():
@@ -78,15 +52,17 @@ def test_draw_matches_max_draw_and_masked_pairs():
     r = np.full((64, 80), 60, np.uint8)
     kq = np.array([[10.0, 10.0], [20.0, 20.0], [5.0, 5.0]])
     kr = np.array([[15.0, 12.0], [25.0, 22.0], [7.0, 9.0]])
+    imgs = []
     for mod in (tviz, jviz):
         img = mod.draw_matches(q, r, kq, kr, np.array([True, True, False]))
         assert img.shape == (64, 144, 3)
         assert (img[5, 5] == (30, 30, 30)).all()  # masked out: not drawn
+        imgs.append(img)
+    _equal(*imgs)
     k = np.tile(np.array([[5.0, 5.0], [25.0, 20.0]]), (25, 1))
     ours, ref = (m.draw_matches(q, r, k, k, np.ones(50, bool), max_draw=3)
                  for m in (tviz, jviz))
-    assert np.array_equal((ours != 30).any(2), (ours != 30).any(2))
-    assert _near((ref != ours).any(2), (ref != ours).any(2))
+    _equal(ours, ref)
 
 
 @pytest.mark.parametrize("cam", [[50.7, 40.2], [2.0, 97.9], [119.5, 0.3],
@@ -99,14 +75,61 @@ def test_draw_position_marks_equal(cam):
     for args in ((), (pts, mask)):
         ours, ref = (m.draw_position(ref_img, np.array([*cam, 1.0]), *args)
                      for m in (tviz, jviz))
-        bg = cv2.cvtColor(ref_img, cv2.COLOR_GRAY2BGR)
-        plain = ~(ours != bg).any(2) & ~(ref != bg).any(2)
-        assert np.array_equal(ours[plain], bg[plain])
-        for colour in ((180, 180, 0), (0, 255, 0), (0, 0, 255)):
-            a, b = ((img == colour).all(2) for img in (ours, ref))
-            assert _near(a, b) and _near(b, a)
-            assert np.array_equal(a, b), colour
-        assert (ours == (0, 255, 0)).all(2).any()
+        _equal(ours, ref)
+        for colour in ((0, 255, 0), (0, 0, 255)):
+            assert (ours == colour).all(2).any(), colour
+
+
+def _aa_segments(kind, rng, h, w):
+    """Seeded segments of one kind on an (h, w) canvas."""
+    for _ in range(24):
+        x0, y0 = (int(v) for v in rng.integers(0, [w, h]))
+        if kind == "shallow":
+            d = rng.integers(-3 * w, 3 * w + 1), rng.integers(-w, w + 1) // 3
+            yield (x0, y0), (x0 + int(d[0]), y0 + int(d[1]))
+        elif kind == "steep":
+            d = rng.integers(-h, h + 1) // 3, rng.integers(-3 * h, 3 * h + 1)
+            yield (x0, y0), (x0 + int(d[0]), y0 + int(d[1]))
+        elif kind == "diagonal":
+            d = int(rng.integers(-h, h + 1))
+            yield (x0, y0), (x0 + d, y0 + d * int(rng.choice([-1, 1])))
+        elif kind == "zero-length":
+            yield (x0, y0), (x0, y0)
+        else:  # off the canvas: either end, or both, outside it
+            p = rng.integers(-2 * max(h, w), 3 * max(h, w), 4)
+            yield (int(p[0]), int(p[1])), (int(p[2]), int(p[3]))
+
+
+@pytest.mark.parametrize("shape", [(97, 131), (1, 1), (2, 3), (3, 1),
+                                   (64, 2)], ids=str)
+@pytest.mark.parametrize("kind", ["shallow", "steep", "diagonal",
+                                  "zero-length", "off-canvas"])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_line_aa_is_cv2(kind, shape, channels):
+    rng = np.random.default_rng(zlib.crc32(repr((kind, shape, channels))
+                                           .encode()))
+    full = shape + ((3,) if channels == 3 else ())
+    img = rng.integers(0, 256, full).astype(np.uint8)
+    for p0, p1 in _aa_segments(kind, rng, *shape):
+        colour = (tuple(int(c) for c in rng.integers(0, 256, 3))
+                  if channels == 3 else int(rng.integers(0, 256)))
+        ours, ref = img.copy(), img.copy()
+        drawing.line(ours, p0, p1, colour, 1, drawing.LINE_AA)
+        cv2.line(ref, p0, p1, colour, 1, cv2.LINE_AA)
+        _equal(ours, ref)
+        img = ref  # later segments cross earlier ones
+
+
+def test_line_aa_rejects_a_thick_line():
+    img = np.zeros((8, 8, 3), np.uint8)
+    for call in (
+            lambda: drawing.line(img, (0, 0), (3, 3), (1, 2, 3), 2,
+                                 drawing.LINE_AA),
+            lambda: drawing.line(img, (0, 0), (3, 3), (1, 2, 3), 1, 4),
+            lambda: drawing.line(img, (0, 0), (3, 3), (1, 2), 1,
+                                 drawing.LINE_AA)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_draw_position_none_off_the_raster():

@@ -1,7 +1,14 @@
 """Image writers for tests and fixtures (numpy and ``zlib``): PNG of every
 colour type and depth PNG allows, Adam7 interlacing, the five row filters
 and any extra chunks, which neither ``cv2.imwrite`` nor Pillow writes all
-of; and EXIF orientation spliced into JPEG bytes."""
+of; EXIF orientation spliced into JPEG bytes; and WebP's RIFF chunks (VP8X,
+ALPH, ANIM, ANMF, EXIF) assembled around bitstreams that cv2 or Pillow
+wrote, for the variants neither writes; and libwebp's own encoder (the
+shared library Pillow bundles, through ``ctypes``) for the encoder
+settings neither cv2 nor Pillow exposes."""
+import ctypes
+import glob
+import os
 import struct
 import zlib
 
@@ -642,3 +649,113 @@ def write_hdr(rgbe: np.ndarray, rle: bool = True,
     h, w = rgbe.shape[:2]
     body = b"".join(hdr_rle_line(r) for r in rgbe) if rle else rgbe.tobytes()
     return header + b"-Y %d +X %d\n" % (h, w) + body
+
+
+# -- WebP: RIFF chunks around bitstreams cv2 or Pillow wrote ----------------
+
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk, padded to an even size."""
+    body = tag + struct.pack("<I", len(payload)) + payload
+    return body + (b"\0" if len(payload) & 1 else b"")
+
+
+def webp_riff(chunks) -> bytes:
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_chunks(data: bytes):
+    """The (tag, payload) chunks of a RIFF WebP file."""
+    out, at = [], 12
+    while at + 8 <= len(data):
+        tag, n = data[at:at + 4], struct.unpack("<I", data[at + 4:at + 8])[0]
+        out.append((tag, data[at + 8:at + 8 + n]))
+        at += 8 + n + (n & 1)
+    return out
+
+
+def webp_vp8x(flags: int, width: int, height: int) -> bytes:
+    """VP8X: flags (0x10 alpha, 0x08 EXIF, 0x02 animation) and canvas."""
+    return webp_chunk(b"VP8X", struct.pack("<I", flags)
+                      + (width - 1).to_bytes(3, "little")
+                      + (height - 1).to_bytes(3, "little"))
+
+
+def webp_anim(background: int = 0xffffffff, loops: int = 0) -> bytes:
+    return webp_chunk(b"ANIM", struct.pack("<IH", background, loops))
+
+
+def webp_anmf(x: int, y: int, width: int, height: int, frame: bytes,
+              duration: int = 100, bits: int = 0) -> bytes:
+    """ANMF: an (even) offset, the frame's size, blend / dispose ``bits``
+    and the frame's ALPH / VP8 / VP8L chunks."""
+    return webp_chunk(b"ANMF", (x // 2).to_bytes(3, "little")
+                      + (y // 2).to_bytes(3, "little")
+                      + (width - 1).to_bytes(3, "little")
+                      + (height - 1).to_bytes(3, "little")
+                      + duration.to_bytes(3, "little") + bytes([bits])
+                      + frame)
+
+
+# libwebp 1.x's WebPConfig fields (ints at these byte offsets) that
+# libwebp_encode sets; WebPPicture's width, height, writer and custom_ptr
+_WEBP_CONFIG = {"lossless": 0, "method": 8, "segments": 24,
+                "sns_strength": 28, "filter_strength": 32,
+                "filter_sharpness": 36, "filter_type": 40, "autofilter": 44,
+                "alpha_compression": 48, "alpha_filtering": 52,
+                "alpha_quality": 56, "pass": 60, "preprocessing": 68,
+                "partitions": 72, "exact": 96}
+_WEBP_ABI = 0x0210  # the encoder ABI of libwebp 1.5 and 1.6
+
+
+def _libwebp() -> ctypes.CDLL:
+    import PIL
+
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                        "pillow.libs")
+    for dep in glob.glob(os.path.join(libs, "libsharpyuv-*.so*")):
+        ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)
+    found = glob.glob(os.path.join(libs, "libwebp-*.so*"))
+    if not found:
+        raise RuntimeError(f"no libwebp beside Pillow in {libs}")
+    return ctypes.CDLL(found[0])
+
+
+def libwebp_encode(img: np.ndarray, quality: float = 75.0, **config
+                   ) -> bytes:
+    """An (h, w, 3) RGB or (h, w, 4) RGBA uint8 image as libwebp's
+    ``WebPEncode`` writes it with ``config``'s WebPConfig fields (filter
+    type, strength and sharpness, token partitions, segments, alpha
+    compression and filtering...), a RIFF file."""
+    lib = _libwebp()
+    cfg = (ctypes.c_uint8 * 512)()
+    if not lib.WebPConfigInitInternal(cfg, 0, ctypes.c_float(quality),
+                                      _WEBP_ABI):
+        raise RuntimeError("WebPConfigInit failed")
+    fields = np.frombuffer(cfg, np.int32)
+    for name, value in config.items():
+        fields[_WEBP_CONFIG[name] // 4] = value
+    if not lib.WebPValidateConfig(cfg):
+        raise ValueError(f"libwebp refuses the config {config}")
+    pic = (ctypes.c_uint8 * 1024)()
+    if not lib.WebPPictureInitInternal(pic, _WEBP_ABI):
+        raise RuntimeError("WebPPictureInit failed")
+    h, w, c = img.shape
+    np.frombuffer(pic, np.int32)[2:4] = (w, h)
+    px = np.ascontiguousarray(img, np.uint8)
+    imp = lib.WebPPictureImportRGBA if c == 4 else lib.WebPPictureImportRGB
+    writer = (ctypes.c_uint8 * 64)()
+    lib.WebPMemoryWriterInit(writer)
+    try:
+        if not imp(pic, px.ctypes.data_as(ctypes.c_void_p), w * c):
+            raise RuntimeError("WebPPictureImport failed")
+        ctypes.c_void_p.from_buffer(pic, 96).value = ctypes.cast(
+            lib.WebPMemoryWrite, ctypes.c_void_p).value
+        ctypes.c_void_p.from_buffer(pic, 104).value = ctypes.addressof(writer)
+        if not lib.WebPEncode(cfg, pic):
+            raise RuntimeError(f"WebPEncode failed with {config}")
+        return ctypes.string_at(ctypes.c_void_p.from_buffer(writer, 0).value,
+                                ctypes.c_size_t.from_buffer(writer, 8).value)
+    finally:
+        lib.WebPMemoryWriterClear(writer)
+        lib.WebPPictureFree(pic)

@@ -13,6 +13,19 @@ and ``chip_smoke.py``'s JPEG phase holds the card machine's build to the
 digests. Needs OpenCV and Pillow (not on the card machine)::
 
     python tools/make_torch_image_fixtures.py [--out tests/data/torch_images]
+        [--webp-out tests/data/torch_webp]
+
+The WebP set (``--webp-out``, its own ``digests.json`` of the same form,
+under 1 MiB with its flight) holds cv2's and Pillow's files of every kind
+the port's decoder reads (VP8L, VP8 at qualities 1-100, ALPH raw and
+compressed with each filter, a palette image, EXIF in VP8X, animations
+with a frame at an offset) and ``flight/``: a replay dataset of
+``utils/world_wms.py`` ``write_replay_dataset`` (path 8's world, 8 frames
+at 1088x1920, the map at 1.3x the footprint) with the map and frames
+written as WebP by cv2 at quality 90, and ``flight/flight.json`` holding
+the call's arguments, the sha256 of the PNG dataset's arrays (so a machine
+without cv2 can check its own PNG dataset is this one) and cv2's grey
+digests of the WebP files.
 
 Content is drawn from the port's seeded world (``utils/world_wms.py``):
 
@@ -64,13 +77,20 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 from gisnav_tpu_torch.utils.world_wms import World  # noqa: E402
 from tests.torch_image_writers import (  # noqa: E402
-    bmp_rle_encode, chunk, exif_tiff, gif_frame, with_exif_app1, write_bmp,
+    bmp_rle_encode, chunk, exif_tiff, gif_frame, webp_anim, webp_anmf,
+    webp_chunk, webp_chunks, webp_riff, webp_vp8x, with_exif_app1, write_bmp,
     write_gif, write_hdr, write_png, write_sun, write_tiff)
 
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_images")
+WEBP_OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests",
+                        "data", "torch_webp")
 FLAGS = {"unchanged": cv2.IMREAD_UNCHANGED, "grayscale": cv2.IMREAD_GRAYSCALE}
 SIZE_LIMIT = 512 * 1024
+WEBP_SIZE_LIMIT = 1024 * 1024  # the WebP set and its flight
+# the flight of chip_smoke.py's path 16 (write_replay_dataset's arguments)
+FLIGHT = {"world": {"seed": 7, "size_px": 3072, "gsd_m": 1.36},
+          "frames": 8, "hw": [1088, 1920], "coverage": 1.3, "quality": 90}
 
 
 def _sos_offsets(data: bytes):
@@ -333,6 +353,98 @@ def other_formats(grey, bgr, rng) -> dict:
     return files
 
 
+def _pil_webp(img: np.ndarray, **kw) -> bytes:
+    """Pillow's WebP of an RGB(A) or grey array."""
+    f = io.BytesIO()
+    Image.fromarray(img).save(f, "WEBP", **kw)
+    return f.getvalue()
+
+
+def _pil_webp_anim(frames, **kw) -> bytes:
+    f = io.BytesIO()
+    ims = [Image.fromarray(x) for x in frames]
+    ims[0].save(f, "WEBP", save_all=True, append_images=ims[1:], **kw)
+    return f.getvalue()
+
+
+def webp_files() -> dict:
+    """name -> WebP file bytes: cv2's and Pillow's files, and chunks
+    assembled around their bitstreams where neither writes a variant."""
+    world = World.make(seed=7, size_px=1024, gsd_m=1.36)
+    r = world.raster
+    g = np.ascontiguousarray(r[300:345, 400:461])  # 45x61
+    c = np.ascontiguousarray(np.stack([g, r[500:545, 100:161],
+                                       r[700:745, 600:661]], axis=2))
+    a = np.ascontiguousarray(np.concatenate(
+        [c, r[100:145, 800:861, None]], axis=2))  # BGRA
+    q = (cv2.IMWRITE_WEBP_QUALITY,)
+    files = {"vp8l_bgr.webp": _cv2(".webp", c),
+             "vp8l_grey.webp": _cv2(".webp", g),
+             "vp8l_bgra.webp": _cv2(".webp", a),
+             "vp8l_1x1.webp": _cv2(".webp", c[:1, :1]),
+             "vp8_grey_q50_13x17.webp": _cv2(".webp", g[:13, :17], *q, 50),
+             "vp8_bgra_q70.webp": _cv2(".webp", a, *q, 70),
+             "vp8_alpha_pil.webp": _pil_webp(a[..., [2, 1, 0, 3]],
+                                             quality=70, alpha_quality=40,
+                                             method=6),
+             "vp8l_palette4_pil.webp": _pil_webp(
+                 (g // 64 * 85).astype(np.uint8), lossless=True)}
+    for quality in (1, 50, 90, 100):
+        files[f"vp8_q{quality}.webp"] = _cv2(".webp", c, *q, quality)
+    vp8 = webp_chunks(files["vp8_q90.webp"])[0][1]
+    vp8l = webp_chunks(files["vp8l_bgr.webp"])[0][1]
+    h, w = g.shape
+    for filt in range(4):  # raw ALPH, each filter
+        alph = bytes([filt << 2]) + a[..., 3].tobytes()
+        files[f"alph_raw_filter{filt}.webp"] = webp_riff(
+            [webp_vp8x(0x10, w, h), webp_chunk(b"ALPH", alph),
+             webp_chunk(b"VP8 ", vp8)])
+    files["exif6_vp8x.webp"] = webp_riff(
+        [webp_vp8x(0x08, w, h), webp_chunk(b"VP8L", vp8l),
+         webp_chunk(b"EXIF", exif_tiff(6, b"II"))])
+    small = webp_chunks(_cv2(".webp", c[:20, :24]))[0][1]
+    files["anim_offset_alpha.webp"] = webp_riff(
+        [webp_vp8x(0x12, 40, 30), webp_anim(),
+         webp_anmf(6, 4, 24, 20, webp_chunk(b"VP8L", small))])
+    files["anim_pil.webp"] = _pil_webp_anim(
+        [c[:30, :40, ::-1], c[10:40, 20:60, ::-1]], quality=60, duration=50)
+    files["vp8_truncated.webp"] = files["vp8_q90.webp"][:300]
+    return files
+
+
+def write_flight(out: str) -> dict:
+    """chip_smoke.py's path-16 flight in ``out``: the PNG dataset of
+    ``FLIGHT`` re-encoded as WebP by cv2, and its manifest."""
+    import shutil
+    import tempfile
+
+    from gisnav_tpu_torch.utils.world_wms import write_replay_dataset
+
+    world = World.make(**FLIGHT["world"])
+    manifest = {**FLIGHT, "png_sha256": {}, "webp_cv2": {}}
+    with tempfile.TemporaryDirectory() as png:
+        write_replay_dataset(world, png, frames=FLIGHT["frames"],
+                             hw=tuple(FLIGHT["hw"]),
+                             coverage=FLIGHT["coverage"])
+        os.makedirs(os.path.join(out, "frames"), exist_ok=True)
+        names = ["map.png"] + [os.path.join("frames", n) for n in sorted(
+            os.listdir(os.path.join(png, "frames")))]
+        for name in names:
+            img = cv2.imread(os.path.join(png, name), cv2.IMREAD_UNCHANGED)
+            data = _cv2(".webp", img, cv2.IMWRITE_WEBP_QUALITY,
+                        FLIGHT["quality"])
+            with open(os.path.join(out, name), "wb") as f:
+                f.write(data)
+            manifest["png_sha256"][name] = pixel_digest(img)
+            manifest["webp_cv2"][name] = pixel_digest(cv2.imdecode(
+                np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
+        for name in ("map.json", "camera.json", "poses.csv"):
+            shutil.copy(os.path.join(png, name), os.path.join(out, name))
+    with open(os.path.join(out, "flight.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    return manifest
+
+
 def _cv2(ext: str, img, *params) -> bytes:
     ok, buf = cv2.imencode(ext, img, list(params))
     assert ok
@@ -366,26 +478,51 @@ def digests(files: dict) -> dict:
     return out
 
 
+def write_set(out: str, files: dict) -> int:
+    """Replace ``out``'s files with ``files`` and their ``digests.json``;
+    returns the files' bytes."""
+    import shutil
+
+    os.makedirs(out, exist_ok=True)
+    for name in os.listdir(out):
+        path = os.path.join(out, name)
+        shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+    for name, data in files.items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+    with open(os.path.join(out, "digests.json"), "w") as f:
+        f.write("{\n" + ",\n".join(  # an entry a line, compact
+            f"{json.dumps(name)}:"
+            f"{json.dumps(d, sort_keys=True, separators=(',', ':'))}"
+            for name, d in sorted(digests(files).items())) + "\n}\n")
+    return sum(len(d) for d in files.values())
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, n))
+               for d, _, names in os.walk(root) for n in names)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=OUT)
+    ap.add_argument("--webp-out", default=WEBP_OUT)
     args = ap.parse_args()
     files = build()
     total = sum(len(d) for d in files.values())
     if total > SIZE_LIMIT:
         raise SystemExit(f"fixtures take {total} bytes, over {SIZE_LIMIT}")
-    os.makedirs(args.out, exist_ok=True)
-    for name in os.listdir(args.out):
-        os.remove(os.path.join(args.out, name))
-    for name, data in files.items():
-        with open(os.path.join(args.out, name), "wb") as f:
-            f.write(data)
-    with open(os.path.join(args.out, "digests.json"), "w") as f:
-        f.write("{\n" + ",\n".join(  # an entry a line, compact
-            f"{json.dumps(name)}:"
-            f"{json.dumps(d, sort_keys=True, separators=(',', ':'))}"
-            for name, d in sorted(digests(files).items())) + "\n}\n")
+    write_set(args.out, files)
     print(f"{len(files)} fixtures, {total} bytes, in {args.out}")
+    webp = webp_files()
+    write_set(args.webp_out, webp)
+    write_flight(os.path.join(args.webp_out, "flight"))
+    total = _tree_bytes(args.webp_out)
+    if total > WEBP_SIZE_LIMIT:
+        raise SystemExit(f"the WebP set takes {total} bytes, over "
+                         f"{WEBP_SIZE_LIMIT}")
+    print(f"{len(webp)} WebP fixtures and the flight, {total} bytes, in "
+          f"{args.webp_out}")
     return 0
 
 
