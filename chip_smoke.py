@@ -15,6 +15,7 @@
     python3 chip_smoke.py --api      # build + path 14 (the library API) only
     python3 chip_smoke.py --demo     # build + path 15 (the demo maps) only
     python3 chip_smoke.py --webp     # build + path 16 (WebP) only
+    python3 chip_smoke.py --jp2      # build + path 17 (JPEG 2000) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -243,9 +244,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bytes, the fetch timed; (d) the host ms of ``decode_image`` on the
    2208-px WebP map and a 1088x1920 WebP frame beside PNG and JPEG of the
    same pixels, with the card's name and power limit;
-20. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+20. path 17: JPEG 2000, read as cv2 5.0 reads it (``gis/jpeg2000.py`` over
+   ``native/jpeg2000.cpp``, built here with g++; this machine has no
+   OpenCV and no OpenJPEG): (a) every committed fixture
+   (``tests/data/torch_jp2``: Pillow's, cv2's and OpenJPEG's encoder's
+   files, JP2 palettes and channel definitions, 12- and 15-bit
+   codestreams, refused and cut files) decoded under both flags, every
+   file of its flight under the grey flag and its DEM unchanged, each
+   pixel digest equal to cv2's; (b) ``replay`` with learned_lg9 at 2048
+   keypoints (the cached runner at 1088x1920) over the committed flight
+   (path 16's world and poses, the map and 8 frames irreversible JPEG 2000
+   at 30:1 and 25:1, a reversible 16-bit DEM in decimetres that
+   ``map.json`` names with ``dem_scale``) and over its PNG twin written
+   here (the DEM decoded here and written as a 16-bit TIFF): exit code 0,
+   every frame valid, K1-K4 launched, every JPEG 2000 fix within
+   ``JP2_FIX_M`` of the truth and ``JP2_MOVE_M`` of the PNG one's, the DEM
+   reaching the runner as cv2's uint16 times ``dem_scale``; (c) the GIS
+   node asking for ``image/jp2`` from a loopback stub that answers with
+   the flight's map: its raster equal to cv2's grey read; (d) the host ms
+   of ``decode_image`` on the 2208-px map, a 1088x1920 frame and a
+   4096x4096 irreversible RGB image (the fixture tile repeated 8 x 8)
+   beside PNG and JPEG of the same pixels, the 4096-px decode's peak
+   resident memory, with the card's name and power limit;
+21. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-21. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+22. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -489,6 +512,7 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "path4_launches", "path6_launches", "path8_launches",
               "path9_launches", "path11_launches", "path13_launches",
               "path14_launches", "path15_launches", "path16_launches",
+              "path17_launches",
               "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
@@ -5578,12 +5602,12 @@ def _replay_learned(data: str, report: str, tag: str) -> dict:
                                      "--max-keypoints", str(WEBP_MAX_KP),
                                      "--out", report])
     s = rep["summary"]
-    log(f"[webp replay {tag}] rc {rc} {json.dumps(s)}; launches {launches}")
+    log(f"[replay {tag}] rc {rc} {json.dumps(s)}; launches {launches}")
     if rc != 0 or s["valid"] != s["frames"]:
-        raise RuntimeError(f"webp replay learned_lg9 {tag}: rc {rc}, {s}")
+        raise RuntimeError(f"replay learned_lg9 {tag}: rc {rc}, {s}")
     idle = [k for k in PATH1_KERNELS if not launches.get(k)]
     if idle:
-        raise RuntimeError(f"webp replay {tag}: {idle} never launched")
+        raise RuntimeError(f"replay {tag}: {idle} never launched")
     ticks = []
     replay(data, weights="learned_lg9", max_keypoints=WEBP_MAX_KP,
            device=DEPLOY_DEVICE,
@@ -5599,7 +5623,7 @@ def webp_replay(root: str) -> dict:
     png = webp_png_flight(root)
     report = os.path.join(root, "r.json")
     out = {"webp": _replay_learned(WEBP_FLIGHT, report, "WebP"),
-           "png": _replay_learned(png, report, "PNG")}
+           "png": _replay_learned(png, report, "WebP's PNG twin")}
     moved = _moved(out["webp"].pop("fixes"), out["png"].pop("fixes"))
     out["webp_to_png"] = {"max_horiz_m": max(m["horiz_m"] for m in moved),
                           "max_up_m": max(m["up_m"] for m in moved)}
@@ -5614,18 +5638,27 @@ def webp_gis_fetch() -> dict:
     """Path 16 (c): the GIS node asking for ``image/webp`` from a loopback
     stub that answers every GetMap with the flight's WebP map: the node's
     raster must be cv2's grey read of those bytes; the fetch timed."""
+    with open(os.path.join(WEBP_FLIGHT, "flight.json")) as f:
+        want = json.load(f)["webp_cv2"]["map.png"]
+    return _gis_fetch("image/webp", WEBP_FLIGHT, want, "webp")
+
+
+def _gis_fetch(ctype: str, flight: str, want: dict, tag: str) -> dict:
+    """The GIS node asking for ``ctype`` from a loopback stub that answers
+    every GetMap with ``flight``'s map file: the node's raster must have
+    digest ``want`` (cv2's grey read of those bytes); ``WEBP_FETCHES``
+    fetches timed."""
     import threading
+    import urllib.parse
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from gisnav_tpu_torch.geometry.bbox import BBox
     from gisnav_tpu_torch.nodes.bus import LocalBus
     from gisnav_tpu_torch.nodes.gis_node import GISNode
 
-    with open(os.path.join(WEBP_FLIGHT, "map.png"), "rb") as f:
+    with open(os.path.join(flight, "map.png"), "rb") as f:
         body = f.read()
-    with open(os.path.join(WEBP_FLIGHT, "flight.json")) as f:
-        want = json.load(f)["webp_cv2"]["map.png"]
-    with open(os.path.join(WEBP_FLIGHT, "map.json")) as f:
+    with open(os.path.join(flight, "map.json")) as f:
         bounds = json.load(f)
     served = []
 
@@ -5633,7 +5666,7 @@ def webp_gis_fetch() -> dict:
         def do_GET(self):  # noqa: N802 (http.server's name)
             served.append(self.path)
             self.send_response(200)
-            self.send_header("Content-Type", "image/webp")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
@@ -5649,7 +5682,7 @@ def webp_gis_fetch() -> dict:
         ms, raster = [], None
         for i in range(WEBP_FETCHES):
             node = GISNode(LocalBus(), params={
-                "wms_url": url, "wms_format": "image/webp",
+                "wms_url": url, "wms_format": ctype,
                 "wms_layers": ["imagery"], "wms_dem_layers": []})
             node._camera_info_cb({"width": 1920, "height": 1088})
             node._bbox_cb({"stamp_us": 1_000_000 + i, "bbox": BBox(
@@ -5665,10 +5698,12 @@ def webp_gis_fetch() -> dict:
         thread.join(timeout=10)
     out = {"bytes": len(body), "requests": len(served),
            "equal": image_digest(raster) == want, **_pcts(ms)}
-    log(f"[webp] the GIS node's image/webp fetch: {json.dumps(out)}")
-    if not out["equal"] or "format=image%2Fwebp" not in served[0]:
-        raise RuntimeError(f"webp: the GIS node's raster {image_digest(raster)}"
-                           f" is not cv2's {want} (requests {served[:1]})")
+    log(f"[{tag}] the GIS node's {ctype} fetch: {json.dumps(out)}")
+    asked = "format=" + urllib.parse.quote(ctype, safe="")
+    if not out["equal"] or asked not in served[0]:
+        raise RuntimeError(f"{tag}: the GIS node's raster "
+                           f"{image_digest(raster)} is not cv2's {want} "
+                           f"(requests {served[:1]})")
     return out
 
 
@@ -5721,6 +5756,291 @@ def phase_webp_path() -> dict:
     return out
 
 
+# -- path 17: JPEG 2000 on the replay and WMS paths --------------------------
+
+# the JPEG 2000 fixtures and path 17's flight (tools/make_torch_image_fixtures.py)
+JP2_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "torch_jp2")
+JP2_FLIGHT = os.path.join(JP2_FIXTURES, "flight")
+JP2_FIX_M = 3.0  # every fix over the JPEG 2000 flight within this of truth
+JP2_MOVE_M = 5.0  # a JPEG 2000 fix from the PNG one's, at most
+JP2_TWIN_MEAN_ABS = 1.5  # grey levels, the PNG twin from the JP2 flight
+JP2_TILE = "rgb512_irr_tile.j2k"  # repeated 8 x 8 into a 4096-px image
+JP2_REPS = (10, 3, 1)  # decodes timed of a frame, the map, the 4096 image
+
+
+def j2k_mosaic(tile: bytes, nx: int, ny: int) -> bytes:
+    """A raw codestream of ``nx`` x ``ny`` tiles, each the one tile of
+    ``tile`` (a one-tile codestream whose tile size is its image size): the
+    main header with ``SIZ``'s image size multiplied, the tile-part
+    repeated under each tile index, EOC. A tile whose size is a multiple of
+    2^levels codes the same wherever it lies, so this is a valid image."""
+    import struct
+
+    siz = tile.index(b"\xff\x51")
+    w, h = struct.unpack(">II", tile[siz + 6:siz + 14])
+    tw, th = struct.unpack(">II", tile[siz + 22:siz + 30])
+    if (tw, th) != (w, h) or tile[-2:] != b"\xff\xd9":
+        raise ValueError("j2k_mosaic: not a one-tile codestream")
+    sot = tile.index(b"\xff\x90\x00\x0a")
+    head = bytearray(tile[:sot])
+    head[siz + 6:siz + 14] = struct.pack(">II", w * nx, h * ny)
+    part = tile[sot:-2]
+    return bytes(head) + b"".join(
+        part[:4] + struct.pack(">H", t) + part[6:]
+        for t in range(nx * ny)) + b"\xff\xd9"
+
+
+def jp2_fixtures() -> dict:
+    """Path 17 (a): every committed JPEG 2000 fixture decoded by
+    ``decode_image`` under both flags, the flight's map and frames under
+    the grey flag (as replay reads them) and its DEM unchanged, each pixel
+    digest equal to cv2's."""
+    from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                                IMREAD_UNCHANGED,
+                                                decode_image)
+
+    with open(os.path.join(JP2_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(JP2_FLIGHT, "flight.json")) as f:
+        flight = json.load(f)
+    flags = {"unchanged": IMREAD_UNCHANGED, "grayscale": IMREAD_GRAYSCALE}
+    cases = [(os.path.join(JP2_FIXTURES, n), key, want[key])
+             for n, want in sorted(digests.items()) for key in flags]
+    cases += [(os.path.join(JP2_FLIGHT, n), "grayscale", want)
+              for n, want in sorted(flight["jp2_cv2"].items())]
+    cases.append((os.path.join(JP2_FLIGHT, flight["dem"]), "unchanged",
+                  flight["dem_cv2"]))
+    bad = []
+    for path, key, want in cases:
+        with open(path, "rb") as f:
+            got = image_digest(decode_image(f.read(), flags[key]))
+        if got != want:
+            bad.append((os.path.relpath(path, JP2_FIXTURES), key, got))
+    out = {"files": len(digests) + len(flight["jp2_cv2"]) + 1,
+           "decodes": len(cases), "mismatches": len(bad)}
+    log(f"[jp2] fixtures against cv2's digests: {json.dumps(out)}")
+    if bad:
+        raise RuntimeError(f"jp2: fixtures not decoded as cv2: {bad}")
+    return out
+
+
+def jp2_png_flight(root: str) -> str:
+    """The PNG twin of the JPEG 2000 flight, written here from its
+    manifest, with the flight's DEM (decoded here, equal to cv2's uint16)
+    as a 16-bit TIFF: its ``camera.json`` and ``poses.csv`` and its
+    ``map.json`` but for the DEM's name must equal the committed flight's,
+    each array lie within ``JP2_TWIN_MEAN_ABS`` grey levels (mean) of the
+    JPEG 2000 file's decode."""
+    from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                                IMREAD_UNCHANGED, read_image)
+    from gisnav_tpu_torch.gis.tiff import encode_tiff
+    from gisnav_tpu_torch.utils.world_wms import World, write_replay_dataset
+
+    with open(os.path.join(JP2_FLIGHT, "flight.json")) as f:
+        manifest = json.load(f)
+    png = os.path.join(root, "flight_png")
+    write_replay_dataset(World.make(**manifest["world"]), png,
+                         frames=manifest["frames"], hw=tuple(manifest["hw"]),
+                         coverage=manifest["coverage"])
+    dem = read_image(os.path.join(JP2_FLIGHT, manifest["dem"]),
+                     IMREAD_UNCHANGED)
+    if image_digest(dem) != manifest["dem_cv2"]:
+        raise RuntimeError(f"jp2: the DEM {image_digest(dem)} is not cv2's")
+    with open(os.path.join(png, "dem.tif"), "wb") as f:
+        f.write(encode_tiff(dem, 8, 2))
+    with open(os.path.join(png, "map.json")) as f:
+        meta = json.load(f)
+    meta.update(dem="dem.tif", dem_scale=manifest["dem_scale"])
+    with open(os.path.join(png, "map.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    bad, same, mean_abs = [], 0, {}
+    with open(os.path.join(JP2_FLIGHT, "map.json")) as f:
+        if {**json.load(f), "dem": "dem.tif"} != meta:
+            bad.append("map.json")
+    for name in ("camera.json", "poses.csv"):
+        with open(os.path.join(png, name)) as a, \
+                open(os.path.join(JP2_FLIGHT, name)) as b:
+            if a.read() != b.read():
+                bad.append(name)
+    for name, want in manifest["png_sha256"].items():
+        arr = read_image(os.path.join(png, name), IMREAD_UNCHANGED)
+        same += image_digest(arr) == want
+        jp2 = read_image(os.path.join(JP2_FLIGHT, name), IMREAD_GRAYSCALE)
+        if arr.shape != jp2.shape:
+            bad.append(name)
+            continue
+        mean_abs[name] = round(float(np.abs(arr.astype(np.int16)
+                                            - jp2).mean()), 3)
+        if mean_abs[name] > JP2_TWIN_MEAN_ABS:
+            bad.append(name)
+    log(f"[jp2] the PNG twin written here: {same} of "
+        f"{len(manifest['png_sha256'])} arrays equal to the fixture tool's; "
+        f"mean |PNG - JP2| {json.dumps(mean_abs)}")
+    if bad:
+        raise RuntimeError(f"jp2: the PNG twin is not the JP2 flight's: "
+                           f"{bad}")
+    return png
+
+
+def jp2_dem_reaches_runner() -> dict:
+    """The flight's DEM as ``load_dataset`` hands it to the runner: cv2's
+    uint16 (its digest in the manifest) times ``dem_scale``, in float32."""
+    from gisnav_tpu_torch.gis.imgcodecs import IMREAD_UNCHANGED, read_image
+    from gisnav_tpu_torch.replay import load_dataset
+
+    with open(os.path.join(JP2_FLIGHT, "flight.json")) as f:
+        manifest = json.load(f)
+    raw = read_image(os.path.join(JP2_FLIGHT, manifest["dem"]),
+                     IMREAD_UNCHANGED)
+    dem = load_dataset(JP2_FLIGHT)["dem"]
+    want = raw.astype(np.float32) * np.float32(manifest["dem_scale"])
+    out = {"digest_is_cv2s": image_digest(raw) == manifest["dem_cv2"],
+           "dtype": str(raw.dtype), "shape": list(raw.shape),
+           "equal": bool(dem.dtype == np.float32
+                         and np.array_equal(dem, want)),
+           "min_m": float(dem.min()), "max_m": float(dem.max())}
+    log(f"[jp2] the DEM reaching the runner: {json.dumps(out)}")
+    if not (out["digest_is_cv2s"] and out["equal"]):
+        raise RuntimeError(f"jp2: the DEM is not cv2's uint16 times "
+                           f"dem_scale: {out}")
+    return out
+
+
+def jp2_replay(root: str) -> dict:
+    """Path 17 (b): the main path's model replayed over the committed JPEG
+    2000 flight and over its PNG twin written here; every JPEG 2000 fix
+    within ``JP2_FIX_M`` of the truth and ``JP2_MOVE_M`` of the PNG one's;
+    the DEM reaching the runner as cv2 reads it."""
+    png = jp2_png_flight(root)
+    report = os.path.join(root, "r.json")
+    out = {"dem": jp2_dem_reaches_runner(),
+           "jp2": _replay_learned(JP2_FLIGHT, report, "JPEG 2000"),
+           "png": _replay_learned(png, report, "JPEG 2000's PNG twin")}
+    fixes = out["jp2"].pop("fixes")
+    worst = {"max_horiz_m": max(r["horiz_m"] for r in fixes),
+             "max_up_m": max(abs(r["up_m"]) for r in fixes)}
+    out["jp2"]["worst"] = worst
+    moved = _moved(fixes, out["png"].pop("fixes"))
+    out["jp2_to_png"] = {"max_horiz_m": max(m["horiz_m"] for m in moved),
+                         "max_up_m": max(m["up_m"] for m in moved)}
+    log(f"[jp2 replay] each fix's move, JPEG 2000 -> PNG flight: {moved}")
+    if max(worst.values()) > JP2_FIX_M:
+        raise RuntimeError(f"jp2: a fix is {worst} from the truth")
+    if max(out["jp2_to_png"].values()) > JP2_MOVE_M:
+        raise RuntimeError(f"jp2: a fix moved {out['jp2_to_png']} from "
+                           f"the PNG flight's")
+    return out
+
+
+def jp2_gis_fetch() -> dict:
+    """Path 17 (c): the GIS node asking for ``image/jp2`` from a loopback
+    stub that answers with the flight's JPEG 2000 map: its raster equal to
+    cv2's grey read of those bytes."""
+    with open(os.path.join(JP2_FLIGHT, "flight.json")) as f:
+        want = json.load(f)["jp2_cv2"]["map.png"]
+    return _gis_fetch("image/jp2", JP2_FLIGHT, want, "jp2")
+
+
+_RSS_PROBE = """
+import json, resource, sys, time
+from gisnav_tpu_torch.gis.imgcodecs import decode_image
+from gisnav_tpu_torch.gis.jpeg2000 import _lib
+
+
+def kb():  # this process's peak resident memory
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+
+_lib()
+data = open(sys.argv[1], "rb").read()
+before = kb()
+t0 = time.perf_counter()
+img = decode_image(data)
+ms = (time.perf_counter() - t0) * 1e3
+peak = kb()
+print(json.dumps({"ms": ms, "shape": list(img.shape),
+                  "decode_rss_mb": (peak - before) / 1024}))
+"""
+# the probe is started by a small Python of its own: a process forked from
+# this one would inherit this one's peak as its own (ru_maxrss survives
+# fork and exec)
+_SPAWN = ("import subprocess, sys; "
+          "sys.exit(subprocess.run(sys.argv[1:]).returncode)")
+
+
+def jp2_decode_times(card: str, root: str) -> list:
+    """Path 17 (d): host ms p50 of ``decode_image`` on the flight's JPEG
+    2000 map (2208 px, 30:1) and one of its 1088x1920 frames (25:1), and
+    on a 4096x4096 irreversible RGB image (``j2k_mosaic`` of the 512-px
+    fixture tile), beside PNG and JPEG (quality 95) of the same pixels; the
+    4096-px decode's peak resident memory in a process of its own."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image
+    from gisnav_tpu_torch.gis.jpeg import encode_jpeg
+    from gisnav_tpu_torch.gis.png import encode_png
+
+    with open(os.path.join(JP2_FIXTURES, JP2_TILE), "rb") as f:
+        big = j2k_mosaic(f.read(), 8, 8)
+    big_path = os.path.join(root, "rgb4096.j2k")
+    with open(big_path, "wb") as f:
+        f.write(big)
+    rows = []
+    for name, reps in (("map.png", JP2_REPS[1]),
+                       ("frames/1000000.png", JP2_REPS[0]),
+                       ("rgb4096.j2k", JP2_REPS[2])):
+        if name == "rgb4096.j2k":
+            data = big
+        else:
+            with open(os.path.join(JP2_FLIGHT, name), "rb") as f:
+                data = f.read()
+        img = decode_image(data)
+        row = {"file": name, "shape": list(img.shape),
+               "jp2_bytes": len(data),
+               "jp2_ms": host_ms(lambda: decode_image(data), 1, reps)}
+        for fmt, encode in (("png", encode_png), ("jpeg", encode_jpeg)):
+            coded = encode(img)
+            row[f"{fmt}_bytes"] = len(coded)
+            row[f"{fmt}_ms"] = host_ms(lambda: decode_image(coded), 1, reps)
+        if name == "rgb4096.j2k":
+            proc = subprocess.run(
+                [sys.executable, "-c", _SPAWN, sys.executable, "-c",
+                 _RSS_PROBE, big_path],
+                capture_output=True, text=True, timeout=300,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            if proc.returncode != 0:
+                raise RuntimeError(f"jp2: the RSS probe failed: "
+                                   f"{proc.stderr[-2000:]}")
+            row["rss_probe"] = json.loads(proc.stdout.strip().splitlines()
+                                          [-1])
+        row["card"] = card
+        log(f"[jp2] decode {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def phase_jp2_path() -> dict:
+    """Path 17: JPEG 2000 read as cv2 reads it, on the card machine (no
+    cv2, no OpenJPEG): the fixtures (a), the main path's model replayed
+    over the committed JPEG 2000 flight beside its PNG twin (b), the GIS
+    node's JPEG 2000 fetch (c) and decode times (d)."""
+    import tempfile
+
+    from gisnav_tpu_torch.native import build_native_lib
+
+    t0 = time.time()
+    lib = build_native_lib("jpeg2000")
+    card = card_label()
+    out = {"build_s": round(time.time() - t0, 2), "card": card,
+           "fixtures": jp2_fixtures()}
+    log(f"[jp2] decoder {lib} in {out['build_s']} s")
+    with tempfile.TemporaryDirectory() as root:
+        out["replay"] = jp2_replay(root)
+        out["gis_fetch"] = jp2_gis_fetch()
+        out["decode"] = jp2_decode_times(card, root)
+    log("[jp2] " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5762,6 +6082,11 @@ def main(argv=None) -> int:
                     help="only drive path 16 (WebP: fixtures, the main "
                          "path's model replayed over a WebP flight, the GIS "
                          "node's WebP fetch, decode times)")
+    ap.add_argument("--jp2", action="store_true",
+                    help="only drive path 17 (JPEG 2000: fixtures, the main "
+                         "path's model replayed over a JPEG 2000 flight "
+                         "with a 16-bit DEM, the GIS node's JPEG 2000 "
+                         "fetch, decode times)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -5801,6 +6126,10 @@ def main(argv=None) -> int:
     if args.webp:
         phase_webp_path()
         log(f"[phase] path 16 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.jp2:
+        phase_jp2_path()
+        log(f"[phase] path 17 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -5874,6 +6203,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 15 done at {time.time() - t_start:.1f} s")
     webp = phase_webp_path()
     log(f"[phase] path 16 done at {time.time() - t_start:.1f} s")
+    jp2 = phase_jp2_path()
+    log(f"[phase] path 17 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -5890,6 +6221,8 @@ def main(argv=None) -> int:
         if r["name"] in PATH1_KERNELS:
             r["path15_launches"] = demo["flight"]["launches"][r["name"]]
             r["path16_launches"] = webp["replay"]["webp"]["launches"][
+                r["name"]]
+            r["path17_launches"] = jp2["replay"]["jp2"]["launches"][
                 r["name"]]
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",

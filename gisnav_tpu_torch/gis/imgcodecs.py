@@ -18,12 +18,15 @@ order, each with OpenCV's own signature rule:
 - ``II*\\0``, ``MM\\0*`` and BigTIFF's ``II+\\0``, ``MM\\0+``: TIFF,
   ``gis/tiff.py``;
 - PNG's 8 bytes: PNG (eXIf turns it under the grey flag), ``gis/png.py``;
+- ``FF 4F FF 51`` (a raw J2K codestream) or the JP2 signature box
+  ``00 00 00 0C 6A 50 20 20 0D 0A 87 0A``: JPEG 2000, ``gis/jpeg2000.py``;
 - ``GIF87a`` or ``GIF89a``: GIF, ``gis/gif.py``.
 
 A matching signature decides: bytes that then fail their header give
-None, as in OpenCV (no other decoder is tried). JPEG 2000 and AVIF
-bytes, which OpenCV reads where it is built with their libraries, raise
-``ValueError`` naming the format; anything else gives None. Under
+None, as in OpenCV (no other decoder is tried). AVIF bytes, which OpenCV
+reads where it is built with libavif, raise ``ValueError`` naming the
+format, as does a JPEG 2000 variant the port's decoder does not read
+(HTJ2K); anything else gives None. Under
 ``IMREAD_GRAYSCALE`` the JPEG, WebP and PNG decoders' images are turned
 upright by their EXIF orientation
 (``gis/exif.py``) as ``loadsave.cpp`` turns them; TIFF applies its own
@@ -46,6 +49,7 @@ from gisnav_tpu_torch.gis.coders import IMREAD_GRAYSCALE, IMREAD_UNCHANGED
 from gisnav_tpu_torch.gis.exif import apply_orientation, orientation
 from gisnav_tpu_torch.gis.gif import GIF_SIGNATURES, decode_gif
 from gisnav_tpu_torch.gis.hdr import HDR_SIGNATURES, decode_hdr
+from gisnav_tpu_torch.gis.jpeg2000 import decode_jpeg2000, is_jpeg2000
 from gisnav_tpu_torch.gis.png import PNG_SIGNATURE, png_as_opencv
 from gisnav_tpu_torch.gis.pxm import (decode_pam, decode_pfm, decode_pxm,
                                       is_pam, is_pfm, is_pxm)
@@ -80,6 +84,7 @@ _DECODERS = (
     ("TIFF", lambda s: s.startswith(TIFF_SIGNATURES), decode_tiff),
     ("PNG", lambda s: s.startswith(PNG_SIGNATURE),
      lambda d, g, f: png_as_opencv(d, g)),
+    ("JPEG 2000", is_jpeg2000, lambda d, g, f: decode_jpeg2000(d, g)),
     ("GIF", lambda s: s.startswith(GIF_SIGNATURES),
      lambda d, g, f: decode_gif(d, g)),
 )
@@ -87,9 +92,6 @@ _DECODERS = (
 
 def _unread(s: bytes) -> Optional[str]:
     """The name of a format cv2 reads that the port does not, or None."""
-    if s.startswith((b"\xff\x4f\xff\x51",
-                     b"\x00\x00\x00\x0cjP  \r\n\x87\n")):
-        return "JPEG 2000"
     if s[4:8] == b"ftyp" and s[8:12] in (b"avif", b"avis"):
         return "AVIF"
     return None

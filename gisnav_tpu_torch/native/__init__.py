@@ -2,11 +2,16 @@
 
 ``build_native_lib(name)`` compiles ``native/<name>.cpp`` once with the host
 C++ compiler (``$CXX``, else ``g++``) into ``native/_build/`` and returns
-the library's path, for ``ctypes`` to load. Four sources live here:
+the library's path, for ``ctypes`` to load. Five sources live here:
 ``shmbus.cpp`` (the shared-memory bus, ``nodes/bus.py``), ``jpeg.cpp``
 (the JPEG codec, ``gis/jpeg.py``), ``imgcodecs.cpp`` (the byte coders
-of TIFF, GIF, BMP and Radiance HDR, ``gis/coders.py``) and ``webp.cpp``
-(the WebP decoder, ``gis/webp.py``). A library's name hashes its source and
+of TIFF, GIF, BMP and Radiance HDR, ``gis/coders.py``), ``webp.cpp``
+(the WebP decoder, ``gis/webp.py``) and ``jpeg2000.cpp`` (the JPEG 2000
+decoder, ``gis/jpeg2000.py``). ``jpeg2000.cpp`` alone is built with
+``-ffp-contract=off``: its 9/7 wavelet and colour transform must round
+each multiply and add as OpenJPEG's SSE code does, which a compiler that
+fuses them into FMAs (GCC's default where the target has FMA, as on ARM)
+would not. A library's name hashes its source and
 the flags, so an edited source is rebuilt and a built one reused; each
 build writes a temporary file of its own and renames it into place, so
 processes that build at once all end with one whole library. A failed build
@@ -26,8 +31,10 @@ NATIVE_BUILD_DIR = os.path.join(NATIVE_DIR, "_build")
 # gisnav_tpu/native/Makefile's compile and link flags
 _CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17"]
 _LD_FLAGS = ["-shared", "-lrt"]
+_EXTRA_FLAGS = {"jpeg2000": ["-ffp-contract=off"]}
 _WHAT = {"shmbus": "shm bus", "jpeg": "JPEG codec",
-         "imgcodecs": "image byte coders", "webp": "WebP decoder"}
+         "imgcodecs": "image byte coders", "webp": "WebP decoder",
+         "jpeg2000": "JPEG 2000 decoder"}
 _build_lock = threading.Lock()
 
 
@@ -35,8 +42,9 @@ def build_native_lib(name: str = "shmbus") -> str:
     """Compile ``native/<name>.cpp`` once into ``native/_build/`` and return
     the library's path."""
     src = os.path.join(NATIVE_DIR, f"{name}.cpp")
+    cxx_flags = _CXX_FLAGS + _EXTRA_FLAGS.get(name, [])
     with open(src, "rb") as f:
-        digest = hashlib.sha256(" ".join(_CXX_FLAGS + _LD_FLAGS).encode()
+        digest = hashlib.sha256(" ".join(cxx_flags + _LD_FLAGS).encode()
                                 + b"\0" + f.read()).hexdigest()[:12]
     out = os.path.join(NATIVE_BUILD_DIR, f"lib{name}_{digest}.so")
     what = _WHAT.get(name, name)
@@ -45,7 +53,7 @@ def build_native_lib(name: str = "shmbus") -> str:
             return out
         os.makedirs(NATIVE_BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [os.environ.get("CXX", "g++"), *_CXX_FLAGS, src, "-o", tmp,
+        cmd = [os.environ.get("CXX", "g++"), *cxx_flags, src, "-o", tmp,
                *_LD_FLAGS]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)

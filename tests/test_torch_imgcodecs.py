@@ -690,13 +690,13 @@ def test_near_signatures_are_no_format(data):
 
 @pytest.mark.parametrize("fmt", ["WebP", "JPEG 2000", "AVIF"])
 def test_formats_not_ported_raise(fmt):
-    """JPEG 2000 and AVIF, which cv2 reads, raise naming themselves; WebP
-    (``gis/webp.py``) is read as cv2 reads it."""
+    """AVIF, which cv2 reads, raises naming itself; WebP (``gis/webp.py``)
+    and JPEG 2000 (``gis/jpeg2000.py``) are read as cv2 reads them."""
     img = _rng(fmt).integers(0, 256, (64, 64, 3)).astype(np.uint8)
     ext = {"WebP": ".webp", "JPEG 2000": ".jp2", "AVIF": ".avif"}[fmt]
     data = cv2.imencode(ext, img)[1].tobytes()
     assert cv2.imdecode(np.frombuffer(data, np.uint8), -1) is not None
-    if fmt == "WebP":
+    if fmt in ("WebP", "JPEG 2000"):
         for flag in FLAGS:
             _assert_same(cv2.imdecode(np.frombuffer(data, np.uint8), flag),
                          decode_image(data, flag), fmt)

@@ -5,7 +5,11 @@ of; EXIF orientation spliced into JPEG bytes; and WebP's RIFF chunks (VP8X,
 ALPH, ANIM, ANMF, EXIF) assembled around bitstreams that cv2 or Pillow
 wrote, for the variants neither writes; and libwebp's own encoder (the
 shared library Pillow bundles, through ``ctypes``) for the encoder
-settings neither cv2 nor Pillow exposes."""
+settings neither cv2 nor Pillow exposes. For JPEG 2000: OpenJPEG's encoder
+(Pillow's bundled ``libopenjp2``, through ``ctypes``) for the code-block
+styles, tile-parts, POC, SOP/EPH, ROI, sub-sampling and offsets Pillow
+does not expose; JP2 boxes written around a codestream; and patches of a
+codestream's ``SIZ`` and ``COD`` fields."""
 import ctypes
 import glob
 import os
@@ -759,3 +763,541 @@ def libwebp_encode(img: np.ndarray, quality: float = 75.0, **config
     finally:
         lib.WebPMemoryWriterClear(writer)
         lib.WebPPictureFree(pic)
+
+
+# -- JPEG 2000 ----------------------------------------------------------------
+
+def _libopenjp2() -> ctypes.CDLL:
+    import PIL
+
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                        "pillow.libs")
+    found = glob.glob(os.path.join(libs, "libopenjp2-*.so*"))
+    if not found:
+        raise RuntimeError(f"no libopenjp2 beside Pillow in {libs}")
+    lib = ctypes.CDLL(found[0])
+    vp = ctypes.c_void_p
+    lib.opj_image_create.restype = vp
+    lib.opj_image_create.argtypes = [ctypes.c_uint32, vp, ctypes.c_int]
+    lib.opj_create_compress.restype = vp
+    lib.opj_create_compress.argtypes = [ctypes.c_int]
+    lib.opj_setup_encoder.argtypes = [vp, vp, vp]
+    lib.opj_stream_create_default_file_stream.restype = vp
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p,
+                                                          ctypes.c_int]
+    for name in ("opj_start_compress",):
+        getattr(lib, name).argtypes = [vp, vp, vp]
+    lib.opj_encode.argtypes = [vp, vp]
+    lib.opj_end_compress.argtypes = [vp, vp]
+    lib.opj_stream_destroy.argtypes = [vp]
+    lib.opj_destroy_codec.argtypes = [vp]
+    lib.opj_image_destroy.argtypes = [vp]
+    lib.opj_set_default_encoder_parameters.argtypes = [vp]
+    return lib
+
+
+class _OpjImageComp(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_uint32) for n in
+                ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd",
+                 "resno_decoded", "factor")] + [
+        ("data", ctypes.POINTER(ctypes.c_int32)), ("alpha", ctypes.c_uint16)]
+
+
+class _OpjImage(ctypes.Structure):
+    _fields_ = [("x0", ctypes.c_uint32), ("y0", ctypes.c_uint32),
+                ("x1", ctypes.c_uint32), ("y1", ctypes.c_uint32),
+                ("numcomps", ctypes.c_uint32), ("color_space", ctypes.c_int),
+                ("comps", ctypes.POINTER(_OpjImageComp)),
+                ("icc_profile_buf", ctypes.c_void_p),
+                ("icc_profile_len", ctypes.c_uint32)]
+
+
+_PROGRESSIONS = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+_POC_SIZE = 148  # sizeof(opj_poc_t) in OpenJPEG 2.5
+
+
+def _opj_offsets(raw: bytes) -> dict:
+    """Byte offsets of the opj_cparameters_t fields openjpeg_encode sets,
+    found in the defaults opj_set_default_encoder_parameters writes
+    (numresolution 6, code-blocks 64 x 64, roi_compno -1; sub-sampling 1,
+    formats -1) and the layout of what follows the formats (the JPWL
+    fields, cinema, sizes and profile, then the tile-part chars)."""
+    ints = np.frombuffer(raw[:len(raw) // 4 * 4], np.int32)
+    key = np.array([6, 64, 64, 0, 0, -1, 0, 0], np.int32)
+    at = [i for i in range(len(ints) - 8) if (ints[i:i + 8] == key).all()]
+    if len(at) != 1:
+        raise RuntimeError("opj_cparameters_t layout not recognised")
+    numres = at[0]
+    key2 = np.array([0, 0, 1, 1, -1, -1], np.int32)
+    at2 = [i for i in range(numres + 74, len(ints) - 6)
+           if (ints[i:i + 6] == key2).all()]
+    if not at2:
+        raise RuntimeError("opj_cparameters_t layout not recognised")
+    sub = at2[0]
+    mct = 4 * (sub + 127) + 2
+    poc = 56
+    if 4 * (numres - 202) != poc + 32 * _POC_SIZE:
+        raise RuntimeError("opj_poc_t layout not recognised")
+    return {"tile_size_on": 0, "cp_tx0": 4, "cp_ty0": 8, "cp_tdx": 12,
+            "cp_tdy": 16, "cp_disto_alloc": 20, "csty": 48,
+            "prog_order": 52, "POC": poc, "numpocs": 4 * (numres - 202),
+            "tcp_numlayers": 4 * (numres - 201),
+            "tcp_rates": 4 * (numres - 200), "numresolution": 4 * numres,
+            "cblockw_init": 4 * numres + 4, "cblockh_init": 4 * numres + 8,
+            "mode": 4 * numres + 12, "irreversible": 4 * numres + 16,
+            "roi_compno": 4 * numres + 20, "roi_shift": 4 * numres + 24,
+            "res_spec": 4 * numres + 28, "prcw_init": 4 * numres + 32,
+            "prch_init": 4 * numres + 32 + 4 * 33,
+            "image_offset_x0": 4 * sub, "image_offset_y0": 4 * sub + 4,
+            "subsampling_dx": 4 * sub + 8, "subsampling_dy": 4 * sub + 12,
+            "tp_on": mct - 2, "tp_flag": mct - 1, "tcp_mct": mct}
+
+
+def openjpeg_encode(img: np.ndarray, *, jp2: bool = False, prec: int = 8,
+                    sgnd: bool = False, colour_space: int = 0,
+                    irreversible: bool = False, numres: int = 6,
+                    cblk=(64, 64), mode: int = 0, rates=(0.0,),
+                    progression: str = "LRCP", precincts=None, tiles=None,
+                    tile_parts=None, sop: bool = False, eph: bool = False,
+                    roi=None, pocs=(), subsampling=(1, 1), offset=(0, 0),
+                    mct=None) -> bytes:
+    """(h, w) or (h, w, c) samples as OpenJPEG's encoder writes them: a raw
+    J2K codestream, or a JP2 file (``jp2``; ``colour_space`` is
+    OpenJPEG's OPJ_CLRSPC_*). ``mode`` is the code-block style (1 bypass,
+    2 reset, 4 termall, 8 vertically causal, 16 predictable termination,
+    32 segmentation symbols); ``rates`` one compression ratio a quality
+    layer (0: lossless); ``precincts`` (w, h) exponents from the top
+    resolution down; ``tiles`` (w, h); ``tile_parts`` "R", "L" or "C" (a
+    tile-part per resolution, layer or component); ``roi`` (component,
+    shift); ``pocs`` (tile, res0, comp0, lay1, res1, comp1, progression)
+    each; ``subsampling`` and ``offset`` the grid's (dx, dy) and (x0, y0)."""
+    import tempfile
+
+    lib = _libopenjp2()
+    raw = (ctypes.c_uint8 * 65536)()
+    lib.opj_set_default_encoder_parameters(raw)
+    off = _opj_offsets(bytes(raw))
+    fields = np.frombuffer(raw, np.uint8)
+
+    def put(name, value, index=0):
+        struct.pack_into("<i", raw, off[name] + 4 * index, int(value))
+
+    def putf(name, value, index=0):
+        struct.pack_into("<f", raw, off[name] + 4 * index, float(value))
+
+    planes = img[..., None] if img.ndim == 2 else img
+    h, w, nc = planes.shape
+    dx, dy = subsampling
+    x0, y0 = offset
+    put("tcp_numlayers", len(rates))
+    for i, r in enumerate(rates):
+        putf("tcp_rates", r, i)
+    put("cp_disto_alloc", 1)
+    put("numresolution", numres)
+    put("cblockw_init", cblk[0])
+    put("cblockh_init", cblk[1])
+    put("mode", mode)
+    put("irreversible", int(irreversible))
+    put("prog_order", _PROGRESSIONS[progression])
+    put("csty", (2 if sop else 0) | (4 if eph else 0))
+    if precincts:
+        put("csty", ((2 if sop else 0) | (4 if eph else 0)) | 1)
+        put("res_spec", len(precincts))
+        for i, (pw, ph) in enumerate(precincts):
+            put("prcw_init", 1 << pw, i)
+            put("prch_init", 1 << ph, i)
+    if tiles:
+        put("tile_size_on", 1)
+        put("cp_tdx", tiles[0])
+        put("cp_tdy", tiles[1])
+        put("cp_tx0", x0 if len(tiles) < 3 else tiles[2])
+        put("cp_ty0", y0 if len(tiles) < 3 else tiles[3])
+    if tile_parts:
+        fields[off["tp_on"]] = 1
+        fields[off["tp_flag"]] = ord(tile_parts)
+    fields[off["tcp_mct"]] = (nc >= 3) if mct is None else mct
+    if roi:
+        put("roi_compno", roi[0])
+        put("roi_shift", roi[1])
+    put("image_offset_x0", x0)
+    put("image_offset_y0", y0)
+    put("subsampling_dx", dx)
+    put("subsampling_dy", dy)
+    if pocs:
+        put("numpocs", len(pocs))
+        for i, (tile, r0, c0, l1, r1, c1, prg) in enumerate(pocs):
+            base = off["POC"] + i * _POC_SIZE
+            struct.pack_into("<5I", raw, base, r0, c0, l1, r1, c1)
+            struct.pack_into("<i", raw, base + 32, _PROGRESSIONS[prg])
+            struct.pack_into("<I", raw, base + 48, tile)
+    parms = (ctypes.c_uint32 * (9 * nc))()
+    for c in range(nc):
+        parms[9 * c:9 * c + 9] = [dx, dy, w, h, x0, y0, prec, prec,
+                                  int(sgnd)]
+    image = lib.opj_image_create(nc, parms, colour_space)
+    if not image:
+        raise RuntimeError("opj_image_create failed")
+    im = _OpjImage.from_address(image)
+    im.x0, im.y0 = x0, y0
+    im.x1, im.y1 = x0 + (w - 1) * dx + 1, y0 + (h - 1) * dy + 1
+    for c in range(nc):
+        comp = im.comps[c]
+        cw = -(-im.x1 // dx) - (-(-x0 // dx))
+        ch = -(-im.y1 // dy) - (-(-y0 // dy))
+        comp.w, comp.h = cw, ch
+        comp.x0, comp.y0 = -(-x0 // dx), -(-y0 // dy)
+        src = np.ascontiguousarray(planes[:ch, :cw, c], np.int32)
+        ctypes.memmove(comp.data, src.ctypes.data, src.nbytes)
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.jp2").encode()
+        try:
+            if not lib.opj_setup_encoder(codec, raw, image):
+                raise ValueError("opj_setup_encoder refuses the parameters")
+            stream = lib.opj_stream_create_default_file_stream(path, 0)
+            try:
+                ok = (lib.opj_start_compress(codec, image, stream)
+                      and lib.opj_encode(codec, stream)
+                      and lib.opj_end_compress(codec, stream))
+            finally:
+                lib.opj_stream_destroy(stream)
+            if not ok:
+                raise ValueError("OpenJPEG's encoder failed")
+        finally:
+            lib.opj_destroy_codec(codec)
+            lib.opj_image_destroy(image)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def jp2_box(kind: bytes, body: bytes, length=None) -> bytes:
+    """A JP2 box: its length (``length`` overrides it: 0 runs to the end,
+    1 writes an XLBox), type and body."""
+    if length == 1:
+        return (struct.pack(">I", 1) + kind + struct.pack(">Q", 16 + len(body))
+                + body)
+    n = 8 + len(body) if length is None else length
+    return struct.pack(">I", n) + kind + body
+
+
+def jp2_ihdr(h: int, w: int, nc: int, bpc: int) -> bytes:
+    return jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+
+
+def jp2_colr(enumcs: int = None, icc: bytes = None) -> bytes:
+    if icc is not None:
+        return jp2_box(b"colr", bytes([2, 0, 0]) + icc)
+    return jp2_box(b"colr", bytes([1, 0, 0]) + struct.pack(">I", enumcs))
+
+
+def jp2_pclr(entries: np.ndarray, sizes, signs=None) -> bytes:
+    """entries (n, channels) and each channel's bit depth."""
+    n, nch = entries.shape
+    signs = signs or [0] * nch
+    body = struct.pack(">HB", n, nch) + bytes(
+        (s - 1) | (0x80 if g else 0) for s, g in zip(sizes, signs))
+    for row in entries:
+        for v, s in zip(row, sizes):
+            k = min((s + 7) // 8, 4)
+            body += int(v).to_bytes(k, "big")
+    return jp2_box(b"pclr", body)
+
+
+def jp2_cmap(maps) -> bytes:
+    """(cmp, mtyp, pcol) each."""
+    return jp2_box(b"cmap", b"".join(struct.pack(">HBB", *m) for m in maps))
+
+
+def jp2_cdef(defs) -> bytes:
+    """(cn, typ, asoc) each."""
+    return jp2_box(b"cdef", struct.pack(">H", len(defs)) + b"".join(
+        struct.pack(">HHH", *d) for d in defs))
+
+
+JP2_SIGNATURE_BOX = jp2_box(b"jP  ", b"\r\n\x87\n")
+JP2_FTYP_BOX = jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+
+
+def jp2_wrap(codestream: bytes, header_boxes, before=(), after=(),
+             jp2c_length=None) -> bytes:
+    """A JP2 file: signature, ftyp, ``before`` boxes, a jp2h of
+    ``header_boxes``, ``after`` boxes and the codestream box."""
+    return (JP2_SIGNATURE_BOX + JP2_FTYP_BOX + b"".join(before)
+            + jp2_box(b"jp2h", b"".join(header_boxes)) + b"".join(after)
+            + jp2_box(b"jp2c", codestream, jp2c_length))
+
+
+def j2k_codestream(data: bytes) -> bytes:
+    """The codestream of a JP2 file (its jp2c box's body to the end), or
+    the bytes of a raw codestream."""
+    at = data.find(b"jp2c")
+    return data[at + 4:] if data[:2] != b"\xff\x4f" and at >= 4 else data
+
+
+def j2k_marker(cs: bytes, marker: int) -> int:
+    """The offset of the first marker segment ``marker`` in the main
+    header (walking segment lengths from SIZ)."""
+    at = 2
+    while at + 4 <= len(cs):
+        m, n = struct.unpack(">HH", cs[at:at + 4])
+        if m == marker:
+            return at
+        if m == 0xff90:
+            break
+        at += 2 + n
+    raise KeyError(hex(marker))
+
+
+def j2k_patch_precision(cs: bytes, prec: int, sgnd: bool = False) -> bytes:
+    """Every component's Ssiz set to ``prec`` bits."""
+    at = j2k_marker(cs, 0xff51)
+    nc = struct.unpack(">H", cs[at + 38:at + 40])[0]
+    out = bytearray(cs)
+    for c in range(nc):
+        out[at + 40 + 3 * c] = (prec - 1) | (0x80 if sgnd else 0)
+    return bytes(out)
+
+
+def j2k_patch_cod(cs: bytes, style=None, progression=None,
+                  mct=None) -> bytes:
+    """COD's code-block style byte, progression order or MCT set."""
+    at = j2k_marker(cs, 0xff52)
+    out = bytearray(cs)
+    if progression is not None:
+        out[at + 5] = progression
+    if mct is not None:
+        out[at + 8] = mct
+    if style is not None:
+        out[at + 12] = style
+    return bytes(out)
+
+
+def j2k_insert(cs: bytes, segment: bytes, before: int = 0xff90) -> bytes:
+    """A marker segment inserted in the main header before ``before``
+    (the first tile-part by default)."""
+    at = j2k_marker(cs, before) if before != 0xff90 else cs.index(
+        b"\xff\x90", 2)
+    return cs[:at] + segment + cs[at:]
+
+
+def j2k_segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, 2 + len(body)) + body
+
+
+class _Bits:
+    """A packet-header bit reader: after a 0xFF byte, 7 bits."""
+
+    def __init__(self, data: bytes, at: int):
+        self.data, self.at, self.buf, self.ct = data, at, 0, 0
+
+    def bit(self) -> int:
+        if self.ct == 0:
+            self.buf = (self.buf << 8) & 0xffff
+            self.ct = 7 if self.buf == 0xff00 else 8
+            if self.at < len(self.data):
+                self.buf |= self.data[self.at]
+                self.at += 1
+        self.ct -= 1
+        return (self.buf >> self.ct) & 1
+
+    def read(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.bit()
+        return v
+
+    def align(self) -> int:
+        if (self.buf & 0xff) == 0xff:
+            self.bit()
+            self.ct = 0
+        self.ct = 0
+        return self.at
+
+
+class _TagTree:
+    def __init__(self, w: int, h: int):
+        self.parent, self.value, self.low = [], [], []
+        sizes, n = [], None
+        while n != 1:
+            sizes.append((w, h))
+            n = w * h
+            w, h = (w + 1) // 2, (h + 1) // 2
+        offs = np.cumsum([0] + [a * b for a, b in sizes]).tolist()
+        for lvl, (lw, lh) in enumerate(sizes):
+            for y in range(lh):
+                for x in range(lw):
+                    up = -1 if lvl + 1 == len(sizes) else (
+                        offs[lvl + 1] + (y // 2) * sizes[lvl + 1][0] + x // 2)
+                    self.parent.append(up)
+        self.value = [999] * len(self.parent)
+        self.low = [0] * len(self.parent)
+
+    def decode(self, bits: _Bits, leaf: int, threshold: int) -> bool:
+        path, node = [], leaf
+        while self.parent[node] >= 0:
+            path.append(node)
+            node = self.parent[node]
+        low = 0
+        while True:
+            if low > self.low[node]:
+                self.low[node] = low
+            else:
+                low = self.low[node]
+            while low < threshold and low < self.value[node]:
+                if bits.bit():
+                    self.value[node] = low
+                else:
+                    low += 1
+            self.low[node] = low
+            if not path:
+                break
+            node = path.pop()
+        return self.value[node] < threshold
+
+
+def j2k_packets(cs: bytes) -> tuple:
+    """A raw codestream whose tiles each come in one tile-part (LRCP or
+    RLCP, one precinct a resolution, code-block style 0, no SOP / EPH) cut
+    into (main header, [(the tile-part's SOT..SOD bytes, [(packet header,
+    packet body)] in stream order)], EOC and after): its packet headers
+    read as Annex B reads them (tag trees, passes, Lblock, one codeword
+    segment a code-block)."""
+    siz = j2k_marker(cs, 0xff51)
+    w, h, x0, y0, tdx, tdy, tx0, ty0 = struct.unpack(">8I",
+                                                     cs[siz + 6:siz + 38])
+    nc = struct.unpack(">H", cs[siz + 38:siz + 40])[0]
+    cod = j2k_marker(cs, 0xff52)
+    scod, prg, layers, _mct, levels, cbw, cbh, style = struct.unpack(
+        ">BBHBBBBB", cs[cod + 4:cod + 13])
+    if scod or prg not in (0, 1) or style or x0 or y0:
+        raise ValueError("j2k_packets: LRCP / RLCP, no precincts, style 0")
+    nres = levels + 1
+    tw = -(-(w - tx0) // tdx)
+
+    def ceil_pow2(a, b):
+        return -(-a // (1 << b))
+
+    def blocks(t0, t1, lev, xb, e):
+        """Code-blocks along one axis of a band: (count) or 0 if empty."""
+        b0 = ceil_pow2(t0 - (xb << lev), lev + 1) if lev >= 0 else t0
+        b1 = ceil_pow2(t1 - (xb << lev), lev + 1) if lev >= 0 else t1
+        if b1 <= b0:
+            return 0
+        return ceil_pow2(b1, e) - (b0 >> e)
+
+    parts, at = [], cs.index(b"\xff\x90\x00\x0a")
+    head = cs[:at]
+    while cs[at:at + 2] == b"\xff\x90":
+        isot, psot, tpsot, tnsot = struct.unpack(">HIBB", cs[at + 4:at + 12])
+        if tpsot != 0 or tnsot not in (0, 1):
+            raise ValueError("j2k_packets: one tile-part a tile")
+        sod = cs.index(b"\xff\x93", at) + 2
+        px, py = isot % tw, isot // tw
+        x0t, x1t = max(tx0 + px * tdx, 0), min(tx0 + (px + 1) * tdx, w)
+        y0t, y1t = max(ty0 + py * tdy, 0), min(ty0 + (py + 1) * tdy, h)
+        state = {}
+        for r in range(nres):
+            lev = nres - 1 - r
+            if r == 0:
+                e = (min(cbw + 2, 15), min(cbh + 2, 15))
+                dims = [(blocks(ceil_pow2(x0t, lev), ceil_pow2(x1t, lev),
+                                -1, 0, e[0]),
+                         blocks(ceil_pow2(y0t, lev), ceil_pow2(y1t, lev),
+                                -1, 0, e[1]))]
+            else:
+                e = (min(cbw + 2, 14), min(cbh + 2, 14))
+                dims = [(blocks(x0t, x1t, lev, xb, e[0]),
+                         blocks(y0t, y1t, lev, yb, e[1]))
+                        for xb, yb in ((1, 0), (0, 1), (1, 1))]
+            for c in range(nc):  # (inclusion, zero bit-planes, blocks)
+                state[r, c] = [(_TagTree(cw, ch), _TagTree(cw, ch),
+                                [[False, 3] for _ in range(cw * ch)])
+                               for cw, ch in dims if cw and ch]
+        order = ([(l, r, c) for l in range(layers) for r in range(nres)
+                  for c in range(nc)] if prg == 0 else
+                 [(l, r, c) for r in range(nres) for l in range(layers)
+                  for c in range(nc)])
+        packets, pos = [], sod
+        for l, r, c in order:
+            bits = _Bits(cs, pos)
+            lengths = []
+            if bits.bit():
+                for incl, imsb, blks in state[r, c]:
+                    for k, blk in enumerate(blks):
+                        if not blk[0]:
+                            inc = incl.decode(bits, k, l + 1)
+                        else:
+                            inc = bits.bit()
+                        if not inc:
+                            continue
+                        if not blk[0]:
+                            i = 0
+                            while not imsb.decode(bits, k, i):
+                                i += 1
+                            blk[0] = True
+                        if not bits.bit():
+                            passes = 1
+                        elif not bits.bit():
+                            passes = 2
+                        else:
+                            n = bits.read(2)
+                            if n != 3:
+                                passes = 3 + n
+                            else:
+                                n = bits.read(5)
+                                passes = (6 + n if n != 31
+                                          else 37 + bits.read(7))
+                        while bits.bit():
+                            blk[1] += 1
+                        lengths.append(bits.read(
+                            blk[1] + int(np.floor(np.log2(passes)))))
+            head_end = bits.align()
+            body_end = head_end + sum(lengths)
+            packets.append((cs[pos:head_end], cs[head_end:body_end]))
+            pos = body_end
+        if pos != at + psot:
+            raise ValueError(f"j2k_packets: packets end at {pos}, not "
+                             f"{at + psot}")
+        parts.append((cs[at:sod], packets))
+        at += psot
+    return head, parts, cs[at:]
+
+
+def _split(data: bytes, parts: int) -> list:
+    step = -(-len(data) // parts) if data else 1
+    return [data[i:i + step] for i in range(0, max(len(data), 1), step)]
+
+
+def j2k_with_ppt(cs: bytes, markers: int = 1) -> bytes:
+    """``cs`` (see ``j2k_packets``) with each tile-part's packet headers
+    moved into PPT markers in its header (``markers`` of them, Zppt 0,
+    1...)."""
+    head, parts, tail = j2k_packets(cs)
+    out = head
+    for tph, packets in parts:
+        headers = b"".join(p[0] for p in packets)
+        ppt = b"".join(j2k_segment(0xff61, bytes([z]) + chunk)
+                       for z, chunk in enumerate(_split(headers, markers)))
+        body = b"".join(p[1] for p in packets)
+        sot = bytearray(tph[:-2] + ppt + tph[-2:])
+        sot[6:10] = struct.pack(">I", len(sot) + len(body))
+        out += bytes(sot) + body
+    return out + tail
+
+
+def j2k_with_ppm(cs: bytes, markers: int = 1) -> bytes:
+    """``cs`` (see ``j2k_packets``) with its packet headers moved into PPM
+    markers in the main header: one Nppm / Ippm pair a tile-part in stream
+    order, the run cut over ``markers`` markers (Zppm 0, 1...)."""
+    head, parts, tail = j2k_packets(cs)
+    data, out = b"", b""
+    for tph, packets in parts:
+        headers = b"".join(p[0] for p in packets)
+        data += struct.pack(">I", len(headers)) + headers
+        body = b"".join(p[1] for p in packets)
+        sot = bytearray(tph)
+        sot[6:10] = struct.pack(">I", len(sot) + len(body))
+        out += bytes(sot) + body
+    ppm = b"".join(j2k_segment(0xff60, bytes([z]) + chunk)
+                   for z, chunk in enumerate(_split(data, markers)))
+    return head + ppm + out + tail

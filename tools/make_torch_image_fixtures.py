@@ -13,7 +13,7 @@ and ``chip_smoke.py``'s JPEG phase holds the card machine's build to the
 digests. Needs OpenCV and Pillow (not on the card machine)::
 
     python tools/make_torch_image_fixtures.py [--out tests/data/torch_images]
-        [--webp-out tests/data/torch_webp]
+        [--webp-out tests/data/torch_webp] [--jp2-out tests/data/torch_jp2]
 
 The WebP set (``--webp-out``, its own ``digests.json`` of the same form,
 under 1 MiB with its flight) holds cv2's and Pillow's files of every kind
@@ -26,6 +26,22 @@ written as WebP by cv2 at quality 90, and ``flight/flight.json`` holding
 the call's arguments, the sha256 of the PNG dataset's arrays (so a machine
 without cv2 can check its own PNG dataset is this one) and cv2's grey
 digests of the WebP files.
+
+The JPEG 2000 set (``--jp2-out``, its own ``digests.json``, under 1 MiB
+with its flight) holds Pillow's files (grey, RGB, RGBA, YCbCr, 16-bit,
+grey + alpha, signed; reversible and irreversible; layers, tiles,
+progressions; a raw codestream), cv2's, OpenJPEG's encoder's through
+``tests/torch_image_writers.py`` (every code-block style with SOP/EPH,
+tile-parts with POC, an ROI, packet headers packed into PPT and, over
+tiles, PPM markers), JP2 boxes written around codestreams (a
+palette with its component map, channel definitions that swap colours),
+codestreams with ``SIZ`` patched to 12 and 15 bits, a file cut before EOC,
+the 512-px RGB tile ``chip_smoke.py`` repeats into a 4096-px image, and
+``flight/``: path 8's world as for the WebP flight, the map and 8 frames
+as irreversible grey JP2 at ``JP2_FLIGHT["rates"]`` (under the layout's
+PNG names) and a reversible 16-bit DEM (``dem.jp2``, decimetres, named in
+``map.json`` with ``dem_scale`` 0.1), with ``flight.json`` holding the PNG
+dataset's array digests and cv2's digests of the JP2 files.
 
 Content is drawn from the port's seeded world (``utils/world_wms.py``):
 
@@ -77,9 +93,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 from gisnav_tpu_torch.utils.world_wms import World  # noqa: E402
 from tests.torch_image_writers import (  # noqa: E402
-    bmp_rle_encode, chunk, exif_tiff, gif_frame, webp_anim, webp_anmf,
-    webp_chunk, webp_chunks, webp_riff, webp_vp8x, with_exif_app1, write_bmp,
-    write_gif, write_hdr, write_png, write_sun, write_tiff)
+    bmp_rle_encode, chunk, exif_tiff, gif_frame, j2k_codestream,
+    j2k_patch_precision, j2k_with_ppm, j2k_with_ppt, jp2_cdef, jp2_cmap,
+    jp2_colr, jp2_ihdr, jp2_pclr, jp2_wrap, openjpeg_encode, webp_anim,
+    webp_anmf, webp_chunk, webp_chunks, webp_riff, webp_vp8x, with_exif_app1,
+    write_bmp, write_gif, write_hdr, write_png, write_sun, write_tiff)
 
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_images")
@@ -91,6 +109,14 @@ WEBP_SIZE_LIMIT = 1024 * 1024  # the WebP set and its flight
 # the flight of chip_smoke.py's path 16 (write_replay_dataset's arguments)
 FLIGHT = {"world": {"seed": 7, "size_px": 3072, "gsd_m": 1.36},
           "frames": 8, "hw": [1088, 1920], "coverage": 1.3, "quality": 90}
+JP2_OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests",
+                       "data", "torch_jp2")
+JP2_SIZE_LIMIT = 1024 * 1024  # the JPEG 2000 set and its flight
+# path 17's flight: path 16's, irreversible JPEG 2000 at these compression
+# ratios (map, frames) and a reversible uint16 DEM in decimetres
+JP2_FLIGHT = {"world": FLIGHT["world"], "frames": 8, "hw": [1088, 1920],
+              "coverage": 1.3, "rates": [30, 25], "dem": "dem.jp2",
+              "dem_scale": 0.1}
 
 
 def _sos_offsets(data: bytes):
@@ -445,6 +471,138 @@ def write_flight(out: str) -> dict:
     return manifest
 
 
+def _pil_jp2(img: np.ndarray, mode: str = None, **kw) -> bytes:
+    """Pillow's JPEG 2000 (OpenJPEG) of an array: ``mode`` "I;16" for
+    uint16, else the array's own mode."""
+    f = io.BytesIO()
+    if mode == "I;16":
+        im = Image.frombytes("I;16", img.shape[::-1],
+                             img.astype("<u2").tobytes())
+    elif mode:
+        im = Image.frombytes(mode, (img.shape[1], img.shape[0]),
+                             np.ascontiguousarray(img).tobytes())
+    else:
+        im = Image.fromarray(img)
+    im.save(f, "JPEG2000", **kw)
+    return f.getvalue()
+
+
+def jp2_files() -> dict:
+    """name -> JPEG 2000 file bytes: Pillow's, cv2's and OpenJPEG's
+    encoder's files, JP2 boxes around codestreams, patched codestreams."""
+    world = World.make(seed=7, size_px=1024, gsd_m=1.36)
+    r = world.raster
+    g = np.ascontiguousarray(r[300:347, 400:461])  # 47x61
+    c = np.ascontiguousarray(np.stack([g, r[500:547, 100:161],
+                                       r[700:747, 600:661]], axis=2))
+    a = np.ascontiguousarray(np.concatenate(
+        [c, r[100:147, 800:861, None]], axis=2))
+    i16 = (g.astype(np.uint16) << 8) | r[600:647, 200:261]
+    irr = {"irreversible": True, "quality_mode": "rates"}
+    files = {
+        "pil_grey_rev.jp2": _pil_jp2(g),
+        "pil_grey_irr_layers_rpcl.jp2": _pil_jp2(
+            g, quality_layers=[40, 10], progression="RPCL", **irr),
+        "pil_rgb_irr.jp2": _pil_jp2(c, quality_layers=[12], **irr),
+        "pil_rgba_rev_tiles.jp2": _pil_jp2(a, mode="RGBA",
+                                           tile_size=(32, 24)),
+        "pil_ycbcr.jp2": _pil_jp2(c, mode="YCbCr"),
+        "pil_i16.jp2": _pil_jp2(i16, mode="I;16"),
+        "pil_la.jp2": _pil_jp2(a[..., :2], mode="LA"),
+        "pil_signed.j2k": _pil_jp2(g, no_jp2=True, signed=True),
+        "pil_raw_cprl_tiles.j2k": _pil_jp2(
+            c, no_jp2=True, tile_size=(33, 21), progression="CPRL",
+            num_resolutions=3),
+        "cv2_rgb_x250.jp2": _cv2(".jp2", c[..., ::-1],
+                                 cv2.IMWRITE_JPEG2000_COMPRESSION_X1000,
+                                 250),
+        "opj_styles_sop_eph.j2k": openjpeg_encode(
+            c, mode=63, sop=True, eph=True, numres=4, rates=(20, 6, 0)),
+        "opj_tileparts_poc.j2k": openjpeg_encode(
+            g, tiles=(32, 32), numres=3, tile_parts="R", rates=(15, 0),
+            pocs=[(t, 0, 0, 2, 2, 1, "RLCP") for t in range(1, 5)]
+            + [(t, 2, 0, 2, 3, 1, "LRCP") for t in range(1, 5)]),
+        "opj_roi.j2k": openjpeg_encode(c, roi=(0, 6), numres=4,
+                                       rates=(10,), irreversible=True),
+        "jp2_pclr_cmap.jp2": jp2_wrap(
+            openjpeg_encode(g // 32, numres=3),
+            [jp2_ihdr(*g.shape, 1, 7), jp2_colr(16),
+             jp2_pclr(np.stack([np.arange(8) * 36, 255 - np.arange(8) * 30,
+                                np.arange(8) * 9], axis=1), [8, 8, 8]),
+             jp2_cmap([(0, 1, 0), (0, 1, 1), (0, 1, 2)])]),
+        "jp2_cdef_swap_alpha.jp2": jp2_wrap(
+            openjpeg_encode(a, numres=4),
+            [jp2_ihdr(*g.shape, 4, 7), jp2_colr(16),
+             jp2_cdef([(0, 0, 3), (1, 0, 2), (2, 0, 1), (3, 1, 0)])]),
+        "j2k_siz12.j2k": j2k_patch_precision(
+            j2k_codestream(_pil_jp2(i16 >> 4, mode="I;16")), 12),
+        "j2k_siz15_sentinel.jp2": None,
+        "pil_cut_before_eoc.jp2": _pil_jp2(g)[:-2],
+        "j2k_ppt.j2k": j2k_with_ppt(openjpeg_encode(
+            c, numres=3, rates=(20, 5, 0)), 2),
+        "j2k_ppm_tiles.j2k": j2k_with_ppm(openjpeg_encode(
+            g, tiles=(32, 32), numres=3, rates=(15, 0)), 2),
+        "rgb512_irr_tile.j2k": openjpeg_encode(
+            np.tile(c, (11, 9, 1))[:512, :512], irreversible=True,
+            rates=(20,), tiles=(512, 512)),
+    }
+    s15 = _pil_jp2(i16 >> 1, mode="I;16")
+    at = s15.index(b"jp2c") + 4
+    files["j2k_siz15_sentinel.jp2"] = s15[:at] + j2k_patch_precision(
+        s15[at:], 15)
+    return files
+
+
+def write_jp2_flight(out: str) -> dict:
+    """chip_smoke.py's path-17 flight in ``out``: the PNG dataset of
+    ``JP2_FLIGHT`` re-encoded as irreversible JPEG 2000 by Pillow, a
+    reversible 16-bit DEM, and its manifest."""
+    import shutil
+    import tempfile
+
+    from gisnav_tpu_torch.utils.world_wms import write_replay_dataset
+
+    spec = JP2_FLIGHT
+    world = World.make(**spec["world"])
+    manifest = {**spec, "png_sha256": {}, "jp2_cv2": {}}
+    with tempfile.TemporaryDirectory() as png:
+        write_replay_dataset(world, png, frames=spec["frames"],
+                             hw=tuple(spec["hw"]),
+                             coverage=spec["coverage"])
+        os.makedirs(os.path.join(out, "frames"), exist_ok=True)
+        names = ["map.png"] + [os.path.join("frames", n) for n in sorted(
+            os.listdir(os.path.join(png, "frames")))]
+        for name in names:
+            img = cv2.imread(os.path.join(png, name), cv2.IMREAD_UNCHANGED)
+            rate = spec["rates"][0 if name == "map.png" else 1]
+            data = _pil_jp2(img, irreversible=True, quality_mode="rates",
+                            quality_layers=[rate])
+            with open(os.path.join(out, name), "wb") as f:
+                f.write(data)
+            manifest["png_sha256"][name] = pixel_digest(img)
+            manifest["jp2_cv2"][name] = pixel_digest(cv2.imdecode(
+                np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
+        h, w = manifest["png_sha256"]["map.png"]["shape"]
+        y, x = np.mgrid[:h, :w]
+        dem = np.round(2 + 2 * np.sin(x / 300.0) * np.cos(y / 250.0)
+                       ).astype(np.uint16)
+        data = _pil_jp2(dem, mode="I;16")
+        with open(os.path.join(out, spec["dem"]), "wb") as f:
+            f.write(data)
+        manifest["dem_cv2"] = pixel_digest(cv2.imdecode(
+            np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED))
+        with open(os.path.join(png, "map.json")) as f:
+            meta = json.load(f)
+        meta.update(dem=spec["dem"], dem_scale=spec["dem_scale"])
+        with open(os.path.join(out, "map.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+        for name in ("camera.json", "poses.csv"):
+            shutil.copy(os.path.join(png, name), os.path.join(out, name))
+    with open(os.path.join(out, "flight.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    return manifest
+
+
 def _cv2(ext: str, img, *params) -> bytes:
     ok, buf = cv2.imencode(ext, img, list(params))
     assert ok
@@ -507,6 +665,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--webp-out", default=WEBP_OUT)
+    ap.add_argument("--jp2-out", default=JP2_OUT)
     args = ap.parse_args()
     files = build()
     total = sum(len(d) for d in files.values())
@@ -523,6 +682,15 @@ def main() -> int:
                          f"{WEBP_SIZE_LIMIT}")
     print(f"{len(webp)} WebP fixtures and the flight, {total} bytes, in "
           f"{args.webp_out}")
+    jp2 = jp2_files()
+    write_set(args.jp2_out, jp2)
+    write_jp2_flight(os.path.join(args.jp2_out, "flight"))
+    total = _tree_bytes(args.jp2_out)
+    if total > JP2_SIZE_LIMIT:
+        raise SystemExit(f"the JPEG 2000 set takes {total} bytes, over "
+                         f"{JP2_SIZE_LIMIT}")
+    print(f"{len(jp2)} JPEG 2000 fixtures and the flight, {total} bytes, in "
+          f"{args.jp2_out}")
     return 0
 
 
