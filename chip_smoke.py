@@ -16,6 +16,8 @@
     python3 chip_smoke.py --demo     # build + path 15 (the demo maps) only
     python3 chip_smoke.py --webp     # build + path 16 (WebP) only
     python3 chip_smoke.py --jp2      # build + path 17 (JPEG 2000) only
+    python3 chip_smoke.py --jpegx    # build + path 18 (lossless and
+                                     # arithmetic-coded JPEG) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -266,9 +268,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    4096x4096 irreversible RGB image (the fixture tile repeated 8 x 8)
    beside PNG and JPEG of the same pixels, the 4096-px decode's peak
    resident memory, with the card's name and power limit;
-21. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+21. path 18: lossless and arithmetic-coded JPEG, read as cv2 5.0 reads
+   them (``native/jpeg.cpp``; this machine has no OpenCV and no libjpeg):
+   (a) every committed fixture (``tests/data/torch_jpegx``:
+   libjpeg-turbo's lossless files at every predictor, a point transform,
+   restarts, grey, RGB and CMYK, 2- to 7-bit, subsampled RGB with a scan
+   a component, arithmetic-coded transcodes with restarts, DAC
+   conditioning and CMYK) decoded under both flags, every file of its
+   flight under the grey flag, and a 1088x1920 grey lossless frame
+   written here from the first frame's pixels (its bytes the fixture
+   tool's) under both flags, each pixel digest equal to cv2's; (b)
+   ``replay`` with learned_lg9 at 2048 keypoints over the committed flight
+   (path 16's world and poses; cv2's quality-90 files of the map and 8
+   frames transcoded to arithmetic coding, the map progressive): exit code
+   0, 8 of 8 frames valid and within ``JPEGX_FIX_M`` of the truth, K1-K4
+   launched ``JPEGX_LAUNCHES`` times; (c) the GIS node asking for
+   ``image/jpeg`` from a loopback stub that answers with the
+   arithmetic-coded map: its raster equal to cv2's grey read; (d) host ms
+   p50 / p90 of ``decode_image`` on the 2208-px map as arithmetic
+   sequential and progressive, on a 1088x1920 frame as arithmetic
+   sequential, each beside the baseline Huffman file of the same pixels
+   from the port's encoder, and on the lossless frame beside a PNG of it,
+   with the card's name and power limit;
+22. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-22. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+23. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -512,7 +536,7 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "path4_launches", "path6_launches", "path8_launches",
               "path9_launches", "path11_launches", "path13_launches",
               "path14_launches", "path15_launches", "path16_launches",
-              "path17_launches",
+              "path17_launches", "path18_launches",
               "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
@@ -3159,7 +3183,10 @@ def deploy_compose(world, root: str, gis_url: str, procs: list) -> dict:
     from gisnav_tpu_torch.constants import ROS_TOPIC_CAMERA_INFO
     from gisnav_tpu_torch.geometry.crs import haversine_m
     from gisnav_tpu_torch.nodes.bus import ShmBus
+    from gisnav_tpu_torch.nodes.fusion_node import TOPIC_ODOMETRY
     from gisnav_tpu_torch.nodes.mock_gps import TOPIC_SENSOR_GPS
+    from gisnav_tpu_torch.nodes.pose_node import TOPIC_POSE
+    from gisnav_tpu_torch.nodes.twist_node import TOPIC_TWIST_POSE
     from gisnav_tpu_torch.utils.world_wms import east_of
 
     ns = f"smoke{os.getpid()}a"
@@ -3179,7 +3206,13 @@ def deploy_compose(world, root: str, gis_url: str, procs: list) -> dict:
             wall.append(time.monotonic())
 
         wall: list = []
-
+        # the fusion node's inputs and outputs with their publish stamps:
+        # the feed tests/test_torch_fusion_deployed.py replays
+        heard: list = []
+        for kind, topic in (("vo", TOPIC_TWIST_POSE), ("pose", TOPIC_POSE),
+                            ("odom", TOPIC_ODOMETRY)):
+            bus.subscribe(topic, lambda m, us, k=kind: heard.append(
+                (k, us, m)), stamped=True)
         bus.subscribe(TOPIC_SENSOR_GPS, on_fix)
         t0 = time.monotonic()
         graph.wait_for("Ctrl-C to stop")
@@ -3197,6 +3230,7 @@ def deploy_compose(world, root: str, gis_url: str, procs: list) -> dict:
         frames = [world.render_frame(lon, lat, alt, yaw, GRAPH_K)
                   for _, lon, lat, alt, yaw in track]
         t_start, holders = time.monotonic(), None
+        t_start_us = time.time_ns() // 1000
         for i, ((stamp, lon, lat, alt, yaw), frame) in enumerate(
                 zip(track, frames)):
             bus.publish(ROS_TOPIC_CAMERA_INFO,
@@ -3258,6 +3292,9 @@ def deploy_compose(world, root: str, gis_url: str, procs: list) -> dict:
                for f, (h, v) in zip(flight, errors)]))
     far = [(f["timestamp_sample"], h, v)
            for f, (h, v) in zip(flight, errors) if not (h < 10.0 and v < 10.0)]
+    feed = path10_feed(heard, t_start_us, track, first, fixes, errors_of)
+    log(f"[deploy compose] the fusion node's feed: {feed['counts']} "
+        f"events, written to {feed['path']}")
     if far or len(flight) < 12:
         raise RuntimeError(f"deploy compose: {len(flight)} fixes in the "
                            f"flight (12 needed), over 10 m: {far}")
@@ -3285,6 +3322,47 @@ def deploy_compose(world, root: str, gis_url: str, procs: list) -> dict:
                 arrivals)),
             "frames_with_fix": len(set(arrivals) & set(published)),
             "shm_dropped": bus.dropped, "health_stopped": stopped}
+
+
+PATH10_FEED = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out", "path10_feed.json")
+
+
+def path10_feed(heard: list, t_start_us: int, track: list, first: int,
+                fixes: list, errors_of) -> dict:
+    """Write path 10's gated flight as the fusion node received it to
+    ``PATH10_FEED``: every VO pose ("vo") and pose fix ("pose") and the
+    stamp of every odometry message the node published ("odom"), in
+    publish order, each with its publish time in us after the flight's
+    start (the shared-memory bus's publisher stamps); the track (stamp, lon,
+    lat, ellipsoid altitude) and the card's SensorGps fixes (stamp, lat,
+    lon in 1e-7 degrees, ellipsoid altitude in mm, horizontal and vertical
+    metres from the track). Returns the event counts and the path."""
+    def floats(a):
+        return [float(v) for v in np.ravel(a)]
+
+    events = []
+    for kind, us, m in sorted(heard, key=lambda e: e[1]):
+        row = [kind, int(us) - t_start_us, int(m["stamp_us"])]
+        if kind != "odom":
+            row += [floats(m["position"]), floats(m["quat_xyzw"]),
+                    floats(m["covariance"])]
+        if kind == "pose":
+            row += [float(m["lon"]), float(m["lat"]),
+                    float(m["alt_ellipsoid"])]
+        events.append(row)
+    feed = {"track": [[int(t[0]), *map(float, t[1:4])] for t in track],
+            "first_gated_stamp_us": int(first),
+            "events": events,
+            "fixes": [[int(f["timestamp_sample"]), int(f["lat"]),
+                       int(f["lon"]), int(f["alt_ellipsoid"]), h, v]
+                      for f, (h, v) in zip(fixes, errors_of(fixes))]}
+    os.makedirs(os.path.dirname(PATH10_FEED), exist_ok=True)
+    with open(PATH10_FEED, "w") as f:
+        json.dump(feed, f, separators=(",", ":"))
+    counts = {k: sum(e[0] == k for e in events) for k in ("vo", "pose",
+                                                           "odom")}
+    return {"counts": counts, "path": PATH10_FEED}
 
 
 def deploy_vehicle(world, root: str, gis_url: str, procs: list,
@@ -6041,6 +6119,172 @@ def phase_jp2_path() -> dict:
     return out
 
 
+# -- path 18: lossless and arithmetic-coded JPEG on the replay and WMS paths
+
+# the fixtures and path 18's flight (tools/make_torch_image_fixtures.py)
+JPEGX_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "data", "torch_jpegx")
+JPEGX_FLIGHT = os.path.join(JPEGX_FIXTURES, "flight")
+JPEGX_FIX_M = 10.0  # every fix over the arithmetic-coded flight
+# a cached learned_lg9 replay of 8 frames at 2048 keypoints (sets=1): the
+# map's extraction and each frame's, and 72 LightGlue blocks a frame
+JPEGX_LAUNCHES = {"stem_stage": 9, "conv_stage": 72, "nms_select": 8,
+                  "fused_block": 576}
+JPEGX_REPS = (10, 5)  # decodes timed of a frame and of the map
+
+
+def jpegx_lossless_frame() -> tuple:
+    """(bytes, manifest entry) of the 1088x1920 grey lossless frame, written
+    here by ``tests/torch_image_writers.py`` ``lossless_jpeg`` from the
+    first frame's decoded pixels, as the fixture tool wrote it where cv2
+    decoded it."""
+    from gisnav_tpu_torch.gis.imgcodecs import IMREAD_GRAYSCALE, decode_image
+
+    with open(os.path.join(JPEGX_FLIGHT, "flight.json")) as f:
+        manifest = json.load(f)
+    with open(os.path.join(JPEGX_FLIGHT, manifest["lossless_from"]),
+              "rb") as f:
+        pixels = decode_image(f.read(), IMREAD_GRAYSCALE)
+    data = image_writers().lossless_jpeg([pixels], [(1, 1)],
+                                         psv=manifest["lossless_psv"])
+    return data, manifest["lossless_frame"]
+
+
+def jpegx_fixtures() -> dict:
+    """Path 18 (a): every committed lossless and arithmetic-coded fixture
+    under both flags, the flight's files under the grey flag (as replay
+    reads them), and the lossless frame written here (its bytes the fixture
+    tool's) under both flags, each pixel digest equal to cv2's."""
+    import hashlib
+
+    from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                                IMREAD_UNCHANGED,
+                                                decode_image)
+
+    with open(os.path.join(JPEGX_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(JPEGX_FLIGHT, "flight.json")) as f:
+        flight = json.load(f)
+    flags = {"unchanged": IMREAD_UNCHANGED, "grayscale": IMREAD_GRAYSCALE}
+    cases = []
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(JPEGX_FIXTURES, name), "rb") as f:
+            data = f.read()
+        cases += [(name, data, key, want[key]) for key in flags]
+    for name, want in sorted(flight["jpegx_cv2"].items()):
+        with open(os.path.join(JPEGX_FLIGHT, name), "rb") as f:
+            cases.append((name, f.read(), "grayscale", want))
+    lossless, want = jpegx_lossless_frame()
+    bad = []
+    if hashlib.sha256(lossless).hexdigest() != want["file_sha256"]:
+        bad.append(("lossless frame", "bytes", len(lossless)))
+    cases += [("lossless frame", lossless, key, want[key]) for key in flags]
+    for name, data, key, want in cases:
+        got = image_digest(decode_image(data, flags[key]))
+        if got != want:
+            bad.append((name, key, got))
+    out = {"files": len(digests) + len(flight["jpegx_cv2"]) + 1,
+           "decodes": len(cases), "mismatches": len(bad)}
+    log(f"[jpegx] fixtures against cv2's digests: {json.dumps(out)}")
+    if bad:
+        raise RuntimeError(f"jpegx: fixtures not decoded as cv2: {bad}")
+    return out
+
+
+def jpegx_replay(report: str) -> dict:
+    """Path 18 (b): the main path's model replayed over the committed
+    arithmetic-coded flight: every frame valid and within ``JPEGX_FIX_M``
+    of the truth, K1-K4 launched ``JPEGX_LAUNCHES`` times."""
+    out = _replay_learned(JPEGX_FLIGHT, report, "arithmetic JPEG")
+    fixes = out.pop("fixes")
+    out["worst"] = {"max_horiz_m": max(r["horiz_m"] for r in fixes),
+                    "max_up_m": max(abs(r["up_m"]) for r in fixes)}
+    launches = {k: out["launches"].get(k, 0) for k in JPEGX_LAUNCHES}
+    log(f"[jpegx replay] worst fix {json.dumps(out['worst'])}, launches "
+        f"{launches}")
+    if out["worst"]["max_horiz_m"] > JPEGX_FIX_M or len(fixes) != 8:
+        raise RuntimeError(f"jpegx: {len(fixes)} fixes, the worst "
+                           f"{out['worst']} from the truth")
+    if launches != JPEGX_LAUNCHES:
+        raise RuntimeError(f"jpegx: launches {launches}, not "
+                           f"{JPEGX_LAUNCHES}")
+    return out
+
+
+def jpegx_gis_fetch() -> dict:
+    """Path 18 (c): the GIS node asking for ``image/jpeg`` (its default)
+    from a loopback stub that answers with the flight's arithmetic-coded
+    progressive map: its raster equal to cv2's grey read of those bytes."""
+    with open(os.path.join(JPEGX_FLIGHT, "flight.json")) as f:
+        want = json.load(f)["jpegx_cv2"]["map.png"]
+    return _gis_fetch("image/jpeg", JPEGX_FLIGHT, want, "jpegx")
+
+
+def _decode_pcts(data: bytes, reps: int) -> dict:
+    """Host ms p50 / p90 of ``decode_image`` on ``data`` over ``reps``
+    calls after one."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image
+
+    decode_image(data)
+    ms = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        decode_image(data)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return {"bytes": len(data), **_pcts(ms)}
+
+
+def jpegx_decode_times(card: str) -> list:
+    """Path 18 (d): host ms of ``decode_image`` on the 2208-px map as
+    arithmetic-coded sequential and progressive JPEG and on a 1088x1920
+    frame as arithmetic sequential, each beside the baseline Huffman file
+    of the same pixels that the port's encoder (cv2's bytes, quality 95)
+    writes; and on the lossless frame beside a PNG of its pixels."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image
+    from gisnav_tpu_torch.gis.jpeg import encode_jpeg
+    from gisnav_tpu_torch.gis.png import encode_png
+
+    def read(name):
+        with open(os.path.join(JPEGX_FLIGHT, name), "rb") as f:
+            return f.read()
+
+    lossless = jpegx_lossless_frame()[0]
+    rows = []
+    for name, files, reps in (
+            ("map", {"arith_sequential": read("map_sequential.jpg"),
+                     "arith_progressive": read("map.png")}, JPEGX_REPS[1]),
+            ("frame", {"arith_sequential": read("frames/1000000.png")},
+             JPEGX_REPS[0]),
+            ("lossless frame", {"lossless": lossless}, JPEGX_REPS[0])):
+        img = decode_image(next(iter(files.values())))
+        base = (("png", encode_png(img)) if name == "lossless frame"
+                else ("huffman_baseline", encode_jpeg(img)))
+        row = {"file": name, "shape": list(img.shape), "card": card}
+        for kind, data in (*files.items(), base):
+            row[kind] = _decode_pcts(data, reps)
+        log(f"[jpegx] decode {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def phase_jpegx_path() -> dict:
+    """Path 18: lossless and arithmetic-coded JPEG read as cv2 reads them,
+    on the card machine (no cv2, no libjpeg): the fixtures (a), the main
+    path's model replayed over the committed arithmetic-coded flight (b),
+    the GIS node's ``image/jpeg`` fetch of the arithmetic-coded map (c)
+    and decode times (d)."""
+    import tempfile
+
+    card = card_label()
+    out = {"card": card, "fixtures": jpegx_fixtures()}
+    with tempfile.TemporaryDirectory() as root:
+        out["replay"] = jpegx_replay(os.path.join(root, "r.json"))
+    out["gis_fetch"] = jpegx_gis_fetch()
+    out["decode"] = jpegx_decode_times(card)
+    log("[jpegx] " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6087,6 +6331,11 @@ def main(argv=None) -> int:
                          "path's model replayed over a JPEG 2000 flight "
                          "with a 16-bit DEM, the GIS node's JPEG 2000 "
                          "fetch, decode times)")
+    ap.add_argument("--jpegx", action="store_true",
+                    help="only drive path 18 (lossless and arithmetic-coded "
+                         "JPEG: fixtures, the main path's model replayed "
+                         "over an arithmetic-coded flight, the GIS node's "
+                         "image/jpeg fetch, decode times)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -6130,6 +6379,10 @@ def main(argv=None) -> int:
     if args.jp2:
         phase_jp2_path()
         log(f"[phase] path 17 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.jpegx:
+        phase_jpegx_path()
+        log(f"[phase] path 18 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -6205,6 +6458,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 16 done at {time.time() - t_start:.1f} s")
     jp2 = phase_jp2_path()
     log(f"[phase] path 17 done at {time.time() - t_start:.1f} s")
+    jpegx = phase_jpegx_path()
+    log(f"[phase] path 18 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -6224,6 +6479,7 @@ def main(argv=None) -> int:
                 r["name"]]
             r["path17_launches"] = jp2["replay"]["jp2"]["launches"][
                 r["name"]]
+            r["path18_launches"] = jpegx["replay"]["launches"][r["name"]]
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))

@@ -8,7 +8,8 @@ order, each with OpenCV's own signature rule:
 
 - ``BM``: BMP (OS/2, Windows, V4, V5), ``gis/bmp.py``;
 - ``#?RADIANCE`` or ``#?RGBE``: Radiance HDR, ``gis/hdr.py``;
-- ``FF D8``: JPEG (EXIF turns it under the grey flag), ``gis/jpeg.py``;
+- ``FF D8``: JPEG, Huffman- or arithmetic-coded, sequential, progressive
+  or lossless (EXIF turns it under the grey flag), ``gis/jpeg.py``;
 - 32 bytes that libwebp's ``WebPGetFeatures`` accepts (``RIFF`` ...
   ``WEBP``, or a raw VP8 / VP8L bitstream): WebP (its EXIF chunk turns it
   under the grey flag), ``gis/webp.py``;
@@ -25,8 +26,10 @@ order, each with OpenCV's own signature rule:
 A matching signature decides: bytes that then fail their header give
 None, as in OpenCV (no other decoder is tried). AVIF bytes, which OpenCV
 reads where it is built with libavif, raise ``ValueError`` naming the
-format, as does a JPEG 2000 variant the port's decoder does not read
-(HTJ2K); anything else gives None. Under
+format, as do a JPEG 2000 variant the port's decoder does not read
+(HTJ2K) and the JPEG variants cv2 does not read either (lossless
+arithmetic-coded, hierarchical, 12-bit and 9- to 16-bit lossless);
+anything else gives None. Under
 ``IMREAD_GRAYSCALE`` the JPEG, WebP and PNG decoders' images are turned
 upright by their EXIF orientation
 (``gis/exif.py``) as ``loadsave.cpp`` turns them; TIFF applies its own

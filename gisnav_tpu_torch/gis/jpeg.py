@@ -9,15 +9,18 @@ at OpenCV's defaults:
 
 - ``decode_jpeg(data)`` equals ``cv2.imdecode(data, cv2.IMREAD_UNCHANGED)``
   (grey (H, W) or BGR (H, W, 3) uint8) for sequential and progressive
-  Huffman files of 1, 3 or 4 components; ``grayscale=True`` equals
-  ``cv2.IMREAD_GRAYSCALE`` but for the EXIF turn (``decode_image`` makes
-  it): libjpeg's grey output, the Y plane of a YCbCr file (not ``to_gray``
-  of the colour decode). A CMYK or YCCK file goes through OpenCV's own
-  CMYK-to-BGR and CMYK-to-grey conversions. Bytes that cv2 cannot decode
-  (truncated, garbage) give None, as ``cv2.imdecode`` does; arithmetic-coded,
-  lossless, hierarchical and 12-bit files, and a progressive file cut
-  short whose unknown coefficients libjpeg-turbo would block-smooth, raise
-  ``ValueError`` naming the variant.
+  files, Huffman- or arithmetic-coded, and lossless files of 2 to 8 bits
+  (their samples as they are, a 4-bit file 0-15), of 1, 3 or 4
+  components; ``grayscale=True`` equals ``cv2.IMREAD_GRAYSCALE`` but for
+  the EXIF turn (``decode_image`` makes it): libjpeg's grey output, the Y
+  plane of a YCbCr file (not ``to_gray`` of the colour decode). A CMYK or
+  YCCK file goes through OpenCV's own CMYK-to-BGR and CMYK-to-grey
+  conversions. Bytes that cv2 cannot decode (truncated, garbage, a
+  lossless file that would need a colour conversion: YCbCr, or RGB under
+  the grey flag) give None, as ``cv2.imdecode`` does; lossless
+  arithmetic-coded (SOF11), hierarchical, 12-bit and 9- to 16-bit lossless
+  files, which cv2 does not read either, raise ``ValueError`` naming the
+  variant.
 - ``encode_jpeg(img, quality=95)`` equals ``cv2.imencode(".jpg", img)``
   byte for byte for grey and BGR uint8 images (4:2:0 for colour).
 - ``decode_image(data, flag)`` and ``read_image(path, flag)`` are
@@ -45,8 +48,8 @@ __all__ = ["decode_jpeg", "encode_jpeg", "decode_jpeg_for_tiff",
            "JPEG_SOI", "IMREAD_UNCHANGED", "IMREAD_GRAYSCALE"]
 
 JPEG_SOI = b"\xff\xd8"
-# jpeg.cpp gjpeg_decode modes
-_MODE_UNCHANGED, _MODE_GRAY, _MODE_RAW, _MODE_YCBCR = 0, 1, 3, 4
+# jpeg.cpp gjpeg_decode modes (_MODE_BGR: cv2.IMREAD_COLOR's pixels)
+_MODE_UNCHANGED, _MODE_GRAY, _MODE_BGR, _MODE_RAW, _MODE_YCBCR = 0, 1, 2, 3, 4
 _MSG_LEN = 256
 
 

@@ -21,21 +21,20 @@ the port reads PNG itself:
   ignored), colour as BGR, BGRA where the file has alpha or a ``tRNS``
   (grey + alpha as B = G = R), 16 bits kept. Grey: libpng's
   ``png_set_rgb_to_gray(0.299, 0.587)`` (9797 R + 19234 G + 3737 B over
-  2^15, truncated at 8 bits, rounded at 16; through libpng's 8-bit gamma
-  tables where a ``gAMA`` or ``sRGB`` chunk before PLTE and IDAT gives a
-  gamma other than 1), alpha dropped, 16 bits to the high byte, then the
-  image turned upright by its first valid ``eXIf`` chunk
-  (``gis/exif.py``);
+  2^15, truncated at 8 bits, rounded at 16; through libpng's gamma tables
+  where a ``gAMA`` or ``sRGB`` chunk before PLTE and IDAT gives a gamma
+  other than 1: 8-bit ones, or at 16 bits its 11-bit-indexed 16-bit
+  tables), alpha dropped, 16 bits to the high byte, then the image turned
+  upright by its first valid ``eXIf`` chunk (``gis/exif.py``);
 - ``to_gray`` is ``cv2.cvtColor``'s grey (OpenCV 5: 9798 R + 19235 G +
   3735 B over 2^15, rounded), alpha ignored: what the JAX package applies
   to a colour raster it holds (``cv2.cvtColor(img, COLOR_BGR2GRAY)``), not
   what ``imread``'s grey flag gives.
 
-A 16-bit colour PNG with such a gamma raises ``ValueError`` under the grey
-flag (libpng's 16-bit gamma tables are not reproduced), as do malformed
-files and non-PNG bytes (``gis/jpeg.py`` ``decode_image`` chooses between
-PNG and JPEG). ``encode_png`` writes an 8-bit grey or colour PNG with
-filter None on every row.
+Malformed files and non-PNG bytes raise ``ValueError``
+(``gis/imgcodecs.py`` ``decode_image`` chooses the decoder by content).
+``encode_png`` writes an 8-bit grey or colour PNG with filter None on
+every row.
 """
 from __future__ import annotations
 
@@ -154,6 +153,9 @@ class _Png:
         self.exif: Optional[bytes] = None
         gama: Optional[int] = None
         srgb = False
+        # the largest colour depth of a valid sBIT (libpng's sig_bit)
+        self.sig_bit: Optional[int] = None
+        sbit_seen = False
         for kind, body in _chunks(data):
             if kind == b"IHDR":
                 if len(body) != 13:
@@ -180,6 +182,14 @@ class _Png:
             elif kind == b"eXIf" and self.exif is None:
                 if body[:4] in (b"II*\0", b"MM\0*"):  # libpng's check
                     self.exif = body
+            elif kind == b"sBIT" and not sbit_seen and not idat and (
+                    self.palette is None):
+                sbit_seen = True  # png_handle_sBIT: one, before PLTE, IDAT
+                ctype, depth = header[3], header[2]
+                want, top = ((3, 8) if ctype == 3
+                             else (_CHANNELS[ctype], depth))
+                if len(body) == want and all(0 < v <= top for v in body):
+                    self.sig_bit = max(body[:3]) if ctype & 2 else body[0]
             elif kind in (b"gAMA", b"sRGB") and not idat and (
                     self.palette is None):
                 if kind == b"sRGB":
@@ -258,7 +268,7 @@ def _gamma_table(gamma: int) -> np.ndarray:
     """libpng's png_build_8bit_table: 255 * (i / 255) ^ (gamma / 1e5),
     rounded, 0 and 255 kept; the identity for a gamma within 5 % of 1."""
     table = np.arange(256, dtype=np.int64)
-    if abs(gamma - _GAMMA_UNIT) > 5000:
+    if _significant(gamma):
         for i in range(1, 255):
             table[i] = int(math.floor(255 * math.pow(i / 255.0,
                                                      gamma * 1e-5) + 0.5))
@@ -270,21 +280,81 @@ def _reciprocal(gamma: int) -> int:
     return int(math.floor(1e10 / gamma + 0.5))
 
 
-def _libpng_gray(rgb: np.ndarray, gamma: Optional[int]) -> np.ndarray:
+def _significant(gamma: int) -> bool:
+    return abs(gamma - _GAMMA_UNIT) > 5000
+
+
+def _gamma_shift(sig_bit: Optional[int]) -> int:
+    """png_build_gamma_table's gamma_shift for OpenCV's 16-bit grey read:
+    the insignificant bits of the sBIT chunk's largest colour depth, at
+    least 16 - PNG_MAX_GAMMA_8 (11) under png_set_strip_16, at most 8."""
+    shift = 16 - sig_bit if sig_bit and sig_bit < 16 else 0
+    return min(max(shift, 16 - 11), 8)
+
+
+def _gamma_table16(gamma: int, shift: int) -> np.ndarray:
+    """libpng's png_build_16bit_table over the value >> shift (the index
+    its table[(v & 0xff) >> shift][v >> 8] reads)."""
+    top = (1 << (16 - shift)) - 1
+    ig = np.arange(top + 1, dtype=np.int64)
+    if not _significant(gamma):
+        return (ig * 65535 + (1 << (15 - shift))) // top
+    return np.array([int(math.floor(65535.0 * math.pow(i * (1.0 / top),
+                                                       gamma * 1e-5) + 0.5))
+                     for i in range(top + 1)], np.int64)
+
+
+def _gamma_16_to_8(gamma: int, shift: int) -> np.ndarray:
+    """libpng's png_build_16to8_table over the value >> shift: the 16-bit
+    value (i * 257) of the 8-bit output i whose bounds hold it."""
+    top = (1 << (16 - shift)) - 1
+    table = np.full(top + 1, 65535, np.int64)
+    last = 0
+    for i in range(255):
+        out = i * 257
+        bound = out + 128  # png_gamma_16bit_correct(out + 128, gamma)
+        if 0 < bound < 65535:
+            bound = int(math.floor(65535 * math.pow(bound / 65535.0,
+                                                    gamma * 1e-5) + 0.5))
+        bound = (bound * top + 32768) // 65535 + 1
+        table[last:bound] = out
+        last = max(last, bound)
+    return table
+
+
+def _product(a: int, b: int) -> int:
+    """libpng's png_product2 in fixed point."""
+    return int(math.floor(a * 1e-5 * b + 0.5))
+
+
+def _libpng_gray(rgb: np.ndarray, gamma: Optional[int],
+                 sig_bit: Optional[int] = None) -> np.ndarray:
     """libpng's png_do_rgb_to_gray with OpenCV's coefficients (0.299,
-    0.587 -> 9797, 19234, 3737 over 2^15) on (H, W, 3) RGB."""
+    0.587 -> 9797, 19234, 3737 over 2^15) on (H, W, 3) RGB. With a file
+    gamma other than 1 libpng takes screen gamma as its reciprocal and
+    converts through its gamma_to_1 / gamma_from_1 tables: 8-bit ones, or
+    at 16 bits the 11-bit-indexed gamma_16_to_1 / gamma_16_from_1, a grey
+    pixel through the 16-to-8 gamma_16_table, of which OpenCV's strip_16
+    keeps the high byte."""
     rc, gc, bc = 9797, 19234, 3737
     c = rgb.astype(np.int64)
     r, g, b = c[..., 0], c[..., 1], c[..., 2]
-    if rgb.dtype == np.uint16:
-        if gamma is not None and abs(gamma - _GAMMA_UNIT) > 5000:
-            raise ValueError("a 16-bit colour PNG with a gamma other than 1 "
-                             "(gAMA or sRGB) is not supported under "
-                             "IMREAD_GRAYSCALE")
-        return ((rc * r + gc * g + bc * b + 16384) >> 15).astype(np.uint16)
     grey = r == g
     grey &= r == b
-    if gamma is None or abs(gamma - _GAMMA_UNIT) <= 5000:
+    if rgb.dtype == np.uint16:
+        if gamma is None or not _significant(gamma):
+            return ((rc * r + gc * g + bc * b + 16384) >> 15).astype(
+                np.uint16)
+        s = _gamma_shift(sig_bit)
+        screen = _reciprocal(gamma)
+        to_1 = _gamma_table16(_reciprocal(gamma), s)
+        from_1 = _gamma_table16(_reciprocal(screen), s)
+        same = _gamma_16_to_8(_product(gamma, screen), s)
+        grey16 = (rc * to_1[r >> s] + gc * to_1[g >> s] + bc * to_1[b >> s]
+                  + 16384) >> 15
+        return np.where(grey, same[r >> s], from_1[grey16 >> s]).astype(
+            np.uint16)
+    if gamma is None or not _significant(gamma):
         out = (rc * r + gc * g + bc * b) >> 15
     else:  # gamma_to_1, the sum rounded, gamma_from_1
         to_1 = _gamma_table(_reciprocal(gamma))
@@ -302,7 +372,7 @@ def png_as_opencv(data: bytes, gray: bool) -> np.ndarray:
     colour = px.shape[2] >= 3
     if gray:
         if colour:
-            px = _libpng_gray(px[..., :3], png.gamma)
+            px = _libpng_gray(px[..., :3], png.gamma, png.sig_bit)
         else:
             px = px[..., 0]
         if px.dtype == np.uint16:

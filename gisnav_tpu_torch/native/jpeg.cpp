@@ -8,8 +8,10 @@
 // code that OpenCV calls at its defaults, so decoded pixels and encoded bytes
 // are those of cv2:
 //
-// Decoder: sequential Huffman (SOF0/SOF1) and progressive Huffman (SOF2),
-// 8-bit, 1, 3 or 4 components, any integral sampling ratio; 8- or 16-bit
+// Decoder: sequential Huffman (SOF0/SOF1), progressive Huffman (SOF2),
+// arithmetic-coded sequential and progressive (SOF9/SOF10) and lossless
+// Huffman (SOF3), 1, 3 or 4 components, any integral sampling ratio; 8- or
+// 16-bit
 // DQT, DHT (the standard tables where a scan's table is missing, as
 // libjpeg-turbo does for Motion-JPEG), DRI and RSTn with jdmarker.c's
 // resync, fill bytes, APPn / COM skipped, several scans. jdhuff.c's bit
@@ -22,7 +24,8 @@
 // into the whole-image coefficient buffer, jdcoefct.c's block smoothing of a
 // progressive image cut short (the first nine AC coefficients, and DC when
 // no AC data came, estimated from the 5x5 neighbouring DC values),
-// jidctint.c's islow IDCT (clamped as libjpeg-turbo's SIMD IDCT clamps),
+// jidctint.c's islow IDCT (with the 16-bit sums and saturation of
+// libjpeg-turbo's SIMD IDCT, where a damaged stream overflows them),
 // jdsample.c's fancy upsampling (h2v1, h1v2, h2v2 with jdmainct.c's context
 // rows: the last real chroma row and column repeat), box upsampling
 // elsewhere, jdcolor.c's fixed-point YCbCr->BGR and YCCK->CMYK, and for
@@ -31,6 +34,21 @@
 // first APP1 "Exif" segment before the first scan is located for
 // gis/exif.py, which reads its orientation as OpenCV does.
 //
+// Arithmetic coding is jdarith.c's: the Q-coder of T.81 Annex D with
+// jaricom.c's probability table, DAC conditioning (L, U, Kx), the DC and AC
+// statistics areas zeroed at each scan and restart, the four progressive
+// scan types into the same coefficient buffer (so the IDCT, upsampling,
+// colour conversion, block smoothing and EXIF above apply unchanged), zero
+// data past a marker and no output after a bad code until the next restart
+// ("Corrupt JPEG data: bad arithmetic code"). Lossless is jdlhuff.c,
+// jddiffct.c and jdlossls.c: Huffman-coded differences (symbol 16 is
+// 32768), predictors 1-7 mod 2^16, the 1-D first row from
+// 2^(P - Pt - 1) after the scan's start, a restart (every whole MCU row)
+// and the end of the data (where the differences are zero), the point
+// transform Pt, 2- to 8-bit samples through libjpeg's 8-bit output (the
+// values as they are, not scaled), box upsampling, and libjpeg's refusal of
+// any lossy colour conversion (grey, RGB and CMYK files only as they are).
+//
 // Encoder: cv2.imencode(".jpg") at its defaults for grey and BGR images:
 // jpeg_set_quality's table scaling, standard Huffman tables, jccolor.c's
 // RGB->YCbCr, 4:2:0 by jcsample.c's h2v2 average with its 1,2 bias, edge
@@ -38,8 +56,9 @@
 // FDCT, libjpeg-turbo's reciprocal quantiser, a JFIF 1.01 APP0 and libjpeg's
 // marker order.
 //
-// Arithmetic-coded, lossless, hierarchical and 12-bit files are refused
-// with a message naming the variant.
+// Lossless arithmetic-coded (SOF11), hierarchical, 12-bit and 9- to 16-bit
+// lossless files, which cv2 does not read either, are refused with a
+// message naming the variant.
 
 #include <algorithm>
 #include <array>
@@ -126,6 +145,55 @@ constexpr int64_t F0_298 = 2446, F0_390 = 3196, F0_541 = 4433, F0_765 = 6270,
                   F1_847 = 15137, F1_961 = 16069, F2_053 = 16819,
                   F2_562 = 20995, F3_072 = 25172;
 
+// jaricom.c jpeg_aritab (T.81 Table D.2): Qe_Value << 16 | Next_Index_MPS << 8
+// | Switch_MPS << 7 | Next_Index_LPS; the last entry is the fixed
+// probability 0.5 (T.851) that signs and DC refinement bits use.
+#define ARI(qe, nlps, nmps, sw) \
+  ((int32_t(qe) << 16) | (int32_t(nmps) << 8) | (int32_t(sw) << 7) | (nlps))
+constexpr int32_t kAritab[114] = {
+    ARI(0x5a1d, 1, 1, 1), ARI(0x2586, 14, 2, 0), ARI(0x1114, 16, 3, 0),
+    ARI(0x080b, 18, 4, 0), ARI(0x03d8, 20, 5, 0), ARI(0x01da, 23, 6, 0),
+    ARI(0x00e5, 25, 7, 0), ARI(0x006f, 28, 8, 0), ARI(0x0036, 30, 9, 0),
+    ARI(0x001a, 33, 10, 0), ARI(0x000d, 35, 11, 0), ARI(0x0006, 9, 12, 0),
+    ARI(0x0003, 10, 13, 0), ARI(0x0001, 12, 13, 0), ARI(0x5a7f, 15, 15, 1),
+    ARI(0x3f25, 36, 16, 0), ARI(0x2cf2, 38, 17, 0), ARI(0x207c, 39, 18, 0),
+    ARI(0x17b9, 40, 19, 0), ARI(0x1182, 42, 20, 0), ARI(0x0cef, 43, 21, 0),
+    ARI(0x09a1, 45, 22, 0), ARI(0x072f, 46, 23, 0), ARI(0x055c, 48, 24, 0),
+    ARI(0x0406, 49, 25, 0), ARI(0x0303, 51, 26, 0), ARI(0x0240, 52, 27, 0),
+    ARI(0x01b1, 54, 28, 0), ARI(0x0144, 56, 29, 0), ARI(0x00f5, 57, 30, 0),
+    ARI(0x00b7, 59, 31, 0), ARI(0x008a, 60, 32, 0), ARI(0x0068, 62, 33, 0),
+    ARI(0x004e, 63, 34, 0), ARI(0x003b, 32, 35, 0), ARI(0x002c, 33, 9, 0),
+    ARI(0x5ae1, 37, 37, 1), ARI(0x484c, 64, 38, 0), ARI(0x3a0d, 65, 39, 0),
+    ARI(0x2ef1, 67, 40, 0), ARI(0x261f, 68, 41, 0), ARI(0x1f33, 69, 42, 0),
+    ARI(0x19a8, 70, 43, 0), ARI(0x1518, 72, 44, 0), ARI(0x1177, 73, 45, 0),
+    ARI(0x0e74, 74, 46, 0), ARI(0x0bfb, 75, 47, 0), ARI(0x09f8, 77, 48, 0),
+    ARI(0x0861, 78, 49, 0), ARI(0x0706, 79, 50, 0), ARI(0x05cd, 48, 51, 0),
+    ARI(0x04de, 50, 52, 0), ARI(0x040f, 50, 53, 0), ARI(0x0363, 51, 54, 0),
+    ARI(0x02d4, 52, 55, 0), ARI(0x025c, 53, 56, 0), ARI(0x01f8, 54, 57, 0),
+    ARI(0x01a4, 55, 58, 0), ARI(0x0160, 56, 59, 0), ARI(0x0125, 57, 60, 0),
+    ARI(0x00f6, 58, 61, 0), ARI(0x00cb, 59, 62, 0), ARI(0x00ab, 61, 63, 0),
+    ARI(0x008f, 61, 32, 0), ARI(0x5b12, 65, 65, 1), ARI(0x4d04, 80, 66, 0),
+    ARI(0x412c, 81, 67, 0), ARI(0x37d8, 82, 68, 0), ARI(0x2fe8, 83, 69, 0),
+    ARI(0x293c, 84, 70, 0), ARI(0x2379, 86, 71, 0), ARI(0x1edf, 87, 72, 0),
+    ARI(0x1aa9, 87, 73, 0), ARI(0x174e, 72, 74, 0), ARI(0x1424, 72, 75, 0),
+    ARI(0x119c, 74, 76, 0), ARI(0x0f6b, 74, 77, 0), ARI(0x0d51, 75, 78, 0),
+    ARI(0x0bb6, 77, 79, 0), ARI(0x0a40, 77, 48, 0), ARI(0x5832, 80, 81, 1),
+    ARI(0x4d1c, 88, 82, 0), ARI(0x438e, 89, 83, 0), ARI(0x3bdd, 90, 84, 0),
+    ARI(0x34ee, 91, 85, 0), ARI(0x2eae, 92, 86, 0), ARI(0x299a, 93, 87, 0),
+    ARI(0x2516, 86, 71, 0), ARI(0x5570, 88, 89, 1), ARI(0x4ca9, 95, 90, 0),
+    ARI(0x44d9, 96, 91, 0), ARI(0x3e22, 97, 92, 0), ARI(0x3824, 99, 93, 0),
+    ARI(0x32b4, 99, 94, 0), ARI(0x2e17, 93, 86, 0), ARI(0x56a8, 95, 96, 1),
+    ARI(0x4f46, 101, 97, 0), ARI(0x47e5, 102, 98, 0), ARI(0x41cf, 103, 99, 0),
+    ARI(0x3c3d, 104, 100, 0), ARI(0x375e, 99, 93, 0), ARI(0x5231, 105, 102, 0),
+    ARI(0x4c0f, 106, 103, 0), ARI(0x4639, 107, 104, 0),
+    ARI(0x415e, 103, 99, 0), ARI(0x5627, 105, 106, 1),
+    ARI(0x50e7, 108, 107, 0), ARI(0x4b85, 109, 103, 0),
+    ARI(0x5597, 110, 109, 0), ARI(0x504f, 111, 107, 0),
+    ARI(0x5a10, 110, 111, 1), ARI(0x5522, 112, 109, 0),
+    ARI(0x59eb, 112, 111, 1), ARI(0x5a1d, 113, 113, 0)};
+#undef ARI
+constexpr int kFixedBin = 113;  // jdarith.c fixed_bin[0]
+
 inline int64_t descale(int64_t x, int n) {
   return (x + (int64_t(1) << (n - 1))) >> n;
 }
@@ -163,7 +231,8 @@ struct Derived {  // jdhuff.c d_derived_tbl
   uint16_t lookup[256];  // (length << 8) | symbol; length 9 = longer code
 };
 
-void derive(const HuffSpec& spec, bool dc, Derived* t) {
+// max_dc: the largest DC symbol allowed (15; 16 in lossless mode).
+void derive(const HuffSpec& spec, bool dc, Derived* t, int max_dc = 15) {
   char huffsize[257];
   uint32_t huffcode[257];
   int p = 0;
@@ -210,7 +279,7 @@ void derive(const HuffSpec& spec, bool dc, Derived* t) {
   }
   if (dc)
     for (int i = 0; i < nsym; i++)
-      if (spec.vals[i] > 15) throw Invalid{"bad Huffman table"};
+      if (spec.vals[i] > max_dc) throw Invalid{"bad Huffman table"};
 }
 
 // Past its last byte a file read as cv2.imread reads it (libjpeg's stdio
@@ -306,6 +375,85 @@ struct BitReader {  // jdhuff.c bitread state
   }
 };
 
+struct ArithReader {  // jdarith.c: the C and A registers and get_byte
+  const uint8_t* data;
+  size_t size;
+  size_t pos;
+  int marker = 0;  // marker met in the entropy data (unread_marker)
+  bool file = false;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read first; -1: a bad code, no output
+
+  uint8_t next_byte() {
+    if (pos >= size) {
+      if (!file) throw Invalid{"JPEG data ends without a marker"};
+      pos++;
+      return past_end(pos - 1, size);
+    }
+    return data[pos++];
+  }
+
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+
+  // arith_decode: one binary decision with the statistics bin *st
+  // (bit 7 the more probable symbol, the rest its index in kAritab).
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalisation and data input (D.2.6)
+      if (--ct < 0) {
+        int d = 0;  // past a marker: zero data to the end of the scan
+        if (marker == 0) {
+          d = next_byte();
+          if (d == 0xFF) {
+            do d = next_byte(); while (d == 0xFF);
+            if (d == 0) {
+              d = 0xFF;
+            } else {
+              marker = d;
+              d = 0;
+            }
+          }
+        }
+        c = (c << 8) | d;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAritab[sv & 0x7F];
+    const uint8_t nl = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    const uint8_t nm = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional LPS exchange
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {  // conditional MPS exchange
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int bw = 0, bh = 0;  // blocks stored (MCU-padded)
@@ -314,6 +462,15 @@ struct Component {
   bool latched = false;
   uint16_t quant[64] = {};
   std::vector<int16_t> coef;  // bh x bw blocks of 64
+  // lossless: hib x wib samples scaled to 8 bits (jdlossls.c's output),
+  // and the last row undifferenced, at 16 bits (the next row's Rb / Rc)
+  std::vector<uint8_t> samples;
+  std::vector<uint16_t> last_row;
+  // the number of rows in the last iMCU row (jdinput.c last_row_height)
+  int last_row_height() const {
+    int r = hib % v;
+    return r ? r : v;
+  }
 };
 
 struct Decoder {
@@ -325,6 +482,9 @@ struct Decoder {
   int mcus_x = 0, mcus_y = 0;
   bool saw_sof = false, saw_jfif = false, saw_adobe = false;
   bool progressive = false, saw_sos = false;
+  bool arith = false, lossless = false;  // SOF9 / SOF10; SOF3
+  // DAC conditioning (jdmarker.c get_soi's defaults: L 0, U 1, Kx 5)
+  uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
   int adobe_transform = 0;
   int restart_interval = 0;
   bool file = false;  // read as cv2.imread reads a file
@@ -343,6 +503,12 @@ struct Decoder {
   bool qt_defined[4] = {};
   HuffSpec dc_spec[4], ac_spec[4];
   int unread_marker = 0;
+
+  Decoder() {
+    std::memset(arith_dc_L, 0, sizeof(arith_dc_L));
+    std::memset(arith_dc_U, 1, sizeof(arith_dc_U));
+    std::memset(arith_ac_K, 5, sizeof(arith_ac_K));
+  }
 
   uint8_t byte() {
     if (pos >= n) {
@@ -400,14 +566,16 @@ struct Decoder {
   }
 
   void get_sof(int marker) {
-    if (marker == 0xC3)
-      throw Unsupported{"lossless JPEG is not supported"};
-    if (marker >= 0xC9 && marker <= 0xCF)
-      throw Unsupported{"arithmetic-coded JPEG is not supported"};
-    if (marker >= 0xC5 && marker <= 0xC7)
-      throw Unsupported{"hierarchical JPEG is not supported"};
-    progressive = marker == 0xC2;
+    // a second SOF is a damaged stream (jdmarker.c), whatever its kind
     if (saw_sof) throw Invalid{"duplicate SOF"};
+    if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD)
+      throw Unsupported{"hierarchical JPEG is not supported"};
+    if (marker == 0xCB)  // libjpeg-turbo has no lossless arithmetic decoder
+      throw Unsupported{"lossless arithmetic-coded JPEG (SOF11) is not "
+                        "supported"};
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker >= 0xC9;
+    lossless = marker == 0xC3;
     int len = word();
     precision = byte();
     height = word();
@@ -424,9 +592,17 @@ struct Decoder {
       c.tq = byte();
     }
     saw_sof = true;
-    if (precision != 8)
+    if (lossless) {  // cv2 reads lossless JPEG through libjpeg's 8-bit API
+      if (precision < 2 || precision > 16)
+        throw Invalid{"bad lossless JPEG precision"};
+      if (precision > 8)
+        throw Unsupported{std::to_string(precision) +
+                          "-bit lossless JPEG is not supported (2 to 8 "
+                          "bits)"};
+    } else if (precision != 8) {
       throw Unsupported{std::to_string(precision) +
                         "-bit JPEG is not supported (8-bit only)"};
+    }
     if (nc != 1 && nc != 3 && nc != 4)
       throw Unsupported{std::to_string(nc) +
                         "-component JPEG is not supported"};
@@ -437,16 +613,23 @@ struct Decoder {
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
-    mcus_x = (width + 8 * max_h - 1) / (8 * max_h);
-    mcus_y = (height + 8 * max_v - 1) / (8 * max_v);
+    // jdinput.c initial_setup: a lossless data unit is one sample
+    const int du = lossless ? 1 : 8;
+    mcus_x = (width + du * max_h - 1) / (du * max_h);
+    mcus_y = (height + du * max_v - 1) / (du * max_v);
     for (auto& c : comps) {
-      c.wib = int((int64_t(width) * c.h + 8 * max_h - 1) / (8 * max_h));
-      c.hib = int((int64_t(height) * c.v + 8 * max_v - 1) / (8 * max_v));
+      c.wib = int((int64_t(width) * c.h + du * max_h - 1) / (du * max_h));
+      c.hib = int((int64_t(height) * c.v + du * max_v - 1) / (du * max_v));
       c.dw = int((int64_t(width) * c.h + max_h - 1) / max_h);
       c.dh = int((int64_t(height) * c.v + max_v - 1) / max_v);
       c.bw = mcus_x * c.h;
       c.bh = mcus_y * c.v;
-      c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      if (lossless) {
+        c.samples.assign(size_t(c.wib) * c.hib, 0);
+        c.last_row.assign(size_t(c.wib), 0);
+      } else {
+        c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      }
     }
     coef_bits.assign(size_t(nc), {});
     for (auto& cb : coef_bits) cb.fill(-1);
@@ -500,6 +683,24 @@ struct Decoder {
     if (len != 0) throw Invalid{"bad DQT length"};
   }
 
+  void get_dac() {  // jdmarker.c get_dac
+    int len = word() - 2;
+    while (len > 0) {
+      int index = byte(), val = byte();
+      len -= 2;
+      if (index >= 32) throw Invalid{"bad DAC index"};
+      if (index >= 16) {
+        arith_ac_K[index - 16] = uint8_t(val);
+      } else {
+        arith_dc_L[index] = uint8_t(val & 0x0F);
+        arith_dc_U[index] = uint8_t(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index])
+          throw Invalid{"bad DAC value"};
+      }
+    }
+    if (len != 0) throw Invalid{"bad DAC length"};
+  }
+
   void get_dri() {
     if (word() != 4) throw Invalid{"bad DRI length"};
     restart_interval = word();
@@ -515,7 +716,7 @@ struct Decoder {
       } else if (m == 0xC4) {
         get_dht();
       } else if (m == 0xCC) {
-        throw Unsupported{"arithmetic-coded JPEG is not supported"};
+        get_dac();
       } else if (m == 0xDB) {
         get_dqt();
       } else if (m == 0xDD) {
@@ -540,8 +741,10 @@ struct Decoder {
     }
   }
 
-  bool resync_to_restart(BitReader& br, int desired) {  // jpeg_resync_to_restart
-    int marker = br.marker;
+  // jpeg_resync_to_restart over an entropy reader's marker and position
+  void resync_to_restart(int* reader_marker, size_t* reader_pos,
+                         int desired) {
+    int marker = *reader_marker;
     for (;;) {
       int action;
       if (marker < 0xC0) {
@@ -558,34 +761,40 @@ struct Decoder {
         action = 1;
       }
       if (action == 1) {
-        br.marker = 0;
-        return true;
+        *reader_marker = 0;
+        return;
       }
       if (action == 3) {
-        br.marker = marker;
-        return true;
+        *reader_marker = marker;
+        return;
       }
-      pos = br.pos;
+      pos = *reader_pos;
       marker = next_marker();
-      br.pos = pos;
-      br.marker = marker;
+      *reader_pos = pos;
+      *reader_marker = marker;
     }
+  }
+
+  // jdmarker.c read_restart_marker, for an entropy reader's marker and
+  // position; advances *next_rst.
+  void read_restart_marker(int* reader_marker, size_t* reader_pos,
+                           int* next_rst) {
+    if (*reader_marker == 0) {
+      pos = *reader_pos;
+      *reader_marker = next_marker();
+      *reader_pos = pos;
+    }
+    if (*reader_marker == 0xD0 + *next_rst)
+      *reader_marker = 0;
+    else
+      resync_to_restart(reader_marker, reader_pos, *next_rst);
+    *next_rst = (*next_rst + 1) & 7;
   }
 
   void process_restart(BitReader& br, int* next_rst, int* last_dc,
                        int ncomp, unsigned* eobrun) {
     br.bits = 0;
-    if (br.marker == 0) {
-      pos = br.pos;
-      br.marker = next_marker();
-      br.pos = pos;
-    }
-    if (br.marker == 0xD0 + *next_rst) {
-      br.marker = 0;
-    } else {
-      resync_to_restart(br, *next_rst);
-    }
-    *next_rst = (*next_rst + 1) & 7;
+    read_restart_marker(&br.marker, &br.pos, next_rst);
     for (int i = 0; i < ncomp; i++) last_dc[i] = 0;
     *eobrun = 0;
     if (br.marker == 0) br.insufficient = false;
@@ -716,6 +925,362 @@ struct Decoder {
       }
   }
 
+  // One arithmetic-coded scan (jdarith.c): sequential, or one of the four
+  // progressive scan types, into the whole-image coefficient buffer over
+  // the block grids that the Huffman scans use. A bad code (a magnitude or
+  // run past its range) stops the scan's output until the next restart,
+  // as libjpeg's "Corrupt JPEG data: bad arithmetic code" does.
+  void decode_arith(ArithReader& ar, const std::vector<int>& sc,
+                    const int* td, const int* ta, int Ss, int Se, int Ah,
+                    int Al) {
+    const int ns = int(sc.size());
+    uint8_t dc_stats[16][64], ac_stats[16][256];
+    uint8_t fixed_bin[4] = {kFixedBin, 0, 0, 0};
+    int last_dc[4] = {0, 0, 0, 0}, dc_context[4] = {0, 0, 0, 0};
+    const bool dc_scan = !progressive || (Ss == 0 && Ah == 0);
+    const bool ac_scan = !progressive || Ss != 0;
+    auto reset_stats = [&]() {  // start_pass, and process_restart
+      for (int i = 0; i < ns; i++) {
+        if (dc_scan) {
+          std::memset(dc_stats[td[i]], 0, 64);
+          last_dc[i] = 0;
+          dc_context[i] = 0;
+        }
+        if (ac_scan) std::memset(ac_stats[ta[i]], 0, 256);
+      }
+    };
+    reset_stats();
+    int next_rst = 0, to_go = restart_interval;
+    auto restart = [&]() {
+      if (restart_interval) {
+        if (to_go == 0) {
+          read_restart_marker(&ar.marker, &ar.pos, &next_rst);
+          reset_stats();
+          ar.reset();
+          to_go = restart_interval;
+        }
+        to_go--;
+      }
+    };
+    // F.1.4.4.1 / F.2.4.1: a DC difference into last_dc[i] (mod 2^16);
+    // false on a bad code
+    auto dc_diff = [&](int i, int tbl) {
+      uint8_t* st = dc_stats[tbl] + dc_context[i];
+      if (ar.decode(st) == 0) {
+        dc_context[i] = 0;
+        return true;
+      }
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = dc_stats[tbl] + 20;  // X1
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;  // magnitude overflow
+            return false;
+          }
+          st++;
+        }
+      }
+      if (m < ((1 << arith_dc_L[tbl]) >> 1))
+        dc_context[i] = 0;
+      else if (m > ((1 << arith_dc_U[tbl]) >> 1))
+        dc_context[i] = 12 + sign * 4;
+      else
+        dc_context[i] = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      last_dc[i] = (last_dc[i] + v) & 0xFFFF;
+      return true;
+    };
+    // F.1.4.4.2: an AC magnitude after its nonzero decision at bin st;
+    // 0 on a bad code
+    auto ac_value = [&](uint8_t* st, int k, int tbl) {
+      const int sign = ar.decode(fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_ac_K[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;  // magnitude overflow
+            return 0;
+          }
+          st++;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      return sign ? -v : v;
+    };
+    // sequential decode_mcu's body for one block; false on a bad code
+    auto seq_block = [&](int i, int16_t* blk) {
+      if (!dc_diff(i, td[i])) return false;
+      blk[0] = int16_t(last_dc[i]);
+      const int tbl = ta[i];
+      int k = 0;
+      do {
+        uint8_t* st = ac_stats[tbl] + 3 * k;
+        if (ar.decode(st)) break;  // EOB
+        for (;;) {
+          k++;
+          if (ar.decode(st + 1)) break;
+          st += 3;
+          if (k >= 63) {
+            ar.ct = -1;  // spectral overflow
+            return false;
+          }
+        }
+        const int v = ac_value(st, k, tbl);
+        if (v == 0) return false;
+        blk[kNatural[k]] = int16_t(v);
+      } while (k < 63);
+      return true;
+    };
+    const int p1 = 1 << Al, m1 = int(unsigned(-1) << Al);
+    auto ac_first = [&](int16_t* blk) {
+      const int tbl = ta[0];
+      for (int k = Ss; k <= Se; k++) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (ar.decode(st)) break;  // EOB
+        while (ar.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > Se) {
+            ar.ct = -1;  // spectral overflow
+            return;
+          }
+        }
+        const int v = ac_value(st, k, tbl);
+        if (v == 0) return;
+        blk[kNatural[k]] = int16_t(unsigned(v) << Al);
+      }
+    };
+    auto ac_refine = [&](int16_t* blk) {
+      const int tbl = ta[0];
+      int kex = Se;  // the previous stage's end of block
+      for (; kex > 0; kex--)
+        if (blk[kNatural[kex]]) break;
+      for (int k = Ss; k <= Se; k++) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex && ar.decode(st)) break;  // EOB
+        for (;;) {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef) {  // previously nonzero: a correction bit
+            if (ar.decode(st + 2))
+              *coef = int16_t(*coef + (*coef < 0 ? m1 : p1));
+            break;
+          }
+          if (ar.decode(st + 1)) {  // newly nonzero
+            *coef = int16_t(ar.decode(fixed_bin) ? m1 : p1);
+            break;
+          }
+          st += 3;
+          if (++k > Se) {
+            ar.ct = -1;  // spectral overflow
+            return;
+          }
+        }
+      }
+    };
+    auto at = [](Component& c, int by, int bx) {
+      return &c.coef[(size_t(by) * c.bw + bx) * 64];
+    };
+    // one MCU's blocks, in the order of the scan's components
+    auto mcu_blocks = [&](int my, int mx, auto&& fn) {
+      for (int i = 0; i < ns; i++) {
+        Component& c = comps[size_t(sc[size_t(i)])];
+        for (int y = 0; y < c.v; y++)
+          for (int x = 0; x < c.h; x++)
+            if (!fn(i, at(c, my * c.v + y, mx * c.h + x))) return;
+      }
+    };
+    if (!progressive) {
+      if (ns == 1) {
+        Component& c = comps[size_t(sc[0])];
+        for (int by = 0; by < c.hib; by++)
+          for (int bx = 0; bx < c.wib; bx++) {
+            restart();
+            if (ar.ct != -1) seq_block(0, at(c, by, bx));
+          }
+        return;
+      }
+      for (int my = 0; my < mcus_y; my++)
+        for (int mx = 0; mx < mcus_x; mx++) {
+          restart();
+          if (ar.ct != -1) mcu_blocks(my, mx, seq_block);
+        }
+      return;
+    }
+    // progressive: arith's insufficient_data is never set, so every MCU
+    // counts as good data for block smoothing
+    if (Ss != 0) {  // AC: one component, its own block grid
+      Component& c = comps[size_t(sc[0])];
+      for (int by = 0; by < c.hib; by++)
+        for (int bx = 0; bx < c.wib; bx++) {
+          last_good_imcu_row = by / c.v;
+          restart();
+          if (ar.ct == -1) continue;
+          if (Ah == 0)
+            ac_first(at(c, by, bx));
+          else
+            ac_refine(at(c, by, bx));
+        }
+      return;
+    }
+    auto dc_block = [&](int i, int16_t* blk) {
+      if (Ah != 0) {  // DC refine: the next bit, no error check
+        if (ar.decode(fixed_bin)) blk[0] = int16_t(blk[0] | p1);
+        return true;
+      }
+      if (!dc_diff(i, td[i])) return false;
+      blk[0] = int16_t(uint16_t(unsigned(last_dc[i]) << Al));
+      return true;
+    };
+    if (ns == 1) {
+      Component& c = comps[size_t(sc[0])];
+      for (int by = 0; by < c.hib; by++)
+        for (int bx = 0; bx < c.wib; bx++) {
+          last_good_imcu_row = by / c.v;
+          restart();
+          if (Ah == 0 && ar.ct == -1) continue;
+          dc_block(0, at(c, by, bx));
+        }
+      return;
+    }
+    for (int my = 0; my < mcus_y; my++)
+      for (int mx = 0; mx < mcus_x; mx++) {
+        last_good_imcu_row = my;
+        restart();
+        if (Ah == 0 && ar.ct == -1) continue;
+        mcu_blocks(my, mx, dc_block);
+      }
+  }
+
+  // One lossless scan (jdlhuff.c, jddiffct.c, jdlossls.c): Huffman-coded
+  // sample differences an MCU row at a time, undifferenced and scaled by
+  // the point transform Al an iMCU row at a time with predictor psv (the
+  // first row after the scan's start, a restart or the end of the data
+  // with the 1-D predictor from 2^(P - Al - 1)), into each component's
+  // samples. Restarts come every restart_interval / MCUs_per_row MCU rows.
+  void decode_lossless(BitReader& br, const std::vector<int>& sc,
+                       const Derived* dct, int psv, int Al) {
+    const int ns = int(sc.size());
+    const int mcus_per_row = ns == 1 ? comps[size_t(sc[0])].wib : mcus_x;
+    if (restart_interval % mcus_per_row != 0)
+      throw Invalid{"lossless restart interval not a whole MCU row"};
+    const int rows_per_rst = restart_interval / mcus_per_row;
+    const int init = 1 << (precision - Al - 1);
+    int next_rst = 0, to_go = rows_per_rst;
+    bool first_row = true;  // start_pass_lossless: every component
+    // each component's differences for an iMCU row: v rows of its
+    // MCU-padded width
+    std::vector<std::vector<int>> diff(static_cast<size_t>(ns));
+    std::vector<int> width(static_cast<size_t>(ns));
+    for (int i = 0; i < ns; i++) {
+      const Component& c = comps[size_t(sc[size_t(i)])];
+      width[size_t(i)] = ns == 1 ? c.wib : mcus_x * c.h;
+      diff[size_t(i)].assign(size_t(width[size_t(i)]) * c.v, 0);
+    }
+    auto sample = [&](int i) {  // one difference (H.2.2)
+      int s = br.decode(dct[i]);
+      if (s == 16) return 32768;
+      if (s) s = extend(br.get(s), s);
+      return s;
+    };
+    std::vector<uint16_t> row16;
+    for (int r = 0; r < mcus_y; r++) {
+      const Component& c0 = comps[size_t(sc[0])];
+      const int mcu_rows =
+          ns > 1 ? 1 : (r < mcus_y - 1 ? c0.v : c0.last_row_height());
+      for (int yoff = 0; yoff < mcu_rows; yoff++) {
+        if (restart_interval) {
+          if (to_go == 0) {
+            br.bits = 0;
+            read_restart_marker(&br.marker, &br.pos, &next_rst);
+            if (br.marker == 0) br.insufficient = false;
+            first_row = true;
+            to_go = rows_per_rst;
+          }
+        }
+        if (br.insufficient) {  // out of data: zeros, predictor reset
+          for (int i = 0; i < ns; i++) {
+            const Component& c = comps[size_t(sc[size_t(i)])];
+            const int w = width[size_t(i)];
+            if (ns == 1)
+              std::fill_n(&diff[0][size_t(yoff) * w], w, 0);
+            else
+              std::fill_n(diff[size_t(i)].begin(), size_t(w) * c.v, 0);
+          }
+          first_row = true;
+        } else if (ns == 1) {
+          int* d = &diff[0][size_t(yoff) * width[0]];
+          for (int x = 0; x < mcus_per_row; x++) d[x] = sample(0);
+        } else {
+          for (int mx = 0; mx < mcus_x; mx++)
+            for (int i = 0; i < ns; i++) {
+              const Component& c = comps[size_t(sc[size_t(i)])];
+              for (int y = 0; y < c.v; y++)
+                for (int x = 0; x < c.h; x++)
+                  diff[size_t(i)][size_t(y) * width[size_t(i)] + mx * c.h +
+                                  x] = sample(i);
+            }
+        }
+        if (restart_interval) to_go--;
+      }
+      for (int i = 0; i < ns; i++) {
+        Component& c = comps[size_t(sc[size_t(i)])];
+        const int rows = r < mcus_y - 1 ? c.v : c.last_row_height();
+        const int w = c.wib;
+        row16.resize(size_t(w));
+        for (int y = 0; y < rows; y++) {
+          const int* d = &diff[size_t(i)][size_t(y) * width[size_t(i)]];
+          const uint16_t* prev = c.last_row.data();
+          uint16_t* out = row16.data();
+          const bool first = first_row && y == 0;
+          if (first || psv == 1) {  // jpeg_undifference_first_row, 1
+            int ra = (d[0] + (first ? init : prev[0])) & 0xFFFF;
+            out[0] = uint16_t(ra);
+            for (int x = 1; x < w; x++) {
+              ra = (d[x] + ra) & 0xFFFF;
+              out[x] = uint16_t(ra);
+            }
+          } else {
+            int64_t rb = prev[0], ra = (d[0] + rb) & 0xFFFF, rc;
+            out[0] = uint16_t(ra);
+            for (int x = 1; x < w; x++) {
+              rc = rb;
+              rb = prev[x];
+              int64_t p;
+              switch (psv) {
+                case 2: p = rb; break;
+                case 3: p = rc; break;
+                case 4: p = ra + rb - rc; break;
+                case 5: p = ra + ((rb - rc) >> 1); break;
+                case 6: p = rb + ((ra - rc) >> 1); break;
+                default: p = (ra + rb) >> 1; break;
+              }
+              ra = (d[x] + p) & 0xFFFF;
+              out[x] = uint16_t(ra);
+            }
+          }
+          std::memcpy(c.last_row.data(), out, size_t(w) * 2);
+          uint8_t* o = &c.samples[size_t(r * c.v + y) * w];
+          for (int x = 0; x < w; x++) o[x] = uint8_t(unsigned(out[x]) << Al);
+        }
+      }
+      first_row = false;
+    }
+  }
+
   // Decodes one scan; returns true when it was a sequential scan that held
   // every component (the image is then complete).
   bool decode_scan() {
@@ -738,7 +1303,27 @@ struct Decoder {
     }
     const int Ss = byte(), Se = byte(), AhAl = byte();
     const int Ah = AhAl >> 4, Al = AhAl & 15;
-    if (progressive) {  // jdphuff.c start_pass_phuff_decoder
+    if (lossless) {  // jdlossls.c start_pass_lossless, jdlhuff.c
+      if (Ss < 1 || Ss > 7 || Se != 0 || Ah != 0 || Al >= precision)
+        throw Invalid{"bad lossless scan parameters"};
+      Derived dct[4];
+      for (int i = 0; i < ns; i++) {
+        if (td[i] > 3) throw Invalid{"bad Huffman table index"};
+        HuffSpec spec = dc_spec[td[i]];
+        if (!spec.defined) {
+          if (td[i] > 1) throw Invalid{"missing Huffman table"};
+          std_spec(&spec, td[i] ? kStdDcChroma : kStdDcLuma, 28);
+        }
+        derive(spec, true, &dct[i], 16);
+      }
+      BitReader br{d, n, pos};
+      br.file = file;
+      decode_lossless(br, sc, dct, Ss, Al);
+      pos = br.pos;
+      unread_marker = br.marker;
+      return ns == int(comps.size());
+    }
+    if (progressive) {  // jdphuff.c / jdarith.c start_pass
       bool bad = Ss == 0 ? Se != 0 : (Ss > Se || Se > 63 || ns != 1);
       if ((Ah != 0 && Al != Ah - 1) || Al > 13) bad = true;
       if (bad) throw Invalid{"bad progression parameters"};
@@ -753,11 +1338,12 @@ struct Decoder {
     }
     Derived dct[4], act[4];
     for (int i = 0; i < ns; i++) {
-      if (td[i] > 3 || ta[i] > 3) throw Invalid{"bad Huffman table index"};
-      for (int k = 0; k < 2; k++) {
+      for (int k = 0; k < 2 && !arith; k++) {
         // a progressive DC scan reads no AC table, a DC refinement none
+        // (jdphuff.c checks only the tables a scan reads)
         if (progressive && (k ? Ss == 0 : (Ss != 0 || Ah != 0))) continue;
         int no = k ? ta[i] : td[i];
+        if (no > 3) throw Invalid{"bad Huffman table index"};
         HuffSpec spec = k ? ac_spec[no] : dc_spec[no];
         if (!spec.defined) {  // jpeg_std_huff_table (Motion-JPEG)
           if (no > 1) throw Invalid{"missing Huffman table"};
@@ -774,6 +1360,14 @@ struct Decoder {
         std::memcpy(c.quant, qt[c.tq], sizeof(c.quant));
         c.latched = true;
       }
+    }
+    if (arith) {
+      ArithReader ar{d, n, pos};
+      ar.file = file;
+      decode_arith(ar, sc, td, ta, Ss, Se, Ah, Al);
+      pos = ar.pos;
+      unread_marker = ar.marker;
+      return !progressive && ns == int(comps.size());
     }
     BitReader br{d, n, pos};
     br.file = file;
@@ -866,68 +1460,78 @@ struct Decoder {
   }
 };
 
-// jidctint.c's 1-D stage: 8 coefficients in, 8 outputs scaled by 2^13.
-void idct_1d(const int64_t* in, int64_t* out) {
-  int64_t z1 = (in[2] + in[6]) * F0_541;
-  int64_t tmp2 = z1 + in[6] * -F1_847;
-  int64_t tmp3 = z1 + in[2] * F0_765;
-  int64_t tmp0 = (in[0] + in[4]) * (1 << kConstBits);
-  int64_t tmp1 = (in[0] - in[4]) * (1 << kConstBits);
-  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  tmp0 = in[7];
-  tmp1 = in[5];
-  tmp2 = in[3];
-  tmp3 = in[1];
-  z1 = tmp0 + tmp3;
-  int64_t z2 = tmp1 + tmp2, z3 = tmp0 + tmp2, z4 = tmp1 + tmp3;
-  const int64_t z5 = (z3 + z4) * F1_175;
-  tmp0 *= F0_298;
-  tmp1 *= F2_053;
-  tmp2 *= F3_072;
-  tmp3 *= F1_501;
-  z1 *= -F0_899;
-  z2 *= -F2_562;
-  z3 = z3 * -F1_961 + z5;
-  z4 = z4 * -F0_390 + z5;
-  tmp0 += z1 + z3;
-  tmp1 += z2 + z4;
-  tmp2 += z2 + z3;
-  tmp3 += z1 + z4;
-  out[0] = tmp10 + tmp3;
-  out[7] = tmp10 - tmp3;
-  out[1] = tmp11 + tmp2;
-  out[6] = tmp11 - tmp2;
-  out[2] = tmp12 + tmp1;
-  out[5] = tmp12 - tmp1;
-  out[3] = tmp13 + tmp0;
-  out[4] = tmp13 - tmp0;
+inline int16_t wrap16(int64_t x) { return int16_t(uint16_t(x)); }
+inline int16_t sat16(int64_t x) {
+  return int16_t(x < -32768 ? -32768 : x > 32767 ? 32767 : x);
 }
 
-// jidctint.c islow IDCT of one block into 8 rows of `stride` samples:
-// columns, then rows. The SIMD IDCT libjpeg-turbo runs saturates to 0..255
-// (its C range table agrees for every value a real image produces).
+// One 1-D stage of libjpeg-turbo's SIMD islow IDCT (jidctint-sse2 / -avx2,
+// the code OpenCV's libjpeg-turbo runs on x86-64): jidctint.c's
+// arithmetic, except that in0 +- in4, in7 + in3 and in5 + in1 are 16-bit
+// sums (they wrap) and the products go through pmaddwd pairs; 8 outputs
+// scaled by 2^13 (32-bit, as the SIMD keeps them).
+void idct_1d(const int16_t* in, int64_t* out) {
+  const int64_t in0 = in[0], in1 = in[1], in2 = in[2], in3 = in[3],
+                in4 = in[4], in5 = in[5], in6 = in[6], in7 = in[7];
+  const int64_t tmp0 = int64_t(wrap16(in0 + in4)) * (1 << kConstBits);
+  const int64_t tmp1 = int64_t(wrap16(in0 - in4)) * (1 << kConstBits);
+  const int64_t tmp3 = in2 * (F0_541 + F0_765) + in6 * F0_541;
+  const int64_t tmp2 = in2 * F0_541 + in6 * (F0_541 - F1_847);
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int64_t z3 = wrap16(in7 + in3), z4 = wrap16(in5 + in1);
+  const int64_t z3s = z3 * (F1_175 - F1_961) + z4 * F1_175;
+  const int64_t z4s = z3 * F1_175 + z4 * (F1_175 - F0_390);
+  const int64_t o0 = in7 * (F0_298 - F0_899) + in1 * -F0_899 + z3s;
+  const int64_t o1 = in5 * (F2_053 - F2_562) + in3 * -F2_562 + z4s;
+  const int64_t o2 = in5 * -F2_562 + in3 * (F3_072 - F2_562) + z3s;
+  const int64_t o3 = in7 * -F0_899 + in1 * (F1_501 - F0_899) + z4s;
+  out[0] = tmp10 + o3;
+  out[7] = tmp10 - o3;
+  out[1] = tmp11 + o2;
+  out[6] = tmp11 - o2;
+  out[2] = tmp12 + o1;
+  out[5] = tmp12 - o1;
+  out[3] = tmp13 + o0;
+  out[4] = tmp13 - o0;
+}
+
+// libjpeg-turbo's SIMD islow IDCT of one block into 8 rows of `stride`
+// samples: 16-bit dequantisation (pmullw), columns, a saturating pack to
+// 16 bits, rows, saturating packs to 16 and 8 bits, plus 128. A block whose
+// rows 1-7 are all zero takes the DC-only shortcut (each column's
+// dequantised row-0 value shifted left by 2 in 16 bits). For the values a
+// real image gives this is jidctint.c's result; it differs only where a
+// damaged stream's coefficients overflow 16 bits.
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                 int stride) {
-  int64_t ws[64], col[8], res[8];
-  for (int c = 0; c < 8; c++) {
-    for (int r = 0; r < 8; r++)
-      col[r] = int64_t(in[8 * r + c]) * int16_t(q[8 * r + c]);
-    if (!(col[1] | col[2] | col[3] | col[4] | col[5] | col[6] | col[7])) {
-      for (int r = 0; r < 8; r++)  // AC all zero: jidctint.c's shortcut
-        ws[8 * r + c] = col[0] * (1 << kPass1Bits);
-      continue;
+  int16_t deq[64], ws[64];
+  bool ac = false;
+  for (int i = 0; i < 64; i++) {
+    deq[i] = wrap16(int64_t(in[i]) * int16_t(q[i]));
+    if (i >= 8 && in[i]) ac = true;
+  }
+  int64_t res[8];
+  if (!ac) {
+    for (int c = 0; c < 8; c++) {
+      const int16_t v = wrap16(int64_t(deq[c]) * (1 << kPass1Bits));
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = v;
     }
-    idct_1d(col, res);
-    for (int r = 0; r < 8; r++)
-      ws[8 * r + c] = descale(res[r], kConstBits - kPass1Bits);
+  } else {
+    int16_t col[8];
+    for (int c = 0; c < 8; c++) {
+      for (int r = 0; r < 8; r++) col[r] = deq[8 * r + c];
+      idct_1d(col, res);
+      for (int r = 0; r < 8; r++)
+        ws[8 * r + c] = sat16(descale(res[r], kConstBits - kPass1Bits));
+    }
   }
   for (int r = 0; r < 8; r++) {
     idct_1d(ws + 8 * r, res);
     uint8_t* o = out + size_t(r) * stride;
     for (int c = 0; c < 8; c++) {
-      int64_t x = descale(res[c], kConstBits + kPass1Bits + 3) + 128;
-      o[c] = uint8_t(x < 0 ? 0 : x > 255 ? 255 : x);
+      int64_t x = sat16(descale(res[c], kConstBits + kPass1Bits + 3));
+      o[c] = uint8_t((x < -128 ? -128 : x > 127 ? 127 : x) + 128);
     }
   }
 }
@@ -1080,9 +1684,10 @@ Plane idct_plane_smoothed(const Component& c, const std::array<int, 20>& latch,
   return p;
 }
 
-// jdsample.c: a component's plane upsampled to width x height.
+// jdsample.c: a component's plane upsampled to width x height; without
+// `fancy` (lossless: a data unit of one sample) by replication only.
 std::vector<uint8_t> upsample(const Component& c, const Plane& p, int max_h,
-                              int max_v, int width, int height) {
+                              int max_v, int width, int height, bool fancy) {
   std::vector<uint8_t> out(size_t(width) * height);
   const int dw = c.dw, dh = c.dh;
   auto row = [&](int y) {  // jdmainct.c context rows: the real ones repeat
@@ -1093,7 +1698,7 @@ std::vector<uint8_t> upsample(const Component& c, const Plane& p, int max_h,
     for (int y = 0; y < height; y++)
       std::memcpy(&out[size_t(y) * width], &p.px[size_t(y) * p.w],
                   size_t(width));
-  } else if (2 * c.h == max_h && c.v == max_v && dw > 2) {  // h2v1 fancy
+  } else if (fancy && 2 * c.h == max_h && c.v == max_v && dw > 2) {  // h2v1
     std::vector<uint8_t> line(static_cast<size_t>(2 * dw));
     for (int y = 0; y < height; y++) {
       const uint8_t* in = &p.px[size_t(y) * p.w];
@@ -1109,7 +1714,7 @@ std::vector<uint8_t> upsample(const Component& c, const Plane& p, int max_h,
       o[2 * dw - 1] = in[dw - 1];
       std::memcpy(&out[size_t(y) * width], o, size_t(width));
     }
-  } else if (c.h == max_h && 2 * c.v == max_v) {  // h1v2 fancy
+  } else if (fancy && c.h == max_h && 2 * c.v == max_v) {  // h1v2 fancy
     for (int y = 0; y < height; y++) {
       int k = y >> 1;
       const uint8_t* in0 = row(k);
@@ -1119,7 +1724,7 @@ std::vector<uint8_t> upsample(const Component& c, const Plane& p, int max_h,
       for (int x = 0; x < width; x++)
         o[x] = uint8_t((in0[x] * 3 + in1[x] + bias) >> 2);
     }
-  } else if (2 * c.h == max_h && 2 * c.v == max_v && dw > 2) {  // h2v2
+  } else if (fancy && 2 * c.h == max_h && 2 * c.v == max_v && dw > 2) {
     std::vector<int> sum(static_cast<size_t>(dw));
     std::vector<uint8_t> line(static_cast<size_t>(2 * dw));
     for (int y = 0; y < height; y++) {
@@ -1197,6 +1802,14 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
   const bool ycck = nc == 4 && dec.saw_adobe && dec.adobe_transform != 0;
   const int W = dec.width, H = dec.height;
   if (mode == 4 && nc != 3) throw Invalid{"YCbCr JPEG without 3 components"};
+  if (dec.lossless) {
+    // jdcolor.c: libjpeg does no lossy colour conversion of a lossless
+    // image, only grey, RGB (to BGR) and CMYK as they are
+    const bool ok = mode == 3 || (mode != 4 && (
+        (nc == 1 && mode != 2) || (nc == 3 && rgb && mode != 1) ||
+        (nc == 4 && !ycck)));
+    if (!ok) throw Invalid{"lossless JPEG needs a colour conversion"};
+  }
   if (mode == 3) rgb = nc == 3;  // the planes as they are
   int channels = mode == 1 ? 1 : (mode == 2 || mode == 4) ? 3
                : mode == 3 ? nc : (nc == 1 ? 1 : 3);
@@ -1210,12 +1823,18 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
   std::vector<std::vector<uint8_t>> planes(static_cast<size_t>(nc));
   for (int i = 0; i < (gray_only ? 1 : nc); i++) {
     const Component& c = dec.comps[size_t(i)];
-    planes[size_t(i)] = upsample(
-        c,
-        smooth ? idct_plane_smoothed(c, latch[size_t(i)], dec.mcus_y,
-                                     dec.last_good_imcu_row)
-               : idct_plane(c),
-        dec.max_h, dec.max_v, W, H);
+    Plane p;
+    if (dec.lossless) {
+      p.w = c.wib;
+      p.h = c.hib;
+      p.px = c.samples;
+    } else {
+      p = smooth ? idct_plane_smoothed(c, latch[size_t(i)], dec.mcus_y,
+                                       dec.last_good_imcu_row)
+                 : idct_plane(c);
+    }
+    planes[size_t(i)] = upsample(c, p, dec.max_h, dec.max_v, W, H,
+                                 !dec.lossless);
   }
   const size_t npx = size_t(W) * H;
   if (gray_only) {

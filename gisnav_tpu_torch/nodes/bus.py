@@ -237,7 +237,12 @@ class ShmBus:
             raise OSError(f"shmbus_publish failed on {topic} (another live "
                           "process holds its write lock)")
 
-    def subscribe(self, topic: str, callback: Callable[[Any], None]) -> None:
+    def subscribe(self, topic: str, callback: Callable[..., None], *,
+                  stamped: bool = False) -> None:
+        """Call ``callback(message)`` for each message published on
+        ``topic`` from now on; ``stamped``: ``callback(message, stamp_us)``
+        with the publisher's wall-clock stamp (``CLOCK_REALTIME``, us),
+        comparable across processes."""
         handle, _ = self._handle(topic)
         buf = (ctypes.c_uint8 * self._slot_size)()
         stamp = ctypes.c_uint64()
@@ -262,7 +267,11 @@ class ShmBus:
                     continue
                 seq += 1
                 try:
-                    callback(pickle.loads(ctypes.string_at(buf, n)))
+                    msg = pickle.loads(ctypes.string_at(buf, n))
+                    if stamped:
+                        callback(msg, stamp.value)
+                    else:
+                        callback(msg)
                 except Exception:  # noqa: BLE001 - a node fails soft
                     _log.exception("subscriber %r failed", callback)
 

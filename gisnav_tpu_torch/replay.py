@@ -30,9 +30,11 @@ yaw. ``fused`` also runs the per-frame fixes through the port's
 
 Images are read by their content, whatever their names, as ``cv2.imread``
 reads them (``gis/imgcodecs.py`` ``read_image``; the card machine has no
-OpenCV): PNG, JPEG, TIFF and BigTIFF (a GDAL export: tiled or striped,
+OpenCV): PNG, JPEG (Huffman- or arithmetic-coded, sequential,
+progressive or lossless), TIFF and BigTIFF (a GDAL export: tiled or striped,
 deflate, LZW or PackBits, predictors 2 and 3, uint8 to float32), WebP
-(lossless, lossy, with alpha, extended or animated: the first frame), GIF,
+(lossless, lossy, with alpha, extended or animated: the first frame),
+JPEG 2000, GIF,
 BMP, PBM / PGM / PPM / PAM, PFM, Sun raster and Radiance HDR. The map and
 the frames are read as ``IMREAD_GRAYSCALE`` (each format's grey as OpenCV
 makes it; a JPEG, WebP or PNG turned upright by its EXIF orientation, a TIFF by
@@ -40,8 +42,8 @@ its ``Orientation`` tag, and a TIFF whose orientation transposes refused,
 as ``cv2.imread`` refuses it). The DEM is read as ``IMREAD_UNCHANGED`` and
 must be grey: an 8 or 16-bit PNG, or a uint16, int16 or float32 GeoTIFF
 (heights times ``dem_scale``). A file cv2 would not read, or a variant the
-port does not read yet (JPEG 2000, AVIF, a TIFF compression such as
-CCITT; arithmetic-coded, lossless, 12-bit or hierarchical JPEG), raises
+port does not read yet (AVIF, HTJ2K, a TIFF compression such as CCITT;
+lossless arithmetic-coded (SOF11), hierarchical or 12-bit JPEG), raises
 ``ValueError``.
 """
 from __future__ import annotations

@@ -14,8 +14,10 @@ and equal bytes.
   sampling and size, with restarts; a complete one gives the baseline
   file's pixels; one cut short and closed by EOI is block-smoothed as
   libjpeg-turbo smooths it (every scan boundary and inside every scan).
-  Arithmetic-coded, lossless, hierarchical and 12-bit headers raise
-  ``ValueError`` naming the variant (cv2 reads the first two). Truncated,
+  Arithmetic-coded and lossless headers decode as cv2 decodes them;
+  lossless arithmetic-coded, hierarchical, 12-bit and 16-bit lossless
+  headers raise ``ValueError`` naming the variant (cv2 reads none of
+  them). Truncated,
   cut and corrupt streams and garbage give what cv2 gives (None, or the
   image with grey past a damaged segment); read as a file they give what
   ``cv2.imread`` gives (libjpeg's fake EOI past the end).
@@ -212,27 +214,42 @@ def _sof_edit(data, marker, precision=8, scan=None):
 
 
 # (SOF marker, precision, scan's Ss/Se/AhAl) -> (the port's message, whether
-# cv2 reads it: libjpeg-turbo 3.1 in OpenCV 5.0 decodes arithmetic-coded
-# and 8-bit lossless files, and refuses 12-bit and hierarchical ones)
+# cv2 reads it): libjpeg-turbo 3.1 in OpenCV 5.0 refuses lossless
+# arithmetic-coded, hierarchical, 12-bit and 9- to 16-bit lossless files,
+# and the port raises naming them
 REFUSED = {
-    "arithmetic": ((0xC9, 8, None), "arithmetic-coded", True),
-    "arithmetic_progressive": ((0xCA, 8, (0, 0, 0)), "arithmetic-coded",
-                               True),
-    "lossless": ((0xC3, 8, (1, 0, 0)), "lossless", True),
+    "lossless_arithmetic": ((0xCB, 8, (1, 0, 0)), "lossless arithmetic",
+                            False),
     "hierarchical": ((0xC5, 8, None), "hierarchical", False),
     "hierarchical_progressive": ((0xC6, 8, None), "hierarchical", False),
+    "hierarchical_arithmetic": ((0xCD, 8, None), "hierarchical", False),
     "12bit": ((0xC1, 12, None), "12-bit", False),
+    "16bit_lossless": ((0xC3, 16, (1, 0, 0)), "16-bit lossless", False),
+}
+# headers of variants the port once refused and now reads: the baseline
+# file's Huffman data read as arithmetic-coded or lossless data, as cv2
+# reads it (tests/test_torch_jpeg_variants.py holds real files of each)
+READ_NOW = {
+    "arithmetic": (0xC9, 8, None),
+    "arithmetic_progressive": (0xCA, 8, (0, 0, 0)),
+    "lossless": (0xC3, 8, (1, 0, 0)),
 }
 
 
 def test_progressive_raises_naming_it():
     """Progressive files decode (the refusal this held until progressive
-    decoding came is lifted: see ``test_progressive_decodes_as_cv2``); the
-    variants still refused raise ``ValueError`` naming theirs, whether cv2
-    reads them or not."""
+    decoding came is lifted: see ``test_progressive_decodes_as_cv2``), and
+    so do arithmetic-coded and lossless headers (``READ_NOW``, lifted
+    since); the variants cv2 does not read either raise ``ValueError``
+    naming theirs."""
     data = _encode(_image(32, 40, 3), cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
     _assert_decodes_as_cv2(data)
     base = _encode(_image(32, 40, 1))
+    for sof, precision, scan in READ_NOW.values():
+        edited = _sof_edit(base, sof, precision, scan)
+        assert cv2.imdecode(np.frombuffer(edited, np.uint8),
+                            cv2.IMREAD_UNCHANGED) is not None
+        _assert_decodes_as_cv2(edited)
     for (sof, precision, scan), name, cv2_reads in REFUSED.values():
         edited = _sof_edit(base, sof, precision, scan)
         for flag in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE):

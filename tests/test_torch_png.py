@@ -14,9 +14,9 @@ and dtypes.
   grey flag on colour and palette images is libpng's conversion, exactly
   (with gAMA / sRGB through libpng's gamma tables; the chunk rules libpng
   applies: sRGB over gAMA, neither after PLTE or IDAT, iCCP and cICP
-  ignored). A 16-bit colour PNG with such a gamma raises under the grey
-  flag; an ancillary chunk that fails its CRC is dropped, a critical one
-  raises.
+  ignored), at 16 bits through its 16-bit tables and the gamma shift an
+  sBIT chunk sets; an ancillary chunk that fails its CRC is dropped, a
+  critical one raises.
 - eXIf orientation as cv2 applies it (grey flag only; libpng's checks: the
   first valid chunk, a TIFF header, a good CRC; before or after IDAT).
 - A loopback WMS serving a progressive JPEG, CMYK and palette PNG replies:
@@ -191,16 +191,55 @@ def test_png_gamma_after_plte_is_out_of_place():
 
 
 def test_png_16bit_colour_gamma_refused_under_grey_flag():
+    """The refusal this held is lifted: a 16-bit colour PNG with a gamma
+    other than 1 reads under the grey flag as cv2 reads it (libpng's 16-bit
+    gamma tables); the file of the former refusal, and one at gamma 1."""
     rng = np.random.default_rng(9)
     data = write_png(rng.integers(0, 65536, (H, W, 3)).astype(np.uint16),
                      16, 2, before=[_gama(45455)])
-    np.testing.assert_array_equal(
-        tjpeg.decode_image(data, tjpeg.IMREAD_UNCHANGED),
-        cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED))
-    with pytest.raises(ValueError, match="16-bit colour PNG with a gamma"):
-        tjpeg.decode_image(data, tjpeg.IMREAD_GRAYSCALE)
+    _as_cv2(data)
     _as_cv2(write_png(rng.integers(0, 65536, (H, W, 3)).astype(np.uint16),
                       16, 2, before=[_gama(100000)]))
+
+
+def _sbit(*depths):
+    return chunk(b"sBIT", bytes(depths))
+
+
+# gamma and sBIT chunks of a 16-bit colour PNG: libpng's gamma_16_to_1 /
+# gamma_16_from_1 (indexed by the value >> gamma_shift: 5 under OpenCV's
+# strip_16, 8 for an 8-bit sBIT) and its 16-to-8 table for grey pixels
+GAMMA16_CASES = {
+    "gama_1_2.2": [_gama(45455)],
+    "gama_1_1.8": [_gama(55556)],
+    "srgb": [SRGB],
+    "gama_1": [_gama(100000)],
+    "gama_2.2": [_gama(220000)],
+    "gama_near_1": [_gama(96000)],
+    "sbit_8": [_sbit(8, 8, 8), _gama(45455)],
+    "sbit_12": [_sbit(12, 12, 12), _gama(45455)],
+    "sbit_mixed": [_sbit(10, 11, 9), _gama(55556)],
+    "sbit_invalid": [_sbit(8, 8), _gama(45455)],
+}
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+@pytest.mark.parametrize("ctype", [2, 6], ids=["rgb", "rgba"])
+@pytest.mark.parametrize("case", list(GAMMA16_CASES))
+def test_png_16bit_colour_gamma_as_cv2(case, ctype, interlace):
+    """Every value class: grey pixels (R = G = B, through the 16-to-8
+    table), a ramp over the whole 16-bit range, random colour."""
+    rng = np.random.default_rng(len(case) + ctype)
+    px = rng.integers(0, 65536, (H, W, 4)).astype(np.uint16)
+    px[::3, ::2, 1:3] = px[::3, ::2, :1]
+    px[0, :, :3] = np.linspace(0, 65535, W).astype(np.uint16)[:, None]
+    sbit = [c for c in GAMMA16_CASES[case] if c[4:8] == b"sBIT"]
+    if sbit and ctype == 6:  # an sBIT has a depth a channel, alpha too
+        body = sbit[0][8:-4]
+        sbit = [_sbit(*body, 16) if len(body) == 3 else _sbit(*body)]
+    chunks = sbit + [c for c in GAMMA16_CASES[case] if c[4:8] != b"sBIT"]
+    _as_cv2(write_png(px[..., :3 if ctype == 2 else 4], 16, ctype,
+                      interlace=interlace, before=chunks))
 
 
 def _exif_chunk(body, crc_ok=True):

@@ -9,11 +9,20 @@ settings neither cv2 nor Pillow exposes. For JPEG 2000: OpenJPEG's encoder
 (Pillow's bundled ``libopenjp2``, through ``ctypes``) for the code-block
 styles, tile-parts, POC, SOP/EPH, ROI, sub-sampling and offsets Pillow
 does not expose; JP2 boxes written around a codestream; and patches of a
-codestream's ``SIZ`` and ``COD`` fields."""
+codestream's ``SIZ`` and ``COD`` fields. For JPEG: libjpeg-turbo's own
+encoder and transcoder (Pillow's bundled ``libjpeg``, through a small C
+shim built with the host compiler against ``jpeglib.h``) for lossless,
+arithmetic-coded and DAC-conditioned files, which cv2 does not write; and
+a lossless writer of its own for the sampling ratios, scan splits and
+colour markers libjpeg's lossless encoder does not write."""
 import ctypes
+import functools
 import glob
+import hashlib
 import os
 import struct
+import subprocess
+import tempfile
 import zlib
 
 import numpy as np
@@ -1301,3 +1310,459 @@ def j2k_with_ppm(cs: bytes, markers: int = 1) -> bytes:
     ppm = b"".join(j2k_segment(0xff60, bytes([z]) + chunk)
                    for z, chunk in enumerate(_split(data, markers)))
     return head + ppm + out + tail
+
+
+
+# -- JPEG: libjpeg-turbo's encoder, and a lossless writer -------------------
+
+# libjpeg's colour spaces (J_COLOR_SPACE)
+JCS_GRAYSCALE, JCS_RGB, JCS_YCBCR, JCS_CMYK, JCS_YCCK = 1, 2, 3, 4, 5
+
+_LIBJPEG_SHIM = r"""
+#include <setjmp.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+
+/* libjpeg-turbo 3 entry points that an older jpeglib.h does not declare */
+void jpeg_enable_lossless(j_compress_ptr cinfo, int psv, int pt);
+JDIMENSION jpeg12_write_scanlines(j_compress_ptr cinfo, short **rows,
+                                  JDIMENSION n);
+JDIMENSION jpeg16_write_scanlines(j_compress_ptr cinfo,
+                                  unsigned short **rows, JDIMENSION n);
+
+struct err {
+  struct jpeg_error_mgr pub;
+  jmp_buf jb;
+  char *msg;
+};
+
+static void on_error(j_common_ptr c) {
+  struct err *e = (struct err *)c->err;
+  (*c->err->format_message)(c, e->msg);
+  longjmp(e->jb, 1);
+}
+
+static void quiet(j_common_ptr c) { (void)c; }
+
+static void conditioning(j_compress_ptr c, const int *cond) {
+  if (!cond) return;
+  for (int t = 0; t < 2; t++) {
+    c->arith_dc_L[t] = (UINT8)cond[3 * t];
+    c->arith_dc_U[t] = (UINT8)cond[3 * t + 1];
+    c->arith_ac_K[t] = (UINT8)cond[3 * t + 2];
+  }
+}
+
+/* px: h rows of w * nc samples, uint8 (precision <= 8) or uint16 */
+int wj_encode(const void *px, int h, int w, int nc, int in_space,
+              int jpeg_space, int precision, int quality, int psv, int pt,
+              int restart_interval, int restart_rows, int arith,
+              int progressive, int optimize, const int *samp,
+              const int *cond, unsigned char **out, unsigned long *outlen,
+              char *msg) {
+  struct jpeg_compress_struct c;
+  struct err e;
+  void *volatile row = NULL;
+  c.err = jpeg_std_error(&e.pub);
+  e.pub.error_exit = on_error;
+  e.pub.output_message = quiet;
+  e.msg = msg;
+  *out = NULL;
+  *outlen = 0;
+  if (setjmp(e.jb)) {
+    jpeg_destroy_compress(&c);
+    free(row);
+    return 1;
+  }
+  jpeg_create_compress(&c);
+  jpeg_mem_dest(&c, out, outlen);
+  c.image_width = (JDIMENSION)w;
+  c.image_height = (JDIMENSION)h;
+  c.input_components = nc;
+  c.in_color_space = (J_COLOR_SPACE)in_space;
+  c.data_precision = precision;
+  jpeg_set_defaults(&c);
+  c.data_precision = precision;
+  jpeg_set_colorspace(&c, (J_COLOR_SPACE)jpeg_space);
+  if (psv > 0)
+    jpeg_enable_lossless(&c, psv, pt);
+  else
+    jpeg_set_quality(&c, quality, TRUE);
+  if (samp)
+    for (int i = 0; i < c.num_components; i++) {
+      c.comp_info[i].h_samp_factor = samp[2 * i];
+      c.comp_info[i].v_samp_factor = samp[2 * i + 1];
+    }
+  c.restart_interval = (unsigned)restart_interval;
+  c.restart_in_rows = restart_rows;
+  c.arith_code = arith ? TRUE : FALSE;
+  c.optimize_coding = optimize ? TRUE : FALSE;
+  conditioning(&c, cond);
+  if (progressive) jpeg_simple_progression(&c);
+  jpeg_start_compress(&c, TRUE);
+  size_t n = (size_t)w * nc;
+  row = malloc(n * 2 + 16);
+  while (c.next_scanline < c.image_height) {
+    size_t y = c.next_scanline;
+    if (precision <= 8) {
+      JSAMPROW r = (JSAMPROW)((const unsigned char *)px + y * n);
+      jpeg_write_scanlines(&c, &r, 1);
+    } else if (precision <= 12) {
+      short *r = (short *)row;
+      const unsigned short *s = (const unsigned short *)px + y * n;
+      for (size_t i = 0; i < n; i++) r[i] = (short)s[i];
+      jpeg12_write_scanlines(&c, &r, 1);
+    } else {
+      unsigned short *r = (unsigned short *)px + y * n;
+      jpeg16_write_scanlines(&c, &r, 1);
+    }
+  }
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  free(row);
+  return 0;
+}
+
+/* jpegtran's lossless transcode: the same quantised coefficients with the
+   entropy coding, progression and restarts chosen here; APPn and COM
+   markers copied as "jpegtran -copy all" copies them */
+int wj_transcode(const unsigned char *in, unsigned long n, int arith,
+                 int progressive, int optimize, int restart_interval,
+                 int restart_rows, const int *cond, unsigned char **out,
+                 unsigned long *outlen, char *msg) {
+  struct jpeg_decompress_struct d;
+  struct jpeg_compress_struct c;
+  struct err e;
+  d.err = jpeg_std_error(&e.pub);
+  c.err = d.err;
+  e.pub.error_exit = on_error;
+  e.pub.output_message = quiet;
+  e.msg = msg;
+  *out = NULL;
+  *outlen = 0;
+  jpeg_create_decompress(&d);
+  jpeg_create_compress(&c);
+  if (setjmp(e.jb)) {
+    jpeg_destroy_compress(&c);
+    jpeg_destroy_decompress(&d);
+    return 1;
+  }
+  jpeg_mem_src(&d, in, n);
+  jpeg_save_markers(&d, JPEG_COM, 0xFFFF);
+  for (int m = 0; m < 16; m++) jpeg_save_markers(&d, JPEG_APP0 + m, 0xFFFF);
+  jpeg_read_header(&d, TRUE);
+  jvirt_barray_ptr *coefs = jpeg_read_coefficients(&d);
+  jpeg_mem_dest(&c, out, outlen);
+  jpeg_copy_critical_parameters(&d, &c);
+  c.arith_code = arith ? TRUE : FALSE;
+  c.optimize_coding = optimize ? TRUE : FALSE;
+  c.restart_interval = (unsigned)restart_interval;
+  c.restart_in_rows = restart_rows;
+  conditioning(&c, cond);
+  if (progressive) jpeg_simple_progression(&c);
+  jpeg_write_coefficients(&c, coefs);
+  for (jpeg_saved_marker_ptr m = d.marker_list; m; m = m->next) {
+    if (c.write_JFIF_header && m->marker == JPEG_APP0 &&
+        m->data_length >= 5 && !memcmp(m->data, "JFIF", 5))
+      continue;
+    if (c.write_Adobe_marker && m->marker == JPEG_APP0 + 14 &&
+        m->data_length >= 5 && !memcmp(m->data, "Adobe", 5))
+      continue;
+    jpeg_write_marker(&c, m->marker, m->data, m->data_length);
+  }
+  jpeg_finish_compress(&c);
+  jpeg_finish_decompress(&d);
+  jpeg_destroy_compress(&c);
+  jpeg_destroy_decompress(&d);
+  return 0;
+}
+
+void wj_free(void *p) { free(p); }
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def _libjpeg_writer() -> ctypes.CDLL:
+    """The shim over Pillow's bundled libjpeg-turbo, built once into the
+    temporary directory (keyed by its source and the library's name)."""
+    import PIL
+
+    libs = os.path.abspath(os.path.join(os.path.dirname(PIL.__file__),
+                                        os.pardir, "pillow.libs"))
+    found = glob.glob(os.path.join(libs, "libjpeg-*.so*"))
+    if not found:
+        raise RuntimeError(f"no libjpeg beside Pillow in {libs}")
+    name = os.path.basename(found[0])
+    key = hashlib.sha256((_LIBJPEG_SHIM + name).encode()).hexdigest()[:16]
+    path = os.path.join(tempfile.gettempdir(), f"gisnav_libjpeg_writer_"
+                                               f"{key}.so")
+    if not os.path.exists(path):
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "shim.c")
+            with open(src, "w") as f:
+                f.write(_LIBJPEG_SHIM)
+            out = os.path.join(tmp, "shim.so")
+            subprocess.run([os.environ.get("CC", "gcc"), "-shared", "-fPIC",
+                            "-O2", src, "-o", out, f"-L{libs}", f"-l:{name}",
+                            f"-Wl,-rpath,{libs}"], check=True,
+                           capture_output=True)
+            os.replace(out, path)
+    lib = ctypes.CDLL(path)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    ret = [vp, ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_ulong),
+           ctypes.c_char_p]
+    lib.wj_encode.argtypes = [vp] + [i] * 14 + [vp] + ret
+    lib.wj_transcode.argtypes = [ctypes.c_char_p, ctypes.c_ulong] + [i] * 5 \
+        + ret
+    lib.wj_free.argtypes = [vp]
+    return lib
+
+
+def _libjpeg_call(fn, *args) -> bytes:
+    lib = _libjpeg_writer()
+    out, n = ctypes.c_void_p(), ctypes.c_ulong()
+    msg = ctypes.create_string_buffer(200)
+    rc = fn(*args, ctypes.byref(out), ctypes.byref(n), msg)
+    try:
+        if rc:
+            raise ValueError(f"libjpeg: {msg.value.decode()}")
+        return ctypes.string_at(out.value, n.value)
+    finally:
+        if out.value:
+            lib.wj_free(out)
+
+
+def _conditioning(cond):
+    """(L, U, Kx) of arithmetic tables 0 and 1 -> the shim's int[6]."""
+    return None if cond is None else (ctypes.c_int * 6)(*np.ravel(cond))
+
+
+def libjpeg_encode(img: np.ndarray, *, quality: int = 75, lossless=None,
+                   pt: int = 0, precision: int = 8, restart: int = 0,
+                   restart_rows: int = 0, arith: bool = False,
+                   progressive: bool = False, optimize: bool = False,
+                   sampling=None, conditioning=None, in_space=None,
+                   jpeg_space=None) -> bytes:
+    """(h, w[, c]) samples (uint8, or uint16 above 8 bits of precision),
+    RGB / CMYK in that order, as libjpeg-turbo's encoder writes them:
+    ``lossless`` a predictor 1-7 (with point transform ``pt``, 2 to 16
+    bits; libjpeg keeps the input colour space and 1x1 sampling), else DCT
+    at ``quality``; ``arith`` arithmetic coding with DAC ``conditioning``
+    ((L, U, Kx) of tables 0 and 1); ``restart`` MCUs or ``restart_rows``
+    MCU rows; ``sampling`` (h, v) a component."""
+    img = np.ascontiguousarray(img, np.uint8 if precision <= 8
+                               else np.uint16)
+    h, w = img.shape[:2]
+    nc = 1 if img.ndim == 2 else img.shape[2]
+    in_space = in_space or {1: JCS_GRAYSCALE, 3: JCS_RGB, 4: JCS_CMYK}[nc]
+    jpeg_space = jpeg_space or {1: JCS_GRAYSCALE, 3: JCS_YCBCR,
+                                4: JCS_CMYK}[nc]
+    samp = None if sampling is None else (ctypes.c_int * 8)(
+        *np.ravel(sampling))
+    lib = _libjpeg_writer()
+    return _libjpeg_call(lib.wj_encode, img.ctypes.data, h, w, nc, in_space,
+                         jpeg_space, precision, quality, lossless or 0, pt,
+                         restart, restart_rows, int(arith), int(progressive),
+                         int(optimize), samp, _conditioning(conditioning))
+
+
+def libjpeg_transcode(data: bytes, *, arith: bool = True,
+                      progressive: bool = False, optimize: bool = False,
+                      restart: int = 0, restart_rows: int = 0,
+                      conditioning=None) -> bytes:
+    """A DCT JPEG rewritten with the same quantised coefficients (jpegtran):
+    arithmetic-coded (DAC ``conditioning`` as ``libjpeg_encode``'s) or
+    Huffman, sequential or ``progressive`` (``jpeg_simple_progression``),
+    restarts every ``restart`` MCUs or ``restart_rows`` MCU rows, its APPn
+    and COM segments copied."""
+    lib = _libjpeg_writer()
+    return _libjpeg_call(lib.wj_transcode, bytes(data), len(data),
+                         int(arith), int(progressive), int(optimize),
+                         restart, restart_rows, _conditioning(conditioning))
+
+
+def _categories(diffs: np.ndarray):
+    """Lossless differences (mod 2^16) -> (category, its extra bits, their
+    number): H.1.2.2's SSSS, 16 for 32768 with no extra bits."""
+    d = np.asarray(diffs, np.int64).ravel() & 0xFFFF
+    s = np.where(d >= 32768, d - 65536, d)
+    mag = np.abs(s)
+    size = np.zeros(s.shape, np.int64)
+    for b in range(16):
+        size += mag >= (1 << b)
+    size = np.where(s == -32768, 16, size)
+    nbits = np.where(size == 16, 0, size)
+    return size, np.where(s > 0, s, s - 1) & ((1 << nbits) - 1), nbits
+
+
+def _optimal_table(freq) -> tuple:
+    """jchuff.c jpeg_gen_optimal_table: (counts of codes of length 1..16,
+    symbols) for symbol frequencies, lengths limited to 16, no all-ones
+    code."""
+    freq = [int(f) for f in freq] + [0] * (257 - len(freq))
+    freq[256] = 1  # the reserved all-ones code
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        live = [i for i in range(257) if freq[i]]
+        c1 = min(live, key=lambda i: (freq[i], -i))
+        rest = [i for i in live if i != c1]
+        if not rest:
+            break
+        c2 = min(rest, key=lambda i: (freq[i], -i))
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        for c in (c1, c2):
+            size[c] += 1
+            while others[c] >= 0:
+                c = others[c]
+                size[c] += 1
+        c = c1
+        while others[c] >= 0:
+            c = others[c]
+        others[c] = c2
+    bits = [0] * 33
+    for n in size:
+        if n:
+            bits[n] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1
+    symbols = [s for n in range(1, 33) for s in range(256) if size[s] == n]
+    return bits[1:17], symbols
+
+
+def _lossless_segment(diffs: np.ndarray, codes: np.ndarray,
+                      lengths: np.ndarray) -> bytes:
+    """An entropy-coded segment of lossless differences (in stream order):
+    each category's Huffman code (``codes`` / ``lengths`` by category),
+    then its extra bits; 0xFF stuffed, padded with ones."""
+    size, extra, nbits = _categories(diffs)
+    code = (codes[size] << nbits) | extra
+    length = lengths[size] + nbits
+    end = np.cumsum(length)
+    total = int(end[-1]) if len(end) else 0
+    bits = np.ones(-(-total // 8) * 8, np.uint8)  # padding ones
+    start = end - length
+    for j in range(int(length.max(initial=0))):
+        on = length > j
+        bits[start[on] + j] = (code[on] >> (length[on] - 1 - j)) & 1
+    out = np.packbits(bits)
+    return np.insert(out, np.flatnonzero(out == 0xFF) + 1, 0).tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def lossless_jpeg(planes, sampling, *, size=None, psv: int = 1,
+                  pt: int = 0, precision: int = 8, restart_rows: int = 0,
+                  scans=None, ids=None, jfif: bool = False,
+                  adobe=None) -> bytes:
+    """A lossless (SOF3) JPEG of ``planes``, one (hib, wib) array of
+    samples a component at its own size (``sampling`` (h, v) each; the
+    image's (height, width) ``size``, by default the largest the planes
+    cover), as libjpeg-turbo decodes it: predictor ``psv``, point transform
+    ``pt`` (the planes' samples are shifted down by it), a restart every
+    ``restart_rows`` MCU rows, ``scans`` the component indices of each scan
+    (default one interleaved scan), component ``ids``, a JFIF APP0 or an
+    Adobe APP14 with transform ``adobe``. One Huffman table, optimal for
+    the file's differences (jchuff.c's method). Differences follow libjpeg's
+    decoder (jddiffct.c / jdlossls.c): the 1-D first row after the scan's
+    start and after an iMCU row that held a restart."""
+    nc = len(planes)
+    max_h = max(h for h, _ in sampling)
+    max_v = max(v for _, v in sampling)
+    height, width = size or (
+        max(-(-p.shape[0] * max_v // v) for p, (_, v) in zip(planes,
+                                                              sampling)),
+        max(-(-p.shape[1] * max_h // h) for p, (h, _) in zip(planes,
+                                                             sampling)))
+    ids = ids or list(range(1, nc + 1))
+    out = b"\xff\xd8"
+    if jfif:
+        out += _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    if adobe is not None:
+        out += _segment(0xEE, b"Adobe\0\x64\0\0\0\0" + bytes([adobe]))
+    out += _segment(0xC3, struct.pack(">BHHB", precision, height, width, nc)
+                    + b"".join(bytes([ids[i], h << 4 | v, 0])
+                               for i, (h, v) in enumerate(sampling)))
+    mcus_x, mcus_y = -(-width // max_h), -(-height // max_v)
+    init = 1 << (precision - pt - 1)
+
+    def diffs(plane, first_rows):  # (rows, wib) differences, mod 2^16
+        px = plane.astype(np.int64) >> pt
+        a = np.pad(px, ((0, 0), (1, 0)))[:, :-1]
+        b = np.pad(px, ((1, 0), (0, 0)))[:-1]
+        c = np.pad(px, ((1, 0), (1, 0)))[:-1, :-1]
+        pred = {1: a, 2: b, 3: c, 4: a + b - c, 5: a + ((b - c) >> 1),
+                6: b + ((a - c) >> 1), 7: (a + b) >> 1}[psv].copy()
+        pred[:, 0] = b[:, 0]
+        first = sorted(first_rows)
+        pred[first, 0] = init
+        pred[first, 1:] = px[first, :-1]
+        return (px - pred) & 0xFFFF
+
+    coded = []  # (scan, its MCU rows' differences in stream order)
+    for scan in scans or [list(range(nc))]:
+        ns = len(scan)
+        # the iMCU row of each MCU row: restarts reset the predictor for
+        # the whole iMCU row they fall in (jddiffct.c undifferences after)
+        v0 = sampling[scan[0]][1]
+        imcu = (np.arange(mcus_y) if ns > 1
+                else np.arange(planes[scan[0]].shape[0]) // v0)
+        restarted = {int(imcu[k]) for k in range(len(imcu))
+                     if restart_rows and k and k % restart_rows == 0}
+        rows = []  # the MCU rows' differences in stream order
+        for i in scan:
+            h, v = sampling[i]
+            first = {y for y in range(planes[i].shape[0])
+                     if y == 0 or (y % v == 0 and y // v in restarted)}
+            d = diffs(planes[i], first)
+            if ns == 1:
+                rows = list(d)
+                continue
+            pad = np.zeros((mcus_y * v, mcus_x * h), np.int64)
+            pad[:d.shape[0], :d.shape[1]] = d
+            rows.append(pad.reshape(mcus_y, v, mcus_x, h).transpose(
+                0, 2, 1, 3).reshape(mcus_y, mcus_x, v * h))
+        if ns > 1:
+            rows = list(np.concatenate(rows, axis=2).reshape(mcus_y, -1))
+        coded.append((scan, rows))
+    # one table for every scan, optimal for these differences
+    counts, symbols = _optimal_table(np.bincount(np.concatenate(
+        [_categories(np.concatenate(r))[0] for _, r in coded]),
+        minlength=17))
+    out += _segment(0xC4, b"\x00" + bytes(counts) + bytes(symbols))
+    codes, lengths = np.zeros(17, np.int64), np.zeros(17, np.int64)
+    code, k = 0, 0
+    for n, count in enumerate(counts, 1):
+        for _ in range(count):
+            codes[symbols[k]], lengths[symbols[k]] = code, n
+            code, k = code + 1, k + 1
+        code <<= 1
+    for scan, rows in coded:
+        ns = len(scan)
+        per_row = mcus_x if ns > 1 else planes[scan[0]].shape[1]
+        if restart_rows:
+            out += _segment(0xDD, struct.pack(">H", restart_rows * per_row))
+        out += _segment(0xDA, bytes([ns]) + b"".join(
+            bytes([ids[i], 0]) for i in scan) + bytes([psv, 0, pt]))
+        step = restart_rows or len(rows)
+        for k in range(0, len(rows), step):
+            if k:
+                out += bytes([0xFF, 0xD0 + (k // step - 1) % 8])
+            out += _lossless_segment(np.concatenate(rows[k:k + step]),
+                                     codes, lengths)
+    return out + b"\xff\xd9"

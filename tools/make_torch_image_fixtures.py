@@ -14,6 +14,7 @@ digests. Needs OpenCV and Pillow (not on the card machine)::
 
     python tools/make_torch_image_fixtures.py [--out tests/data/torch_images]
         [--webp-out tests/data/torch_webp] [--jp2-out tests/data/torch_jp2]
+        [--jpegx-out tests/data/torch_jpegx]
 
 The WebP set (``--webp-out``, its own ``digests.json`` of the same form,
 under 1 MiB with its flight) holds cv2's and Pillow's files of every kind
@@ -42,6 +43,23 @@ as irreversible grey JP2 at ``JP2_FLIGHT["rates"]`` (under the layout's
 PNG names) and a reversible 16-bit DEM (``dem.jp2``, decimetres, named in
 ``map.json`` with ``dem_scale`` 0.1), with ``flight.json`` holding the PNG
 dataset's array digests and cv2's digests of the JP2 files.
+
+The lossless and arithmetic-coded JPEG set (``--jpegx-out``, its own
+``digests.json``, 2.3 MB with its flight) holds libjpeg-turbo's
+lossless files (``tests/torch_image_writers.py`` ``libjpeg_encode``:
+every predictor, a point transform, a restart every two rows, grey, RGB
+and CMYK, precisions 2-8), ``lossless_jpeg``'s subsampled RGB with a
+restart and a scan a component, and arithmetic-coded transcodes of cv2's
+files (``libjpeg_transcode``: sequential and progressive, DAC
+conditioning, restarts, CMYK); and ``flight/``: path 8's world as for the
+WebP flight, cv2's quality-90 files of the map and 8 frames transcoded to
+arithmetic coding (the map progressive, the frames sequential) under the
+layout's PNG names and the map's also sequential (``map_sequential.jpg``,
+timed beside the progressive one), with ``flight.json`` holding the PNG
+dataset's array
+digests, cv2's grey digests of each file, and the lossless frame
+``chip_smoke.py`` writes from the first frame's pixels with
+``lossless_jpeg`` (its bytes' sha256 and cv2's digests of them).
 
 Content is drawn from the port's seeded world (``utils/world_wms.py``):
 
@@ -95,7 +113,8 @@ from gisnav_tpu_torch.utils.world_wms import World  # noqa: E402
 from tests.torch_image_writers import (  # noqa: E402
     bmp_rle_encode, chunk, exif_tiff, gif_frame, j2k_codestream,
     j2k_patch_precision, j2k_with_ppm, j2k_with_ppt, jp2_cdef, jp2_cmap,
-    jp2_colr, jp2_ihdr, jp2_pclr, jp2_wrap, openjpeg_encode, webp_anim,
+    jp2_colr, jp2_ihdr, jp2_pclr, jp2_wrap, JCS_CMYK, JCS_RGB, libjpeg_encode,
+    libjpeg_transcode, lossless_jpeg, openjpeg_encode, webp_anim,
     webp_anmf, webp_chunk, webp_chunks, webp_riff, webp_vp8x, with_exif_app1,
     write_bmp, write_gif, write_hdr, write_png, write_sun, write_tiff)
 
@@ -117,6 +136,19 @@ JP2_SIZE_LIMIT = 1024 * 1024  # the JPEG 2000 set and its flight
 JP2_FLIGHT = {"world": FLIGHT["world"], "frames": 8, "hw": [1088, 1920],
               "coverage": 1.3, "rates": [30, 25], "dem": "dem.jp2",
               "dem_scale": 0.1}
+
+
+JPEGX_OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests",
+                         "data", "torch_jpegx")
+JPEGX_SIZE_LIMIT = 2560 * 1024  # the lossless / arithmetic set, flight
+# path 18's flight: path 16's, cv2's quality-90 files transcoded to
+# arithmetic coding (and the map's also sequential, timed beside the
+# progressive one); the lossless frame chip_smoke.py writes from the first
+# frame's decoded pixels
+JPEGX_FLIGHT = {"world": FLIGHT["world"], "frames": 8, "hw": [1088, 1920],
+                "coverage": 1.3, "quality": 90,
+                "map_sequential": "map_sequential.jpg",
+                "lossless_from": "frames/1000000.png", "lossless_psv": 1}
 
 
 def _sos_offsets(data: bytes):
@@ -603,6 +635,98 @@ def write_jp2_flight(out: str) -> dict:
     return manifest
 
 
+def jpegx_files() -> dict:
+    """The lossless and arithmetic-coded JPEG fixtures (48x64, world
+    content)."""
+    world = World.make(seed=21, size_px=256, gsd_m=1.0)
+    grey = np.ascontiguousarray(world.raster[40:88, 30:94])
+    rgb = np.ascontiguousarray(np.stack(
+        [grey, np.roll(grey, 7, 1), np.roll(grey, 13, 0)], -1))
+    cmyk = np.concatenate([rgb, 255 - grey[..., None]], -1)
+    files = {}
+    for psv in range(1, 8):
+        files[f"lossless_grey_psv{psv}.jpg"] = libjpeg_encode(
+            grey, lossless=psv)
+    for psv in (1, 4, 7):
+        files[f"lossless_rgb_psv{psv}.jpg"] = libjpeg_encode(
+            rgb, lossless=psv, in_space=JCS_RGB, jpeg_space=JCS_RGB)
+    files["lossless_grey_pt2_rst2.jpg"] = libjpeg_encode(
+        grey, lossless=6, pt=2, restart_rows=2)
+    files["lossless_rgb_rst3.jpg"] = libjpeg_encode(
+        rgb, lossless=4, restart_rows=3, in_space=JCS_RGB,
+        jpeg_space=JCS_RGB)
+    files["lossless_cmyk_psv5.jpg"] = libjpeg_encode(
+        cmyk, lossless=5, in_space=JCS_CMYK, jpeg_space=JCS_CMYK)
+    for precision in range(2, 8):
+        files[f"lossless_grey_{precision}bit.jpg"] = libjpeg_encode(
+            (grey >> (8 - precision)).astype(np.uint8), lossless=2,
+            precision=precision)
+    files["lossless_rgb420_scans_rst.jpg"] = lossless_jpeg(
+        [grey, rgb[::2, ::2, 1], rgb[::2, ::2, 2]],
+        [(2, 2), (1, 1), (1, 1)], size=grey.shape, psv=7, restart_rows=4,
+        scans=[[0], [1, 2]], adobe=0)
+    for kind, img in (("grey", grey), ("bgr420", rgb)):
+        src = _cv2(".jpg", img, cv2.IMWRITE_JPEG_QUALITY, 90)
+        files[f"arith_{kind}.jpg"] = libjpeg_transcode(src)
+        files[f"arith_{kind}_prog_rst2.jpg"] = libjpeg_transcode(
+            src, progressive=True, restart=2)
+    files["arith_bgr420_dac.jpg"] = libjpeg_transcode(
+        _cv2(".jpg", rgb, cv2.IMWRITE_JPEG_QUALITY, 75),
+        conditioning=((2, 6, 12), (1, 3, 40)))
+    files["arith_cmyk.jpg"] = libjpeg_transcode(_pil_cmyk(cmyk))
+    return files
+
+
+def write_jpegx_flight(out: str) -> dict:
+    """chip_smoke.py's path-18 flight in ``out``: the PNG dataset of
+    ``JPEGX_FLIGHT`` written by cv2 at quality 90 and transcoded to
+    arithmetic coding (the map progressive), the lossless frame's bytes
+    and cv2's digests, and the manifest."""
+    import shutil
+    import tempfile
+
+    from gisnav_tpu_torch.utils.world_wms import write_replay_dataset
+
+    spec = JPEGX_FLIGHT
+    world = World.make(**spec["world"])
+    manifest = {**spec, "png_sha256": {}, "jpegx_cv2": {}}
+    with tempfile.TemporaryDirectory() as png:
+        write_replay_dataset(world, png, frames=spec["frames"],
+                             hw=tuple(spec["hw"]),
+                             coverage=spec["coverage"])
+        os.makedirs(os.path.join(out, "frames"), exist_ok=True)
+        names = ["map.png"] + [os.path.join("frames", n) for n in sorted(
+            os.listdir(os.path.join(png, "frames")))]
+        for name in names:
+            img = cv2.imread(os.path.join(png, name), cv2.IMREAD_UNCHANGED)
+            huffman = _cv2(".jpg", img, cv2.IMWRITE_JPEG_QUALITY,
+                           spec["quality"])
+            files = {name: libjpeg_transcode(huffman,
+                                             progressive=name == "map.png")}
+            if name == "map.png":  # the map's coefficients, sequential
+                files[spec["map_sequential"]] = libjpeg_transcode(huffman)
+            for file, data in files.items():
+                with open(os.path.join(out, file), "wb") as f:
+                    f.write(data)
+                manifest["jpegx_cv2"][file] = pixel_digest(cv2.imdecode(
+                    np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
+            manifest["png_sha256"][name] = pixel_digest(img)
+        for name in ("map.json", "camera.json", "poses.csv"):
+            shutil.copy(os.path.join(png, name), os.path.join(out, name))
+    with open(os.path.join(out, spec["lossless_from"]), "rb") as f:
+        pixels = cv2.imdecode(np.frombuffer(f.read(), np.uint8),
+                              cv2.IMREAD_GRAYSCALE)
+    data = lossless_jpeg([pixels], [(1, 1)], psv=spec["lossless_psv"])
+    buf = np.frombuffer(data, np.uint8)
+    manifest["lossless_frame"] = {
+        "file_sha256": hashlib.sha256(data).hexdigest(),
+        "bytes": len(data),
+        **{k: pixel_digest(cv2.imdecode(buf, f)) for k, f in FLAGS.items()}}
+    with open(os.path.join(out, "flight.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    return manifest
+
+
 def _cv2(ext: str, img, *params) -> bytes:
     ok, buf = cv2.imencode(ext, img, list(params))
     assert ok
@@ -666,6 +790,7 @@ def main() -> int:
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--webp-out", default=WEBP_OUT)
     ap.add_argument("--jp2-out", default=JP2_OUT)
+    ap.add_argument("--jpegx-out", default=JPEGX_OUT)
     args = ap.parse_args()
     files = build()
     total = sum(len(d) for d in files.values())
@@ -691,6 +816,15 @@ def main() -> int:
                          f"{JP2_SIZE_LIMIT}")
     print(f"{len(jp2)} JPEG 2000 fixtures and the flight, {total} bytes, in "
           f"{args.jp2_out}")
+    jpegx = jpegx_files()
+    write_set(args.jpegx_out, jpegx)
+    write_jpegx_flight(os.path.join(args.jpegx_out, "flight"))
+    total = _tree_bytes(args.jpegx_out)
+    if total > JPEGX_SIZE_LIMIT:
+        raise SystemExit(f"the lossless / arithmetic JPEG set takes {total} "
+                         f"bytes, over {JPEGX_SIZE_LIMIT}")
+    print(f"{len(jpegx)} lossless and arithmetic-coded JPEG fixtures and the "
+          f"flight, {total} bytes, in {args.jpegx_out}")
     return 0
 
 
