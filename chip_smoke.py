@@ -18,6 +18,8 @@
     python3 chip_smoke.py --jp2      # build + path 17 (JPEG 2000) only
     python3 chip_smoke.py --jpegx    # build + path 18 (lossless and
                                      # arithmetic-coded JPEG) only
+    python3 chip_smoke.py --tiffx    # build + path 19 (TIFF variants: CCITT,
+                                     # 10-14 bits, a ZSTD DEM) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -290,9 +292,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sequential, each beside the baseline Huffman file of the same pixels
    from the port's encoder, and on the lossless frame beside a PNG of it,
    with the card's name and power limit;
-22. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+22. path 19: TIFF as cv2 5.0's libtiff reads it (``gis/tiff.py``; CCITT
+   through ``native/fax3.cpp``, built here with g++; this machine has no
+   OpenCV and no libtiff): (a) every committed fixture
+   (``tests/data/torch_tiffx``: CCITT RLE, RLEW, Group 3 1-D / 2-D and
+   Group 4 from Pillow's libtiff and ``ccitt_1d``, damaged and cut
+   strips, 10- to 14-bit samples, the codecs cv2's libtiff lacks or
+   refuses (None) or has none for (zero samples), a predictor on
+   uncompressed strips, 4x4 YCbCr strips, JPEG-in-TIFF with separate
+   planes, BMP bitfields, ZSTD DEMs) decoded under both flags, each pixel
+   digest equal to cv2's, None included; (b) the graph ``run`` builds
+   (path 15's: learned_lg9, bucketed warp, 1088x1920, 2048 keypoints, the
+   threaded bus) flown ``TIFFX_STEPS`` steps over path 16's flat world
+   behind a loopback stub WMS that answers the imagery layer as a tiled
+   deflate GeoTIFF with predictor 2 and the DEM layer with the committed
+   2208-px uint16 ZSTD GeoTIFF (GDAL's COG default, which cv2 reads as
+   None): every map published with a zero DEM (as the JAX node makes it)
+   and its image equal to the world's crop, at least ``TIFFX_MIN_FIXES``
+   uORB fixes, each within 10 m of the truth, every step's K1-K4 launches
+   a frame's or a bucket refresh's, the counts printed;
+   (c) host ms p50 / p90 of ``decode_image`` on the 2208-px map as
+   bilevel Group 4 and Group 3 2-D beside PNG of the same pixels, with the
+   card's name and power limit;
+23. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-23. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+24. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -347,6 +371,7 @@ counterpart is never imported.
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import hashlib
 import json
@@ -536,7 +561,7 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "path4_launches", "path6_launches", "path8_launches",
               "path9_launches", "path11_launches", "path13_launches",
               "path14_launches", "path15_launches", "path16_launches",
-              "path17_launches", "path18_launches",
+              "path17_launches", "path18_launches", "path19_launches",
               "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
@@ -6285,6 +6310,320 @@ def phase_jpegx_path() -> dict:
     return out
 
 
+# -- path 19: TIFF variants (CCITT, 10-14 bits, ZSTD) on the WMS path -----
+
+# the fixtures (tools/make_torch_image_fixtures.py --tiffx-out)
+TIFFX_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "data", "torch_tiffx")
+TIFFX_DEM = "dem_u16_zstd_2208.tif"  # the DEM layer the stub serves
+TIFFX_STEPS = 22  # the mock GPS warms up on 10 odometries
+TIFFX_MIN_FIXES = 8
+TIFFX_PERIOD_S = 0.35
+TIFFX_REPS = 5  # decodes timed of each 2208-px file
+TIFFX_DEVICE = "cuda"  # path 19's device; a CPU rehearsal sets "cpu"
+
+
+def tiffx_fixtures() -> dict:
+    """Path 19 (a): every committed TIFF variant fixture under both flags,
+    each pixel digest equal to cv2's (None where cv2 gives None)."""
+    from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
+                                                IMREAD_UNCHANGED,
+                                                decode_image)
+
+    with open(os.path.join(TIFFX_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    flags = {"unchanged": IMREAD_UNCHANGED, "grayscale": IMREAD_GRAYSCALE}
+    bad, nones = [], 0
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(TIFFX_FIXTURES, name), "rb") as f:
+            data = f.read()
+        for key, flag in flags.items():
+            got = image_digest(decode_image(data, flag))
+            nones += want[key] is None
+            if got != want[key]:
+                bad.append((name, key, got))
+    out = {"files": len(digests), "decodes": 2 * len(digests),
+           "none_verdicts": nones, "mismatches": len(bad)}
+    log(f"[tiffx] fixtures against cv2's digests: {json.dumps(out)}")
+    if bad:
+        raise RuntimeError(f"tiffx: fixtures not decoded as cv2: {bad}")
+    return out
+
+
+def _tiffx_stub(world, dem: bytes):
+    """A loopback WMS over ``world`` (a future of the world, made while
+    the graph is built): GetMap of the imagery layer a 256-px tiled
+    deflate GeoTIFF with predictor 2 of the world's crop, of the DEM layer
+    ``dem``. Returns (server, thread, the layers asked)."""
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from gisnav_tpu_torch.gis.tiff import encode_tiff
+
+    asked = []
+
+    class Stub(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (http.server's name)
+            q = {k.lower(): v[0] for k, v in urllib.parse.parse_qs(
+                urllib.parse.urlparse(self.path).query).items()}
+            asked.append((q.get("layers"), q.get("format")))
+            if q.get("layers") == "dem":
+                body = dem
+            else:
+                left, bottom, right, top = (float(v) for v in
+                                            q["bbox"].split(","))
+                h, w = int(q["height"]), int(q["width"])
+                body = encode_tiff(world.result().crop(
+                    (left, bottom, right, top), h, w), 8, 2, tile=(256, 256),
+                                   geo=(left, top, (right - left) / w,
+                                        (top - bottom) / h))
+            self.send_response(200)
+            self.send_header("Content-Type", "image/tiff")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+    server.daemon_threads = True
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, asked
+
+
+def tiffx_flight(root: str) -> dict:
+    """Path 19 (b): run's graph (path 15's, at the main path's width) flown
+    ``TIFFX_STEPS`` steps over path 16's flat world behind a stub WMS whose
+    DEM layer is a uint16 ZSTD GeoTIFF, which cv2 reads as None: every map
+    published with a zero DEM and the world's crop as its image, at least
+    ``TIFFX_MIN_FIXES`` uORB fixes, each within 10 m of the truth (the pose
+    node's fixes printed), every step's K1-K4 launches a frame's or a
+    bucket refresh's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gisnav_tpu_torch.cli import build_app, build_parser
+    from gisnav_tpu_torch.constants import (
+        ROS_TOPIC_CAMERA_INFO,
+        ROS_TOPIC_MAVROS_GIMBAL_DEVICE_ATTITUDE_STATUS,
+        ROS_TOPIC_MAVROS_GLOBAL_POSITION,
+    )
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.nodes.gis_node import TOPIC_ORTHOIMAGE
+    from gisnav_tpu_torch.nodes.mock_gps import TOPIC_SENSOR_GPS
+    from gisnav_tpu_torch.nodes.pose_node import TOPIC_POSE
+    from gisnav_tpu_torch.utils.world_wms import (World,
+                                                  camera_attitude_quat)
+
+    with open(os.path.join(WEBP_FLIGHT, "flight.json")) as f:
+        manifest = json.load(f)
+    with open(os.path.join(WEBP_FLIGHT, "camera.json")) as f:
+        camera = json.load(f)
+    with open(os.path.join(WEBP_FLIGHT, "poses.csv")) as f:
+        first = next(csv.DictReader(f))
+    with open(os.path.join(TIFFX_FIXTURES, TIFFX_DEM), "rb") as f:
+        dem = f.read()
+    k = np.array(camera["k"])
+    hw = (camera["height"], camera["width"])
+    lon0, lat0 = float(first["lon"]), float(first["lat"])
+    alt, yaw = float(first["alt_ellipsoid_m"]), float(first["yaw_deg"])
+    track = [(lon0 + 1e-4 * i, lat0 + 5e-5 * i, alt, yaw)
+             for i in range(TIFFX_STEPS)]
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(4)  # the world, then the frames over it
+    made = pool.submit(World.make, **manifest["world"])
+    server, thread, asked = _tiffx_stub(made, dem)
+    params = {"gis_node": {"wms_url": f"http://127.0.0.1:"
+                                      f"{server.server_address[1]}/wms",
+                           "wms_format": "image/tiff",
+                           "wms_layers": ["imagery"],
+                           "wms_dem_layers": ["dem"],
+                           "min_map_overlap_update_threshold":
+                               GRAPH_OVERLAP},
+              "pose_node": {"image_shape": list(hw),
+                            "max_keypoints": DEMO_KP,
+                            "ground_altitude_m": 0.0},
+              "twist_node": {"ground_altitude_m": 0.0},
+              "bbox_node": {"ground_altitude_m": 0.0}}
+    path = os.path.join(root, "tiffx_params.json")
+    with open(path, "w") as f:
+        json.dump(params, f)
+    maps, fixes, poses, arrivals, published, truth = [], [], [], {}, {}, {}
+    times = {}
+    try:
+        app = build_app(build_parser().parse_args(
+            ["run", "--params", path, "--device", TIFFX_DEVICE]))
+        times["app_s"] = time.perf_counter() - t0
+        cfg = app.pose._config
+        if not (app.bus._async and app.pose._deep_runner is not None
+                and cfg.lightglue_depth == 9 and cfg.image_shape == hw
+                and cfg.max_keypoints == DEMO_KP):
+            raise RuntimeError(f"tiffx: not run's graph at the main path's "
+                               f"width ({cfg})")
+        world = made.result()
+        times["world_s"] = time.perf_counter() - t0
+        # rendered while the graph fetches its map and flies
+        frames = [pool.submit(world.render_frame, lon, lat, a, y, k, hw)
+                  for lon, lat, a, y in track]
+
+        def on_fix(msg):  # on the mock-GPS node's worker thread
+            arrivals[msg["timestamp_sample"]] = time.perf_counter()
+            fixes.append(msg)
+
+        def handled(node) -> int:
+            return node.timing_stats().get("_image_cb", {}).get("calls", 0)
+
+        runner = app.pose._deep_runner
+        app.bus.subscribe(TOPIC_SENSOR_GPS, on_fix)
+        app.bus.subscribe(TOPIC_ORTHOIMAGE, maps.append)
+        app.bus.subscribe(TOPIC_POSE, poses.append)
+        app.bus.publish(ROS_TOPIC_CAMERA_INFO,
+                        {"k": k, "width": hw[1], "height": hw[0]})
+        app.bus.publish(ROS_TOPIC_MAVROS_GLOBAL_POSITION,
+                        {"stamp_us": 500_000, "lat": lat0, "lon": lon0,
+                         "alt_ellipsoid": alt})
+        app.bus.publish(ROS_TOPIC_MAVROS_GIMBAL_DEVICE_ATTITUDE_STATUS,
+                        {"stamp_us": 500_000,
+                         "quat_xyzw": camera_attitude_quat(yaw)})
+        deadline = time.monotonic() + DEMO_FRAME_DEADLINE_S[1]
+        while app.pose._ortho is None:
+            app.gis.tick()
+            if time.monotonic() > deadline:
+                raise RuntimeError("tiffx: no map reached the pose node")
+            time.sleep(0.05)
+        times["first_map_s"] = time.perf_counter() - t0
+        reset_launches()
+        ran0, per_step = runner.stats["frames"], []
+        try:
+            for i, ((lon, lat, a, y), frame) in enumerate(zip(track,
+                                                               frames)):
+                frame = frame.result()
+                stamp = 1_000_000 * (i + 1)
+                truth[stamp] = (lon, lat, a)
+                before = dict(LAUNCHES)
+                published[stamp] = _publish_step(app.bus, stamp, lon, lat,
+                                                 a, y, frame, app.gis)
+                deadline = time.monotonic() + DEMO_FRAME_DEADLINE_S[i > 0]
+                while min(handled(app.pose), handled(app.twist)) < i + 1:
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(f"tiffx: step {i} not handled")
+                    time.sleep(0.002)
+                per_step.append({n: LAUNCHES[n] - before[n]
+                                 for n in LAUNCHES})
+                time.sleep(max(0.0, published[stamp] + TIFFX_PERIOD_S
+                               - time.perf_counter()))
+            t_quiet, seen = time.monotonic(), len(fixes)
+            while time.monotonic() - t_quiet < DEPLOY_QUIET_S:
+                time.sleep(0.05)
+                if len(fixes) != seen:
+                    seen, t_quiet = len(fixes), time.monotonic()
+        finally:
+            app.shutdown()
+        ran = runner.stats["frames"] - ran0
+        times["flown_s"] = time.perf_counter() - t0
+    finally:
+        pool.shutdown(cancel_futures=True)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    launches = dict(LAUNCHES)
+    frame = {n: GRAPH_FRAME.get(n, 0) for n in launches}
+    refresh = {n: GRAPH_REFRESH.get(n, 0) for n in launches}
+    refreshes = sum(n == refresh for n in per_step)
+    odd = [(i, n) for i, n in enumerate(per_step)
+           if n not in (frame, refresh)]
+    if odd or ran != TIFFX_STEPS:
+        raise RuntimeError(f"tiffx: {ran} frames ran; steps launching "
+                           f"neither a frame's nor a refresh's kernels: "
+                           f"{odd}")
+    expect_launches("tiffx", launches, {
+        n: ran * frame[n] + refreshes * (refresh[n] - frame[n])
+        for n in PATH1_KERNELS})
+    dem_asks = [fmt for layer, fmt in asked if layer == "dem"]
+    zero_dem = all(not np.asarray(m["dem"]).any() for m in maps)
+    first_map = maps[0] if maps else None
+    crop_equal = first_map is not None and np.array_equal(
+        first_map["image"], world.crop(
+            (first_map["bbox"].left, first_map["bbox"].bottom,
+             first_map["bbox"].right, first_map["bbox"].top),
+            *first_map["image"].shape))
+    errors = [_fix_errors(f, *truth[f["timestamp_sample"]]) for f in fixes]
+    pose_errors = [_fix_errors(
+        {"lat": p["lat"] * 1e7, "lon": p["lon"] * 1e7,
+         "alt_ellipsoid": p["alt_ellipsoid"] * 1e3},
+        *truth[p["stamp_us"]]) for p in poses]
+    out = {"steps": TIFFX_STEPS, "frames_ran": ran, "maps": len(maps),
+           "dem_requests": len(dem_asks), "zero_dem": zero_dem,
+           "map_is_crop": bool(crop_equal), "fixes": len(fixes),
+           "pose_fixes": len(poses),
+           "max_horiz_m": max((e[0] for e in errors), default=None),
+           "max_vert_m": max((e[1] for e in errors), default=None),
+           "max_pose_horiz_m": max((e[0] for e in pose_errors),
+                                   default=None),
+           "bucket_refreshes": int(refreshes), "launches": launches,
+           "frame_to_fix": _pcts(_latencies(published, arrivals)),
+           **{k: round(v, 2) for k, v in times.items()},
+           "dropped": app.bus.dropped}
+    log(f"[tiffx] flight {json.dumps(out, default=str)}")
+    log("[tiffx] SensorGps fixes (stamp, m, m): " + str(
+        [(f["timestamp_sample"], round(h, 2), round(v, 2))
+         for f, (h, v) in zip(fixes, errors)]))
+    far = [e for e in errors if not (e[0] < 10.0 and e[1] < 10.0)]
+    if (not maps or not zero_dem or not crop_equal or not dem_asks
+            or len(fixes) < TIFFX_MIN_FIXES or far):
+        raise RuntimeError(f"tiffx: {len(maps)} maps (zero DEM {zero_dem}, "
+                           f"the crop {crop_equal}), {len(dem_asks)} DEM "
+                           f"requests, {len(fixes)} fixes, {len(far)} over "
+                           f"10 m")
+    return out
+
+
+def tiffx_decode_times(card: str) -> list:
+    """Path 19 (c): host ms p50 / p90 of ``decode_image`` on the 2208-px
+    map as bilevel Group 4 and Group 3 2-D, beside PNG of the same
+    pixels (the port's encoder)."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image
+    from gisnav_tpu_torch.gis.png import encode_png
+
+    rows = []
+    for name in ("map_2208_g4.tif", "map_2208_g3_2d.tif"):
+        with open(os.path.join(TIFFX_FIXTURES, name), "rb") as f:
+            data = f.read()
+        img = decode_image(data)
+        png = encode_png(img)
+        if not np.array_equal(decode_image(png), img):
+            raise RuntimeError(f"tiffx: the PNG of {name} is not its pixels")
+        row = {"file": name, "shape": list(img.shape), "card": card,
+               "tiff": _decode_pcts(data, TIFFX_REPS),
+               "png": _decode_pcts(png, TIFFX_REPS)}
+        log(f"[tiffx] decode {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def phase_tiffx_path() -> dict:
+    """Path 19: TIFF read as cv2 5.0's libtiff reads it, on the card
+    machine (no cv2, no libtiff): the fixtures (a), run's graph flown over
+    a WMS whose DEM is a ZSTD GeoTIFF (b) and fax decode times (c)."""
+    import tempfile
+
+    from gisnav_tpu_torch.native import build_native_lib
+
+    t0 = time.time()
+    lib = build_native_lib("fax3")
+    card = card_label()
+    out = {"build_s": round(time.time() - t0, 2), "card": card,
+           "fixtures": tiffx_fixtures()}
+    log(f"[tiffx] CCITT decoder {lib} in {out['build_s']} s")
+    with tempfile.TemporaryDirectory() as root:
+        out["flight"] = tiffx_flight(root)
+    out["decode"] = tiffx_decode_times(card)
+    log("[tiffx] " + json.dumps(out, default=str))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6336,6 +6675,10 @@ def main(argv=None) -> int:
                          "JPEG: fixtures, the main path's model replayed "
                          "over an arithmetic-coded flight, the GIS node's "
                          "image/jpeg fetch, decode times)")
+    ap.add_argument("--tiffx", action="store_true",
+                    help="only drive path 19 (TIFF variants: fixtures, "
+                         "run's graph over a WMS whose DEM is a ZSTD "
+                         "GeoTIFF, CCITT decode times)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -6383,6 +6726,10 @@ def main(argv=None) -> int:
     if args.jpegx:
         phase_jpegx_path()
         log(f"[phase] path 18 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.tiffx:
+        phase_tiffx_path()
+        log(f"[phase] path 19 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -6460,6 +6807,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 17 done at {time.time() - t_start:.1f} s")
     jpegx = phase_jpegx_path()
     log(f"[phase] path 18 done at {time.time() - t_start:.1f} s")
+    tiffx = phase_tiffx_path()
+    log(f"[phase] path 19 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -6480,6 +6829,7 @@ def main(argv=None) -> int:
             r["path17_launches"] = jp2["replay"]["jp2"]["launches"][
                 r["name"]]
             r["path18_launches"] = jpegx["replay"]["launches"][r["name"]]
+            r["path19_launches"] = tiffx["flight"]["launches"][r["name"]]
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))

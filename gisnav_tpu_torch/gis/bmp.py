@@ -56,19 +56,20 @@ def _expand16(words: np.ndarray, bits: int) -> np.ndarray:
 
 
 def _masked(words: np.ndarray, masks) -> np.ndarray:
-    """32-bit words through a V4 / V5 header's R, G, B, A byte masks ->
-    BGRA (alpha 255 where its mask is 0)."""
+    """32-bit words through a V4 / V5 header's R, G, B, A masks -> BGRA,
+    each field scaled to 8 bits as OpenCV scales it: v * (255 / its
+    largest value) in float32, truncated (alpha 255 where its mask is
+    0)."""
     r, g, b, a = masks
-    if (r, g, b) != (0xFF0000, 0xFF00, 0xFF) and not all(
-            m in (0xFF, 0xFF00, 0xFF0000, 0xFF000000) for m in (r, g, b)):
-        raise ValueError(f"BMP bitfields masks {r:#x} {g:#x} {b:#x} "
-                         "are not read by the port")
-    if a not in (0, 0xFF, 0xFF00, 0xFF0000, 0xFF000000):
-        raise ValueError(f"BMP alpha mask {a:#x} is not read by the port")
     out = np.empty(words.shape + (4,), np.uint8)
-    for k, m in enumerate((b, g, r)):
-        out[..., k] = (words >> (m.bit_length() - 8)) & 0xFF
-    out[..., 3] = (words >> (a.bit_length() - 8)) & 0xFF if a else 255
+    for k, m in enumerate((b, g, r, a)):
+        if not m:
+            out[..., k] = 255 if k == 3 else 0
+            continue
+        shift = (m & -m).bit_length() - 1
+        top = np.float32(m >> shift)
+        v = ((words & np.uint32(m)) >> np.uint32(shift)).astype(np.float32)
+        out[..., k] = (v * (np.float32(255) / top)).astype(np.uint8)
     return out
 
 

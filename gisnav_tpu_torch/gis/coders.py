@@ -7,6 +7,10 @@ of the size asked for and raises ``ValueError`` naming the coder on a
 corrupt stream or one that ends early (``bmp_rle`` and ``hdr_rle`` give
 None there: OpenCV gives None for those files).
 
+``ccitt`` decodes one strip or tile of a CCITT-coded TIFF (RLE, RLEW,
+Group 3 and Group 4) with ``native/fax3.cpp`` (``build_native_lib("fax3")``)
+as libtiff's ``tif_fax3.c`` does, damage included: it never raises.
+
 ``bgr_to_gray`` is OpenCV's ``icvCvt_BGR2Gray_8u_C3C1R`` (``utils.cpp``:
 4899 R + 9617 G + 1868 B over 2^14, rounded), which the BMP, PxM, Sun
 raster and TIFF decoders apply under ``IMREAD_GRAYSCALE``; it is not
@@ -22,7 +26,7 @@ import numpy as np
 
 from gisnav_tpu_torch.native import build_native_lib
 
-__all__ = ["tiff_lzw", "packbits", "gif_lzw", "bmp_rle", "hdr_rle",
+__all__ = ["tiff_lzw", "packbits", "ccitt", "ccitt_runs", "gif_lzw", "bmp_rle", "hdr_rle",
            "predictor2", "predictor3", "bgr_to_gray", "saturate_u8",
            "IMREAD_UNCHANGED", "IMREAD_GRAYSCALE"]
 
@@ -51,6 +55,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _fax_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_native_lib("fax3"))
+    i32, i64 = ctypes.c_int, ctypes.c_int64
+    lib.gfax_decode.restype = i32
+    lib.gfax_decode.argtypes = [i32, i32, ctypes.c_char_p, ctypes.c_uint64,
+                                i32, ctypes.c_void_p, i64, i64, i32,
+                                ctypes.c_void_p, ctypes.c_uint32]
+    return lib
+
+
 def _run(what: str, fn, data: bytes, size: int, *args) -> np.ndarray:
     out = np.zeros(size, np.uint8)
     n = fn(bytes(data), len(data), *args, out.ctypes.data, size)
@@ -70,6 +85,37 @@ def tiff_lzw(data: bytes, size: int) -> np.ndarray:
 def packbits(data: bytes, size: int) -> np.ndarray:
     """PackBits -> ``size`` bytes."""
     return _run("PackBits", _lib().gic_packbits, data, size)
+
+
+def ccitt_runs(rowpixels: int, two_d: bool) -> np.ndarray:
+    """The run arrays libtiff's CCITT codec allocates for rows of
+    ``rowpixels`` (``Fax3SetupState``: the row's width plus one rounded up
+    to 32, twice that for a reference line, and twice again) and Group 3's
+    no-EOL flag, zeroed: the codec state that lasts from strip to strip."""
+    nruns = (rowpixels + 1 + 31) // 32 * 32 * (2 if two_d else 1)
+    return np.zeros(2 * nruns + 1, np.uint32)
+
+
+def ccitt(data: bytes, scheme: int, two_d: bool, odd_start: bool,
+          rows: int, rowbytes: int, rowpixels: int,
+          runs: np.ndarray) -> np.ndarray:
+    """One strip or tile of CCITT ``scheme`` (2 RLE, 32771 RLEW, 3 Group 3,
+    4 Group 4; ``two_d``: Group 3's 2-D coding, T4Options bit 0) from
+    MSB-first ``data`` -> (rows, rowbytes) packed 1-bit rows, 1 for black;
+    where the stream is damaged or ends early, what libtiff's decoder left
+    (zero bits past it). ``odd_start``: the data lies at an odd address,
+    which RLEW's word alignment reads; ``runs``: ``ccitt_runs``' array,
+    carried from strip to strip."""
+    if rowbytes * 8 < rowpixels or runs.dtype != np.uint32 or \
+            not runs.flags.c_contiguous or len(runs) < 2 * rowpixels + 3:
+        raise ValueError("CCITT: rows narrower than their pixels, or not "
+                         "ccitt_runs' array")
+    out = np.zeros((rows, rowbytes), np.uint8)
+    _fax_lib().gfax_decode(scheme, int(two_d), bytes(data), len(data),
+                           int(odd_start), out.ctypes.data, out.size,
+                           rowbytes, rowpixels, runs.ctypes.data,
+                           (len(runs) - 1) // 2)
+    return out
 
 
 def gif_lzw(data: bytes, min_code_size: int, size: int) -> np.ndarray:

@@ -24,11 +24,14 @@ order, each with OpenCV's own signature rule:
 - ``GIF87a`` or ``GIF89a``: GIF, ``gis/gif.py``.
 
 A matching signature decides: bytes that then fail their header give
-None, as in OpenCV (no other decoder is tried). AVIF bytes, which OpenCV
-reads where it is built with libavif, raise ``ValueError`` naming the
-format, as do a JPEG 2000 variant the port's decoder does not read
-(HTJ2K) and the JPEG variants cv2 does not read either (lossless
-arithmetic-coded, hierarchical, 12-bit and 9- to 16-bit lossless);
+None, as in OpenCV (no other decoder is tried), and so do the variants
+cv2 5.0 does not read either: JPEG lossless arithmetic-coded,
+hierarchical, 12-bit and 9- to 16-bit lossless, and the TIFFs its libtiff
+gives up on (a ZSTD, LZMA, WebP, LERC, PixarLog, JBIG or old-style JPEG
+codec, CCITT of 8-bit samples; ``gis/tiff.py`` lists them). AVIF bytes,
+which OpenCV reads where it is built with libavif, raise ``ValueError``
+naming the format, as do a JPEG 2000 variant the port's decoder does not
+read (HTJ2K) and the TIFF variants it does not read yet (``gis/tiff.py``);
 anything else gives None. Under
 ``IMREAD_GRAYSCALE`` the JPEG, WebP and PNG decoders' images are turned
 upright by their EXIF orientation

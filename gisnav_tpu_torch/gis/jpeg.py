@@ -17,10 +17,10 @@ at OpenCV's defaults:
   YCCK file goes through OpenCV's own CMYK-to-BGR and CMYK-to-grey
   conversions. Bytes that cv2 cannot decode (truncated, garbage, a
   lossless file that would need a colour conversion: YCbCr, or RGB under
-  the grey flag) give None, as ``cv2.imdecode`` does; lossless
-  arithmetic-coded (SOF11), hierarchical, 12-bit and 9- to 16-bit lossless
-  files, which cv2 does not read either, raise ``ValueError`` naming the
-  variant.
+  the grey flag) give None, as ``cv2.imdecode`` does, and so do the
+  variants cv2 5.0's libjpeg-turbo refuses: lossless arithmetic-coded
+  (SOF11), hierarchical, 12-bit and 9- to 16-bit lossless files
+  (``jpeg_variant`` names them).
 - ``encode_jpeg(img, quality=95)`` equals ``cv2.imencode(".jpg", img)``
   byte for byte for grey and BGR uint8 images (4:2:0 for colour).
 - ``decode_image(data, flag)`` and ``read_image(path, flag)`` are
@@ -44,6 +44,7 @@ from gisnav_tpu_torch.gis.coders import IMREAD_GRAYSCALE, IMREAD_UNCHANGED
 from gisnav_tpu_torch.native import build_native_lib
 
 __all__ = ["decode_jpeg", "encode_jpeg", "decode_jpeg_for_tiff",
+           "jpeg_variant",
            "decode_image", "read_image",
            "JPEG_SOI", "IMREAD_UNCHANGED", "IMREAD_GRAYSCALE"]
 
@@ -99,13 +100,25 @@ def _decode(data: bytes, grayscale: bool, file: bool = False,
                            int(file), ctypes.byref(h), ctypes.byref(w),
                            ctypes.byref(c), exif, ctypes.byref(status), msg,
                            _MSG_LEN)
-    if status.value == 2:
-        raise ValueError(msg.value.decode())
-    if not ptr:
+    if not ptr:  # status 2: a variant libjpeg-turbo refuses, None in cv2
         return None, b""
     shape = (h.value, w.value) if c.value == 1 else (h.value, w.value,
                                                      c.value)
     return _take(lib, ptr, shape), data[exif[0]:exif[0] + exif[1]]
+
+
+def jpeg_variant(data: bytes) -> Optional[str]:
+    """The name of the variant in ``data`` that cv2 5.0's libjpeg-turbo
+    does not read (its decode gives None), or None."""
+    lib = _lib()
+    h, w, c, status = (ctypes.c_int() for _ in range(4))
+    exif = (ctypes.c_uint64 * 2)()
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    ptr = lib.gjpeg_decode(bytes(data), len(data), _MODE_UNCHANGED, 0,
+                           ctypes.byref(h), ctypes.byref(w), ctypes.byref(c),
+                           exif, ctypes.byref(status), msg, _MSG_LEN)
+    lib.gjpeg_free(ptr)
+    return msg.value.decode() if status.value == 2 else None
 
 
 def decode_jpeg(data: bytes, grayscale: bool = False) -> Optional[np.ndarray]:

@@ -1,8 +1,8 @@
 """TIFF read as OpenCV 5 reads it (``grfmt_tiff.cpp`` over libtiff 4.7),
 with no OpenCV and no libtiff.
 
-GDAL writes DEMs and orthophotos as GeoTIFFs (tiled, deflate or LZW with a
-predictor, float32 or int16 heights), and MapServer answers
+GDAL writes DEMs and orthophotos as GeoTIFFs (tiled, deflate, LZW or ZSTD
+with a predictor, float32 or int16 heights), and MapServer answers
 ``image/tiff`` with them; the JAX package reads them with
 ``cv2.imdecode`` / ``cv2.imread``. ``decode_tiff(data, gray, file)`` gives
 the same arrays:
@@ -11,24 +11,32 @@ the same arrays:
   IFD only (``imread`` reads page 0), strips and tiles (edge tiles
   cropped), ``PlanarConfiguration`` 1 and 2, ``FillOrder`` 2;
 - compression none, LZW (new and old style), deflate (8 and 32946),
-  PackBits (``native/imgcodecs.cpp`` and ``zlib``) and JPEG (``native/
-  jpeg.cpp``, ``JPEGTables`` spliced in front of each strip's stream);
-  predictors 2 (8 to 64-bit integers) and 3 (floating point);
+  PackBits (``native/imgcodecs.cpp`` and ``zlib``), JPEG (``native/
+  jpeg.cpp``, ``JPEGTables`` spliced in front of each strip's stream,
+  separate planes a stream each) and CCITT RLE, RLEW, Group 3 (1-D and
+  2-D) and Group 4 (``native/fax3.cpp``: libtiff's decoders, damaged
+  streams as libtiff leaves them); predictors 2 (8 to 64-bit integers) and
+  3 (floating point) under LZW and deflate only, the codecs that install
+  libtiff's predictor (any other compression gives the samples as stored);
 - OpenCV's choice of type (``TiffDecoder::readHeader``): 1-bit and 8-bit
-  samples as uint8 (int8 where ``SampleFormat`` is signed), 16-bit as
-  uint16 / int16, 32-bit as float32 / int32 / uint32, 64-bit as float64;
-  grey kinds (MinIsWhite, MinIsBlack) as one channel whatever their extra
-  samples, others as their sample count (1-4); samples over 8 bits of a
-  palette, separated or YCbCr image, or of 2 or over 4 samples, as 8 bits;
+  samples as uint8 (int8 where ``SampleFormat`` is signed), 10- to 16-bit
+  as uint16 / int16 (10, 12 and 14 bits unpacked MSB first and shifted to
+  16, signed ones saturated), 32-bit as float32 / int32 / uint32, 64-bit
+  as float64; grey kinds (MinIsWhite, MinIsBlack) as one channel whatever
+  their extra samples, others as their sample count (1-4); samples over 8
+  bits of a palette, separated or YCbCr image, or of 2 or over 4 samples,
+  as 8 bits;
 - under ``IMREAD_GRAYSCALE``, and for every 8-bit type, the pixels of
   libtiff's ``TIFFReadRGBA*`` (``tif_getimage.c``: 16-bit grey to its high
   byte, 16-bit colour to (v + 128) / 257, MinIsWhite inverted, palettes
   through ``ColorMap`` (16-bit entries to their high byte), CMYK to RGB as
-  (255 - k)(255 - c) / 255, YCbCr through libtiff's tables or libjpeg,
-  unassociated alpha premultiplied), then OpenCV's BGR(A) or its
-  fixed-point grey (``gis/coders.py`` ``bgr_to_gray``); a type libtiff's
-  RGBA reader refuses (32 or 64-bit samples: a float DEM under the grey
-  flag, 2 or 4-bit grey) gives None, as cv2 does;
+  (255 - k)(255 - c) / 255, YCbCr through libtiff's tables or libjpeg
+  (4x4 strips of an odd number of units a row short of their last bytes,
+  as ``TIFFScanlineSize`` rounds), unassociated alpha premultiplied), then
+  OpenCV's BGR(A) or its fixed-point grey (``gis/coders.py``
+  ``bgr_to_gray``); a type libtiff's RGBA reader refuses (10 to 14, 32 or
+  64-bit samples: a float DEM under the grey flag, 2 or 4-bit grey) gives
+  None, as cv2 does;
 - over 8 bits, under ``IMREAD_UNCHANGED``, the samples as they are, RGB(A)
   turned BGR(A);
 - the ``Orientation`` tag, applied under both flags as OpenCV applies it;
@@ -36,9 +44,20 @@ the same arrays:
   transpose (5-8) a non-square image, as ``cv2.imread`` does (its check
   that the decoder kept its buffer fails).
 
-Other compressions (CCITT, old JPEG, LogLuv, PixarLog, LZMA, ZSTD, WebP,
-LERC), 12-bit JPEG, JPEG of a subsampled non-YCbCr image and a corrupt or
-short stream raise ``ValueError`` naming the variant.
+None, as cv2 gives it, also for every image of a codec cv2 5.0's libtiff is
+built without (old-style JPEG, PixarLog, JBIG, LERC, LZMA, ZSTD, WebP: "not
+configured"; a ZSTD DEM under the GIS node gives it a zero DEM, as in
+JAX), for one its codec's setup refuses (CCITT of other than 1-bit
+samples, ThunderScan of other than 4, NeXT, SGILog of a photometric other
+than LogL / LogLuv, a predictor LZW or deflate cannot undo), and under
+``IMREAD_UNCHANGED`` over 8 bits for a compression libtiff has no codec
+for or JPEG of other than 8 bits (their strips do not decode; under the
+RGBA reader they read as zero samples, as libtiff leaves its strip
+buffer). Still refused with ``ValueError`` naming the variant, where cv2
+reads the file: ThunderScan 4-bit palettes, SGILog LogL / LogLuv, JPEG of
+a subsampled non-YCbCr image or of separate YCbCr planes, separate planes
+over 8 bits under ``IMREAD_UNCHANGED`` (cv2's pixels there are undefined),
+and a corrupt or short LZW, deflate or PackBits stream.
 """
 from __future__ import annotations
 
@@ -59,12 +78,20 @@ _TYPES = {1: ("u", 1), 2: ("u", 1), 3: ("u", 2), 4: ("u", 4), 5: ("r", 4),
           6: ("i", 1), 7: ("u", 1), 8: ("i", 2), 9: ("i", 4), 10: ("s", 4),
           11: ("f", 4), 12: ("f", 8), 13: ("u", 4), 16: ("u", 8),
           17: ("i", 8), 18: ("u", 8)}
-_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT fax 3", 4: "CCITT fax 4",
-                 6: "old-style JPEG", 32771: "CCITT RLEW",
-                 32809: "ThunderScan", 32908: "PixarFilm",
-                 32909: "PixarLog", 34676: "SGILog", 34677: "SGILog24",
-                 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
-                 50000: "ZSTD", 50001: "WebP", 50002: "JPEG XL"}
+# libtiff 4.7's codecs (tif_codec.c); any other compression has none: its
+# strips do not decode ("strip decoding is not implemented")
+_CODECS = {1: "none", 2: "CCITT RLE", 3: "CCITT fax 3", 4: "CCITT fax 4",
+           5: "LZW", 6: "old-style JPEG", 7: "JPEG", 8: "deflate",
+           32766: "NeXT", 32771: "CCITT RLEW", 32773: "PackBits",
+           32809: "ThunderScan", 32909: "PixarLog", 32946: "deflate",
+           34661: "JBIG", 34676: "SGILog", 34677: "SGILog24", 34887: "LERC",
+           34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+# the codecs cv2 5.0's libtiff is built without ("compression support is
+# not configured"): cv2 gives None for any image they code
+_NOT_CONFIGURED = frozenset({6, 32909, 34661, 34887, 34925, 50000, 50001})
+_CCITT = frozenset({2, 3, 4, 32771})
+_PREDICTED = frozenset({5, 8, 32946})  # the codecs that undo a Predictor
+_LOGL, _LOGLUV = 32844, 32845
 _MINISWHITE, _MINISBLACK, _RGB, _PALETTE = 0, 1, 2, 3
 _SEPARATED, _YCBCR = 5, 6
 _UNASSOC = 2
@@ -149,12 +176,23 @@ def _unpack_bits(raw: np.ndarray, rows: int, n: int, bits: int
     return px.reshape(rows, -1)[:, :n]
 
 
+def _unpack_wide(raw: np.ndarray, n: int, bits: int) -> np.ndarray:
+    """(rows, rowbytes) bytes -> (rows, n) uint16 of 10, 12 or 14-bit
+    samples, MSB first, scaled to 16 bits as OpenCV unpacks them (v <<
+    (16 - bits))."""
+    b = np.unpackbits(raw, axis=1)[:, :n * bits].reshape(len(raw), n, bits)
+    weights = (1 << np.arange(15, 15 - bits, -1)).astype(np.uint16)
+    return (b.astype(np.uint16) * weights).sum(axis=2, dtype=np.uint16)
+
+
 class _Tiff:
     """A parsed TIFF's first image: header fields and a decoder of its
     samples."""
 
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, mapped: bool = False):
         self.data = data
+        self.mapped = mapped  # read from a file (libtiff maps it)
+        self._runs = None  # the CCITT codec's run arrays
         d = self.ifd = _Ifd(data)
         self.width = d.get(256)
         self.height = d.get(257)
@@ -212,8 +250,42 @@ class _Tiff:
             raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
         return raw
 
-    def _decompress(self, raw: bytes, size: int) -> np.ndarray:
+    def refused_by_codec(self) -> bool:
+        """libtiff's codec refuses the image before it decodes a byte (its
+        setup or predecode fails): cv2 gives None under both flags."""
+        c, bits = self.compression, self.bits
+        if c in _NOT_CONFIGURED:
+            return True
+        if c in _CCITT:
+            return bits != 1  # "Bits/sample must be 1"
+        if c == 32809:
+            return bits != 4  # ThunderScan's 4-bit codes
+        if c == 32766:
+            return bits != 2  # NeXT's 2-bit codes
+        if c in (34676, 34677):  # "Inappropriate photometric"
+            return self.photometric not in (_LOGL, _LOGLUV)
+        if c in _PREDICTED:  # PredictorSetup
+            if self.predictor == 2:
+                return bits not in (8, 16, 32, 64)
+            if self.predictor == 3:
+                return self.sample_format != 3 or bits not in (16, 24, 32,
+                                                               64)
+            return self.predictor != 1
+        return False
+
+    def undecodable(self) -> bool:
+        """Every strip fails to decode: there is no codec for the
+        compression ("strip decoding is not implemented"), or it is JPEG of
+        other than 8 bits, which cv2's libjpeg does not read."""
+        return self.compression not in _CODECS or (self.compression == 7 and
+                                                    self.bits != 8)
+
+    def _decompress(self, raw: bytes, size: int, rows: int = 0,
+                    rowbytes: int = 0, index: int = 0) -> np.ndarray:
         c = self.compression
+        if self.undecodable():
+            # libtiff's RGBA reader goes on with the strip buffer it zeroed
+            return np.zeros(size, np.uint8)
         if c == 1:
             if len(raw) < size:
                 raise ValueError("TIFF: an uncompressed strip or tile is "
@@ -232,13 +304,22 @@ class _Tiff:
             return np.frombuffer(out, np.uint8)
         if c == 32773:
             return coders.packbits(raw, size)
-        name = _COMPRESSIONS.get(c, f"compression {c}")
-        raise ValueError(f"TIFF {name} is not read by the port (cv2's "
-                         "libtiff reads it)" if c in _COMPRESSIONS
-                         else f"TIFF {name} is unknown")
+        if c in _CCITT:
+            two_d = c == 4 or (c == 3 and self.ifd.get(292, 0) & 1)
+            if self._runs is None:
+                self._runs = coders.ccitt_runs(self.tw, two_d)
+            # RLEW aligns to the data's address: a file is mapped (its
+            # strip at its offset), bytes in memory are read into a buffer
+            odd = self.mapped and self.offsets[index] % 2 == 1
+            return coders.ccitt(raw, c, two_d, odd, rows, rowbytes, self.tw,
+                                self._runs).ravel()
+        raise ValueError(f"TIFF {_CODECS[c]} compression is not read by the "
+                         "port (cv2's libtiff reads it)")
 
     def _dtype(self) -> np.dtype:
         kind = {1: "u", 2: "i", 3: "f"}.get(self.sample_format, "u")
+        if self.bits in (10, 12, 14) and kind != "f":
+            return np.dtype(f"{kind}2")
         if self.bits not in (8, 16, 32, 64) or (
                 kind == "f" and self.bits not in (16, 32, 64)):
             raise ValueError(f"TIFF {self.bits}-bit samples of format "
@@ -251,7 +332,7 @@ class _Tiff:
         tiles read as libtiff's RGBA grey readers read them
         (``putgreytile``, ``putagreytile``, ``put16bitbwtile``): each row
         ``tile width - clipped width`` bytes (not pixels) past the last."""
-        if self.compression == 7:
+        if self.compression == 7 and not self.undecodable():
             raise ValueError("TIFF JPEG is read through libtiff's RGBA "
                              "path only")
         h, w, spp, bits = self.height, self.width, self.spp, self.bits
@@ -260,13 +341,11 @@ class _Tiff:
         small = bits < 8
         if small and bits not in (1, 2, 4):
             raise ValueError(f"TIFF {bits}-bit samples")
-        if self.predictor not in (1, 2, 3):
-            raise ValueError(f"TIFF predictor {self.predictor}")
-        if self.predictor == 2 and small:
-            raise ValueError("TIFF predictor 2 on samples under 8 bits")
+        packed = bits in (10, 12, 14)
+        # libtiff undoes a predictor in the codecs that install one only
+        # (refused_by_codec has turned away the ones it cannot undo)
+        predictor = self.predictor if self.compression in _PREDICTED else 1
         dt = np.dtype(np.uint8) if small else self._dtype()
-        if self.predictor == 3 and dt.kind != "f":
-            raise ValueError("TIFF predictor 3 on integer samples")
         out = np.zeros((h, w, spp), dt)
         index = 0
         for p in range(planes):
@@ -277,19 +356,25 @@ class _Tiff:
                     x0 = tx * self.tw
                     n = self.tw * per_plane
                     rowbytes = (n * bits + 7) // 8
-                    buf = self._decompress(self._raw(index), rows * rowbytes)
+                    buf = self._decompress(self._raw(index), rows * rowbytes,
+                                           rows, rowbytes, index)
                     index += 1
                     block = buf.reshape(rows, rowbytes)
                     if small:
                         block = _unpack_bits(block, rows, n, bits)
-                    elif self.predictor == 3:
+                    elif packed:  # signed: saturated to int16, as OpenCV
+                        block = _unpack_wide(block, n, bits)
+                        if dt.kind == "i":
+                            block = np.minimum(block, 32767)
+                        block = block.astype(dt)
+                    elif predictor == 3:
                         block = coders.predictor3(
                             block, per_plane, dt.itemsize).view(
                                 dt.newbyteorder("<"))
                     else:
                         block = block.view(dt.newbyteorder(self.ifd.e))
                         block = block.astype(dt.newbyteorder("="))
-                        if self.predictor == 2:
+                        if predictor == 2:
                             block = coders.predictor2(
                                 block.view(f"u{dt.itemsize}"),
                                 per_plane).view(dt)
@@ -347,7 +432,7 @@ class _Tiff:
             # that is not whole KiB ("Invalid tile byte count") when it
             # reads from memory (cv2.imdecode), and cv2 with it
             return None
-        if self.compression == 7:
+        if self.compression == 7 and not self.undecodable():
             return self._jpeg_rgba()
         if ph == _YCBCR:
             return self._ycbcr_rgba()
@@ -422,11 +507,6 @@ class _Tiff:
             if (hs, vs) not in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1),
                                 (1, 2)):
                 raise ValueError(f"TIFF YCbCr subsampling {hs}x{vs}")
-            if (hs, vs) == (4, 4) and w % 4 and not self.tiled:
-                raise ValueError("TIFF YCbCr 4x4 strips of a width not a "
-                                 "multiple of 4: libtiff reads the last unit "
-                                 "of a strip's last unit row from outside "
-                                 "it")
             y, cb, cr = self._ycbcr_units(hs, vs)
         out = np.empty((h, w, 4), np.uint8)
         out[..., 3] = 255
@@ -451,6 +531,15 @@ class _Tiff:
                 ucols = -(-self.tw // hs)
                 buf = self._decompress(self._raw(index), urows * ucols * unit)
                 index += 1
+                if not self.tiled:
+                    # TIFFReadRGBAStrip decodes rows times TIFFScanlineSize
+                    # (a unit row's bytes over vs, rounded down): of 4x4
+                    # units an odd number a row, it leaves the strip's last
+                    # 2 bytes a unit row in its zeroed buffer
+                    done = urows * vs * (ucols * unit // vs)
+                    if done < len(buf):
+                        buf = buf.copy()
+                        buf[done:] = 0
                 ch, cw = min(rows, h - y0), min(self.tw, w - x0)
                 if (hs, vs) == (4, 4) and cw < self.tw:
                     # putcontig8bitYCbCr44tile skips (tw - cw) / 4 units of
@@ -476,8 +565,9 @@ class _Tiff:
         ``JPEGTables`` (SOI, tables, EOI) spliced in front of each stream;
         YCbCr to RGB as libtiff asks libjpeg (``JPEGCOLORMODE_RGB``), other
         kinds' components as they are."""
-        if self.planar != 1:
-            raise ValueError("TIFF JPEG with separate planes")
+        if self.planar != 1 and self.photometric != _RGB:
+            raise ValueError("TIFF JPEG with separate planes of photometric "
+                             f"{self.photometric}")
         if self.bits != 8:
             raise ValueError(f"TIFF JPEG of {self.bits}-bit samples")
         ph = self.photometric
@@ -488,8 +578,11 @@ class _Tiff:
         h, w = self.height, self.width
         out = np.empty((h, w, 4), np.uint8)
         out[..., 3] = 255
-        for index in range(self.across * self.down):
-            ty, tx = divmod(index, self.across)
+        per_plane = self.across * self.down
+        planes = min(self.spp, 3) if self.planar == 2 else 1
+        for index in range(per_plane * planes):
+            plane, at = divmod(index, per_plane)
+            ty, tx = divmod(at, self.across)
             y0, x0 = ty * self.th, tx * self.tw
             stream = self._raw(index)
             if tables and stream.startswith(b"\xff\xd8"):
@@ -505,7 +598,9 @@ class _Tiff:
                 raise ValueError("TIFF JPEG: a strip or tile smaller than "
                                  "its place")
             img = img[:ch, :cw]
-            if ph == _YCBCR or (ph == _RGB and img.shape[2] >= 3):
+            if self.planar == 2:  # one plane's component a stream
+                out[y0:y0 + ch, x0:x0 + cw, plane] = img[..., 0]
+            elif ph == _YCBCR or (ph == _RGB and img.shape[2] >= 3):
                 out[y0:y0 + ch, x0:x0 + cw, :3] = img[..., :3]
             elif ph in (_MINISBLACK, _MINISWHITE) and img.shape[2] == 1:
                 v = img[..., 0]
@@ -663,9 +758,11 @@ def decode_tiff(data: bytes, gray: bool, file: bool = False
     ``cv2.imread``'s) for ``IMREAD_GRAYSCALE`` (``gray``) or
     ``IMREAD_UNCHANGED``; None where cv2 gives None."""
     try:
-        t = _Tiff(bytes(data))
+        t = _Tiff(bytes(data), mapped=file)
         dtype, channels = _opencv_type(t)
     except _NotRead:
+        return None
+    if t.refused_by_codec():
         return None
     if gray:
         dtype, channels = np.dtype(np.uint8), 1
@@ -687,6 +784,8 @@ def decode_tiff(data: bytes, gray: bool, file: bool = False
         else:
             return None
         return _orient_rgba(img.view(dtype), o, t.tw if t.tiled else 0)
+    if t.undecodable():
+        return None  # TIFFReadEncodedStrip fails, and OpenCV with it
     if t.planar == 2 and t.spp > 1:
         raise ValueError(f"TIFF PlanarConfiguration 2 of {t.spp} "
                          f"{t.bits}-bit samples: OpenCV 5.0 reads the first "

@@ -11,17 +11,19 @@ Replies are decoded by their content, as ``cv2.imdecode`` decodes them
 (``gis/imgcodecs.py`` ``decode_image``, with the port's own decoders; the
 card machine has no OpenCV): JPEG (Huffman- or arithmetic-coded,
 sequential, progressive or lossless), PNG (MapServer's ``image/png;
-mode=8bit`` palette PNG included), TIFF (MapServer's GTiff output, and a
-float DEM, which cv2 does not read under the grey flag: it comes back as
-None and the DEM as zeros, as in JAX), WebP (``image/webp``, which
-MapServer and GeoServer serve), JPEG 2000, GIF, BMP, Netpbm, Sun raster and
-Radiance HDR, in cv2's layout and, under the grey flag, turned upright by
-an EXIF orientation. The default format is the JAX client's
-``image/jpeg``. A network error, an XML ServiceException or a reply that
-is no image cv2 would decode gives None, as in JAX (the GIS node keeps its
-previous map); a variant the port does not read yet (AVIF, HTJ2K, a
-TIFF compression such as CCITT; lossless arithmetic-coded (SOF11),
-hierarchical or 12-bit JPEG) raises ``ValueError`` naming it.
+mode=8bit`` palette PNG included), TIFF (MapServer's GTiff output, CCITT
+bilevel, 10- to 14-bit samples), WebP (``image/webp``, which MapServer and
+GeoServer serve), JPEG 2000, GIF, BMP, Netpbm, Sun raster and Radiance
+HDR, in cv2's layout and, under the grey flag, turned upright by an EXIF
+orientation. The default format is the JAX client's ``image/jpeg``. A
+network error, an XML ServiceException or a reply that is no image cv2
+would decode gives None, as in JAX (the GIS node keeps its previous map);
+so does a reply cv2 5.0 does not read either: a float DEM under the grey
+flag, a TIFF of a codec its libtiff lacks (a ZSTD or LZMA GeoTIFF, GDAL's
+COG defaults), JPEG lossless arithmetic-coded (SOF11), hierarchical or
+12-bit; a DEM that gives None comes back as zeros, as in JAX. A variant
+the port does not read yet (AVIF, HTJ2K, a ThunderScan TIFF) raises
+``ValueError`` naming it.
 """
 from __future__ import annotations
 

@@ -2,12 +2,13 @@
 
 ``build_native_lib(name)`` compiles ``native/<name>.cpp`` once with the host
 C++ compiler (``$CXX``, else ``g++``) into ``native/_build/`` and returns
-the library's path, for ``ctypes`` to load. Five sources live here:
+the library's path, for ``ctypes`` to load. Six sources live here:
 ``shmbus.cpp`` (the shared-memory bus, ``nodes/bus.py``), ``jpeg.cpp``
 (the JPEG codec, ``gis/jpeg.py``), ``imgcodecs.cpp`` (the byte coders
 of TIFF, GIF, BMP and Radiance HDR, ``gis/coders.py``), ``webp.cpp``
-(the WebP decoder, ``gis/webp.py``) and ``jpeg2000.cpp`` (the JPEG 2000
-decoder, ``gis/jpeg2000.py``). ``jpeg2000.cpp`` alone is built with
+(the WebP decoder, ``gis/webp.py``), ``jpeg2000.cpp`` (the JPEG 2000
+decoder, ``gis/jpeg2000.py``) and ``fax3.cpp`` (TIFF's CCITT decoders,
+``gis/coders.py``). ``jpeg2000.cpp`` alone is built with
 ``-ffp-contract=off``: its 9/7 wavelet and colour transform must round
 each multiply and add as OpenJPEG's SSE code does, which a compiler that
 fuses them into FMAs (GCC's default where the target has FMA, as on ARM)
@@ -34,7 +35,7 @@ _LD_FLAGS = ["-shared", "-lrt"]
 _EXTRA_FLAGS = {"jpeg2000": ["-ffp-contract=off"]}
 _WHAT = {"shmbus": "shm bus", "jpeg": "JPEG codec",
          "imgcodecs": "image byte coders", "webp": "WebP decoder",
-         "jpeg2000": "JPEG 2000 decoder"}
+         "jpeg2000": "JPEG 2000 decoder", "fax3": "CCITT decoder"}
 _build_lock = threading.Lock()
 
 

@@ -32,7 +32,8 @@ Images are read by their content, whatever their names, as ``cv2.imread``
 reads them (``gis/imgcodecs.py`` ``read_image``; the card machine has no
 OpenCV): PNG, JPEG (Huffman- or arithmetic-coded, sequential,
 progressive or lossless), TIFF and BigTIFF (a GDAL export: tiled or striped,
-deflate, LZW or PackBits, predictors 2 and 3, uint8 to float32), WebP
+deflate, LZW or PackBits, predictors 2 and 3, uint8 to float32; CCITT
+bilevel; 10- to 14-bit samples), WebP
 (lossless, lossy, with alpha, extended or animated: the first frame),
 JPEG 2000, GIF,
 BMP, PBM / PGM / PPM / PAM, PFM, Sun raster and Radiance HDR. The map and
@@ -41,10 +42,12 @@ makes it; a JPEG, WebP or PNG turned upright by its EXIF orientation, a TIFF by
 its ``Orientation`` tag, and a TIFF whose orientation transposes refused,
 as ``cv2.imread`` refuses it). The DEM is read as ``IMREAD_UNCHANGED`` and
 must be grey: an 8 or 16-bit PNG, or a uint16, int16 or float32 GeoTIFF
-(heights times ``dem_scale``). A file cv2 would not read, or a variant the
-port does not read yet (AVIF, HTJ2K, a TIFF compression such as CCITT;
-lossless arithmetic-coded (SOF11), hierarchical or 12-bit JPEG), raises
-``ValueError``.
+(heights times ``dem_scale``). A file cv2 would not read raises
+``ValueError`` (naming the JPEG variant where cv2 refuses one: lossless
+arithmetic-coded (SOF11), hierarchical or 12-bit; a TIFF of a codec
+cv2's libtiff lacks, such as ZSTD or LZMA, is one cv2 would not read), and
+so does a variant the port does not read yet (AVIF, HTJ2K, a ThunderScan
+TIFF).
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ import numpy as np
 
 from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
                                             IMREAD_UNCHANGED, read_image)
+from gisnav_tpu_torch.gis.jpeg import JPEG_SOI, jpeg_variant
 
 __all__ = ["load_dataset", "replay", "summarize"]
 
@@ -70,9 +74,11 @@ def _read_image(path: str, flag: int) -> np.ndarray:
         raise ValueError(f"{path}: {e}") from e
     if img is None:
         with open(path, "rb") as f:
-            head = f.read(8)
-        raise ValueError(f"{path}: not an image OpenCV would read (starts "
-                         f"{head!r})")
+            data = f.read()
+        variant = jpeg_variant(data) if data.startswith(JPEG_SOI) else None
+        raise ValueError(f"{path}: {variant} (cv2 does not read it either)"
+                         if variant else f"{path}: not an image OpenCV would "
+                         f"read (starts {data[:8]!r})")
     return img
 
 

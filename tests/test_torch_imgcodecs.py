@@ -12,8 +12,9 @@ None.
   layout x byte order x orientation), GIF, BMP, PBM / PGM / PPM / PAM, PFM,
   Sun raster, Radiance HDR.
 - The variants cv2 reads and the port refuses raise ``ValueError`` naming
-  them; the signature dispatch; bytes after a matching signature that fail
-  their header give None.
+  them (``tests/test_torch_tiff_variants.py`` holds the TIFFs cv2 gives
+  None for); the signature dispatch; bytes after a matching signature that
+  fail their header give None.
 - ``replay.load_dataset`` of both packages on a GIS export (a tiled
   deflate GeoTIFF map, float32 and int16 GeoTIFF DEMs, TIFF / PGM / BMP
   frames), and both packages' WMS clients on ``image/tiff`` and
@@ -237,6 +238,10 @@ for _ss in ((1, 1), (2, 1), (2, 2), (4, 2), (4, 1), (1, 2)):
             lambda r, ss=_ss, kw=_kw: write_tiff(
                 r.integers(0, 256, (H, W, 3)).astype(np.uint8),
                 photometric=6, subsampling=ss, compression=8, **kw))
+TIFF_KINDS["ycbcr44_strips_odd_width"] = lambda r: write_tiff(
+    r.integers(0, 256, (H, W, 3)).astype(np.uint8), photometric=6,
+    subsampling=(4, 4))
+TIFF_KINDS["ccitt_fax4"] = lambda r: _pillow_tiff("1", compression="group4")
 TIFF_KINDS["ycbcr44_tiles"] = lambda r: write_tiff(
     r.integers(0, 256, (H, W, 3)).astype(np.uint8), photometric=6,
     subsampling=(4, 4), tile=(16, 16), compression=8)
@@ -263,14 +268,26 @@ def test_tiff_jpeg_as_cv2(mode, tiled):
     _check(_pillow_tiff(mode, **kw))
 
 
+def _thunderscan_palette4(r):
+    """A 4-bit palette TIFF of ThunderScan raw codes (0xC0 | index)."""
+    idx = r.integers(0, 16, (H, W)).astype(np.uint8)
+    codes = (0xC0 | idx.astype(np.uint16)).astype(np.uint8).reshape(1, -1)
+    return write_tiff(codes, photometric=3, extra_tags=[
+        (256, 4, [W]), (257, 4, [H]), (258, 3, [4]), (259, 3, [32809]),
+        (278, 4, [H]), (320, 3, list(np.asarray(r.integers(
+            0, 65536, (16, 3)), np.uint16).T.ravel()))])
+
+
+# the variants cv2 reads that the port refuses (band-interleaved samples
+# over 8 bits: cv2's pixels are undefined there)
 REFUSED_TIFF = {
     "planar2_u16": (lambda r: write_tiff(
         r.integers(0, 65536, (H, W, 3)).astype(np.uint16), planar=2),
         "PlanarConfiguration 2", (cv2.IMREAD_UNCHANGED,)),
-    "ycbcr44_strips_odd_width": (lambda r: write_tiff(
-        r.integers(0, 256, (H, W, 3)).astype(np.uint8), photometric=6,
-        subsampling=(4, 4)), "4x4", FLAGS),
-    "ccitt_fax4": (None, "CCITT fax 4", FLAGS),
+    "planar2_f32_tiles": (lambda r: write_tiff(
+        r.random((H, W, 3)).astype(np.float32), planar=2, tile=(16, 16)),
+        "PlanarConfiguration 2", (cv2.IMREAD_UNCHANGED,)),
+    "thunderscan_palette4": (_thunderscan_palette4, "ThunderScan", FLAGS),
 }
 
 
@@ -296,10 +313,7 @@ def _pillow_tiff(mode: str, **kw) -> bytes:
 @pytest.mark.parametrize("name", sorted(REFUSED_TIFF))
 def test_tiff_refusals_name_the_variant(name):
     build, what, flags = REFUSED_TIFF[name]
-    if build is None:  # a bilevel Group 4 file
-        data = _pillow_tiff("1", compression="group4")
-    else:
-        data = build(_rng(name))
+    data = build(_rng(name))
     for flag in flags:
         assert cv2.imdecode(np.frombuffer(data, np.uint8), flag) is not None
         with pytest.raises(ValueError, match=what):

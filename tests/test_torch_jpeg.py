@@ -16,8 +16,8 @@ and equal bytes.
   libjpeg-turbo smooths it (every scan boundary and inside every scan).
   Arithmetic-coded and lossless headers decode as cv2 decodes them;
   lossless arithmetic-coded, hierarchical, 12-bit and 16-bit lossless
-  headers raise ``ValueError`` naming the variant (cv2 reads none of
-  them). Truncated,
+  headers give None, as cv2 gives (it reads none of them), and
+  ``jpeg_variant`` names each. Truncated,
   cut and corrupt streams and garbage give what cv2 gives (None, or the
   image with grey past a damaged segment); read as a file they give what
   ``cv2.imread`` gives (libjpeg's fake EOI past the end).
@@ -213,10 +213,10 @@ def _sof_edit(data, marker, precision=8, scan=None):
     return bytes(data)
 
 
-# (SOF marker, precision, scan's Ss/Se/AhAl) -> (the port's message, whether
-# cv2 reads it): libjpeg-turbo 3.1 in OpenCV 5.0 refuses lossless
-# arithmetic-coded, hierarchical, 12-bit and 9- to 16-bit lossless files,
-# and the port raises naming them
+# (SOF marker, precision, scan's Ss/Se/AhAl) -> (the port's name of it,
+# whether cv2 reads it): libjpeg-turbo 3.1 in OpenCV 5.0 refuses lossless
+# arithmetic-coded, hierarchical, 12-bit and 9- to 16-bit lossless files;
+# the port gives None as cv2 does and ``jpeg_variant`` names them
 REFUSED = {
     "lossless_arithmetic": ((0xCB, 8, (1, 0, 0)), "lossless arithmetic",
                             False),
@@ -240,8 +240,8 @@ def test_progressive_raises_naming_it():
     """Progressive files decode (the refusal this held until progressive
     decoding came is lifted: see ``test_progressive_decodes_as_cv2``), and
     so do arithmetic-coded and lossless headers (``READ_NOW``, lifted
-    since); the variants cv2 does not read either raise ``ValueError``
-    naming theirs."""
+    since); the variants cv2 does not read either give None, as cv2
+    gives, and ``jpeg_variant`` names them."""
     data = _encode(_image(32, 40, 3), cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
     _assert_decodes_as_cv2(data)
     base = _encode(_image(32, 40, 1))
@@ -255,8 +255,8 @@ def test_progressive_raises_naming_it():
         for flag in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE):
             ref = cv2.imdecode(np.frombuffer(edited, np.uint8), flag)
             assert (ref is not None) == cv2_reads, name
-            with pytest.raises(ValueError, match=name):
-                tjpeg.decode_image(edited, flag)
+            assert tjpeg.decode_image(edited, flag) is None, name
+        assert name in tjpeg.jpeg_variant(edited)
 
 
 @pytest.mark.parametrize("rst", [0, 2])

@@ -12,7 +12,7 @@ bundled library, ``tests/torch_image_writers.py`` ``libjpeg_encode`` /
 - Lossless (SOF3): predictors 1-7, point transforms, restarts (whole MCU
   rows, and one that is not: None), 1, 3 and 4 components, sampling ratios
   and scan splits, precisions 2-8 (the samples as they are) and 9-16
-  (raise, cv2 gives None), under ``IMREAD_UNCHANGED``, ``IMREAD_GRAYSCALE``
+  (None, as cv2 gives, the variant named), under ``IMREAD_UNCHANGED``, ``IMREAD_GRAYSCALE``
   and ``IMREAD_COLOR`` (the codec's BGR mode: a lossless grey or YCbCr file
   is None there, as libjpeg does no lossy colour conversion of one), and
   from a file through ``read_image`` as ``cv2.imread`` reads it.
@@ -124,17 +124,18 @@ def test_lossless_predictors_as_cv2(kind, psv, pt, size):
 def test_lossless_precisions_as_cv2(precision):
     """cv2 reads 2- to 8-bit lossless files through libjpeg's 8-bit API as
     uint8 samples as they are (0-15 at 4 bits), and none above 8 bits:
-    those raise naming their precision."""
+    those give None, as cv2 gives, and ``jpeg_variant`` names their
+    precision."""
     img = _image(19, 23, 1, precision, top=(1 << precision) - 1)
     data = libjpeg_encode(img, lossless=6, precision=precision)
     if precision <= 8:
         np.testing.assert_array_equal(_cv2(data), img)
         _assert_as_cv2(data)
         return
-    for flag in MODES:
+    for flag, mode in MODES.items():
         assert _cv2(data, flag) is None
-    with pytest.raises(ValueError, match=f"{precision}-bit lossless"):
-        decode_image(data)
+        assert tjpeg._decode(data, False, mode=mode)[0] is None
+    assert f"{precision}-bit lossless" in tjpeg.jpeg_variant(data)
 
 
 @pytest.mark.parametrize("psv", [1, 4, 7])

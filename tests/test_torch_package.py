@@ -192,7 +192,8 @@ def test_every_native_source_is_built_and_shipped(tmp_path, monkeypatch):
 
     sources = sorted(n[:-4] for n in os.listdir(native.NATIVE_DIR)
                      if n.endswith(".cpp"))
-    assert sources == ["imgcodecs", "jpeg", "jpeg2000", "shmbus", "webp"]
+    assert sources == ["fax3", "imgcodecs", "jpeg", "jpeg2000", "shmbus",
+                       "webp"]
     assert set(sources) <= set(native._WHAT)
     monkeypatch.setattr(native, "NATIVE_BUILD_DIR", str(tmp_path))
     lib = native.build_native_lib("imgcodecs")

@@ -19,9 +19,11 @@ import ctypes
 import functools
 import glob
 import hashlib
+import io
 import os
 import struct
 import subprocess
+import sys
 import tempfile
 import zlib
 
@@ -212,16 +214,110 @@ def packbits_encode(data: bytes) -> bytes:
 
 
 def _pack_bits(samples: np.ndarray, bits: int) -> np.ndarray:
-    """(h, n) samples under 8 bits -> (h, ceil(n * bits / 8)) bytes, MSB
-    first."""
+    """(h, n) samples of ``bits`` (not a multiple of 8) -> (h, ceil(n *
+    bits / 8)) bytes, MSB first, each row from a byte boundary (TIFF 6.0,
+    BitsPerSample)."""
     h, n = samples.shape
-    per = 8 // bits
-    flat = np.pad(samples.astype(np.uint8), ((0, 0), (0, -n % per)))
-    flat = flat.reshape(h, -1, per)
-    out = np.zeros(flat.shape[:2], np.uint8)
-    for k in range(per):
-        out |= (flat[..., k] & ((1 << bits) - 1)) << (8 - bits * (k + 1))
-    return out
+    shifts = np.arange(bits - 1, -1, -1)
+    b = (samples.astype(np.int64)[..., None] >> shifts) & 1
+    return np.packbits(b.reshape(h, n * bits).astype(np.uint8), axis=1)
+
+
+# ITU-T T.4 Modified Huffman codes: (white, black) terminating codes for
+# runs 0-63, make-up codes for 64-1728 and the shared ones for 1792-2560
+_MH_TERM = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 "
+    "001000 000011 110100 110101 101010 101011 0100111 0001100 0001000 "
+    "0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 "
+    "00000010 00000011 00011010 00011011 00010010 00010011 00010100 "
+    "00010101 00010110 00010111 00101000 00101001 00101010 00101011 "
+    "00101100 00101101 00000100 00000101 00001010 00001011 01010010 "
+    "01010011 01010100 01010101 00100100 00100101 01011000 01011001 "
+    "01011010 01011011 01001010 01001011 00110010 00110011 00110100",
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 "
+    "0000111 00000100 00000111 000011000 0000010111 0000011000 0000001000 "
+    "00001100111 00001101000 00001101100 00000110111 00000101000 "
+    "00000010111 00000011000 000011001010 000011001011 000011001100 "
+    "000011001101 000001101000 000001101001 000001101010 000001101011 "
+    "000011010010 000011010011 000011010100 000011010101 000011010110 "
+    "000011010111 000001101100 000001101101 000011011010 000011011011 "
+    "000001010100 000001010101 000001010110 000001010111 000001100100 "
+    "000001100101 000001010010 000001010011 000000100100 000000110111 "
+    "000000111000 000000100111 000000101000 000001011000 000001011001 "
+    "000000101011 000000101100 000001011010 000001100110 000001100111")
+_MH_MAKEUP = (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 "
+    "01101000 01100111 011001100 011001101 011010010 011010011 011010100 "
+    "011010101 011010110 011010111 011011000 011011001 011011010 011011011 "
+    "010011000 010011001 010011010 011000 010011011",
+    "0000001111 000011001000 000011001001 000001011011 000000110011 "
+    "000000110100 000000110101 0000001101100 0000001101101 0000001001010 "
+    "0000001001011 0000001001100 0000001001101 0000001110010 "
+    "0000001110011 0000001110100 0000001110101 0000001110110 "
+    "0000001110111 0000001010010 0000001010011 0000001010100 "
+    "0000001010101 0000001011010 0000001011011 0000001100100 "
+    "0000001100101")
+_MH_EXTRA = ("00000001000 00000001100 00000001101 000000010010 000000010011 "
+             "000000010100 000000010101 000000010110 000000010111 "
+             "000000011100 000000011101 000000011110 000000011111").split()
+_EOL = "000000000001"
+
+
+def _mh_run(n: int, black: int) -> str:
+    term, makeup = _MH_TERM[black].split(), _MH_MAKEUP[black].split()
+    out = ""
+    while n > 2560:
+        out += _MH_EXTRA[-1]
+        n -= 2560
+    if n >= 64:
+        m = n // 64
+        out += makeup[m - 1] if m <= 27 else _MH_EXTRA[m - 28]
+        n -= m * 64
+    return out + term[n]
+
+
+def mh_row(row: np.ndarray) -> str:
+    """One row of 0 (white) / 1 (black) pixels -> its Modified Huffman code
+    bits (white and black runs in turn, from white)."""
+    bits, colour, x, w = "", 0, 0, len(row)
+    while x < w:
+        n = 0
+        while x < w and row[x] == colour:
+            n, x = n + 1, x + 1
+        bits += _mh_run(n, colour)
+        colour ^= 1
+    return bits
+
+
+def _bits_bytes(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def ccitt_1d(rows: np.ndarray, scheme: int, eol: bool = True,
+             fill: bool = False, rtc: bool = False) -> bytes:
+    """(h, w) 0 / 1 pixels -> one strip or tile of CCITT 1-D data: scheme 2
+    (RLE: each row byte-aligned), 32771 (RLEW: each row aligned to 16
+    bits from the strip's start) or 3 (Group 3 1-D: an EOL before each row
+    (``eol``), EOLs ending on a byte boundary (``fill``: T4Options bit 2),
+    six EOLs at the end (``rtc``))."""
+    if scheme in (2, 32771):
+        out = b""
+        for row in rows:
+            out += _bits_bytes(mh_row(row))
+            if scheme == 32771 and len(out) % 2:
+                out += b"\0"
+        return out
+    bits = ""
+    for row in rows:
+        if eol:
+            if fill:
+                bits += "0" * (-(len(bits) + 12) % 8)
+            bits += _EOL
+        bits += mh_row(row)
+    if rtc:
+        bits += _EOL * 6
+    return _bits_bytes(bits)
 
 
 def _predict(block: np.ndarray, predictor: int, stride: int) -> bytes:
@@ -260,16 +356,20 @@ def write_tiff(samples: np.ndarray, order: bytes = b"II",
                sample_format: int = None, extra_samples=None,
                colormap=None, orientation: int = None, extra_tags=(),
                lzw_old: bool = False, fill_order: int = 1,
-               subsampling=None, omit=()) -> bytes:
+               subsampling=None, omit=(), ccitt=None, strips=None) -> bytes:
     """Samples (h, w) or (h, w, c) -> TIFF bytes, the first IFD only.
 
-    ``bits`` under 8 packs uint8 samples MSB first; ``tile`` (tw, th) writes
-    tiles (edge tiles padded with zeros) instead of strips; ``compression``
-    1 none, 5 LZW (``lzw_old``: the old LSB-first form), 8 / 32946 deflate,
-    32773 PackBits; ``predictor`` 2 (integer) or 3 (floating point);
+    ``bits`` not a multiple of 8 (1-7, 10, 12, 14) packs the samples MSB
+    first; ``tile`` (tw, th) writes tiles (edge tiles padded with zeros)
+    instead of strips; ``compression`` 1 none, 2 / 32771 / 3 CCITT 1-D
+    (1-bit samples, ``ccitt``: ``ccitt_1d``'s keywords), 5 LZW
+    (``lzw_old``: the old LSB-first form), 8 / 32946 deflate, 32773
+    PackBits; ``predictor`` 2 (integer) or 3 (floating point);
     ``fill_order`` 2 stores each byte's bits reversed; ``subsampling``
     (hs, vs) writes YCbCr samples as subsampled data units;
-    ``extra_tags``: (tag, type, values) entries; ``omit``: tags left out."""
+    ``extra_tags``: (tag, type, values) entries; ``omit``: tags left out;
+    ``strips``: bytes written as the strips or tiles in place of the
+    encoded samples (``samples`` then gives only the layout)."""
     e = "<" if order == b"II" else ">"
     h, w = samples.shape[:2]
     s = samples.reshape(h, w, -1)
@@ -283,8 +383,8 @@ def write_tiff(samples: np.ndarray, order: bytes = b"II",
     fdt = dt.newbyteorder(e)
     tw, th = tile if tile else (w, rows_per_strip or h)
     planes = [s] if planar == 1 else [s[..., k:k + 1] for k in range(c)]
-    chunks = []
-    for plane in planes:
+    chunks = list(strips or [])
+    for plane in planes if strips is None else []:
         pc = plane.shape[2]
         for y in range(0, h, th):
             for x in range(0, w, tw):
@@ -299,9 +399,11 @@ def write_tiff(samples: np.ndarray, order: bytes = b"II",
                     rows = flat.shape[0]
                 if predictor in (2, 3):
                     flat = _predict(flat, predictor, pc)
-                if predictor == 3:
+                if compression in (2, 3, 32771):
+                    raw = ccitt_1d(flat, compression, **(ccitt or {}))
+                elif predictor == 3:
                     raw = np.ascontiguousarray(flat).tobytes()
-                elif bits < 8:
+                elif bits % 8:
                     raw = _pack_bits(flat, bits).tobytes()
                 else:
                     raw = np.ascontiguousarray(flat.astype(fdt)).tobytes()
@@ -380,6 +482,33 @@ def write_tiff(samples: np.ndarray, order: bytes = b"II",
     else:
         header = order + struct.pack(e + "HI", 42, head)
     return bytes(header + ifd + blobs) + b"".join(chunks)
+
+
+_PILLOW_TIFF = """
+import io, sys, numpy as np
+from PIL import Image
+a = np.load(io.BytesIO(sys.stdin.buffer.read()))
+kw = eval(sys.argv[2])
+im = Image.fromarray(a, sys.argv[1] or None) if sys.argv[1] != "1" else \\
+    Image.fromarray(a.astype(bool))
+b = io.BytesIO()
+im.save(b, "TIFF", **kw)
+sys.stdout.buffer.write(b.getvalue())
+"""
+
+
+def pillow_tiff(img: np.ndarray, mode: str = "", **save) -> bytes:
+    """``img`` saved as TIFF by Pillow's libtiff (``save``: Pillow's TIFF
+    keywords, e.g. ``compression="group4"``, ``tiffinfo={tag: value}``;
+    ``mode`` "1" for a bilevel image of ``img != 0``, else Pillow's mode or
+    "" for its default). Run in a subprocess: Pillow's libtiff and cv2's
+    cannot share one process."""
+    buf = io.BytesIO()
+    np.save(buf, np.ascontiguousarray(img))
+    return subprocess.run(
+        [sys.executable, "-c", _PILLOW_TIFF, mode, repr(save)],
+        input=buf.getvalue(), check=True, capture_output=True,
+        timeout=120).stdout
 
 
 # --- GIF -------------------------------------------------------------------

@@ -15,6 +15,7 @@ digests. Needs OpenCV and Pillow (not on the card machine)::
     python tools/make_torch_image_fixtures.py [--out tests/data/torch_images]
         [--webp-out tests/data/torch_webp] [--jp2-out tests/data/torch_jp2]
         [--jpegx-out tests/data/torch_jpegx]
+        [--tiffx-out tests/data/torch_tiffx]
 
 The WebP set (``--webp-out``, its own ``digests.json`` of the same form,
 under 1 MiB with its flight) holds cv2's and Pillow's files of every kind
@@ -60,6 +61,21 @@ dataset's array
 digests, cv2's grey digests of each file, and the lossless frame
 ``chip_smoke.py`` writes from the first frame's pixels with
 ``lossless_jpeg`` (its bytes' sha256 and cv2's digests of them).
+
+The TIFF variants set (``--tiffx-out``, its own ``digests.json``, under
+1 MiB) holds Pillow's libtiff files (``tests/torch_image_writers.py``
+``pillow_tiff``: CCITT RLE, RLEW, Group 3 1-D and 2-D, Group 4 with
+``FillOrder`` 2 and MinIsWhite, ZSTD and LZMA DEMs and images), CCITT
+1-D files of ``ccitt_1d`` (Group 3 without EOLs, tiled RLE), seeded
+damage of a Group 4 and a Group 3 strip (a cut byte count), 10- to 14-bit
+samples, the codecs and pairings cv2 gives None for or reads as zeros,
+a predictor on uncompressed strips, 4x4 YCbCr strips of an odd width,
+JPEG-in-TIFF with separate planes, BMP bitfields that are not whole
+bytes; and the files of ``chip_smoke.py``'s path 19: the DEM layer its
+stub WMS serves (``dem_u16_zstd_2208.tif``, a 2208-px uint16 ZSTD
+GeoTIFF with predictor 2, cv2: None; and its float32 twin), and path
+16's 2208-px map thresholded at its mean, as Group 4 and Group 3 2-D
+(timed beside PNG of the same pixels).
 
 Content is drawn from the port's seeded world (``utils/world_wms.py``):
 
@@ -116,7 +132,8 @@ from tests.torch_image_writers import (  # noqa: E402
     jp2_colr, jp2_ihdr, jp2_pclr, jp2_wrap, JCS_CMYK, JCS_RGB, libjpeg_encode,
     libjpeg_transcode, lossless_jpeg, openjpeg_encode, webp_anim,
     webp_anmf, webp_chunk, webp_chunks, webp_riff, webp_vp8x, with_exif_app1,
-    write_bmp, write_gif, write_hdr, write_png, write_sun, write_tiff)
+    write_bmp, write_gif, write_hdr, write_png, write_sun, write_tiff,
+    ccitt_1d, pillow_tiff)
 
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_images")
@@ -145,6 +162,9 @@ JPEGX_SIZE_LIMIT = 2560 * 1024  # the lossless / arithmetic set, flight
 # arithmetic coding (and the map's also sequential, timed beside the
 # progressive one); the lossless frame chip_smoke.py writes from the first
 # frame's decoded pixels
+TIFFX_OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests",
+                         "data", "torch_tiffx")
+TIFFX_SIZE_LIMIT = 1024 * 1024
 JPEGX_FLIGHT = {"world": FLIGHT["world"], "frames": 8, "hw": [1088, 1920],
                 "coverage": 1.3, "quality": 90,
                 "map_sequential": "map_sequential.jpg",
@@ -727,6 +747,119 @@ def write_jpegx_flight(out: str) -> dict:
     return manifest
 
 
+def path16_map() -> np.ndarray:
+    """The 2208-px grey map of path 16's flight (``FLIGHT``)."""
+    import tempfile
+
+    from gisnav_tpu_torch.utils.world_wms import write_replay_dataset
+
+    with tempfile.TemporaryDirectory() as png:
+        write_replay_dataset(World.make(**FLIGHT["world"]), png, frames=1,
+                             hw=tuple(FLIGHT["hw"]),
+                             coverage=FLIGHT["coverage"])
+        return cv2.imread(os.path.join(png, "map.png"), cv2.IMREAD_UNCHANGED)
+
+
+def _damaged(data: bytes, seed: int, flips: int, cut: bool = False
+             ) -> bytes:
+    """A one-strip TIFF with ``flips`` bits of its strip flipped (and its
+    byte count cut to two thirds), from ``seed``."""
+    from gisnav_tpu_torch.gis.tiff import _Ifd
+
+    ifd = _Ifd(data)
+    off, count = int(ifd.tags[273][0]), int(ifd.tags[279][0])
+    r = np.random.default_rng(seed)
+    out = bytearray(data)
+    for _ in range(flips):
+        out[off + int(r.integers(0, count))] ^= 1 << int(r.integers(0, 8))
+    if cut:
+        at = struct.unpack_from("<I", data, 4)[0]
+        for i in range(struct.unpack_from("<H", data, at)[0]):
+            e = at + 2 + 12 * i
+            if struct.unpack_from("<H", data, e)[0] == 279:
+                struct.pack_into("<I", out, e + 8, count * 2 // 3)
+    return bytes(out)
+
+
+def tiffx_files() -> dict:
+    """The TIFF variant fixtures (37x53 unless named, world content) and
+    path 19's DEM and bilevel maps."""
+    world = World.make(seed=22, size_px=256, gsd_m=1.0)
+    grey = np.ascontiguousarray(world.raster[40:77, 30:83])
+    rgb = np.ascontiguousarray(np.stack(
+        [grey, np.roll(grey, 7, 1), np.roll(grey, 13, 0)], -1))
+    bilevel = (grey > grey.mean()).astype(np.uint8)
+    files = {}
+    for name, kw in (("rle", dict(compression="tiff_ccitt")),
+                     ("rlew", dict(compression="tiff_raw_16")),
+                     ("g3", dict(compression="group3")),
+                     ("g3_2d", dict(compression="group3",
+                                    tiffinfo={292: 1, 278: 8})),
+                     ("g3_2d_fill", dict(compression="group3",
+                                         tiffinfo={292: 5})),
+                     ("g4", dict(compression="group4")),
+                     ("g4_fill_order2", dict(compression="group4",
+                                             tiffinfo={266: 2})),
+                     ("g4_miniswhite", dict(compression="group4",
+                                            tiffinfo={262: 0}))):
+        files[f"ccitt_{name}.tif"] = pillow_tiff(bilevel, "1", **kw)
+    files["ccitt_g4_damaged.tif"] = _damaged(files["ccitt_g4.tif"], 4, 3)
+    files["ccitt_g3_cut.tif"] = _damaged(files["ccitt_g3.tif"], 3, 0,
+                                         cut=True)
+    files["ccitt_g3_no_eol.tif"] = write_tiff(
+        bilevel, bits=1, compression=3, ccitt={"eol": False},
+        rows_per_strip=9)
+    files["ccitt_rle_tiles.tif"] = write_tiff(
+        bilevel, bits=1, compression=2, photometric=0, tile=(32, 16))
+    files["ccitt_8bit.tif"] = write_tiff(grey, extra_tags=[(259, 3, [4])])
+    wide = (grey.astype(np.uint16) * 16 + 7)
+    files["u12_grey.tif"] = write_tiff(wide, bits=12, rows_per_strip=8)
+    files["u10_rgb_lzw_tiles_mm.tif"] = write_tiff(
+        (rgb.astype(np.uint16) * 4), bits=10, order=b"MM", compression=5,
+        tile=(32, 16))
+    files["u14_rgba_deflate.tif"] = write_tiff(
+        np.concatenate([rgb, grey[..., None]], -1).astype(np.uint16) * 64,
+        bits=14, compression=8, extra_samples=[2])
+    files["i12_grey_signed.tif"] = write_tiff(wide, bits=12, sample_format=2)
+    files["dem_u16_lzma.tif"] = pillow_tiff(
+        grey.astype(np.uint16) * 9, "I;16", compression="lzma")
+    files["rgb_zstd.tif"] = pillow_tiff(rgb, "RGB", compression="zstd")
+    files["ojpeg_tag.tif"] = write_tiff(grey, extra_tags=[(259, 3, [6])])
+    files["no_codec_32908_rgb.tif"] = write_tiff(
+        rgb, extra_tags=[(259, 3, [32908])])
+    files["pred2_uncompressed.tif"] = write_tiff(
+        grey, extra_tags=[(317, 3, [2])])
+    files["ycbcr44_strips_w53.tif"] = write_tiff(
+        rgb, photometric=6, subsampling=(4, 4), rows_per_strip=8)
+    planes = [_cv2(".jpg", np.ascontiguousarray(rgb[:, :, p]))
+              for p in range(3)]
+    files["jpeg_planar2.tif"] = write_tiff(
+        rgb, planar=2, strips=planes, extra_tags=[(259, 3, [7])])
+    words = np.random.default_rng(22).integers(
+        0, 2 ** 32, (13, 17), dtype=np.uint64).astype(np.uint32)
+    files["bmp_v5_10_10_10_2.bmp"] = write_bmp(
+        words.view(np.uint8).reshape(13, 17, 4), 32, header=124,
+        compression=3, masks=(0x3FF00000, 0xFFC00, 0x3FF, 0xC0000000))
+    # path 19: the DEM layer, and the map as bilevel fax for timing
+    n = 2208
+    geo = {33550: (1e-5, 1e-5, 0.0), 33922: (0.0, 0.0, 0.0, 24.0, 60.0,
+                                              0.0),
+           34735: (1, 1, 0, 3, 1024, 0, 1, 2, 1025, 0, 1, 1, 2048, 0, 1,
+                   4326)}
+    files["dem_u16_zstd_2208.tif"] = pillow_tiff(
+        np.zeros((n, n), np.uint16), "I;16", compression="zstd",
+        tiffinfo={317: 2, **geo})
+    files["dem_f32_zstd_2208.tif"] = pillow_tiff(
+        np.zeros((n, n), np.float32), "F", compression="zstd",
+        tiffinfo={317: 3, **geo})
+    m = path16_map()
+    fax = (m > m.mean()).astype(np.uint8)
+    files["map_2208_g4.tif"] = pillow_tiff(fax, "1", compression="group4")
+    files["map_2208_g3_2d.tif"] = pillow_tiff(fax, "1", compression="group3",
+                                              tiffinfo={292: 1})
+    return files
+
+
 def _cv2(ext: str, img, *params) -> bytes:
     ok, buf = cv2.imencode(ext, img, list(params))
     assert ok
@@ -791,6 +924,7 @@ def main() -> int:
     ap.add_argument("--webp-out", default=WEBP_OUT)
     ap.add_argument("--jp2-out", default=JP2_OUT)
     ap.add_argument("--jpegx-out", default=JPEGX_OUT)
+    ap.add_argument("--tiffx-out", default=TIFFX_OUT)
     args = ap.parse_args()
     files = build()
     total = sum(len(d) for d in files.values())
@@ -825,6 +959,13 @@ def main() -> int:
                          f"bytes, over {JPEGX_SIZE_LIMIT}")
     print(f"{len(jpegx)} lossless and arithmetic-coded JPEG fixtures and the "
           f"flight, {total} bytes, in {args.jpegx_out}")
+    tiffx = tiffx_files()
+    total = write_set(args.tiffx_out, tiffx)
+    if total > TIFFX_SIZE_LIMIT:
+        raise SystemExit(f"the TIFF variant set takes {total} bytes, over "
+                         f"{TIFFX_SIZE_LIMIT}")
+    print(f"{len(tiffx)} TIFF variant fixtures, {total} bytes, in "
+          f"{args.tiffx_out}")
     return 0
 
 
