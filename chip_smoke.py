@@ -20,6 +20,8 @@
                                      # arithmetic-coded JPEG) only
     python3 chip_smoke.py --tiffx    # build + path 19 (TIFF variants: CCITT,
                                      # 10-14 bits, a ZSTD DEM) only
+    python3 chip_smoke.py --bench    # build + path 20 (python -m
+                                     # gisnav_tpu_torch bench) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -314,9 +316,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (c) host ms p50 / p90 of ``decode_image`` on the 2208-px map as
    bilevel Group 4 and Group 3 2-D beside PNG of the same pixels, with the
    card's name and power limit;
-23. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+23. path 20: ``python -m gisnav_tpu_torch bench`` (``cli.main``, in this
+   process so that the counts see it), the JAX package's headline rows at
+   its card sizes: the bucketed warp, the exact warp and the cached
+   reference with learned_lg9 at 1088x1920 / 2048 keypoints and harris_lg5
+   cached at 480x640, each mode's 32 frames one CUDA graph replayed 5
+   times over the seeded ring of 4 frames (``bench._render_fixture``, the
+   JAX fixture without OpenCV). Its JSON line is printed; every mode's
+   ``fps`` must be finite and positive, the bucketed and exact-warp rows
+   ``valid_fraction`` 1.0, ``small_config`` without ``error``, the
+   bucketed replays exactly 1 / 8 / 1 / 36 K1-K4 launches a frame, and the
+   bucketed ``p50_latency_ms`` at most ``BENCH_OVER_PATH1`` x path 1's
+   graphed frame p50 of the same run (the same program without a frame's
+   upload and host read). Printed for each program: the host ms and the
+   CUDA-event ms of each replay, the capture's seconds and the graph
+   pool's MiB;
+24. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-24. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+25. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -562,6 +579,7 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "path9_launches", "path11_launches", "path13_launches",
               "path14_launches", "path15_launches", "path16_launches",
               "path17_launches", "path18_launches", "path19_launches",
+              "path20_launches",
               "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
@@ -6624,6 +6642,74 @@ def phase_tiffx_path() -> dict:
     return out
 
 
+BENCH_OVER_PATH1 = 1.1  # bench's bucketed p50 / path 1's graphed frame p50
+
+
+def phase_bench_path(path1_frame_p50_ms=None) -> dict:
+    """Path 20: ``python -m gisnav_tpu_torch bench`` (``cli.main``, in this
+    process so that the counts see it), its JSON line printed and gated."""
+    import contextlib
+    import io
+
+    from gisnav_tpu_torch import bench, cli
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.time()
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["bench"])
+    launches = dict(LAUNCHES)
+    text = out.getvalue().strip()
+    if rc != 0 or not text:
+        raise RuntimeError(f"path 20: bench exited {rc}: {text[-500:]}")
+    line = json.loads(text.splitlines()[-1])
+    log("[bench] " + json.dumps(line))
+    for name, st in bench.LAST.items():
+        event = (f"{np.median(st['event_ms']):.2f}" if st["event_ms"]
+                 else "not measured")
+        capture = ("no capture" if st["capture_s"] is None else
+                   f"capture {st['capture_s']:.2f} s, graph pool "
+                   f"{st['pool_mib']:.1f} MiB")
+        what = (f"{st['frames']} frames" if st["frames"] else
+                f"{bench.REFRESH_SCAN} extractions")
+        log(f"[bench] {name}: one replay of {what}, host ms "
+            f"{', '.join(f'{t:.2f}' for t in st['host_ms'])}, CUDA-event "
+            f"ms p50 {event}, {capture}, launches {st['launches']}")
+    rows = {"bucketed_warp_mode": line["bucketed_warp_mode"],
+            "warp_exact_mode": line["warp_exact_mode"],
+            "cached_mode": line["cached_mode"],
+            "small_config": line["small_config"] or {}}
+    bad = [k for k, row in rows.items()
+           if not (np.isfinite(row.get("fps", np.nan)) and row["fps"] > 0)]
+    if bad or "error" in rows["small_config"]:
+        raise RuntimeError(f"path 20: rows without a finite positive fps "
+                           f"{bad}, small_config {line['small_config']}")
+    for k in ("bucketed_warp_mode", "warp_exact_mode"):
+        if rows[k]["valid_fraction"] != 1.0:
+            raise RuntimeError(f"path 20: {k} valid_fraction "
+                               f"{rows[k]['valid_fraction']}, not 1.0")
+    b = bench.LAST["bucketed"]
+    frames = b["frames"] * len(b["host_ms"])
+    per_frame = {k: b["launches"].get(k, 0) / frames for k in LAUNCHES}
+    want = {k: float(GRAPH_FRAME.get(k, 0)) for k in LAUNCHES}
+    if per_frame != want:
+        raise RuntimeError(f"path 20: bucketed replays launched "
+                           f"{per_frame} a frame, expected {want}")
+    p50 = rows["bucketed_warp_mode"]["p50_latency_ms"]
+    if path1_frame_p50_ms is not None and \
+            p50 > BENCH_OVER_PATH1 * path1_frame_p50_ms:
+        raise RuntimeError(f"path 20: bucketed p50 {p50} ms over "
+                           f"{BENCH_OVER_PATH1} x path 1's graphed frame "
+                           f"{path1_frame_p50_ms:.2f} ms")
+    path1 = ("not run" if path1_frame_p50_ms is None
+             else f"{path1_frame_p50_ms:.2f} ms")
+    log(f"[bench] bucketed p50 {p50} ms against path 1's graphed frame "
+        f"{path1}; {time.time() - t0:.1f} s with the fixtures and "
+        f"captures; launches over the command {launches}")
+    return {"line": line, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6679,6 +6765,9 @@ def main(argv=None) -> int:
                     help="only drive path 19 (TIFF variants: fixtures, "
                          "run's graph over a WMS whose DEM is a ZSTD "
                          "GeoTIFF, CCITT decode times)")
+    ap.add_argument("--bench", action="store_true",
+                    help="only drive path 20 (python -m gisnav_tpu_torch "
+                         "bench, the JAX package's headline rows)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -6730,6 +6819,10 @@ def main(argv=None) -> int:
     if args.tiffx:
         phase_tiffx_path()
         log(f"[phase] path 19 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.bench:
+        phase_bench_path()
+        log(f"[phase] path 20 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -6809,6 +6902,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 18 done at {time.time() - t_start:.1f} s")
     tiffx = phase_tiffx_path()
     log(f"[phase] path 19 done at {time.time() - t_start:.1f} s")
+    benched = phase_bench_path(main_path["frame_p50_ms"])
+    log(f"[phase] path 20 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -6830,6 +6925,7 @@ def main(argv=None) -> int:
                 r["name"]]
             r["path18_launches"] = jpegx["replay"]["launches"][r["name"]]
             r["path19_launches"] = tiffx["flight"]["launches"][r["name"]]
+            r["path20_launches"] = benched["launches"][r["name"]]
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))

@@ -2,6 +2,7 @@
 
     python -m gisnav_tpu_torch run --protocol uorb --params params.json
     python -m gisnav_tpu_torch run --shm --wfst --protocol uorb
+    python -m gisnav_tpu_torch bench [--device cpu]
     python -m gisnav_tpu_torch train --steps 1000 --ckpt-dir ckpt
     python -m gisnav_tpu_torch replay DATASET --weights harris_lg5 --fused
     python -m gisnav_tpu_torch health --namespace gisnav
@@ -179,6 +180,12 @@ def _load_weights(name: str):
     if name in BUNDLED + ("loftr",):
         return load_bundled(name)[0]
     return load_npz(name)
+
+
+def _cmd_bench(args) -> int:
+    from gisnav_tpu_torch.bench import main as bench_main
+
+    return bench_main(args.device)
 
 
 def _cmd_train(args) -> int:
@@ -522,6 +529,11 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--device", default="cuda",
                      help="cuda (default) or cpu")
     run.set_defaults(fn=_cmd_run)
+
+    bench_p = sub.add_parser("bench", help="run the headline benchmark")
+    bench_p.add_argument("--device", default="cuda",
+                         help="cuda (default) or cpu (the CPU sizes)")
+    bench_p.set_defaults(fn=_cmd_bench)
 
     tr = sub.add_parser("train", help="self-supervised matcher training")
     tr.add_argument("--steps", type=int, default=1000)

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from gisnav_tpu_torch.utils.world import cubic_taps
+
 __all__ = ["MatchBatch", "make_homography_batch", "cubic_resize_weights",
            "warp_perspective"]
 
@@ -51,19 +53,11 @@ def _random_homography(rng, h, w, max_angle=35.0, max_scale=0.25,
 
 
 def cubic_resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) f32 matrix of OpenCV's bicubic resize along one axis."""
-    a = np.float32(-0.75)
-    d = np.arange(n_out, dtype=np.float64)
-    fx = (d + 0.5) * (n_in / n_out) - 0.5
-    sx = np.floor(fx).astype(np.int64)
-    f = (fx - sx).astype(np.float32)
-    c0 = ((a * (f + 1) - 5 * a) * (f + 1) + 8 * a) * (f + 1) - 4 * a
-    c1 = ((a + 2) * f - (a + 3)) * f * f + 1
-    c2 = ((a + 2) * (1 - f) - (a + 3)) * (1 - f) * (1 - f) + 1
-    c3 = 1 - c0 - c1 - c2
+    """(n_out, n_in) f32 matrix of OpenCV's bicubic resize along one axis
+    (``utils.world.cubic_taps``' weights, summed where clamped taps meet)."""
+    idx, c = cubic_taps(n_in, n_out)
     m = np.zeros((n_out, n_in), np.float32)
-    for tap, c in zip(range(-1, 3), (c0, c1, c2, c3)):
-        np.add.at(m, (np.arange(n_out), np.clip(sx + tap, 0, n_in - 1)), c)
+    np.add.at(m, (np.arange(n_out)[:, None], idx), c)
     return m
 
 

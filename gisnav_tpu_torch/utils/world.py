@@ -1,4 +1,4 @@
-"""Seeded synthetic scene for the port's smoke run and tests (numpy only).
+"""Seeded synthetic scene for the port's smoke run and tests (numpy).
 
 A flat world of rectangles, discs and thick lines over multi-octave noise
 (the content model of the JAX package's bench fixture and synthetic world),
@@ -8,6 +8,10 @@ Every frame carries its ground-truth lon/lat, so a run can check its fixes.
 ``render_flight`` renders consecutive frames of a straight, level flight
 with each camera's pose, for visual odometry; ``render_streams`` one frame
 a camera feed at distinct places of one world, each over a map of its own.
+``resize_cubic`` and ``warp_perspective_u8`` are the two OpenCV calls of
+the JAX package's bench fixture (``bench.py``), for ``gisnav_tpu_torch.bench``.
+``cubic_taps`` is the one bicubic weight routine of the port (also
+``train.data.cubic_resize_weights``).
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from gisnav_tpu_torch.utils import drawing
 
 __all__ = ["Scene", "render_scene", "render_streams", "Flight",
            "render_flight", "synthetic_world", "synthetic_dem",
-           "DEMO_GEOREF"]
+           "DEMO_GEOREF", "cubic_taps", "resize_cubic",
+           "warp_perspective_u8"]
 
 _LEFT, _TOP = -122.27, 37.53  # demo georeference (KSQL, San Carlos, CA)
 
@@ -114,7 +119,10 @@ def _sample(src: np.ndarray, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
 
 def _warp_perspective(src: np.ndarray, hm: np.ndarray,
                      out_hw: Tuple[int, int]) -> np.ndarray:
-    """``out[v, u] = src(hm^-1 (u, v, 1))``, bilinear, zero outside."""
+    """``out[v, u] = src(hm^-1 (u, v, 1))``, bilinear, zero outside, at
+    float64 positions: the scenes' own warp, not cv2's bytes
+    (``warp_perspective_u8``), kept because the committed flight fixtures
+    and their digests were rendered through it."""
     h, w = out_hw
     inv = np.linalg.inv(hm)
     vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
@@ -122,6 +130,125 @@ def _warp_perspective(src: np.ndarray, hm: np.ndarray,
     out = _sample(src, (p[0] / p[2]).astype(np.float32),
                   (p[1] / p[2]).astype(np.float32))
     return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape(h, w)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """``fma(a, b, c)`` of float32 operands rounded once to float32: the
+    product of two float32 is exact in float64, so only a sum that float64
+    rounds onto a float32 tie can differ from a fused multiply-add."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def cubic_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(n_out, 4) source indices (edges clamped) and float32 weights of a
+    bicubic resize along one axis: Keys' kernel with a = -0.75 at
+    ``(d + 0.5) * n_in / n_out - 0.5``, the weights evaluated in float64
+    and rounded once, as ``cv2.resize(..., INTER_CUBIC)`` takes them."""
+    a = -0.75
+    fx = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    sx = np.floor(fx)
+    x = fx - sx
+    c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    c3 = 1 - c0 - c1 - c2
+    idx = np.clip(sx.astype(np.int64)[:, None] + np.arange(-1, 3), 0,
+                  n_in - 1)
+    return idx, np.stack([c0, c1, c2, c3], axis=1).astype(np.float32)
+
+
+def resize_cubic(a: np.ndarray, size: int) -> np.ndarray:
+    """``cv2.resize(a, (size, size), interpolation=INTER_CUBIC)`` of a
+    square float32 array: along each row first, then along each column,
+    each output the sum of its four float32 products taken in pairs (on
+    torch's CPU threads: each product and sum rounded on its own, as numpy
+    rounds them). OpenCV 5.0 hands this resize to Intel IPP, whose order of
+    rounding is its own: this gives its values to within a few ulp (1.2e-6
+    on unit noise), about half of them exactly."""
+    import torch
+
+    a = np.asarray(a, np.float32)
+    if a.shape == (size, size):
+        return a.copy()
+    t = torch.from_numpy(np.ascontiguousarray(a))
+
+    def taps(x, dim, n_in):
+        idx, c = (torch.from_numpy(v) for v in cubic_taps(n_in, size))
+        c = c if dim == 1 else c[:, None, :]
+        terms = [x.index_select(dim, idx[:, j]) * (c[..., j]) for j in
+                 range(4)]
+        return (terms[0] + terms[1]) + (terms[2] + terms[3])
+
+    rows = taps(t, 1, a.shape[1])
+    return taps(rows, 0, a.shape[0]).numpy()
+
+
+def _invert3(m: np.ndarray) -> np.ndarray:
+    """``cv::invert`` of a 3x3 float64 matrix (its closed form: cofactors
+    times the reciprocal of the determinant), flattened row-major."""
+    s = np.asarray(m, np.float64)
+    d = (s[0, 0] * (s[1, 1] * s[2, 2] - s[2, 1] * s[1, 2])
+         - s[0, 1] * (s[1, 0] * s[2, 2] - s[2, 0] * s[1, 2])
+         + s[0, 2] * (s[1, 0] * s[2, 1] - s[2, 0] * s[1, 1]))
+    d = 1.0 / d
+    return np.array([
+        (s[1, 1] * s[2, 2] - s[1, 2] * s[2, 1]) * d,
+        (s[0, 2] * s[2, 1] - s[0, 1] * s[2, 2]) * d,
+        (s[0, 1] * s[1, 2] - s[0, 2] * s[1, 1]) * d,
+        (s[1, 2] * s[2, 0] - s[1, 0] * s[2, 2]) * d,
+        (s[0, 0] * s[2, 2] - s[0, 2] * s[2, 0]) * d,
+        (s[0, 2] * s[1, 0] - s[0, 0] * s[1, 2]) * d,
+        (s[1, 0] * s[2, 1] - s[1, 1] * s[2, 0]) * d,
+        (s[0, 1] * s[2, 0] - s[0, 0] * s[2, 1]) * d,
+        (s[0, 0] * s[1, 1] - s[0, 1] * s[1, 0]) * d])
+
+
+def warp_perspective_u8(src: np.ndarray, hm: np.ndarray,
+                        out_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.warpPerspective(src, hm, (w, h))`` of a uint8 image (bilinear,
+    a zero border) as OpenCV 5.0's kernel computes it, byte for byte:
+
+    - the inverse map in float64 (``cv::invert``), then rounded to float32;
+    - in the SIMD part of a row (whole vectors of 16 floats) the row's
+      ``m1 * y + m2`` in float32, unfused, then ``m0 * x + (...)`` as one
+      fused multiply-add; in its scalar tail ``fma(m0, x, m1 * y) + m2``;
+    - the source position ``X / W`` by a float32 division, its floor the
+      top-left tap, the rest the weights;
+    - two fused lerps along x, one along y, in float32, rounded half to
+      even.
+    """
+    h, w = out_hw
+    m = _invert3(hm).astype(np.float32)
+    sh, sw = src.shape
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    xs = np.arange(w, dtype=np.float32)[None, :]
+    lanes = 16  # OpenCV's AVX-512 dispatch; only this width was held to cv2
+    tail = np.arange(w)[None, :] >= w // lanes * lanes
+
+    def coord(i):
+        simd = _fma32(m[i], xs, m[i + 1] * ys + m[i + 2])
+        scalar = _fma32(m[i], xs, m[i + 1] * ys) + m[i + 2]
+        return np.where(tail, scalar, simd)
+
+    wq = coord(6)
+    sx, sy = coord(0) / wq, coord(3) / wq
+    x0, y0 = np.floor(sx), np.floor(sy)
+    fx, fy = sx - x0, sy - y0
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+
+    def tap(yi, xi):
+        ok = (xi >= 0) & (xi < sw) & (yi >= 0) & (yi < sh)
+        return np.where(ok, src[np.clip(yi, 0, sh - 1),
+                                np.clip(xi, 0, sw - 1)],
+                        0).astype(np.float32)
+
+    p00, p01 = tap(y0, x0), tap(y0, x0 + 1)
+    p10, p11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    top = _fma32(fx, p01 - p00, p00)
+    bot = _fma32(fx, p11 - p10, p10)
+    out = _fma32(fy, bot - top, top)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def render_scene(seed: int, h: int, w: int, yaws: Sequence[float],

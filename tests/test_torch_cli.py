@@ -2,9 +2,9 @@
 ``test_torch_train_loop.py``), against the JAX CLI where both have a
 command, on the CPU.
 
-- ``--help`` lists every command of the JAX CLI but ``bench``; each
-  command takes the JAX command's flags (the port adds ``--device`` to
-  ``replay``).
+- ``--help`` lists every command of the JAX CLI; each command takes the
+  JAX command's flags (the port adds ``--device`` to ``replay`` and
+  ``bench``).
 - ``build_app``: ``--shm`` builds the graph on a ``ShmBus`` in
   ``--namespace``, ``--wfst`` adds the sink, ``--serial-tcp`` a TCP
   ``SerialBridge`` for nmea / ubx only, ``--ros`` without rclpy warns and
@@ -47,19 +47,18 @@ def _options(parser):
 
 def test_commands_and_flags_cover_the_jax_cli():
     ours, ref = _options(cli.build_parser()), _options(jax_parser())
-    assert set(ours) == set(ref) - {"bench"}
+    assert set(ours) == set(ref)
     for command, flags in ref.items():
-        if command == "bench":
-            continue
         assert flags <= ours[command], (command, flags - ours[command])
     assert ours["run"] - ref["run"] == {"--device"}
     assert ours["replay"] - ref["replay"] == {"--device"}
+    assert ours["bench"] - ref["bench"] == {"--device"}
     out = subprocess.run([sys.executable, "-m", "gisnav_tpu_torch",
                           "--help"], capture_output=True, text=True,
                          cwd=ROOT, timeout=120)
     assert out.returncode == 0
     for command in ("run", "train", "replay", "health", "doctor", "serial",
-                    "gis-serve", "fleet"):
+                    "gis-serve", "fleet", "bench"):
         assert command in out.stdout
 
 
