@@ -22,6 +22,8 @@
                                      # 10-14 bits, a ZSTD DEM) only
     python3 chip_smoke.py --bench    # build + path 20 (python -m
                                      # gisnav_tpu_torch bench) only
+    python3 chip_smoke.py --damaged  # build + path 21 (damaged images:
+                                     # fixtures, a damaging WMS) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -331,9 +333,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    upload and host read). Printed for each program: the host ms and the
    CUDA-event ms of each replay, the capture's seconds and the graph
    pool's MiB;
-24. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+24. path 21: damaged images read as cv2 5.0 reads them. (a) Every seeded
+   damage (``tests/torch_image_writers.py`` ``damage_ops``: cuts, byte
+   flips, zeroed runs) of every committed fixture under 200 KB, remade
+   here from the fixtures and the seed, decoded under both flags: each
+   outcome equal to cv2's digest in ``tests/data/torch_damaged/
+   digests.json`` (an array, None, or cv2's raise on its size limits, the
+   port's ``ValueError``). (b) path 19's graph flown ``DAMAGED_STEPS``
+   steps of ``DAMAGED_STEP_M`` east over path 8's world behind a WMS
+   that serves PNG imagery (every 4th reply with an IDAT byte flipped:
+   the GIS node keeps its map) and an LZW GeoTIFF DEM (every 3rd reply cut
+   in half: a zero DEM; the 2nd with a corrupt strip: cv2's partial DEM):
+   every uORB fix within 10 m, a map published on every GIS tick after the
+   first, the kept maps and published DEMs the schedule's, K1-K4 a frame's
+   or a refresh's each step;
+25. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-25. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+26. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -579,7 +595,7 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "path9_launches", "path11_launches", "path13_launches",
               "path14_launches", "path15_launches", "path16_launches",
               "path17_launches", "path18_launches", "path19_launches",
-              "path20_launches",
+              "path20_launches", "path21_launches",
               "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
@@ -3338,9 +3354,24 @@ def deploy_compose(world, root: str, gis_url: str, procs: list) -> dict:
     feed = path10_feed(heard, t_start_us, track, first, fixes, errors_of)
     log(f"[deploy compose] the fusion node's feed: {feed['counts']} "
         f"events, written to {feed['path']}")
+    # the pose node's fixes, judged as the uORB fixes are: a fused fix
+    # over 10 m follows a pose fix off by more (the global filter moves
+    # about half way to each pose fix its gate lets through, and the gate
+    # may then turn away the next, correct one, as the JAX node's does)
+    poses = sorted({m["stamp_us"]: m for k, _, m in heard
+                    if k == "pose"}.values(), key=lambda m: m["stamp_us"])
+    pose_errors = [(m["stamp_us"], round(h, 2), round(v, 2))
+                   for m, (h, v) in zip(poses, errors_of([{
+                       "timestamp_sample": m["stamp_us"],
+                       "lat": m["lat"] * 1e7, "lon": m["lon"] * 1e7,
+                       "alt_ellipsoid": m["alt_ellipsoid"] * 1e3}
+                       for m in poses]))]
+    log("[deploy compose] pose fixes (stamp, m, m): " + str(pose_errors))
     if far or len(flight) < 12:
-        raise RuntimeError(f"deploy compose: {len(flight)} fixes in the "
-                           f"flight (12 needed), over 10 m: {far}")
+        raise RuntimeError(
+            f"deploy compose: {len(flight)} fixes in the flight (12 "
+            f"needed), over 10 m: {far}; the pose fixes over 10 m: "
+            f"{[p for p in pose_errors if max(p[1], p[2]) >= 10.0]}")
     if live_rc != 0:
         raise RuntimeError(f"deploy compose: health exited {live_rc} while "
                            "the graph ran")
@@ -6412,14 +6443,17 @@ def _tiffx_stub(world, dem: bytes):
     return server, thread, asked
 
 
-def tiffx_flight(root: str) -> dict:
-    """Path 19 (b): run's graph (path 15's, at the main path's width) flown
-    ``TIFFX_STEPS`` steps over path 16's flat world behind a stub WMS whose
-    DEM layer is a uint16 ZSTD GeoTIFF, which cv2 reads as None: every map
-    published with a zero DEM and the world's crop as its image, at least
-    ``TIFFX_MIN_FIXES`` uORB fixes, each within 10 m of the truth (the pose
-    node's fixes printed), every step's K1-K4 launches a frame's or a
-    bucket refresh's."""
+def _fly_behind_stub(tag: str, root: str, url: str, wms_format: str,
+                     overlap: float, track: list, made, device: str,
+                     period_s: float) -> dict:
+    """Fly ``run``'s graph (path 15's, at the main path's width) over
+    ``track`` (lon, lat, alt, yaw a step) behind the stub WMS at ``url``:
+    the graph built from a params file, each step's frame rendered from
+    ``made`` (a future of the world) and published with its position and
+    attitude after a GIS tick, paced to ``period_s``. Fails unless every
+    step ran a frame's or a refresh's K1-K4 launches. Returns the maps,
+    fixes, poses and the GIS ticks' messages (None before a map) with
+    each fix's and pose's (horizontal, vertical) error and the times."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gisnav_tpu_torch.cli import build_app, build_parser
@@ -6432,59 +6466,51 @@ def tiffx_flight(root: str) -> dict:
     from gisnav_tpu_torch.nodes.gis_node import TOPIC_ORTHOIMAGE
     from gisnav_tpu_torch.nodes.mock_gps import TOPIC_SENSOR_GPS
     from gisnav_tpu_torch.nodes.pose_node import TOPIC_POSE
-    from gisnav_tpu_torch.utils.world_wms import (World,
-                                                  camera_attitude_quat)
+    from gisnav_tpu_torch.utils.world_wms import camera_attitude_quat
 
-    with open(os.path.join(WEBP_FLIGHT, "flight.json")) as f:
-        manifest = json.load(f)
     with open(os.path.join(WEBP_FLIGHT, "camera.json")) as f:
         camera = json.load(f)
-    with open(os.path.join(WEBP_FLIGHT, "poses.csv")) as f:
-        first = next(csv.DictReader(f))
-    with open(os.path.join(TIFFX_FIXTURES, TIFFX_DEM), "rb") as f:
-        dem = f.read()
     k = np.array(camera["k"])
     hw = (camera["height"], camera["width"])
-    lon0, lat0 = float(first["lon"]), float(first["lat"])
-    alt, yaw = float(first["alt_ellipsoid_m"]), float(first["yaw_deg"])
-    track = [(lon0 + 1e-4 * i, lat0 + 5e-5 * i, alt, yaw)
-             for i in range(TIFFX_STEPS)]
+    lon0, lat0, alt, yaw = track[0]
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(4)  # the world, then the frames over it
-    made = pool.submit(World.make, **manifest["world"])
-    server, thread, asked = _tiffx_stub(made, dem)
-    params = {"gis_node": {"wms_url": f"http://127.0.0.1:"
-                                      f"{server.server_address[1]}/wms",
-                           "wms_format": "image/tiff",
+    params = {"gis_node": {"wms_url": url, "wms_format": wms_format,
                            "wms_layers": ["imagery"],
                            "wms_dem_layers": ["dem"],
-                           "min_map_overlap_update_threshold":
-                               GRAPH_OVERLAP},
+                           "min_map_overlap_update_threshold": overlap},
               "pose_node": {"image_shape": list(hw),
                             "max_keypoints": DEMO_KP,
                             "ground_altitude_m": 0.0},
               "twist_node": {"ground_altitude_m": 0.0},
               "bbox_node": {"ground_altitude_m": 0.0}}
-    path = os.path.join(root, "tiffx_params.json")
+    path = os.path.join(root, f"{tag}_params.json")
     with open(path, "w") as f:
         json.dump(params, f)
-    maps, fixes, poses, arrivals, published, truth = [], [], [], {}, {}, {}
-    times = {}
+    maps, fixes, poses, ticks = [], [], [], []
+    arrivals, published, truth, times = {}, {}, {}, {}
+    pool = ThreadPoolExecutor(3)  # the frames, while the graph flies
     try:
         app = build_app(build_parser().parse_args(
-            ["run", "--params", path, "--device", TIFFX_DEVICE]))
+            ["run", "--params", path, "--device", device]))
         times["app_s"] = time.perf_counter() - t0
         cfg = app.pose._config
         if not (app.bus._async and app.pose._deep_runner is not None
                 and cfg.lightglue_depth == 9 and cfg.image_shape == hw
                 and cfg.max_keypoints == DEMO_KP):
-            raise RuntimeError(f"tiffx: not run's graph at the main path's "
+            raise RuntimeError(f"{tag}: not run's graph at the main path's "
                                f"width ({cfg})")
         world = made.result()
         times["world_s"] = time.perf_counter() - t0
-        # rendered while the graph fetches its map and flies
         frames = [pool.submit(world.render_frame, lon, lat, a, y, k, hw)
                   for lon, lat, a, y in track]
+        gis_tick = app.gis.tick
+
+        def tick():  # every GIS tick's published map (None: none yet)
+            msg = gis_tick()
+            ticks.append(msg)
+            return msg
+
+        app.gis.tick = tick
 
         def on_fix(msg):  # on the mock-GPS node's worker thread
             arrivals[msg["timestamp_sample"]] = time.perf_counter()
@@ -6509,7 +6535,7 @@ def tiffx_flight(root: str) -> dict:
         while app.pose._ortho is None:
             app.gis.tick()
             if time.monotonic() > deadline:
-                raise RuntimeError("tiffx: no map reached the pose node")
+                raise RuntimeError(f"{tag}: no map reached the pose node")
             time.sleep(0.05)
         times["first_map_s"] = time.perf_counter() - t0
         reset_launches()
@@ -6526,11 +6552,11 @@ def tiffx_flight(root: str) -> dict:
                 deadline = time.monotonic() + DEMO_FRAME_DEADLINE_S[i > 0]
                 while min(handled(app.pose), handled(app.twist)) < i + 1:
                     if time.monotonic() > deadline:
-                        raise RuntimeError(f"tiffx: step {i} not handled")
+                        raise RuntimeError(f"{tag}: step {i} not handled")
                     time.sleep(0.002)
                 per_step.append({n: LAUNCHES[n] - before[n]
                                  for n in LAUNCHES})
-                time.sleep(max(0.0, published[stamp] + TIFFX_PERIOD_S
+                time.sleep(max(0.0, published[stamp] + period_s
                                - time.perf_counter()))
             t_quiet, seen = time.monotonic(), len(fixes)
             while time.monotonic() - t_quiet < DEPLOY_QUIET_S:
@@ -6543,47 +6569,89 @@ def tiffx_flight(root: str) -> dict:
         times["flown_s"] = time.perf_counter() - t0
     finally:
         pool.shutdown(cancel_futures=True)
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=10)
     launches = dict(LAUNCHES)
     frame = {n: GRAPH_FRAME.get(n, 0) for n in launches}
     refresh = {n: GRAPH_REFRESH.get(n, 0) for n in launches}
     refreshes = sum(n == refresh for n in per_step)
     odd = [(i, n) for i, n in enumerate(per_step)
            if n not in (frame, refresh)]
-    if odd or ran != TIFFX_STEPS:
-        raise RuntimeError(f"tiffx: {ran} frames ran; steps launching "
+    if odd or ran != len(track):
+        raise RuntimeError(f"{tag}: {ran} frames ran; steps launching "
                            f"neither a frame's nor a refresh's kernels: "
                            f"{odd}")
-    expect_launches("tiffx", launches, {
+    expect_launches(tag, launches, {
         n: ran * frame[n] + refreshes * (refresh[n] - frame[n])
         for n in PATH1_KERNELS})
+    return {"world": world, "maps": maps, "fixes": fixes, "poses": poses,
+            "ticks": ticks, "ran": ran, "launches": launches,
+            "refreshes": int(refreshes), "times": times,
+            "dropped": app.bus.dropped,
+            "frame_to_fix": _pcts(_latencies(published, arrivals)),
+            "errors": [_fix_errors(f, *truth[f["timestamp_sample"]])
+                       for f in fixes],
+            "pose_errors": [_fix_errors(
+                {"lat": p["lat"] * 1e7, "lon": p["lon"] * 1e7,
+                 "alt_ellipsoid": p["alt_ellipsoid"] * 1e3},
+                *truth[p["stamp_us"]]) for p in poses]}
+
+
+def tiffx_flight(root: str) -> dict:
+    """Path 19 (b): run's graph (path 15's, at the main path's width) flown
+    ``TIFFX_STEPS`` steps over path 16's flat world behind a stub WMS whose
+    DEM layer is a uint16 ZSTD GeoTIFF, which cv2 reads as None: every map
+    published with a zero DEM and the world's crop as its image, at least
+    ``TIFFX_MIN_FIXES`` uORB fixes, each within 10 m of the truth (the pose
+    node's fixes printed), every step's K1-K4 launches a frame's or a
+    bucket refresh's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gisnav_tpu_torch.utils.world_wms import World
+
+    with open(os.path.join(WEBP_FLIGHT, "flight.json")) as f:
+        manifest = json.load(f)
+    with open(os.path.join(WEBP_FLIGHT, "poses.csv")) as f:
+        first = next(csv.DictReader(f))
+    with open(os.path.join(TIFFX_FIXTURES, TIFFX_DEM), "rb") as f:
+        dem = f.read()
+    lon0, lat0 = float(first["lon"]), float(first["lat"])
+    alt, yaw = float(first["alt_ellipsoid_m"]), float(first["yaw_deg"])
+    track = [(lon0 + 1e-4 * i, lat0 + 5e-5 * i, alt, yaw)
+             for i in range(TIFFX_STEPS)]
+    pool = ThreadPoolExecutor(1)  # the world, while the graph is built
+    made = pool.submit(World.make, **manifest["world"])
+    server, thread, asked = _tiffx_stub(made, dem)
+    try:
+        flown = _fly_behind_stub(
+            "tiffx", root, f"http://127.0.0.1:{server.server_address[1]}"
+            "/wms", "image/tiff", GRAPH_OVERLAP, track, made, TIFFX_DEVICE,
+            TIFFX_PERIOD_S)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    maps, fixes, errors = flown["maps"], flown["fixes"], flown["errors"]
     dem_asks = [fmt for layer, fmt in asked if layer == "dem"]
     zero_dem = all(not np.asarray(m["dem"]).any() for m in maps)
     first_map = maps[0] if maps else None
     crop_equal = first_map is not None and np.array_equal(
-        first_map["image"], world.crop(
+        first_map["image"], flown["world"].crop(
             (first_map["bbox"].left, first_map["bbox"].bottom,
              first_map["bbox"].right, first_map["bbox"].top),
             *first_map["image"].shape))
-    errors = [_fix_errors(f, *truth[f["timestamp_sample"]]) for f in fixes]
-    pose_errors = [_fix_errors(
-        {"lat": p["lat"] * 1e7, "lon": p["lon"] * 1e7,
-         "alt_ellipsoid": p["alt_ellipsoid"] * 1e3},
-        *truth[p["stamp_us"]]) for p in poses]
-    out = {"steps": TIFFX_STEPS, "frames_ran": ran, "maps": len(maps),
-           "dem_requests": len(dem_asks), "zero_dem": zero_dem,
-           "map_is_crop": bool(crop_equal), "fixes": len(fixes),
-           "pose_fixes": len(poses),
+    out = {"steps": TIFFX_STEPS, "frames_ran": flown["ran"],
+           "maps": len(maps), "dem_requests": len(dem_asks),
+           "zero_dem": zero_dem, "map_is_crop": bool(crop_equal),
+           "fixes": len(fixes), "pose_fixes": len(flown["poses"]),
            "max_horiz_m": max((e[0] for e in errors), default=None),
            "max_vert_m": max((e[1] for e in errors), default=None),
-           "max_pose_horiz_m": max((e[0] for e in pose_errors),
+           "max_pose_horiz_m": max((e[0] for e in flown["pose_errors"]),
                                    default=None),
-           "bucket_refreshes": int(refreshes), "launches": launches,
-           "frame_to_fix": _pcts(_latencies(published, arrivals)),
-           **{k: round(v, 2) for k, v in times.items()},
-           "dropped": app.bus.dropped}
+           "bucket_refreshes": flown["refreshes"],
+           "launches": flown["launches"],
+           "frame_to_fix": flown["frame_to_fix"],
+           **{k: round(v, 2) for k, v in flown["times"].items()},
+           "dropped": flown["dropped"]}
     log(f"[tiffx] flight {json.dumps(out, default=str)}")
     log("[tiffx] SensorGps fixes (stamp, m, m): " + str(
         [(f["timestamp_sample"], round(h, 2), round(v, 2))
@@ -6639,6 +6707,249 @@ def phase_tiffx_path() -> dict:
         out["flight"] = tiffx_flight(root)
     out["decode"] = tiffx_decode_times(card)
     log("[tiffx] " + json.dumps(out, default=str))
+    return out
+
+
+DAMAGED_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data")
+DAMAGED_STEPS, DAMAGED_STEP_M = 16, 30.0  # path 21's flight east
+# a map asked on every GIS tick that sees the bbox move (a 30 m step
+# keeps over 0.98 of it), so that the damage schedule meets every kind
+# of reply
+DAMAGED_OVERLAP = 0.999
+# of 16 steps the mock GPS fixes the last 6 (it warms up on 10 odometries);
+# one may come after the flight's quiet wait
+DAMAGED_MIN_FIXES = 5
+DAMAGED_PERIOD_S = 0.35
+DAMAGED_DEM_M = 2  # the stub's flat DEM (uint8 metres)
+DAMAGED_DEVICE = "cuda"  # path 21's device; a CPU rehearsal sets "cpu"
+
+
+def damaged_fixtures() -> dict:
+    """Path 21 (a): every seeded damage of every committed fixture
+    (``tests/torch_image_writers.py`` ``damage_ops`` over
+    ``damage_fixtures``), remade here from the fixtures and the seed and
+    decoded under both flags, each outcome equal to cv2's digest in
+    ``tests/data/torch_damaged/digests.json`` (an array's sha256, None, or
+    cv2's raise on its size limits: the port's ``ValueError``)."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image
+
+    writers = image_writers()
+    with open(os.path.join(DAMAGED_DATA, "torch_damaged",
+                           "digests.json")) as f:
+        want = json.load(f)
+    fixtures = writers.damage_fixtures(DAMAGED_DATA)
+    if sorted(fixtures) != sorted(want["files"]):
+        raise RuntimeError("damaged: the digests' fixtures are not the "
+                           "checkout's")
+    kinds = {"array": 0, "None": 0, "raises": 0}
+    bad, t0 = [], time.perf_counter()
+    for name, data in fixtures.items():
+        ops = dict(writers.damage_ops(name, data))
+        for op, digests in want["files"][name].items():
+            for flag, digest in zip(want["flags"], digests):
+                try:
+                    got = writers.damage_digest(decode_image(ops[op], flag))
+                except ValueError as err:
+                    if "cv2.imdecode raises cv2.error" not in str(err):
+                        raise
+                    got = "raises"
+                kinds["None" if digest is None else digest
+                      if digest == "raises" else "array"] += 1
+                if got != digest:
+                    bad.append((name, op, flag, digest, got))
+    out = {"files": len(fixtures), "decodes": sum(kinds.values()),
+           **kinds, "mismatches": len(bad),
+           "decode_s": round(time.perf_counter() - t0, 2)}
+    log(f"[damaged] fixtures against cv2's digests: {json.dumps(out)}")
+    if bad:
+        raise RuntimeError(f"damaged: not decoded as cv2: {bad[:20]}")
+    return out
+
+
+def _damaging_stub(world, dem: "concurrent.futures.Future"):
+    """A loopback WMS over ``world`` (a future) that damages its replies on
+    a fixed schedule: imagery is PNG, every 4th reply with an IDAT byte
+    flipped (cv2: None, so the GIS node keeps its map); the DEM layer an
+    LZW GeoTIFF (``dem``, a future of its bytes), every 3rd reply cut in
+    half (None: a zero DEM) and the 2nd with a corrupt strip (cv2's
+    partial DEM). Returns (server, thread, log of (layer, reply, damage))."""
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from gisnav_tpu_torch.gis.png import encode_png
+
+    writers = image_writers()
+    log_ = []
+    counts = {"imagery": 0, "dem": 0}
+    lock = threading.Lock()
+
+    class Stub(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (http.server's name)
+            q = {k.lower(): v[0] for k, v in urllib.parse.parse_qs(
+                urllib.parse.urlparse(self.path).query).items()}
+            layer = "dem" if q.get("layers") == "dem" else "imagery"
+            with lock:
+                counts[layer] += 1
+                n = counts[layer]
+            if layer == "dem":
+                body, ctype = dem.result(), "image/tiff"
+                damage = "cut" if n % 3 == 0 else "lzw" if n == 2 else ""
+                if damage == "cut":
+                    body = body[:len(body) // 2]
+                elif damage:
+                    body = writers.strip_corrupted(body)
+            else:
+                left, bottom, right, top = (float(v) for v in
+                                            q["bbox"].split(","))
+                h, w = int(q["height"]), int(q["width"])
+                body = encode_png(world.result().crop(
+                    (left, bottom, right, top), h, w))
+                ctype = "image/png"
+                damage = "idat" if n % 4 == 0 else ""
+                if damage:
+                    body = writers.idat_flipped(body)
+            with lock:
+                log_.append((layer, n, damage))
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+    server.daemon_threads = True
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, log_
+
+
+def _damaged_dem(size: int) -> bytes:
+    """The stub's DEM: flat ``DAMAGED_DEM_M`` over ``size`` px, an LZW
+    GeoTIFF of 64-row strips (``tests/torch_image_writers.py``)."""
+    return image_writers().write_tiff(
+        np.full((size, size), DAMAGED_DEM_M, np.uint8), compression=5,
+        rows_per_strip=64)
+
+
+def _dem_outcome(dem: np.ndarray) -> str:
+    """How a published DEM was read: the full flat DEM, zeros (a cut reply:
+    cv2's None), or partial (a strip zero after its damage)."""
+    if not dem.any():
+        return "cut"
+    if (dem == DAMAGED_DEM_M).all():
+        return ""
+    return "lzw"
+
+
+def damaged_flight(root: str) -> dict:
+    """Path 21 (b): run's graph (path 19's: learned_lg9, bucketed, 1088x1920,
+    2048 keypoints, uORB) flown ``DAMAGED_STEPS`` steps of
+    ``DAMAGED_STEP_M`` east over path 8's world behind ``_damaging_stub``.
+    Gates: every uORB fix within 10 m; the GIS node publishes a map on
+    every tick after its first; the maps it kept and the DEMs it published
+    are the schedule's (a damaged image keeps the map and asks no DEM, a
+    cut DEM gives zeros, the corrupt strip a partial DEM); K1-K4 launches
+    a frame's or a bucket refresh's each step, as in path 19."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gisnav_tpu_torch.gis.wms import orthoimage_size_for_camera
+    from gisnav_tpu_torch.utils.world_wms import World, east_of
+
+    with open(os.path.join(WEBP_FLIGHT, "camera.json")) as f:
+        camera = json.load(f)
+    with open(os.path.join(WEBP_FLIGHT, "poses.csv")) as f:
+        first = next(csv.DictReader(f))
+    lon0, lat0 = float(first["lon"]), float(first["lat"])
+    alt, yaw = float(first["alt_ellipsoid_m"]), float(first["yaw_deg"])
+    track = [(east_of(lon0, lat0, DAMAGED_STEP_M * i), lat0, alt, yaw)
+             for i in range(DAMAGED_STEPS)]
+    pool = ThreadPoolExecutor(2)  # the world and the DEM, while it builds
+    made = pool.submit(World.make, **GRAPH_WORLD)
+    dem = pool.submit(_damaged_dem, orthoimage_size_for_camera(
+        camera["width"], camera["height"])[0])
+    server, thread, served = _damaging_stub(made, dem)
+    try:
+        dem.result()
+        flown = _fly_behind_stub(
+            "damaged", root, f"http://127.0.0.1:{server.server_address[1]}"
+            "/wms", "image/png", DAMAGED_OVERLAP, track, made,
+            DAMAGED_DEVICE, DAMAGED_PERIOD_S)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    maps, ticks, fixes = flown["maps"], flown["ticks"], flown["fixes"]
+    errors = flown["errors"]
+    # the schedule: each imagery reply either updated the map (and asked
+    # the DEM whose reply it published) or was damaged and kept the map
+    first = next(i for i, m in enumerate(ticks) if m is not None)
+    silent = [i for i, m in enumerate(ticks[first:]) if m is None]
+    updates, last = [], None  # the published maps, one per update
+    for m in maps:
+        if m["stamp_us"] != last:
+            updates.append(m)
+            last = m["stamp_us"]
+    images = [d for layer, _, d in served if layer == "imagery"]
+    dems = [d for layer, _, d in served if layer == "dem"]
+    kept = sum(d == "idat" for d in images)
+    asked_after_damage = [served[i + 1][0] for i, (layer, _, d) in
+                          enumerate(served[:-1])
+                          if layer == "imagery" and d == "idat"]
+    published_dems = [_dem_outcome(np.asarray(m["dem"])) for m in updates]
+    schedule_ok = (len(updates) == len(images) - kept == len(dems)
+                   and published_dems == dems
+                   and "dem" not in asked_after_damage
+                   and kept >= 1 and "cut" in dems and "lzw" in dems)
+    out = {"steps": DAMAGED_STEPS, "frames_ran": flown["ran"],
+           "ticks": len(ticks), "silent_ticks": len(silent),
+           "maps": len(maps), "map_updates": len(updates),
+           "imagery_replies": len(images), "kept_maps": kept,
+           "dem_replies": dems, "published_dems": published_dems,
+           "schedule_ok": schedule_ok, "fixes": len(fixes),
+           "pose_fixes": len(flown["poses"]),
+           "max_horiz_m": max((e[0] for e in errors), default=None),
+           "max_vert_m": max((e[1] for e in errors), default=None),
+           "max_pose_horiz_m": max((e[0] for e in flown["pose_errors"]),
+                                   default=None),
+           "bucket_refreshes": flown["refreshes"],
+           "launches": flown["launches"],
+           "frame_to_fix": flown["frame_to_fix"],
+           **{k: round(v, 2) for k, v in flown["times"].items()},
+           "dropped": flown["dropped"]}
+    log(f"[damaged] flight {json.dumps(out, default=str)}")
+    log("[damaged] WMS replies (layer, n, damage): " + str(served))
+    log("[damaged] SensorGps fixes (stamp, m, m): " + str(
+        [(f["timestamp_sample"], round(h, 2), round(v, 2))
+         for f, (h, v) in zip(fixes, errors)]))
+    far = [e for e in errors if not (e[0] < 10.0 and e[1] < 10.0)]
+    if (silent or not schedule_ok or len(fixes) < DAMAGED_MIN_FIXES
+            or far):
+        raise RuntimeError(f"damaged: {len(silent)} ticks without a map, "
+                           f"schedule {schedule_ok} (DEMs {dems} published "
+                           f"as {published_dems}), {len(fixes)} fixes, "
+                           f"{len(far)} over 10 m")
+    return out
+
+
+def phase_damaged_path() -> dict:
+    """Path 21: damaged images read as cv2 5.0 reads them, on the card
+    machine (no cv2): the committed fixtures' seeded damage against cv2's
+    digests (a) and run's graph flown behind a WMS that damages its
+    replies (b)."""
+    import tempfile
+
+    t0 = time.time()
+    out = {"card": card_label(), "fixtures": damaged_fixtures()}
+    with tempfile.TemporaryDirectory() as root:
+        out["flight"] = damaged_flight(root)
+    out["s"] = round(time.time() - t0, 1)
+    log("[damaged] " + json.dumps(out, default=str))
     return out
 
 
@@ -6768,6 +7079,11 @@ def main(argv=None) -> int:
     ap.add_argument("--bench", action="store_true",
                     help="only drive path 20 (python -m gisnav_tpu_torch "
                          "bench, the JAX package's headline rows)")
+    ap.add_argument("--damaged", action="store_true",
+                    help="only drive path 21 (damaged images: the seeded "
+                         "damage of every fixture against cv2's digests, "
+                         "run's graph behind a WMS that damages its "
+                         "replies)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -6823,6 +7139,10 @@ def main(argv=None) -> int:
     if args.bench:
         phase_bench_path()
         log(f"[phase] path 20 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.damaged:
+        phase_damaged_path()
+        log(f"[phase] path 21 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -6904,6 +7224,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 19 done at {time.time() - t_start:.1f} s")
     benched = phase_bench_path(main_path["frame_p50_ms"])
     log(f"[phase] path 20 done at {time.time() - t_start:.1f} s")
+    damaged = phase_damaged_path()
+    log(f"[phase] path 21 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -6926,6 +7248,7 @@ def main(argv=None) -> int:
             r["path18_launches"] = jpegx["replay"]["launches"][r["name"]]
             r["path19_launches"] = tiffx["flight"]["launches"][r["name"]]
             r["path20_launches"] = benched["launches"][r["name"]]
+            r["path21_launches"] = damaged["flight"]["launches"][r["name"]]
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))

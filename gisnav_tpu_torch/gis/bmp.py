@@ -143,6 +143,7 @@ def _decode(data: bytes, gray: bool) -> np.ndarray:
         channels = 1
     bottom_up = height > 0
     height = abs(height)
+    coders.check_image_size(width, height, "BMP")
     if offset < 0:
         raise _Bad
     if code in (_RLE4, _RLE8):

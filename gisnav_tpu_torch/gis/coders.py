@@ -5,11 +5,18 @@ The C++ library is built at first use (``native/__init__.py``
 ``build_native_lib("imgcodecs")``). Each decoder here returns a uint8 array
 of the size asked for and raises ``ValueError`` naming the coder on a
 corrupt stream or one that ends early (``bmp_rle`` and ``hdr_rle`` give
-None there: OpenCV gives None for those files).
+None there: OpenCV gives None for those files). TIFF's strip decoders
+(``tiff_lzw``, ``packbits``, ``tiff_inflate`` over the system's zlib,
+``thunder``) never raise: they give the buffer libtiff 4.7's decoder
+leaves and whether it succeeded.
 
 ``ccitt`` decodes one strip or tile of a CCITT-coded TIFF (RLE, RLEW,
 Group 3 and Group 4) with ``native/fax3.cpp`` (``build_native_lib("fax3")``)
 as libtiff's ``tif_fax3.c`` does, damage included: it never raises.
+
+``check_image_size`` is ``loadsave.cpp``'s ``validateInputImageSize``,
+which ``cv2.imdecode`` / ``cv2.imread`` apply to every header a decoder
+accepts: ``cv2.error`` there, ``ValueError`` naming the limit here.
 
 ``bgr_to_gray`` is OpenCV's ``icvCvt_BGR2Gray_8u_C3C1R`` (``utils.cpp``:
 4899 R + 9617 G + 1868 B over 2^14, rounded), which the BMP, PxM, Sun
@@ -19,14 +26,17 @@ raster and TIFF decoders apply under ``IMREAD_GRAYSCALE``; it is not
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import functools
-from typing import Optional
+import zlib
+from typing import Optional, Tuple
 
 import numpy as np
 
 from gisnav_tpu_torch.native import build_native_lib
 
-__all__ = ["tiff_lzw", "packbits", "ccitt", "ccitt_runs", "gif_lzw", "bmp_rle", "hdr_rle",
+__all__ = ["check_image_size", "tiff_lzw", "packbits", "tiff_inflate",
+           "thunder", "ccitt", "ccitt_runs", "gif_lzw", "bmp_rle", "hdr_rle",
            "predictor2", "predictor3", "bgr_to_gray", "saturate_u8",
            "IMREAD_UNCHANGED", "IMREAD_GRAYSCALE"]
 
@@ -34,6 +44,25 @@ IMREAD_UNCHANGED = -1  # cv2's flag values
 IMREAD_GRAYSCALE = 0
 _CORRUPT, _SHORT = -1, -2
 _CR, _CG, _CB = 4899, 9617, 1868  # 0.299, 0.587 and the rest of 2^14
+# loadsave.cpp's CV_IO_MAX_IMAGE_WIDTH / _HEIGHT / _PIXELS
+MAX_IMAGE_WIDTH = MAX_IMAGE_HEIGHT = 1 << 20
+MAX_IMAGE_PIXELS = 1 << 30
+
+
+def check_image_size(width: int, height: int, fmt: str) -> None:
+    """``validateInputImageSize``: cv2 raises ``cv2.error`` for a header
+    of no rows or columns, over 2^20 of either or over 2^30 pixels, after
+    the decoder accepted it; so does the port, with ``ValueError``."""
+    for ok, limit in ((width > 0, "width > 0"),
+                      (width <= MAX_IMAGE_WIDTH, "CV_IO_MAX_IMAGE_WIDTH"),
+                      (height > 0, "height > 0"),
+                      (height <= MAX_IMAGE_HEIGHT, "CV_IO_MAX_IMAGE_HEIGHT"),
+                      (width * height <= MAX_IMAGE_PIXELS,
+                       "CV_IO_MAX_IMAGE_PIXELS")):
+        if not ok:
+            raise ValueError(f"{fmt} header of {width}x{height}: over "
+                             f"cv2's {limit} (cv2.imdecode raises "
+                             "cv2.error there)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,9 +70,10 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_native_lib("imgcodecs"))
     u8p, u64, i32 = ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int
     out = ctypes.c_void_p
-    for name, args in (("gic_tiff_lzw", [u8p, u64, out, u64]),
+    for name, args in (("gic_tiff_lzw", [u8p, u64, out, u64, i32]),
                        ("gic_packbits", [u8p, u64, out, u64]),
                        ("gic_gif_lzw", [u8p, u64, i32, out, u64]),
+                       ("gic_thunder", [u8p, u64, out, u64, u64]),
                        ("gic_bmp_rle", [u8p, u64, i32, i32, i32, out]),
                        ("gic_hdr_rle", [u8p, u64, i32, i32, out])):
         fn = getattr(lib, name)
@@ -76,15 +106,94 @@ def _run(what: str, fn, data: bytes, size: int, *args) -> np.ndarray:
     return out
 
 
-def tiff_lzw(data: bytes, size: int) -> np.ndarray:
-    """TIFF LZW (new-style or old-style, as libtiff tells them) -> ``size``
-    bytes."""
-    return _run("TIFF LZW", _lib().gic_tiff_lzw, data, size)
+def tiff_lzw(data: bytes, size: int, compat: bool
+             ) -> Tuple[np.ndarray, bool]:
+    """A TIFF LZW strip as libtiff 4.7 decodes it into a zeroed buffer of
+    ``size`` bytes: (the buffer, whether the decoder succeeded). ``compat``
+    takes libtiff's old-style decoder (LZWDecodeCompat). A failed strip
+    holds what the decoder wrote before its error (the rest zero)."""
+    out = np.zeros(size, np.uint8)
+    n = _lib().gic_tiff_lzw(bytes(data), len(data), out.ctypes.data, size,
+                            int(compat))
+    return out, n >= 0
 
 
-def packbits(data: bytes, size: int) -> np.ndarray:
-    """PackBits -> ``size`` bytes."""
-    return _run("PackBits", _lib().gic_packbits, data, size)
+def packbits(data: bytes, size: int) -> Tuple[np.ndarray, bool]:
+    """A TIFF PackBits strip as libtiff 4.7 decodes it: (the buffer, whether
+    it succeeded); a short strip's rest is zero."""
+    out = np.zeros(size, np.uint8)
+    n = _lib().gic_packbits(bytes(data), len(data), out.ctypes.data, size)
+    return out, n >= 0
+
+
+def thunder(data: bytes, rows: int, width: int) -> Tuple[np.ndarray, bool]:
+    """A ThunderScan strip of ``rows`` rows of ``width`` 4-bit pixels as
+    libtiff 4.7 decodes it: (the packed rows, whether it succeeded)."""
+    out = np.zeros(rows * ((width + 1) // 2), np.uint8)
+    n = _lib().gic_thunder(bytes(data), len(data), out.ctypes.data, rows,
+                           width)
+    return out, n >= 0
+
+
+class _ZStream(ctypes.Structure):
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_uint),
+                ("total_in", ctypes.c_ulong), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_uint), ("total_out", ctypes.c_ulong),
+                ("msg", ctypes.c_char_p), ("state", ctypes.c_void_p),
+                ("zalloc", ctypes.c_void_p), ("zfree", ctypes.c_void_p),
+                ("opaque", ctypes.c_void_p), ("data_type", ctypes.c_int),
+                ("adler", ctypes.c_ulong), ("reserved", ctypes.c_ulong)]
+
+
+@functools.lru_cache(maxsize=None)
+def _zlib() -> ctypes.CDLL:
+    """The system's zlib (the library Python's own ``zlib`` module uses)."""
+    lib = ctypes.CDLL(ctypes.util.find_library("z") or "libz.so.1")
+    lib.zlibVersion.restype = ctypes.c_char_p
+    lib.inflateInit_.argtypes = [ctypes.POINTER(_ZStream), ctypes.c_char_p,
+                                 ctypes.c_int]
+    lib.inflate.argtypes = [ctypes.POINTER(_ZStream), ctypes.c_int]
+    lib.inflateEnd.argtypes = [ctypes.POINTER(_ZStream)]
+    return lib
+
+
+def tiff_inflate(data: bytes, size: int) -> Tuple[np.ndarray, bool]:
+    """A TIFF deflate strip as libtiff 4.7's ZIPDecode decodes it with
+    zlib: (the buffer, whether it succeeded). zlib writes each symbol as it
+    decodes it, so a corrupt stream leaves the bytes before the bad symbol
+    (the rest zero, as ZIPDecode zeroes them); a stream that decodes the
+    whole buffer but then fails its check value still fails. A stream
+    that decodes goes through Python's ``zlib`` (the same library, without
+    ctypes' cost of a call); one that fails is decoded again here, to keep
+    what zlib wrote before the error."""
+    try:
+        whole = zlib.decompressobj().decompress(bytes(data), size)
+    except zlib.error:
+        whole = b""
+    if len(whole) == size:
+        return np.frombuffer(whole, np.uint8), True
+    z = _zlib()
+    out = np.zeros(size, np.uint8)
+    src = bytes(data)  # zlib reads it in place
+    strm = _ZStream()
+    if z.inflateInit_(ctypes.byref(strm), z.zlibVersion(),
+                      ctypes.sizeof(_ZStream)) != 0:
+        raise MemoryError("zlib inflateInit failed")
+    try:
+        strm.next_in = ctypes.cast(ctypes.c_char_p(src),
+                                   ctypes.c_void_p).value
+        strm.avail_in = len(data)
+        strm.next_out = out.ctypes.data
+        strm.avail_out = size
+        while strm.avail_out:
+            state = z.inflate(ctypes.byref(strm), 1)  # Z_PARTIAL_FLUSH
+            if state == 1:  # Z_STREAM_END: short if the buffer is not full
+                break
+            if state != 0:  # a data error, or no progress (Z_BUF_ERROR)
+                return out, False
+        return out, strm.avail_out == 0
+    finally:
+        z.inflateEnd(ctypes.byref(strm))
 
 
 def ccitt_runs(rowpixels: int, two_d: bool) -> np.ndarray:

@@ -8,7 +8,8 @@ asking cv2:
 - the whole stream is walked to its trailer (``;``): a block OpenCV does
   not know, or the data ending before the trailer, gives None; only the
   first image is decoded (global or local colour table, interlace, LZW
-  through ``native/imgcodecs.cpp``; a short or corrupt stream gives None);
+  through ``native/imgcodecs.cpp``; a short or corrupt stream, or one
+  whose codes write past the image before its end code, gives None);
 - the image is drawn on the logical screen, which starts as the background
   colour (the global table's entry, black without a global table; an index
   past the table gives None); an image reaching past the screen, or an
@@ -115,6 +116,7 @@ def _decode(data: bytes) -> np.ndarray:
             image = (left, top, w, h, iflags, lct, mcs, lzw, transparent)
     if image is None:
         raise _Bad
+    coders.check_image_size(sw, sh, "GIF")  # the header OpenCV read
     left, top, w, h, iflags, lct, mcs, lzw, transparent = image
     if left + w > sw or top + h > sh or not w or not h:
         raise _Bad

@@ -70,6 +70,7 @@ def _decode(data: bytes, gray: bool) -> np.ndarray:
     h, w = int(m.group(1)), int(m.group(2))
     if h <= 0 or w <= 0:
         raise _Bad
+    coders.check_image_size(w, h, "Radiance HDR")
     rgbe = coders.hdr_rle(data[pos:], w, h)
     if rgbe is None:
         raise _Bad

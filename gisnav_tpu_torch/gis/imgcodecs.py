@@ -8,7 +8,7 @@ order, each with OpenCV's own signature rule:
 
 - ``BM``: BMP (OS/2, Windows, V4, V5), ``gis/bmp.py``;
 - ``#?RADIANCE`` or ``#?RGBE``: Radiance HDR, ``gis/hdr.py``;
-- ``FF D8``: JPEG, Huffman- or arithmetic-coded, sequential, progressive
+- ``FF D8 FF``: JPEG, Huffman- or arithmetic-coded, sequential, progressive
   or lossless (EXIF turns it under the grey flag), ``gis/jpeg.py``;
 - 32 bytes that libwebp's ``WebPGetFeatures`` accepts (``RIFF`` ...
   ``WEBP``, or a raw VP8 / VP8L bitstream): WebP (its EXIF chunk turns it
@@ -24,7 +24,13 @@ order, each with OpenCV's own signature rule:
 - ``GIF87a`` or ``GIF89a``: GIF, ``gis/gif.py``.
 
 A matching signature decides: bytes that then fail their header give
-None, as in OpenCV (no other decoder is tried), and so do the variants
+None, as in OpenCV (no other decoder is tried); damaged or cut bytes give
+cv2's outcome (each decoder's module says how: libpng's errors and
+warnings, libtiff's partial strips, OpenCV's GIF and libjpeg's checks);
+a header the decoder accepts with no rows or columns, over 2^20 of either
+or over 2^30 pixels raises ``ValueError`` naming cv2's limit, where
+``loadsave.cpp``'s ``validateInputImageSize`` raises ``cv2.error``
+(``gis/coders.py`` ``check_image_size``); and so do the variants
 cv2 5.0 does not read either: JPEG lossless arithmetic-coded,
 hierarchical, 12-bit and 9- to 16-bit lossless, and the TIFFs its libtiff
 gives up on (a ZSTD, LZMA, WebP, LERC, PixarLog, JBIG or old-style JPEG
@@ -80,7 +86,7 @@ _DECODERS = (
      lambda d, g, f: decode_bmp(d, g)),
     ("HDR", lambda s: len(s) >= 6 and s.startswith(HDR_SIGNATURES),
      lambda d, g, f: decode_hdr(d, g)),
-    ("JPEG", lambda s: s.startswith(jpeg.JPEG_SOI), _jpeg),
+    ("JPEG", lambda s: s.startswith(jpeg.JPEG_SOI + b"\xff"), _jpeg),
     ("WebP", is_webp, lambda d, g, f: decode_webp(d, g)),
     ("Sun raster", lambda s: s.startswith(SUNRAS_SIGNATURE),
      lambda d, g, f: decode_sunras(d, g)),

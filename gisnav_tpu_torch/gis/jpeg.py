@@ -40,7 +40,8 @@ from typing import Optional
 
 import numpy as np
 
-from gisnav_tpu_torch.gis.coders import IMREAD_GRAYSCALE, IMREAD_UNCHANGED
+from gisnav_tpu_torch.gis.coders import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED,
+                                         check_image_size)
 from gisnav_tpu_torch.native import build_native_lib
 
 __all__ = ["decode_jpeg", "encode_jpeg", "decode_jpeg_for_tiff",
@@ -89,7 +90,8 @@ def _decode(data: bytes, grayscale: bool, file: bool = False,
             mode: Optional[int] = None):
     """(image or None, the Exif APP1's TIFF body or b""); ``file``: read
     as ``cv2.imread`` reads a file (its end is a fake EOI marker); ``mode``
-    one of jpeg.cpp's modes in place of ``grayscale``'s."""
+    one of jpeg.cpp's modes in place of ``grayscale``'s (a TIFF strip's:
+    no cv2 size check, a header over it gives None)."""
     lib = _lib()
     h, w, c, status = (ctypes.c_int() for _ in range(4))
     exif = (ctypes.c_uint64 * 2)()
@@ -101,6 +103,9 @@ def _decode(data: bytes, grayscale: bool, file: bool = False,
                            ctypes.byref(c), exif, ctypes.byref(status), msg,
                            _MSG_LEN)
     if not ptr:  # status 2: a variant libjpeg-turbo refuses, None in cv2
+        if status.value == 3 and mode in (_MODE_UNCHANGED, _MODE_GRAY,
+                                          _MODE_BGR):
+            check_image_size(w.value, h.value, "JPEG")  # cv2.error
         return None, b""
     shape = (h.value, w.value) if c.value == 1 else (h.value, w.value,
                                                      c.value)

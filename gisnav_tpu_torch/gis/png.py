@@ -31,8 +31,17 @@ the port reads PNG itself:
   to a colour raster it holds (``cv2.cvtColor(img, COLOR_BGR2GRAY)``), not
   what ``imread``'s grey flag gives.
 
-Malformed files and non-PNG bytes raise ``ValueError``
-(``gis/imgcodecs.py`` ``decode_image`` chooses the decoder by content).
+Damaged files are read as libpng 1.6 under OpenCV's ``PngDecoder`` reads
+them: ``png_as_opencv`` gives None wherever libpng stops with
+``png_error`` (input ending before IEND, a chunk name of other than
+letters, an unknown critical chunk, a critical chunk failing its CRC, too
+little or corrupt image data, a bad row filter) and the image where it
+only warns (an ancillary chunk's CRC, IEND's CRC or length, data past the
+image, a corrupt stream end past the last row, IDAT after the image);
+a header over cv2's size limits raises ``ValueError`` (``cv2.error`` in
+cv2). ``decode_png`` raises ``ValueError`` (``PngError``) on a damaged
+file and on non-PNG bytes (``gis/imgcodecs.py`` ``decode_image`` chooses
+the decoder by content).
 ``encode_png`` writes an 8-bit grey or colour PNG with filter None on
 every row.
 """
@@ -45,10 +54,11 @@ from typing import List, Optional
 
 import numpy as np
 
+from gisnav_tpu_torch.gis.coders import check_image_size
 from gisnav_tpu_torch.gis.exif import apply_orientation, orientation
 
 __all__ = ["decode_png", "png_as_opencv", "encode_png", "to_gray",
-           "PNG_SIGNATURE"]
+           "PngError", "PNG_SIGNATURE"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -62,22 +72,110 @@ _GAMMA_UNIT = 100000  # libpng's png_fixed_point 1.0
 _SRGB_GAMMA = 45455
 
 
+class PngError(ValueError):
+    """A file libpng stops on with ``png_error`` (cv2 gives None)."""
+
+
+def _chunk_name_ok(kind: bytes) -> bool:
+    """libpng's png_check_chunk_name: four ASCII letters, the third (the
+    reserved bit) upper case."""
+    return all(65 <= c <= 90 or 97 <= c <= 122 for c in kind) and \
+        not kind[2] & 0x20
+
+
 def _chunks(data: bytes):
+    """(kind, body, CRC holds) of each chunk up to IEND; ``PngError`` where
+    libpng's reader stops: input ending before IEND's CRC, a length over
+    2^31 - 1 or a chunk name of other than letters."""
     pos = len(PNG_SIGNATURE)
-    while pos + 8 <= len(data):
+    while True:
+        if pos + 8 > len(data):
+            raise PngError("PNG input ends before IEND")
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if length > 0x7FFFFFFF:
+            raise PngError("PNG chunk length out of range")
+        if not _chunk_name_ok(kind):
+            raise PngError(f"PNG chunk name {kind!r} is invalid")
+        end = pos + 12 + length
+        if end > len(data):
+            raise PngError("truncated PNG chunk")
         body = data[pos + 8:pos + 8 + length]
-        crc = data[pos + 8 + length:pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
-            raise ValueError("truncated PNG chunk")
-        if zlib.crc32(kind + body) == struct.unpack(">I", crc)[0]:
-            yield kind, body
-        elif not kind[0] & 0x20:  # critical
-            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        crc = struct.unpack(">I", data[end - 4:end])[0]
+        yield kind, body, zlib.crc32(kind + body) == crc
         if kind == b"IEND":
             return
-        pos += 12 + length
-    raise ValueError("PNG without IEND")
+        pos = end
+
+
+_IDAT_READ = 8192  # libpng's PNG_IDAT_READ_SIZE: the input of one inflate
+_CHECK_BUF = 1024  # PNG_INFLATE_BUF_SIZE: the output of one check inflate
+_CHUNK_MAX = 8000000  # PNG_USER_CHUNK_MALLOC_MAX, OpenCV's read_chunk limit
+
+
+def _inflate_idat(run: List[bytes], need: int) -> bytes:
+    """The first ``need`` bytes of the zlib stream over one run of IDAT
+    chunks, as libpng's png_read_IDAT_data gives them: ``PngError`` where
+    the stream is corrupt or ends (or the run does) before them. Then
+    png_read_finish_IDAT's check of the stream's end: data past the image
+    and a corrupt end are warnings, a run ending before the stream's end
+    an error. Input is fed as libpng feeds it (8 KiB of a chunk at a time),
+    so that a corrupt end is seen where libpng sees it: zlib reads past the
+    image's last byte as far as its input goes."""
+    stream = b"".join(run)
+    # the ends in ``stream`` of the pieces libpng reads
+    ends = np.cumsum([min(_IDAT_READ, len(c) - k) for c in run
+                      for k in range(0, len(c), _IDAT_READ)], dtype=np.int64)
+    d = zlib.decompressobj()
+    out: List[bytes] = []
+    got, i, tail = 0, 0, b""
+    if need > 1:
+        # all but the image's last byte in one call: zlib stops on its
+        # output limit at that byte's code, as it would piece by piece;
+        # then on from that piece as libpng feeds it
+        try:
+            part = d.decompress(stream, need - 1)
+        except zlib.error as err:
+            raise PngError(f"PNG IDAT: {err}") from err
+        out.append(part)
+        got = len(part)
+        used = len(stream) - len(d.unconsumed_tail)
+        i = int(np.searchsorted(ends, used, side="right"))
+        if i < len(ends):
+            tail, i = stream[used:ends[i]], i + 1
+        if d.eof and got < need:
+            raise PngError("PNG: not enough image data")
+
+    def more() -> bytes:
+        nonlocal i
+        if i == len(ends):
+            raise PngError("PNG: not enough image data")
+        i += 1
+        return stream[ends[i - 2] if i > 1 else 0:ends[i - 1]]
+
+    while got < need:
+        if not tail:
+            tail = more()
+        try:
+            part = d.decompress(tail, need - got)
+        except zlib.error as err:
+            raise PngError(f"PNG IDAT: {err}") from err
+        tail = d.unconsumed_tail
+        out.append(part)
+        got += len(part)
+        if d.eof and got < need:
+            raise PngError("PNG: not enough image data")
+    extra = 0
+    while not d.eof:
+        if not tail:
+            tail = more()
+        try:
+            extra += len(d.decompress(tail, _CHECK_BUF))
+        except zlib.error:
+            break  # a benign error once the image is whole
+        tail = d.unconsumed_tail
+        if not extra:
+            break
+    return b"".join(out)
 
 
 def _paeth(a, b, c):
@@ -91,8 +189,8 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     low-depth row is w bytes of bpp 1)."""
     ftype = raw[:, 0]
     if ftype.max(initial=0) > 4:
-        raise ValueError(f"PNG row filter {int(ftype.max())} is not one of "
-                         "the five")
+        raise PngError(f"PNG row filter {int(ftype.max())} is not one of "
+                       "the five")
     data = raw[:, 1:].reshape(h, w, bpp).astype(np.int32)
     # a zero row above and a zero column left: PNG's neighbours outside
     out = np.zeros((h + 1, w + 1, bpp), np.int32)
@@ -121,8 +219,6 @@ def _samples(raw: np.ndarray, h: int, w: int, channels: int,
     """One image's (or Adam7 pass's) filtered rows -> (h, w, channels)
     samples, uint8 (depths to 8, unscaled) or uint16."""
     rowbytes = (w * channels * depth + 7) // 8
-    if raw.size != h * (1 + rowbytes):
-        raise ValueError("PNG image data does not match its header")
     bpp = max(1, channels * depth // 8)
     px = _unfilter(raw.reshape(h, 1 + rowbytes), h, rowbytes // bpp, bpp)
     px = px.reshape(h, rowbytes)
@@ -141,13 +237,14 @@ class _Png:
     """A parsed PNG: its header, samples (H, W, C) and the chunks that
     OpenCV's reading depends on."""
 
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, size_check: bool = False):
         if not data.startswith(PNG_SIGNATURE):
             found = "JPEG" if data.startswith(_JPEG_SOI) else repr(data[:8])
             raise ValueError(f"not a PNG image ({found}); gis/jpeg.py "
                              "decode_image reads PNG and JPEG")
         header = None
-        idat: List[bytes] = []
+        run: List[bytes] = []  # the first run of IDAT chunks
+        idat = after = False  # in the first run; past it
         self.palette: Optional[np.ndarray] = None
         self.trns: Optional[bytes] = None
         self.exif: Optional[bytes] = None
@@ -156,22 +253,67 @@ class _Png:
         # the largest colour depth of a valid sBIT (libpng's sig_bit)
         self.sig_bit: Optional[int] = None
         sbit_seen = False
-        for kind, body in _chunks(data):
-            if kind == b"IHDR":
-                if len(body) != 13:
-                    raise ValueError("bad PNG IHDR")
+        # OpenCV's PngDecoder::readHeader reads up to the first IDAT: what
+        # fails there gives None before cv2's size check, a critical
+        # chunk's CRC and all that follows fail after it (in readData)
+        late: Optional[str] = None
+        for kind, body, crc_ok in _chunks(data):
+            critical = not kind[0] & 0x20
+            if not (idat or after) and kind not in (b"IDAT", b"tEXt") and \
+                    len(body) + 12 > _CHUNK_MAX:
+                raise PngError(f"PNG chunk {kind!r} over OpenCV's limit")
+            if header is None:  # OpenCV reads a 13-byte IHDR first itself
+                if kind != b"IHDR" or len(body) != 13:
+                    raise PngError("PNG without IHDR first")
+                if not crc_ok:
+                    raise PngError("PNG chunk IHDR fails its CRC")
                 header = struct.unpack(">IIBBBBB", body)
-            elif header is None:
-                raise ValueError("PNG without IHDR first")
-            elif kind == b"IDAT":
-                idat.append(body)
-            elif kind == b"PLTE":
-                if self.palette is not None or idat:
-                    raise ValueError("a second PLTE, or PLTE after IDAT")
+                self._check_header(header)
+                continue
+            if kind == b"IDAT" and not (idat or after):
+                if header[3] == 3 and self.palette is None:
+                    raise PngError("palette PNG without PLTE before IDAT")
+                if size_check:
+                    check_image_size(header[0], header[1], "PNG")
+                if late:
+                    raise PngError(late)
+            if kind == b"IDAT":
+                if not crc_ok:
+                    raise PngError("PNG chunk IDAT fails its CRC")
+                if after:
+                    continue  # "Too many IDATs found": a warning
+                idat = True
+                run.append(body)
+                continue
+            if idat:
+                idat, after = False, True
+            if kind == b"IEND":
+                # after the image, libpng reads IEND's CRC as an ancillary
+                # chunk's and its length as a warning
+                if not after:
+                    raise PngError("PNG IEND before IDAT")
+                break
+            if critical:
+                if kind == b"IHDR" or kind not in (b"PLTE",):
+                    raise PngError(f"PNG critical chunk {kind!r} is out of "
+                                   "place or unknown")
+                if not crc_ok:
+                    late = late or f"PNG chunk {kind!r} fails its CRC"
+                    if after:
+                        raise PngError(late)
+                if after:
+                    continue  # PLTE after IDAT: "out of place", a warning
+                if self.palette is not None:
+                    raise PngError("a second PNG PLTE")
                 if len(body) % 3 or not 0 < len(body) <= 768:
-                    raise ValueError("bad PNG palette")
+                    if header[3] == 3:
+                        raise PngError("bad PNG palette")
+                    continue  # a benign error in a colour image
                 self.palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-            elif kind == b"tRNS" and self.trns is None and not idat:
+                continue
+            if not crc_ok:
+                continue  # an ancillary chunk failing its CRC is dropped
+            if kind == b"tRNS" and self.trns is None and not after:
                 # libpng ignores a tRNS of the wrong size or place
                 ctype = header[3]
                 if (ctype == 0 and len(body) == 2) or (
@@ -182,7 +324,7 @@ class _Png:
             elif kind == b"eXIf" and self.exif is None:
                 if body[:4] in (b"II*\0", b"MM\0*"):  # libpng's check
                     self.exif = body
-            elif kind == b"sBIT" and not sbit_seen and not idat and (
+            elif kind == b"sBIT" and not sbit_seen and not after and (
                     self.palette is None):
                 sbit_seen = True  # png_handle_sBIT: one, before PLTE, IDAT
                 ctype, depth = header[3], header[2]
@@ -190,43 +332,48 @@ class _Png:
                              else (_CHANNELS[ctype], depth))
                 if len(body) == want and all(0 < v <= top for v in body):
                     self.sig_bit = max(body[:3]) if ctype & 2 else body[0]
-            elif kind in (b"gAMA", b"sRGB") and not idat and (
+            elif kind in (b"gAMA", b"sRGB") and not after and (
                     self.palette is None):
                 if kind == b"sRGB":
                     srgb = srgb or (len(body) == 1 and body[0] < 4)
                 elif gama is None and len(body) == 4:
                     g = struct.unpack(">I", body)[0]
                     gama = g if 16 <= g <= 625000000 else None
-        if header is None:
-            raise ValueError("PNG without IHDR")
+        if not run:
+            raise PngError("PNG without IDAT")
         w, h, depth, ctype, _, _, interlace = header
-        if ctype not in _DEPTHS or depth not in _DEPTHS[ctype]:
-            raise ValueError(f"PNG colour type {ctype} at bit depth {depth} "
-                             "is not a valid PNG")
-        if interlace > 1:
-            raise ValueError(f"PNG interlace method {interlace} is unknown")
-        if ctype == 3 and self.palette is None:
-            raise ValueError("palette PNG without PLTE")
         self.width, self.height, self.depth, self.ctype = w, h, depth, ctype
         self.gamma = _SRGB_GAMMA if srgb else gama
         channels = _CHANNELS[ctype]
-        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-        if not interlace:
-            self.samples = _samples(raw, h, w, channels, depth)
-            return
+        passes = [(0, 0, 1, 1, w, h)] if not interlace else [
+            (x0, y0, dx, dy, -(-(w - x0) // dx), -(-(h - y0) // dy))
+            for x0, y0, dx, dy in _ADAM7]
+        passes = [p for p in passes if p[4] > 0 and p[5] > 0]
+        sizes = [ph * (1 + (pw * channels * depth + 7) // 8)
+                 for *_, pw, ph in passes]
+        raw = np.frombuffer(_inflate_idat(run, sum(sizes)), np.uint8)
         dtype = np.uint16 if depth == 16 else np.uint8
         self.samples = np.zeros((h, w, channels), dtype)
         pos = 0
-        for x0, y0, dx, dy in _ADAM7:
-            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
-            if pw <= 0 or ph <= 0:
-                continue  # an empty pass has no rows at all
-            n = ph * (1 + (pw * channels * depth + 7) // 8)
+        for (x0, y0, dx, dy, pw, ph), n in zip(passes, sizes):
             self.samples[y0::dy, x0::dx] = _samples(raw[pos:pos + n], ph, pw,
                                                     channels, depth)
             pos += n
-        if pos != raw.size:
-            raise ValueError("PNG image data does not match its header")
+
+    @staticmethod
+    def _check_header(header) -> None:
+        """libpng's png_check_IHDR (its default limits of 10^6 columns and
+        rows)."""
+        w, h, depth, ctype, compression, filtering, interlace = header
+        if not (0 < w <= 1000000 and 0 < h <= 1000000):
+            raise PngError(f"PNG size {w}x{h} is over libpng's limits")
+        if ctype not in _DEPTHS or depth not in _DEPTHS[ctype]:
+            raise PngError(f"PNG colour type {ctype} at bit depth {depth} "
+                           "is not a valid PNG")
+        if compression or filtering:
+            raise PngError("PNG compression or filter method other than 0")
+        if interlace > 1:
+            raise PngError(f"PNG interlace method {interlace} is unknown")
 
     def expanded(self) -> np.ndarray:
         """The samples as libpng's expand gives them: palette through PLTE
@@ -366,8 +513,12 @@ def _libpng_gray(rgb: np.ndarray, gamma: Optional[int],
 
 def png_as_opencv(data: bytes, gray: bool) -> np.ndarray:
     """PNG bytes as ``cv2.imdecode`` gives them with ``IMREAD_GRAYSCALE``
-    (``gray``) or ``IMREAD_UNCHANGED``: grey (H, W), colour BGR(A)."""
-    png = _Png(data)
+    (``gray``) or ``IMREAD_UNCHANGED``: grey (H, W), colour BGR(A); None
+    where cv2 gives None (a damaged file, module docstring)."""
+    try:
+        png = _Png(data, size_check=True)
+    except PngError:
+        return None  # OpenCV's PngDecoder gives false after libpng's error
     px = png.expanded()
     colour = px.shape[2] >= 3
     if gray:

@@ -116,6 +116,7 @@ def _pxm(data: bytes, gray: bool) -> np.ndarray:
     maxval = s.number() if bpp > 1 else 1
     if maxval > 65535 or width <= 0 or height <= 0 or maxval <= 0:
         raise _Bad
+    coders.check_image_size(width, height, "PxM")
     nch = 3 if bpp == 24 else 1
     wide = maxval > 255
     if bpp == 1:
@@ -194,6 +195,7 @@ def _pam(data: bytes, gray: bool) -> np.ndarray:
         bw = depth == 1 and maxval == 1
     else:
         raise _Bad
+    coders.check_image_size(w, h, "PAM")
     if bw:  # OpenCV reads a row's bytes as packed bits, 1 white
         if pos + w * h > len(data):
             raise _Bad
@@ -248,6 +250,7 @@ def _pfm(data: bytes, gray: bool) -> np.ndarray:
         raise _Bad from e
     if w <= 0 or h <= 0 or scale == 0:
         raise _Bad
+    coders.check_image_size(w, h, "PFM")
     c = 3 if colour else 1
     n = w * h * c * 4
     if pos + n > len(data):

@@ -60,6 +60,7 @@ def _decode(data: bytes, gray: bool) -> np.ndarray:
         used = palette[:1 << bpp]
         colour = bool(((used[:, 0] != used[:, 1])
                        | (used[:, 0] != used[:, 2])).any())
+    coders.check_image_size(w, h, "Sun raster")
     pitch = ((w * bpp + 7) // 8 + 1) & ~1
     at = 32 + maplength
     if at + pitch * h > len(data):

@@ -11,7 +11,8 @@ the same arrays:
   IFD only (``imread`` reads page 0), strips and tiles (edge tiles
   cropped), ``PlanarConfiguration`` 1 and 2, ``FillOrder`` 2;
 - compression none, LZW (new and old style), deflate (8 and 32946),
-  PackBits (``native/imgcodecs.cpp`` and ``zlib``), JPEG (``native/
+  PackBits, ThunderScan 4-bit (``native/imgcodecs.cpp`` and the system's
+  zlib), JPEG (``native/
   jpeg.cpp``, ``JPEGTables`` spliced in front of each strip's stream,
   separate planes a stream each) and CCITT RLE, RLEW, Group 3 (1-D and
   2-D) and Group 4 (``native/fax3.cpp``: libtiff's decoders, damaged
@@ -54,10 +55,23 @@ than LogL / LogLuv, a predictor LZW or deflate cannot undo), and under
 for or JPEG of other than 8 bits (their strips do not decode; under the
 RGBA reader they read as zero samples, as libtiff leaves its strip
 buffer). Still refused with ``ValueError`` naming the variant, where cv2
-reads the file: ThunderScan 4-bit palettes, SGILog LogL / LogLuv, JPEG of
-a subsampled non-YCbCr image or of separate YCbCr planes, separate planes
-over 8 bits under ``IMREAD_UNCHANGED`` (cv2's pixels there are undefined),
-and a corrupt or short LZW, deflate or PackBits stream.
+reads the file: SGILog LogL / LogLuv, CIELab, JPEG of a subsampled
+non-YCbCr image or of separate YCbCr planes, separate planes over 8 bits
+under ``IMREAD_UNCHANGED`` (cv2's pixels there are undefined).
+
+Damaged files read as libtiff 4.7 under OpenCV's ``TiffDecoder`` reads
+them. The directory as ``TIFFReadDirectory`` reads it (``_DirReader``): a
+read error of the fields that size the image (count, type, value or bytes
+past the file) fails it, and a bad value of the others drops the field;
+byte counts estimated where libtiff estimates them, one uncompressed
+strip cut into 8 KiB strips. A strip whose bytes lie past the file's end
+fails the image, as do OpenCV's buffer limits. A strip that does not
+decode (libtiff's LZW, deflate, PackBits, ThunderScan decoders, their
+partial output and zero fill included) fails the image under the direct
+route (``TIFFReadEncodedStrip``, over 8 bits), while the RGBA route (8-bit
+output) paints what the decoder left, undone by no predictor; separate
+planes after the first may be unreadable there (zeros). A header over
+cv2's size limits raises ``ValueError`` (``cv2.error`` in cv2).
 """
 from __future__ import annotations
 
@@ -93,7 +107,7 @@ _CCITT = frozenset({2, 3, 4, 32771})
 _PREDICTED = frozenset({5, 8, 32946})  # the codecs that undo a Predictor
 _LOGL, _LOGLUV = 32844, 32845
 _MINISWHITE, _MINISBLACK, _RGB, _PALETTE = 0, 1, 2, 3
-_SEPARATED, _YCBCR = 5, 6
+_SEPARATED, _YCBCR, _CIELAB = 5, 6, 8
 _UNASSOC = 2
 _NO_ROWS = 0xFFFFFFFF
 _RGBA_RAW_TILE_UNIT = 1024  # see _Tiff.rgba
@@ -103,7 +117,8 @@ _BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
 
 
 class _Ifd:
-    """The first IFD of a TIFF: tag -> values (numpy arrays)."""
+    """The first IFD of a TIFF: its entries as stored (``entries``, which
+    ``_DirReader`` reads as libtiff does)."""
 
     def __init__(self, data: bytes):
         order = data[:2]
@@ -127,43 +142,203 @@ class _Ifd:
         pos = ifd + struct.calcsize(count_fmt)
         if pos + n * ent > len(data):
             raise _NotRead("the first IFD is cut short")
-        self.tags: Dict[int, np.ndarray] = {}
+        if n > 4096:  # TIFFFetchDirectory's sanity check on the count
+            raise _NotRead("an IFD of over 4096 entries")
+        self.big, self.size = big, len(data)
+        # (tag, type, count, the value's offset in the file) in file order
+        self.entries = []
         for i in range(n):
             at = pos + i * ent
             tag, ftype = struct.unpack_from(e + "HH", data, at)
             count = struct.unpack_from(e + ("Q" if big else "I"), data,
                                        at + 4)[0]
-            if ftype not in _TYPES or tag in self.tags:
-                continue
-            kind, size = _TYPES[ftype]
-            nbytes = size * count * (2 if kind in "rs" else 1)
-            if nbytes <= inline:
-                off = at + 4 + (8 if big else 4)
+            size = _TYPES[ftype][1] * (2 if _TYPES[ftype][0] in "rs" else 1) \
+                if ftype in _TYPES else 0
+            if size * count <= inline:
+                voff = at + 4 + (8 if big else 4)
             else:
-                off = struct.unpack_from(e + ("Q" if big else "I"), data,
-                                         at + 4 + (8 if big else 4))[0]
-            if off + nbytes > len(data):
-                continue  # libtiff drops a field it cannot read
-            if kind in "rs":
-                signed = "u" if kind == "r" else "i"
-                raw = np.frombuffer(data, np.dtype(f"{e}{signed}4"),
-                                    count * 2, off).astype(np.float64)
-                vals = raw[0::2] / np.where(raw[1::2] == 0, 1, raw[1::2])
-            else:
-                vals = np.frombuffer(data, np.dtype(f"{e}{kind}{size}"),
-                                     count, off)
-            self.tags[tag] = vals
-
-    def get(self, tag: int, default=None):
-        v = self.tags.get(tag)
-        return default if v is None or not len(v) else int(v[0])
-
-    def array(self, tag: int):
-        return self.tags.get(tag)
+                voff = struct.unpack_from(e + ("Q" if big else "I"), data,
+                                          at + 4 + (8 if big else 4))[0]
+            self.entries.append((tag, ftype, count, voff))
 
 
 class _NotRead(Exception):
     """libtiff cannot open or read the file: cv2 gives None."""
+
+
+# _TIFFGetMaxColorChannels: the colour channels of each photometric
+_COLOUR_CHANNELS = {0: 1, 1: 1, 3: 1, 4: 1, 32844: 1, 2: 3, 6: 3, 8: 3,
+                    9: 3, 10: 3, 32845: 3, 5: 4, 34892: 4}
+_INTEGER_TYPES = frozenset({1, 3, 4, 6, 8, 9, 16, 17})  # ReadDirEntryShort
+_LONG_TYPES = _INTEGER_TYPES | {13, 18}  # ReadDirEntryLong: IFD, IFD8 too
+
+
+class _DirError(Exception):
+    """A TIFFReadDirEntry* error: count, type, I/O, size or value."""
+
+
+class _DirReader:
+    """TIFFReadDirectory's reading of the fields the port uses, entry by
+    entry as libtiff 4.7 reads them (tif_dirread.c): the first of a
+    duplicated tag; a scalar of count 1 and an integer type in range; an
+    array within 2^31 bytes and inside the file. A read error fails the
+    directory for the fields that size the image (``fatal``), and drops
+    the field (its default) for the others."""
+
+    def __init__(self, ifd: "_Ifd", data: bytes):
+        self.ifd, self.data = ifd, data
+        self.spp = 1  # SamplesPerPixel, once read: per-sample counts
+        self.first: Dict[int, tuple] = {}
+        for entry in ifd.entries:
+            self.first.setdefault(entry[0], entry)
+
+    def _values(self, entry, limit: Optional[int] = None) -> np.ndarray:
+        tag, ftype, count, voff = entry
+        if ftype not in _TYPES:
+            raise _DirError("type")
+        kind, size = _TYPES[ftype]
+        width = size * (2 if kind in "rs" else 1)
+        if limit is not None:
+            count = min(count, limit)
+        if count > 0x7FFFFFFF // width:
+            raise _DirError("size")
+        if voff + count * width > self.ifd.size:
+            raise _DirError("I/O")
+        e = self.ifd.e
+        if kind in "rs":
+            signed = "u" if kind == "r" else "i"
+            raw = np.frombuffer(self.data, np.dtype(f"{e}{signed}4"),
+                                count * 2, voff).astype(np.float64)
+            return raw[0::2] / np.where(raw[1::2] == 0, 1, raw[1::2])
+        return np.frombuffer(self.data, np.dtype(f"{e}{kind}{size}"), count,
+                             voff)
+
+    def _integers(self, entry, types, top: int, persample: int = 0):
+        tag, ftype, count, _ = entry
+        if ftype not in types:
+            raise _DirError("type")
+        if persample:
+            if count < persample:
+                raise _DirError("count")
+        elif count != 1:
+            raise _DirError("count")
+        vals = self._values(entry)
+        if vals.dtype.kind == "f" or (vals.size and (
+                vals.min() < 0 or vals.max() > top)):
+            raise _DirError("value")
+        if persample and len(set(int(v) for v in vals[:persample])) > 1:
+            raise _DirError("values differ per sample")
+        return int(vals[0])
+
+    def _get(self, tag, default, fatal, read):
+        entry = self.first.get(tag)
+        if entry is None:
+            return default
+        try:
+            return read(entry)
+        except _DirError as err:
+            if fatal:
+                raise _NotRead(f"tag {tag}: {err}") from err
+            return default
+
+    def short(self, tag: int, default, fatal: bool = False,
+              persample: bool = False):
+        """A SHORT field (TIFFReadDirEntryShort, then for ``persample`` a
+        per-sample array of equal values)."""
+        def read(entry):
+            try:
+                return self._integers(entry, _INTEGER_TYPES, 0xFFFF)
+            except _DirError as err:
+                if not persample or str(err) != "count":
+                    raise
+                return self._integers(entry, _INTEGER_TYPES, 0xFFFF,
+                                      self.spp)
+        return self._get(tag, default, fatal, read)
+
+    def long(self, tag: int, default, fatal: bool = False):
+        """A LONG field (TIFFReadDirEntryLong)."""
+        return self._get(tag, default, fatal, lambda e: self._integers(
+            e, _LONG_TYPES, 0xFFFFFFFF))
+
+    def extra_samples(self) -> list:
+        """ExtraSamples: at most SamplesPerPixel values of 0-2 (999 is
+        Corel's 2), else the directory fails."""
+        def read(entry):
+            if entry[1] not in _INTEGER_TYPES:
+                raise _DirError("type")
+            vals = [int(v) for v in self._values(entry)]
+            if len(vals) > self.spp:
+                raise _DirError("count")
+            vals = [2 if v == 999 else v for v in vals]
+            if any(not 0 <= v <= 2 for v in vals):
+                raise _DirError("value")
+            return vals
+        return self._get(338, [], True, read)
+
+    def shorts(self, tag: int, n: int, default):
+        """An array field of ``n`` SHORTs (fewer: dropped)."""
+        def read(entry):
+            if entry[1] not in _INTEGER_TYPES or entry[2] < n:
+                raise _DirError("count")
+            return tuple(int(v) for v in self._values(entry)[:n])
+        return self._get(tag, default, False, read)
+
+    def floats(self, tag: int, n: int):
+        """An array field of ``n`` numbers (fewer: dropped)."""
+        def read(entry):
+            if entry[2] < n:
+                raise _DirError("count")
+            return self._values(entry)[:n].astype(np.float64)
+        return self._get(tag, None, False, read)
+
+    def bytes_(self, tag: int):
+        def read(entry):
+            return self._values(entry).astype(np.uint8).tobytes()
+        return self._get(tag, None, False, read)
+
+    def colormap(self, bits: int):
+        """ColorMap: 3 * 2^bits SHORTs exactly, read only after
+        BitsPerSample and for at most 24 bits."""
+        entry = self.first.get(320)
+        if entry is None or bits > 24:
+            return None
+        order = [e[0] for e in self.ifd.entries]
+        if 258 not in order or order.index(258) > order.index(320):
+            return None  # "Ignoring ColorMap since BitsPerSample tag not found"
+        if entry[2] != 3 << bits or entry[1] not in _INTEGER_TYPES:
+            return None
+        try:
+            vals = self._values(entry)
+        except _DirError:
+            return None
+        if vals.min() < 0 or vals.max() > 0xFFFF:
+            return None
+        return vals.astype(np.int64)
+
+    def strip_array(self, tags, nstrips: int):
+        """StripOffsets / TileOffsets (or the byte counts): the last of the
+        pair in the directory, nstrips values (fewer padded with 0); None
+        where absent."""
+        entries = [e for e in self.ifd.entries if e[0] in tags]
+        seen = set()
+        entries = [e for e in entries if not (e[0] in seen or seen.add(e[0]))]
+        if not entries:
+            return None
+        entry = entries[-1]
+        if entry[1] not in _LONG_TYPES:  # TIFFReadDirEntryLong8Array
+            raise _NotRead(f"tag {entry[0]}: type")
+        try:
+            vals = self._values(entry, limit=nstrips).astype(np.int64)
+        except _DirError as err:
+            raise _NotRead(f"tag {entry[0]}: {err}") from err
+        if vals.size and vals.min() < 0:
+            raise _NotRead(f"tag {entry[0]}: value")
+        if len(vals) < nstrips:
+            if nstrips > 1000000:
+                raise _NotRead("too few strip or tile offsets")
+            vals = np.concatenate([vals, np.zeros(nstrips - len(vals),
+                                                  np.int64)])
+        return vals
 
 
 def _unpack_bits(raw: np.ndarray, rows: int, n: int, bits: int
@@ -193,58 +368,229 @@ class _Tiff:
         self.data = data
         self.mapped = mapped  # read from a file (libtiff maps it)
         self._runs = None  # the CCITT codec's run arrays
+        self._lzw_compat: Optional[bool] = None  # libtiff's LZW decoder
+        # the direct route (TIFFReadEncodedStrip): a strip that does not
+        # decode fails the image; the RGBA route paints what it holds
+        self.strict = False
         d = self.ifd = _Ifd(data)
-        self.width = d.get(256)
-        self.height = d.get(257)
-        if not self.width or not self.height:
-            raise _NotRead("missing ImageWidth / ImageLength")
-        self.bits = d.get(258, 1)
-        self.spp = d.get(277, 1)
-        self.compression = d.get(259, 1)
-        self.sample_format = d.get(339, 1)
-        self.planar = d.get(284, 1)
+        r = _DirReader(d, data)
+        # TIFFReadDirectory's passes: SamplesPerPixel, Compression, then
+        # the fields that size the strips; a read error of any of these,
+        # or of the sample fields, fails the directory (cv2 gives None)
+        self.spp = r.spp = r.short(277, 1, fatal=True)
+        if self.spp == 0:
+            raise _NotRead("SamplesPerPixel 0")
+        self.compression = r.short(259, 1, fatal=True, persample=True)
+        self.width = r.long(256, 0, fatal=True)
+        self.height = r.long(257, 0, fatal=True)
+        tw = r.long(322, None, fatal=True)
+        th = r.long(323, None, fatal=True)
+        self.planar = r.short(284, 1, fatal=True)
         if self.planar not in (1, 2):
             raise _NotRead(f"PlanarConfiguration {self.planar}")
-        self.predictor = d.get(317, 1)
-        self.orientation = d.get(274, 1)
-        self.fill_order = d.get(266, 1)
-        extra = d.array(338)
-        self.extra = [] if extra is None else [int(v) for v in extra]
-        self.photometric = d.get(262)
-        if self.photometric is None:  # OpenCV asks for it
-            raise _NotRead("no Photometric tag")
-        self.tiled = 322 in d.tags
+        rps = r.long(278, _NO_ROWS, fatal=True)
+        if rps == 0:
+            raise _NotRead("RowsPerStrip 0")
+        self.rps = rps
+        self.extra = r.extra_samples()
+        self.bits = r.short(258, 1, fatal=True, persample=True)
+        self.sample_format = r.short(339, 1, fatal=True, persample=True)
+        if not 1 <= self.sample_format <= 6:
+            raise _NotRead(f"SampleFormat {self.sample_format}")
+        for tag in (280, 281, 32996):  # Min/MaxSampleValue, DataType
+            r.short(tag, 0, fatal=True, persample=True)
+        self.photometric = r.short(262, None)
+        self.predictor = r.short(317, 1) if self.compression in _PREDICTED \
+            else 1
+        self.orientation = r.short(274, 1)
+        if not 1 <= self.orientation <= 8:
+            self.orientation = 1
+        self.fill_order = r.short(266, 1)
+        if self.fill_order not in (1, 2):
+            self.fill_order = 1
+        self.t4 = r.long(292, 0) if self.compression == 3 else 0
+        self.inkset = r.short(332, 1)
+        self.colormap = r.colormap(self.bits)
+        self.subsampling = r.shorts(530, 2, (2, 2))
+        self.luma = r.floats(529, 3)
+        self.refbw = r.floats(532, 6)
+        self.jpeg_tables = r.bytes_(347) if self.compression == 7 else None
+        if not self.width or not self.height:
+            raise _NotRead("missing ImageWidth / ImageLength")
+        self.tiled = tw is not None or th is not None
         if self.tiled:
-            self.tw, self.th = d.get(322, 0), d.get(323, 0)
+            self.tw, self.th = tw or 0, th or 0
             if not self.tw or not self.th:
                 raise _NotRead("a tile size of 0")
-            offsets, counts = d.array(324), d.array(325)
         else:
-            rps = d.get(278, _NO_ROWS)
             self.tw = self.width
-            self.th = self.height if rps in (0, _NO_ROWS) or \
+            self.th = self.height if rps in (_NO_ROWS,) or \
                 rps > self.height else rps
-            offsets, counts = d.array(273), d.array(279)
-        if offsets is None or counts is None:
-            raise _NotRead("missing strip or tile offsets")
-        self.offsets = [int(v) for v in offsets]
-        self.counts = [int(v) for v in counts]
-        if 0 in self.counts:
-            raise _NotRead("a strip or tile of 0 bytes")
         self.across = -(-self.width // self.tw)
         self.down = -(-self.height // self.th)
         planes = self.spp if self.planar == 2 else 1
-        if len(self.offsets) < self.across * self.down * planes or \
-                len(self.counts) < len(self.offsets):
-            raise _NotRead("too few strip or tile offsets")
+        nstrips = self.across * self.down * planes
+        # _TIFFGetMaxColorChannels: channels past the colours are extra
+        colours = _COLOUR_CHANNELS.get(self.photometric, 0)
+        if colours and self.spp - len(self.extra) > colours:
+            self.extra += [0] * (self.spp - colours - len(self.extra))
+        if self.photometric == _PALETTE and self.colormap is None:
+            if self.bits >= 8:  # libtiff's guess for a palette without map
+                self.photometric = _RGB if self.spp == 3 else _MINISBLACK
+            else:
+                raise _NotRead("a palette image without ColorMap")
+        offsets = r.strip_array((324, 273), nstrips)
+        if offsets is None:
+            raise _NotRead("missing strip or tile offsets")
+        counts = r.strip_array((325, 279), nstrips)
+        self.offsets = [int(v) for v in offsets]
+        if self.photometric == _YCBCR and self.planar == 1 and (
+                self.subsampling[0] not in (1, 2, 4)
+                or self.subsampling[1] not in (1, 2, 4)):
+            raise _NotRead("Invalid YCbCr subsampling")
+        if self._scanline_size() == 0:
+            raise _NotRead("zero scanline size")
+        if counts is None:
+            if (self.planar == 1 and nstrips > 1) or (
+                    self.planar == 2 and nstrips != self.spp):
+                raise _NotRead("missing StripByteCounts")
+            counts = self._estimate_counts(d, nstrips)
+        elif nstrips == 1 and not self.tiled and self._count_looks_bad(
+                int(counts[0])):
+            counts = self._estimate_counts(d, nstrips)
+        elif self.planar == 1 and nstrips > 2 and self.compression == 1 \
+                and counts[0] != counts[1] and counts[0] and counts[1]:
+            counts = self._estimate_counts(d, nstrips)
+        self.counts = [int(v) for v in counts]
+        if self.planar == 1 and nstrips == 1 and self.compression == 1 \
+                and not self.tiled:
+            self._chop_single_strip()
+
+    # -- libtiff's directory fix-ups -----------------------------------
+
+    def _scanline_size(self) -> int:
+        """TIFFScanlineSize64: a row's bytes (of one plane); a YCbCr
+        row of sub-sampled units its share of a unit row."""
+        if self.photometric == _YCBCR and self.planar == 1:
+            hs, vs = self.subsampling
+            units = -(-self.width // hs)
+            unit_row = (units * (hs * vs + 2) * self.bits + 7) // 8
+            return unit_row // vs
+        spp = self.spp if self.planar == 1 else 1
+        return (self.width * spp * self.bits + 7) // 8
+
+    def _strip_size(self, rows: int) -> int:
+        """TIFFVStripSize64 of ``rows`` rows (one plane)."""
+        if self.photometric == _YCBCR and self.planar == 1:
+            hs, vs = self.subsampling
+            units = -(-self.width // hs)
+            unit_row = (units * (hs * vs + 2) * self.bits + 7) // 8
+            return -(-rows // vs) * unit_row
+        return rows * self._scanline_size()
+
+    def _count_looks_bad(self, count: int) -> bool:
+        """ByteCountLooksBad for the one strip."""
+        if self.offsets[0] == 0:
+            return False
+        if count == 0:
+            return True
+        if self.compression != 1:
+            return False
+        if self.offsets[0] <= len(self.data) and \
+                count > len(self.data) - self.offsets[0]:
+            return True
+        return count < self._scanline_size() * self.height
+
+    def _estimate_counts(self, d: "_Ifd", nstrips: int) -> list:
+        """EstimateStripByteCounts."""
+        if self.compression != 1:
+            big = d.big
+            space = (16 + 8 + len(d.entries) * 20 + 8) if big else \
+                (8 + 2 + len(d.entries) * 12 + 4)
+            for _, ftype, count, _ in d.entries:
+                if ftype not in _TYPES:
+                    raise _NotRead("an entry of an unknown type")
+                kind, size = _TYPES[ftype]
+                n = size * (2 if kind in "rs" else 1) * count
+                if n > (8 if big else 4):
+                    space += n
+            filesize = len(self.data)
+            space = 0 if filesize < space else filesize - space
+            if self.planar == 2:
+                space //= self.spp
+            counts = [space] * nstrips
+            last = self.offsets[nstrips - 1] if nstrips <= len(
+                self.offsets) else 0
+            if last + counts[-1] > filesize:
+                counts[-1] = 0 if last >= filesize else filesize - last
+            return counts
+        if self.tiled:
+            return [self._strip_size(self.th)] * nstrips
+        per = self.height // nstrips if self.planar == 1 else \
+            self.height // (nstrips // self.spp)
+        return [self._scanline_size() * per] * nstrips
+
+    def _chop_single_strip(self) -> None:
+        """ChopUpSingleUncompressedStrip: one uncompressed strip as strips
+        of about 8 KiB (libtiff's default STRIPCHOP)."""
+        block = 1
+        if self.photometric == _YCBCR:
+            block = self.subsampling[1]
+        block_bytes = self._strip_size(block)
+        if block_bytes > 8192:
+            rows, strip_bytes = block, block_bytes
+        elif block_bytes > 0:
+            per = 8192 // block_bytes
+            rows, strip_bytes = per * block, per * block_bytes
+        else:
+            return
+        if rows >= self.th or rows == 0:
+            return
+        n = -(-self.height // rows)
+        offset, left = self.offsets[0], self.counts[0]
+        offsets, counts = [], []
+        for _ in range(n):
+            c = min(strip_bytes, left)
+            offsets.append(offset)
+            counts.append(c)
+            offset += c
+            left -= c
+        self.th, self.down, self.rps = rows, n, rows
+        self.offsets, self.counts = offsets, counts
+
+    def opencv_buffer_ok(self, elem: int) -> bool:
+        """TiffDecoder::readData's tile buffer: a strip of RowsPerStrip
+        rows (all of them where the tag is absent) or a tile, of ``elem``
+        bytes a pixel, under 2^24 rows and columns and 2^30 bytes."""
+        if self.tiled:
+            tw, th = self.tw, self.th
+        else:
+            tw, th = self.width, self.height if self.rps == _NO_ROWS \
+                else self.rps
+        return tw < 1 << 24 and th < 1 << 24 and tw * th * elem <= 1 << 30
 
     # -- samples -------------------------------------------------------
 
-    def _raw(self, index: int) -> bytes:
+    def _raw(self, index: int, size: int = 0) -> bytes:
+        """TIFFFillStrip / TIFFFillTile: the strip's bytes; ``_NotRead``
+        where libtiff cannot read them (a byte count of 0, bytes past the
+        file's end; a count over 1 MiB and 10 strips is cut to that first).
+        ``size``: the direct route's uncompressed strip, which libtiff reads
+        whole from its offset, whatever its count, when it reads from
+        memory (TIFFReadEncodedStrip's shortcut)."""
         off, cnt = self.offsets[index], self.counts[index]
-        if off >= len(self.data):
-            raise ValueError(f"TIFF strip or tile {index} lies past the "
-                             "end of the file")
+        if size and self.compression == 1 and not self.mapped:
+            cnt = size
+        elif cnt == 0:
+            raise _NotRead(f"strip or tile {index} of 0 bytes")
+        else:
+            full = self._strip_size(self.th) if not self.tiled else \
+                self._tile_bytes()
+            if cnt > 1 << 20 and full and (cnt - 4096) // 10 > full:
+                cnt = full * 10 + 4096
+        if off + cnt > len(self.data):
+            raise _NotRead(f"strip or tile {index} lies past the end of "
+                           "the file")
         raw = self.data[off:off + cnt]
         if self.fill_order == 2:
             raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
@@ -278,43 +624,50 @@ class _Tiff:
         compression ("strip decoding is not implemented"), or it is JPEG of
         other than 8 bits, which cv2's libjpeg does not read."""
         return self.compression not in _CODECS or (self.compression == 7 and
-                                                    self.bits != 8)
+                                                    self.bits != 8) or (
+            self.compression == 32809 and self.tiled)  # no tile decoder
 
     def _decompress(self, raw: bytes, size: int, rows: int = 0,
-                    rowbytes: int = 0, index: int = 0) -> np.ndarray:
+                    rowbytes: int = 0, index: int = 0
+                    ) -> Tuple[np.ndarray, bool]:
+        """A strip's ``size`` bytes as libtiff's codec decodes them into a
+        zeroed buffer: (buffer, whether the codec succeeded). A failed
+        strip holds what the codec wrote before its error; the direct
+        route (``self.strict``) gives None for it."""
         c = self.compression
         if self.undecodable():
             # libtiff's RGBA reader goes on with the strip buffer it zeroed
-            return np.zeros(size, np.uint8)
-        if c == 1:
-            if len(raw) < size:
-                raise ValueError("TIFF: an uncompressed strip or tile is "
-                                 "shorter than its rows")
-            return np.frombuffer(raw, np.uint8, size)
-        if c == 5:
-            return coders.tiff_lzw(raw, size)
-        if c in (8, 32946):
-            try:
-                out = zlib.decompressobj().decompress(raw, size)
-            except zlib.error as err:
-                raise ValueError(f"TIFF deflate: {err}") from err
-            if len(out) < size:
-                raise ValueError("TIFF deflate: the stream ends before its "
-                                 "data")
-            return np.frombuffer(out, np.uint8)
-        if c == 32773:
-            return coders.packbits(raw, size)
-        if c in _CCITT:
-            two_d = c == 4 or (c == 3 and self.ifd.get(292, 0) & 1)
+            buf, ok = np.zeros(size, np.uint8), False
+        elif c == 1:  # DumpModeDecode: a short strip copies nothing
+            ok = len(raw) >= size
+            buf = np.frombuffer(raw, np.uint8, size) if ok else \
+                np.zeros(size, np.uint8)
+        elif c == 5:
+            if self._lzw_compat is None:  # libtiff keeps its first choice
+                self._lzw_compat = len(raw) >= 2 and raw[0] == 0 and \
+                    bool(raw[1] & 1)
+            buf, ok = coders.tiff_lzw(raw, size, self._lzw_compat)
+        elif c in (8, 32946):
+            buf, ok = coders.tiff_inflate(raw, size)
+        elif c == 32773:
+            buf, ok = coders.packbits(raw, size)
+        elif c == 32809:  # ThunderDecodeRow (refused_by_codec: 4-bit)
+            buf, ok = coders.thunder(raw, rows, self.tw)
+        elif c in _CCITT:
+            two_d = c == 4 or (c == 3 and self.t4 & 1)
             if self._runs is None:
                 self._runs = coders.ccitt_runs(self.tw, two_d)
             # RLEW aligns to the data's address: a file is mapped (its
             # strip at its offset), bytes in memory are read into a buffer
             odd = self.mapped and self.offsets[index] % 2 == 1
-            return coders.ccitt(raw, c, two_d, odd, rows, rowbytes, self.tw,
-                                self._runs).ravel()
-        raise ValueError(f"TIFF {_CODECS[c]} compression is not read by the "
-                         "port (cv2's libtiff reads it)")
+            buf, ok = coders.ccitt(raw, c, two_d, odd, rows, rowbytes,
+                                   self.tw, self._runs).ravel(), True
+        else:
+            raise ValueError(f"TIFF {_CODECS[c]} compression is not read by "
+                             "the port (cv2's libtiff reads it)")
+        if not ok and self.strict:
+            raise _NotRead("a strip or tile does not decode")
+        return buf, ok
 
     def _dtype(self) -> np.dtype:
         kind = {1: "u", 2: "i", 3: "f"}.get(self.sample_format, "u")
@@ -356,8 +709,23 @@ class _Tiff:
                     x0 = tx * self.tw
                     n = self.tw * per_plane
                     rowbytes = (n * bits + 7) // 8
-                    buf = self._decompress(self._raw(index), rows * rowbytes,
-                                           rows, rowbytes, index)
+                    size = rows * rowbytes
+                    # gtStripSeparate / gtTileSeparate read the planes after
+                    # the first with TIFFReadEncodedStrip / Tile, going on
+                    # past one they cannot read (zeros)
+                    later = p > 0 and not self.strict
+                    try:
+                        raw = self._raw(index, size if self.strict or later
+                                        else 0)
+                    except _NotRead:
+                        if not later:
+                            raise
+                        raw = None
+                    if raw is None:
+                        buf, ok = np.zeros(size, np.uint8), False
+                    else:
+                        buf, ok = self._decompress(raw, size, rows, rowbytes,
+                                                   index)
                     index += 1
                     block = buf.reshape(rows, rowbytes)
                     if small:
@@ -367,6 +735,9 @@ class _Tiff:
                         if dt.kind == "i":
                             block = np.minimum(block, 32767)
                         block = block.astype(dt)
+                    elif not ok:  # no predictor, no byte swap: as decoded
+                        block = block.view(dt.newbyteorder("<")).astype(
+                            dt.newbyteorder("="))
                     elif predictor == 3:
                         block = coders.predictor3(
                             block, per_plane, dt.itemsize).view(
@@ -417,15 +788,22 @@ class _Tiff:
             if colours < 3:
                 return None
         elif ph == _SEPARATED:
-            if self.ifd.get(332, 1) != 1 or spp < 4 or bits != 8:
+            if self.inkset != 1 or spp < 4 or bits != 8:
                 return None
         elif ph == _YCBCR:
             if bits != 8 or (self.compression != 7 and self.planar == 2 and
-                             self._subsampling() != (1, 1)):
+                             self.subsampling != (1, 1)):
                 return None
+        elif ph == _CIELAB:
+            raise ValueError("TIFF CIELab is not read by the port (cv2's "
+                             "libtiff reads it)")
+        elif ph in (_LOGL, _LOGLUV):
+            if self.compression not in (34676, 34677):
+                return None  # "LogL data must have Compression=SGILog"
+            raise ValueError("TIFF SGILog LogL / LogLuv is not read by the "
+                             "port (cv2's libtiff reads it)")
         else:
-            raise ValueError(f"TIFF photometric {ph} is not read by the "
-                             "port")
+            return None  # TIFFRGBAImageOK: "can not handle" the photometric
         if not file and self.tiled and self.compression == 1 and \
                 self._tile_bytes() % _RGBA_RAW_TILE_UNIT:
             # libtiff 4.7's RGBA tile reader fails on an uncompressed tile
@@ -452,10 +830,10 @@ class _Tiff:
         out = np.empty((h, w, 4), np.uint8)
         out[..., 3] = 255
         if ph == _PALETTE:
-            cmap = self.ifd.array(320)
-            if bits == 16 or cmap is None or len(cmap) < 3 * (1 << bits):
+            cmap = self.colormap
+            if bits == 16 or cmap is None:
                 return None
-            cmap = cmap.astype(np.int64).reshape(3, -1)
+            cmap = cmap.reshape(3, -1)
             if (cmap >= 256).any():  # a 16-bit colour map
                 cmap = cmap >> 8
             out[..., :3] = cmap.T.astype(np.uint8)[s[..., 0]]
@@ -481,16 +859,11 @@ class _Tiff:
         """The bytes of one uncompressed tile (of one plane)."""
         if self.photometric == _YCBCR and self.planar == 1 and \
                 self.compression != 7:
-            hs, vs = self._subsampling()
+            hs, vs = self.subsampling
             return -(-self.tw // hs) * -(-self.th // vs) * (hs * vs + 2) \
                 * self.bits // 8
         spp = self.spp if self.planar == 1 else 1
         return (self.tw * spp * self.bits + 7) // 8 * self.th
-
-    def _subsampling(self) -> Tuple[int, int]:
-        ss = self.ifd.array(530)
-        return (2, 2) if ss is None or len(ss) < 2 else (int(ss[0]),
-                                                         int(ss[1]))
 
     def _ycbcr_rgba(self) -> np.ndarray:
         """Uncompressed / LZW / deflate YCbCr through libtiff's tables
@@ -498,7 +871,7 @@ class _Tiff:
         block."""
         if self.spp != 3:
             raise ValueError(f"TIFF YCbCr with {self.spp} samples")
-        hs, vs = self._subsampling() if self.planar == 1 else (1, 1)
+        hs, vs = self.subsampling if self.planar == 1 else (1, 1)
         h, w = self.height, self.width
         if (hs, vs) == (1, 1):
             s = self.samples().astype(np.int64)
@@ -510,8 +883,7 @@ class _Tiff:
             y, cb, cr = self._ycbcr_units(hs, vs)
         out = np.empty((h, w, 4), np.uint8)
         out[..., 3] = 255
-        out[..., :3] = _ycbcr_to_rgb(y, cb, cr, self.ifd.array(529),
-                                     self.ifd.array(532))
+        out[..., :3] = _ycbcr_to_rgb(y, cb, cr, self.luma, self.refbw)
         return out
 
     def _ycbcr_units(self, hs: int, vs: int):
@@ -529,7 +901,8 @@ class _Tiff:
             for tx in range(self.across):
                 x0 = tx * self.tw
                 ucols = -(-self.tw // hs)
-                buf = self._decompress(self._raw(index), urows * ucols * unit)
+                buf, _ = self._decompress(self._raw(index),
+                                          urows * ucols * unit)
                 index += 1
                 if not self.tiled:
                     # TIFFReadRGBAStrip decodes rows times TIFFScanlineSize
@@ -571,12 +944,11 @@ class _Tiff:
         if self.bits != 8:
             raise ValueError(f"TIFF JPEG of {self.bits}-bit samples")
         ph = self.photometric
-        tables = self.ifd.array(347)
-        tables = b"" if tables is None else tables.astype(np.uint8).tobytes()
+        tables = self.jpeg_tables or b""
         if tables.endswith(b"\xff\xd9"):
             tables = tables[:-2]
         h, w = self.height, self.width
-        out = np.empty((h, w, 4), np.uint8)
+        out = np.zeros((h, w, 4), np.uint8)
         out[..., 3] = 255
         per_plane = self.across * self.down
         planes = min(self.spp, 3) if self.planar == 2 else 1
@@ -584,13 +956,20 @@ class _Tiff:
             plane, at = divmod(index, per_plane)
             ty, tx = divmod(at, self.across)
             y0, x0 = ty * self.th, tx * self.tw
-            stream = self._raw(index)
+            try:
+                stream = self._raw(index)
+            except _NotRead:
+                if not plane:
+                    raise
+                continue  # a later plane: TIFFReadEncodedStrip's zeros
             if tables and stream.startswith(b"\xff\xd8"):
                 stream = tables + stream[2:]
             img = decode_jpeg_for_tiff(stream, ycbcr=ph == _YCBCR)
-            if img is None:
-                raise ValueError(f"TIFF JPEG strip or tile {index} does not "
-                                 "decode")
+            if img is None:  # libjpeg's error in JPEGPreDecode / JPEGDecode
+                if not plane:
+                    raise _NotRead(f"TIFF JPEG strip or tile {index} does "
+                                   "not decode")
+                continue
             if img.ndim == 2:
                 img = img[..., None]
             ch, cw = min(self.th, h - y0), min(self.tw, w - x0)
@@ -758,17 +1137,28 @@ def decode_tiff(data: bytes, gray: bool, file: bool = False
     ``cv2.imread``'s) for ``IMREAD_GRAYSCALE`` (``gray``) or
     ``IMREAD_UNCHANGED``; None where cv2 gives None."""
     try:
-        t = _Tiff(bytes(data), mapped=file)
-        dtype, channels = _opencv_type(t)
+        return _decode_tiff(bytes(data), gray, file)
     except _NotRead:
         return None
+
+
+def _decode_tiff(data: bytes, gray: bool, file: bool
+                 ) -> Optional[np.ndarray]:
+    t = _Tiff(data, mapped=file)
+    if t.photometric is None:  # OpenCV asks for it
+        return None
+    dtype, channels = _opencv_type(t)
+    coders.check_image_size(t.width, t.height, "TIFF")
     if t.refused_by_codec():
         return None
     if gray:
         dtype, channels = np.dtype(np.uint8), 1
-    o = t.orientation if 1 <= t.orientation <= 8 else 1
+    o = t.orientation
     if file and o >= 5 and t.width != t.height:
         return None  # imread's check that the decoder kept its buffer
+    if not t.opencv_buffer_ok(4 if dtype.itemsize == 1 else
+                              t.spp * dtype.itemsize):
+        return None
     if dtype.itemsize == 1:
         rgba = t.rgba(file)
         if rgba is None:
@@ -790,6 +1180,7 @@ def decode_tiff(data: bytes, gray: bool, file: bool = False
         raise ValueError(f"TIFF PlanarConfiguration 2 of {t.spp} "
                          f"{t.bits}-bit samples: OpenCV 5.0 reads the first "
                          "plane's strips as whole pixels (undefined pixels)")
+    t.strict = True
     s = t.samples()
     if s.dtype.itemsize != dtype.itemsize:
         return None

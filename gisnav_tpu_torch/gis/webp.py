@@ -27,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 
+from gisnav_tpu_torch.gis.coders import check_image_size
 from gisnav_tpu_torch.gis.exif import apply_orientation, orientation
 from gisnav_tpu_torch.gis.png import to_gray
 from gisnav_tpu_torch.native import build_native_lib
@@ -80,6 +81,11 @@ def decode_webp(data: bytes, gray: bool = False) -> Optional[np.ndarray]:
     """WebP bytes -> ``cv2.imdecode(data, IMREAD_UNCHANGED)`` (``gray``:
     ``IMREAD_GRAYSCALE``); None where cv2 gives None."""
     data = bytes(data)
+    # OpenCV's readHeader: WebPGetFeatures on the first 32 bytes (an
+    # animation's header is the demuxer's, which refuses what this passes)
+    features = webp_features(data[:HEADER_SIZE])
+    if features is not None and not features["has_animation"]:
+        check_image_size(features["width"], features["height"], "WebP")
     lib = _lib()
     info = (ctypes.c_int * 4)()
     exif = (ctypes.c_uint64 * 2)()

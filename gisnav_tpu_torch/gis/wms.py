@@ -21,9 +21,13 @@ would decode gives None, as in JAX (the GIS node keeps its previous map);
 so does a reply cv2 5.0 does not read either: a float DEM under the grey
 flag, a TIFF of a codec its libtiff lacks (a ZSTD or LZMA GeoTIFF, GDAL's
 COG defaults), JPEG lossless arithmetic-coded (SOF11), hierarchical or
-12-bit; a DEM that gives None comes back as zeros, as in JAX. A variant
-the port does not read yet (AVIF, HTJ2K, a ThunderScan TIFF) raises
-``ValueError`` naming it.
+12-bit; a DEM that gives None comes back as zeros, as in JAX. A damaged
+reply is read as cv2 reads it (``gis/imgcodecs.py``): None where cv2 gives
+None (a PNG whose IDAT fails its CRC keeps the node's previous map, a cut
+DEM gives zeros), cv2's partial image where it gives one (a corrupt LZW
+strip's rows up to the damage). A header over cv2's size limits raises
+``ValueError`` naming the limit, as ``cv2.error`` leaves the JAX client,
+and so does a variant the port does not read yet (AVIF, HTJ2K).
 """
 from __future__ import annotations
 

@@ -7,9 +7,12 @@
 // return the bytes written, or a negative status on a stream they cannot
 // decode:
 //   -1  the stream is corrupt (a code not yet in the table, a run past the
-//       end of its row or buffer, a short RLE scanline);
+//       end of its row or buffer, a short RLE scanline; TIFF's LZW and
+//       PackBits: any strip libtiff's decoder fails, the buffer left as
+//       that decoder leaves it);
 //   -2  the stream ended before the buffer was full (what was decoded
 //       stands in the buffer).
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -20,11 +23,17 @@ constexpr int64_t kCorrupt = -1;
 constexpr int64_t kShort = -2;
 
 // ---- TIFF LZW (tif_lzw.c) ------------------------------------------------
-// New-style streams: codes MSB first, 9-12 bits, the code width grows when
-// the next free entry reaches 2^n - 1 ("early change"). A stream whose
-// first byte is 0 and second has its low bit set is old-style (LZW_COMPAT):
-// codes LSB first, the width grows at 2^n.
+// libtiff 4.7's two decoders, damage included. LZWDecode (new-style
+// streams): codes MSB first, 9-12 bits, one more bit once the next free
+// entry reaches 2^n - 1 ("early change"); it fills the buffer's rest with
+// zeros on an error. LZWDecodeCompat (old-style streams, LZW_COMPAT): codes
+// LSB first, one more bit at 2^n; it leaves the buffer's rest as it was.
+// Both need a clear code first, refuse a code past the next free entry,
+// and take the data's end as the end code; the end code before the buffer
+// is full is an error. Which decoder a strip gets is the caller's: libtiff
+// picks it on the first strip it decodes and keeps it for the file.
 constexpr int kClear = 256, kEoi = 257, kFirst = 258, kMaxCodes = 4096;
+constexpr int kCsize = 4095 + 1024;  // libtiff's CSIZE: entries it holds
 
 struct Entry {
   int32_t prefix;  // -1 for a root
@@ -32,16 +41,16 @@ struct Entry {
   uint8_t first, last;
 };
 
-int64_t tiff_lzw(const uint8_t* src, uint64_t n, uint8_t* dst, uint64_t cap) {
-  const bool compat = n >= 2 && src[0] == 0 && (src[1] & 1);
-  std::vector<Entry> table(kMaxCodes);
+int64_t tiff_lzw(const uint8_t* src, uint64_t n, uint8_t* dst, uint64_t cap,
+                 bool compat) {
+  std::vector<Entry> table(kCsize + 1);
   for (int i = 0; i < 256; ++i) table[i] = {-1, 1, uint8_t(i), uint8_t(i)};
-  int width = 9, next = kFirst, old = -1;
+  int width = 9, next = -1, old = -1;  // next -1: no clear code yet
   uint64_t pos = 0, out = 0, acc = 0;
   int nacc = 0;
   auto read = [&](int w) -> int {
     while (nacc < w) {
-      if (pos >= n) return -1;
+      if (pos >= n) return kEoi;  // "not terminated with EOI code"
       if (compat)
         acc |= uint64_t(src[pos++]) << nacc;
       else
@@ -58,89 +67,165 @@ int64_t tiff_lzw(const uint8_t* src, uint64_t n, uint8_t* dst, uint64_t cap) {
     acc &= (uint64_t(1) << nacc) - 1;
     return v;
   };
-  auto emit = [&](int code) -> bool {
+  auto fail = [&]() -> int64_t {
+    if (!compat) std::memset(dst + out, 0, size_t(cap - out));
+    return kCorrupt;
+  };
+  // the first `len` bytes of `code`'s string at dst + out (at most cap)
+  auto emit = [&](int code) {
     const int len = table[size_t(code)].length;
-    if (out + uint64_t(len) > cap) {  // libtiff stops at the buffer's end
-      int c = code;
-      std::vector<uint8_t> tmp(static_cast<size_t>(len));
-      for (int k = len - 1; k >= 0; --k) {
-        tmp[size_t(k)] = table[size_t(c)].last;
-        c = table[size_t(c)].prefix;
-      }
-      std::memcpy(dst + out, tmp.data(), size_t(cap - out));
-      out = cap;
-      return false;
-    }
     int c = code;
     for (int k = len - 1; k >= 0; --k) {
-      dst[out + uint64_t(k)] = table[size_t(c)].last;
+      if (out + uint64_t(k) < cap)
+        dst[out + uint64_t(k)] = table[size_t(c)].last;
       c = table[size_t(c)].prefix;
     }
-    out += uint64_t(len);
-    return true;
+    out = std::min(cap, out + uint64_t(len));
   };
   const int bump = compat ? 0 : 1;
   while (out < cap) {
     int code = read(width);
-    if (code < 0 || code == kEoi) break;
+    if (code == kEoi) break;
     if (code == kClear) {
       width = 9;
       next = kFirst;
       do {
         code = read(width);
       } while (code == kClear);
-      if (code < 0 || code == kEoi) break;
-      if (code > 255) return kCorrupt;
-      if (!emit(code)) break;
+      if (code == kEoi) break;
+      if (code > kClear) return fail();
+      dst[out++] = uint8_t(code);
       old = code;
       continue;
     }
-    if (old < 0) return kCorrupt;  // no clear code first
-    if (code > next || (code >= 256 && code < kFirst)) return kCorrupt;
-    if (next < kMaxCodes) {
-      const Entry& o = table[size_t(old)];
-      const uint8_t first =
-          code < next ? table[size_t(code)].first : o.first;
-      table[size_t(next)] = {old, o.length + 1, o.first, first};
-      ++next;
-    } else if (code == next) {
-      return kCorrupt;
-    }
-    if (!emit(code)) break;
-    old = code;
-    // new-style: n + 1 bits once next reaches 2^n - 1; compat: 2^n
+    if (next < 0 || next >= kCsize) return fail();  // no table yet, or full
+    if (code > next) return fail();  // "Using code not yet in table"
+    const Entry& o = table[size_t(old)];
+    const uint8_t first = code < next ? table[size_t(code)].first : o.first;
+    table[size_t(next)] = {old, o.length + 1, o.first, first};
+    ++next;
     if (width < 12 && next >= (1 << width) - bump) ++width;
+    emit(code);
+    old = code;
   }
-  return out < cap ? kShort : int64_t(out);
+  if (out < cap) return fail();  // "Not enough data at scanline"
+  return int64_t(out);
 }
 
 // ---- PackBits (tif_packbits.c) -------------------------------------------
+// libtiff 4.7's PackBitsDecode: a literal run the data cannot finish, or a
+// replicate code with no byte after it, ends the strip; a short strip is
+// an error with the buffer's rest zeroed.
 int64_t packbits(const uint8_t* src, uint64_t n, uint8_t* dst, uint64_t cap) {
   uint64_t i = 0, out = 0;
   while (i < n && out < cap) {
     const int8_t b = int8_t(src[i++]);
-    if (b >= 0) {
-      uint64_t len = uint64_t(b) + 1;
-      if (i + len > n) len = n - i;
-      if (out + len > cap) len = cap - out;
-      std::memcpy(dst + out, src + i, size_t(len));
-      i += uint64_t(b) + 1;
-      out += len;
-    } else if (b != -128) {
-      if (i >= n) break;
+    if (b < 0) {
+      if (b == -128) continue;  // no-op
       uint64_t len = uint64_t(1 - int(b));
       if (out + len > cap) len = cap - out;
+      if (i >= n) break;
       std::memset(dst + out, src[i++], size_t(len));
+      out += len;
+    } else {
+      uint64_t len = uint64_t(b) + 1;
+      if (out + len > cap) len = cap - out;
+      if (n - i < len) break;
+      std::memcpy(dst + out, src + i, size_t(len));
+      i += len;
       out += len;
     }
   }
-  return out < cap ? kShort : int64_t(out);
+  if (out < cap) {
+    std::memset(dst + out, 0, size_t(cap - out));
+    return kCorrupt;
+  }
+  return int64_t(out);
+}
+
+// ---- ThunderScan (tif_thunder.c) -----------------------------------------
+// libtiff 4.7's ThunderDecodeRow: 4-bit pixels, each row its own codes
+// (a byte's top 2 bits): a run of the last pixel (6-bit count), three 2-bit
+// or two 3-bit deltas from it (2 and 4 skip), or a raw pixel. A row that
+// ends short or long has its rest zeroed and fails the strip, which keeps
+// the rows before it. libtiff's quirks stand: a run that passes the row's
+// end writes nothing; one starting on an odd pixel repeats the byte it
+// completed.
+int64_t thunder(const uint8_t* src, uint64_t n, uint8_t* dst, uint64_t rows,
+                uint64_t width) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const uint64_t scanline = (width + 1) / 2;
+  uint64_t pos = 0;
+  for (uint64_t r = 0; r < rows; ++r) {
+    uint8_t* const op0 = dst + r * scanline;
+    uint8_t* op = op0;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    const int64_t maxpixels = int64_t(width);
+    auto set = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1)
+          *op++ |= uint8_t(lastpixel);
+        else
+          op[0] = uint8_t(lastpixel << 4);
+      }
+    };
+    while (pos < n && npixels < maxpixels) {
+      int c = src[pos++];
+      int delta;
+      switch (c & 0xc0) {
+        case 0x00: {  // run
+          int64_t k = c & 0x3f;
+          if (npixels & 1) {
+            op[0] |= uint8_t(lastpixel);
+            lastpixel = *op++;
+            npixels++;
+            k--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += k;
+          if (npixels <= maxpixels)
+            for (; k > 0; k -= 2) *op++ = uint8_t(lastpixel);
+          if (k == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        }
+        case 0x40:  // 2-bit deltas
+          if ((delta = (c >> 4) & 3) != 2) set(unsigned(int(lastpixel) +
+                                                        two[delta]));
+          if ((delta = (c >> 2) & 3) != 2) set(unsigned(int(lastpixel) +
+                                                        two[delta]));
+          if ((delta = c & 3) != 2) set(unsigned(int(lastpixel) +
+                                                 two[delta]));
+          break;
+        case 0x80:  // 3-bit deltas
+          if ((delta = (c >> 3) & 7) != 4) set(unsigned(int(lastpixel) +
+                                                        three[delta]));
+          if ((delta = c & 7) != 4) set(unsigned(int(lastpixel) +
+                                                three[delta]));
+          break;
+        default:  // raw
+          set(unsigned(c));
+          break;
+      }
+    }
+    if (npixels != maxpixels) {
+      uint8_t* const end = op0 + (maxpixels + 1) / 2;
+      if (op < end) std::memset(op, 0, size_t(end - op));
+      return kCorrupt;
+    }
+  }
+  return int64_t(rows * scanline);
 }
 
 // ---- GIF LZW (grfmt_gif.cpp) ----------------------------------------------
 // Codes LSB first over the concatenated data sub-blocks; min_code_size + 1
 // bits at first, 12 at most; a full table takes no new entries until a
-// clear code.
+// clear code. Codes are read to the end code (or the data's end): one that
+// would write past the image is corrupt, as OpenCV refuses it.
 int64_t gif_lzw(const uint8_t* src, uint64_t n, int min_code_size,
                 uint8_t* dst, uint64_t cap) {
   if (min_code_size < 1 || min_code_size > 11) return kCorrupt;
@@ -151,7 +236,7 @@ int64_t gif_lzw(const uint8_t* src, uint64_t n, int min_code_size,
   int width = min_code_size + 1, next = eoi + 1, old = -1;
   uint64_t pos = 0, out = 0, acc = 0;
   int nacc = 0;
-  while (out < cap) {
+  for (;;) {
     while (nacc < width && pos < n) {
       acc |= uint64_t(src[pos++]) << nacc;
       nacc += 8;
@@ -179,14 +264,13 @@ int64_t gif_lzw(const uint8_t* src, uint64_t n, int min_code_size,
       return kCorrupt;
     }
     const int len = table[size_t(code)].length;
+    if (out + uint64_t(len) > cap) return kCorrupt;
     int c = code;
     for (int k = len - 1; k >= 0; --k) {
-      if (out + uint64_t(k) < cap) dst[out + uint64_t(k)] =
-          table[size_t(c)].last;
+      dst[out + uint64_t(k)] = table[size_t(c)].last;
       c = table[size_t(c)].prefix;
     }
     out += uint64_t(len);
-    if (out > cap) out = cap;
     old = code;
   }
   return out < cap ? kShort : int64_t(out);
@@ -354,13 +438,18 @@ void hor_acc(T* p, uint64_t rows, uint64_t row_samples, int stride) {
 extern "C" {
 
 int64_t gic_tiff_lzw(const uint8_t* src, uint64_t n, uint8_t* dst,
-                     uint64_t cap) {
-  return tiff_lzw(src, n, dst, cap);
+                     uint64_t cap, int compat) {
+  return tiff_lzw(src, n, dst, cap, compat != 0);
 }
 
 int64_t gic_packbits(const uint8_t* src, uint64_t n, uint8_t* dst,
                      uint64_t cap) {
   return packbits(src, n, dst, cap);
+}
+
+int64_t gic_thunder(const uint8_t* src, uint64_t n, uint8_t* dst,
+                    uint64_t rows, uint64_t width) {
+  return thunder(src, n, dst, rows, width);
 }
 
 int64_t gic_gif_lzw(const uint8_t* src, uint64_t n, int min_code_size,

@@ -206,6 +206,11 @@ struct Invalid {
 struct Unsupported {
   std::string msg;
 };
+// A header over loadsave.cpp's validateInputImageSize limits (2^20 rows or
+// columns, 2^30 pixels): cv2.imdecode raises cv2.error.
+struct TooLarge {
+  int h, w;
+};
 
 // ------------------------------------------------------------------------
 // Decoder
@@ -483,6 +488,9 @@ struct Decoder {
   bool saw_sof = false, saw_jfif = false, saw_adobe = false;
   bool progressive = false, saw_sos = false;
   bool arith = false, lossless = false;  // SOF9 / SOF10; SOF3
+  // the components a lossless scan has held: jddiffct.c's image buffers
+  // are not pre-zeroed, so reading one no scan wrote is an error
+  std::vector<bool> lossless_scanned;
   // DAC conditioning (jdmarker.c get_soi's defaults: L 0, U 1, Kx 5)
   uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
   int adobe_transform = 0;
@@ -534,10 +542,11 @@ struct Decoder {
     }
   }
 
+  // A length under 2 skips nothing: jdmarker.c's skip_variable,
+  // get_interesting_appn and save_marker pass a bogus length word by.
   void skip_variable() {
     int len = word();
-    if (len < 2) throw Invalid{"bad marker length"};
-    len -= 2;
+    len = len < 2 ? 0 : len - 2;
     if (!have(size_t(len))) throw Invalid{"JPEG ends inside a marker"};
     pos += size_t(len);
   }
@@ -545,8 +554,7 @@ struct Decoder {
   void get_app(int marker) {
     size_t start = pos;
     int len = word();
-    if (len < 2) throw Invalid{"bad marker length"};
-    size_t body = size_t(len - 2);
+    size_t body = len < 2 ? 0 : size_t(len - 2);
     if (!have(body)) throw Invalid{"JPEG ends inside a marker"};
     uint8_t b[14];
     for (size_t i = 0; i < sizeof(b); i++)
@@ -1309,11 +1317,10 @@ struct Decoder {
       Derived dct[4];
       for (int i = 0; i < ns; i++) {
         if (td[i] > 3) throw Invalid{"bad Huffman table index"};
-        HuffSpec spec = dc_spec[td[i]];
-        if (!spec.defined) {
-          if (td[i] > 1) throw Invalid{"missing Huffman table"};
-          std_spec(&spec, td[i] ? kStdDcChroma : kStdDcLuma, 28);
-        }
+        // jdlhuff.c installs no standard tables (jdhuff.c's Motion-JPEG
+        // fallback): a table the file does not define is an error
+        const HuffSpec& spec = dc_spec[td[i]];
+        if (!spec.defined) throw Invalid{"missing Huffman table"};
         derive(spec, true, &dct[i], 16);
       }
       BitReader br{d, n, pos};
@@ -1321,6 +1328,9 @@ struct Decoder {
       decode_lossless(br, sc, dct, Ss, Al);
       pos = br.pos;
       unread_marker = br.marker;
+      lossless_scanned.resize(comps.size());
+      for (int i = 0; i < ns; i++)
+        lossless_scanned[size_t(sc[size_t(i)])] = true;
       return ns == int(comps.size());
     }
     if (progressive) {  // jdphuff.c / jdarith.c start_pass
@@ -1345,8 +1355,10 @@ struct Decoder {
         int no = k ? ta[i] : td[i];
         if (no > 3) throw Invalid{"bad Huffman table index"};
         HuffSpec spec = k ? ac_spec[no] : dc_spec[no];
-        if (!spec.defined) {  // jpeg_std_huff_table (Motion-JPEG)
-          if (no > 1) throw Invalid{"missing Huffman table"};
+        // jdhuff.c's std_huff_tables (Motion-JPEG): sequential files only,
+        // jdphuff.c installs none
+        if (!spec.defined) {
+          if (no > 1 || progressive) throw Invalid{"missing Huffman table"};
           if (k)
             std_spec(&spec, no ? kStdAcChroma : kStdAcLuma, 178);
           else
@@ -1779,10 +1791,16 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t size, int mode,
     throw Invalid{"not a JPEG (no SOI)"};
   dec.pos = 2;
   if (!dec.read_markers()) throw Invalid{"JPEG without an image"};
+  // jpeg_read_header has read the frame: OpenCV's size check comes next
+  if (dec.width > (1 << 20) || dec.height > (1 << 20) ||
+      int64_t(dec.width) * dec.height > (int64_t(1) << 30))
+    throw TooLarge{dec.height, dec.width};
   // Several scans (progressive, or sequential ones that each hold some of
   // the components): read them all, up to EOI.
   if (!dec.decode_scan()) {
     while (dec.read_markers()) dec.decode_scan();
+    for (bool held : dec.lossless_scanned)  // EOI before a component's scan
+      if (!held) throw Invalid{"Bogus virtual array access"};
   }
   *exif_off = dec.exif_off;
   *exif_len = dec.exif_len;
@@ -2273,8 +2291,9 @@ extern "C" {
 
 // Decodes a JPEG, as cv2.imdecode (file 0) or cv2.imread (file 1) does.
 // Returns a malloc'd (h, w, c) uint8 buffer (free it with gjpeg_free), or
-// NULL with *status 1 (bytes cv2 gives None for) or 2 (a variant the codec
-// does not read; msg names it). exif[0] and exif[1] get the offset and
+// NULL with *status 1 (bytes cv2 gives None for), 2 (a variant the codec
+// does not read; msg names it) or 3 (a header over cv2's size limits, its
+// rows and columns in *h and *w). exif[0] and exif[1] get the offset and
 // length of the Exif APP1's TIFF body (length 0 when there is none).
 uint8_t* gjpeg_decode(const uint8_t* data, uint64_t size, int mode, int file,
                       int* h, int* w, int* c, uint64_t* exif, int* status,
@@ -2293,6 +2312,10 @@ uint8_t* gjpeg_decode(const uint8_t* data, uint64_t size, int mode, int file,
   } catch (const Unsupported& e) {
     *status = 2;
     set_msg(msg, msglen, e.msg);
+  } catch (const TooLarge& e) {
+    *status = 3;
+    *h = e.h;
+    *w = e.w;
   } catch (const std::bad_alloc&) {
     *status = 1;
     set_msg(msg, msglen, "out of memory");

@@ -411,8 +411,8 @@ size_t read_spcod(const uint8_t* p, size_t n, TCCP& t) {
   if (t.numres > kMaxRes)
     fail("Invalid value for numresolutions : %d, max value is set in "
          "openjpeg.h at %d", t.numres, kMaxRes);
-  t.cblkw = (p[1] & 0xf) + 2;
-  t.cblkh = (p[2] & 0xf) + 2;
+  t.cblkw = p[1] + 2;  // the whole byte, as opj_j2k_read_SPCod_SPCoc
+  t.cblkh = p[2] + 2;
   if (t.cblkw > 10 || t.cblkh > 10 || t.cblkw + t.cblkh > 12)
     fail("Error reading SPCod SPCoc element, Invalid cblkw/cblkh "
          "combination");
@@ -1646,12 +1646,52 @@ void decode_tile(Codestream& cs, const TCP& tcp, int tileno,
           c0.h() != c2.h())
         fail("Tiles don't all have the same dimension. Skip the MCT step.");
       const bool rev = tcp.tccps[0].qmfbid == 1;
-      if (tcp.tccps[1].qmfbid != tcp.tccps[0].qmfbid ||
-          tcp.tccps[2].qmfbid != tcp.tccps[0].qmfbid)
-        refuse("JPEG 2000 MCT over components of both wavelets");
       const Res& r0 = c0.res[size_t(c0.numres - 1)];
       const size_t n = size_t(r0.x1 - r0.x0) * size_t(r0.y1 - r0.y0);
-      if (rev) {
+      if (tcp.tccps[1].qmfbid != tcp.tccps[0].qmfbid ||
+          tcp.tccps[2].qmfbid != tcp.tccps[0].qmfbid) {
+        // components of both wavelets: OpenJPEG keeps every component in
+        // one 32-bit buffer (integers after 5/3, floats after 9/7) and
+        // runs component 0's transform over the three as they stand
+        std::vector<uint32_t> w[3];
+        for (int k = 0; k < 3; k++) {
+          TileComp& tc = t.comps[size_t(k)];
+          w[k].resize(n);
+          if (tcp.tccps[size_t(k)].qmfbid == 1)
+            std::memcpy(w[k].data(), tc.idata.data(), n * 4);
+          else
+            std::memcpy(w[k].data(), tc.fdata.data(), n * 4);
+        }
+        for (size_t i = 0; i < n; i++) {
+          if (rev) {  // opj_mct_decode, int32 arithmetic wrapping
+            const uint32_t y = w[0][i], u = w[1][i], v = w[2][i];
+            const uint32_t g =
+                y - uint32_t(int32_t(u + v) >> 2);
+            w[0][i] = v + g;
+            w[1][i] = g;
+            w[2][i] = u + g;
+          } else {  // opj_mct_decode_real
+            float yy, uu, vv;
+            std::memcpy(&yy, &w[0][i], 4);
+            std::memcpy(&uu, &w[1][i], 4);
+            std::memcpy(&vv, &w[2][i], 4);
+            const float r = yy + vv * 1.402f;
+            float g = yy - uu * 0.34413f;
+            g = g - vv * 0.71414f;
+            const float b = yy + uu * 1.772f;
+            std::memcpy(&w[0][i], &r, 4);
+            std::memcpy(&w[1][i], &g, 4);
+            std::memcpy(&w[2][i], &b, 4);
+          }
+        }
+        for (int k = 0; k < 3; k++) {
+          TileComp& tc = t.comps[size_t(k)];
+          if (tcp.tccps[size_t(k)].qmfbid == 1)
+            std::memcpy(tc.idata.data(), w[k].data(), n * 4);
+          else
+            std::memcpy(tc.fdata.data(), w[k].data(), n * 4);
+        }
+      } else if (rev) {
         int32_t *y = t.comps[0].idata.data(), *u = t.comps[1].idata.data(),
                 *v = t.comps[2].idata.data();
         for (size_t i = 0; i < n; i++) {
@@ -1696,8 +1736,8 @@ void decode_tile(Codestream& cs, const TCP& tcp, int tileno,
     const size_t stride = size_t(tc.w());
     auto level = [&](size_t o) -> int32_t {
       int64_t v;
-      if (rev) {
-        v = int64_t(tc.idata[o]) + shift;
+      if (rev) {  // OpenJPEG adds in 32 bits
+        v = int32_t(uint32_t(tc.idata[o]) + uint32_t(shift));
       } else {
         const float fv = tc.fdata[o];
         if (fv > float(INT32_MAX))

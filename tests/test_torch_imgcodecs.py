@@ -32,13 +32,15 @@ from gisnav_tpu import replay as jreplay
 from gisnav_tpu_torch import replay as treplay
 from gisnav_tpu_torch.gis.imgcodecs import (decode_image, image_format,
                                             read_image)
+from gisnav_tpu_torch.gis.png import decode_png
 from gisnav_tpu_torch.gis.tiff import encode_tiff
 from gisnav_tpu_torch.gis.wms import WMSClient, request_orthoimage
 from gisnav_tpu_torch.utils.world_wms import World, write_replay_dataset
 from tests.test_torch_nodes import _serve
 from tests.torch_image_writers import (bmp_rle_encode, gif_frame,
-                                       hdr_rle_line, write_bmp, write_gif,
-                                       write_hdr, write_sun, write_tiff)
+                                       hdr_rle_line, thunder_encode,
+                                       write_bmp, write_gif, write_hdr,
+                                       write_sun, write_tiff)
 
 cv2.utils.logging.setLogLevel(cv2.utils.logging.LOG_LEVEL_SILENT)
 FLAGS = (cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE)
@@ -268,14 +270,29 @@ def test_tiff_jpeg_as_cv2(mode, tiled):
     _check(_pillow_tiff(mode, **kw))
 
 
-def _thunderscan_palette4(r):
-    """A 4-bit palette TIFF of ThunderScan raw codes (0xC0 | index)."""
-    idx = r.integers(0, 16, (H, W)).astype(np.uint8)
-    codes = (0xC0 | idx.astype(np.uint16)).astype(np.uint8).reshape(1, -1)
-    return write_tiff(codes, photometric=3, extra_tags=[
-        (256, 4, [W]), (257, 4, [H]), (258, 3, [4]), (259, 3, [32809]),
-        (278, 4, [H]), (320, 3, list(np.asarray(r.integers(
-            0, 65536, (16, 3)), np.uint16).T.ravel()))])
+def _thunderscan(kind: str, r):
+    """A 4-bit palette ThunderScan TIFF: raw codes, runs and deltas (the
+    writer's), random codes (libtiff's damage rules), or 5-row strips."""
+    idx = np.cumsum(r.integers(-1, 2, (H, W)), axis=1) % 16
+    idx[:, :W // 3] = idx[:, :1]
+    rps = 5 if kind == "strips" else H
+    strips = [thunder_encode(idx[y:y + rps], raw_only=kind == "raw")
+              for y in range(0, H, rps)]
+    if kind == "random":
+        strips = [r.integers(0, 256, len(s)).astype(np.uint8).tobytes()
+                  for s in strips]
+    return write_tiff(np.zeros((H, W), np.uint8), strips=strips,
+                      photometric=3, extra_tags=[
+        (258, 3, [4]), (259, 3, [32809]), (278, 4, [rps]),
+        (320, 3, list(np.asarray(r.integers(0, 65536, (16, 3)),
+                                 np.uint16).T.ravel()))])
+
+
+@pytest.mark.parametrize("kind", ["raw", "deltas", "strips", "random"])
+def test_tiff_thunderscan_as_cv2(kind):
+    """ThunderScan 4-bit palettes (libtiff's ThunderDecode, quirks and
+    damage included) read as cv2 reads them."""
+    _check(_thunderscan(kind, _rng("thunderscan_" + kind)))
 
 
 # the variants cv2 reads that the port refuses (band-interleaved samples
@@ -287,7 +304,6 @@ REFUSED_TIFF = {
     "planar2_f32_tiles": (lambda r: write_tiff(
         r.random((H, W, 3)).astype(np.float32), planar=2, tile=(16, 16)),
         "PlanarConfiguration 2", (cv2.IMREAD_UNCHANGED,)),
-    "thunderscan_palette4": (_thunderscan_palette4, "ThunderScan", FLAGS),
 }
 
 
@@ -676,17 +692,16 @@ SIGNED = {
 @pytest.mark.parametrize("fmt", sorted(SIGNED))
 def test_signature_then_bad_header_gives_none(fmt):
     """A matching signature decides the decoder; a bad header after it is
-    None in cv2 (no other decoder is tried) and in the port (PNG's reader
-    raises on a malformed file, as it did)."""
+    None in cv2 (no other decoder is tried) and in the port (``decode_png``
+    alone raises on a malformed PNG)."""
     data = SIGNED[fmt] + b"\xee" * 40
     assert image_format(data) == fmt
     for flag in FLAGS:
         assert cv2.imdecode(np.frombuffer(data, np.uint8), flag) is None
-        if fmt == "PNG":
-            with pytest.raises(ValueError):
-                decode_image(data, flag)
-        else:
-            assert decode_image(data, flag) is None
+        assert decode_image(data, flag) is None
+    if fmt == "PNG":
+        with pytest.raises(ValueError):
+            decode_png(data)
 
 
 @pytest.mark.parametrize("data", [b"P5x", b"P8\n", b"#?RGB", b"MM\0+",

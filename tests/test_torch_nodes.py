@@ -311,7 +311,7 @@ def test_png_encode_roundtrip_and_refusals():
     with pytest.raises(ValueError, match="JPEG"):
         decode_png(jpg.tobytes())
     data = bytearray(encode_png(_images()["grey"]))
-    data[40] ^= 0xFF  # inside IDAT: the chunk CRC no longer holds
+    data[44] ^= 0xFF  # inside IDAT's data: the chunk CRC no longer holds
     with pytest.raises(ValueError, match="CRC"):
         decode_png(bytes(data))
 

@@ -16,7 +16,7 @@ and dtypes.
   applies: sRGB over gAMA, neither after PLTE or IDAT, iCCP and cICP
   ignored), at 16 bits through its 16-bit tables and the gamma shift an
   sBIT chunk sets; an ancillary chunk that fails its CRC is dropped, a
-  critical one raises.
+  critical one gives None as in cv2.
 - eXIf orientation as cv2 applies it (grey flag only; libpng's checks: the
   first valid chunk, a TIFF header, a good CRC; before or after IDAT).
 - A loopback WMS serving a progressive JPEG, CMYK and palette PNG replies:
@@ -305,28 +305,30 @@ def _palette_edge_cases():
 @pytest.mark.parametrize("case", sorted(_palette_edge_cases()))
 def test_palette_and_trns_rules_as_cv2(case):
     """libpng's rules: a tRNS of the wrong size or place is ignored, an
-    index past the palette reads black, a second PLTE is an error (cv2
-    None, the port raises)."""
+    index past the palette reads black, a second PLTE is an error (None
+    from cv2 and ``decode_image``; ``decode_png`` raises)."""
     data = _palette_edge_cases()[case]
     if case == "two_plte":
         assert cv2.imdecode(np.frombuffer(data, np.uint8), -1) is None
+        assert tjpeg.decode_image(data) is None
         with pytest.raises(ValueError, match="PLTE"):
-            tjpeg.decode_image(data)
+            decode_png(data)
         return
     _as_cv2(data)
 
 
 def test_png_crc_rules():
     """An ancillary chunk failing its CRC is dropped as libpng drops it; a
-    critical one raises (cv2 gives None)."""
+    critical one gives None as in cv2 (``decode_png`` raises)."""
     img = np.random.default_rng(11).integers(0, 256, (H, W)).astype(np.uint8)
     bad_text = chunk(b"tEXt", b"k\0v")[:-1] + b"\0"
     _as_cv2(write_png(img, 8, 0, before=[bad_text]))
     data = bytearray(write_png(img, 8, 0))
     data[data.index(b"IDAT") + 6] ^= 0xFF
     assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8), -1) is None
+    assert tjpeg.decode_image(bytes(data)) is None
     with pytest.raises(ValueError, match="CRC"):
-        tjpeg.decode_image(bytes(data))
+        decode_png(bytes(data))
 
 
 def test_decode_png_gives_the_files_samples():

@@ -14,7 +14,9 @@ encoder and transcoder (Pillow's bundled ``libjpeg``, through a small C
 shim built with the host compiler against ``jpeglib.h``) for lossless,
 arithmetic-coded and DAC-conditioned files, which cv2 does not write; and
 a lossless writer of its own for the sampling ratios, scan splits and
-colour markers libjpeg's lossless encoder does not write."""
+colour markers libjpeg's lossless encoder does not write. ``damage_ops``
+damages a file on a seed (cuts, byte flips, zeroed runs), the same bytes
+on every machine."""
 import ctypes
 import functools
 import glob
@@ -509,6 +511,45 @@ def pillow_tiff(img: np.ndarray, mode: str = "", **save) -> bytes:
         [sys.executable, "-c", _PILLOW_TIFF, mode, repr(save)],
         input=buf.getvalue(), check=True, capture_output=True,
         timeout=120).stdout
+
+
+# --- ThunderScan -----------------------------------------------------------
+
+def thunder_encode(rows: np.ndarray, raw_only: bool = False) -> bytes:
+    """(h, w) 4-bit pixels -> ThunderScan codes, each row on its own (as
+    libtiff decodes them): runs of the last pixel, three 2-bit or two 3-bit
+    deltas from it, raw pixels otherwise (``raw_only``: every pixel raw)."""
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            if raw_only:
+                out.append(0xC0 | int(row[i]))
+                last, i = int(row[i]), i + 1
+                continue
+            run = 0
+            while i + run < w and run < 63 and row[i + run] == last:
+                run += 1
+            if run >= 2 and i % 2 == 0:
+                out.append(run)
+                i += run
+                continue
+            d = [int(v) - p for v, p in zip(row[i:i + 3],
+                                              [last] + list(row[i:i + 2]))]
+            if len(d) == 3 and all(v in (-1, 0, 1) for v in d):
+                code = {0: 0, 1: 1, -1: 3}
+                out.append(0x40 | code[d[0]] << 4 | code[d[1]] << 2
+                           | code[d[2]])
+                last, i = int(row[i + 2]), i + 3
+                continue
+            if len(d) >= 2 and all(-3 <= v <= 3 for v in d[:2]):
+                code = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+                out.append(0x80 | code[d[0]] << 3 | code[d[1]])
+                last, i = int(row[i + 1]), i + 2
+                continue
+            out.append(0xC0 | int(row[i]))
+            last, i = int(row[i]), i + 1
+    return bytes(out)
 
 
 # --- GIF -------------------------------------------------------------------
@@ -1210,6 +1251,19 @@ def j2k_patch_cod(cs: bytes, style=None, progression=None,
     return bytes(out)
 
 
+def j2k_with_coc(cs: bytes, comp: int, qmfbid: int) -> bytes:
+    """A COC marker for component ``comp`` in the main header: COD's
+    coding style and SPcod with the wavelet set to ``qmfbid`` (1: 5/3,
+    0: 9/7), which the decoder then applies to that component's data."""
+    at = j2k_marker(cs, 0xff52)
+    n = struct.unpack(">H", cs[at + 2:at + 4])[0]
+    body = cs[at + 4:at + 2 + n]
+    spcod = body[5:]
+    spcoc = spcod[:4] + bytes([qmfbid]) + spcod[5:]
+    return j2k_insert(cs, j2k_segment(0xff53, bytes([comp, body[0] & 1])
+                                      + spcoc))
+
+
 def j2k_insert(cs: bytes, segment: bytes, before: int = 0xff90) -> bytes:
     """A marker segment inserted in the main header before ``before``
     (the first tile-part by default)."""
@@ -1895,3 +1949,95 @@ def lossless_jpeg(planes, sampling, *, size=None, psv: int = 1,
             out += _lossless_segment(np.concatenate(rows[k:k + step]),
                                      codes, lengths)
     return out + b"\xff\xd9"
+
+
+DAMAGE_SEED = 24
+DAMAGE_CUTS = (25, 50, 75, 95, 99)  # per cent of the file kept
+DAMAGE_FLIPS = 8  # single bytes XORed with a non-zero byte
+DAMAGE_MULTI = 3  # runs of 4 bytes XORed
+DAMAGE_ZEROED = 2  # runs of 8 bytes set to 0
+
+
+def damage_ops(name: str, data: bytes) -> list:
+    """Seeded damage of one file, keyed by its name: [(operation, bytes)]
+    of cuts at ``DAMAGE_CUTS`` per cent, then ``DAMAGE_FLIPS`` single-byte
+    flips, ``DAMAGE_MULTI`` 4-byte flips and ``DAMAGE_ZEROED`` zeroed
+    8-byte runs. The operation's name holds its offsets and values, so
+    ``damage_ops(name, data)`` remakes the same bytes anywhere (the
+    committed digests hold these counts)."""
+    rng = np.random.default_rng([DAMAGE_SEED, zlib.crc32(name.encode())])
+    n = len(data)
+    ops = [(f"cut{c}", data[:n * c // 100]) for c in DAMAGE_CUTS]
+    for k, width, kind in ((DAMAGE_FLIPS, 1, "xor"), (DAMAGE_MULTI, 4, "xor"),
+                           (DAMAGE_ZEROED, 8, "zero")):
+        for _ in range(k):
+            at = int(rng.integers(0, max(1, n - width)))
+            if kind == "zero":
+                vals = [0] * width
+            else:
+                vals = [int(v) for v in rng.integers(1, 256, width)]
+            b = bytearray(data)
+            for i, v in enumerate(vals):
+                if at + i < n:
+                    b[at + i] = 0 if kind == "zero" else b[at + i] ^ v
+            ops.append((f"{kind}{at}_" + "".join(f"{v:02x}" for v in vals),
+                        bytes(b)))
+    return ops
+
+
+DAMAGE_SETS = ("torch_images", "torch_webp", "torch_jp2", "torch_jpegx",
+               "torch_tiffx")
+DAMAGE_MAX_BYTES = 200_000
+
+
+def damage_fixtures(data_dir: str) -> dict:
+    """The committed fixtures the damage sweep runs over: every file under
+    ``DAMAGE_MAX_BYTES`` in ``DAMAGE_SETS`` (not their flights or
+    digests), keyed "set/name"."""
+    out = {}
+    for sub in DAMAGE_SETS:
+        folder = os.path.join(data_dir, sub)
+        for name in sorted(os.listdir(folder)):
+            path = os.path.join(folder, name)
+            if name.endswith(".json") or not os.path.isfile(path) or \
+                    os.path.getsize(path) >= DAMAGE_MAX_BYTES:
+                continue
+            with open(path, "rb") as f:
+                out[f"{sub}/{name}"] = f.read()
+    return out
+
+
+def damage_digest(img) -> object:
+    """One decode's outcome as the damage digests hold it: None, the word
+    "raises" (``cv2.error`` / the port's size-limit ``ValueError``), or
+    "sha256:shape:dtype" of the array's bytes."""
+    if img is None or isinstance(img, str):
+        return img
+    a = np.ascontiguousarray(img)
+    return (hashlib.sha256(a.tobytes()).hexdigest() + ":"
+            + "x".join(str(n) for n in a.shape) + ":" + str(a.dtype))
+
+
+def idat_flipped(png: bytes) -> bytes:
+    """A PNG with the first byte of its first IDAT's data flipped: the
+    chunk fails its CRC (libpng's error; cv2 gives None)."""
+    at = png.index(b"IDAT") + 4
+    return png[:at] + bytes([png[at] ^ 0x40]) + png[at + 1:]
+
+
+def strip_corrupted(tiff: bytes) -> bytes:
+    """A little-endian classic TIFF with the byte in the middle of its
+    second strip's data inverted (the first strip stays whole): an LZW
+    strip's decoder stops there (libtiff's RGBA reader keeps the rows
+    before it, zeros after)."""
+    ifd = struct.unpack_from("<I", tiff, 4)[0]
+    fields = {}
+    for i in range(struct.unpack_from("<H", tiff, ifd)[0]):
+        tag, ftype, count, value = struct.unpack_from("<HHII", tiff,
+                                                      ifd + 2 + 12 * i)
+        size = {3: 2, 4: 4}[ftype] * count
+        fmt = "<" + ("H" if ftype == 3 else "I") * count
+        fields[tag] = struct.unpack_from(
+            fmt, tiff, ifd + 10 + 12 * i if size <= 4 else value)
+    at = fields[273][1] + fields[279][1] // 2
+    return tiff[:at] + bytes([tiff[at] ^ 0xFF]) + tiff[at + 1:]

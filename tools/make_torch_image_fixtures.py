@@ -16,6 +16,16 @@ digests. Needs OpenCV and Pillow (not on the card machine)::
         [--webp-out tests/data/torch_webp] [--jp2-out tests/data/torch_jp2]
         [--jpegx-out tests/data/torch_jpegx]
         [--tiffx-out tests/data/torch_tiffx]
+        [--damaged-out tests/data/torch_damaged] [--damaged-only]
+
+The damaged set (``--damaged-out``) holds no files: its ``digests.json``
+has cv2's outcome of every seeded damage (``tests/torch_image_writers.py``
+``damage_ops``: cuts, byte flips, zeroed runs) of every committed fixture
+under 200 KB in the five sets, under both flags (the pixels' sha256 with
+shape and dtype, null for None, "raises" where cv2 raises on its size
+limits), so that the bytes are remade from the fixtures and the seed on a
+machine without OpenCV (``chip_smoke.py`` path 21). ``--damaged-only``
+rewrites it from the committed fixtures alone.
 
 The WebP set (``--webp-out``, its own ``digests.json`` of the same form,
 under 1 MiB with its flight) holds cv2's and Pillow's files of every kind
@@ -127,10 +137,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 from gisnav_tpu_torch.utils.world_wms import World  # noqa: E402
 from tests.torch_image_writers import (  # noqa: E402
-    bmp_rle_encode, chunk, exif_tiff, gif_frame, j2k_codestream,
+    DAMAGE_SEED, bmp_rle_encode, chunk, damage_digest, damage_fixtures,
+    damage_ops, exif_tiff, gif_frame, j2k_codestream,
     j2k_patch_precision, j2k_with_ppm, j2k_with_ppt, jp2_cdef, jp2_cmap,
     jp2_colr, jp2_ihdr, jp2_pclr, jp2_wrap, JCS_CMYK, JCS_RGB, libjpeg_encode,
-    libjpeg_transcode, lossless_jpeg, openjpeg_encode, webp_anim,
+    j2k_with_coc, libjpeg_transcode, lossless_jpeg, openjpeg_encode,
+    thunder_encode, webp_anim,
     webp_anmf, webp_chunk, webp_chunks, webp_riff, webp_vp8x, with_exif_app1,
     write_bmp, write_gif, write_hdr, write_png, write_sun, write_tiff,
     ccitt_1d, pillow_tiff)
@@ -165,6 +177,8 @@ JPEGX_SIZE_LIMIT = 2560 * 1024  # the lossless / arithmetic set, flight
 TIFFX_OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests",
                          "data", "torch_tiffx")
 TIFFX_SIZE_LIMIT = 1024 * 1024
+DAMAGED_OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests",
+                           "data", "torch_damaged")
 JPEGX_FLIGHT = {"world": FLIGHT["world"], "frames": 8, "hw": [1088, 1920],
                 "coverage": 1.3, "quality": 90,
                 "map_sequential": "map_sequential.jpg",
@@ -598,6 +612,12 @@ def jp2_files() -> dict:
             np.tile(c, (11, 9, 1))[:512, :512], irreversible=True,
             rates=(20,), tiles=(512, 512)),
     }
+    # the MCT over components of both wavelets (COC markers): OpenJPEG
+    # runs component 0's transform over the others' samples as they stand
+    rev = _pil_jp2(c, no_jp2=True)
+    files["j2k_mct_53_97.j2k"] = j2k_with_coc(j2k_with_coc(rev, 1, 0), 2, 0)
+    files["j2k_mct_97_53.j2k"] = j2k_with_coc(
+        _pil_jp2(c, no_jp2=True, irreversible=True), 0, 1)
     s15 = _pil_jp2(i16 >> 1, mode="I;16")
     at = s15.index(b"jp2c") + 4
     files["j2k_siz15_sentinel.jp2"] = s15[:at] + j2k_patch_precision(
@@ -764,10 +784,10 @@ def _damaged(data: bytes, seed: int, flips: int, cut: bool = False
              ) -> bytes:
     """A one-strip TIFF with ``flips`` bits of its strip flipped (and its
     byte count cut to two thirds), from ``seed``."""
-    from gisnav_tpu_torch.gis.tiff import _Ifd
+    from gisnav_tpu_torch.gis.tiff import _DirReader, _Ifd
 
-    ifd = _Ifd(data)
-    off, count = int(ifd.tags[273][0]), int(ifd.tags[279][0])
+    r = _DirReader(_Ifd(data), data)
+    off, count = (int(r.strip_array((tag,), 1)[0]) for tag in (273, 279))
     r = np.random.default_rng(seed)
     out = bytearray(data)
     for _ in range(flips):
@@ -840,6 +860,21 @@ def tiffx_files() -> dict:
     files["bmp_v5_10_10_10_2.bmp"] = write_bmp(
         words.view(np.uint8).reshape(13, 17, 4), 32, header=124,
         compression=3, masks=(0x3FF00000, 0xFFC00, 0x3FF, 0xC0000000))
+    # ThunderScan 4-bit palettes (runs, 2- and 3-bit deltas, raw pixels;
+    # the raw form one code a pixel), strips of 7 rows
+    r = np.random.default_rng(24)
+    idx = np.cumsum(r.integers(-1, 2, (37, 53)), axis=1) % 16
+    idx[:, :20] = idx[:, :1]
+    idx[30:] = r.integers(0, 16, (7, 53))
+    cmap = list(np.asarray(r.integers(0, 65536, (16, 3)), np.uint16).T.ravel())
+    for name, raw in (("thunderscan_palette4.tif", False),
+                      ("thunderscan_raw.tif", True)):
+        files[name] = write_tiff(
+            np.zeros((37, 53), np.uint8), photometric=3,
+            strips=[thunder_encode(idx[y:y + 7], raw_only=raw)
+                    for y in range(0, 37, 7)],
+            extra_tags=[(258, 3, [4]), (259, 3, [32809]), (278, 4, [7]),
+                        (320, 3, cmap)])
     # path 19: the DEM layer, and the map as bilevel fax for timing
     n = 2208
     geo = {33550: (1e-5, 1e-5, 0.0), 33922: (0.0, 0.0, 0.0, 24.0, 60.0,
@@ -913,6 +948,34 @@ def write_set(out: str, files: dict) -> int:
     return sum(len(d) for d in files.values())
 
 
+def _cv2_outcome(data: bytes, flag: int):
+    """cv2.imdecode's array, None, or "raises" (its size limits)."""
+    try:
+        return cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+    except cv2.error:
+        return "raises"
+
+
+def write_damaged(out: str, data_dir: str) -> int:
+    """``out``/digests.json: cv2's outcome of every seeded damage of every
+    committed fixture (``tests/torch_image_writers.py`` ``damage_ops``,
+    ``damage_fixtures``) under IMREAD_UNCHANGED and IMREAD_GRAYSCALE, a
+    fixture a line; returns the entries."""
+    os.makedirs(out, exist_ok=True)
+    lines, n = [], 0
+    for name, data in damage_fixtures(data_dir).items():
+        ops = {op: [damage_digest(_cv2_outcome(b, f))
+                    for f in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE)]
+               for op, b in damage_ops(name, data)}
+        n += 2 * len(ops)
+        lines.append(f"{json.dumps(name)}:"
+                     f"{json.dumps(ops, separators=(',', ':'))}")
+    with open(os.path.join(out, "digests.json"), "w") as f:
+        f.write("{\n" + f'"seed":{DAMAGE_SEED},\n"flags":[-1,0],\n'
+                + '"files":{\n' + ",\n".join(lines) + "\n}\n}\n")
+    return n
+
+
 def _tree_bytes(root: str) -> int:
     return sum(os.path.getsize(os.path.join(d, n))
                for d, _, names in os.walk(root) for n in names)
@@ -925,7 +988,18 @@ def main() -> int:
     ap.add_argument("--jp2-out", default=JP2_OUT)
     ap.add_argument("--jpegx-out", default=JPEGX_OUT)
     ap.add_argument("--tiffx-out", default=TIFFX_OUT)
+    ap.add_argument("--damaged-out", default=DAMAGED_OUT,
+                    help="where cv2's digests of the seeded damaged "
+                    "fixtures go (written after the sets)")
+    ap.add_argument("--damaged-only", action="store_true",
+                    help="write only the damaged digests, from the "
+                    "committed fixtures")
     args = ap.parse_args()
+    data_dir = os.path.dirname(os.path.abspath(args.damaged_out))
+    if args.damaged_only:
+        n = write_damaged(args.damaged_out, data_dir)
+        print(f"{n} damaged decodes' digests in {args.damaged_out}")
+        return 0
     files = build()
     total = sum(len(d) for d in files.values())
     if total > SIZE_LIMIT:
@@ -966,6 +1040,8 @@ def main() -> int:
                          f"{TIFFX_SIZE_LIMIT}")
     print(f"{len(tiffx)} TIFF variant fixtures, {total} bytes, in "
           f"{args.tiffx_out}")
+    n = write_damaged(args.damaged_out, data_dir)
+    print(f"{n} damaged decodes' digests in {args.damaged_out}")
     return 0
 
 
