@@ -273,7 +273,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of ``decode_image`` on the 2208-px map, a 1088x1920 frame and a
    4096x4096 irreversible RGB image (the fixture tile repeated 8 x 8)
    beside PNG and JPEG of the same pixels, the 4096-px decode's peak
-   resident memory, with the card's name and power limit;
+   resident memory, with the card's name and power limit. HTJ2K (JPEG
+   2000 Part 15) joins each part: (a) the ``tests/data/torch_htj2k``
+   fixtures and the HT flight's files and DEM; (b') the same replay over
+   the HT flight (the JPEG 2000 flight's pixels re-coded as HT, its DEM
+   bit-equal), each fix within ``JP2_FIX_M`` of the truth and
+   ``JP2_MOVE_M`` of the PNG twin's, the DEM's sha256 cv2's; (c') the GIS
+   node's ``image/jp2`` raster of the HT map equal to cv2's; (d) the HT
+   map and frame timed beside the JPEG 2000 ones, every decode split into
+   tier 1 (MQ or HT), the inverse wavelet and the rest by the native
+   decoder's timer;
 21. path 18: lossless and arithmetic-coded JPEG, read as cv2 5.0 reads
    them (``native/jpeg.cpp``; this machine has no OpenCV and no libjpeg):
    (a) every committed fixture (``tests/data/torch_jpegx``:
@@ -5918,6 +5927,11 @@ JP2_FIX_M = 3.0  # every fix over the JPEG 2000 flight within this of truth
 JP2_MOVE_M = 5.0  # a JPEG 2000 fix from the PNG one's, at most
 JP2_TWIN_MEAN_ABS = 1.5  # grey levels, the PNG twin from the JP2 flight
 JP2_TILE = "rgb512_irr_tile.j2k"  # repeated 8 x 8 into a 4096-px image
+# HTJ2K (JPEG 2000 Part 15): its fixtures and path 17's HT flight, the JPEG
+# 2000 flight's pixels re-coded as HT (tools/make_torch_image_fixtures.py)
+HTJ2K_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "data", "torch_htj2k")
+HTJ2K_FLIGHT = os.path.join(HTJ2K_FIXTURES, "flight")
 JP2_REPS = (10, 3, 1)  # decodes timed of a frame, the map, the 4096 image
 
 
@@ -5944,33 +5958,38 @@ def j2k_mosaic(tile: bytes, nx: int, ny: int) -> bytes:
 
 
 def jp2_fixtures() -> dict:
-    """Path 17 (a): every committed JPEG 2000 fixture decoded by
-    ``decode_image`` under both flags, the flight's map and frames under
-    the grey flag (as replay reads them) and its DEM unchanged, each pixel
-    digest equal to cv2's."""
+    """Path 17 (a): every committed JPEG 2000 and HTJ2K fixture decoded by
+    ``decode_image`` under both flags, both flights' maps and frames under
+    the grey flag (as replay reads them) and their DEMs unchanged, each
+    pixel digest equal to cv2's."""
     from gisnav_tpu_torch.gis.imgcodecs import (IMREAD_GRAYSCALE,
                                                 IMREAD_UNCHANGED,
                                                 decode_image)
 
-    with open(os.path.join(JP2_FIXTURES, "digests.json")) as f:
-        digests = json.load(f)
-    with open(os.path.join(JP2_FLIGHT, "flight.json")) as f:
-        flight = json.load(f)
     flags = {"unchanged": IMREAD_UNCHANGED, "grayscale": IMREAD_GRAYSCALE}
-    cases = [(os.path.join(JP2_FIXTURES, n), key, want[key])
-             for n, want in sorted(digests.items()) for key in flags]
-    cases += [(os.path.join(JP2_FLIGHT, n), "grayscale", want)
-              for n, want in sorted(flight["jp2_cv2"].items())]
-    cases.append((os.path.join(JP2_FLIGHT, flight["dem"]), "unchanged",
-                  flight["dem_cv2"]))
+    cases, files = [], 0
+    for folder, flight_dir, key_cv2 in (
+            (JP2_FIXTURES, JP2_FLIGHT, "jp2_cv2"),
+            (HTJ2K_FIXTURES, HTJ2K_FLIGHT, "ht_cv2")):
+        with open(os.path.join(folder, "digests.json")) as f:
+            digests = json.load(f)
+        with open(os.path.join(flight_dir, "flight.json")) as f:
+            flight = json.load(f)
+        cases += [(os.path.join(folder, n), key, want[key])
+                  for n, want in sorted(digests.items()) for key in flags]
+        cases += [(os.path.join(flight_dir, n), "grayscale", want)
+                  for n, want in sorted(flight[key_cv2].items())]
+        cases.append((os.path.join(flight_dir, flight["dem"]), "unchanged",
+                      flight["dem_cv2"]))
+        files += len(digests) + len(flight[key_cv2]) + 1
     bad = []
     for path, key, want in cases:
         with open(path, "rb") as f:
             got = image_digest(decode_image(f.read(), flags[key]))
         if got != want:
-            bad.append((os.path.relpath(path, JP2_FIXTURES), key, got))
-    out = {"files": len(digests) + len(flight["jp2_cv2"]) + 1,
-           "decodes": len(cases), "mismatches": len(bad)}
+            bad.append((os.path.relpath(path, os.path.dirname(JP2_FIXTURES)),
+                        key, got))
+    out = {"files": files, "decodes": len(cases), "mismatches": len(bad)}
     log(f"[jp2] fixtures against cv2's digests: {json.dumps(out)}")
     if bad:
         raise RuntimeError(f"jp2: fixtures not decoded as cv2: {bad}")
@@ -6035,24 +6054,25 @@ def jp2_png_flight(root: str) -> str:
     return png
 
 
-def jp2_dem_reaches_runner() -> dict:
-    """The flight's DEM as ``load_dataset`` hands it to the runner: cv2's
+def jp2_dem_reaches_runner(flight: str = JP2_FLIGHT) -> dict:
+    """A flight's DEM as ``load_dataset`` hands it to the runner: cv2's
     uint16 (its digest in the manifest) times ``dem_scale``, in float32."""
     from gisnav_tpu_torch.gis.imgcodecs import IMREAD_UNCHANGED, read_image
     from gisnav_tpu_torch.replay import load_dataset
 
-    with open(os.path.join(JP2_FLIGHT, "flight.json")) as f:
+    with open(os.path.join(flight, "flight.json")) as f:
         manifest = json.load(f)
-    raw = read_image(os.path.join(JP2_FLIGHT, manifest["dem"]),
+    raw = read_image(os.path.join(flight, manifest["dem"]),
                      IMREAD_UNCHANGED)
-    dem = load_dataset(JP2_FLIGHT)["dem"]
+    dem = load_dataset(flight)["dem"]
     want = raw.astype(np.float32) * np.float32(manifest["dem_scale"])
     out = {"digest_is_cv2s": image_digest(raw) == manifest["dem_cv2"],
            "dtype": str(raw.dtype), "shape": list(raw.shape),
            "equal": bool(dem.dtype == np.float32
                          and np.array_equal(dem, want)),
            "min_m": float(dem.min()), "max_m": float(dem.max())}
-    log(f"[jp2] the DEM reaching the runner: {json.dumps(out)}")
+    log(f"[jp2] the DEM of {os.path.basename(os.path.dirname(flight))} "
+        f"reaching the runner: {json.dumps(out)}")
     if not (out["digest_is_cv2s"] and out["equal"]):
         raise RuntimeError(f"jp2: the DEM is not cv2's uint16 times "
                            f"dem_scale: {out}")
@@ -6060,38 +6080,47 @@ def jp2_dem_reaches_runner() -> dict:
 
 
 def jp2_replay(root: str) -> dict:
-    """Path 17 (b): the main path's model replayed over the committed JPEG
-    2000 flight and over its PNG twin written here; every JPEG 2000 fix
-    within ``JP2_FIX_M`` of the truth and ``JP2_MOVE_M`` of the PNG one's;
-    the DEM reaching the runner as cv2 reads it."""
+    """Path 17 (b, b'): the main path's model replayed over the committed
+    JPEG 2000 flight, its PNG twin written here and the HTJ2K flight; every
+    JPEG 2000 and HTJ2K fix within ``JP2_FIX_M`` of the truth and
+    ``JP2_MOVE_M`` of the PNG one's; both DEMs reaching the runner as cv2
+    reads them."""
     png = jp2_png_flight(root)
     report = os.path.join(root, "r.json")
     out = {"dem": jp2_dem_reaches_runner(),
            "jp2": _replay_learned(JP2_FLIGHT, report, "JPEG 2000"),
-           "png": _replay_learned(png, report, "JPEG 2000's PNG twin")}
-    fixes = out["jp2"].pop("fixes")
-    worst = {"max_horiz_m": max(r["horiz_m"] for r in fixes),
-             "max_up_m": max(abs(r["up_m"]) for r in fixes)}
-    out["jp2"]["worst"] = worst
-    moved = _moved(fixes, out["png"].pop("fixes"))
-    out["jp2_to_png"] = {"max_horiz_m": max(m["horiz_m"] for m in moved),
-                         "max_up_m": max(m["up_m"] for m in moved)}
-    log(f"[jp2 replay] each fix's move, JPEG 2000 -> PNG flight: {moved}")
-    if max(worst.values()) > JP2_FIX_M:
-        raise RuntimeError(f"jp2: a fix is {worst} from the truth")
-    if max(out["jp2_to_png"].values()) > JP2_MOVE_M:
-        raise RuntimeError(f"jp2: a fix moved {out['jp2_to_png']} from "
-                           f"the PNG flight's")
+           "png": _replay_learned(png, report, "JPEG 2000's PNG twin"),
+           "htj2k_dem": jp2_dem_reaches_runner(HTJ2K_FLIGHT),
+           "htj2k": _replay_learned(HTJ2K_FLIGHT, report, "HTJ2K")}
+    png_fixes = out["png"].pop("fixes")
+    for kind, tag in (("jp2", "JPEG 2000"), ("htj2k", "HTJ2K")):
+        fixes = out[kind].pop("fixes")
+        worst = {"max_horiz_m": max(r["horiz_m"] for r in fixes),
+                 "max_up_m": max(abs(r["up_m"]) for r in fixes)}
+        out[kind]["worst"] = worst
+        moved = _moved(fixes, png_fixes)
+        out[f"{kind}_to_png"] = {
+            "max_horiz_m": max(m["horiz_m"] for m in moved),
+            "max_up_m": max(m["up_m"] for m in moved)}
+        log(f"[jp2 replay] each fix's move, {tag} -> PNG flight: {moved}")
+        if max(worst.values()) > JP2_FIX_M:
+            raise RuntimeError(f"jp2: a {tag} fix is {worst} from the "
+                               f"truth")
+        if max(out[f"{kind}_to_png"].values()) > JP2_MOVE_M:
+            raise RuntimeError(f"jp2: a {tag} fix moved "
+                               f"{out[f'{kind}_to_png']} from the PNG "
+                               f"flight's")
     return out
 
 
-def jp2_gis_fetch() -> dict:
-    """Path 17 (c): the GIS node asking for ``image/jp2`` from a loopback
-    stub that answers with the flight's JPEG 2000 map: its raster equal to
-    cv2's grey read of those bytes."""
-    with open(os.path.join(JP2_FLIGHT, "flight.json")) as f:
-        want = json.load(f)["jp2_cv2"]["map.png"]
-    return _gis_fetch("image/jp2", JP2_FLIGHT, want, "jp2")
+def jp2_gis_fetch(flight: str = JP2_FLIGHT, key: str = "jp2_cv2") -> dict:
+    """Path 17 (c, c'): the GIS node asking for ``image/jp2`` from a
+    loopback stub that answers with a flight's map (JPEG 2000 or HTJ2K):
+    its raster equal to cv2's grey read of those bytes."""
+    with open(os.path.join(flight, "flight.json")) as f:
+        want = json.load(f)[key]["map.png"]
+    return _gis_fetch("image/jp2", flight, want,
+                      "htj2k" if key == "ht_cv2" else "jp2")
 
 
 _RSS_PROBE = """
@@ -6121,12 +6150,39 @@ _SPAWN = ("import subprocess, sys; "
           "sys.exit(subprocess.run(sys.argv[1:]).returncode)")
 
 
+def jp2_decode_split(data: bytes, reps: int) -> dict:
+    """Where a JPEG 2000 decode's time goes: the native decoder's timer
+    read after each of ``reps`` decodes (off the timed path), medians in
+    ms of the library call, its tier 1 (MQ or HT code-blocks), inverse
+    wavelet and the rest (tier 2, dequantisation, colour, copies), and the
+    Python rules around it."""
+    from gisnav_tpu_torch.gis.imgcodecs import decode_image
+    from gisnav_tpu_torch.gis.jpeg2000 import last_decode_timing
+
+    parts = []
+    for _ in range(max(reps, 3)):
+        t0 = time.perf_counter()
+        decode_image(data)
+        host = time.perf_counter() - t0
+        t = last_decode_timing()
+        parts.append((host, t["total"], t["tier1"], t["wavelet"]))
+    host, total, tier1, wavelet = (float(np.median(v)) * 1e3
+                                   for v in zip(*parts))
+    return {"library_ms": round(total, 3), "tier1_ms": round(tier1, 3),
+            "wavelet_ms": round(wavelet, 3),
+            "rest_ms": round(total - tier1 - wavelet, 3),
+            "python_ms": round(host - total, 3),
+            "tier1_share": round(tier1 / total, 4) if total else None}
+
+
 def jp2_decode_times(card: str, root: str) -> list:
     """Path 17 (d): host ms p50 of ``decode_image`` on the flight's JPEG
-    2000 map (2208 px, 30:1) and one of its 1088x1920 frames (25:1), and
-    on a 4096x4096 irreversible RGB image (``j2k_mosaic`` of the 512-px
-    fixture tile), beside PNG and JPEG (quality 95) of the same pixels; the
-    4096-px decode's peak resident memory in a process of its own."""
+    2000 map (2208 px, 30:1) and one of its 1088x1920 frames (25:1), the
+    HTJ2K flight's map and frame (the same pixels re-coded as HT at about
+    the same sizes), and a 4096x4096 irreversible RGB image
+    (``j2k_mosaic`` of the 512-px fixture tile), beside PNG and JPEG
+    (quality 95) of the same pixels, each split by ``jp2_decode_split``;
+    the 4096-px decode's peak resident memory in a process of its own."""
     from gisnav_tpu_torch.gis.imgcodecs import decode_image
     from gisnav_tpu_torch.gis.jpeg import encode_jpeg
     from gisnav_tpu_torch.gis.png import encode_png
@@ -6137,18 +6193,24 @@ def jp2_decode_times(card: str, root: str) -> list:
     with open(big_path, "wb") as f:
         f.write(big)
     rows = []
-    for name, reps in (("map.png", JP2_REPS[1]),
-                       ("frames/1000000.png", JP2_REPS[0]),
-                       ("rgb4096.j2k", JP2_REPS[2])):
+    for flight, name, reps in ((JP2_FLIGHT, "map.png", JP2_REPS[1]),
+                               (JP2_FLIGHT, "frames/1000000.png",
+                                JP2_REPS[0]),
+                               (HTJ2K_FLIGHT, "map.png", JP2_REPS[1]),
+                               (HTJ2K_FLIGHT, "frames/1000000.png",
+                                JP2_REPS[0]),
+                               (None, "rgb4096.j2k", JP2_REPS[2])):
         if name == "rgb4096.j2k":
             data = big
         else:
-            with open(os.path.join(JP2_FLIGHT, name), "rb") as f:
+            with open(os.path.join(flight, name), "rb") as f:
                 data = f.read()
         img = decode_image(data)
         row = {"file": name, "shape": list(img.shape),
+               "coding": "HT" if flight == HTJ2K_FLIGHT else "MQ",
                "jp2_bytes": len(data),
-               "jp2_ms": host_ms(lambda: decode_image(data), 1, reps)}
+               "jp2_ms": host_ms(lambda: decode_image(data), 1, reps),
+               "split": jp2_decode_split(data, reps)}
         for fmt, encode in (("png", encode_png), ("jpeg", encode_jpeg)):
             coded = encode(img)
             row[f"{fmt}_bytes"] = len(coded)
@@ -6171,10 +6233,11 @@ def jp2_decode_times(card: str, root: str) -> list:
 
 
 def phase_jp2_path() -> dict:
-    """Path 17: JPEG 2000 read as cv2 reads it, on the card machine (no
-    cv2, no OpenJPEG): the fixtures (a), the main path's model replayed
-    over the committed JPEG 2000 flight beside its PNG twin (b), the GIS
-    node's JPEG 2000 fetch (c) and decode times (d)."""
+    """Path 17: JPEG 2000 and HTJ2K read as cv2 reads them, on the card
+    machine (no cv2, no OpenJPEG): the fixtures of both sets (a), the main
+    path's model replayed over the committed JPEG 2000 flight beside its
+    PNG twin and over the HTJ2K flight (b, b'), the GIS node's JPEG 2000
+    and HTJ2K fetches (c, c') and decode times with their split (d)."""
     import tempfile
 
     from gisnav_tpu_torch.native import build_native_lib
@@ -6188,6 +6251,7 @@ def phase_jp2_path() -> dict:
     with tempfile.TemporaryDirectory() as root:
         out["replay"] = jp2_replay(root)
         out["gis_fetch"] = jp2_gis_fetch()
+        out["gis_fetch_htj2k"] = jp2_gis_fetch(HTJ2K_FLIGHT, "ht_cv2")
         out["decode"] = jp2_decode_times(card, root)
     log("[jp2] " + json.dumps(out))
     return out

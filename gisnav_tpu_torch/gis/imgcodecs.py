@@ -36,8 +36,8 @@ hierarchical, 12-bit and 9- to 16-bit lossless, and the TIFFs its libtiff
 gives up on (a ZSTD, LZMA, WebP, LERC, PixarLog, JBIG or old-style JPEG
 codec, CCITT of 8-bit samples; ``gis/tiff.py`` lists them). AVIF bytes,
 which OpenCV reads where it is built with libavif, raise ``ValueError``
-naming the format, as do a JPEG 2000 variant the port's decoder does not
-read (HTJ2K) and the TIFF variants it does not read yet (``gis/tiff.py``);
+naming the format, as do the TIFF variants the port does not read yet
+(``gis/tiff.py``);
 anything else gives None. Under
 ``IMREAD_GRAYSCALE`` the JPEG, WebP and PNG decoders' images are turned
 upright by their EXIF orientation

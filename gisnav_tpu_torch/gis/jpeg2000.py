@@ -39,9 +39,15 @@ library returns; each rule below was read off cv2 on the fixture named
   components (0, 1, 2) shifted and turned by ``cv2.cvtColor``'s
   ``COLOR_YUV2BGR`` (14-bit fixed point).
 
-``decode_jpeg2000`` returns None wherever cv2 gives None and raises
-``ValueError`` naming a variant the library does not decode (HTJ2K);
-``is_jpeg2000`` is OpenCV's signature test.
+The library decodes HTJ2K (JPEG 2000 Part 15: CAP and CPF markers, HT
+code-blocks with their cleanup, SigProp and MagRef passes) as OpenJPEG
+2.5.3's HT block decoder does, its failures included (an RGN shift,
+mixed mode, a later layer's passes in the cleanup's segment: None).
+
+``decode_jpeg2000`` returns None wherever cv2 gives None;
+``is_jpeg2000`` is OpenCV's signature test;
+``last_decode_timing`` reads the library's timer of the calling thread's
+last decode (whole call, tier 1, inverse wavelet).
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from gisnav_tpu_torch.gis.png import to_gray
 from gisnav_tpu_torch.native import build_native_lib
 
 __all__ = ["is_jpeg2000", "decode_jpeg2000", "jpeg2000_header",
-           "J2K_SIGNATURE", "JP2_SIGNATURE"]
+           "last_decode_timing", "J2K_SIGNATURE", "JP2_SIGNATURE"]
 
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
@@ -79,7 +85,19 @@ def _lib() -> ctypes.CDLL:
                                 ctypes.c_char_p, ctypes.c_int]
     lib.gj2k_free.restype = None
     lib.gj2k_free.argtypes = [ctypes.c_void_p]
+    lib.gj2k_timing.restype = None
+    lib.gj2k_timing.argtypes = [ctypes.POINTER(ctypes.c_double)]
     return lib
+
+
+def last_decode_timing() -> dict:
+    """The calling thread's last decode in the library, in seconds: the
+    whole call (``total``), tier 1 (``tier1``: the MQ or HT code-blocks)
+    and the inverse wavelet (``wavelet``); read after the decode, off its
+    path."""
+    out = (ctypes.c_double * 3)()
+    _lib().gj2k_timing(out)
+    return {"total": out[0], "tier1": out[1], "wavelet": out[2]}
 
 
 def is_jpeg2000(head: bytes) -> bool:
@@ -88,24 +106,17 @@ def is_jpeg2000(head: bytes) -> bool:
     return bytes(head[:12]).startswith((J2K_SIGNATURE, JP2_SIGNATURE))
 
 
-def _raise_or_none(status: int, msg: bytes) -> None:
-    if status == 2:
-        raise ValueError(f"{msg.decode(errors='replace')} are not read by "
-                         "the port (cv2 reads them)")
-    return None
-
-
 def jpeg2000_header(data: bytes) -> Optional[dict]:
     """``opj_read_header``: the codestream's components (prec, sgnd, dx, dy
     each), the image area and the JP2 colour space, or None where OpenJPEG
-    fails. Raises ``ValueError`` on a variant the port does not decode."""
+    fails."""
     data = bytes(data)
     cap = 6 + 4 * _MAX_COMPS
     info = (ctypes.c_int * cap)()
     msg = ctypes.create_string_buffer(_MSG_LEN)
     status = _lib().gj2k_header(data, len(data), info, cap, msg, _MSG_LEN)
     if status:
-        return _raise_or_none(status, msg.value)
+        return None
     n = info[0]
     return {"numcomps": n, "colour_space": info[1],
             "area": tuple(info[2:6]),
@@ -127,7 +138,7 @@ def _components(data: bytes):
     ptr = lib.gj2k_decode(data, len(data), info, cap, ctypes.byref(status),
                           msg, _MSG_LEN)
     if not ptr:
-        yield _raise_or_none(status.value, msg.value)
+        yield None
         return
     try:
         comps, off = [], 0

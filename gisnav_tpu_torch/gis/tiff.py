@@ -45,19 +45,32 @@ the same arrays:
   transpose (5-8) a non-square image, as ``cv2.imread`` does (its check
   that the decoder kept its buffer fails).
 
+- CIELab (photometric 8, 8 or 16 bits) through the RGBA reader's
+  ``TIFFCIELab16ToXYZ`` and ``TIFFXYZToRGB`` in float (the file's
+  WhitePoint, D50 by default; ``display_sRGB``), 8-bit under both flags
+  (int8 for signed a*/b*);
+- SGILog (``tif_luv.c``: ``LogL16Decode``, ``LogLuvDecode32`` /
+  ``24`` and ``uv_decode``): LogL as 8-bit grey (``L16toGry``) under both
+  flags, int8 for SampleFormat 2; LogLuv as RGB bytes (``XYZtoRGB24``)
+  under the grey flag and, under ``IMREAD_UNCHANGED``, OpenCV's HDR read:
+  float32 XYZ turned by the Orientation tag, then ``COLOR_XYZ2BGR`` with
+  its SSE and row-tail float sums; a row short of data zero under the
+  RGBA reader, None unchanged.
+
 None, as cv2 gives it, also for every image of a codec cv2 5.0's libtiff is
 built without (old-style JPEG, PixarLog, JBIG, LERC, LZMA, ZSTD, WebP: "not
 configured"; a ZSTD DEM under the GIS node gives it a zero DEM, as in
 JAX), for one its codec's setup refuses (CCITT of other than 1-bit
 samples, ThunderScan of other than 4, NeXT, SGILog of a photometric other
-than LogL / LogLuv, a predictor LZW or deflate cannot undo), and under
+than LogL / LogLuv, LogL of other than one sample, LogLuv of other than
+three contiguous ones, a predictor LZW or deflate cannot undo), and under
 ``IMREAD_UNCHANGED`` over 8 bits for a compression libtiff has no codec
 for or JPEG of other than 8 bits (their strips do not decode; under the
 RGBA reader they read as zero samples, as libtiff leaves its strip
 buffer). Still refused with ``ValueError`` naming the variant, where cv2
-reads the file: SGILog LogL / LogLuv, CIELab, JPEG of a subsampled
-non-YCbCr image or of separate YCbCr planes, separate planes over 8 bits
-under ``IMREAD_UNCHANGED`` (cv2's pixels there are undefined).
+reads the file: JPEG of a subsampled non-YCbCr image or of separate YCbCr
+planes, separate planes over 8 bits under ``IMREAD_UNCHANGED`` (cv2's
+pixels there are undefined).
 
 Damaged files read as libtiff 4.7 under OpenCV's ``TiffDecoder`` reads
 them. The directory as ``TIFFReadDirectory`` reads it (``_DirReader``): a
@@ -75,6 +88,8 @@ cv2's size limits raises ``ValueError`` (``cv2.error`` in cv2).
 """
 from __future__ import annotations
 
+import functools
+import math
 import struct
 import zlib
 from typing import Dict, Optional, Tuple
@@ -114,6 +129,46 @@ _RGBA_RAW_TILE_UNIT = 1024  # see _Tiff.rgba
 _BITDEPTH_16_TO_8 = ((np.arange(65536) + 128) // 257).astype(np.uint8)
 _BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                         np.uint8)
+_SGILOG = (34676, 34677)
+# tif_luv.c's (u', v') grid for 24-bit LogLuv (uvcode.h): each row's first
+# u' and its number of cells, rows of UV_SQSIZ from UV_VSTART
+_UV_USTART = np.array("""
+0.247663 0.243779 0.241684 0.237874 0.235906 0.232153 0.228352
+0.226259 0.222371 0.22041 0.21471 0.212714 0.210721 0.204976 0.202986
+0.199245 0.195525 0.19356 0.189878 0.186216 0.186216 0.182592 0.179003
+0.175466 0.172001 0.172001 0.168612 0.168612 0.163575 0.158642
+0.158642 0.158642 0.153815 0.153815 0.149097 0.149097 0.142746
+0.142746 0.142746 0.13827 0.13827 0.13827 0.132166 0.132166 0.126204
+0.126204 0.126204 0.120381 0.120381 0.120381 0.120381 0.112962
+0.112962 0.112962 0.10745 0.10745 0.10745 0.10745 0.100343 0.100343
+0.100343 0.095126 0.095126 0.095126 0.095126 0.088276 0.088276
+0.088276 0.088276 0.081523 0.081523 0.081523 0.081523 0.074861
+0.074861 0.074861 0.074861 0.06829 0.06829 0.06829 0.06829 0.063573
+0.063573 0.063573 0.063573 0.057219 0.057219 0.057219 0.057219
+0.050985 0.050985 0.050985 0.050985 0.050985 0.044859 0.044859
+0.044859 0.044859 0.040571 0.040571 0.040571 0.040571 0.036339
+0.036339 0.036339 0.036339 0.032139 0.032139 0.032139 0.032139
+0.027947 0.027947 0.027947 0.023739 0.023739 0.023739 0.023739
+0.019504 0.019504 0.019504 0.016976 0.016976 0.016976 0.016976
+0.012639 0.012639 0.012639 0.009991 0.009991 0.009991 0.009016
+0.009016 0.009016 0.006217 0.006217 0.005097 0.005097 0.005097
+0.003909 0.003909 0.00234 0.002389 0.001068 0.001653 0.000717 0.001614
+0.00027 0.000484 0.001103 0.001242 0.001188 0.001011 0.000709 0.000301
+0.002416 0.003251 0.003246 0.004141 0.005963 0.008839 0.01049 0.016994
+0.023659""".split(), np.float32).astype(np.float64)
+_UV_NCUM = np.concatenate([[0], np.cumsum([int(v) for v in """
+4 6 7 9 10 12 14 15 17 18 21 22 23 26 27 29 31 32 34 36 36 38 40 42 44
+44 46 46 49 52 52 52 55 55 58 58 62 62 62 65 65 65 69 69 73 73 73 77
+77 77 77 82 82 82 86 86 86 86 91 91 91 95 95 95 95 100 100 100 100 105
+105 105 105 110 110 110 110 115 115 115 115 119 119 119 119 124 124
+124 124 129 129 129 129 129 134 134 134 134 138 138 138 138 142 142
+142 142 146 146 146 146 150 150 150 154 154 154 154 158 158 158 161
+161 161 161 165 165 165 168 168 168 170 170 170 173 173 175 175 175
+177 177 177 170 164 157 150 143 136 129 123 115 109 103 97 89 82 76 69
+62 55 47 40 31 21""".split()])[:-1]]).astype(np.int64)
+_UV_SQSIZ = float(np.float32(0.0035))
+_UV_VSTART = float(np.float32(0.01694))
+_UV_NDIVS = 16289
 
 
 class _Ifd:
@@ -291,6 +346,20 @@ class _DirReader:
             return self._values(entry)[:n].astype(np.float64)
         return self._get(tag, None, False, read)
 
+    def white_point(self):
+        """WhitePoint (two rationals) as libtiff reads them: float
+        numerator over float denominator, 0 over 0."""
+        def read(entry):
+            if entry[2] < 2 or entry[1] != 5:
+                raise _DirError("count")
+            if entry[3] + 16 > self.ifd.size:
+                raise _DirError("I/O")
+            raw = np.frombuffer(self.data, np.dtype(f"{self.ifd.e}u4"), 4,
+                                entry[3]).astype(np.float32)
+            den = np.where(raw[1::2] == 0, np.float32(1), raw[1::2])
+            return np.where(raw[1::2] == 0, np.float32(0), raw[0::2] / den)
+        return self._get(318, None, False, read)
+
     def bytes_(self, tag: int):
         def read(entry):
             return self._values(entry).astype(np.uint8).tobytes()
@@ -414,6 +483,7 @@ class _Tiff:
         self.subsampling = r.shorts(530, 2, (2, 2))
         self.luma = r.floats(529, 3)
         self.refbw = r.floats(532, 6)
+        self.white = r.white_point() if self.photometric == _CIELAB else None
         self.jpeg_tables = r.bytes_(347) if self.compression == 7 else None
         if not self.width or not self.height:
             raise _NotRead("missing ImageWidth / ImageLength")
@@ -608,8 +678,12 @@ class _Tiff:
             return bits != 4  # ThunderScan's 4-bit codes
         if c == 32766:
             return bits != 2  # NeXT's 2-bit codes
-        if c in (34676, 34677):  # "Inappropriate photometric"
-            return self.photometric not in (_LOGL, _LOGLUV)
+        if c in _SGILOG:  # "Inappropriate photometric"; its init states
+            if self.photometric == _LOGL:
+                return self.spp != 1
+            if self.photometric == _LOGLUV:
+                return self.spp != 3 or self.planar != 1
+            return True
         if c in _PREDICTED:  # PredictorSetup
             if self.predictor == 2:
                 return bits not in (8, 16, 32, 64)
@@ -795,13 +869,15 @@ class _Tiff:
                              self.subsampling != (1, 1)):
                 return None
         elif ph == _CIELAB:
-            raise ValueError("TIFF CIELab is not read by the port (cv2's "
-                             "libtiff reads it)")
-        elif ph in (_LOGL, _LOGLUV):
-            if self.compression not in (34676, 34677):
+            if spp != 3 or colours != 3 or bits not in (8, 16) or \
+                    self.planar != 1:
+                return None
+        elif ph == _LOGL:
+            if self.compression != 34676:
                 return None  # "LogL data must have Compression=SGILog"
-            raise ValueError("TIFF SGILog LogL / LogLuv is not read by the "
-                             "port (cv2's libtiff reads it)")
+        elif ph == _LOGLUV:
+            if self.compression not in _SGILOG or self.planar != 1:
+                return None
         else:
             return None  # TIFFRGBAImageOK: "can not handle" the photometric
         if not file and self.tiled and self.compression == 1 and \
@@ -814,6 +890,16 @@ class _Tiff:
             return self._jpeg_rgba()
         if ph == _YCBCR:
             return self._ycbcr_rgba()
+        if ph == _CIELAB:
+            return self._cielab_rgba()
+        if ph == _LOGL:  # libtiff's 8-bit LogL: grey (L16toGry)
+            return _logl_grey(self.sgilog()[0])
+        if ph == _LOGLUV:  # 8-bit LogLuv: RGB (XYZtoRGB24)
+            out = np.empty((self.height, self.width, 4), np.uint8)
+            out[..., 3] = 255
+            out[..., :3] = _xyz_rgb_bytes(_luv_xyz(self.sgilog()[0],
+                                                   self.compression))
+            return out
         s = self.samples(grey_skew=ph in (_MINISWHITE, _MINISBLACK))
         if bits >= 8:
             s = s.view(f"u{bits // 8}")
@@ -853,6 +939,51 @@ class _Tiff:
             a = c[..., 3].astype(np.uint16)
             for i in range(3):
                 out[..., i] = (c[..., i] * a + 127) // 255
+        return out
+
+    def sgilog(self) -> Tuple[np.ndarray, bool]:
+        """(H, W) SGILog codes of every strip or tile (``_sgilog_rows``;
+        rows after one short of data zero) and whether every row
+        decoded."""
+        h, w = self.height, self.width
+        out = np.zeros((h, w), np.int64)
+        whole, index = True, 0
+        for ty in range(self.down):
+            y0 = ty * self.th
+            rows = self.th if self.tiled else min(self.th, h - y0)
+            for tx in range(self.across):
+                x0 = tx * self.tw
+                try:
+                    raw = self._raw(index)
+                except _NotRead:
+                    if self.strict:
+                        raise
+                    raw = b""
+                index += 1
+                codes, done = _sgilog_rows(raw, rows, self.tw,
+                                           self.compression,
+                                           self.photometric == _LOGL)
+                whole = whole and done == rows
+                ch, cw = min(rows, h - y0), min(self.tw, w - x0)
+                out[y0:y0 + ch, x0:x0 + cw] = codes[:ch, :cw]
+        return out, whole
+
+    def _cielab_rgba(self) -> Optional[np.ndarray]:
+        """CIELab through ``initCIELabConversion``: the file's WhitePoint
+        (D50 by default) as the reference white, ``display_sRGB``."""
+        f32 = np.float32
+        wp = self.white
+        if wp is None:
+            total = _D50[0] + _D50[1] + _D50[2]
+            wp = (_D50[0] / total, _D50[1] / total)
+        if wp[1] == 0:
+            return None  # "Invalid value for WhitePoint tag."
+        white = (wp[0] / wp[1] * f32(100.0), f32(100.0),
+                 (f32(1.0) - wp[0] - wp[1]) / wp[1] * f32(100.0))
+        s = self.samples().view(f"u{self.bits // 8}")
+        out = np.empty((self.height, self.width, 4), np.uint8)
+        out[..., 3] = 255
+        out[..., :3] = _cielab_rgb(s, self.bits, white)
         return out
 
     def _tile_bytes(self) -> int:
@@ -1051,6 +1182,212 @@ def _ycbcr_to_rgb(y, cb, cr, coefs, refbw) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+# -- CIELab and SGILog as libtiff converts them (tif_color.c, tif_luv.c) ----
+
+# tif_getimage.c's display_sRGB: the XYZ -> luminance matrix, luminance of
+# reference white and of black, white's pixel value, each gun's gamma
+_SRGB_MAT = np.array([[3.2410, -1.5374, -0.4986], [-0.9692, 1.8760, 0.0416],
+                      [0.0556, -0.2040, 1.0570]], np.float32)
+_SRGB_YC, _SRGB_Y0, _SRGB_VWHITE, _SRGB_GAMMA = 100.0, 1.0, 255, 2.4
+_CIELAB_RANGE = 1500
+_D50 = (np.float32(96.4250), np.float32(100.0), np.float32(82.4680))
+
+
+@functools.lru_cache(maxsize=None)
+def _cielab_table() -> Tuple[np.ndarray, np.float32]:
+    """``TIFFCIELabToRGBInit``'s luminance -> value table (one for the
+    three guns, whose display values agree) and its step."""
+    f32 = np.float32
+    step = f32(f32(_SRGB_YC) - f32(_SRGB_Y0)) / f32(_CIELAB_RANGE)
+    gamma = 1.0 / float(f32(_SRGB_GAMMA))
+    tab = np.array([f32(_SRGB_VWHITE) * f32(math.pow(i / _CIELAB_RANGE,
+                                                      gamma))
+                    for i in range(_CIELAB_RANGE + 1)], np.float32)
+    return tab, f32(step)
+
+
+def _cielab_rgb(lab: np.ndarray, bits: int, white) -> np.ndarray:
+    """(..., 3) CIE L*a*b* samples (8-bit: L unsigned, a* b* signed bytes;
+    16-bit: L unsigned, a* b* signed, 256 times) -> RGB bytes, as
+    ``TIFFCIELab16ToXYZ`` and ``TIFFXYZToRGB`` compute them in float."""
+    f32 = np.float32
+    if bits == 8:
+        lv = lab[..., 0].astype(np.uint32) * 257
+        a = lab[..., 1].astype(np.uint8).view(np.int8).astype(np.int32) * 256
+        b = lab[..., 2].astype(np.uint8).view(np.int8).astype(np.int32) * 256
+    else:
+        lv = lab[..., 0].astype(np.uint32)
+        a = lab[..., 1].astype(np.uint16).view(np.int16).astype(np.int32)
+        b = lab[..., 2].astype(np.uint16).view(np.int16).astype(np.int32)
+    x0, y0, z0 = white
+    L = lv.astype(f32) * f32(100.0) / f32(65535.0)
+    low = L < f32(8.856)
+    y_low = (L * y0) / f32(903.292)
+    cby = np.where(low, f32(7.787) * (y_low / y0) + f32(16.0) / f32(116.0),
+                   (L + f32(16.0)) / f32(116.0))
+    Y = np.where(low, y_low, y0 * cby * cby * cby)
+
+    def back(t, w0):
+        return np.where(t < f32(0.2069), w0 * (t - f32(0.13793)) / f32(7.787),
+                        w0 * t * t * t)
+
+    X = back(a.astype(f32) / f32(256.0) / f32(500.0) + cby, x0)
+    Z = back(cby - b.astype(f32) / f32(256.0) / f32(200.0), z0)
+    tab, step = _cielab_table()
+    out = []
+    for row in _SRGB_MAT:
+        v = row[0] * X + row[1] * Y + row[2] * Z
+        v = np.minimum(np.maximum(v, f32(_SRGB_Y0)), f32(_SRGB_YC))
+        i = np.minimum(((v - f32(_SRGB_Y0)) / step).astype(np.int64),
+                       _CIELAB_RANGE)
+        r = tab[i].astype(np.float64)
+        c = np.where(r > 0, r + 0.5, r - 0.5).astype(np.int64)
+        out.append(np.minimum(c & 0xFFFFFFFF, _SRGB_VWHITE))
+    return np.stack(out, -1).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _logl_tables() -> Tuple[np.ndarray, np.ndarray]:
+    """``LogL16toY`` of every 15-bit code and ``LogL10toY`` of every
+    10-bit one (libm's exp, as libtiff calls it)."""
+    ln2 = math.log(2.0)
+    y16 = np.array([0.0] + [math.exp(ln2 / 256.0 * (le + 0.5) - ln2 * 64.0)
+                            for le in range(1, 32768)])
+    y10 = np.array([0.0] + [math.exp(ln2 / 64.0 * (p + 0.5) - ln2 * 12.0)
+                            for p in range(1, 1024)])
+    return y16, y10
+
+
+def _gamma_bytes(v: np.ndarray) -> np.ndarray:
+    """tif_luv.c's 8-bit output of a linear value: 0, 255, or
+    256 sqrt(v) truncated."""
+    with np.errstate(invalid="ignore"):
+        r = np.where(v <= 0.0, 0.0, np.where(v >= 1.0, 255.0,
+                                             np.floor(256.0 * np.sqrt(
+                                                 np.maximum(v, 0.0)))))
+    return r.astype(np.uint8)
+
+
+def _logl_grey(codes: np.ndarray) -> np.ndarray:
+    """``L16toGry``: 16-bit LogL codes -> grey bytes."""
+    y16, _ = _logl_tables()
+    c = codes.astype(np.int64) & 0xFFFF
+    y = y16[c & 0x7FFF] * np.where(c & 0x8000, -1.0, 1.0)
+    return _gamma_bytes(y)
+
+
+def _luv_xyz(codes: np.ndarray, kind: int) -> np.ndarray:
+    """``LogLuv32toXYZ`` / ``LogLuv24toXYZ`` (compression 34676 / 34677):
+    (..., 3) float32 XYZ, in double until the last cast."""
+    y16, y10 = _logl_tables()
+    p = codes.astype(np.int64) & 0xFFFFFFFF
+    if kind == 34676:
+        hi = p >> 16
+        L = y16[hi & 0x7FFF] * np.where(hi & 0x8000, -1.0, 1.0)
+        u = 1.0 / 410.0 * (((p >> 8) & 0xFF) + 0.5)
+        v = 1.0 / 410.0 * ((p & 0xFF) + 0.5)
+    else:  # uv_decode over the grid; neutral outside it
+        L = y10[(p >> 14) & 0x3FF]
+        ce = p & 0x3FFF
+        vi = np.searchsorted(_UV_NCUM, ce, side="right") - 1
+        u = _UV_USTART[vi] + (ce - _UV_NCUM[vi] + 0.5) * _UV_SQSIZ
+        v = _UV_VSTART + (vi + 0.5) * _UV_SQSIZ
+        out = ce >= _UV_NDIVS
+        u, v = np.where(out, 0.210526316, u), np.where(out, 0.473684211, v)
+    with np.errstate(all="ignore"):
+        s = 1.0 / (6.0 * u - 16.0 * v + 12.0)
+        x, y = 9.0 * u * s, 4.0 * v * s
+        xyz = np.stack([(x / y * L).astype(np.float32), L.astype(np.float32),
+                        ((1.0 - x - y) / y * L).astype(np.float32)], -1)
+    xyz[L <= 0] = 0
+    return xyz
+
+
+def _xyz_rgb_bytes(xyz: np.ndarray) -> np.ndarray:
+    """``XYZtoRGB24``: float XYZ -> RGB bytes (CCIR-709 primaries, gamma
+    2 as a square root), in double."""
+    x, y, z = (xyz[..., k].astype(np.float64) for k in range(3))
+    r = 2.690 * x + -1.276 * y + -0.414 * z
+    g = -1.022 * x + 1.978 * y + 0.044 * z
+    b = 0.061 * x + -0.224 * y + 1.163 * z
+    return np.stack([_gamma_bytes(r), _gamma_bytes(g), _gamma_bytes(b)], -1)
+
+
+# OpenCV's XYZ2BGR (float, sRGB D65 rows for B, G, R): four pixels a step
+# as x c0 + (y c1 + z c2) in SSE, the row's last width % 4 as
+# (x c0 + y c1) + z c2, each product and sum rounded to float
+_XYZ2BGR = np.array([[0.055648, -0.204043, 1.057311],
+                     [-0.969256, 1.875991, 0.041556],
+                     [3.240479, -1.53715, -0.498535]], np.float32)
+
+
+def _xyz_to_bgr(xyz: np.ndarray) -> np.ndarray:
+    w = xyz.shape[1]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    lanes = np.arange(w) < w - w % 4
+    out = np.empty_like(xyz)
+    for k, (c0, c1, c2) in enumerate(_XYZ2BGR):
+        out[..., k] = np.where(lanes, x * c0 + (y * c1 + z * c2),
+                               (x * c0 + y * c1) + z * c2)
+    return out
+
+
+def _sgilog_rows(raw: bytes, rows: int, npix: int, kind: int,
+                 logl: bool) -> Tuple[np.ndarray, int]:
+    """A strip or tile of SGILog data, row by row as ``LogL16Decode`` /
+    ``LogLuvDecode32`` (each row's byte planes from the highest, runs of
+    ``128 + n - 2`` then a byte, or a count then literals) or
+    ``LogLuvDecode24`` (3 bytes a pixel) read it: (codes, rows decoded);
+    a row short of data ends the strip there (its codes zero)."""
+    codes = np.zeros((rows, npix), np.int64)
+    bp, cc = 0, len(raw)
+    for r in range(rows):
+        if cc == 0:
+            return codes, r
+        tp = codes[r]
+        if not logl and kind == 34677:
+            n = min(npix, cc // 3)
+            if n:
+                b = np.frombuffer(raw, np.uint8, 3 * n, bp).astype(
+                    np.int64).reshape(n, 3)
+                tp[:n] = b[:, 0] << 16 | b[:, 1] << 8 | b[:, 2]
+            bp, cc = bp + 3 * n, cc - 3 * n
+            if n != npix:
+                tp[:] = 0
+                return codes, r
+            continue
+        for shft in ((8, 0) if logl else (24, 16, 8, 0)):
+            i = 0
+            while i < npix and cc > 0:
+                c = raw[bp]
+                if c >= 128:  # a run
+                    if cc < 2:
+                        break
+                    rc = c + 2 - 128
+                    b = raw[bp + 1] << shft
+                    bp += 2
+                    cc -= 2
+                    end = min(npix, i + rc)
+                    tp[i:end] |= b
+                    i = end
+                else:  # literals; libtiff counts the count byte first
+                    rc = c
+                    bp += 1
+                    while True:
+                        cc -= 1
+                        if not cc or not rc or i >= npix:
+                            rc -= 1
+                            break
+                        rc -= 1
+                        tp[i] |= raw[bp] << shft
+                        i += 1
+                        bp += 1
+            if i != npix:
+                tp[:] = 0
+                return codes, r
+    return codes, rows
+
+
 def _opencv_type(t: _Tiff) -> Tuple[np.dtype, int]:
     """``TiffDecoder::readHeader``'s type: (dtype, channels)."""
     ph, spp = t.photometric, t.spp
@@ -1147,6 +1484,8 @@ def _decode_tiff(data: bytes, gray: bool, file: bool
     t = _Tiff(data, mapped=file)
     if t.photometric is None:  # OpenCV asks for it
         return None
+    if t.photometric == _LOGLUV and not gray:
+        return _logluv_float(t, file)
     dtype, channels = _opencv_type(t)
     coders.check_image_size(t.width, t.height, "TIFF")
     if t.refused_by_codec():
@@ -1201,6 +1540,23 @@ def _decode_tiff(data: bytes, gray: bool, file: bool
     else:
         img = s[..., :channels]
     return _orient(img, o)
+
+
+def _logluv_float(t: _Tiff, file: bool) -> Optional[np.ndarray]:
+    """LogLuv under ``IMREAD_UNCHANGED``: OpenCV's HDR read (float32 XYZ
+    of libtiff's ``SGILOGDATAFMT_FLOAT``, turned by the Orientation tag,
+    then ``COLOR_XYZ2BGR``); None where a strip does not decode."""
+    coders.check_image_size(t.width, t.height, "TIFF")
+    if t.refused_by_codec() or t.compression not in _SGILOG:
+        return None
+    if file and t.orientation >= 5 and t.width != t.height:
+        return None
+    t.strict = True
+    codes, whole = t.sgilog()
+    if not whole:
+        return None  # a strip that does not decode fails the read
+    xyz = _orient(_luv_xyz(codes, t.compression), t.orientation)
+    return _xyz_to_bgr(xyz)
 
 
 def encode_tiff(img: np.ndarray, compression: int = 1, predictor: int = 1,

@@ -27,7 +27,7 @@ None (a PNG whose IDAT fails its CRC keeps the node's previous map, a cut
 DEM gives zeros), cv2's partial image where it gives one (a corrupt LZW
 strip's rows up to the damage). A header over cv2's size limits raises
 ``ValueError`` naming the limit, as ``cv2.error`` leaves the JAX client,
-and so does a variant the port does not read yet (AVIF, HTJ2K).
+and so does a variant the port does not read yet (AVIF).
 """
 from __future__ import annotations
 

@@ -15,8 +15,9 @@
 // Codestream (Annex A; j2k.c): SIZ, COD, COC, QCD, QCC, RGN, POC, TLM, PLM,
 // PLT, CRG, COM, SOT, SOD and EOC in the main and tile-part headers,
 // tile-parts of several tiles interleaved, OpenJPEG's strict length checks
-// and its end-of-stream rules, packed packet headers (PPM, PPT). HTJ2K
-// (CAP, code-block style 0x40) is refused by name.
+// and its end-of-stream rules, packed packet headers (PPM, PPT); CAP and CPF
+// skipped as OpenJPEG reads them, HT code-blocks (style 0x40; mixed 0x80
+// fails as in OpenJPEG).
 // Tier 2 (Annex B; t2.c, pi.c, tgt.c, bio.c): the five progression orders
 // and POC, precincts and code-blocks clipped to them, tag trees, packet
 // headers with bit stuffing, Lblock and codeword segments across layers,
@@ -24,7 +25,9 @@
 // Tier 1 (Annexes C, D; t1.c, mqc.c): the MQ decoder and the significance,
 // refinement and cleanup passes with OpenJPEG's fixed-point magnitudes
 // (one extra fractional bit), and the bypass, reset, termall, vertically
-// causal, predictable-termination and segmentation-symbol styles.
+// causal, predictable-termination and segmentation-symbol styles. HTJ2K
+// (ITU-T T.814; ht_dec.c): the HT cleanup (MEL, VLC, MagSgn), SigProp and
+// MagRef passes into the same magnitudes, with HT's segments in tier 2.
 // Dequantisation (Annex E; t1.c, tcd.c): reversible halving, irreversible
 // step sizes as OpenJPEG derives them (no log2 gain: the inverse 9/7 scales
 // the high band by 2/K instead), the RGN maxshift.
@@ -37,6 +40,7 @@
 // them: one rounding per multiply and per add, never fused (the library is
 // built with -ffp-contract=off).
 #include <algorithm>
+#include <chrono>
 #include <cmath>
 #include <cstdarg>
 #include <cstddef>
@@ -53,9 +57,6 @@ namespace {
 struct Invalid {  // bytes cv2 gives None for
   std::string msg;
 };
-struct Unsupported {  // a variant the port does not decode
-  std::string msg;
-};
 
 [[noreturn]] void fail(const char* fmt, ...) {
   char buf[256];
@@ -66,7 +67,17 @@ struct Unsupported {  // a variant the port does not decode
   throw Invalid{buf};
 }
 
-[[noreturn]] void refuse(const char* what) { throw Unsupported{what}; }
+
+// the last decode's time by stage (gj2k_timing): whole call, tier 1 (MQ
+// or HT code-blocks), the inverse wavelet
+using Clock = std::chrono::steady_clock;
+struct Timing {
+  double total = 0, tier1 = 0, wavelet = 0;
+};
+thread_local Timing g_timing;
+inline double seconds_since(Clock::time_point t0) {
+  return std::chrono::duration<double>(Clock::now() - t0).count();
+}
 
 inline uint32_t rd16(const uint8_t* p) { return uint32_t(p[0]) << 8 | p[1]; }
 inline uint32_t rd32(const uint8_t* p) {
@@ -420,8 +431,6 @@ size_t read_spcod(const uint8_t* p, size_t n, TCCP& t) {
   if (t.cblksty & 0x80)
     fail("Error reading SPCod SPCoc element. Unsupported Mixed HT "
          "code-block style found");
-  if (t.cblksty & kStyleHT)
-    refuse("JPEG 2000 HTJ2K (Part 15) code-blocks");
   t.qmfbid = p[4];
   if (t.qmfbid > 1)
     fail("Error reading SPCod SPCoc element, Invalid transformation found");
@@ -658,6 +667,8 @@ struct Cblk {
   std::vector<uint8_t> data;
   std::vector<Seg> segs;
   int numsegs = 0, numbps = 0, numlenbits = 0, numnewpasses = 0;
+  int mb = 0;            // the band's bit-planes (HT's zero bit-planes)
+  size_t chunk_off = 0;  // where its first data lies in the tile's bytes
 };
 
 struct Prec {
@@ -1025,7 +1036,7 @@ struct Headers {
 // headers); returns the bytes it took of data
 size_t decode_packet(const TCP& tcp, Tile& t, int layno, int resno,
                      int compno, int precno, const uint8_t* data,
-                     size_t len, const Headers* packed) {
+                     size_t len, size_t at, const Headers* packed) {
   const TCCP& tccp = tcp.tccps[size_t(compno)];
   Res& res = t.comps[size_t(compno)].res[size_t(resno)];
   size_t sop = 0;
@@ -1077,6 +1088,7 @@ size_t decode_packet(const TCP& tcp, Tile& t, int layno, int resno,
                            "bit-planes");
         }
         cb.numbps = band.numbps + 1 - i;
+        cb.mb = band.numbps;
         cb.numlenbits = 3;
       }
       cb.numnewpasses = getnumpasses(bio);
@@ -1096,9 +1108,15 @@ size_t decode_packet(const TCP& tcp, Tile& t, int layno, int resno,
         }
       }
       int n = cb.numnewpasses;
+      const bool ht = (tccp.cblksty & kStyleHT) != 0;
       do {
         Seg& s = cb.segs[size_t(segno)];
-        s.numnewpasses = std::min(s.maxpasses - s.numpasses, n);
+        // HT (opj_t2_read_packet_header): the first segment one pass, a
+        // later one the rest, whatever the style's segment sizes; a later
+        // layer's passes so land in the cleanup's segment unless termall
+        // closed it (its data then read as the cleanup's, as cv2 does)
+        s.numnewpasses = ht ? (segno == 0 ? 1 : n)
+                            : std::min(s.maxpasses - s.numpasses, n);
         const int bits = cb.numlenbits + floorlog2(uint32_t(s.numnewpasses));
         if (bits > 32)
           fail("read: signaled numlenbits=%d and numnewpasses=%d",
@@ -1136,6 +1154,7 @@ size_t decode_packet(const TCP& tcp, Tile& t, int layno, int resno,
         if (uint64_t(pos) + s.newlen > len)
           fail("read: segment too long (%u) with max (%u) for codeblock",
                s.newlen, unsigned(len - pos));
+        if (cb.data.empty()) cb.chunk_off = at + pos;
         cb.data.insert(cb.data.end(), data + pos, data + pos + s.newlen);
         pos += s.newlen;
         s.len += s.newlen;
@@ -1399,6 +1418,563 @@ struct T1 {
 };
 
 // ---------------------------------------------------------------------------
+// HT block decoding (ITU-T T.814 | ISO/IEC 15444-15; ht_dec.c
+// opj_t1_ht_decode_cblk): the cleanup pass's MEL, backward VLC and forward
+// MagSgn streams, then SigProp and MagRef, into the same fixed-point
+// magnitudes as tier 1 (a cleanup at bit-plane p - 1 carries (2 mu + 1)
+// << (p - 1)). Each reader takes its bytes one at a time as OpenJPEG's
+// take them four at a time: the same bits, the same fill past the end
+// (MEL and MagSgn 0xFF, VLC, SigProp and MagRef 0), the same unstuffing
+// (a byte after 0xFF gives 7 bits forward; backward, a byte after one over
+// 0x8F gives 7 bits when those are all ones), its dropped bit OR'ed into
+// the next as OpenJPEG's shifts do.
+
+// The CxtVLC codewords of T.814 Annex C, 7 hex digits each: c_q (3 bits),
+// rho (4), u_off (1), e_k (4), e_1 (4), the codeword (7 bits, the first
+// read lowest) and its length (3); for the quads of the first row pair,
+// then for the later ones. OpenJPEG tabulates the same codewords as
+// vlc_tbl0 / vlc_tbl1 (t1_ht_luts.h), by context and the next 7 bits.
+constexpr const char* kHtVlcFirst =
+    "008003400c45ff01000030148bff018008d01c8aff01cc4ff0200013025109e0280075"
+    "02d111e02d447f030001e034037f038017f03c806e03c8a7f040002304621ee04800ee"
+    "04c016e050000d05621ae0568bbf05801bf05c404e05c46bf06000f506710ae067212e"
+    "06730bf068033f06c453f06d523f06f603f07003df0748a5f076a02e07791df07802df"
+    "07e64df07eeb5f07f88ce07f9b9f07fc59f07fd14e07fd45f07fe1ce07ff15f0800002"
+    "088007408c44ff090003409489de09800de09c01ee0a000540a5115e0a8005e0ad119e"
+    "0ad47ff0b0009e0b4011e0b801ff0bc801e0bc8aff0c000140c620ee0c8016e0cc006e"
+    "0d001ae0d620ae0d68b7f0d8017f0dc408e0dc467f0e0000d0e6212e0e7102e0e8007f"
+    "0ec44bf0ed51ce0ef63bf0f001bf0f48abf0f6a0ce0f7933f0f8003f0fe213f0fe884e"
+    "0fee14e0ff918e0ffc63f1000002108007410c44de110003411489ff118015e11c459e"
+    "11ccbff1200054125105e128000d12d449e12d511e12d557f130001e13402ff13800ff"
+    "13c8b7f13cc48e13dd1bf1400014146227f14801ee14c00ee150016e154006e158007f"
+    "15c81ae15c8bbf16000ae165112e16722bf16800bf16e202e16f11ce16f473f170013f"
+    "17480ce1748bdf178023f17c444e17cc83f17dd18e17fc54e17fe1df18000031880024"
+    "18c45ee19000651948a7f19800ee19c442e19ccbff1a000b51a5116e1a800351ad446e"
+    "1ad51ae1ad54d51b001ff1b512ff1b588ff1b8037f1bd90ae1bd997f1bdc52e1bdc87f"
+    "1bdcfbf1c000551c6203f1c801ce1cc45bf1ce62bf1d000ce1d6214e1d688bf1d8033f"
+    "1dc463f1dcc84e1dec53f1dee3df1e0018e1e5108e1e721df1e802df1ee64df1ef450e"
+    "1ef500e1ef555f1ef625f1ef735f1f0005f1f5109f1f721f61f7899f1f7939f1f8029f"
+    "1fea8761fee71f1ff991f1ffc4e51ffc9761ffce1f1ffd0151ffd4f61ffe0951fff01f"
+    "2000002208007420c45ff210003421488de218015e21c89ee21cc7ff220005422512ff"
+    "228005e22c019e230009e234011e23800ff23d001e23d137f240001424620ee248008e"
+    "24c03bf250000d256896e256a06e256a97f258027f25c01ae25ec87f26000ae266212e"
+    "26711bf26802bf26c402e26c443f27000bf27511ce27720ce2778b3f278013f27dc84e"
+    "27ddbdf27e454e27e663f27ee18e27fd1df280000328800d528c47ff290005529488ee"
+    "298016e29cc5ff29cc9ce29cceff2a000952a510ff2a8006e2ad11ae2ad477f2b000ae"
+    "2b4892e2b5917f2b8027f2bd902e2bd9abf2bdc5bf2bdcbbf2bdcc7f2c000152c620ce"
+    "2c801362ce20bf2ce473f2d000e52d6884e2d6a18e2d6a94e2d8013f2de608e2de643f"
+    "2dec7df2dec90e2dece3f2e0000e2e621f62e711df2e802df2ee60f62ee675f2ef455f"
+    "2ef51762ef54df2f0025f2f5985f2f788762f7929f2f7a1b62f7a99f2f7b39f2f8009f"
+    "2fdd71f2fdd8b62fdde1f2ff641f2ffc4362ffc8252ffcfef2ffd0652ffe0a52ffe9ef"
+    "2fff11f3000003308002430c441e3100065314886e31800d531cc4ee31cc96e31ccdee"
+    "320005532511ff32801ae32c44ae32d53ff330012e3348aff33590ff338037f33d902e"
+    "33d9a7f33dc5b633dcbbf33dcd7f3400095346207f34801ce34c45bf34e62bf35000ce"
+    "354894e356a0bf358033f35e444e35e663f35ec98e35ee3df35ee93f360008e36711df"
+    "367210e367303f36802df36d500e36d559f36f20df36f475f370015f374885f3778a5f"
+    "377929f377a1f6377b39f378009f37d98f637ee71f37fa97637fc4e537fc81537fcc76"
+    "37fd13637fd51f37fe03637ff0b63800095388002e38c47ff39001ce39489ff39802ff"
+    "39cc57f39ccb7f39cccff3a0027f3a5107f3a802bf3ac44ce3ad53bf3b001bf3b4014e"
+    "3b800bf3bd9b3f3bdc44e3bdca3f3bdcd3f3bdd03f3bdd4df3c003df3c621df3c802df"
+    "3cc018e3d0029f3d4888e3d6a35f3d8015f3de665f3dec79f3dec90e3decc5f3dee09f"
+    "3dee99f3e0031f3e6211f3e7121f3e8001f3ee67ef3ef440e3ef51f63ef56ef3ef60ef"
+    "3ef71ef3f0036f3f5996f3f788f63f793af3f7a0763f7a86f3f7b26f3f800af3ffc404"
+    "3ffc8643ffcc553ffd0443ffd4d53ffd9b63ffdeaf3ffe0243ffe5763ffe8153ffed2f"
+    "3fff0b63fff5af3fffb2f3fffc35";
+constexpr const char* kHtVlcLater =
+    "008000300c453e010003301488be018006d01c01de0200013025103e02800ad02c015e"
+    "030000d03403ff03800ff03c00de0400023046202d04800cd04c009e050004d056205e"
+    "05689ff05802ff05c019e060008d066211e067137f068007f06c001e070017f07501ee"
+    "075127f07803bf07c40ee07c45bf0800001088002c08c47ff090004c09488ff09800ed"
+    "09c45ff09ccaff0a0006d0a511bf0a8001e0ac037f0b0017f0b4027f0b8007f0bc03bf"
+    "0c0000c0c620bf0c8005e0cc02bf0d0019e0d4033f0d8013f0dc015f0e0009e0e4023f"
+    "0e8003f0ec03df0f001df0f402df0f800df0fd011e0fd135f1000001108004c10c47ff"
+    "110000c114891e11801ee11c89ff11cc4ff12000ad12512ff128001e12c037f130017f"
+    "134027f138007f13c00bf140002d14623bf14801bf14c02bf15000ee156896e156a33f"
+    "156abdf158013f15c003f15eca3f160006e16401df16802df16c00df170035f175025f"
+    "175115f178005f17d139f17d459f17dca9f17fe09f1800002188005418c445e1900014"
+    "194891e198007519cc49e19cc99e19ccfff1a000b51a511ff1a8001e1ac45ee1ad50ff"
+    "1b000ee1b402ff1b8016e1bd117f1bd44f61bdcb7f1c000351c6227f1c8006e1cc01ae"
+    "1d000ae1d4892e1d6a07f1d8002e1de21ce1dec7bf1dec8ce1deccbf1e0014e1e4004e"
+    "1e801bf1ed018e1ed12bf1f0033f1f5113f1f7223f1f78b5f1f8008e1fd983f1fdcfdf"
+    "1fea2df1ffc5f61ffc90e1ffd15f1ffd4df1ffe00e1ffe9df2000001208006d20c47ff"
+    "21000ad21489ff21802ff21c037f220004c225111e228019e22c00ff230009e234017f"
+    "238027f23c02bf240000c246207f24803bf24c01bf25000ee25400bf258033f25c035f"
+    "260002d267103f267223f267313f26803df26c01df27002df274801e27488df278015f"
+    "27c465f27cc1ee27cc85f280000228800f528c45de290005529489ff29800de29c005e"
+    "2a000142a5115e2a800752ad119e2ad47ff2b0009e2b4037f2b8011e2bc80ae2bc8aff"
+    "2c000b52c6201e2c801ee2cc00ff2d000ee2d4016e2d8006e2dc41ae2dc467f2e00035"
+    "2e5112e2e7217f2e8002e2ec47bf2ed51ce2ef607f2f000ce2f48abf2f6a00e2f791bf"
+    "2f800d52fdd93f2fe64bf2ff573f2ffc54e2ffc90e2ffcc3f2ffd18e2ffe08e2ffea3f"
+    "2fff04e3000003308001430c441e310006431489ee31800ee31c886e31cc7ff3200024"
+    "325116e328005532d11ae32d457f33000ae33489ff33592ff338012e33c894e33cc4ff"
+    "33dd37f34000b5346202e34801ce34c00ce3500035356884e356a27f356a87f3580076"
+    "35c89bf35ea2bf35ec63f35ecbbf36000d5367113f367233f36730bf368018e36d13df"
+    "36f21df36f455f36f503f370008e37510df377899f37792df377a10e377ab5f378000e"
+    "37cce5f37dd85f37ee69f37fc51f37fc9f637fd17637fd49f37fe0f637feb9f37ff31f"
+    "3800024388019e38c449e390011e3948bff398001e39c45ff39ccb7f3a0016e3a512ff"
+    "3a800b53ac45ee3ad50ff3b000ee3b403bf3b800353bd127f3bdc46e3bdcabf3bdcc7f"
+    "3bdd17f3c001ae3c621bf3c800ae3cc013f3d0012e3d4014e3d800d53dc473f3dcc82e"
+    "3dec4bf3dee3df3e001ce3e400ce3e800653ec443f3ed504e3ef463f3ef60df3f0018e"
+    "3f48adf3f6a1f63f789df3f7905f3f800033fdd90e3fee4f63ffc4153ffc8553ffcc8e"
+    "3ffd0e53ffd5763ffdd5f3ffe0953ffe80e3ffee5f3fff0763ffff5f";
+
+struct HtTables {
+  // (c_q << 7 | next 7 bits) -> e_k << 12 | e_1 << 8 | rho << 4 |
+  // u_off << 3 | codeword length, as vlc_tbl0 / vlc_tbl1
+  uint16_t vlc[2][1024];
+  HtTables() {
+    for (int t = 0; t < 2; t++) {
+      std::memset(vlc[t], 0, sizeof vlc[t]);
+      const char* s = t == 0 ? kHtVlcFirst : kHtVlcLater;
+      for (size_t i = 0; s[i]; i += 7) {
+        char hex[8] = {0};
+        std::memcpy(hex, s + i, 7);
+        const uint32_t v = uint32_t(std::strtoul(hex, nullptr, 16));
+        const uint32_t cq = v >> 23, rho = (v >> 19) & 15, uoff = (v >> 18) & 1,
+                       ek = (v >> 14) & 15, e1 = (v >> 10) & 15,
+                       cwd = (v >> 3) & 127, len = v & 7;
+        for (uint32_t k = 0; k < 128; k++)
+          if ((k & ((1u << len) - 1)) == cwd)
+            vlc[t][cq << 7 | k] =
+                uint16_t(ek << 12 | e1 << 8 | rho << 4 | uoff << 3 | len);
+      }
+    }
+  }
+};
+const HtTables kHt;
+
+// MEL (T.814 7.3.3): bits from the highest, runs of 0 events as OpenJPEG
+// stores them (2 x zeros, + 1 where a 1 event ends the run)
+struct HtMel {
+  const uint8_t* p;
+  int size;  // bytes left of MEL + VLC - 1 (the last one's low nibble set)
+  uint64_t tmp = 0;
+  int bits = 0, k = 0;
+  bool unstuff = false;
+
+  void add(uint32_t d) {
+    const int nb = 8 - int(unstuff);
+    tmp |= uint64_t(d & 0xff) << (64 - bits - nb);
+    bits += nb;
+    unstuff = (d & 0xff) == 0xff;
+  }
+  uint32_t next_byte() {
+    uint32_t d = 0xff;
+    if (size > 0) {
+      d = *p++;
+      if (size == 1) d |= 0xf;
+    }
+    size--;
+    return d;
+  }
+  // mel_init: OpenJPEG reads up to the next 4-byte address one byte at a
+  // time and fails where a byte after 0xFF is over 0x8F among those
+  bool init(const uint8_t* data, int lcup, int scup, int first_bytes) {
+    p = data + lcup - scup;
+    size = scup - 1;
+    for (int i = 0; i < first_bytes; i++) {
+      if (unstuff && *p > 0x8f) return false;
+      add(next_byte());
+    }
+    return true;
+  }
+  void fill() {
+    while (bits <= 56) add(next_byte());
+  }
+  int get_run() {
+    static const int kExp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    if (bits < 6) fill();
+    const int e = kExp[k];
+    if (tmp >> 63) {
+      tmp <<= 1;
+      bits -= 1;
+      k = std::min(k + 1, 12);
+      return ((1 << e) - 1) << 1;
+    }
+    const int run = e ? int((tmp >> (63 - e)) & ((1u << e) - 1)) : 0;
+    tmp <<= e + 1;
+    bits -= e + 1;
+    k = std::max(k - 1, 0);
+    return (run << 1) + 1;
+  }
+};
+
+// a backward stream (VLC: from the byte before Scup's last, its high
+// nibble first; MagRef: from the refinement segment's last byte)
+struct HtRev {
+  const uint8_t* p;
+  int size;
+  uint64_t tmp = 0;
+  int bits = 0;
+  bool unstuff = false;
+
+  void add(uint32_t d) {
+    const int nb = 8 - int(unstuff && (d & 0x7f) == 0x7f);
+    tmp |= uint64_t(d) << bits;
+    bits += nb;
+    unstuff = d > 0x8f;
+  }
+  void init_vlc(const uint8_t* data, int lcup, int scup) {
+    p = data + lcup - 2;
+    size = scup - 2;
+    const uint32_t d = *p--;
+    tmp = d >> 4;
+    bits = 4 - int((tmp & 7) == 7);
+    unstuff = (d | 0xf) > 0x8f;
+  }
+  void init_mrp(const uint8_t* data, int lcup, int len2) {
+    p = data + lcup + len2 - 1;
+    size = len2;
+    unstuff = true;
+  }
+  uint32_t fetch() {
+    while (bits <= 56) {
+      uint32_t d = 0;
+      if (size > 0) d = *p--;
+      size--;
+      add(d);
+    }
+    return uint32_t(tmp);
+  }
+  uint32_t advance(int n) {
+    tmp >>= n;
+    bits -= n;
+    return uint32_t(tmp);
+  }
+};
+
+// a forward stream (MagSgn with 0xFF past its end, SigProp with 0)
+struct HtFwd {
+  const uint8_t* p;
+  int size;
+  uint32_t fill;
+  uint64_t tmp = 0;
+  int bits = 0;
+  bool unstuff = false;
+
+  void init(const uint8_t* data, int n, uint32_t x) {
+    p = data;
+    size = n;
+    fill = x;
+  }
+  uint32_t fetch() {
+    while (bits <= 56) {
+      uint32_t d = fill;
+      if (size > 0) d = *p++;
+      size--;
+      tmp |= uint64_t(d) << bits;
+      bits += 8 - int(unstuff);
+      unstuff = d == 0xff;
+    }
+    return uint32_t(tmp);
+  }
+  void advance(int n) {
+    tmp >>= n;
+    bits -= n;
+  }
+};
+
+// decode_init_uvlc / decode_noninit_uvlc: u of a quad pair from the VLC
+// bits (prefixes "1", "01", "001" with a 1-bit suffix, "000" with 5
+// bits), by the pair's mode (u_off of each quad; 4: both, MEL event 1 in
+// the first row pair). Returns the bits used; u[] holds u + kappa 1.
+int ht_uvlc(uint32_t vlc, int mode, bool first, uint32_t* u) {
+  static const uint8_t dec[8] = {
+      3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5),
+      2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5),
+      3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5),
+      2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+  int used = 0;
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    uint32_t d = dec[vlc & 7];
+    vlc >>= d & 3;
+    used += int(d & 3);
+    const uint32_t sl = (d >> 2) & 7;
+    used += int(sl);
+    d = (d >> 5) + (vlc & ((1u << sl) - 1));
+    u[0] = mode == 1 ? d + 1 : 1;
+    u[1] = mode == 1 ? 1 : d + 1;
+  } else if (mode == 3 && first) {
+    uint32_t d1 = dec[vlc & 7];
+    vlc >>= d1 & 3;
+    used += int(d1 & 3);
+    if ((d1 & 3) > 2) {  // u_0 over 2: u_1 is 1 + one bit
+      u[1] = (vlc & 1) + 1 + 1;
+      ++used;
+      vlc >>= 1;
+      const uint32_t sl = (d1 >> 2) & 7;
+      used += int(sl);
+      d1 = (d1 >> 5) + (vlc & ((1u << sl) - 1));
+      u[0] = d1 + 1;
+    } else {
+      uint32_t d2 = dec[vlc & 7];
+      vlc >>= d2 & 3;
+      used += int(d2 & 3);
+      uint32_t sl = (d1 >> 2) & 7;
+      used += int(sl);
+      d1 = (d1 >> 5) + (vlc & ((1u << sl) - 1));
+      u[0] = d1 + 1;
+      vlc >>= sl;
+      sl = (d2 >> 2) & 7;
+      used += int(sl);
+      d2 = (d2 >> 5) + (vlc & ((1u << sl) - 1));
+      u[1] = d2 + 1;
+    }
+  } else {  // both u_off set: mode 3 after the first row pair, or mode 4
+    uint32_t d1 = dec[vlc & 7];
+    vlc >>= d1 & 3;
+    used += int(d1 & 3);
+    uint32_t d2 = dec[vlc & 7];
+    vlc >>= d2 & 3;
+    used += int(d2 & 3);
+    uint32_t sl = (d1 >> 2) & 7;
+    used += int(sl);
+    d1 = (d1 >> 5) + (vlc & ((1u << sl) - 1));
+    vlc >>= sl;
+    sl = (d2 >> 2) & 7;
+    used += int(sl);
+    d2 = (d2 >> 5) + (vlc & ((1u << sl) - 1));
+    const uint32_t add = mode == 4 ? 3 : 1;  // mode 4: u - 2 coded
+    u[0] = d1 + add;
+    u[1] = d2 + add;
+  }
+  return used;
+}
+
+// opj_t1_ht_decode_cblk on one code-block's segments: 0 passes leave it
+// zero, OpenJPEG's errors fail the decode (cv2: None), its warnings cut
+// the passes. d gets h x w samples in tier 1's layout; chunk_off is the
+// block's data offset in its tile's buffer (where OpenJPEG's MEL reader
+// starts byte by byte).
+void ht_decode(const Cblk& cb, int roishift, int cblksty, size_t chunk_off,
+               std::vector<int32_t>& d) {
+  const int w = cb.x1 - cb.x0, h = cb.y1 - cb.y0;
+  d.assign(size_t(w) * size_t(h), 0);
+  if (roishift != 0) fail("We do not support ROI in decoding HT codeblocks");
+  if (cb.data.empty()) return;
+  const uint32_t zero_bplanes = uint32_t(cb.mb + 1 - cb.numbps);
+  int num_passes = cb.numsegs > 0 ? cb.segs[0].numpasses : 0;
+  num_passes += cb.numsegs > 1 ? cb.segs[1].numpasses : 0;
+  const int lengths1 = num_passes > 0 ? int(cb.segs[0].len) : 0;
+  const int lengths2 = num_passes > 1 ? int(cb.segs[1].len) : 0;
+  if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // a warning
+  if (num_passes > 3)
+    fail("We do not support more than 3 coding passes in an HT codeblock; "
+         "This codeblocks has %d passes.", num_passes);
+  if (cb.mb > 30)
+    fail("32 bits are not enough to decode this codeblock, since the "
+         "number of bitplane, %d, is larger than 30.", cb.mb);
+  if (zero_bplanes > uint32_t(cb.mb))
+    fail("Malformed HT codeblock. Decoding this codeblock is stopped. "
+         "There are %u zero bitplanes in %d bitplanes.", zero_bplanes, cb.mb);
+  if (zero_bplanes == uint32_t(cb.mb) && num_passes > 1) num_passes = 1;
+  const uint32_t p = uint32_t(cb.numbps);
+  const uint32_t mmsbp2 = zero_bplanes + 1;
+  const uint8_t* data = cb.data.data();
+  const size_t cblk_len = cb.data.size();
+  if (lengths1 < 2 || size_t(lengths1) > cblk_len ||
+      size_t(lengths1) + size_t(lengths2) > cblk_len)
+    fail("Malformed HT codeblock. Invalid codeblock length values.");
+  const int lcup = lengths1;
+  const int scup = (int(data[lcup - 1]) << 4) + (data[lcup - 2] & 0xf);
+  if (scup < 2 || scup > lcup || scup > 4079)
+    fail("Malformed HT codeblock. One of the following condition is not "
+         "met: 2 <= Scup <= min(Lcup, 4079)");
+  HtMel mel;
+  if (!mel.init(data, lcup, scup,
+                4 - int((chunk_off + size_t(lcup - scup)) & 3)))
+    fail("Malformed HT codeblock. Incorrect MEL segment sequence.");
+  HtRev vlc;
+  vlc.init_vlc(data, lcup, scup);
+  HtFwd ms;
+  ms.init(data, lcup - scup, 0xff);
+
+  // sign-magnitude samples as OpenJPEG decodes them, two's complement at
+  // the end; sig: the cleanup's significance
+  std::vector<uint32_t> v(size_t(w) * size_t(h), 0);
+  std::vector<uint8_t> sig(size_t(w) * size_t(h), 0);
+  // line state a quad column (two sample columns, 2q - 1 and 2q, of the
+  // row above): bit 7 significance, bits 0-6 the largest exponent
+  std::vector<uint8_t> ls(size_t(w) / 2 + 4, 0);
+  int run = mel.get_run();
+  for (int y = 0; y < h; y += 2) {
+    const bool first = y == 0;
+    const uint16_t* tbl = kHt.vlc[first ? 0 : 1];
+    uint32_t c_q = 0;
+    uint8_t ls0 = ls[0];
+    ls[0] = 0;
+    for (int x = 0; x < w; x += 4) {
+      const size_t q = size_t(x) / 2;  // the pair's first quad column
+      uint32_t qinf[2] = {0, 0};
+      uint32_t vlc_val = vlc.fetch();
+      if (!first) {
+        c_q |= ls0 >> 7;
+        c_q |= (ls[q + 1] >> 5) & 4;
+      }
+      qinf[0] = tbl[(c_q << 7) | (vlc_val & 0x7f)];
+      if (c_q == 0) {
+        run -= 2;
+        qinf[0] = run == -1 ? qinf[0] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      if (first)
+        c_q = ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xe0) >> 5);
+      else
+        c_q = ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+      vlc_val = vlc.advance(int(qinf[0] & 7));
+      if (x + 2 < w) {
+        if (!first) {
+          c_q |= ls[q + 1] >> 7;
+          c_q |= (ls[q + 2] >> 5) & 4;
+        }
+        qinf[1] = tbl[(c_q << 7) | (vlc_val & 0x7f)];
+        if (c_q == 0) {
+          run -= 2;
+          qinf[1] = run == -1 ? qinf[1] : 0;
+          if (run < 0) run = mel.get_run();
+        }
+        if (first)
+          c_q = ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xe0) >> 5);
+        else
+          c_q = ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+        vlc_val = vlc.advance(int(qinf[1] & 7));
+      }
+      int mode = int((qinf[0] & 8) >> 3) | int((qinf[1] & 8) >> 2);
+      if (first && mode == 3) {
+        run -= 2;
+        mode += run == -1 ? 1 : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      uint32_t u_q[2];
+      vlc_val = vlc.advance(ht_uvlc(vlc_val, mode, first, u_q));
+      if (!first) {  // kappa from the row above (eqns 5, 6 of T.814)
+        for (int k = 0; k < 2; k++) {
+          const uint32_t r = qinf[k] & 0xf0;
+          if (r & (r - 1)) {
+            const uint32_t e = std::max<uint32_t>(
+                k == 0 ? ls0 & 0x7f : ls[q + 1] & 0x7f,
+                ls[q + 1 + size_t(k)] & 0x7f);
+            u_q[k] += e > 2 ? e - 2 : 0;
+          }
+        }
+        ls0 = ls[q + 2];
+        ls[q + 1] = ls[q + 2] = 0;
+      }
+      if (u_q[0] > mmsbp2 || u_q[1] > mmsbp2)
+        fail("Malformed HT codeblock. Decoding this codeblock is stopped. "
+             "U_q is larger than zero bitplanes + 1");
+      uint32_t locs = 0xff;
+      if (x + 4 > w) locs >>= (x + 4 - w) << 1;
+      if (y + 2 > h) locs &= 0x55;
+      if ((((qinf[0] & 0xf0) >> 4) | (qinf[1] & 0xf0)) & ~locs)
+        fail("Malformed HT codeblock. VLC code produces significant "
+             "samples outside the codeblock area.");
+      for (int k = 0; k < 2; k++) {
+        for (int n = 0; n < 4; n++) {
+          const int sx = x + 2 * k + (n >> 1), sy = y + (n & 1);
+          if (!((qinf[k] >> (4 + n)) & 1)) continue;
+          const uint32_t ms_val = ms.fetch();
+          const uint32_t m_n = u_q[k] - ((qinf[k] >> (12 + n)) & 1);
+          ms.advance(int(m_n));
+          const uint32_t sgn = ms_val << 31;
+          uint32_t v_n = ms_val & ((1u << (m_n & 31)) - 1);
+          v_n |= ((qinf[k] >> (8 + n)) & 1) << (m_n & 31);
+          v_n |= 1;
+          const size_t at = size_t(sy) * size_t(w) + size_t(sx);
+          v[at] = sgn | ((v_n + 2) << (p - 1));
+          sig[at] = 1;
+          if (n & 1) {  // the pair's bottom row feeds the next row pair
+            const uint32_t e = 32 - uint32_t(__builtin_clz(v_n));
+            uint8_t& l = ls[q + size_t(k) + (n >> 1)];
+            l = uint8_t(0x80 | std::max<uint32_t>(l & 0x7f, e));
+          }
+        }
+      }
+    }
+  }
+  if (num_passes > 1) {
+    // SigProp (T.814 7.4): stripes of 4 rows, groups of 4 columns, column
+    // by column; a member is insignificant with a significant neighbour
+    // (the stripe above and earlier samples as significance stands after
+    // SigProp, the stripe below as the cleanup left it, not at all under
+    // the vertically causal style); a group's signs after its bits
+    const bool causal = (cblksty & kStyleVsc) != 0;
+    std::vector<uint8_t> now(sig);
+    HtFwd sp;
+    sp.init(data + lengths1, lengths2, 0);
+    auto known = [&](int xx, int yy, int stripe_end) -> bool {
+      if (xx < 0 || xx >= w || yy < 0 || yy >= h) return false;
+      if (yy >= stripe_end) return !causal && sig[size_t(yy) * size_t(w) + size_t(xx)];
+      return now[size_t(yy) * size_t(w) + size_t(xx)] != 0;
+    };
+    const uint32_t val = 3u << (p - 2);
+    for (int y0 = 0; y0 < h; y0 += 4) {
+      const int y1 = std::min(y0 + 4, h);
+      for (int gx = 0; gx < w; gx += 4) {
+        uint32_t cwd = sp.fetch();
+        int cnt = 0;
+        int newly[16], nnew = 0;
+        for (int xx = gx; xx < std::min(gx + 4, w); xx++)
+          for (int yy = y0; yy < y1; yy++) {
+            const size_t at = size_t(yy) * size_t(w) + size_t(xx);
+            if (sig[at]) continue;
+            bool member = false;
+            for (int dy = -1; dy <= 1 && !member; dy++)
+              for (int dx = -1; dx <= 1 && !member; dx++)
+                if ((dx || dy) && known(xx + dx, yy + dy, y0 + 4))
+                  member = true;
+            if (!member) continue;
+            const uint32_t b = cwd & 1;
+            cwd >>= 1;
+            ++cnt;
+            if (b) {
+              now[at] = 1;
+              newly[nnew++] = int(at);
+            }
+          }
+        for (int i = 0; i < nnew; i++) {
+          v[size_t(newly[i])] = (cwd << 31) | val;
+          cwd >>= 1;
+          ++cnt;
+        }
+        sp.advance(cnt);
+      }
+    }
+  }
+  if (num_passes > 2) {
+    // MagRef (T.814 7.5): a bit for each sample the cleanup made
+    // significant, in SigProp's order, read backward
+    HtRev mr;
+    mr.init_mrp(data, lengths1, lengths2);
+    const uint32_t half = 1u << (p - 2);
+    for (int y0 = 0; y0 < h; y0 += 4) {
+      const int y1 = std::min(y0 + 4, h);
+      for (int gx = 0; gx < w; gx += 4) {
+        uint32_t cwd = mr.fetch();
+        int cnt = 0;
+        for (int xx = gx; xx < std::min(gx + 4, w); xx++)
+          for (int yy = y0; yy < y1; yy++) {
+            const size_t at = size_t(yy) * size_t(w) + size_t(xx);
+            if (!sig[at]) continue;
+            const uint32_t sym = cwd & 1;
+            v[at] ^= (1 - sym) << (p - 1);
+            v[at] |= half;
+            cwd >>= 1;
+            ++cnt;
+          }
+        mr.advance(cnt);
+      }
+    }
+  }
+  for (size_t i = 0; i < v.size(); i++) {
+    const int32_t mag = int32_t(v[i] & 0x7fffffff);
+    d[i] = (v[i] & 0x80000000u) ? -mag : mag;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Inverse DWT (Annex F; dwt.c) on the tile-component's Mallat layout:
 // lows in [0, sn), highs in [sn, n); cas is the parity of the origin
 
@@ -1592,7 +2168,7 @@ void decode_tile(Codestream& cs, const TCP& tcp, int tileno,
       packed = {ppt.data(), ppt.size(), &ppt_pos};
     }
     pi.run([&](int l, int r, int c, int p) {
-      pos += decode_packet(tcp, t, l, r, c, p, data + pos, len - pos,
+      pos += decode_packet(tcp, t, l, r, c, p, data + pos, len - pos, pos,
                            packed.pos ? &packed : nullptr);
       resno_decoded[size_t(c)] = std::max(resno_decoded[size_t(c)], r);
     });
@@ -1616,7 +2192,15 @@ void decode_tile(Codestream& cs, const TCP& tcp, int tileno,
         for (auto& pr : band.precs)
           for (auto& cb : pr.cblks) {
             if (cb.x1 <= cb.x0 || cb.y1 <= cb.y0) continue;
-            t1.decode(cb, band.bandno, tccp.roishift, tccp.cblksty);
+            {
+              const Clock::time_point t0 = Clock::now();
+              if (tccp.cblksty & kStyleHT)
+                ht_decode(cb, tccp.roishift, tccp.cblksty, cb.chunk_off,
+                          t1.d);
+              else
+                t1.decode(cb, band.bandno, tccp.roishift, tccp.cblksty);
+              g_timing.tier1 += seconds_since(t0);
+            }
             int x = cb.x0 - band.x0, y = cb.y0 - band.y0;
             if (band.bandno & 1) x += tc.res[size_t(r - 1)].x1 - tc.res[size_t(r - 1)].x0;
             if (band.bandno & 2) y += tc.res[size_t(r - 1)].y1 - tc.res[size_t(r - 1)].y0;
@@ -1635,7 +2219,9 @@ void decode_tile(Codestream& cs, const TCP& tcp, int tileno,
       }
     }
     tc.numres = std::min(tc.numres, resno_decoded[c] + 1);
+    const Clock::time_point t0 = Clock::now();
     idwt_tile(tc, rev);
+    g_timing.wavelet += seconds_since(t0);
   }
   // multiple component transform (G.2, G.3; mct.c), on as many samples as
   // component 0's decoded resolution holds, taken from the buffers' start
@@ -1864,8 +2450,6 @@ struct Walker {
           b = segment(len);
           read_siz(b, len, cs);
           break;
-        case CAP:
-          refuse("JPEG 2000 HTJ2K (Part 15) codestreams (CAP marker)");
         case COD:
           b = segment(len);
           read_cod(b, len, cs.deflt);
@@ -1897,8 +2481,8 @@ struct Walker {
           read_packed(b, len, cs.ppm, "ppm");
           cs.has_ppm = true;
           break;
-        case TLM: case PLM: case CRG: case COM: case 0xff59:
-          segment(len);
+        case TLM: case PLM: case CRG: case COM: case CAP: case 0xff59:
+          segment(len);  // opj_j2k_read_cap / _cpf read nothing
           break;
         default:
           fail("Marker is not compliant with its position");
@@ -2513,7 +3097,7 @@ extern "C" {
 // opj_read_header as OpenCV's readHeader calls it. Returns 0 (info =
 // {numcomps, colour space, x0, y0, x1, y1, then prec, sgnd, dx, dy per
 // component, at most (cap - 6) / 4 of them}), 1 (bytes cv2 gives None
-// for) or 2 (a variant the port does not decode); msg says why.
+// for); msg says why.
 int gj2k_header(const uint8_t* data, uint64_t size, int* info, int cap,
                 char* msg, int msglen) {
   Walker* w = nullptr;
@@ -2541,10 +3125,6 @@ int gj2k_header(const uint8_t* data, uint64_t size, int* info, int cap,
     delete w;
     put_msg(msg, msglen, e.msg);
     return 1;
-  } catch (const Unsupported& e) {
-    delete w;
-    put_msg(msg, msglen, e.msg);
-    return 2;
   } catch (const std::bad_alloc&) {
     delete w;
     put_msg(msg, msglen, "out of memory");
@@ -2554,12 +3134,18 @@ int gj2k_header(const uint8_t* data, uint64_t size, int* info, int cap,
 
 // opj_decode as OpenCV's readData calls it. Returns a malloc'd buffer of the
 // components' int32 samples one after another (free it with gj2k_free), or
-// NULL with *status 1 (None) or 2 (not decoded by the port). info gets
+// NULL with *status 1 (None). info gets
 // {numcomps, colour space, then w, h, x0, y0, dx, dy, prec, sgnd, alpha per
 // component, at most (cap - 2) / 9 of them}.
 int32_t* gj2k_decode(const uint8_t* data, uint64_t size, int* info, int cap,
                      int* status, char* msg, int msglen) {
   *status = 0;
+  g_timing = Timing();
+  const Clock::time_point start = Clock::now();
+  struct Total {
+    Clock::time_point t0;
+    ~Total() { g_timing.total = seconds_since(t0); }
+  } total{start};
   Walker* w = nullptr;
   try {
     JP2 j;
@@ -2605,10 +3191,6 @@ int32_t* gj2k_decode(const uint8_t* data, uint64_t size, int* info, int cap,
     delete w;
     put_msg(msg, msglen, e.msg);
     *status = 1;
-  } catch (const Unsupported& e) {
-    delete w;
-    put_msg(msg, msglen, e.msg);
-    *status = 2;
   } catch (const std::bad_alloc&) {
     delete w;
     put_msg(msg, msglen, "out of memory");
@@ -2618,5 +3200,13 @@ int32_t* gj2k_decode(const uint8_t* data, uint64_t size, int* info, int cap,
 }
 
 void gj2k_free(void* p) { std::free(p); }
+
+// the calling thread's last gj2k_decode in seconds: out = {whole call,
+// tier 1 (MQ or HT code-blocks), inverse wavelet}
+void gj2k_timing(double* out) {
+  out[0] = g_timing.total;
+  out[1] = g_timing.tier1;
+  out[2] = g_timing.wavelet;
+}
 
 }  // extern "C"

@@ -46,7 +46,7 @@ must be grey: an 8 or 16-bit PNG, or a uint16, int16 or float32 GeoTIFF
 ``ValueError`` (naming the JPEG variant where cv2 refuses one: lossless
 arithmetic-coded (SOF11), hierarchical or 12-bit; a TIFF of a codec
 cv2's libtiff lacks, such as ZSTD or LZMA, is one cv2 would not read), and
-so does a variant the port does not read yet (AVIF, HTJ2K). A damaged
+so does a variant the port does not read yet (AVIF). A damaged
 file is read as ``cv2.imread`` reads it (a PNG whose IEND fails its CRC
 reads; one whose IDAT fails it is refused).
 """

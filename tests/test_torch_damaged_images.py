@@ -133,7 +133,8 @@ def _digests() -> dict:
 
 
 @pytest.mark.parametrize("sub", ["torch_images", "torch_webp", "torch_jp2",
-                                 "torch_jpegx", "torch_tiffx"])
+                                 "torch_jpegx", "torch_tiffx",
+                                 "torch_htj2k"])
 def test_damaged_digests_without_cv2(sub):
     """The committed digests of every damaged fixture, held without cv2
     (as the card machine holds them): the seed and the fixtures remake the

@@ -23,8 +23,8 @@ around codestreams, and codestreams with patched headers.
   (OpenJPEG then stops the wavelet, colour transform and level shift at
   the highest resolution decoded); COD, COC, QCD, QCC, RGN, POC, PLT and
   COM in a tile-part header; packet headers packed into PPT and PPM
-  markers (``j2k_with_ppt`` / ``j2k_with_ppm``) and malformed ones; and
-  HTJ2K, which the port refuses by name.
+  markers (``j2k_with_ppt`` / ``j2k_with_ppm``) and malformed ones.
+  HTJ2K has its own file, ``tests/test_torch_htj2k.py``.
 
 Every case equals cv2 bit for bit under both flags (None where cv2 gives
 None).
@@ -365,17 +365,6 @@ def test_rgn_and_com_inserted():
                 j2k_segment(0xff55, bytes([0, 0x40]) + b"\0" * 4),
                 j2k_segment(0xff6f, b"\0\0")):
         _check(j2k_insert(data, seg))
-
-
-def test_htj2k_names_itself():
-    """HTJ2K, which cv2 reads, raises ValueError naming it: its CAP marker
-    in the main header, or the HT code-block style."""
-    data = _pil(_scene("refuse", 20, 24, 1)[..., 0], "L", no_jp2=True)
-    cap = j2k_insert(data, j2k_segment(0xff50, b"\0\0\0\0\0\0"))
-    for bad in (cap, j2k_patch_cod(data, style=0x40)):
-        for flag in (-1, 0):
-            with pytest.raises(ValueError, match="HTJ2K"):
-                decode_image(bad, flag)
 
 
 PACKED = {f"{kind}_{name}_{m}": (kind, kw, m)

@@ -27,6 +27,18 @@ dtypes; None exactly where cv2 gives None. Each file is read by
 - YCbCr 4x4 strips of every width 1-25; BMP V4 / V5 bitfields whose masks
   are not whole bytes; JPEG-in-TIFF with separate planes and of 12 and 16
   bits.
+- CIELab (photometric 8) through libtiff's RGBA reader's
+  ``TIFFCIELab16ToXYZ`` / ``TIFFXYZToRGB`` (the file's WhitePoint or D50,
+  ``display_sRGB``): 8 and 16 bits, signed a*/b* (SampleFormat 2 gives
+  int8 under ``IMREAD_UNCHANGED``), orientations, strips and tiles,
+  Pillow's LAB writer; None for extra samples, separate planes and one
+  sample.
+- SGILog (``sgilog_encode``): LogL through ``L16toGry`` under both flags
+  (int8 for SampleFormat 2, None for a float format), LogLuv32 and
+  LogLuv24 as 8-bit RGB (``XYZtoRGB24``) under the grey flag and as float32
+  XYZ turned by ``COLOR_XYZ2BGR`` under ``IMREAD_UNCHANGED`` (the SSE
+  lanes' and the row tail's float sums), orientations, strips, tiles, cut
+  strips (rows after the cut zero under the RGBA reader, None unchanged).
 - The committed fixtures (``tests/data/torch_tiffx``, written by
   ``tools/make_torch_image_fixtures.py --tiffx-out``): cv2's digests
   unchanged, and the port's decodes equal to them.
@@ -49,7 +61,7 @@ from gisnav_tpu_torch.gis.imgcodecs import decode_image, read_image
 from gisnav_tpu_torch.gis.tiff import encode_tiff
 from gisnav_tpu_torch.gis.wms import WMSClient, request_orthoimage
 from tests.torch_image_writers import (ccitt_1d, libjpeg_encode, pillow_tiff,
-                                       write_bmp, write_tiff)
+                                       sgilog_encode, write_bmp, write_tiff)
 
 cv2.utils.logging.setLogLevel(cv2.utils.logging.LOG_LEVEL_SILENT)
 FLAGS = (cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE)
@@ -597,6 +609,142 @@ def test_thunderscan_palette_is_refused_naming_it():
         (320, 3, list(np.asarray(cmap, np.uint16).T.ravel()))])
     assert _verdicts(data) == (True, True)
     _check(data, "ThunderScan")
+
+
+# -- CIELab and SGILog ------------------------------------------------------
+
+def _cielab_case(seed: int) -> bytes:
+    r = np.random.default_rng([25, 8, seed])
+    h, w = (int(v) for v in r.integers(1, 40, 2))
+    kind = seed % 8
+    if kind in (0, 1, 2, 3):
+        lab = r.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        if kind == 1:  # signed a*/b*: SampleFormat 2
+            lab = lab.view(np.int8)
+        kw = {}
+        if kind == 2:
+            kw["extra_tags"] = [(318, 5, [3127, 10000, 3290, 10000])]
+        if kind == 3:
+            kw = {"order": b"MM", "orientation": int(r.integers(1, 9)),
+                  "rows_per_strip": int(r.integers(1, 9))}
+        return write_tiff(lab, photometric=8, **kw)
+    if kind == 4:  # 16 bits
+        return write_tiff(r.integers(0, 65536, (h, w, 3)).astype(np.uint16),
+                          photometric=8, rows_per_strip=3)
+    if kind == 5:  # tiles of whole KiB (compressed: any size)
+        lab = r.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        return write_tiff(lab, photometric=8, tile=(32, 32),
+                          compression=int(r.choice([1, 5, 8])))
+    if kind == 6:  # what libtiff's RGBA reader refuses
+        lab = r.integers(0, 256, (h, w, 4)).astype(np.uint8)
+        return write_tiff(lab, photometric=8, extra_samples=[2])
+    lab = r.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    return write_tiff(lab, photometric=8, planar=2)
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_cielab_as_cv2(seed):
+    _check(_cielab_case(seed), f"CIELab {seed}")
+
+
+def test_cielab_of_one_sample_and_no_white_give_none():
+    lab = _rng("lab1").integers(0, 256, (9, 11, 3)).astype(np.uint8)
+    for data in (write_tiff(lab[..., 0], photometric=8),
+                 write_tiff(lab, photometric=8, extra_tags=[
+                     (318, 5, [3127, 10000, 0, 1])])):
+        _check(data, "CIELab")
+        assert decode_image(data) is None
+
+
+@pytest.mark.parametrize("compression", ["raw", "tiff_lzw"])
+def test_cielab_pillow_as_cv2(compression):
+    """Pillow's LAB writer (its bytes as GIS tools write L*a*b* rasters)."""
+    r = _rng("pillow_lab" + compression)
+    lab = np.stack([r.integers(0, 256, (23, 31)),
+                    r.integers(0, 256, (23, 31)),
+                    r.integers(0, 256, (23, 31))], -1).astype(np.uint8)
+    data = pillow_tiff(lab, "LAB", compression=compression)
+    assert struct.unpack_from("<H", data, 0)[0] in (0x4949, 0x4D4D)
+    _check(data, f"Pillow LAB {compression}")
+    assert decode_image(data) is not None
+
+
+def _sgilog_case(seed: int) -> bytes:
+    r = np.random.default_rng([25, 34676, seed])
+    h, w = (int(v) for v in r.integers(1, 30, 2))
+    kind = seed % 6
+    if kind in (0, 1):  # LogL, SampleFormat 1 / 2 / 3, strips, a cut
+        codes = r.integers(0, 65536, (h, w))
+        rps = int(r.integers(1, h + 1))
+        strips = [sgilog_encode(codes[y:y + rps], "L16")
+                  for y in range(0, h, rps)]
+        if kind == 1:
+            strips[-1] = strips[-1][:len(strips[-1]) * 2 // 3]
+        return write_tiff(np.zeros((h, w), np.uint16), photometric=32844,
+                          compression=34676, rows_per_strip=rps,
+                          sample_format=int(r.choice([1, 1, 2, 3])),
+                          orientation=int(r.integers(1, 9)), strips=strips)
+    if kind == 2:  # LogL in tiles
+        codes = r.integers(0, 65536, (32, 48))
+        return write_tiff(np.zeros((h, w), np.uint16), photometric=32844,
+                          compression=34676, tile=(16, 16), strips=[
+                              sgilog_encode(codes[y:y + 16, x:x + 16], "L16")
+                              for y in range(0, -(-h // 16) * 16, 16)
+                              for x in range(0, -(-w // 16) * 16, 16)])
+    comp, enc = ((34676, "Luv32") if kind in (3, 5) else (34677, "Luv24"))
+    if enc == "Luv32":
+        codes = (r.integers(0, 65536, (h, w)) << 16) | r.integers(
+            0, 65536, (h, w))
+    else:
+        codes = (r.integers(0, 1024, (h, w)) << 14) | r.integers(
+            0, 16384, (h, w))
+    rps = int(r.integers(1, h + 1))
+    strips = [sgilog_encode(codes[y:y + rps], enc) for y in range(0, h, rps)]
+    if kind == 5:
+        strips[0] = strips[0][:len(strips[0]) // 2]
+    return write_tiff(np.zeros((h, w, 3), np.uint16), photometric=32845,
+                      compression=comp, rows_per_strip=rps,
+                      sample_format=int(r.choice([1, 2, 3])),
+                      orientation=int(r.integers(1, 9)), strips=strips)
+
+
+@pytest.mark.parametrize("seed", range(36))
+def test_sgilog_as_cv2(seed):
+    _check(_sgilog_case(seed), f"SGILog {seed}")
+
+
+def test_sgilog_types_as_cv2():
+    """LogL reads as 8 bits (int8 for SampleFormat 2) under both flags,
+    LogLuv as float32 BGR under IMREAD_UNCHANGED; LogL of three samples,
+    LogL under SGILog24, LogLuv of four samples or separate planes give
+    None."""
+    r = _rng("sgilog")
+    codes = r.integers(0, 65536, (5, 7))
+    luv = (codes << 16) | r.integers(0, 65536, (5, 7))
+    logl = write_tiff(np.zeros((5, 7), np.uint16), photometric=32844,
+                      compression=34676, sample_format=2,
+                      strips=[sgilog_encode(codes, "L16")])
+    assert decode_image(logl).dtype == np.int8
+    assert decode_image(logl, cv2.IMREAD_GRAYSCALE).dtype == np.uint8
+    luv32 = write_tiff(np.zeros((5, 7, 3), np.uint16), photometric=32845,
+                       compression=34676, strips=[sgilog_encode(luv, "Luv32")])
+    got = decode_image(luv32)
+    assert got.dtype == np.float32 and got.shape == (5, 7, 3)
+    for data in (
+            write_tiff(np.zeros((5, 7, 3), np.uint16), photometric=32844,
+                       compression=34676,
+                       strips=[sgilog_encode(codes, "L16")]),
+            write_tiff(np.zeros((5, 7), np.uint16), photometric=32844,
+                       compression=34677,
+                       strips=[sgilog_encode(codes, "L16")]),
+            write_tiff(np.zeros((5, 7, 4), np.uint16), photometric=32845,
+                       compression=34676,
+                       strips=[sgilog_encode(luv, "Luv32")]),
+            write_tiff(np.zeros((5, 7, 3), np.uint16), photometric=32845,
+                       compression=34676, planar=2,
+                       strips=[sgilog_encode(luv, "Luv32")] * 3)):
+        _check(data, "SGILog refused")
+        assert decode_image(data) is None
 
 
 # -- the ZSTD DEM behind a WMS -------------------------------------------

@@ -554,6 +554,43 @@ def thunder_encode(rows: np.ndarray, raw_only: bool = False) -> bytes:
 
 # --- GIF -------------------------------------------------------------------
 
+def _sgilog_rle(plane: np.ndarray) -> bytes:
+    """One byte plane of an SGILog row as ``tif_luv.c`` reads it: a run
+    byte ``128 + n - 2`` then the value (n 2 to 129), or a count byte
+    n < 128 then n literal bytes."""
+    out, i, n = bytearray(), 0, len(plane)
+    v = plane.tolist()
+    while i < n:
+        j = i
+        while j < n and v[j] == v[i] and j - i < 129:
+            j += 1
+        if j - i >= 3:
+            out += bytes([128 + j - i - 2, v[i]])
+            i = j
+            continue
+        k = i
+        while k < n and k - i < 127 and not (
+                k + 2 < n and v[k] == v[k + 1] == v[k + 2]):
+            k += 1
+        out += bytes([k - i]) + bytes(v[i:k])
+        i = k
+    return bytes(out)
+
+
+def sgilog_encode(codes: np.ndarray, kind: str) -> bytes:
+    """A strip of SGILog codes (rows x pixels): ``kind`` "L16" (16-bit
+    LogL codes, each row's high bytes then low bytes, run-length coded),
+    "Luv32" (32-bit LogLuv codes, four byte planes a row from the highest)
+    or "Luv24" (24-bit LogLuv codes packed in 3 bytes, no runs)."""
+    c = np.asarray(codes).astype(np.int64) & 0xFFFFFFFF
+    if kind == "Luv24":
+        return np.stack([(c >> 16) & 255, (c >> 8) & 255, c & 255],
+                        -1).astype(np.uint8).tobytes()
+    shifts = (8, 0) if kind == "L16" else (24, 16, 8, 0)
+    return b"".join(_sgilog_rle(((row >> sh) & 255).astype(np.uint8))
+                    for row in c for sh in shifts)
+
+
 def gif_lzw_encode(indices: bytes, min_code_size: int) -> bytes:
     """GIF LZW: LSB-first codes from min_code_size + 1 bits, a clear code
     first and whenever the table fills, the end code last."""
@@ -1986,7 +2023,7 @@ def damage_ops(name: str, data: bytes) -> list:
 
 
 DAMAGE_SETS = ("torch_images", "torch_webp", "torch_jp2", "torch_jpegx",
-               "torch_tiffx")
+               "torch_tiffx", "torch_htj2k")
 DAMAGE_MAX_BYTES = 200_000
 
 
@@ -2041,3 +2078,867 @@ def strip_corrupted(tiff: bytes) -> bytes:
             fmt, tiff, ifd + 10 + 12 * i if size <= 4 else value)
     at = fields[273][1] + fields[279][1] // 2
     return tiff[:at] + bytes([tiff[at] ^ 0xFF]) + tiff[at + 1:]
+
+
+# ---------------------------------------------------------------------------
+# HTJ2K (ITU-T T.814 | ISO/IEC 15444-15): a writer of HT codestreams, which
+# neither cv2 nor Pillow writes (their OpenJPEG only decodes HT)
+
+# The CxtVLC codewords of T.814 Annex C, 7 hex digits each: c_q (3 bits),
+# rho (4), u_off (1), e_k (4), e_1 (4), the codeword (7 bits, the first
+# read lowest) and its length (3); for the quads of a code-block's first
+# row pair, then for the quads of the later ones
+_HT_VLC_FIRST = (
+    "008003400c45ff01000030148bff018008d01c8aff01cc4ff0200013025109e0280075"
+    "02d111e02d447f030001e034037f038017f03c806e03c8a7f040002304621ee04800ee"
+    "04c016e050000d05621ae0568bbf05801bf05c404e05c46bf06000f506710ae067212e"
+    "06730bf068033f06c453f06d523f06f603f07003df0748a5f076a02e07791df07802df"
+    "07e64df07eeb5f07f88ce07f9b9f07fc59f07fd14e07fd45f07fe1ce07ff15f0800002"
+    "088007408c44ff090003409489de09800de09c01ee0a000540a5115e0a8005e0ad119e"
+    "0ad47ff0b0009e0b4011e0b801ff0bc801e0bc8aff0c000140c620ee0c8016e0cc006e"
+    "0d001ae0d620ae0d68b7f0d8017f0dc408e0dc467f0e0000d0e6212e0e7102e0e8007f"
+    "0ec44bf0ed51ce0ef63bf0f001bf0f48abf0f6a0ce0f7933f0f8003f0fe213f0fe884e"
+    "0fee14e0ff918e0ffc63f1000002108007410c44de110003411489ff118015e11c459e"
+    "11ccbff1200054125105e128000d12d449e12d511e12d557f130001e13402ff13800ff"
+    "13c8b7f13cc48e13dd1bf1400014146227f14801ee14c00ee150016e154006e158007f"
+    "15c81ae15c8bbf16000ae165112e16722bf16800bf16e202e16f11ce16f473f170013f"
+    "17480ce1748bdf178023f17c444e17cc83f17dd18e17fc54e17fe1df18000031880024"
+    "18c45ee19000651948a7f19800ee19c442e19ccbff1a000b51a5116e1a800351ad446e"
+    "1ad51ae1ad54d51b001ff1b512ff1b588ff1b8037f1bd90ae1bd997f1bdc52e1bdc87f"
+    "1bdcfbf1c000551c6203f1c801ce1cc45bf1ce62bf1d000ce1d6214e1d688bf1d8033f"
+    "1dc463f1dcc84e1dec53f1dee3df1e0018e1e5108e1e721df1e802df1ee64df1ef450e"
+    "1ef500e1ef555f1ef625f1ef735f1f0005f1f5109f1f721f61f7899f1f7939f1f8029f"
+    "1fea8761fee71f1ff991f1ffc4e51ffc9761ffce1f1ffd0151ffd4f61ffe0951fff01f"
+    "2000002208007420c45ff210003421488de218015e21c89ee21cc7ff220005422512ff"
+    "228005e22c019e230009e234011e23800ff23d001e23d137f240001424620ee248008e"
+    "24c03bf250000d256896e256a06e256a97f258027f25c01ae25ec87f26000ae266212e"
+    "26711bf26802bf26c402e26c443f27000bf27511ce27720ce2778b3f278013f27dc84e"
+    "27ddbdf27e454e27e663f27ee18e27fd1df280000328800d528c47ff290005529488ee"
+    "298016e29cc5ff29cc9ce29cceff2a000952a510ff2a8006e2ad11ae2ad477f2b000ae"
+    "2b4892e2b5917f2b8027f2bd902e2bd9abf2bdc5bf2bdcbbf2bdcc7f2c000152c620ce"
+    "2c801362ce20bf2ce473f2d000e52d6884e2d6a18e2d6a94e2d8013f2de608e2de643f"
+    "2dec7df2dec90e2dece3f2e0000e2e621f62e711df2e802df2ee60f62ee675f2ef455f"
+    "2ef51762ef54df2f0025f2f5985f2f788762f7929f2f7a1b62f7a99f2f7b39f2f8009f"
+    "2fdd71f2fdd8b62fdde1f2ff641f2ffc4362ffc8252ffcfef2ffd0652ffe0a52ffe9ef"
+    "2fff11f3000003308002430c441e3100065314886e31800d531cc4ee31cc96e31ccdee"
+    "320005532511ff32801ae32c44ae32d53ff330012e3348aff33590ff338037f33d902e"
+    "33d9a7f33dc5b633dcbbf33dcd7f3400095346207f34801ce34c45bf34e62bf35000ce"
+    "354894e356a0bf358033f35e444e35e663f35ec98e35ee3df35ee93f360008e36711df"
+    "367210e367303f36802df36d500e36d559f36f20df36f475f370015f374885f3778a5f"
+    "377929f377a1f6377b39f378009f37d98f637ee71f37fa97637fc4e537fc81537fcc76"
+    "37fd13637fd51f37fe03637ff0b63800095388002e38c47ff39001ce39489ff39802ff"
+    "39cc57f39ccb7f39cccff3a0027f3a5107f3a802bf3ac44ce3ad53bf3b001bf3b4014e"
+    "3b800bf3bd9b3f3bdc44e3bdca3f3bdcd3f3bdd03f3bdd4df3c003df3c621df3c802df"
+    "3cc018e3d0029f3d4888e3d6a35f3d8015f3de665f3dec79f3dec90e3decc5f3dee09f"
+    "3dee99f3e0031f3e6211f3e7121f3e8001f3ee67ef3ef440e3ef51f63ef56ef3ef60ef"
+    "3ef71ef3f0036f3f5996f3f788f63f793af3f7a0763f7a86f3f7b26f3f800af3ffc404"
+    "3ffc8643ffcc553ffd0443ffd4d53ffd9b63ffdeaf3ffe0243ffe5763ffe8153ffed2f"
+    "3fff0b63fff5af3fffb2f3fffc35")
+_HT_VLC_LATER = (
+    "008000300c453e010003301488be018006d01c01de0200013025103e02800ad02c015e"
+    "030000d03403ff03800ff03c00de0400023046202d04800cd04c009e050004d056205e"
+    "05689ff05802ff05c019e060008d066211e067137f068007f06c001e070017f07501ee"
+    "075127f07803bf07c40ee07c45bf0800001088002c08c47ff090004c09488ff09800ed"
+    "09c45ff09ccaff0a0006d0a511bf0a8001e0ac037f0b0017f0b4027f0b8007f0bc03bf"
+    "0c0000c0c620bf0c8005e0cc02bf0d0019e0d4033f0d8013f0dc015f0e0009e0e4023f"
+    "0e8003f0ec03df0f001df0f402df0f800df0fd011e0fd135f1000001108004c10c47ff"
+    "110000c114891e11801ee11c89ff11cc4ff12000ad12512ff128001e12c037f130017f"
+    "134027f138007f13c00bf140002d14623bf14801bf14c02bf15000ee156896e156a33f"
+    "156abdf158013f15c003f15eca3f160006e16401df16802df16c00df170035f175025f"
+    "175115f178005f17d139f17d459f17dca9f17fe09f1800002188005418c445e1900014"
+    "194891e198007519cc49e19cc99e19ccfff1a000b51a511ff1a8001e1ac45ee1ad50ff"
+    "1b000ee1b402ff1b8016e1bd117f1bd44f61bdcb7f1c000351c6227f1c8006e1cc01ae"
+    "1d000ae1d4892e1d6a07f1d8002e1de21ce1dec7bf1dec8ce1deccbf1e0014e1e4004e"
+    "1e801bf1ed018e1ed12bf1f0033f1f5113f1f7223f1f78b5f1f8008e1fd983f1fdcfdf"
+    "1fea2df1ffc5f61ffc90e1ffd15f1ffd4df1ffe00e1ffe9df2000001208006d20c47ff"
+    "21000ad21489ff21802ff21c037f220004c225111e228019e22c00ff230009e234017f"
+    "238027f23c02bf240000c246207f24803bf24c01bf25000ee25400bf258033f25c035f"
+    "260002d267103f267223f267313f26803df26c01df27002df274801e27488df278015f"
+    "27c465f27cc1ee27cc85f280000228800f528c45de290005529489ff29800de29c005e"
+    "2a000142a5115e2a800752ad119e2ad47ff2b0009e2b4037f2b8011e2bc80ae2bc8aff"
+    "2c000b52c6201e2c801ee2cc00ff2d000ee2d4016e2d8006e2dc41ae2dc467f2e00035"
+    "2e5112e2e7217f2e8002e2ec47bf2ed51ce2ef607f2f000ce2f48abf2f6a00e2f791bf"
+    "2f800d52fdd93f2fe64bf2ff573f2ffc54e2ffc90e2ffcc3f2ffd18e2ffe08e2ffea3f"
+    "2fff04e3000003308001430c441e310006431489ee31800ee31c886e31cc7ff3200024"
+    "325116e328005532d11ae32d457f33000ae33489ff33592ff338012e33c894e33cc4ff"
+    "33dd37f34000b5346202e34801ce34c00ce3500035356884e356a27f356a87f3580076"
+    "35c89bf35ea2bf35ec63f35ecbbf36000d5367113f367233f36730bf368018e36d13df"
+    "36f21df36f455f36f503f370008e37510df377899f37792df377a10e377ab5f378000e"
+    "37cce5f37dd85f37ee69f37fc51f37fc9f637fd17637fd49f37fe0f637feb9f37ff31f"
+    "3800024388019e38c449e390011e3948bff398001e39c45ff39ccb7f3a0016e3a512ff"
+    "3a800b53ac45ee3ad50ff3b000ee3b403bf3b800353bd127f3bdc46e3bdcabf3bdcc7f"
+    "3bdd17f3c001ae3c621bf3c800ae3cc013f3d0012e3d4014e3d800d53dc473f3dcc82e"
+    "3dec4bf3dee3df3e001ce3e400ce3e800653ec443f3ed504e3ef463f3ef60df3f0018e"
+    "3f48adf3f6a1f63f789df3f7905f3f800033fdd90e3fee4f63ffc4153ffc8553ffcc8e"
+    "3ffd0e53ffd5763ffdd5f3ffe0953ffe80e3ffee5f3fff0763ffff5f")
+_HT_MEL_EXP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5)
+
+
+def ht_vlc_rows(first: bool) -> list:
+    """The CxtVLC table as rows (c_q, rho, u_off, e_k, e_1, codeword,
+    length), for the first row pair's quads or the later ones'."""
+    text = _HT_VLC_FIRST if first else _HT_VLC_LATER
+    rows = []
+    for i in range(0, len(text), 7):
+        v = int(text[i:i + 7], 16)
+        rows.append((v >> 23, (v >> 19) & 15, (v >> 18) & 1, (v >> 14) & 15,
+                     (v >> 10) & 15, (v >> 3) & 127, v & 7))
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def _ht_vlc_choice(first: bool) -> dict:
+    """(c_q, rho, emb) -> (codeword, length, e_k, e_1): emb 0 takes the
+    u_off 0 codeword; a non-zero emb (the samples at the quad's largest
+    exponent, u_off 1) takes the codeword whose e_k covers most samples
+    with e_1 equal to emb there (OpenJPH's choice)."""
+    out, best = {}, {}
+    for c, rho, u, ek, e1, cwd, n in ht_vlc_rows(first):
+        if not u:
+            out[c, rho, 0] = (cwd, n, 0, 0)
+            continue
+        for emb in range(1, 16):
+            if emb & ~rho or (emb & ek) != e1:
+                continue
+            k = bin(ek).count("1")
+            if k >= best.get((c, rho, emb), -1):
+                best[c, rho, emb] = k
+                out[c, rho, emb] = (cwd, n, ek, e1)
+    return out
+
+
+class _HtFwd:
+    """A forward HT bit-stream (MagSgn, SigProp): bits from the lowest of
+    each byte, 7 bits after a 0xFF byte."""
+
+    def __init__(self):
+        self.buf, self.tmp, self.used, self.max = bytearray(), 0, 0, 8
+
+    def put(self, v: int, n: int):
+        while n > 0:
+            t = min(self.max - self.used, n)
+            self.tmp |= (v & ((1 << t) - 1)) << self.used
+            self.used += t
+            v >>= t
+            n -= t
+            if self.used == self.max:
+                self.buf.append(self.tmp)
+                self.max = 7 if self.tmp == 0xFF else 8
+                self.tmp = self.used = 0
+
+    def end_ones(self) -> bytes:
+        """MagSgn's end: the last byte padded with ones, dropped where it
+        (or a whole last byte) is 0xFF, which the decoder's fill repeats."""
+        if self.used:
+            self.tmp |= (0xFF & ((1 << (self.max - self.used)) - 1)) \
+                << self.used
+            if self.tmp != 0xFF:
+                self.buf.append(self.tmp)
+        elif self.max == 7:
+            self.buf.pop()
+        return bytes(self.buf)
+
+    def end_zeros(self) -> bytes:
+        if self.used:
+            self.buf.append(self.tmp)
+        return bytes(self.buf)
+
+
+class _HtRev:
+    """A backward HT bit-stream (VLC, MagRef): bytes from the segment's end
+    down, bits from the lowest, a byte after one over 0x8F holding 7 bits
+    when those are all ones. VLC starts in the high nibble of the byte
+    before the last (the last byte and that low nibble hold Scup)."""
+
+    def __init__(self, vlc: bool):
+        self.buf = bytearray([0xFF]) if vlc else bytearray()
+        self.tmp, self.used, self.gt8f = (0xF, 4, True) if vlc else \
+            (0, 0, True)
+
+    def put(self, v: int, n: int):
+        while n > 0:
+            avail = 8 - self.gt8f - self.used
+            t = min(avail, n)
+            self.tmp |= (v & ((1 << t) - 1)) << self.used
+            self.used += t
+            avail -= t
+            n -= t
+            v >>= t
+            if avail == 0:
+                if self.gt8f and self.tmp != 0x7F:
+                    self.gt8f = False
+                    continue
+                self.buf.append(self.tmp)
+                self.gt8f = self.tmp > 0x8F
+                self.tmp = self.used = 0
+
+    def bits(self, bits):
+        for b in bits:
+            self.put(b, 1)
+
+    def end(self) -> bytes:
+        if self.used:
+            self.buf.append(self.tmp)
+        return bytes(self.buf[::-1])
+
+
+class _HtMel:
+    """The MEL coder (T.814 7.3.3): adaptive run lengths of quad events,
+    bits from the highest of each byte, 7 bits after a 0xFF byte."""
+
+    def __init__(self):
+        self.buf, self.tmp, self.rem = bytearray(), 0, 8
+        self.run, self.k, self.thr = 0, 0, 1
+
+    def emit(self, v: int):
+        self.tmp = (self.tmp << 1) | v
+        self.rem -= 1
+        if self.rem == 0:
+            self.buf.append(self.tmp)
+            self.rem = 7 if self.tmp == 0xFF else 8
+            self.tmp = 0
+
+    def event(self, bit: bool):
+        if not bit:
+            self.run += 1
+            if self.run >= self.thr:
+                self.emit(1)
+                self.run = 0
+                self.k = min(12, self.k + 1)
+                self.thr = 1 << _HT_MEL_EXP[self.k]
+            return
+        self.emit(0)
+        t = _HT_MEL_EXP[self.k]
+        while t > 0:
+            t -= 1
+            self.emit((self.run >> t) & 1)
+        self.run = 0
+        self.k = max(0, self.k - 1)
+        self.thr = 1 << _HT_MEL_EXP[self.k]
+
+
+def _ht_mel_vlc_end(mel: _HtMel, vlc: _HtRev) -> bytes:
+    """MEL and VLC closed where they meet, their last partial bytes fused
+    into one where the bits allow (OpenJPH's ``terminate_mel_vlc``):
+    MEL's bytes, then VLC's in stream order."""
+    if mel.run > 0:
+        mel.emit(1)
+    mtmp = (mel.tmp << mel.rem) & 0xFF
+    mel_mask = (0xFF << mel.rem) & 0xFF
+    vlc_mask = 0xFF >> (8 - vlc.used)
+    if mel_mask | vlc_mask:
+        fuse = mtmp | vlc.tmp
+        if ((((fuse ^ mtmp) & mel_mask) | ((fuse ^ vlc.tmp) & vlc_mask))
+                == 0 and fuse != 0xFF and len(vlc.buf) > 1):
+            mel.buf.append(fuse)
+        else:
+            mel.buf.append(mtmp)
+            vlc.buf.append(vlc.tmp)
+    return bytes(mel.buf) + bytes(vlc.buf[::-1])
+
+
+def _ht_uvlc(d: int) -> tuple:
+    """A u value's prefix bits and (suffix, its length) (T.814 Table 3)."""
+    if d == 1:
+        return (1,), (0, 0)
+    if d == 2:
+        return (0, 1), (0, 0)
+    if d <= 4:
+        return (0, 0, 1), (d - 3, 1)
+    if d > 36:
+        raise ValueError("ht: u over 36")
+    return (0, 0, 0), (d - 5, 5)
+
+
+def _ht_cleanup(mu: np.ndarray, neg: np.ndarray) -> bytes:
+    """One code-block's HT cleanup segment (MagSgn, MEL, VLC; Scup in its
+    last two bytes) of magnitudes ``mu`` and signs ``neg``."""
+    h, w = mu.shape
+    m = np.zeros((h + (h & 1), w + (w & 1)), np.int64)
+    s = np.zeros_like(m)
+    m[:h, :w] = mu
+    s[:h, :w] = neg
+    sig = m > 0
+    # E: 1 + the bit length of mu - 1
+    E = np.where(m > 1, np.floor(np.log2(np.maximum(m - 1, 1))).astype(
+        np.int64) + 2, sig.astype(np.int64))
+
+    def quads(a):
+        return np.stack([a[0::2, 0::2], a[1::2, 0::2], a[0::2, 1::2],
+                         a[1::2, 1::2]], -1)
+
+    qm, qs, qE = quads(m).tolist(), quads(s).tolist(), quads(E).tolist()
+    qsig = quads(sig.astype(np.int64))
+    rho = (qsig * np.array([1, 2, 4, 8])).sum(-1).tolist()
+    qh, qw = len(rho), len(rho[0])
+    mel, vlc, ms = _HtMel(), _HtRev(True), _HtFwd()
+    for qy in range(qh):
+        first = qy == 0
+        table = _ht_vlc_choice(first)
+        if not first:
+            up_sig = [0] + sig[2 * qy - 1].astype(int).tolist() + [0, 0]
+            up_E = [0] + E[2 * qy - 1].tolist() + [0, 0]
+        c_next = 0
+        for qx0 in range(0, qw, 2):
+            us, ctxs = [], []
+            for qx in (qx0, qx0 + 1):
+                if qx >= qw:
+                    us.append(0)
+                    ctxs.append(None)
+                    continue
+                r = rho[qy][qx]
+                if first:
+                    c = c_next
+                    kappa = 1
+                else:
+                    x = 2 * qx
+                    c = (up_sig[x] | up_sig[x + 1]) | (c_next & 2) | \
+                        ((up_sig[x + 2] | up_sig[x + 3]) << 2)
+                    emax = max(up_E[x:x + 4])
+                    kappa = max(1, emax - 1) if r & (r - 1) else 1
+                eq = max(qE[qy][qx])
+                U = max(kappa, eq)
+                u = U - kappa
+                emb = 0
+                if u:
+                    emb = sum(1 << n for n in range(4) if qE[qy][qx][n] == U)
+                if c == 0:
+                    mel.event(r != 0)
+                if c != 0 or r != 0:
+                    cwd, n, ek, e1 = table[c, r, emb]
+                    vlc.put(cwd, n)
+                else:
+                    ek = e1 = 0
+                ctxs.append((U, ek, e1))
+                us.append(u)
+                if first:
+                    c_next = (r & 1) | ((r >> 1) & 1) | ((r >> 2) << 1)
+                else:
+                    c_next = (((r >> 2) & 1) | ((r >> 3) & 1)) << 1
+            u0, u1 = us
+            mode = (u0 > 0) | ((u1 > 0) << 1)
+            if mode == 1 or mode == 2:
+                pfx, (sfx, sn) = _ht_uvlc(u0 if mode == 1 else u1)
+                vlc.bits(pfx)
+                vlc.put(sfx, sn)
+            elif mode == 3:
+                if first and u0 > 2 and u1 > 2:
+                    mel.event(True)
+                    p0, (s0, n0) = _ht_uvlc(u0 - 2)
+                    p1, (s1, n1) = _ht_uvlc(u1 - 2)
+                    vlc.bits(p0)
+                    vlc.bits(p1)
+                    vlc.put(s0, n0)
+                    vlc.put(s1, n1)
+                else:
+                    if first:
+                        mel.event(False)
+                    p0, (s0, n0) = _ht_uvlc(u0)
+                    vlc.bits(p0)
+                    if first and u0 > 2:
+                        vlc.put(u1 - 1, 1)
+                        vlc.put(s0, n0)
+                    else:
+                        p1, (s1, n1) = _ht_uvlc(u1)
+                        vlc.bits(p1)
+                        vlc.put(s0, n0)
+                        vlc.put(s1, n1)
+            for k, qx in enumerate((qx0, qx0 + 1)):
+                if ctxs[k] is None:
+                    continue
+                U, ek, e1 = ctxs[k]
+                for n in range(4):
+                    mu_n = qm[qy][qx][n]
+                    if not mu_n:
+                        continue
+                    v = 2 * (mu_n - 1) + qs[qy][qx][n]
+                    mn = U - ((ek >> n) & 1)
+                    if (ek >> n) & 1:
+                        assert (v >> mn) == ((e1 >> n) & 1), "ht: e_1"
+                    else:
+                        assert v >> mn == 0, "ht: U_q"
+                    ms.put(v, mn)
+    magsgn = ms.end_ones()
+    melvlc = _ht_mel_vlc_end(mel, vlc)
+    scup = len(melvlc)
+    if scup > 4079:
+        raise ValueError("ht: MEL and VLC over 4079 bytes")
+    out = bytearray(magsgn + melvlc)
+    out[-1] = scup >> 4
+    out[-2] = (out[-2] & 0xF0) | (scup & 0xF)
+    return bytes(out)
+
+
+def _ht_refinement(mag: np.ndarray, neg: np.ndarray, p: int, passes: int,
+                   causal: bool) -> bytes:
+    """SigProp (and with 3 passes MagRef) of bit-plane p - 1 after a
+    cleanup at plane p (T.814 7.4, 7.5): the stripes of 4 rows in groups
+    of 4 columns, column by column; a SigProp member is an insignificant
+    sample with a significant neighbour (the stripe below only under the
+    cleanup's significance, and not at all when ``causal``); a group's
+    signs follow its significance bits."""
+    h, w = mag.shape
+    sig = (mag >> p) > 0
+    bit = (mag >> (p - 1)) & 1
+    new = np.zeros((h, w), bool)
+    sp = _HtFwd()
+    for y0 in range(0, h, 4):
+        y1 = min(y0 + 4, h)
+        for gx in range(0, w, 4):
+            signs = []
+            for x in range(gx, min(gx + 4, w)):
+                for y in range(y0, y1):
+                    if sig[y, x]:
+                        continue
+                    member = False
+                    for dy in (-1, 0, 1):
+                        for dx in (-1, 0, 1):
+                            ny, nx = y + dy, x + dx
+                            if (dy, dx) == (0, 0) or not (
+                                    0 <= ny < h and 0 <= nx < w):
+                                continue
+                            if ny >= y1 and causal and y1 == y0 + 4:
+                                continue
+                            if sig[ny, nx] or new[ny, nx]:
+                                member = True
+                    if member:
+                        sp.put(int(bit[y, x]), 1)
+                        if bit[y, x]:
+                            new[y, x] = True
+                            signs.append(int(neg[y, x]))
+            for sgn in signs:
+                sp.put(sgn, 1)
+    out = sp.end_zeros()
+    if passes < 3:
+        return out
+    mr = _HtRev(False)
+    for y0 in range(0, h, 4):
+        for gx in range(0, w, 4):
+            for x in range(gx, min(gx + 4, w)):
+                for y in range(y0, min(y0 + 4, h)):
+                    if sig[y, x]:
+                        mr.put(int(bit[y, x]), 1)
+    return out + mr.end()
+
+
+def _ht_lift(x: np.ndarray, start: int, step) -> None:
+    """One lifting step over axis 0 at positions start, start + 2, ..:
+    x[p] from x[p - 1] and x[p + 1], mirrored at the ends (F.3.7)."""
+    n = x.shape[0]
+    for q in range(start, n, 2):
+        left = x[q - 1] if q > 0 else x[q + 1]
+        right = x[q + 1] if q + 1 < n else x[q - 1]
+        x[q] = step(x[q], left, right)
+
+
+_HT_97 = (-1.586134342, -0.052980118, 0.882911075, 0.443506852)
+_HT_K = 1.230174105
+
+
+def _ht_fdwt(a: np.ndarray, origin: int, reversible: bool) -> tuple:
+    """The forward 5/3 (integers) or 9/7 (floats) over axis 0 of samples
+    at ``origin``, ..: (low band, high band), inverse to OpenJPEG's
+    inverse (lows at even coordinates)."""
+    n = a.shape[0]
+    cas = origin % 2
+    x = a.copy()
+    if n == 1:
+        if not cas:
+            return x, x[:0]
+        return x[:0], (x * 2 if reversible else x)
+    if reversible:
+        _ht_lift(x, 1 - cas, lambda d, l, r: d - ((l + r) >> 1))
+        _ht_lift(x, cas, lambda d, l, r: d + ((l + r + 2) >> 2))
+    else:
+        for k, c in enumerate(_HT_97):
+            _ht_lift(x, (1 - cas) if k % 2 == 0 else cas,
+                     lambda d, l, r, c=c: d + (l + r) * c)
+        x[cas::2] /= _HT_K
+        x[1 - cas::2] /= 2.0 / _HT_K
+    return x[cas::2], x[1 - cas::2]
+
+
+def _ceil_pow2(a: int, b: int) -> int:
+    return -((-a) >> b)
+
+
+def _ht_bands(comp: np.ndarray, x0: int, y0: int, levels: int,
+              reversible: bool) -> dict:
+    """(resolution, band number) -> coefficients of one tile-component
+    with origin (x0, y0): columns then rows at each level (OpenJPEG's
+    inverse runs rows then columns)."""
+    bands, cur = {}, comp
+    for lev in range(1, levels + 1):
+        rx0, ry0 = _ceil_pow2(x0, lev - 1), _ceil_pow2(y0, lev - 1)
+        if cur.shape[0]:
+            lo, hi = _ht_fdwt(cur, ry0, reversible)
+        else:
+            lo, hi = cur, cur
+        out = []
+        for part in (lo, hi):
+            if part.shape[0] and part.shape[1]:
+                a, b = _ht_fdwt(part.T, rx0, reversible)
+                out += [a.T, b.T]
+            else:
+                nl = _ceil_pow2(rx0 + part.shape[1], 1) - _ceil_pow2(rx0, 1)
+                out += [part[:, :nl], part[:, nl:]]
+        ll, hl, lh, hh = out
+        r = levels - lev + 1
+        bands[r, 1], bands[r, 2], bands[r, 3] = hl, lh, hh
+        cur = ll
+    bands[0, 0] = cur
+    return bands
+
+
+class _BioOut:
+    """OpenJPEG's packet-header bit writer (bio.c): a byte after 0xFF
+    holds 7 bits."""
+
+    def __init__(self):
+        self.out, self.buf, self.ct = bytearray(), 0, 8
+
+    def _byteout(self):
+        self.buf = (self.buf << 8) & 0xFFFF
+        self.ct = 7 if self.buf == 0xFF00 else 8
+        self.out.append(self.buf >> 8)
+
+    def put(self, v: int, n: int = 1):
+        for i in range(n - 1, -1, -1):
+            if self.ct == 0:
+                self._byteout()
+            self.ct -= 1
+            self.buf |= ((v >> i) & 1) << self.ct
+
+    def flush(self) -> bytes:
+        self._byteout()
+        if self.ct == 7:
+            self._byteout()
+        return bytes(self.out)
+
+
+class _TagTreeOut:
+    """A tag tree's encoder (tgt.c ``opj_tgt_encode``) over leaf values."""
+
+    def __init__(self, w: int, h: int, leaves):
+        if not w * h:
+            raise ValueError("tag tree: no leaves")
+        self.parent, sizes, n = [], [], None
+        lw, lh = w, h
+        while n != 1:
+            sizes.append((lw, lh))
+            n = lw * lh
+            lw, lh = (lw + 1) // 2, (lh + 1) // 2
+        offs = np.cumsum([0] + [a * b for a, b in sizes]).tolist()
+        for lvl, (lw, lh) in enumerate(sizes):
+            for y in range(lh):
+                for x in range(lw):
+                    self.parent.append(-1 if lvl + 1 == len(sizes) else (
+                        offs[lvl + 1] + (y // 2) * sizes[lvl + 1][0]
+                        + x // 2))
+        self.value = list(leaves) + [1 << 30] * (len(self.parent) - w * h)
+        for i in range(len(self.parent)):
+            if self.parent[i] >= 0:
+                j = self.parent[i]
+                self.value[j] = min(self.value[j], self.value[i])
+        self.low = [0] * len(self.parent)
+        self.known = [False] * len(self.parent)
+
+    def encode(self, bio: _BioOut, leaf: int, threshold: int):
+        path, node = [], leaf
+        while self.parent[node] >= 0:
+            path.append(node)
+            node = self.parent[node]
+        low = 0
+        while True:
+            if low > self.low[node]:
+                self.low[node] = low
+            else:
+                low = self.low[node]
+            while low < threshold:
+                if low >= self.value[node]:
+                    if not self.known[node]:
+                        bio.put(1)
+                        self.known[node] = True
+                    break
+                bio.put(0)
+                low += 1
+            self.low[node] = low
+            if not path:
+                break
+            node = path.pop()
+
+
+def _ht_npasses(bio: _BioOut, n: int):
+    if n == 1:
+        bio.put(0, 1)
+    elif n == 2:
+        bio.put(2, 2)
+    elif n <= 5:
+        bio.put(0xC | (n - 3), 4)
+    elif n <= 36:
+        bio.put(0x1E0 | (n - 6), 9)
+    else:
+        bio.put(0xFF80 | (n - 37), 16)
+
+
+def _ht_step(delta: float, rb: int) -> tuple:
+    """(exponent, mantissa) of the step nearest ``delta`` (E-3) and the
+    step the decoder derives from them."""
+    e = int(np.floor(np.log2(delta)))
+    mant = int(round((delta / 2.0 ** e - 1) * 2048))
+    if mant == 2048:
+        e, mant = e + 1, 0
+    expn = rb - e
+    if not 0 <= expn <= 31:
+        raise ValueError(f"ht: step {delta} out of range")
+    return expn, mant, float(np.float32((1 + mant / 2048) * 2.0 ** e))
+
+
+def htj2k_encode(img: np.ndarray, *, levels: int = 5,
+                 reversible: bool = True, step: float = 1.0,
+                 cblk=(64, 64), tile=None, precincts=None, mct=None,
+                 passes: int = 1, drop: int = 0, guard: int = 2,
+                 prec=None, signed=None, cap: bool = True,
+                 cpf: bool = False, style: int = 0, roi=None,
+                 empty_included: bool = False, layers: int = 1,
+                 late: bool = False, jp2: bool = False) -> bytes:
+    """An HTJ2K codestream (or with ``jp2`` a JP2 file) of ``img`` ((h, w)
+    or (h, w, components), any integer type): one quality layer, LRCP,
+    ``levels`` of the 5/3 in integers (``reversible``) or the 9/7 in
+    floats with base step ``step`` (quantised as E.1, a finer step for
+    each coarser level), RCT / ICT over three components (``mct``, on by
+    default then), tiles of ``tile`` (w, h), precinct exponents
+    ``precincts`` ((PPx, PPy) a resolution from the lowest), code-blocks of
+    ``cblk`` (w, h) with style 0x40 | ``style``, ``passes`` 1 (cleanup), 2
+    (+ SigProp) or 3 (+ MagRef) per code-block, the cleanup ``drop``
+    planes above the refinement's, ``guard`` bits, a CAP marker (``cap``)
+    and a CPF marker (``cpf``), an RGN shift ``roi`` (component, shift)
+    written but not applied. Code-blocks with nothing to code are left out
+    of the packets, or with ``empty_included`` carry an empty cleanup.
+    With ``layers`` 2 the refinement passes come in the second layer, and
+    with ``late`` every other code-block comes first in the second."""
+    a = np.asarray(img)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, nc = a.shape
+    if prec is None:
+        prec = 8 * a.dtype.itemsize
+    if signed is None:
+        signed = a.dtype.kind == "i"
+    if mct is None:
+        mct = nc >= 3
+    tw, th = tile or (w, h)
+    comps = a.astype(np.int64)
+    if not signed:
+        comps = comps - (1 << (prec - 1))
+    comps = comps.astype(np.int64 if reversible else np.float64)
+    if mct:
+        r, g, b = comps[..., 0], comps[..., 1], comps[..., 2]
+        if reversible:
+            y, u, v = (r + 2 * g + b) >> 2, b - g, r - g
+        else:
+            y = 0.299 * r + 0.587 * g + 0.114 * b
+            u = -0.16875 * r - 0.331260 * g + 0.5 * b
+            v = 0.5 * r - 0.41869 * g - 0.08131 * b
+        comps = comps.copy()
+        comps[..., 0], comps[..., 1], comps[..., 2] = y, u, v
+    # quantisation: (exponent, mantissa, step) per subband index
+    nbands = 3 * levels + 1
+    qnt = []
+    for sidx in range(nbands):
+        if sidx == 0:
+            lev, bandno = levels, 0
+        else:
+            lev, bandno = levels - (sidx - 1) // 3, (sidx - 1) % 3 + 1
+        if reversible:
+            gain = (0, 1, 1, 2)[bandno]
+            qnt.append((prec + gain, 0, 1.0))
+        else:
+            delta = step / 2.0 ** (lev if bandno == 0 else lev - 1) * (
+                1.4 if bandno == 3 else 1.0)
+            qnt.append(_ht_step(delta, prec))
+    xcb, ycb = (int(np.log2(cblk[0])), int(np.log2(cblk[1])))
+    pp = precincts or [(15, 15)] * (levels + 1)
+    p_cl = drop + (1 if passes > 1 else 0)
+    body = bytearray()
+    ntx, nty = -(-w // tw), -(-h // th)
+    for t in range(ntx * nty):
+        tx0, ty0 = (t % ntx) * tw, (t // ntx) * th
+        tx1, ty1 = min(tx0 + tw, w), min(ty0 + th, h)
+        packets, order = [], {}
+        per_comp = []
+        for c in range(nc):
+            bands = _ht_bands(comps[ty0:ty1, tx0:tx1, c], tx0, ty0, levels,
+                              reversible)
+            per_comp.append(bands)
+        for r in range(levels + 1):
+            lev = levels - r
+            rx0, ry0 = _ceil_pow2(tx0, lev), _ceil_pow2(ty0, lev)
+            rx1, ry1 = _ceil_pow2(tx1, lev), _ceil_pow2(ty1, lev)
+            pdx, pdy = pp[r]
+            tlpx, tlpy = (rx0 >> pdx) << pdx, (ry0 >> pdy) << pdy
+            pw = 0 if rx0 == rx1 else (_ceil_pow2(rx1, pdx) << pdx
+                                       ) - tlpx >> pdx
+            ph = 0 if ry0 == ry1 else (_ceil_pow2(ry1, pdy) << pdy
+                                       ) - tlpy >> pdy
+            if r == 0:
+                tlcbgx, tlcbgy, cbgw, cbgh = tlpx, tlpy, pdx, pdy
+            else:
+                tlcbgx, tlcbgy = _ceil_pow2(tlpx, 1), _ceil_pow2(tlpy, 1)
+                cbgw, cbgh = pdx - 1, pdy - 1
+            cbw, cbh = min(xcb, cbgw), min(ycb, cbgh)
+            precinct = {}
+            for c in range(nc):
+                for pn in range(pw * ph):
+                    chosen = []  # ([(Z, segments, first layer)], cw, ch)
+                    for bandno in ((0,) if r == 0 else (1, 2, 3)):
+                        if r == 0:
+                            bx0, by0, bx1, by1 = rx0, ry0, rx1, ry1
+                        else:
+                            xb, yb = bandno & 1, bandno >> 1
+                            bx0 = _ceil_pow2(tx0 - (xb << lev), lev + 1)
+                            by0 = _ceil_pow2(ty0 - (yb << lev), lev + 1)
+                            bx1 = _ceil_pow2(tx1 - (xb << lev), lev + 1)
+                            by1 = _ceil_pow2(ty1 - (yb << lev), lev + 1)
+                        if bx1 <= bx0 or by1 <= by0:
+                            continue
+                        coef = per_comp[c][r, bandno]
+                        sidx = 0 if r == 0 else 3 * r - 2 + bandno - 1
+                        expn, _mant, delta = qnt[sidx]
+                        mb = guard + expn - 1
+                        gx = tlcbgx + (pn % pw) * (1 << cbgw)
+                        gy = tlcbgy + (pn // pw) * (1 << cbgh)
+                        px0, py0 = max(gx, bx0), max(gy, by0)
+                        px1 = min(gx + (1 << cbgw), bx1)
+                        py1 = min(gy + (1 << cbgh), by1)
+                        tlcx, tlcy = (px0 >> cbw) << cbw, (py0 >> cbh) << cbh
+                        cw = max(0, (_ceil_pow2(px1, cbw) << cbw) - tlcx
+                                 >> cbw)
+                        ch = max(0, (_ceil_pow2(py1, cbh) << cbh) - tlcy
+                                 >> cbh)
+                        if not cw * ch:
+                            continue
+                        blocks = []
+                        for k in range(cw * ch):
+                            cx = tlcx + (k % cw) * (1 << cbw)
+                            cy = tlcy + (k // cw) * (1 << cbh)
+                            x0b, y0b = max(cx, px0), max(cy, py0)
+                            x1b = min(cx + (1 << cbw), px1)
+                            y1b = min(cy + (1 << cbh), py1)
+                            blk = coef[y0b - by0:y1b - by0,
+                                       x0b - bx0:x1b - bx0]
+                            if reversible:
+                                q = blk.astype(np.int64)
+                            else:
+                                q = (np.sign(blk) * np.floor(
+                                    np.abs(blk) / delta)).astype(np.int64)
+                            mag, neg = np.abs(q), (q < 0).astype(np.int64)
+                            if mag.size and mag.max() >> mb:
+                                raise ValueError(
+                                    f"ht: magnitude {mag.max()} over "
+                                    f"{mb} bit-planes")
+                            p = min(p_cl, mb - 1)
+                            z = mb - 1 - p
+                            coded = mag.size and (mag >> p).any()
+                            if not coded and not empty_included:
+                                blocks.append((z, (), layers))
+                                continue
+                            segs = [_ht_cleanup(mag >> p, neg)]
+                            if passes > 1 and p >= 1:
+                                segs.append(_ht_refinement(
+                                    mag, neg, p, passes,
+                                    bool(style & 0x08)))
+                            nblk = len(blocks) + sum(len(b) for b, _, _ in
+                                                     chosen)
+                            first_layer = min(layers - 1, late * (nblk % 2))
+                            blocks.append((z, tuple(segs), first_layer))
+                        chosen.append((blocks, cw, ch))
+                    trees = [(_TagTreeOut(cw, ch, [b[2] for b in blocks]),
+                              _TagTreeOut(cw, ch, [b[0] for b in blocks]))
+                             for blocks, cw, ch in chosen]
+                    precinct[c, pn] = (chosen, trees,
+                                       [[3] * len(b) for b, _, _ in chosen])
+            for c in range(nc):
+                for pn in range(pw * ph):
+                    order[r, c, pn] = precinct[c, pn]
+        for layer in range(layers):
+            for (r, c, pn), (chosen, trees, lblocks) in order.items():
+                bio = _BioOut()
+                parts = []  # (block, [segment indices]) in this layer
+                for bi, (blocks, _cw, _ch) in enumerate(chosen):
+                    for k, (z, segs, fl) in enumerate(blocks):
+                        if not segs or layer < fl:
+                            continue
+                        # the cleanup in its first layer, the refinement
+                        # in the next one when there are two layers
+                        if layers > 1 and len(segs) > 1:
+                            idx = [0] if layer == fl else (
+                                [1] if layer == fl + 1 else [])
+                        else:
+                            idx = [0, 1][:len(segs)] if layer == fl else []
+                        if idx:
+                            parts.append((bi, k, idx))
+                bio.put(int(bool(parts)))
+                data = bytearray()
+                if parts:
+                    todo = {(bi, k): idx for bi, k, idx in parts}
+                    for bi, (blocks, _cw, _ch) in enumerate(chosen):
+                        incl, imsb = trees[bi]
+                        for k, (z, segs, fl) in enumerate(blocks):
+                            idx = todo.get((bi, k))
+                            if layer <= fl or not segs:
+                                incl.encode(bio, k, layer + 1)
+                            else:
+                                bio.put(int(idx is not None))
+                            if idx is None:
+                                continue
+                            if layer == fl:
+                                imsb.encode(bio, k, 999)
+                            npass = sum(1 if i == 0 else passes - 1
+                                        for i in idx)
+                            _ht_npasses(bio, npass)
+                            lens = [len(segs[i]) for i in idx]
+                            extra = [0 if i == 0 else int(np.floor(np.log2(
+                                passes - 1))) for i in idx]
+                            lblock = lblocks[bi][k]
+                            inc = 0
+                            while any(n >> (lblock + inc + e) for n, e in
+                                      zip(lens, extra)):
+                                inc += 1
+                            bio.put((1 << (inc + 1)) - 2, inc + 1)
+                            lblock += inc
+                            lblocks[bi][k] = lblock
+                            for n, e in zip(lens, extra):
+                                bio.put(n, lblock + e)
+                            data += b"".join(segs[i] for i in idx)
+                packets.append(bio.flush() + bytes(data))
+        tile_body = b"".join(packets)
+        body += struct.pack(">HHHIBB", 0xFF90, 10, t, 14 + len(tile_body),
+                            0, 1) + b"\xff\x93" + tile_body
+    siz = struct.pack(">HIIIIIIIIH", 0x4000 if cap else 0, w, h, 0, 0, tw,
+                      th, 0, 0, nc) + bytes(
+        [(prec - 1) | (0x80 if signed else 0), 1, 1] * nc)
+    scod = 1 if precincts else 0
+    cod = struct.pack(">BBHBBBBBB", scod, 0, layers, int(mct), levels, xcb - 2,
+                      ycb - 2, 0x40 | style, int(reversible))
+    if precincts:
+        cod += bytes((py << 4) | px for px, py in pp)
+    if reversible:
+        qcd = bytes([guard << 5]) + bytes(e << 3 for e, _, _ in qnt)
+    else:
+        qcd = bytes([(guard << 5) | 2]) + b"".join(
+            struct.pack(">H", (e << 11) | m) for e, m, _ in qnt)
+    head = b"\xff\x4f" + j2k_segment(0xFF51, siz)
+    if cap:
+        head += j2k_segment(0xFF50, struct.pack(">IH", 0x00020000, 0))
+    head += j2k_segment(0xFF52, cod) + j2k_segment(0xFF5C, qcd)
+    if cpf:
+        head += j2k_segment(0xFF59, struct.pack(">H", 0))
+    if roi:
+        head += j2k_segment(0xFF5E, bytes([roi[0], 0, roi[1]]))
+    cs = head + bytes(body) + b"\xff\xd9"
+    if not jp2:
+        return cs
+    enum = 16 if nc >= 3 else 17
+    return jp2_wrap(cs, [jp2_ihdr(h, w, nc, (prec - 1) | (
+        0x80 if signed else 0)), jp2_colr(enum)])

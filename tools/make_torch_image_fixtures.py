@@ -16,6 +16,7 @@ digests. Needs OpenCV and Pillow (not on the card machine)::
         [--webp-out tests/data/torch_webp] [--jp2-out tests/data/torch_jp2]
         [--jpegx-out tests/data/torch_jpegx]
         [--tiffx-out tests/data/torch_tiffx]
+        [--htj2k-out tests/data/torch_htj2k] [--htj2k-only]
         [--damaged-out tests/data/torch_damaged] [--damaged-only]
 
 The damaged set (``--damaged-out``) holds no files: its ``digests.json``
@@ -71,6 +72,17 @@ dataset's array
 digests, cv2's grey digests of each file, and the lossless frame
 ``chip_smoke.py`` writes from the first frame's pixels with
 ``lossless_jpeg`` (its bytes' sha256 and cv2's digests of them).
+
+The HTJ2K set (``--htj2k-out``, its own ``digests.json``, under 1.5 MiB
+with its flight; ``--htj2k-only`` writes it alone, then the damaged
+digests) holds HT codestreams of ``tests/torch_image_writers.py``
+``htj2k_encode`` (each wavelet, depth and transform, SigProp and MagRef,
+styles, tiles, precincts, code-block sizes, empty code-blocks, CAP and CPF,
+and the variants cv2 gives None for) and ``flight/``: the JPEG 2000
+flight's map and frames as cv2 decodes them, re-coded as irreversible HT
+near the sizes of their JPEG 2000 files (under the same names), its DEM as
+reversible 16-bit HT (``dem.jp2``, bit-equal), with ``flight.json``
+holding the steps, sizes and cv2's digests (``ht_cv2``, ``dem_cv2``).
 
 The TIFF variants set (``--tiffx-out``, its own ``digests.json``, under
 1 MiB) holds Pillow's libtiff files (``tests/torch_image_writers.py``
@@ -142,7 +154,7 @@ from tests.torch_image_writers import (  # noqa: E402
     j2k_patch_precision, j2k_with_ppm, j2k_with_ppt, jp2_cdef, jp2_cmap,
     jp2_colr, jp2_ihdr, jp2_pclr, jp2_wrap, JCS_CMYK, JCS_RGB, libjpeg_encode,
     j2k_with_coc, libjpeg_transcode, lossless_jpeg, openjpeg_encode,
-    thunder_encode, webp_anim,
+    thunder_encode, webp_anim, htj2k_encode,
     webp_anmf, webp_chunk, webp_chunks, webp_riff, webp_vp8x, with_exif_app1,
     write_bmp, write_gif, write_hdr, write_png, write_sun, write_tiff,
     ccitt_1d, pillow_tiff)
@@ -167,6 +179,15 @@ JP2_FLIGHT = {"world": FLIGHT["world"], "frames": 8, "hw": [1088, 1920],
               "dem_scale": 0.1}
 
 
+HTJ2K_OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests",
+                         "data", "torch_htj2k")
+HTJ2K_SIZE_LIMIT = 1536 * 1024  # the HTJ2K set and its flight
+# path 17's HTJ2K flight: cv2's decodes of the JPEG 2000 flight's map and
+# frames as irreversible HT (9/7, 5 levels) at a base step found for each
+# file to land near its JPEG 2000 file's size, and cv2's uint16 of its DEM
+# as reversible 16-bit HT
+HTJ2K_FLIGHT = {"source": "torch_jp2/flight", "levels": 5, "dem": "dem.jp2",
+                "size_within": 0.05}
 JPEGX_OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests",
                          "data", "torch_jpegx")
 JPEGX_SIZE_LIMIT = 2560 * 1024  # the lossless / arithmetic set, flight
@@ -675,6 +696,140 @@ def write_jp2_flight(out: str) -> dict:
     return manifest
 
 
+def htj2k_files() -> dict:
+    """name -> HTJ2K file bytes (``tests/torch_image_writers.py``
+    ``htj2k_encode``; world content, 47x61 unless named): each wavelet,
+    depth, component count and transform, refinement passes, the
+    vertically causal style, tiles, precincts, code-block sizes, empty
+    code-blocks, CAP and CPF markers, and the variants cv2 gives None for
+    (signed samples, an RGN shift, mixed mode, two layers whose second
+    lands in the cleanup's segment, CAP in a tile-part header)."""
+    world = World.make(seed=7, size_px=1024, gsd_m=1.36)
+    r = world.raster
+    g = np.ascontiguousarray(r[300:347, 400:461])
+    c = np.ascontiguousarray(np.stack([g, r[500:547, 100:161],
+                                       r[700:747, 600:661]], axis=2))
+    a = np.ascontiguousarray(np.concatenate(
+        [c, r[100:147, 800:861, None]], axis=2))
+    i16 = (g.astype(np.uint16) << 8) | r[600:647, 200:261]
+    big = np.ascontiguousarray(r[100:229, 200:371])  # 129x171
+    irr = {"reversible": False, "step": 3.0}
+    files = {
+        "ht_grey_rev.j2c": htj2k_encode(g),
+        "ht_grey_rev_levels0.j2c": htj2k_encode(g, levels=0),
+        "ht_grey_irr.jph": htj2k_encode(g, jp2=True, **irr),
+        "ht_rgb_rct.j2c": htj2k_encode(c[..., ::-1]),
+        "ht_rgb_ict_sigprop.jph": htj2k_encode(c[..., ::-1], passes=2,
+                                               jp2=True, **irr),
+        "ht_rgb_no_mct.j2c": htj2k_encode(c[..., ::-1], mct=False, **irr),
+        "ht_rgba_rev.jph": htj2k_encode(a[..., [2, 1, 0, 3]], jp2=True),
+        "ht_grey_refine3.j2c": htj2k_encode(big, passes=3, levels=4),
+        "ht_grey_irr_refine3_drop2.j2c": htj2k_encode(
+            big, passes=3, drop=2, **irr),
+        "ht_vsc_refine3.j2c": htj2k_encode(big, passes=3, style=0x08,
+                                           cblk=(32, 16)),
+        "ht_styles_3f.j2c": htj2k_encode(g, passes=3, style=0x3f),
+        "ht_i16_rev.jph": htj2k_encode(i16, jp2=True, levels=3),
+        "ht_12bit_irr.j2c": htj2k_encode((i16 >> 4).astype(np.uint16),
+                                         prec=12, reversible=False,
+                                         step=40.0),
+        "ht_signed.j2c": htj2k_encode(g.astype(np.int16) - 128, prec=8),
+        "ht_tiles_precincts.j2c": htj2k_encode(
+            big, tile=(64, 48), levels=3, cblk=(16, 16),
+            precincts=[(4, 4), (5, 4), (5, 5), (6, 6)]),
+        "ht_cblk4x4.j2c": htj2k_encode(g, cblk=(4, 4), levels=2),
+        "ht_cblk64x8_odd.j2c": htj2k_encode(
+            np.ascontiguousarray(r[10:43, 20:57]), cblk=(64, 8), levels=1),
+        "ht_flat_empty.j2c": htj2k_encode(
+            np.full((40, 52), 131, np.uint8), levels=3, cblk=(8, 8)),
+        "ht_empty_included.j2c": htj2k_encode(
+            np.full((40, 52), 131, np.uint8), levels=3, cblk=(8, 8),
+            empty_included=True),
+        "ht_no_cap.j2c": htj2k_encode(g, cap=False, **irr),
+        "ht_cpf.j2c": htj2k_encode(g, cpf=True),
+        "ht_rgn.j2c": htj2k_encode(g, roi=(0, 3)),
+        "ht_mixed.j2c": htj2k_encode(g, style=0x80),
+        "ht_layers2.j2c": htj2k_encode(g, layers=2, passes=3),
+        "ht_layers3_late_termall.j2c": htj2k_encode(
+            big, layers=3, passes=3, late=True, style=0x04, cblk=(16, 16)),
+    }
+    cs = files["ht_grey_rev.j2c"]
+    at = cs.index(b"\xff\x90")
+    sod = cs.index(b"\xff\x93", at)
+    cap = struct.pack(">HHIH", 0xFF50, 8, 0x00020000, 0)
+    psot = struct.unpack(">I", cs[at + 6:at + 10])[0] + len(cap)
+    files["ht_cap_in_tile_part.j2c"] = (cs[:at + 6] + struct.pack(">I", psot)
+                                        + cs[at + 10:sod] + cap + cs[sod:])
+    return files
+
+
+def _ht_near(img: np.ndarray, target: int, within: float, **kw) -> tuple:
+    """(bytes, step): irreversible HT of ``img`` at the base step whose
+    file lies within ``within`` of ``target`` bytes (bisection on the
+    step's logarithm)."""
+    lo, hi = np.log2(0.5), np.log2(256.0)
+    best = None
+    for _ in range(12):
+        step = float(2.0 ** ((lo + hi) / 2))
+        data = htj2k_encode(img, reversible=False, step=step, **kw)
+        if best is None or abs(len(data) - target) < abs(len(best[0])
+                                                         - target):
+            best = (data, step)
+        if abs(len(data) - target) <= within * target:
+            break
+        if len(data) > target:
+            lo = np.log2(step)
+        else:
+            hi = np.log2(step)
+    return best
+
+
+def write_htj2k_flight(out: str, src: str) -> dict:
+    """chip_smoke.py's path-17 HTJ2K flight in ``out``: the JPEG 2000
+    flight at ``src`` as cv2 decodes it, its map and frames re-coded as
+    irreversible HT near their JPEG 2000 files' sizes and its DEM as
+    reversible 16-bit HT (bit-equal under cv2), its other files copied, and
+    a manifest of cv2's digests."""
+    import shutil
+
+    spec = HTJ2K_FLIGHT
+    with open(os.path.join(src, "flight.json")) as f:
+        part1 = json.load(f)
+    os.makedirs(os.path.join(out, "frames"), exist_ok=True)
+    manifest = {**spec, "world": part1["world"], "frames": part1["frames"],
+                "hw": part1["hw"], "coverage": part1["coverage"],
+                "dem_scale": part1["dem_scale"], "steps": {}, "bytes": {},
+                "part1_bytes": {}, "ht_cv2": {}}
+    for name in sorted(part1["jp2_cv2"]):
+        with open(os.path.join(src, name), "rb") as f:
+            jp2 = f.read()
+        img = cv2.imdecode(np.frombuffer(jp2, np.uint8), cv2.IMREAD_GRAYSCALE)
+        data, step = _ht_near(img, len(jp2), spec["size_within"],
+                              levels=spec["levels"])
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        manifest["steps"][name] = round(step, 4)
+        manifest["bytes"][name] = len(data)
+        manifest["part1_bytes"][name] = len(jp2)
+        manifest["ht_cv2"][name] = pixel_digest(cv2.imdecode(
+            np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
+    dem = cv2.imread(os.path.join(src, part1["dem"]), cv2.IMREAD_UNCHANGED)
+    data = htj2k_encode(dem, levels=spec["levels"], jp2=True)
+    back = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    if back is None or not np.array_equal(back, dem):
+        raise SystemExit("htj2k: the DEM does not decode bit-equal")
+    with open(os.path.join(out, spec["dem"]), "wb") as f:
+        f.write(data)
+    manifest["dem_cv2"] = pixel_digest(back)
+    if manifest["dem_cv2"] != part1["dem_cv2"]:
+        raise SystemExit("htj2k: the DEM is not the JPEG 2000 flight's")
+    for name in ("camera.json", "poses.csv", "map.json"):
+        shutil.copy(os.path.join(src, name), os.path.join(out, name))
+    with open(os.path.join(out, "flight.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    return manifest
+
+
 def jpegx_files() -> dict:
     """The lossless and arithmetic-coded JPEG fixtures (48x64, world
     content)."""
@@ -976,6 +1131,19 @@ def write_damaged(out: str, data_dir: str) -> int:
     return n
 
 
+def write_htj2k(out: str, jp2_out: str) -> None:
+    """The HTJ2K set in ``out`` and its flight from ``jp2_out``'s."""
+    ht = htj2k_files()
+    write_set(out, ht)
+    write_htj2k_flight(os.path.join(out, "flight"),
+                       os.path.join(jp2_out, "flight"))
+    total = _tree_bytes(out)
+    if total > HTJ2K_SIZE_LIMIT:
+        raise SystemExit(f"the HTJ2K set takes {total} bytes, over "
+                         f"{HTJ2K_SIZE_LIMIT}")
+    print(f"{len(ht)} HTJ2K fixtures and the flight, {total} bytes, in {out}")
+
+
 def _tree_bytes(root: str) -> int:
     return sum(os.path.getsize(os.path.join(d, n))
                for d, _, names in os.walk(root) for n in names)
@@ -988,6 +1156,11 @@ def main() -> int:
     ap.add_argument("--jp2-out", default=JP2_OUT)
     ap.add_argument("--jpegx-out", default=JPEGX_OUT)
     ap.add_argument("--tiffx-out", default=TIFFX_OUT)
+    ap.add_argument("--htj2k-out", default=HTJ2K_OUT)
+    ap.add_argument("--htj2k-only", action="store_true",
+                    help="write only the HTJ2K set and its flight (from "
+                    "the committed JPEG 2000 flight), then the damaged "
+                    "digests")
     ap.add_argument("--damaged-out", default=DAMAGED_OUT,
                     help="where cv2's digests of the seeded damaged "
                     "fixtures go (written after the sets)")
@@ -997,6 +1170,11 @@ def main() -> int:
     args = ap.parse_args()
     data_dir = os.path.dirname(os.path.abspath(args.damaged_out))
     if args.damaged_only:
+        n = write_damaged(args.damaged_out, data_dir)
+        print(f"{n} damaged decodes' digests in {args.damaged_out}")
+        return 0
+    if args.htj2k_only:
+        write_htj2k(args.htj2k_out, args.jp2_out)
         n = write_damaged(args.damaged_out, data_dir)
         print(f"{n} damaged decodes' digests in {args.damaged_out}")
         return 0
@@ -1033,6 +1211,7 @@ def main() -> int:
                          f"bytes, over {JPEGX_SIZE_LIMIT}")
     print(f"{len(jpegx)} lossless and arithmetic-coded JPEG fixtures and the "
           f"flight, {total} bytes, in {args.jpegx_out}")
+    write_htj2k(args.htj2k_out, args.jp2_out)
     tiffx = tiffx_files()
     total = write_set(args.tiffx_out, tiffx)
     if total > TIFFX_SIZE_LIMIT:
