@@ -24,6 +24,8 @@
                                      # gisnav_tpu_torch bench) only
     python3 chip_smoke.py --damaged  # build + path 21 (damaged images:
                                      # fixtures, a damaging WMS) only
+    python3 chip_smoke.py --envelope # build + path 22 (the JAX repo's
+                                     # accuracy battery) only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -356,9 +358,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every uORB fix within 10 m, a map published on every GIS tick after the
    first, the kept maps and published DEMs the schedule's, K1-K4 a frame's
    or a refresh's each step;
-25. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
+25. path 22: the JAX repository's accuracy battery, on the port's worlds
+   (``utils/envelope.py``, no cv2; ``cv2`` must stay unimported). (a)
+   ``tools/sweep_headline_torch.py`` in this process, bucketed warp at
+   the 8 bucket-edge yaws ``7.5 + 45 k``, 500 m, over the 0.417 m/px
+   world (6816 px, rendered once on the host and shared with (b)),
+   learned_lg9 at 1088x1920 / 2048 keypoints / LightGlue-9: 8 of 8 valid
+   and within 10 m horizontally and vertically, each frame K1-K4 a
+   bucketed frame's plus its bucket refresh (8 yaws 45 degrees apart are
+   8 buckets, every one new to the 4-entry LRU); (b) exact warp at yaws
+   0-315 on the same world: 8 of 8, a pair frame's launches each; (c)
+   cached with a 30 m prior on the 1.36 m/px shape world: printed only;
+   (d) the appearance battery: learned_lg9 exact warp at 480x640 over the
+   shape world's 800-px map, 5 query transforms x yaws 30 and 135 (each
+   transform's generator ``default_rng(42)``): every fix valid and within
+   10 m; harris_lg5 cached under sun shadows printed only; (e) the
+   fractal world at harris_lg5's defaults (``make_deep_runner()``), yaws
+   15 and 135 on the 1024-px map, and (f) the field-boundary world,
+   learned_lg9 exact warp, yaws 15 and 135: every fix valid and within
+   10 m. Each section's host seconds (world renders included) and each
+   sweep's mean and max beside the JAX repository's records;
+26. the NMS cell-max stage on a frame-sized and a map-sized heatmap (the JAX
    package runs that kernel from its stage bench alone);
-26. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
+27. jpeg: the port's JPEG codec (``native/jpeg.cpp``, host C++, built here
    with g++) on seeded world crops, 800x800 grey (the map of ``run``'s
    480x640 camera) and 2208x2208 grey and BGR 4:2:0 (the map of a
    1088x1920 camera): host encode and decode ms p50 beside ``gis/png.py``'s
@@ -604,7 +626,7 @@ EXTRA_KEYS = ("device_ms", "host_ms", "attention_ms", "epilogue_ms",
               "path9_launches", "path11_launches", "path13_launches",
               "path14_launches", "path15_launches", "path16_launches",
               "path17_launches", "path18_launches", "path19_launches",
-              "path20_launches", "path21_launches",
+              "path20_launches", "path21_launches", "path22_launches",
               "backward_ms",
               "library_backward_ms",
               "step_backward_device_ms", "grad_max_rel_err",
@@ -7085,6 +7107,226 @@ def phase_bench_path(path1_frame_p50_ms=None) -> dict:
     return {"line": line, "launches": launches}
 
 
+ENVELOPE_DEVICE = "cuda"  # path 22's device; a CPU rehearsal sets "cpu"
+ENVELOPE_SWEEP = ["--alts", "500", "--world-gsd", "0.417"]
+ENVELOPE_BUCKET_YAWS = [7.5 + 45.0 * k for k in range(8)]  # bucket edges
+ENVELOPE_WARP_YAWS = [45.0 * k for k in range(8)]
+# the JAX repository's card records of the same sweeps, quoted (files
+# benchmarks/sweep_headline_bucketed.json, sweep_headline_warp.json and
+# sweep_cached_prior30.json): valid, within 10 m, mean and max metres
+ENVELOPE_JAX_RECORDS = {
+    "bucketed": {"valid": 8, "pass_10m": 8, "mean_horiz_m": 0.96,
+                 "max_horiz_m": 1.49},
+    "warp": {"valid": 8, "pass_10m": 8, "mean_horiz_m": 0.73,
+             "max_horiz_m": 1.75},
+    "cached_prior30": {"valid": 6, "pass_10m": 3, "mean_horiz_m": 15.84,
+                       "max_horiz_m": 35.57},
+}
+
+
+def _sweep_tool():
+    """``tools/sweep_headline_torch.py`` as a module of this process."""
+    import importlib.util
+
+    name = "sweep_headline_torch"
+    if name not in sys.modules:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tools", name + ".py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def _envelope_sweep(tool, tag: str, argv: list, world=None,
+                    per_frame: dict = None) -> dict:
+    """One sweep of the tool in this process: its summary, the launches of
+    each frame (the counts read after each pose), host seconds; with
+    ``per_frame`` every frame must launch exactly those kernels."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    args = tool.parse_args(argv + ["--device", ENVELOPE_DEVICE])
+    t0 = time.time()
+    reset_launches()
+    frames, frame_ms, last = [], [], dict(LAUNCHES)
+
+    def on_frame(row, ms):
+        frames.append({k: LAUNCHES[k] - last[k] for k in LAUNCHES})
+        frame_ms.append(ms)
+        last.update(LAUNCHES)
+
+    summary = tool.sweep(args, world, on_frame)
+    out = {"summary": summary, "launches": dict(LAUNCHES),
+           "frame_launches": frames, "frame_ms": frame_ms,
+           "s": round(time.time() - t0, 1)}
+    jax_rec = ENVELOPE_JAX_RECORDS[tag]
+    log(f"[envelope] {tag}: {summary['valid']}/{summary['poses']} valid, "
+        f"{summary['pass_10m']} within 10 m, mean "
+        f"{summary['mean_horiz_m']} m, max {summary['max_horiz_m']} m "
+        f"(the JAX repository's record: {jax_rec['valid']} valid, "
+        f"{jax_rec['pass_10m']} within 10 m, mean "
+        f"{jax_rec['mean_horiz_m']} m, max {jax_rec['max_horiz_m']} m); "
+        f"{_frame_ms_text(frame_ms)}; {out['s']} s on the host clock with "
+        f"the renders and the runner's captures")
+    if per_frame is not None:
+        want = {k: per_frame.get(k, 0) for k in LAUNCHES}
+        odd = [(i, n) for i, n in enumerate(frames) if n != want]
+        if odd:
+            raise RuntimeError(f"path 22 {tag}: frames launched {odd}, "
+                               f"expected {want} each")
+    return out
+
+
+def _frame_ms_text(ms: list) -> str:
+    """The first frame's host ms (its graph captures) and the others'."""
+    rest = ms[1:] or ms
+    return (f"frame host ms: first {ms[0]:.1f}, then p50 "
+            f"{np.median(rest):.2f} / max {max(rest):.2f}")
+
+
+def _envelope_fly(runner, ortho, dem, aff, k, frames, tag: str,
+                  **kw) -> list:
+    """Each (yaw, lon, lat, frame) through ``runner``: rows of (yaw, valid,
+    inliers, horizontal error m, host ms of the synchronised call),
+    logged."""
+    from gisnav_tpu_torch.geometry.crs import haversine_m
+    from gisnav_tpu_torch.pipeline.geopose import geopose_to_wgs84_f64
+
+    rows = []
+    for yaw, lon, lat, frame in frames:
+        t0 = time.perf_counter()
+        pose = runner(frame, ortho, dem, yaw, k, aff, **kw)
+        if ENVELOPE_DEVICE != "cpu":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        fix = geopose_to_wgs84_f64(pose, np.asarray(aff, np.float64))
+        horiz = haversine_m(lat, lon, fix["lat"], fix["lon"])
+        rows.append((yaw, bool(pose.valid), int(pose.num_inliers),
+                     round(float(horiz), 2), round(ms, 2)))
+        log(f"[envelope] {tag} yaw {yaw:6.1f}: valid={bool(pose.valid)} "
+            f"inliers={int(pose.num_inliers)} error={horiz:.2f} m "
+            f"{ms:.2f} ms")
+    return rows
+
+
+def _envelope_gate(tag: str, rows: list) -> None:
+    bad = [r for r in rows if not r[1] or not r[3] < 10.0]
+    if bad:
+        raise RuntimeError(f"path 22 {tag}: fixes invalid or over 10 m: "
+                           f"{bad} of {rows}")
+
+
+def phase_envelope_path() -> dict:
+    """Path 22: the JAX repository's accuracy battery on the port (see the
+    module docstring): the headline sweeps through the tool, then the
+    appearance, fractal and field-boundary gates through the runners."""
+    from gisnav_tpu_torch.kernels import LAUNCHES, reset_launches
+    from gisnav_tpu_torch.pipeline.runners import (make_cached_deep_runner,
+                                                   make_deep_runner)
+    from gisnav_tpu_torch.utils import envelope
+    from gisnav_tpu_torch.weights import load_bundled
+
+    t_path = time.time()
+    card = card_label()
+    tool = _sweep_tool()
+    out = {"card": card, "host_s": {}}
+    # (a) and (b): one render of the 0.417 m/px world
+    t0 = time.time()
+    world = tool.make_world(tool.parse_args(ENVELOPE_SWEEP))
+    out["host_s"]["matched_world"] = round(time.time() - t0, 1)
+    log(f"[envelope] matched world {world.img.shape} at {world.gsd_m} m/px "
+        f"rendered on the host in {out['host_s']['matched_world']} s")
+    refresh = {k: GRAPH_REFRESH.get(k, 0) for k in PATH1_KERNELS}
+    out["bucketed"] = _envelope_sweep(
+        tool, "bucketed", ENVELOPE_SWEEP + [
+            "--mode", "warp-bucketed", "--yaws",
+            *map(str, ENVELOPE_BUCKET_YAWS)], world, refresh)
+    # the exact warp's pair: SuperPoint twice, the dual LightGlue once
+    out["warp"] = _envelope_sweep(
+        tool, "warp", ENVELOPE_SWEEP + [
+            "--mode", "warp", "--yaws", *map(str, ENVELOPE_WARP_YAWS)],
+        world, refresh)
+    del world
+    for tag in ("bucketed", "warp"):
+        sm = out[tag]["summary"]
+        if not (sm["poses"] == sm["valid"] == sm["pass_10m"] == 8):
+            raise RuntimeError(f"path 22 {tag}: {sm['valid']} valid and "
+                               f"{sm['pass_10m']} within 10 m of "
+                               f"{sm['poses']}: {sm['rows']}")
+    # (c) cached with a 30 m prior on the legacy world: printed only
+    t0 = time.time()
+    out["cached_prior30"] = _envelope_sweep(
+        tool, "cached_prior30", ["--alts", "500", "--mode", "cached",
+                                 "--prior-m", "30"])
+    out["host_s"]["cached_prior30"] = round(time.time() - t0, 1)
+    # (d) the appearance battery
+    t0 = time.time()
+    ortho, dem, aff = envelope.appearance_map()
+    k_app = np.array([[400.0, 0, 320.0], [0, 400.0, 240.0], [0, 0, 1.0]],
+                     np.float32)
+    runner = make_deep_runner(*load_bundled("learned_lg9"),
+                              device=ENVELOPE_DEVICE)
+    reset_launches()
+    appearance = {}
+    for name in sorted(envelope.APPEARANCE):
+        frames = envelope.appearance_frames(envelope.APPEARANCE[name],
+                                            np.random.default_rng(42))
+        appearance[name] = _envelope_fly(
+            runner, ortho, dem, aff, k_app, frames, f"appearance {name}",
+            map_stamp=1, altitude_agl=envelope.ALT_M)
+    harris = make_cached_deep_runner(*load_bundled("harris_lg5"),
+                                     device=ENVELOPE_DEVICE)
+    frames = envelope.appearance_frames(envelope.sun_shadows,
+                                        np.random.default_rng(42))
+    out["appearance"] = {"rows": appearance, "harris_cached_sun_shadows":
+                         _envelope_fly(harris, ortho, dem, aff, k_app, frames,
+                                       "harris_lg5 cached sun_shadows "
+                                       "(printed only)", map_stamp=1,
+                                       altitude_agl=envelope.ALT_M),
+                         "launches": dict(LAUNCHES)}
+    out["host_s"]["appearance"] = round(time.time() - t0, 1)
+    del runner, harris
+    log("[envelope] appearance: " + _frame_ms_text(
+        [r[4] for rows in appearance.values() for r in rows]))
+    for name, rows in appearance.items():
+        _envelope_gate(f"appearance {name}", rows)
+    # (e) the fractal world at make_deep_runner()'s defaults (harris_lg5)
+    t0 = time.time()
+    ortho, dem, aff, frames = envelope.fractal_scene(envelope.fractal_world())
+    out["host_s"]["fractal_world"] = round(time.time() - t0, 1)
+    reset_launches()
+    rows = _envelope_fly(make_deep_runner(device=ENVELOPE_DEVICE), ortho,
+                         dem, aff, envelope.K_CAM, frames, "fractal",
+                         altitude_agl=envelope.ALT_M)
+    out["fractal"] = {"rows": rows, "launches": dict(LAUNCHES)}
+    out["host_s"]["fractal"] = round(time.time() - t0, 1)
+    _envelope_gate("fractal", rows)
+    # (f) the field-boundary world, learned_lg9 exact warp
+    t0 = time.time()
+    ortho, dem, aff, k, frames = envelope.field_scene(envelope.field_world())
+    out["host_s"]["field_world"] = round(time.time() - t0, 1)
+    reset_launches()
+    rows = _envelope_fly(make_deep_runner(*load_bundled("learned_lg9"),
+                                          device=ENVELOPE_DEVICE),
+                         ortho, dem, aff, k, frames, "field", map_stamp=1,
+                         altitude_agl=500.0)
+    out["field"] = {"rows": rows, "launches": dict(LAUNCHES)}
+    out["host_s"]["field"] = round(time.time() - t0, 1)
+    _envelope_gate("field", rows)
+    if "cv2" in sys.modules:
+        raise RuntimeError("path 22 imported cv2")
+    out["launches"] = {k: sum(out[tag]["launches"].get(k, 0) for tag in (
+        "bucketed", "warp", "cached_prior30", "appearance", "fractal",
+        "field")) for k in LAUNCHES}
+    out["s"] = round(time.time() - t_path, 1)
+    log(f"[envelope] {card}: host s {out['host_s']}, sweeps "
+        f"{ {t: out[t]['s'] for t in ('bucketed', 'warp', 'cached_prior30')} }"
+        f", {out['s']} s in all; launches {out['launches']}")
+    log("[envelope] " + json.dumps(out, default=str))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -7148,6 +7390,10 @@ def main(argv=None) -> int:
                          "damage of every fixture against cv2's digests, "
                          "run's graph behind a WMS that damages its "
                          "replies)")
+    ap.add_argument("--envelope", action="store_true",
+                    help="only drive path 22 (the JAX repository's accuracy "
+                         "battery: the headline bucket-edge sweep, exact "
+                         "warp, appearance, fractal and field worlds)")
     args = ap.parse_args(argv)
 
     t_start = time.time()
@@ -7207,6 +7453,10 @@ def main(argv=None) -> int:
     if args.damaged:
         phase_damaged_path()
         log(f"[phase] path 21 done at {time.time() - t_start:.1f} s")
+        return 0
+    if args.envelope:
+        phase_envelope_path()
+        log(f"[phase] path 22 done at {time.time() - t_start:.1f} s")
         return 0
     if args.deploy:
         phase_deploy_path()
@@ -7290,6 +7540,8 @@ def main(argv=None) -> int:
     log(f"[phase] path 20 done at {time.time() - t_start:.1f} s")
     damaged = phase_damaged_path()
     log(f"[phase] path 21 done at {time.time() - t_start:.1f} s")
+    envelope = phase_envelope_path()
+    log(f"[phase] path 22 done at {time.time() - t_start:.1f} s")
     # each kernel's count comes from the path that runs it
     counts = dict(main_path["launches"])
     counts["masked_attention"] = cached["module"]["launches"][
@@ -7313,6 +7565,7 @@ def main(argv=None) -> int:
             r["path19_launches"] = tiffx["flight"]["launches"][r["name"]]
             r["path20_launches"] = benched["launches"][r["name"]]
             r["path21_launches"] = damaged["flight"]["launches"][r["name"]]
+            r["path22_launches"] = envelope["launches"][r["name"]]
             r["path4_launches"] = sum(harris[m]["launches"][r["name"]]
                                       for m in ("cached", "bucketed",
                                                 "exact"))
@@ -7334,6 +7587,7 @@ def main(argv=None) -> int:
                 r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"[phase] all done: {time.time() - t_start:.1f} s in total")
     print(card_label(), flush=True)
     print(json.dumps({"kernels": [
         {**{k: r.get(k) for k in keys},

@@ -30,7 +30,8 @@ at OpenCV's defaults:
   libjpeg's stdio source reads it, an EOI marker after its last byte),
   re-exported here.
 - ``decode_jpeg_for_tiff`` decodes a TIFF strip's JPEG stream as libtiff's
-  JPEG codec asks libjpeg to (``gis/tiff.py``).
+  JPEG codec asks libjpeg to, after ``JPEGPreDecode``'s checks of its
+  component count and sampling (``gis/tiff.py``).
 """
 from __future__ import annotations
 
@@ -133,12 +134,60 @@ def decode_jpeg(data: bytes, grayscale: bool = False) -> Optional[np.ndarray]:
     return _decode(bytes(data), grayscale)[0]
 
 
-def decode_jpeg_for_tiff(data: bytes, ycbcr: bool) -> Optional[np.ndarray]:
+_SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD,
+        0xCE, 0xCF}
+
+
+def _sampling(data: bytes) -> Optional[list]:
+    """The (h, v) sampling factors of each component of a JPEG stream's
+    first frame header, its markers walked as libjpeg's ``next_marker``
+    walks them (bytes before an FF skipped, FF fill swallowed, FF 00
+    passed over); None if the stream holds no whole frame header."""
+    if data[:2] != b"\xff\xd8":
+        return None
+    at, n = 2, len(data)
+    while True:
+        while at < n and data[at] != 0xFF:
+            at += 1
+        while at < n and data[at] == 0xFF:
+            at += 1
+        if at >= n:
+            return None
+        marker = data[at]
+        at += 1
+        if marker == 0 or 0xD0 <= marker <= 0xD8 or marker == 0x01:
+            continue
+        if marker in (0xD9, 0xDA) or at + 2 > n:
+            return None
+        length = data[at] << 8 | data[at + 1]
+        if marker in _SOF:
+            if length < 8 or at + 8 > n:
+                return None
+            count = data[at + 7]
+            if at + 8 + 3 * count > n:
+                return None
+            return [(data[at + 9 + 3 * i] >> 4, data[at + 9 + 3 * i] & 15)
+                    for i in range(count)]
+        at += max(length, 2)
+
+
+def decode_jpeg_for_tiff(data: bytes, ycbcr: bool, sampling: tuple,
+                         components: int) -> Optional[np.ndarray]:
     """A TIFF strip's or tile's JPEG stream as libtiff's JPEG codec decodes
     it for ``TIFFReadRGBA*``: ``ycbcr``: YCbCr to RGB whatever the markers
     say (``JPEGCOLORMODE_RGB``), (H, W, 3) RGB; else the components as they
-    are (``JCS_UNKNOWN``), (H, W, C)."""
-    img = _decode(bytes(data), False, mode=_MODE_YCBCR if ycbcr
+    are (``JCS_UNKNOWN``), (H, W, C). None, as ``JPEGPreDecode`` fails it,
+    where the frame has other than ``components`` components or its first
+    component's sampling is not ``sampling`` (the file's YCbCrSubsampling
+    for contiguous YCbCr, else 1,1) or another component's not 1,1
+    ("Improper JPEG component count / sampling factors")."""
+    data = bytes(data)
+    factors = _sampling(data)
+    if factors and (
+            len(factors) != components or factors[0] != tuple(sampling)
+            or any(f != (1, 1) for f in factors[1:])):
+        return None
+    img = _decode(data, False, mode=_MODE_YCBCR if ycbcr
                   else _MODE_RAW)[0]
     if img is None or not ycbcr:
         return img

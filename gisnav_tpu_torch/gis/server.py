@@ -19,8 +19,9 @@ Start it with ``python -m gisnav_tpu_torch gis-serve`` or in-process via
 :class:`GisServer`. GetMap pastes the in-world crop at its true location
 and pads outside-world area with neutral gray — never stretches — so the
 raster<->CRS affine stays exact. The crop is resampled by
-:func:`area_resize`, OpenCV's ``INTER_AREA`` on f32 in numpy (overlap
-weights when shrinking, OpenCV's own two-tap weights when enlarging), and
+:func:`area_resize`, OpenCV's ``INTER_AREA`` on f32 in numpy (its
+overlap weights and float32 sums when shrinking, its own two-tap weights
+when enlarging), and
 truncated to the layer's dtype, as the JAX server does with ``cv2.resize``.
 
 GetMap answers ``image/jpeg`` (or a format naming ``jpg``) with
@@ -31,6 +32,7 @@ the JAX server does; the capabilities list both.
 from __future__ import annotations
 
 import json
+import math
 import re
 import sqlite3
 import threading
@@ -263,22 +265,62 @@ def _two_taps(n_out: int, n_in: int):
     return src, np.minimum(src + 1, n_in - 1), np.float32(1) - f, f
 
 
+def _area_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's ``computeResizeAreaTab`` along a shrinking axis as (n_out,
+    k) source indices and float32 weights, each output's taps in source
+    order (padded with weight 0): output d covers the source span [d s,
+    (d + 1) s), s = 1 / (n_out / n_in); a partial pixel at either end
+    weighs its overlap (if over 1e-3) over the cell width, every whole one
+    1 / cell width."""
+    s = 1.0 / (n_out / n_in)
+    rows = []
+    for d in range(n_out):
+        f1 = d * s
+        f2 = f1 + s
+        cell = min(s, n_in - f1)
+        s2 = min(math.floor(f2), n_in - 1)
+        s1 = min(math.ceil(f1), s2)
+        taps = []
+        if s1 - f1 > 1e-3:
+            taps.append((s1 - 1, (s1 - f1) / cell))
+        taps += [(i, 1.0 / cell) for i in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((n_out, k), np.int64)
+    wts = np.zeros((n_out, k), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (i, v) in enumerate(taps):
+            idx[d, j], wts[d, j] = i, v
+    return idx, wts
+
+
 def area_resize(a: np.ndarray, height: int, width: int) -> np.ndarray:
     """``cv2.resize(a.astype(np.float32), (width, height),
-    interpolation=cv2.INTER_AREA)`` in numpy: box averaging by overlap when
-    both axes shrink, OpenCV's two-tap weights on both axes otherwise."""
+    interpolation=cv2.INTER_AREA)`` in numpy. Where both axes shrink, as
+    OpenCV's ``ResizeArea_Invoker`` sums: along each row the products of
+    the pixels and their weights (:func:`_area_taps`) added in source order
+    in float32, then down the columns the same with the row weights (its
+    values exactly); else OpenCV's two-tap weights on both axes."""
     a = np.asarray(a, np.float32)
     h_in, w_in = a.shape
     if (h_in, w_in) == (height, width):
         return a.copy()
     if h_in >= height and w_in >= width:
-        return (overlap_weights(height, h_in) @ a
-                @ overlap_weights(width, w_in).T)
+        xi, xw = _area_taps(w_in, width)
+        yi, yw = _area_taps(h_in, height)
+        rows = np.zeros((h_in, width), np.float32)
+        for j in range(xi.shape[1]):
+            rows += a[:, xi[:, j]] * xw[:, j]
+        out = rows[yi[:, 0]] * yw[:, :1]
+        for j in range(1, yi.shape[1]):
+            out += rows[yi[:, j]] * yw[:, j:j + 1]
+        return out
     x0, x1, a0, a1 = _two_taps(width, w_in)
     y0, y1, b0, b1 = _two_taps(height, h_in)
     rows = a[:, x0] * a0 + a[:, x1] * a1
     return rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
-
 
 
 class _RasterLayer:

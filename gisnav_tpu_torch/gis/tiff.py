@@ -67,10 +67,15 @@ three contiguous ones, a predictor LZW or deflate cannot undo), and under
 ``IMREAD_UNCHANGED`` over 8 bits for a compression libtiff has no codec
 for or JPEG of other than 8 bits (their strips do not decode; under the
 RGBA reader they read as zero samples, as libtiff leaves its strip
-buffer). Still refused with ``ValueError`` naming the variant, where cv2
-reads the file: JPEG of a subsampled non-YCbCr image or of separate YCbCr
-planes, separate planes over 8 bits under ``IMREAD_UNCHANGED`` (cv2's
-pixels there are undefined).
+buffer). A JPEG strip or tile is held to ``JPEGPreDecode``'s checks: None
+where its stream has other than the file's component count (one a plane
+for separate planes) or its first component's sampling is not the file's
+YCbCrSubsampling (contiguous YCbCr) or 1,1 (any other photometric, or
+separate planes), as a subsampled stream under RGB is. Separate YCbCr
+planes read through libtiff's YCbCr tables at subsampling 1,1 and give
+None at any other ("can not handle"). Still refused with ``ValueError``
+naming the variant, where cv2 reads the file: separate planes over 8 bits
+under ``IMREAD_UNCHANGED`` (cv2's pixels there are undefined).
 
 Damaged files read as libtiff 4.7 under OpenCV's ``TiffDecoder`` reads
 them. The directory as ``TIFFReadDirectory`` reads it (``_DirReader``): a
@@ -865,7 +870,7 @@ class _Tiff:
             if self.inkset != 1 or spp < 4 or bits != 8:
                 return None
         elif ph == _YCBCR:
-            if bits != 8 or (self.compression != 7 and self.planar == 2 and
+            if bits != 8 or (self.planar == 2 and
                              self.subsampling != (1, 1)):
                 return None
         elif ph == _CIELAB:
@@ -1069,7 +1074,7 @@ class _Tiff:
         ``JPEGTables`` (SOI, tables, EOI) spliced in front of each stream;
         YCbCr to RGB as libtiff asks libjpeg (``JPEGCOLORMODE_RGB``), other
         kinds' components as they are."""
-        if self.planar != 1 and self.photometric != _RGB:
+        if self.planar != 1 and self.photometric not in (_RGB, _YCBCR):
             raise ValueError("TIFF JPEG with separate planes of photometric "
                              f"{self.photometric}")
         if self.bits != 8:
@@ -1095,7 +1100,11 @@ class _Tiff:
                 continue  # a later plane: TIFFReadEncodedStrip's zeros
             if tables and stream.startswith(b"\xff\xd8"):
                 stream = tables + stream[2:]
-            img = decode_jpeg_for_tiff(stream, ycbcr=ph == _YCBCR)
+            contig = self.planar == 1
+            img = decode_jpeg_for_tiff(
+                stream, ycbcr=contig and ph == _YCBCR,
+                sampling=self.subsampling if contig and ph == _YCBCR
+                else (1, 1), components=self.spp if contig else 1)
             if img is None:  # libjpeg's error in JPEGPreDecode / JPEGDecode
                 if not plane:
                     raise _NotRead(f"TIFF JPEG strip or tile {index} does "
@@ -1126,6 +1135,10 @@ class _Tiff:
             else:
                 raise ValueError(f"TIFF JPEG with photometric {ph} and "
                                  f"{img.shape[2]} components")
+        if self.planar == 2 and ph == _YCBCR:  # putseparate8bitYCbCr11tile
+            s = out[..., :3].astype(np.int64)
+            out[..., :3] = _ycbcr_to_rgb(s[..., 0], s[..., 1], s[..., 2],
+                                         self.luma, self.refbw)
         return out
 
 

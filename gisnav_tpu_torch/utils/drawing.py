@@ -26,9 +26,10 @@ and ``tests/test_torch_viz.py``:
   slope-correction tables and its end-point corrections, each pixel
   blended toward the colour twice with the same weight (as OpenCV 5.0
   does);
-- :func:`gaussian_blur_3x3`: ``GaussianBlur(img, (3, 3), sigma)`` on uint8,
-  the kernel in 8 fractional bits, the two passes in integers, a reflect-101
-  border and one rounding at the end.
+- :func:`gaussian_blur`: ``GaussianBlur(img, ksize, sigma)`` on uint8 (the
+  kernel in 8 fractional bits with OpenCV's error diffusion, the two
+  passes in integers, a reflect-101 border and one rounding at the end)
+  or float32 (its bit-exact taps, to a few ulp).
 
 They draw in place into a C-contiguous uint8 array, grey (H, W) with a
 grey level for colour or BGR (H, W, 3) with a (B, G, R) colour (the blur
@@ -43,7 +44,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["rectangle", "circle", "line", "gaussian_blur_3x3", "LINE_8",
+__all__ = ["rectangle", "circle", "line", "gaussian_blur", "LINE_8",
            "LINE_AA"]
 
 _SHIFT = 16  # drawing.cpp's XY_SHIFT: 16 fractional bits
@@ -311,10 +312,19 @@ def _circle_filled(img: np.ndarray, cx: int, cy: int, radius: int,
 def rectangle(img: np.ndarray, pt1, pt2, color, thickness: int) -> None:
     """``cv2.rectangle(img, pt1, pt2, color, thickness)`` with
     ``thickness=-1`` (filled): every pixel of the box between the corners,
-    both included."""
-    img = _canvas(img)
+    both included. Also on a grey float32 image, with a finite number for
+    colour."""
+    if isinstance(img, np.ndarray) and img.dtype == np.float32 and \
+            img.ndim == 2 and img.flags.c_contiguous and img.flags.writeable:
+        if not (isinstance(color, (int, float, np.integer, np.floating))
+                and math.isfinite(color)):
+            raise ValueError(f"color on a float image is a finite number, "
+                             f"not {color!r}")
+        color = float(color)
+    else:
+        img = _canvas(img)
+        color = _colour(color, img)
     (x1, y1), (x2, y2) = _point(pt1), _point(pt2)
-    color = _colour(color, img)
     if thickness != -1:
         raise ValueError("only a filled rectangle (thickness -1)")
     h, w = img.shape[:2]
@@ -448,26 +458,123 @@ def line(img: np.ndarray, pt1, pt2, color, thickness: int = 1,
                        radius, color)
 
 
-def _gaussian_taps(sigma: float) -> Tuple[int, int]:
-    """(side, centre) taps of OpenCV's 3-tap Gaussian in 8 fractional
-    bits: the side rounded from ``exp(-1 / (2 sigma^2))`` over the sum, the
-    centre what is left of 256 (sigma <= 0: ``[1, 2, 1] / 4``)."""
+# getGaussianKernelBitExact's kernels for sigma <= 0 (ksize 3, 5, 7)
+_SMALL_GAUSSIANS = {3: (0.25, 0.5, 0.25),
+                    5: (0.0625, 0.25, 0.375, 0.25, 0.0625),
+                    7: (0.03125, 0.109375, 0.21875, 0.28125, 0.21875,
+                        0.109375, 0.03125)}
+
+
+def _gaussian_kernel(n: int, sigma: float) -> np.ndarray:
+    """OpenCV's ``getGaussianKernelBitExact``: (n,) float64 taps of the
+    Gaussian at ``i - (n - 1) / 2``, ``exp(x^2 * (-0.125 / sigma^2))`` at
+    x = 2i - (n - 1), each multiplied by the reciprocal of their sum, the
+    centre tap that reciprocal itself (sigma <= 0: the binomial kernels of
+    3, 5 and 7 taps)."""
     if sigma <= 0:
-        return 64, 128
-    t = math.exp(-0.125 / (sigma * sigma) * 4.0)
-    side = round(t * (1.0 / (2.0 * t + 1.0)) * 256.0)
-    return side, 256 - 2 * side
+        if n not in _SMALL_GAUSSIANS:
+            raise ValueError(f"sigma <= 0 takes 3, 5 or 7 taps, not {n}")
+        return np.array(_SMALL_GAUSSIANS[n], np.float64)
+    scale = -0.125 / (sigma * sigma)
+    values = [math.exp(float(x * x) * scale) for x in range(1 - n, -1, 2)]
+    total = 0.0
+    for t in values:
+        total += t
+    total = total * 2.0 + 1.0
+    mul = 1.0 / total
+    taps = [t * mul for t in values]
+    return np.array(taps + [mul] + taps[::-1], np.float64)
 
 
-def gaussian_blur_3x3(img: np.ndarray, sigma: float) -> np.ndarray:
-    """``cv2.GaussianBlur(img, (3, 3), sigma)`` of a 2-D uint8 image."""
-    if not (isinstance(img, np.ndarray) and img.dtype == np.uint8
+def _gaussian_fixed(n: int, sigma: float) -> np.ndarray:
+    """``getGaussianKernelFixedPoint_ED``: the bit-exact taps in 8
+    fractional bits, each side tap rounded with the error of the ones
+    before it carried on, the centre what is left of 256."""
+    k = _gaussian_kernel(n, sigma)
+    half = n // 2
+    out = np.zeros(n, np.int32)
+    err = 0.0
+    for i in range(half):
+        adj = k[i] * 256.0 + err
+        v = round(adj)
+        err = adj - v
+        out[i] = out[n - 1 - i] = v
+    out[half] = 256 - 2 * int(out[:half].sum())
+    return out
+
+
+def _reflect101(a: np.ndarray, r: int, axis: int) -> np.ndarray:
+    """``a`` grown by ``r`` on each side of ``axis``, BORDER_REFLECT_101
+    (folded again where ``r`` exceeds the side)."""
+    n = a.shape[axis]
+    idx = np.arange(-r, n + r)
+    period = 2 * (n - 1) if n > 1 else 1
+    idx = np.abs(idx) % period
+    idx = np.where(idx >= n, period - idx, idx)
+    return np.take(a, idx, axis=axis)
+
+
+def _kernel_side(k: int, sigma: float, depth_factor: int) -> int:
+    """A side of 0 from sigma as ``createGaussianKernels`` sizes it:
+    ``cvRound(sigma * (3 for uint8, else 4) * 2 + 1) | 1``."""
+    if k > 0:
+        return k
+    if sigma <= 0:
+        raise ValueError("a kernel side of 0 needs sigma > 0")
+    return int(round(sigma * depth_factor * 2 + 1)) | 1
+
+
+def gaussian_blur(img: np.ndarray, ksize, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, ksize, sigma)`` of a 2-D uint8 or float32
+    image, BORDER_REFLECT_101 (a new array of the same type).
+
+    ``ksize`` (width, height), odd; 0 sizes it from sigma as OpenCV does
+    (3 sigma each side for uint8, 4 for float32). uint8 runs OpenCV's
+    bit-exact fixed point: taps in 8 fractional bits
+    (``getGaussianKernelFixedPoint_ED``), both passes in integers, one
+    rounding at the end. float32 takes the bit-exact taps rounded to
+    float32, each pass summed in float64 and rounded to float32 (OpenCV's
+    float filter sums in its own order: values within a few float32 ulp of
+    cv2's)."""
+    if not (isinstance(img, np.ndarray) and img.dtype in (np.uint8,
+                                                         np.float32)
             and img.ndim == 2 and min(img.shape) >= 2):
-        raise ValueError("blur a 2-D uint8 array of at least 2x2")
+        raise ValueError("blur a 2-D uint8 or float32 array of at least 2x2")
     if not isinstance(sigma, (int, float)) or not math.isfinite(sigma):
         raise ValueError(f"sigma is a finite number, not {sigma!r}")
-    side, centre = _gaussian_taps(float(sigma))
-    a = np.pad(img, 1, mode="reflect").astype(np.int32)  # reflect-101
-    rows = side * (a[:, :-2] + a[:, 2:]) + centre * a[:, 1:-1]
-    acc = side * (rows[:-2] + rows[2:]) + centre * rows[1:-1]
-    return ((acc + (1 << 15)) >> 16).astype(np.uint8)
+    try:
+        kw, kh = (int(v) for v in ksize)
+    except (TypeError, ValueError):
+        raise ValueError(f"ksize is (width, height), not {ksize!r}") from None
+    factor = 3 if img.dtype == np.uint8 else 4
+    kw = _kernel_side(kw, float(sigma), factor)
+    kh = _kernel_side(kh, float(sigma), factor)
+    if kw % 2 == 0 or kh % 2 == 0 or kw < 1 or kh < 1:
+        raise ValueError(f"kernel sides are odd and positive, not {kw}x{kh}")
+    if img.dtype == np.uint8:
+        kx, ky = _gaussian_fixed(kw, float(sigma)), _gaussian_fixed(
+            kh, float(sigma))
+        a = img.astype(np.int32)  # 255 * 256 * 256 fits
+    else:
+        kx = _gaussian_kernel(kw, float(sigma)).astype(np.float32).astype(
+            np.float64)
+        ky = _gaussian_kernel(kh, float(sigma)).astype(np.float32).astype(
+            np.float64)
+        a = img.astype(np.float64)
+
+    def one_pass(x, k, axis):
+        r = len(k) // 2
+        x = _reflect101(x, r, axis)
+        n = x.shape[axis] - 2 * r
+        acc = None
+        for i, tap in enumerate(k):
+            part = np.take(x, np.arange(i, i + n), axis=axis) * tap
+            acc = part if acc is None else acc + part
+        return acc
+
+    rows = one_pass(a, kx, 1)
+    if img.dtype == np.float32:
+        rows = rows.astype(np.float32).astype(np.float64)
+        return one_pass(rows, ky, 0).astype(np.float32)
+    acc = one_pass(rows, ky, 0)
+    return np.minimum((acc + (1 << 15)) >> 16, 255).astype(np.uint8)

@@ -26,8 +26,8 @@ from gisnav_tpu_torch.utils import drawing
 
 __all__ = ["Scene", "render_scene", "render_streams", "Flight",
            "render_flight", "synthetic_world", "synthetic_dem",
-           "DEMO_GEOREF", "cubic_taps", "resize_cubic",
-           "warp_perspective_u8"]
+           "DEMO_GEOREF", "cubic_taps", "resize_cubic", "resize_area_u8",
+           "resize_linear_u8", "warp_perspective_u8"]
 
 _LEFT, _TOP = -122.27, 37.53  # demo georeference (KSQL, San Carlos, CA)
 
@@ -158,30 +158,85 @@ def cubic_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
     return idx, np.stack([c0, c1, c2, c3], axis=1).astype(np.float32)
 
 
-def resize_cubic(a: np.ndarray, size: int) -> np.ndarray:
-    """``cv2.resize(a, (size, size), interpolation=INTER_CUBIC)`` of a
-    square float32 array: along each row first, then along each column,
-    each output the sum of its four float32 products taken in pairs (on
-    torch's CPU threads: each product and sum rounded on its own, as numpy
-    rounds them). OpenCV 5.0 hands this resize to Intel IPP, whose order of
-    rounding is its own: this gives its values to within a few ulp (1.2e-6
-    on unit noise), about half of them exactly."""
+def resize_cubic(a: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(a, (w, h), interpolation=INTER_CUBIC)`` of a float32
+    array to ``size``, (h, w) or one side of a square: along each row
+    first, then along each column, each output the sum of its four float32
+    products taken in pairs (on torch's CPU threads: each product and sum
+    rounded on its own, as numpy rounds them). OpenCV 5.0 hands this
+    resize to Intel IPP, whose order of rounding is its own: this gives
+    its values to within a few ulp (1.2e-6 on unit noise), about half of
+    them exactly."""
     import torch
 
+    h, w = (size, size) if np.ndim(size) == 0 else (int(v) for v in size)
     a = np.asarray(a, np.float32)
-    if a.shape == (size, size):
+    if a.shape == (h, w):
         return a.copy()
     t = torch.from_numpy(np.ascontiguousarray(a))
 
-    def taps(x, dim, n_in):
-        idx, c = (torch.from_numpy(v) for v in cubic_taps(n_in, size))
+    def taps(x, dim, n_in, n_out):
+        idx, c = (torch.from_numpy(v) for v in cubic_taps(n_in, n_out))
         c = c if dim == 1 else c[:, None, :]
         terms = [x.index_select(dim, idx[:, j]) * (c[..., j]) for j in
                  range(4)]
         return (terms[0] + terms[1]) + (terms[2] + terms[3])
 
-    rows = taps(t, 1, a.shape[1])
-    return taps(rows, 0, a.shape[0]).numpy()
+    rows = taps(t, 1, a.shape[1], w)
+    return taps(rows, 0, a.shape[0], h).numpy()
+
+
+def resize_area_u8(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``cv2.resize(a, (w, h), interpolation=INTER_AREA)`` of a uint8 image
+    that shrinks on both axes, byte for byte as OpenCV 5.0 computes it:
+    ``gis/server.py`` ``area_resize`` (OpenCV's float32 sums) rounded half
+    to even, as ``saturate_cast`` rounds them; a halving of both sides is
+    ``resizeAreaFast``'s integer mean, ``(sum + 2) >> 2``."""
+    from gisnav_tpu_torch.gis.server import area_resize
+
+    a = np.asarray(a, np.uint8)
+    if h > a.shape[0] or w > a.shape[1]:
+        raise ValueError(f"resize_area_u8 shrinks: {a.shape} -> {(h, w)}")
+    if a.shape == (2 * h, 2 * w):
+        s = a.astype(np.int32).reshape(h, 2, w, 2).sum((1, 3))
+        return ((s + 2) >> 2).astype(np.uint8)
+    return np.clip(np.rint(area_resize(a, h, w)), 0, 255).astype(np.uint8)
+
+
+def _linear_taps(n_in: int, n_out: int, clamp: bool):
+    """Source index pairs and weights of OpenCV's INTER_LINEAR on 8-bit
+    data along one axis: the position ``(d + 0.5) * s - 0.5`` (s = 1 /
+    (n_out / n_in), in float64, then float32) floored, both weights
+    rounded to 11 fractional bits. ``clamp`` (the x axis): a position off
+    either end takes that end's pixel at weight 1; else (the y axis) the
+    weights stay and the two rows clamp to the image."""
+    s = 1.0 / (n_out / n_in)
+    fx = ((np.arange(n_out) + 0.5) * s - 0.5).astype(np.float32)
+    sx = np.floor(fx).astype(np.int64)
+    f = fx - sx.astype(np.float32)
+    if clamp:
+        edge = (sx < 0) | (sx >= n_in - 1)
+        f = np.where(edge, np.float32(0), f)
+        sx = np.clip(sx, 0, n_in - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    return np.clip(sx, 0, n_in - 1), np.clip(sx + 1, 0, n_in - 1), w0, w1
+
+
+def resize_linear_u8(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``cv2.resize(a, (w, h), interpolation=INTER_LINEAR)`` of a uint8
+    image, byte for byte as OpenCV 5.0 computes it: weights in 11
+    fractional bits, the row pass in integers, the column pass as its SIMD
+    kernel (``VResizeLinearVec_32s8u``) rounds,
+    ``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16) + 2 >> 2``."""
+    a = np.asarray(a, np.uint8)
+    x0, x1, a0, a1 = _linear_taps(a.shape[1], w, True)
+    y0, y1, b0, b1 = _linear_taps(a.shape[0], h, False)
+    src = a.astype(np.int64)
+    rows = src[:, x0] * a0 + src[:, x1] * a1 >> 4
+    out = ((rows[y0] * b0[:, None] >> 16) + (rows[y1] * b1[:, None] >> 16)
+           + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def _invert3(m: np.ndarray) -> np.ndarray:
@@ -417,7 +472,7 @@ def synthetic_world(size_px: int = 4096, seed: int = 7,
             x2 = x + int(s * rng.uniform(-2, 2))
             y2 = y + int(s * rng.uniform(-2, 2))
             drawing.line(world, (x, y), (x2, y2), v, int(rng.integers(2, 8)))
-    return drawing.gaussian_blur_3x3(world, 0.8)
+    return drawing.gaussian_blur(world, (3, 3), 0.8)
 
 
 def synthetic_dem(size_px: int = 1024, seed: int = 11,

@@ -3,7 +3,7 @@
 tool against the JAX package's and OpenCV, on the CPU.
 
 - Drawing: ``rectangle`` and ``circle`` (filled, ``LINE_8``), ``line`` at
-  thickness 1-11 and ``gaussian_blur_3x3`` equal ``cv2.rectangle``,
+  thickness 1-11 and ``gaussian_blur`` (3x3) equal ``cv2.rectangle``,
   ``cv2.circle``, ``cv2.line`` and ``cv2.GaussianBlur(img, (3, 3), sigma)``
   pixel for pixel on seeded draws: shapes that cross the right and bottom
   edges, lines with ends off the image on every side (negative
@@ -120,7 +120,7 @@ def test_gaussian_blur_is_cv2(sigma, shape):
     rng = np.random.default_rng(int(sigma * 10) + shape[0])
     img = rng.integers(0, 256, shape).astype(np.uint8)
     want = cv2.GaussianBlur(img, (3, 3), sigma)
-    assert np.array_equal(drawing.gaussian_blur_3x3(img, sigma), want)
+    assert np.array_equal(drawing.gaussian_blur(img, (3, 3), sigma), want)
 
 
 def test_drawing_rejects_what_the_world_does_not_draw():
@@ -137,8 +137,8 @@ def test_drawing_rejects_what_the_world_does_not_draw():
             lambda: drawing.line(img.astype(np.float32), (0, 0), (3, 3), 1,
                                  2),
             lambda: drawing.line(img[:, ::2], (0, 0), (3, 3), 1, 2),
-            lambda: drawing.gaussian_blur_3x3(img.astype(np.int16), 0.8),
-            lambda: drawing.gaussian_blur_3x3(img, float("nan"))):
+            lambda: drawing.gaussian_blur(img.astype(np.int16), (3, 3), 0.8),
+            lambda: drawing.gaussian_blur(img, (3, 3), float("nan"))):
         with pytest.raises(ValueError):
             call()
 

@@ -1,8 +1,9 @@
 """Rules of the PyTorch/CUDA port that hold for the whole package.
 
 - No module of ``gisnav_tpu_torch``, and not ``chip_smoke.py`` nor a
-  ``tools/*_torch.py`` script, imports JAX, flax, OpenCV, ``requests`` or
-  anything of ``gisnav_tpu`` (checked on the syntax tree).
+  ``tools/*_torch.py`` script, imports JAX, flax, OpenCV, ``requests``,
+  anything of ``gisnav_tpu`` or the repository's tests (checked on the
+  syntax tree).
 - The entry points run on CUDA unless the caller asks for the CPU: without
   a card they raise instead of running on the CPU.
 - ``chip_smoke.py`` exits non-zero, with no result line, without a card.
@@ -21,7 +22,7 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gisnav_tpu", "cv2",
-             "requests", "PIL"}
+             "requests", "PIL", "tests"}
 
 
 def _port_files():
@@ -69,8 +70,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "replay.py", "gis/jpeg.py", "native/__init__.py",
         "gis/imgcodecs.py", "gis/coders.py", "gis/tiff.py", "gis/gif.py",
         "gis/bmp.py", "gis/pxm.py", "gis/sunras.py", "gis/hdr.py",
-        "utils/world.py", "utils/drawing.py")} | {
-        os.path.join("tools", "make_demo_geotiff_torch.py")} <= rel
+        "utils/world.py", "utils/drawing.py", "utils/envelope.py")} | {
+        os.path.join("tools", "make_demo_geotiff_torch.py"),
+        os.path.join("tools", "sweep_headline_torch.py")} <= rel
     bad = {(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN}
     assert not bad, sorted(bad)

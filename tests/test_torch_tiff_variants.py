@@ -25,8 +25,9 @@ dtypes; None exactly where cv2 gives None. Each file is read by
 - 10-, 12- and 14-bit samples: grey, RGB and RGBA, both byte orders,
   strips and tiles, none / LZW / deflate / PackBits, signed, MinIsWhite.
 - YCbCr 4x4 strips of every width 1-25; BMP V4 / V5 bitfields whose masks
-  are not whole bytes; JPEG-in-TIFF with separate planes and of 12 and 16
-  bits.
+  are not whole bytes; JPEG-in-TIFF with separate planes (RGB, YCbCr at
+  every subsampling) and of 12 and 16 bits, and streams whose component
+  count or sampling libtiff's ``JPEGPreDecode`` refuses.
 - CIELab (photometric 8) through libtiff's RGBA reader's
   ``TIFFCIELab16ToXYZ`` / ``TIFFXYZToRGB`` (the file's WhitePoint or D50,
   ``display_sRGB``): 8 and 16 bits, signed a*/b* (SampleFormat 2 gives
@@ -578,6 +579,66 @@ def test_jpeg_in_tiff_separate_planes_as_cv2(rps):
                       extra_tags=[(259, 3, [7])])
     assert _verdicts(data) == (True, True)
     _check(data, f"rps {rps}")
+
+
+_S420, _S422, _S444 = (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)
+# (photometric, YCbCrSubsampling or None, planar, stream sampling or None
+# for grey streams a plane, tiled, cv2 reads it)
+JPEG_SAMPLING = {
+    "rgb_420": (2, None, 1, _S420, False, False),
+    "rgb_422": (2, None, 1, _S422, False, False),
+    "rgb_444": (2, None, 1, _S444, False, True),
+    "rgb_420_tiles": (2, None, 1, _S420, True, False),
+    "ycbcr11_420": (6, (1, 1), 1, _S420, False, False),
+    "ycbcr11_444": (6, (1, 1), 1, _S444, False, True),
+    "ycbcr22_420": (6, (2, 2), 1, _S420, False, True),
+    "ycbcr22_422": (6, (2, 2), 1, _S422, False, False),
+    "ycbcr21_422": (6, (2, 1), 1, _S422, False, True),
+    "ycbcr_default_420_tiles": (6, None, 1, _S420, True, True),
+    "rgb_grey_stream": (2, None, 1, None, False, False),
+    "planar_rgb_colour_streams": (2, None, 2, _S444, False, False),
+    "planar_ycbcr11": (6, (1, 1), 2, None, False, True),
+    "planar_ycbcr11_tiles": (6, (1, 1), 2, None, True, True),
+    "planar_ycbcr22": (6, (2, 2), 2, None, False, False),
+    "planar_ycbcr_default": (6, None, 2, None, False, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JPEG_SAMPLING))
+def test_jpeg_in_tiff_sampling_as_cv2(name):
+    """JPEG-in-TIFF streams held to libtiff's ``JPEGPreDecode``: the
+    stream's component count and sampling against the file's (None where
+    they differ, which the port read before), and separate YCbCr planes
+    (read through the YCbCr tables at 1,1, which the port refused before;
+    None at any other subsampling)."""
+    ph, sub, planar, sf, tiled, reads = JPEG_SAMPLING[name]
+    r = _rng(name)
+    img = cv2.GaussianBlur(r.integers(0, 256, (32, 48, 3)).astype(np.uint8),
+                           (5, 5), 2)
+    blocks = [(y, x) for y in range(0, 32, 16) for x in range(0, 48, 16)] \
+        if tiled else [(0, 0)]
+    size = 16 if tiled else None
+
+    def enc(a, y, x):
+        if size:
+            a = a[y:y + size, x:x + size]
+        p = [] if sf is None else [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sf]
+        return cv2.imencode(".jpg", np.ascontiguousarray(a), p)[1].tobytes()
+
+    if planar == 1:
+        streams = [enc(img if sf is not None else img[..., 0], y, x)
+                   for y, x in blocks]
+    else:
+        streams = [enc(img if sf is not None else img[..., p], y, x)
+                   for p in range(3) for y, x in blocks]
+    tags = [(259, 3, [7])] + ([(530, 3, list(sub))] if sub else [])
+    data = write_tiff(np.zeros((32, 48, 3), np.uint8), photometric=ph,
+                      planar=planar, strips=streams,
+                      tile=(16, 16) if tiled else None, extra_tags=tags)
+    assert _verdicts(data) == (reads, reads)
+    _check(data, name)
 
 
 @pytest.mark.parametrize("bits", [12, 16])

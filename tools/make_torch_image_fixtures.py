@@ -15,7 +15,7 @@ digests. Needs OpenCV and Pillow (not on the card machine)::
     python tools/make_torch_image_fixtures.py [--out tests/data/torch_images]
         [--webp-out tests/data/torch_webp] [--jp2-out tests/data/torch_jp2]
         [--jpegx-out tests/data/torch_jpegx]
-        [--tiffx-out tests/data/torch_tiffx]
+        [--tiffx-out tests/data/torch_tiffx] [--tiffx-only]
         [--htj2k-out tests/data/torch_htj2k] [--htj2k-only]
         [--damaged-out tests/data/torch_damaged] [--damaged-only]
 
@@ -92,7 +92,9 @@ The TIFF variants set (``--tiffx-out``, its own ``digests.json``, under
 damage of a Group 4 and a Group 3 strip (a cut byte count), 10- to 14-bit
 samples, the codecs and pairings cv2 gives None for or reads as zeros,
 a predictor on uncompressed strips, 4x4 YCbCr strips of an odd width,
-JPEG-in-TIFF with separate planes, BMP bitfields that are not whole
+JPEG-in-TIFF with separate planes (RGB, and YCbCr at subsampling 1,1
+and 2,2), JPEG streams whose sampling libtiff refuses (4:2:0 and 4:2:2
+under RGB, 4:2:0 under YCbCrSubsampling 1,1), BMP bitfields that are not whole
 bytes; and the files of ``chip_smoke.py``'s path 19: the DEM layer its
 stub WMS serves (``dem_u16_zstd_2208.tif``, a 2208-px uint16 ZSTD
 GeoTIFF with predictor 2, cv2: None; and its float32 twin), and path
@@ -1010,6 +1012,21 @@ def tiffx_files() -> dict:
               for p in range(3)]
     files["jpeg_planar2.tif"] = write_tiff(
         rgb, planar=2, strips=planes, extra_tags=[(259, 3, [7])])
+    # JPEG streams whose sampling libtiff's JPEGPreDecode refuses (cv2:
+    # None), and separate YCbCr planes (read at 1,1, None at 2,2)
+    jpeg = [(259, 3, [7])]
+    for name, sub in (("420", cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420),
+                      ("422", cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422)):
+        files[f"jpeg_rgb_over_{name}.tif"] = write_tiff(
+            rgb, strips=[_cv2(".jpg", rgb, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                              sub)], extra_tags=jpeg)
+    files["jpeg_ycbcr11_over_420.tif"] = write_tiff(
+        rgb, photometric=6, strips=[_cv2(".jpg", rgb)],
+        extra_tags=jpeg + [(530, 3, [1, 1])])
+    for hs in (1, 2):
+        files[f"jpeg_ycbcr_planar{hs}{hs}.tif"] = write_tiff(
+            rgb, planar=2, photometric=6, strips=planes,
+            extra_tags=jpeg + [(530, 3, [hs, hs])])
     words = np.random.default_rng(22).integers(
         0, 2 ** 32, (13, 17), dtype=np.uint64).astype(np.uint32)
     files["bmp_v5_10_10_10_2.bmp"] = write_bmp(
@@ -1167,8 +1184,21 @@ def main() -> int:
     ap.add_argument("--damaged-only", action="store_true",
                     help="write only the damaged digests, from the "
                     "committed fixtures")
+    ap.add_argument("--tiffx-only", action="store_true",
+                    help="write only the TIFF variant set, then the "
+                    "damaged digests")
     args = ap.parse_args()
     data_dir = os.path.dirname(os.path.abspath(args.damaged_out))
+    if args.tiffx_only:
+        tiffx = tiffx_files()
+        total = write_set(args.tiffx_out, tiffx)
+        if total > TIFFX_SIZE_LIMIT:
+            raise SystemExit(f"the TIFF variant set takes {total} bytes, "
+                             f"over {TIFFX_SIZE_LIMIT}")
+        n = write_damaged(args.damaged_out, data_dir)
+        print(f"{len(tiffx)} TIFF variant fixtures, {total} bytes, in "
+              f"{args.tiffx_out}; {n} damaged decodes' digests")
+        return 0
     if args.damaged_only:
         n = write_damaged(args.damaged_out, data_dir)
         print(f"{n} damaged decodes' digests in {args.damaged_out}")
